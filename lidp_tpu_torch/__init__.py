@@ -1,0 +1,26 @@
+"""PyTorch/CUDA port of lidp_tpu's polarizable MD step (panel engine).
+
+The JAX package `lidp_tpu` stays the reference; this package mirrors its
+layout (units, box, topology, ops/, parallel/, models/) with PyTorch idiom:
+plain functions on tensors, the MD step as an `nn.Module` whose force-field
+tables are buffers, and the O(N^2) panel kernels as hand-written CUDA C++
+(`csrc/`, built at first use by `kernels/build.py`).
+
+Entry points run on the GPU unless the caller passes `device="cpu"`; on a
+machine without CUDA they raise instead of silently falling back.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device="cuda") -> torch.device:
+    """The device an entry point runs on; raises when CUDA is asked for
+    and absent (the CPU runs only when the caller says so)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run the "
+            "plain PyTorch path on the CPU")
+    return dev
