@@ -1,4 +1,7 @@
-// Shared pieces of the O(N^2) panel kernels (eind, pair_wolf, dipole).
+// Shared pieces of the O(N^2) panel kernels (eind, pair, wolf, dipole),
+// templated on the scalar type T: float for the f32 kernels, double for
+// their f64-grade twins (the *_df kernels of the TPU package are double-f32
+// only because its compiler has no f64; this card has native f64).
 //
 // Tiling (the classic N-body shape, replacing the TPU's sequential
 // (row-block, column-block) grid): one CTA owns ROWS rows; LANES adjacent
@@ -21,13 +24,30 @@ constexpr int TILE = THREADS;          // columns per shared-memory tile
 constexpr int NACC = 8;                // scalar partials per CTA
 constexpr unsigned FULL = 0xffffffffu;
 
-// minimum image d - L*round(d/L); rintf rounds half to even like jnp.round
-__device__ __forceinline__ float mi(float d, float L, float Linv) {
-  return d - L * rintf(d * Linv);
+// math functions by overload, so a double instantiation never drops to an
+// f32 routine
+__device__ __forceinline__ float rsqrt_(float v) { return rsqrtf(v); }
+__device__ __forceinline__ double rsqrt_(double v) { return rsqrt(v); }
+__device__ __forceinline__ float exp_(float v) { return expf(v); }
+__device__ __forceinline__ double exp_(double v) { return exp(v); }
+__device__ __forceinline__ float rint_(float v) { return rintf(v); }
+__device__ __forceinline__ double rint_(double v) { return rint(v); }
+__device__ __forceinline__ float max_(float a, float b) { return fmaxf(a, b); }
+__device__ __forceinline__ double max_(double a, double b) {
+  return fmax(a, b);
+}
+__device__ __forceinline__ int to_int(float v) { return __float2int_rn(v); }
+__device__ __forceinline__ int to_int(double v) { return __double2int_rn(v); }
+
+// minimum image d - L*round(d/L); rint rounds half to even like jnp.round
+template <typename T>
+__device__ __forceinline__ T mi(T d, T L, T Linv) {
+  return d - L * rint_(d * Linv);
 }
 
 // sum over the LANES threads of one row; lane 0 of the row holds the total
-__device__ __forceinline__ float row_sum(float v) {
+template <typename T>
+__device__ __forceinline__ T row_sum(T v) {
 #pragma unroll
   for (int off = LANES / 2; off > 0; off >>= 1)
     v += __shfl_down_sync(FULL, v, off, LANES);
@@ -36,20 +56,21 @@ __device__ __forceinline__ float row_sum(float v) {
 
 // CTA-wide sums of NACC per-thread scalars, in a fixed order, written to
 // partials[blockIdx.x * NACC + k].  Every thread of the CTA must call it.
-__device__ __forceinline__ void block_partials(const float (&v)[NACC],
-                                               float* __restrict__ partials) {
-  __shared__ float red[THREADS / 32][NACC];
+template <typename T>
+__device__ __forceinline__ void block_partials(const T (&v)[NACC],
+                                               T* __restrict__ partials) {
+  __shared__ T red[THREADS / 32][NACC];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 #pragma unroll
   for (int k = 0; k < NACC; ++k) {
-    float s = v[k];
+    T s = v[k];
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(FULL, s, off);
     if (lane == 0) red[warp][k] = s;
   }
   __syncthreads();
   if (threadIdx.x < NACC) {
-    float s = 0.f;
+    T s = T(0);
     for (int w = 0; w < THREADS / 32; ++w) s += red[w][threadIdx.x];
     partials[blockIdx.x * NACC + threadIdx.x] = s;
   }
@@ -57,14 +78,14 @@ __device__ __forceinline__ void block_partials(const float (&v)[NACC],
 
 // second stage: acc[k] = scale_k * sum_b partials[b, k], summed in block
 // order in double; scale_0 = s0, scale_k = s1 for k > 0
-__global__ void reduce_partials(const float* __restrict__ partials,
-                                int nblocks, float s0, float s1,
-                                float* __restrict__ acc) {
+template <typename T>
+__global__ void reduce_partials(const T* __restrict__ partials, int nblocks,
+                                T s0, T s1, T* __restrict__ acc) {
   const int k = threadIdx.x;
   if (k < NACC) {
     double s = 0.0;
     for (int b = 0; b < nblocks; ++b) s += partials[b * NACC + k];
-    acc[k] = static_cast<float>((k == 0 ? s0 : s1) * s);
+    acc[k] = static_cast<T>((k == 0 ? s0 : s1) * s);
   }
 }
 

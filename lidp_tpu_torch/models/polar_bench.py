@@ -15,6 +15,14 @@ forces are absent, so it runs a few dozen steps, not a trajectory.
     bench = build_synthetic()                  # on the GPU, float32
     f, energies = setup_forces(bench)
     f, per_step = run(bench, 20)               # 20 velocity-Verlet steps
+
+The host-driven evaluation (parallel/fast_polar.py HostPolarForces) runs
+the same step phase by phase; in float64 at polar_precision 1e-11 with the
+mixed-precision dipole solve it is the reference's own regime:
+
+    bench = build_synthetic(dtype=torch.float64, precision=1e-11)
+    f, energies = host_setup_forces(bench, mixed=True)
+    f, energies = host_cg_step(bench, mixed=True)
 """
 
 from __future__ import annotations
@@ -29,6 +37,7 @@ from lidp_tpu_torch.forcefield import ForceField
 from lidp_tpu_torch.ops import polarization as pol_ops
 from lidp_tpu_torch.ops.ewald import EwaldParams, setup_ewald_disp
 from lidp_tpu_torch.ops.pair import make_pair_params
+from lidp_tpu_torch.parallel.fast_polar import HostPolarForces
 from lidp_tpu_torch.parallel.shard import PolarStep, build_sharded_polar_step
 from lidp_tpu_torch.topology import special_lists
 
@@ -44,6 +53,12 @@ class PolarBench:
     arrays: dict
     natoms: int
     npad: int
+    # host-driven phase mode (make_host_phases, HostPolarForces)
+    phases: dict | None = None
+    settings: object = None
+    dt: float = 0.0
+    ftm2v: float = 1.0
+    hpf: HostPolarForces | None = None
 
 
 def synthetic_system(n_side: int = 15, spacing: float = 4.0, seed: int = 0):
@@ -83,10 +98,10 @@ def synthetic_system(n_side: int = 15, spacing: float = 4.0, seed: int = 0):
         eps=eps, sig=sig, cut=cut, cut_coul=CUT_COUL)
 
 
-def synthetic_forcefield(sysd: dict, dtype=torch.float32,
-                         device="cuda") -> ForceField:
+def synthetic_forcefield(sysd: dict, dtype=torch.float32, device="cuda",
+                         precision: float = 1e-6) -> ForceField:
     """The port's own force field for a synthetic_system dict: lj/cut +
-    coul/long, ewald/disp at accuracy 1e-4, CG SCF at 1e-6 with
+    coul/long, ewald/disp at accuracy 1e-4, CG SCF at `precision` with
     exponential damping and warm start."""
     u = units.REAL
     n = sysd["x"].shape[0]
@@ -98,7 +113,7 @@ def synthetic_forcefield(sysd: dict, dtype=torch.float32,
                             g_ewald=es.g_ewald, dtype=dtype, device=device)
     s = pol_ops.PolarizationSettings(
         iterations_max=50, damping_type=pol_ops.DAMPING_EXPONENTIAL,
-        polar_precision=1e-6, use_previous=True)
+        polar_precision=precision, use_previous=True)
     return ForceField(pair=pair,
                       ewald=EwaldParams.from_setup(es, u.qqr2e, dtype=dtype,
                                                    device=device),
@@ -108,16 +123,20 @@ def synthetic_forcefield(sysd: dict, dtype=torch.float32,
 def build_synthetic(n_side: int = 15, spacing: float = 4.0, seed: int = 0,
                     dtype=torch.float32, device="cuda", *,
                     ff: ForceField | None = None,
-                    panel: str = "kernel") -> PolarBench:
+                    panel: str = "kernel", precision: float = 1e-6,
+                    host_strips: int = 1) -> PolarBench:
     """The synthetic fluid on `device` (raises without CUDA unless given
     device="cpu").  ff: a force field to use instead of
     synthetic_forcefield's (e.g. tables carried across by convert.py);
-    panel: "kernel" (the CUDA kernels on a GPU) or "scan" (plain path)."""
+    panel: "kernel" (the CUDA kernels on a GPU) or "scan" (plain path);
+    precision: the SCF's polar_precision (of synthetic_forcefield's
+    settings); host_strips: row strips of the host phases kept in
+    `bench.phases`."""
     device = resolve_device(device)
     sysd = synthetic_system(n_side, spacing, seed)
     n = sysd["x"].shape[0]
     if ff is None:
-        ff = synthetic_forcefield(sysd, dtype, device)
+        ff = synthetic_forcefield(sysd, dtype, device, precision)
     u = units.REAL
     step = build_sharded_polar_step(None, ff, ff.polar, n=n, dt=DT,
                                     ftm2v=u.ftm2v, dtype=dtype, panel=panel,
@@ -138,7 +157,9 @@ def build_synthetic(n_side: int = 15, spacing: float = 4.0, seed: int = 0,
         mol=pad(sysd["mol"], 0, torch.int64), alpha=pad(sysd["alpha"]),
         mu=pad(np.zeros((n, 3))), mass=pad(sysd["mass"], 1.0),
         mask=pad(np.ones(n, bool), False, torch.bool))
-    return PolarBench(step=step, arrays=arrays, natoms=n, npad=npad)
+    return PolarBench(step=step, arrays=arrays, natoms=n, npad=npad,
+                      phases=step.make_host_phases(strips=host_strips),
+                      settings=ff.polar, dt=DT, ftm2v=u.ftm2v)
 
 
 def setup_forces(bench: PolarBench):
@@ -160,6 +181,58 @@ def run_step(bench: PolarBench):
         a["mu"], a["mass"], a["mask"])
     a["x"], a["v"], a["mu"], a["f"] = x, v, mu, f
     return f, energies
+
+
+def _host_forces(bench: PolarBench, mixed: bool) -> HostPolarForces:
+    """The bench's HostPolarForces, built once per `mixed`."""
+    if bench.hpf is None or bench.hpf.mixed != mixed:
+        bench.hpf = HostPolarForces(bench.phases, bench.settings,
+                                    bench.natoms, mixed=mixed)
+    return bench.hpf
+
+
+def host_setup_forces(bench: PolarBench, mixed: bool = False):
+    """setup_forces through the host-driven evaluation; returns (f,
+    energies), energies with scf_converged."""
+    a = bench.arrays
+    f, mu, energies = _host_forces(bench, mixed)(
+        a["x"], a["q"], a["type"], a["mol"], a["alpha"], a["mu"], a["mask"])
+    a["mu"], a["f"] = mu, f
+    return f, energies
+
+
+def host_cg_step(bench: PolarBench, zero_init: bool = False,
+                 mixed: bool = False):
+    """One velocity-Verlet step with the force + SCF evaluation driven from
+    the host phase by phase (HostPolarForces): the same math as run_step.
+    Without initial forces the first kick uses f = 0 (zero_init is kept for
+    the JAX signature; it has nothing to skip here).
+
+    mixed=True: mixed-precision iterative refinement for the float64 /
+    1e-11 regime.  B = I + sqrt(a) T sqrt(a) is symmetric positive definite
+    and strongly diagonally dominant, so refinement converges in 2-3 outer
+    passes: the O(N^2) matvecs run in float32 inside an inner CG and only
+    the outer residuals r = b - B y in float64.  The reference's per-sweep
+    dipole-change criterion (change/(3N) <= precision^2) is measured on the
+    refinement correction itself.
+
+    Returns (f, energies) like run_step, energies with scf_converged."""
+    a = bench.arrays
+    if "f" not in a:
+        a["f"] = torch.zeros_like(a["x"])
+    hpf = _host_forces(bench, mixed)
+    dtf = 0.5 * bench.dt * bench.ftm2v
+    mass, mask = a["mass"], a["mask"]
+    pos = mass > 0
+    minv = torch.where(pos, 1.0 / torch.where(pos, mass, 1.0), 0.0)
+    kick = (dtf * minv)[:, None]
+    v = torch.where(mask[:, None], a["v"] + kick * a["f"], 0.0)
+    x = a["x"] + bench.dt * v
+    f, mu, en = hpf(x, a["q"], a["type"], a["mol"], a["alpha"], a["mu"],
+                    mask)
+    v = torch.where(mask[:, None], v + kick * f, 0.0)
+    a["x"], a["v"], a["mu"], a["f"] = x, v, mu, f
+    return f, en
 
 
 # dipole history extrapolation coefficients for the SCF initial guess

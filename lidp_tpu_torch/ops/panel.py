@@ -1,20 +1,28 @@
 """O(N^2) panel kernels of the polarizable step: CUDA wrappers and their
 plain PyTorch versions.
 
-Counterparts of lidp_tpu/ops/pallas_panel.py's f32 kernels on the
-single-device panel path:
+Counterparts of lidp_tpu/ops/pallas_panel.py's kernels on the single-device
+panel path:
 
   * eind_panel      — E_ind = -T.mu, once per CG matvec   (pallas_panel.py:194)
   * pair_wolf_panel — LJ + coul/long pair forces fused with the Wolf static
                       field E0, once per step             (pallas_panel.py:1386)
   * dipole_panel    — charge-dipole + dipole-dipole forces, u_ef, u_dd,
                       pairwise virial rows, once per step (pallas_panel.py:1140)
+  * pair_panel      — the pair forces without E0; coul=False leaves LJ only
+                                                          (pallas_panel.py:1458)
+  * wolf_panel      — the Wolf static field E0 alone      (pallas_panel.py:993)
+  * eind_panel_df, pair_panel_df, dipole_panel_df — the f64-grade twins
+                      (pallas_panel.py:359, 640, 892): double-f32 emulation
+                      on the TPU, native float64 here
 
 Each wrapper keeps the JAX function's signature and returns, including the
 `cols=`/`row0=` strip form (rows are one strip of the atom axis, columns
-the full axis, row0 the strip's global offset).  On a CPU tensor it runs
-the plain version; on a CUDA tensor it launches the hand-written kernel in
-csrc/<name>.cu (float32 only) or raises — there is no fallback.  Each
+the full axis, row0 the strip's global offset; the `*_df` wrappers take it
+too).  On a CPU tensor it runs the plain version; on a CUDA tensor it
+launches the hand-written kernel in csrc/<name>.cu or raises — there is no
+fallback.  The f32 wrappers take float32 operands only and the `*_df` ones
+float64 only; the other dtype raises TypeError, nothing is cast.  Each
 counts its launches in `<wrapper>.launches`.
 
 The plain versions (`*_plain`) repeat the kernels' arithmetic (rsqrt then
@@ -106,16 +114,10 @@ def eind_panel_plain(x, alpha_eff, mu, L, pd, *, damping_type=DAMP_EXP,
     return out
 
 
-def pair_wolf_panel_plain(x, q, typef, mol, maskf, tabs, L, cut_coulsq,
-                          qqrd2e, g_ewald, sp=None, cols=None, row0=0, *,
-                          chunk=None):
-    """Dense LJ + coul/long pair panel fused with the Wolf static field.
-
-    Returns (f (nrows,3), evdwl, ecoul, vir6, e0 (nrows,3) UNSCALED — the
-    caller multiplies by sqrt(qqrd2e)).  tabs (5,T1,T1) = [lj3 lj4 offset
-    cut_ljsq cutsq]; the outer cutoff is the single max(tabs[4]).  sp
-    (nrows, S): special-neighbour global indices excluded from the LJ term
-    in-pass."""
+def _pair_plain(x, q, typef, mol, maskf, tabs, L, cut_coulsq, qqrd2e,
+                g_ewald, sp, cols, row0, chunk, coul, wolf):
+    """The pair panel's arithmetic: (f, evdwl, ecoul, vir6, e0 or None).
+    cols = (x, q, typef, mol or None, maskf) of the full axis."""
     xc, qc, tc, molc, mc = ((x, q, typef, mol, maskf) if cols is None
                             else cols)
     nrows = x.shape[0]
@@ -124,7 +126,7 @@ def pair_wolf_panel_plain(x, q, typef, mol, maskf, tabs, L, cut_coulsq,
     cutsq_u = torch.max(tabs[4])
     f_shift = -1.0 / cut_coulsq
     f = x.new_zeros((nrows, 3))
-    e0 = x.new_zeros((nrows, 3))
+    e0 = x.new_zeros((nrows, 3)) if wolf else None
     acc = x.new_zeros((8,))
     for c0, c1 in _col_chunks(xc.shape[0], chunk):
         dx, dy, dz, rsq = _geom(x, xc[c0:c1], L)
@@ -145,17 +147,22 @@ def pair_wolf_panel_plain(x, q, typef, mol, maskf, tabs, L, cut_coulsq,
         forcelj = torch.where(lj_mask,
                               r6inv * (12.0 * lj3 * r6inv - 6.0 * lj4), 0.0)
         evdwl = torch.where(lj_mask, r6inv * (lj3 * r6inv - lj4) - off, 0.0)
-        coul_mask = in_range & (rsq < cut_coulsq)
-        rinv = torch.rsqrt(rsq)
-        r = rsq * rinv
-        grij = g_ewald * r
-        expm2 = torch.exp(-grij * grij)
-        erfc = erfc_as(grij, expm2)
         qj = qc[None, c0:c1]
-        prefactor = qqrd2e * q[:, None] * qj * rinv
-        forcecoul = torch.where(
-            coul_mask, prefactor * (erfc + EWALD_F * grij * expm2), 0.0)
-        ecoul = torch.where(coul_mask, prefactor * erfc, 0.0)
+        if coul or wolf:
+            rinv = torch.rsqrt(rsq)
+        if coul:
+            coul_mask = in_range & (rsq < cut_coulsq)
+            r = rsq * rinv
+            grij = g_ewald * r
+            expm2 = torch.exp(-grij * grij)
+            erfc = erfc_as(grij, expm2)
+            prefactor = qqrd2e * q[:, None] * qj * rinv
+            forcecoul = torch.where(
+                coul_mask, prefactor * (erfc + EWALD_F * grij * expm2), 0.0)
+            ecoul = torch.where(coul_mask, prefactor * erfc, 0.0)
+        else:
+            forcecoul = torch.zeros_like(forcelj)
+            ecoul = torch.zeros_like(evdwl)
         fpair = (forcecoul + forcelj) * r2inv
         px, py, pz = fpair * dx, fpair * dy, fpair * dz
         f += torch.stack([px.sum(1), py.sum(1), pz.sum(1)], dim=1)
@@ -163,14 +170,83 @@ def pair_wolf_panel_plain(x, q, typef, mol, maskf, tabs, L, cut_coulsq,
             evdwl.sum(), ecoul.sum(), (px * dx).sum(), (py * dy).sum(),
             (pz * dz).sum(), (px * dy).sum(), (px * dz).sum(),
             (py * dz).sum()])
-        # Wolf static field, intermolecular only, <= cutoff
-        mi_, mj = mol[:, None], molc[None, c0:c1]
-        winc = pm & (rsq <= cut_coulsq) & ((mi_ != mj) | (mi_ == 0.0))
-        efq = torch.where(winc, (r2inv + f_shift) * rinv, 0.0) * qj
-        e0 += torch.stack([(efq * dx).sum(1), (efq * dy).sum(1),
-                           (efq * dz).sum(1)], dim=1)
+        if wolf:
+            # Wolf static field, intermolecular only, <= cutoff
+            mi_, mj = mol[:, None], molc[None, c0:c1]
+            winc = pm & (rsq <= cut_coulsq) & ((mi_ != mj) | (mi_ == 0.0))
+            efq = torch.where(winc, (r2inv + f_shift) * rinv, 0.0) * qj
+            e0 += torch.stack([(efq * dx).sum(1), (efq * dy).sum(1),
+                               (efq * dz).sum(1)], dim=1)
     acc = 0.5 * acc
     return f, acc[0], acc[1], acc[2:8], e0
+
+
+def pair_wolf_panel_plain(x, q, typef, mol, maskf, tabs, L, cut_coulsq,
+                          qqrd2e, g_ewald, sp=None, cols=None, row0=0, *,
+                          chunk=None):
+    """Dense LJ + coul/long pair panel fused with the Wolf static field.
+
+    Returns (f (nrows,3), evdwl, ecoul, vir6, e0 (nrows,3) UNSCALED — the
+    caller multiplies by sqrt(qqrd2e)).  tabs (5,T1,T1) = [lj3 lj4 offset
+    cut_ljsq cutsq]; the outer cutoff is the single max(tabs[4]).  sp
+    (nrows, S): special-neighbour global indices excluded from the LJ term
+    in-pass.  cols = (x, q, typef, mol, maskf)."""
+    return _pair_plain(x, q, typef, mol, maskf, tabs, L, cut_coulsq, qqrd2e,
+                       g_ewald, sp, cols, row0, chunk, True, True)
+
+
+def pair_panel_plain(x, q, typef, maskf, tabs, L, cut_coulsq, qqrd2e,
+                     g_ewald, sp=None, cols=None, row0=0, *, coul=True,
+                     chunk=None):
+    """Dense LJ (+ coul/long) pair panel: (f (nrows,3), evdwl, ecoul, vir6)
+    with half-weight tallies; coul=False leaves LJ only.
+    cols = (x, q, typef, maskf)."""
+    if cols is not None:
+        xc, qc, tc, mc = cols
+        cols = (xc, qc, tc, None, mc)
+    return _pair_plain(x, q, typef, None, maskf, tabs, L, cut_coulsq, qqrd2e,
+                       g_ewald, sp, cols, row0, chunk, coul, False)[:4]
+
+
+def pair_panel_df_plain(x, q, typef, maskf, tabs64, L, cut_coulsq, qqrd2e,
+                        g_ewald, sp=None, mol=None, cols=None, row0=0, *,
+                        chunk=None):
+    """The plain pair panel under pair_panel_df's signature: with mol the
+    return gains the unscaled Wolf field e0 as a 5th element and cols is
+    (x, q, typef, maskf, mol)."""
+    if mol is None:
+        return pair_panel_plain(x, q, typef, maskf, tabs64, L, cut_coulsq,
+                                qqrd2e, g_ewald, sp=sp, cols=cols, row0=row0,
+                                chunk=chunk)
+    if cols is not None:
+        xc, qc, tc, mc, molc = cols
+        cols = (xc, qc, tc, molc, mc)
+    return _pair_plain(x, q, typef, mol, maskf, tabs64, L, cut_coulsq,
+                       qqrd2e, g_ewald, sp, cols, row0, chunk, True, True)
+
+
+def wolf_panel_plain(x, q, mol, maskf, L, cut_coulsq, cols=None, row0=0, *,
+                     chunk=None):
+    """Damped-shifted (Wolf) static field E0, (nrows, 3), UNSCALED: pairs
+    with rsq <= cut_coulsq between different molecules (or mol_i == 0).
+    cols = (x, q, mol, maskf)."""
+    xc, qc, molc, mc = (x, q, mol, maskf) if cols is None else cols
+    nrows = x.shape[0]
+    f_shift = -1.0 / cut_coulsq
+    e0 = x.new_zeros((nrows, 3))
+    mi_ = mol[:, None]
+    for c0, c1 in _col_chunks(xc.shape[0], chunk):
+        dx, dy, dz, rsq = _geom(x, xc[c0:c1], L)
+        inc = (_not_self(nrows, row0, c0, c1, x.device)
+               & (mc[None, c0:c1] != 0.0) & (rsq <= cut_coulsq)
+               & ((mi_ != molc[None, c0:c1]) | (mi_ == 0.0)))
+        rsq = torch.where(inc, rsq, 1.0)
+        rinv = torch.rsqrt(rsq)
+        efq = torch.where(inc, (rinv * rinv + f_shift) * rinv, 0.0) \
+            * qc[None, c0:c1]
+        e0 += torch.stack([(efq * dx).sum(1), (efq * dy).sum(1),
+                           (efq * dz).sum(1)], dim=1)
+    return e0
 
 
 def dipole_panel_plain(x, q, mol, alpha_eff, mu, maskf, L, pd, cut_coulsq,
@@ -262,15 +338,21 @@ def dipole_panel_plain(x, q, mol, alpha_eff, mu, maskf, L, pd, cut_coulsq,
     return fpol, acc[0], acc[1], acc[2:8]
 
 
+# the f64-grade names: the plain versions are dtype-generic
+eind_panel_df_plain = eind_panel_plain
+dipole_panel_df_plain = dipole_panel_plain
+
+
 # ------------------------------ CUDA path -------------------------------
 
-_CTYPES = {"P": ctypes.c_void_p, "I": ctypes.c_int, "F": ctypes.c_float}
+_CTYPES = {"P": ctypes.c_void_p, "I": ctypes.c_int, "F": ctypes.c_float,
+           "D": ctypes.c_double}
 
 
 @functools.lru_cache(maxsize=None)
 def _cfn(name: str, sig: str):
     """The C entry lidp_<name> of lib<name>.so, with argtypes from `sig`
-    (P pointer, I int, F float)."""
+    (P pointer, I int, F float, D double)."""
     from lidp_tpu_torch.kernels import build
 
     fn = getattr(build.library(name), f"lidp_{name}")
@@ -288,22 +370,17 @@ def _launch(name, sig, device, *args):
                            f"{err}")
 
 
-def _check(name, *ts):
-    """The kernels take contiguous float32 tensors on one CUDA device."""
+def _check(name, dtype, *ts):
+    """The kernels take contiguous tensors of their own dtype (float32 for
+    the f32 kernels, float64 for the *_df ones) on one CUDA device."""
     dev = ts[0].device
     if dev.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {dev}")
     for t in ts:
         if t.device != dev:
             raise ValueError(f"{name}: operands on {dev} and {t.device}")
-        if t.dtype == torch.float64:
-            raise NotImplementedError(
-                f"{name}: float64 on CUDA needs the fp64 panel kernels "
-                "(eind_panel_df, pair_panel_df, dipole_panel_df), which are "
-                "ported in a later slice; use panel='scan' for the plain "
-                "float64 path")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: expected float32, got {t.dtype}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: operands must be contiguous")
 
@@ -322,6 +399,30 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _scalar_code(dtype):
+    """ctypes code of a kernel's scalar arguments."""
+    return "F" if dtype == torch.float32 else "D"
+
+
+def _eind_cuda(wrapper, dtype, x, alpha_eff, mu, L, pd, damping_type, cols,
+               row0):
+    name = wrapper.__name__
+    xc, ac, muc = (x, alpha_eff, mu) if cols is None else cols
+    nrows, npad = x.shape[0], xc.shape[0]
+    _check(name, dtype, x, alpha_eff, xc, ac, muc, L)
+    _check_shapes(name, (x, (nrows, 3)), (alpha_eff, (nrows,)),
+                  (xc, (npad, 3)), (ac, (npad,)), (muc, (npad, 3)),
+                  (L, (3,)))
+    out = torch.empty((nrows, 3), dtype=dtype, device=x.device)
+    _launch(name, f"PPIIPPPIP{_scalar_code(dtype)}IPP", x.device,
+            x.data_ptr(), alpha_eff.data_ptr(), nrows, int(row0),
+            xc.data_ptr(), ac.data_ptr(), muc.data_ptr(), npad,
+            L.data_ptr(), float(pd), int(damping_type), out.data_ptr(),
+            _stream(x))
+    wrapper.launches += 1
+    return out
+
+
 def eind_panel(x, alpha_eff, mu, L, pd, *, damping_type=DAMP_EXP,
                cols=None, row0=0):
     """E_ind = -T.mu; (nrows, 3) out (csrc/eind_panel.cu on CUDA)."""
@@ -329,23 +430,82 @@ def eind_panel(x, alpha_eff, mu, L, pd, *, damping_type=DAMP_EXP,
         return eind_panel_plain(x, alpha_eff, mu, L, pd,
                                 damping_type=damping_type, cols=cols,
                                 row0=row0)
-    xc, ac, muc = (x, alpha_eff, mu) if cols is None else cols
-    nrows, npad = x.shape[0], xc.shape[0]
-    _check("eind_panel", x, alpha_eff, xc, ac, muc, L)
-    _check_shapes("eind_panel", (x, (nrows, 3)), (alpha_eff, (nrows,)),
-                  (xc, (npad, 3)), (ac, (npad,)), (muc, (npad, 3)),
-                  (L, (3,)))
-    out = torch.empty((nrows, 3), dtype=torch.float32, device=x.device)
-    _launch("eind_panel", "PPIIPPPIPFIPP", x.device,
-            x.data_ptr(), alpha_eff.data_ptr(), nrows, int(row0),
-            xc.data_ptr(), ac.data_ptr(), muc.data_ptr(), npad,
-            L.data_ptr(), float(pd), int(damping_type), out.data_ptr(),
-            _stream(x))
-    eind_panel.launches += 1
-    return out
+    return _eind_cuda(eind_panel, torch.float32, x, alpha_eff, mu, L, pd,
+                      damping_type, cols, row0)
 
 
 eind_panel.launches = 0
+
+
+def eind_panel_df(x, alpha_eff, mu, L, pd, *, damping_type=DAMP_EXP,
+                  cols=None, row0=0):
+    """E_ind = -T.mu at f64 grade: float64 operands (csrc/eind_panel_df.cu
+    on CUDA)."""
+    if x.device.type == "cpu":
+        return eind_panel_df_plain(x, alpha_eff, mu, L, pd,
+                                   damping_type=damping_type, cols=cols,
+                                   row0=row0)
+    return _eind_cuda(eind_panel_df, torch.float64, x, alpha_eff, mu, L, pd,
+                      damping_type, cols, row0)
+
+
+eind_panel_df.launches = 0
+
+
+def _pair_cuda(wrapper, dtype, x, q, typef, mol, maskf, tabs, L, cut_coulsq,
+               qqrd2e, g_ewald, sp, cols, row0, coul, wolf):
+    """Checks, output buffers and launch of the three pair kernels; cols =
+    (x, q, typef, mol or None, maskf).  Returns (f, evdwl, ecoul, vir6, e0
+    or None)."""
+    name = wrapper.__name__
+    xc, qc, tc, molc, mc = ((x, q, typef, mol, maskf) if cols is None
+                            else cols)
+    nrows, npad = x.shape[0], xc.shape[0]
+    mols = (mol, molc) if wolf else ()
+    _check(name, dtype, x, q, typef, xc, qc, tc, mc, tabs, L, *mols)
+    _check_shapes(name, (x, (nrows, 3)), (q, (nrows,)), (typef, (nrows,)),
+                  (xc, (npad, 3)), (qc, (npad,)), (tc, (npad,)),
+                  (mc, (npad,)), (L, (3,)),
+                  *((m, (k,)) for m, k in zip(mols, (nrows, npad))))
+    if tabs.dim() != 3 or tabs.shape[0] != 5 \
+            or tabs.shape[1] != tabs.shape[2] or tabs.shape[1] > MAX_T1:
+        raise ValueError(f"{name}: tabs must be (5, T1, T1) with "
+                         f"T1 <= {MAX_T1}, got {tuple(tabs.shape)}")
+    t1 = tabs.shape[1]
+    S = 0
+    sp_ptr = None
+    if sp is not None:
+        sp = sp.to(device=x.device, dtype=torch.int32).contiguous()
+        S = sp.shape[1]
+        if sp.shape[0] != nrows or S > MAX_S:
+            raise ValueError(f"{name}: sp must be (nrows, S<={MAX_S}), got "
+                             f"{tuple(sp.shape)}")
+        sp_ptr = sp.data_ptr() if S else None
+    nb = -(-nrows // ROWS_PER_CTA)
+    f = torch.empty((nrows, 3), dtype=dtype, device=x.device)
+    e0 = torch.empty_like(f) if wolf else None
+    partials = torch.empty((nb, 8), dtype=dtype, device=x.device)
+    acc = torch.empty((8,), dtype=dtype, device=x.device)
+    c = _scalar_code(dtype)
+    scalars = (float(cut_coulsq), float(qqrd2e), float(g_ewald))
+    if name == "pair_panel":
+        _launch(name, f"PPPPIIIPPPPIPIP{c}{c}{c}IPPPP", x.device,
+                x.data_ptr(), q.data_ptr(), typef.data_ptr(), sp_ptr, S,
+                nrows, int(row0), xc.data_ptr(), qc.data_ptr(),
+                tc.data_ptr(), mc.data_ptr(), npad, tabs.data_ptr(), t1,
+                L.data_ptr(), *scalars, int(bool(coul)), f.data_ptr(),
+                partials.data_ptr(), acc.data_ptr(), _stream(x))
+    else:
+        _launch(name, f"PPPPPIIIPPPPPIPIP{c}{c}{c}PPPPP", x.device,
+                x.data_ptr(), q.data_ptr(), typef.data_ptr(),
+                mol.data_ptr() if wolf else None, sp_ptr, S, nrows,
+                int(row0), xc.data_ptr(), qc.data_ptr(), tc.data_ptr(),
+                molc.data_ptr() if wolf else None, mc.data_ptr(), npad,
+                tabs.data_ptr(), t1, L.data_ptr(), *scalars, f.data_ptr(),
+                e0.data_ptr() if wolf else None, partials.data_ptr(),
+                acc.data_ptr(), _stream(x))
+    wrapper.launches += 1
+    return f, acc[0], acc[1], acc[2:8], e0
 
 
 def pair_wolf_panel(x, q, typef, mol, maskf, tabs, L, cut_coulsq, qqrd2e,
@@ -357,46 +517,107 @@ def pair_wolf_panel(x, q, typef, mol, maskf, tabs, L, cut_coulsq, qqrd2e,
         return pair_wolf_panel_plain(x, q, typef, mol, maskf, tabs, L,
                                      cut_coulsq, qqrd2e, g_ewald, sp=sp,
                                      cols=cols, row0=row0)
-    xc, qc, tc, molc, mc = ((x, q, typef, mol, maskf) if cols is None
-                            else cols)
-    nrows, npad = x.shape[0], xc.shape[0]
-    _check("pair_wolf_panel", x, q, typef, mol, xc, qc, tc, molc, mc, tabs,
-           L)
-    _check_shapes("pair_wolf_panel", (x, (nrows, 3)), (q, (nrows,)),
-                  (typef, (nrows,)), (mol, (nrows,)), (xc, (npad, 3)),
-                  (qc, (npad,)), (tc, (npad,)), (molc, (npad,)),
-                  (mc, (npad,)), (L, (3,)))
-    if tabs.dim() != 3 or tabs.shape[0] != 5 \
-            or tabs.shape[1] != tabs.shape[2] or tabs.shape[1] > MAX_T1:
-        raise ValueError(f"pair_wolf_panel: tabs must be (5, T1, T1) with "
-                         f"T1 <= {MAX_T1}, got {tuple(tabs.shape)}")
-    t1 = tabs.shape[1]
-    S = 0
-    sp_ptr = None
-    if sp is not None:
-        sp = sp.to(device=x.device, dtype=torch.int32).contiguous()
-        S = sp.shape[1]
-        if sp.shape[0] != nrows or S > MAX_S:
-            raise ValueError(f"pair_wolf_panel: sp must be (nrows, S<="
-                             f"{MAX_S}), got {tuple(sp.shape)}")
-        sp_ptr = sp.data_ptr() if S else None
-    nb = -(-nrows // ROWS_PER_CTA)
-    f = torch.empty((nrows, 3), dtype=torch.float32, device=x.device)
-    e0 = torch.empty_like(f)
-    partials = torch.empty((nb, 8), dtype=torch.float32, device=x.device)
-    acc = torch.empty((8,), dtype=torch.float32, device=x.device)
-    _launch("pair_wolf_panel", "PPPPPIIIPPPPPIPIPFFFPPPPP", x.device,
-            x.data_ptr(), q.data_ptr(), typef.data_ptr(), mol.data_ptr(),
-            sp_ptr, S, nrows, int(row0), xc.data_ptr(), qc.data_ptr(),
-            tc.data_ptr(), molc.data_ptr(), mc.data_ptr(), npad,
-            tabs.data_ptr(), t1, L.data_ptr(), float(cut_coulsq),
-            float(qqrd2e), float(g_ewald), f.data_ptr(), e0.data_ptr(),
-            partials.data_ptr(), acc.data_ptr(), _stream(x))
-    pair_wolf_panel.launches += 1
-    return f, acc[0], acc[1], acc[2:8], e0
+    return _pair_cuda(pair_wolf_panel, torch.float32, x, q, typef, mol,
+                      maskf, tabs, L, cut_coulsq, qqrd2e, g_ewald, sp, cols,
+                      row0, True, True)
 
 
 pair_wolf_panel.launches = 0
+
+
+def pair_panel(x, q, typef, maskf, tabs, L, cut_coulsq, qqrd2e, g_ewald,
+               sp=None, cols=None, row0=0, *, coul=True):
+    """LJ (+ coul/long) pair panel without the Wolf field (see
+    pair_panel_plain; csrc/pair_panel.cu on CUDA)."""
+    if x.device.type == "cpu":
+        return pair_panel_plain(x, q, typef, maskf, tabs, L, cut_coulsq,
+                                qqrd2e, g_ewald, sp=sp, cols=cols, row0=row0,
+                                coul=coul)
+    if cols is not None:
+        xc, qc, tc, mc = cols
+        cols = (xc, qc, tc, None, mc)
+    return _pair_cuda(pair_panel, torch.float32, x, q, typef, None, maskf,
+                      tabs, L, cut_coulsq, qqrd2e, g_ewald, sp, cols, row0,
+                      coul, False)[:4]
+
+
+pair_panel.launches = 0
+
+
+def pair_panel_df(x, q, typef, maskf, tabs64, L, cut_coulsq, qqrd2e, g_ewald,
+                  sp=None, mol=None, cols=None, row0=0):
+    """LJ + coul/long pair panel at f64 grade: float64 operands
+    (csrc/pair_panel_df.cu on CUDA).  Returns (f, evdwl, ecoul, vir6); with
+    mol (nrows,) the fused Wolf static field e0 (nrows, 3), UNSCALED, is a
+    5th element.  cols = (x, q, typef, maskf[, mol])."""
+    if x.device.type == "cpu":
+        return pair_panel_df_plain(x, q, typef, maskf, tabs64, L, cut_coulsq,
+                                   qqrd2e, g_ewald, sp=sp, mol=mol,
+                                   cols=cols, row0=row0)
+    wolf = mol is not None
+    if cols is not None:
+        xc, qc, tc, mc = cols[:4]
+        cols = (xc, qc, tc, cols[4] if wolf else None, mc)
+    out = _pair_cuda(pair_panel_df, torch.float64, x, q, typef, mol, maskf,
+                     tabs64, L, cut_coulsq, qqrd2e, g_ewald, sp, cols, row0,
+                     True, wolf)
+    return out if wolf else out[:4]
+
+
+pair_panel_df.launches = 0
+
+
+def wolf_panel(x, q, mol, maskf, L, cut_coulsq, cols=None, row0=0):
+    """Damped-shifted (Wolf) static field E0, (nrows, 3), UNSCALED (see
+    wolf_panel_plain; csrc/wolf_panel.cu on CUDA).  q is read through the
+    columns only, as in the TPU kernel."""
+    if x.device.type == "cpu":
+        return wolf_panel_plain(x, q, mol, maskf, L, cut_coulsq, cols=cols,
+                                row0=row0)
+    xc, qc, molc, mc = (x, q, mol, maskf) if cols is None else cols
+    nrows, npad = x.shape[0], xc.shape[0]
+    _check("wolf_panel", torch.float32, x, mol, xc, qc, molc, mc, L)
+    _check_shapes("wolf_panel", (x, (nrows, 3)), (mol, (nrows,)),
+                  (xc, (npad, 3)), (qc, (npad,)), (molc, (npad,)),
+                  (mc, (npad,)), (L, (3,)))
+    out = torch.empty((nrows, 3), dtype=torch.float32, device=x.device)
+    _launch("wolf_panel", "PPIIPPPPIPFPP", x.device, x.data_ptr(),
+            mol.data_ptr(), nrows, int(row0), xc.data_ptr(), qc.data_ptr(),
+            molc.data_ptr(), mc.data_ptr(), npad, L.data_ptr(),
+            float(cut_coulsq), out.data_ptr(), _stream(x))
+    wolf_panel.launches += 1
+    return out
+
+
+wolf_panel.launches = 0
+
+
+def _dipole_cuda(wrapper, dtype, x, q, mol, alpha_eff, mu, maskf, L, pd,
+                 cut_coulsq, qqrd2e, damping_type, cols, row0):
+    name = wrapper.__name__
+    xc, qc, molc, ac, muc, mc = ((x, q, mol, alpha_eff, mu, maskf)
+                                 if cols is None else cols)
+    nrows, npad = x.shape[0], xc.shape[0]
+    _check(name, dtype, x, q, mol, alpha_eff, mu, xc, qc, molc, ac, muc, mc,
+           L)
+    _check_shapes(name, (x, (nrows, 3)), (q, (nrows,)), (mol, (nrows,)),
+                  (alpha_eff, (nrows,)), (mu, (nrows, 3)), (xc, (npad, 3)),
+                  (qc, (npad,)), (molc, (npad,)), (ac, (npad,)),
+                  (muc, (npad, 3)), (mc, (npad,)), (L, (3,)))
+    nb = -(-nrows // ROWS_PER_CTA)
+    f = torch.empty((nrows, 3), dtype=dtype, device=x.device)
+    partials = torch.empty((nb, 8), dtype=dtype, device=x.device)
+    acc = torch.empty((8,), dtype=dtype, device=x.device)
+    c = _scalar_code(dtype)
+    _launch(name, f"PPPPPIIPPPPPPIP{c}{c}{c}IPPPP", x.device,
+            x.data_ptr(), q.data_ptr(), mol.data_ptr(),
+            alpha_eff.data_ptr(), mu.data_ptr(), nrows, int(row0),
+            xc.data_ptr(), qc.data_ptr(), molc.data_ptr(), ac.data_ptr(),
+            muc.data_ptr(), mc.data_ptr(), npad, L.data_ptr(), float(pd),
+            float(cut_coulsq), math.sqrt(qqrd2e), int(damping_type),
+            f.data_ptr(), partials.data_ptr(), acc.data_ptr(), _stream(x))
+    wrapper.launches += 1
+    return f, acc[0], acc[1], acc[2:8]
 
 
 def dipole_panel(x, q, mol, alpha_eff, mu, maskf, L, pd, cut_coulsq, qqrd2e,
@@ -408,29 +629,31 @@ def dipole_panel(x, q, mol, alpha_eff, mu, maskf, L, pd, cut_coulsq, qqrd2e,
                                   cut_coulsq, qqrd2e,
                                   damping_type=damping_type, cols=cols,
                                   row0=row0)
-    xc, qc, molc, ac, muc, mc = ((x, q, mol, alpha_eff, mu, maskf)
-                                 if cols is None else cols)
-    nrows, npad = x.shape[0], xc.shape[0]
-    _check("dipole_panel", x, q, mol, alpha_eff, mu, xc, qc, molc, ac, muc,
-           mc, L)
-    _check_shapes("dipole_panel", (x, (nrows, 3)), (q, (nrows,)),
-                  (mol, (nrows,)), (alpha_eff, (nrows,)), (mu, (nrows, 3)),
-                  (xc, (npad, 3)), (qc, (npad,)), (molc, (npad,)),
-                  (ac, (npad,)), (muc, (npad, 3)), (mc, (npad,)),
-                  (L, (3,)))
-    nb = -(-nrows // ROWS_PER_CTA)
-    f = torch.empty((nrows, 3), dtype=torch.float32, device=x.device)
-    partials = torch.empty((nb, 8), dtype=torch.float32, device=x.device)
-    acc = torch.empty((8,), dtype=torch.float32, device=x.device)
-    _launch("dipole_panel", "PPPPPIIPPPPPPIPFFFIPPPP", x.device,
-            x.data_ptr(), q.data_ptr(), mol.data_ptr(),
-            alpha_eff.data_ptr(), mu.data_ptr(), nrows, int(row0),
-            xc.data_ptr(), qc.data_ptr(), molc.data_ptr(), ac.data_ptr(),
-            muc.data_ptr(), mc.data_ptr(), npad, L.data_ptr(), float(pd),
-            float(cut_coulsq), math.sqrt(qqrd2e), int(damping_type),
-            f.data_ptr(), partials.data_ptr(), acc.data_ptr(), _stream(x))
-    dipole_panel.launches += 1
-    return f, acc[0], acc[1], acc[2:8]
+    return _dipole_cuda(dipole_panel, torch.float32, x, q, mol, alpha_eff,
+                        mu, maskf, L, pd, cut_coulsq, qqrd2e, damping_type,
+                        cols, row0)
 
 
 dipole_panel.launches = 0
+
+
+def dipole_panel_df(x, q, mol, alpha_eff, mu, maskf, L, pd, cut_coulsq,
+                    qqrd2e, *, damping_type=DAMP_EXP, cols=None, row0=0):
+    """Charge-dipole + dipole-dipole forces at f64 grade: float64 operands
+    (csrc/dipole_panel_df.cu on CUDA); returns as dipole_panel."""
+    if x.device.type == "cpu":
+        return dipole_panel_df_plain(x, q, mol, alpha_eff, mu, maskf, L, pd,
+                                     cut_coulsq, qqrd2e,
+                                     damping_type=damping_type, cols=cols,
+                                     row0=row0)
+    return _dipole_cuda(dipole_panel_df, torch.float64, x, q, mol, alpha_eff,
+                        mu, maskf, L, pd, cut_coulsq, qqrd2e, damping_type,
+                        cols, row0)
+
+
+dipole_panel_df.launches = 0
+
+# every wrapper that launches a kernel, by name
+WRAPPERS = {w.__name__: w for w in (
+    eind_panel, pair_wolf_panel, dipole_panel, pair_panel, wolf_panel,
+    eind_panel_df, pair_panel_df, dipole_panel_df)}

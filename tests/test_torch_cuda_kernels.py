@@ -5,8 +5,11 @@ the GPU.  Marked `cuda`: they skip without a CUDA device.  On a GPU host
     python -m pytest --noconftest -p no:cacheprovider -m cuda \
         tests/test_torch_cuda_kernels.py
 
-Tolerances as in chip_smoke.py: per-row outputs rtol 1e-4,
-atol 1e-5*max|ref|, scalars rel 1e-4 (float32 sums in another order).
+Tolerances as in chip_smoke.py: float32 kernels per-row rtol 1e-4,
+atol 1e-5*max|ref|, scalars rel 1e-4 (float32 sums in another order);
+float64 (`*_df`) kernels per-row rtol 1e-9, atol 1e-11*max|ref|, scalars
+rel 1e-10 — a double kernel that dropped to float32 anywhere misses that
+by four orders.
 """
 
 import numpy as np
@@ -26,9 +29,9 @@ def dev():
     return torch.device("cuda")
 
 
-def _case(dev, n=1000, npad=1024, L=28.0, seed=5):
+def _case(dev, dtype=torch.float32, n=1000, npad=1024, L=28.0, seed=5):
     """Ragged rows, masked atoms, alpha=0 atoms, 3-atom molecules with
-    special lists; float32 on `dev`."""
+    special lists; `dtype` on `dev`."""
     rng = np.random.RandomState(seed)
     side = int(np.ceil(n ** (1 / 3)))
     g = np.stack(np.meshgrid(*[np.arange(side)] * 3, indexing="ij"),
@@ -57,9 +60,9 @@ def _case(dev, n=1000, npad=1024, L=28.0, seed=5):
     sp = np.full((npad, 8), n, np.int32)
     sp[:, 0], sp[:, 1] = base + (k + 1) % 3, base + (k + 2) % 3
     sp[(sp >= n) | (i[:, None] >= n)] = n
-    t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)  # noqa
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=dev)  # noqa
     sysd = polar_bench.synthetic_system(2)
-    ff = polar_bench.synthetic_forcefield(sysd, torch.float32, dev)
+    ff = polar_bench.synthetic_forcefield(sysd, dtype, dev)
     p = ff.pair
     tabs = torch.stack([p.lj3, p.lj4, p.offset, p.cut_ljsq, p.cutsq])
     return dict(x=t(x), q=t(q), type=t(typ), mol=t(mol), mask=t(mask),
@@ -70,19 +73,29 @@ def _case(dev, n=1000, npad=1024, L=28.0, seed=5):
 def _close(got, ref):
     got = got if isinstance(got, tuple) else (got,)
     ref = ref if isinstance(ref, tuple) else (ref,)
+    f64 = got[0].dtype == torch.float64
+    rtol, atol, srel = (1e-9, 1e-11, 1e-10) if f64 else (1e-4, 1e-5, 1e-4)
     for g, r in zip(got, ref):
+        assert g.dtype == r.dtype
         g, r = g.double().cpu().numpy(), r.double().cpu().numpy()
         if g.ndim == 2:
-            np.testing.assert_allclose(g, r, rtol=1e-4,
-                                       atol=1e-5 * np.abs(r).max())
+            np.testing.assert_allclose(g, r, rtol=rtol,
+                                       atol=atol * np.abs(r).max())
         else:
             np.testing.assert_allclose(g, r, rtol=0,
-                                       atol=1e-4 * np.abs(r).max())
+                                       atol=srel * np.abs(r).max())
 
 
-def _calls(c, rows):
-    """{kernel: (wrapper, plain, args, kwargs)}; rows: None for the full
-    panel, else a slice: a row strip against all columns, row0 = start."""
+KERNELS = ["eind", "pair_wolf", "dipole", "pair", "pair_lj", "wolf",
+           "eind_df", "pair_df", "pair_wolf_df", "dipole_df"]
+
+
+def _calls(dev, kernel, rows):
+    """(wrapper, plain, args, kwargs) of one kernel on the case of its
+    dtype; rows: None for the full panel, else a slice: a row strip against
+    all columns, row0 = start."""
+    df = kernel.endswith("_df")
+    c = _case(dev, torch.float64 if df else torch.float32)
     s, p = c["s"], c["pair"]
     r = slice(None) if rows is None else rows
 
@@ -90,30 +103,48 @@ def _calls(c, rows):
         kw = {} if rows is None else dict(cols=cols, row0=rows.start)
         return [a[r] for a in cols], kw
 
-    e_args, e_kw = strip(c["x"], c["alpha"], c["mu"])
-    pw_args, pw_kw = strip(c["x"], c["q"], c["type"], c["mol"], c["mask"])
-    dp_args, dp_kw = strip(c["x"], c["q"], c["mol"], c["alpha"], c["mu"],
-                           c["mask"])
-    return {
-        "eind": (panel.eind_panel, panel.eind_panel_plain,
-                 (*e_args, c["L"], s.polar_damp),
-                 dict(damping_type=s.damping_type, **e_kw)),
-        "pair_wolf": (panel.pair_wolf_panel, panel.pair_wolf_panel_plain,
-                      (*pw_args, c["tabs"], c["L"], p.cut_coulsq, p.qqrd2e,
-                       p.g_ewald),
-                      dict(sp=c["sp"][r], **pw_kw)),
-        "dipole": (panel.dipole_panel, panel.dipole_panel_plain,
-                   (*dp_args, c["L"], s.polar_damp, p.cut_coulsq, p.qqrd2e),
-                   dict(damping_type=s.damping_type, **dp_kw)),
-    }
+    pair_tail = (c["tabs"], c["L"], p.cut_coulsq, p.qqrd2e, p.g_ewald)
+    damp = dict(damping_type=s.damping_type)
+    if kernel in ("eind", "eind_df"):
+        args, kw = strip(c["x"], c["alpha"], c["mu"])
+        fns = ((panel.eind_panel_df, panel.eind_panel_df_plain) if df
+               else (panel.eind_panel, panel.eind_panel_plain))
+        return (*fns, (*args, c["L"], s.polar_damp), dict(**damp, **kw))
+    if kernel in ("dipole", "dipole_df"):
+        args, kw = strip(c["x"], c["q"], c["mol"], c["alpha"], c["mu"],
+                         c["mask"])
+        fns = ((panel.dipole_panel_df, panel.dipole_panel_df_plain) if df
+               else (panel.dipole_panel, panel.dipole_panel_plain))
+        return (*fns, (*args, c["L"], s.polar_damp, p.cut_coulsq, p.qqrd2e),
+                dict(**damp, **kw))
+    if kernel == "pair_wolf":
+        args, kw = strip(c["x"], c["q"], c["type"], c["mol"], c["mask"])
+        return (panel.pair_wolf_panel, panel.pair_wolf_panel_plain,
+                (*args, *pair_tail), dict(sp=c["sp"][r], **kw))
+    if kernel == "wolf":
+        args, kw = strip(c["x"], c["q"], c["mol"], c["mask"])
+        return (panel.wolf_panel, panel.wolf_panel_plain,
+                (*args, c["L"], p.cut_coulsq), kw)
+    if kernel == "pair_wolf_df":
+        args, kw = strip(c["x"], c["q"], c["type"], c["mask"], c["mol"])
+        return (panel.pair_panel_df, panel.pair_panel_df_plain,
+                (*args[:4], *pair_tail),
+                dict(sp=c["sp"][r], mol=args[4], **kw))
+    args, kw = strip(c["x"], c["q"], c["type"], c["mask"])
+    if kernel == "pair_df":
+        return (panel.pair_panel_df, panel.pair_panel_df_plain,
+                (*args, *pair_tail), dict(sp=c["sp"][r], **kw))
+    # pair: with the special lists; pair_lj: LJ only, without them
+    extra = dict(sp=c["sp"][r]) if kernel == "pair" else dict(coul=False)
+    return (panel.pair_panel, panel.pair_panel_plain, (*args, *pair_tail),
+            dict(**extra, **kw))
 
 
-@pytest.mark.parametrize("kernel", ["eind", "pair_wolf", "dipole"])
+@pytest.mark.parametrize("kernel", KERNELS)
 @pytest.mark.parametrize("rows", [None, slice(96, 544)],
                          ids=["full", "strip"])
 def test_kernel_matches_plain(dev, kernel, rows):
-    c = _case(dev)
-    wrapper, plain, args, kw = _calls(c, rows)[kernel]
+    wrapper, plain, args, kw = _calls(dev, kernel, rows)
     before = wrapper.launches
     got = wrapper(*args, **kw)
     torch.cuda.synchronize()
@@ -121,25 +152,101 @@ def test_kernel_matches_plain(dev, kernel, rows):
     _close(got, plain(*args, **kw))
 
 
-def test_kernels_are_deterministic(dev):
+@pytest.mark.parametrize("kernel", KERNELS)
+def test_kernels_are_deterministic(dev, kernel):
     """Per-CTA partials are summed in block order: repeated launches give
     bit-identical outputs."""
-    c = _case(dev)
-    for wrapper, _, args, kw in _calls(c, None).values():
-        a, b = wrapper(*args, **kw), wrapper(*args, **kw)
-        a = a if isinstance(a, tuple) else (a,)
-        b = b if isinstance(b, tuple) else (b,)
-        for x, y in zip(a, b):
-            assert torch.equal(x, y)
+    wrapper, _, args, kw = _calls(dev, kernel, None)
+    a, b = wrapper(*args, **kw), wrapper(*args, **kw)
+    a = a if isinstance(a, tuple) else (a,)
+    b = b if isinstance(b, tuple) else (b,)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
 
 
-def test_float64_on_cuda_raises(dev):
-    c = _case(dev)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        panel.eind_panel(c["x"].double(), c["alpha"].double(),
-                         c["mu"].double(), c["L"].double(), 2.1304)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        polar_bench.build_synthetic(4, dtype=torch.float64)
+@pytest.mark.parametrize("kernel", KERNELS)
+def test_wrong_dtype_raises(dev, kernel):
+    """float64 into an f32 wrapper and float32 into a *_df wrapper raise
+    TypeError: nothing is cast and nothing falls back."""
+    wrapper, _, args, kw = _calls(dev, kernel, None)
+    other = (torch.float32 if kernel.endswith("_df") else torch.float64)
+
+    def flip(a):
+        return a.to(other) if torch.is_tensor(a) and a.is_floating_point() \
+            else a
+
+    kw = {k: flip(v) for k, v in kw.items()}
+    before = wrapper.launches
+    with pytest.raises(TypeError, match="expected torch.float"):
+        wrapper(*[flip(a) for a in args], **kw)
+    assert wrapper.launches == before
+
+
+def test_float64_build_runs_on_cuda(dev):
+    """A float64 build on the GPU goes through the f64-grade kernels and
+    agrees with the plain float64 path."""
+    names = ("pair_panel_df", "eind_panel_df", "dipole_panel_df")
+    before = {k: panel.WRAPPERS[k].launches for k in names}
+    bench = polar_bench.build_synthetic(4, dtype=torch.float64,
+                                        precision=1e-11)
+    f, en = polar_bench.setup_forces(bench)
+    for k in names:
+        assert panel.WRAPPERS[k].launches > before[k], k
+    ref = polar_bench.build_synthetic(4, dtype=torch.float64,
+                                      precision=1e-11, panel="scan")
+    rf, ren = polar_bench.setup_forces(ref)
+    assert abs(en["scf_iters"] - ren["scf_iters"]) <= 1
+    for k in ("evdwl", "ecoul", "elong"):
+        assert float(en[k]) == pytest.approx(float(ren[k]), rel=1e-10)
+    assert float(en["epol"]) == pytest.approx(float(ren["epol"]), rel=1e-8)
+    np.testing.assert_allclose(f.cpu().numpy(), rf.cpu().numpy(), rtol=0,
+                               atol=1e-8 * rf.abs().max().item())
+
+
+def test_float64_lj_only_kernel_build_raises_on_cuda(dev):
+    """No f64-grade LJ-only kernel exists: a float64 kernel build of an
+    LJ-only table on the GPU raises instead of running the plain version;
+    panel="scan" is the plain path."""
+    import dataclasses
+
+    from lidp_tpu_torch.parallel import shard
+
+    sysd = polar_bench.synthetic_system(4)
+    ff = polar_bench.synthetic_forcefield(sysd, torch.float64, dev)
+    ff = dataclasses.replace(ff, pair=dataclasses.replace(ff.pair,
+                                                          coul=False),
+                             ewald=None)
+    kw = dict(n=3 * 4**3, dt=0.5, ftm2v=1.0, dtype=torch.float64, device=dev)
+    with pytest.raises(NotImplementedError, match="panel='scan'"):
+        shard.build_sharded_polar_step(None, ff, None, panel="kernel", **kw)
+    shard.build_sharded_polar_step(None, ff, None, panel="scan", **kw)
+
+
+@pytest.mark.parametrize("mixed", [False, True])
+def test_float64_strips_run_kernels_on_cuda(dev, mixed):
+    """Row strips of a float64 build go through the f64-grade kernels with
+    cols=/row0= and agree with the whole block."""
+    names = ("pair_panel_df", "eind_panel_df", "dipole_panel_df")
+    out = []
+    for strips in (1, 4):
+        bench = polar_bench.build_synthetic(4, dtype=torch.float64,
+                                            precision=1e-11,
+                                            host_strips=strips)
+        before = {k: panel.WRAPPERS[k].launches for k in names}
+        f, en = polar_bench.host_setup_forces(bench, mixed=mixed)
+        grew = {k: panel.WRAPPERS[k].launches - before[k] for k in names}
+        assert grew["pair_panel_df"] == strips
+        assert grew["dipole_panel_df"] == strips
+        assert grew["eind_panel_df"] >= strips and \
+            grew["eind_panel_df"] % strips == 0
+        assert en["scf_converged"]
+        out.append((f, en))
+    (f1, en1), (f4, en4) = out
+    assert en1["scf_iters"] == en4["scf_iters"]
+    for k in ("evdwl", "ecoul", "elong", "epol"):
+        assert float(en4[k]) == pytest.approx(float(en1[k]), rel=1e-10)
+    np.testing.assert_allclose(f4.cpu().numpy(), f1.cpu().numpy(), rtol=1e-9,
+                               atol=1e-9 * f1.abs().max().item())
 
 
 def test_step_through_kernels_matches_plain(dev):

@@ -1,7 +1,11 @@
 """The port's panel functions (lidp_tpu_torch/ops/panel.py) against the JAX
 Pallas kernels (lidp_tpu/ops/pallas_panel.py, interpret mode on the CPU)
-on the same numpy inputs, and the port's float64 plain versions against
-dense numpy float64 sums.
+on the same numpy inputs, the port's float64 plain versions against dense
+numpy float64 sums, and the f64-grade (`*_df`) functions against the JAX
+package's XLA-f64 column-chunk functions, reached through the host phases
+of a float64 panel="scan" build (per-row atol 1e-11*max, scalars rel
+1e-11; the df32 interpret output holds only f32 grade on the CPU and is no
+reference).
 
 On the CPU the wrappers run their plain versions; the CUDA kernels are held
 against those plain versions on the GPU by chip_smoke.py.
@@ -186,6 +190,87 @@ def test_pair_wolf_matches_jax(name, strip):
     _check_pair_wolf(got, ref)
 
 
+# ------------------------------ pair, wolf ------------------------------
+
+def _pair_args(c, conv):
+    return (conv(c["x"]), conv(c["q"]), conv(c["type"]), conv(c["mask"]),
+            conv(_tabs()), conv(c["L"]), CUT_COULSQ, QQRD2E, G_EWALD)
+
+
+@pytest.mark.parametrize("name", ["lattice", "sp"])
+@pytest.mark.parametrize("coul", [True, False])
+@pytest.mark.parametrize("strip", [False, True])
+def test_pair_matches_jax(name, coul, strip):
+    c = _case(**CASES[name])
+    aj = _pair_args(c, _j)
+    at = _pair_args(c, _t)
+    spj = None if c["sp"] is None else jnp.asarray(c["sp"])
+    spt = None if c["sp"] is None else torch.as_tensor(c["sp"])
+    if strip:
+        s = STRIP
+        ref = pallas_panel.pair_panel(
+            *[a[s] for a in aj[:4]], *aj[4:],
+            sp=None if spj is None else spj[s], cols=tuple(aj[:4]),
+            row0=s.start, coul=coul)
+        got = panel.pair_panel(
+            *[a[s] for a in at[:4]], *at[4:],
+            sp=None if spt is None else spt[s], cols=tuple(at[:4]),
+            row0=s.start, coul=coul)
+        full = panel.pair_panel(*at, sp=spt, coul=coul)
+        np.testing.assert_array_equal(got[0].numpy(), full[0][s].numpy())
+    else:
+        ref = pallas_panel.pair_panel(*aj, sp=spj, coul=coul)
+        got = panel.pair_panel(*at, sp=spt, coul=coul)
+    f, ev, ec, vir = got
+    rf, rev, rec, rvir = ref
+    _close_rows(f.numpy(), rf)
+    _close_scalar(ev, rev)
+    if coul:
+        _close_scalar(ec, rec)
+    else:
+        assert float(ec) == 0.0 == float(rec)
+    vsc = np.abs(np.asarray(rvir)[:3]).max()
+    np.testing.assert_allclose(vir.numpy(), np.asarray(rvir), rtol=5e-6,
+                               atol=5e-6 * vsc)
+
+
+def test_pair_is_pair_wolf_without_the_field():
+    c = _case(**CASES["sp"])
+    sp = torch.as_tensor(c["sp"])
+    pw = panel.pair_wolf_panel(*_pw_args(c, _t), sp=sp)
+    pr = panel.pair_panel(*_pair_args(c, _t), sp=sp)
+    for a, b in zip(pr, pw[:4]):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+
+
+def _wolf_args(c, conv):
+    return (conv(c["x"]), conv(c["q"]), conv(c["mol"]), conv(c["mask"]),
+            conv(c["L"]), CUT_COULSQ)
+
+
+@pytest.mark.parametrize("name", ["random", "lattice"])
+@pytest.mark.parametrize("strip", [False, True])
+def test_wolf_matches_jax(name, strip):
+    c = _case(**CASES[name])
+    aj = _wolf_args(c, _j)
+    at = _wolf_args(c, _t)
+    if strip:
+        s = STRIP
+        ref = pallas_panel.wolf_panel(*[a[s] for a in aj[:4]], *aj[4:],
+                                      cols=tuple(aj[:4]), row0=s.start)
+        got = panel.wolf_panel(*[a[s] for a in at[:4]], *at[4:],
+                               cols=tuple(at[:4]), row0=s.start)
+        full = panel.wolf_panel(*at)
+        np.testing.assert_array_equal(got.numpy(), full[s].numpy())
+    else:
+        ref = pallas_panel.wolf_panel(*aj)
+        got = panel.wolf_panel(*at)
+    _close_rows(got.numpy(), ref)
+    # the fused pass of pair_wolf_panel gives the same field
+    e0 = panel.pair_wolf_panel(*_pw_args(c, _t))[4]
+    _close_rows(e0.numpy(), panel.wolf_panel(*at).numpy())
+
+
 # ------------------------------- dipole ---------------------------------
 
 def _dp_args(c, conv):
@@ -361,27 +446,165 @@ def test_plain_f64_vs_numpy(name):
         _close64(g.numpy(), r)
 
 
+# ------- the f64-grade functions against the JAX XLA-f64 scan path -------
+
+@pytest.fixture(scope="module", params=["random", "lattice"])
+def scan64(request):
+    """JAX host phases of a float64 panel="scan" build over the case's
+    atoms (its _pair_chunk, _wolf_chunk, _tensor_apply_chunk and
+    _dipole_chunk), no special lists, with the case itself."""
+    import jax
+
+    from lidp_tpu.forcefield import ForceField
+    from lidp_tpu.ops import polarization as pol
+    from lidp_tpu.ops.pair import make_pair_params
+    from lidp_tpu.parallel import shard
+
+    c = _case(**CASES[request.param])
+    eps = np.zeros((3, 3))
+    sig = np.zeros((3, 3))
+    cut = np.zeros((3, 3))
+    eps[1:, 1:] = [[0.1, 0.05], [0.05, 0.03]]
+    sig[1:, 1:] = [[3.0, 2.7], [2.7, 2.5]]
+    cut[1:, 1:] = 6.0
+    pair = make_pair_params(eps, sig, cut, cut_coul=6.5, coul=True,
+                            qqrd2e=QQRD2E, g_ewald=G_EWALD,
+                            dtype=jnp.float64)
+    s = pol.PolarizationSettings(damping_type=pol.DAMPING_EXPONENTIAL,
+                                 polar_damp=PD)
+    ff = ForceField(pair=pair, ewald=None, polar=s, qqrd2e=QQRD2E)
+    make, bind_box, npad, _ = shard.build_sharded_polar_step(
+        None, ff, s, n=c["n"], dt=1.0, ftm2v=1.0, dtype=jnp.float64,
+        panel="scan")
+    assert npad == c["npad"]
+    bind_box(c["L"])
+    tabs = np.stack([np.asarray(getattr(pair, k)) for k in
+                     ("lj3", "lj4", "offset", "cut_ljsq", "cutsq")])
+    j64 = lambda a: jnp.asarray(np.asarray(a, np.float64))  # noqa: E731
+    ja = dict(x=j64(c["x"]), q=j64(c["q"]), alpha=j64(c["alpha"]),
+              mu=j64(c["mu"]), type=jnp.asarray(c["type"].astype(np.int32)),
+              mol=jnp.asarray(c["mol"].astype(np.int32)),
+              mask=jnp.asarray(c["mask"] != 0))
+    assert jax.config.jax_enable_x64
+    return c, make.host_phases(1), ja, tabs
+
+
+def _t64(a):
+    return _t(a, torch.float64)
+
+
+def _close_df_rows(got, ref):
+    ref = np.asarray(ref, np.float64)
+    np.testing.assert_allclose(np.asarray(got, np.float64), ref, rtol=0,
+                               atol=1e-11 * np.abs(ref).max())
+
+
+def _close_df_scalar(got, ref):
+    assert float(got) == pytest.approx(float(ref), rel=1e-11)
+
+
+def test_eind_df_matches_jax_scan(scan64):
+    c, ph, ja, _ = scan64
+    ref = ph["eind"](ja["x"], ja["alpha"], ja["mask"], ja["mu"])
+    ae = c["alpha"] * c["mask"]
+    got = panel.eind_panel_df(_t64(c["x"]), _t64(ae), _t64(c["mu"]),
+                              _t64(c["L"]), PD)
+    _close_df_rows(got.numpy(), ref)
+    s = STRIP
+    strip = panel.eind_panel_df(
+        _t64(c["x"])[s], _t64(ae)[s], _t64(c["mu"])[s], _t64(c["L"]), PD,
+        cols=(_t64(c["x"]), _t64(ae), _t64(c["mu"])), row0=s.start)
+    np.testing.assert_array_equal(strip.numpy(), got[s].numpy())
+
+
+@pytest.mark.parametrize("with_mol", [False, True])
+def test_pair_df_matches_jax_scan(scan64, with_mol):
+    c, ph, ja, tabs = scan64
+    rf, rev, rec, _, rvir = ph["pair_real"](ja["x"], ja["q"], ja["type"],
+                                            ja["mask"])
+    args = (_t64(c["x"]), _t64(c["q"]), _t64(c["type"]), _t64(c["mask"]),
+            _t64(tabs), _t64(c["L"]), CUT_COULSQ, QQRD2E, G_EWALD)
+    mol = _t64(c["mol"]) if with_mol else None
+    got = panel.pair_panel_df(*args, mol=mol)
+    assert len(got) == (5 if with_mol else 4)
+    _close_df_rows(got[0].numpy(), rf)
+    _close_df_scalar(got[1], rev)
+    _close_df_scalar(got[2], rec)
+    rvir = np.asarray(rvir)
+    np.testing.assert_allclose(got[3].numpy(), rvir, rtol=1e-11,
+                               atol=1e-11 * np.abs(rvir[:3]).max())
+    s = STRIP
+    cols = args[:4] + ((mol,) if with_mol else ())
+    strip = panel.pair_panel_df(*[a[s] for a in args[:4]], *args[4:],
+                                mol=None if mol is None else mol[s],
+                                cols=cols, row0=s.start)
+    np.testing.assert_array_equal(strip[0].numpy(), got[0][s].numpy())
+    if with_mol:
+        re0 = ph["wolf"](ja["x"], ja["q"], ja["mol"], ja["mask"])
+        _close_df_rows(got[4].numpy() * np.sqrt(QQRD2E), re0)
+        np.testing.assert_array_equal(strip[4].numpy(), got[4][s].numpy())
+        _close_df_rows(panel.wolf_panel_plain(
+            _t64(c["x"]), _t64(c["q"]), mol, _t64(c["mask"]), _t64(c["L"]),
+            CUT_COULSQ).numpy() * np.sqrt(QQRD2E), re0)
+
+
+def test_dipole_df_matches_jax_scan(scan64):
+    c, ph, ja, _ = scan64
+    rf, repol, _ = ph["dipole"](ja["x"], ja["q"], ja["mol"], ja["alpha"],
+                                ja["mu"], ja["mask"])
+    args = _dp_args(c, _t64)
+    f, u_ef, u_dd, _ = panel.dipole_panel_df(*args)
+    _close_df_rows(f.numpy(), rf)
+    a = c["alpha"]
+    u_self = 0.5 * np.sum((c["mu"] ** 2).sum(1)[a != 0] / a[a != 0])
+    _close_df_scalar(u_self + float(u_ef) + float(u_dd), repol)
+    s = STRIP
+    strip = panel.dipole_panel_df(*[t[s] for t in args[:6]], *args[6:],
+                                  cols=tuple(args[:6]), row0=s.start)
+    np.testing.assert_array_equal(strip[0].numpy(), f[s].numpy())
+
+
+# ------------------------------ the wrappers ------------------------------
+
+def _all_calls(c, conv32, conv64):
+    """One call of every wrapper on case c, by name."""
+    tabs64 = conv64(_tabs())
+    pa = _pair_args(c, conv64)
+    return {
+        "eind_panel": lambda: panel.eind_panel(*_eind_args(c, conv32)),
+        "pair_wolf_panel": lambda: panel.pair_wolf_panel(
+            *_pw_args(c, conv32)),
+        "dipole_panel": lambda: panel.dipole_panel(*_dp_args(c, conv32)),
+        "pair_panel": lambda: panel.pair_panel(*_pair_args(c, conv32)),
+        "wolf_panel": lambda: panel.wolf_panel(*_wolf_args(c, conv32)),
+        "eind_panel_df": lambda: panel.eind_panel_df(
+            *_eind_args(c, conv64)),
+        "pair_panel_df": lambda: panel.pair_panel_df(
+            *pa[:4], tabs64, *pa[5:], mol=conv64(c["mol"])),
+        "dipole_panel_df": lambda: panel.dipole_panel_df(
+            *_dp_args(c, conv64)),
+    }
+
+
 def test_wrappers_run_plain_on_cpu_without_counting():
     c = _case(**CASES["lattice"])
-    before = (panel.eind_panel.launches, panel.pair_wolf_panel.launches,
-              panel.dipole_panel.launches)
+    before = {k: w.launches for k, w in panel.WRAPPERS.items()}
     args = _eind_args(c, _t)
     np.testing.assert_array_equal(panel.eind_panel(*args).numpy(),
                                   panel.eind_panel_plain(*args).numpy())
-    panel.pair_wolf_panel(*_pw_args(c, _t))
-    panel.dipole_panel(*_dp_args(c, _t))
-    assert (panel.eind_panel.launches, panel.pair_wolf_panel.launches,
-            panel.dipole_panel.launches) == before
+    calls = _all_calls(c, _t, _t64)
+    assert sorted(calls) == sorted(panel.WRAPPERS)
+    for call in calls.values():
+        call()
+    assert {k: w.launches for k, w in panel.WRAPPERS.items()} == before
 
 
-def test_wrappers_never_fall_back_off_the_cpu():
+@pytest.mark.parametrize("name", sorted(panel.WRAPPERS))
+def test_wrappers_never_fall_back_off_the_cpu(name):
     """A tensor on any device other than the CPU goes to the kernel or
     raises; the plain version is never a fallback."""
     c = _case(**CASES["lattice"], n=40, npad=64)
-    meta = lambda a: _t(a).to("meta")  # noqa: E731
+    meta32 = lambda a: _t(a).to("meta")  # noqa: E731
+    meta64 = lambda a: _t64(a).to("meta")  # noqa: E731
     with pytest.raises(ValueError, match="no kernel"):
-        panel.eind_panel(*_eind_args(c, meta))
-    with pytest.raises(ValueError, match="no kernel"):
-        panel.pair_wolf_panel(*_pw_args(c, meta))
-    with pytest.raises(ValueError, match="no kernel"):
-        panel.dipole_panel(*_dp_args(c, meta))
+        _all_calls(c, meta32, meta64)[name]()

@@ -235,12 +235,33 @@ def test_package_imports_no_jax():
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'lidp_tpu' or m.startswith('lidp_tpu.')]\n"
         "assert not bad, bad\n"
+        "assert 'lidp_tpu_torch.parallel.fast_polar' in sys.modules\n"
         "print(len([m for m in sys.modules if m.startswith('lidp_tpu_torch')]))\n")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120,
                          cwd=Path(__file__).resolve().parent.parent)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip()) >= 12
+    assert int(res.stdout.strip()) >= 13
+
+
+@pytest.mark.parametrize("script", ["chip_smoke.py",
+                                    "scripts/profile_torch_polar.py"])
+def test_port_scripts_import_no_jax(script):
+    """The port's GPU scripts import neither JAX nor the JAX package."""
+    import ast
+
+    root = Path(__file__).resolve().parent.parent
+    tree = ast.parse((root / script).read_text())
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names.append(node.module or "")
+    bad = [m for m in names if m.split(".")[0] in ("jax", "jaxlib",
+                                                   "lidp_tpu")]
+    assert not bad, bad
+    assert any(m.startswith("lidp_tpu_torch") for m in names)
 
 
 def test_entry_points_default_to_cuda():
@@ -250,7 +271,17 @@ def test_entry_points_default_to_cuda():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         polar_bench.build_synthetic(N_SIDE)
     with pytest.raises(RuntimeError, match="device='cpu'"):
+        polar_bench.build_synthetic(N_SIDE, dtype=torch.float64,
+                                    precision=1e-11, host_strips=4)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
         convert.forcefield_from_numpy({}, None, None, 1.0)
+    from lidp_tpu_torch.parallel import shard
+
+    ff = polar_bench.synthetic_forcefield(
+        polar_bench.synthetic_system(N_SIDE), torch.float64, "cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        shard.build_sharded_polar_step(None, ff, ff.polar, n=375, dt=0.5,
+                                       ftm2v=1.0)
 
 
 def _spd_problem(n=40, seed=2):
