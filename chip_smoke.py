@@ -32,9 +32,40 @@ Phases, each raising on failure:
      forces rtol 5e-4, atol 5e-5*max; C and D evdwl/ecoul/elong rel 1e-10,
      epol rel 1e-8, forces and dipoles atol 1e-8*max; D's iteration count
      within 1 of the plain path's;
-  5. one JSON line {"kernels": [...]} with each kernel's launches (summed
-     and by path), times and bound, then the nvidia-smi line, then the
-     device line last.
+  5. the LJ melt of bench/in.lj on the cell engine (lj_melt.build), float32:
+     kernel parity of slot_lj_forces and cell_pair_forces_lj against their
+     plain versions at the melt's (11,11,11,40) grid (the melt after path
+     E's 500 steps: on the lattice of step 0 the forces cancel to rounding)
+     and on a ragged (3,4,5) grid with masked atoms, an empty cell and a
+     full one, need_ev on and off: forces 5e-6 of max |f|, evdwl and virial
+     rel 1e-5 (float32 sums in another order, and a pair across the periodic
+     face sees x_j + L from one side and x_i - L from the other, each
+     rounded at twice the box length; the bar of the JAX package's own
+     slot-runner test); with
+     E. 32,000 atoms through SlotRunner: setup, 100 steps, a timed window
+        of 400 more; step 0 against the reference log's temp 1.44, pe
+        -6.7733681, etotal -4.6134356, press -5.0197073 (rel 1e-6, 1e-5,
+        1e-5, 1e-4), step 100 etotal against -4.6223613 (rel 2e-4: float32
+        on stale cells);
+     F. the same melt through the generic Runner on cells, setup + 100
+        steps: step 0 equal to E's (energies rel 1e-5, forces 5e-6), step
+        100 etotal rel 1e-4, temp and pe 2e-3 of E's;
+     step 0 of E against the float64 plain route (ops/cells.cell_pair_forces
+     on the card): forces 1e-5, evdwl rel 1e-6; and
+     E4. SlotRunner at scale 4 (2,048,000 atoms, grid 47^3 x 40): setup +
+        100 steps, no overflow, finite; step 0 pe against the log's (rel
+        1e-5: the lattice energy per atom does not depend on the size);
+        step 100 etotal within rel 1e-3 of the log's -4.6223613 and within
+        3e-3 of step 0 (the log itself moves 1.9e-3 over these 100 steps:
+        the lattice melts under an unshifted cutoff); then slot_lj_forces
+        against its plain version at this grid on the run's last state,
+        need_ev off and on, at the bars above, repeats bit-identical.
+     On the fcc lattice of step 0 the forces cancel to rounding, so force
+     bars there are taken of max(max |f|, 1), the nearest-neighbour pair
+     force being 2;
+  6. one JSON line {"kernels": [...]} with each of the ten kernels'
+     launches (summed and by path), times and bound, then the nvidia-smi
+     line, then the device line last.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.
@@ -74,6 +105,19 @@ KERNELS = {
                         9, 10, 3),
 }
 PAIR_KERNELS = ("pair_wolf_panel", "pair_panel", "pair_panel_df")
+# the LJ cell kernels: wrapper -> TPU kernel it replaces
+CELL_KERNELS = {
+    "slot_lj_forces": "lidp_tpu/ops/pallas_pair.py:314",
+    "cell_pair_forces_lj": "lidp_tpu/ops/pallas_pair.py:433",
+}
+ALL_KERNELS = (*KERNELS, *CELL_KERNELS)
+LJ_FLOPS_PER_PAIR = 25   # pallas_pair.py:321, per candidate pair
+MELT_STEPS = 100         # paths E, F, E4
+MELT_WINDOW = 400        # path E's timed window
+# step 0 and step 100 of the reference log of bench/in.lj (32,000 atoms)
+LJ_LOG0 = dict(temp=(1.44, 1e-6), pe=(-6.7733681, 1e-5),
+               etotal=(-4.6134356, 1e-5), press=(-5.0197073, 1e-4))
+LJ_LOG100_ETOTAL = (-4.6223613, 2e-4)
 SP_WIDTH = 8             # special-list slots of make_case and the fluid
 
 
@@ -275,7 +319,7 @@ def energy_row(tag, en):
 def check_counts(path, got, want):
     """The launch counters of one path: `want` for the kernels it runs, 0
     for every other."""
-    want = {name: want.get(name, 0) for name in KERNELS}
+    want = {name: want.get(name, 0) for name in ALL_KERNELS}
     print(f"path {path} launches: {got}")
     if got != want:
         raise AssertionError(f"path {path}: launch counts {got} do not "
@@ -309,6 +353,163 @@ def check_f64_step0(path, n, f, mu, en, ref_f, ref_mu, ref_en):
                                  f"{err:.3e} above 1e-8 of {big:.3e}")
 
 
+def cell_bound_ms(name, shape, natoms):
+    """Least time of an LJ cell kernel on the card: the TPU kernel's own
+    count of the Newton half stencil, cells*cap*cap*14 candidate pairs at 25
+    flops, over the FP32 peak, against the bytes it must move over the HBM
+    rate (slot order: 3 grids in, 3 out; atom order: x, mask and
+    atom_of_slot in, f out)."""
+    nbx, nby, nbz, cap = shape
+    slots = nbx * nby * nbz * cap
+    flops = slots * cap * 14 * LJ_FLOPS_PER_PAIR
+    if name == "slot_lj_forces":
+        nbytes = 24 * slots + 4 * 8
+    else:
+        nbytes = 25 * natoms + 4 * slots + 4 * 8
+    t_ops, t_bytes = flops / FP32_PEAK, nbytes / HBM_RATE
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def lj_compare(name, got, ref, need_ev, fscale=None):
+    """(f, evdwl, virial) of an LJ cell kernel against its plain version:
+    forces 5e-6 of max |f|, evdwl and virial rel 1e-5 of the largest entry
+    (zeros when need_ev is off).  Returns (max abs force error, max |f|)."""
+    import torch
+
+    f, r = got[0].double(), ref[0].double()
+    if f.shape != r.shape or got[0].dtype != ref[0].dtype:
+        raise AssertionError(f"{name}: {got[0].dtype} {tuple(f.shape)} vs "
+                             f"plain {ref[0].dtype} {tuple(r.shape)}")
+    err, scale = float((f - r).abs().max()), float(r.abs().max())
+    if not bool(torch.isfinite(f).all()) or \
+            not err <= 5e-6 * (fscale or scale):
+        raise AssertionError(f"{name}: forces max abs err {err:.3e} of max "
+                             f"|f| {scale:.3e}")
+    for tag, g, r in (("evdwl", got[1], ref[1]), ("virial", got[2], ref[2])):
+        g, r = g.double().reshape(-1), r.double().reshape(-1)
+        if need_ev:
+            bad = bool(((g - r).abs() > 1e-5 * r.abs().max()).any())
+        else:
+            bad = bool(g.any())
+        if bad or not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"{name} {tag}: {g.tolist()} vs "
+                                 f"{r.tolist()} (need_ev={need_ev})")
+    return err, scale
+
+
+def ragged_lj_case(device="cuda", seed=3):
+    """A small float32 LJ input that stresses the cell kernels' edges: an
+    uneven (3,4,5) grid of cap 16 in a box (8.8, 11.7, 14.6), one cell
+    filled to cap, one cell empty (its atoms are masked out), 10% of the
+    other atoms masked.  Returns dict(x, mask, box, pair, cfg, n), tensors
+    on `device`; not a physical state."""
+    import numpy as np
+    import torch
+
+    from lidp_tpu_torch import resolve_device
+    from lidp_tpu_torch.box import Box
+    from lidp_tpu_torch.ops.cells import CellConfig
+    from lidp_tpu_torch.ops.pair import make_pair_params
+
+    device = resolve_device(device)
+    rs = np.random.RandomState(seed)
+    L = np.array([8.8, 11.7, 14.6])
+    nb = (3, 4, 5)
+    h = L / np.array(nb)
+    g = np.stack(np.meshgrid(np.arange(6), np.arange(8), np.arange(10),
+                             indexing="ij"), -1).reshape(-1, 3)
+    x = (g + 0.5 + rs.uniform(-0.12, 0.12, g.shape)) * (L / [6, 8, 10])
+    cell = np.floor(x / h).astype(int)
+    full = np.all(cell == (0, 0, 0), axis=1)
+    empty = np.all(cell == (1, 2, 3), axis=1)
+    x = x[~full]
+    mask = ~empty[~full] & (rs.rand(x.shape[0]) > 0.1)
+    # 16 atoms about 1.02 apart fill cell (0,0,0)
+    m = np.stack(np.meshgrid(np.arange(3), np.arange(3), np.arange(2),
+                             indexing="ij"), -1).reshape(-1, 3)[:16]
+    x = np.concatenate([x, 0.4 + 1.02 * m
+                        + rs.uniform(-0.03, 0.03, m.shape)])
+    mask = np.concatenate([mask, np.ones(16, bool)])
+    one = np.zeros((2, 2))
+    one[1, 1] = 1.0
+    f32 = torch.float32
+    return dict(
+        x=torch.as_tensor(x, dtype=f32, device=device),
+        mask=torch.as_tensor(mask, device=device),
+        box=Box.create(np.zeros(3), L, dtype=f32, device=device),
+        pair=make_pair_params(one, one, 2.5 * one, coul=False, dtype=f32,
+                              device=device),
+        cfg=CellConfig(nbins=nb, cap=16, cutneigh=2.8), n=x.shape[0])
+
+
+def lj_kernel_calls(x, mask, box, pair, cfg, natoms):
+    """{kernel name: (shape, call(need_ev) of the wrapper, of the plain
+    version, timed(need_ev))}, each call returning (f, evdwl, virial6):
+    slot_lj_forces on the slot state of (x, mask), cell_pair_forces_lj on
+    their Cells.  `timed` is the call the runners make: SlotRunner passes
+    the kernel's scalars it made at setup (`par=`), compute_forces lets the
+    wrapper form them, a few scalar-sized torch launches, at every call."""
+    import torch
+
+    from lidp_tpu_torch.forcefield import ForceField
+    from lidp_tpu_torch.integrate.slot_runner import SlotRunner
+    from lidp_tpu_torch.ops import cell_kernels as ck
+    from lidp_tpu_torch.ops.cells import build_cells
+
+    cells = build_cells(x, mask, box, cfg)
+    if bool(cells.overflow):
+        raise AssertionError("the parity case overflows its cell grid")
+    sr = SlotRunner(ff=ForceField(pair=pair), neighbor_cfg=cfg, dt=0.005,
+                    ftm2v=1.0, n=natoms)
+    n = x.shape[0]
+    xs = sr._slotify(x, torch.zeros_like(x), torch.ones(n, device=x.device),
+                     torch.arange(n, dtype=torch.int32, device=x.device),
+                     mask, box)[0]
+    grids = [xs[..., d] for d in range(3)]
+
+    def slot(fn):
+        def call(need_ev):
+            fg, ev, vir = fn(grids, box, pair, need_ev=need_ev)
+            return torch.stack(list(fg), dim=-1), ev, vir
+        return call
+
+    def atom(fn):
+        def call(need_ev):
+            f, ev, _, vir = fn(x, mask, cells, box, pair, need_ev=need_ev)
+            return f, ev, vir
+        return call
+
+    shape = tuple(cells.atom_of_slot.shape)
+    par_s = ck.lj_par(box, pair, ck.sentinel_scalars(box, pair)[0])
+    return {
+        "slot_lj_forces": (
+            shape, slot(ck.slot_lj_forces), slot(ck.slot_lj_forces_plain),
+            lambda ev: ck.slot_lj_forces(grids, box, pair, need_ev=ev,
+                                         par=par_s)),
+        "cell_pair_forces_lj": (
+            shape, atom(ck.cell_pair_forces_lj),
+            atom(ck.cell_pair_forces_lj_plain),
+            lambda ev: ck.cell_pair_forces_lj(x, mask, cells, box, pair,
+                                              need_ev=ev))}
+
+
+def melt_row(tag, row):
+    vals = [row[k] for k in ("temp", "pe", "etotal", "press")]
+    if not all(math.isfinite(v) for v in vals):
+        raise AssertionError(f"{tag}: non-finite thermo row {row}")
+    print(f"{tag}: step {row['step']} temp {vals[0]:.7f} pe {vals[1]:.7f} "
+          f"etotal {vals[2]:.7f} press {vals[3]:.7f}")
+
+
+def check_rel(tag, got, want, rel):
+    print(f"{tag}: {got:.9g} against {want:.9g} (rel "
+          f"{abs(got - want) / abs(want):.2e}, bar {rel:g})")
+    if not abs(got - want) <= rel * abs(want):
+        raise AssertionError(f"{tag}: {got!r} is not within {rel:g} of "
+                             f"{want!r}")
+
+
 def main() -> int:
     import torch
 
@@ -318,15 +519,20 @@ def main() -> int:
         return 1
     sys.path.insert(0, ROOT)
     from lidp_tpu_torch.kernels import build
-    from lidp_tpu_torch.models import polar_bench
-    from lidp_tpu_torch.ops import panel
+    from lidp_tpu_torch.models import lj_melt, polar_bench
+    from lidp_tpu_torch.ops import cell_kernels, panel
+    from lidp_tpu_torch.box import Box, wrap
+    from lidp_tpu_torch.forcefield import pair_route
+    from lidp_tpu_torch.ops.cells import build_cells, cell_pair_forces
+    from lidp_tpu_torch.thermo import thermo_row
 
     smi = smi_line()
     print(f"card: {smi}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}, "
           f"device {torch.cuda.get_device_name(0)}")
-    if sorted(KERNELS) != sorted(panel.WRAPPERS):
+    wrappers = {**panel.WRAPPERS, **cell_kernels.WRAPPERS}
+    if sorted(ALL_KERNELS) != sorted(wrappers):
         raise AssertionError("the kernel table does not list every wrapper")
 
     # 2. build
@@ -372,13 +578,13 @@ def main() -> int:
 
     # 4. the main paths: every counter to 0 just before, read just after
     def reset_counts():
-        for w in panel.WRAPPERS.values():
+        for w in wrappers.values():
             w.launches = 0
         torch.cuda.synchronize()
 
     def read_counts():
         torch.cuda.synchronize()
-        return {name: panel.WRAPPERS[name].launches for name in KERNELS}
+        return {name: wrappers[name].launches for name in ALL_KERNELS}
 
     launches = {}
 
@@ -557,14 +763,238 @@ def main() -> int:
                              f"{en64['scf_iters']}")
     print(f"steps_per_s {steps_per_s:.4f}")
 
-    # 5. results
+    del ref, f64, mu64, fC, muC, fD, muD, fA
+    torch.cuda.empty_cache()
+
+    # 5. the LJ melt on the cell engine: path E, kernel parity on its last
+    # state, then paths F and E4
+    f32 = torch.float32
+    melt = lj_melt.build(scale=1, dtype=f32, neighbor="slots")
+    msys = melt.system
+
+    # path E: the 32,000-atom melt through SlotRunner
+    reset_counts()
+    t0 = time.perf_counter()
+    sysE, resE, nlE, carry = melt.runner.setup(msys)
+    rowE0 = thermo_row(sysE, resE, melt.thermo)
+    t_init = time.perf_counter() - t0
+    fE0 = resE.f.clone()
+    sysE, resE, nlE, carry = melt.runner.run(sysE, resE, nlE, carry,
+                                             MELT_STEPS)
+    rowE100 = thermo_row(sysE, resE, melt.thermo)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sysE, resE, nlE, carry = melt.runner.run(sysE, resE, nlE, carry,
+                                             MELT_WINDOW)
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    launches["E"] = read_counts()
+    rowE500 = thermo_row(sysE, resE, melt.thermo)
+    cfg = melt.runner.neighbor_cfg
+    print(f"path E: {melt.natoms} atoms, float32, SlotRunner, grid "
+          f"{cfg.nbins} x cap {cfg.cap}, rebuild every "
+          f"{melt.runner.rebuild_every}")
+    for tag, row in (("E step 0", rowE0), ("E step 100", rowE100),
+                     (f"E step {MELT_STEPS + MELT_WINDOW}", rowE500)):
+        melt_row(tag, row)
+    if bool(nlE.overflow):
+        raise AssertionError("path E: a cell overflowed its capacity")
+    if rowE500["step"] != MELT_STEPS + MELT_WINDOW:
+        raise AssertionError(f"path E: step {rowE500['step']}")
+    for k, (want, rel) in LJ_LOG0.items():
+        check_rel(f"path E step 0 {k} vs the reference log", rowE0[k], want,
+                  rel)
+    check_rel("path E step 100 etotal vs the reference log",
+              rowE100["etotal"], *LJ_LOG100_ETOTAL)
+    check_counts("E", launches["E"], dict(
+        slot_lj_forces=1 + MELT_STEPS + 1 + MELT_WINDOW + 1))
+    steps_per_s_E = MELT_WINDOW / t_run
+    print(f"path E: setup + row {t_init * 1e3:.1f} ms; {MELT_WINDOW} steps "
+          f"in {t_run:.4f} s = {steps_per_s_E:.1f} steps/s "
+          f"({1e3 * t_run / MELT_WINDOW:.4f} ms/step)")
+    print(f"steps_per_s_E {steps_per_s_E:.4f}")
+
+    # kernel parity: on the melt after path E's steps (wrapped into the box,
+    # as a rebuild leaves it) and on the ragged case
+    melted, _ = wrap(sysE.x, sysE.box, sysE.image)
+    rag = ragged_lj_case()
+    lj_cases = {
+        "melt": (melted, msys.mask, msys.box, melt.runner.ff.pair,
+                 melt.runner.neighbor_cfg, melt.natoms),
+        "ragged": tuple(rag[k] for k in ("x", "mask", "box", "pair", "cfg",
+                                         "n"))}
+    for cname, case in lj_cases.items():
+        for name, (shape, kern, plain, timed) in \
+                lj_kernel_calls(*case).items():
+            for need_ev in (False, True):
+                got, ref = kern(need_ev), plain(need_ev)
+                torch.cuda.synchronize()
+                label = f"{name}[{cname}, need_ev={need_ev}]"
+                err, scale = lj_compare(label, got, ref, need_ev)
+                again = kern(need_ev)
+                if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                    raise AssertionError(f"{label}: a repeated launch "
+                                         f"differs")
+                line = (f"parity {label} ok on grid {shape}: max abs err "
+                        f"{err:.3e} of max |f| {scale:.3e}")
+                del got, ref, again
+                if cname == "melt":
+                    ms = cuda_ms(lambda: timed(need_ev), reps=20)
+                    pms = cuda_ms(lambda: plain(need_ev), reps=3, warmup=1)
+                    bms, by = cell_bound_ms(name, shape, melt.natoms)
+                    r = dict(max_abs_err=err, ms=ms, plain_ms=pms,
+                             bound_ms=bms, bound_by=by)
+                    if need_ev:
+                        results[name]["variants"] = {f"{name}[need_ev]": r}
+                    else:
+                        results[name] = r
+                    line += (f", kernel {ms:.4f} ms, plain {pms:.3f} ms, "
+                             f"bound {bms:.4f} ms ({by})")
+                print(line)
+    del lj_cases, rag, melted
+    torch.cuda.empty_cache()
+
+    # step 0 of E against the float64 plain route on the card
+    x64 = msys.x.double()
+    box64 = Box(lo=msys.box.lo.double(), hi=msys.box.hi.double())
+    cells64 = build_cells(x64, msys.mask, box64, cfg)
+    f64, ev64, _, _ = cell_pair_forces(
+        x64, msys.q.double(), msys.type, msys.mask, cells64, box64,
+        melt.runner.ff.pair)
+    fscale = max(float(f64.abs().max()), 1.0)
+    ferr = float((fE0.double() - f64).abs().max())
+    print(f"path E step 0 forces vs float64 plain: max abs err {ferr:.3e} "
+          f"of max(max |f|, 1) {fscale:.3e}")
+    if not ferr <= 1e-5 * fscale:
+        raise AssertionError(f"path E step 0 forces vs float64: {ferr:.3e}")
+    check_rel("path E step 0 evdwl vs float64 plain", rowE0["evdwl"],
+              float(ev64) / melt.natoms, 1e-6)
+    del x64, cells64, f64, carry
+
+    # path F: the same melt through the generic Runner on cells
+    meltF = lj_melt.build(scale=1, dtype=f32, neighbor="cells")
+    reset_counts()
+    sysF, resF, nlF, ist = meltF.runner.setup(meltF.system)
+    rowF0 = thermo_row(sysF, resF, meltF.thermo)
+    fF0 = resF.f.clone()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sysF, resF, nlF, ist = meltF.runner.run(sysF, resF, nlF, ist, MELT_STEPS)
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    launches["F"] = read_counts()
+    rowF100 = thermo_row(sysF, resF, meltF.thermo)
+    print(f"path F: {meltF.natoms} atoms, float32, Runner on cells, pair "
+          f"route {pair_route(sysF, meltF.runner.ff, nlF.nlist)}")
+    melt_row("F step 0", rowF0)
+    melt_row("F step 100", rowF100)
+    if bool(nlF.overflow):
+        raise AssertionError("path F: a cell overflowed its capacity")
+    check_counts("F", launches["F"], dict(
+        cell_pair_forces_lj=1 + MELT_STEPS + 1))
+    for k in ("temp", "pe", "etotal", "press"):
+        check_rel(f"path F step 0 {k} vs path E", rowF0[k], rowE0[k], 1e-5)
+    fscale = max(float(fE0.abs().max()), 1.0)
+    ferr = float((fF0 - fE0).abs().max())
+    print(f"path F step 0 forces vs path E: max abs err {ferr:.3e} of "
+          f"max(max |f|, 1) {fscale:.3e}")
+    if not ferr <= 5e-6 * fscale:
+        raise AssertionError(f"path F step 0 forces vs path E: {ferr:.3e}")
+    check_rel("path F step 100 etotal vs path E", rowF100["etotal"],
+              rowE100["etotal"], 1e-4)
+    for k in ("temp", "pe"):
+        check_rel(f"path F step 100 {k} vs path E", rowF100[k], rowE100[k],
+                  2e-3)
+    steps_per_s_F = MELT_STEPS / t_run
+    print(f"path F: {MELT_STEPS} steps in {t_run:.4f} s = "
+          f"{steps_per_s_F:.1f} steps/s")
+    print(f"steps_per_s_F {steps_per_s_F:.4f}")
+    del meltF, sysF, resF, nlF, ist, melt, sysE, resE
+    torch.cuda.empty_cache()
+
+    # path E4: SlotRunner at scale 4
+    t0 = time.perf_counter()
+    melt4 = lj_melt.build(scale=4, dtype=f32, neighbor="slots")
+    t_build = time.perf_counter() - t0
+    cfg = melt4.runner.neighbor_cfg
+    reset_counts()
+    sys4, res4, nl4, carry = melt4.runner.setup(melt4.system)
+    row0 = thermo_row(sys4, res4, melt4.thermo)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sys4, res4, nl4, carry = melt4.runner.run(sys4, res4, nl4, carry,
+                                              MELT_STEPS)
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    launches["E4"] = read_counts()
+    row100 = thermo_row(sys4, res4, melt4.thermo)
+    print(f"path E4: {melt4.natoms} atoms (scale 4), float32, SlotRunner, "
+          f"grid {cfg.nbins} x cap {cfg.cap}; built on the host in "
+          f"{t_build:.1f} s")
+    melt_row("E4 step 0", row0)
+    melt_row("E4 step 100", row100)
+    if bool(nl4.overflow):
+        raise AssertionError("path E4: a cell overflowed its capacity")
+    check_counts("E4", launches["E4"], dict(
+        slot_lj_forces=1 + MELT_STEPS + 1))
+    check_rel("path E4 step 0 pe vs the reference log", row0["pe"],
+              *LJ_LOG0["pe"])
+    check_rel("path E4 step 100 etotal vs the reference log",
+              row100["etotal"], LJ_LOG100_ETOTAL[0], 1e-3)
+    check_rel("path E4 step 100 etotal vs step 0", row100["etotal"],
+              row0["etotal"], 3e-3)
+    # the slot kernel at this grid, on the run's last state: against its
+    # plain version, need_ev off (the form the steps launch) and on
+    pair4, box4 = melt4.runner.ff.pair, sys4.box
+    par4 = cell_kernels.lj_par(
+        box4, pair4, cell_kernels.sentinel_scalars(box4, pair4)[0])
+    grids4 = [carry.x[..., d] for d in range(3)]
+    shape4 = tuple(grids4[0].shape)
+    bms4, by4 = cell_bound_ms("slot_lj_forces", shape4, melt4.natoms)
+
+    def slot4(fn, need_ev, **kw):
+        fg, ev, vir = fn(grids4, box4, pair4, need_ev=need_ev, **kw)
+        return torch.stack(list(fg), dim=-1), ev, vir
+
+    for need_ev in (False, True):
+        label = f"slot_lj_forces[scale 4, need_ev={need_ev}]"
+        got = slot4(cell_kernels.slot_lj_forces, need_ev, par=par4)
+        ref = slot4(cell_kernels.slot_lj_forces_plain, need_ev)
+        torch.cuda.synchronize()
+        err4, scale4 = lj_compare(label, got, ref, need_ev)
+        del ref
+        again = slot4(cell_kernels.slot_lj_forces, need_ev, par=par4)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"{label}: a repeated launch differs")
+        del got, again
+        ms4 = cuda_ms(lambda: cell_kernels.slot_lj_forces(
+            grids4, box4, pair4, need_ev=need_ev, par=par4), reps=10)
+        pms4 = cuda_ms(lambda: cell_kernels.slot_lj_forces_plain(
+            grids4, box4, pair4, need_ev=need_ev), reps=2, warmup=0)
+        key = "scale 4, need_ev" if need_ev else "scale 4"
+        results["slot_lj_forces"]["variants"][f"slot_lj_forces[{key}]"] = \
+            dict(max_abs_err=err4, ms=ms4, plain_ms=pms4, bound_ms=bms4,
+                 bound_by=by4)
+        print(f"parity {label} ok on grid {shape4}: max abs err {err4:.3e} "
+              f"of max |f| {scale4:.3e}, kernel {ms4:.4f} ms, plain "
+              f"{pms4:.1f} ms, bound {bms4:.4f} ms ({by4})")
+    torch.cuda.empty_cache()
+    steps_per_s_E4 = MELT_STEPS / t_run
+    print(f"path E4: {MELT_STEPS} steps in {t_run:.4f} s = "
+          f"{steps_per_s_E4:.2f} steps/s "
+          f"({1e3 * t_run / MELT_STEPS:.3f} ms/step)")
+    print(f"steps_per_s_E4 {steps_per_s_E4:.4f}")
+    del melt4, sys4, res4, nl4, carry, grids4
+
+    # 6. results
     total = {name: sum(launches[p][name] for p in launches)
-             for name in KERNELS}
+             for name in ALL_KERNELS}
     never = [name for name, cnt in total.items() if cnt == 0]
     if never:
         raise AssertionError(f"kernels no path launched: {never}")
     out = []
-    for name, (replaces, *_) in KERNELS.items():
+    replaced = {**{k: v[0] for k, v in KERNELS.items()}, **CELL_KERNELS}
+    for name, replaces in replaced.items():
         r = results[name]
         row = dict(name=name, route="cuda",
                    source=f"lidp_tpu_torch/csrc/{name}.cu",

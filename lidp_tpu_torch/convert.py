@@ -1,9 +1,11 @@
-"""Carry force-field tables across from the JAX package.
+"""Carry force-field tables and state across from the JAX package.
 
-The caller hands over the fields of lidp_tpu's PairParams, EwaldParams and
-PolarizationSettings as numpy arrays or scalars, e.g.
+The caller hands over the fields of lidp_tpu's dataclasses (PairParams,
+EwaldParams, PolarizationSettings, System, Cells, SlotCarry) as numpy
+arrays or scalars, e.g.
 `{f.name: np.asarray(getattr(p, f.name)) for f in dataclasses.fields(p)}`,
-so both packages compute from the same tables.  Nothing here imports JAX.
+so both packages compute from the same tables and the same state.  Nothing
+here imports JAX.
 """
 
 from __future__ import annotations
@@ -13,10 +15,14 @@ import dataclasses
 import numpy as np
 import torch
 
+from lidp_tpu_torch.box import Box
 from lidp_tpu_torch.forcefield import ForceField
+from lidp_tpu_torch.integrate.slot_runner import SlotCarry
+from lidp_tpu_torch.ops.cells import Cells
 from lidp_tpu_torch.ops.ewald import EwaldParams
 from lidp_tpu_torch.ops.pair import PairParams
 from lidp_tpu_torch.ops.polarization import PolarizationSettings
+from lidp_tpu_torch.state import System
 
 
 def _scalar(v):
@@ -27,19 +33,22 @@ def _scalar(v):
     return a.item() if a.ndim == 0 else a
 
 
-def forcefield_from_numpy(pair: dict, ewald: dict, polar: dict, qqrd2e,
-                          device="cuda", dtype=torch.float32) -> ForceField:
-    """The port's ForceField from numpy copies of the JAX dataclasses.
+# pair fields the port cannot express, with the only value it accepts
+_PAIR_ONLY = dict(charmm=False, charmm_fsw=False, kind="lj", excl=None,
+                  excl_mol=False, lj5=None, tab_e=None)
 
-    Only the lj/cut/coul/long pair form is supported in this slice; a
-    table that asks for another form raises."""
+
+def pair_from_numpy(pair: dict, device="cuda",
+                    dtype=torch.float32) -> PairParams:
+    """The port's PairParams from a numpy copy of the JAX one: lj/cut
+    (coul=False) or lj/cut/coul/long.  A table that asks for another form
+    raises."""
     from lidp_tpu_torch import resolve_device
 
     device = resolve_device(device)
-    unsupported = dict(charmm=False, charmm_fsw=False, kind="lj",
-                       coul_kind="long", excl=None, excl_mol=False, lj5=None,
-                       tab_e=None)
-    for k, want in unsupported.items():
+    coul = bool(_scalar(pair.get("coul", True)))
+    only = dict(_PAIR_ONLY, **({"coul_kind": "long"} if coul else {}))
+    for k, want in only.items():
         if k in pair and _scalar(pair[k]) != want:
             raise NotImplementedError(
                 f"pair field {k}={_scalar(pair[k])!r} is not ported")
@@ -47,13 +56,25 @@ def forcefield_from_numpy(pair: dict, ewald: dict, polar: dict, qqrd2e,
     def t(a):
         return torch.as_tensor(np.array(a), dtype=dtype, device=device)
 
-    pp = PairParams(
+    return PairParams(
         **{k: t(pair[k]) for k in ("lj3", "lj4", "offset", "cut_ljsq",
                                    "cutsq", "special_lj", "special_coul")},
         cut_coulsq=float(_scalar(pair["cut_coulsq"])),
         qqrd2e=float(_scalar(pair["qqrd2e"])),
-        g_ewald=float(_scalar(pair["g_ewald"])),
-        coul=bool(_scalar(pair.get("coul", True))))
+        g_ewald=float(_scalar(pair["g_ewald"])), coul=coul)
+
+
+def forcefield_from_numpy(pair: dict, ewald: dict, polar: dict, qqrd2e,
+                          device="cuda", dtype=torch.float32) -> ForceField:
+    """The port's ForceField from numpy copies of the JAX dataclasses."""
+    from lidp_tpu_torch import resolve_device
+
+    device = resolve_device(device)
+    pp = pair_from_numpy(pair, device=device, dtype=dtype)
+
+    def t(a):
+        return torch.as_tensor(np.array(a), dtype=dtype, device=device)
+
     ew = None
     if ewald is not None:
         ew = EwaldParams(
@@ -67,3 +88,63 @@ def forcefield_from_numpy(pair: dict, ewald: dict, polar: dict, qqrd2e,
         s = PolarizationSettings(**{k: _scalar(v) for k, v in polar.items()
                                     if k in names})
     return ForceField(pair=pp, ewald=ew, polar=s, qqrd2e=float(qqrd2e))
+
+
+def _np_dtype(a):
+    return torch.float64 if np.asarray(a).dtype == np.float64 \
+        else torch.float32
+
+
+def system_from_numpy(sys: dict, device="cuda") -> System:
+    """The port's System from numpy copies of the JAX System's fields;
+    `sys["box"]` is a dict with lo, hi and optionally periodic and tilt.
+    Floating fields keep the dtype of x."""
+    from lidp_tpu_torch import resolve_device
+
+    device = resolve_device(device)
+    dtype = _np_dtype(sys["x"])
+    b = sys["box"]
+    box = Box.create(b["lo"], b["hi"], dtype=dtype,
+                     periodic=b.get("periodic", (True, True, True)),
+                     tilt=b.get("tilt"), device=device)
+
+    def t(name, d):
+        return torch.as_tensor(np.array(sys[name]), device=device).to(d)
+
+    return System(
+        x=t("x", dtype), v=t("v", dtype), q=t("q", dtype),
+        type=t("type", torch.int32), mol=t("mol", torch.int32),
+        alpha=t("alpha", dtype), mu=t("mu", dtype),
+        image=t("image", torch.int32), mask=t("mask", torch.bool), box=box,
+        step=int(np.asarray(sys.get("step", 0))))
+
+
+def cells_from_numpy(cells: dict, device="cuda") -> Cells:
+    """The port's Cells from numpy copies of the JAX Cells' fields."""
+    from lidp_tpu_torch import resolve_device
+
+    device = resolve_device(device)
+
+    def t(name, d):
+        return torch.as_tensor(np.array(cells[name]), device=device).to(d)
+
+    return Cells(atom_of_slot=t("atom_of_slot", torch.int32).contiguous(),
+                 slot_of_atom=t("slot_of_atom", torch.int32),
+                 overflow=t("overflow", torch.bool))
+
+
+def slot_carry_from_numpy(carry: dict, device="cuda") -> SlotCarry:
+    """The port's SlotCarry from numpy copies of the JAX SlotCarry's
+    fields."""
+    from lidp_tpu_torch import resolve_device
+
+    device = resolve_device(device)
+
+    def t(name, d):
+        return torch.as_tensor(np.array(carry[name]), device=device).to(d)
+
+    f32 = torch.float32
+    return SlotCarry(x=t("x", f32), v=t("v", f32), f=t("f", f32),
+                     invm=t("invm", f32), aid=t("aid", torch.int32),
+                     step=int(np.asarray(carry["step"])),
+                     overflow=t("overflow", torch.bool))

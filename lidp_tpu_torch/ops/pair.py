@@ -1,5 +1,5 @@
 """LJ + real-space Ewald pair parameters (lidp_tpu/ops/pair.py, the
-lj/cut/coul/long part).
+lj/cut/coul/long and lj/cut parts).
 
 The erfc of the real-space coulomb term is the reference's 5-term
 Abramowitz-Stegun polynomial (pair_lj_cut_coul_long_polarization.cpp:43-49),
@@ -51,22 +51,32 @@ class PairParams:
     coul: bool = True
 
 
-def make_pair_params(epsilon, sigma, cut_lj, *, cut_coul, qqrd2e, g_ewald,
+def make_pair_params(epsilon, sigma, cut_lj, *, cut_coul=0.0, qqrd2e=1.0,
+                     g_ewald=0.0, coul=True, shift=False,
                      dtype=torch.float64, device="cpu"):
-    """PairParams of lj/cut/coul/long from per-type-pair (T+1,T+1)
-    epsilon/sigma/cut arrays: unshifted LJ, LAMMPS's default special_bonds
-    (1-2, 1-3, 1-4 factors 0 for LJ and coulomb).  The same tables as
-    lidp_tpu make_pair_params(..., coul=True) with those defaults."""
+    """PairParams of lj/cut/coul/long (coul=True) or lj/cut alone
+    (coul=False: cutsq = cut_lj^2, no coulomb term) from per-type-pair
+    (T+1,T+1) epsilon/sigma/cut arrays, with LAMMPS's default special_bonds
+    (1-2, 1-3, 1-4 factors 0 for LJ and coulomb).  shift=True fills the
+    offset table with the LJ energy at the cutoff (pair_modify shift yes).
+    The same tables as lidp_tpu make_pair_params with those defaults."""
     def t(a):
         return torch.as_tensor(a, dtype=dtype, device=device)
 
     epsilon, sigma, cut_lj = t(epsilon), t(sigma), t(cut_lj)
     s6 = sigma**6
+    if shift:
+        live = cut_lj > 0
+        ratio6 = torch.where(
+            live, (sigma / torch.where(live, cut_lj, 1.0)) ** 6, 0.0)
+        offset = 4.0 * epsilon * (ratio6**2 - ratio6)
+    else:
+        offset = torch.zeros_like(epsilon)
     return PairParams(
         lj3=4.0 * epsilon * s6 * s6, lj4=4.0 * epsilon * s6,
-        offset=torch.zeros_like(epsilon), cut_ljsq=cut_lj**2,
-        cutsq=torch.clamp(cut_lj, min=cut_coul) ** 2,
+        offset=offset, cut_ljsq=cut_lj**2,
+        cutsq=torch.clamp(cut_lj, min=cut_coul if coul else 0.0) ** 2,
         special_lj=t([1.0, 0.0, 0.0, 0.0]),
         special_coul=t([1.0, 0.0, 0.0, 0.0]),
         cut_coulsq=float(cut_coul) ** 2, qqrd2e=float(qqrd2e),
-        g_ewald=float(g_ewald))
+        g_ewald=float(g_ewald), coul=bool(coul))

@@ -3,6 +3,8 @@
 
     python scripts/profile_torch_polar.py [--steps 10] [--trace FILE]
     python scripts/profile_torch_polar.py --path host64 [--steps 5]
+    python scripts/profile_torch_polar.py --path lj --steps 400 [--scale 4]
+    python scripts/profile_torch_polar.py --path ljcells --steps 100
 
 Builds the 10,125-atom synthetic fluid of lidp_tpu_torch.models.polar_bench
 (float32, CUDA panel kernels), runs the initial forces and 3 warm-up steps,
@@ -22,6 +24,15 @@ f64-grade kernels): after the initial forces and 2 warm-up steps, `--steps`
 steps with HostPolarForces' own CUDA-event ticks (pair, Ewald k-blocks,
 each outer float64 pass, each inner float32 CG, dipole), summed per step,
 then the same torch.profiler window.
+
+--path lj profiles the LJ melt of lidp_tpu_torch.models.lj_melt through
+SlotRunner (float32, `--scale 1` = 32,000 atoms), --path ljcells the same
+melt through the generic Runner on cells: after setup and 100 warm-up
+steps, `--steps` steps (a multiple of 20 holds whole rebuild periods) with
+CUDA events around the force evaluation and the rebuild (re-binning and
+re-slotting, amortised over the steps), the rest being the integrator's
+elementwise work and the gaps between launches; then the same
+torch.profiler window.
 
 Prints the card (nvidia-smi name, power limit) first.
 """
@@ -103,12 +114,75 @@ def fused32_events(bench, run_steps, steps):
           f"{rest:8.3f} ms/step  {100 * rest / step_ms:5.1f}%")
 
 
+def lj_events(path, scale, steps):
+    """Build the melt, warm it up, time `steps` steps with CUDA events
+    around the force evaluations and the rebuilds; returns run_steps for
+    the profiler window."""
+    import torch
+
+    from lidp_tpu_torch.integrate import driver
+    from lidp_tpu_torch.models import lj_melt
+
+    slots = path == "lj"
+    melt = lj_melt.build(scale=scale, dtype=torch.float32,
+                         neighbor="slots" if slots else "cells")
+    runner = melt.runner
+    cfg = runner.neighbor_cfg
+    print(f"{melt.natoms} atoms, float32, "
+          f"{'SlotRunner' if slots else 'Runner on cells'}, grid "
+          f"{cfg.nbins} x cap {cfg.cap}")
+    state = list(runner.setup(melt.system))
+
+    def run_steps(k):
+        state[:] = runner.run(*state, k)
+
+    run_steps(100)
+    torch.cuda.synchronize()
+    timer = PhaseTimer()
+    if slots:
+        owner, names = runner, {"_force": "force (slot_lj_forces + stack)",
+                                "_slotify": "rebuild (re-bin, re-slot)"}
+    else:
+        owner, names = driver, {
+            "compute_forces": "force (cell_pair_forces_lj + its scalars)",
+            "_rebuild": "rebuild (wrap, build_cells)"}
+    saved = {attr: getattr(owner, attr) for attr in names}
+    for attr, name in names.items():
+        setattr(owner, attr, timer.wrap(name, saved[attr]))
+    t0 = time.perf_counter()
+    run_steps(steps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for attr, fn in saved.items():
+        if slots:
+            delattr(owner, attr)       # back to the class's own method
+        else:
+            setattr(owner, attr, fn)
+    if bool(state[2].overflow):
+        raise AssertionError("a cell overflowed its capacity")
+    step_ms = 1e3 * wall / steps
+    print(f"events window: {steps} steps, {steps / wall:.2f} steps/s, "
+          f"{step_ms:.4f} ms/step")
+    phase_sum = 0.0
+    for name, (ms, calls) in timer.totals().items():
+        per = ms / steps
+        phase_sum += per
+        print(f"  {name:45s} {per:8.4f} ms/step  {calls / steps:5.2f} "
+              f"calls/step  {100 * per / step_ms:5.1f}%")
+    rest = step_ms - phase_sum
+    print(f"  {'rest (integrator elementwise, launch gaps)':45s} "
+          f"{rest:8.4f} ms/step  {100 * rest / step_ms:5.1f}%")
+    return run_steps
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--trace", help="write the profiler's Chrome trace here")
-    ap.add_argument("--path", choices=["fused32", "host64"],
+    ap.add_argument("--path", choices=["fused32", "host64", "lj", "ljcells"],
                     default="fused32")
+    ap.add_argument("--scale", type=float, default=1,
+                    help="lj paths: box edge in units of 20 fcc cells")
     args = ap.parse_args()
 
     import torch
@@ -123,7 +197,9 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
-    if args.path == "host64":
+    if args.path in ("lj", "ljcells"):
+        run_steps = lj_events(args.path, args.scale, args.steps)
+    elif args.path == "host64":
         bench = polar_bench.build_synthetic(dtype=torch.float64,
                                             precision=1e-11)
         polar_bench.host_setup_forces(bench, mixed=True)

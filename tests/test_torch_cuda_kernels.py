@@ -270,3 +270,179 @@ def test_step_through_kernels_matches_plain(dev):
                                                 rel=1e-4, abs=2e-2)
     for a, b in zip(kper, pper):
         assert abs(a["scf_iters"] - b["scf_iters"]) <= 1
+
+
+# ------------------------- the LJ cell kernels ---------------------------
+#
+# float32 against the plain versions (Newton half stencil, another
+# summation order than the kernels' full stencil): forces 5e-6 of the
+# largest force, evdwl and virial rel 1e-5 (tests/test_slot_runner.py's
+# bar, chip_smoke.py's too).
+
+def _load_chip_smoke():
+    """chip_smoke.py at the repository root, as a module (it imports only
+    the standard library until one of its functions is called)."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _lj_case(dev, which):
+    """`ragged`: chip_smoke.ragged_lj_case; `cubic`: 6^3 fcc cells of the
+    melt, jittered.  Returns (x, mask, box, pair, cells, slot runner)."""
+    from lidp_tpu_torch.forcefield import ForceField
+    from lidp_tpu_torch.integrate.slot_runner import SlotRunner
+    from lidp_tpu_torch.models import lj_melt
+    from lidp_tpu_torch.ops.cells import build_cells
+
+    if which == "ragged":
+        c = _load_chip_smoke().ragged_lj_case(dev)
+        x, mask, box, pair, cfg, n = (c[k] for k in (
+            "x", "mask", "box", "pair", "cfg", "n"))
+    else:
+        melt = lj_melt.build(scale=0.3, dtype=torch.float32,
+                             neighbor="slots", cap_slack=3.0, device=dev)
+        s = melt.system
+        g = torch.Generator(device=dev).manual_seed(1)
+        x = s.x + 0.1 * (torch.rand(s.x.shape, generator=g, device=dev) - 0.5)
+        mask, box, pair = s.mask, s.box, melt.runner.ff.pair
+        cfg, n = melt.runner.neighbor_cfg, melt.natoms
+    cells = build_cells(x, mask, box, cfg)
+    assert not bool(cells.overflow)
+    sr = SlotRunner(ff=ForceField(pair=pair), neighbor_cfg=cfg, dt=0.005,
+                    ftm2v=1.0, n=n)
+    return x, mask, box, pair, cells, sr
+
+
+def _lj_calls(dev, which, kernel, need_ev):
+    from lidp_tpu_torch.ops import cell_kernels as ck
+
+    x, mask, box, pair, cells, sr = _lj_case(dev, which)
+    n = x.shape[0]
+    if kernel == "cell_pair_forces_lj":
+        args = (x, mask, cells, box, pair)
+        return (ck.cell_pair_forces_lj, ck.cell_pair_forces_lj_plain, args,
+                dict(need_ev=need_ev))
+    xs = sr._slotify(x, torch.zeros_like(x), torch.ones(n, device=dev),
+                     torch.arange(n, dtype=torch.int32, device=dev), mask,
+                     box)[0]
+
+    def flat(out):
+        fg, ev, vir = out
+        return torch.stack(list(fg), -1).reshape(-1, 3), ev, vir
+
+    args = ([xs[..., d] for d in range(3)], box, pair)
+    return (lambda *a, **k: flat(ck.slot_lj_forces(*a, **k)),
+            lambda *a, **k: flat(ck.slot_lj_forces_plain(*a, **k)), args,
+            dict(need_ev=need_ev))
+
+
+def _lj_close(got, ref, need_ev):
+    f, r = got[0].double().cpu().numpy(), ref[0].double().cpu().numpy()
+    assert np.abs(r).max() > 1.0
+    np.testing.assert_allclose(f, r, rtol=0, atol=5e-6 * np.abs(r).max())
+    for g, r in zip(got[1:], ref[1:]):
+        g, r = g.double().cpu().numpy(), r.double().cpu().numpy()
+        if need_ev:
+            np.testing.assert_allclose(g, r, rtol=0,
+                                       atol=1e-5 * np.abs(r).max())
+        else:
+            assert not g.any()
+
+
+LJ_KERNELS = ["slot_lj_forces", "cell_pair_forces_lj"]
+
+
+@pytest.mark.parametrize("need_ev", [True, False])
+@pytest.mark.parametrize("which", ["ragged", "cubic"])
+@pytest.mark.parametrize("kernel", LJ_KERNELS)
+def test_lj_cell_kernel_matches_plain(dev, kernel, which, need_ev):
+    from lidp_tpu_torch.ops import cell_kernels as ck
+
+    wrapper, plain, args, kw = _lj_calls(dev, which, kernel, need_ev)
+    before = ck.WRAPPERS[kernel].launches
+    got = wrapper(*args, **kw)
+    torch.cuda.synchronize()
+    assert ck.WRAPPERS[kernel].launches == before + 1
+    _lj_close(got, plain(*args, **kw), need_ev)
+    again = wrapper(*args, **kw)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)        # no atomics: bit-identical
+
+
+def test_slot_lj_forces_separate_grids(dev):
+    """Three contiguous grids and the three columns of one (...,3) tensor
+    are the same input."""
+    from lidp_tpu_torch.ops import cell_kernels as ck
+
+    _, _, (grids, box, pair), kw = _lj_calls(dev, "ragged", "slot_lj_forces",
+                                             True)
+    a = ck.slot_lj_forces(grids, box, pair)
+    b = ck.slot_lj_forces([g.contiguous() for g in grids], box, pair)
+    for u, v in zip((*a[0], *a[1:]), (*b[0], *b[1:])):
+        assert torch.equal(u, v)
+    with pytest.raises(ValueError, match="strided"):
+        ck.slot_lj_forces([g.transpose(0, 1) for g in grids], box, pair)
+
+
+@pytest.mark.parametrize("kernel", LJ_KERNELS)
+def test_lj_cell_kernel_float64_raises(dev, kernel):
+    """float64 goes to ops/cells.cell_pair_forces, never into the kernels:
+    the wrappers raise TypeError, cast nothing and fall back to nothing."""
+    from lidp_tpu_torch.ops import cell_kernels as ck
+
+    x, mask, box, pair, cells, sr = _lj_case(dev, "ragged")
+    before = ck.WRAPPERS[kernel].launches
+    with pytest.raises(TypeError, match="expected torch.float32"):
+        if kernel == "cell_pair_forces_lj":
+            ck.cell_pair_forces_lj(x.double(), mask, cells, box, pair)
+        else:
+            g = torch.zeros((3, 4, 5, 16), dtype=torch.float64, device=dev)
+            ck.slot_lj_forces([g, g, g], box, pair)
+    assert ck.WRAPPERS[kernel].launches == before
+
+
+def test_lj_cell_kernel_two_bins_raises(dev):
+    from lidp_tpu_torch.ops import cell_kernels as ck
+
+    _, _, box, pair, _, _ = _lj_case(dev, "ragged")
+    g = torch.zeros((2, 4, 5, 16), device=dev)
+    with pytest.raises(ValueError, match=">= 3 bins"):
+        ck.slot_lj_forces([g, g, g], box, pair)
+
+
+def test_compute_forces_routes_on_cuda(dev):
+    """On the GPU compute_forces launches cell_pair_forces_lj when its gate
+    holds (one type, float32) and runs the plain roll kernel when it does
+    not (two types), counting only the former."""
+    import dataclasses
+
+    from lidp_tpu_torch.forcefield import ForceField, compute_forces
+    from lidp_tpu_torch.ops import cell_kernels as ck
+    from lidp_tpu_torch.ops.cells import cell_pair_forces
+    from lidp_tpu_torch.ops.pair import make_pair_params
+    from lidp_tpu_torch.state import make_system
+
+    x, mask, box, pair, cells, _ = _lj_case(dev, "ragged")
+    sys1 = make_system(x, box=box, mask=mask, device=dev)
+    before = ck.cell_pair_forces_lj.launches
+    res = compute_forces(sys1, ForceField(pair=pair), cells)
+    assert ck.cell_pair_forces_lj.launches == before + 1
+    ref = cell_pair_forces(x, sys1.q, sys1.type, mask, cells, box, pair)
+    _lj_close((res.f, res.evdwl, res.virial), (ref[0], ref[1], ref[3]), True)
+    assert not res.f[~mask].any()
+
+    e = np.ones((3, 3)); e[0] = e[:, 0] = 0.0
+    two = make_pair_params(e, e, 2.5 * e, coul=False, dtype=torch.float32,
+                           device=dev)
+    typ = torch.arange(x.shape[0], device=dev) % 2 + 1
+    sys2 = dataclasses.replace(sys1, type=typ.to(torch.int32))
+    res2 = compute_forces(sys2, ForceField(pair=two), cells)
+    assert ck.cell_pair_forces_lj.launches == before + 1
+    _lj_close((res2.f, res2.evdwl, res2.virial), (ref[0], ref[1], ref[3]),
+              True)

@@ -236,12 +236,16 @@ def test_package_imports_no_jax():
         " or m == 'lidp_tpu' or m.startswith('lidp_tpu.')]\n"
         "assert not bad, bad\n"
         "assert 'lidp_tpu_torch.parallel.fast_polar' in sys.modules\n"
+        "for name in ('rng', 'lattice', 'velocity', 'state', 'thermo',"
+        " 'ops.cells', 'ops.cell_kernels', 'integrate.nve',"
+        " 'integrate.driver', 'integrate.slot_runner', 'models.lj_melt'):\n"
+        "    assert 'lidp_tpu_torch.' + name in sys.modules, name\n"
         "print(len([m for m in sys.modules if m.startswith('lidp_tpu_torch')]))\n")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120,
                          cwd=Path(__file__).resolve().parent.parent)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip()) >= 13
+    assert int(res.stdout.strip()) >= 25
 
 
 @pytest.mark.parametrize("script", ["chip_smoke.py",
@@ -275,6 +279,19 @@ def test_entry_points_default_to_cuda():
                                     precision=1e-11, host_strips=4)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         convert.forcefield_from_numpy({}, None, None, 1.0)
+    from lidp_tpu_torch.box import Box
+    from lidp_tpu_torch.models import lj_melt
+    from lidp_tpu_torch.state import make_system
+
+    for neighbor in ("cells", "slots"):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            lj_melt.build(scale=0.3, dtype=torch.float32, neighbor=neighbor)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_system(np.zeros((4, 3)), box=Box.create(np.zeros(3), np.ones(3)))
+    for fn in (convert.pair_from_numpy, convert.system_from_numpy,
+               convert.cells_from_numpy, convert.slot_carry_from_numpy):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            fn({})
     from lidp_tpu_torch.parallel import shard
 
     ff = polar_bench.synthetic_forcefield(
