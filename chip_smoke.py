@@ -15,10 +15,25 @@ Phases, each raising on failure:
      over ~1e8 pairs in another order).  float64 (`*_df`) kernels: per-row
      rtol 1e-9, atol 1e-11*max|ref|, scalars rel 1e-10 (double sums in
      another order; a kernel at float32 grade anywhere misses this by four
-     orders).  Median kernel and plain times (CUDA events) and the bound;
+     orders).  Median kernel and plain times (CUDA events around each
+     call, the wrapper's host work included), the time per call of 20
+     calls queued back to back (ms_queued: the kernels alone while the
+     host keeps ahead) and the bound (for eind_panel and eind_panel_df
+     the function's least arithmetic, EIND_FLOPS_PAIR, beside the
+     CostEstimate's as bound_ms_cost_estimate).  eind_panel and
+     eind_panel_df run the whole-panel kernel (each pair once for both
+     atoms); their
+     [strip form] variants, cols = all atoms and row0 = 0, run the
+     one-sided strip kernel on the same operands in the same call, their
+     [no skip] variants the whole-panel kernel with the damping skip off
+     (an infinite threshold), which must give the same bits.  Then
+     ptxas's registers and spills, and the share of warp votes in which
+     the eind kernels skipped the damping exponential;
   4. the main paths on the 10,125-atom synthetic fluid, every launch
      counter set to 0 just before each and read just after:
-     A. float32 fused step through the kernels: initial forces + 20 steps;
+     A. float32 fused step through the kernels: initial forces + 20 steps
+        (eind_panel: the whole-panel kernel, never the strip kernel, on
+        every path A-D);
      B. float32 host phases (make_host_phases + HostPolarForces, pure CG):
         initial forces + 5 steps; step 0 against path A's step 0 (energies
         rel 1e-5, forces rtol 5e-4, atol 5e-5*max);
@@ -64,8 +79,9 @@ Phases, each raising on failure:
      bars there are taken of max(max |f|, 1), the nearest-neighbour pair
      force being 2;
   6. one JSON line {"kernels": [...]} with each of the ten kernels'
-     launches (summed and by path), times and bound, then the nvidia-smi
-     line, then the device line last.
+     launches (summed and by path), times (ms_queued for the panel
+     kernels) and bound, then the nvidia-smi line, then the device line
+     last.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.
@@ -105,6 +121,17 @@ KERNELS = {
                         9, 10, 3),
 }
 PAIR_KERNELS = ("pair_wolf_panel", "pair_panel", "pair_panel_df")
+# The eind kernels' bound counts the least arithmetic of the function: T_ij
+# is symmetric, so one evaluation per unordered pair of polarizable atoms,
+# 59 flops (geometry 12, rsq 5, r and u 2, r^-2, r^-3, r^-5 and c1 4, and 18
+# for each of the two sides), and 12 more where the damping differs from 1
+# (t2, l1, l2 and their products; the exp, on the SFU, is not counted):
+# there u = pd*r < 25 in float32, 47 in float64 (the last u where it
+# differs is 25.36 and 47.27, tests/test_torch_eind_symmetric.py).  The
+# Pallas CostEstimate's 45 flops per ordered pair (npad^2 of them) stays
+# beside it as bound_ms_cost_estimate.
+EIND_FLOPS_PAIR, EIND_FLOPS_DAMPED = 59, 12
+EIND_DAMPED_U = {False: 25.0, True: 47.0}
 # the LJ cell kernels: wrapper -> TPU kernel it replaces
 CELL_KERNELS = {
     "slot_lj_forces": "lidp_tpu/ops/pallas_pair.py:314",
@@ -126,6 +153,22 @@ def smi_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
+
+
+def cuda_ms_queued(fn, reps: int) -> float:
+    """Time per call of `reps` calls queued back to back between two CUDA
+    events, after one warm-up call."""
+    import torch
+
+    fn()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
 
 
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -222,11 +265,29 @@ def kernel_calls(c, c64, pair, s):
         out[label] = (name, lambda: wrapper(*args, **kw),
                       lambda: plain(*args, **kw))
 
+    def add_no_skip(label, name, args, **kw):
+        """The whole-panel eind kernel with the damping skip turned off by
+        an infinite threshold (ops/panel.EIND_SKIP_U)."""
+        wrapper, dtype = panel.WRAPPERS[name], args[0].dtype
+
+        def kern():
+            saved = panel.EIND_SKIP_U[dtype]
+            panel.EIND_SKIP_U[dtype] = math.inf
+            try:
+                return wrapper(*args, **kw)
+            finally:
+                panel.EIND_SKIP_U[dtype] = saved
+        out[label] = (name, kern, lambda: panel.eind_panel_plain(*args, **kw))
+
     for d, suffix in ((c, ""), (c64, "_df")):
         tabs = tabs_for(pair, d["x"].dtype)
+        eargs = (d["x"], d["alpha"], d["mu"], d["L"], pd)
         add("eind_panel" + suffix, "eind_panel" + suffix,
-            panel.eind_panel_plain, (d["x"], d["alpha"], d["mu"], d["L"], pd),
-            **damp)
+            panel.eind_panel_plain, eargs, **damp)
+        add(f"eind_panel{suffix}[strip form]", "eind_panel" + suffix,
+            panel.eind_panel_plain, eargs, cols=eargs[:3], row0=0, **damp)
+        add_no_skip(f"eind_panel{suffix}[no skip]", "eind_panel" + suffix,
+                    eargs, **damp)
         add("dipole_panel" + suffix, "dipole_panel" + suffix,
             panel.dipole_panel_plain,
             (d["x"], d["q"], d["mol"], d["alpha"], d["mu"], d["mask"],
@@ -302,6 +363,59 @@ def bound_ms(name, nrows, npad, flops_per_pair=None):
     t_bytes = nbytes / HBM_RATE
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                        else "bytes")
+
+
+def eind_bound_ms(name, x, alpha, L, pd):
+    """bound_ms of eind_panel / eind_panel_df on these operands: the
+    flops of EIND_FLOPS_PAIR per unordered pair of atoms with alpha != 0
+    and EIND_FLOPS_DAMPED more per such pair with pd*r < EIND_DAMPED_U, or
+    the operand bytes, whichever takes longer."""
+    import torch
+
+    _, _, f64, rows, cols, outs = KERNELS[name]
+    xl = x[alpha != 0].double()
+    m = xl.shape[0]
+    Ld = L.double()
+    rcut = EIND_DAMPED_U[f64] / pd
+    near = 0
+    for i0 in range(0, m, 1024):
+        d = xl[i0:i0 + 1024, None, :] - xl[None, :, :]
+        d = d - Ld * torch.round(d / Ld)
+        near += int(((d * d).sum(-1) < rcut * rcut).sum())
+    near = (near - m) // 2                   # unordered, no self pairs
+    flops = EIND_FLOPS_PAIR * m * (m - 1) // 2 + EIND_FLOPS_DAMPED * near
+    npad, item = x.shape[0], 8 if f64 else 4
+    t_ops = flops / (FP64_PEAK if f64 else FP32_PEAK)
+    t_bytes = item * ((rows + cols + outs) * npad + 8) / HBM_RATE
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def skip_share(tag, x, alpha_eff, mu, L, pd, forms=("whole",)):
+    """Print the share of the eind kernels' warp votes that skipped the
+    exponential (ops/panel.eind_skip_share), per form."""
+    from lidp_tpu_torch.ops import panel
+
+    for form in forms:
+        kw = {} if form == "whole" else dict(cols=(x, alpha_eff, mu), row0=0)
+        votes, skipped = panel.eind_skip_share(x, alpha_eff, mu, L, pd, **kw)
+        print(f"skip share {tag} [{form}]: {skipped} of {votes} warp votes "
+              f"= {skipped / votes:.4f}")
+
+
+def fluid_skip_share(tag, bench):
+    """skip_share on a polar bench's current state, in its dtype, and for
+    path C's inner solve in float32 as well."""
+    import torch
+
+    a = bench.arrays
+    ae = torch.where(a["mask"], a["alpha"], 0.0)
+    L, pd = bench.step.box_lengths, bench.settings.polar_damp
+    skip_share(f"eind {a['x'].dtype} fluid, {tag}", a["x"], ae, a["mu"], L,
+               pd)
+    if a["x"].dtype == torch.float64:
+        f32 = [t.float() for t in (a["x"], ae, a["mu"], L)]
+        skip_share(f"eind float32 fluid, {tag}", *f32, pd)
 
 
 def energy_row(tag, en):
@@ -555,23 +669,38 @@ def main() -> int:
             got, ref = kern(), plain()
             torch.cuda.synchronize()
             err, scale = compare(f"{label}[{cname}]", got, ref, f64)
+            if label.endswith("[no skip]") and \
+                    not torch.equal(got, calls[name][1]()):
+                raise AssertionError(f"{label}[{cname}]: the damping skip "
+                                     f"changed the result")
             line = (f"parity {label}[{cname}] ok: max abs err {err:.3e} "
                     f"of max |ref| {scale:.3e}")
             del got, ref
             if cname == "main":
                 ms = cuda_ms(kern, reps=20)
+                qms = cuda_ms_queued(kern, reps=20)
                 pms = cuda_ms(plain, reps=3, warmup=1)
                 flops = {"pair_panel_df[no field]": 70}.get(label)
                 bms, by = bound_ms(name, npad, npad, flops)
-                r = dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms,
-                         bound_by=by)
+                r = dict(max_abs_err=err, ms=ms, ms_queued=qms, plain_ms=pms,
+                         bound_ms=bms, bound_by=by)
+                if name.startswith("eind_panel"):
+                    r["bound_ms_cost_estimate"] = bms
+                    bms, by = eind_bound_ms(name, c["x"], c["alpha"], c["L"],
+                                            ff.polar.polar_damp)
+                    r.update(bound_ms=bms, bound_by=by)
                 if label == name:
                     results[name] = r
                 else:
                     results[name].setdefault("variants", {})[label] = r
-                line += (f", kernel {ms:.4f} ms, plain {pms:.3f} ms, "
-                         f"bound {bms:.4f} ms ({by})")
+                line += (f", kernel {ms:.4f} ms ({qms:.4f} queued), plain "
+                         f"{pms:.3f} ms, bound {bms:.4f} ms ({by})")
             print(line)
+        if cname == "main":
+            for d in (c, to_f64(c)):
+                skip_share(f"eind {d['x'].dtype} main case", d["x"],
+                           d["alpha"], d["mu"], d["L"], ff.polar.polar_damp,
+                           forms=("whole", "strip"))
         del calls
     del cases
     torch.cuda.empty_cache()
@@ -580,7 +709,16 @@ def main() -> int:
     def reset_counts():
         for w in wrappers.values():
             w.launches = 0
+        for w in (panel.eind_panel, panel.eind_panel_df):
+            w.launches_strip = 0
         torch.cuda.synchronize()
+
+    def check_whole_eind(path):
+        """Paths A-D evaluate the whole block: no strip-kernel launch."""
+        strip = {w.__name__: w.launches_strip
+                 for w in (panel.eind_panel, panel.eind_panel_df)}
+        if any(strip.values()):
+            raise AssertionError(f"path {path}: strip eind launches {strip}")
 
     def read_counts():
         torch.cuda.synchronize()
@@ -611,6 +749,7 @@ def main() -> int:
     check_counts("A", launches["A"], dict(
         eind_panel=sum(it + 1 for it in scf), pair_wolf_panel=NSTEPS + 1,
         dipole_panel=NSTEPS + 1))
+    check_whole_eind("A")
     steps_per_s = NSTEPS / t_run
     print(f"path A: init {t_init * 1e3:.1f} ms; {NSTEPS} steps in "
           f"{t_run:.3f} s = {steps_per_s:.3f} steps/s; mean scf_iters "
@@ -620,6 +759,7 @@ def main() -> int:
     print("path A kernel ms per step (kernel ms x launches / evaluations): "
           + ", ".join(f"{k} {v:.3f}" for k, v in per_step_ms.items())
           + f"; step {1e3 / steps_per_s:.3f} ms")
+    fluid_skip_share("path A, step 20", bench)
     del bench, per_step
 
     # path B: float32 host phases, pure CG
@@ -648,6 +788,7 @@ def main() -> int:
     check_counts("B", launches["B"], dict(
         pair_panel=len(evals), wolf_panel=len(evals),
         eind_panel=sum(it + 1 for it in scf), dipole_panel=len(evals)))
+    check_whole_eind("B")
     steps_per_s_B = HOST_STEPS / t_run
     print(f"path B: init {t_init * 1e3:.1f} ms; {HOST_STEPS} steps in "
           f"{t_run:.3f} s = {steps_per_s_B:.3f} steps/s; scf_iters {scf}")
@@ -704,13 +845,16 @@ def main() -> int:
     check_counts("C", launches["C"], dict(
         pair_panel_df=len(evals), eind_panel_df=sum(outer),
         eind_panel=sum(inner), dipole_panel_df=len(evals)))
+    check_whole_eind("C")
     steps_per_s_C = HOST_STEPS / t_run
     print(f"path C: init {t_init * 1e3:.1f} ms; {HOST_STEPS} steps in "
           f"{t_run:.3f} s = {steps_per_s_C:.3f} steps/s; scf_iters {scf}, "
           f"outer float64 passes {outer}, inner float32 iterations {inner}; "
           f"host reads per step: {statistics.mean(inner[1:]):.1f} in the "
           f"inner CG + {statistics.mean(outer[1:]):.1f} outer")
+    print(f"path C: mean scf_iters per step {statistics.mean(scf[1:]):.2f}")
     print(f"steps_per_s_C {steps_per_s_C:.4f}")
+    fluid_skip_share("path C, step 5", bench)
     del bench, per_step
     torch.cuda.empty_cache()
 
@@ -727,6 +871,7 @@ def main() -> int:
     check_counts("D", launches["D"], dict(
         pair_panel_df=1, eind_panel_df=enD["scf_iters"] + 1,
         dipole_panel_df=1))
+    check_whole_eind("D")
     print(f"path D: float64 fused step, pure CG through eind_panel_df: "
           f"{t_D:.4f} s for the initial forces, scf_iters "
           f"{enD['scf_iters']}")
@@ -1003,6 +1148,9 @@ def main() -> int:
                    max_abs_err=r["max_abs_err"], ms=r["ms"],
                    plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                    bound_by=r["bound_by"], library_ms=None)
+        for key in ("ms_queued", "bound_ms_cost_estimate"):
+            if key in r:
+                row[key] = r[key]
         if "variants" in r:
             row["variants"] = r["variants"]
         out.append(row)

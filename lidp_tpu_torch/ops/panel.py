@@ -47,6 +47,14 @@ CHUNK = 2048          # default column chunk of the plain versions
 MAX_T1 = 16           # type-table edge the pair kernel holds in shared memory
 MAX_S = 16            # special-list width the pair kernel holds in registers
 ROWS_PER_CTA = 32     # csrc/panel_common.cuh ROWS
+EIND_TILE = 128       # csrc/eind_panel.cuh BT: atoms per tile of the whole panel
+# The exact damping skip of the eind kernels, u = pd*r: at and beyond it
+# 1 - t1*t2 and 1 - t1*(t2 + pd^3/6 rsq r) round to exactly 1 in the dtype,
+# separately rounded or contracted to an FMA, so a warp whose pairs all lie
+# beyond it sets l1 = l2 = 1 without the exponential.  The last u where
+# either differs from 1 is 25.36 in float32 and 47.27 in float64; the
+# margin covers an exp a few ulps off (tests/test_torch_eind_symmetric.py).
+EIND_SKIP_U = {torch.float32: 27.0, torch.float64: 49.0}
 
 
 # ------------------------------ plain path ------------------------------
@@ -350,24 +358,25 @@ _CTYPES = {"P": ctypes.c_void_p, "I": ctypes.c_int, "F": ctypes.c_float,
 
 
 @functools.lru_cache(maxsize=None)
-def _cfn(name: str, sig: str):
-    """The C entry lidp_<name> of lib<name>.so, with argtypes from `sig`
+def _cfn(name: str, sig: str, entry: str):
+    """The C entry lidp_<entry> of lib<name>.so, with argtypes from `sig`
     (P pointer, I int, F float, D double)."""
     from lidp_tpu_torch.kernels import build
 
-    fn = getattr(build.library(name), f"lidp_{name}")
+    fn = getattr(build.library(name), f"lidp_{entry}")
     fn.argtypes = [_CTYPES[c] for c in sig]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _launch(name, sig, device, *args):
-    """Launch on `device` (its current stream is the last argument)."""
+def _launch(name, sig, device, *args, entry=None):
+    """Launch lidp_<entry or name> of lib<name>.so on `device` (its current
+    stream is the last argument)."""
     with torch.cuda.device(device):
-        err = _cfn(name, sig)(*args)
+        err = _cfn(name, sig, entry or name)(*args)
     if err:
-        raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
-                           f"{err}")
+        raise RuntimeError(f"{entry or name}: kernel launch failed with CUDA "
+                           f"error {err}")
 
 
 def _check(name, dtype, *ts):
@@ -405,7 +414,10 @@ def _scalar_code(dtype):
 
 
 def _eind_cuda(wrapper, dtype, x, alpha_eff, mu, L, pd, damping_type, cols,
-               row0):
+               row0, stats=None):
+    """The whole-panel kernel and its sum for cols=None, else the strip
+    kernel.  stats, an int64 (2,) device tensor, gains (warp votes, votes
+    that skipped the exponential)."""
     name = wrapper.__name__
     xc, ac, muc = (x, alpha_eff, mu) if cols is None else cols
     nrows, npad = x.shape[0], xc.shape[0]
@@ -413,19 +425,47 @@ def _eind_cuda(wrapper, dtype, x, alpha_eff, mu, L, pd, damping_type, cols,
     _check_shapes(name, (x, (nrows, 3)), (alpha_eff, (nrows,)),
                   (xc, (npad, 3)), (ac, (npad,)), (muc, (npad, 3)),
                   (L, (3,)))
+    c = _scalar_code(dtype)
     out = torch.empty((nrows, 3), dtype=dtype, device=x.device)
-    _launch(name, f"PPIIPPPIP{_scalar_code(dtype)}IPP", x.device,
-            x.data_ptr(), alpha_eff.data_ptr(), nrows, int(row0),
-            xc.data_ptr(), ac.data_ptr(), muc.data_ptr(), npad,
-            L.data_ptr(), float(pd), int(damping_type), out.data_ptr(),
+    head = (float(pd), int(damping_type), EIND_SKIP_U[dtype])
+    tail = (out.data_ptr(), None if stats is None else stats.data_ptr(),
             _stream(x))
+    if cols is None:
+        nT = -(-npad // EIND_TILE)
+        part = torch.empty((nT, nT + 1, 3, EIND_TILE), dtype=dtype,
+                           device=x.device)
+        _launch(name, f"PPPIP{c}I{c}IPPPP", x.device, x.data_ptr(),
+                alpha_eff.data_ptr(), mu.data_ptr(), npad, L.data_ptr(),
+                *head, nT, part.data_ptr(), *tail, entry=name + "_whole")
+    else:
+        _launch(name, f"PPIIPPPIP{c}I{c}PPP", x.device, x.data_ptr(),
+                alpha_eff.data_ptr(), nrows, int(row0), xc.data_ptr(),
+                ac.data_ptr(), muc.data_ptr(), npad, L.data_ptr(), *head,
+                *tail)
+        wrapper.launches_strip += 1
     wrapper.launches += 1
     return out
 
 
+def eind_skip_share(x, alpha_eff, mu, L, pd, *, damping_type=DAMP_EXP,
+                    cols=None, row0=0):
+    """One launch of eind_panel (float32) or eind_panel_df (float64) on CUDA
+    tensors that also counts the warp votes on the damping skip: (votes,
+    votes that skipped the exponential).  For measurement; it counts as a
+    launch of the wrapper."""
+    wrapper = eind_panel_df if x.dtype == torch.float64 else eind_panel
+    stats = torch.zeros(2, dtype=torch.int64, device=x.device)
+    _eind_cuda(wrapper, x.dtype, x, alpha_eff, mu, L, pd, damping_type, cols,
+               row0, stats=stats)
+    votes, skipped = stats.tolist()
+    return votes, skipped
+
+
 def eind_panel(x, alpha_eff, mu, L, pd, *, damping_type=DAMP_EXP,
                cols=None, row0=0):
-    """E_ind = -T.mu; (nrows, 3) out (csrc/eind_panel.cu on CUDA)."""
+    """E_ind = -T.mu; (nrows, 3) out.  On CUDA (csrc/eind_panel.cu) the
+    whole panel (cols=None) takes the kernel that computes each pair once
+    for both atoms, a row strip the one-sided strip kernel."""
     if x.device.type == "cpu":
         return eind_panel_plain(x, alpha_eff, mu, L, pd,
                                 damping_type=damping_type, cols=cols,
@@ -435,12 +475,13 @@ def eind_panel(x, alpha_eff, mu, L, pd, *, damping_type=DAMP_EXP,
 
 
 eind_panel.launches = 0
+eind_panel.launches_strip = 0     # of them, launches of the strip kernel
 
 
 def eind_panel_df(x, alpha_eff, mu, L, pd, *, damping_type=DAMP_EXP,
                   cols=None, row0=0):
     """E_ind = -T.mu at f64 grade: float64 operands (csrc/eind_panel_df.cu
-    on CUDA)."""
+    on CUDA, routed as eind_panel)."""
     if x.device.type == "cpu":
         return eind_panel_df_plain(x, alpha_eff, mu, L, pd,
                                    damping_type=damping_type, cols=cols,
@@ -450,6 +491,7 @@ def eind_panel_df(x, alpha_eff, mu, L, pd, *, damping_type=DAMP_EXP,
 
 
 eind_panel_df.launches = 0
+eind_panel_df.launches_strip = 0
 
 
 def _pair_cuda(wrapper, dtype, x, q, typef, mol, maskf, tabs, L, cut_coulsq,

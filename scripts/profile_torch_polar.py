@@ -5,6 +5,9 @@
     python scripts/profile_torch_polar.py --path host64 [--steps 5]
     python scripts/profile_torch_polar.py --path lj --steps 400 [--scale 4]
     python scripts/profile_torch_polar.py --path ljcells --steps 100
+    python scripts/profile_torch_polar.py --path eind [--rounds 7]
+    python scripts/profile_torch_polar.py --path ab --tree OTHER --seq F \
+        [--pairs 10]
 
 Builds the 10,125-atom synthetic fluid of lidp_tpu_torch.models.polar_bench
 (float32, CUDA panel kernels), runs the initial forces and 3 warm-up steps,
@@ -34,12 +37,38 @@ re-slotting, amortised over the steps), the rest being the integrator's
 elementwise work and the gaps between launches; then the same
 torch.profiler window.
 
+--path eind times design variants of the whole-panel eind kernel
+(csrc/eind_panel.cuh), each the committed source with one choice changed,
+built from a patched copy of csrc/ into lidp_tpu_torch/_build/variants/
+(see VARIANTS), on chip_smoke.py's 12,288-row main case in float32 and
+float64: `--rounds` rounds, each timing every variant in turn (the order
+rotated from round to round) by 20 launches queued between two CUDA
+events (the kernel and its sum, no wrapper), the median over rounds; each
+variant is held to eind_panel_plain at chip_smoke.py's bars, with its
+registers, spills, instruction mix of the damped kernel's SASS
+(cuobjdump -sass), the share of warp votes that skipped the exponential
+and whether its bits equal the committed kernel's.  The committed kernel
+through its wrapper (`wrapper[...]`) is timed in the same rounds, after
+2,000 warm-up launches.
+
+--path seq drives the paths of `--seq` (A, C, E, F, comma-separated, in
+order) in one process as chip_smoke.py times them, through the
+lidp_tpu_torch of `--tree` (default: this checkout), and prints their
+steps/s: A 20 fused float32 steps, C 5 float64/1e-11 mixed host steps, E
+400 SlotRunner steps after 100, F 100 Runner steps on cells.  --path ab
+runs `--path seq` `--pairs` times for this checkout and for `--tree`
+(another checkout, e.g. the parent commit from `git archive`), one
+process each, alternated (this, other; then other, this) after one
+untimed warm-up process each, and prints each path's values, median and
+quartiles per checkout.
+
 Prints the card (nvidia-smi name, power limit) first.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import statistics
 import subprocess
@@ -175,14 +204,379 @@ def lj_events(path, scale, steps):
     return run_steps
 
 
+# --path eind: (what changes, [(file in csrc/, text, replacement)])
+_ROT = """  T cx = T(0), cy = T(0), cz = T(0);  // the sum of column c0 + (lane+t)&31
+#pragma unroll 2
+  for (int t = 0; t < 32; ++t) {
+    const int c = (lane + t) & 31;
+    const Col<T> cj = get_col(scol[w], c);"""
+_BCAST = """  T cx = T(0), cy = T(0), cz = T(0);  // the sum of column c0 + lane
+#pragma unroll 2
+  for (int t = 0; t < 32; ++t) {
+    const int c = t;
+    const Col<T> cj = get_col(scol[w], c);"""
+_ROT_SUM = """      const T si = c1[r] * (mxi[r] * dx[r] + myi[r] * dy[r] + mzi[r] * dz[r]);
+      cx += si * dx[r];
+      cx += c2[r] * mxi[r];
+      cy += si * dy[r];
+      cy += c2[r] * myi[r];
+      cz += si * dz[r];
+      cz += c2[r] * mzi[r];
+    }
+    // column c's sum goes to the lane that meets it at step t + 1
+    const int src = (lane + 1) & 31;
+    cx = __shfl_sync(FULL, cx, src);
+    cy = __shfl_sync(FULL, cy, src);
+    cz = __shfl_sync(FULL, cz, src);
+  }"""
+_BCAST_SUM = """      const T si = c1[r] * (mxi[r] * dx[r] + myi[r] * dy[r] + mzi[r] * dz[r]);
+      sx += si * dx[r];
+      sx += c2[r] * mxi[r];
+      sy += si * dy[r];
+      sy += c2[r] * myi[r];
+      sz += si * dz[r];
+      sz += c2[r] * mzi[r];
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      sx += __shfl_xor_sync(FULL, sx, off);
+      sy += __shfl_xor_sync(FULL, sy, off);
+      sz += __shfl_xor_sync(FULL, sz, off);
+    }
+    if (lane == t) cx = sx, cy = sy, cz = sz;
+  }"""
+VARIANTS = {
+    "kept": ("the committed source", []),
+    "vote1": ("the warp vote over 1 row x 32 columns (G = 1)",
+              [("eind_panel.cuh", "constexpr int G = 2;",
+                "constexpr int G = 1;")]),
+    "vote4": ("the warp vote over 4 rows x 32 columns (G = 4)",
+              [("eind_panel.cuh", "constexpr int G = 2;",
+                "constexpr int G = 4;")]),
+    "rint2add": ("the minimum image's rint as (v + 1.5*2^23) - 1.5*2^23 "
+                 "(2^52 in double) in place of FRND",
+                 [("panel_common.cuh", "{ return rintf(v); }",
+                   "{ return __fadd_rn(__fadd_rn(v, 12582912.f), "
+                   "-12582912.f); }"),
+                  ("panel_common.cuh", "{ return rint(v); }",
+                   "{ return __dadd_rn(__dadd_rn(v, 6755399441055744.0), "
+                   "-6755399441055744.0); }")]),
+    "broadcast": ("all 32 lanes on one column per step, its sum reduced "
+                  "by a 5-level xor-shuffle tree, in place of the "
+                  "rotating column sums",
+                  [("eind_panel.cuh", _ROT, _BCAST),
+                   ("eind_panel.cuh", "    T dx[RW], dy[RW], dz[RW], "
+                    "rsq[RW], c1[RW], c2[RW];\n",
+                    "    T dx[RW], dy[RW], dz[RW], rsq[RW], c1[RW], "
+                    "c2[RW];\n    T sx = T(0), sy = T(0), sz = T(0);\n"),
+                   ("eind_panel.cuh", _ROT_SUM, _BCAST_SUM)]),
+    "rsqrtf": ("float32 rsqrt by rsqrtf (its rescaling of subnormal "
+               "inputs included) in place of rsqrt.approx.ftz.f32",
+               [("panel_common.cuh", 'asm("rsqrt.approx.ftz.f32 %0, %1;" '
+                 ': "=f"(y) : "f"(v));', "y = rsqrtf(v);")]),
+    "onesum": ("each component accumulated as e += s*d + c2*mu, one "
+               "statement, in place of two +=",
+               [("eind_panel.cuh", f"      {a}[r] += sj * d{d}[r];\n"
+                 f"      {a}[r] += c2[r] * cj.m{d};\n",
+                 f"      {a}[r] += sj * d{d}[r] + c2[r] * cj.m{d};\n")
+                for a, d in (("ex", "x"), ("ey", "y"), ("ez", "z"))]
+               + [("eind_panel.cuh", f"      c{d} += si * d{d}[r];\n"
+                   f"      c{d} += c2[r] * m{d}i[r];\n",
+                   f"      c{d} += si * d{d}[r] + c2[r] * m{d}i[r];\n")
+                  for d in "xyz"]),
+    "ctas4": ("__launch_bounds__(128, 4): 4 CTAs per SM, at most 128 "
+              "registers",
+              [("eind_panel.cuh", "__launch_bounds__(32 * WT)\n"
+                "eind_whole_kernel", "__launch_bounds__(32 * WT, 4)\n"
+                "eind_whole_kernel")]),
+}
+
+
+def _sass_mix(lib, dtype_code):
+    """Instruction count of the damped whole kernel in lib's SASS
+    (cuobjdump -sass): total and by opcode."""
+    import re
+
+    from lidp_tpu_torch.kernels import build
+
+    tool = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    body = re.split(r"\n\s*Function : ", sass)
+    fn = [b for b in body
+          if b.startswith(f"_ZN4lidp17eind_whole_kernelI{dtype_code}Li1E")]
+    ops = {}
+    for m in re.finditer(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?"
+                         r"([A-Z][A-Z0-9]*)", fn[0] if fn else ""):
+        ops[m.group(1)] = ops.get(m.group(1), 0) + 1
+    return sum(ops.values()), ops
+
+
+def _build_variants():
+    """Compile eind_panel.cu and eind_panel_df.cu of every variant, all
+    nvcc processes at once; returns {variant: {dtype: its C entry of the
+    whole panel, registers, spill bytes and SASS mix}}."""
+    import ctypes
+    import re
+    import shutil
+
+    import torch
+
+    from lidp_tpu_torch.kernels import build
+
+    procs = {}
+    for name, (_, patches) in VARIANTS.items():
+        out = build.BUILD / "variants" / name
+        shutil.rmtree(out, ignore_errors=True)
+        shutil.copytree(build.CSRC, out / "csrc")
+        for fname, old, new in patches:
+            f = out / "csrc" / fname
+            text = f.read_text()
+            if text.count(old) != 1:
+                raise RuntimeError(f"variant {name}: {fname} does not hold "
+                                   f"the text it patches once")
+            f.write_text(text.replace(old, new))
+        for src in ("eind_panel", "eind_panel_df"):
+            cmd = [build._nvcc(), *build.NVCC_FLAGS, "-o",
+                   str(out / f"lib{src}.so"), str(out / "csrc" / f"{src}.cu")]
+            procs[name, src] = subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)
+    libs = {}
+    for (name, src), proc in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"variant {name}: nvcc failed on {src}.cu\n"
+                               f"{log}")
+        # the damped whole kernel's registers and spill stores
+        m = re.search(r"eind_whole_kernelI[fd]Li1E.*?\n(.*?)Used (\d+) "
+                      r"registers", log, re.S)
+        spill = re.findall(r"(\d+) bytes spill stores", m.group(1)) if m \
+            else []
+        fn = getattr(ctypes.CDLL(str(build.BUILD / "variants" / name /
+                                     f"lib{src}.so")), f"lidp_{src}_whole")
+        dtype = torch.float64 if src.endswith("_df") else torch.float32
+        c = "d" if src.endswith("_df") else "f"
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
+        fn.argtypes += [ctypes.c_double if c == "d" else ctypes.c_float,
+                        ctypes.c_int]
+        fn.argtypes += [ctypes.c_double if c == "d" else ctypes.c_float,
+                        ctypes.c_int] + [ctypes.c_void_p] * 4
+        fn.restype = ctypes.c_int
+        total, ops = _sass_mix(build.BUILD / "variants" / name /
+                               f"lib{src}.so", c)
+        libs.setdefault(name, {})[dtype] = dict(
+            fn=fn, registers=int(m.group(2)) if m else None,
+            spill_bytes=int(spill[-1]) if spill else None,
+            sass_total=total, sass_ops=ops)
+    return libs
+
+
+def eind_variants(rounds):
+    """--path eind; returns the JSON-able results."""
+    import torch
+
+    import chip_smoke
+    from lidp_tpu_torch.models import polar_bench
+    from lidp_tpu_torch.ops import panel
+
+    t0 = time.perf_counter()
+    libs = _build_variants()
+    print(f"built {len(VARIANTS)} variants x 2 in "
+          f"{time.perf_counter() - t0:.1f} s")
+    ff = polar_bench.synthetic_forcefield(polar_bench.synthetic_system(),
+                                          torch.float32, "cuda")
+    pd = ff.polar.polar_damp
+    c32 = chip_smoke.make_case(10_125, 12_288, 60.0, seed=1)
+    cases = {torch.float32: c32, torch.float64: chip_smoke.to_f64(c32)}
+    calls, res = {}, {}
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launcher(fn, c, dtype, part, out):
+        """One launch of a variant's whole kernel and sum on case c."""
+        args = (c["x"].data_ptr(), c["alpha"].data_ptr(), c["mu"].data_ptr(),
+                c["x"].shape[0], c["L"].data_ptr(), pd, panel.DAMP_EXP,
+                panel.EIND_SKIP_U[dtype], part.shape[0], part.data_ptr(),
+                out.data_ptr())
+
+        def call(stats=None):
+            err = fn(*args, stats, stream)
+            if err:
+                raise RuntimeError(f"launch failed with CUDA error {err}")
+        return call
+
+    for dtype, c in cases.items():
+        n = c["x"].shape[0]
+        nT = -(-n // panel.EIND_TILE)
+        part = torch.empty((nT, nT + 1, 3, panel.EIND_TILE), dtype=dtype,
+                           device="cuda")
+        ref = panel.eind_panel_plain(c["x"], c["alpha"], c["mu"], c["L"], pd)
+        dt = str(dtype)[6:]
+        for name in VARIANTS:
+            lib = libs[name][dtype]
+            out = torch.empty((n, 3), dtype=dtype, device="cuda")
+            stats = torch.zeros(2, dtype=torch.int64, device="cuda")
+            call = launcher(lib["fn"], c, dtype, part, out)
+            call(stats.data_ptr())
+            torch.cuda.synchronize()
+            label = f"{name}[{dt}]"
+            err, _ = chip_smoke.compare(label, out, ref,
+                                        dtype == torch.float64)
+            votes, skipped = stats.tolist()
+            res[label] = dict(
+                registers=lib["registers"], spill_bytes=lib["spill_bytes"],
+                sass_total=lib["sass_total"], sass_ops=lib["sass_ops"],
+                max_abs_err=err, skip_share=skipped / votes, ms=[],
+                same_bits_as_kept=bool(torch.equal(
+                    out, res[f"kept[{dt}]"]["out"]))
+                if name != "kept" else True, out=out.clone())
+            calls[label] = call
+        # the committed kernel through its wrapper, as chip_smoke.py times
+        # it (the wrapper's checks and allocations included)
+        wrapper = panel.eind_panel_df if dtype == torch.float64 \
+            else panel.eind_panel
+        label = f"wrapper[{dt}]"
+        calls[label] = lambda w=wrapper, c=c: w(c["x"], c["alpha"], c["mu"],
+                                                c["L"], pd)
+        res[label] = dict(ms=[])
+    for r in res.values():
+        r.pop("out", None)
+    labels = list(calls)
+    for _ in range(2000):            # the card at its working clocks
+        calls[labels[0]]()
+    torch.cuda.synchronize()
+    clocks = "--query-gpu=clocks.sm,clocks.max.sm,power.draw"
+    for rd in range(rounds):
+        k = rd % len(labels)
+        for label in labels[k:] + labels[:k]:
+            res[label]["ms"].append(chip_smoke.cuda_ms_queued(calls[label],
+                                                              20))
+        if rd in (0, rounds - 1):
+            print(f"after round {rd}: sm clock, max, power: " + subprocess.run(
+                ["nvidia-smi", clocks, "--format=csv,noheader"],
+                capture_output=True, text=True).stdout.strip())
+    for r in res.values():
+        r["median_ms"] = statistics.median(r["ms"])
+    for label, r in res.items():
+        kept = res["kept" + label[label.index("["):]]["median_ms"]
+        line = (f"{label:20s} {r['median_ms']:.4f} ms (min {min(r['ms']):.4f}"
+                f", max {max(r['ms']):.4f}; {r['median_ms'] / kept:.3f} x "
+                f"kept)")
+        if "registers" in r:
+            mix = " ".join(f"{k}={r['sass_ops'].get(k, 0)}" for k in
+                           ("FRND", "MUFU", "SHFL", "LDS", "FFMA", "FADD",
+                            "FMUL", "DFMA", "DADD", "DMUL", "BRA"))
+            line += (f", SASS {r['sass_total']} ({mix})")
+            line += (f", registers {r['registers']}, spill "
+                     f"{r['spill_bytes']} B, skip share "
+                     f"{r['skip_share']:.4f}, same bits as kept "
+                     f"{r['same_bits_as_kept']}, max abs err "
+                     f"{r['max_abs_err']:.3e}")
+        print(line)
+    return {"variants": {k: v[0] for k, v in VARIANTS.items()},
+            "results": res}
+
+
+def drive_paths(seq):
+    """--path seq: each path of `seq` in order as chip_smoke.py times it;
+    returns [steps/s]."""
+    import torch
+
+    from lidp_tpu_torch.kernels import build
+    from lidp_tpu_torch.models import lj_melt, polar_bench
+
+    build.library("eind_panel")      # build and load every kernel first
+    rates = []
+    for path in seq:
+        sync = torch.cuda.synchronize
+        if path == "A":
+            bench = polar_bench.build_synthetic()
+            polar_bench.setup_forces(bench)
+            sync()
+            t0 = time.perf_counter()
+            polar_bench.run(bench, 20)
+            steps = 20
+        elif path == "C":
+            bench = polar_bench.build_synthetic(dtype=torch.float64,
+                                                precision=1e-11)
+            polar_bench.host_setup_forces(bench, mixed=True)
+            sync()
+            t0 = time.perf_counter()
+            for _ in range(5):
+                polar_bench.host_cg_step(bench, mixed=True)
+            steps = 5
+        elif path in ("E", "F"):
+            bench = lj_melt.build(scale=1, dtype=torch.float32,
+                                  neighbor="slots" if path == "E"
+                                  else "cells")
+            state = bench.runner.setup(bench.system)
+            if path == "E":
+                state = bench.runner.run(*state, 100)
+            sync()
+            t0 = time.perf_counter()
+            steps = 400 if path == "E" else 100
+            state = bench.runner.run(*state, steps)
+            del state
+        else:
+            raise ValueError(f"unknown path {path!r}")
+        sync()
+        rates.append(steps / (time.perf_counter() - t0))
+        del bench
+        torch.cuda.empty_cache()
+    return rates
+
+
+def ab_trees(other, pairs, seq):
+    """--path ab; returns the JSON-able results."""
+    trees = {"this": ROOT, "other": os.path.abspath(other)}
+
+    def child(tree):
+        out = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--path", "seq",
+             "--seq", ",".join(seq), "--tree", tree], capture_output=True,
+            text=True, check=True).stdout
+        return json.loads(out.strip().splitlines()[-1])["steps_per_s"]
+
+    for name, tree in trees.items():
+        print(f"{name}: {tree} (warm-up: {child(tree)})")
+    vals = {name: [[] for _ in seq] for name in trees}
+    for p in range(pairs):
+        order = ["this", "other"] if p % 2 == 0 else ["other", "this"]
+        for name in order:
+            for i, v in enumerate(child(trees[name])):
+                vals[name][i].append(v)
+    res = {}
+    for name in trees:
+        for i, path in enumerate(seq):
+            v = vals[name][i]
+            q1, q2, q3 = statistics.quantiles(v, n=4)
+            key = f"{name} {path}@{i}"
+            res[key] = dict(values=v, median=statistics.median(v), q1=q1,
+                            q3=q3)
+            print(f"{key:12s} median {statistics.median(v):9.2f}, quartiles "
+                  f"{q1:9.2f} {q3:9.2f} steps/s; values "
+                  + " ".join(f"{x:.1f}" for x in v))
+    return {"seq": seq, "pairs": pairs, "trees": trees, "results": res}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--trace", help="write the profiler's Chrome trace here")
-    ap.add_argument("--path", choices=["fused32", "host64", "lj", "ljcells"],
+    ap.add_argument("--path", choices=["fused32", "host64", "lj", "ljcells",
+                                       "eind", "seq", "ab"],
                     default="fused32")
     ap.add_argument("--scale", type=float, default=1,
                     help="lj paths: box edge in units of 20 fcc cells")
+    ap.add_argument("--rounds", type=int, default=7,
+                    help="eind: rounds over the variants")
+    ap.add_argument("--seq", default="F",
+                    help="seq, ab: paths in order, e.g. F or F,A,C,F")
+    ap.add_argument("--tree", help="seq: the checkout to drive (default "
+                    "this one); ab: the other checkout")
+    ap.add_argument("--pairs", type=int, default=10,
+                    help="ab: processes per checkout")
+    ap.add_argument("--out", help="eind, ab: also write the JSON here")
     args = ap.parse_args()
 
     import torch
@@ -190,6 +584,11 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("profile_torch_polar: no CUDA device", file=sys.stderr)
         return 1
+    seq = args.seq.split(",")
+    if args.path == "seq":
+        sys.path.insert(0, os.path.abspath(args.tree or ROOT))
+        print(json.dumps({"steps_per_s": drive_paths(seq)}))
+        return 0
     sys.path.insert(0, ROOT)
     from lidp_tpu_torch.models import polar_bench
 
@@ -197,6 +596,16 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
+    if args.path in ("eind", "ab"):
+        out = (eind_variants(args.rounds) if args.path == "eind"
+               else ab_trees(args.tree, args.pairs, seq))
+        print(json.dumps(out))
+        if args.out:
+            os.makedirs(os.path.dirname(os.path.abspath(args.out)),
+                        exist_ok=True)
+            with open(args.out, "w") as f:
+                json.dump(out, f)
+        return 0
     if args.path in ("lj", "ljcells"):
         run_steps = lj_events(args.path, args.scale, args.steps)
     elif args.path == "host64":

@@ -182,6 +182,69 @@ def test_wrong_dtype_raises(dev, kernel):
     assert wrapper.launches == before
 
 
+# --------------- eind: the whole-panel kernel (cols=None) ---------------
+
+EIND = {"eind": (panel.eind_panel, torch.float32),
+        "eind_df": (panel.eind_panel_df, torch.float64)}
+
+
+def _eind_args(dev, kernel, npad):
+    wrapper, dtype = EIND[kernel]
+    c = _case(dev, dtype, npad=npad)
+    return wrapper, (c["x"], c["alpha"], c["mu"], c["L"],
+                     c["s"].polar_damp)
+
+
+@pytest.mark.parametrize("npad", [1024, 1000])
+@pytest.mark.parametrize("kernel", list(EIND))
+def test_eind_whole_matches_plain_and_strip(dev, kernel, npad):
+    """The ragged case (1,000 live rows, masked and alpha=0 atoms) at an
+    npad that is a multiple of the tile (1024) and one that is not (1000):
+    the whole-panel kernel against the plain version and against the strip
+    kernel at the same shape, one launch counted per call, two launches
+    bit-identical."""
+    wrapper, args = _eind_args(dev, kernel, npad)
+    before = wrapper.launches
+    whole = wrapper(*args)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    strip = wrapper(*args, cols=args[:3], row0=0)
+    assert wrapper.launches == before + 2
+    _close(whole, panel.eind_panel_plain(*args))
+    _close(whole, strip)
+    assert torch.equal(whole, wrapper(*args))
+
+
+@pytest.mark.parametrize("kernel", list(EIND))
+def test_eind_skip_is_exact(dev, kernel, monkeypatch):
+    """64 polarizable atoms 25 A apart in a 100 A box: every pair lies
+    beyond the skip threshold (12.7 A in float32, 23 A in float64), so
+    every warp vote skips the exponential, and the result is bit for bit
+    that of the kernels with the skip turned off by a huge threshold."""
+    wrapper, dtype = EIND[kernel]
+    g = np.stack(np.meshgrid(*[np.arange(4)] * 3, indexing="ij"),
+                 -1).reshape(-1, 3)
+    rng = np.random.RandomState(0)
+    t = lambda a: torch.as_tensor(a, dtype=dtype, device=dev)  # noqa
+    x = t(25.0 * g + rng.uniform(-0.5, 0.5, g.shape))
+    alpha, mu = t(np.full(64, 1.1)), t(rng.normal(0, 0.1, (64, 3)))
+    args = (x, alpha, mu, t([100.0] * 3), 2.1304)
+    forms = ({}, dict(cols=(x, alpha, mu), row0=0))
+    on = [wrapper(*args, **kw) for kw in forms]
+    for kw in forms:
+        steps, skipped = panel.eind_skip_share(*args, **kw)
+        assert steps > 0 and skipped == steps
+    monkeypatch.setitem(panel.EIND_SKIP_U, dtype, float("inf"))
+    off = [wrapper(*args, **kw) for kw in forms]
+    for kw in forms:    # only votes on masked pairs alone still skip
+        steps, skipped = panel.eind_skip_share(*args, **kw)
+        assert skipped < steps
+    for a, b in zip(on, off):
+        assert torch.equal(a, b)
+        assert bool(a.abs().max() > 0)
+    _close(on[0], panel.eind_panel_plain(*args))
+
+
 def test_float64_build_runs_on_cuda(dev):
     """A float64 build on the GPU goes through the f64-grade kernels and
     agrees with the plain float64 path."""
@@ -233,12 +296,16 @@ def test_float64_strips_run_kernels_on_cuda(dev, mixed):
                                             precision=1e-11,
                                             host_strips=strips)
         before = {k: panel.WRAPPERS[k].launches for k in names}
+        strip_before = panel.eind_panel_df.launches_strip
         f, en = polar_bench.host_setup_forces(bench, mixed=mixed)
         grew = {k: panel.WRAPPERS[k].launches - before[k] for k in names}
         assert grew["pair_panel_df"] == strips
         assert grew["dipole_panel_df"] == strips
         assert grew["eind_panel_df"] >= strips and \
             grew["eind_panel_df"] % strips == 0
+        # one block: the whole-panel kernel; row strips: the strip kernel
+        strip_grew = panel.eind_panel_df.launches_strip - strip_before
+        assert strip_grew == (0 if strips == 1 else grew["eind_panel_df"])
         assert en["scf_converged"]
         out.append((f, en))
     (f1, en1), (f4, en4) = out
