@@ -50,13 +50,22 @@ Phases, each raising on failure:
   5. the LJ melt of bench/in.lj on the cell engine (lj_melt.build), float32:
      kernel parity of slot_lj_forces and cell_pair_forces_lj against their
      plain versions at the melt's (11,11,11,40) grid (the melt after path
-     E's 500 steps: on the lattice of step 0 the forces cancel to rounding)
-     and on a ragged (3,4,5) grid with masked atoms, an empty cell and a
-     full one, need_ev on and off: forces 5e-6 of max |f|, evdwl and virial
-     rel 1e-5 (float32 sums in another order, and a pair across the periodic
-     face sees x_j + L from one side and x_i - L from the other, each
-     rounded at twice the box length; the bar of the JAX package's own
-     slot-runner test); with
+     E's 500 steps: on the lattice of step 0 the forces cancel to rounding),
+     on a ragged (3,4,5) grid with masked atoms, an empty cell and a full
+     one, on a (3,4,5) grid whose every slot holds an atom, and on the
+     ragged grid with each cell's slots in a random order (its live slots
+     no prefix of the cell), and on dense (3,3,3) grids at the caps where
+     the kernels' launchers change tile (tile_caps; one cap past the
+     narrow tile's last must raise), need_ev on and off: forces 5e-6 of
+     max |f|, evdwl and virial rel 1e-5 (float32 sums in another order,
+     and a pair across the periodic face sees x_j + L from one side and
+     x_i - L from the other, each rounded at twice the box length; the bar
+     of the JAX package's own slot-runner test), repeats bit-identical; at
+     the melt's grid the times (by events around the call and queued) and
+     the bound: the function's least arithmetic counted on the state timed
+     (LJ_FLOPS_TEST per unordered live pair of the half stencil,
+     LJ_FLOPS_FORCE per pair inside the cutoff), beside the TPU kernel's
+     count; with
      E. 32,000 atoms through SlotRunner: setup, 100 steps, a timed window
         of 400 more; step 0 against the reference log's temp 1.44, pe
         -6.7733681, etotal -4.6134356, press -5.0197073 (rel 1e-6, 1e-5,
@@ -74,14 +83,14 @@ Phases, each raising on failure:
         3e-3 of step 0 (the log itself moves 1.9e-3 over these 100 steps:
         the lattice melts under an unshifted cutoff); then slot_lj_forces
         against its plain version at this grid on the run's last state,
-        need_ev off and on, at the bars above, repeats bit-identical.
+        need_ev off and on, at the bars above, repeats bit-identical, with
+        the times and the bound as at the melt's grid.
      On the fcc lattice of step 0 the forces cancel to rounding, so force
      bars there are taken of max(max |f|, 1), the nearest-neighbour pair
      force being 2;
   6. one JSON line {"kernels": [...]} with each of the ten kernels'
-     launches (summed and by path), times (ms_queued for the panel
-     kernels) and bound, then the nvidia-smi line, then the device line
-     last.
+     launches (summed and by path), times, ms_queued and bound, then the
+     nvidia-smi line, then the device line last.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.
@@ -89,6 +98,7 @@ checkout of the repository.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -139,6 +149,12 @@ CELL_KERNELS = {
 }
 ALL_KERNELS = (*KERNELS, *CELL_KERNELS)
 LJ_FLOPS_PER_PAIR = 25   # pallas_pair.py:321, per candidate pair
+# the LJ cell kernels' least arithmetic, per unordered pair: the cutoff test
+# (3 differences, 3 squares, 2 sums), and for a pair inside the cutoff its
+# force on both atoms (the reciprocal, r^-6 2, fpair 4, the vector 3, added
+# to one atom and taken from the other 6); with need_ev the energy (4 and
+# its sum) and the virial (6 products, 6 sums)
+LJ_FLOPS_TEST, LJ_FLOPS_FORCE, LJ_FLOPS_EV = 8, 16, 17
 MELT_STEPS = 100         # paths E, F, E4
 MELT_WINDOW = 400        # path E's timed window
 # step 0 and step 100 of the reference log of bench/in.lj (32,000 atoms)
@@ -467,22 +483,62 @@ def check_f64_step0(path, n, f, mu, en, ref_f, ref_mu, ref_en):
                                  f"{err:.3e} above 1e-8 of {big:.3e}")
 
 
-def cell_bound_ms(name, shape, natoms):
-    """Least time of an LJ cell kernel on the card: the TPU kernel's own
-    count of the Newton half stencil, cells*cap*cap*14 candidate pairs at 25
-    flops, over the FP32 peak, against the bytes it must move over the HBM
-    rate (slot order: 3 grids in, 3 out; atom order: x, mask and
-    atom_of_slot in, f out)."""
-    nbx, nby, nbz, cap = shape
+def lj_pair_counts(xs, live, L, cutsq):
+    """(unordered pairs of live slots that the Newton half stencil holds,
+    those of them inside the cutoff) on a slot state: xs (nbx,nby,nbz,cap,3)
+    float32 coordinates, live the (nbx,nby,nbz,cap) slots that hold an
+    atom, L the box lengths.  The neighbour takes the +-L shift by cell
+    index as the kernels do, and rsq is rounded term by term."""
+    import torch
+
+    from lidp_tpu_torch.ops.cell_kernels import _wrap_shift
+    from lidp_tpu_torch.ops.cells import _HALF_OFFSETS, _roll
+
+    nb, cap, dev = xs.shape[:3], xs.shape[3], xs.device
+    tri = torch.ones((cap, cap), dtype=torch.bool, device=dev).triu(1)
+    n_live = n_cut = 0
+    for o in [(0, 0, 0)] + _HALF_OFFSETS:
+        both = live[..., :, None] & _roll(live, o, -1)[..., None, :]
+        if o == (0, 0, 0):
+            both = both & tri
+        rsq = None
+        for d in range(3):
+            nbr = _roll(xs[..., d], o, -1)
+            if o[d]:
+                nbr = nbr + _wrap_shift(nb[d], o[d], d, dev) * L[d]
+            dd = xs[..., d][..., :, None] - nbr[..., None, :]
+            rsq = dd * dd if rsq is None else rsq + dd * dd
+            del dd, nbr
+        n_live += int(both.sum())
+        n_cut += int((both & (rsq < cutsq)).sum())
+        del both, rsq
+    return n_live, n_cut
+
+
+def cell_bound_ms(name, xs, live, L, cutsq, natoms, need_ev=False):
+    """Least time of an LJ cell kernel on the card, counted on the state it
+    is timed on: each unordered pair of live slots in the Newton half
+    stencil tested against the cutoff (LJ_FLOPS_TEST), each pair inside it
+    given its force on both atoms (LJ_FLOPS_FORCE, LJ_FLOPS_EV more with
+    need_ev), over the FP32 peak, against the bytes it must move over the
+    HBM rate (slot order: 3 grids in, 3 out; atom order: x, mask and
+    atom_of_slot in, f out).  Returns (ms, what binds it, the TPU kernel's
+    count in ms: cells*cap*cap*14 slot pairs at 25 flops, padding
+    included; and the two pair counts)."""
+    nbx, nby, nbz, cap = live.shape
     slots = nbx * nby * nbz * cap
-    flops = slots * cap * 14 * LJ_FLOPS_PER_PAIR
+    n_live, n_cut = lj_pair_counts(xs, live, L, cutsq)
+    flops = n_live * LJ_FLOPS_TEST + n_cut * (
+        LJ_FLOPS_FORCE + (LJ_FLOPS_EV if need_ev else 0))
     if name == "slot_lj_forces":
         nbytes = 24 * slots + 4 * 8
     else:
         nbytes = 25 * natoms + 4 * slots + 4 * 8
     t_ops, t_bytes = flops / FP32_PEAK, nbytes / HBM_RATE
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
-                                       else "bytes")
+    tpu_count = 1e3 * slots * cap * 14 * LJ_FLOPS_PER_PAIR / FP32_PEAK
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes", tpu_count,
+            dict(live_pairs=n_live, cutoff_pairs=n_cut))
 
 
 def lj_compare(name, got, ref, need_ev, fscale=None):
@@ -557,13 +613,152 @@ def ragged_lj_case(device="cuda", seed=3):
         cfg=CellConfig(nbins=nb, cap=16, cutneigh=2.8), n=x.shape[0])
 
 
-def lj_kernel_calls(x, mask, box, pair, cfg, natoms):
-    """{kernel name: (shape, call(need_ev) of the wrapper, of the plain
-    version, timed(need_ev))}, each call returning (f, evdwl, virial6):
-    slot_lj_forces on the slot state of (x, mask), cell_pair_forces_lj on
-    their Cells.  `timed` is the call the runners make: SlotRunner passes
-    the kernel's scalars it made at setup (`par=`), compute_forces lets the
-    wrapper form them, a few scalar-sized torch launches, at every call."""
+def full_lj_case(device="cuda", seed=4):
+    """A float32 LJ input whose every slot holds an atom: a (3,4,5) grid of
+    cap 8, each cell of side 2.9 holding a jittered 2x2x2 block of atoms
+    (nearest pairs about 1.2 apart), none masked.  Returns the dict of
+    ragged_lj_case."""
+    import numpy as np
+    import torch
+
+    from lidp_tpu_torch import resolve_device
+    from lidp_tpu_torch.box import Box
+    from lidp_tpu_torch.ops.cells import CellConfig
+    from lidp_tpu_torch.ops.pair import make_pair_params
+
+    device = resolve_device(device)
+    rs = np.random.RandomState(seed)
+    nb, h = (3, 4, 5), 2.9
+    cell = np.stack(np.meshgrid(*[np.arange(k) for k in nb],
+                                indexing="ij"), -1).reshape(-1, 1, 3)
+    sub = np.stack(np.meshgrid(*[np.arange(2)] * 3, indexing="ij"),
+                   -1).reshape(1, 8, 3)
+    x = (cell + 0.25 + 0.5 * sub
+         + rs.uniform(-0.07, 0.07, (cell.shape[0], 8, 3))) * h
+    x = x.reshape(-1, 3)[rs.permutation(8 * cell.shape[0])]
+    one = np.zeros((2, 2))
+    one[1, 1] = 1.0
+    f32 = torch.float32
+    return dict(
+        x=torch.as_tensor(x, dtype=f32, device=device),
+        mask=torch.ones(x.shape[0], dtype=torch.bool, device=device),
+        box=Box.create(np.zeros(3), h * np.array(nb), dtype=f32,
+                       device=device),
+        pair=make_pair_params(one, one, 2.5 * one, coul=False, dtype=f32,
+                              device=device),
+        cfg=CellConfig(nbins=nb, cap=8, cutneigh=2.8), n=x.shape[0])
+
+
+def scatter_slots(cells, seed=5):
+    """The same Cells with each cell's slots in a random order (one seeded
+    permutation per cell), so that its live slots are no prefix of it."""
+    import torch
+
+    aos = cells.atom_of_slot
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    perm = torch.argsort(torch.rand(aos.shape, generator=g),
+                         dim=-1).to(aos.device)
+    aos2 = torch.gather(aos, -1, perm).contiguous()
+    flat = aos2.reshape(-1).long()
+    n = cells.slot_of_atom.shape[0]
+    live = flat < n
+    soa = cells.slot_of_atom.clone()
+    soa[flat[live]] = torch.arange(flat.numel(), device=aos.device)[
+        live].to(soa.dtype)
+    return dataclasses.replace(cells, atom_of_slot=aos2, slot_of_atom=soa)
+
+
+def dense_lj_case(cap, device="cuda", seed=6):
+    """A float32 LJ input on a (3,3,3) grid of cap `cap`: each cell of side
+    2.9 holds a jittered m x m x m block of atoms, m^3 <= cap the largest
+    cube (cap 522: 512 atoms a cell), sigma set so that nearest neighbours
+    sit near the potential's minimum and the cutoff of 2.5 takes in ~900
+    neighbours.  For the kernels' caps near their shared-memory limits.
+    Returns the dict of ragged_lj_case."""
+    import numpy as np
+    import torch
+
+    from lidp_tpu_torch import resolve_device
+    from lidp_tpu_torch.box import Box
+    from lidp_tpu_torch.ops.cells import CellConfig
+    from lidp_tpu_torch.ops.pair import make_pair_params
+
+    device = resolve_device(device)
+    rs = np.random.RandomState(seed)
+    m = int(round(cap ** (1 / 3)))
+    m -= m ** 3 > cap
+    nb, h = (3, 3, 3), 2.9
+    cell = np.stack(np.meshgrid(*[np.arange(k) for k in nb],
+                                indexing="ij"), -1).reshape(-1, 1, 3)
+    sub = np.stack(np.meshgrid(*[np.arange(m)] * 3, indexing="ij"),
+                   -1).reshape(1, -1, 3)
+    x = (cell + (sub + 0.5 + rs.uniform(-0.05, 0.05,
+                                        (cell.shape[0], m ** 3, 3))) / m) * h
+    x = x.reshape(-1, 3)[rs.permutation(cell.shape[0] * m ** 3)]
+    one = np.zeros((2, 2))
+    one[1, 1] = 1.0
+    f32 = torch.float32
+    return dict(
+        x=torch.as_tensor(x, dtype=f32, device=device),
+        mask=torch.ones(x.shape[0], dtype=torch.bool, device=device),
+        box=Box.create(np.zeros(3), h * np.array(nb), dtype=f32,
+                       device=device),
+        pair=make_pair_params(one, h / m / 1.12 * one, 2.5 * one, coul=False,
+                              dtype=f32, device=device),
+        cfg=CellConfig(nbins=nb, cap=cap, cutneigh=2.8), n=x.shape[0])
+
+
+def tile_caps(name, device="cuda"):
+    """(largest cap of the wide tile, largest of the narrow one) of LJ
+    kernel `name` on this device, as its launcher chooses the tile
+    (ops/cell_kernels.kernel_tile)."""
+    import torch
+
+    from lidp_tpu_torch.ops import cell_kernels as ck
+
+    idx = torch.device(device).index or 0
+
+    def last(tile):
+        lo, hi = 1, 4096             # kernel_tile(lo) <= tile < (hi)
+        while hi - lo > 1:
+            mid = (lo + hi) // 2
+            t = ck.kernel_tile(name, (3, 3, 3, mid), idx)[0]
+            if t != 0 and t <= tile:
+                lo = mid
+            else:
+                hi = mid
+        return lo
+
+    return last(1), last(2)
+
+
+def slot_state(x, cells, box, pair):
+    """The (nbx,nby,nbz,cap,3) float32 slot coordinates of x on `cells`,
+    empty slots holding the sentinels, as SlotRunner._slotify slots them:
+    for Cells that build_cells did not make (scatter_slots)."""
+    import torch
+
+    from lidp_tpu_torch.ops import cell_kernels as ck
+
+    aos = cells.atom_of_slot
+    n = x.shape[0]
+    valid = aos < n
+    amax = torch.clamp(aos, max=n - 1).long()
+    sent = ck.slot_sentinels(box, pair, aos.shape)
+    zero = torch.zeros_like(sent)
+    return torch.where(valid[..., None], x.to(torch.float32)[amax],
+                       torch.stack([sent, zero, zero], dim=-1))
+
+
+def lj_kernel_calls(x, mask, box, pair, cfg, natoms, scatter=False):
+    """{kernel name: (slot state, live slots, call(need_ev) of the wrapper,
+    of the plain version, timed(need_ev))}, each call returning (f, evdwl,
+    virial6): slot_lj_forces on SlotRunner's slot state of (x, mask),
+    cell_pair_forces_lj on their Cells; with `scatter` each cell's slots
+    in a random order (scatter_slots, slotted by slot_state).  `timed` is
+    the call the runners make, with the kernel's scalars formed beforehand
+    (`par=`), as SlotRunner does at setup; cell_pair_forces_lj forms its
+    own once for each box (its wrapper's memo)."""
     import torch
 
     from lidp_tpu_torch.forcefield import ForceField
@@ -574,38 +769,42 @@ def lj_kernel_calls(x, mask, box, pair, cfg, natoms):
     cells = build_cells(x, mask, box, cfg)
     if bool(cells.overflow):
         raise AssertionError("the parity case overflows its cell grid")
-    sr = SlotRunner(ff=ForceField(pair=pair), neighbor_cfg=cfg, dt=0.005,
-                    ftm2v=1.0, n=natoms)
-    n = x.shape[0]
-    xs = sr._slotify(x, torch.zeros_like(x), torch.ones(n, device=x.device),
-                     torch.arange(n, dtype=torch.int32, device=x.device),
-                     mask, box)[0]
+    if scatter:
+        cells = scatter_slots(cells)
+        xs = slot_state(x, cells, box, pair)
+    else:
+        sr = SlotRunner(ff=ForceField(pair=pair), neighbor_cfg=cfg,
+                        dt=0.005, ftm2v=1.0, n=natoms)
+        n = x.shape[0]
+        xs = sr._slotify(x, torch.zeros_like(x),
+                         torch.ones(n, device=x.device),
+                         torch.arange(n, dtype=torch.int32, device=x.device),
+                         mask, box)[0]
+    live = cells.atom_of_slot < x.shape[0]
     grids = [xs[..., d] for d in range(3)]
 
-    def slot(fn):
+    def slot(fn, **kw):
         def call(need_ev):
-            fg, ev, vir = fn(grids, box, pair, need_ev=need_ev)
+            fg, ev, vir = fn(grids, box, pair, need_ev=need_ev, **kw)
             return torch.stack(list(fg), dim=-1), ev, vir
         return call
 
-    def atom(fn):
+    def atom(fn, **kw):
         def call(need_ev):
-            f, ev, _, vir = fn(x, mask, cells, box, pair, need_ev=need_ev)
+            f, ev, _, vir = fn(x, mask, cells, box, pair, need_ev=need_ev,
+                               **kw)
             return f, ev, vir
         return call
 
-    shape = tuple(cells.atom_of_slot.shape)
     par_s = ck.lj_par(box, pair, ck.sentinel_scalars(box, pair)[0])
     return {
         "slot_lj_forces": (
-            shape, slot(ck.slot_lj_forces), slot(ck.slot_lj_forces_plain),
-            lambda ev: ck.slot_lj_forces(grids, box, pair, need_ev=ev,
-                                         par=par_s)),
+            xs, live, slot(ck.slot_lj_forces), slot(ck.slot_lj_forces_plain),
+            slot(ck.slot_lj_forces, par=par_s)),
         "cell_pair_forces_lj": (
-            shape, atom(ck.cell_pair_forces_lj),
+            xs, live, atom(ck.cell_pair_forces_lj),
             atom(ck.cell_pair_forces_lj_plain),
-            lambda ev: ck.cell_pair_forces_lj(x, mask, cells, box, pair,
-                                              need_ev=ev))}
+            atom(ck.cell_pair_forces_lj))}
 
 
 def melt_row(tag, row):
@@ -960,17 +1159,49 @@ def main() -> int:
     print(f"steps_per_s_E {steps_per_s_E:.4f}")
 
     # kernel parity: on the melt after path E's steps (wrapped into the box,
-    # as a rebuild leaves it) and on the ragged case
+    # as a rebuild leaves it), on the ragged case, on a grid whose every
+    # slot holds an atom, on the ragged case with each cell's slots in a
+    # random order, and on dense grids at the caps where the kernels'
+    # launchers change tile: the wide tile's largest, the narrow tile's
+    # smallest and largest, and the largest the kernels took before the
+    # narrow tile (358)
     melted, _ = wrap(sysE.x, sysE.box, sysE.image)
-    rag = ragged_lj_case()
+    rag, full = ragged_lj_case(), full_lj_case()
+    keys = ("x", "mask", "box", "pair", "cfg", "n")
     lj_cases = {
-        "melt": (melted, msys.mask, msys.box, melt.runner.ff.pair,
-                 melt.runner.neighbor_cfg, melt.natoms),
-        "ragged": tuple(rag[k] for k in ("x", "mask", "box", "pair", "cfg",
-                                         "n"))}
-    for cname, case in lj_cases.items():
-        for name, (shape, kern, plain, timed) in \
-                lj_kernel_calls(*case).items():
+        "melt": ((melted, msys.mask, msys.box, melt.runner.ff.pair,
+                  melt.runner.neighbor_cfg, melt.natoms), False),
+        "ragged": (tuple(rag[k] for k in keys), False),
+        "full": (tuple(full[k] for k in keys), False),
+        "scattered": (tuple(rag[k] for k in keys), True)}
+    caps = {name: tile_caps(name) for name in cell_kernels.WRAPPERS}
+    print(f"LJ kernel tiles: largest cap of the wide and the narrow tile "
+          f"{caps}")
+    for name, (cw, cn) in caps.items():
+        for cap in (cw, cw + 1, 358, cn):
+            dense = dense_lj_case(cap)
+            lj_cases[f"dense cap {cap}"] = (tuple(dense[k] for k in keys),
+                                            False)
+        over = build_cells(dense["x"], dense["mask"], dense["box"],
+                           dataclasses.replace(dense["cfg"], cap=cn + 1))
+        try:
+            if name == "slot_lj_forces":
+                cell_kernels.slot_lj_forces([over.atom_of_slot.float()] * 3,
+                                            dense["box"], dense["pair"])
+            else:
+                cell_kernels.cell_pair_forces_lj(dense["x"], dense["mask"],
+                                                 over, dense["box"],
+                                                 dense["pair"])
+        except ValueError as e:
+            print(f"{name} at cap {cn + 1}: raises ValueError ({e})")
+        else:
+            raise AssertionError(f"{name} took cap {cn + 1}, beyond its "
+                                 f"narrow tile's {cn}")
+    for cname, (case, scatter) in lj_cases.items():
+        box_c, pair_c = case[2], case[3]
+        for name, (xs, live, kern, plain, timed) in \
+                lj_kernel_calls(*case, scatter=scatter).items():
+            shape = tuple(live.shape)
             for need_ev in (False, True):
                 got, ref = kern(need_ev), plain(need_ev)
                 torch.cuda.synchronize()
@@ -983,20 +1214,31 @@ def main() -> int:
                 line = (f"parity {label} ok on grid {shape}: max abs err "
                         f"{err:.3e} of max |f| {scale:.3e}")
                 del got, ref, again
+                if cname.startswith("dense"):
+                    line += (f", kernel "
+                             f"{cuda_ms(lambda: timed(need_ev), reps=5):.4f}"
+                             f" ms")
                 if cname == "melt":
                     ms = cuda_ms(lambda: timed(need_ev), reps=20)
+                    qms = cuda_ms_queued(lambda: timed(need_ev), reps=20)
                     pms = cuda_ms(lambda: plain(need_ev), reps=3, warmup=1)
-                    bms, by = cell_bound_ms(name, shape, melt.natoms)
-                    r = dict(max_abs_err=err, ms=ms, plain_ms=pms,
-                             bound_ms=bms, bound_by=by)
+                    bms, by, tms, cnt = cell_bound_ms(
+                        name, xs, live, box_c.lengths.float(),
+                        float(pair_c.cut_ljsq[1, 1]), case[5], need_ev)
+                    r = dict(max_abs_err=err, ms=ms, ms_queued=qms,
+                             plain_ms=pms, bound_ms=bms, bound_by=by,
+                             bound_ms_tpu_count=tms, **cnt)
                     if need_ev:
                         results[name]["variants"] = {f"{name}[need_ev]": r}
                     else:
                         results[name] = r
-                    line += (f", kernel {ms:.4f} ms, plain {pms:.3f} ms, "
-                             f"bound {bms:.4f} ms ({by})")
+                    line += (f", kernel {ms:.4f} ms ({qms:.4f} queued), "
+                             f"plain {pms:.3f} ms, bound {bms:.4f} ms "
+                             f"({by}; {cnt['live_pairs']} live pairs, "
+                             f"{cnt['cutoff_pairs']} inside the cutoff; "
+                             f"the TPU kernel's count {tms:.4f} ms)")
                 print(line)
-    del lj_cases, rag, melted
+    del lj_cases, rag, full, melted
     torch.cuda.empty_cache()
 
     # step 0 of E against the float64 plain route on the card
@@ -1095,7 +1337,7 @@ def main() -> int:
         box4, pair4, cell_kernels.sentinel_scalars(box4, pair4)[0])
     grids4 = [carry.x[..., d] for d in range(3)]
     shape4 = tuple(grids4[0].shape)
-    bms4, by4 = cell_bound_ms("slot_lj_forces", shape4, melt4.natoms)
+    live4 = carry.aid < melt4.natoms
 
     def slot4(fn, need_ev, **kw):
         fg, ev, vir = fn(grids4, box4, pair4, need_ev=need_ev, **kw)
@@ -1112,24 +1354,35 @@ def main() -> int:
         if not all(torch.equal(a, b) for a, b in zip(got, again)):
             raise AssertionError(f"{label}: a repeated launch differs")
         del got, again
-        ms4 = cuda_ms(lambda: cell_kernels.slot_lj_forces(
-            grids4, box4, pair4, need_ev=need_ev, par=par4), reps=10)
+
+        def kern4():
+            return cell_kernels.slot_lj_forces(grids4, box4, pair4,
+                                               need_ev=need_ev, par=par4)
+
+        ms4 = cuda_ms(kern4, reps=10)
+        qms4 = cuda_ms_queued(kern4, reps=20)
         pms4 = cuda_ms(lambda: cell_kernels.slot_lj_forces_plain(
             grids4, box4, pair4, need_ev=need_ev), reps=2, warmup=0)
+        bms4, by4, tms4, cnt4 = cell_bound_ms(
+            "slot_lj_forces", carry.x, live4, box4.lengths.float(),
+            float(pair4.cut_ljsq[1, 1]), melt4.natoms, need_ev)
         key = "scale 4, need_ev" if need_ev else "scale 4"
         results["slot_lj_forces"]["variants"][f"slot_lj_forces[{key}]"] = \
-            dict(max_abs_err=err4, ms=ms4, plain_ms=pms4, bound_ms=bms4,
-                 bound_by=by4)
+            dict(max_abs_err=err4, ms=ms4, ms_queued=qms4, plain_ms=pms4,
+                 bound_ms=bms4, bound_by=by4, bound_ms_tpu_count=tms4,
+                 **cnt4)
         print(f"parity {label} ok on grid {shape4}: max abs err {err4:.3e} "
-              f"of max |f| {scale4:.3e}, kernel {ms4:.4f} ms, plain "
-              f"{pms4:.1f} ms, bound {bms4:.4f} ms ({by4})")
+              f"of max |f| {scale4:.3e}, kernel {ms4:.4f} ms ({qms4:.4f} "
+              f"queued), plain {pms4:.1f} ms, bound {bms4:.4f} ms ({by4}; "
+              f"{cnt4['live_pairs']} live pairs, {cnt4['cutoff_pairs']} "
+              f"inside the cutoff; the TPU kernel's count {tms4:.4f} ms)")
     torch.cuda.empty_cache()
     steps_per_s_E4 = MELT_STEPS / t_run
     print(f"path E4: {MELT_STEPS} steps in {t_run:.4f} s = "
           f"{steps_per_s_E4:.2f} steps/s "
           f"({1e3 * t_run / MELT_STEPS:.3f} ms/step)")
     print(f"steps_per_s_E4 {steps_per_s_E4:.4f}")
-    del melt4, sys4, res4, nl4, carry, grids4
+    del melt4, sys4, res4, nl4, carry, grids4, live4
 
     # 6. results
     total = {name: sum(launches[p][name] for p in launches)
@@ -1148,7 +1401,8 @@ def main() -> int:
                    max_abs_err=r["max_abs_err"], ms=r["ms"],
                    plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                    bound_by=r["bound_by"], library_ms=None)
-        for key in ("ms_queued", "bound_ms_cost_estimate"):
+        for key in ("ms_queued", "bound_ms_cost_estimate",
+                    "bound_ms_tpu_count", "live_pairs", "cutoff_pairs"):
             if key in r:
                 row[key] = r[key]
         if "variants" in r:

@@ -9,10 +9,15 @@
 // around it: the slotify gather, the 13 pre-rolled neighbour grids, the 13
 // roll-backs of the neighbour-side partials and the gather to atom order.
 //
-// Bound on the H100: FP32 CUDA-core arithmetic, C*cap*14*cap*25 flops by
-// the TPU kernel's count without its lane and cell padding: 0.745 GFLOP on
-// the 32,000-atom melt's (11,11,11,40) grid, 0.011 ms at the 67 TFLOP/s
-// FP32 peak, against about 1 MB of coordinates, indices and forces.
+// Bound on the H100: FP32 arithmetic.  The function's least work, counted
+// on the state at hand by chip_smoke.py cell_bound_ms: each unordered pair
+// of live slots in the Newton half stencil tested against the cutoff (8
+// flops), each pair inside it given its force on both atoms (16 flops; 17
+// more for energy and virial), over 67 TFLOP/s, against x, mask and
+// atom_of_slot read and f written once over 3.35 TB/s.  (The TPU kernel's
+// count, cells*cap*14*cap*25 flops, counts every slot pair, padding
+// included.)  The kernel evaluates each pair from both sides, so it does
+// the cutoff test twice.
 #include "lj_cell.cuh"
 
 // x: (n,3).  aos: atom_of_slot (nbx*nby*nbz*cap) int32, n for an empty slot.
@@ -27,4 +32,13 @@ extern "C" int lidp_cell_pair_forces_lj(const float* x, const int* aos,
   const lidp::AtomOrder io{x, aos, mask, n, f};
   return lidp::launch_lj_cell(io, nbx, nby, nbz, cap, par, need_ev, partials,
                               acc, stream);
+}
+
+// The tile a launch on this grid takes (1 wide, 2 narrow, 0 none: the cap
+// does not fit shared memory) and its CTAs, the rows of `partials`.
+extern "C" int lidp_cell_pair_forces_lj_dims(int nbx, int nby, int nbz,
+                                             int cap, int* tile,
+                                             int* nblocks) {
+  return lidp::lj_cell_dims<lidp::AtomOrder>(nbx, nby, nbz, cap, tile,
+                                             nblocks);
 }

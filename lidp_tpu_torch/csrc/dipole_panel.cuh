@@ -181,7 +181,8 @@ int launch_dipole(const T* xr, const T* qr, const T* molr, const T* ar,
         L, pd, cut_coulsq, sqrt_q, f, partials);
   int err = static_cast<int>(cudaGetLastError());
   if (err) return err;
-  reduce_partials<T><<<1, 32, 0, s>>>(partials, nb, T(1), T(0.5), acc);
+  reduce_partials<T><<<1, REDUCE_THREADS, 0, s>>>(partials, nb, T(1),
+                                                  T(0.5), acc);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -207,7 +207,8 @@ int launch_pair(const T* xr, const T* qr, const T* tr, const T* molr,
 #undef LIDP_PAIR
   int err = static_cast<int>(cudaGetLastError());
   if (err) return err;
-  reduce_partials<T><<<1, 32, 0, s>>>(partials, nb, T(0.5), T(0.5), acc);
+  reduce_partials<T><<<1, REDUCE_THREADS, 0, s>>>(partials, nb, T(0.5),
+                                                  T(0.5), acc);
   return static_cast<int>(cudaGetLastError());
 }
 

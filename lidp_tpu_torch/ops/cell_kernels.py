@@ -19,10 +19,13 @@ forcefield.compute_forces, which is the JAX package's own routing.  Each
 wrapper counts its launches in `<wrapper>.launches`.
 
 The periodic image of a neighbour cell is a shift of +-L by cell index, not
-a minimum image, so every dimension needs at least 3 bins.  Empty slots
-carry far-apart sentinel coordinates (`slot_sentinels`) in place of a
-validity mask: base + spacing*k in x, 0 in y and z, with spacing > 2*cut +
-max(L) so that no pair with a sentinel passes rsq < cutsq, shifted or not.
+a minimum image, so every dimension needs at least 3 bins.  In the slot
+state, empty slots carry far-apart sentinel coordinates (`slot_sentinels`)
+in place of a validity mask: base + spacing*k in x, 0 in y and z, with
+spacing > 2*cut + max(L) so that no pair with a sentinel passes rsq <
+cutsq, shifted or not.  The plain versions rely on that; the CUDA kernel
+only tells a live slot by x < base (slot order) or atom_of_slot < N (atom
+order) and stages the live ones alone.
 
 The plain versions walk the Newton half stencil (own-cell upper triangle
 plus 13 offsets, full-weight tallies) with rolled grids, as the TPU
@@ -32,16 +35,16 @@ weight (csrc/lj_cell.cuh says why), so the two agree to rounding only.
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
 
 from lidp_tpu_torch.box import Box
 from lidp_tpu_torch.ops.cells import _HALF_OFFSETS, Cells, _roll
-from lidp_tpu_torch.ops.panel import _check, _launch, _stream
+from lidp_tpu_torch.ops.panel import _cfn, _check, _launch, _stream
 
 NPAR = 8                  # csrc/lj_cell.cuh: lj3 lj4 offset cutsq L(3) floor
-ZC = 4                    # csrc/lj_cell.cuh: own z-cells per CTA
-MAX_SMEM = 232_448        # bytes of shared memory a block can use on sm_90
-ATOM_SENTINEL = 1.0e15    # csrc/lj_cell.cuh ATOM_SENTINEL
 
 
 def supported(p, ntypes_gt_one: bool, coul: bool) -> bool:
@@ -73,12 +76,14 @@ def slot_sentinels(box: Box, p, shape):
 
 def lj_par(box: Box, p, floor=None):
     """The kernels' NPAR float32 scalars as one device tensor, built
-    without a host read: lj3 lj4 offset cutsq Lx Ly Lz sent_floor."""
+    without a host read: lj3 lj4 offset cutsq Lx Ly Lz sent_floor.  The
+    floor (slot order: the sentinel base, below which a slot is live) is
+    not read in atom order, and defaults to +inf."""
     f32 = torch.float32
     head = torch.stack([p.lj3[1, 1], p.lj4[1, 1], p.offset[1, 1],
                         p.cut_ljsq[1, 1]]).to(f32)
     if floor is None:
-        floor = head.new_full((1,), ATOM_SENTINEL)
+        floor = head.new_full((1,), float("inf"))
     return torch.cat([head, box.lengths.to(f32), floor.reshape(1)])
 
 
@@ -175,27 +180,65 @@ def cell_pair_forces_lj_plain(x, mask, cells: Cells, box: Box, p,
 
 # ------------------------------ CUDA path -------------------------------
 
-def _grid_dims(name, shape):
+# the tensors of the last (box, table) of cell_pair_forces_lj, each with
+# its version counter, and their lj_par
+_PAR_MEMO = [(), None]
+
+
+def _atom_order_par(box: Box, p):
+    """lj_par(box, p), formed once for each box and table: the runners
+    hand the same Box and PairParams to every call until one changes.  A
+    new box (an end_of_step hook's, which fix press or deform would give)
+    or table, or an in-place change to one of their tensors, forms it
+    anew, so the scalars never outlive the box they were made from."""
+    ts = (box.lo, box.hi, p.lj3, p.lj4, p.offset, p.cut_ljsq)
+    key = tuple((t, t._version) for t in ts)
+    old, par = _PAR_MEMO
+    if len(old) != len(key) or any(
+            a is not b or va != vb for (a, va), (b, vb) in zip(old, key)):
+        par = lj_par(box, p)
+        _PAR_MEMO[:] = [key, par]
+    return par
+
+
+@functools.lru_cache(maxsize=None)
+def kernel_tile(name, shape, device_index):
+    """(tile, CTAs) of wrapper `name`'s kernel on a (nbx,nby,nbz,cap) grid
+    on CUDA device `device_index`, as its launcher chooses them
+    (csrc/lj_cell.cuh lj_cell_dims): tile 1 is the wide one, 2 the narrow
+    one that a cap too large for the wide one's shared memory takes, 0
+    none (the cap fits neither)."""
+    tile, nblocks = ctypes.c_int(), ctypes.c_int()
+    with torch.cuda.device(device_index):
+        err = _cfn(name, "IIIIPP", f"{name}_dims")(
+            *shape, ctypes.addressof(tile), ctypes.addressof(nblocks))
+    if err:
+        raise RuntimeError(f"{name}_dims: CUDA error {err}")
+    return tile.value, nblocks.value
+
+
+def _grid_dims(name, shape, device):
+    """(nbx,nby,nbz,cap) of a grid the kernel takes, and its CTAs."""
     if len(shape) != 4 or min(shape) < 1:
         raise ValueError(f"{name}: expected a (nbx,nby,nbz,cap) grid, got "
                          f"{tuple(shape)}")
-    nbx, nby, nbz, cap = shape
-    if min(nbx, nby, nbz) < 3:
+    shape = tuple(int(s) for s in shape)
+    if min(shape[:3]) < 3:
         raise ValueError(f"{name}: needs >= 3 bins in every dimension, got "
-                         f"{(nbx, nby, nbz)}")
-    if 4 * 3 * 9 * (ZC + 2) * cap > MAX_SMEM:
-        raise ValueError(f"{name}: cap {cap} does not fit shared memory")
-    return nbx, nby, nbz, cap
+                         f"{shape[:3]}")
+    tile, nblocks = kernel_tile(name, shape, device.index)
+    if tile == 0:
+        raise ValueError(f"{name}: cap {shape[3]} does not fit shared "
+                         f"memory")
+    return shape, nblocks
 
 
-def _ev_buffers(shape, need_ev, device):
+def _ev_buffers(nblocks, need_ev, device):
     """(partials, acc): per-CTA partials and the 8 reduced scalars; without
     need_ev the kernel writes neither and acc is the zeros returned."""
-    nbx, nby, nbz, _ = shape
     acc = torch.zeros((8,), dtype=torch.float32, device=device)
     if not need_ev:
         return None, acc
-    nblocks = nbx * nby * (-(-nbz // ZC))
     return torch.empty((nblocks, 8), dtype=torch.float32, device=device), acc
 
 
@@ -246,13 +289,13 @@ def slot_lj_forces(grids, box: Box, p, need_ev: bool = True, par=None):
             raise TypeError(f"{name}: expected torch.float32, got {t.dtype}")
         if t.device != dev:
             raise ValueError(f"{name}: operands on {dev} and {t.device}")
-    shape = _grid_dims(name, gx.shape)
+    shape, nblocks = _grid_dims(name, gx.shape, dev)
     stride = _uniform_stride(name, gx)
     for g in (gy, gz):
         if g.shape != gx.shape or _uniform_stride(name, g) != stride:
             raise ValueError(f"{name}: the three grids differ in layout")
     fout = torch.empty((*shape, 3), dtype=torch.float32, device=dev)
-    partials, acc = _ev_buffers(shape, need_ev, dev)
+    partials, acc = _ev_buffers(nblocks, need_ev, dev)
     _launch(name, "PPPIIIIIPIPPPP", dev, gx.data_ptr(), gy.data_ptr(),
             gz.data_ptr(), stride, *shape, par.data_ptr(), int(need_ev),
             fout.data_ptr(), partials.data_ptr() if need_ev else None,
@@ -265,12 +308,14 @@ slot_lj_forces.launches = 0
 
 
 def cell_pair_forces_lj(x, mask, cells: Cells, box: Box, p,
-                        need_ev: bool = True):
+                        need_ev: bool = True, par=None):
     """Drop-in LJ replacement for ops/cells.cell_pair_forces (single type,
     no coulomb, float32, orthogonal periodic box, >= 3 bins a side).
     Returns (f (N,3), evdwl, ecoul = 0, virial6) in atom order; masked
     atoms get zero force.  When the grid has overflowed (which the runners
-    report), the atoms that found no slot get zero force here."""
+    report), the atoms that found no slot get zero force here.  `par` is
+    `lj_par(box, p)` when the caller has it already; without it the
+    wrapper forms it once for each box and table (_atom_order_par)."""
     if x.device.type == "cpu":
         return cell_pair_forces_lj_plain(x, mask, cells, box, p,
                                          need_ev=need_ev)
@@ -288,10 +333,12 @@ def cell_pair_forces_lj(x, mask, cells: Cells, box: Box, p,
                          f"atom_of_slot")
     if not (aos.is_contiguous() and mask.is_contiguous()):
         raise ValueError(f"{name}: operands must be contiguous")
-    shape = _grid_dims(name, aos.shape)
-    par = lj_par(box, p)
+    shape, nblocks = _grid_dims(name, aos.shape, x.device)
+    if par is None:
+        par = _atom_order_par(box, p)
+    _check_par(name, par, x.device)
     f = torch.zeros((n, 3), dtype=torch.float32, device=x.device)
-    partials, acc = _ev_buffers(shape, need_ev, x.device)
+    partials, acc = _ev_buffers(nblocks, need_ev, x.device)
     _launch(name, "PPPIIIIIPIPPPP", x.device, x.data_ptr(), aos.data_ptr(),
             mask.data_ptr(), n, *shape, par.data_ptr(), int(need_ev),
             f.data_ptr(), partials.data_ptr() if need_ev else None,

@@ -6,6 +6,8 @@
     python scripts/profile_torch_polar.py --path lj --steps 400 [--scale 4]
     python scripts/profile_torch_polar.py --path ljcells --steps 100
     python scripts/profile_torch_polar.py --path eind [--rounds 7]
+    python scripts/profile_torch_polar.py --path lj --variants --scale 4 \
+        [--tree OTHER] [--rounds 7]
     python scripts/profile_torch_polar.py --path ab --tree OTHER --seq F \
         [--pairs 10]
 
@@ -51,11 +53,26 @@ and whether its bits equal the committed kernel's.  The committed kernel
 through its wrapper (`wrapper[...]`) is timed in the same rounds, after
 2,000 warm-up launches.
 
---path seq drives the paths of `--seq` (A, C, E, F, comma-separated, in
-order) in one process as chip_smoke.py times them, through the
+--path lj --variants times design variants of the LJ cell kernel
+(csrc/lj_cell.cuh) in the same way, each the committed source with one
+choice changed (see LJ_VARIANTS: the reciprocal, the columns and z-cells
+a CTA owns, rows per thread, CTAs per SM, threads per CTA and per row
+group; and two timing probes), with `--tree`
+also that checkout's slot_lj_forces.cu (e.g. the parent commit), on the
+grid of SlotRunner's state after setup and 100 steps of the melt at
+`--scale` (4: path E4's 2,048,000 atoms) and at scale 1 (path E's 32,000
+atoms, labels `@scale1`): each variant held to
+slot_lj_forces_plain at chip_smoke.py's bars with need_ev off and on, its
+registers, spills and the SASS mix of the kernel without energy and
+virial, timed by 20 launches queued between two CUDA events over
+`--rounds` rounds (order rotated), beside the committed wrapper.
+
+--path seq drives the paths of `--seq` (A, C, E, F, E4, comma-separated,
+in order) in one process as chip_smoke.py times them, through the
 lidp_tpu_torch of `--tree` (default: this checkout), and prints their
 steps/s: A 20 fused float32 steps, C 5 float64/1e-11 mixed host steps, E
-400 SlotRunner steps after 100, F 100 Runner steps on cells.  --path ab
+400 SlotRunner steps after 100, F 100 Runner steps on cells, E4 100
+SlotRunner steps at 2,048,000 atoms.  --path ab
 runs `--path seq` `--pairs` times for this checkout and for `--tree`
 (another checkout, e.g. the parent commit from `git archive`), one
 process each, alternated (this, other; then other, this) after one
@@ -173,7 +190,7 @@ def lj_events(path, scale, steps):
                                 "_slotify": "rebuild (re-bin, re-slot)"}
     else:
         owner, names = driver, {
-            "compute_forces": "force (cell_pair_forces_lj + its scalars)",
+            "compute_forces": "force (compute_forces, cell_pair_forces_lj)",
             "_rebuild": "rebuild (wrap, build_cells)"}
     saved = {attr: getattr(owner, attr) for attr in names}
     for attr, name in names.items():
@@ -292,9 +309,10 @@ VARIANTS = {
 }
 
 
-def _sass_mix(lib, dtype_code):
-    """Instruction count of the damped whole kernel in lib's SASS
-    (cuobjdump -sass): total and by opcode."""
+def _sass_mix(lib, prefix):
+    """Instruction count of the kernel whose mangled name the regular
+    expression `prefix` matches at its start in lib's SASS (cuobjdump
+    -sass): total and by opcode."""
     import re
 
     from lidp_tpu_torch.kernels import build
@@ -303,8 +321,7 @@ def _sass_mix(lib, dtype_code):
     sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
                           text=True, check=True).stdout
     body = re.split(r"\n\s*Function : ", sass)
-    fn = [b for b in body
-          if b.startswith(f"_ZN4lidp17eind_whole_kernelI{dtype_code}Li1E")]
+    fn = [b for b in body if re.match(prefix, b)]
     ops = {}
     for m in re.finditer(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?"
                          r"([A-Z][A-Z0-9]*)", fn[0] if fn else ""):
@@ -364,7 +381,8 @@ def _build_variants():
                         ctypes.c_int] + [ctypes.c_void_p] * 4
         fn.restype = ctypes.c_int
         total, ops = _sass_mix(build.BUILD / "variants" / name /
-                               f"lib{src}.so", c)
+                               f"lib{src}.so",
+                               f"_ZN4lidp17eind_whole_kernelI{c}Li1E")
         libs.setdefault(name, {})[dtype] = dict(
             fn=fn, registers=int(m.group(2)) if m else None,
             spill_bytes=int(spill[-1]) if spill else None,
@@ -477,6 +495,258 @@ def eind_variants(rounds):
             "results": res}
 
 
+# --path lj --variants: (what changes, [(file in csrc/, text, replacement)])
+def _lj_const(name, old, new):
+    return [("lj_cell.cuh", f"constexpr int {name} = {old};",
+             f"constexpr int {name} = {new};")]
+
+
+_RCP = ('asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(v));')
+_T128 = (_lj_const("LJ_THREADS", 256, 128) + _lj_const("LJ_MINB", 3, 6))
+_R2 = _lj_const("LJ_R", 4, 2)
+_ZC2 = _lj_const("ZC", 4, 2)
+
+
+def _tile(tx, ty):
+    return [("lj_cell.cuh", "constexpr int LJ_TX = 2, LJ_TY = 2;",
+             f"constexpr int LJ_TX = {tx}, LJ_TY = {ty};")]
+
+
+LJ_VARIANTS = {
+    "kept": ("the committed source", []),
+    "div": ("the reciprocal as the IEEE division 1.f / rsq",
+            [("lj_cell.cuh", _RCP, "y = 1.f / v;")]),
+    "frcp_rn": ("the reciprocal as __frcp_rn (correctly rounded)",
+                [("lj_cell.cuh", _RCP, "y = __frcp_rn(v);")]),
+    "tile1x1": ("one column per CTA", _tile(1, 1)),
+    "tile2x1": ("2 x 1 columns per CTA", _tile(2, 1)),
+    "tile3x3_ZC2": ("3 x 3 columns per CTA, 2 own z-cells",
+                    _tile(3, 3) + _ZC2),
+    "tile3x3_ZC3": ("3 x 3 columns per CTA, 3 own z-cells",
+                    _tile(3, 3) + _lj_const("ZC", 4, 3)),
+    "tile4x4_ZC1": ("4 x 4 columns per CTA, 1 own z-cell",
+                    _tile(4, 4) + _lj_const("ZC", 4, 1)),
+    "tile3x2_ZC3": ("3 x 2 columns per CTA, 3 own z-cells",
+                    _tile(3, 2) + _lj_const("ZC", 4, 3)),
+    "R2": ("2 rows per thread", _R2),
+    "minb2": ("2 CTAs per SM at least (registers not capped at 80)",
+              _lj_const("LJ_MINB", 3, 2)),
+    "minb4": ("4 CTAs per SM at least (64 registers)",
+              _lj_const("LJ_MINB", 3, 4)),
+    "ZC2": ("2 own z-cells per column", _ZC2),
+    "ZC3": ("3 own z-cells per column", _lj_const("ZC", 4, 3)),
+    "ZC1": ("1 own z-cell per column", _lj_const("ZC", 4, 1)),
+    "T128_ZC2": ("128 threads per CTA, 2 own z-cells", _T128 + _ZC2),
+    "T512": ("512 threads per CTA, 1 CTA per SM at least",
+             _lj_const("LJ_THREADS", 256, 512)
+             + _lj_const("LJ_MINB", 3, 1)),
+    "lanes4": ("4 threads per row group", _lj_const("LJ_LANES", 8, 4)),
+    "lanes16": ("16 threads per row group", _lj_const("LJ_LANES", 8, 16)),
+    # timing probes, not candidates (their forces are wrong): the staging
+    # alone, and the pair loop with the cutoff test but no force
+    "probe_stage_only": ("no pair work: staging, the clears and the "
+                         "launch",
+                         [("lj_cell.cuh", "const int ngroups = "
+                           "sgrp[NOWN];", "const int ngroups = 0;")]),
+    "probe_test_only": ("the cutoff test without the force (fpair = 1 "
+                        "where it passes)",
+                        [("lj_cell.cuh", "const float fpair = ok ? r6inv * "
+                          "(c.lj1 * r6inv - c.lj2) * r2inv : 0.f;",
+                          "const float fpair = ok ? 1.f : 0.f;")]),
+}
+
+
+def _build_lj_variants(other):
+    """Compile slot_lj_forces.cu of every LJ variant (and, with `other`,
+    that checkout's own), all nvcc processes at once; returns {variant: its
+    C entry, registers, spill bytes and the SASS mix of the kernel without
+    energy and virial}."""
+    import ctypes
+    import re
+    import shutil
+
+    from lidp_tpu_torch.kernels import build
+
+    srcs = {}
+    for name, (_, patches) in LJ_VARIANTS.items():
+        out = build.BUILD / "ljvariants" / name
+        shutil.rmtree(out, ignore_errors=True)
+        shutil.copytree(build.CSRC, out / "csrc")
+        for fname, old, new in patches:
+            f = out / "csrc" / fname
+            text = f.read_text()
+            if text.count(old) != 1:
+                raise RuntimeError(f"variant {name}: {fname} does not hold "
+                                   f"the text it patches once")
+            f.write_text(text.replace(old, new))
+        srcs[name] = out
+    if other:
+        out = build.BUILD / "ljvariants" / "other"
+        shutil.rmtree(out, ignore_errors=True)
+        shutil.copytree(os.path.join(os.path.abspath(other),
+                                     "lidp_tpu_torch", "csrc"), out / "csrc")
+        srcs["other"] = out
+    procs = {name: subprocess.Popen(
+        [build._nvcc(), *build.NVCC_FLAGS, "-o",
+         str(out / "libslot_lj_forces.so"),
+         str(out / "csrc" / "slot_lj_forces.cu")], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for name, out in srcs.items()}
+    libs = {}
+    for name, proc in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"variant {name}: nvcc failed\n{log}")
+        # the kernel without energy and virial in slot order, of the wide
+        # tile (the one the E and E4 grids take) where the source has tiles
+        text = (srcs[name] / "csrc" / "lj_cell.cuh").read_text()
+        prefix = "_ZN4lidp14lj_cell_kernelILb0ENS_9SlotOrderE"
+        if "struct LJTile" in text:
+            tx, ty = re.search(r"constexpr int LJ_TX = (\d+), LJ_TY = "
+                               r"(\d+);", text).groups()
+            zc = re.search(r"constexpr int ZC = (\d+);", text).group(1)
+            prefix += rf"\w*?LJTileILi{tx}ELi{ty}ELi{zc}E"
+        m = re.search(prefix[3:] + r"\w*.*?\n(.*?)Used (\d+) registers", log,
+                      re.S)
+        spill = re.findall(r"(\d+) bytes spill stores", m.group(1)) if m \
+            else []
+        lib = srcs[name] / "libslot_lj_forces.so"
+        fn = ctypes.CDLL(str(lib)).lidp_slot_lj_forces
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [
+            ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4
+        fn.restype = ctypes.c_int
+        total, ops = _sass_mix(lib, prefix)
+        libs[name] = dict(fn=fn, registers=int(m.group(2)) if m else None,
+                          spill_bytes=int(spill[-1]) if spill else None,
+                          sass_total=total, sass_ops=ops)
+    return libs
+
+
+def _melt_slots(scale):
+    """SlotRunner's state of the melt at `scale` after setup and 100 steps,
+    as chip_smoke.py holds it: (grids, box, pair, par)."""
+    import torch
+
+    from lidp_tpu_torch.models import lj_melt
+    from lidp_tpu_torch.ops import cell_kernels as ck
+
+    melt = lj_melt.build(scale=scale, dtype=torch.float32, neighbor="slots")
+    runner = melt.runner
+    state = runner.run(*runner.setup(melt.system), 100)
+    carry, box, pair = state[3], melt.system.box, runner.ff.pair
+    if bool(carry.overflow):
+        raise AssertionError("a cell overflowed its capacity")
+    grids = [carry.x[..., d] for d in range(3)]
+    print(f"scale {scale}: {melt.natoms} atoms, grid "
+          f"{tuple(grids[0].shape)}, {int((carry.aid < melt.natoms).sum())}"
+          f" live slots")
+    return grids, box, pair, ck.lj_par(box, pair,
+                                       ck.sentinel_scalars(box, pair)[0])
+
+
+def lj_variants(rounds, scale, other):
+    """--path lj --variants; returns the JSON-able results."""
+    import torch
+
+    import chip_smoke
+    from lidp_tpu_torch.ops import cell_kernels as ck
+
+    t0 = time.perf_counter()
+    libs = _build_lj_variants(other)
+    print(f"built {len(libs)} variants in {time.perf_counter() - t0:.1f} s")
+    stream = torch.cuda.current_stream().cuda_stream
+    # the grid of --scale, and that of path E (scale 1) beside it
+    scales = [scale] + ([1] if scale != 1 else [])
+    calls, res, kept = {}, {}, {}
+    for sc in scales:
+        grids, box, pair, par = _melt_slots(sc)
+        nbx, nby, nbz, cap = grids[0].shape
+        fout = torch.empty((nbx, nby, nbz, cap, 3), dtype=torch.float32,
+                           device="cuda")
+        acc = torch.zeros(8, dtype=torch.float32, device="cuda")
+        partials = torch.empty((nbx * nby * nbz, 8), dtype=torch.float32,
+                               device="cuda")
+
+        def launcher(fn, need_ev, grids=grids, par=par, fout=fout, acc=acc,
+                     partials=partials, shape=(nbx, nby, nbz, cap)):
+            args = (grids[0].data_ptr(), grids[1].data_ptr(),
+                    grids[2].data_ptr(), grids[0].stride(-1), *shape,
+                    par.data_ptr(), int(need_ev), fout.data_ptr(),
+                    partials.data_ptr(), acc.data_ptr(), stream)
+
+            def call():
+                err = fn(*args)
+                if err:
+                    raise RuntimeError(f"launch failed with CUDA error {err}")
+            return call
+
+        tag = "" if sc == scale else f"@scale{sc:g}"
+        for ev in (False, True):
+            ref = ck.slot_lj_forces_plain(grids, box, pair, need_ev=ev)
+            ref = (torch.stack(ref[0], -1), ref[1], ref[2])
+            for name, lib in libs.items():
+                label = f"{name}{tag}" + ("[need_ev]" if ev else "")
+                call = launcher(lib["fn"], ev)
+                call()
+                torch.cuda.synchronize()
+                got = (fout.clone(), acc[0].clone(), acc[1:7].clone()) if ev \
+                    else (fout.clone(), torch.zeros_like(acc[0]),
+                          torch.zeros_like(acc[1:7]))
+                err = float("nan")
+                if not name.startswith("probe_"):
+                    err, _ = chip_smoke.lj_compare(label, got, ref, ev)
+                if name == "kept":
+                    kept[ev, sc] = got
+                res[label] = dict(
+                    registers=lib["registers"],
+                    spill_bytes=lib["spill_bytes"],
+                    sass_total=lib["sass_total"], sass_ops=lib["sass_ops"],
+                    max_abs_err=err, ms=[], same_bits_as_kept=all(
+                        torch.equal(a, b)
+                        for a, b in zip(got, kept[ev, sc])))
+                calls[label] = call
+            label = f"wrapper{tag}" + ("[need_ev]" if ev else "")
+            calls[label] = lambda ev=ev, g=grids, b=box, p=pair, q=par: \
+                ck.slot_lj_forces(g, b, p, need_ev=ev, par=q)
+            res[label] = dict(ms=[])
+            del ref
+    labels = list(calls)
+    for _ in range(200):             # the card at its working clocks
+        calls["kept"]()
+    torch.cuda.synchronize()
+    clocks = "--query-gpu=clocks.sm,clocks.max.sm,power.draw"
+    for rd in range(rounds):
+        k = rd % len(labels)
+        for label in labels[k:] + labels[:k]:
+            res[label]["ms"].append(chip_smoke.cuda_ms_queued(calls[label],
+                                                              20))
+        if rd in (0, rounds - 1):
+            print(f"after round {rd}: sm clock, max, power: " + subprocess.run(
+                ["nvidia-smi", clocks, "--format=csv,noheader"],
+                capture_output=True, text=True).stdout.strip())
+    for r in res.values():
+        r["median_ms"] = statistics.median(r["ms"])
+    for label, r in res.items():
+        name = label.split("[")[0].split("@")[0]
+        base = res["kept" + label[len(name):]]["median_ms"]
+        line = (f"{label:24s} {r['median_ms']:.4f} ms (min "
+                f"{min(r['ms']):.4f}, max {max(r['ms']):.4f}; "
+                f"{r['median_ms'] / base:.3f} x kept)")
+        if "registers" in r:
+            mix = " ".join(f"{k}={r['sass_ops'].get(k, 0)}" for k in
+                           ("MUFU", "LDS", "SHFL", "FFMA", "FADD", "FMUL",
+                            "FSETP", "FSEL", "ISETP", "BRA"))
+            line += (f", registers {r['registers']}, spill "
+                     f"{r['spill_bytes']} B, same bits as kept "
+                     f"{r['same_bits_as_kept']}, max abs err "
+                     f"{r['max_abs_err']:.3e}, SASS {r['sass_total']} "
+                     f"({mix})")
+        print(line)
+    desc = {k: v[0] for k, v in LJ_VARIANTS.items()}
+    if other:
+        desc["other"] = f"slot_lj_forces.cu of {os.path.abspath(other)}"
+    return {"variants": desc, "results": res}
+
+
 def drive_paths(seq):
     """--path seq: each path of `seq` in order as chip_smoke.py times it;
     returns [steps/s]."""
@@ -505,10 +775,11 @@ def drive_paths(seq):
             for _ in range(5):
                 polar_bench.host_cg_step(bench, mixed=True)
             steps = 5
-        elif path in ("E", "F"):
-            bench = lj_melt.build(scale=1, dtype=torch.float32,
-                                  neighbor="slots" if path == "E"
-                                  else "cells")
+        elif path in ("E", "F", "E4"):
+            bench = lj_melt.build(scale=4 if path == "E4" else 1,
+                                  dtype=torch.float32,
+                                  neighbor="cells" if path == "F"
+                                  else "slots")
             state = bench.runner.setup(bench.system)
             if path == "E":
                 state = bench.runner.run(*state, 100)
@@ -576,7 +847,12 @@ def main() -> int:
                     "this one); ab: the other checkout")
     ap.add_argument("--pairs", type=int, default=10,
                     help="ab: processes per checkout")
-    ap.add_argument("--out", help="eind, ab: also write the JSON here")
+    ap.add_argument("--out", help="eind, ab, lj --variants: also write "
+                    "the JSON here")
+    ap.add_argument("--variants", action="store_true",
+                    help="lj: time the LJ cell kernel's design variants "
+                    "(LJ_VARIANTS) at --scale (4: the E4 grid), and with "
+                    "--tree that checkout's kernel beside them")
     args = ap.parse_args()
 
     import torch
@@ -596,9 +872,14 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
-    if args.path in ("eind", "ab"):
-        out = (eind_variants(args.rounds) if args.path == "eind"
-               else ab_trees(args.tree, args.pairs, seq))
+    lj_var = args.path == "lj" and args.variants
+    if args.path in ("eind", "ab") or lj_var:
+        if lj_var:
+            out = lj_variants(args.rounds, args.scale, args.tree)
+        elif args.path == "eind":
+            out = eind_variants(args.rounds)
+        else:
+            out = ab_trees(args.tree, args.pairs, seq)
         print(json.dumps(out))
         if args.out:
             os.makedirs(os.path.dirname(os.path.abspath(args.out)),

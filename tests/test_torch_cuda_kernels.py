@@ -12,6 +12,8 @@ rel 1e-10 — a double kernel that dropped to float32 anywhere misses that
 by four orders.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -270,8 +272,6 @@ def test_float64_lj_only_kernel_build_raises_on_cuda(dev):
     """No f64-grade LJ-only kernel exists: a float64 kernel build of an
     LJ-only table on the GPU raises instead of running the plain version;
     panel="scan" is the plain path."""
-    import dataclasses
-
     from lidp_tpu_torch.parallel import shard
 
     sysd = polar_bench.synthetic_system(4)
@@ -442,6 +442,127 @@ def test_lj_cell_kernel_matches_plain(dev, kernel, which, need_ev):
         assert torch.equal(a, b)        # no atomics: bit-identical
 
 
+@pytest.mark.parametrize("need_ev", [True, False])
+@pytest.mark.parametrize("which", ["full", "scattered"])
+@pytest.mark.parametrize("kernel", LJ_KERNELS)
+def test_lj_cell_kernel_full_and_scattered_grids(dev, kernel, which,
+                                                 need_ev):
+    """A grid whose every slot holds an atom (chip_smoke.full_lj_case), and
+    the ragged grid with each cell's slots in a random order, so that the
+    live slots are no prefix of their cell (chip_smoke.scatter_slots):
+    the kernel against its plain version, repeats bit-identical."""
+    from lidp_tpu_torch.ops import cell_kernels as ck
+
+    cs = _load_chip_smoke()
+    c = cs.full_lj_case(dev) if which == "full" else cs.ragged_lj_case(dev)
+    calls = cs.lj_kernel_calls(*(c[k] for k in ("x", "mask", "box", "pair",
+                                                "cfg", "n")),
+                               scatter=which == "scattered")
+    _, live, kern, plain, timed = calls[kernel]
+    assert bool(live.all()) == (which == "full")
+    before = ck.WRAPPERS[kernel].launches
+    got = kern(need_ev)
+    torch.cuda.synchronize()
+    assert ck.WRAPPERS[kernel].launches == before + 1
+
+    def flat(out):
+        return (out[0].reshape(-1, 3), *out[1:])
+
+    _lj_close(flat(got), flat(plain(need_ev)), need_ev)
+    for again in (kern(need_ev), timed(need_ev)):
+        for a, b in zip(got, again):
+            assert torch.equal(a, b)    # no atomics: bit-identical
+
+
+@pytest.mark.parametrize("where", ["wide_last", "narrow_first",
+                                   "parent_last", "narrow_last"])
+@pytest.mark.parametrize("kernel", LJ_KERNELS)
+def test_lj_cell_kernel_at_the_tile_caps(dev, kernel, where):
+    """Dense grids (chip_smoke.dense_lj_case) at the caps where the
+    launcher changes tile: the wide tile's largest, the narrow tile's
+    smallest and largest, and 358, the largest the kernel took before the
+    narrow tile; the kernel against its plain version, repeats
+    bit-identical.  One past the narrow tile's largest raises."""
+    from lidp_tpu_torch.ops import cell_kernels as ck
+    from lidp_tpu_torch.ops.cells import build_cells
+
+    cs = _load_chip_smoke()
+    cw, cn = cs.tile_caps(kernel)
+    assert 100 < cw < 358 <= cn
+    cap, tile = dict(wide_last=(cw, 1), narrow_first=(cw + 1, 2),
+                     parent_last=(358, 2), narrow_last=(cn, 2))[where]
+    assert ck.kernel_tile(kernel, (3, 3, 3, cap), dev.index or 0)[0] == tile
+    c = cs.dense_lj_case(cap, dev)
+    keys = ("x", "mask", "box", "pair", "cfg", "n")
+    _, live, kern, plain, _ = cs.lj_kernel_calls(
+        *(c[k] for k in keys))[kernel]
+    assert int(live.sum(-1).max()) > 0.8 * cap
+    for need_ev in (True, False):
+        got = kern(need_ev)
+        torch.cuda.synchronize()
+        _lj_close((got[0].reshape(-1, 3), *got[1:]),
+                  (plain(need_ev)[0].reshape(-1, 3), *plain(need_ev)[1:]),
+                  need_ev)
+        for a, b in zip(got, kern(need_ev)):
+            assert torch.equal(a, b)    # no atomics: bit-identical
+    if where == "narrow_last":
+        over = build_cells(c["x"], c["mask"], c["box"],
+                           dataclasses.replace(c["cfg"], cap=cn + 1))
+        with pytest.raises(ValueError, match="shared memory"):
+            if kernel == "slot_lj_forces":
+                ck.slot_lj_forces([over.atom_of_slot.float()] * 3, c["box"],
+                                  c["pair"])
+            else:
+                ck.cell_pair_forces_lj(c["x"], c["mask"], over, c["box"],
+                                       c["pair"])
+
+
+def test_runner_forces_follow_a_changing_box(dev):
+    """Runner on the cell kernel with an end_of_step hook that scales the
+    box and the atoms by 1.002 at every step, as fix press/berendsen does:
+    each step's forces match the plain version on that step's box (the
+    kernel's scalars hold the box lengths, so scalars kept from an earlier
+    box would shift the periodic images wrongly)."""
+    from lidp_tpu_torch.models import lj_melt
+    from lidp_tpu_torch.ops import cell_kernels as ck
+    from lidp_tpu_torch.ops.cells import build_cells
+
+    melt = lj_melt.build(scale=0.5, dtype=torch.float32, neighbor="cells",
+                         device=dev)
+    cfg, pair = melt.runner.neighbor_cfg, melt.runner.ff.pair
+    # the fcc lattice's forces cancel to rounding: jitter it
+    rs = np.random.RandomState(11)
+    x0 = melt.system.x + torch.as_tensor(
+        rs.uniform(-0.05, 0.05, tuple(melt.system.x.shape)),
+        dtype=torch.float32, device=dev)
+    seen = []
+
+    def grow(sys, res):
+        lo, L = sys.box.lo, sys.box.lengths
+        box = dataclasses.replace(sys.box, hi=lo + 1.002 * L)
+        return sys.replace(x=lo + 1.002 * (sys.x - lo), box=box)
+
+    def check(sys, f):
+        cells = build_cells(sys.x, sys.mask, sys.box, cfg)
+        ref = ck.cell_pair_forces_lj_plain(sys.x, sys.mask, cells, sys.box,
+                                           pair, need_ev=False)[0]
+        seen.append((f.clone(), ref, float(sys.box.lengths[0])))
+        return f
+
+    runner = dataclasses.replace(melt.runner, end_of_step=grow,
+                                 post_force=check, rebuild_every=1)
+    before = ck.cell_pair_forces_lj.launches
+    runner.run(*runner.setup(melt.system.replace(x=x0)), 5)
+    assert ck.cell_pair_forces_lj.launches - before >= 6
+    assert len(seen) >= 6
+    assert seen[-1][2] > seen[0][2] * 1.009     # the box grew
+    for f, ref, _ in seen:
+        assert float(ref.abs().max()) > 1.0
+        np.testing.assert_allclose(
+            f.double().cpu().numpy(), ref.double().cpu().numpy(), rtol=0,
+            atol=5e-6 * float(ref.abs().max()))
+
+
 def test_slot_lj_forces_separate_grids(dev):
     """Three contiguous grids and the three columns of one (...,3) tensor
     are the same input."""
@@ -487,8 +608,6 @@ def test_compute_forces_routes_on_cuda(dev):
     """On the GPU compute_forces launches cell_pair_forces_lj when its gate
     holds (one type, float32) and runs the plain roll kernel when it does
     not (two types), counting only the former."""
-    import dataclasses
-
     from lidp_tpu_torch.forcefield import ForceField, compute_forces
     from lidp_tpu_torch.ops import cell_kernels as ck
     from lidp_tpu_torch.ops.cells import cell_pair_forces

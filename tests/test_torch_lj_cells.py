@@ -280,7 +280,8 @@ def test_wrapper_registry():
     par = tck.lj_par(ti["box"], ti["p"])
     assert par.dtype == torch.float32 and tuple(par.shape) == (tck.NPAR,)
     np.testing.assert_allclose(
-        par.numpy(), [4.0, 4.0, 0.0, 6.25, 11.6, 11.6, 11.6, 1e15], rtol=1e-6)
+        par.numpy(), [4.0, 4.0, 0.0, 6.25, 11.6, 11.6, 11.6, np.inf],
+        rtol=1e-6)
 
 
 @pytest.mark.parametrize("name,kw,want", [
@@ -325,6 +326,32 @@ def test_compute_forces_gate(name, kw, want):
             assert float(res.emol) == 0.0
         else:
             assert float(res.evdwl) == 0.0 and not res.virial.any()
+
+
+def test_atom_order_par_follows_the_box():
+    """cell_pair_forces_lj forms its scalars once for a box and a table:
+    the same objects give the same tensor, and a new Box (as an
+    end_of_step hook that scales the box returns), a new table or an
+    in-place change to the box's tensors give the scalars of what they now
+    hold."""
+    import dataclasses
+
+    _, ti, _ = _case(GRIDS["cubic"], np.float32)
+    box, p = ti["box"], ti["p"]
+    par = tck._atom_order_par(box, p)
+    assert torch.equal(par, tck.lj_par(box, p))
+    assert tck._atom_order_par(box, p) is par
+    box2 = dataclasses.replace(box, hi=box.hi * 1.01)
+    par2 = tck._atom_order_par(box2, p)
+    assert torch.equal(par2, tck.lj_par(box2, p))
+    assert not torch.equal(par2[4:7], par[4:7])
+    box2.hi.mul_(1.01)
+    assert torch.equal(tck._atom_order_par(box2, p), tck.lj_par(box2, p))
+    _, t2, _ = _case(GRIDS["cubic"], np.float32, shift=True)
+    par3 = tck._atom_order_par(box2, t2["p"])
+    assert torch.equal(par3, tck.lj_par(box2, t2["p"]))
+    assert float(par3[2]) != float(par2[2])        # the shifted offset
+    assert torch.equal(tck._atom_order_par(box, p), par)
 
 
 def test_compute_forces_unported_routes_raise():
