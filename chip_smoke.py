@@ -8,32 +8,39 @@ Phases, each raising on failure:
   2. build every CUDA kernel from lidp_tpu_torch/csrc (nvcc, in parallel);
   3. kernel parity: each of the eight panel kernels against its plain
      PyTorch version on the card, on a random case at the main paths' shape
-     (12,288 x 12,288) and on a ragged one (1,000 rows with masked atoms,
-     alpha=0 atoms and special lists); pair_panel with and without coulomb,
-     pair_panel_df with and without the fused Wolf field.  float32 kernels:
-     per-row rtol 1e-4, atol 1e-5*max|ref|, scalars rel 1e-4 (float32 sums
-     over ~1e8 pairs in another order).  float64 (`*_df`) kernels: per-row
-     rtol 1e-9, atol 1e-11*max|ref|, scalars rel 1e-10 (double sums in
-     another order; a kernel at float32 grade anywhere misses this by four
-     orders).  Median kernel and plain times (CUDA events around each
-     call, the wrapper's host work included), the time per call of 20
-     calls queued back to back (ms_queued: the kernels alone while the
-     host keeps ahead) and the bound (for eind_panel and eind_panel_df
-     the function's least arithmetic, EIND_FLOPS_PAIR, beside the
-     CostEstimate's as bound_ms_cost_estimate).  eind_panel and
-     eind_panel_df run the whole-panel kernel (each pair once for both
-     atoms); their
+     (12,288 x 12,288) and on a ragged one (1,000 rows with masked atoms
+     that keep their charge, alpha=0 atoms and special lists); pair_panel
+     with and without coulomb, pair_panel_df with and without the fused
+     Wolf field.  float32 kernels: per-row rtol 1e-4, atol 1e-5*max|ref|,
+     scalars rel 1e-4 of the largest entry of their vector (float32 sums
+     over ~1e8 pairs in another order; the line prints the scalars' worst
+     ratio to that bar).  float64 (`*_df`) kernels: per-row rtol 1e-9,
+     atol 1e-11*max|ref|; scalars rel 1e-10 (double sums in another order;
+     a kernel at float32 grade anywhere misses this by four orders).  Every
+     launch repeats bit-identically.  Median kernel and plain times (CUDA
+     events around each call, the wrapper's host work included), the time
+     per call of 20 calls queued back to back (ms_queued: the kernels alone
+     while the host keeps ahead) and the bound (for the eind and dipole
+     kernels the function's least arithmetic, EIND_FLOPS_PAIR and
+     DIPOLE_FLOPS_*, counted on the case, beside the CostEstimate's as
+     bound_ms_cost_estimate).  eind_panel{,_df} and dipole_panel{,_df} run
+     the whole-panel kernels (each pair once for both atoms); their
      [strip form] variants, cols = all atoms and row0 = 0, run the
-     one-sided strip kernel on the same operands in the same call, their
-     [no skip] variants the whole-panel kernel with the damping skip off
-     (an infinite threshold), which must give the same bits.  Then
-     ptxas's registers and spills, and the share of warp votes in which
-     the eind kernels skipped the damping exponential;
+     one-sided strip kernels on the same operands in the same call, their
+     [no skip] variants the whole-panel kernels with the exact skips off
+     (eind's damping skip by an infinite threshold, the dipole kernel's
+     warp skips by DIPOLE_SKIP), which must give the same bits; each in
+     the fluid's exponential damping and in damping none (the reference's
+     default).  Then ptxas's registers and spills, and the share of warp
+     votes in which the eind kernels skipped the damping exponential and
+     the dipole kernels the charge-dipole and the dipole-dipole block,
+     and the float64 whole kernels' partial buffers with the device memory
+     reserved over a call of each;
   4. the main paths on the 10,125-atom synthetic fluid, every launch
      counter set to 0 just before each and read just after:
      A. float32 fused step through the kernels: initial forces + 20 steps
-        (eind_panel: the whole-panel kernel, never the strip kernel, on
-        every path A-D);
+        (eind and dipole: the whole-panel kernels, never the strip kernels,
+        on every path A-D);
      B. float32 host phases (make_host_phases + HostPolarForces, pure CG):
         initial forces + 5 steps; step 0 against path A's step 0 (energies
         rel 1e-5, forces rtol 5e-4, atol 5e-5*max);
@@ -142,6 +149,29 @@ PAIR_KERNELS = ("pair_wolf_panel", "pair_panel", "pair_panel_df")
 # beside it as bound_ms_cost_estimate.
 EIND_FLOPS_PAIR, EIND_FLOPS_DAMPED = 59, 12
 EIND_DAMPED_U = {False: 25.0, True: 47.0}
+# The dipole kernels' bound counts the least arithmetic of the function in the
+# whole kernel's expressions (csrc/dipole_panel.cuh), one evaluation per
+# unordered pair in which a block can act: an unmasked atom on one side and
+# either alpha_i, alpha_j != 0 or, between different molecules (or mol 0), one
+# of q_j mu_i, q_i mu_j not zero (a padding atom, with q = alpha = mu = 0,
+# gives and takes nothing).  Such a pair takes its geometry, 17 flops (3
+# differences, the minimum image 9, rsq 5), since its distance decides the
+# charge-dipole block; a pair that takes either block 30 more (r^-2, r^-3,
+# mu_i.d and mu_j.d 12, the force added to one atom and taken from the other 6,
+# the virial d (x) F 12); the dipole-dipole block (alpha_i, alpha_j != 0) 34
+# (r^-5, mu_i.mu_j and (mu_i.d)(mu_j.d) 7, v1, v3 and pre1 6, b3, pre2 and pre3
+# 3, u and its sum 3, the force 15), 21 more where t1 = exp(-pd r) is not 0 (r,
+# pd r, t2 and t3 8, l1 and l3 into v1 and v3 6, the t1 term of pre1 7; the
+# exp, on the SFU or a DFMA sequence, is not counted): pd*r below 104 in
+# float32, 745 in float64; the charge-dipole block only where it can act inside
+# cut_coul, 38 (w, h, e, the field factor g and sqrt_q r^-3 7, q_j mu_i - q_i
+# mu_j 9, its d term 4, the force 12, u_ef 6); and F_cd + F_dd, 3, only for a
+# pair that takes both blocks.  The Pallas CostEstimate's 140 flops per ordered
+# pair (npad^2 of them) stays beside it as bound_ms_cost_estimate.
+DIPOLE_FLOPS_GEOM, DIPOLE_FLOPS_PAIR = 17, 30
+DIPOLE_FLOPS_DD, DIPOLE_FLOPS_DAMPED, DIPOLE_FLOPS_CD = 34, 21, 38
+DIPOLE_FLOPS_BOTH = 3
+DIPOLE_DAMPED_U = {False: 104.0, True: 745.0}
 # the LJ cell kernels: wrapper -> TPU kernel it replaces
 CELL_KERNELS = {
     "slot_lj_forces": "lidp_tpu/ops/pallas_pair.py:314",
@@ -266,48 +296,59 @@ def tabs_for(ff_pair, dtype):
 
 
 def kernel_calls(c, c64, pair, s):
-    """{label: (kernel name, wrapper call, plain call)} on case c (float32)
-    and its float64 copy c64.  The label is the kernel's name for the form
-    the main paths use, name[variant] for the other forms."""
+    """{label: (kernel name, wrapper call, plain call, label of the call
+    whose bits it must give or None)} on case c (float32) and its float64
+    copy c64.  The label is the kernel's name for the form the main paths
+    use, name[variant] for the other forms: [strip form] (cols = all atoms,
+    row0 = 0: the strip kernel), [no skip] (the whole-panel kernel with
+    its exact skips off: the same bits as the kernel with them),
+    [damping none] (the reference's default damp_type)."""
     from lidp_tpu_torch.ops import panel
 
     pd, dmp = s.polar_damp, s.damping_type
-    damp = dict(damping_type=dmp)
     scal = (pair.cut_coulsq, pair.qqrd2e, pair.g_ewald)
     out = {}
 
-    def add(label, name, plain, args, **kw):
+    def add(label, name, plain, args, same_as=None, kern=None, **kw):
         wrapper = panel.WRAPPERS[name]
-        out[label] = (name, lambda: wrapper(*args, **kw),
-                      lambda: plain(*args, **kw))
+        out[label] = (name, kern or (lambda: wrapper(*args, **kw)),
+                      lambda: plain(*args, **kw), same_as)
 
-    def add_no_skip(label, name, args, **kw):
-        """The whole-panel eind kernel with the damping skip turned off by
-        an infinite threshold (ops/panel.EIND_SKIP_U)."""
+    def no_skip(name, args, **kw):
+        """The whole-panel eind or dipole kernel with its exact skips off:
+        the damping skip by an infinite threshold (ops/panel.EIND_SKIP_U),
+        the dipole kernel's warp skips by ops/panel.DIPOLE_SKIP."""
         wrapper, dtype = panel.WRAPPERS[name], args[0].dtype
 
         def kern():
-            saved = panel.EIND_SKIP_U[dtype]
-            panel.EIND_SKIP_U[dtype] = math.inf
+            saved = panel.EIND_SKIP_U[dtype], panel.DIPOLE_SKIP
+            panel.EIND_SKIP_U[dtype], panel.DIPOLE_SKIP = math.inf, False
             try:
                 return wrapper(*args, **kw)
             finally:
-                panel.EIND_SKIP_U[dtype] = saved
-        out[label] = (name, kern, lambda: panel.eind_panel_plain(*args, **kw))
+                panel.EIND_SKIP_U[dtype], panel.DIPOLE_SKIP = saved
+        return kern
 
     for d, suffix in ((c, ""), (c64, "_df")):
         tabs = tabs_for(pair, d["x"].dtype)
         eargs = (d["x"], d["alpha"], d["mu"], d["L"], pd)
-        add("eind_panel" + suffix, "eind_panel" + suffix,
-            panel.eind_panel_plain, eargs, **damp)
-        add(f"eind_panel{suffix}[strip form]", "eind_panel" + suffix,
-            panel.eind_panel_plain, eargs, cols=eargs[:3], row0=0, **damp)
-        add_no_skip(f"eind_panel{suffix}[no skip]", "eind_panel" + suffix,
-                    eargs, **damp)
-        add("dipole_panel" + suffix, "dipole_panel" + suffix,
-            panel.dipole_panel_plain,
-            (d["x"], d["q"], d["mol"], d["alpha"], d["mu"], d["mask"],
-             d["L"], pd, pair.cut_coulsq, pair.qqrd2e), **damp)
+        dargs = (d["x"], d["q"], d["mol"], d["alpha"], d["mu"], d["mask"],
+                 d["L"], pd, pair.cut_coulsq, pair.qqrd2e)
+        for name, plain, args, ncols in (
+                ("eind_panel" + suffix, panel.eind_panel_plain, eargs, 3),
+                ("dipole_panel" + suffix, panel.dipole_panel_plain, dargs,
+                 6)):
+            for dt, tag in ((dmp, ""), (panel.DAMP_NONE, "damping none")):
+                damp = dict(damping_type=dt)
+                base = f"{name}[{tag}]" if tag else name
+                add(base, name, plain, args, **damp)
+                add(f"{name}[{', '.join(filter(None, ('strip form', tag)))}]",
+                    name, plain, args, cols=args[:ncols], row0=0, **damp)
+                if tag and name.startswith("eind"):
+                    continue      # without damping eind has no skip
+                add(f"{name}[{', '.join(filter(None, ('no skip', tag)))}]",
+                    name, plain, args, same_as=base,
+                    kern=no_skip(name, args, **damp), **damp)
         pargs = (d["x"], d["q"], d["type"], d["mask"], tabs, d["L"], *scal)
         if suffix:
             add("pair_panel_df", "pair_panel_df", panel.pair_panel_df_plain,
@@ -327,6 +368,17 @@ def kernel_calls(c, c64, pair, s):
                 (d["x"], d["q"], d["mol"], d["mask"], d["L"],
                  pair.cut_coulsq))
     return out
+
+
+def same_bits(got, ref):
+    """Are two kernel results (a tensor or a tuple of them) equal bit for
+    bit (torch.equal on each)?"""
+    import torch
+
+    got = got if isinstance(got, tuple) else (got,)
+    ref = ref if isinstance(ref, tuple) else (ref,)
+    return len(got) == len(ref) and all(torch.equal(a, b)
+                                        for a, b in zip(got, ref))
 
 
 def compare(name, got, ref, f64=False):
@@ -407,6 +459,121 @@ def eind_bound_ms(name, x, alpha, L, pd):
                                        else "bytes")
 
 
+def dipole_bound_ms(name, c, cut_coulsq, pd, damping_type):
+    """bound_ms of dipole_panel / dipole_panel_df on case c: the flops of
+    the function's least arithmetic (DIPOLE_FLOPS_*) counted on its
+    unordered pairs, or the operand bytes, whichever takes longer.  Also
+    returns the pair counts: geometry_pairs (a block can act), active_pairs
+    (one does), dd_pairs, damped_pairs, cd_pairs, both_pairs."""
+    import torch
+
+    _, _, f64, rows, cols, outs = KERNELS[name]
+    x, L = c["x"].double(), c["L"].double()
+    mol, live, pol = c["mol"], c["mask"] != 0, c["alpha"] != 0
+    charged, polar = c["q"] != 0, (c["mu"] != 0).any(1)
+    npad = x.shape[0]
+    rdamp = DIPOLE_DAMPED_U[f64] / pd if damping_type else 0.0
+    cnt = dict(geometry_pairs=0, active_pairs=0, dd_pairs=0, damped_pairs=0,
+               cd_pairs=0, both_pairs=0)
+    jj = torch.arange(npad, device=x.device)[None, :]
+    for i0 in range(0, npad, 1024):
+        sl = slice(i0, i0 + 1024)
+        d = x[sl, None, :] - x[None, :, :]
+        d = d - L * torch.round(d / L)
+        rsq = (d * d).sum(-1)
+        del d
+        ii = torch.arange(i0, i0 + rsq.shape[0], device=x.device)[:, None]
+        either = (live[sl, None] | live[None, :]) & (ii != jj)
+        dd = either & pol[sl, None] & pol[None, :]
+        moli = mol[sl, None]
+        cd_can = (either & ((moli != mol[None, :]) | (moli == 0))
+                  & ((charged[None, :] & polar[sl, None])
+                     | (charged[sl, None] & polar[None, :])))
+        cd = cd_can & (rsq < cut_coulsq)
+        for key, v in (("geometry_pairs", dd | cd_can),
+                       ("active_pairs", cd | dd), ("dd_pairs", dd),
+                       ("damped_pairs", dd & (rsq < rdamp * rdamp)),
+                       ("cd_pairs", cd), ("both_pairs", cd & dd)):
+            cnt[key] += int(v.sum())
+    cnt = {k: v // 2 for k, v in cnt.items()}       # unordered
+    flops = (DIPOLE_FLOPS_GEOM * cnt["geometry_pairs"]
+             + DIPOLE_FLOPS_PAIR * cnt["active_pairs"]
+             + DIPOLE_FLOPS_DD * cnt["dd_pairs"]
+             + DIPOLE_FLOPS_DAMPED * cnt["damped_pairs"]
+             + DIPOLE_FLOPS_CD * cnt["cd_pairs"]
+             + DIPOLE_FLOPS_BOTH * cnt["both_pairs"])
+    item = 8 if f64 else 4
+    t_ops = flops / (FP64_PEAK if f64 else FP32_PEAK)
+    t_bytes = item * ((rows + cols + outs) * npad + 8) / HBM_RATE
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes", cnt)
+
+
+def scalar_margin(got, ref, f64):
+    """The largest ratio of a scalar output's difference to compare()'s
+    bar (srel of the largest |ref| of its vector): below 1 passes."""
+    srel = 1e-10 if f64 else 1e-4
+    worst = 0.0
+    for g, r in zip(got, ref):
+        if g.dim() < 2:
+            g, r = g.double().reshape(-1), r.double().reshape(-1)
+            tol = srel * float(r.abs().max().clamp(min=1e-30))
+            worst = max(worst, float((g - r).abs().max()) / tol)
+    return worst
+
+
+def dipole_skip_share(tag, c, cut_coulsq, qqrd2e, pd, damping_type):
+    """Print the share of the whole dipole kernel's warp votes that skipped
+    each block (ops/panel.dipole_skip_share) on case c; returns it."""
+    from lidp_tpu_torch.ops import panel
+
+    votes, cd, dd = panel.dipole_skip_share(
+        c["x"], c["q"], c["mol"], c["alpha"], c["mu"], c["mask"], c["L"],
+        pd, cut_coulsq, qqrd2e, damping_type=damping_type)
+    print(f"skip share dipole {tag}: charge-dipole {cd} of {votes} warp "
+          f"votes = {cd / votes:.4f}, dipole-dipole {dd} = {dd / votes:.4f}")
+    return dict(votes=votes, cd_skipped=cd, dd_skipped=dd)
+
+
+def partial_buffers(c, cut_coulsq, qqrd2e, pd):
+    """Print the partial buffers of the float64 whole-panel eind and dipole
+    kernels on case c, and the device memory the caching allocator has
+    reserved after a call of each and a second eind call, from an emptied
+    cache: each wrapper takes its buffer per call and frees it on return."""
+    import torch
+
+    from lidp_tpu_torch.ops import panel
+
+    n = c["x"].shape[0]
+    size = {}
+    for name, tile in (("eind_panel_df", panel.EIND_TILE),
+                       ("dipole_panel_df", panel.whole_tile(
+                           "dipole_panel_df"))):
+        nT = -(-n // tile)
+        size[name] = nT * (nT + 1) * 3 * tile * 8 / 1e6
+
+    def eind():
+        return panel.eind_panel_df(c["x"], c["alpha"], c["mu"], c["L"], pd)
+
+    def dipole():
+        return panel.dipole_panel_df(c["x"], c["q"], c["mol"], c["alpha"],
+                                     c["mu"], c["mask"], c["L"], pd,
+                                     cut_coulsq, qqrd2e)
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    r0 = torch.cuda.memory_reserved()
+    grew = []
+    for call in (eind, dipole, eind):
+        call()
+        torch.cuda.synchronize()
+        grew.append((torch.cuda.memory_reserved() - r0) / 1e6)
+    print(f"partial buffers, float64, npad {n}: eind_panel_df "
+          f"{size['eind_panel_df']:.1f} MB, dipole_panel_df "
+          f"{size['dipole_panel_df']:.1f} MB; reserved after eind, dipole, "
+          f"eind again: +{grew[0]:.1f}, +{grew[1]:.1f}, +{grew[2]:.1f} MB")
+
+
 def skip_share(tag, x, alpha_eff, mu, L, pd, forms=("whole",)):
     """Print the share of the eind kernels' warp votes that skipped the
     exponential (ops/panel.eind_skip_share), per form."""
@@ -421,7 +588,7 @@ def skip_share(tag, x, alpha_eff, mu, L, pd, forms=("whole",)):
 
 def fluid_skip_share(tag, bench):
     """skip_share on a polar bench's current state, in its dtype, and for
-    path C's inner solve in float32 as well."""
+    path C's inner solve in float32 as well; dipole_skip_share on it."""
     import torch
 
     a = bench.arrays
@@ -432,6 +599,11 @@ def fluid_skip_share(tag, bench):
     if a["x"].dtype == torch.float64:
         f32 = [t.float() for t in (a["x"], ae, a["mu"], L)]
         skip_share(f"eind float32 fluid, {tag}", *f32, pd)
+    dt = a["x"].dtype
+    c = dict(x=a["x"], q=a["q"], mol=a["mol"].to(dt), alpha=ae, mu=a["mu"],
+             mask=a["mask"].to(dt), L=L)
+    dipole_skip_share(f"{dt} fluid, {tag}", c, bench.step.cut_coulsq,
+                      bench.step.qqrd2e, pd, bench.settings.damping_type)
 
 
 def energy_row(tag, en):
@@ -862,18 +1034,27 @@ def main() -> int:
              "ragged": make_case(1_000, 1_000, 28.0, seed=2, n_masked=50)}
     for cname, c in cases.items():
         npad = c["x"].shape[0]
-        calls = kernel_calls(c, to_f64(c), ff.pair, ff.polar)
-        for label, (name, kern, plain) in calls.items():
+        c64 = to_f64(c)
+        calls = kernel_calls(c, c64, ff.pair, ff.polar)
+        for label, (name, kern, plain, same_as) in calls.items():
             f64 = KERNELS[name][2]
             got, ref = kern(), plain()
             torch.cuda.synchronize()
             err, scale = compare(f"{label}[{cname}]", got, ref, f64)
-            if label.endswith("[no skip]") and \
-                    not torch.equal(got, calls[name][1]()):
-                raise AssertionError(f"{label}[{cname}]: the damping skip "
+            if not same_bits(got, kern()):
+                raise AssertionError(f"{label}[{cname}]: a repeated launch "
+                                     f"differs")
+            if same_as is not None and \
+                    not same_bits(got, calls[same_as][1]()):
+                raise AssertionError(f"{label}[{cname}]: the exact skips "
                                      f"changed the result")
             line = (f"parity {label}[{cname}] ok: max abs err {err:.3e} "
-                    f"of max |ref| {scale:.3e}")
+                    f"of max |ref| {scale:.3e}, repeats bit-identical")
+            if same_as is not None:
+                line += f", same bits as {same_as}"
+            if isinstance(got, tuple):
+                line += (f", scalars at {scalar_margin(got, ref, f64):.3g} "
+                         f"of their bar")
             del got, ref
             if cname == "main":
                 ms = cuda_ms(kern, reps=20)
@@ -888,6 +1069,14 @@ def main() -> int:
                     bms, by = eind_bound_ms(name, c["x"], c["alpha"], c["L"],
                                             ff.polar.polar_damp)
                     r.update(bound_ms=bms, bound_by=by)
+                elif name.startswith("dipole_panel"):
+                    r["bound_ms_cost_estimate"] = bms
+                    dmp = (panel.DAMP_NONE if "damping none" in label
+                           else ff.polar.damping_type)
+                    bms, by, cnt = dipole_bound_ms(
+                        name, c64 if f64 else c, ff.pair.cut_coulsq,
+                        ff.polar.polar_damp, dmp)
+                    r.update(bound_ms=bms, bound_by=by, **cnt)
                 if label == name:
                     results[name] = r
                 else:
@@ -895,29 +1084,44 @@ def main() -> int:
                 line += (f", kernel {ms:.4f} ms ({qms:.4f} queued), plain "
                          f"{pms:.3f} ms, bound {bms:.4f} ms ({by})")
             print(line)
-        if cname == "main":
-            for d in (c, to_f64(c)):
+        for d in (c, c64):
+            if cname == "main":
                 skip_share(f"eind {d['x'].dtype} main case", d["x"],
                            d["alpha"], d["mu"], d["L"], ff.polar.polar_damp,
                            forms=("whole", "strip"))
-        del calls
+            name = "dipole_panel_df" if d is c64 else "dipole_panel"
+            share = dipole_skip_share(
+                f"{d['x'].dtype} {cname} case", d, ff.pair.cut_coulsq,
+                ff.pair.qqrd2e, ff.polar.polar_damp, ff.polar.damping_type)
+            if cname == "main":
+                results[name]["skip_share"] = share
+        if cname == "main":
+            partial_buffers(c64, ff.pair.cut_coulsq, ff.pair.qqrd2e,
+                            ff.polar.polar_damp)
+        del calls, c64
     del cases
     torch.cuda.empty_cache()
 
     # 4. the main paths: every counter to 0 just before, read just after
+    whole_form = (panel.eind_panel, panel.eind_panel_df, panel.dipole_panel,
+                  panel.dipole_panel_df)
+
     def reset_counts():
         for w in wrappers.values():
             w.launches = 0
-        for w in (panel.eind_panel, panel.eind_panel_df):
+        for w in whole_form:
             w.launches_strip = 0
         torch.cuda.synchronize()
 
-    def check_whole_eind(path):
-        """Paths A-D evaluate the whole block: no strip-kernel launch."""
-        strip = {w.__name__: w.launches_strip
-                 for w in (panel.eind_panel, panel.eind_panel_df)}
+    def check_whole(path):
+        """Paths A-D evaluate the whole block: the eind and dipole
+        wrappers launch their whole-panel kernels, never the strip
+        kernels."""
+        strip = {w.__name__: w.launches_strip for w in whole_form}
         if any(strip.values()):
-            raise AssertionError(f"path {path}: strip eind launches {strip}")
+            raise AssertionError(f"path {path}: strip kernel launches "
+                                 f"{strip}")
+        print(f"path {path} strip-kernel launches: {strip}")
 
     def read_counts():
         torch.cuda.synchronize()
@@ -948,7 +1152,7 @@ def main() -> int:
     check_counts("A", launches["A"], dict(
         eind_panel=sum(it + 1 for it in scf), pair_wolf_panel=NSTEPS + 1,
         dipole_panel=NSTEPS + 1))
-    check_whole_eind("A")
+    check_whole("A")
     steps_per_s = NSTEPS / t_run
     print(f"path A: init {t_init * 1e3:.1f} ms; {NSTEPS} steps in "
           f"{t_run:.3f} s = {steps_per_s:.3f} steps/s; mean scf_iters "
@@ -987,7 +1191,7 @@ def main() -> int:
     check_counts("B", launches["B"], dict(
         pair_panel=len(evals), wolf_panel=len(evals),
         eind_panel=sum(it + 1 for it in scf), dipole_panel=len(evals)))
-    check_whole_eind("B")
+    check_whole("B")
     steps_per_s_B = HOST_STEPS / t_run
     print(f"path B: init {t_init * 1e3:.1f} ms; {HOST_STEPS} steps in "
           f"{t_run:.3f} s = {steps_per_s_B:.3f} steps/s; scf_iters {scf}")
@@ -1044,7 +1248,7 @@ def main() -> int:
     check_counts("C", launches["C"], dict(
         pair_panel_df=len(evals), eind_panel_df=sum(outer),
         eind_panel=sum(inner), dipole_panel_df=len(evals)))
-    check_whole_eind("C")
+    check_whole("C")
     steps_per_s_C = HOST_STEPS / t_run
     print(f"path C: init {t_init * 1e3:.1f} ms; {HOST_STEPS} steps in "
           f"{t_run:.3f} s = {steps_per_s_C:.3f} steps/s; scf_iters {scf}, "
@@ -1070,7 +1274,7 @@ def main() -> int:
     check_counts("D", launches["D"], dict(
         pair_panel_df=1, eind_panel_df=enD["scf_iters"] + 1,
         dipole_panel_df=1))
-    check_whole_eind("D")
+    check_whole("D")
     print(f"path D: float64 fused step, pure CG through eind_panel_df: "
           f"{t_D:.4f} s for the initial forces, scf_iters "
           f"{enD['scf_iters']}")
@@ -1402,7 +1606,9 @@ def main() -> int:
                    plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                    bound_by=r["bound_by"], library_ms=None)
         for key in ("ms_queued", "bound_ms_cost_estimate",
-                    "bound_ms_tpu_count", "live_pairs", "cutoff_pairs"):
+                    "bound_ms_tpu_count", "live_pairs", "cutoff_pairs",
+                    "geometry_pairs", "active_pairs", "dd_pairs",
+                    "damped_pairs", "cd_pairs", "both_pairs", "skip_share"):
             if key in r:
                 row[key] = r[key]
         if "variants" in r:

@@ -28,9 +28,10 @@
 //    sums of the WT warps are added in warp order through shared memory,
 //    and both sides go to a partial buffer, one slot per (tile, other
 //    tile): tile I's rows to slot k, tile J's columns to slot nT - k (nT
-//    for the diagonal).  eind_sum_kernel adds each atom's nT + 1 slots in
-//    slot order and negates.  Results do not depend on block order, and
-//    repeat bit for bit.
+//    for the diagonal).  slot_sum_kernel adds each atom's nT + 1 slots in
+//    slot order and negates.  The schedule, the slots and the sum are
+//    panel_common.cuh's, shared with dipole_whole_kernel.  Results do not
+//    depend on block order, and repeat bit for bit.
 //  * eind_strip_kernel, a row strip against all columns (cols=, row0=):
 //    one-sided, 8 lanes per row, the columns staged per CTA, with the
 //    packed columns, pair_terms and the skip below.  At the whole shape it
@@ -65,25 +66,12 @@ constexpr int BT = 128;       // atoms per tile of the whole-panel kernel
 constexpr int WT = 4;         // warps per tile pair, 32 columns each
 constexpr int RW = BT / 32;   // tile rows per lane
 
-// one column's operands; packed in shared memory as 16-byte vectors:
-// float4 (x, y, z, alpha), (mu, 0); double2 (x, y), (z, alpha), (mu_x,
-// mu_y), (mu_z, 0)
+// one column's operands; packed in shared memory as Vec<T>::n 16-byte
+// vectors: float4 (x, y, z, alpha), (mu, 0); double2 (x, y), (z, alpha),
+// (mu_x, mu_y), (mu_z, 0)
 template <typename T>
 struct Col {
   T x, y, z, a, mx, my, mz;
-};
-
-template <typename T>
-struct Vec;
-template <>
-struct Vec<float> {
-  using type = float4;
-  static constexpr int n = 2;
-};
-template <>
-struct Vec<double> {
-  using type = double2;
-  static constexpr int n = 4;
 };
 
 template <typename T>
@@ -168,12 +156,9 @@ __device__ __forceinline__ void pair_terms(const T* rsq, const bool* pm,
   }
 }
 
-// The nT (nT + 1) / 2 unordered pairs of nT tiles: block b takes tile I
-// against J = I + k mod nT, for k = 0 .. K - 1 (K = (nT - 1) / 2 + 1) and
-// every I (b < nT K: I = b mod nT, k = b / nT), then, when nT is even,
-// k = nT / 2 for I < nT / 2 (b >= nT K: I = b - nT K).  part (nT, nT + 1,
-// 3, BT); x, a, mu of the n atoms (n <= nT * BT; rows and columns past n
-// are masked).
+// Block b takes the tile pair tile_pair(b, nT) (panel_common.cuh).  part
+// (nT, nT + 1, 3, BT); x, a, mu of the n atoms (n <= nT * BT; rows and
+// columns past n are masked).
 template <typename T, int DAMP>
 __global__ void __launch_bounds__(32 * WT)
 eind_whole_kernel(const T* __restrict__ x, const T* __restrict__ a,
@@ -184,10 +169,8 @@ eind_whole_kernel(const T* __restrict__ x, const T* __restrict__ a,
   __shared__ V scol[WT][Vec<T>::n][32];
   __shared__ T srow[WT][3][BT];
   const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int b = blockIdx.x, nK = nT * ((nT - 1) / 2 + 1);
-  const int I = b < nK ? b % nT : b - nK;
-  const int k = b < nK ? b / nT : nT / 2;
-  const int J = I + k < nT ? I + k : I + k - nT;
+  const TilePair tp = tile_pair(blockIdx.x, nT);
+  const int I = tp.I, J = tp.J, k = tp.k;
   const int c0 = 32 * w;  // this warp's columns within tile J
   put_col(scol[w], lane, load_col(x, a, mu, J * BT + c0 + lane, n));
 
@@ -256,8 +239,7 @@ eind_whole_kernel(const T* __restrict__ x, const T* __restrict__ a,
     cz = __shfl_sync(FULL, cz, src);
   }
 
-  const size_t slot_c = k ? nT - k : nT;
-  T* pc = part + ((size_t)J * (nT + 1) + slot_c) * 3 * BT + c0 + lane;
+  T* pc = slot_ptr<BT>(part, J, col_slot(k, nT), nT) + c0 + lane;
   pc[0] = cx;
   pc[BT] = cy;
   pc[2 * BT] = cz;
@@ -272,7 +254,7 @@ eind_whole_kernel(const T* __restrict__ x, const T* __restrict__ a,
     atomicAdd(&stats[1], (unsigned long long)nskip);
   }
   __syncthreads();
-  T* pr = part + ((size_t)I * (nT + 1) + k) * 3 * BT;
+  T* pr = slot_ptr<BT>(part, I, k, nT);
   for (int e = threadIdx.x; e < 3 * BT; e += 32 * WT) {
     const int comp = e / BT, row = e % BT;
     T s = srow[0][comp][row];
@@ -280,20 +262,6 @@ eind_whole_kernel(const T* __restrict__ x, const T* __restrict__ a,
     for (int v = 1; v < WT; ++v) s += srow[v][comp][row];
     pr[e] = s;
   }
-}
-
-// out (n, 3) = -(sum over the nT + 1 slots of each atom, in slot order)
-template <typename T>
-__global__ void eind_sum_kernel(const T* __restrict__ part, int n, int nT,
-                                T* __restrict__ out) {
-  const int tile = blockIdx.x, comp = blockIdx.y;
-  const int i = tile * BT + threadIdx.x;
-  if (i >= n) return;
-  const T* p = part + ((size_t)tile * (nT + 1) * 3 + comp) * BT + threadIdx.x;
-  T s = T(0);
-#pragma unroll 8
-  for (int slot = 0; slot <= nT; ++slot) s += p[(size_t)slot * 3 * BT];
-  out[3 * i + comp] = -s;
 }
 
 // The whole panel of n atoms: x (n,3), a (n), mu (n,3), L (3,) on the
@@ -305,7 +273,7 @@ int launch_eind_whole(const T* x, const T* a, const T* mu, int n, const T* L,
                       T* out, unsigned long long* stats, void* stream) {
   if (nT != (n + BT - 1) / BT) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int npairs = nT * (nT + 1) / 2;
+  const int npairs = tile_pair_count(nT);
   if (damping_type == 1)
     eind_whole_kernel<T, 1><<<npairs, 32 * WT, 0, s>>>(
         x, a, mu, n, L, pd, skip_u, nT, part, stats);
@@ -314,7 +282,8 @@ int launch_eind_whole(const T* x, const T* a, const T* mu, int n, const T* L,
         x, a, mu, n, L, pd, skip_u, nT, part, stats);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  eind_sum_kernel<T><<<dim3(nT, 3), BT, 0, s>>>(part, n, nT, out);
+  // out = -(the sum of each atom's slots in slot order)
+  slot_sum_kernel<T, BT, true><<<dim3(nT, 3), BT, 0, s>>>(part, n, nT, out);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -118,4 +118,65 @@ reduce_partials(const T* __restrict__ partials, int nblocks, T s0, T s1,
 
 inline int nblocks_for(int nrows) { return (nrows + ROWS - 1) / ROWS; }
 
+// ---- the whole-panel kernels (eind_whole_kernel, dipole_whole_kernel) ----
+// The atoms fall into nT tiles of BT; a CTA takes one unordered tile pair
+// and computes each of its atom pairs once, for both atoms.
+
+// A column's operands in shared memory: n 16-byte vectors (seven or eight
+// values: two float4, or four double2)
+template <typename T>
+struct Vec;
+template <>
+struct Vec<float> {
+  using type = float4;
+  static constexpr int n = 2;
+};
+template <>
+struct Vec<double> {
+  using type = double2;
+  static constexpr int n = 4;
+};
+
+// The nT (nT + 1) / 2 unordered pairs of nT tiles, one per block: block b
+// takes tile I against J = I + k mod nT, for k = 0 .. K - 1 (K = (nT - 1) /
+// 2 + 1) and every I (b < nT K: I = b mod nT, k = b / nT), then, when nT
+// is even, k = nT / 2 for I < nT / 2 (b >= nT K: I = b - nT K).  k = 0 is
+// the diagonal tile, whose CTA takes only its pairs i < j.
+struct TilePair {
+  int I, J, k;
+};
+__device__ __forceinline__ TilePair tile_pair(int b, int nT) {
+  const int nK = nT * ((nT - 1) / 2 + 1);
+  const int I = b < nK ? b % nT : b - nK;
+  const int k = b < nK ? b / nT : nT / 2;
+  return TilePair{I, I + k < nT ? I + k : I + k - nT, k};
+}
+inline int tile_pair_count(int nT) { return nT * (nT + 1) / 2; }
+
+// The partial buffer part (nT, nT + 1, 3, BT): the CTA of tile pair (I, k)
+// writes tile I's row sums to slot k of I and tile J's column sums to slot
+// col_slot(k) of J, so each tile's nT + 1 slots are each written once.
+__device__ __forceinline__ int col_slot(int k, int nT) {
+  return k ? nT - k : nT;
+}
+template <int BT, typename T>
+__device__ __forceinline__ T* slot_ptr(T* part, int tile, int slot, int nT) {
+  return part + ((size_t)tile * (nT + 1) + slot) * 3 * BT;
+}
+
+// out (n, 3) = the sum of each atom's nT + 1 slots in slot order, negated
+// when NEG: no float atomics, the same bits whatever order the CTAs ran in
+template <typename T, int BT, bool NEG>
+__global__ void slot_sum_kernel(const T* __restrict__ part, int n, int nT,
+                                T* __restrict__ out) {
+  const int tile = blockIdx.x, comp = blockIdx.y;
+  const int i = tile * BT + threadIdx.x;
+  if (i >= n) return;
+  const T* p = part + ((size_t)tile * (nT + 1) * 3 + comp) * BT + threadIdx.x;
+  T s = T(0);
+#pragma unroll 8
+  for (int slot = 0; slot <= nT; ++slot) s += p[(size_t)slot * 3 * BT];
+  out[3 * i + comp] = NEG ? -s : s;
+}
+
 }  // namespace lidp

@@ -55,6 +55,12 @@ EIND_TILE = 128       # csrc/eind_panel.cuh BT: atoms per tile of the whole pane
 # either differs from 1 is 25.36 in float32 and 47.27 in float64; the
 # margin covers an exp a few ulps off (tests/test_torch_eind_symmetric.py).
 EIND_SKIP_U = {torch.float32: 27.0, torch.float64: 49.0}
+# The whole dipole panel's exact skips (csrc/dipole_panel.cuh): a warp whose
+# pairs of one vote all lie outside the charge-dipole block (cutoff,
+# molecule, masks) skips it, and likewise the dipole-dipole block; the
+# results are bit for bit those without the skips.  False turns them off,
+# for measurement.
+DIPOLE_SKIP = True
 
 
 # ------------------------------ plain path ------------------------------
@@ -131,7 +137,6 @@ def _pair_plain(x, q, typef, mol, maskf, tabs, L, cut_coulsq, qqrd2e,
     nrows = x.shape[0]
     ti = typef.long()[:, None]
     tcl = tc.long()
-    cutsq_u = torch.max(tabs[4])
     f_shift = -1.0 / cut_coulsq
     f = x.new_zeros((nrows, 3))
     e0 = x.new_zeros((nrows, 3)) if wolf else None
@@ -144,7 +149,7 @@ def _pair_plain(x, q, typef, mol, maskf, tabs, L, cut_coulsq, qqrd2e,
         lj3, lj4 = tabs[0][ti, tj], tabs[1][ti, tj]
         off, cut_ljsq = tabs[2][ti, tj], tabs[3][ti, tj]
         rsq = torch.where(pm, rsq, 1.0)
-        in_range = (rsq < cutsq_u) & pm
+        in_range = (rsq < tabs[4][ti, tj]) & pm
         lj_mask = in_range & (rsq < cut_ljsq)
         if sp is not None:
             gj = torch.arange(c0, c1, device=x.device)
@@ -196,7 +201,9 @@ def pair_wolf_panel_plain(x, q, typef, mol, maskf, tabs, L, cut_coulsq,
 
     Returns (f (nrows,3), evdwl, ecoul, vir6, e0 (nrows,3) UNSCALED — the
     caller multiplies by sqrt(qqrd2e)).  tabs (5,T1,T1) = [lj3 lj4 offset
-    cut_ljsq cutsq]; the outer cutoff is the single max(tabs[4]).  sp
+    cut_ljsq cutsq]; the outer cutoff is cutsq of the pair's two types, as
+    in the JAX package's scan path (the kernels take only a table whose
+    live type pairs share one cutsq, and apply max(tabs[4])).  sp
     (nrows, S): special-neighbour global indices excluded from the LJ term
     in-pass.  cols = (x, q, typef, mol, maskf)."""
     return _pair_plain(x, q, typef, mol, maskf, tabs, L, cut_coulsq, qqrd2e,
@@ -634,8 +641,20 @@ def wolf_panel(x, q, mol, maskf, L, cut_coulsq, cols=None, row0=0):
 wolf_panel.launches = 0
 
 
+@functools.lru_cache(maxsize=None)
+def whole_tile(name):
+    """Atoms per tile of wrapper `name`'s whole-panel dipole kernel, as its
+    source sets it (csrc/dipole_panel.cuh DipoleTile, exported as
+    lidp_<name>_whole_tile)."""
+    return _cfn(name, "", f"{name}_whole_tile")()
+
+
 def _dipole_cuda(wrapper, dtype, x, q, mol, alpha_eff, mu, maskf, L, pd,
-                 cut_coulsq, qqrd2e, damping_type, cols, row0):
+                 cut_coulsq, qqrd2e, damping_type, cols, row0, stats=None):
+    """The whole-panel kernel, its slot sum and scalar sum for cols=None,
+    else the strip kernel and its scalar sum.  stats, an int64 (3,) device
+    tensor, gains (warp votes, votes that skipped the charge-dipole block,
+    votes that skipped the dipole-dipole block) of the whole kernel."""
     name = wrapper.__name__
     xc, qc, molc, ac, muc, mc = ((x, q, mol, alpha_eff, mu, maskf)
                                  if cols is None else cols)
@@ -646,26 +665,60 @@ def _dipole_cuda(wrapper, dtype, x, q, mol, alpha_eff, mu, maskf, L, pd,
                   (alpha_eff, (nrows,)), (mu, (nrows, 3)), (xc, (npad, 3)),
                   (qc, (npad,)), (molc, (npad,)), (ac, (npad,)),
                   (muc, (npad, 3)), (mc, (npad,)), (L, (3,)))
-    nb = -(-nrows // ROWS_PER_CTA)
     f = torch.empty((nrows, 3), dtype=dtype, device=x.device)
-    partials = torch.empty((nb, 8), dtype=dtype, device=x.device)
     acc = torch.empty((8,), dtype=dtype, device=x.device)
     c = _scalar_code(dtype)
-    _launch(name, f"PPPPPIIPPPPPPIP{c}{c}{c}IPPPP", x.device,
-            x.data_ptr(), q.data_ptr(), mol.data_ptr(),
-            alpha_eff.data_ptr(), mu.data_ptr(), nrows, int(row0),
-            xc.data_ptr(), qc.data_ptr(), molc.data_ptr(), ac.data_ptr(),
-            muc.data_ptr(), mc.data_ptr(), npad, L.data_ptr(), float(pd),
-            float(cut_coulsq), math.sqrt(qqrd2e), int(damping_type),
-            f.data_ptr(), partials.data_ptr(), acc.data_ptr(), _stream(x))
+    scal = (float(pd), float(cut_coulsq), math.sqrt(qqrd2e),
+            int(damping_type))
+    stream = _stream(x)
+    if cols is None:
+        bt = whole_tile(name)
+        nT = -(-npad // bt)
+        part = torch.empty((nT, nT + 1, 3, bt), dtype=dtype, device=x.device)
+        partials = torch.empty((nT * (nT + 1) // 2, 8), dtype=dtype,
+                               device=x.device)
+        _launch(name, f"PPPPPPIP{c}{c}{c}IIIPPPPPP", x.device, x.data_ptr(),
+                q.data_ptr(), mol.data_ptr(), alpha_eff.data_ptr(),
+                mu.data_ptr(), maskf.data_ptr(), npad, L.data_ptr(), *scal,
+                int(DIPOLE_SKIP), nT, part.data_ptr(), partials.data_ptr(),
+                f.data_ptr(), acc.data_ptr(),
+                None if stats is None else stats.data_ptr(), stream,
+                entry=name + "_whole")
+    else:
+        partials = torch.empty((-(-nrows // ROWS_PER_CTA), 8), dtype=dtype,
+                               device=x.device)
+        _launch(name, f"PPPPPIIPPPPPPIP{c}{c}{c}IPPPP", x.device,
+                x.data_ptr(), q.data_ptr(), mol.data_ptr(),
+                alpha_eff.data_ptr(), mu.data_ptr(), nrows, int(row0),
+                xc.data_ptr(), qc.data_ptr(), molc.data_ptr(), ac.data_ptr(),
+                muc.data_ptr(), mc.data_ptr(), npad, L.data_ptr(), *scal,
+                f.data_ptr(), partials.data_ptr(), acc.data_ptr(), stream)
+        wrapper.launches_strip += 1
     wrapper.launches += 1
     return f, acc[0], acc[1], acc[2:8]
+
+
+def dipole_skip_share(x, q, mol, alpha_eff, mu, maskf, L, pd, cut_coulsq,
+                      qqrd2e, *, damping_type=DAMP_EXP):
+    """One launch of the whole dipole_panel (float32) or dipole_panel_df
+    (float64) kernel on CUDA tensors that also counts its warp votes:
+    (votes, votes that skipped the charge-dipole block, votes that skipped
+    the dipole-dipole block).  For measurement; it counts as a launch of
+    the wrapper."""
+    wrapper = dipole_panel_df if x.dtype == torch.float64 else dipole_panel
+    stats = torch.zeros(3, dtype=torch.int64, device=x.device)
+    _dipole_cuda(wrapper, x.dtype, x, q, mol, alpha_eff, mu, maskf, L, pd,
+                 cut_coulsq, qqrd2e, damping_type, None, 0, stats=stats)
+    votes, cd_skipped, dd_skipped = stats.tolist()
+    return votes, cd_skipped, dd_skipped
 
 
 def dipole_panel(x, q, mol, alpha_eff, mu, maskf, L, pd, cut_coulsq, qqrd2e,
                  *, damping_type=DAMP_EXP, cols=None, row0=0):
     """Charge-dipole + dipole-dipole forces; returns (fpol (nrows,3), u_ef,
-    u_dd, vir6_pairwise) (csrc/dipole_panel.cu on CUDA)."""
+    u_dd, vir6_pairwise).  On CUDA (csrc/dipole_panel.cu) the whole panel
+    (cols=None) takes the kernel that computes each pair once for both
+    atoms, a row strip the one-sided strip kernel."""
     if x.device.type == "cpu":
         return dipole_panel_plain(x, q, mol, alpha_eff, mu, maskf, L, pd,
                                   cut_coulsq, qqrd2e,
@@ -677,12 +730,14 @@ def dipole_panel(x, q, mol, alpha_eff, mu, maskf, L, pd, cut_coulsq, qqrd2e,
 
 
 dipole_panel.launches = 0
+dipole_panel.launches_strip = 0   # of them, launches of the strip kernel
 
 
 def dipole_panel_df(x, q, mol, alpha_eff, mu, maskf, L, pd, cut_coulsq,
                     qqrd2e, *, damping_type=DAMP_EXP, cols=None, row0=0):
     """Charge-dipole + dipole-dipole forces at f64 grade: float64 operands
-    (csrc/dipole_panel_df.cu on CUDA); returns as dipole_panel."""
+    (csrc/dipole_panel_df.cu on CUDA, routed as dipole_panel); returns as
+    dipole_panel."""
     if x.device.type == "cpu":
         return dipole_panel_df_plain(x, q, mol, alpha_eff, mu, maskf, L, pd,
                                      cut_coulsq, qqrd2e,
@@ -694,6 +749,7 @@ def dipole_panel_df(x, q, mol, alpha_eff, mu, maskf, L, pd, cut_coulsq,
 
 
 dipole_panel_df.launches = 0
+dipole_panel_df.launches_strip = 0
 
 # every wrapper that launches a kernel, by name
 WRAPPERS = {w.__name__: w for w in (

@@ -13,7 +13,9 @@ panel="kernel" runs the O(N^2) phases through the ops/panel.py wrappers
 kernels in a float32 build, the f64-grade `*_df` kernels in a float64 one.
 panel="scan" runs the plain versions directly over column chunks of
 `col_chunk` columns in any dtype, which is the JAX package's column-chunk
-scan path.
+scan path.  The plain versions take a per-type outer cutoff (cutsq of the
+pair's two types); the pair kernels take one for all live type pairs, so a
+CUDA build with panel="kernel" raises on any other table.
 
 `make_host_phases` hands out the same force phases one by one, whole or as
 row strips, for a host-driven evaluation (parallel/fast_polar.py
@@ -109,11 +111,15 @@ class PolarStep(nn.Module):
             raise NotImplementedError(
                 "zodid, fixed_iteration and polar_gs SCF modes are not "
                 "ported yet; the CG solve is")
-        cq = pair.cutsq[1:, 1:].detach().cpu().numpy()
-        if not np.all((cq == cq.max()) | (cq == 0.0)):
-            raise ValueError("the pair panel requires a uniform outer cutoff")
         if panel not in ("kernel", "scan"):
             raise ValueError(f"panel must be 'kernel' or 'scan', not {panel!r}")
+        cq = pair.cutsq[1:, 1:].detach().cpu().numpy()
+        if (panel == "kernel" and torch.device(device).type == "cuda"
+                and not np.all((cq == cq.max()) | (cq == 0.0))):
+            raise ValueError(
+                "the pair kernels take one outer cutoff for every live type "
+                "pair; pass panel='scan' for a per-type outer cutoff (the "
+                "plain path forms cutsq per pair, as the JAX scan path does)")
         if (panel == "kernel" and dtype == torch.float64 and not pair.coul
                 and torch.device(device).type == "cuda"):
             raise NotImplementedError(

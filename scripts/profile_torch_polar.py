@@ -6,6 +6,7 @@
     python scripts/profile_torch_polar.py --path lj --steps 400 [--scale 4]
     python scripts/profile_torch_polar.py --path ljcells --steps 100
     python scripts/profile_torch_polar.py --path eind [--rounds 7]
+    python scripts/profile_torch_polar.py --path dipole [--rounds 7]
     python scripts/profile_torch_polar.py --path lj --variants --scale 4 \
         [--tree OTHER] [--rounds 7]
     python scripts/profile_torch_polar.py --path ab --tree OTHER --seq F \
@@ -41,9 +42,10 @@ torch.profiler window.
 
 --path eind times design variants of the whole-panel eind kernel
 (csrc/eind_panel.cuh), each the committed source with one choice changed,
-built from a patched copy of csrc/ into lidp_tpu_torch/_build/variants/
-(see VARIANTS), on chip_smoke.py's 12,288-row main case in float32 and
-float64: `--rounds` rounds, each timing every variant in turn (the order
+built from a patched copy of csrc/ into
+lidp_tpu_torch/_build/variants/eind_panel/ (see VARIANTS), on
+chip_smoke.py's 12,288-row main case in float32 and float64: `--rounds`
+rounds, each timing every variant in turn (the order
 rotated from round to round) by 20 launches queued between two CUDA
 events (the kernel and its sum, no wrapper), the median over rounds; each
 variant is held to eind_panel_plain at chip_smoke.py's bars, with its
@@ -52,6 +54,16 @@ registers, spills, instruction mix of the damped kernel's SASS
 and whether its bits equal the committed kernel's.  The committed kernel
 through its wrapper (`wrapper[...]`) is timed in the same rounds, after
 2,000 warm-up launches.
+
+--path dipole does the same for the whole-panel dipole kernel
+(csrc/dipole_panel.cuh; see DIPOLE_VARIANTS: the tile of each dtype, the
+rows per warp vote, the warp skips compiled out), built into
+lidp_tpu_torch/_build/variants/dipole_panel/, each held to
+dipole_panel_plain at chip_smoke.py's bars with its scalars' ratio to their
+bar, its registers, spills, SASS mix, the shares of warp votes that skipped
+the charge-dipole and the dipole-dipole block, and whether its bits equal
+the committed kernel's; beside them the committed wrapper and its strip
+form (the row form) at the same shape, after 500 warm-up launches.
 
 --path lj --variants times design variants of the LJ cell kernel
 (csrc/lj_cell.cuh) in the same way, each the committed source with one
@@ -329,10 +341,12 @@ def _sass_mix(lib, prefix):
     return sum(ops.values()), ops
 
 
-def _build_variants():
-    """Compile eind_panel.cu and eind_panel_df.cu of every variant, all
-    nvcc processes at once; returns {variant: {dtype: its C entry of the
-    whole panel, registers, spill bytes and SASS mix}}."""
+def _build_variants(table, stem, kernel, argtypes):
+    """Compile csrc/<stem>.cu and <stem>_df.cu of every variant in `table`,
+    all nvcc processes at once; returns {variant: {dtype: its C entry of
+    the whole panel (argtypes(scalar ctype)), registers, spill bytes and
+    SASS mix of the damped `kernel`, and the whole panel's tile where the
+    launcher exports it}}."""
     import ctypes
     import re
     import shutil
@@ -342,8 +356,8 @@ def _build_variants():
     from lidp_tpu_torch.kernels import build
 
     procs = {}
-    for name, (_, patches) in VARIANTS.items():
-        out = build.BUILD / "variants" / name
+    for name, (_, patches) in table.items():
+        out = build.BUILD / "variants" / stem / name
         shutil.rmtree(out, ignore_errors=True)
         shutil.copytree(build.CSRC, out / "csrc")
         for fname, old, new in patches:
@@ -353,7 +367,7 @@ def _build_variants():
                 raise RuntimeError(f"variant {name}: {fname} does not hold "
                                    f"the text it patches once")
             f.write_text(text.replace(old, new))
-        for src in ("eind_panel", "eind_panel_df"):
+        for src in (stem, stem + "_df"):
             cmd = [build._nvcc(), *build.NVCC_FLAGS, "-o",
                    str(out / f"lib{src}.so"), str(out / "csrc" / f"{src}.cu")]
             procs[name, src] = subprocess.Popen(
@@ -366,28 +380,34 @@ def _build_variants():
             raise RuntimeError(f"variant {name}: nvcc failed on {src}.cu\n"
                                f"{log}")
         # the damped whole kernel's registers and spill stores
-        m = re.search(r"eind_whole_kernelI[fd]Li1E.*?\n(.*?)Used (\d+) "
-                      r"registers", log, re.S)
+        m = re.search(kernel + r"I[fd]Li1E.*?\n(.*?)Used (\d+) registers",
+                      log, re.S)
         spill = re.findall(r"(\d+) bytes spill stores", m.group(1)) if m \
             else []
-        fn = getattr(ctypes.CDLL(str(build.BUILD / "variants" / name /
-                                     f"lib{src}.so")), f"lidp_{src}_whole")
-        dtype = torch.float64 if src.endswith("_df") else torch.float32
-        c = "d" if src.endswith("_df") else "f"
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
-        fn.argtypes += [ctypes.c_double if c == "d" else ctypes.c_float,
-                        ctypes.c_int]
-        fn.argtypes += [ctypes.c_double if c == "d" else ctypes.c_float,
-                        ctypes.c_int] + [ctypes.c_void_p] * 4
+        out = build.BUILD / "variants" / stem / name
+        dll = ctypes.CDLL(str(out / f"lib{src}.so"))
+        fn = getattr(dll, f"lidp_{src}_whole")
+        # the whole panel's tile, where the launcher exports it
+        tile = getattr(dll, f"lidp_{src}_whole_tile", None)
+        f64 = src.endswith("_df")
+        fn.argtypes = argtypes(ctypes.c_double if f64 else ctypes.c_float)
         fn.restype = ctypes.c_int
-        total, ops = _sass_mix(build.BUILD / "variants" / name /
-                               f"lib{src}.so",
-                               f"_ZN4lidp17eind_whole_kernelI{c}Li1E")
-        libs.setdefault(name, {})[dtype] = dict(
-            fn=fn, registers=int(m.group(2)) if m else None,
-            spill_bytes=int(spill[-1]) if spill else None,
-            sass_total=total, sass_ops=ops)
+        total, ops = _sass_mix(out / f"lib{src}.so",
+                               f"_ZN4lidp{len(kernel)}{kernel}"
+                               f"I{'d' if f64 else 'f'}Li1E")
+        libs.setdefault(name, {})[torch.float64 if f64 else torch.float32] = \
+            dict(fn=fn, registers=int(m.group(2)) if m else None,
+                 spill_bytes=int(spill[-1]) if spill else None,
+                 sass_total=total, sass_ops=ops,
+                 tile=tile() if tile is not None else None)
     return libs
+
+
+def _eind_argtypes(real):
+    import ctypes
+
+    p, i = ctypes.c_void_p, ctypes.c_int
+    return [p, p, p, i, p, real, i, real, i, p, p, p, p]
 
 
 def eind_variants(rounds):
@@ -399,7 +419,8 @@ def eind_variants(rounds):
     from lidp_tpu_torch.ops import panel
 
     t0 = time.perf_counter()
-    libs = _build_variants()
+    libs = _build_variants(VARIANTS, "eind_panel", "eind_whole_kernel",
+                           _eind_argtypes)
     print(f"built {len(VARIANTS)} variants x 2 in "
           f"{time.perf_counter() - t0:.1f} s")
     ff = polar_bench.synthetic_forcefield(polar_bench.synthetic_system(),
@@ -492,6 +513,168 @@ def eind_variants(rounds):
                      f"{r['max_abs_err']:.3e}")
         print(line)
     return {"variants": {k: v[0] for k, v in VARIANTS.items()},
+            "results": res}
+
+
+# --path dipole: (what changes, [(file in csrc/, text, replacement)])
+DIPOLE_VARIANTS = {
+    "kept": ("the committed source", []),
+    "f32tile64": ("float32 tiles of 64 atoms (2 warps, 2 rows per lane)",
+                  [("dipole_panel.cuh", "static constexpr int BT = 128, ",
+                    "static constexpr int BT = 64, ")]),
+    "f64tile128": ("float64 tiles of 128 atoms (4 warps, 4 rows per lane), "
+                   "4 CTAs per SM (at most 128 registers, as the kept 8 of "
+                   "64)",
+                   [("dipole_panel.cuh", "static constexpr int BT = 64, "
+                     "MIN_CTAS = 8;", "static constexpr int BT = 128, "
+                     "MIN_CTAS = 4;")]),
+    "vote1": ("the warp votes over 1 row x 32 columns (DG = 1)",
+              [("dipole_panel.cuh", "constexpr int DG = 2;",
+                "constexpr int DG = 1;")]),
+    "occupancy": ("float32 bounded to 4 CTAs per SM (at most 128 "
+                  "registers) where the kept source bounds it to 5 (102); "
+                  "float64 unbounded, where the kept source bounds it to "
+                  "8 (128)",
+                  [("dipole_panel.cuh", "static constexpr int BT = 128, "
+                    "MIN_CTAS = 5;", "static constexpr int BT = 128, "
+                    "MIN_CTAS = 4;"),
+                   ("dipole_panel.cuh", "static constexpr int BT = 64, "
+                    "MIN_CTAS = 8;", "static constexpr int BT = 64, "
+                    "MIN_CTAS = 1;")]),
+    "noskip": ("the warp skips compiled out (skip = 0 in the launcher)",
+               [("dipole_panel.cuh", "        x, q, mol, a, mu, m, n, L, pd, "
+                 "cut_coulsq, sqrt_q, skip, nT, part,\n        partials, "
+                 "stats);\n  else", "        x, q, mol, a, mu, m, n, L, pd, "
+                 "cut_coulsq, sqrt_q, 0, nT, part,\n        partials, "
+                 "stats);\n  else")]),
+}
+
+
+def _dipole_argtypes(real):
+    import ctypes
+
+    p, i = ctypes.c_void_p, ctypes.c_int
+    return [p] * 6 + [i, p, real, real, real, i, i, i] + [p] * 6
+
+
+def dipole_variants(rounds):
+    """--path dipole; returns the JSON-able results."""
+    import math
+
+    import torch
+
+    import chip_smoke
+    from lidp_tpu_torch.models import polar_bench
+    from lidp_tpu_torch.ops import panel
+
+    t0 = time.perf_counter()
+    libs = _build_variants(DIPOLE_VARIANTS, "dipole_panel",
+                           "dipole_whole_kernel", _dipole_argtypes)
+    print(f"built {len(DIPOLE_VARIANTS)} variants x 2 in "
+          f"{time.perf_counter() - t0:.1f} s")
+    ff = polar_bench.synthetic_forcefield(polar_bench.synthetic_system(),
+                                          torch.float32, "cuda")
+    pd, pair = ff.polar.polar_damp, ff.pair
+    c32 = chip_smoke.make_case(10_125, 12_288, 60.0, seed=1)
+    cases = {torch.float32: c32, torch.float64: chip_smoke.to_f64(c32)}
+    calls, res = {}, {}
+    stream = torch.cuda.current_stream().cuda_stream
+    for dtype, c in cases.items():
+        n = c["x"].shape[0]
+        args = (c["x"], c["q"], c["mol"], c["alpha"], c["mu"], c["mask"],
+                c["L"], pd, pair.cut_coulsq, pair.qqrd2e)
+        ref = panel.dipole_panel_plain(*args)
+        dt = str(dtype)[6:]
+        for name in DIPOLE_VARIANTS:
+            lib = libs[name][dtype]
+            bt = lib["tile"]
+            nT = -(-n // bt)
+            part = torch.empty((nT, nT + 1, 3, bt), dtype=dtype,
+                               device="cuda")
+            partials = torch.empty((nT * (nT + 1) // 2, 8), dtype=dtype,
+                                   device="cuda")
+            f = torch.empty((n, 3), dtype=dtype, device="cuda")
+            acc = torch.empty(8, dtype=dtype, device="cuda")
+            stats = torch.zeros(3, dtype=torch.int64, device="cuda")
+
+            def call(st=None, fn=lib["fn"], c=c, nT=nT, part=part,
+                     partials=partials, f=f, acc=acc):
+                err = fn(c["x"].data_ptr(), c["q"].data_ptr(),
+                         c["mol"].data_ptr(), c["alpha"].data_ptr(),
+                         c["mu"].data_ptr(), c["mask"].data_ptr(), n,
+                         c["L"].data_ptr(), pd, pair.cut_coulsq,
+                         math.sqrt(pair.qqrd2e), panel.DAMP_EXP, 1, nT,
+                         part.data_ptr(), partials.data_ptr(),
+                         f.data_ptr(), acc.data_ptr(), st, stream)
+                if err:
+                    raise RuntimeError(f"launch failed with CUDA error {err}")
+            call(stats.data_ptr())
+            torch.cuda.synchronize()
+            label = f"{name}[{dt}]"
+            got = (f.clone(), acc[0].clone(), acc[1].clone(),
+                   acc[2:8].clone())
+            err, _ = chip_smoke.compare(label, got, ref,
+                                        dtype == torch.float64)
+            votes, cd, dd = stats.tolist()
+            res[label] = dict(
+                tile=bt, registers=lib["registers"],
+                spill_bytes=lib["spill_bytes"], sass_total=lib["sass_total"],
+                sass_ops=lib["sass_ops"], max_abs_err=err,
+                scalar_margin=chip_smoke.scalar_margin(
+                    got, ref, dtype == torch.float64),
+                cd_skip_share=cd / votes if votes else None,
+                dd_skip_share=dd / votes if votes else None, ms=[],
+                same_bits_as_kept=chip_smoke.same_bits(
+                    got, res[f"kept[{dt}]"]["out"])
+                if name != "kept" else True, out=got)
+            calls[label] = call
+        # the committed kernel through its wrapper, as chip_smoke.py times
+        # it, and the strip kernel (the row form) at the same shape
+        wrapper = panel.dipole_panel_df if dtype == torch.float64 \
+            else panel.dipole_panel
+        calls[f"wrapper[{dt}]"] = lambda w=wrapper, a=args: w(*a)
+        calls[f"strip form[{dt}]"] = lambda w=wrapper, a=args: w(
+            *a, cols=a[:6], row0=0)
+        res[f"wrapper[{dt}]"] = dict(ms=[])
+        res[f"strip form[{dt}]"] = dict(ms=[])
+    for r in res.values():
+        r.pop("out", None)
+    labels = list(calls)
+    for _ in range(500):             # the card at its working clocks
+        calls[labels[0]]()
+    torch.cuda.synchronize()
+    clocks = "--query-gpu=clocks.sm,clocks.max.sm,power.draw"
+    for rd in range(rounds):
+        k = rd % len(labels)
+        for label in labels[k:] + labels[:k]:
+            res[label]["ms"].append(chip_smoke.cuda_ms_queued(calls[label],
+                                                              20))
+        if rd in (0, rounds - 1):
+            print(f"after round {rd}: sm clock, max, power: " + subprocess.run(
+                ["nvidia-smi", clocks, "--format=csv,noheader"],
+                capture_output=True, text=True).stdout.strip())
+    for r in res.values():
+        r["median_ms"] = statistics.median(r["ms"])
+    for label, r in res.items():
+        kept = res["kept" + label[label.index("["):]]["median_ms"]
+        line = (f"{label:22s} {r['median_ms']:.4f} ms (min {min(r['ms']):.4f}"
+                f", max {max(r['ms']):.4f}; {r['median_ms'] / kept:.3f} x "
+                f"kept)")
+        if "registers" in r:
+            mix = " ".join(f"{k}={r['sass_ops'].get(k, 0)}" for k in
+                           ("MUFU", "SHFL", "LDS", "VOTE", "FFMA", "FMUL",
+                            "DFMA", "DMUL", "DADD", "BRA"))
+            shares = ("none counted" if r["cd_skip_share"] is None else
+                      f"cd {r['cd_skip_share']:.4f} dd "
+                      f"{r['dd_skip_share']:.4f}")
+            line += (f", tile {r['tile']}, SASS {r['sass_total']} ({mix}), "
+                     f"registers {r['registers']}, spill {r['spill_bytes']} "
+                     f"B, skip shares {shares}, same bits as kept "
+                     f"{r['same_bits_as_kept']}, max abs err "
+                     f"{r['max_abs_err']:.3e}, scalars at "
+                     f"{r['scalar_margin']:.3g} of the bar")
+        print(line)
+    return {"variants": {k: v[0] for k, v in DIPOLE_VARIANTS.items()},
             "results": res}
 
 
@@ -835,19 +1018,21 @@ def main() -> int:
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--trace", help="write the profiler's Chrome trace here")
     ap.add_argument("--path", choices=["fused32", "host64", "lj", "ljcells",
-                                       "eind", "seq", "ab"],
+                                       "eind", "dipole", "seq", "ab"],
                     default="fused32")
     ap.add_argument("--scale", type=float, default=1,
                     help="lj paths: box edge in units of 20 fcc cells")
     ap.add_argument("--rounds", type=int, default=7,
-                    help="eind: rounds over the variants")
+                    help="eind, dipole, lj --variants: rounds over the "
+                    "variants")
     ap.add_argument("--seq", default="F",
                     help="seq, ab: paths in order, e.g. F or F,A,C,F")
     ap.add_argument("--tree", help="seq: the checkout to drive (default "
                     "this one); ab: the other checkout")
     ap.add_argument("--pairs", type=int, default=10,
                     help="ab: processes per checkout")
-    ap.add_argument("--out", help="eind, ab, lj --variants: also write "
+    ap.add_argument("--out", help="eind, dipole, ab, lj --variants: also "
+                    "write "
                     "the JSON here")
     ap.add_argument("--variants", action="store_true",
                     help="lj: time the LJ cell kernel's design variants "
@@ -873,11 +1058,13 @@ def main() -> int:
                          text=True, check=True).stdout.strip())
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     lj_var = args.path == "lj" and args.variants
-    if args.path in ("eind", "ab") or lj_var:
+    if args.path in ("eind", "dipole", "ab") or lj_var:
         if lj_var:
             out = lj_variants(args.rounds, args.scale, args.tree)
         elif args.path == "eind":
             out = eind_variants(args.rounds)
+        elif args.path == "dipole":
+            out = dipole_variants(args.rounds)
         else:
             out = ab_trees(args.tree, args.pairs, seq)
         print(json.dumps(out))

@@ -197,24 +197,29 @@ def _eind_args(dev, kernel, npad):
                      c["s"].polar_damp)
 
 
+DAMPINGS = {"exp": panel.DAMP_EXP, "none": panel.DAMP_NONE}
+
+
+@pytest.mark.parametrize("damping", list(DAMPINGS))
 @pytest.mark.parametrize("npad", [1024, 1000])
 @pytest.mark.parametrize("kernel", list(EIND))
-def test_eind_whole_matches_plain_and_strip(dev, kernel, npad):
+def test_eind_whole_matches_plain_and_strip(dev, kernel, npad, damping):
     """The ragged case (1,000 live rows, masked and alpha=0 atoms) at an
-    npad that is a multiple of the tile (1024) and one that is not (1000):
-    the whole-panel kernel against the plain version and against the strip
-    kernel at the same shape, one launch counted per call, two launches
-    bit-identical."""
+    npad that is a multiple of the tile (1024) and one that is not (1000),
+    exponential damping and none: the whole-panel kernel against the plain
+    version and against the strip kernel at the same shape, one launch
+    counted per call, two launches bit-identical."""
     wrapper, args = _eind_args(dev, kernel, npad)
+    kw = dict(damping_type=DAMPINGS[damping])
     before = wrapper.launches
-    whole = wrapper(*args)
+    whole = wrapper(*args, **kw)
     torch.cuda.synchronize()
     assert wrapper.launches == before + 1
-    strip = wrapper(*args, cols=args[:3], row0=0)
+    strip = wrapper(*args, cols=args[:3], row0=0, **kw)
     assert wrapper.launches == before + 2
-    _close(whole, panel.eind_panel_plain(*args))
+    _close(whole, panel.eind_panel_plain(*args, **kw))
     _close(whole, strip)
-    assert torch.equal(whole, wrapper(*args))
+    assert torch.equal(whole, wrapper(*args, **kw))
 
 
 @pytest.mark.parametrize("kernel", list(EIND))
@@ -245,6 +250,71 @@ def test_eind_skip_is_exact(dev, kernel, monkeypatch):
         assert torch.equal(a, b)
         assert bool(a.abs().max() > 0)
     _close(on[0], panel.eind_panel_plain(*args))
+
+
+# -------------- dipole: the whole-panel kernel (cols=None) --------------
+
+DIPOLE = {"dipole": (panel.dipole_panel, torch.float32),
+          "dipole_df": (panel.dipole_panel_df, torch.float64)}
+# (live atoms, npad, box edge): the ragged case at an npad that is not a
+# multiple of either tile and one that is, and the main paths' shape
+DIPOLE_SHAPES = {"1000": (1000, 1000, 28.0), "1024": (1000, 1024, 28.0),
+                 "12288": (10_125, 12_288, 60.0)}
+
+
+@pytest.mark.parametrize("damping", list(DAMPINGS))
+@pytest.mark.parametrize("shape", list(DIPOLE_SHAPES))
+@pytest.mark.parametrize("kernel", list(DIPOLE))
+def test_dipole_whole_matches_plain_and_strip(dev, kernel, shape, damping,
+                                              monkeypatch):
+    """Masked atoms that keep their charge, alpha=0 atoms and padding: the
+    whole-panel kernel against the plain version and against the strip
+    kernel at the same shape, one launch counted per call (the strip
+    launches apart), repeated launches bit-identical, and the kernel with
+    its warp skips off (DIPOLE_SKIP) bit-identical too."""
+    wrapper, dtype = DIPOLE[kernel]
+    n, npad, L = DIPOLE_SHAPES[shape]
+    c = _case(dev, dtype, n=n, npad=npad, L=L)
+    args = (c["x"], c["q"], c["mol"], c["alpha"], c["mu"], c["mask"],
+            c["L"], c["s"].polar_damp, c["pair"].cut_coulsq,
+            c["pair"].qqrd2e)
+    kw = dict(damping_type=DAMPINGS[damping])
+    before, strips = wrapper.launches, wrapper.launches_strip
+    whole = wrapper(*args, **kw)
+    torch.cuda.synchronize()
+    assert (wrapper.launches, wrapper.launches_strip) == (before + 1,
+                                                          strips)
+    strip = wrapper(*args, cols=args[:6], row0=0, **kw)
+    assert (wrapper.launches, wrapper.launches_strip) == (before + 2,
+                                                          strips + 1)
+    _close(whole, panel.dipole_panel_plain(*args, **kw))
+    _close(whole, strip)
+    votes, cd_skipped, dd_skipped = panel.dipole_skip_share(*args, **kw)
+    assert 0 < cd_skipped < votes and dd_skipped < votes
+    for a, b in zip(whole, wrapper(*args, **kw)):
+        assert torch.equal(a, b)
+    monkeypatch.setattr(panel, "DIPOLE_SKIP", False)
+    for a, b in zip(whole, wrapper(*args, **kw)):
+        assert torch.equal(a, b)
+
+
+def test_per_type_cutoff_kernel_build_raises_on_cuda(dev):
+    """The pair kernels take one outer cutoff: a kernel build with
+    cut[1,1] = 7.0 above the others' 6.5 raises on the GPU, naming
+    panel='scan', which takes it."""
+    from lidp_tpu_torch.parallel import shard
+
+    sysd = polar_bench.synthetic_system(4)
+    ff = polar_bench.synthetic_forcefield(sysd, torch.float32, dev)
+    cutsq = ff.pair.cutsq.clone()
+    cutsq[1, 1] = 49.0
+    ff = dataclasses.replace(ff, pair=dataclasses.replace(ff.pair,
+                                                          cutsq=cutsq))
+    kw = dict(n=3 * 4**3, dt=0.5, ftm2v=1.0, device=dev)
+    with pytest.raises(ValueError, match="panel='scan'"):
+        shard.build_sharded_polar_step(None, ff, ff.polar, panel="kernel",
+                                       **kw)
+    shard.build_sharded_polar_step(None, ff, ff.polar, panel="scan", **kw)
 
 
 def test_float64_build_runs_on_cuda(dev):
@@ -297,6 +367,7 @@ def test_float64_strips_run_kernels_on_cuda(dev, mixed):
                                             host_strips=strips)
         before = {k: panel.WRAPPERS[k].launches for k in names}
         strip_before = panel.eind_panel_df.launches_strip
+        dstrip_before = panel.dipole_panel_df.launches_strip
         f, en = polar_bench.host_setup_forces(bench, mixed=mixed)
         grew = {k: panel.WRAPPERS[k].launches - before[k] for k in names}
         assert grew["pair_panel_df"] == strips
@@ -306,6 +377,8 @@ def test_float64_strips_run_kernels_on_cuda(dev, mixed):
         # one block: the whole-panel kernel; row strips: the strip kernel
         strip_grew = panel.eind_panel_df.launches_strip - strip_before
         assert strip_grew == (0 if strips == 1 else grew["eind_panel_df"])
+        assert panel.dipole_panel_df.launches_strip - dstrip_before == (
+            0 if strips == 1 else strips)
         assert en["scf_converged"]
         out.append((f, en))
     (f1, en1), (f4, en4) = out

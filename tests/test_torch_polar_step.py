@@ -5,7 +5,11 @@ force-field tables carried across by lidp_tpu_torch.convert.
 
 float64: JAX panel="scan" vs the port on the CPU at polar_precision 1e-10 —
 evdwl/ecoul/elong rel 1e-10, epol and virial rel 1e-8, f, mu, x, v to
-1e-8*max (BASELINE.md's 1e-8 bar), scf_iters within 1.
+1e-8*max (BASELINE.md's 1e-8 bar), scf_iters within 1 — with exponential
+damping and a warm start, and as variants (F64_VARIANTS): a per-type outer
+cutoff (cut[1,1] = 7.0 A above cut_coul 6.5, the other pairs 6.0), the
+reference's default damping none, a cold start (use_previous off), and a
+solve cut at 3 iterations.
 float32: JAX panel="pallas" (interpret) vs the port, with the tolerances
 of tests/test_pallas_panel.py:29-55.
 """
@@ -33,10 +37,21 @@ def _fields(obj):
             for f in dataclasses.fields(obj)}
 
 
-def _jax_run(dtype, panel, precision):
-    """JAX init + NSTEPS steps on the synthetic system.  Returns the port's
-    ForceField converted from the JAX tables, and a list of per-evaluation
-    records (init first)."""
+# f64 parity variants: (cut[1,1] or None, PolarizationSettings overrides)
+F64_VARIANTS = {
+    "base": (None, {}),
+    "cut7": (7.0, {}),
+    "damp_none": (None, dict(damping_type=0)),
+    "cold": (None, dict(use_previous=False)),
+    "iter3": (None, dict(iterations_max=3)),
+}
+
+
+def _jax_run(dtype, panel, precision, cut11=None, **settings):
+    """JAX init + NSTEPS steps on the synthetic system, with cut[1,1] =
+    cut11 when given and `settings` over the polarization defaults below.
+    Returns the port's ForceField converted from the JAX tables, and a list
+    of per-evaluation records (init first)."""
     from lidp_tpu import topology, units
     from lidp_tpu.forcefield import ForceField
     from lidp_tpu.ops import polarization as pol
@@ -50,13 +65,16 @@ def _jax_run(dtype, panel, precision):
     es = setup_ewald_disp(accuracy_rel=polar_bench.EWALD_ACCURACY,
                           qqrd2e=u.qqr2e, q=sysd["q"], natoms=n,
                           cutoff=sysd["cut_coul"], box_lengths=sysd["L"])
-    pair = make_pair_params(sysd["eps"], sysd["sig"], sysd["cut"],
+    cut = np.array(sysd["cut"], dtype=float)
+    if cut11 is not None:
+        cut[1, 1] = cut11
+    pair = make_pair_params(sysd["eps"], sysd["sig"], cut,
                             cut_coul=sysd["cut_coul"], coul=True,
                             qqrd2e=u.qqr2e, g_ewald=es.g_ewald, dtype=dtype)
     ew = EwaldParams.from_setup(es, u.qqr2e, dtype=dtype)
-    s = pol.PolarizationSettings(
-        iterations_max=50, damping_type=pol.DAMPING_EXPONENTIAL,
-        polar_precision=precision, use_previous=True)
+    kw = dict(iterations_max=50, damping_type=pol.DAMPING_EXPONENTIAL,
+              polar_precision=precision, use_previous=True)
+    s = pol.PolarizationSettings(**{**kw, **settings})
     ff = ForceField(pair=pair, ewald=ew, polar=s, qqrd2e=u.qqr2e)
     make, bind_box, npad, bind_special = shard.build_sharded_polar_step(
         None, ff, s, n=n, dt=polar_bench.DT, ftm2v=u.ftm2v, dtype=dtype,
@@ -105,8 +123,17 @@ def _port_run(tff, dtype):
 
 @pytest.fixture(scope="module")
 def f64_runs():
-    tff, jrecs, n = _jax_run(jnp.float64, "scan", 1e-10)
-    return jrecs, _port_run(tff, torch.float64), n
+    """{variant: (JAX records, port records, n)}, each run at first use."""
+    runs = {}
+
+    def get(variant):
+        if variant not in runs:
+            cut11, settings = F64_VARIANTS[variant]
+            tff, jrecs, n = _jax_run(jnp.float64, "scan", 1e-10, cut11,
+                                     **settings)
+            runs[variant] = (jrecs, _port_run(tff, torch.float64), n)
+        return runs[variant]
+    return get
 
 
 @pytest.fixture(scope="module")
@@ -115,9 +142,11 @@ def f32_runs():
     return jrecs, _port_run(tff, torch.float32), n
 
 
-@pytest.mark.parametrize("k", range(NSTEPS + 1))
-def test_f64_matches_jax_scan(f64_runs, k):
-    jrecs, trecs, n = f64_runs
+@pytest.mark.parametrize("variant,k", [
+    pytest.param(v, k, id=str(k) if v == "base" else f"{v}-{k}")
+    for v in F64_VARIANTS for k in range(NSTEPS + 1)])
+def test_f64_matches_jax_scan(f64_runs, variant, k):
+    jrecs, trecs, n = f64_runs(variant)
     j, t = jrecs[k], trecs[k]
     for e in ("evdwl", "ecoul", "elong"):
         assert float(t[e]) == pytest.approx(float(j[e]), rel=1e-10), e
@@ -222,6 +251,29 @@ def test_predictor_run_converges_to_same_state():
     np.testing.assert_allclose(f2.numpy(), f1.numpy(), rtol=0,
                                atol=1e-4 * f1.abs().max().item())
     assert sum(it2) <= sum(it1)
+
+
+def test_per_type_cutoff_routes():
+    """A per-type outer cutoff (cut[1,1] = 7.0 A): the plain route builds,
+    on the CPU also as panel="kernel" (its wrappers run the plain
+    versions); a kernel build for a CUDA device raises before touching the
+    device, naming panel='scan'."""
+    from lidp_tpu_torch.parallel import shard
+
+    ff = polar_bench.synthetic_forcefield(
+        polar_bench.synthetic_system(N_SIDE), torch.float32, "cpu")
+    cutsq = ff.pair.cutsq.clone()
+    cutsq[1, 1] = 49.0
+    ff = dataclasses.replace(ff, pair=dataclasses.replace(ff.pair,
+                                                          cutsq=cutsq))
+    kw = dict(n=375, npad=512, csz=256, dt=0.5, ftm2v=1.0,
+              dtype=torch.float32)
+    for panel_kind in ("scan", "kernel"):
+        step = shard.PolarStep(ff, ff.polar, device="cpu", panel=panel_kind,
+                               **kw)
+        assert float(step.tabs[4, 1, 1]) == 49.0
+    with pytest.raises(ValueError, match="panel='scan'"):
+        shard.PolarStep(ff, ff.polar, device="cuda", panel="kernel", **kw)
 
 
 def test_package_imports_no_jax():
