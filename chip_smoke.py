@@ -21,26 +21,31 @@ Phases, each raising on failure:
      events around each call, the wrapper's host work included), the time
      per call of 20 calls queued back to back (ms_queued: the kernels alone
      while the host keeps ahead) and the bound (for the eind and dipole
-     kernels the function's least arithmetic, EIND_FLOPS_PAIR and
-     DIPOLE_FLOPS_*, counted on the case, beside the CostEstimate's as
-     bound_ms_cost_estimate).  eind_panel{,_df} and dipole_panel{,_df} run
-     the whole-panel kernels (each pair once for both atoms); their
-     [strip form] variants, cols = all atoms and row0 = 0, run the
-     one-sided strip kernels on the same operands in the same call, their
-     [no skip] variants the whole-panel kernels with the exact skips off
-     (eind's damping skip by an infinite threshold, the dipole kernel's
-     warp skips by DIPOLE_SKIP), which must give the same bits; each in
+     kernels the function's least arithmetic, EIND_FLOPS_PAIR,
+     DIPOLE_FLOPS_*, PAIR_FLOPS_* and WOLF_FLOPS_FIELD, counted on the
+     case, beside the CostEstimate's as bound_ms_cost_estimate).
+     eind_panel{,_df}, dipole_panel{,_df}, pair_wolf_panel, pair_panel and
+     pair_panel_df run the whole-panel kernels (each pair once for both
+     atoms); their [strip form] variants, cols = all atoms and row0 = 0,
+     run the one-sided strip kernels on the same operands in the same
+     call, their [no skip] variants the whole-panel kernels with the exact
+     skips off (eind's damping skip by an infinite threshold, the dipole
+     kernel's warp skips by DIPOLE_SKIP, the pair kernel's by PAIR_SKIP)
+     and the pair kernels' [no cull] variants without the tile-pair test
+     (PAIR_CULL), which must give the same bits; eind and dipole each in
      the fluid's exponential damping and in damping none (the reference's
-     default).  Then ptxas's registers and spills, and the share of warp
-     votes in which the eind kernels skipped the damping exponential and
-     the dipole kernels the charge-dipole and the dipole-dipole block,
-     and the float64 whole kernels' partial buffers with the device memory
-     reserved over a call of each;
+     default), pair_panel also LJ only, pair_panel_df also without the
+     field.  Then ptxas's registers and spills, the share of warp votes in
+     which the eind kernels skipped the damping exponential, the dipole
+     kernels the charge-dipole and the dipole-dipole block and the pair
+     kernels all their blocks, the share of tile pairs the pair kernels
+     dropped, and the float64 whole kernels' partial buffers with the
+     device memory reserved over a call of each;
   4. the main paths on the 10,125-atom synthetic fluid, every launch
      counter set to 0 just before each and read just after:
      A. float32 fused step through the kernels: initial forces + 20 steps
-        (eind and dipole: the whole-panel kernels, never the strip kernels,
-        on every path A-D);
+        (eind, dipole and pair: the whole-panel kernels, never the strip
+        kernels, on every path A-D);
      B. float32 host phases (make_host_phases + HostPolarForces, pure CG):
         initial forces + 5 steps; step 0 against path A's step 0 (energies
         rel 1e-5, forces rtol 5e-4, atol 5e-5*max);
@@ -73,6 +78,9 @@ Phases, each raising on failure:
      (LJ_FLOPS_TEST per unordered live pair of the half stencil,
      LJ_FLOPS_FORCE per pair inside the cutoff), beside the TPU kernel's
      count; with
+     and cell_pair_forces_lj on the ragged case at cap 12, which the full
+     cell overflows (overflow_lj_case): its atoms without a slot take the
+     force of the slot they share, as in the plain version;
      E. 32,000 atoms through SlotRunner: setup, 100 steps, a timed window
         of 400 more; step 0 against the reference log's temp 1.44, pe
         -6.7733681, etotal -4.6134356, press -5.0197073 (rel 1e-6, 1e-5,
@@ -172,6 +180,30 @@ DIPOLE_FLOPS_GEOM, DIPOLE_FLOPS_PAIR = 17, 30
 DIPOLE_FLOPS_DD, DIPOLE_FLOPS_DAMPED, DIPOLE_FLOPS_CD = 34, 21, 38
 DIPOLE_FLOPS_BOTH = 3
 DIPOLE_DAMPED_U = {False: 104.0, True: 745.0}
+# The pair kernels' bound counts the least arithmetic of the function in the
+# whole kernel's expressions (csrc/pair_panel.cuh), one evaluation per
+# unordered pair: the geometry and the outer-cutoff test, 18 flops (3
+# differences, the minimum image 9, rsq 5, the test 1), for each pair with
+# an unmasked atom on one side (a padding pair takes nothing) -- where the
+# tile-pair test is kept, only for the pairs of the tile pairs it keeps,
+# since a box test of 8 flops a tile pair settles the others; a pair on
+# which a force acts (LJ or coulomb on either side) 23 more (r^-2, the
+# force scaled by it, its vector 3, added to one atom and taken from the
+# other 6, the virial d (x) F 12); the LJ block where it acts (inside
+# cut_lj, not excluded by the special list of a side that takes it) 10
+# (r^-6 2, the force 4, the energy and its sum 4); the coulomb block where
+# it acts (inside cut_coul, q_i q_j != 0) 21 (r and g r 2, the exponent 1,
+# the A&S t and polynomial 8, the prefactor 3, force 4, energy and sum 2,
+# the sum with LJ 1; rsqrt and exp, on the SFU, not counted); the Wolf
+# block where it acts (r <= cut_coul between molecules, a charge on the
+# other atom of a side that takes it) 16 (the factor 2, times the two
+# charges 2, the field on both atoms 12).  wolf_panel's: the geometry of
+# each pair with an unmasked atom and the Wolf block with r^-2 (17).  The
+# Pallas CostEstimate's flops per ordered pair (npad^2 of them) stay beside
+# it as bound_ms_cost_estimate.
+PAIR_FLOPS_GEOM, PAIR_FLOPS_FORCE = 18, 23
+PAIR_FLOPS_LJ, PAIR_FLOPS_COUL, PAIR_FLOPS_WOLF = 10, 21, 16
+WOLF_FLOPS_FIELD, TILE_BOX_FLOPS = 17, 8
 # the LJ cell kernels: wrapper -> TPU kernel it replaces
 CELL_KERNELS = {
     "slot_lj_forces": "lidp_tpu/ops/pallas_pair.py:314",
@@ -297,37 +329,76 @@ def tabs_for(ff_pair, dtype):
 
 def kernel_calls(c, c64, pair, s):
     """{label: (kernel name, wrapper call, plain call, label of the call
-    whose bits it must give or None)} on case c (float32) and its float64
-    copy c64.  The label is the kernel's name for the form the main paths
-    use, name[variant] for the other forms: [strip form] (cols = all atoms,
-    row0 = 0: the strip kernel), [no skip] (the whole-panel kernel with
-    its exact skips off: the same bits as the kernel with them),
-    [damping none] (the reference's default damp_type)."""
+    whose bits it must give or None, bound)} on case c (float32) and its
+    float64 copy c64.  The label is the kernel's name for the form the main
+    paths use, name[variant] for the other forms: [strip form] (cols = all
+    atoms, row0 = 0: the strip kernel), [no skip] (the whole-panel kernel
+    with its exact skips off: the same bits as the kernel with them),
+    [no cull] (the pair kernel without its tile-pair test: the same bits),
+    [damping none] (the reference's default damp_type), [no field] and
+    [lj only] (pair_panel_df without mol, pair_panel with coul=False).
+    bound() gives (ms, what binds it, pair counts) of the function's least
+    arithmetic on the case, or None where only the CostEstimate's count
+    is kept; it is computed once for a kernel's forms."""
     from lidp_tpu_torch.ops import panel
 
     pd, dmp = s.polar_damp, s.damping_type
     scal = (pair.cut_coulsq, pair.qqrd2e, pair.g_ewald)
     out = {}
 
-    def add(label, name, plain, args, same_as=None, kern=None, **kw):
+    def add(label, name, plain, args, same_as=None, kern=None, bound=None,
+            **kw):
         wrapper = panel.WRAPPERS[name]
         out[label] = (name, kern or (lambda: wrapper(*args, **kw)),
-                      lambda: plain(*args, **kw), same_as)
+                      lambda: plain(*args, **kw), same_as, bound)
 
-    def no_skip(name, args, **kw):
-        """The whole-panel eind or dipole kernel with its exact skips off:
-        the damping skip by an infinite threshold (ops/panel.EIND_SKIP_U),
-        the dipole kernel's warp skips by ops/panel.DIPOLE_SKIP."""
+    def switched(name, args, flags, **kw):
+        """The whole-panel kernel with its exact skips off: `flags` maps
+        the ops/panel switches (EIND_SKIP_U of the dtype, DIPOLE_SKIP,
+        PAIR_SKIP, PAIR_CULL) to the values that turn them off."""
         wrapper, dtype = panel.WRAPPERS[name], args[0].dtype
 
         def kern():
-            saved = panel.EIND_SKIP_U[dtype], panel.DIPOLE_SKIP
-            panel.EIND_SKIP_U[dtype], panel.DIPOLE_SKIP = math.inf, False
+            saved = dict(panel.EIND_SKIP_U)
+            old = {k: getattr(panel, k) for k in flags if k != "EIND"}
+            if "EIND" in flags:
+                panel.EIND_SKIP_U[dtype] = flags["EIND"]
+            for k, v in flags.items():
+                if k != "EIND":
+                    setattr(panel, k, v)
             try:
                 return wrapper(*args, **kw)
             finally:
-                panel.EIND_SKIP_U[dtype], panel.DIPOLE_SKIP = saved
+                panel.EIND_SKIP_U.update(saved)
+                for k, v in old.items():
+                    setattr(panel, k, v)
         return kern
+
+    def once(fn):
+        memo = []
+
+        def get():
+            if not memo:
+                memo.append(fn())
+            return memo[0]
+        return get
+
+    def pair_forms(name, plain, args, cols, tag, bound, **kw):
+        """A pair kernel's form (tag: "", "no field", "lj only") and its
+        [strip form] (the strip kernel on `cols`, all atoms), [no skip]
+        and [no cull] variants."""
+        def lab(*parts):
+            inner = ", ".join(filter(None, parts))
+            return f"{name}[{inner}]" if inner else name
+        base = lab(tag)
+        add(base, name, plain, args, bound=bound, **kw)
+        add(lab("strip form", tag), name, plain, args, cols=cols, row0=0,
+            bound=bound, **kw)
+        for form, flag in (("no skip", "PAIR_SKIP"), ("no cull",
+                                                       "PAIR_CULL")):
+            add(lab(form, tag), name, plain, args, same_as=base,
+                kern=switched(name, args, {flag: False}, **kw), bound=bound,
+                **kw)
 
     for d, suffix in ((c, ""), (c64, "_df")):
         tabs = tabs_for(pair, d["x"].dtype)
@@ -341,32 +412,54 @@ def kernel_calls(c, c64, pair, s):
             for dt, tag in ((dmp, ""), (panel.DAMP_NONE, "damping none")):
                 damp = dict(damping_type=dt)
                 base = f"{name}[{tag}]" if tag else name
-                add(base, name, plain, args, **damp)
+                if name.startswith("eind"):
+                    bound = once(lambda n=name, d=d: (*eind_bound_ms(
+                        n, d["x"], d["alpha"], d["L"], pd), {}))
+                    off = {"EIND": math.inf}
+                else:
+                    bound = once(lambda n=name, d=d, dt=dt: dipole_bound_ms(
+                        n, d, pair.cut_coulsq, pd, dt))
+                    off = {"DIPOLE_SKIP": False}
+                add(base, name, plain, args, bound=bound, **damp)
                 add(f"{name}[{', '.join(filter(None, ('strip form', tag)))}]",
-                    name, plain, args, cols=args[:ncols], row0=0, **damp)
+                    name, plain, args, cols=args[:ncols], row0=0,
+                    bound=bound, **damp)
                 if tag and name.startswith("eind"):
                     continue      # without damping eind has no skip
                 add(f"{name}[{', '.join(filter(None, ('no skip', tag)))}]",
                     name, plain, args, same_as=base,
-                    kern=no_skip(name, args, **damp), **damp)
+                    kern=switched(name, args, off, **damp), bound=bound,
+                    **damp)
         pargs = (d["x"], d["q"], d["type"], d["mask"], tabs, d["L"], *scal)
+
+        def pbound(name, wolf, coul=True, d=d, tabs=tabs):
+            return once(lambda: pair_bound_ms(name, d, tabs, pair.cut_coulsq,
+                                              wolf, coul=coul))
         if suffix:
-            add("pair_panel_df", "pair_panel_df", panel.pair_panel_df_plain,
-                pargs, sp=d["sp"], mol=d["mol"])
-            add("pair_panel_df[no field]", "pair_panel_df",
-                panel.pair_panel_df_plain, pargs, sp=d["sp"])
+            # with the field the strip form's cols gain mol as a 5th
+            pair_forms("pair_panel_df", panel.pair_panel_df_plain, pargs,
+                       (*pargs[:4], d["mol"]), "",
+                       pbound("pair_panel_df", True), sp=d["sp"],
+                       mol=d["mol"])
+            pair_forms("pair_panel_df", panel.pair_panel_df_plain, pargs,
+                       pargs[:4], "no field", pbound("pair_panel_df", False),
+                       sp=d["sp"])
         else:
-            add("pair_wolf_panel", "pair_wolf_panel",
-                panel.pair_wolf_panel_plain,
-                (d["x"], d["q"], d["type"], d["mol"], d["mask"], tabs,
-                 d["L"], *scal), sp=d["sp"])
-            add("pair_panel", "pair_panel", panel.pair_panel_plain, pargs,
-                sp=d["sp"])
-            add("pair_panel[lj only]", "pair_panel", panel.pair_panel_plain,
-                pargs, sp=d["sp"], coul=False)
+            wargs = (d["x"], d["q"], d["type"], d["mol"], d["mask"], tabs,
+                     d["L"], *scal)
+            pair_forms("pair_wolf_panel", panel.pair_wolf_panel_plain, wargs,
+                       wargs[:5], "", pbound("pair_wolf_panel", True),
+                       sp=d["sp"])
+            pair_forms("pair_panel", panel.pair_panel_plain, pargs, pargs[:4],
+                       "", pbound("pair_panel", False), sp=d["sp"])
+            pair_forms("pair_panel", panel.pair_panel_plain, pargs, pargs[:4],
+                       "lj only", pbound("pair_panel", False, coul=False),
+                       sp=d["sp"], coul=False)
             add("wolf_panel", "wolf_panel", panel.wolf_panel_plain,
                 (d["x"], d["q"], d["mol"], d["mask"], d["L"],
-                 pair.cut_coulsq))
+                 pair.cut_coulsq),
+                bound=once(lambda d=d: wolf_bound_ms("wolf_panel", d,
+                                                     pair.cut_coulsq)))
     return out
 
 
@@ -509,6 +602,135 @@ def dipole_bound_ms(name, c, cut_coulsq, pd, damping_type):
             "operations" if t_ops >= t_bytes else "bytes", cnt)
 
 
+def far_tile_pairs(x, mask, L, tile, rc):
+    """(nT, nT) bool: the tile pairs csrc/pair_panel.cuh far_tiles drops on
+    atoms x (npad, 3) in tiles of `tile`: neither tile holds an unmasked
+    atom, or on some axis the gap between the tiles' coordinate boxes by
+    minimum image exceeds rc by the kernel's margin (in x's dtype, as the
+    kernel computes it)."""
+    import torch
+
+    npad = x.shape[0]
+    nT = -(-npad // tile)
+    lo = torch.stack([x[t * tile:(t + 1) * tile].min(0).values
+                      for t in range(nT)])
+    hi = torch.stack([x[t * tile:(t + 1) * tile].max(0).values
+                      for t in range(nT)])
+    live = torch.stack([(mask[t * tile:(t + 1) * tile] != 0).any()
+                        for t in range(nT)])
+    c = 0.5 * (lo + hi)
+    h = 0.5 * ((hi - lo)[:, None] + (hi - lo)[None, :])
+    d = c[:, None] - c[None, :]
+    gap = (d - L * torch.round(d * (1.0 / L))).abs() - h
+    margin = 1e-3 * (rc + L + c.abs()[:, None] + c.abs()[None, :])
+    far = (gap > rc + margin).any(-1)
+    return far | (~live[:, None] & ~live[None, :])
+
+
+def pair_bound_ms(name, c, tabs, cut_coulsq, wolf, coul=True, tile=None,
+                  cull=None):
+    """bound_ms of the pair kernels on case c (float32 for pair_wolf_panel
+    and pair_panel, float64 for pair_panel_df), or of wolf_panel with
+    `name` "wolf_panel": the flops of the function's least arithmetic
+    (PAIR_FLOPS_*, WOLF_FLOPS_FIELD) counted on its unordered pairs (rsq
+    in the case's dtype, term by term, as the kernels form it), or the
+    operand bytes, whichever takes longer.  The geometry is counted for
+    the pairs of the tile pairs the whole kernel keeps (tile: its tile,
+    from the library unless given) when `cull` (ops/panel.PAIR_CULL unless
+    given), with TILE_BOX_FLOPS a tile pair for the test.  Also returns
+    the counts: geometry_pairs (an unmasked atom on one side), kept_pairs
+    (those of the kept tile pairs), tile_pairs and kept_tile_pairs,
+    force_pairs, lj_pairs, coul_pairs, wolf_pairs."""
+    import torch
+
+    from lidp_tpu_torch.ops import panel
+
+    field = name == "wolf_panel"
+    f64 = c["x"].dtype == torch.float64
+    x, L, q, mol = c["x"], c["L"], c["q"], c["mol"]
+    live = c["mask"] != 0
+    charged = q != 0
+    typ, sp = c["type"].long(), c["sp"].long()
+    npad = x.shape[0]
+    cutsq_u = 0.0 if field else float(tabs[4].max())
+    if cull is None:
+        cull = panel.PAIR_CULL and not field
+    rc = math.sqrt(max(cutsq_u, cut_coulsq if wolf else 0.0))
+    if cull:
+        tile = tile or panel.whole_tile(name)
+        keep = ~far_tile_pairs(x, c["mask"], L, tile, rc)
+        tid = torch.arange(npad, device=x.device) // tile
+    cnt = dict(geometry_pairs=0, kept_pairs=0, force_pairs=0, lj_pairs=0,
+               coul_pairs=0, wolf_pairs=0)
+    jj = torch.arange(npad, device=x.device)[None, :]
+    Linv = 1.0 / L
+    for i0 in range(0, npad, 1024):
+        sl = slice(i0, i0 + 1024)
+        d = x[sl, None, :] - x[None, :, :]
+        d = d - L * torch.round(d * Linv)
+        rsq = d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] \
+            + d[..., 2] * d[..., 2]
+        del d
+        ii = torch.arange(i0, i0 + rsq.shape[0], device=x.device)[:, None]
+        oi = live[None, :] & (ii != jj)          # side i takes from j
+        oj = live[sl, None] & (ii != jj)
+        either = oi | oj
+        moli = mol[sl, None]
+        molok = (moli != mol[None, :]) | (moli == 0)
+        wl = (rsq <= cut_coulsq) & molok & (
+            (oi & charged[None, :]) | (oj & charged[sl, None]))
+        terms = dict(geometry_pairs=either, wolf_pairs=wl)
+        if not field:
+            inr = rsq < cutsq_u
+            lj = inr & (rsq < tabs[3][typ[sl, None], typ[None, :]])
+            excl_i = (sp[sl][:, None, :] == jj[..., None]).any(-1)
+            excl_j = (sp[None, :, :] == ii[..., None]).any(-1)
+            lj = lj & ((oi & ~excl_i) | (oj & ~excl_j))
+            del excl_i, excl_j
+            cl = (inr & (rsq < cut_coulsq) & either & charged[sl, None]
+                  & charged[None, :]) if coul else torch.zeros_like(lj)
+            terms.update(lj_pairs=lj, coul_pairs=cl, force_pairs=lj | cl)
+            if not wolf:
+                terms["wolf_pairs"] = torch.zeros_like(lj)
+        if cull:
+            terms["kept_pairs"] = either & keep[tid[sl, None], tid[None, :]]
+        for key, v in terms.items():
+            cnt[key] += int(v.sum())
+        del rsq, terms
+    cnt = {k: v // 2 for k, v in cnt.items()}       # unordered
+    if field:
+        cnt = {k: cnt[k] for k in ("geometry_pairs", "wolf_pairs")}
+        flops = (PAIR_FLOPS_GEOM * cnt["geometry_pairs"]
+                 + WOLF_FLOPS_FIELD * cnt["wolf_pairs"])
+        # x, q, mol, mask in, e0 out
+        nbytes = 4 * (9 * npad + 8)
+    else:
+        nT = -(-npad // tile) if cull else 0
+        cnt.update(tile_pairs=nT * (nT + 1) // 2,
+                   kept_tile_pairs=int(keep.triu().sum()) if cull else 0)
+        geom = cnt["kept_pairs"] if cull else cnt["geometry_pairs"]
+        flops = (PAIR_FLOPS_GEOM * geom + TILE_BOX_FLOPS * cnt["tile_pairs"]
+                 + PAIR_FLOPS_FORCE * cnt["force_pairs"]
+                 + PAIR_FLOPS_LJ * cnt["lj_pairs"]
+                 + PAIR_FLOPS_COUL * cnt["coul_pairs"]
+                 + PAIR_FLOPS_WOLF * cnt["wolf_pairs"])
+        item = 8 if f64 else 4
+        # x, q, type, mask (and mol) in, f (and e0) out, the lists
+        nbytes = item * ((9 + 4 * wolf) * npad + 8) \
+            + 4 * sp.shape[1] * npad
+    t_ops = flops / (FP64_PEAK if f64 else FP32_PEAK)
+    t_bytes = nbytes / HBM_RATE
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes", cnt)
+
+
+def wolf_bound_ms(name, c, cut_coulsq):
+    """pair_bound_ms of wolf_panel: the geometry of each unordered pair with
+    an unmasked atom on one side, and the Wolf block with r^-2
+    (WOLF_FLOPS_FIELD) for the pairs where a side takes a field term."""
+    return pair_bound_ms(name, c, None, cut_coulsq, True)
+
+
 def scalar_margin(got, ref, f64):
     """The largest ratio of a scalar output's difference to compare()'s
     bar (srel of the largest |ref| of its vector): below 1 passes."""
@@ -535,22 +757,43 @@ def dipole_skip_share(tag, c, cut_coulsq, qqrd2e, pd, damping_type):
     return dict(votes=votes, cd_skipped=cd, dd_skipped=dd)
 
 
-def partial_buffers(c, cut_coulsq, qqrd2e, pd):
-    """Print the partial buffers of the float64 whole-panel eind and dipole
-    kernels on case c, and the device memory the caching allocator has
-    reserved after a call of each and a second eind call, from an emptied
-    cache: each wrapper takes its buffer per call and frees it on return."""
+def pair_skip_share(tag, c, pair, wolf):
+    """Print the shares of the whole pair kernel's warp votes that skipped
+    and of its tile pairs dropped (ops/panel.pair_skip_share) on case c,
+    with the Wolf field or without; returns them."""
+    from lidp_tpu_torch.ops import panel
+
+    tabs = tabs_for(pair, c["x"].dtype)
+    votes, skipped, dropped, npairs = panel.pair_skip_share(
+        c["x"], c["q"], c["type"], c["mol"] if wolf else None, c["mask"],
+        tabs, c["L"], pair.cut_coulsq, pair.qqrd2e, pair.g_ewald,
+        sp=c["sp"])
+    print(f"skip share {tag}: {dropped} of {npairs} tile pairs dropped = "
+          f"{dropped / npairs:.4f}; {skipped} of {votes} warp votes in the "
+          f"others skipped = {skipped / max(votes, 1):.4f}")
+    return dict(votes=votes, skipped=skipped, tile_pairs_dropped=dropped,
+                tile_pairs=npairs)
+
+
+def partial_buffers(c, pair, pd):
+    """Print the partial buffers of the float64 whole-panel eind, dipole
+    and pair (with the field) kernels on case c, and the device memory the
+    caching allocator has reserved after a call of each and a second eind
+    call, from an emptied cache: each wrapper takes its buffer per call
+    and frees it on return."""
     import torch
 
     from lidp_tpu_torch.ops import panel
 
     n = c["x"].shape[0]
     size = {}
-    for name, tile in (("eind_panel_df", panel.EIND_TILE),
-                       ("dipole_panel_df", panel.whole_tile(
-                           "dipole_panel_df"))):
+    for name, tile, comps in (
+            ("eind_panel_df", panel.EIND_TILE, 3),
+            ("dipole_panel_df", panel.whole_tile("dipole_panel_df"), 3),
+            ("pair_panel_df", panel.whole_tile("pair_panel_df"), 6)):
         nT = -(-n // tile)
-        size[name] = nT * (nT + 1) * 3 * tile * 8 / 1e6
+        size[name] = nT * (nT + 1) * comps * tile * 8 / 1e6
+    tabs = tabs_for(pair, torch.float64)
 
     def eind():
         return panel.eind_panel_df(c["x"], c["alpha"], c["mu"], c["L"], pd)
@@ -558,20 +801,26 @@ def partial_buffers(c, cut_coulsq, qqrd2e, pd):
     def dipole():
         return panel.dipole_panel_df(c["x"], c["q"], c["mol"], c["alpha"],
                                      c["mu"], c["mask"], c["L"], pd,
-                                     cut_coulsq, qqrd2e)
+                                     pair.cut_coulsq, pair.qqrd2e)
+
+    def pair_df():
+        return panel.pair_panel_df(c["x"], c["q"], c["type"], c["mask"],
+                                   tabs, c["L"], pair.cut_coulsq,
+                                   pair.qqrd2e, pair.g_ewald, sp=c["sp"],
+                                   mol=c["mol"])
 
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     r0 = torch.cuda.memory_reserved()
     grew = []
-    for call in (eind, dipole, eind):
+    for call in (eind, dipole, pair_df, eind):
         call()
         torch.cuda.synchronize()
         grew.append((torch.cuda.memory_reserved() - r0) / 1e6)
-    print(f"partial buffers, float64, npad {n}: eind_panel_df "
-          f"{size['eind_panel_df']:.1f} MB, dipole_panel_df "
-          f"{size['dipole_panel_df']:.1f} MB; reserved after eind, dipole, "
-          f"eind again: +{grew[0]:.1f}, +{grew[1]:.1f}, +{grew[2]:.1f} MB")
+    print(f"partial buffers, float64, npad {n}: "
+          + ", ".join(f"{k} {v:.1f} MB" for k, v in size.items())
+          + "; reserved after eind, dipole, pair, eind again: "
+          + ", ".join(f"+{g:.1f}" for g in grew) + " MB")
 
 
 def skip_share(tag, x, alpha_eff, mu, L, pd, forms=("whole",)):
@@ -821,6 +1070,65 @@ def full_lj_case(device="cuda", seed=4):
         cfg=CellConfig(nbins=nb, cap=8, cutneigh=2.8), n=x.shape[0])
 
 
+def overflow_lj_case(device="cuda", seed=3):
+    """ragged_lj_case on a grid of cap 12: the full cell's 16 atoms
+    overflow it, so 4 of them find no slot and share the cell's last slot
+    with the atom that holds it (build_cells).  Returns the dict of
+    ragged_lj_case."""
+    c = ragged_lj_case(device, seed)
+    c["cfg"] = dataclasses.replace(c["cfg"], cap=12)
+    return c
+
+
+def overflow_lj_parity():
+    """cell_pair_forces_lj on overflow_lj_case's grid against its plain
+    version, need_ev off and on, at lj_compare's bars, repeats
+    bit-identical: an atom that found no slot takes the force of the slot
+    it shares, as in the plain version and the JAX function.  Prints how
+    far a kernel that gave those atoms zero force (this kernel before the
+    repair, ROADMAP queue 3) would miss: the largest plain force on them.
+    Returns that and the kernel's error."""
+    import torch
+
+    from lidp_tpu_torch.ops import cell_kernels as ck
+    from lidp_tpu_torch.ops.cells import build_cells
+
+    c = overflow_lj_case()
+    x, mask, box, pair = c["x"], c["mask"], c["box"], c["pair"]
+    cells = build_cells(x, mask, box, c["cfg"])
+    if not bool(cells.overflow):
+        raise AssertionError("the overflow case does not overflow")
+    aos = cells.atom_of_slot.reshape(-1).long()
+    soa = cells.slot_of_atom.long().clamp(max=aos.numel() - 1)
+    n = x.shape[0]
+    noslot = mask & (aos[soa] != torch.arange(n, device=x.device))
+    worst = 0.0
+    for need_ev in (False, True):
+        label = f"cell_pair_forces_lj[overflow, need_ev={need_ev}]"
+        got = ck.cell_pair_forces_lj(x, mask, cells, box, pair,
+                                     need_ev=need_ev)
+        ref = ck.cell_pair_forces_lj_plain(x, mask, cells, box, pair,
+                                           need_ev=need_ev)
+        torch.cuda.synchronize()
+        err, scale = lj_compare(label, (got[0], got[1], got[3]),
+                                (ref[0], ref[1], ref[3]), need_ev)
+        again = ck.cell_pair_forces_lj(x, mask, cells, box, pair,
+                                       need_ev=need_ev)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"{label}: a repeated launch differs")
+        missed = float(ref[0][noslot].abs().max())
+        if not (int(noslot.sum()) > 0 and missed > 0):
+            raise AssertionError(f"{label}: no atom without a slot takes a "
+                                 f"force")
+        worst = max(worst, err)
+        print(f"parity {label} ok on grid {tuple(cells.atom_of_slot.shape)}"
+              f": max abs err {err:.3e} of max |f| {scale:.3e}, repeats "
+              f"bit-identical; {int(noslot.sum())} atoms without a slot, "
+              f"whose plain force a kernel giving them zero would miss by "
+              f"up to {missed:.3e}")
+    return worst, missed
+
+
 def scatter_slots(cells, seed=5):
     """The same Cells with each cell's slots in a random order (one seeded
     permutation per cell), so that its live slots are no prefix of it."""
@@ -1036,7 +1344,8 @@ def main() -> int:
         npad = c["x"].shape[0]
         c64 = to_f64(c)
         calls = kernel_calls(c, c64, ff.pair, ff.polar)
-        for label, (name, kern, plain, same_as) in calls.items():
+        plain_ms = {}
+        for label, (name, kern, plain, same_as, bound) in calls.items():
             f64 = KERNELS[name][2]
             got, ref = kern(), plain()
             torch.cuda.synchronize()
@@ -1059,23 +1368,20 @@ def main() -> int:
             if cname == "main":
                 ms = cuda_ms(kern, reps=20)
                 qms = cuda_ms_queued(kern, reps=20)
-                pms = cuda_ms(plain, reps=3, warmup=1)
-                flops = {"pair_panel_df[no field]": 70}.get(label)
+                # a variant that must give its form's bits shares its plain
+                # version, timed once
+                pms = plain_ms.get(same_as) or cuda_ms(plain, reps=3,
+                                                        warmup=1)
+                plain_ms[label] = pms
+                flops = {"pair_panel_df[no field]": 70}.get(
+                    label.replace("strip form, ", "").replace(
+                        "no skip, ", "").replace("no cull, ", ""))
                 bms, by = bound_ms(name, npad, npad, flops)
                 r = dict(max_abs_err=err, ms=ms, ms_queued=qms, plain_ms=pms,
                          bound_ms=bms, bound_by=by)
-                if name.startswith("eind_panel"):
+                if bound is not None:
                     r["bound_ms_cost_estimate"] = bms
-                    bms, by = eind_bound_ms(name, c["x"], c["alpha"], c["L"],
-                                            ff.polar.polar_damp)
-                    r.update(bound_ms=bms, bound_by=by)
-                elif name.startswith("dipole_panel"):
-                    r["bound_ms_cost_estimate"] = bms
-                    dmp = (panel.DAMP_NONE if "damping none" in label
-                           else ff.polar.damping_type)
-                    bms, by, cnt = dipole_bound_ms(
-                        name, c64 if f64 else c, ff.pair.cut_coulsq,
-                        ff.polar.polar_damp, dmp)
+                    bms, by, cnt = bound()
                     r.update(bound_ms=bms, bound_by=by, **cnt)
                 if label == name:
                     results[name] = r
@@ -1095,16 +1401,28 @@ def main() -> int:
                 ff.pair.qqrd2e, ff.polar.polar_damp, ff.polar.damping_type)
             if cname == "main":
                 results[name]["skip_share"] = share
+            for name, wolf in ((("pair_panel_df", True),
+                                ("pair_panel_df[no field]", False))
+                               if d is c64 else
+                               (("pair_wolf_panel", True),
+                                ("pair_panel", False))):
+                share = pair_skip_share(f"{name} {cname} case", d, ff.pair,
+                                        wolf)
+                if cname == "main":
+                    r = results[name.split("[")[0]]
+                    if "[" in name:
+                        r = r["variants"][name]
+                    r["skip_share"] = share
         if cname == "main":
-            partial_buffers(c64, ff.pair.cut_coulsq, ff.pair.qqrd2e,
-                            ff.polar.polar_damp)
+            partial_buffers(c64, ff.pair, ff.polar.polar_damp)
         del calls, c64
     del cases
     torch.cuda.empty_cache()
 
     # 4. the main paths: every counter to 0 just before, read just after
     whole_form = (panel.eind_panel, panel.eind_panel_df, panel.dipole_panel,
-                  panel.dipole_panel_df)
+                  panel.dipole_panel_df, panel.pair_wolf_panel,
+                  panel.pair_panel, panel.pair_panel_df)
 
     def reset_counts():
         for w in wrappers.values():
@@ -1114,7 +1432,7 @@ def main() -> int:
         torch.cuda.synchronize()
 
     def check_whole(path):
-        """Paths A-D evaluate the whole block: the eind and dipole
+        """Paths A-D evaluate the whole block: the eind, dipole and pair
         wrappers launch their whole-panel kernels, never the strip
         kernels."""
         strip = {w.__name__: w.launches_strip for w in whole_form}
@@ -1443,6 +1761,7 @@ def main() -> int:
                              f"the TPU kernel's count {tms:.4f} ms)")
                 print(line)
     del lj_cases, rag, full, melted
+    overflow_lj_parity()
     torch.cuda.empty_cache()
 
     # step 0 of E against the float64 plain route on the card
@@ -1608,7 +1927,9 @@ def main() -> int:
         for key in ("ms_queued", "bound_ms_cost_estimate",
                     "bound_ms_tpu_count", "live_pairs", "cutoff_pairs",
                     "geometry_pairs", "active_pairs", "dd_pairs",
-                    "damped_pairs", "cd_pairs", "both_pairs", "skip_share"):
+                    "damped_pairs", "cd_pairs", "both_pairs", "kept_pairs",
+                    "tile_pairs", "kept_tile_pairs", "force_pairs",
+                    "lj_pairs", "coul_pairs", "wolf_pairs", "skip_share"):
             if key in r:
                 row[key] = r[key]
         if "variants" in r:

@@ -1,8 +1,10 @@
 // cell_pair_forces_lj: the same single-type LJ cell stencil from atom order,
 // float32 (the kernel is in lj_cell.cuh).  The kernel gathers coordinates
-// through atom_of_slot while staging, and scatters each live slot's force
-// straight to f[atom]; the caller zeroes f first, so masked atoms (which
-// hold no slot) stay zero.
+// through atom_of_slot while staging and writes the forces in slot order;
+// atom_gather_kernel then gives each atom the force of the slot its
+// slot_of_atom names (clamped to the grid), zero where it is masked, as the
+// JAX function and the plain version do.  So an atom that found no slot
+// in an overflowing grid takes the force of the slot it shares.
 //
 // Replaces the TPU kernel lidp_tpu/ops/pallas_pair.py:433
 // cell_pair_forces_pallas (_lj_kernel :62) together with the XLA code
@@ -20,18 +22,29 @@
 // the cutoff test twice.
 #include "lj_cell.cuh"
 
-// x: (n,3).  aos: atom_of_slot (nbx*nby*nbz*cap) int32, n for an empty slot.
-// mask: (n) bytes.  par: NPAR floats on the device (par[7] unused).  f:
-// (n,3), zeroed by the caller.  partials (nblocks,8), acc (8): need_ev only.
+// x: (n,3).  aos: atom_of_slot (nbx*nby*nbz*cap) int32, n for an empty
+// slot.  soa: slot_of_atom (n) int32.  mask: (n) bytes.  par: NPAR floats
+// on the device (par[7] unused).  fs: (nbx*nby*nbz*cap, 3) scratch for the
+// slot-order forces.  f: (n,3).  partials (nblocks,8), acc (8): need_ev
+// only.
 extern "C" int lidp_cell_pair_forces_lj(const float* x, const int* aos,
+                                        const int* soa,
                                         const unsigned char* mask, int n,
                                         int nbx, int nby, int nbz, int cap,
                                         const float* par, int need_ev,
-                                        float* f, float* partials, float* acc,
-                                        void* stream) {
-  const lidp::AtomOrder io{x, aos, mask, n, f};
-  return lidp::launch_lj_cell(io, nbx, nby, nbz, cap, par, need_ev, partials,
-                              acc, stream);
+                                        float* fs, float* f, float* partials,
+                                        float* acc, void* stream) {
+  const lidp::AtomOrder io{x, aos, n, fs};
+  const int err = lidp::launch_lj_cell(io, nbx, nby, nbz, cap, par, need_ev,
+                                       partials, acc, stream);
+  if (err) return err;
+  const long nslots = static_cast<long>(nbx) * nby * nbz * cap;
+  const int threads = 256;
+  const int blocks = static_cast<int>((3L * n + threads - 1) / threads);
+  lidp::atom_gather_kernel<<<blocks, threads, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
+      fs, soa, mask, n, nslots, f);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // The tile a launch on this grid takes (1 wide, 2 narrow, 0 none: the cap

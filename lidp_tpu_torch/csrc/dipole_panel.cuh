@@ -369,7 +369,8 @@ int launch_dipole_whole(const T* x, const T* q, const T* mol, const T* a,
         partials, stats);
   int err = static_cast<int>(cudaGetLastError());
   if (err) return err;
-  slot_sum_kernel<T, BT, false><<<dim3(nT, 3), BT, 0, s>>>(part, n, nT, f);
+  slot_sum_kernel<T, BT, false><<<dim3(nT, 3), BT, 0, s>>>(part, n, nT, f,
+                                                          nullptr, nullptr);
   err = static_cast<int>(cudaGetLastError());
   if (err) return err;
   reduce_partials<T><<<1, REDUCE_THREADS, 0, s>>>(partials, npairs, T(1),

@@ -283,7 +283,8 @@ int launch_eind_whole(const T* x, const T* a, const T* mu, int n, const T* L,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   // out = -(the sum of each atom's slots in slot order)
-  slot_sum_kernel<T, BT, true><<<dim3(nT, 3), BT, 0, s>>>(part, n, nT, out);
+  slot_sum_kernel<T, BT, true><<<dim3(nT, 3), BT, 0, s>>>(part, n, nT, out,
+                                                         nullptr, nullptr);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,9 +1,10 @@
 // Single-type LJ forces on the cell-slot grid: the device code shared by
 // slot_lj_forces.cu (state in slot order, empty slots hold sentinels) and
 // cell_pair_forces_lj.cu (state in atom order, gathered through
-// atom_of_slot and scattered straight to f[atom]).  The two differ only in
-// how a slot is loaded (and whether it holds an atom) and where its force is
-// stored, so the kernel is a template on that addressing.
+// atom_of_slot; the forces come out in slot order and atom_gather_kernel
+// takes each atom's through slot_of_atom).  The two differ only in how a
+// slot is loaded (and whether it holds an atom), so the kernel is a
+// template on that addressing.
 //
 // Design, replacing the TPU kernels' sequential grid and neighbour-side
 // partial grids (lidp_tpu/ops/pallas_pair.py _lj_kernel_v3, _lj_kernel):
@@ -38,7 +39,7 @@
 //    A warp's teams take consecutive groups in the same pass and walk the
 //    9 columns together, so they stay converged.  A row's sums over the
 //    team are combined by shuffles in a fixed order and written once.
-//    Empty own slots get no row (slot order writes their zero force while
+//    Empty own slots get no row (their zero force is written while
 //    staging); a group's padding rows repeat its first row with their
 //    pairs masked off.
 //  * The periodic image is a shift of +-L by cell index (not a minimum
@@ -138,15 +139,14 @@ struct SlotOrder {
   }
 };
 
-// Atom order: x (n,3), atom_of_slot (nslots) with n for an empty slot, mask
-// (n) bytes, par[7] unused; forces of live, unmasked atoms to
-// out[3 * atom + d] (each live slot is one atom, so no two threads write one
-// address).
+// Atom order: x (n,3), atom_of_slot (nslots) with n for an empty slot,
+// par[7] unused; forces for every slot to out[3 * slot + d], zero on an
+// empty one, as in slot order: atom_gather_kernel then gives each atom the
+// force of its slot.
 struct AtomOrder {
   static constexpr bool kSlots = false;
   const float* x;
   const int* aos;
-  const unsigned char* mask;
   int n;
   float* out;
 
@@ -161,15 +161,31 @@ struct AtomOrder {
   }
   __device__ __forceinline__ void store(long slot, float fx, float fy,
                                         float fz) const {
-    const int a = aos[slot];
-    if (a < n && mask[a]) {
-      out[3 * a] = fx;
-      out[3 * a + 1] = fy;
-      out[3 * a + 2] = fz;
-    }
+    out[3 * slot] = fx;
+    out[3 * slot + 1] = fy;
+    out[3 * slot + 2] = fz;
   }
-  __device__ __forceinline__ void clear(long) const {}  // f is zeroed
+  __device__ __forceinline__ void clear(long slot) const {
+    store(slot, 0.f, 0.f, 0.f);
+  }
 };
+
+// f (n,3): each atom's force is that of the slot slot_of_atom names,
+// clamped to the grid, and zero where mask is 0 -- the gather of the JAX
+// function (pallas_pair.py cell_pair_forces_pallas) and of the plain
+// version.  An atom that found no slot in an overflowing grid shares its
+// cell's last slot there, and so takes that slot's force.  One thread per
+// component.
+__global__ void atom_gather_kernel(const float* __restrict__ fs,
+                                   const int* __restrict__ soa,
+                                   const unsigned char* __restrict__ mask,
+                                   int n, long nslots, float* __restrict__ f) {
+  const long e = static_cast<long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (e >= 3L * n) return;
+  const int a = static_cast<int>(e / 3), d = static_cast<int>(e % 3);
+  const long s = soa[a] < nslots ? soa[a] : nslots - 1;
+  f[e] = mask[a] ? fs[3 * s + d] : 0.f;
+}
 
 // cell index c of a neighbour, possibly one step outside [0, nb): the cell
 // it wraps to, and the box length its atoms are carried across

@@ -36,6 +36,14 @@ __device__ __forceinline__ float max_(float a, float b) { return fmaxf(a, b); }
 __device__ __forceinline__ double max_(double a, double b) {
   return fmax(a, b);
 }
+__device__ __forceinline__ float min_(float a, float b) { return fminf(a, b); }
+__device__ __forceinline__ double min_(double a, double b) {
+  return fmin(a, b);
+}
+__device__ __forceinline__ float abs_(float v) { return fabsf(v); }
+__device__ __forceinline__ double abs_(double v) { return fabs(v); }
+__device__ __forceinline__ float sqrt_(float v) { return sqrtf(v); }
+__device__ __forceinline__ double sqrt_(double v) { return sqrt(v); }
 __device__ __forceinline__ int to_int(float v) { return __float2int_rn(v); }
 __device__ __forceinline__ int to_int(double v) { return __double2int_rn(v); }
 
@@ -57,6 +65,27 @@ __device__ __forceinline__ float rsqrt_normal(float v) {
 }
 __device__ __forceinline__ double rsqrt_normal(double v) { return rsqrt(v); }
 
+// products and sums each rounded on its own, never contracted into a fused
+// multiply-add: rsq_rn rounds exactly as the plain version's separate
+// tensor operations do, so that kernel and plain version put every pair on
+// the same side of a cutoff
+__device__ __forceinline__ float mul_rn(float a, float b) {
+  return __fmul_rn(a, b);
+}
+__device__ __forceinline__ double mul_rn(double a, double b) {
+  return __dmul_rn(a, b);
+}
+__device__ __forceinline__ float add_rn(float a, float b) {
+  return __fadd_rn(a, b);
+}
+__device__ __forceinline__ double add_rn(double a, double b) {
+  return __dadd_rn(a, b);
+}
+template <typename T>
+__device__ __forceinline__ T rsq_rn(T dx, T dy, T dz) {
+  return add_rn(add_rn(mul_rn(dx, dx), mul_rn(dy, dy)), mul_rn(dz, dz));
+}
+
 // sum over the LANES threads of one row; lane 0 of the row holds the total
 template <typename T>
 __device__ __forceinline__ T row_sum(T v) {
@@ -67,11 +96,10 @@ __device__ __forceinline__ T row_sum(T v) {
 }
 
 // CTA-wide sums of NACC per-thread scalars, in a fixed order, written to
-// partials[blockIdx.x * NACC + k].  Every one of the CTA's NT threads must
-// call it.
+// row[k].  Every one of the CTA's NT threads must call it.
 template <typename T, int NT = THREADS>
-__device__ __forceinline__ void block_partials(const T (&v)[NACC],
-                                               T* __restrict__ partials) {
+__device__ __forceinline__ void block_partials_row(const T (&v)[NACC],
+                                                   T* __restrict__ row) {
   __shared__ T red[NT / 32][NACC];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 #pragma unroll
@@ -85,8 +113,15 @@ __device__ __forceinline__ void block_partials(const T (&v)[NACC],
   if (threadIdx.x < NACC) {
     T s = T(0);
     for (int w = 0; w < NT / 32; ++w) s += red[w][threadIdx.x];
-    partials[blockIdx.x * NACC + threadIdx.x] = s;
+    row[threadIdx.x] = s;
   }
+}
+
+// block_partials_row to partials[blockIdx.x * NACC + k]
+template <typename T, int NT = THREADS>
+__device__ __forceinline__ void block_partials(const T (&v)[NACC],
+                                               T* __restrict__ partials) {
+  block_partials_row<T, NT>(v, partials + (size_t)blockIdx.x * NACC);
 }
 
 // second stage, one CTA of REDUCE_THREADS: acc[k] = scale_k * sum_b
@@ -151,32 +186,82 @@ __device__ __forceinline__ TilePair tile_pair(int b, int nT) {
   const int k = b < nK ? b / nT : nT / 2;
   return TilePair{I, I + k < nT ? I + k : I + k - nT, k};
 }
-inline int tile_pair_count(int nT) { return nT * (nT + 1) / 2; }
+__host__ __device__ inline int tile_pair_count(int nT) {
+  return nT * (nT + 1) / 2;
+}
 
-// The partial buffer part (nT, nT + 1, 3, BT): the CTA of tile pair (I, k)
-// writes tile I's row sums to slot k of I and tile J's column sums to slot
-// col_slot(k) of J, so each tile's nT + 1 slots are each written once.
+// The partial buffer part (nT, nT + 1, NC, BT), NC = 3 (one vector per
+// atom) or 6 (two: the pair kernel's force and field): the CTA of tile pair
+// (I, k) writes tile I's row sums to slot k of I and tile J's column sums
+// to slot col_slot(k) of J, so each tile's nT + 1 slots are each written
+// once.
 __device__ __forceinline__ int col_slot(int k, int nT) {
   return k ? nT - k : nT;
 }
-template <int BT, typename T>
+template <int BT, typename T, int NC = 3>
 __device__ __forceinline__ T* slot_ptr(T* part, int tile, int slot, int nT) {
-  return part + ((size_t)tile * (nT + 1) + slot) * 3 * BT;
+  return part + ((size_t)tile * (nT + 1) + slot) * NC * BT;
+}
+
+// The block whose CTA writes slot `slot` of tile t (tile_pair's inverse):
+// slot nT is the diagonal's column sums; of the others, slot k < nT / 2 is
+// tile t's row sums of (t, k), slot nT - k > nT / 2 the column sums of
+// (t - k, k), and for even nT slot nT / 2 the row sums of (t, nT / 2)
+// when t < nT / 2, else the column sums of (t - nT / 2, nT / 2).
+__device__ __forceinline__ int slot_block(int t, int slot, int nT) {
+  if (slot == nT) return t;
+  const bool row =
+      2 * slot < nT || (2 * slot == nT && t < nT / 2);
+  const int k = row ? slot : nT - slot;
+  const int I = row ? t : (t - k + nT) % nT;
+  const int K = (nT - 1) / 2 + 1;
+  return k < K ? k * nT + I : nT * K + I;
 }
 
 // out (n, 3) = the sum of each atom's nT + 1 slots in slot order, negated
-// when NEG: no float atomics, the same bits whatever order the CTAs ran in
-template <typename T, int BT, bool NEG>
+// when NEG: no float atomics, the same bits whatever order the CTAs ran in.
+// With NC = 6, components 3-5 go to out2 (n, 3).  Where `kept` is not
+// null, the slots of the tile pairs whose kept[block] is 0 are left out
+// (their CTAs wrote nothing; leaving out a zero gives the same bits, as
+// the sum never holds -0): the first warp lists the tile's kept slots in
+// slot order in shared memory ((nT + 1) ints of dynamic shared memory),
+// and every thread sums those.  Grid (nT, NC).
+template <typename T, int BT, bool NEG, int NC = 3>
 __global__ void slot_sum_kernel(const T* __restrict__ part, int n, int nT,
-                                T* __restrict__ out) {
+                                T* __restrict__ out, T* __restrict__ out2,
+                                const unsigned char* __restrict__ kept) {
+  extern __shared__ int slots[];
+  __shared__ int nslots;
   const int tile = blockIdx.x, comp = blockIdx.y;
+  if (kept != nullptr) {
+    if (threadIdx.x < 32) {
+      const int lane = threadIdx.x;
+      int cnt = 0;
+      for (int s0 = 0; s0 <= nT; s0 += 32) {
+        const int slot = s0 + lane;
+        const bool keep = slot <= nT && kept[slot_block(tile, slot, nT)];
+        const unsigned b = __ballot_sync(FULL, keep);
+        if (keep) slots[cnt + __popc(b & ((1u << lane) - 1u))] = slot;
+        cnt += __popc(b);
+      }
+      if (lane == 0) nslots = cnt;
+    }
+    __syncthreads();
+  }
   const int i = tile * BT + threadIdx.x;
   if (i >= n) return;
-  const T* p = part + ((size_t)tile * (nT + 1) * 3 + comp) * BT + threadIdx.x;
+  const T* p = part + ((size_t)tile * (nT + 1) * NC + comp) * BT + threadIdx.x;
   T s = T(0);
+  if (kept == nullptr) {
 #pragma unroll 8
-  for (int slot = 0; slot <= nT; ++slot) s += p[(size_t)slot * 3 * BT];
-  out[3 * i + comp] = NEG ? -s : s;
+    for (int slot = 0; slot <= nT; ++slot) s += p[(size_t)slot * NC * BT];
+  } else {
+    const int m = nslots;
+#pragma unroll 8
+    for (int j = 0; j < m; ++j) s += p[(size_t)slots[j] * NC * BT];
+  }
+  T* dst = comp < 3 ? out : out2;
+  dst[3 * i + comp % 3] = NEG ? -s : s;
 }
 
 }  // namespace lidp

@@ -7,11 +7,14 @@
 // Replaces the TPU kernel lidp_tpu/ops/pallas_panel.py:993 wolf_panel
 // (_wolf_kernel :965).
 //
-// Bound on the H100: FP32 CUDA-core arithmetic, 30 flops per pair by the
-// Pallas CostEstimate (plus one rsqrt): 4.5 GFLOP at 12,288 x 12,288,
-// 0.068 ms at the 67 TFLOP/s FP32 peak, against 0.4 MB of operands.  The
-// design is the one of eind_panel.cuh: shared-memory column tiles, 8 lanes
-// per row, row sums in registers, selects instead of branches.
+// Bound on the H100: FP32 CUDA-core arithmetic.  The function's least
+// arithmetic, the geometry of each pair with an unmasked atom on one side
+// and the field only where it acts (chip_smoke.py wolf_bound_ms), is 0.020
+// ms on the 12,288-row case at the 67 TFLOP/s FP32 peak (the Pallas
+// CostEstimate's 30 flops for every ordered pair: 0.068 ms), against 0.4
+// MB of operands.  The design is the one of eind_panel.cuh: shared-memory
+// column tiles, 8 lanes per row, row sums in registers, selects instead
+// of branches.
 #include "panel_common.cuh"
 
 namespace lidp {

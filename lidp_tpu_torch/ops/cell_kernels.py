@@ -313,36 +313,44 @@ def cell_pair_forces_lj(x, mask, cells: Cells, box: Box, p,
     no coulomb, float32, orthogonal periodic box, >= 3 bins a side).
     Returns (f (N,3), evdwl, ecoul = 0, virial6) in atom order; masked
     atoms get zero force.  When the grid has overflowed (which the runners
-    report), the atoms that found no slot get zero force here.  `par` is
-    `lj_par(box, p)` when the caller has it already; without it the
-    wrapper forms it once for each box and table (_atom_order_par)."""
+    report), an atom that found no slot gets the force of the slot it
+    shares, as in the plain version and the JAX function: on CUDA the
+    kernel writes the forces in slot order and a gather through
+    slot_of_atom takes each atom's.  `par` is `lj_par(box, p)` when the
+    caller has it already; without it the wrapper forms it once for each
+    box and table (_atom_order_par)."""
     if x.device.type == "cpu":
         return cell_pair_forces_lj_plain(x, mask, cells, box, p,
                                          need_ev=need_ev)
     name = "cell_pair_forces_lj"
-    aos = cells.atom_of_slot
+    aos, soa = cells.atom_of_slot, cells.slot_of_atom
     _check(name, torch.float32, x)
     n = x.shape[0]
     if tuple(x.shape) != (n, 3) or n < 1:
         raise ValueError(f"{name}: x must be (N,3), got {tuple(x.shape)}")
-    if aos.dtype != torch.int32 or mask.dtype != torch.bool:
-        raise TypeError(f"{name}: atom_of_slot must be int32 and mask bool")
-    if tuple(mask.shape) != (n,) or aos.device != x.device \
-            or mask.device != x.device:
-        raise ValueError(f"{name}: mask must be (N,), on x's device like "
-                         f"atom_of_slot")
-    if not (aos.is_contiguous() and mask.is_contiguous()):
+    if aos.dtype != torch.int32 or soa.dtype != torch.int32 \
+            or mask.dtype != torch.bool:
+        raise TypeError(f"{name}: atom_of_slot and slot_of_atom must be "
+                        f"int32 and mask bool")
+    if tuple(mask.shape) != (n,) or tuple(soa.shape) != (n,) \
+            or any(t.device != x.device for t in (aos, soa, mask)):
+        raise ValueError(f"{name}: mask and slot_of_atom must be (N,), on "
+                         f"x's device like atom_of_slot")
+    if not (aos.is_contiguous() and soa.is_contiguous()
+            and mask.is_contiguous()):
         raise ValueError(f"{name}: operands must be contiguous")
     shape, nblocks = _grid_dims(name, aos.shape, x.device)
     if par is None:
         par = _atom_order_par(box, p)
     _check_par(name, par, x.device)
-    f = torch.zeros((n, 3), dtype=torch.float32, device=x.device)
+    fs = torch.empty((aos.numel(), 3), dtype=torch.float32, device=x.device)
+    f = torch.empty((n, 3), dtype=torch.float32, device=x.device)
     partials, acc = _ev_buffers(nblocks, need_ev, x.device)
-    _launch(name, "PPPIIIIIPIPPPP", x.device, x.data_ptr(), aos.data_ptr(),
-            mask.data_ptr(), n, *shape, par.data_ptr(), int(need_ev),
-            f.data_ptr(), partials.data_ptr() if need_ev else None,
-            acc.data_ptr(), _stream(x))
+    _launch(name, "PPPPIIIIIPIPPPPP", x.device, x.data_ptr(),
+            aos.data_ptr(), soa.data_ptr(), mask.data_ptr(), n, *shape,
+            par.data_ptr(), int(need_ev), fs.data_ptr(), f.data_ptr(),
+            partials.data_ptr() if need_ev else None, acc.data_ptr(),
+            _stream(x))
     cell_pair_forces_lj.launches += 1
     return f, acc[0], acc[7], acc[1:7]
 

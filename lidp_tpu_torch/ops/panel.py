@@ -23,7 +23,9 @@ too).  On a CPU tensor it runs the plain version; on a CUDA tensor it
 launches the hand-written kernel in csrc/<name>.cu or raises — there is no
 fallback.  The f32 wrappers take float32 operands only and the `*_df` ones
 float64 only; the other dtype raises TypeError, nothing is cast.  Each
-counts its launches in `<wrapper>.launches`.
+counts its launches in `<wrapper>.launches`, and the eind, dipole and pair
+wrappers those of them that launched the strip kernel in
+`<wrapper>.launches_strip`.
 
 The plain versions (`*_plain`) repeat the kernels' arithmetic (rsqrt then
 r = rsq*rinv, the A&S erfc, the TPU kernels' masking) in any dtype, over
@@ -61,6 +63,12 @@ EIND_SKIP_U = {torch.float32: 27.0, torch.float64: 49.0}
 # results are bit for bit those without the skips.  False turns them off,
 # for measurement.
 DIPOLE_SKIP = True
+# The whole pair panel's exact skips (csrc/pair_panel.cuh): the warp vote
+# on the outer cutoff, and the tile-pair test on the tiles' coordinate
+# boxes; the results are bit for bit those without them.  False turns one
+# off, for measurement.
+PAIR_SKIP = True
+PAIR_CULL = True
 
 
 # ------------------------------ plain path ------------------------------
@@ -501,11 +509,34 @@ eind_panel_df.launches = 0
 eind_panel_df.launches_strip = 0
 
 
+def _symmetric_tables(name, tabs):
+    """The whole-panel pair kernel evaluates each pair once for both atoms
+    from tabs[k][t_i, t_j]: it takes only tables equal to their transpose
+    (as every mixing rule makes them; the row form and the plain version
+    index each row's own).  Checked once for each table tensor and
+    version: one read of the device."""
+    for t, v in _SYMMETRIC:
+        if t is tabs and v == tabs._version:
+            return
+    if not torch.equal(tabs[:4], tabs[:4].transpose(1, 2)):
+        raise ValueError(f"{name}: the whole-panel kernel takes symmetric "
+                         f"type tables (tabs[k] equal to its transpose)")
+    _SYMMETRIC.append((tabs, tabs._version))
+    del _SYMMETRIC[:-8]
+
+
+_SYMMETRIC = []     # (tabs, version) of the tables found symmetric
+
+
 def _pair_cuda(wrapper, dtype, x, q, typef, mol, maskf, tabs, L, cut_coulsq,
-               qqrd2e, g_ewald, sp, cols, row0, coul, wolf):
-    """Checks, output buffers and launch of the three pair kernels; cols =
-    (x, q, typef, mol or None, maskf).  Returns (f, evdwl, ecoul, vir6, e0
-    or None)."""
+               qqrd2e, g_ewald, sp, cols, row0, coul, wolf, stats=None):
+    """Checks, buffers and launch of the pair kernels; cols = (x, q, typef,
+    mol or None, maskf).  For cols=None the whole-panel kernel with its
+    tile boxes, tile-pair test (a flag for each tile pair) and list of the
+    kept ones, slot sum and scalar sum, else the strip kernel and its
+    scalar sum.  Returns (f, evdwl, ecoul, vir6, e0 or None).  stats, an
+    int64 (3,) device tensor, gains (warp votes, votes that skipped, tile
+    pairs dropped) of the whole kernel."""
     name = wrapper.__name__
     xc, qc, tc, molc, mc = ((x, q, typef, mol, maskf) if cols is None
                             else cols)
@@ -530,38 +561,86 @@ def _pair_cuda(wrapper, dtype, x, q, typef, mol, maskf, tabs, L, cut_coulsq,
             raise ValueError(f"{name}: sp must be (nrows, S<={MAX_S}), got "
                              f"{tuple(sp.shape)}")
         sp_ptr = sp.data_ptr() if S else None
-    nb = -(-nrows // ROWS_PER_CTA)
     f = torch.empty((nrows, 3), dtype=dtype, device=x.device)
     e0 = torch.empty_like(f) if wolf else None
-    partials = torch.empty((nb, 8), dtype=dtype, device=x.device)
     acc = torch.empty((8,), dtype=dtype, device=x.device)
     c = _scalar_code(dtype)
     scalars = (float(cut_coulsq), float(qqrd2e), float(g_ewald))
-    if name == "pair_panel":
-        _launch(name, f"PPPPIIIPPPPIPIP{c}{c}{c}IPPPP", x.device,
-                x.data_ptr(), q.data_ptr(), typef.data_ptr(), sp_ptr, S,
-                nrows, int(row0), xc.data_ptr(), qc.data_ptr(),
-                tc.data_ptr(), mc.data_ptr(), npad, tabs.data_ptr(), t1,
-                L.data_ptr(), *scalars, int(bool(coul)), f.data_ptr(),
-                partials.data_ptr(), acc.data_ptr(), _stream(x))
+    molp = mol.data_ptr() if wolf else None
+    e0p = e0.data_ptr() if wolf else None
+    if cols is None:
+        _symmetric_tables(name, tabs)
+        bt = whole_tile(name)
+        nT = -(-npad // bt)
+        boxes = torch.empty((nT, 8), dtype=dtype, device=x.device)
+        part = torch.empty((nT, nT + 1, 6 if wolf else 3, bt), dtype=dtype,
+                           device=x.device)
+        partials = torch.empty((nT * (nT + 1) // 2, 8), dtype=dtype,
+                               device=x.device)
+        kept = torch.empty((nT * (nT + 1) // 2,), dtype=torch.uint8,
+                           device=x.device)
+        tlist = torch.empty((nT * (nT + 1) // 2 + 2,), dtype=torch.int32,
+                            device=x.device)
+        _launch(name, f"PPPPPPIIPIP{c}{c}{c}IIIIPPPPPPPPPP", x.device,
+                x.data_ptr(), q.data_ptr(), typef.data_ptr(), molp,
+                maskf.data_ptr(), sp_ptr, S, npad, tabs.data_ptr(), t1,
+                L.data_ptr(), *scalars, int(bool(coul)), int(PAIR_SKIP),
+                int(PAIR_CULL), nT, boxes.data_ptr(), part.data_ptr(),
+                partials.data_ptr(), kept.data_ptr(), tlist.data_ptr(),
+                f.data_ptr(), e0p, acc.data_ptr(),
+                None if stats is None else stats.data_ptr(), _stream(x),
+                entry=name + "_whole")
     else:
-        _launch(name, f"PPPPPIIIPPPPPIPIP{c}{c}{c}PPPPP", x.device,
-                x.data_ptr(), q.data_ptr(), typef.data_ptr(),
-                mol.data_ptr() if wolf else None, sp_ptr, S, nrows,
-                int(row0), xc.data_ptr(), qc.data_ptr(), tc.data_ptr(),
-                molc.data_ptr() if wolf else None, mc.data_ptr(), npad,
-                tabs.data_ptr(), t1, L.data_ptr(), *scalars, f.data_ptr(),
-                e0.data_ptr() if wolf else None, partials.data_ptr(),
-                acc.data_ptr(), _stream(x))
+        partials = torch.empty((-(-nrows // ROWS_PER_CTA), 8), dtype=dtype,
+                               device=x.device)
+        head = (x.data_ptr(), q.data_ptr(), typef.data_ptr())
+        cols_p = (xc.data_ptr(), qc.data_ptr(), tc.data_ptr())
+        if name == "pair_panel":
+            _launch(name, f"PPPPIIIPPPPIPIP{c}{c}{c}IPPPP", x.device, *head,
+                    sp_ptr, S, nrows, int(row0), *cols_p, mc.data_ptr(),
+                    npad, tabs.data_ptr(), t1, L.data_ptr(), *scalars,
+                    int(bool(coul)), f.data_ptr(), partials.data_ptr(),
+                    acc.data_ptr(), _stream(x))
+        else:
+            _launch(name, f"PPPPPIIIPPPPPIPIP{c}{c}{c}PPPPP", x.device,
+                    *head, molp, sp_ptr, S, nrows, int(row0), *cols_p,
+                    molc.data_ptr() if wolf else None, mc.data_ptr(), npad,
+                    tabs.data_ptr(), t1, L.data_ptr(), *scalars,
+                    f.data_ptr(), e0p, partials.data_ptr(), acc.data_ptr(),
+                    _stream(x))
+        wrapper.launches_strip += 1
     wrapper.launches += 1
     return f, acc[0], acc[1], acc[2:8], e0
+
+
+def pair_skip_share(x, q, typef, mol, maskf, tabs, L, cut_coulsq, qqrd2e,
+                    g_ewald, sp=None, *, coul=True):
+    """One launch of the whole pair kernel on CUDA tensors that also counts
+    its skips: (warp votes, votes that skipped, tile pairs dropped, tile
+    pairs).  float32 with mol: pair_wolf_panel; float32 without:
+    pair_panel (coul as given); float64: pair_panel_df (the field with
+    mol).  For measurement; it counts as a launch of the wrapper."""
+    wolf = mol is not None
+    if x.dtype == torch.float64:
+        wrapper = pair_panel_df
+    else:
+        wrapper = pair_wolf_panel if wolf else pair_panel
+    stats = torch.zeros(3, dtype=torch.int64, device=x.device)
+    _pair_cuda(wrapper, x.dtype, x, q, typef, mol, maskf, tabs, L,
+               cut_coulsq, qqrd2e, g_ewald, sp, None, 0,
+               coul or wrapper is not pair_panel, wolf, stats=stats)
+    votes, skipped, dropped = stats.tolist()
+    nT = -(-x.shape[0] // whole_tile(wrapper.__name__))
+    return votes, skipped, dropped, nT * (nT + 1) // 2
 
 
 def pair_wolf_panel(x, q, typef, mol, maskf, tabs, L, cut_coulsq, qqrd2e,
                     g_ewald, sp=None, cols=None, row0=0):
     """Fused LJ + coul/long pair panel and Wolf static field (see
-    pair_wolf_panel_plain; csrc/pair_wolf_panel.cu on CUDA).  Atom types
-    must lie in [0, T1)."""
+    pair_wolf_panel_plain).  On CUDA (csrc/pair_wolf_panel.cu) the whole
+    panel (cols=None) takes the kernel that computes each pair once for
+    both atoms, and symmetric type tables; a row strip the one-sided strip
+    kernel.  Atom types must lie in [0, T1)."""
     if x.device.type == "cpu":
         return pair_wolf_panel_plain(x, q, typef, mol, maskf, tabs, L,
                                      cut_coulsq, qqrd2e, g_ewald, sp=sp,
@@ -572,12 +651,14 @@ def pair_wolf_panel(x, q, typef, mol, maskf, tabs, L, cut_coulsq, qqrd2e,
 
 
 pair_wolf_panel.launches = 0
+pair_wolf_panel.launches_strip = 0
 
 
 def pair_panel(x, q, typef, maskf, tabs, L, cut_coulsq, qqrd2e, g_ewald,
                sp=None, cols=None, row0=0, *, coul=True):
     """LJ (+ coul/long) pair panel without the Wolf field (see
-    pair_panel_plain; csrc/pair_panel.cu on CUDA)."""
+    pair_panel_plain; csrc/pair_panel.cu on CUDA, routed as
+    pair_wolf_panel)."""
     if x.device.type == "cpu":
         return pair_panel_plain(x, q, typef, maskf, tabs, L, cut_coulsq,
                                 qqrd2e, g_ewald, sp=sp, cols=cols, row0=row0,
@@ -591,14 +672,16 @@ def pair_panel(x, q, typef, maskf, tabs, L, cut_coulsq, qqrd2e, g_ewald,
 
 
 pair_panel.launches = 0
+pair_panel.launches_strip = 0
 
 
 def pair_panel_df(x, q, typef, maskf, tabs64, L, cut_coulsq, qqrd2e, g_ewald,
                   sp=None, mol=None, cols=None, row0=0):
     """LJ + coul/long pair panel at f64 grade: float64 operands
-    (csrc/pair_panel_df.cu on CUDA).  Returns (f, evdwl, ecoul, vir6); with
-    mol (nrows,) the fused Wolf static field e0 (nrows, 3), UNSCALED, is a
-    5th element.  cols = (x, q, typef, maskf[, mol])."""
+    (csrc/pair_panel_df.cu on CUDA, routed as pair_wolf_panel).  Returns
+    (f, evdwl, ecoul, vir6); with mol (nrows,) the fused Wolf static field
+    e0 (nrows, 3), UNSCALED, is a 5th element.  cols = (x, q, typef,
+    maskf[, mol])."""
     if x.device.type == "cpu":
         return pair_panel_df_plain(x, q, typef, maskf, tabs64, L, cut_coulsq,
                                    qqrd2e, g_ewald, sp=sp, mol=mol,
@@ -614,6 +697,7 @@ def pair_panel_df(x, q, typef, maskf, tabs64, L, cut_coulsq, qqrd2e, g_ewald,
 
 
 pair_panel_df.launches = 0
+pair_panel_df.launches_strip = 0
 
 
 def wolf_panel(x, q, mol, maskf, L, cut_coulsq, cols=None, row0=0):
@@ -643,9 +727,9 @@ wolf_panel.launches = 0
 
 @functools.lru_cache(maxsize=None)
 def whole_tile(name):
-    """Atoms per tile of wrapper `name`'s whole-panel dipole kernel, as its
-    source sets it (csrc/dipole_panel.cuh DipoleTile, exported as
-    lidp_<name>_whole_tile)."""
+    """Atoms per tile of wrapper `name`'s whole-panel dipole or pair
+    kernel, as its source sets it (csrc/dipole_panel.cuh DipoleTile,
+    csrc/pair_panel.cuh PairTile; exported as lidp_<name>_whole_tile)."""
     return _cfn(name, "", f"{name}_whole_tile")()
 
 

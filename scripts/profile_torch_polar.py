@@ -7,6 +7,7 @@
     python scripts/profile_torch_polar.py --path ljcells --steps 100
     python scripts/profile_torch_polar.py --path eind [--rounds 7]
     python scripts/profile_torch_polar.py --path dipole [--rounds 7]
+    python scripts/profile_torch_polar.py --path pair [--rounds 7]
     python scripts/profile_torch_polar.py --path lj --variants --scale 4 \
         [--tree OTHER] [--rounds 7]
     python scripts/profile_torch_polar.py --path ab --tree OTHER --seq F \
@@ -64,6 +65,17 @@ bar, its registers, spills, SASS mix, the shares of warp votes that skipped
 the charge-dipole and the dipole-dipole block, and whether its bits equal
 the committed kernel's; beside them the committed wrapper and its strip
 form (the row form) at the same shape, after 500 warm-up launches.
+
+--path pair does the same for the whole-panel pair kernel
+(csrc/pair_panel.cuh; see PAIR_VARIANTS: the tile of each dtype, the rows
+per warp vote, CTAs per SM, the warp skip and the tile-pair test compiled
+out), the float32 form of pair_wolf_panel.cu and the float64 form of
+pair_panel_df.cu with the field, built into
+lidp_tpu_torch/_build/variants/pair_panel/, each held to
+pair_wolf_panel_plain at chip_smoke.py's bars, with its registers, spills,
+SASS mix, the shares of warp votes skipped and of tile pairs dropped, and
+whether its bits equal the committed kernel's; beside them the committed
+wrappers (pair_wolf_panel, pair_panel_df with mol) and their strip form.
 
 --path lj --variants times design variants of the LJ cell kernel
 (csrc/lj_cell.cuh) in the same way, each the committed source with one
@@ -341,12 +353,15 @@ def _sass_mix(lib, prefix):
     return sum(ops.values()), ops
 
 
-def _build_variants(table, stem, kernel, argtypes):
-    """Compile csrc/<stem>.cu and <stem>_df.cu of every variant in `table`,
-    all nvcc processes at once; returns {variant: {dtype: its C entry of
-    the whole panel (argtypes(scalar ctype)), registers, spill bytes and
-    SASS mix of the damped `kernel`, and the whole panel's tile where the
-    launcher exports it}}."""
+def _build_variants(table, stem, kernel, argtypes, sources=None,
+                    inst="Li1E"):
+    """Compile csrc/<stem>.cu and <stem>_df.cu (or the two `sources`, the
+    float32 one first) of every variant in `table`, all nvcc processes at
+    once; returns {variant: {dtype: its C entry of the whole panel
+    (argtypes(scalar ctype)), registers, spill bytes and SASS mix of
+    `kernel`'s instantiation whose mangled template arguments after the
+    dtype are `inst` (Li1E: the damped one), and the whole panel's tile
+    where the launcher exports it}}."""
     import ctypes
     import re
     import shutil
@@ -367,7 +382,7 @@ def _build_variants(table, stem, kernel, argtypes):
                 raise RuntimeError(f"variant {name}: {fname} does not hold "
                                    f"the text it patches once")
             f.write_text(text.replace(old, new))
-        for src in (stem, stem + "_df"):
+        for src in sources or (stem, stem + "_df"):
             cmd = [build._nvcc(), *build.NVCC_FLAGS, "-o",
                    str(out / f"lib{src}.so"), str(out / "csrc" / f"{src}.cu")]
             procs[name, src] = subprocess.Popen(
@@ -380,8 +395,8 @@ def _build_variants(table, stem, kernel, argtypes):
             raise RuntimeError(f"variant {name}: nvcc failed on {src}.cu\n"
                                f"{log}")
         # the damped whole kernel's registers and spill stores
-        m = re.search(kernel + r"I[fd]Li1E.*?\n(.*?)Used (\d+) registers",
-                      log, re.S)
+        m = re.search(kernel + r"I[fd]" + inst
+                      + r".*?\n(.*?)Used (\d+) registers", log, re.S)
         spill = re.findall(r"(\d+) bytes spill stores", m.group(1)) if m \
             else []
         out = build.BUILD / "variants" / stem / name
@@ -394,7 +409,7 @@ def _build_variants(table, stem, kernel, argtypes):
         fn.restype = ctypes.c_int
         total, ops = _sass_mix(out / f"lib{src}.so",
                                f"_ZN4lidp{len(kernel)}{kernel}"
-                               f"I{'d' if f64 else 'f'}Li1E")
+                               f"I{'d' if f64 else 'f'}{inst}")
         libs.setdefault(name, {})[torch.float64 if f64 else torch.float32] = \
             dict(fn=fn, registers=int(m.group(2)) if m else None,
                  spill_bytes=int(spill[-1]) if spill else None,
@@ -676,6 +691,267 @@ def dipole_variants(rounds):
         print(line)
     return {"variants": {k: v[0] for k, v in DIPOLE_VARIANTS.items()},
             "results": res}
+
+
+# --path pair: (what changes, [(file in csrc/, text, replacement)])
+_PAIR_CULL = "      cull ? boxes : nullptr, tabs, t1, L, WOLF ? cut_coulsq"
+_PAIR_SKIP = "      skip, list, nT, part, partials, stats);"
+_PAIR_BOXES = "  if (cull) {\n    tile_box_kernel"
+_F32_TILE = "static constexpr int BT = 128, MIN_CTAS = 4, PG = 2;"
+_RSQRT_DOUBLE = ("__device__ __forceinline__ double rsqrt_(double v) { "
+                 "return rsqrt(v); }\n")
+_RCP_RN = ("__device__ __forceinline__ float rcp_rn(float v) { "
+           "return __frcp_rn(v); }\n"
+           "__device__ __forceinline__ double rcp_rn(double v) { "
+           "return __drcp_rn(v); }\n")
+_F64_TILE = "static constexpr int BT = 64, MIN_CTAS = 8, PG = 1;"
+PAIR_VARIANTS = {
+    "kept": ("the committed source", []),
+    "votes": ("the warp votes over 1 row x 32 columns in float32 (PG = 1) "
+              "and over 2 rows in float64 (PG = 2), the other way round",
+              [("pair_panel.cuh", _F32_TILE, _F32_TILE.replace("PG = 2",
+                                                               "PG = 1")),
+               ("pair_panel.cuh", _F64_TILE, _F64_TILE.replace("PG = 1",
+                                                               "PG = 2"))]),
+    "vote4": ("the warp votes over 4 rows x 32 columns in float32 (PG = "
+              "4, all the rows of a lane)",
+              [("pair_panel.cuh", _F32_TILE, _F32_TILE.replace("PG = 2",
+                                                               "PG = 4"))]),
+    "f32tile64": ("float32 tiles of 64 atoms (2 warps, 2 rows per lane), 8 "
+                  "CTAs per SM",
+                  [("pair_panel.cuh", _F32_TILE, _F32_TILE.replace(
+                      "BT = 128, MIN_CTAS = 4", "BT = 64, MIN_CTAS = 8"))]),
+    "f64tile128": ("float64 tiles of 128 atoms (4 warps, 4 rows per lane), "
+                   "4 CTAs per SM",
+                   [("pair_panel.cuh", _F64_TILE, _F64_TILE.replace(
+                       "BT = 64, MIN_CTAS = 8", "BT = 128, MIN_CTAS = 4"))]),
+    "f64tile128x2": ("float64 tiles of 128 atoms, 2 CTAs per SM (no "
+                     "spill)",
+                     [("pair_panel.cuh", _F64_TILE, _F64_TILE.replace(
+                         "BT = 64, MIN_CTAS = 8", "BT = 128, MIN_CTAS = 2"))]),
+    "rcp": ("the two reciprocals by __frcp_rn / __drcp_rn (correctly "
+            "rounded: the same bits as the division) in place of T(1) / v",
+            [("panel_common.cuh", _RSQRT_DOUBLE, _RSQRT_DOUBLE + _RCP_RN),
+             ("pair_panel.cuh", "const T r2inv = T(1) / rsq[h];",
+              "const T r2inv = rcp_rn(rsq[h]);"),
+             ("pair_panel.cuh", "              const T tt = T(1) / (T(1) + "
+              "EWALD_P * grij);", "              const T tt = rcp_rn(T(1) + "
+              "EWALD_P * grij);")]),
+    "ctas5": ("float32 bounded to 5 CTAs per SM (at most 102 registers)",
+              [("pair_panel.cuh", _F32_TILE, _F32_TILE.replace(
+                  "MIN_CTAS = 4", "MIN_CTAS = 5"))]),
+    "ctas6": ("float32 bounded to 6 CTAs per SM (at most 85 registers)",
+              [("pair_panel.cuh", _F32_TILE, _F32_TILE.replace(
+                  "MIN_CTAS = 4", "MIN_CTAS = 6"))]),
+    "occupancy": ("float32 bounded to 2 CTAs per SM, float64 to 4 (more "
+                  "registers, fewer warps)",
+                  [("pair_panel.cuh", _F32_TILE, _F32_TILE.replace(
+                      "MIN_CTAS = 4", "MIN_CTAS = 2")),
+                   ("pair_panel.cuh", _F64_TILE, _F64_TILE.replace(
+                       "MIN_CTAS = 8", "MIN_CTAS = 4"))]),
+    "noskip": ("the warp skip compiled out (skip = 0 in the launcher)",
+               [("pair_panel.cuh", _PAIR_SKIP,
+                 _PAIR_SKIP.replace("skip, list", "0, list"))]),
+    "nocull": ("the tile-pair test compiled out (no box pass, every tile "
+               "pair kept)",
+               [("pair_panel.cuh", _PAIR_CULL,
+                 _PAIR_CULL.replace("cull ? boxes : nullptr", "nullptr")),
+                ("pair_panel.cuh", _PAIR_BOXES,
+                 _PAIR_BOXES.replace("(cull)", "(false)"))]),
+    "neither": ("both skips compiled out",
+                [("pair_panel.cuh", _PAIR_SKIP,
+                  _PAIR_SKIP.replace("skip, list", "0, list")),
+                 ("pair_panel.cuh", _PAIR_CULL,
+                  _PAIR_CULL.replace("cull ? boxes : nullptr", "nullptr")),
+                 ("pair_panel.cuh", _PAIR_BOXES,
+                  _PAIR_BOXES.replace("(cull)", "(false)"))]),
+}
+
+
+def _pair_argtypes(real):
+    import ctypes
+
+    p, i = ctypes.c_void_p, ctypes.c_int
+    return ([p] * 6 + [i, i, p, i, p, real, real, real, i, i, i, i]
+            + [p] * 10)
+
+
+def pair_variants(rounds):
+    """--path pair; returns the JSON-able results."""
+    import torch
+
+    import chip_smoke
+    from lidp_tpu_torch.models import polar_bench
+    from lidp_tpu_torch.ops import panel
+
+    t0 = time.perf_counter()
+    libs = _build_variants(PAIR_VARIANTS, "pair_panel", "pair_whole_kernel",
+                           _pair_argtypes,
+                           sources=("pair_wolf_panel", "pair_panel_df"),
+                           inst="Lb1ELb1EE")
+    print(f"built {len(PAIR_VARIANTS)} variants x 2 in "
+          f"{time.perf_counter() - t0:.1f} s")
+    ff = polar_bench.synthetic_forcefield(polar_bench.synthetic_system(),
+                                          torch.float32, "cuda")
+    pair = ff.pair
+    c32 = chip_smoke.make_case(10_125, 12_288, 60.0, seed=1)
+    cases = {torch.float32: c32, torch.float64: chip_smoke.to_f64(c32)}
+    calls, res = {}, {}
+    stream = torch.cuda.current_stream().cuda_stream
+    for dtype, c in cases.items():
+        n = c["x"].shape[0]
+        tabs = chip_smoke.tabs_for(pair, dtype)
+        sp = c["sp"]
+        args = (c["x"], c["q"], c["type"], c["mol"], c["mask"], tabs,
+                c["L"], pair.cut_coulsq, pair.qqrd2e, pair.g_ewald)
+        ref = panel.pair_wolf_panel_plain(*args, sp=sp)
+        dt = str(dtype)[6:]
+        for name in PAIR_VARIANTS:
+            lib = libs[name][dtype]
+            bt = lib["tile"]
+            nT = -(-n // bt)
+            boxes = torch.empty((nT, 8), dtype=dtype, device="cuda")
+            part = torch.empty((nT, nT + 1, 6, bt), dtype=dtype,
+                               device="cuda")
+            partials = torch.empty((nT * (nT + 1) // 2, 8), dtype=dtype,
+                                   device="cuda")
+            kept = torch.empty((nT * (nT + 1) // 2,), dtype=torch.uint8,
+                               device="cuda")
+            tlist = torch.empty((nT * (nT + 1) // 2 + 2,),
+                                dtype=torch.int32, device="cuda")
+            f = torch.empty((n, 3), dtype=dtype, device="cuda")
+            e0 = torch.empty((n, 3), dtype=dtype, device="cuda")
+            acc = torch.empty(8, dtype=dtype, device="cuda")
+            stats = torch.zeros(3, dtype=torch.int64, device="cuda")
+
+            def call(st=None, fn=lib["fn"], c=c, tabs=tabs, nT=nT,
+                     boxes=boxes, part=part, partials=partials, kept=kept,
+                     tlist=tlist, f=f, e0=e0, acc=acc):
+                err = fn(c["x"].data_ptr(), c["q"].data_ptr(),
+                         c["type"].data_ptr(), c["mol"].data_ptr(),
+                         c["mask"].data_ptr(), c["sp"].data_ptr(),
+                         c["sp"].shape[1], n, tabs.data_ptr(),
+                         tabs.shape[1], c["L"].data_ptr(), pair.cut_coulsq,
+                         pair.qqrd2e, pair.g_ewald, 1, 1, 1, nT,
+                         boxes.data_ptr(), part.data_ptr(),
+                         partials.data_ptr(), kept.data_ptr(),
+                         tlist.data_ptr(), f.data_ptr(), e0.data_ptr(),
+                         acc.data_ptr(), st, stream)
+                if err:
+                    raise RuntimeError(f"launch failed with CUDA error {err}")
+            call(stats.data_ptr())
+            torch.cuda.synchronize()
+            label = f"{name}[{dt}]"
+            got = (f.clone(), acc[0].clone(), acc[1].clone(),
+                   acc[2:8].clone(), e0.clone())
+            err, _ = chip_smoke.compare(label, got, ref,
+                                        dtype == torch.float64)
+            votes, skipped, dropped = stats.tolist()
+            res[label] = dict(
+                tile=bt, registers=lib["registers"],
+                spill_bytes=lib["spill_bytes"], sass_total=lib["sass_total"],
+                sass_ops=lib["sass_ops"], max_abs_err=err,
+                scalar_margin=chip_smoke.scalar_margin(
+                    got, ref, dtype == torch.float64),
+                skip_share=skipped / votes if votes else None,
+                drop_share=dropped / (nT * (nT + 1) // 2), ms=[],
+                same_bits_as_kept=chip_smoke.same_bits(
+                    got, res[f"kept[{dt}]"]["out"])
+                if name != "kept" else True, out=got)
+            calls[label] = call
+        # the committed kernel through its wrapper, as chip_smoke.py times
+        # it, and the strip kernel (the parent's row kernel) at the same
+        # shape
+        if dtype == torch.float64:
+            def wrapper(*a, **k):
+                x, q, t, mol, m, *rest = a
+                cols = k.pop("cols", None)
+                return panel.pair_panel_df(
+                    x, q, t, m, *rest, mol=mol, row0=k.pop("row0", 0),
+                    cols=None if cols is None else (*cols[:3], cols[4],
+                                                    cols[3]), **k)
+        else:
+            wrapper = panel.pair_wolf_panel
+        calls[f"wrapper[{dt}]"] = lambda w=wrapper, a=args: w(*a, sp=sp)
+        calls[f"strip form[{dt}]"] = lambda w=wrapper, a=args: w(
+            *a, sp=sp, cols=a[:5], row0=0)
+        res[f"wrapper[{dt}]"] = dict(ms=[])
+        res[f"strip form[{dt}]"] = dict(ms=[])
+        got = calls[f"strip form[{dt}]"]()
+        chip_smoke.compare(f"strip form[{dt}]", got, ref,
+                           dtype == torch.float64)
+    for r in res.values():
+        r.pop("out", None)
+    labels = list(calls)
+    for _ in range(500):             # the card at its working clocks
+        calls[labels[0]]()
+    torch.cuda.synchronize()
+    clocks = "--query-gpu=clocks.sm,clocks.max.sm,power.draw"
+    for rd in range(rounds):
+        k = rd % len(labels)
+        for label in labels[k:] + labels[:k]:
+            res[label]["ms"].append(chip_smoke.cuda_ms_queued(calls[label],
+                                                              20))
+        if rd in (0, rounds - 1):
+            print(f"after round {rd}: sm clock, max, power: " + subprocess.run(
+                ["nvidia-smi", clocks, "--format=csv,noheader"],
+                capture_output=True, text=True).stdout.strip())
+    for r in res.values():
+        r["median_ms"] = statistics.median(r["ms"])
+    for label, r in res.items():
+        kept = res["kept" + label[label.index("["):]]["median_ms"]
+        line = (f"{label:22s} {r['median_ms']:.4f} ms (min {min(r['ms']):.4f}"
+                f", max {max(r['ms']):.4f}; {r['median_ms'] / kept:.3f} x "
+                f"kept)")
+        if "registers" in r:
+            mix = " ".join(f"{k}={r['sass_ops'].get(k, 0)}" for k in
+                           ("MUFU", "SHFL", "LDS", "VOTE", "FFMA", "FMUL",
+                            "FADD", "FRND", "DFMA", "DMUL", "DADD", "BRA"))
+            shares = ("none counted" if r["skip_share"] is None else
+                      f"{r['skip_share']:.4f}")
+            line += (f", tile {r['tile']}, SASS {r['sass_total']} ({mix}), "
+                     f"registers {r['registers']}, spill {r['spill_bytes']} "
+                     f"B, votes skipped {shares}, tile pairs dropped "
+                     f"{r['drop_share']:.4f}, same bits as kept "
+                     f"{r['same_bits_as_kept']}, max abs err "
+                     f"{r['max_abs_err']:.3e}, scalars at "
+                     f"{r['scalar_margin']:.3g} of the bar")
+        print(line)
+    # where the committed wrappers' time goes: device time by kernel
+    breakdown = {}
+    for dt in ("float32", "float64"):
+        for form in ("wrapper", "strip form"):
+            label = f"{form}[{dt}]"
+            breakdown[label] = _device_times(calls[label], 20)
+            print(f"{label}: device time per call by kernel: " + "; ".join(
+                f"{key[:48]} {ms:.4f} ms x {cnt:g}"
+                for ms, cnt, key in breakdown[label]))
+    return {"variants": {k: v[0] for k, v in PAIR_VARIANTS.items()},
+            "results": res, "device_ms_by_kernel": breakdown}
+
+
+def _device_times(fn, reps):
+    """[(device ms per call, launches per call, kernel name)] of `reps`
+    calls of fn under torch.profiler, largest first."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = []
+    for ev in prof.key_averages():
+        if not str(ev.device_type).endswith("CUDA"):
+            continue
+        dev = getattr(ev, "self_device_time_total",
+                      getattr(ev, "self_cuda_time_total", 0.0))
+        if dev > 0:
+            rows.append((dev / 1e3 / reps, ev.count / reps, ev.key))
+    return sorted(rows, reverse=True)
 
 
 # --path lj --variants: (what changes, [(file in csrc/, text, replacement)])
@@ -1018,22 +1294,22 @@ def main() -> int:
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--trace", help="write the profiler's Chrome trace here")
     ap.add_argument("--path", choices=["fused32", "host64", "lj", "ljcells",
-                                       "eind", "dipole", "seq", "ab"],
+                                       "eind", "dipole", "pair", "seq",
+                                       "ab"],
                     default="fused32")
     ap.add_argument("--scale", type=float, default=1,
                     help="lj paths: box edge in units of 20 fcc cells")
     ap.add_argument("--rounds", type=int, default=7,
-                    help="eind, dipole, lj --variants: rounds over the "
-                    "variants")
+                    help="eind, dipole, pair, lj --variants: rounds over "
+                    "the variants")
     ap.add_argument("--seq", default="F",
                     help="seq, ab: paths in order, e.g. F or F,A,C,F")
     ap.add_argument("--tree", help="seq: the checkout to drive (default "
                     "this one); ab: the other checkout")
     ap.add_argument("--pairs", type=int, default=10,
                     help="ab: processes per checkout")
-    ap.add_argument("--out", help="eind, dipole, ab, lj --variants: also "
-                    "write "
-                    "the JSON here")
+    ap.add_argument("--out", help="eind, dipole, pair, ab, lj --variants: "
+                    "also write the JSON here")
     ap.add_argument("--variants", action="store_true",
                     help="lj: time the LJ cell kernel's design variants "
                     "(LJ_VARIANTS) at --scale (4: the E4 grid), and with "
@@ -1058,13 +1334,15 @@ def main() -> int:
                          text=True, check=True).stdout.strip())
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     lj_var = args.path == "lj" and args.variants
-    if args.path in ("eind", "dipole", "ab") or lj_var:
+    if args.path in ("eind", "dipole", "pair", "ab") or lj_var:
         if lj_var:
             out = lj_variants(args.rounds, args.scale, args.tree)
         elif args.path == "eind":
             out = eind_variants(args.rounds)
         elif args.path == "dipole":
             out = dipole_variants(args.rounds)
+        elif args.path == "pair":
+            out = pair_variants(args.rounds)
         else:
             out = ab_trees(args.tree, args.pairs, seq)
         print(json.dumps(out))

@@ -298,6 +298,94 @@ def test_dipole_whole_matches_plain_and_strip(dev, kernel, shape, damping,
         assert torch.equal(a, b)
 
 
+# --------------- pair: the whole-panel kernel (cols=None) ---------------
+
+PAIR = ["pair_wolf", "pair", "pair_lj", "pair_df", "pair_wolf_df"]
+
+
+def _pair_calls(dev, kernel, n, npad, L):
+    """(wrapper, plain, args, kwargs, cols of the strip form) of a pair
+    kernel on the ragged case at this shape."""
+    df = kernel.endswith("_df")
+    c = _case(dev, torch.float64 if df else torch.float32, n=n, npad=npad,
+              L=L)
+    p = c["pair"]
+    tail = (c["tabs"], c["L"], p.cut_coulsq, p.qqrd2e, p.g_ewald)
+    base = (c["x"], c["q"], c["type"])
+    if kernel == "pair_wolf":
+        args = (*base, c["mol"], c["mask"], *tail)
+        return (panel.pair_wolf_panel, panel.pair_wolf_panel_plain, args,
+                dict(sp=c["sp"]), args[:5])
+    args = (*base, c["mask"], *tail)
+    if kernel == "pair_wolf_df":
+        return (panel.pair_panel_df, panel.pair_panel_df_plain, args,
+                dict(sp=c["sp"], mol=c["mol"]), (*args[:4], c["mol"]))
+    if kernel == "pair_df":
+        return (panel.pair_panel_df, panel.pair_panel_df_plain, args,
+                dict(sp=c["sp"]), args[:4])
+    kw = dict(sp=c["sp"]) if kernel == "pair" else dict(sp=c["sp"],
+                                                         coul=False)
+    return panel.pair_panel, panel.pair_panel_plain, args, kw, args[:4]
+
+
+@pytest.mark.parametrize("shape", list(DIPOLE_SHAPES))
+@pytest.mark.parametrize("kernel", PAIR)
+def test_pair_whole_matches_plain_and_strip(dev, kernel, shape,
+                                            monkeypatch):
+    """Masked atoms that keep their charge, padding at the origin (whose
+    field rows are not zero), special lists: the whole-panel kernel
+    against the plain version and against the strip kernel at the same
+    shape, one launch counted per call (the strip launches apart),
+    repeated launches bit-identical, and the kernel with its warp skip,
+    its tile-pair test or both off bit-identical too."""
+    n, npad, L = DIPOLE_SHAPES[shape]
+    wrapper, plain, args, kw, cols = _pair_calls(dev, kernel, n, npad, L)
+    before, strips = wrapper.launches, wrapper.launches_strip
+    whole = wrapper(*args, **kw)
+    torch.cuda.synchronize()
+    assert (wrapper.launches, wrapper.launches_strip) == (before + 1,
+                                                          strips)
+    strip = wrapper(*args, cols=cols, row0=0, **kw)
+    assert (wrapper.launches, wrapper.launches_strip) == (before + 2,
+                                                          strips + 1)
+    ref = plain(*args, **kw)
+    _close(whole, ref)
+    _close(whole, strip)
+    if len(ref) == 5 and npad > n:
+        assert bool(ref[4][n:].abs().sum(1).gt(0).any())
+    mol = kw.get("mol", args[3] if kernel == "pair_wolf" else None)
+    pargs = args if kernel != "pair_wolf" else args[:3] + args[4:]
+    votes, skipped, dropped, npairs = panel.pair_skip_share(
+        *pargs[:3], mol, *pargs[3:], sp=kw["sp"],
+        coul=kw.get("coul", True))
+    assert 0 < skipped < votes and dropped < npairs
+    if shape == "12288":
+        assert dropped > 0
+    for a, b in zip(whole, wrapper(*args, **kw)):
+        assert torch.equal(a, b)
+    for flags in ((False, True), (True, False), (False, False)):
+        monkeypatch.setattr(panel, "PAIR_SKIP", flags[0])
+        monkeypatch.setattr(panel, "PAIR_CULL", flags[1])
+        for a, b in zip(whole, wrapper(*args, **kw)):
+            assert torch.equal(a, b)
+
+
+def test_pair_whole_refuses_asymmetric_tables(dev):
+    """The whole-panel pair kernel uses one force for both atoms of a pair:
+    a type table that is not symmetric raises there (no launch), while the
+    strip kernel, one-sided like the plain version, takes it."""
+    wrapper, plain, args, kw, cols = _pair_calls(dev, "pair", 1000, 1024,
+                                                 28.0)
+    tabs = args[4].clone()
+    tabs[0, 1, 2] *= 1.5
+    bad = (*args[:4], tabs, *args[5:])
+    before = wrapper.launches
+    with pytest.raises(ValueError, match="symmetric"):
+        wrapper(*bad, **kw)
+    assert wrapper.launches == before
+    _close(wrapper(*bad, cols=cols, row0=0, **kw), plain(*bad, **kw))
+
+
 def test_per_type_cutoff_kernel_build_raises_on_cuda(dev):
     """The pair kernels take one outer cutoff: a kernel build with
     cut[1,1] = 7.0 above the others' 6.5 raises on the GPU, naming
@@ -368,6 +456,7 @@ def test_float64_strips_run_kernels_on_cuda(dev, mixed):
         before = {k: panel.WRAPPERS[k].launches for k in names}
         strip_before = panel.eind_panel_df.launches_strip
         dstrip_before = panel.dipole_panel_df.launches_strip
+        pstrip_before = panel.pair_panel_df.launches_strip
         f, en = polar_bench.host_setup_forces(bench, mixed=mixed)
         grew = {k: panel.WRAPPERS[k].launches - before[k] for k in names}
         assert grew["pair_panel_df"] == strips
@@ -378,6 +467,8 @@ def test_float64_strips_run_kernels_on_cuda(dev, mixed):
         strip_grew = panel.eind_panel_df.launches_strip - strip_before
         assert strip_grew == (0 if strips == 1 else grew["eind_panel_df"])
         assert panel.dipole_panel_df.launches_strip - dstrip_before == (
+            0 if strips == 1 else strips)
+        assert panel.pair_panel_df.launches_strip - pstrip_before == (
             0 if strips == 1 else strips)
         assert en["scf_converged"]
         out.append((f, en))
@@ -588,6 +679,19 @@ def test_lj_cell_kernel_at_the_tile_caps(dev, kernel, where):
             else:
                 ck.cell_pair_forces_lj(c["x"], c["mask"], over, c["box"],
                                        c["pair"])
+
+
+def test_cell_pair_forces_lj_on_an_overflowing_grid(dev):
+    """chip_smoke.overflow_lj_parity: on a grid whose cap the full cell
+    overflows, the kernel equals its plain version (need_ev off and on,
+    repeats bit-identical), so the atoms that found no slot take the force
+    of the slot they share, which is not zero; one launch a call."""
+    from lidp_tpu_torch.ops import cell_kernels as ck
+
+    before = ck.cell_pair_forces_lj.launches
+    _, missed = _load_chip_smoke().overflow_lj_parity()
+    assert missed > 0
+    assert ck.cell_pair_forces_lj.launches == before + 4
 
 
 def test_runner_forces_follow_a_changing_box(dev):

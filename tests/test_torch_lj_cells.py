@@ -65,8 +65,9 @@ def _tables(ntypes, seed=5):
 
 
 def _case(L, dtype, ntypes=1, coul=False, periodic=(True, True, True),
-          nbins=None, n=400, masked=False, shift=False):
-    """The same system, pair table and Cells in both packages."""
+          nbins=None, n=400, masked=False, shift=False, cap=None):
+    """The same system, pair table and Cells in both packages; with `cap`
+    given, a grid of that cap which the atoms must overflow."""
     from lidp_tpu import box as jbox
     from lidp_tpu.ops import cells as jcells
     from lidp_tpu.ops.pair import make_pair_params as jmake
@@ -87,13 +88,14 @@ def _case(L, dtype, ntypes=1, coul=False, periodic=(True, True, True),
     pj = jmake(eps, sig, cut, **kw)
     pt = convert.pair_from_numpy(_fields(pj), device="cpu", dtype=td)
     nb = nbins or tuple(int(v // 2.9) for v in L)
-    cap = int(np.ceil(3.0 * n / np.prod(nb) / 8) * 8)
+    overflow = cap is not None
+    cap = cap or int(np.ceil(3.0 * n / np.prod(nb) / 8) * 8)
     cfg = jcells.CellConfig(nbins=nb, cap=cap, cutneigh=2.9)
     lo, hi = np.zeros(3, dtype), np.asarray(L, dtype)
     bj = jbox.Box.create(lo, hi, periodic=periodic)
     bt = tbox.Box.create(lo, hi, periodic=periodic)
     cj = jcells.build_cells(jnp.asarray(x), jnp.asarray(mask), bj, cfg)
-    assert not bool(cj.overflow)
+    assert bool(cj.overflow) == overflow
     ct = convert.cells_from_numpy(_fields(cj), device="cpu")
     jax_in = dict(x=jnp.asarray(x), q=jnp.asarray(q), type=jnp.asarray(typ),
                   mask=jnp.asarray(mask), cells=cj, box=bj, p=pj)
@@ -260,6 +262,37 @@ def test_cell_pair_forces_lj_plain_matches_pallas(grid, need_ev):
                                  ti["p"], need_ev=need_ev)
     assert tck.cell_pair_forces_lj.launches == before
     assert torch.equal(gw[0], got[0])
+
+
+@pytest.mark.parametrize("need_ev", [True, False])
+def test_cell_pair_forces_lj_plain_matches_pallas_on_overflow(need_ev):
+    """A grid of cap 5 for ~6 atoms a cell: many cells overflow, and the
+    atoms that found no slot share their cell's last slot.  The plain
+    version gives them that slot's force, as the JAX function does (the
+    CUDA kernel is held to the plain version there:
+    tests/test_torch_cuda_kernels.py::test_cell_pair_forces_lj_on_an_
+    overflowing_grid)."""
+    from lidp_tpu.ops import pallas_pair as PP
+
+    ji, ti, _ = _case(GRIDS["cubic"], np.float32, masked=True, cap=5)
+    ref = PP.cell_pair_forces_pallas(ji["x"], ji["mask"], ji["cells"],
+                                     ji["box"], ji["p"], need_ev=need_ev)
+    got = tck.cell_pair_forces_lj_plain(ti["x"], ti["mask"], ti["cells"],
+                                        ti["box"], ti["p"], need_ev=need_ev)
+    for g, r, what in zip(got, ref, ("f", "evdwl", "ecoul", "virial")):
+        if what == "f" or need_ev:
+            _close(g.numpy(), r, np.float32, what)
+    aos = ti["cells"].atom_of_slot.reshape(-1).long()
+    soa = ti["cells"].slot_of_atom.long()
+    n = ti["x"].shape[0]
+    noslot = ti["mask"] & (aos[soa.clamp(max=aos.numel() - 1)]
+                           != torch.arange(n))
+    assert int(noslot.sum()) > 10
+    f = got[0]
+    assert bool((f[noslot] != 0).any())
+    # each takes the force of the atom that holds its slot
+    holder = aos[soa[noslot]]
+    assert torch.equal(f[noslot], f[holder])
 
 
 def test_kernel_plain_versions_need_three_bins():
