@@ -24,28 +24,29 @@ Phases, each raising on failure:
      kernels the function's least arithmetic, EIND_FLOPS_PAIR,
      DIPOLE_FLOPS_*, PAIR_FLOPS_* and WOLF_FLOPS_FIELD, counted on the
      case, beside the CostEstimate's as bound_ms_cost_estimate).
-     eind_panel{,_df}, dipole_panel{,_df}, pair_wolf_panel, pair_panel and
-     pair_panel_df run the whole-panel kernels (each pair once for both
-     atoms); their [strip form] variants, cols = all atoms and row0 = 0,
-     run the one-sided strip kernels on the same operands in the same
-     call, their [no skip] variants the whole-panel kernels with the exact
-     skips off (eind's damping skip by an infinite threshold, the dipole
-     kernel's warp skips by DIPOLE_SKIP, the pair kernel's by PAIR_SKIP)
-     and the pair kernels' [no cull] variants without the tile-pair test
+     eind_panel{,_df}, dipole_panel{,_df}, pair_wolf_panel, pair_panel,
+     pair_panel_df and wolf_panel run the whole-panel kernels (each pair
+     once for both atoms); their [strip form] variants, cols = all atoms
+     and row0 = 0, run the one-sided strip kernels on the same operands in
+     the same call, their [no skip] variants the whole-panel kernels with
+     the exact skips off (eind's damping skip by an infinite threshold,
+     the dipole kernel's warp skips by DIPOLE_SKIP, the pair template's by
+     PAIR_SKIP) and the pair template's (the pair kernels' and
+     wolf_panel's) [no cull] variants without the tile-pair test
      (PAIR_CULL), which must give the same bits; eind and dipole each in
      the fluid's exponential damping and in damping none (the reference's
      default), pair_panel also LJ only, pair_panel_df also without the
      field.  Then ptxas's registers and spills, the share of warp votes in
      which the eind kernels skipped the damping exponential, the dipole
      kernels the charge-dipole and the dipole-dipole block and the pair
-     kernels all their blocks, the share of tile pairs the pair kernels
-     dropped, and the float64 whole kernels' partial buffers with the
-     device memory reserved over a call of each;
+     template's kernels all their blocks, the share of tile pairs those
+     dropped, and the partial buffers of the float64 whole kernels and of
+     wolf_panel's with the device memory reserved over a call of each;
   4. the main paths on the 10,125-atom synthetic fluid, every launch
      counter set to 0 just before each and read just after:
      A. float32 fused step through the kernels: initial forces + 20 steps
-        (eind, dipole and pair: the whole-panel kernels, never the strip
-        kernels, on every path A-D);
+        (eind, dipole, pair and wolf: the whole-panel kernels, never the
+        strip kernels, on every path A-D);
      B. float32 host phases (make_host_phases + HostPolarForces, pure CG):
         initial forces + 5 steps; step 0 against path A's step 0 (energies
         rel 1e-5, forces rtol 5e-4, atol 5e-5*max);
@@ -198,7 +199,9 @@ DIPOLE_DAMPED_U = {False: 104.0, True: 745.0}
 # block where it acts (r <= cut_coul between molecules, a charge on the
 # other atom of a side that takes it) 16 (the factor 2, times the two
 # charges 2, the field on both atoms 12).  wolf_panel's: the geometry of
-# each pair with an unmasked atom and the Wolf block with r^-2 (17).  The
+# each pair with an unmasked atom (in the tile pairs the test keeps, with
+# 8 flops a tile pair for the test) and the Wolf block with r^-2 (17); its
+# count over all such pairs stays beside it as bound_ms_all_pairs.  The
 # Pallas CostEstimate's flops per ordered pair (npad^2 of them) stay beside
 # it as bound_ms_cost_estimate.
 PAIR_FLOPS_GEOM, PAIR_FLOPS_FORCE = 18, 23
@@ -455,11 +458,11 @@ def kernel_calls(c, c64, pair, s):
             pair_forms("pair_panel", panel.pair_panel_plain, pargs, pargs[:4],
                        "lj only", pbound("pair_panel", False, coul=False),
                        sp=d["sp"], coul=False)
-            add("wolf_panel", "wolf_panel", panel.wolf_panel_plain,
-                (d["x"], d["q"], d["mol"], d["mask"], d["L"],
-                 pair.cut_coulsq),
-                bound=once(lambda d=d: wolf_bound_ms("wolf_panel", d,
-                                                     pair.cut_coulsq)))
+            wolf = (d["x"], d["q"], d["mol"], d["mask"], d["L"],
+                    pair.cut_coulsq)
+            pair_forms("wolf_panel", panel.wolf_panel_plain, wolf, wolf[:4],
+                       "", once(lambda d=d: wolf_bound_ms(
+                           "wolf_panel", d, pair.cut_coulsq)))
     return out
 
 
@@ -640,7 +643,10 @@ def pair_bound_ms(name, c, tabs, cut_coulsq, wolf, coul=True, tile=None,
     given), with TILE_BOX_FLOPS a tile pair for the test.  Also returns
     the counts: geometry_pairs (an unmasked atom on one side), kept_pairs
     (those of the kept tile pairs), tile_pairs and kept_tile_pairs,
-    force_pairs, lj_pairs, coul_pairs, wolf_pairs."""
+    force_pairs, lj_pairs, coul_pairs, wolf_pairs; for wolf_panel
+    geometry_pairs, kept_pairs, wolf_pairs, the tile pairs and
+    bound_ms_all_pairs, the bound with the geometry of every pair with an
+    unmasked atom (no tile-pair test)."""
     import torch
 
     from lidp_tpu_torch.ops import panel
@@ -654,7 +660,7 @@ def pair_bound_ms(name, c, tabs, cut_coulsq, wolf, coul=True, tile=None,
     npad = x.shape[0]
     cutsq_u = 0.0 if field else float(tabs[4].max())
     if cull is None:
-        cull = panel.PAIR_CULL and not field
+        cull = panel.PAIR_CULL
     rc = math.sqrt(max(cutsq_u, cut_coulsq if wolf else 0.0))
     if cull:
         tile = tile or panel.whole_tile(name)
@@ -698,17 +704,24 @@ def pair_bound_ms(name, c, tabs, cut_coulsq, wolf, coul=True, tile=None,
             cnt[key] += int(v.sum())
         del rsq, terms
     cnt = {k: v // 2 for k, v in cnt.items()}       # unordered
+    nT = -(-npad // tile) if cull else 0
+    cnt.update(tile_pairs=nT * (nT + 1) // 2,
+               kept_tile_pairs=int(keep.triu().sum()) if cull else 0)
+    geom = cnt["kept_pairs"] if cull else cnt["geometry_pairs"]
+    peak = FP64_PEAK if f64 else FP32_PEAK
     if field:
-        cnt = {k: cnt[k] for k in ("geometry_pairs", "wolf_pairs")}
-        flops = (PAIR_FLOPS_GEOM * cnt["geometry_pairs"]
+        cnt = {k: cnt[k] for k in ("geometry_pairs", "kept_pairs",
+                                   "wolf_pairs", "tile_pairs",
+                                   "kept_tile_pairs")}
+        flops = (PAIR_FLOPS_GEOM * geom + TILE_BOX_FLOPS * cnt["tile_pairs"]
                  + WOLF_FLOPS_FIELD * cnt["wolf_pairs"])
         # x, q, mol, mask in, e0 out
         nbytes = 4 * (9 * npad + 8)
+        every = (PAIR_FLOPS_GEOM * cnt["geometry_pairs"]
+                 + WOLF_FLOPS_FIELD * cnt["wolf_pairs"])
+        cnt["bound_ms_all_pairs"] = 1e3 * max(every / peak,
+                                              nbytes / HBM_RATE)
     else:
-        nT = -(-npad // tile) if cull else 0
-        cnt.update(tile_pairs=nT * (nT + 1) // 2,
-                   kept_tile_pairs=int(keep.triu().sum()) if cull else 0)
-        geom = cnt["kept_pairs"] if cull else cnt["geometry_pairs"]
         flops = (PAIR_FLOPS_GEOM * geom + TILE_BOX_FLOPS * cnt["tile_pairs"]
                  + PAIR_FLOPS_FORCE * cnt["force_pairs"]
                  + PAIR_FLOPS_LJ * cnt["lj_pairs"]
@@ -718,17 +731,20 @@ def pair_bound_ms(name, c, tabs, cut_coulsq, wolf, coul=True, tile=None,
         # x, q, type, mask (and mol) in, f (and e0) out, the lists
         nbytes = item * ((9 + 4 * wolf) * npad + 8) \
             + 4 * sp.shape[1] * npad
-    t_ops = flops / (FP64_PEAK if f64 else FP32_PEAK)
+    t_ops = flops / peak
     t_bytes = nbytes / HBM_RATE
     return (1e3 * max(t_ops, t_bytes),
             "operations" if t_ops >= t_bytes else "bytes", cnt)
 
 
-def wolf_bound_ms(name, c, cut_coulsq):
+def wolf_bound_ms(name, c, cut_coulsq, tile=None):
     """pair_bound_ms of wolf_panel: the geometry of each unordered pair with
-    an unmasked atom on one side, and the Wolf block with r^-2
-    (WOLF_FLOPS_FIELD) for the pairs where a side takes a field term."""
-    return pair_bound_ms(name, c, None, cut_coulsq, True)
+    an unmasked atom on one side in the tile pairs the test keeps (at the
+    radius sqrt(cut_coulsq); tile: the whole kernel's, from the library
+    unless given), 8 flops a tile pair for the test, and the Wolf block
+    with r^-2 (WOLF_FLOPS_FIELD) for the pairs where a side takes a field
+    term."""
+    return pair_bound_ms(name, c, None, cut_coulsq, True, tile=tile)
 
 
 def scalar_margin(got, ref, f64):
@@ -757,17 +773,22 @@ def dipole_skip_share(tag, c, cut_coulsq, qqrd2e, pd, damping_type):
     return dict(votes=votes, cd_skipped=cd, dd_skipped=dd)
 
 
-def pair_skip_share(tag, c, pair, wolf):
+def pair_skip_share(tag, c, pair, wolf, field_alone=False):
     """Print the shares of the whole pair kernel's warp votes that skipped
     and of its tile pairs dropped (ops/panel.pair_skip_share) on case c,
-    with the Wolf field or without; returns them."""
+    with the Wolf field or without, or of wolf_panel's whole kernel
+    (ops/panel.wolf_skip_share) with `field_alone`; returns them."""
     from lidp_tpu_torch.ops import panel
 
-    tabs = tabs_for(pair, c["x"].dtype)
-    votes, skipped, dropped, npairs = panel.pair_skip_share(
-        c["x"], c["q"], c["type"], c["mol"] if wolf else None, c["mask"],
-        tabs, c["L"], pair.cut_coulsq, pair.qqrd2e, pair.g_ewald,
-        sp=c["sp"])
+    if field_alone:
+        votes, skipped, dropped, npairs = panel.wolf_skip_share(
+            c["x"], c["q"], c["mol"], c["mask"], c["L"], pair.cut_coulsq)
+    else:
+        tabs = tabs_for(pair, c["x"].dtype)
+        votes, skipped, dropped, npairs = panel.pair_skip_share(
+            c["x"], c["q"], c["type"], c["mol"] if wolf else None,
+            c["mask"], tabs, c["L"], pair.cut_coulsq, pair.qqrd2e,
+            pair.g_ewald, sp=c["sp"])
     print(f"skip share {tag}: {dropped} of {npairs} tile pairs dropped = "
           f"{dropped / npairs:.4f}; {skipped} of {votes} warp votes in the "
           f"others skipped = {skipped / max(votes, 1):.4f}")
@@ -775,12 +796,13 @@ def pair_skip_share(tag, c, pair, wolf):
                 tile_pairs=npairs)
 
 
-def partial_buffers(c, pair, pd):
+def partial_buffers(c, pair, pd, c32):
     """Print the partial buffers of the float64 whole-panel eind, dipole
     and pair (with the field) kernels on case c, and the device memory the
     caching allocator has reserved after a call of each and a second eind
     call, from an emptied cache: each wrapper takes its buffer per call
-    and frees it on return."""
+    and frees it on return; then wolf_panel's (float32, on c32) and the
+    memory reserved over one call of it from an emptied cache."""
     import torch
 
     from lidp_tpu_torch.ops import panel
@@ -817,10 +839,21 @@ def partial_buffers(c, pair, pd):
         call()
         torch.cuda.synchronize()
         grew.append((torch.cuda.memory_reserved() - r0) / 1e6)
+    bt = panel.whole_tile("wolf_panel")
+    nT = -(-n // bt)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    r0 = torch.cuda.memory_reserved()
+    panel.wolf_panel(c32["x"], c32["q"], c32["mol"], c32["mask"], c32["L"],
+                     pair.cut_coulsq)
+    torch.cuda.synchronize()
     print(f"partial buffers, float64, npad {n}: "
           + ", ".join(f"{k} {v:.1f} MB" for k, v in size.items())
           + "; reserved after eind, dipole, pair, eind again: "
-          + ", ".join(f"+{g:.1f}" for g in grew) + " MB")
+          + ", ".join(f"+{g:.1f}" for g in grew) + " MB; wolf_panel "
+          f"(float32) {nT * (nT + 1) * 3 * bt * 4 / 1e6:.1f} MB, reserved "
+          f"+{(torch.cuda.memory_reserved() - r0) / 1e6:.1f} MB over a "
+          f"call")
 
 
 def skip_share(tag, x, alpha_eff, mu, L, pd, forms=("whole",)):
@@ -1405,16 +1438,16 @@ def main() -> int:
                                 ("pair_panel_df[no field]", False))
                                if d is c64 else
                                (("pair_wolf_panel", True),
-                                ("pair_panel", False))):
+                                ("pair_panel", False), ("wolf_panel", True))):
                 share = pair_skip_share(f"{name} {cname} case", d, ff.pair,
-                                        wolf)
+                                        wolf, name == "wolf_panel")
                 if cname == "main":
                     r = results[name.split("[")[0]]
                     if "[" in name:
                         r = r["variants"][name]
                     r["skip_share"] = share
         if cname == "main":
-            partial_buffers(c64, ff.pair, ff.polar.polar_damp)
+            partial_buffers(c64, ff.pair, ff.polar.polar_damp, c)
         del calls, c64
     del cases
     torch.cuda.empty_cache()
@@ -1422,7 +1455,7 @@ def main() -> int:
     # 4. the main paths: every counter to 0 just before, read just after
     whole_form = (panel.eind_panel, panel.eind_panel_df, panel.dipole_panel,
                   panel.dipole_panel_df, panel.pair_wolf_panel,
-                  panel.pair_panel, panel.pair_panel_df)
+                  panel.pair_panel, panel.pair_panel_df, panel.wolf_panel)
 
     def reset_counts():
         for w in wrappers.values():
@@ -1432,9 +1465,10 @@ def main() -> int:
         torch.cuda.synchronize()
 
     def check_whole(path):
-        """Paths A-D evaluate the whole block: the eind, dipole and pair
-        wrappers launch their whole-panel kernels, never the strip
-        kernels."""
+        """Paths A-D evaluate the whole block: the eind, dipole, pair and
+        wolf wrappers launch their whole-panel kernels, never the strip
+        kernels (so path B's wolf_panel launches, counted, are all of the
+        whole kernel)."""
         strip = {w.__name__: w.launches_strip for w in whole_form}
         if any(strip.values()):
             raise AssertionError(f"path {path}: strip kernel launches "
@@ -1925,6 +1959,7 @@ def main() -> int:
                    plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                    bound_by=r["bound_by"], library_ms=None)
         for key in ("ms_queued", "bound_ms_cost_estimate",
+                    "bound_ms_all_pairs",
                     "bound_ms_tpu_count", "live_pairs", "cutoff_pairs",
                     "geometry_pairs", "active_pairs", "dd_pairs",
                     "damped_pairs", "cd_pairs", "both_pairs", "kept_pairs",

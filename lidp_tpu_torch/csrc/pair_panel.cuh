@@ -2,8 +2,10 @@
 // evdwl/ecoul tallies and the 6-term virial, optionally fused with the
 // unscaled Wolf static field E0 from the same geometry.  One kernel
 // template serves pair_wolf_panel.cu (float, COUL, WOLF), pair_panel.cu
-// (float, COUL or LJ only, no field) and pair_panel_df.cu (double, COUL,
-// with or without the field).
+// (float, COUL or LJ only, no field), pair_panel_df.cu (double, COUL,
+// with or without the field) and, with FORCE false, the whole panel of
+// wolf_panel.cu (float, the field alone: no LJ or coulomb block, no type
+// tables, no scalar partials and no reduce of them).
 //
 // The function, row by row as the TPU kernel states it (i != j, mask_j):
 //   LJ for rsq < min(cutsq_u, cut_ljsq[ti,tj]) unless j is one of i's
@@ -91,7 +93,8 @@ constexpr int MAX_T1 = 16;   // type-table edge (types 0..15)
 // atoms per tile of the whole-panel kernel (and threads per CTA: 32
 // columns per warp, BT / 32 warps, BT / 32 rows per lane; the launchers
 // export it as lidp_<name>_whole_tile), the CTAs per SM its register
-// budget must allow, and the rows per warp vote, by dtype
+// budget must allow, and the rows per warp vote, by dtype, and for the
+// field alone (FORCE false) on its own
 template <typename T>
 struct PairTile;
 template <>
@@ -101,6 +104,16 @@ struct PairTile<float> {
 template <>
 struct PairTile<double> {
   static constexpr int BT = 64, MIN_CTAS = 8, PG = 1;
+};
+template <typename T, bool FORCE>
+struct WholeTile : PairTile<T> {};
+// the field alone: 6 CTAs per SM hold its registers without a spill (on
+// an H100, scripts/profile_torch_polar.py --path pair: 8 spilled 28 bytes
+// and took 1.09x as long; tiles of 64 took 0.95x, with twice the partial
+// buffer)
+template <>
+struct WholeTile<float, false> {
+  static constexpr int BT = 128, MIN_CTAS = 6, PG = 2;
 };
 
 // the flag word: type in the low byte, the atom's mask, and whether the
@@ -113,7 +126,8 @@ struct PCol {
   int fl;
 };
 
-template <typename T, bool WOLF>
+// (the type is read only with FORCE: the field alone takes no types)
+template <typename T, bool WOLF, bool FORCE>
 __device__ __forceinline__ PCol<T> load_pcol(
     const T* __restrict__ x, const T* __restrict__ q,
     const T* __restrict__ typ, const T* __restrict__ mol,
@@ -121,7 +135,8 @@ __device__ __forceinline__ PCol<T> load_pcol(
   if (j >= n) return PCol<T>{};  // no atom: every gate closed
   return PCol<T>{x[3 * j], x[3 * j + 1], x[3 * j + 2], q[j],
                  WOLF ? mol[j] : T(0),
-                 to_int(typ[j]) | (m[j] != T(0) ? PF_MASK : 0) | PF_ATOM};
+                 (FORCE ? to_int(typ[j]) : 0) |
+                     (m[j] != T(0) ? PF_MASK : 0) | PF_ATOM};
 }
 
 // (x, y, z, q) as one float4 or two double2
@@ -256,8 +271,11 @@ constexpr int CULL_THREADS = 256;
 
 // The tile-pair test, one thread per block b of the schedule: kept[b] = 1
 // where its tile pair is kept (boxes null: every one), else 0.  The outer
-// radius is sqrt(max(max(tabs[4]), field_cutsq)).  stats[2], when stats is
-// not null, gains the count of tile pairs dropped.
+// radius is sqrt(max(max(tabs[4]), field_cutsq)) (tabs null with t1 = 0:
+// the field's alone).  A tile pair is dropped only where the gap exceeds
+// the radius by the margin, so one that holds a pair at exactly the
+// field's inclusive cutoff is kept.  stats[2], when stats is not null,
+// gains the count of tile pairs dropped.
 template <typename T>
 __global__ void __launch_bounds__(CULL_THREADS)
 tile_cull_kernel(const T* __restrict__ boxes, const T* __restrict__ tabs,
@@ -331,9 +349,14 @@ tile_list_kernel(const unsigned char* __restrict__ kept, int npairs,
 // (nT, nT + 1, 3 or 6, BT) and partials (nT (nT + 1) / 2, NACC) scratch: a
 // kept tile pair of block b writes its two slots and partials row b, a
 // dropped one nothing (the slot sum and reduce_kept_partials leave them
-// out).
-template <typename T, bool COUL, bool WOLF>
-__global__ void __launch_bounds__(PairTile<T>::BT, PairTile<T>::MIN_CTAS)
+// out).  With FORCE false (WOLF true, COUL false) the kernel is the field
+// alone: typ, sp and tabs are not read, the outer radius is cut_coulsq
+// (inclusive), r^-2 is rinv * rinv as in the row form, the slots hold
+// the field (part (nT, nT + 1, 3, BT)) and nothing is written to
+// partials.
+template <typename T, bool COUL, bool WOLF, bool FORCE = true>
+__global__ void __launch_bounds__(WholeTile<T, FORCE>::BT,
+                                  WholeTile<T, FORCE>::MIN_CTAS)
 pair_whole_kernel(const T* __restrict__ x, const T* __restrict__ q,
                   const T* __restrict__ typ, const T* __restrict__ mol,
                   const T* __restrict__ m, const int* __restrict__ sp,
@@ -346,25 +369,29 @@ pair_whole_kernel(const T* __restrict__ x, const T* __restrict__ q,
   const T EWALD_F = T(1.12837917), EWALD_P = T(0.3275911);
   const T A1 = T(0.254829592), A2 = T(-0.284496736), A3 = T(1.421413741);
   const T A4 = T(-1.453152027), A5 = T(1.061405429);
-  constexpr int BT = PairTile<T>::BT, WT = BT / 32, RW = BT / 32;
-  constexpr int PG = PairTile<T>::PG, NC = WOLF ? 6 : 3;
+  constexpr int BT = WholeTile<T, FORCE>::BT, WT = BT / 32, RW = BT / 32;
+  constexpr int PG = WholeTile<T, FORCE>::PG;
+  // the slots' components: force (FORCE), then the field (WOLF)
+  constexpr int NC = (FORCE ? 3 : 0) + (WOLF ? 3 : 0), FO = FORCE ? 3 : 0;
   static_assert(BT % 32 == 0 && RW % PG == 0, "a tile of whole vote groups");
+  static_assert(FORCE || (WOLF && !COUL), "the field alone is WOLF only");
   using V = typename PVec<T>::type;
   __shared__ V scol[WT][PVec<T>::n][32];
   __shared__ T smol[WT][32];
   __shared__ int sfl[WT][32];
   __shared__ T srow[WT][NC][BT];
-  __shared__ T tab[4][MAX_T1 * MAX_T1];
+  __shared__ T tab[FORCE ? 4 : 1][FORCE ? MAX_T1 * MAX_T1 : 1];
   __shared__ int sitem;
   const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int c0 = 32 * w;  // this warp's columns within tile J
   const int nt2 = t1 * t1;
-  const T cutsq_u = outer_cutsq(tabs, t1);
+  const T cutsq_u = FORCE ? outer_cutsq(tabs, t1) : T(0);
   const T L[3] = {Lp[0], Lp[1], Lp[2]};
   const T Li[3] = {T(1) / L[0], T(1) / L[1], T(1) / L[2]};
   const T f_shift = T(-1) / cut_coulsq;
-  for (int e = threadIdx.x; e < 4 * nt2; e += BT)
-    tab[e / nt2][e % nt2] = tabs[e];
+  if constexpr (FORCE)
+    for (int e = threadIdx.x; e < 4 * nt2; e += BT)
+      tab[e / nt2][e % nt2] = tabs[e];
   unsigned nvote = 0, nskip = 0;
   const int count = list[0];
   for (;;) {
@@ -379,14 +406,15 @@ pair_whole_kernel(const T* __restrict__ x, const T* __restrict__ q,
       const TilePair tp = tile_pair(b, nT);
       const int I = tp.I, J = tp.J, k = tp.k;
       put_pcol(scol[w], smol[w], sfl[w], lane,
-               load_pcol<T, WOLF>(x, q, typ, mol, m, J * BT + c0 + lane, n));
+               load_pcol<T, WOLF, FORCE>(x, q, typ, mol, m,
+                                         J * BT + c0 + lane, n));
       T xi[RW], yi[RW], zi[RW], qi[RW], moli[RW];
       int fli[RW];
       T fx[RW], fy[RW], fz[RW], ex[RW], ey[RW], ez[RW];
 #pragma unroll
       for (int r = 0; r < RW; ++r) {
-        const PCol<T> ci =
-            load_pcol<T, WOLF>(x, q, typ, mol, m, I * BT + lane + 32 * r, n);
+        const PCol<T> ci = load_pcol<T, WOLF, FORCE>(
+            x, q, typ, mol, m, I * BT + lane + 32 * r, n);
         xi[r] = ci.x, yi[r] = ci.y, zi[r] = ci.z, qi[r] = ci.q;
         moli[r] = ci.mol, fli[r] = ci.fl;
         fx[r] = fy[r] = fz[r] = ex[r] = ey[r] = ez[r] = T(0);
@@ -434,54 +462,59 @@ pair_whole_kernel(const T* __restrict__ x, const T* __restrict__ q,
 #pragma unroll
           for (int h = 0; h < PG; ++h) {
             const int r = g + h;
-            const int ij = (fli[r] & PF_TYPE) * t1 + tj;
-            const bool inr = rsq[h] < cutsq_u;
-            const bool lj = inr && rsq[h] < tab[3][ij];
-            bool lji = lj && oi[h], ljj = lj && oj[h];
-            const int gi = I * BT + lane + 32 * r;
-            if (lji) lji = !listed(sp, S, gi, gj);
-            if (ljj) ljj = !listed(sp, S, gj, gi);
-            const T r2inv = T(1) / rsq[h];
-            const T r6inv = r2inv * r2inv * r2inv;
-            const T lj3 = tab[0][ij], lj4 = tab[1][ij];
-            const T forcelj = r6inv * (T(12) * lj3 * r6inv - T(6) * lj4);
-            const T evdwl = r6inv * (lj3 * r6inv - lj4) - tab[2][ij];
-            T fpi = lji ? forcelj : T(0), fpj = ljj ? forcelj : T(0);
-            bool ci = false, cjj = false;
             T rinv = T(0);
             if (COUL || WOLF) rinv = rsqrt_(rsq[h]);
-            if (COUL) {
-              const bool coul = inr && rsq[h] < cut_coulsq;
-              ci = coul && oi[h], cjj = coul && oj[h];
-              const T rr = rsq[h] * rinv;
-              const T grij = g_ewald * rr;
-              const T expm2 = exp_(-grij * grij);
-              const T tt = T(1) / (T(1) + EWALD_P * grij);
-              const T erfc =
-                  tt * (A1 + tt * (A2 + tt * (A3 + tt * (A4 + tt * A5)))) *
-                  expm2;
-              const T prefactor = qqrd2e * qi[r] * cj.q * rinv;
-              const T forcecoul = prefactor * (erfc + EWALD_F * grij * expm2);
-              const T ecoul = prefactor * erfc;
-              fpi = (ci ? forcecoul : T(0)) + fpi;
-              fpj = (cjj ? forcecoul : T(0)) + fpj;
-              acc[1] += (ci ? ecoul : T(0)) + (cjj ? ecoul : T(0));
+            // r^-2: the division where LJ needs it, else as the field's
+            // row form forms it
+            const T r2inv = FORCE ? T(1) / rsq[h] : rinv * rinv;
+            if constexpr (FORCE) {
+              const int ij = (fli[r] & PF_TYPE) * t1 + tj;
+              const bool inr = rsq[h] < cutsq_u;
+              const bool lj = inr && rsq[h] < tab[3][ij];
+              bool lji = lj && oi[h], ljj = lj && oj[h];
+              const int gi = I * BT + lane + 32 * r;
+              if (lji) lji = !listed(sp, S, gi, gj);
+              if (ljj) ljj = !listed(sp, S, gj, gi);
+              const T r6inv = r2inv * r2inv * r2inv;
+              const T lj3 = tab[0][ij], lj4 = tab[1][ij];
+              const T forcelj = r6inv * (T(12) * lj3 * r6inv - T(6) * lj4);
+              const T evdwl = r6inv * (lj3 * r6inv - lj4) - tab[2][ij];
+              T fpi = lji ? forcelj : T(0), fpj = ljj ? forcelj : T(0);
+              bool ci = false, cjj = false;
+              if (COUL) {
+                const bool coul = inr && rsq[h] < cut_coulsq;
+                ci = coul && oi[h], cjj = coul && oj[h];
+                const T rr = rsq[h] * rinv;
+                const T grij = g_ewald * rr;
+                const T expm2 = exp_(-grij * grij);
+                const T tt = T(1) / (T(1) + EWALD_P * grij);
+                const T erfc =
+                    tt * (A1 + tt * (A2 + tt * (A3 + tt * (A4 + tt * A5)))) *
+                    expm2;
+                const T prefactor = qqrd2e * qi[r] * cj.q * rinv;
+                const T forcecoul =
+                    prefactor * (erfc + EWALD_F * grij * expm2);
+                const T ecoul = prefactor * erfc;
+                fpi = (ci ? forcecoul : T(0)) + fpi;
+                fpj = (cjj ? forcecoul : T(0)) + fpj;
+                acc[1] += (ci ? ecoul : T(0)) + (cjj ? ecoul : T(0));
+              }
+              // selected after the product: r2inv is not finite at rsq = 0
+              fpi = (ci || lji) ? fpi * r2inv : T(0);
+              fpj = (cjj || ljj) ? fpj * r2inv : T(0);
+              acc[0] += (lji ? evdwl : T(0)) + (ljj ? evdwl : T(0));
+              const T pxi = fpi * dx[h], pyi = fpi * dy[h], pzi = fpi * dz[h];
+              const T pxj = fpj * dx[h], pyj = fpj * dy[h], pzj = fpj * dz[h];
+              fx[r] += pxi, fy[r] += pyi, fz[r] += pzi;
+              cx -= pxj, cy -= pyj, cz -= pzj;
+              const T Dx = pxi + pxj, Dy = pyi + pyj, Dz = pzi + pzj;
+              acc[2] += dx[h] * Dx;
+              acc[3] += dy[h] * Dy;
+              acc[4] += dz[h] * Dz;
+              acc[5] += dx[h] * Dy;
+              acc[6] += dx[h] * Dz;
+              acc[7] += dy[h] * Dz;
             }
-            // selected after the product: r2inv is not finite at rsq = 0
-            fpi = (ci || lji) ? fpi * r2inv : T(0);
-            fpj = (cjj || ljj) ? fpj * r2inv : T(0);
-            acc[0] += (lji ? evdwl : T(0)) + (ljj ? evdwl : T(0));
-            const T pxi = fpi * dx[h], pyi = fpi * dy[h], pzi = fpi * dz[h];
-            const T pxj = fpj * dx[h], pyj = fpj * dy[h], pzj = fpj * dz[h];
-            fx[r] += pxi, fy[r] += pyi, fz[r] += pzi;
-            cx -= pxj, cy -= pyj, cz -= pzj;
-            const T Dx = pxi + pxj, Dy = pyi + pyj, Dz = pzi + pzj;
-            acc[2] += dx[h] * Dx;
-            acc[3] += dy[h] * Dy;
-            acc[4] += dz[h] * Dz;
-            acc[5] += dx[h] * Dy;
-            acc[6] += dx[h] * Dz;
-            acc[7] += dy[h] * Dz;
             if (WOLF) {
               const bool wolf = rsq[h] <= cut_coulsq &&
                                 (moli[r] != cj.mol || moli[r] == T(0));
@@ -496,9 +529,11 @@ pair_whole_kernel(const T* __restrict__ x, const T* __restrict__ q,
         }
         // column c's sums go to the lane that meets it at step t + 1
         const int src = (lane + 1) & 31;
-        cx = __shfl_sync(FULL, cx, src);
-        cy = __shfl_sync(FULL, cy, src);
-        cz = __shfl_sync(FULL, cz, src);
+        if (FORCE) {
+          cx = __shfl_sync(FULL, cx, src);
+          cy = __shfl_sync(FULL, cy, src);
+          cz = __shfl_sync(FULL, cz, src);
+        }
         if (WOLF) {
           gx = __shfl_sync(FULL, gx, src);
           gy = __shfl_sync(FULL, gy, src);
@@ -507,23 +542,27 @@ pair_whole_kernel(const T* __restrict__ x, const T* __restrict__ q,
       }
 
       T* pc = slot_ptr<BT, T, NC>(part, J, col_slot(k, nT), nT) + c0 + lane;
-      pc[0] = cx;
-      pc[BT] = cy;
-      pc[2 * BT] = cz;
+      if (FORCE) {
+        pc[0] = cx;
+        pc[BT] = cy;
+        pc[2 * BT] = cz;
+      }
       if (WOLF) {
-        pc[3 * BT] = gx;
-        pc[4 * BT] = gy;
-        pc[5 * BT] = gz;
+        pc[FO * BT] = gx;
+        pc[(FO + 1) * BT] = gy;
+        pc[(FO + 2) * BT] = gz;
       }
 #pragma unroll
       for (int r = 0; r < RW; ++r) {
-        srow[w][0][lane + 32 * r] = fx[r];
-        srow[w][1][lane + 32 * r] = fy[r];
-        srow[w][2][lane + 32 * r] = fz[r];
+        if (FORCE) {
+          srow[w][0][lane + 32 * r] = fx[r];
+          srow[w][1][lane + 32 * r] = fy[r];
+          srow[w][2][lane + 32 * r] = fz[r];
+        }
         if (WOLF) {
-          srow[w][3][lane + 32 * r] = ex[r];
-          srow[w][4][lane + 32 * r] = ey[r];
-          srow[w][5][lane + 32 * r] = ez[r];
+          srow[w][FO][lane + 32 * r] = ex[r];
+          srow[w][FO + 1][lane + 32 * r] = ey[r];
+          srow[w][FO + 2][lane + 32 * r] = ez[r];
         }
       }
       __syncthreads();
@@ -535,7 +574,8 @@ pair_whole_kernel(const T* __restrict__ x, const T* __restrict__ q,
         for (int v = 1; v < WT; ++v) s += srow[v][comp][row];
         pr[e] = s;
       }
-      block_partials_row<T, BT>(acc, partials + (size_t)b * NACC);
+      if constexpr (FORCE)
+        block_partials_row<T, BT>(acc, partials + (size_t)b * NACC);
     }
   }
   if (stats != nullptr && lane == 0) {
@@ -573,7 +613,7 @@ reduce_kept_partials(const T* __restrict__ partials,
 // CTAs of pair_whole_kernel resident on the device at once: its grid
 // (one wave; each CTA takes items of the list until none is left).
 // Queried once.
-template <typename T, bool COUL, bool WOLF>
+template <typename T, bool COUL, bool WOLF, bool FORCE>
 int pair_whole_ctas() {
   static const int ctas = [] {
     int dev = 0, sms = 0, per = 0;
@@ -581,7 +621,8 @@ int pair_whole_ctas() {
         cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
             cudaSuccess ||
         cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-            &per, pair_whole_kernel<T, COUL, WOLF>, PairTile<T>::BT, 0) !=
+            &per, pair_whole_kernel<T, COUL, WOLF, FORCE>,
+            WholeTile<T, FORCE>::BT, 0) !=
             cudaSuccess)
       return 0;
     return sms * per;
@@ -596,8 +637,11 @@ int pair_whole_ctas() {
 // ceil(n / BT); f, e0 (WOLF only)
 // (n,3); acc (8,) = [evdwl ecoul vxx vyy vzz vxy vxz vyz], each
 // half-weight.  skip = 0 turns the warp skip off, cull = 0 the tile-pair
-// test (no box pass, every tile pair kept).
-template <typename T, bool COUL, bool WOLF>
+// test (no box pass, every tile pair kept).  With FORCE false only x, q,
+// mol, m, L, cut_coulsq, the tile-pair scratch, part (nT, nT + 1, 3, BT)
+// and e0 are read or written (typ, sp, tabs, partials, f and acc may be
+// null, t1 0).
+template <typename T, bool COUL, bool WOLF, bool FORCE = true>
 int launch_pair_whole(const T* x, const T* q, const T* typ, const T* mol,
                       const T* m, const int* sp, int S, int n, const T* tabs,
                       int t1, const T* L, T cut_coulsq, T qqrd2e, T g_ewald,
@@ -605,10 +649,11 @@ int launch_pair_whole(const T* x, const T* q, const T* typ, const T* mol,
                       T* partials, unsigned char* kept, int* list, T* f,
                       T* e0, T* acc, unsigned long long* stats,
                       void* stream) {
-  constexpr int BT = PairTile<T>::BT, NC = WOLF ? 6 : 3;
-  if (nT != (n + BT - 1) / BT || t1 < 1 || t1 > MAX_T1)
+  constexpr int BT = WholeTile<T, FORCE>::BT;
+  constexpr int NC = (FORCE ? 3 : 0) + (WOLF ? 3 : 0);
+  if (nT != (n + BT - 1) / BT || (FORCE && (t1 < 1 || t1 > MAX_T1)))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int ctas = pair_whole_ctas<T, COUL, WOLF>();
+  const int ctas = pair_whole_ctas<T, COUL, WOLF, FORCE>();
   if (ctas < 1) {  // the occupancy query failed: launch nothing, say so
     const int err = static_cast<int>(cudaGetLastError());
     return err ? err : static_cast<int>(cudaErrorInvalidConfiguration);
@@ -629,17 +674,19 @@ int launch_pair_whole(const T* x, const T* q, const T* typ, const T* mol,
   tile_list_kernel<<<1, LIST_THREADS, 0, s>>>(kept, npairs, list);
   err = static_cast<int>(cudaGetLastError());
   if (err) return err;
-  pair_whole_kernel<T, COUL, WOLF><<<npairs < ctas ? npairs : ctas, BT, 0,
-                                     s>>>(
-      x, q, typ, mol, m, sp, S, n, tabs, t1, L, cut_coulsq, qqrd2e, g_ewald,
-      skip, list, nT, part, partials, stats);
+  pair_whole_kernel<T, COUL, WOLF, FORCE>
+      <<<npairs < ctas ? npairs : ctas, BT, 0, s>>>(
+          x, q, typ, mol, m, sp, S, n, tabs, t1, L, cut_coulsq, qqrd2e,
+          g_ewald, skip, list, nT, part, partials, stats);
   err = static_cast<int>(cudaGetLastError());
   if (err) return err;
+  // the first three components to f, the field's to e0 (the field alone:
+  // its three to e0)
   slot_sum_kernel<T, BT, false, NC>
-      <<<dim3(nT, NC), BT, (nT + 1) * sizeof(int), s>>>(part, n, nT, f, e0,
-                                                         kept);
+      <<<dim3(nT, NC), BT, (nT + 1) * sizeof(int), s>>>(
+          part, n, nT, FORCE ? f : e0, FORCE ? e0 : nullptr, kept);
   err = static_cast<int>(cudaGetLastError());
-  if (err) return err;
+  if (err || !FORCE) return err;
   reduce_kept_partials<T><<<1, NACC * KRED_GROUPS, 0, s>>>(
       partials, kept, npairs, T(0.5), T(0.5), acc);
   return static_cast<int>(cudaGetLastError());

@@ -7,15 +7,26 @@
 // Replaces the TPU kernel lidp_tpu/ops/pallas_panel.py:993 wolf_panel
 // (_wolf_kernel :965).
 //
-// Bound on the H100: FP32 CUDA-core arithmetic.  The function's least
-// arithmetic, the geometry of each pair with an unmasked atom on one side
-// and the field only where it acts (chip_smoke.py wolf_bound_ms), is 0.020
-// ms on the 12,288-row case at the 67 TFLOP/s FP32 peak (the Pallas
-// CostEstimate's 30 flops for every ordered pair: 0.068 ms), against 0.4
-// MB of operands.  The design is the one of eind_panel.cuh: shared-memory
-// column tiles, 8 lanes per row, row sums in registers, selects instead
-// of branches.
-#include "panel_common.cuh"
+// Bound on the H100: FP32 CUDA-core arithmetic.  The function needs the
+// geometry of each unordered pair with an unmasked atom on one side, in
+// the tile pairs whose coordinate boxes lie within the cutoff, and the
+// field only where it acts (r <= 6.5 A: ~0.5% of the fluid's pairs);
+// chip_smoke.py wolf_bound_ms counts it on the 12,288-row case (the
+// Pallas CostEstimate's 30 flops for every ordered pair: 0.068 ms at 67
+// TFLOP/s), against 0.4 MB of operands.  So the whole panel (cols=None)
+// is pair_panel.cuh's whole-panel kernel with FORCE false: each unordered
+// pair once for both atoms (w q_j d on i, -w q_i d on j with one w, the
+// rows' q read through the same array as the columns'), each side gated
+// on its own (side i by mask_j and i being an atom, side j by mask_i: a
+// masked atom, padding at the origin included, receives the field and
+// gives none), tile pairs beyond the cutoff dropped before a CTA takes
+// them, and the field skipped by warp vote where no pair of a vote lies
+// within it; slots summed in slot order, no float atomics.  A row strip
+// (cols=, row0=) keeps the row form below: shared-memory column tiles, 8
+// lanes per row, row sums in registers, selects instead of branches.
+// Both forms take rsq unfused (rsq_rn), so kernel and plain version put
+// every pair on the same side of the cutoff.
+#include "pair_panel.cuh"
 
 namespace lidp {
 
@@ -57,7 +68,7 @@ wolf_kernel(const float* __restrict__ xr, const float* __restrict__ molr,
       const float dy = mi(yi - sy[t], Ly, Liy);
       const float dz = mi(zi - sz[t], Lz, Liz);
       const float molj = smol[t];
-      const float rsq0 = dx * dx + dy * dy + dz * dz;
+      const float rsq0 = rsq_rn(dx, dy, dz);
       const bool inc = (gi != j0 + t) && (smask[t] != 0.f) &&
                        (rsq0 <= cut_coulsq) &&
                        ((moli != molj) || (moli == 0.f));
@@ -82,8 +93,9 @@ wolf_kernel(const float* __restrict__ xr, const float* __restrict__ molr,
 
 }  // namespace lidp
 
-// Rows: xr (nrows,3), molr (nrows).  Columns: xc (npad,3), qc, molc, mc
-// (mask) (npad).  L (3,) on the device; out (nrows,3).
+// the row strip (cols=, row0=).  Rows: xr (nrows,3), molr (nrows).
+// Columns: xc (npad,3), qc, molc, mc (mask) (npad).  L (3,) on the device;
+// out (nrows,3).
 extern "C" int lidp_wolf_panel(const float* xr, const float* molr, int nrows,
                                int row0, const float* xc, const float* qc,
                                const float* molc, const float* mc, int npad,
@@ -93,4 +105,26 @@ extern "C" int lidp_wolf_panel(const float* xr, const float* molr, int nrows,
   lidp::wolf_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
       xr, molr, nrows, row0, xc, qc, molc, mc, npad, L, cut_coulsq, out);
   return static_cast<int>(cudaGetLastError());
+}
+
+// the whole panel (cols is None): x (n,3), q, mol, m (mask) (n), L (3,) on
+// the device; boxes (nT, 8), part (nT, nT + 1, 3, tile), kept (nT (nT +
+// 1) / 2 bytes) and list (nT (nT + 1) / 2 + 2 ints) scratch; e0 (n,3).
+// skip = 0 turns the warp skip off, cull = 0 the tile-pair test; stats,
+// when not null, gains (votes, votes skipped, tile pairs dropped).
+extern "C" int lidp_wolf_panel_whole(
+    const float* x, const float* q, const float* mol, const float* m, int n,
+    const float* L, float cut_coulsq, int skip, int cull, int nT,
+    float* boxes, float* part, unsigned char* kept, int* list, float* e0,
+    unsigned long long* stats, void* stream) {
+  return lidp::launch_pair_whole<float, false, true, false>(
+      x, q, nullptr, mol, m, nullptr, 0, n, nullptr, 0, L, cut_coulsq, 0.f,
+      0.f, skip, cull, nT, boxes, part, nullptr, kept, list, nullptr, e0,
+      nullptr, stats, stream);
+}
+
+// atoms per tile of the whole panel, which sizes its scratch (nT =
+// ceil(n / tile))
+extern "C" int lidp_wolf_panel_whole_tile() {
+  return lidp::WholeTile<float, false>::BT;
 }

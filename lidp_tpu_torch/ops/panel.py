@@ -23,9 +23,8 @@ too).  On a CPU tensor it runs the plain version; on a CUDA tensor it
 launches the hand-written kernel in csrc/<name>.cu or raises — there is no
 fallback.  The f32 wrappers take float32 operands only and the `*_df` ones
 float64 only; the other dtype raises TypeError, nothing is cast.  Each
-counts its launches in `<wrapper>.launches`, and the eind, dipole and pair
-wrappers those of them that launched the strip kernel in
-`<wrapper>.launches_strip`.
+counts its launches in `<wrapper>.launches`, and those of them that
+launched the strip kernel in `<wrapper>.launches_strip`.
 
 The plain versions (`*_plain`) repeat the kernels' arithmetic (rsqrt then
 r = rsq*rinv, the A&S erfc, the TPU kernels' masking) in any dtype, over
@@ -63,10 +62,11 @@ EIND_SKIP_U = {torch.float32: 27.0, torch.float64: 49.0}
 # results are bit for bit those without the skips.  False turns them off,
 # for measurement.
 DIPOLE_SKIP = True
-# The whole pair panel's exact skips (csrc/pair_panel.cuh): the warp vote
-# on the outer cutoff, and the tile-pair test on the tiles' coordinate
-# boxes; the results are bit for bit those without them.  False turns one
-# off, for measurement.
+# The exact skips of the whole panels on the pair template
+# (csrc/pair_panel.cuh: the pair kernels and wolf_panel): the warp vote on
+# the outer cutoff, and the tile-pair test on the tiles' coordinate boxes;
+# the results are bit for bit those without them.  False turns one off,
+# for measurement.
 PAIR_SKIP = True
 PAIR_CULL = True
 
@@ -700,13 +700,12 @@ pair_panel_df.launches = 0
 pair_panel_df.launches_strip = 0
 
 
-def wolf_panel(x, q, mol, maskf, L, cut_coulsq, cols=None, row0=0):
-    """Damped-shifted (Wolf) static field E0, (nrows, 3), UNSCALED (see
-    wolf_panel_plain; csrc/wolf_panel.cu on CUDA).  q is read through the
-    columns only, as in the TPU kernel."""
-    if x.device.type == "cpu":
-        return wolf_panel_plain(x, q, mol, maskf, L, cut_coulsq, cols=cols,
-                                row0=row0)
+def _wolf_cuda(x, q, mol, maskf, L, cut_coulsq, cols, row0, stats=None):
+    """For cols=None the whole-panel kernel (the pair template's, the field
+    alone) with its tile boxes, tile-pair test, list of the kept tile pairs
+    and slot sum, else the strip kernel.  stats, an int64 (3,) device
+    tensor, gains (warp votes, votes that skipped, tile pairs dropped) of
+    the whole kernel."""
     xc, qc, molc, mc = (x, q, mol, maskf) if cols is None else cols
     nrows, npad = x.shape[0], xc.shape[0]
     _check("wolf_panel", torch.float32, x, mol, xc, qc, molc, mc, L)
@@ -714,22 +713,67 @@ def wolf_panel(x, q, mol, maskf, L, cut_coulsq, cols=None, row0=0):
                   (xc, (npad, 3)), (qc, (npad,)), (molc, (npad,)),
                   (mc, (npad,)), (L, (3,)))
     out = torch.empty((nrows, 3), dtype=torch.float32, device=x.device)
-    _launch("wolf_panel", "PPIIPPPPIPFPP", x.device, x.data_ptr(),
-            mol.data_ptr(), nrows, int(row0), xc.data_ptr(), qc.data_ptr(),
-            molc.data_ptr(), mc.data_ptr(), npad, L.data_ptr(),
-            float(cut_coulsq), out.data_ptr(), _stream(x))
+    if cols is None:
+        bt = whole_tile("wolf_panel")
+        nT = -(-npad // bt)
+        npairs = nT * (nT + 1) // 2
+        boxes = torch.empty((nT, 8), dtype=torch.float32, device=x.device)
+        part = torch.empty((nT, nT + 1, 3, bt), dtype=torch.float32,
+                           device=x.device)
+        kept = torch.empty((npairs,), dtype=torch.uint8, device=x.device)
+        tlist = torch.empty((npairs + 2,), dtype=torch.int32,
+                            device=x.device)
+        _launch("wolf_panel", "PPPPIPFIIIPPPPPPP", x.device, x.data_ptr(),
+                q.data_ptr(), mol.data_ptr(), maskf.data_ptr(), npad,
+                L.data_ptr(), float(cut_coulsq), int(PAIR_SKIP),
+                int(PAIR_CULL), nT, boxes.data_ptr(), part.data_ptr(),
+                kept.data_ptr(), tlist.data_ptr(), out.data_ptr(),
+                None if stats is None else stats.data_ptr(), _stream(x),
+                entry="wolf_panel_whole")
+    else:
+        _launch("wolf_panel", "PPIIPPPPIPFPP", x.device, x.data_ptr(),
+                mol.data_ptr(), nrows, int(row0), xc.data_ptr(),
+                qc.data_ptr(), molc.data_ptr(), mc.data_ptr(), npad,
+                L.data_ptr(), float(cut_coulsq), out.data_ptr(), _stream(x))
+        wolf_panel.launches_strip += 1
     wolf_panel.launches += 1
     return out
 
 
+def wolf_skip_share(x, q, mol, maskf, L, cut_coulsq):
+    """One launch of the whole wolf_panel kernel on CUDA tensors that also
+    counts its skips: (warp votes, votes that skipped, tile pairs dropped,
+    tile pairs).  For measurement; it counts as a launch of the
+    wrapper."""
+    stats = torch.zeros(3, dtype=torch.int64, device=x.device)
+    _wolf_cuda(x, q, mol, maskf, L, cut_coulsq, None, 0, stats=stats)
+    votes, skipped, dropped = stats.tolist()
+    nT = -(-x.shape[0] // whole_tile("wolf_panel"))
+    return votes, skipped, dropped, nT * (nT + 1) // 2
+
+
+def wolf_panel(x, q, mol, maskf, L, cut_coulsq, cols=None, row0=0):
+    """Damped-shifted (Wolf) static field E0, (nrows, 3), UNSCALED (see
+    wolf_panel_plain).  On CUDA (csrc/wolf_panel.cu) the whole panel
+    (cols=None) takes the pair template's kernel for the field alone, which
+    computes each pair once for both atoms; a row strip the one-sided strip
+    kernel.  q is read through the columns only, as in the TPU kernel (in
+    the whole panel rows and columns are one array)."""
+    if x.device.type == "cpu":
+        return wolf_panel_plain(x, q, mol, maskf, L, cut_coulsq, cols=cols,
+                                row0=row0)
+    return _wolf_cuda(x, q, mol, maskf, L, cut_coulsq, cols, row0)
+
+
 wolf_panel.launches = 0
+wolf_panel.launches_strip = 0
 
 
 @functools.lru_cache(maxsize=None)
 def whole_tile(name):
-    """Atoms per tile of wrapper `name`'s whole-panel dipole or pair
+    """Atoms per tile of wrapper `name`'s whole-panel dipole, pair or Wolf
     kernel, as its source sets it (csrc/dipole_panel.cuh DipoleTile,
-    csrc/pair_panel.cuh PairTile; exported as lidp_<name>_whole_tile)."""
+    csrc/pair_panel.cuh WholeTile; exported as lidp_<name>_whole_tile)."""
     return _cfn(name, "", f"{name}_whole_tile")()
 
 

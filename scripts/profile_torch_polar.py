@@ -3,6 +3,7 @@
 
     python scripts/profile_torch_polar.py [--steps 10] [--trace FILE]
     python scripts/profile_torch_polar.py --path host64 [--steps 5]
+    python scripts/profile_torch_polar.py --path host32 [--steps 5]
     python scripts/profile_torch_polar.py --path lj --steps 400 [--scale 4]
     python scripts/profile_torch_polar.py --path ljcells --steps 100
     python scripts/profile_torch_polar.py --path eind [--rounds 7]
@@ -11,7 +12,7 @@
     python scripts/profile_torch_polar.py --path lj --variants --scale 4 \
         [--tree OTHER] [--rounds 7]
     python scripts/profile_torch_polar.py --path ab --tree OTHER --seq F \
-        [--pairs 10]
+        [--pairs 10]          # --seq B: path B and its wolf tick
 
 Builds the 10,125-atom synthetic fluid of lidp_tpu_torch.models.polar_bench
 (float32, CUDA panel kernels), runs the initial forces and 3 warm-up steps,
@@ -30,7 +31,9 @@ path instead (HostPolarForces with the mixed-precision solve through the
 f64-grade kernels): after the initial forces and 2 warm-up steps, `--steps`
 steps with HostPolarForces' own CUDA-event ticks (pair, Ewald k-blocks,
 each outer float64 pass, each inner float32 CG, dipole), summed per step,
-then the same torch.profiler window.
+then the same torch.profiler window.  --path host32 does the same for
+chip_smoke.py's path B, the float32 host phases with pure CG (ticks pair,
+Ewald k-blocks, wolf, the CG, dipole).
 
 --path lj profiles the LJ melt of lidp_tpu_torch.models.lj_melt through
 SlotRunner (float32, `--scale 1` = 32,000 atoms), --path ljcells the same
@@ -76,6 +79,12 @@ pair_wolf_panel_plain at chip_smoke.py's bars, with its registers, spills,
 SASS mix, the shares of warp votes skipped and of tile pairs dropped, and
 whether its bits equal the committed kernel's; beside them the committed
 wrappers (pair_wolf_panel, pair_panel_df with mol) and their strip form.
+With them the whole wolf_panel kernel's
+variants (WOLF_VARIANTS: the same template with FORCE false, its tile,
+rows per vote, CTAs per SM, the skips compiled out; labels `[wolf]`),
+built from wolf_panel.cu into lidp_tpu_torch/_build/variants/wolf_panel/
+and held to wolf_panel_plain, beside the wolf_panel wrapper and its strip
+form (the parent's row kernel), in the same rounds.
 
 --path lj --variants times design variants of the LJ cell kernel
 (csrc/lj_cell.cuh) in the same way, each the committed source with one
@@ -91,17 +100,20 @@ registers, spills and the SASS mix of the kernel without energy and
 virial, timed by 20 launches queued between two CUDA events over
 `--rounds` rounds (order rotated), beside the committed wrapper.
 
---path seq drives the paths of `--seq` (A, C, E, F, E4, comma-separated,
-in order) in one process as chip_smoke.py times them, through the
-lidp_tpu_torch of `--tree` (default: this checkout), and prints their
-steps/s: A 20 fused float32 steps, C 5 float64/1e-11 mixed host steps, E
-400 SlotRunner steps after 100, F 100 Runner steps on cells, E4 100
-SlotRunner steps at 2,048,000 atoms.  --path ab
+--path seq drives the paths of `--seq` (A, B, C, E, F, E4,
+comma-separated, in order) in one process as chip_smoke.py times them,
+through the lidp_tpu_torch of `--tree` (default: this checkout), and
+prints their steps/s: A 20 fused float32 steps, B 5 float32 host steps
+(pure CG), C 5 float64/1e-11 mixed host steps, E 400 SlotRunner steps
+after 100, F 100 Runner steps on cells, E4 100 SlotRunner steps at
+2,048,000 atoms; after B's timed steps, 5 more with HostPolarForces'
+CUDA-event ticks give the median of its `wolf` tick (the Wolf field
+phase, ms a step).  --path ab
 runs `--path seq` `--pairs` times for this checkout and for `--tree`
 (another checkout, e.g. the parent commit from `git archive`), one
 process each, alternated (this, other; then other, this) after one
-untimed warm-up process each, and prints each path's values, median and
-quartiles per checkout.
+untimed warm-up process each, and prints each path's values (and B's
+wolf tick), median and quartiles per checkout.
 
 Prints the card (nvidia-smi name, power limit) first.
 """
@@ -695,7 +707,7 @@ def dipole_variants(rounds):
 
 # --path pair: (what changes, [(file in csrc/, text, replacement)])
 _PAIR_CULL = "      cull ? boxes : nullptr, tabs, t1, L, WOLF ? cut_coulsq"
-_PAIR_SKIP = "      skip, list, nT, part, partials, stats);"
+_PAIR_SKIP = "g_ewald, skip, list, nT, part, partials, stats);"
 _PAIR_BOXES = "  if (cull) {\n    tile_box_kernel"
 _F32_TILE = "static constexpr int BT = 128, MIN_CTAS = 4, PG = 2;"
 _RSQRT_DOUBLE = ("__device__ __forceinline__ double rsqrt_(double v) { "
@@ -732,11 +744,11 @@ PAIR_VARIANTS = {
     "rcp": ("the two reciprocals by __frcp_rn / __drcp_rn (correctly "
             "rounded: the same bits as the division) in place of T(1) / v",
             [("panel_common.cuh", _RSQRT_DOUBLE, _RSQRT_DOUBLE + _RCP_RN),
-             ("pair_panel.cuh", "const T r2inv = T(1) / rsq[h];",
-              "const T r2inv = rcp_rn(rsq[h]);"),
-             ("pair_panel.cuh", "              const T tt = T(1) / (T(1) + "
-              "EWALD_P * grij);", "              const T tt = rcp_rn(T(1) + "
-              "EWALD_P * grij);")]),
+             ("pair_panel.cuh", "const T r2inv = FORCE ? T(1) / rsq[h]",
+              "const T r2inv = FORCE ? rcp_rn(rsq[h])"),
+             ("pair_panel.cuh", "                const T tt = T(1) / (T(1) "
+              "+ EWALD_P * grij);", "                const T tt = rcp_rn(T(1) "
+              "+ EWALD_P * grij);")]),
     "ctas5": ("float32 bounded to 5 CTAs per SM (at most 102 registers)",
               [("pair_panel.cuh", _F32_TILE, _F32_TILE.replace(
                   "MIN_CTAS = 4", "MIN_CTAS = 5"))]),
@@ -766,6 +778,34 @@ PAIR_VARIANTS = {
                  ("pair_panel.cuh", _PAIR_BOXES,
                   _PAIR_BOXES.replace("(cull)", "(false)"))]),
 }
+# the whole wolf_panel kernel: the pair template with FORCE false, its tile
+# (WholeTile<float, false>), rows per vote and CTAs per SM; the skips are
+# the launcher's, which it shares with the pair kernels
+_WOLF_TILE = ("struct WholeTile<float, false> {\n"
+              "  static constexpr int BT = 128, MIN_CTAS = 6, PG = 2;")
+
+
+def _wolf_tile(bt, ctas, pg):
+    return [("pair_panel.cuh", _WOLF_TILE, _WOLF_TILE.replace(
+        "BT = 128, MIN_CTAS = 6, PG = 2",
+        f"BT = {bt}, MIN_CTAS = {ctas}, PG = {pg}"))]
+
+
+WOLF_VARIANTS = {
+    "kept": ("the committed source", []),
+    "tile64": ("tiles of 64 atoms (2 warps, 2 rows per lane), 12 CTAs per "
+               "SM (as many threads)", _wolf_tile(64, 12, 2)),
+    "vote1": ("the warp votes over 1 row x 32 columns (PG = 1)",
+              _wolf_tile(128, 6, 1)),
+    "vote4": ("the warp votes over 4 rows x 32 columns (PG = 4, all the "
+              "rows of a lane)", _wolf_tile(128, 6, 4)),
+    "ctas4": ("bounded to 4 CTAs per SM (at most 128 registers)",
+              _wolf_tile(128, 4, 2)),
+    "ctas8": ("bounded to 8 CTAs per SM (at most 64 registers)",
+              _wolf_tile(128, 8, 2)),
+    "noskip": PAIR_VARIANTS["noskip"],
+    "nocull": PAIR_VARIANTS["nocull"],
+}
 
 
 def _pair_argtypes(real):
@@ -776,8 +816,73 @@ def _pair_argtypes(real):
             + [p] * 10)
 
 
+def _wolf_argtypes(real):
+    import ctypes
+
+    p, i = ctypes.c_void_p, ctypes.c_int
+    return [p] * 4 + [i, p, real, i, i, i] + [p] * 7
+
+
+def _wolf_variant_calls(libs, c, pair, calls, res, stream):
+    """Each WOLF_VARIANTS kernel (and the committed wrapper and its strip
+    form) on case c, held to wolf_panel_plain: calls[label] launches it,
+    res[label] holds its checks.  Labels `<variant>[wolf]`."""
+    import torch
+
+    import chip_smoke
+    from lidp_tpu_torch.ops import panel
+
+    n = c["x"].shape[0]
+    args = (c["x"], c["q"], c["mol"], c["mask"], c["L"], pair.cut_coulsq)
+    ref = panel.wolf_panel_plain(*args)
+    for name in WOLF_VARIANTS:
+        lib = libs[name][torch.float32]
+        bt = lib["tile"]
+        nT = -(-n // bt)
+        npairs = nT * (nT + 1) // 2
+        boxes = torch.empty((nT, 8), device="cuda")
+        part = torch.empty((nT, nT + 1, 3, bt), device="cuda")
+        kept = torch.empty((npairs,), dtype=torch.uint8, device="cuda")
+        tlist = torch.empty((npairs + 2,), dtype=torch.int32, device="cuda")
+        e0 = torch.empty((n, 3), device="cuda")
+        stats = torch.zeros(3, dtype=torch.int64, device="cuda")
+
+        def call(st=None, fn=lib["fn"], nT=nT, boxes=boxes, part=part,
+                 kept=kept, tlist=tlist, e0=e0):
+            err = fn(c["x"].data_ptr(), c["q"].data_ptr(),
+                     c["mol"].data_ptr(), c["mask"].data_ptr(), n,
+                     c["L"].data_ptr(), pair.cut_coulsq, 1, 1, nT,
+                     boxes.data_ptr(), part.data_ptr(), kept.data_ptr(),
+                     tlist.data_ptr(), e0.data_ptr(), st, stream)
+            if err:
+                raise RuntimeError(f"launch failed with CUDA error {err}")
+        call(stats.data_ptr())
+        torch.cuda.synchronize()
+        label = f"{name}[wolf]"
+        got = e0.clone()
+        err, _ = chip_smoke.compare(label, got, ref)
+        votes, skipped, dropped = stats.tolist()
+        res[label] = dict(
+            tile=bt, registers=lib["registers"],
+            spill_bytes=lib["spill_bytes"], sass_total=lib["sass_total"],
+            sass_ops=lib["sass_ops"], max_abs_err=err, scalar_margin=0.0,
+            skip_share=skipped / votes if votes else None,
+            drop_share=dropped / npairs, ms=[],
+            same_bits_as_kept=chip_smoke.same_bits(got, res["kept[wolf]"]
+                                                   ["out"])
+            if name != "kept" else True, out=got)
+        calls[label] = call
+    calls["wrapper[wolf]"] = lambda: panel.wolf_panel(*args)
+    calls["strip form[wolf]"] = lambda: panel.wolf_panel(
+        *args, cols=args[:4], row0=0)
+    res["wrapper[wolf]"] = dict(ms=[])
+    res["strip form[wolf]"] = dict(ms=[])
+    chip_smoke.compare("strip form[wolf]", calls["strip form[wolf]"](), ref)
+
+
 def pair_variants(rounds):
-    """--path pair; returns the JSON-able results."""
+    """--path pair: the pair kernel's variants and wolf_panel's; returns
+    the JSON-able results."""
     import torch
 
     import chip_smoke
@@ -788,8 +893,12 @@ def pair_variants(rounds):
     libs = _build_variants(PAIR_VARIANTS, "pair_panel", "pair_whole_kernel",
                            _pair_argtypes,
                            sources=("pair_wolf_panel", "pair_panel_df"),
-                           inst="Lb1ELb1EE")
-    print(f"built {len(PAIR_VARIANTS)} variants x 2 in "
+                           inst="Lb1ELb1ELb1EE")
+    wlibs = _build_variants(WOLF_VARIANTS, "wolf_panel", "pair_whole_kernel",
+                            _wolf_argtypes, sources=("wolf_panel",),
+                            inst="Lb0ELb1ELb0EE")
+    print(f"built {len(PAIR_VARIANTS)} pair variants x 2 and "
+          f"{len(WOLF_VARIANTS)} wolf variants in "
           f"{time.perf_counter() - t0:.1f} s")
     ff = polar_bench.synthetic_forcefield(polar_bench.synthetic_system(),
                                           torch.float32, "cuda")
@@ -798,6 +907,7 @@ def pair_variants(rounds):
     cases = {torch.float32: c32, torch.float64: chip_smoke.to_f64(c32)}
     calls, res = {}, {}
     stream = torch.cuda.current_stream().cuda_stream
+    _wolf_variant_calls(wlibs, c32, pair, calls, res, stream)
     for dtype, c in cases.items():
         n = c["x"].shape[0]
         tabs = chip_smoke.tabs_for(pair, dtype)
@@ -919,7 +1029,7 @@ def pair_variants(rounds):
         print(line)
     # where the committed wrappers' time goes: device time by kernel
     breakdown = {}
-    for dt in ("float32", "float64"):
+    for dt in ("float32", "float64", "wolf"):
         for form in ("wrapper", "strip form"):
             label = f"{form}[{dt}]"
             breakdown[label] = _device_times(calls[label], 20)
@@ -927,6 +1037,7 @@ def pair_variants(rounds):
                 f"{key[:48]} {ms:.4f} ms x {cnt:g}"
                 for ms, cnt, key in breakdown[label]))
     return {"variants": {k: v[0] for k, v in PAIR_VARIANTS.items()},
+            "wolf_variants": {k: v[0] for k, v in WOLF_VARIANTS.items()},
             "results": res, "device_ms_by_kernel": breakdown}
 
 
@@ -1208,14 +1319,15 @@ def lj_variants(rounds, scale, other):
 
 def drive_paths(seq):
     """--path seq: each path of `seq` in order as chip_smoke.py times it;
-    returns [steps/s]."""
+    returns ([steps/s], [B's median wolf tick in ms, None for the other
+    paths])."""
     import torch
 
     from lidp_tpu_torch.kernels import build
     from lidp_tpu_torch.models import lj_melt, polar_bench
 
     build.library("eind_panel")      # build and load every kernel first
-    rates = []
+    rates, ticks = [], []
     for path in seq:
         sync = torch.cuda.synchronize
         if path == "A":
@@ -1225,6 +1337,14 @@ def drive_paths(seq):
             t0 = time.perf_counter()
             polar_bench.run(bench, 20)
             steps = 20
+        elif path == "B":
+            bench = polar_bench.build_synthetic()
+            polar_bench.host_setup_forces(bench)
+            sync()
+            t0 = time.perf_counter()
+            for _ in range(5):
+                polar_bench.host_cg_step(bench)
+            steps = 5
         elif path == "C":
             bench = polar_bench.build_synthetic(dtype=torch.float64,
                                                 precision=1e-11)
@@ -1251,9 +1371,18 @@ def drive_paths(seq):
             raise ValueError(f"unknown path {path!r}")
         sync()
         rates.append(steps / (time.perf_counter() - t0))
+        tick = None
+        if path == "B":
+            bench.hpf.timing = True
+            per = []
+            for _ in range(5):
+                polar_bench.host_cg_step(bench)
+                per.append(bench.hpf.last_timing["wolf"])
+            tick = statistics.median(per)
+        ticks.append(tick)
         del bench
         torch.cuda.empty_cache()
-    return rates
+    return rates, ticks
 
 
 def ab_trees(other, pairs, seq):
@@ -1265,27 +1394,36 @@ def ab_trees(other, pairs, seq):
             [sys.executable, os.path.abspath(__file__), "--path", "seq",
              "--seq", ",".join(seq), "--tree", tree], capture_output=True,
             text=True, check=True).stdout
-        return json.loads(out.strip().splitlines()[-1])["steps_per_s"]
+        got = json.loads(out.strip().splitlines()[-1])
+        return got["steps_per_s"], got["wolf_tick_ms"]
 
     for name, tree in trees.items():
         print(f"{name}: {tree} (warm-up: {child(tree)})")
     vals = {name: [[] for _ in seq] for name in trees}
+    wolf = {name: [[] for _ in seq] for name in trees}
     for p in range(pairs):
         order = ["this", "other"] if p % 2 == 0 else ["other", "this"]
         for name in order:
-            for i, v in enumerate(child(trees[name])):
+            rates, ticks = child(trees[name])
+            for i, (v, t) in enumerate(zip(rates, ticks)):
                 vals[name][i].append(v)
+                if t is not None:
+                    wolf[name][i].append(t)
     res = {}
     for name in trees:
         for i, path in enumerate(seq):
-            v = vals[name][i]
-            q1, q2, q3 = statistics.quantiles(v, n=4)
-            key = f"{name} {path}@{i}"
-            res[key] = dict(values=v, median=statistics.median(v), q1=q1,
-                            q3=q3)
-            print(f"{key:12s} median {statistics.median(v):9.2f}, quartiles "
-                  f"{q1:9.2f} {q3:9.2f} steps/s; values "
-                  + " ".join(f"{x:.1f}" for x in v))
+            for key, v, unit, fmt in (
+                    (f"{name} {path}@{i}", vals[name][i], "steps/s", ".1f"),
+                    (f"{name} {path}@{i} wolf", wolf[name][i], "ms",
+                     ".4f")):
+                if not v:
+                    continue
+                q1, q2, q3 = statistics.quantiles(v, n=4)
+                res[key] = dict(values=v, median=statistics.median(v),
+                                q1=q1, q3=q3)
+                print(f"{key:17s} median {statistics.median(v):9.4f}, "
+                      f"quartiles {q1:9.4f} {q3:9.4f} {unit}; values "
+                      + " ".join(f"{x:{fmt}}" for x in v))
     return {"seq": seq, "pairs": pairs, "trees": trees, "results": res}
 
 
@@ -1293,7 +1431,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--trace", help="write the profiler's Chrome trace here")
-    ap.add_argument("--path", choices=["fused32", "host64", "lj", "ljcells",
+    ap.add_argument("--path", choices=["fused32", "host64", "host32", "lj",
+                                       "ljcells",
                                        "eind", "dipole", "pair", "seq",
                                        "ab"],
                     default="fused32")
@@ -1324,7 +1463,8 @@ def main() -> int:
     seq = args.seq.split(",")
     if args.path == "seq":
         sys.path.insert(0, os.path.abspath(args.tree or ROOT))
-        print(json.dumps({"steps_per_s": drive_paths(seq)}))
+        rates, ticks = drive_paths(seq)
+        print(json.dumps({"steps_per_s": rates, "wolf_tick_ms": ticks}))
         return 0
     sys.path.insert(0, ROOT)
     from lidp_tpu_torch.models import polar_bench
@@ -1354,16 +1494,18 @@ def main() -> int:
         return 0
     if args.path in ("lj", "ljcells"):
         run_steps = lj_events(args.path, args.scale, args.steps)
-    elif args.path == "host64":
-        bench = polar_bench.build_synthetic(dtype=torch.float64,
-                                            precision=1e-11)
-        polar_bench.host_setup_forces(bench, mixed=True)
+    elif args.path in ("host64", "host32"):
+        mixed = args.path == "host64"
+        bench = (polar_bench.build_synthetic(dtype=torch.float64,
+                                             precision=1e-11) if mixed
+                 else polar_bench.build_synthetic())
+        polar_bench.host_setup_forces(bench, mixed=mixed)
         for _ in range(2):
-            polar_bench.host_cg_step(bench, mixed=True)
+            polar_bench.host_cg_step(bench, mixed=mixed)
         torch.cuda.synchronize()
 
         def run_steps(k):
-            return [polar_bench.host_cg_step(bench, mixed=True)[1]
+            return [polar_bench.host_cg_step(bench, mixed=mixed)[1]
                     for _ in range(k)]
 
         # 1. phase times by HostPolarForces' own CUDA-event ticks
@@ -1379,7 +1521,7 @@ def main() -> int:
                 sums[label] = sums.get(label, 0.0) + ms
         bench.hpf.timing = False
         step_ms = 1e3 * wall / args.steps
-        print(f"events window (host64, each step synchronised for its "
+        print(f"events window ({args.path}, each step synchronised for its "
               f"ticks): {args.steps} steps, {step_ms:.3f} ms/step, "
               f"scf_iters mean {statistics.mean(scf):.2f}")
         for label, ms in sums.items():

@@ -298,18 +298,22 @@ def test_dipole_whole_matches_plain_and_strip(dev, kernel, shape, damping,
         assert torch.equal(a, b)
 
 
-# --------------- pair: the whole-panel kernel (cols=None) ---------------
+# ---- pair and wolf: the whole-panel kernels (cols=None), one template ----
 
-PAIR = ["pair_wolf", "pair", "pair_lj", "pair_df", "pair_wolf_df"]
+PAIR = ["pair_wolf", "pair", "pair_lj", "pair_df", "pair_wolf_df", "wolf"]
 
 
 def _pair_calls(dev, kernel, n, npad, L):
-    """(wrapper, plain, args, kwargs, cols of the strip form) of a pair
-    kernel on the ragged case at this shape."""
+    """(wrapper, plain, args, kwargs, cols of the strip form) of a kernel
+    on the pair template (wolf: the field alone) on the ragged case at
+    this shape."""
     df = kernel.endswith("_df")
     c = _case(dev, torch.float64 if df else torch.float32, n=n, npad=npad,
               L=L)
     p = c["pair"]
+    if kernel == "wolf":
+        args = (c["x"], c["q"], c["mol"], c["mask"], c["L"], p.cut_coulsq)
+        return panel.wolf_panel, panel.wolf_panel_plain, args, {}, args[:4]
     tail = (c["tabs"], c["L"], p.cut_coulsq, p.qqrd2e, p.g_ewald)
     base = (c["x"], c["q"], c["type"])
     if kernel == "pair_wolf":
@@ -335,9 +339,11 @@ def test_pair_whole_matches_plain_and_strip(dev, kernel, shape,
     """Masked atoms that keep their charge, padding at the origin (whose
     field rows are not zero), special lists: the whole-panel kernel
     against the plain version and against the strip kernel at the same
-    shape, one launch counted per call (the strip launches apart),
-    repeated launches bit-identical, and the kernel with its warp skip,
-    its tile-pair test or both off bit-identical too."""
+    shape, one launch counted per call (the strip launches apart: a strip
+    of rows 96-543 counts one more, and equals those rows of the whole
+    panel within the bars), repeated launches bit-identical, and the
+    kernel with its warp skip, its tile-pair test or both off
+    bit-identical too."""
     n, npad, L = DIPOLE_SHAPES[shape]
     wrapper, plain, args, kw, cols = _pair_calls(dev, kernel, n, npad, L)
     before, strips = wrapper.launches, wrapper.launches_strip
@@ -351,23 +357,38 @@ def test_pair_whole_matches_plain_and_strip(dev, kernel, shape,
     ref = plain(*args, **kw)
     _close(whole, ref)
     _close(whole, strip)
-    if len(ref) == 5 and npad > n:
-        assert bool(ref[4][n:].abs().sum(1).gt(0).any())
-    mol = kw.get("mol", args[3] if kernel == "pair_wolf" else None)
-    pargs = args if kernel != "pair_wolf" else args[:3] + args[4:]
-    votes, skipped, dropped, npairs = panel.pair_skip_share(
-        *pargs[:3], mol, *pargs[3:], sp=kw["sp"],
-        coul=kw.get("coul", True))
+    whole, ref = _tuple(whole), _tuple(ref)
+    if len(ref) in (1, 5) and npad > n:     # the padding's field rows
+        assert bool(ref[-1][n:].abs().sum(1).gt(0).any())
+    if kernel == "wolf":
+        rows = slice(96, 544)
+        part = wrapper(*[a[rows] for a in args[:4]], *args[4:], cols=cols,
+                       row0=rows.start)
+        assert (wrapper.launches, wrapper.launches_strip) == (before + 3,
+                                                              strips + 2)
+        _close(part, whole[0][rows])
+        votes, skipped, dropped, npairs = panel.wolf_skip_share(*args)
+    else:
+        mol = kw.get("mol", args[3] if kernel == "pair_wolf" else None)
+        pargs = args if kernel != "pair_wolf" else args[:3] + args[4:]
+        votes, skipped, dropped, npairs = panel.pair_skip_share(
+            *pargs[:3], mol, *pargs[3:], sp=kw["sp"],
+            coul=kw.get("coul", True))
     assert 0 < skipped < votes and dropped < npairs
     if shape == "12288":
         assert dropped > 0
-    for a, b in zip(whole, wrapper(*args, **kw)):
+    for a, b in zip(whole, _tuple(wrapper(*args, **kw))):
         assert torch.equal(a, b)
     for flags in ((False, True), (True, False), (False, False)):
         monkeypatch.setattr(panel, "PAIR_SKIP", flags[0])
         monkeypatch.setattr(panel, "PAIR_CULL", flags[1])
-        for a, b in zip(whole, wrapper(*args, **kw)):
+        for a, b in zip(whole, _tuple(wrapper(*args, **kw))):
             assert torch.equal(a, b)
+
+
+def _tuple(v):
+    """A kernel's outputs as a tuple (wolf_panel returns one tensor)."""
+    return v if isinstance(v, tuple) else (v,)
 
 
 def test_pair_whole_refuses_asymmetric_tables(dev):

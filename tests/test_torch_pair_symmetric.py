@@ -1,5 +1,8 @@
 """The whole-panel pair kernel's algorithm on the CPU (csrc/pair_panel.cuh
-runs only on the GPU; tests/test_torch_cuda_kernels.py holds it there).
+runs only on the GPU; tests/test_torch_cuda_kernels.py holds it there),
+in its four forms: coulomb and the Wolf field, coulomb, LJ only, and the
+field alone (FORCE false: wolf_panel's whole panel, held against
+wolf_panel_plain and JAX's Pallas wolf_panel).
 
   * a plain-torch emulation of pair_whole_kernel: per block's tile pair
     (the closed form of panel_common.cuh tile_pair) each unordered pair
@@ -30,7 +33,11 @@ runs only on the GPU; tests/test_torch_cuda_kernels.py holds it there).
     without by torch.equal, and on the spatially ordered case most votes
     skip and tile pairs are dropped;
   * a padding atom near the origin receives its nonzero Wolf field row,
-    and a masked atom receives LJ and coulomb force and gives none;
+    and a masked atom receives LJ and coulomb force and gives none (and
+    so in the field alone);
+  * a pair at exactly rsq == cut_coulsq is inside the field's inclusive
+    cutoff for the plain row form, the tile-pair test and the warp vote
+    alike;
   * the wrapper refuses type tables that are not symmetric;
   * the least arithmetic that chip_smoke.py's bound counts: the pairs it
     charges for are those on which the plain row form puts a term.
@@ -62,8 +69,11 @@ CUT_COULSQ = 6.5**2
 # vote groups
 TILE = {torch.float32: 128, torch.float64: 64}
 PG = {torch.float32: 2, torch.float64: 1}
-FORMS = {"coul_wolf": (True, True), "coul": (True, False),
-         "lj": (False, False)}
+# form -> (coul, wolf, force): the field alone ("wolf") has no LJ or
+# coulomb block (csrc/pair_panel.cuh FORCE false, the field's tile and
+# vote rows as float32's)
+FORMS = {"coul_wolf": (True, True, True), "coul": (True, False, True),
+         "lj": (False, False, True), "wolf": (False, True, False)}
 
 
 def tile_pairs(npad, tile):
@@ -102,13 +112,15 @@ def _votes(tile, pg):
 
 def emulate_whole(x, q, typef, mol, maskf, tabs, L, cut_coulsq, qqrd2e,
                   g_ewald, sp=None, *, coul=True, wolf=True, tile=None,
-                  skip=True, cull=True):
+                  skip=True, cull=True, force=True):
     """pair_whole_kernel in plain torch: ((f, evdwl, ecoul, vir6, e0 or
-    None), counts).  With `skip` the pairs of a vote in which no pair lies
-    inside the outer radius on an open side contribute an exact zero
-    without their terms being read, and with `cull` the tile pairs
-    far_tiles drops write no slot, which the slot sum leaves out; counts =
-    [votes, votes skipped, tile pairs dropped, tile pairs]."""
+    None), counts), or with force=False (the field alone: typef, tabs,
+    qqrd2e, g_ewald and sp unread, the outer radius cut_coulsq inclusive,
+    r^-2 = rinv * rinv) (e0, counts).  With `skip` the pairs of a vote in
+    which no pair lies inside the outer radius on an open side contribute
+    an exact zero without their terms being read, and with `cull` the tile
+    pairs far_tiles drops write no slot, which the slot sum leaves out;
+    counts = [votes, votes skipped, tile pairs dropped, tile pairs]."""
     n = x.shape[0]
     tile = tile or TILE[x.dtype]
     pg = PG[x.dtype] if tile % (32 * PG[x.dtype]) == 0 else 1
@@ -122,15 +134,15 @@ def emulate_whole(x, q, typef, mol, maskf, tabs, L, cut_coulsq, qqrd2e,
 
     atom = torch.arange(N) < n
     xp, qp, mp = pad(x), pad(q), pad(maskf)
-    tp = pad(typef).long()
+    tp = pad(typef).long() if force else None
     molp = pad(mol) if wolf else torch.zeros_like(qp)
-    spp = pad(sp.long(), -1) if sp is not None else None
+    spp = pad(sp.long(), -1) if sp is not None and force else None
     Linv = 1.0 / L
-    cutsq_u = tabs[4].max()
+    cutsq_u = float(tabs[4].max()) if force else 0.0
     f_shift = -1.0 / cut_coulsq
-    rc = math.sqrt(max(float(cutsq_u), cut_coulsq if wolf else 0.0))
+    rc = math.sqrt(max(cutsq_u, cut_coulsq if wolf else 0.0))
     far = chip_smoke.far_tile_pairs(x, maskf, L, tile, rc)
-    nc = 6 if wolf else 3
+    nc = 3 * force + 3 * wolf
     part = x.new_full((nT, nT + 1, tile, nc), math.nan)
     acc = x.new_zeros(8)
     loc = torch.arange(tile)
@@ -165,60 +177,32 @@ def emulate_whole(x, q, typef, mol, maskf, tabs, L, cut_coulsq, qqrd2e,
             counts[0] += nv
             counts[1] += int((~take).sum())
             run = take[votes]
-        ti, tj = tp[ri][:, None], tp[cj][None, :]
-        lj3, lj4, off = tabs[0][ti, tj], tabs[1][ti, tj], tabs[2][ti, tj]
-        inr = rsq < cutsq_u
-        lj = inr & (rsq < tabs[3][ti, tj])
-        lji, ljj = lj & oi, lj & oj
-        if spp is not None:   # each side's own list
-            lji = lji & ~(spp[ri][:, None, :] == cj[None, :, None]).any(-1)
-            ljj = ljj & ~(spp[cj][None, :, :] == ri[:, None, None]).any(-1)
-        r2inv = 1.0 / rsq
-        r6inv = r2inv * r2inv * r2inv
-        forcelj = r6inv * (12.0 * lj3 * r6inv - 6.0 * lj4)
-        evdwl = r6inv * (lj3 * r6inv - lj4) - off
-        fpi = torch.where(lji, forcelj, 0.0)
-        fpj = torch.where(ljj, forcelj, 0.0)
-        ci = cjj = torch.zeros_like(ok)
-        ecs = torch.zeros_like(rsq)
         rinv = torch.rsqrt(rsq)
         qI, qJ = qp[ri][:, None], qp[cj][None, :]
-        if coul:
-            cm = inr & (rsq < cut_coulsq)
-            ci, cjj = cm & oi, cm & oj
-            rr = rsq * rinv
-            grij = g_ewald * rr
-            expm2 = torch.exp(-grij * grij)
-            erfc = erfc_as(grij, expm2)
-            prefactor = qqrd2e * qI * qJ * rinv
-            fc = prefactor * (erfc + EWALD_F * grij * expm2)
-            ec = prefactor * erfc
-            fpi = torch.where(ci, fc, 0.0) + fpi
-            fpj = torch.where(cjj, fc, 0.0) + fpj
-            ecs = torch.where(ci, ec, 0.0) + torch.where(cjj, ec, 0.0)
-        # selected after the product: r2inv is not finite at rsq = 0
-        fpi = torch.where(ci | lji, fpi * r2inv, 0.0)
-        fpj = torch.where(cjj | ljj, fpj * r2inv, 0.0)
-        evs = torch.where(lji, evdwl, 0.0) + torch.where(ljj, evdwl, 0.0)
-        rows, cols = fpi[..., None] * d, fpj[..., None] * d
-        D = rows + cols
+        rows, cols, sc = [], [], []
+        if force:
+            rows, cols, sc = _force_terms(
+                d, rsq, rinv, oi, oj, tp[ri][:, None], tp[cj][None, :],
+                tabs, cutsq_u, spp, ri, cj, qI, qJ, coul, cut_coulsq,
+                qqrd2e, g_ewald)
+        r2inv = 1.0 / rsq if force else rinv * rinv
         if wolf:
             molI, molJ = molp[ri][:, None], molp[cj][None, :]
             wl = (rsq <= cut_coulsq) & ((molI != molJ) | (molI == 0))
             wv = (r2inv + f_shift) * rinv
             efi = torch.where(wl & oi, wv, 0.0) * qJ
             efj = torch.where(wl & oj, wv, 0.0) * qI
-            rows = torch.cat([rows, efi[..., None] * d], -1)
-            cols = torch.cat([cols, efj[..., None] * d], -1)
-        sc = [evs, ecs, dx * D[..., 0], dy * D[..., 1], dz * D[..., 2],
-              dx * D[..., 1], dx * D[..., 2], dy * D[..., 2]]
+            rows.append(efi[..., None] * d)
+            cols.append(efj[..., None] * d)
+        rows, cols = torch.cat(rows, -1), torch.cat(cols, -1)
         if skip:   # a skipped vote gives zeros, its terms unread
             rows = torch.where(run[..., None], rows, 0.0)
             cols = torch.where(run[..., None], cols, 0.0)
             sc = [torch.where(run, v, 0.0) for v in sc]
         part[I, k] = rows.sum(1)
         part[J, cslot] = -cols.sum(0)
-        acc += torch.stack([v.sum() for v in sc])
+        if force:
+            acc += torch.stack([v.sum() for v in sc])
     out = torch.zeros_like(part[:, 0])
     for s in range(nT + 1):          # in slot order, the dropped left out
         for t in range(nT):
@@ -226,9 +210,55 @@ def emulate_whole(x, q, typef, mol, maskf, tabs, L, cut_coulsq, qqrd2e,
                 out[t] += part[t, s]
     assert not torch.isnan(out).any()          # every kept slot written
     out = out.reshape(-1, nc)[:n]
+    if not force:
+        return out, counts
     acc = 0.5 * acc
     return ((out[:, :3], acc[0], acc[1], acc[2:8],
              out[:, 3:] if wolf else None), counts)
+
+
+def _force_terms(d, rsq, rinv, oi, oj, ti, tj, tabs, cutsq_u, spp, ri, cj,
+                 qI, qJ, coul, cut_coulsq, qqrd2e, g_ewald):
+    """The LJ and coulomb blocks of one tile pair: ([row force], [column
+    force], [the 8 scalars' terms])."""
+    lj3, lj4, off = tabs[0][ti, tj], tabs[1][ti, tj], tabs[2][ti, tj]
+    inr = rsq < cutsq_u
+    lj = inr & (rsq < tabs[3][ti, tj])
+    lji, ljj = lj & oi, lj & oj
+    if spp is not None:   # each side's own list
+        lji = lji & ~(spp[ri][:, None, :] == cj[None, :, None]).any(-1)
+        ljj = ljj & ~(spp[cj][None, :, :] == ri[:, None, None]).any(-1)
+    r2inv = 1.0 / rsq
+    r6inv = r2inv * r2inv * r2inv
+    forcelj = r6inv * (12.0 * lj3 * r6inv - 6.0 * lj4)
+    evdwl = r6inv * (lj3 * r6inv - lj4) - off
+    fpi = torch.where(lji, forcelj, 0.0)
+    fpj = torch.where(ljj, forcelj, 0.0)
+    ci = cjj = torch.zeros_like(oi)
+    ecs = torch.zeros_like(rsq)
+    if coul:
+        cm = inr & (rsq < cut_coulsq)
+        ci, cjj = cm & oi, cm & oj
+        rr = rsq * rinv
+        grij = g_ewald * rr
+        expm2 = torch.exp(-grij * grij)
+        erfc = erfc_as(grij, expm2)
+        prefactor = qqrd2e * qI * qJ * rinv
+        fc = prefactor * (erfc + EWALD_F * grij * expm2)
+        ec = prefactor * erfc
+        fpi = torch.where(ci, fc, 0.0) + fpi
+        fpj = torch.where(cjj, fc, 0.0) + fpj
+        ecs = torch.where(ci, ec, 0.0) + torch.where(cjj, ec, 0.0)
+    # selected after the product: r2inv is not finite at rsq = 0
+    fpi = torch.where(ci | lji, fpi * r2inv, 0.0)
+    fpj = torch.where(cjj | ljj, fpj * r2inv, 0.0)
+    evs = torch.where(lji, evdwl, 0.0) + torch.where(ljj, evdwl, 0.0)
+    rows, cols = fpi[..., None] * d, fpj[..., None] * d
+    D = rows + cols
+    dx, dy, dz = d[..., 0], d[..., 1], d[..., 2]
+    sc = [evs, ecs, dx * D[..., 0], dy * D[..., 1], dz * D[..., 2],
+          dx * D[..., 1], dx * D[..., 2], dy * D[..., 2]]
+    return [rows], [cols], sc
 
 
 def _tabs():
@@ -286,21 +316,34 @@ def _case(seed=7, n=300, npad=512, L=(20.0, 22.0, 24.0), n_masked=30):
                 sp=sp, n=n)
 
 
-def _args(c, dtype, wolf):
-    t = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype)  # noqa
+def _args(c, dtype, form, conv=None):
+    """The plain row form's arguments of `form` on case c, in torch tensors
+    of `dtype` (or through `conv`)."""
+    t = conv or (lambda a: torch.as_tensor(np.asarray(a), dtype=dtype))
+    if form == "wolf":
+        return (t(c["x"]), t(c["q"]), t(c["mol"]), t(c["mask"]), t(c["L"]),
+                CUT_COULSQ)
     head = (t(c["x"]), t(c["q"]), t(c["type"]))
     tail = (t(c["mask"]), t(c["tabs"]), t(c["L"]), CUT_COULSQ, QQRD2E,
             G_EWALD)
-    return head + ((t(c["mol"]),) if wolf else ()) + tail
+    return head + ((t(c["mol"]),) if FORMS[form][1] else ()) + tail
 
 
-def _plain(args, sp, coul, wolf):
+def _plain(args, sp, form):
+    coul, wolf, force = FORMS[form]
+    if not force:
+        return panel.wolf_panel_plain(*args)
     if wolf:
         return panel.pair_wolf_panel_plain(*args, sp=sp)
     return panel.pair_panel_plain(*args, sp=sp, coul=coul)
 
 
-def _emulate(args, sp, coul, wolf, **kw):
+def _emulate(args, sp, form, **kw):
+    coul, wolf, force = FORMS[form]
+    if not force:
+        x, q, mol, m, L, cut = args
+        return emulate_whole(x, q, None, mol, m, None, L, cut, None, None,
+                             wolf=True, force=False, **kw)
     if wolf:
         return emulate_whole(*args, sp=sp, coul=coul, wolf=True, **kw)
     x, q, typ, *rest = args
@@ -308,9 +351,20 @@ def _emulate(args, sp, coul, wolf, **kw):
                          wolf=False, **kw)
 
 
+def _outputs(v):
+    """A form's outputs as a tuple (the field alone returns one tensor)."""
+    return v if isinstance(v, tuple) else (v,)
+
+
 def _close(got, ref, rtol, atol, srel):
     """Per-row outputs rtol, atol of max|ref|; the scalars (evdwl, ecoul,
-    the virial: all energies) srel of the largest of them."""
+    the virial: all energies) srel of the largest of them.  The field
+    alone has per-row outputs only."""
+    if not isinstance(ref, tuple):
+        g, r = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+        np.testing.assert_allclose(g, r, rtol=rtol,
+                                   atol=atol * np.abs(r).max())
+        return
     f, ev, ec, vir, *e0 = got
     rf, rev, rec, rvir, *re0 = ref
     for g, r in [(f, rf)] + list(zip(e0, re0)):
@@ -345,13 +399,13 @@ def test_slot_block_inverts_the_schedule(nT):
 @pytest.mark.parametrize("form", list(FORMS))
 def test_emulation_matches_plain_f64(form, tile):
     """512 rows: 4, 8 and 16 tiles, the last ones all padding."""
-    coul, wolf = FORMS[form]
+    _, wolf, force = FORMS[form]
     c = _case()
-    args = _args(c, torch.float64, wolf)
+    args = _args(c, torch.float64, form)
     sp = torch.as_tensor(c["sp"])
-    got, _ = _emulate(args, sp, coul, wolf, tile=tile)
-    ref = _plain(args, sp, coul, wolf)
-    if not wolf:
+    got, _ = _emulate(args, sp, form, tile=tile)
+    ref = _plain(args, sp, form)
+    if force and not wolf:
         got = got[:4]
     _close(got, ref, 1e-12, 1e-12, 1e-12)
 
@@ -361,11 +415,11 @@ def test_padding_atom_near_the_origin_receives_the_field():
     it, so both the row form and the emulation give those rows a nonzero
     field (and no force: they have no charge and type 0)."""
     c = _case()
-    args = _args(c, torch.float64, True)
+    args = _args(c, torch.float64, "coul_wolf")
     sp = torch.as_tensor(c["sp"])
     n = c["n"]
-    got, _ = _emulate(args, sp, True, True, tile=64)
-    ref = _plain(args, sp, True, True)
+    got, _ = _emulate(args, sp, "coul_wolf", tile=64)
+    ref = _plain(args, sp, "coul_wolf")
     assert bool((ref[4][n:].abs().sum(1) > 0).all())
     assert not ref[0][n:].any()
     _close(got, ref, 1e-12, 1e-12, 1e-12)
@@ -391,6 +445,75 @@ def test_masked_atom_receives_and_gives_none():
     _close(got, ref, 1e-12, 1e-12, 1e-12)
 
 
+def test_field_alone_padding_receives_and_masked_gives_none():
+    """The field alone (wolf_panel's whole panel): the padding rows at the
+    origin receive their nonzero field from the live atoms within 6.5 A,
+    and a masked atom with a charge receives the field of an unmasked one
+    and gives it none, in the row form and the emulation alike."""
+    c = _case()
+    args = _args(c, torch.float64, "wolf")
+    got, _ = _emulate(args, None, "wolf", tile=64)
+    ref = _plain(args, None, "wolf")
+    assert bool((ref[c["n"]:].abs().sum(1) > 0).all())
+    _close(got, ref, 1e-12, 1e-12, 1e-12)
+    f64 = torch.float64
+    pair = (torch.tensor([[1.0, 1.0, 1.0], [4.0, 1.5, 1.2]], dtype=f64),
+            torch.tensor([0.7, -0.4], dtype=f64),
+            torch.tensor([1.0, 2.0], dtype=f64),
+            torch.tensor([0.0, 1.0], dtype=f64),
+            torch.full((3,), 20.0, dtype=f64), CUT_COULSQ)
+    ref = panel.wolf_panel_plain(*pair)
+    got, _ = _emulate(pair, None, "wolf", tile=32)
+    assert bool(ref[0].abs().max() > 0) and bool((ref[1] == 0).all())
+    _close(got, ref, 1e-12, 1e-12, 1e-12)
+
+
+def _cutoff_case(dtype):
+    """Two live atoms exactly 6.5 A apart along x (rsq == 42.25, exact in
+    either dtype), atom 0 in tile 0 and atom 32 in tile 1 of 32; the other
+    atoms masked, on the same line, no nearer than 7 A to the other tile's
+    live atom: tile 0's box ends at x = 1, tile 1's starts at 7.5."""
+    x = np.ones((64, 3))
+    x[0, 0], x[32, 0] = 1.0, 7.5
+    x[1:32, 0] = np.linspace(-4.0, 0.5, 31)
+    x[33:, 0] = np.linspace(8.0, 12.5, 31)
+    mask = np.zeros(64)
+    mask[[0, 32]] = 1.0
+    q = np.random.RandomState(11).normal(0, 0.5, 64)
+    t = lambda a: torch.as_tensor(a, dtype=dtype)  # noqa
+    return dict(x=t(x), q=t(q), mol=t(np.arange(1.0, 65.0)), mask=t(mask),
+                L=t(np.full(3, 40.0)), type=t(np.ones(64)),
+                sp=torch.zeros((64, 1), dtype=torch.int32))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_pair_at_the_cutoff_is_included(dtype):
+    """The field's cutoff is inclusive (rsq <= cut_coulsq): a pair at
+    exactly rsq == cut_coulsq counts as a field pair in the row form's
+    arithmetic (wolf_bound_ms forms rsq as the plain version does), its
+    tile pair, whose boxes' gap is exactly the cutoff, is kept, and the
+    one warp vote that holds it runs; with the cutoff one ulp lower the
+    same tile pair is kept but that vote skips and the pair is no field
+    pair.  The emulation equals the row form at both."""
+    c = _cutoff_case(dtype)
+    args = (c["x"], c["q"], c["mol"], c["mask"], c["L"])
+    below = float(np.nextafter(np.asarray(CUT_COULSQ, dtype=str(dtype)[6:]),
+                               0))
+    assert below < CUT_COULSQ
+    at_cut = {}
+    for cut in (CUT_COULSQ, below):
+        got, counts = _emulate((*args, cut), None, "wolf", tile=32)
+        _close(got, panel.wolf_panel_plain(*args, cut), 1e-12, 1e-12, 1e-12)
+        _, _, cnt = chip_smoke.wolf_bound_ms("wolf_panel", c, cut, tile=32)
+        at_cut[cut] = counts, cnt
+    (votes, skipped, dropped, npairs), cnt = at_cut[CUT_COULSQ]
+    (votes_b, skipped_b, dropped_b, _), cnt_b = at_cut[below]
+    assert (dropped, dropped_b, npairs) == (0, 0, 3)
+    assert votes == votes_b and skipped_b == skipped + 1
+    assert cnt["wolf_pairs"] == cnt_b["wolf_pairs"] + 1
+    assert cnt["kept_tile_pairs"] == cnt_b["kept_tile_pairs"] == 3
+
+
 def test_special_list_is_each_sides_own():
     """Atom 0 lists atom 1 and atom 1 does not list atom 0: LJ acts on 1
     from 0 and not on 0 from 1, in the row form and the emulation."""
@@ -410,16 +533,14 @@ def test_special_list_is_each_sides_own():
     _close(got[:4], ref, 1e-12, 1e-12, 1e-12)
 
 
-def _jax_args(c, wolf):
-    j = lambda a: jnp.asarray(np.asarray(a, np.float32))  # noqa
-    head = (j(c["x"]), j(c["q"]), j(c["type"]))
-    tail = (j(c["mask"]), j(c["tabs"]), j(c["L"]), CUT_COULSQ, QQRD2E,
-            G_EWALD)
-    return head + ((j(c["mol"]),) if wolf else ()) + tail
-
-
 def _close_f32(got, ref):
-    """tests/test_torch_panel_kernels.py's bars."""
+    """tests/test_torch_panel_kernels.py's bars (the field alone: its
+    per-row bars)."""
+    if not isinstance(ref, tuple):
+        g, r = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+        np.testing.assert_allclose(g, r, rtol=1e-4,
+                                   atol=1e-5 * np.abs(r).max())
+        return
     f, ev, ec, vir, *e0 = got
     rf, rev, rec, rvir, *re0 = ref
     for g, r in [(f, rf)] + list(zip(e0, re0)):
@@ -435,13 +556,16 @@ def _close_f32(got, ref):
 
 @pytest.mark.parametrize("form", list(FORMS))
 def test_emulation_matches_jax_f32(form):
-    coul, wolf = FORMS[form]
+    coul, wolf, force = FORMS[form]
     c = _case()
     sp = torch.as_tensor(c["sp"])
-    got, _ = _emulate(_args(c, torch.float32, wolf), sp, coul, wolf)
-    aj = _jax_args(c, wolf)
+    got, _ = _emulate(_args(c, torch.float32, form), sp, form)
+    aj = _args(c, None, form,
+               conv=lambda a: jnp.asarray(np.asarray(a, np.float32)))
     spj = jnp.asarray(c["sp"])
-    if wolf:
+    if not force:
+        ref = pallas_panel.wolf_panel(*aj)
+    elif wolf:
         ref = pallas_panel.pair_wolf_panel(*aj, sp=spj)
     else:
         ref = pallas_panel.pair_panel(*aj, sp=spj, coul=coul)
@@ -456,7 +580,8 @@ def test_emulation_matches_jax_df_f32(wolf):
     emulation of the kernel the port builds for it, at the same bars."""
     c = _case()
     sp = torch.as_tensor(c["sp"])
-    got, _ = _emulate(_args(c, torch.float32, wolf), sp, True, wolf)
+    form = "coul_wolf" if wolf else "coul"
+    got, _ = _emulate(_args(c, torch.float32, form), sp, form)
     d = lambda a: jnp.asarray(np.asarray(a, np.float64))  # noqa
     ref = pallas_panel.pair_panel_df(
         d(c["x"]), d(c["q"]), d(c["type"]), d(c["mask"]), d(c["tabs"]),
@@ -472,16 +597,15 @@ def test_skips_are_exact(form, dtype):
     emulation with the skips equals the one without, by torch.equal.  The
     case is in spatial order, so most votes skip and the tile-pair test
     drops tile pairs (and all of those between padding tiles)."""
-    coul, wolf = FORMS[form]
     c = _case(n=700, npad=1024, L=(26.0, 28.0, 30.0))
-    args = _args(c, dtype, wolf)
+    args = _args(c, dtype, form)
     sp = torch.as_tensor(c["sp"])
     tile = TILE[dtype]
-    on, (votes, skipped, dropped, npairs) = _emulate(args, sp, coul, wolf,
+    on, (votes, skipped, dropped, npairs) = _emulate(args, sp, form,
                                                      tile=tile)
-    off, counts = _emulate(args, sp, coul, wolf, tile=tile, skip=False,
+    off, counts = _emulate(args, sp, form, tile=tile, skip=False,
                            cull=False)
-    for a_, b_ in zip(on, off):
+    for a_, b_ in zip(_outputs(on), _outputs(off)):
         if a_ is not None:
             assert torch.equal(a_, b_)
     assert counts[2] == 0
@@ -524,7 +648,8 @@ def test_bound_counts_the_pairs_that_act():
     tabs = chip_smoke.tabs_for(p, torch.float64)
     _, _, cnt = chip_smoke.pair_bound_ms("pair_panel_df", c, tabs,
                                          p.cut_coulsq, wolf=True, tile=64)
-    _, _, wcnt = chip_smoke.wolf_bound_ms("wolf_panel", c, p.cut_coulsq)
+    _, _, wcnt = chip_smoke.wolf_bound_ms("wolf_panel", c, p.cut_coulsq,
+                                          tile=64)
     npad = c["x"].shape[0]
     base = (c["x"], c["q"], c["type"])
 
@@ -559,3 +684,17 @@ def test_bound_counts_the_pairs_that_act():
     either = (live[:, None] | live[None, :]).triu(1)
     assert cnt["geometry_pairs"] == int(either.sum())
     assert cnt["lj_pairs"] < cnt["coul_pairs"] < cnt["geometry_pairs"]
+    # wolf_panel's geometry is counted in the tile pairs its test keeps at
+    # its radius, 6.5 A, here the pair kernel's outer radius too; every
+    # pair that takes the field lies in one of them
+    for k in ("geometry_pairs", "kept_pairs", "tile_pairs",
+              "kept_tile_pairs"):
+        assert wcnt[k] == cnt[k]
+    tid = torch.arange(npad) // 64
+    keep = ~chip_smoke.far_tile_pairs(c["x"], c["mask"], c["L"], 64, 6.5)
+    wl = panel.wolf_panel_plain
+    e0 = [wl(c["x"], c["q"], c["mol"], c["mask"], c["L"], p.cut_coulsq,
+             cols=(c["x"][j:j + 1], c["q"][j:j + 1], c["mol"][j:j + 1],
+                   c["mask"][j:j + 1]), row0=-j) for j in range(npad)]
+    acts = (torch.stack(e0, 1) != 0).any(-1)
+    assert bool(keep[tid[:, None], tid[None, :]][acts].all())
