@@ -42,6 +42,12 @@ Phases, each raising on failure:
      template's kernels all their blocks, the share of tile pairs those
      dropped, and the partial buffers of the float64 whole kernels and of
      wolf_panel's with the device memory reserved over a call of each;
+     then the pair kernels at the outer cutoff (cutoff_pairs_parity): a
+     pair at exactly rsq == cutsq and one one ulp inside it, placed so
+     that a rsq contracted into fused multiply-adds puts each on the other
+     side; the strip kernel and the whole kernel, float32 and float64,
+     give the rows that take a force and the field exactly as the plain
+     version does;
   4. the main paths on the 10,125-atom synthetic fluid, every launch
      counter set to 0 just before each and read just after:
      A. float32 fused step through the kernels: initial forces + 20 steps
@@ -60,6 +66,25 @@ Phases, each raising on failure:
      forces rtol 5e-4, atol 5e-5*max; C and D evdwl/ecoul/elong rel 1e-10,
      epol rel 1e-8, forces and dipoles atol 1e-8*max; D's iteration count
      within 1 of the plain path's;
+     G. the fluid as 3,375 rigid molecules (fix rigid/nve molecule:
+        polar_bench.build_rigid, FastPolarRunner, fused, float32, CG at
+        1e-6): setup + 20 steps timed as A, a thermo row a step (temp
+        with the rigid dof, epol) and etotal's drift printed; every step
+        finite, each body's intra-body distances at step 20 equal to
+        setup's within 1e-4 relative, |q| within 1e-5 of 1, step 0
+        against the float64 plain path at A's bars; then 10 more steps,
+        each synchronised, with CUDA events around the rigid integrator's
+        two halves and the force evaluation (the integrator's share); its
+        displacements and quaternion changes over the first 3 steps
+        within 1e-2 of their largest entry of G64's plain route's (the
+        one gate that a wrong integrator fails: the ones above hold by
+        construction);
+     G64. the same bodies in float64 at 1e-11 in host mode
+        (LIDP_FAST_POLAR_MODE=host: the mixed solve and the dipole
+        predictor): setup + 3 steps through the kernels against the same
+        through panel="scan" (the plain versions, which launch no kernel)
+        on the card: thermo columns rel 1e-9 of max(1, |value|),
+        positions, dipoles and quaternions 1e-8 of their largest entry;
   5. the LJ melt of bench/in.lj on the cell engine (lj_melt.build), float32:
      kernel parity of slot_lj_forces and cell_pair_forces_lj against their
      plain versions at the melt's (11,11,11,40) grid (the melt after path
@@ -105,8 +130,8 @@ Phases, each raising on failure:
      bars there are taken of max(max |f|, 1), the nearest-neighbour pair
      force being 2;
   6. one JSON line {"kernels": [...]} with each of the ten kernels'
-     launches (summed and by path), times, ms_queued and bound, then the
-     nvidia-smi line, then the device line last.
+     launches (summed and by path, A-G64), times, ms_queued and bound,
+     then the nvidia-smi line, then the device line last.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.
@@ -124,8 +149,13 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-NSTEPS = 20              # path A
+NSTEPS = 20              # paths A and G
 HOST_STEPS = 5           # paths B and C
+G64_STEPS = 3            # path G64
+SHARE_STEPS = 10         # path G's steps timed part by part
+# thermo columns held between G64's kernel and plain routes
+G64_COLS = ("etotal", "ke", "pe", "evdwl", "ecoul", "elong", "epol", "temp",
+            "press")
 FP32_PEAK = 67e12        # H100 SXM FP32 CUDA-core FLOP/s (data sheet, 700 W)
 FP64_PEAK = 34e12        # H100 SXM FP64 CUDA-core FLOP/s (data sheet)
 HBM_RATE = 3.35e12       # H100 SXM HBM3 bytes/s
@@ -328,6 +358,155 @@ def tabs_for(ff_pair, dtype):
 
     return torch.stack([ff_pair.lj3, ff_pair.lj4, ff_pair.offset,
                         ff_pair.cut_ljsq, ff_pair.cutsq]).to(dtype).contiguous()
+
+
+# the fluid's outer cutoff: cutsq of every live type pair and cut_coulsq
+# (6.5 A), exact in both dtypes
+CUTOFF_SQ = 42.25
+
+
+def _round_exact(fr, npt):
+    """The Fraction fr correctly rounded to the numpy float type npt (ties
+    to even)."""
+    from fractions import Fraction
+
+    import numpy as np
+
+    ityp = np.int32 if npt is np.float32 else np.int64
+    best = npt(float(fr))
+    for g in (np.nextafter(best, npt(-np.inf)),
+              np.nextafter(best, npt(np.inf))):
+        db = abs(Fraction(float(best)) - fr)
+        dg = abs(Fraction(float(g)) - fr)
+        if dg < db or (dg == db and int(g.view(ityp)) % 2 == 0):
+            best = g
+    return best
+
+
+def fused_rsq(d, npt):
+    """rsq of the differences d (3,) in npt as a compiler that contracts
+    dx*dx + dy*dy + dz*dz into fused multiply-adds forms it, in the two
+    orders it may choose: fma(dz,dz,fma(dy,dy,dx*dx)) and
+    fma(dz,dz,fma(dx,dx,dy*dy)), each fma rounded once."""
+    from fractions import Fraction
+
+    dx, dy, dz = (npt(v) for v in d)
+
+    def fma(a, b, c):
+        return _round_exact(Fraction(float(a)) * Fraction(float(b))
+                            + Fraction(float(c)), npt)
+
+    return fma(dz, dz, fma(dy, dy, dx * dx)), fma(dz, dz, fma(dx, dx, dy * dy))
+
+
+def _cutoff_partner(npt, xi, target, fused_ok, seed):
+    """A partner xj of atom xi at about 6.5 A whose rsq, each product and
+    sum rounded on its own in npt, is `target`, and whose contracted forms
+    (fused_rsq) both satisfy fused_ok: a deterministic search over random
+    directions, stepping xj's x coordinate ulp by ulp."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    ityp = np.int32 if npt is np.float32 else np.int64
+    for _ in range(4000):
+        u = rng.uniform(0.4, 1.0, 3)
+        u /= np.linalg.norm(u)
+        xj0 = (xi.astype(np.float64) + 6.5 * u).astype(npt)
+        xs = (xj0[0].view(ityp) + np.arange(-60, 61, dtype=ityp)).view(npt)
+        dx, dy, dz = xi[0] - xs, xi[1] - xj0[1], xi[2] - xj0[2]
+        rn = (dx * dx + dy * dy) + dz * dz
+        for k in np.nonzero(rn == target)[0]:
+            if all(fused_ok(f) for f in fused_rsq((dx[k], dy, dz), npt)):
+                xj = xj0.copy()
+                xj[0] = xs[k]
+                return xj
+    raise AssertionError("no cutoff partner found")
+
+
+def cutoff_pairs_case(dtype, device="cuda"):
+    """Two live pairs far apart (atoms 0-3) and two padding atoms at the
+    origin (masked, no charge, type 0, mol 0) in a 60 A box, each pair
+    placed by _cutoff_partner so that with rsq formed as the plain version
+    forms it (each product and sum rounded on its own, csrc rsq_rn):
+      pair (0, 1): rsq == CUTOFF_SQ exactly, outside the LJ/coulomb
+        cutoff (rsq < cutsq), but inside it in both contracted forms;
+      pair (2, 3): rsq one ulp below CUTOFF_SQ, inside, and outside in
+        both contracted forms.
+    A kernel that contracts rsq puts each of them on the other side of the
+    cutoff.  LJ (cut 6 A) acts on neither; the shifted Wolf field of a pair
+    at the cutoff is exactly zero, so only pair (2, 3) takes a force or a
+    field.  Returns x q type mol mask L as tensors of `dtype` on `device`,
+    and `force_rows`, the rows that take a coulomb force and the field."""
+    import numpy as np
+    import torch
+
+    npt = np.float32 if dtype == torch.float32 else np.float64
+    C = npt(CUTOFF_SQ)
+    x = np.zeros((6, 3), npt)
+    for k, (target, ok) in enumerate((
+            (C, lambda f: f < C),
+            (np.nextafter(C, npt(0)), lambda f: f >= C))):
+        xi = np.array([3.0 + 20.0 * k, 30.0, 30.0], npt)
+        x[2 * k], x[2 * k + 1] = xi, _cutoff_partner(npt, xi, target, ok,
+                                                     seed=k + 1)
+    t = lambda a: torch.as_tensor(np.asarray(a, npt), dtype=dtype,  # noqa
+                                  device=device)
+    return dict(x=t(x), q=t([0.5, -0.5, 0.4, -0.4, 0, 0]),
+                type=t([1, 2, 1, 2, 0, 0]), mol=t([1, 2, 3, 4, 0, 0]),
+                mask=t([1, 1, 1, 1, 0, 0]), L=t([60.0] * 3),
+                force_rows=[2, 3])
+
+
+def cutoff_pairs_parity(pair):
+    """The pair kernels on cutoff_pairs_case: the strip kernel (cols = all
+    atoms, row0 = 0) and the whole kernel against the plain version, in
+    float32 (pair_wolf_panel, pair_panel) and float64 (pair_panel_df with
+    the field): at compare's bars, and every pair decided alike: the same
+    rows take a force and the field (exactly 0 elsewhere), rows 2 and 3
+    only."""
+    import torch
+
+    from lidp_tpu_torch.ops import panel
+
+    for dtype in (torch.float32, torch.float64):
+        c = cutoff_pairs_case(dtype)
+        tabs = tabs_for(pair, dtype)
+        scal = (pair.cut_coulsq, pair.qqrd2e, pair.g_ewald)
+        head = (c["x"], c["q"], c["type"])
+        if dtype == torch.float32:
+            wargs = (*head, c["mol"], c["mask"], tabs, c["L"], *scal)
+            pargs = (*head, c["mask"], tabs, c["L"], *scal)
+            forms = (("pair_wolf_panel", panel.pair_wolf_panel,
+                      panel.pair_wolf_panel_plain, wargs, wargs[:5], {}),
+                     ("pair_panel", panel.pair_panel,
+                      panel.pair_panel_plain, pargs, pargs[:4], {}))
+        else:
+            pargs = (*head, c["mask"], tabs, c["L"], *scal)
+            forms = (("pair_panel_df", panel.pair_panel_df,
+                      panel.pair_panel_df_plain, pargs,
+                      (*pargs[:4], c["mol"]), dict(mol=c["mol"])),)
+        want = torch.zeros(6, dtype=torch.bool, device=c["x"].device)
+        want[c["force_rows"]] = True
+        for name, wrapper, plain, args, cols, kw in forms:
+            ref = plain(*args, **kw)
+            for form, extra in (("strip form", dict(cols=cols, row0=0)),
+                                ("whole", {})):
+                label = f"{name}[{form}, cutoff pairs]"
+                got = wrapper(*args, **extra, **kw)
+                torch.cuda.synchronize()
+                err, scale = compare(label, got, ref, dtype == torch.float64)
+                for k in (0, 4)[:len(got) - 3]:
+                    acts = (got[k] != 0).any(1)
+                    if not (torch.equal(acts, (ref[k] != 0).any(1))
+                            and torch.equal(acts, want)):
+                        raise AssertionError(
+                            f"{label}: rows with a nonzero output {k} "
+                            f"{acts.tolist()}, plain "
+                            f"{(ref[k] != 0).any(1).tolist()}")
+                print(f"parity {label} ok: rows with a force "
+                      f"{torch.nonzero(acts).flatten().tolist()} as the "
+                      f"plain version's, max abs err {err:.3e} of max |ref| "
+                      f"{scale:.3e}")
 
 
 def kernel_calls(c, c64, pair, s):
@@ -918,6 +1097,140 @@ def check_finite(path, bench):
             raise AssertionError(f"path {path}: non-finite {name}")
 
 
+def thermo_line(tag, row):
+    print(f"{tag}: " + " ".join(
+        f"{k} {row[k]:.6f}" for k in ("etotal", "ke", "pe", "epol", "temp",
+                                        "press")) + f" scf_iters "
+          f"{row['scf_iters']}")
+
+
+def check_rigid(path, bench, sys0, rows):
+    """Path G's gates on the last state: every thermo row and every
+    per-atom array finite; each body's three intra-body distances equal
+    those at setup within 1e-4 relative; each quaternion's norm within
+    1e-5 of 1."""
+    import torch
+
+    sys, res, st = bench.state
+    if not all(math.isfinite(v) for r in rows for k, v in r.items()
+               if isinstance(v, float)):
+        raise AssertionError(f"path {path}: a non-finite thermo value")
+    for name, t in (("x", sys.x), ("v", sys.v), ("mu", sys.mu),
+                    ("f", res.f), ("quat", st.quat)):
+        if not bool(torch.isfinite(t).all()):
+            raise AssertionError(f"path {path}: non-finite {name}")
+    n = bench.natoms
+    x0, x = (a[:n].double().reshape(-1, 3, 3) for a in (sys0.x, sys.x))
+    worst = 0.0
+    for i, j in ((0, 1), (0, 2), (1, 2)):
+        d0 = (x0[:, i] - x0[:, j]).norm(dim=1)
+        d = (x[:, i] - x[:, j]).norm(dim=1)
+        worst = max(worst, float(((d - d0).abs() / d0).max()))
+    qerr = float((st.quat.double().norm(dim=1) - 1.0).abs().max())
+    moved = float((x - x0).norm(dim=2).max())
+    print(f"path {path}: {bench.setup.nbody} bodies, intra-body distances "
+          f"at step {sys.step} vs setup: max rel err {worst:.3e}; max "
+          f"| |q| - 1 | {qerr:.3e}; atoms moved up to {moved:.4f} A")
+    if not (worst <= 1e-4 and qerr <= 1e-5 and moved > 0):
+        raise AssertionError(f"path {path}: bodies not rigid (distance "
+                             f"{worst:.3e}, |q| {qerr:.3e}, moved {moved})")
+
+
+def rigid_share(bench, steps):
+    """Path G's step in its parts over `steps` more steps: the rigid
+    integrator's initial half, the force evaluation (FastPolarRunner.
+    forces: the panels, the Ewald sum, the CG) and the final half, in ms
+    per step by the CUDA events of FastPolarRunner.run(part_ms=), each
+    step synchronised; also the steps' host time."""
+    import torch
+
+    sys, res, st = bench.state
+    parts = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sys, res, _, st = bench.runner.run(sys, res, None, st, steps,
+                                       part_ms=parts)
+    wall = 1e3 * (time.perf_counter() - t0) / steps
+    bench.state = (sys, res, st)
+    return {k: v / steps for k, v in parts.items()}, wall
+
+
+def g64_compare(rows_k, rows_p, states_k, states_p, n):
+    """Path G64's kernel route against its plain route, step by step: the
+    thermo columns rel 1e-9 of max(1, |value|), positions, dipoles and
+    quaternions 1e-8 of their largest entry (the JAX package's bars for
+    this runner, tests/test_fast_polar.py:77,84)."""
+    worst_row = worst_arr = 0.0
+    for k, (rk, rp, sk, sp) in enumerate(zip(rows_k, rows_p, states_k,
+                                             states_p)):
+        for c in G64_COLS:
+            rel = abs(rk[c] - rp[c]) / max(1.0, abs(rp[c]))
+            worst_row = max(worst_row, rel / 1e-9)
+            if rel > 1e-9:
+                raise AssertionError(f"path G64 step {k} {c}: kernels "
+                                     f"{rk[c]!r}, plain {rp[c]!r}")
+        for name, a, b in (("x", sk[0].x[:n], sp[0].x[:n]),
+                           ("mu", sk[0].mu[:n], sp[0].mu[:n]),
+                           ("quat", sk[2].quat, sp[2].quat)):
+            err = float((a - b).abs().max())
+            big = float(b.abs().max())
+            worst_arr = max(worst_arr, err / (1e-8 * big))
+            if not err <= 1e-8 * big:
+                raise AssertionError(f"path G64 step {k} {name}: max abs "
+                                     f"err {err:.3e} above 1e-8 of "
+                                     f"{big:.3e}")
+    print(f"path G64 kernels vs plain route over {len(rows_k)} evaluations: "
+          f"thermo columns at {worst_row:.3g} of their bar, x/mu/quat at "
+          f"{worst_arr:.3g} of theirs")
+
+
+def run_rigid_states(bench, steps):
+    """polar_bench.setup_rigid + `steps` run_rigid steps one at a time:
+    (rows, states, host seconds of the steps, the float64 residual passes
+    and the float32 inner sweeps of host mode's mixed solves, summed over
+    the evaluations)."""
+    import torch
+
+    from lidp_tpu_torch.models import polar_bench
+
+    hpf = bench.runner._hpf
+    rows = [polar_bench.setup_rigid(bench)]
+    states = [bench.state]
+    outer, inner = hpf.outer_passes, sum(hpf.inner_iters)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        rows += polar_bench.run_rigid(bench, 1)
+        states.append(bench.state)
+        outer += hpf.outer_passes
+        inner += sum(hpf.inner_iters)
+    torch.cuda.synchronize()
+    return rows, states, time.perf_counter() - t0, (outer, inner)
+
+
+def rigid_xq(state, n):
+    """Copies of a rigid state's atom positions and body quaternions."""
+    return state[0].x[:n].clone(), state[2].quat.clone()
+
+
+def check_rigid_motion(g0, g, p0, p):
+    """Path G's integrator against G64's plain route over the same steps
+    from the same setup: each atom's displacement and each quaternion's
+    change (rigid_xq pairs), float32 fused kernels against float64 plain
+    versions, within 1e-2 of the largest entry of the plain route's."""
+    for name, ag0, ag, ap0, ap in zip(("x", "quat"), g0, g, p0, p):
+        dg, dp = ag.double() - ag0.double(), ap - ap0
+        err = float((dg - dp).abs().max())
+        big = float(dp.abs().max())
+        print(f"path G {name} change over {G64_STEPS} steps vs float64 "
+              f"plain route: max abs err {err:.3e} of max {big:.3e} "
+              f"({err / big:.3e})")
+        if not (big > 0 and err <= 1e-2 * big):
+            raise AssertionError(f"path G {name}: the integrator's "
+                                 f"{G64_STEPS} steps disagree with the "
+                                 f"plain route ({err:.3e} of {big:.3e})")
+
+
 def check_f64_step0(path, n, f, mu, en, ref_f, ref_mu, ref_en):
     """Step 0 of a float64 kernel path against the float64 plain path:
     evdwl/ecoul/elong rel 1e-10, epol rel 1e-8, f and mu atol 1e-8*max."""
@@ -1450,6 +1763,7 @@ def main() -> int:
             partial_buffers(c64, ff.pair, ff.polar.polar_damp, c)
         del calls, c64
     del cases
+    cutoff_pairs_parity(ff.pair)
     torch.cuda.empty_cache()
 
     # 4. the main paths: every counter to 0 just before, read just after
@@ -1662,8 +1976,127 @@ def main() -> int:
         raise AssertionError(f"path D scf_iters {enD['scf_iters']} vs plain "
                              f"{en64['scf_iters']}")
     print(f"steps_per_s {steps_per_s:.4f}")
+    del fC, muC, fD, muD, fA
+    torch.cuda.empty_cache()
 
-    del ref, f64, mu64, fC, muC, fD, muD, fA
+    # path G: the fluid as 3,375 rigid molecules (fix rigid/nve molecule)
+    # through FastPolarRunner, float32, fused
+    bench = polar_bench.build_rigid()
+    if bench.runner.mode != "fused":
+        raise AssertionError(f"path G: runner mode {bench.runner.mode}")
+    reset_counts()
+    t0 = time.perf_counter()
+    rowG0 = polar_bench.setup_rigid(bench)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    sysG0, resG0, _ = bench.state
+    xqG0 = rigid_xq(bench.state, n)
+    t0 = time.perf_counter()
+    rowsG = polar_bench.run_rigid(bench, G64_STEPS)
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    xqG3 = rigid_xq(bench.state, n)
+    t0 = time.perf_counter()
+    rowsG += polar_bench.run_rigid(bench, NSTEPS - G64_STEPS)
+    torch.cuda.synchronize()
+    t_run += time.perf_counter() - t0
+    launches["G"] = read_counts()
+    print(f"path G: {n} atoms as {bench.setup.nbody} rigid bodies (npad "
+          f"{bench.npad}), float32, FastPolarRunner fused; thermo dof "
+          f"{bench.thermo.dof:g}")
+    for k, row in enumerate([rowG0] + rowsG):
+        thermo_line(f"G step {k}", row)
+    check_rigid("G", bench, sysG0, rowsG)
+    scf = [rowG0["scf_iters"]] + [r["scf_iters"] for r in rowsG]
+    check_counts("G", launches["G"], dict(
+        eind_panel=sum(it + 1 for it in scf), pair_wolf_panel=NSTEPS + 1,
+        dipole_panel=NSTEPS + 1))
+    check_whole("G")
+    steps_per_s_G = NSTEPS / t_run
+    drift = rowsG[-1]["etotal"] - rowG0["etotal"]
+    print(f"path G: init {t_init * 1e3:.1f} ms; {NSTEPS} steps in "
+          f"{t_run:.3f} s = {steps_per_s_G:.3f} steps/s "
+          f"({1e3 * t_run / NSTEPS:.3f} ms/step); etotal drift over "
+          f"{NSTEPS} steps {drift:.6f} ({drift / abs(rowG0['etotal']):.3e} "
+          f"of |etotal|)")
+    enG = dict(evdwl=resG0.evdwl, ecoul=resG0.ecoul, elong=resG0.elong,
+               epol=resG0.epol)
+    for k in ("evdwl", "ecoul", "elong", "epol"):
+        a, b = float(enG[k]), float(en64[k])
+        tol = 2e-2 if k == "epol" else 1e-4 * abs(b)
+        print(f"path G step 0 {k}: f32 kernels {a:.6f}, f64 plain {b:.6f}")
+        if abs(a - b) > tol:
+            raise AssertionError(f"path G step 0 {k}: {a} vs float64 {b}")
+    fref = f64[:n]
+    ferr = (resG0.f[:n].double() - fref).abs()
+    fmax = float(fref.abs().max())
+    if bool((ferr > 5e-4 * fref.abs() + 5e-5 * fmax).any()):
+        raise AssertionError(f"path G step 0 forces vs float64: max abs err "
+                             f"{float(ferr.max()):.3e} (max |f| {fmax:.3e})")
+    print(f"path G step 0 forces vs float64 plain: max abs err "
+          f"{float(ferr.max()):.3e} of max |f| {fmax:.3e}")
+    parts, wall = rigid_share(bench, SHARE_STEPS)
+    total = sum(parts.values())
+    print(f"path G step parts by CUDA events ({SHARE_STEPS} steps, each "
+          f"synchronised; {wall:.3f} ms/step by the host clock): "
+          + ", ".join(f"{k} {v:.3f} ms ({100 * v / total:.1f}%)"
+                      for k, v in parts.items())
+          + f"; rigid integrator {parts['initial'] + parts['final']:.3f} "
+          f"ms/step = {100 * (parts['initial'] + parts['final']) / total:.1f}"
+          f"% of {total:.3f}")
+    print(f"steps_per_s_G {steps_per_s_G:.4f}")
+    del bench, sysG0, resG0, rowsG, ref, f64, mu64
+    torch.cuda.empty_cache()
+
+    # path G64: the same bodies in float64 at polar_precision 1e-11, host
+    # mode (mixed solve, dipole predictor), against the plain route
+    saved_mode = os.environ.get("LIDP_FAST_POLAR_MODE")
+    os.environ["LIDP_FAST_POLAR_MODE"] = "host"
+    try:
+        bench = polar_bench.build_rigid(**kw64)
+        plain = polar_bench.build_rigid(panel="scan", **kw64)
+    finally:
+        if saved_mode is None:
+            os.environ.pop("LIDP_FAST_POLAR_MODE")
+        else:
+            os.environ["LIDP_FAST_POLAR_MODE"] = saved_mode
+    if (bench.runner.mode, plain.runner.mode) != ("host", "host"):
+        raise AssertionError("path G64: the runners are not in host mode")
+    reset_counts()
+    rowsK, statesK, t_run, (outer, inner) = run_rigid_states(bench,
+                                                             G64_STEPS)
+    launches["G64"] = read_counts()
+    print(f"path G64: {n} atoms as {bench.setup.nbody} rigid bodies, "
+          f"float64, polar_precision 1e-11, FastPolarRunner host mode "
+          f"(mixed solve, predictor order "
+          f"{os.environ.get('LIDP_PREDICT', '2')})")
+    for k, row in enumerate(rowsK):
+        thermo_line(f"G64 step {k}", row)
+    scf = sum(r["scf_iters"] for r in rowsK)
+    got = launches["G64"]
+    # each mixed solve makes inner + 2 x outer scf_iters: one float32 eind
+    # launch a sweep and one float64 residual a pass (the loops' counts)
+    if not (scf == inner + 2 * outer and outer >= len(rowsK)):
+        raise AssertionError(f"path G64: scf_iters {scf} is not inner "
+                             f"{inner} + 2 x outer {outer}")
+    check_counts("G64", got, dict(
+        pair_panel_df=len(rowsK), dipole_panel_df=len(rowsK),
+        eind_panel=inner, eind_panel_df=outer))
+    check_whole("G64")
+    reset_counts()
+    rowsP, statesP, t_plain, _ = run_rigid_states(plain, G64_STEPS)
+    if any(read_counts().values()):
+        raise AssertionError("path G64: the plain route launched a kernel")
+    g64_compare(rowsK, rowsP, statesK, statesP, n)
+    check_rigid_motion(xqG0, xqG3, rigid_xq(statesP[0], n),
+                       rigid_xq(statesP[G64_STEPS], n))
+    check_rigid("G64", bench, statesK[0][0], rowsK[1:])
+    steps_per_s_G64 = G64_STEPS / t_run
+    print(f"path G64: {G64_STEPS} steps in {t_run:.3f} s = "
+          f"{steps_per_s_G64:.3f} steps/s ({1e3 * t_run / G64_STEPS:.3f} "
+          f"ms/step); plain route {1e3 * t_plain / G64_STEPS:.1f} ms/step")
+    print(f"steps_per_s_G64 {steps_per_s_G64:.4f}")
+    del bench, plain, statesK, statesP
     torch.cuda.empty_cache()
 
     # 5. the LJ melt on the cell engine: path E, kernel parity on its last

@@ -51,7 +51,8 @@ class Box:
         if force_triclinic or (tilt is not None
                                and any(float(v) != 0.0 for v in tilt)):
             raise NotImplementedError(
-                "triclinic boxes are not ported (ROADMAP queue 1 item 2)")
+                "triclinic boxes are not ported (ROADMAP queue 1 item 5, "
+                "breadth)")
         def t(a):
             if not isinstance(a, torch.Tensor):
                 a = np.array(a)

@@ -1,8 +1,8 @@
 """Carry force-field tables and state across from the JAX package.
 
 The caller hands over the fields of lidp_tpu's dataclasses (PairParams,
-EwaldParams, PolarizationSettings, System, Cells, SlotCarry) as numpy
-arrays or scalars, e.g.
+EwaldParams, PolarizationSettings, System, Cells, SlotCarry, RigidSetup,
+RigidState) as numpy arrays or scalars, e.g.
 `{f.name: np.asarray(getattr(p, f.name)) for f in dataclasses.fields(p)}`,
 so both packages compute from the same tables and the same state.  Nothing
 here imports JAX.
@@ -17,6 +17,7 @@ import torch
 
 from lidp_tpu_torch.box import Box
 from lidp_tpu_torch.forcefield import ForceField
+from lidp_tpu_torch.integrate.rigid import RigidSetup, RigidState
 from lidp_tpu_torch.integrate.slot_runner import SlotCarry
 from lidp_tpu_torch.ops.cells import Cells
 from lidp_tpu_torch.ops.ewald import EwaldParams
@@ -148,3 +149,29 @@ def slot_carry_from_numpy(carry: dict, device="cuda") -> SlotCarry:
                      invm=t("invm", f32), aid=t("aid", torch.int32),
                      step=int(np.asarray(carry["step"])),
                      overflow=t("overflow", torch.bool))
+
+
+def rigid_setup_from_numpy(setup: dict) -> RigidSetup:
+    """The port's RigidSetup (host numpy, as in the JAX package) from
+    numpy copies of the JAX RigidSetup's fields."""
+    return RigidSetup(
+        nbody=int(np.asarray(setup["nbody"])),
+        body_of_atom=np.asarray(setup["body_of_atom"], np.int32),
+        **{k: np.asarray(setup[k], np.float64)
+           for k in ("masstotal", "inertia", "displace", "xcm0", "quat0")},
+        dof_removed=int(np.asarray(setup["dof_removed"])),
+        nlinear=int(np.asarray(setup["nlinear"])))
+
+
+def rigid_state_from_numpy(state: dict, device="cuda") -> RigidState:
+    """The port's RigidState from numpy copies of the JAX RigidState's
+    fields (rigid/nve: the thermostat and barostat fields are not read).
+    The tensors keep the dtype of xcm."""
+    from lidp_tpu_torch import resolve_device
+
+    device = resolve_device(device)
+    dtype = _np_dtype(state["xcm"])
+    return RigidState(**{
+        f.name: torch.as_tensor(np.array(state[f.name]), dtype=dtype,
+                                device=device)
+        for f in dataclasses.fields(RigidState)})

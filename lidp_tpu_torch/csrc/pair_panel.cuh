@@ -769,7 +769,7 @@ pair_strip_kernel(const T* __restrict__ xr, const T* __restrict__ qr,
       const T dy = mi(yi - sy[t], Ly, Liy);
       const T dz = mi(zi - sz[t], Lz, Liz);
       const bool pm = (gi != gj) && (smask[t] != T(0));
-      const T rsq = pm ? dx * dx + dy * dy + dz * dz : T(1);
+      const T rsq = pm ? rsq_rn(dx, dy, dz) : T(1);
       const bool in_range = pm && (rsq < cutsq_u);
       const int tj = st[t];
       bool lj_mask = in_range && (rsq < cljr[tj]);

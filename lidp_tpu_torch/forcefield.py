@@ -4,7 +4,7 @@
 cell engine read.  `compute_forces` is ported for the cell engine's pair
 term: a non-polar force field evaluated on a `Cells` grid.  The dense
 all-pairs route (`nlist=None`), neighbour lists, k-space, bonded terms and
-the polar term through this function wait (ROADMAP queue 1 items 4 and 7);
+the polar term through this function wait (ROADMAP queue 1 items 3-5);
 they raise NotImplementedError.
 """
 
@@ -107,15 +107,15 @@ def compute_forces(sys, ff: ForceField, nlist=None,
         raise NotImplementedError(
             "compute_forces with a polar or k-space term is not ported: the "
             "polarizable step runs on the panel engine (parallel/shard.py); "
-            "ROADMAP queue 1 item 4")
+            "ROADMAP queue 1 item 3, the dense route")
     if nlist is None:
         raise NotImplementedError(
             "the dense all-pairs route of compute_forces is not ported "
-            "(ops/pair.dense_pair_forces; ROADMAP queue 1 item 7)")
+            "(ops/pair.dense_pair_forces; ROADMAP queue 1 item 3)")
     if not isinstance(nlist, Cells):
         raise NotImplementedError(
             "neighbour lists are not ported (ops/neighbor.py; ROADMAP "
-            "queue 1 item 7)")
+            "queue 1 item 4)")
     if pair_route(sys, ff, nlist) == "cell_pair_forces_lj":
         f, ev, ec, vir = cell_pair_forces_lj(
             sys.x, sys.mask, nlist, sys.box, ff.pair, need_ev=need_ev)

@@ -68,9 +68,17 @@ def nve_integrator(nve_params, compensated: bool = False) -> Integrator:
 
 
 def rigid_nve_integrator(rigid_params, mass_atom) -> Integrator:
-    raise NotImplementedError(
-        "the rigid-body integrator is not ported (integrate/rigid.py; "
-        "ROADMAP queue 1 item 4)")
+    """fix rigid/nve: the no-squish integrator of integrate/rigid.py; its
+    init_state is init_rigid_state (set_v at setup)."""
+    from lidp_tpu_torch.integrate import rigid
+
+    return Integrator(
+        initial=lambda s, r, p, st: rigid.initial_integrate(s, r.f, p, st),
+        final=lambda s, r, p, st: rigid.final_integrate(s, r.f, p, st),
+        params=rigid_params,
+        init_state=lambda s, f, p: rigid.init_rigid_state(s, f, p,
+                                                          mass_atom),
+    )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -97,7 +105,7 @@ def _build_struct(sys, neighbor_cfg):
         return build_cells(sys.x, sys.mask, sys.box, neighbor_cfg)
     raise NotImplementedError(
         "neighbour lists are not ported (ops/neighbor.py; ROADMAP queue 1 "
-        "item 7); pass a CellConfig")
+        "item 4); pass a CellConfig")
 
 
 def _apply_post_force(sys, res, post_force):
@@ -114,7 +122,7 @@ def _setup_forces(sys, ff, *, neighbor_cfg, post_force=None):
     if neighbor_cfg is None:
         raise NotImplementedError(
             "the dense all-pairs route is not ported (ROADMAP queue 1 item "
-            "7); pass a CellConfig as neighbor_cfg")
+            "3); pass a CellConfig as neighbor_cfg")
     x, image = box_mod.wrap(sys.x, sys.box, sys.image)
     sys = sys.replace(x=x, image=image)
     nlist = _make_carry(sys, _build_struct(sys, neighbor_cfg))
@@ -209,7 +217,7 @@ class Runner:
             if getattr(self, name) is not None:
                 raise NotImplementedError(
                     f"Runner({name}=...) is not ported (ROADMAP queue 1 "
-                    f"items 2 and 4)")
+                    f"item 5, breadth)")
 
     def setup(self, sys: System):
         """Initial force evaluation (Verlet::setup).  Returns (sys, res,
@@ -238,8 +246,8 @@ class Runner:
 
 
 class RespaRunner:
-    """rRESPA is not ported (ROADMAP queue 1 item 4)."""
+    """rRESPA is not ported (ROADMAP queue 1 item 5, breadth)."""
 
     def __init__(self, *args, **kwargs):
         raise NotImplementedError(
-            "RespaRunner is not ported (ROADMAP queue 1 item 4)")
+            "RespaRunner is not ported (ROADMAP queue 1 item 5, breadth)")

@@ -59,7 +59,7 @@ def build(scale: float = 1, dtype=torch.float64, *, neighbor: str = "cells",
     if neighbor in ("list", "none"):
         raise NotImplementedError(
             f"neighbor={neighbor!r} needs ops/neighbor.py or the dense "
-            f"route, which are not ported (ROADMAP queue 1 item 7); use "
+            f"route, which are not ported (ROADMAP queue 1 items 3-4); use "
             f"'cells' or 'slots'")
     if neighbor not in ("cells", "slots"):
         raise ValueError(f"unknown neighbor mode {neighbor!r}")

@@ -9,12 +9,22 @@ and the pair kernel's `sp` operand are on the path.  The default size,
 15^3 molecules = 10,125 atoms (npad 12,288), is the size of the JAX
 package's 10k polar benchmark.
 
-It is a cost workload, like the JAX benchmark with its free sorbates: bond
-forces are absent, so it runs a few dozen steps, not a trajectory.
+Under velocity Verlet with free atoms it is a cost workload, like the JAX
+benchmark with its free sorbates: bond forces are absent, so it runs a few
+dozen steps, not a trajectory.
 
     bench = build_synthetic()                  # on the GPU, float32
     f, energies = setup_forces(bench)
     f, per_step = run(bench, 20)               # 20 velocity-Verlet steps
+
+`build_rigid` makes each molecule a rigid body (`fix rigid/nve molecule`,
+the reference examples' integrator), so the same fluid runs a real
+trajectory, through FastPolarRunner (parallel/fast_polar.py) as the JAX
+script engine runs it:
+
+    bench = build_rigid()                      # on the GPU, float32
+    row0 = setup_rigid(bench)                  # thermo row of step 0
+    rows = run_rigid(bench, 20)                # one thermo row per step
 
 The host-driven evaluation (parallel/fast_polar.py HostPolarForces) runs
 the same step phase by phase; in float64 at polar_precision 1e-11 with the
@@ -33,12 +43,19 @@ import numpy as np
 import torch
 
 from lidp_tpu_torch import resolve_device, units
+from lidp_tpu_torch.box import Box
 from lidp_tpu_torch.forcefield import ForceField
+from lidp_tpu_torch.integrate import rigid
+from lidp_tpu_torch.integrate.driver import Runner, rigid_nve_integrator
 from lidp_tpu_torch.ops import polarization as pol_ops
 from lidp_tpu_torch.ops.ewald import EwaldParams, setup_ewald_disp
 from lidp_tpu_torch.ops.pair import make_pair_params
-from lidp_tpu_torch.parallel.fast_polar import HostPolarForces
+from lidp_tpu_torch.parallel.fast_polar import (FastPolarRunner,
+                                                HostPolarForces,
+                                                aligned_npad)
 from lidp_tpu_torch.parallel.shard import PolarStep, build_sharded_polar_step
+from lidp_tpu_torch.state import System, make_system
+from lidp_tpu_torch.thermo import ThermoParams, thermo_row
 from lidp_tpu_torch.topology import special_lists
 
 DT = 0.5                 # fs
@@ -268,3 +285,98 @@ def run(bench: PolarBench, k: int, predict: int = 1):
         per_step.append(en)
     a["x"], a["v"], a["mu"], a["f"] = x, v, hist[0], f
     return f, per_step
+
+
+# -------------------------- rigid molecules --------------------------------
+
+
+@dataclasses.dataclass
+class RigidBench:
+    runner: FastPolarRunner
+    system: System          # the state before setup
+    thermo: ThermoParams    # dof = 3N - 3 - setup.dof_removed
+    setup: rigid.RigidSetup
+    natoms: int
+    npad: int
+    # (sys, res, istate) after setup_rigid / run_rigid
+    state: tuple | None = None
+
+
+def build_rigid(n_side: int = 15, spacing: float = 4.0, seed: int = 0,
+                dtype=torch.float32, device="cuda", *,
+                ff: ForceField | None = None, panel: str = "kernel",
+                precision: float = 1e-6) -> RigidBench:
+    """The synthetic fluid with each molecule a rigid body (fix rigid/nve
+    molecule): a FastPolarRunner around Runner(ff, rigid_nve_integrator),
+    its System (padded to the panel alignment; the positions of the body
+    atoms stay unwrapped from here on) and the thermo parameters.  The
+    molecules are linear, so each body has one zero principal moment and
+    5 degrees of freedom.  The mode is FastPolarRunner's (fused, or
+    LIDP_FAST_POLAR_MODE=host).  ff, panel and precision as in
+    build_synthetic."""
+    device = resolve_device(device)
+    sysd = synthetic_system(n_side, spacing, seed)
+    n = sysd["x"].shape[0]
+    if ff is None:
+        ff = synthetic_forcefield(sysd, dtype, device, precision)
+    u = units.REAL
+    npad = aligned_npad(n)
+
+    def pad(a, fill=0.0):
+        a = np.asarray(a)
+        out = np.full((npad,) + a.shape[1:], fill, a.dtype)
+        out[:n] = a
+        return out
+
+    x, mass, mol = pad(sysd["x"]), pad(sysd["mass"], 1.0), pad(sysd["mol"], 0)
+    mask = pad(np.ones(n, bool), False)
+    setup = rigid.setup_bodies(x, mass, mol, mask)
+    params = rigid.make_rigid_params(setup, DT, u.ftm2v, mass_atom=mass,
+                                     dtype=dtype, device=device)
+    inner = Runner(ff, rigid_nve_integrator(params, params.mass_atom))
+    box = Box.create(np.zeros(3), sysd["L"], dtype=dtype, device=device)
+    system = make_system(x, box=box, v=pad(sysd["v"]), q=pad(sysd["q"]),
+                         type=pad(sysd["type"], 0), mol=mol,
+                         alpha=pad(sysd["alpha"]), mask=mask, dtype=dtype,
+                         device=device)
+    runner = FastPolarRunner(
+        inner, ff=ff, pol=ff.polar, n=n, npad=npad, dt=DT, ftm2v=u.ftm2v,
+        box_lo=np.zeros(3), box_lengths=sysd["L"],
+        sp_lists=special_lists(n, sysd["bonds"]), dtype=dtype,
+        device=device, panel=panel)
+    thermo = ThermoParams.create(mass, 3 * n - 3 - setup.dof_removed, u,
+                                 norm=False, natoms=n, dtype=dtype,
+                                 device=device)
+    return RigidBench(runner=runner, system=system, thermo=thermo,
+                      setup=setup, natoms=n, npad=npad)
+
+
+def _row(bench, sys, res, istate) -> dict:
+    """The thermo row, the constraint virial of rigid/nve in the pressure,
+    and the step's scf_iters."""
+    row = thermo_row(sys, res, bench.thermo,
+                     extra_virial=getattr(istate, "virial", None))
+    return dict(row, scf_iters=int(res.scf_iters))
+
+
+def setup_rigid(bench: RigidBench) -> dict:
+    """Initial forces and the integrator's setup (set_v): the thermo row of
+    step 0."""
+    sys, res, _, istate = bench.runner.setup(bench.system)
+    bench.state = (sys, res, istate)
+    return _row(bench, *bench.state)
+
+
+def run_rigid(bench: RigidBench, k: int) -> list:
+    """k steps (setup first if needed); the thermo row of each, with epol
+    (and scf_iters).  The rows are read from the device after the k
+    steps."""
+    if bench.state is None:
+        setup_rigid(bench)
+    sys, res, istate = bench.state
+    snaps = []
+    for _ in range(k):
+        sys, res, _, istate = bench.runner.run(sys, res, None, istate, 1)
+        snaps.append((sys, res, istate))
+    bench.state = (sys, res, istate)
+    return [_row(bench, *s) for s in snaps]

@@ -37,7 +37,8 @@ def perp_widths(lengths, tilt=None):
     the edge lengths of an orthogonal box."""
     if tilt is not None and np.any(np.asarray(tilt, float) != 0.0):
         raise NotImplementedError(
-            "triclinic boxes are not ported (ROADMAP queue 1 item 2)")
+            "triclinic boxes are not ported (ROADMAP queue 1 item 5, "
+            "breadth)")
     return np.asarray(lengths, float)
 
 

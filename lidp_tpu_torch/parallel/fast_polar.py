@@ -1,5 +1,20 @@
-"""Host-driven force + SCF evaluation of the polarizable step
-(lidp_tpu/parallel/fast_polar.py: prescan, aligned_npad, HostPolarForces).
+"""The production fast path of the polarizable pair style at scale
+(lidp_tpu/parallel/fast_polar.py): prescan, aligned_npad, HostPolarForces,
+FastPolarRunner and maybe_attach.
+
+FastPolarRunner is a drop-in Runner (integrate/driver.py) whose force
+evaluation is the panel engine's (parallel/shard.py PolarStep), composed
+with the integrator fixes the engine takes: nve and rigid/nve.  It runs in
+one of two modes:
+
+  * fused (the default on a GPU): each step is the integrator's initial
+    half, one PolarStep.init (the CUDA kernels, CG on the device with its
+    stopping test read once per iteration) and the final half, in a Python
+    loop in place of the JAX package's lax.scan;
+  * host (LIDP_FAST_POLAR_MODE=host): the force evaluation phase by phase
+    through HostPolarForces with the mixed-precision dipole solve and the
+    dipole-history predictor (LIDP_PREDICT, default order 2).  The JAX
+    package takes it for float64 on a TPU; here it is an option.
 
 HostPolarForces runs one force evaluation phase by phase from
 PolarStep.make_host_phases(): the pair pass, the Ewald k-blocks, the Wolf
@@ -9,9 +24,6 @@ float64 build on a GPU the O(N^2) passes go through the f64-grade kernels
 (the `*_df` phases), and `mixed=True` solves the dipoles by iterative
 refinement — float32 CG sweeps on the float32 eind kernel inside, one
 float64 residual pass per refinement outside.
-
-The production runner around it (FastPolarRunner: rigid/nve, thermo, dump)
-is a later slice.
 """
 
 from __future__ import annotations
@@ -23,7 +35,10 @@ from typing import Optional
 import numpy as np
 import torch
 
-from lidp_tpu_torch.parallel.shard import _pad_and_chunk
+from lidp_tpu_torch import resolve_device
+from lidp_tpu_torch.forcefield import ForceResult
+from lidp_tpu_torch.parallel.shard import (_pad_and_chunk,
+                                           build_sharded_polar_step)
 
 DENSE_PATH_MAX_ATOMS = 4096     # above this the script engine leaves the
                                 # dense (N,3,N,3) route for the panel engine
@@ -347,3 +362,195 @@ class HostPolarForces:
                   virial=vir + vir_pol, scf_iters=it,
                   scf_converged=converged)
         return f, mu, en
+
+
+# --------------------------------------------------------------------------
+# the runner
+# --------------------------------------------------------------------------
+
+
+class FastPolarRunner:
+    """Drop-in Runner (same setup/run interface as integrate/driver.py
+    Runner) that evaluates forces through the panel engine.  Composes with
+    the inner Runner's integrator (nve / rigid/nve) and serves everything
+    else from the inner Runner.
+
+    The step is built with panel="kernel" (the CUDA kernels on a GPU, their
+    plain versions on the CPU); on a GPU that build raises where the live
+    type pairs' outer cutoffs differ (the pair kernels take one).
+    panel="scan" runs the plain versions, on a GPU only when asked for:
+    the comparison route, or the route for a per-type outer cutoff.
+    Forces are computed at x - box_lo, so the atoms' coordinates may stay
+    unwrapped (rigid bodies keep them so): the panels' minimum image and
+    the Ewald phases are periodic."""
+
+    # dipole-history extrapolation coefficients for the SCF initial guess
+    # of host mode (Lagrange through the last p converged dipole sets; rows
+    # sum to 1 so a cold replicated history reduces to plain warm start).
+    # CG still iterates to the unchanged convergence criterion: the
+    # predictor only moves the starting point (cf. Kolafa ASPC, J Comput
+    # Chem 25:335).
+    _PREDICT_COEF = {1: (1.0,), 2: (2.0, -1.0), 3: (3.0, -3.0, 1.0)}
+
+    def __init__(self, inner, *, ff, pol, n: int, npad: int, dt: float,
+                 ftm2v: float, box_lo, box_lengths, sp_lists=None,
+                 dtype=None, log=None, device="cuda", panel="kernel"):
+        device = resolve_device(device)
+        self._inner = inner
+        self.ff = ff
+        self.natoms = n
+        self._log = log or (lambda *a: None)
+        if dtype is None:
+            dtype = torch.float32
+        step = build_sharded_polar_step(
+            None, ff, pol, n=n, dt=dt, ftm2v=ftm2v, col_chunk=_COL_CHUNK,
+            dtype=dtype, panel=panel, device=device)
+        if step.npad != npad:
+            raise ValueError(
+                f"fast-polar padding mismatch: sim npad {npad} != panel "
+                f"npad {step.npad}")
+        # frozen stored-coordinate shift for the polar fdotr virial (the
+        # reference's wrap-at-read_data convention)
+        xsh = getattr(ff, "polar_xshift", None)
+        step.bind_box(box_lengths,
+                      xshift=None if xsh is None else np.asarray(xsh))
+        if sp_lists is not None:
+            step.bind_special(*sp_lists)
+        self.step = step
+        self._lo = torch.as_tensor(np.asarray(box_lo, np.float64),
+                                   dtype=dtype, device=device)
+        self.mode = "fused"
+        mode_env = os.environ.get("LIDP_FAST_POLAR_MODE", "")
+        if mode_env in ("host", "fused"):
+            self.mode = mode_env
+        self._hpf = None
+        self._mu_hist = None
+        if self.mode == "host":
+            # the JAX package's strip rule: keep each O(N^2) phase of a
+            # large system to a row strip
+            strips = 8 if npad > 32768 else 1
+            while npad % strips:
+                strips //= 2
+            self._hpf = HostPolarForces(
+                step.make_host_phases(strips=max(1, strips)), pol, n,
+                mixed=True)
+
+    # everything the fast path doesn't own is served by the inner Runner
+    def __getattr__(self, name):
+        if name.startswith("__") or name == "_inner":
+            raise AttributeError(name)
+        return getattr(self._inner, name)
+
+    # -- force evaluation -------------------------------------------------
+    def _result(self, sys, f, mu, en, diverged):
+        zero = sys.x.new_zeros(())
+        return ForceResult(
+            f=f, evdwl=en["evdwl"], ecoul=en["ecoul"], elong=en["elong"],
+            epol=en["epol"], ebond=zero, virial=en["virial"], mu=mu,
+            scf_iters=en["scf_iters"],
+            scf_diverged=torch.full((), diverged, dtype=torch.bool,
+                                    device=sys.x.device))
+
+    def _fast_res(self, sys):
+        f, mu, en = self.step.init(sys.x - self._lo, sys.q, sys.type,
+                                   sys.mol, sys.alpha, sys.mu, sys.mask)
+        return self._result(sys, f, mu, en, False)
+
+    def _host_res(self, sys):
+        f, mu, en = self._hpf(sys.x - self._lo, sys.q, sys.type, sys.mol,
+                              sys.alpha, sys.mu, sys.mask)
+        return self._result(sys, f, mu, en, not en["scf_converged"])
+
+    def forces(self, sys):
+        """One force + SCF evaluation at sys's positions, in the runner's
+        mode: a ForceResult."""
+        return self._host_res(sys) if self.mode == "host" \
+            else self._fast_res(sys)
+
+    # -- Runner interface --------------------------------------------------
+    def setup(self, sys):
+        """Initial force evaluation and the integrator's setup hook.
+        Returns (sys, res, None, istate)."""
+        res = self.forces(sys)
+        sys = sys.replace(mu=res.mu)
+        integ = self._inner.integ
+        if integ.init_state_res is not None:
+            sys, istate = integ.init_state_res(sys, res, integ.params)
+        else:
+            sys, istate = integ.init_state(sys, res.f, integ.params)
+        return sys, res, None, istate
+
+    def run(self, sys, res, nlist, istate, nsteps: int, part_ms=None):
+        """Advance nsteps; returns (sys, res, None, istate).  part_ms, a
+        dict: add to it each step's CUDA-event milliseconds of the
+        integrator's initial half, the force evaluation and the final half
+        ("initial", "forces", "final"), synchronising every step."""
+        integ = self._inner.integ
+        ip = integ.params
+        coef = (1.0,)
+        if self.mode == "host":
+            order = int(os.environ.get("LIDP_PREDICT", "2"))
+            coef = self._PREDICT_COEF.get(order, (1.0,))
+        hist = self._mu_hist
+        parts = ("initial", "forces", "final")
+        for _ in range(nsteps):
+            if part_ms is not None:
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+                ev[0].record()
+            sys, istate = integ.initial(sys, res, ip, istate)
+            sys = sys.replace(step=sys.step + 1)
+            if part_ms is not None:
+                ev[1].record()
+            if self.mode == "host" and hist is not None \
+                    and len(hist) == len(coef):
+                sys = sys.replace(mu=sum(c * h for c, h in zip(coef, hist)))
+            res = self.forces(sys)
+            sys = sys.replace(mu=res.mu)
+            if self.mode == "host":
+                hist = ([res.mu] + (hist or [res.mu] * len(coef)))[
+                    :len(coef)]
+            if part_ms is not None:
+                ev[2].record()
+            sys, istate = integ.final(sys, res, ip, istate)
+            if part_ms is not None:
+                ev[3].record()
+                torch.cuda.synchronize()
+                for k, a, b in zip(parts, ev, ev[1:]):
+                    part_ms[k] = part_ms.get(k, 0.0) + a.elapsed_time(b)
+        self._mu_hist = hist
+        return sys, res, None, istate
+
+
+def maybe_attach(runner, *, script, ff, pol, sys, n, npad, dt, ftm2v,
+                 dtype, sp_lists=None, log=None):
+    """Final eligibility gate, after the script front end assembled the
+    real Runner: a FastPolarRunner around it, or None where the panel
+    engine cannot take the simulation.  A failure to build the step or its
+    kernels raises: the port has no dense path to fall back to."""
+    if pol is None or not prescan(script, n):
+        return None
+    # composition limits: the panel engine owns the whole force evaluation
+    if (runner.post_force is not None or runner.post_integrate is not None
+            or runner.end_of_step is not None or runner.shrink is not None
+            or getattr(runner, "tmd_hook", None) is not None):
+        return None
+    for attr in ("pppm", "msm", "ewald6", "pppm_disp", "eam", "tip4p",
+                 "dpd", "cmap", "adapt", "bond", "angle", "dihedral",
+                 "improper"):
+        if getattr(ff, attr, None) is not None:
+            return None
+    if getattr(ff, "hbond", ()) or getattr(ff, "extra_pairs", ()):
+        return None
+    if ff.pair is None or not ff.pair.coul:
+        return None
+    if sys.box.triclinic:
+        return None
+    box_lo = sys.box.lo.detach().cpu().numpy()
+    box_len = sys.box.hi.detach().cpu().numpy() - box_lo
+    fr = FastPolarRunner(
+        runner, ff=ff, pol=pol, n=n, npad=npad, dt=dt, ftm2v=ftm2v,
+        box_lo=box_lo, box_lengths=box_len, sp_lists=sp_lists, dtype=dtype,
+        log=log, device=sys.x.device)
+    if log:
+        log(f"fast-polar engine: {fr.mode} mode, {n} atoms (padded {npad})")
+    return fr

@@ -107,10 +107,6 @@ class PolarStep(nn.Module):
             raise NotImplementedError(
                 "an LJ-only pair table runs without k-space and without "
                 "polarization")
-        if s is not None and (s.zodid or s.fixed_iteration or s.polar_gs):
-            raise NotImplementedError(
-                "zodid, fixed_iteration and polar_gs SCF modes are not "
-                "ported yet; the CG solve is")
         if panel not in ("kernel", "scan"):
             raise ValueError(f"panel must be 'kernel' or 'scan', not {panel!r}")
         cq = pair.cutsq[1:, 1:].detach().cpu().numpy()
@@ -420,7 +416,14 @@ class PolarStep(nn.Module):
         return fpol, u_self + u_ef + u_dd, vir_pol
 
     def init(self, x, q, type_, mol, alpha, mu_init, mask):
-        """One full force (+ SCF) evaluation (Verlet::setup analog)."""
+        """One full force (+ SCF) evaluation (Verlet::setup analog).
+
+        The SCF mode is the settings': zodid takes mu = mu0 (the previous
+        dipoles with use_previous, else polar_gamma alpha E0);
+        fixed_iteration runs iterations_max sweeps mu = alpha (E0 +
+        E_ind(mu)) from mu0, one eind panel each; otherwise CG.  polar_gs
+        runs CG too, as the JAX panel step does: it has no Gauss-Seidel
+        branch (that sweep is the dense route's)."""
         s = self.s
         if s is None:
             f, evdwl, ecoul, elong, vir = self._nonpolar_forces(
@@ -430,9 +433,20 @@ class PolarStep(nn.Module):
                 epol=x.new_zeros(()), virial=vir, scf_iters=0)
         f, evdwl, ecoul, elong, vir, e0 = self._nonpolar_forces(
             x, q, type_, mask, wolf_mol=mol)
-        mu_new, scf_iters, _ = scf_solve_cg(
-            e0, alpha, lambda m: -self._e_ind_of(x, alpha, mask, m), s,
-            mu_init=(mu_init if s.use_previous else None), n_total=self.n)
+        a = alpha[:, None]
+        mu0 = mu_init if s.use_previous else s.polar_gamma * a * e0
+        if s.zodid:
+            mu_new, scf_iters = mu0, 0
+        elif s.fixed_iteration:
+            mu_new = mu0
+            for _ in range(s.iterations_max):
+                mu_new = a * (e0 + self._e_ind_of(x, alpha, mask, mu_new))
+            scf_iters = s.iterations_max
+        else:
+            mu_new, scf_iters, _ = scf_solve_cg(
+                e0, alpha, lambda m: -self._e_ind_of(x, alpha, mask, m), s,
+                mu_init=(mu_init if s.use_previous else None),
+                n_total=self.n)
         fpol, epol, vir_pol = self._dipole_forces(x, q, mol, alpha, mu_new,
                                                   mask)
         return f + fpol, mu_new, dict(

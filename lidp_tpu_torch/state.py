@@ -19,7 +19,8 @@ from lidp_tpu_torch.box import Box
 
 @dataclasses.dataclass(frozen=True)
 class System:
-    x: torch.Tensor       # (N,3) wrapped positions
+    x: torch.Tensor       # (N,3) positions, wrapped; a rigid body's atoms
+                          # stay unwrapped (x = R d + xcm)
     v: torch.Tensor       # (N,3) velocities
     q: torch.Tensor       # (N,)  charges
     type: torch.Tensor    # (N,)  int32, 1-based like LAMMPS (0 = padding)

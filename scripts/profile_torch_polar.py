@@ -4,6 +4,7 @@
     python scripts/profile_torch_polar.py [--steps 10] [--trace FILE]
     python scripts/profile_torch_polar.py --path host64 [--steps 5]
     python scripts/profile_torch_polar.py --path host32 [--steps 5]
+    python scripts/profile_torch_polar.py --path rigid [--steps 10]
     python scripts/profile_torch_polar.py --path lj --steps 400 [--scale 4]
     python scripts/profile_torch_polar.py --path ljcells --steps 100
     python scripts/profile_torch_polar.py --path eind [--rounds 7]
@@ -13,6 +14,7 @@
         [--tree OTHER] [--rounds 7]
     python scripts/profile_torch_polar.py --path ab --tree OTHER --seq F \
         [--pairs 10]          # --seq B: path B and its wolf tick
+    python scripts/profile_torch_polar.py --path cutoff [--tree OTHER]
 
 Builds the 10,125-atom synthetic fluid of lidp_tpu_torch.models.polar_bench
 (float32, CUDA panel kernels), runs the initial forces and 3 warm-up steps,
@@ -25,6 +27,11 @@ then times `--steps` steps twice:
   2. torch.profiler (CPU + CUDA) over the same number of steps: device time
      by kernel name and the device's busy and idle share of the window;
      with --trace, its Chrome trace is written to FILE.
+
+--path rigid does the same for chip_smoke.py's path G: the fluid as 3,375
+rigid molecules through FastPolarRunner (polar_bench.build_rigid, float32,
+fused), a thermo row a step; the step's rest is then the CG's vector work,
+the rigid integrator and the thermo rows.
 
 --path host64 profiles the float64 / polar_precision 1e-11 host-phase
 path instead (HostPolarForces with the mixed-precision solve through the
@@ -108,12 +115,23 @@ prints their steps/s: A 20 fused float32 steps, B 5 float32 host steps
 after 100, F 100 Runner steps on cells, E4 100 SlotRunner steps at
 2,048,000 atoms; after B's timed steps, 5 more with HostPolarForces'
 CUDA-event ticks give the median of its `wolf` tick (the Wolf field
-phase, ms a step).  --path ab
+phase, ms a step).  SW, SP and SD time the pair kernels' strip form
+(cols = all atoms, row0 = 0) on chip_smoke.py's 12,288-row main case:
+pair_wolf_panel, pair_panel (float32) and pair_panel_df with the field
+(float64), 20 calls queued between two CUDA events, 5 times, the median
+given as calls/s; WW, WP and WD the same kernels' whole form.  --path ab
 runs `--path seq` `--pairs` times for this checkout and for `--tree`
 (another checkout, e.g. the parent commit from `git archive`), one
 process each, alternated (this, other; then other, this) after one
 untimed warm-up process each, and prints each path's values (and B's
 wolf tick), median and quartiles per checkout.
+
+--path cutoff runs the pair kernels of `--tree`'s lidp_tpu_torch (default
+this checkout) on this checkout's chip_smoke.cutoff_pairs_case, a pair at
+exactly the outer cutoff and one one ulp inside it that a contracted rsq
+puts on the other side, in their strip form (cols = all atoms, row0 = 0)
+and whole: the rows that take a force and their largest |f|, beside the
+plain version's (a parent's strip kernel against this one's).
 
 Prints the card (nvidia-smi name, power limit) first.
 """
@@ -1354,6 +1372,10 @@ def drive_paths(seq):
             for _ in range(5):
                 polar_bench.host_cg_step(bench, mixed=True)
             steps = 5
+        elif path in ("SW", "SP", "SD", "WW", "WP", "WD"):
+            rates.append(1e3 / pair_form_ms(path))
+            ticks.append(None)
+            continue
         elif path in ("E", "F", "E4"):
             bench = lj_melt.build(scale=4 if path == "E4" else 1,
                                   dtype=torch.float32,
@@ -1385,6 +1407,88 @@ def drive_paths(seq):
     return rates, ticks
 
 
+def pair_form_ms(path):
+    """--path seq SW, SP, SD (WW, WP, WD): the median of 5 queued timings
+    (20 calls each) of a pair kernel's strip form (whole form) on
+    chip_smoke.py's main case."""
+    import torch
+
+    import chip_smoke
+    from lidp_tpu_torch.models import polar_bench
+    from lidp_tpu_torch.ops import panel
+
+    c = chip_smoke.make_case(10_125, 12_288, 60.0, seed=1)
+    dtype = torch.float64 if path[1] == "D" else torch.float32
+    strip = path[0] == "S"
+    if dtype == torch.float64:
+        c = chip_smoke.to_f64(c)
+    ff = polar_bench.synthetic_forcefield(polar_bench.synthetic_system(2),
+                                          torch.float32, "cuda")
+    p = ff.pair
+    tabs = chip_smoke.tabs_for(p, dtype)
+    scal = (p.cut_coulsq, p.qqrd2e, p.g_ewald)
+    head = (c["x"], c["q"], c["type"])
+    if path[1] == "W":
+        args = (*head, c["mol"], c["mask"], tabs, c["L"], *scal)
+        kw = dict(cols=args[:5], row0=0) if strip else {}
+        fn = lambda: panel.pair_wolf_panel(*args, sp=c["sp"], **kw)  # noqa
+    elif path[1] == "P":
+        args = (*head, c["mask"], tabs, c["L"], *scal)
+        kw = dict(cols=args[:4], row0=0) if strip else {}
+        fn = lambda: panel.pair_panel(*args, sp=c["sp"], **kw)  # noqa
+    else:
+        args = (*head, c["mask"], tabs, c["L"], *scal)
+        kw = dict(cols=(*args[:4], c["mol"]), row0=0) if strip else {}
+        fn = lambda: panel.pair_panel_df(  # noqa
+            *args, sp=c["sp"], mol=c["mol"], **kw)
+    for _ in range(50):
+        fn()
+    return statistics.median(chip_smoke.cuda_ms_queued(fn, 20)
+                             for _ in range(5))
+
+
+def cutoff_rows():
+    """--path cutoff; returns {label: [rows with a force, max |f|]}."""
+    import importlib.util
+
+    import torch
+
+    from lidp_tpu_torch.models import polar_bench
+    from lidp_tpu_torch.ops import panel
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_here", os.path.join(ROOT, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    p = polar_bench.synthetic_forcefield(polar_bench.synthetic_system(2),
+                                         torch.float32, "cuda").pair
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        c = cs.cutoff_pairs_case(dtype)
+        tabs = cs.tabs_for(p, dtype)
+        args = (c["x"], c["q"], c["type"], c["mask"], tabs, c["L"],
+                p.cut_coulsq, p.qqrd2e, p.g_ewald)
+        if dtype == torch.float32:
+            calls = {"pair_panel": (panel.pair_panel,
+                                    panel.pair_panel_plain, {},
+                                    args[:4])}
+        else:
+            calls = {"pair_panel_df": (panel.pair_panel_df,
+                                       panel.pair_panel_df_plain,
+                                       dict(mol=c["mol"]),
+                                       (*args[:4], c["mol"]))}
+        for name, (kern, plain, kw, cols) in calls.items():
+            for form, f in (
+                    ("strip form", kern(*args, cols=cols, row0=0, **kw)[0]),
+                    ("whole", kern(*args, **kw)[0]),
+                    ("plain", plain(*args, **kw)[0])):
+                rows = torch.nonzero((f != 0).any(1)).flatten().tolist()
+                out[f"{name}[{form}]"] = [rows, float(f.abs().max())]
+                print(f"{name}[{form}]: rows with a force {rows}, max |f| "
+                      f"{float(f.abs().max()):.6e}")
+    return out
+
+
 def ab_trees(other, pairs, seq):
     """--path ab; returns the JSON-able results."""
     trees = {"this": ROOT, "other": os.path.abspath(other)}
@@ -1412,8 +1516,9 @@ def ab_trees(other, pairs, seq):
     res = {}
     for name in trees:
         for i, path in enumerate(seq):
+            unit_ = "calls/s" if path[0] in "SW" else "steps/s"
             for key, v, unit, fmt in (
-                    (f"{name} {path}@{i}", vals[name][i], "steps/s", ".1f"),
+                    (f"{name} {path}@{i}", vals[name][i], unit_, ".1f"),
                     (f"{name} {path}@{i} wolf", wolf[name][i], "ms",
                      ".4f")):
                 if not v:
@@ -1431,8 +1536,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--trace", help="write the profiler's Chrome trace here")
-    ap.add_argument("--path", choices=["fused32", "host64", "host32", "lj",
-                                       "ljcells",
+    ap.add_argument("--path", choices=["fused32", "rigid", "host64",
+                                       "host32", "lj", "ljcells", "cutoff",
                                        "eind", "dipole", "pair", "seq",
                                        "ab"],
                     default="fused32")
@@ -1465,6 +1570,10 @@ def main() -> int:
         sys.path.insert(0, os.path.abspath(args.tree or ROOT))
         rates, ticks = drive_paths(seq)
         print(json.dumps({"steps_per_s": rates, "wolf_tick_ms": ticks}))
+        return 0
+    if args.path == "cutoff":
+        sys.path.insert(0, os.path.abspath(args.tree or ROOT))
+        print(json.dumps(cutoff_rows()))
         return 0
     sys.path.insert(0, ROOT)
     from lidp_tpu_torch.models import polar_bench
@@ -1535,6 +1644,38 @@ def main() -> int:
         print(f"untimed window: {args.steps} steps, "
               f"{args.steps / wall:.3f} steps/s, "
               f"{1e3 * wall / args.steps:.3f} ms/step")
+    elif args.path == "rigid":
+        rigid = polar_bench.build_rigid()
+        polar_bench.run_rigid(rigid, 3)
+        torch.cuda.synchronize()
+
+        def run_steps(k):
+            return polar_bench.run_rigid(rigid, k)
+
+        # fused32_events wraps the phases of the runner's PolarStep
+        fused32_events(argparse.Namespace(step=rigid.runner.step),
+                       run_steps, args.steps)
+        # the special correction with the System's atom types (int32, as
+        # make_system gives them) and as int64 (build_synthetic's), and
+        # the rigid integrator's two halves, by CUDA events around a call
+        import chip_smoke
+
+        sys_, res_, st_ = rigid.state
+        step_, integ = rigid.runner.step, rigid.runner.integ
+        x_ = sys_.x - rigid.runner._lo
+        for dt in (torch.int32, torch.int64):
+            t_ = sys_.type.to(dt)
+            ms = chip_smoke.cuda_ms(lambda: step_._special_correction(
+                x_, sys_.q, t_), reps=20)
+            print(f"special correction, types {dt}: {ms:.3f} ms a call")
+        for name, fn in (
+                ("initial", lambda: integ.initial(sys_, res_, integ.params,
+                                                  st_)),
+                ("final", lambda: integ.final(sys_, res_, integ.params,
+                                              st_))):
+            print(f"rigid integrator {name} half: "
+                  f"{chip_smoke.cuda_ms(fn, reps=20):.3f} ms a call, "
+                  f"{chip_smoke.cuda_ms_queued(fn, 20):.3f} queued")
     else:
         bench = polar_bench.build_synthetic()
         polar_bench.setup_forces(bench)

@@ -830,3 +830,77 @@ def test_compute_forces_routes_on_cuda(dev):
     assert ck.cell_pair_forces_lj.launches == before + 1
     _lj_close((res2.f, res2.evdwl, res2.virial), (ref[0], ref[1], ref[3]),
               True)
+
+
+# ------------------- the pair kernels at the cutoff ----------------------
+
+def test_cutoff_pairs_strip_and_whole_kernels(dev):
+    """chip_smoke.cutoff_pairs_case: a pair at exactly the outer cutoff and
+    one ulp inside it, which a rsq contracted into fused multiply-adds puts
+    on the other side.  The strip kernel (cols, row0) and the whole kernel
+    decide each pair as the plain version does (the same rows take a force
+    and the field, exactly zero elsewhere), float32 and float64
+    (chip_smoke.cutoff_pairs_parity)."""
+    sysd = polar_bench.synthetic_system(2)
+    ff = polar_bench.synthetic_forcefield(sysd, torch.float32, dev)
+    _load_chip_smoke().cutoff_pairs_parity(ff.pair)
+
+
+# --------------- rigid molecules through FastPolarRunner ----------------
+
+def _rigid_run(panel_kind, n_side, steps):
+    bench = polar_bench.build_rigid(n_side, panel=panel_kind)
+    rows = [polar_bench.setup_rigid(bench)]
+    states = [bench.state]
+    for _ in range(steps):
+        rows += polar_bench.run_rigid(bench, 1)
+        states.append(bench.state)
+    return bench, rows, states
+
+
+def test_rigid_step_through_kernels_matches_plain(dev):
+    """Path G's step on the 375-atom fluid as rigid molecules (float32,
+    fused): setup + 3 steps through the kernels against the plain float32
+    route (panel="scan") on the same card: forces rtol 1e-3, atol 2e-4 of
+    max |f| (test_step_through_kernels_matches_plain's bar), energies rel
+    1e-5 (epol rel 1e-4, abs 2e-2), positions 1e-5 of the box,
+    quaternions 1e-5."""
+    (kb, krows, kst), (pb, prows, pst) = (_rigid_run(p, 5, 3)
+                                         for p in ("kernel", "scan"))
+    n = kb.natoms
+    for (ks, kr, ki), (ps, pr, pi), kw, pw in zip(kst, pst, krows, prows):
+        a, b = kr.f[:n].double().cpu(), pr.f[:n].double().cpu()
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-3,
+                                   atol=2e-4 * b.abs().max().item())
+        for k in ("evdwl", "ecoul", "elong"):
+            assert kw[k] == pytest.approx(pw[k], rel=1e-5), k
+        assert kw["epol"] == pytest.approx(pw["epol"], rel=1e-4, abs=2e-2)
+        np.testing.assert_allclose(ks.x[:n].cpu().numpy(),
+                                   ps.x[:n].cpu().numpy(), rtol=0,
+                                   atol=1e-5 * 20.0)
+        np.testing.assert_allclose(ki.quat.cpu().numpy(),
+                                   pi.quat.cpu().numpy(), rtol=0, atol=1e-5)
+
+
+def test_unwrapped_shift_through_kernels(dev):
+    """The 1,536-atom fluid moved by +L/2 along x and left unwrapped (half
+    of the atoms beyond the box, 12 tiles of the whole kernels, so the
+    tile-pair test drops some) through the kernels, against the plain
+    route on the wrapped coordinates: forces and dipoles at the float32
+    bars above."""
+    out = []
+    for panel_kind, wrap in (("kernel", False), ("scan", True)):
+        bench = polar_bench.build_rigid(8, panel=panel_kind)
+        s = bench.system
+        L = s.box.lengths
+        x = s.x + torch.tensor([0.5 * float(L[0]), 0.0, 0.0], device=dev)
+        if wrap:
+            x = x - torch.floor(x / L) * L
+        x = torch.where(s.mask[:, None], x, 0.0)
+        out.append(bench.runner.forces(s.replace(x=x)))
+    n = 3 * 8**3
+    for name in ("f", "mu"):
+        a = getattr(out[0], name)[:n].double().cpu().numpy()
+        b = getattr(out[1], name)[:n].double().cpu().numpy()
+        np.testing.assert_allclose(a, b, rtol=1e-3,
+                                   atol=2e-4 * np.abs(b).max(), err_msg=name)

@@ -330,8 +330,17 @@ def test_unported_options_raise():
         Runner(ff=ff, integ=integ).setup(t["sys"])
     with pytest.raises(NotImplementedError, match="neighbor.py"):
         Runner(ff=ff, integ=integ, neighbor_cfg=object()).setup(t["sys"])
-    with pytest.raises(NotImplementedError, match="rigid"):
-        rigid_nve_integrator(None, None)
+    # rigid/nve is ported (tests/test_torch_rigid.py); its thermostat and
+    # barostat are not
+    from lidp_tpu_torch.integrate import rigid
+
+    setup = rigid.setup_bodies(np.zeros((3, 3)) + np.eye(3), np.ones(3),
+                               np.ones(3, np.int64), np.ones(3, bool))
+    assert rigid_nve_integrator(None, None).params is None
+    for flag in ("tstat", "pstat"):
+        with pytest.raises(NotImplementedError, match="rigid"):
+            rigid.make_rigid_params(setup, DT, 1.0, device="cpu",
+                                    **{flag: True})
     with pytest.raises(NotImplementedError, match="RespaRunner"):
         RespaRunner(ff=ff)
 

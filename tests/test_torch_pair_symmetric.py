@@ -38,6 +38,18 @@ wolf_panel_plain and JAX's Pallas wolf_panel).
   * a pair at exactly rsq == cut_coulsq is inside the field's inclusive
     cutoff for the plain row form, the tile-pair test and the warp vote
     alike;
+  * the strip form (cols=, row0) at the outer cutoff: pairs at exactly
+    rsq == cutsq and one ulp inside it are decided by the plain version as
+    by JAX's Pallas pair_wolf_panel and pair_panel (interpret mode,
+    float32) and the JAX scan path's strip phases (float64): the same rows
+    take a force and the field, exactly zero elsewhere, at
+    tests/test_torch_panel_kernels.py's bars (1e-12 in float64).  On
+    chip_smoke.cutoff_pairs_case, whose pairs a rsq contracted into fused
+    multiply-adds puts on the other side (held here with exact
+    arithmetic), the plain version decides by rsq rounded term by term,
+    as the CUDA kernels do (tests/test_torch_cuda_kernels.py holds the
+    strip and whole kernels to it), and JAX on the CPU by the contracted
+    form: XLA contracts rsq in both dtypes;
   * the wrapper refuses type tables that are not symmetric;
   * the least arithmetic that chip_smoke.py's bound counts: the pairs it
     charges for are those on which the plain row form puts a term.
@@ -698,3 +710,176 @@ def test_bound_counts_the_pairs_that_act():
                    c["mask"][j:j + 1]), row0=-j) for j in range(npad)]
     acts = (torch.stack(e0, 1) != 0).any(-1)
     assert bool(keep[tid[:, None], tid[None, :]][acts].all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cutoff_pairs_case_crosses_when_fused(dtype):
+    """The case's pairs: rsq rounded term by term is the cutoff (pair 0)
+    or one ulp below it (pair 1), and both contracted forms lie on the
+    other side of the cutoff."""
+    c = chip_smoke.cutoff_pairs_case(dtype, "cpu")
+    npt = np.float32 if dtype == torch.float32 else np.float64
+    x = c["x"].numpy()
+    C = npt(chip_smoke.CUTOFF_SQ)
+    for k, (want, side) in enumerate(((C, lambda f: f < C),
+                                      (np.nextafter(C, npt(0)),
+                                       lambda f: f >= C))):
+        d = x[2 * k] - x[2 * k + 1]
+        assert (d[0] * d[0] + d[1] * d[1]) + d[2] * d[2] == want
+        assert all(side(f) for f in chip_smoke.fused_rsq(d, npt)), k
+
+
+def _cutoff_args(c, form, conv):
+    tabs = _tabs()
+    head = (conv(c["x"]), conv(c["q"]), conv(c["type"]))
+    tail = (conv(c["mask"]), conv(tabs), conv(c["L"]), CUT_COULSQ, QQRD2E,
+            G_EWALD)
+    if form == "coul_wolf":
+        args = head + (conv(c["mol"]),) + tail
+        return args, args[:5]
+    args = head + tail
+    return args, args[:4]
+
+
+def _acting_rows(out):
+    """Rows with a nonzero force, and (with the field) a nonzero field."""
+    rows = [(np.asarray(out[0]) != 0).any(1)]
+    if len(out) == 5:
+        rows.append((np.asarray(out[4]) != 0).any(1))
+    return rows
+
+
+def _same_rounding_case(dtype):
+    """Pairs at exactly CUTOFF_SQ and one ulp inside it, laid out as in
+    cutoff_pairs_case, whose contracted forms round to the same rsq: how
+    XLA forms rsq on the CPU cannot move them."""
+    npt = np.float32 if dtype == torch.float32 else np.float64
+    c = chip_smoke.cutoff_pairs_case(dtype, "cpu")
+    x = c["x"].numpy().copy()
+    C = npt(chip_smoke.CUTOFF_SQ)
+    for k, target in enumerate((C, np.nextafter(C, npt(0)))):
+        x[2 * k + 1] = chip_smoke._cutoff_partner(
+            npt, x[2 * k], target, lambda f, t=target: f == t, seed=10 + k)
+    return dict(c, x=torch.as_tensor(x))
+
+
+# rows with a force on each case: by rsq rounded term by term (the plain
+# version, the CUDA kernels) and by a contracted rsq (XLA on the CPU)
+_ROUNDED = np.array([False, False, True, True, False, False])
+_CONTRACTED = np.array([True, True, False, False, False, False])
+
+
+def _cases(dtype):
+    return ((_same_rounding_case(dtype), _ROUNDED),
+            (chip_smoke.cutoff_pairs_case(dtype, "cpu"), _CONTRACTED))
+
+
+@pytest.mark.parametrize("form", ["coul_wolf", "coul"])
+def test_strip_form_decides_cutoff_pairs_as_pallas(form):
+    """The strip form (cols = all atoms, row0 = 0) of the plain version and
+    of JAX's Pallas kernel (interpret mode, float32) on pairs at exactly the
+    outer cutoff and one ulp inside it: rows 2 and 3 take a coulomb force
+    and the field, the others exactly none, at the float32 bars.  On
+    cutoff_pairs_case, whose pairs the contracted forms put on the other
+    side, the plain version decides by rsq rounded term by term, as the
+    CUDA kernels do, and the Pallas kernel as the contracted form: XLA on
+    the CPU contracts rsq into fused multiply-adds."""
+    for case, jax_rows in _cases(torch.float32):
+        args, cols = _cutoff_args(case, form, lambda a: torch.as_tensor(
+            np.asarray(a), dtype=torch.float32))
+        jargs, jcols = _cutoff_args(case, form, lambda a: jnp.asarray(
+            np.asarray(a, np.float32)))
+        if form == "coul_wolf":
+            got = panel.pair_wolf_panel_plain(*args, cols=cols, row0=0)
+            ref = pallas_panel.pair_wolf_panel(*jargs, cols=jcols, row0=0)
+        else:
+            got = panel.pair_panel_plain(*args, cols=cols, row0=0)
+            ref = pallas_panel.pair_panel(*jargs, cols=jcols, row0=0)
+        for a in _acting_rows(got):
+            np.testing.assert_array_equal(a, _ROUNDED)
+        for a in _acting_rows(ref):
+            np.testing.assert_array_equal(a, jax_rows)
+        if jax_rows is _ROUNDED:
+            _close_f32(got, ref)
+
+
+def _jax_scan_strip(c):
+    """The JAX scan path's strip phases (build_sharded_polar_step(
+    panel="scan").host_phases(strips=2): pair_real and wolf, float64) on
+    case c: (f, ecoul, e0 unscaled) of its six rows."""
+    from lidp_tpu.forcefield import ForceField
+    from lidp_tpu.ops import polarization as jpol
+    from lidp_tpu.ops.pair import make_pair_params
+    from lidp_tpu.parallel import shard
+
+    eps, sig, cut = np.zeros((3, 3)), np.zeros((3, 3)), np.zeros((3, 3))
+    eps[1:, 1:] = [[0.1, 0.05], [0.05, 0.03]]
+    sig[1:, 1:] = [[3.0, 2.7], [2.7, 2.5]]
+    cut[1:, 1:] = 6.0
+    pair = make_pair_params(eps, sig, cut, cut_coul=6.5, coul=True,
+                            qqrd2e=QQRD2E, g_ewald=G_EWALD,
+                            dtype=jnp.float64)
+    np.testing.assert_array_equal(np.asarray(pair.cutsq), _tabs()[4])
+    s = jpol.PolarizationSettings()
+    ff = ForceField(pair=pair, ewald=None, polar=s, qqrd2e=QQRD2E)
+    make, bind_box, npad, _ = shard.build_sharded_polar_step(
+        None, ff, s, n=4, dt=1.0, ftm2v=1.0, dtype=jnp.float64,
+        panel="scan")
+    bind_box(np.full(3, 60.0))
+    ph = make.host_phases(strips=2)
+
+    def padded(a, dt=np.float64):
+        a = np.asarray(a)
+        out = np.zeros((npad,) + a.shape[1:], dt)
+        out[:6] = a
+        return jnp.asarray(out)
+
+    x, q, m = padded(c["x"]), padded(c["q"]), padded(c["mask"], bool)
+    f, _, ec, _, _ = ph["pair_real"](0, x, q, padded(c["type"], np.int32), m)
+    e0 = ph["wolf"](0, x, q, padded(c["mol"], np.int32), m)
+    return (np.asarray(f)[:6], float(ec),
+            np.asarray(e0)[:6] / np.sqrt(QQRD2E))
+
+
+def test_strip_form_decides_cutoff_pairs_as_jax_f64():
+    """float64: the plain strip form (cols, row0) against the JAX scan
+    path's strip phases on the same two cases: the same rows take a force
+    and the field, and the values agree to 1e-12 of their largest, on the
+    pairs at exactly the cutoff and one ulp inside it that the contracted
+    forms leave in place; on cutoff_pairs_case XLA decides as the
+    contracted form, as in float32."""
+    t = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float64)  # noqa
+    for case, jax_rows in _cases(torch.float64):
+        args = (case["x"], case["q"], case["type"], case["mol"],
+                case["mask"], t(_tabs()), case["L"], CUT_COULSQ, QQRD2E,
+                G_EWALD)
+        f, _, ec, _, e0 = panel.pair_wolf_panel_plain(*args, cols=args[:5],
+                                                      row0=0)
+        fj, ecj, e0j = _jax_scan_strip(case)
+        for a in (f, e0):
+            np.testing.assert_array_equal((a.numpy() != 0).any(1),
+                                          _ROUNDED)
+        for a in (fj, e0j):
+            np.testing.assert_array_equal((a != 0).any(1), jax_rows)
+        if jax_rows is _ROUNDED:
+            for a, b in ((f, fj), (e0, e0j)):
+                np.testing.assert_allclose(a.numpy(), b, rtol=0,
+                                           atol=1e-12 * np.abs(b).max())
+            assert float(ec) == pytest.approx(ecj, rel=1e-12)
+
+
+def test_strip_form_decides_cutoff_pairs_f64():
+    """The float64 plain strip form, with the field (pair_panel_df's plain
+    version), decides the float64 case's pairs alike, with the bits of the
+    whole form."""
+    c = chip_smoke.cutoff_pairs_case(torch.float64, "cpu")
+    t = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float64)  # noqa
+    args = (c["x"], c["q"], c["type"], c["mask"], t(_tabs()), c["L"],
+            CUT_COULSQ, QQRD2E, G_EWALD)
+    got = panel.pair_panel_df_plain(*args, mol=c["mol"],
+                                    cols=(*args[:4], c["mol"]), row0=0)
+    whole = panel.pair_panel_df_plain(*args, mol=c["mol"])
+    for a in _acting_rows(got):
+        np.testing.assert_array_equal(a, _ROUNDED)
+    for a, b in zip(got, whole):
+        assert torch.equal(a, b)

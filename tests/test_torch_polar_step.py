@@ -290,7 +290,14 @@ def test_package_imports_no_jax():
         "assert 'lidp_tpu_torch.parallel.fast_polar' in sys.modules\n"
         "for name in ('rng', 'lattice', 'velocity', 'state', 'thermo',"
         " 'ops.cells', 'ops.cell_kernels', 'integrate.nve',"
-        " 'integrate.driver', 'integrate.slot_runner', 'models.lj_melt'):\n"
+        " 'integrate.driver', 'integrate.slot_runner', 'integrate.rigid',"
+        " 'models.lj_melt'):\n"
+        "    assert 'lidp_tpu_torch.' + name in sys.modules, name\n"
+        "from lidp_tpu_torch.parallel.fast_polar import FastPolarRunner,"
+        " maybe_attach\n"
+        "from lidp_tpu_torch.models.polar_bench import build_rigid,"
+        " run_rigid\n"
+        "for name in ('integrate.rigid', 'parallel.fast_polar'):\n"
         "    assert 'lidp_tpu_torch.' + name in sys.modules, name\n"
         "print(len([m for m in sys.modules if m.startswith('lidp_tpu_torch')]))\n")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -341,9 +348,27 @@ def test_entry_points_default_to_cuda():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         make_system(np.zeros((4, 3)), box=Box.create(np.zeros(3), np.ones(3)))
     for fn in (convert.pair_from_numpy, convert.system_from_numpy,
-               convert.cells_from_numpy, convert.slot_carry_from_numpy):
+               convert.cells_from_numpy, convert.slot_carry_from_numpy,
+               convert.rigid_state_from_numpy):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             fn({})
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        polar_bench.build_rigid(N_SIDE)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        polar_bench.build_rigid(N_SIDE, dtype=torch.float64)
+    from lidp_tpu_torch.integrate import rigid
+    from lidp_tpu_torch.parallel import fast_polar
+
+    sysd = polar_bench.synthetic_system(2)
+    setup = rigid.setup_bodies(sysd["x"], sysd["mass"], sysd["mol"],
+                               np.ones(24, bool))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        rigid.make_rigid_params(setup, 0.5, 1.0)
+    ff32 = polar_bench.synthetic_forcefield(sysd, torch.float32, "cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        fast_polar.FastPolarRunner(
+            None, ff=ff32, pol=ff32.polar, n=24, npad=256, dt=0.5,
+            ftm2v=1.0, box_lo=np.zeros(3), box_lengths=sysd["L"])
     from lidp_tpu_torch.parallel import shard
 
     ff = polar_bench.synthetic_forcefield(
