@@ -47,7 +47,11 @@ Phases, each raising on failure:
      that a rsq contracted into fused multiply-adds puts each on the other
      side; the strip kernel and the whole kernel, float32 and float64,
      give the rows that take a force and the field exactly as the plain
-     version does;
+     version does; and the dipole kernels on the same pairs with dipoles
+     (dipole_cutoff_parity): strip and whole kernel, float32 and float64,
+     one polar atom (no dipole-dipole pair: only the charge-dipole force
+     decides the rows, exactly rows 2 and 3) and all four polar, at the
+     bars above;
   4. the main paths on the 10,125-atom synthetic fluid, every launch
      counter set to 0 just before each and read just after:
      A. float32 fused step through the kernels: initial forces + 20 steps
@@ -85,6 +89,20 @@ Phases, each raising on failure:
         through panel="scan" (the plain versions, which launch no kernel)
         on the card: thermo columns rel 1e-9 of max(1, |value|),
         positions, dipoles and quaternions 1e-8 of their largest entry;
+     H. the same rigid fluid from a LAMMPS input and data file
+        (fluid_script_case: FLUID_SCRIPT, the keywords of
+        synthetic_forcefield) through the script front end in this
+        process: LammpsScript(dtype=torch.float64) at precision 1e-11, 5
+        steps, fused mode (eind_panel_df, pair_panel_df, dipole_panel_df);
+        its launches equal those of build_rigid(float64, 1e-11) +
+        setup_rigid + run_rigid(5) on the same card, and its 6 rows equal
+        that route's, every thermo column within rel 1e-9 of max(1,
+        |value|); steps_per_s_H from the run's Loop time line;
+     H32. the CLI as a user runs it, in a process of its own: `python -m
+        lidp_tpu_torch -in in.fluid -log log.h32 --f32 -var prec 1e-6 -var
+        nstep 20` exits 0 and its 21 logged rows agree with path G's (the
+        same system, float32, fused, 1e-6): step 0 rel 1e-6, steps 1-20
+        rel 1e-5 of max(1, |value|); its Performance line;
   5. the LJ melt of bench/in.lj on the cell engine (lj_melt.build), float32:
      kernel parity of slot_lj_forces and cell_pair_forces_lj against their
      plain versions at the melt's (11,11,11,40) grid (the melt after path
@@ -130,7 +148,7 @@ Phases, each raising on failure:
      bars there are taken of max(max |f|, 1), the nearest-neighbour pair
      force being 2;
   6. one JSON line {"kernels": [...]} with each of the ten kernels'
-     launches (summed and by path, A-G64), times, ms_queued and bound,
+     launches (summed and by path, A-H), times, ms_queued and bound,
      then the nvidia-smi line, then the device line last.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
@@ -143,15 +161,18 @@ import dataclasses
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 NSTEPS = 20              # paths A and G
 HOST_STEPS = 5           # paths B and C
 G64_STEPS = 3            # path G64
+H_STEPS = 5              # path H
 SHARE_STEPS = 10         # path G's steps timed part by part
 # thermo columns held between G64's kernel and plain routes
 G64_COLS = ("etotal", "ke", "pe", "evdwl", "ecoul", "elong", "epol", "temp",
@@ -507,6 +528,76 @@ def cutoff_pairs_parity(pair):
                       f"{torch.nonzero(acts).flatten().tolist()} as the "
                       f"plain version's, max abs err {err:.3e} of max |ref| "
                       f"{scale:.3e}")
+
+
+def dipole_cutoff_case(dtype, device="cuda", polar="one"):
+    """cutoff_pairs_case with induced dipoles: mu nonzero on atoms 0-3 (in
+    four molecules) and alpha_eff nonzero on every atom of the pairs
+    (polar="both") or on atom 2 alone (polar="one").  The charge-dipole
+    block acts for rsq < cut_coulsq whatever alpha is, and at the cutoff
+    its force does not vanish (the shifted tensor's e = 2/cut_coulsq), so
+    a rsq contracted into fused multiply-adds moves pair (0, 1) in and
+    pair (2, 3) out.  With polar="one" no pair takes the dipole-dipole
+    block (it needs alpha on both sides, and has no cutoff), so exactly
+    rows 2 and 3 take a force; with "both" every live row does, and the
+    values tell."""
+    import numpy as np
+    import torch
+
+    c = cutoff_pairs_case(dtype, device)
+    npt = np.float32 if dtype == torch.float32 else np.float64
+    mu = np.zeros((6, 3), npt)
+    mu[:4] = [[0.03, -0.02, 0.05], [-0.04, 0.01, 0.02],
+              [0.02, 0.05, -0.03], [0.01, -0.03, -0.04]]
+    alpha = [1.1, 0.4, 1.1, 0.4, 0, 0] if polar == "both" \
+        else [0, 0, 1.1, 0, 0, 0]
+    t = lambda a: torch.as_tensor(np.asarray(a, npt), dtype=dtype,  # noqa
+                                  device=device)
+    return dict(c, mu=t(mu), alpha=t(alpha))
+
+
+def dipole_cutoff_parity(pair, s):
+    """The dipole kernels on dipole_cutoff_case, both polar variants: the
+    strip kernel (cols = all atoms, row0 = 0) and the whole kernel against
+    the plain version in float32 (dipole_panel) and float64
+    (dipole_panel_df), at compare's bars; with one polar atom a pair the
+    rows that take a force are exactly the plain version's, rows 2 and 3."""
+    import torch
+
+    from lidp_tpu_torch.ops import panel
+
+    for dtype, name in ((torch.float32, "dipole_panel"),
+                        (torch.float64, "dipole_panel_df")):
+        wrapper = panel.WRAPPERS[name]
+        plain = (panel.dipole_panel_plain if dtype == torch.float32
+                 else panel.dipole_panel_df_plain)
+        for polar in ("one", "both"):
+            c = dipole_cutoff_case(dtype, polar=polar)
+            args = (c["x"], c["q"], c["mol"], c["alpha"], c["mu"],
+                    c["mask"], c["L"], s.polar_damp, pair.cut_coulsq,
+                    pair.qqrd2e)
+            kw = dict(damping_type=s.damping_type)
+            ref = plain(*args, **kw)
+            want = torch.zeros(6, dtype=torch.bool, device=c["x"].device)
+            want[c["force_rows"] if polar == "one" else [0, 1, 2, 3]] = True
+            for form, extra in (("strip form", dict(cols=args[:6], row0=0)),
+                                ("whole", {})):
+                label = f"{name}[{form}, cutoff pairs, {polar} polar]"
+                got = wrapper(*args, **extra, **kw)
+                torch.cuda.synchronize()
+                err, scale = compare(label, got, ref, dtype == torch.float64)
+                acts = (got[0] != 0).any(1)
+                if not (torch.equal(acts, (ref[0] != 0).any(1))
+                        and torch.equal(acts, want)):
+                    raise AssertionError(
+                        f"{label}: rows with a force {acts.tolist()}, plain "
+                        f"{(ref[0] != 0).any(1).tolist()}")
+                print(f"parity {label} ok: rows with a force "
+                      f"{torch.nonzero(acts).flatten().tolist()} as the "
+                      f"plain version's, max abs err {err:.3e} of max |ref| "
+                      f"{scale:.3e}, scalars at "
+                      f"{scalar_margin(got, ref, dtype == torch.float64):.3g}"
+                      f" of their bar")
 
 
 def kernel_calls(c, c64, pair, s):
@@ -1184,6 +1275,56 @@ def g64_compare(rows_k, rows_p, states_k, states_p, n):
           f"{worst_arr:.3g} of theirs")
 
 
+def rows_agree(path, rows, ref, rels):
+    """Thermo rows against reference rows, row k's G64_COLS within rels[k]
+    of max(1, |value|); raises on the first that is not.  Returns the
+    largest ratio of a difference to its bar."""
+    if len(rows) != len(ref):
+        raise AssertionError(f"path {path}: {len(rows)} rows, reference "
+                             f"{len(ref)}")
+    worst = 0.0
+    for k, (r, g, rel) in enumerate(zip(rows, ref, rels)):
+        for c in G64_COLS:
+            bar = rel * max(1.0, abs(g[c]))
+            worst = max(worst, abs(r[c] - g[c]) / bar)
+            if not abs(r[c] - g[c]) <= bar:
+                raise AssertionError(f"path {path} row {k} {c}: {r[c]!r}, "
+                                     f"reference {g[c]!r}")
+    return worst
+
+
+# a log's thermo header words -> thermo keywords (sim.Simulation._HEADER)
+LOG_COLS = {"Step": "step", "TotEng": "etotal", "KinEng": "ke",
+            "PotEng": "pe", "E_vdwl": "evdwl", "E_coul": "ecoul",
+            "E_long": "elong", "E_pol": "epol", "Temp": "temp",
+            "Press": "press"}
+
+
+def log_rows(lines):
+    """The thermo rows of a log: the lines after a `Step ...` header up to
+    the `Loop time` line, as dicts of thermo keywords."""
+    rows, cols = [], None
+    for line in lines:
+        words = line.split()
+        if words and words[0] == "Step":
+            cols = [LOG_COLS[w] for w in words]
+        elif line.startswith("Loop time"):
+            cols = None
+        elif cols and len(words) == len(cols):
+            rows.append({c: float(w) for c, w in zip(cols, words)})
+    return rows
+
+
+def loop_seconds(lines, nsteps):
+    """The seconds of the `Loop time of T on 1 procs for N steps` line of
+    a log (N must be nsteps)."""
+    for line in lines:
+        words = line.split()
+        if line.startswith("Loop time") and int(words[8]) == nsteps:
+            return float(words[3])
+    raise AssertionError(f"no Loop time line for {nsteps} steps")
+
+
 def run_rigid_states(bench, steps):
     """polar_bench.setup_rigid + `steps` run_rigid steps one at a time:
     (rows, states, host seconds of the steps, the float64 residual passes
@@ -1333,6 +1474,83 @@ def lj_compare(name, got, ref, need_ev, fscale=None):
             raise AssertionError(f"{name} {tag}: {g.tolist()} vs "
                                  f"{r.tolist()} (need_ev={need_ev})")
     return err, scale
+
+
+FLUID_SCRIPT = """\
+variable prec index 1e-11
+variable nstep index 20
+units real
+atom_style full
+boundary p p p
+read_data fluid.data
+special_bonds lj/coul 0.0 0.0 0.0
+set type 1 static_polarizability 1.1
+set type 2 static_polarizability 0.4
+pair_style lj/cut/coul/long/polarization 6.0 6.5 precision ${prec} \
+damp_type exponential use_previous yes
+pair_coeff 1 1 0.1 3.0
+pair_coeff 1 2 0.05 2.7
+pair_coeff 2 2 0.03 2.5
+kspace_style ewald/disp 1e-4
+timestep 0.5
+fix 1 all rigid/nve molecule
+thermo_style custom step etotal ke pe evdwl ecoul elong epol temp press
+thermo 1
+run ${nstep}
+"""
+
+
+def fluid_script_case(directory, n_side=15, seed=0, wrapped=False):
+    """Write polar_bench.synthetic_system(n_side, seed=seed) as a LAMMPS
+    data file, `fluid.data` (atom_style full with image flags, Masses,
+    Velocities, Bonds; floats by repr, so read back bit for bit), and the
+    input `in.fluid` (FLUID_SCRIPT: the keywords of
+    polar_bench.synthetic_forcefield, the molecules as rigid bodies, a
+    thermo row a step; `-var prec` and `-var nstep` set the SCF precision
+    and the steps).  wrapped: shift x by L/2 and wrap it into the box, so
+    that molecules straddle the faces, with the image flags that unwrap
+    them (topology.infer_image_flags on the bonds).  Returns the paths
+    (data, script)."""
+    import numpy as np
+
+    from lidp_tpu_torch.models import polar_bench
+    from lidp_tpu_torch.topology import infer_image_flags
+
+    d = polar_bench.synthetic_system(n_side, seed=seed)
+    x, L = d["x"], d["L"]
+    n = x.shape[0]
+    image = np.zeros((n, 3), np.int64)
+    if wrapped:
+        x = x + 0.5 * L
+        x = x - np.floor(x / L) * L
+        image = infer_image_flags(x, d["bonds"], np.zeros(3), L)
+    mass = {1: 15.9994, 2: 1.008}
+
+    def r(v):
+        return repr(float(v))
+
+    lines = ["LAMMPS data file: synthetic polarizable fluid", "",
+             f"{n} atoms", f"{len(d['bonds'])} bonds", "2 atom types",
+             "1 bond types", ""]
+    lines += [f"0.0 {r(L[k])} {a}lo {a}hi" for k, a in enumerate("xyz")]
+    lines += ["", "Masses", ""] + [f"{t} {r(m)}" for t, m in mass.items()]
+    lines += ["", "Atoms # full", ""]
+    lines += [f"{i + 1} {d['mol'][i]} {d['type'][i]} {r(d['q'][i])} "
+              f"{r(x[i, 0])} {r(x[i, 1])} {r(x[i, 2])} "
+              f"{image[i, 0]} {image[i, 1]} {image[i, 2]}"
+              for i in range(n)]
+    lines += ["", "Velocities", ""]
+    lines += [f"{i + 1} {r(d['v'][i, 0])} {r(d['v'][i, 1])} "
+              f"{r(d['v'][i, 2])}" for i in range(n)]
+    lines += ["", "Bonds", ""]
+    lines += [f"{k + 1} 1 {a} {b}" for k, (a, b) in enumerate(d["bonds"])]
+    data = os.path.join(directory, "fluid.data")
+    script = os.path.join(directory, "in.fluid")
+    with open(data, "w") as fh:
+        fh.write("\n".join(lines) + "\n")
+    with open(script, "w") as fh:
+        fh.write(FLUID_SCRIPT)
+    return data, script
 
 
 def ragged_lj_case(device="cuda", seed=3):
@@ -1764,6 +1982,7 @@ def main() -> int:
         del calls, c64
     del cases
     cutoff_pairs_parity(ff.pair)
+    dipole_cutoff_parity(ff.pair, ff.polar)
     torch.cuda.empty_cache()
 
     # 4. the main paths: every counter to 0 just before, read just after
@@ -2045,6 +2264,7 @@ def main() -> int:
           f"ms/step = {100 * (parts['initial'] + parts['final']) / total:.1f}"
           f"% of {total:.3f}")
     print(f"steps_per_s_G {steps_per_s_G:.4f}")
+    rowsG_all = [rowG0] + rowsG
     del bench, sysG0, resG0, rowsG, ref, f64, mu64
     torch.cuda.empty_cache()
 
@@ -2098,6 +2318,95 @@ def main() -> int:
     print(f"steps_per_s_G64 {steps_per_s_G64:.4f}")
     del bench, plain, statesK, statesP
     torch.cuda.empty_cache()
+
+    # path H: the same fluid from a LAMMPS script and data file through the
+    # script front end (io/script.py LammpsScript -> sim.py Simulation ->
+    # FastPolarRunner), float64 at 1e-11, fused mode, in this process
+    if os.environ.get("LIDP_FAST_POLAR_MODE", "fused") != "fused":
+        raise AssertionError("path H runs in fused mode")
+    from lidp_tpu_torch.io.script import LammpsScript
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        _, in_fluid = fluid_script_case(work)
+        logH = []
+        script = LammpsScript(dtype=torch.float64, log=logH.append)
+        script.variables.update(prec="1e-11", nstep=str(H_STEPS))
+        reset_counts()
+        script.file(in_fluid)
+        launches["H"] = read_counts()
+        rowsH = script.thermo_rows
+        print(f"path H: {in_fluid} through LammpsScript, float64, "
+              f"precision 1e-11, {H_STEPS} steps; its log:")
+        for line in logH:
+            print(f"  H| {line}")
+        runner = script._sim.runner
+        if type(runner).__name__ != "FastPolarRunner" or \
+                runner.mode != "fused":
+            raise AssertionError(f"path H: runner {type(runner).__name__}")
+        steps_per_s_H = H_STEPS / loop_seconds(logH, H_STEPS)
+        del script, runner
+        torch.cuda.empty_cache()
+        # the same system through the Python builder, on the same card
+        bench = polar_bench.build_rigid(**kw64)
+        reset_counts()
+        t0 = time.perf_counter()
+        rowsB = [polar_bench.setup_rigid(bench)]
+        rowsB += polar_bench.run_rigid(bench, H_STEPS)
+        torch.cuda.synchronize()
+        t_B = time.perf_counter() - t0
+        want = read_counts()
+        del bench
+        torch.cuda.empty_cache()
+        check_counts("H", launches["H"], want)
+        if not all(launches["H"][k] for k in ("eind_panel_df",
+                                              "pair_panel_df",
+                                              "dipole_panel_df")):
+            raise AssertionError(f"path H: a float64 kernel was not "
+                                 f"launched: {launches['H']}")
+        check_whole("H")
+        worst = rows_agree("H", rowsH, rowsB, [1e-9] * len(rowsB))
+        print(f"path H rows vs build_rigid's over {len(rowsB)} rows: thermo "
+              f"columns at {worst:.3g} of their bar (rel 1e-9 of max(1, "
+              f"|value|))")
+        print(f"steps_per_s_H {steps_per_s_H:.4f} (Loop time); build_rigid "
+              f"route {H_STEPS / t_B:.4f} steps/s with its setup "
+              f"(host clock)")
+
+        # path H32: the CLI as a user runs it, float32 at 1e-6, 20 steps,
+        # in a process of its own, against path G's rows
+        cmd = [sys.executable, "-m", "lidp_tpu_torch", "-in", "in.fluid",
+               "-log", "log.h32", "--f32", "-var", "prec", "1e-6", "-var",
+               "nstep", str(NSTEPS)]
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            filter(None, (ROOT, os.environ.get("PYTHONPATH")))))
+        t0 = time.perf_counter()
+        res = subprocess.run(cmd, cwd=work, env=env, capture_output=True,
+                             text=True, timeout=600)
+        t_h32 = time.perf_counter() - t0
+        if res.returncode != 0:
+            raise AssertionError(f"path H32: exit {res.returncode}\n"
+                                 f"{res.stdout[-4000:]}\n{res.stderr[-4000:]}")
+        with open(os.path.join(work, "log.h32")) as fh:
+            logH32 = fh.read().splitlines()
+        rowsH32 = log_rows(logH32)
+        if len(rowsH32) != NSTEPS + 1:
+            raise AssertionError(f"path H32: {len(rowsH32)} thermo rows")
+        worst = rows_agree("H32", rowsH32, rowsG_all,
+                           [1e-6] + [1e-5] * NSTEPS)
+        same = all(f"{r[c]:.8g}" == f"{g[c]:.8g}"
+                   for r, g in zip(rowsH32, rowsG_all) for c in G64_COLS)
+        print(f"path H32: `{' '.join(cmd[1:])}` exit 0 in {t_h32:.1f} s; "
+              f"{len(rowsH32)} logged rows vs path G's at {worst:.3g} of "
+              f"their bar (step 0 rel 1e-6, steps 1-{NSTEPS} rel 1e-5 of "
+              f"max(1, |value|)); "
+              + ("the rows are identical to G's at the printed precision"
+                 if same else "the rows differ from G's at the printed "
+                 "precision"))
+        print("path H32 " + next(line for line in logH32
+                                 if line.startswith("Performance:")))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
     # 5. the LJ melt on the cell engine: path E, kernel parity on its last
     # state, then paths F and E4

@@ -8,6 +8,8 @@
 //   dipole-dipole with Thole exponential damping when alpha_i, alpha_j != 0
 //   (no cutoff, no molecule exclusion).
 // Padded rows drop out only because their q, alpha_eff and mu are zero.
+// rsq is formed unfused (rsq_rn) in both kernels, so that kernel and plain
+// version put every pair on the same side of cut_coulsq.
 //
 // Two kernels:
 //  * dipole_whole_kernel, the whole square panel (cols is None): each
@@ -212,7 +214,7 @@ dipole_whole_kernel(const T* __restrict__ x, const T* __restrict__ q,
         dx[h] = mi(xi[r] - cj.x, Lx, Lix);
         dy[h] = mi(yi[r] - cj.y, Ly, Liy);
         dz[h] = mi(zi[r] - cj.z, Lz, Liz);
-        rsq[h] = dx[h] * dx[h] + dy[h] * dy[h] + dz[h] * dz[h];
+        rsq[h] = rsq_rn(dx[h], dy[h], dz[h]);
         const bool ok = !diag || lane + 32 * r < c0 + c;
         const bool mrow = fli[r] & FL_MASK;
         const bool cd = ok && rsq[h] < cut_coulsq &&
@@ -433,7 +435,7 @@ dipole_strip_kernel(const T* __restrict__ xr, const T* __restrict__ qr,
       const T dy = mi(yi - sy[t], Ly, Liy);
       const T dz = mi(zi - sz[t], Lz, Liz);
       const bool pm = (gi != j0 + t) && (smask[t] != T(0));
-      const T rsq = pm ? dx * dx + dy * dy + dz * dz : T(1);
+      const T rsq = pm ? rsq_rn(dx, dy, dz) : T(1);
       const T rinv = rsqrt_(rsq);
       const T r = rsq * rinv;
       const T r2inv = rinv * rinv;

@@ -26,6 +26,10 @@ class ForceField:
     ewald: Optional[EwaldParams] = None
     polar: Optional[PolarizationSettings] = None
     qqrd2e: float = 1.0
+    # (N,3) numpy: the shift that wraps the positions of the run's start
+    # into the box, frozen for the polar F.r virial (the script engine
+    # sets it, as the JAX package's Simulation does)
+    polar_xshift: Optional[object] = None
 
 
 @dataclasses.dataclass(frozen=True)

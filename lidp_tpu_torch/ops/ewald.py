@@ -50,16 +50,20 @@ def _rms_charge(km: int, prd: float, natoms: int, q2: float,
 
 
 def setup_ewald_disp(*, accuracy_rel: float, qqrd2e: float, q: np.ndarray,
-                     natoms: int, cutoff: float, box_lengths) -> EwaldSetup:
-    """K-space setup for an orthogonal box, following EwaldDisp exactly."""
+                     natoms: int, cutoff: float, box_lengths,
+                     g_ewald: float | None = None) -> EwaldSetup:
+    """K-space setup for an orthogonal box, following EwaldDisp exactly.
+    g_ewald: the value `kspace_modify gewald` sets, in place of the
+    estimate; kmax follows from it as from the estimate."""
     Lx, Ly, Lz = (float(v) for v in box_lengths)
     volume = Lx * Ly * Lz
     qsum = float(np.sum(q))
     qsqsum = float(np.sum(np.asarray(q) ** 2))
     accuracy = accuracy_rel * qqrd2e
     q2 = qsqsum * qqrd2e
-    g_ewald = estimate_g_ewald(accuracy_rel, qqrd2e, qsqsum, natoms, cutoff,
-                               volume)
+    if g_ewald is None:
+        g_ewald = estimate_g_ewald(accuracy_rel, qqrd2e, qsqsum, natoms,
+                                   cutoff, volume)
 
     kmax = []
     for prd in (Lx, Ly, Lz):

@@ -53,13 +53,16 @@ class PairParams:
 
 def make_pair_params(epsilon, sigma, cut_lj, *, cut_coul=0.0, qqrd2e=1.0,
                      g_ewald=0.0, coul=True, shift=False,
+                     special_lj=(1.0, 0.0, 0.0, 0.0),
+                     special_coul=(1.0, 0.0, 0.0, 0.0),
                      dtype=torch.float64, device="cpu"):
     """PairParams of lj/cut/coul/long (coul=True) or lj/cut alone
     (coul=False: cutsq = cut_lj^2, no coulomb term) from per-type-pair
-    (T+1,T+1) epsilon/sigma/cut arrays, with LAMMPS's default special_bonds
-    (1-2, 1-3, 1-4 factors 0 for LJ and coulomb).  shift=True fills the
-    offset table with the LJ energy at the cutoff (pair_modify shift yes).
-    The same tables as lidp_tpu make_pair_params with those defaults."""
+    (T+1,T+1) epsilon/sigma/cut arrays.  special_lj / special_coul: the
+    special_bonds factors [1, s12, s13, s14], by default LAMMPS's (0 for
+    LJ and coulomb).  shift=True fills the offset table with the LJ energy
+    at the cutoff (pair_modify shift yes).  The same tables as lidp_tpu
+    make_pair_params."""
     def t(a):
         return torch.as_tensor(a, dtype=dtype, device=device)
 
@@ -76,7 +79,7 @@ def make_pair_params(epsilon, sigma, cut_lj, *, cut_coul=0.0, qqrd2e=1.0,
         lj3=4.0 * epsilon * s6 * s6, lj4=4.0 * epsilon * s6,
         offset=offset, cut_ljsq=cut_lj**2,
         cutsq=torch.clamp(cut_lj, min=cut_coul if coul else 0.0) ** 2,
-        special_lj=t([1.0, 0.0, 0.0, 0.0]),
-        special_coul=t([1.0, 0.0, 0.0, 0.0]),
+        special_lj=t(list(special_lj)),
+        special_coul=t(list(special_coul)),
         cut_coulsq=float(cut_coul) ** 2, qqrd2e=float(qqrd2e),
         g_ewald=float(g_ewald), coul=bool(coul))

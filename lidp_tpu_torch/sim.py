@@ -1,0 +1,310 @@
+"""Simulation assembly: interpreter state -> a runnable system
+(lidp_tpu/sim.py, the polar route).
+
+The analog of the LAMMPS init phase (Run::command -> LAMMPS::init,
+run.cpp:38) for the polarizable pair style on the panel engine: the System
+padded to the panel alignment, the lj/cut/coul/long tables with geometric
+(or arithmetic) mixing for unset type pairs (Pair::init_one pair.cpp:660,
+676), the Ewald setup with the `kspace_modify gewald` override, the
+polarization settings of the pair keywords, the special lists of the Bonds
+section, the integrator of the fixes (nve, rigid/nve) with its dof removal
+(FixRigid::dof, fix_rigid.cpp:1181), and FastPolarRunner around it; then
+`run`, the thermo rows and the dump frames.
+
+The port takes no other route: where the JAX package would run its dense
+tensor path or its generic Runner (a pair style other than the
+polarization one, a non-Ewald kspace, bonded terms, other fixes, at most
+4096 atoms without LIDP_FAST_POLAR=1), from_script raises
+NotImplementedError naming the ROADMAP item that ports it.
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from lidp_tpu_torch import resolve_device
+from lidp_tpu_torch import topology as topo_mod
+from lidp_tpu_torch.box import Box
+from lidp_tpu_torch.forcefield import ForceField
+from lidp_tpu_torch.integrate.driver import Runner
+from lidp_tpu_torch.ops import polarization as pol_ops
+from lidp_tpu_torch.ops.ewald import EwaldParams, setup_ewald_disp
+from lidp_tpu_torch.ops.pair import make_pair_params
+from lidp_tpu_torch.parallel.fast_polar import (DENSE_PATH_MAX_ATOMS,
+                                                aligned_npad, maybe_attach,
+                                                prescan)
+from lidp_tpu_torch.state import make_system
+from lidp_tpu_torch.thermo import ThermoParams, thermo_row
+
+_DENSE = ("the dense route is not ported (ROADMAP queue 1 item 3); the port "
+          "runs the polarizable pair style on the panel engine only")
+
+
+def _unported(why: str):
+    raise NotImplementedError(
+        f"{why}: {_DENSE}.  Below {DENSE_PATH_MAX_ATOMS + 1} atoms "
+        "LIDP_FAST_POLAR=1 selects the panel engine, as in the JAX "
+        "package; the engine takes lj/cut/coul/long/polarization with "
+        "kspace_style ewald or ewald/disp, fix nve or rigid/nve, no "
+        "bond_style and no other fix")
+
+
+def _mix_pair_tables(script):
+    """Per-type-pair eps/sigma/cut tables with geometric mixing for unset
+    pairs (Pair::mix_energy/mix_distance defaults for lj/cut styles;
+    pair_modify mix arithmetic mixes sigma arithmetically)."""
+    T = script.ntypes
+    eps = np.zeros((T + 1, T + 1))
+    sig = np.zeros((T + 1, T + 1))
+    cut = np.full((T + 1, T + 1), script.pair.cut_lj_global)
+    seen = np.zeros((T + 1, T + 1), bool)
+    for (i, j), (e, s, c) in script.pair_coeffs.items():
+        eps[i, j] = eps[j, i] = e
+        sig[i, j] = sig[j, i] = s
+        cut[i, j] = cut[j, i] = c
+        seen[i, j] = seen[j, i] = True
+    mix = getattr(script, "_pair_mix", "geometric")
+    for i in range(1, T + 1):
+        for j in range(i + 1, T + 1):
+            if not seen[i, j]:
+                if not (seen[i, i] and seen[j, j]):
+                    continue
+                eps[i, j] = eps[j, i] = np.sqrt(eps[i, i] * eps[j, j])
+                if mix == "arithmetic":
+                    sig[i, j] = sig[j, i] = 0.5 * (sig[i, i] + sig[j, j])
+                else:
+                    sig[i, j] = sig[j, i] = np.sqrt(sig[i, i] * sig[j, j])
+                cut[i, j] = cut[j, i] = 0.5 * (cut[i, i] + cut[j, j])
+    return eps, sig, cut
+
+
+def polarization_settings(p) -> pol_ops.PolarizationSettings:
+    """PolarizationSettings of the parsed pair_style keywords (a
+    PairStyleSpec)."""
+    return pol_ops.PolarizationSettings(
+        iterations_max=p.iterations_max,
+        damping_type=(pol_ops.DAMPING_EXPONENTIAL
+                      if p.damping_type == "exponential"
+                      else pol_ops.DAMPING_NONE),
+        polar_damp=p.polar_damp, zodid=p.zodid,
+        polar_precision=p.polar_precision,
+        fixed_iteration=p.fixed_iteration, polar_gs=p.polar_gs,
+        polar_gs_ranked=p.polar_gs_ranked, polar_gamma=p.polar_gamma,
+        use_previous=p.use_previous)
+
+
+class Simulation:
+    """One assembled run: the System, the FastPolarRunner and the thermo
+    parameters; `run(nsteps)` advances it and writes the thermo rows and
+    dump frames through the script."""
+
+    def __init__(self, script, sys, runner, thermo_params, natoms: int):
+        self.script = script
+        self.sys = sys
+        self.runner = runner
+        self.thermo_params = thermo_params
+        self.natoms = natoms
+        self.res = None
+        self.istate = None
+
+    @staticmethod
+    def from_script(script) -> "Simulation":
+        u = script.units
+        dtype = script.dtype
+        device = resolve_device(script.device)
+        n = script.x.shape[0]
+        dim_ = script.dimension
+        if not script.pair.name.endswith("/polarization"):
+            raise NotImplementedError(
+                f"pair_style {script.pair.name or '(none)'}: the port's "
+                "script engine runs lj/cut/coul/long/polarization only "
+                "(other pair styles: ROADMAP queue 1 item 5, breadth)")
+        if script.kspace is None or script.kspace[0] not in ("ewald",
+                                                             "ewald/disp"):
+            raise NotImplementedError(
+                f"kspace_style {script.kspace[0] if script.kspace else 'none'}"
+                ": the port runs the polarizable pair style with ewald or "
+                "ewald/disp only (pppm, msm: ROADMAP queue 1 item 5)")
+        if not prescan(script, n):
+            _unported(f"this script ({n} atoms) takes the JAX package's "
+                      "dense route")
+
+        npad = aligned_npad(n)
+
+        def _padA(a, fill=0.0):
+            a = np.asarray(a)
+            if npad == a.shape[0]:
+                return a
+            out = np.full((npad,) + a.shape[1:], fill, a.dtype)
+            out[:n] = a
+            return out
+
+        # group masks padded False; real-count checks keep script.groups
+        groups = {k: _padA(v, False) for k, v in script.groups.items()}
+        mask_pad = np.arange(npad) < n
+        alpha = _padA(script.alpha_type[script.type])
+        box = Box.create(script.box_lo, script.box_hi, dtype=dtype,
+                         periodic=script.periodic, tilt=script.box_tilt,
+                         device=device)
+        sys = make_system(
+            _padA(script.x), box=box, v=_padA(script.v), q=_padA(script.q),
+            type=_padA(script.type, 0), mol=_padA(script.mol, 0),
+            alpha=alpha, image=_padA(script.image, 0), mask=mask_pad,
+            dtype=dtype, device=device)
+        sys = sys.replace(step=int(script.step))
+        # padded atoms get unit mass so 1/m stays finite (f == 0 keeps
+        # v == 0)
+        mass_atom = _padA(script.mass_type[script.type], 1.0)
+
+        # ---- pair tables, kspace ----
+        eps, sig, cut = _mix_pair_tables(script)
+        _, acc = script.kspace
+        es = setup_ewald_disp(
+            accuracy_rel=acc, qqrd2e=u.qqr2e, q=script.q, natoms=n,
+            cutoff=script.pair.cut_coul,
+            box_lengths=script.box_hi - script.box_lo,
+            g_ewald=script._gewald_override)
+        pair = make_pair_params(
+            eps, sig, cut, cut_coul=script.pair.cut_coul, qqrd2e=u.qqr2e,
+            g_ewald=es.g_ewald, coul=True, special_lj=script.special_lj,
+            special_coul=script.special_coul,
+            dtype=dtype, device=device)
+        ew = EwaldParams.from_setup(es, u.qqr2e, dtype=dtype, device=device)
+        pol = polarization_settings(script.pair)
+
+        sp_lists = None
+        if script._bonds is not None and len(script._bonds):
+            si, sl = topo_mod.special_lists(n, script._bonds)
+            if npad != n:
+                # remap the "invalid" fill (== n) past the padding, then pad
+                si = np.where(si == n, npad, si)
+                si = np.concatenate(
+                    [si, np.full((npad - n, si.shape[1]), npad, si.dtype)])
+                sl = np.concatenate(
+                    [sl, np.zeros((npad - n, sl.shape[1]), sl.dtype)])
+            sp_lists = (si, sl)
+
+        # read_data keeps each atom's stored coordinates; the polar F.r
+        # virial uses them wrapped as they stood at the run's start
+        L0 = script.box_hi - script.box_lo
+        polar_xshift = _padA(
+            -np.floor((script.x - script.box_lo) / L0) * L0)
+        ff = ForceField(pair=pair, ewald=ew, polar=pol, qqrd2e=u.qqr2e,
+                        polar_xshift=polar_xshift)
+
+        # ---- integrator from fixes ----
+        from lidp_tpu_torch.styles import FixBuildCtx, build_fixes
+
+        fctx = build_fixes(FixBuildCtx(
+            script=script, groups=groups, u=u, dtype=dtype, device=device,
+            mass_atom=mass_atom, padA=_padA))
+        if fctx.integ is None:
+            raise NotImplementedError(
+                "a run without a time-integration fix is not ported "
+                "(fix nve or rigid/nve)")
+        runner = maybe_attach(
+            Runner(ff, fctx.integ), script=script, ff=ff, pol=pol,
+            sys=sys, n=n, npad=npad, dt=script.dt, ftm2v=u.ftm2v,
+            dtype=dtype, sp_lists=sp_lists, log=script.log)
+        if runner is None:
+            _unported("the panel engine cannot take this script")
+
+        # ---- thermo ----
+        dof = dim_ * n - dim_ - fctx.dof_removed
+        norm = script._thermo_norm
+        tp = ThermoParams.create(
+            mass_atom, dof=dof, units=u,
+            norm=(u.name == "lj") if norm is None else norm, natoms=n,
+            dim=dim_, dtype=dtype, device=device)
+        return Simulation(script, sys, runner, tp, n)
+
+    # ------------------------------ output -------------------------------
+
+    def _thermo_row(self) -> dict:
+        """The thermo row of the current state: thermo_row with the
+        integrator's constraint virial in the pressure, every scalar read
+        to the host in one transfer; plus the atom and topology counts."""
+        row = thermo_row(self.sys, self.res, self.thermo_params,
+                         extra_virial=getattr(self.istate, "virial", None))
+        row["atoms"] = self.natoms
+        bonds = self.script._bonds
+        row["bonds"] = 0 if bonds is None else len(bonds)
+        return row
+
+    _HEADER = {"step": "Step", "etotal": "TotEng", "ke": "KinEng",
+               "pe": "PotEng", "evdwl": "E_vdwl", "ecoul": "E_coul",
+               "elong": "E_long", "epol": "E_pol", "temp": "Temp",
+               "press": "Press", "epair": "E_pair", "emol": "E_mol",
+               "ebond": "E_bond", "eangle": "E_angle", "edihed": "E_dihed",
+               "eimp": "E_impro", "vol": "Volume", "density": "Density",
+               "atoms": "Atoms", "lx": "Lx", "ly": "Ly", "lz": "Lz",
+               "xlo": "Xlo", "xhi": "Xhi", "ylo": "Ylo", "yhi": "Yhi",
+               "zlo": "Zlo", "zhi": "Zhi", "xy": "Xy", "xz": "Xz",
+               "yz": "Yz", "bonds": "Bonds"}
+
+    def _emit(self):
+        row = self._thermo_row()
+        self.script.thermo_rows.append(row)
+        cols = self.script.thermo_columns
+        # thermo_modify format float FMT (thermo.cpp modify_params)
+        ffmt = self.script._thermo_float_format
+        self.script.log(" ".join(
+            f"{int(row[c])}" if c == "step"
+            else (ffmt % row[c] if ffmt else f"{row[c]:.8g}")
+            for c in cols))
+
+    def _dump(self):
+        from lidp_tpu_torch.io.dump import write_dump_frame
+
+        step = int(self.sys.step)
+        for d in self.script.dumps.values():
+            if d.every and step % d.every == 0:
+                write_dump_frame(d, self.sys, self.script,
+                                 self.script.groups[d.group],
+                                 f=None if self.res is None else self.res.f)
+
+    # -------------------------------- run --------------------------------
+
+    def run(self, nsteps: int):
+        """Advance nsteps: setup on the first run, the header and the row of
+        the start, then the steps in chunks of the gcd of the thermo and
+        dump intervals, a row and the dump frames at each boundary, and the
+        `Loop time` / `Performance` lines (Finish::end, finish.cpp:64)."""
+        t_start = time.perf_counter()
+        if self.res is None:
+            self.sys, self.res, _, self.istate = self.runner.setup(self.sys)
+        self.script.log(" ".join(
+            self._HEADER.get(c, c) for c in self.script.thermo_columns))
+        self._emit()
+        self._dump()
+        remaining = nsteps
+        every = self.script.thermo_every or nsteps
+        chunk_opts = [every] + [d.every for d in self.script.dumps.values()
+                                if d.every]
+        chunk = int(np.gcd.reduce(chunk_opts))
+        while remaining > 0:
+            todo = min(chunk, remaining)
+            self.sys, self.res, _, self.istate = self.runner.run(
+                self.sys, self.res, None, self.istate, todo)
+            remaining -= todo
+            step = int(self.sys.step)
+            if every and step % every == 0 or remaining == 0:
+                self._emit()
+            self._dump()
+        self.script.step = int(self.sys.step)
+
+        if self.sys.x.device.type == "cuda":
+            torch.cuda.synchronize(self.sys.x.device)
+        wall = time.perf_counter() - t_start
+        if nsteps > 0 and wall > 0:
+            rate = nsteps / wall
+            dt_ns = self.script.dt * self.script.units.femtosecond * 1e-6
+            self.script.log(
+                f"Loop time of {wall:.6g} on 1 procs for {nsteps} steps "
+                f"with {self.natoms} atoms")
+            self.script.log(
+                f"Performance: {rate * dt_ns * 86400:.3f} ns/day, "
+                f"{rate:.3f} timesteps/s")

@@ -1,0 +1,71 @@
+"""Style registry (lidp_tpu/styles/__init__.py): the analog of the
+reference's macro-expanded style maps (Modify::add_fix dispatch built from
+style_*.h, force.cpp:83-88, modify.cpp:778).
+
+Each fix style registers a builder with @fix_style(name); a builder
+receives the shared FixBuildCtx and sets ctx.integ (the time-integration
+styles) and the dof bookkeeping.  Simulation.from_script loops the
+registry.  The port registers the integrators the panel engine composes
+with, nve and rigid/nve (styles/fix_integrators.py); a fix style with no
+builder raises NotImplementedError.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict
+
+FIX_BUILDERS: Dict[str, Callable] = {}
+
+
+def fix_style(*names, integrator: bool = False):
+    """Register a fix builder.  integrator=True marks time-integration
+    styles (at most one per run, like the reference's single Verlet update
+    loop over integrate fixes)."""
+    def deco(fn):
+        fn._integrator = integrator
+        for nm in names:
+            FIX_BUILDERS[nm] = fn
+        return fn
+    return deco
+
+
+def is_integrator(style: str) -> bool:
+    b = FIX_BUILDERS.get(style)
+    return bool(b is not None and getattr(b, "_integrator", False))
+
+
+@dataclasses.dataclass
+class FixBuildCtx:
+    """Mutable build context threaded through fix builders.  Inputs are set
+    by Simulation.from_script; builders set `integ` and add to the dof
+    bookkeeping."""
+
+    script: Any
+    groups: Any            # {name: (npad,) numpy bool}
+    u: Any                 # units table
+    dtype: Any
+    device: Any
+    mass_atom: Any         # (npad,) numpy
+    padA: Callable         # pad an (n, ...) array to (npad, ...)
+    dof_removed: float = 0.0
+    integ: Any = None
+
+
+def build_fixes(ctx: FixBuildCtx):
+    """Run every fix spec through the registry (declaration order, like
+    Modify's per-hook fan-out lists)."""
+    from lidp_tpu_torch.styles import fix_integrators  # noqa: F401
+
+    n_integrators = sum(1 for f in ctx.script.fixes.values()
+                        if is_integrator(f.style))
+    if n_integrators > 1:
+        raise NotImplementedError("multiple simultaneous integrator fixes")
+    for spec in ctx.script.fixes.values():
+        builder = FIX_BUILDERS.get(spec.style)
+        if builder is None:
+            raise NotImplementedError(
+                f"fix style {spec.style} is not ported (only nve and "
+                "rigid/nve; ROADMAP queue 1 item 5, breadth)")
+        builder(ctx, spec)
+    return ctx

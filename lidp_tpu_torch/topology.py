@@ -3,6 +3,7 @@
 Host-side equivalent of Special::build (reference special.cpp:55): BFS over
 the bond graph gives each atom its 1-2, 1-3 and 1-4 neighbor sets, closer
 relations winning.  Bond ids are 1-based, as in LAMMPS data files.
+`infer_image_flags` derives image flags from the bond graph.
 """
 
 from __future__ import annotations
@@ -53,3 +54,70 @@ def _special_sets(natoms: int, bonds: np.ndarray):
         onefour -= onetwo | onethree | {i}
         out.append((onetwo, onethree, onefour))
     return out
+
+
+def infer_image_flags(x, bonds, box_lo, box_hi, mol=None):
+    """Derive periodic image flags from the bond graph.
+
+    Molecular data files written without image flags (e.g. the
+    polarization examples' pdb-derived restarts) leave through-boundary
+    bonds ambiguous: `replicate` unmaps atoms via image flags
+    (replicate.cpp:137-140 domain->unmap), so zero flags tear bonded
+    frameworks apart at the seam — copies then see ~1 A nonbonded
+    contacts that the original cell excluded as 1-2 specials.
+
+    BFS over each bond-connected component: the first atom keeps image 0;
+    every neighbor's flag is chosen so the bond vector is the minimum
+    image (hops never exceed one cell).  Equivalent to the modern
+    `reset_atoms image` command; returns an (N, 3) int array.
+    """
+    from collections import deque
+
+    x = np.asarray(x, float)
+    n = x.shape[0]
+    L = np.asarray(box_hi, float) - np.asarray(box_lo, float)
+    img = np.zeros((n, 3), np.int32)
+    if bonds is None or len(bonds) == 0:
+        return img
+    b = np.asarray(bonds)
+    if b.min() >= 1:
+        b = b - 1                       # 1-based data-file ids
+    adj = [[] for _ in range(n)]
+    for i, j in b:
+        adj[int(i)].append(int(j))
+        adj[int(j)].append(int(i))
+    seen = np.zeros(n, bool)
+    for root in range(n):
+        if seen[root] or not adj[root]:
+            continue
+        seen[root] = True
+        dq = deque([root])
+        while dq:
+            i = dq.popleft()
+            xu_i = x[i] + img[i] * L
+            for j in adj[i]:
+                if seen[j]:
+                    continue
+                seen[j] = True
+                img[j] = np.round((xu_i - x[j]) / L).astype(np.int32)
+                dq.append(j)
+    if mol is not None:
+        # bond-less members of a bonded molecule (e.g. the massless MOV
+        # charge sites of the polarizable CH4 model — present in the data's
+        # molecules but absent from its Bonds section) anchor to their
+        # molecule's bonded component by minimum image.  Molecules with NO
+        # bonds at all (the MOF framework, which spans the whole cell) are
+        # left alone — min-image anchoring is only valid for compact
+        # molecules, and wrapped positions are already equivalent for them.
+        mol = np.asarray(mol)
+        has_bonds_mol = set(np.unique(mol[seen])) - {0}
+        anchor = {}
+        for i in np.nonzero(seen)[0]:
+            anchor.setdefault(int(mol[i]), i)
+        for j in np.nonzero(~seen)[0]:
+            m = int(mol[j])
+            if m in has_bonds_mol:
+                i = anchor[m]
+                xu_i = x[i] + img[i] * L
+                img[j] = np.round((xu_i - x[j]) / L).astype(np.int32)
+    return img

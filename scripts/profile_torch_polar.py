@@ -119,7 +119,9 @@ phase, ms a step).  SW, SP and SD time the pair kernels' strip form
 (cols = all atoms, row0 = 0) on chip_smoke.py's 12,288-row main case:
 pair_wolf_panel, pair_panel (float32) and pair_panel_df with the field
 (float64), 20 calls queued between two CUDA events, 5 times, the median
-given as calls/s; WW, WP and WD the same kernels' whole form.  --path ab
+given as calls/s; WW, WP and WD the same kernels' whole form; SM and SN
+the dipole kernels' strip form (dipole_panel float32, dipole_panel_df
+float64), WM and WN their whole form.  --path ab
 runs `--path seq` `--pairs` times for this checkout and for `--tree`
 (another checkout, e.g. the parent commit from `git archive`), one
 process each, alternated (this, other; then other, this) after one
@@ -129,9 +131,11 @@ wolf tick), median and quartiles per checkout.
 --path cutoff runs the pair kernels of `--tree`'s lidp_tpu_torch (default
 this checkout) on this checkout's chip_smoke.cutoff_pairs_case, a pair at
 exactly the outer cutoff and one one ulp inside it that a contracted rsq
-puts on the other side, in their strip form (cols = all atoms, row0 = 0)
-and whole: the rows that take a force and their largest |f|, beside the
-plain version's (a parent's strip kernel against this one's).
+puts on the other side, and the dipole kernels on its
+dipole_cutoff_case (one polar atom), in their strip form (cols = all
+atoms, row0 = 0) and whole: the rows that take a force and their largest
+|f|, beside the plain version's (a parent's kernels against this
+one's).
 
 Prints the card (nvidia-smi name, power limit) first.
 """
@@ -1376,6 +1380,10 @@ def drive_paths(seq):
             rates.append(1e3 / pair_form_ms(path))
             ticks.append(None)
             continue
+        elif path in ("SM", "SN", "WM", "WN"):
+            rates.append(1e3 / dipole_form_ms(path))
+            ticks.append(None)
+            continue
         elif path in ("E", "F", "E4"):
             bench = lj_melt.build(scale=4 if path == "E4" else 1,
                                   dtype=torch.float32,
@@ -1447,6 +1455,36 @@ def pair_form_ms(path):
                              for _ in range(5))
 
 
+def dipole_form_ms(path):
+    """--path seq SM, SN (WM, WN): the median of 5 queued timings (20 calls
+    each) of dipole_panel (M, float32) or dipole_panel_df (N, float64) in
+    the strip form (cols = all atoms, row0 = 0; the whole form) on
+    chip_smoke.py's main case, the fluid's exponential damping."""
+    import torch
+
+    import chip_smoke
+    from lidp_tpu_torch.models import polar_bench
+    from lidp_tpu_torch.ops import panel
+
+    c = chip_smoke.make_case(10_125, 12_288, 60.0, seed=1)
+    if path[1] == "N":
+        c = chip_smoke.to_f64(c)
+    ff = polar_bench.synthetic_forcefield(polar_bench.synthetic_system(2),
+                                          torch.float32, "cuda")
+    p, s = ff.pair, ff.polar
+    args = (c["x"], c["q"], c["mol"], c["alpha"], c["mu"], c["mask"],
+            c["L"], s.polar_damp, p.cut_coulsq, p.qqrd2e)
+    kw = dict(damping_type=s.damping_type)
+    if path[0] == "S":
+        kw.update(cols=args[:6], row0=0)
+    wrapper = panel.dipole_panel_df if path[1] == "N" else panel.dipole_panel
+    fn = lambda: wrapper(*args, **kw)  # noqa
+    for _ in range(50):
+        fn()
+    return statistics.median(chip_smoke.cuda_ms_queued(fn, 20)
+                             for _ in range(5))
+
+
 def cutoff_rows():
     """--path cutoff; returns {label: [rows with a force, max |f|]}."""
     import importlib.util
@@ -1477,11 +1515,24 @@ def cutoff_rows():
                                        panel.pair_panel_df_plain,
                                        dict(mol=c["mol"]),
                                        (*args[:4], c["mol"]))}
-        for name, (kern, plain, kw, cols) in calls.items():
+        s = polar_bench.synthetic_forcefield(
+            polar_bench.synthetic_system(2), torch.float32, "cuda").polar
+        d = cs.dipole_cutoff_case(dtype, polar="one")
+        dargs = (d["x"], d["q"], d["mol"], d["alpha"], d["mu"], d["mask"],
+                 d["L"], s.polar_damp, p.cut_coulsq, p.qqrd2e)
+        dkw = dict(damping_type=s.damping_type)
+        name = "dipole_panel" if dtype == torch.float32 else \
+            "dipole_panel_df"
+        calls[name + "[one polar]"] = (
+            panel.WRAPPERS[name], getattr(panel, name + "_plain"), dkw,
+            dargs[:6], dargs)
+        for name, call in calls.items():
+            kern, plain, kw, cols = call[:4]
+            a = call[4] if len(call) > 4 else args
             for form, f in (
-                    ("strip form", kern(*args, cols=cols, row0=0, **kw)[0]),
-                    ("whole", kern(*args, **kw)[0]),
-                    ("plain", plain(*args, **kw)[0])):
+                    ("strip form", kern(*a, cols=cols, row0=0, **kw)[0]),
+                    ("whole", kern(*a, **kw)[0]),
+                    ("plain", plain(*a, **kw)[0])):
                 rows = torch.nonzero((f != 0).any(1)).flatten().tolist()
                 out[f"{name}[{form}]"] = [rows, float(f.abs().max())]
                 print(f"{name}[{form}]: rows with a force {rows}, max |f| "

@@ -846,6 +846,18 @@ def test_cutoff_pairs_strip_and_whole_kernels(dev):
     _load_chip_smoke().cutoff_pairs_parity(ff.pair)
 
 
+def test_dipole_cutoff_pairs_strip_and_whole_kernels(dev):
+    """chip_smoke.dipole_cutoff_case: the same pairs with dipoles, one or
+    every atom of them polar.  The dipole strip kernel (cols, row0) and
+    whole kernel, float32 and float64, give the plain version's forces and
+    scalars at the bars above, and with one polar atom put the charge-
+    dipole force on the plain version's rows, 2 and 3 only
+    (chip_smoke.dipole_cutoff_parity)."""
+    sysd = polar_bench.synthetic_system(2)
+    ff = polar_bench.synthetic_forcefield(sysd, torch.float32, dev)
+    _load_chip_smoke().dipole_cutoff_parity(ff.pair, ff.polar)
+
+
 # --------------- rigid molecules through FastPolarRunner ----------------
 
 def _rigid_run(panel_kind, n_side, steps):

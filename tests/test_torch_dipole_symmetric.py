@@ -26,7 +26,12 @@ runs only on the GPU; tests/test_torch_cuda_kernels.py holds it there).
     the t1 term of pre1 still changes pre1 when its other terms cancel,
     so no damping skip carries over;
   * the least arithmetic that chip_smoke.py's bound counts: the pairs it
-    charges for are those on which the plain row form puts a force.
+    charges for are those on which the plain row form puts a force;
+  * pairs at exactly cut_coulsq and one ulp inside it (chip_smoke.py
+    dipole_cutoff_case): the plain version, whole and strip form, decides
+    them by rsq rounded term by term, as the CUDA kernels do since they
+    form rsq with rsq_rn, and agrees with JAX where contraction cannot
+    move a pair; what JAX decides on the case itself is recorded.
 """
 
 import math
@@ -375,3 +380,147 @@ def test_bound_counts_the_pairs_that_act():
     assert cnt["active_pairs"] < cnt["geometry_pairs"] \
         < n_live * (n_live - 1) // 2
     assert 0 < cnt["both_pairs"] < cnt["cd_pairs"]
+
+
+# ----------------------- pairs at the coulomb cutoff ------------------------
+
+def _cutoff_case(dtype, polar, movable):
+    """chip_smoke.dipole_cutoff_case (pairs at exactly cut_coulsq and one
+    ulp inside it, in four molecules, with dipoles), or with movable=False
+    the same layout with partners whose contracted rsq rounds to the same
+    value (how XLA forms rsq on the CPU cannot move them)."""
+    import chip_smoke
+
+    c = chip_smoke.dipole_cutoff_case(dtype, "cpu", polar)
+    if movable:
+        return c
+    npt = np.float32 if dtype == torch.float32 else np.float64
+    x = c["x"].numpy().copy()
+    C = npt(chip_smoke.CUTOFF_SQ)
+    for k, target in enumerate((C, np.nextafter(C, npt(0)))):
+        x[2 * k + 1] = chip_smoke._cutoff_partner(
+            npt, x[2 * k], target, lambda f, t=target: f == t, seed=10 + k)
+    return dict(c, x=torch.as_tensor(x))
+
+
+# rows with a force with one polar atom (no dipole-dipole pair): by rsq
+# rounded term by term (the plain version, the CUDA kernels) and by a
+# contracted rsq on the movable case (XLA on the CPU)
+_ROUNDED = np.array([False, False, True, True, False, False])
+_CONTRACTED = np.array([True, True, False, False, False, False])
+
+
+def _cutoff_args(c, conv):
+    return tuple(conv(c[k]) for k in ("x", "q", "mol", "alpha", "mu",
+                                      "mask", "L")) + (PD, CUT_COULSQ,
+                                                       QQRD2E)
+
+
+@pytest.mark.parametrize("polar", ["one", "both"])
+def test_cutoff_pairs_decided_as_pallas(polar):
+    """float32: the plain version, whole and strip form (cols = all atoms,
+    row0 = 0), against JAX's Pallas dipole_panel (interpret mode) on pairs
+    at exactly cut_coulsq and one ulp inside it.  Where contraction cannot
+    move them, both put the charge-dipole force on rows 2 and 3 only (one
+    polar atom) and agree at the float32 bars; on chip_smoke's
+    dipole_cutoff_case the plain version decides by rsq rounded term by
+    term, as the CUDA kernels do, and the Pallas kernel as the contracted
+    form (rows 0 and 1): XLA on the CPU contracts rsq."""
+    for movable, jax_rows in ((False, _ROUNDED), (True, _CONTRACTED)):
+        c = _cutoff_case(torch.float32, polar, movable)
+        args = _cutoff_args(c, lambda a: torch.as_tensor(
+            np.asarray(a), dtype=torch.float32))
+        jargs = _cutoff_args(c, lambda a: jnp.asarray(np.asarray(a,
+                                                                 np.float32)))
+        whole = panel.dipole_panel_plain(*args)
+        strip = panel.dipole_panel_plain(*args, cols=args[:6], row0=0)
+        ref = pallas_panel.dipole_panel(*jargs)
+        ref_strip = pallas_panel.dipole_panel(*jargs, cols=jargs[:6], row0=0)
+        for a, b in zip(whole, strip):
+            assert torch.equal(a, b)
+        got_rows = (whole[0] != 0).any(1).numpy()
+        jrows = (np.asarray(ref[0]) != 0).any(1)
+        np.testing.assert_array_equal(
+            (np.asarray(ref_strip[0]) != 0).any(1), jrows)
+        if polar == "one":
+            np.testing.assert_array_equal(got_rows, _ROUNDED)
+            np.testing.assert_array_equal(jrows, jax_rows)
+        if not movable:
+            f, rf = whole[0].double().numpy(), np.asarray(ref[0], np.float64)
+            np.testing.assert_allclose(f, rf, rtol=1e-4,
+                                       atol=1e-5 * np.abs(rf).max())
+            assert float(whole[2]) == pytest.approx(float(ref[2]), rel=1e-4,
+                                                    abs=1e-12)
+        else:
+            # the contracted decision moves the force by more than the bar
+            rf = np.asarray(ref[0], np.float64)
+            assert np.abs(whole[0].double().numpy() - rf).max() \
+                > 1e-3 * np.abs(rf).max()
+
+
+def _jax_scan_dipole(c):
+    """The JAX scan path's dipole phase (build_sharded_polar_step(
+    panel="scan").host_phases(strips=2), float64) on case c: (fpol of its
+    six rows, epol = u_self + u_ef + u_dd)."""
+    from lidp_tpu.forcefield import ForceField
+    from lidp_tpu.ops import polarization as jpol
+    from lidp_tpu.ops.pair import make_pair_params
+    from lidp_tpu.parallel import shard
+
+    eps, sig, cut = np.zeros((3, 3)), np.zeros((3, 3)), np.zeros((3, 3))
+    eps[1:, 1:] = [[0.1, 0.05], [0.05, 0.03]]
+    sig[1:, 1:] = [[3.0, 2.7], [2.7, 2.5]]
+    cut[1:, 1:] = 6.0
+    pair = make_pair_params(eps, sig, cut, cut_coul=6.5, coul=True,
+                            qqrd2e=QQRD2E, g_ewald=0.29, dtype=jnp.float64)
+    s = jpol.PolarizationSettings(damping_type=jpol.DAMPING_EXPONENTIAL,
+                                  polar_damp=PD)
+    ff = ForceField(pair=pair, ewald=None, polar=s, qqrd2e=QQRD2E)
+    make, bind_box, npad, _ = shard.build_sharded_polar_step(
+        None, ff, s, n=4, dt=1.0, ftm2v=1.0, dtype=jnp.float64,
+        panel="scan")
+    bind_box(np.full(3, 60.0))
+    ph = make.host_phases(strips=2)
+
+    def padded(k, dt=np.float64):
+        a = np.asarray(c[k])
+        out = np.zeros((npad,) + a.shape[1:], dt)
+        out[:6] = a
+        return jnp.asarray(out)
+
+    fpol, epol, _ = ph["dipole"](0, padded("x"), padded("q"),
+                                 padded("mol", np.int32), padded("alpha"),
+                                 padded("mu"), padded("mask", bool))
+    return np.asarray(fpol)[:6], float(epol)
+
+
+@pytest.mark.parametrize("polar", ["one", "both"])
+def test_cutoff_pairs_decided_as_jax_f64(polar):
+    """float64: the plain version (dipole_panel_df's, whole and strip form)
+    against the JAX scan path's dipole phase, on the pairs that
+    contraction cannot move and on dipole_cutoff_case itself: the same
+    rows take a force (rows 2 and 3 with one polar atom), the forces agree
+    to 1e-12 of their largest and u_self + u_ef + u_dd to 1e-12.  Unlike
+    the float32 Pallas kernel (and the scan path's pair phase in float64),
+    XLA's float64 dipole phase on the CPU decides dipole_cutoff_case's
+    pairs by rsq rounded term by term."""
+    for movable in (False, True):
+        c = _cutoff_case(torch.float64, polar, movable)
+        args = _cutoff_args(c, lambda a: torch.as_tensor(
+            np.asarray(a), dtype=torch.float64))
+        whole = panel.dipole_panel_df_plain(*args)
+        strip = panel.dipole_panel_df_plain(*args, cols=args[:6], row0=0)
+        for a, b in zip(whole, strip):
+            assert torch.equal(a, b)
+        fj, epj = _jax_scan_dipole(c)
+        if polar == "one":
+            np.testing.assert_array_equal((whole[0] != 0).any(1).numpy(),
+                                          _ROUNDED)
+            np.testing.assert_array_equal((fj != 0).any(1), _ROUNDED)
+        np.testing.assert_allclose(whole[0].numpy(), fj, rtol=0,
+                                   atol=1e-12 * np.abs(fj).max())
+        a, mu = c["alpha"].numpy(), c["mu"].numpy()
+        u_self = 0.5 * float(np.sum(np.where(
+            a != 0, (mu * mu).sum(1) / np.where(a != 0, a, 1.0), 0.0)))
+        assert u_self + float(whole[1]) + float(whole[2]) \
+            == pytest.approx(epj, rel=1e-12)

@@ -15,6 +15,7 @@ of tests/test_pallas_panel.py:29-55.
 """
 
 import dataclasses
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -299,6 +300,10 @@ def test_package_imports_no_jax():
         " run_rigid\n"
         "for name in ('integrate.rigid', 'parallel.fast_polar'):\n"
         "    assert 'lidp_tpu_torch.' + name in sys.modules, name\n"
+        "for name in ('io', 'io.script', 'io.data_reader', 'io.data_writer',"
+        " 'io.expr', 'io.dump', 'styles', 'styles.fix_integrators', 'sim',"
+        " '__main__'):\n"
+        "    assert 'lidp_tpu_torch.' + name in sys.modules, name\n"
         "print(len([m for m in sys.modules if m.startswith('lidp_tpu_torch')]))\n")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120,
@@ -376,6 +381,31 @@ def test_entry_points_default_to_cuda():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         shard.build_sharded_polar_step(None, ff, ff.polar, n=375, dt=0.5,
                                        ftm2v=1.0)
+    # the script front end: the interpreter, the Simulation it builds and
+    # the CLI
+    import tempfile
+
+    import chip_smoke
+    from lidp_tpu_torch.io.script import LammpsScript
+    from lidp_tpu_torch.sim import Simulation
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        LammpsScript()
+    with tempfile.TemporaryDirectory() as d:
+        _, in_fluid = chip_smoke.fluid_script_case(d, n_side=2)
+        script = LammpsScript(device="cpu")
+        script.root = d
+        script.execute([line for line in open(in_fluid)
+                        if not line.startswith("run")])
+        script.device = torch.device("cuda")
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            Simulation.from_script(script)
+        env = dict(os.environ, LIDP_FAST_POLAR="1",
+                   PYTHONPATH=str(Path(__file__).resolve().parent.parent))
+        res = subprocess.run([sys.executable, "-m", "lidp_tpu_torch", "-in",
+                              in_fluid, "-log", "none"], cwd=d, env=env,
+                             capture_output=True, text=True, timeout=120)
+        assert res.returncode != 0 and "device='cpu'" in res.stderr
 
 
 def _spd_problem(n=40, seed=2):
