@@ -103,6 +103,25 @@ Phases, each raising on failure:
         nstep 20` exits 0 and its 21 logged rows agree with path G's (the
         same system, float32, fused, 1e-6): step 0 rel 1e-6, steps 1-20
         rel 1e-5 of max(1, |value|); its Performance line;
+     I. the dense route, the one the reference's own examples take (at
+        most 4096 atoms without LIDP_FAST_POLAR): fluid_script_case at
+        n_side 8 (1,536 atoms) through LammpsScript(dtype=torch.float64)
+        in this process, precision 1e-11, 5 steps, fix rigid/nve
+        molecule: the generic Runner on the unpadded System, every kernel
+        counter 0; its 6 rows against the same script with
+        LIDP_FAST_POLAR=1 (the panel engine, path H's route) on the card,
+        every thermo column within rel 1e-9 of max(1, |value|) (the JAX
+        package's bar between its two routes); steps_per_s_I from the
+        Loop time line, the peak device memory, and each phase's ms a
+        step by CUDA events over 2 more steps (pair, ewald, the Wolf
+        field, T build, solve with its iterations, dipole forces);
+     I-CLI. `python -m lidp_tpu_torch -in in.fluid -log log.i -var nstep
+        5` in a process of its own without LIDP_FAST_POLAR: exit 0, its
+        rows equal path I's at the printed precision;
+     I-cap. fluid_script_case at n_side 11 (3,993 atoms, just under the
+        cap), float64, setup + 3 steps on the dense route: counters 0,
+        rows finite, every solve converged; steps/s, the phases' ms an
+        evaluation and the peak memory;
   5. the LJ melt of bench/in.lj on the cell engine (lj_melt.build), float32:
      kernel parity of slot_lj_forces and cell_pair_forces_lj against their
      plain versions at the melt's (11,11,11,40) grid (the melt after path
@@ -148,7 +167,7 @@ Phases, each raising on failure:
      bars there are taken of max(max |f|, 1), the nearest-neighbour pair
      force being 2;
   6. one JSON line {"kernels": [...]} with each of the ten kernels'
-     launches (summed and by path, A-H), times, ms_queued and bound,
+     launches (summed and by path, A-I-cap), times, ms_queued and bound,
      then the nvidia-smi line, then the device line last.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
@@ -173,6 +192,8 @@ NSTEPS = 20              # paths A and G
 HOST_STEPS = 5           # paths B and C
 G64_STEPS = 3            # path G64
 H_STEPS = 5              # path H
+I_SIDE, I_STEPS = 8, 5   # path I: 1,536 atoms on the dense route
+ICAP_SIDE, ICAP_STEPS = 11, 3   # path I-cap: 3,993 atoms, below the cap
 SHARE_STEPS = 10         # path G's steps timed part by part
 # thermo columns held between G64's kernel and plain routes
 G64_COLS = ("etotal", "ke", "pe", "evdwl", "ecoul", "elong", "epol", "temp",
@@ -1293,6 +1314,123 @@ def rows_agree(path, rows, ref, rels):
     return worst
 
 
+# the dense route's phases (forcefield.dense_forces), each timed by CUDA
+# events around the module function it calls
+DENSE_PHASES = (("pair", "pair", "dense_pair_forces"),
+                ("ewald", "ewald", "ewald_forces"),
+                ("field", "polarization", "static_field_wolf"),
+                ("T build", "polarization", "dipole_field_tensor"),
+                ("solve", "polarization", "scf_solve"),
+                ("dipole forces", "polarization", "dipole_forces_energy"))
+
+
+class DensePhases:
+    """Within `with DensePhases():` every call of the dense route's phase
+    functions (DENSE_PHASES, the module functions dense_forces calls) is
+    timed by CUDA events, and every solve's iterations and divergence flag
+    kept; the functions are restored on exit."""
+
+    def __enter__(self):
+        import importlib
+
+        import torch
+
+        self.events, self.solves, self._saved = [], [], []
+
+        def timed(label, fn):
+            def wrapped(*a, **kw):
+                e0, e1 = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+                e0.record()
+                out = fn(*a, **kw)
+                e1.record()
+                self.events.append((label, e0, e1))
+                if label == "solve":
+                    self.solves.append((int(out[1]), out[2]))
+                return out
+            return wrapped
+
+        for label, mod, name in DENSE_PHASES:
+            m = importlib.import_module(f"lidp_tpu_torch.ops.{mod}")
+            self._saved.append((m, name, getattr(m, name)))
+            setattr(m, name, timed(label, getattr(m, name)))
+        return self
+
+    def __exit__(self, *exc):
+        for m, name, fn in self._saved:
+            setattr(m, name, fn)
+        return False
+
+    def ms(self, per):
+        """Device ms of each phase, summed and divided by `per`."""
+        import torch
+
+        torch.cuda.synchronize()
+        out = {label: 0.0 for label, _, _ in DENSE_PHASES}
+        for label, e0, e1 in self.events:
+            out[label] += e0.elapsed_time(e1) / per
+        return out
+
+    def iterations(self):
+        return [it for it, _ in self.solves]
+
+    def all_converged(self):
+        return bool(self.solves) and not any(bool(d) for _, d in self.solves)
+
+
+def phase_line(tag, ms, iters, unit):
+    return (f"{tag} phases, ms {unit} by CUDA events: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in ms.items())
+        + f"; CG iterations an evaluation {iters}")
+
+
+def dense_run(in_fluid, steps, fast_polar=None, prec="1e-11"):
+    """The script `in_fluid` through LammpsScript(dtype=torch.float64) on
+    the card, LIDP_FAST_POLAR unset (the dense route below the cap) or set
+    to `fast_polar`: (script, its log lines, seconds of the run, peak
+    device memory in bytes)."""
+    import torch
+
+    from lidp_tpu_torch.io.script import LammpsScript
+
+    old = os.environ.pop("LIDP_FAST_POLAR", None)
+    if fast_polar is not None:
+        os.environ["LIDP_FAST_POLAR"] = fast_polar
+    try:
+        log = []
+        script = LammpsScript(dtype=torch.float64, log=log.append)
+        script.variables.update(prec=prec, nstep=str(steps))
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        script.file(in_fluid)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        os.environ.pop("LIDP_FAST_POLAR", None)
+        if old is not None:
+            os.environ["LIDP_FAST_POLAR"] = old
+    return script, log, seconds, peak
+
+
+def check_dense_runner(path, script, natoms):
+    from lidp_tpu_torch.integrate.driver import Runner
+
+    runner = script._sim.runner
+    if type(runner) is not Runner or runner.neighbor_cfg is not None:
+        raise AssertionError(f"path {path}: runner {type(runner).__name__} "
+                             f"is not the dense route's Runner")
+    if script._sim.sys.x.shape[0] != natoms:
+        raise AssertionError(f"path {path}: the System is padded")
+
+
+def check_rows_finite(path, rows, ncols=G64_COLS):
+    for k, r in enumerate(rows):
+        if not all(math.isfinite(r[c]) for c in ncols):
+            raise AssertionError(f"path {path} row {k} not finite: {r}")
+
+
 # a log's thermo header words -> thermo keywords (sim.Simulation._HEADER)
 LOG_COLS = {"Step": "step", "TotEng": "etotal", "KinEng": "ke",
             "PotEng": "pe", "E_vdwl": "evdwl", "E_coul": "ecoul",
@@ -1867,6 +2005,113 @@ def check_rel(tag, got, want, rel):
                              f"{want!r}")
 
 
+def dense_paths(launches, reset_counts, read_counts):
+    """Paths I, I-CLI and I-cap: the dense route on the card (module
+    docstring).  Each sets launches[path] to its counters, all 0."""
+    import torch
+
+    # path I: the dense route (the reference examples' sizes) from a LAMMPS
+    # script on the card, without LIDP_FAST_POLAR: plain torch, no kernel
+    work = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        _, in_fluid = fluid_script_case(work, n_side=I_SIDE)
+        nI = I_SIDE ** 3 * 3
+        reset_counts()
+        scriptI, logI, _, peakI = dense_run(in_fluid, I_STEPS)
+        launches["I"] = read_counts()
+        check_counts("I", launches["I"], {})
+        check_dense_runner("I", scriptI, nI)
+        rowsI = scriptI.thermo_rows
+        check_rows_finite("I", rowsI)
+        print(f"path I: {in_fluid} ({nI} atoms) through LammpsScript, "
+              f"float64, precision 1e-11, {I_STEPS} steps on the dense "
+              f"route; its log:")
+        for line in logI:
+            print(f"  I| {line}")
+        steps_per_s_I = I_STEPS / loop_seconds(logI, I_STEPS)
+        print(f"steps_per_s_I {steps_per_s_I:.4f} (Loop time); peak device "
+              f"memory {peakI / 2**20:.1f} MiB "
+              f"(torch.cuda.max_memory_allocated)")
+        # the phases, on 2 more steps of the same run (not counted)
+        sim = scriptI._sim
+        with DensePhases() as ph:
+            sim.runner.run(sim.sys, sim.res, None, sim.istate, 2)
+        print(phase_line("path I", ph.ms(2), ph.iterations(), "a step"))
+        del scriptI, sim
+        # the same script on the panel engine (path H's route), same card
+        scriptP, _, _, _ = dense_run(in_fluid, I_STEPS, fast_polar="1")
+        if type(scriptP._sim.runner).__name__ != "FastPolarRunner":
+            raise AssertionError("path I: LIDP_FAST_POLAR=1 did not take "
+                                 "the panel engine")
+        worst = rows_agree("I", rowsI, scriptP.thermo_rows,
+                           [1e-9] * len(rowsI))
+        print(f"path I rows vs the panel engine's over {len(rowsI)} rows: "
+              f"thermo columns at {worst:.3g} of their bar (rel 1e-9 of "
+              f"max(1, |value|))")
+        del scriptP
+        torch.cuda.empty_cache()
+
+        # path I-CLI: the CLI as a user runs it, in a process of its own
+        cmd = [sys.executable, "-m", "lidp_tpu_torch", "-in", "in.fluid",
+               "-log", "log.i", "-var", "nstep", str(I_STEPS)]
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            filter(None, (ROOT, os.environ.get("PYTHONPATH")))))
+        env.pop("LIDP_FAST_POLAR", None)
+        t0 = time.perf_counter()
+        res = subprocess.run(cmd, cwd=work, env=env, capture_output=True,
+                             text=True, timeout=600)
+        t_cli = time.perf_counter() - t0
+        if res.returncode != 0:
+            raise AssertionError(f"path I-CLI: exit {res.returncode}\n"
+                                 f"{res.stdout[-4000:]}\n{res.stderr[-4000:]}")
+        with open(os.path.join(work, "log.i")) as fh:
+            logC = fh.read().splitlines()
+        rowsC = log_rows(logC)
+        if len(rowsC) != len(rowsI) or any(
+                float(f"{r[c]:.8g}") != g[c]
+                for r, g in zip(rowsI, rowsC) for c in G64_COLS):
+            raise AssertionError("path I-CLI: its rows differ from path "
+                                 "I's at the printed precision")
+        print(f"path I-CLI: `{' '.join(cmd[1:])}` exit 0 in {t_cli:.1f} s; "
+              f"its {len(rowsC)} rows equal path I's at the printed "
+              f"precision; " + next(line for line in logC
+                                    if line.startswith("Performance:")))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    # path I-cap: the dense route just under the cap
+    work = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        _, in_fluid = fluid_script_case(work, n_side=ICAP_SIDE)
+        nC = ICAP_SIDE ** 3 * 3
+        reset_counts()
+        with DensePhases() as ph:
+            scriptC, logCap, _, peakC = dense_run(in_fluid, ICAP_STEPS)
+        launches["I-cap"] = read_counts()
+        check_counts("I-cap", launches["I-cap"], {})
+        check_dense_runner("I-cap", scriptC, nC)
+        check_rows_finite("I-cap", scriptC.thermo_rows)
+        if not ph.all_converged():
+            raise AssertionError(f"path I-cap: a solve did not converge "
+                                 f"({ph.iterations()} iterations)")
+        nev = len(ph.solves)
+        print(f"path I-cap: {nC} atoms, float64, precision 1e-11, setup + "
+              f"{ICAP_STEPS} steps on the dense route, rows finite, every "
+              f"solve converged ({nev} evaluations)")
+        for line in logCap:
+            print(f"  I-cap| {line}")
+        print(f"steps_per_s_I_cap "
+              f"{ICAP_STEPS / loop_seconds(logCap, ICAP_STEPS):.4f} (Loop "
+              f"time, setup included); peak device memory "
+              f"{peakC / 2**20:.1f} MiB (torch.cuda.max_memory_allocated)")
+        print(phase_line("path I-cap", ph.ms(nev), ph.iterations(),
+                         "an evaluation"))
+        del scriptC
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -2407,6 +2652,8 @@ def main() -> int:
                                  if line.startswith("Performance:")))
     finally:
         shutil.rmtree(work, ignore_errors=True)
+
+    dense_paths(launches, reset_counts, read_counts)
 
     # 5. the LJ melt on the cell engine: path E, kernel parity on its last
     # state, then paths F and E4

@@ -36,14 +36,14 @@ def _scalar(v):
 
 # pair fields the port cannot express, with the only value it accepts
 _PAIR_ONLY = dict(charmm=False, charmm_fsw=False, kind="lj", excl=None,
-                  excl_mol=False, lj5=None, tab_e=None)
+                  lj5=None, tab_e=None)
 
 
 def pair_from_numpy(pair: dict, device="cuda",
                     dtype=torch.float32) -> PairParams:
     """The port's PairParams from a numpy copy of the JAX one: lj/cut
-    (coul=False) or lj/cut/coul/long.  A table that asks for another form
-    raises."""
+    (coul=False) or lj/cut/coul/long, with excl_mol.  A table that asks
+    for another form raises."""
     from lidp_tpu_torch import resolve_device
 
     device = resolve_device(device)
@@ -52,7 +52,8 @@ def pair_from_numpy(pair: dict, device="cuda",
     for k, want in only.items():
         if k in pair and _scalar(pair[k]) != want:
             raise NotImplementedError(
-                f"pair field {k}={_scalar(pair[k])!r} is not ported")
+                f"pair field {k}={_scalar(pair[k])!r} is not ported "
+                "(ROADMAP queue 1 item 6, breadth)")
 
     def t(a):
         return torch.as_tensor(np.array(a), dtype=dtype, device=device)
@@ -62,12 +63,16 @@ def pair_from_numpy(pair: dict, device="cuda",
                                    "cutsq", "special_lj", "special_coul")},
         cut_coulsq=float(_scalar(pair["cut_coulsq"])),
         qqrd2e=float(_scalar(pair["qqrd2e"])),
-        g_ewald=float(_scalar(pair["g_ewald"])), coul=coul)
+        g_ewald=float(_scalar(pair["g_ewald"])), coul=coul,
+        excl_mol=bool(_scalar(pair.get("excl_mol", False))))
 
 
 def forcefield_from_numpy(pair: dict, ewald: dict, polar: dict, qqrd2e,
-                          device="cuda", dtype=torch.float32) -> ForceField:
-    """The port's ForceField from numpy copies of the JAX dataclasses."""
+                          device="cuda", dtype=torch.float32, sp_code=None,
+                          reference_gs=False) -> ForceField:
+    """The port's ForceField from numpy copies of the JAX dataclasses;
+    sp_code: the JAX ForceField's (N,N) special codes, reference_gs its
+    switch."""
     from lidp_tpu_torch import resolve_device
 
     device = resolve_device(device)
@@ -88,7 +93,10 @@ def forcefield_from_numpy(pair: dict, ewald: dict, polar: dict, qqrd2e,
         names = {f.name for f in dataclasses.fields(PolarizationSettings)}
         s = PolarizationSettings(**{k: _scalar(v) for k, v in polar.items()
                                     if k in names})
-    return ForceField(pair=pp, ewald=ew, polar=s, qqrd2e=float(qqrd2e))
+    if sp_code is not None:
+        sp_code = torch.as_tensor(np.array(sp_code), device=device)
+    return ForceField(pair=pp, ewald=ew, polar=s, qqrd2e=float(qqrd2e),
+                      sp_code=sp_code, reference_gs=bool(reference_gs))
 
 
 def _np_dtype(a):

@@ -8,13 +8,15 @@ Analog of Verlet::setup + Verlet::run (verlet.cpp:88,223): per step
   4. integrator final_integrate
 Thermo sampling happens on the host between `run` calls.
 
-Ported for NVE on a cell grid (`neighbor_cfg` a CellConfig).  With
-check=False the loop reads nothing back from the device: the step counter
-and the rebuild schedule are Python ints.  With check=True the displacement
-test is computed on the device and read once per rebuild decision (only on
-the steps the schedule allows one).  Shrink-wrapped boxes, fix deform, fix
-tmd, the rigid-body integrator and rRESPA are not ported; asking for them
-raises NotImplementedError.
+Ported for the dense route (`neighbor_cfg` None: every evaluation is
+compute_forces(nlist=None), with no wrap and no rebuild, as in the JAX
+package) and for a cell grid (`neighbor_cfg` a CellConfig), with the nve
+and rigid/nve integrators.  With check=False the loop reads nothing back
+from the device: the step counter and the rebuild schedule are Python
+ints.  With check=True the displacement test is computed on the device
+and read once per rebuild decision (only on the steps the schedule allows
+one).  Neighbour lists, shrink-wrapped boxes, fix deform, fix tmd and
+rRESPA are not ported; asking for them raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -105,7 +107,7 @@ def _build_struct(sys, neighbor_cfg):
         return build_cells(sys.x, sys.mask, sys.box, neighbor_cfg)
     raise NotImplementedError(
         "neighbour lists are not ported (ops/neighbor.py; ROADMAP queue 1 "
-        "item 4); pass a CellConfig")
+        "item 5, neighbour lists); pass a CellConfig or None")
 
 
 def _apply_post_force(sys, res, post_force):
@@ -118,15 +120,17 @@ def _apply_post_force(sys, res, post_force):
     return dataclasses.replace(res, f=out)
 
 
+def _nlist_of(carry):
+    return None if carry is None else carry.nlist
+
+
 def _setup_forces(sys, ff, *, neighbor_cfg, post_force=None):
-    if neighbor_cfg is None:
-        raise NotImplementedError(
-            "the dense all-pairs route is not ported (ROADMAP queue 1 item "
-            "3); pass a CellConfig as neighbor_cfg")
-    x, image = box_mod.wrap(sys.x, sys.box, sys.image)
-    sys = sys.replace(x=x, image=image)
-    nlist = _make_carry(sys, _build_struct(sys, neighbor_cfg))
-    res = compute_forces(sys, ff, nlist.nlist)
+    nlist = None
+    if neighbor_cfg is not None:
+        x, image = box_mod.wrap(sys.x, sys.box, sys.image)
+        sys = sys.replace(x=x, image=image)
+        nlist = _make_carry(sys, _build_struct(sys, neighbor_cfg))
+    res = compute_forces(sys, ff, _nlist_of(nlist))
     if post_force is not None:
         res = _apply_post_force(sys, res, post_force)
     sys = sys.replace(mu=res.mu)
@@ -156,16 +160,18 @@ def _run_chunk(sys, res, nlist, istate, ff, iparams, *, nsteps, initial,
         # Neighbor::decide (neighbor.cpp:1933): ago >= delay and
         # ago % every == 0; with dist_check, only when some atom moved
         # more than skin/2 since the last build
-        ago = sys.step - nlist.last_build
-        need = ago >= max(delay, 1) and ago % rebuild_every == 0
-        if need and check:
-            disp2 = torch.sum((sys.x - nlist.x_ref) ** 2, dim=1)
-            disp2 = torch.where(sys.mask, disp2, 0.0)
-            need = bool(torch.max(disp2) > (0.5 * skin) ** 2)
-        if need:
-            sys, nlist = _rebuild(sys, nlist, neighbor_cfg)
+        if nlist is not None:
+            ago = sys.step - nlist.last_build
+            need = ago >= max(delay, 1) and ago % rebuild_every == 0
+            if need and check:
+                disp2 = torch.sum((sys.x - nlist.x_ref) ** 2, dim=1)
+                disp2 = torch.where(sys.mask, disp2, 0.0)
+                need = bool(torch.max(disp2) > (0.5 * skin) ** 2)
+            if need:
+                sys, nlist = _rebuild(sys, nlist, neighbor_cfg)
 
-        res = compute_forces(sys, ff, nlist.nlist, need_ev=every_step_ev)
+        res = compute_forces(sys, ff, _nlist_of(nlist),
+                             need_ev=every_step_ev)
         if post_force is not None:
             res = _apply_post_force(sys, res, post_force)
         sys = sys.replace(mu=res.mu)
@@ -175,7 +181,7 @@ def _run_chunk(sys, res, nlist, istate, ff, iparams, *, nsteps, initial,
     if not every_step_ev:
         # one energy-bearing re-tally at the end of the run (forces at the
         # final positions are unchanged; thermo samples between runs)
-        res = compute_forces(sys, ff, nlist.nlist, need_ev=True)
+        res = compute_forces(sys, ff, _nlist_of(nlist), need_ev=True)
         if post_force is not None:
             res = _apply_post_force(sys, res, post_force)
     return sys, res, nlist, istate
@@ -217,7 +223,7 @@ class Runner:
             if getattr(self, name) is not None:
                 raise NotImplementedError(
                     f"Runner({name}=...) is not ported (ROADMAP queue 1 "
-                    f"item 5, breadth)")
+                    f"item 6, breadth)")
 
     def setup(self, sys: System):
         """Initial force evaluation (Verlet::setup).  Returns (sys, res,
@@ -246,8 +252,8 @@ class Runner:
 
 
 class RespaRunner:
-    """rRESPA is not ported (ROADMAP queue 1 item 5, breadth)."""
+    """rRESPA is not ported (ROADMAP queue 1 item 6, breadth)."""
 
     def __init__(self, *args, **kwargs):
         raise NotImplementedError(
-            "RespaRunner is not ported (ROADMAP queue 1 item 5, breadth)")
+            "RespaRunner is not ported (ROADMAP queue 1 item 6, breadth)")

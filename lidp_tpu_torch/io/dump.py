@@ -6,7 +6,7 @@ Matches the reference Dump::write (dump.cpp:302) / DumpCustom text layout
 (columns like ``x y z type mol``), with ``dump_modify sort id`` ordering
 (the arrays are already id-ordered).  Per-atom compute and fix columns
 (c_ID, f_ID), and the xyz, dcd, cfg, local, image and movie styles, are
-not ported (ROADMAP queue 1 item 1).
+not ported (ROADMAP queue 1 item 4).
 """
 
 from __future__ import annotations
@@ -33,7 +33,7 @@ def write_dump_frame(spec, sys, script, gmask, f=None):
         if c not in COLUMNS:
             raise NotImplementedError(
                 f"dump column {c} is not ported (only {', '.join(COLUMNS)}; "
-                "ROADMAP queue 1 item 1)")
+                "ROADMAP queue 1 item 4)")
     n = len(gmask)
     x = _np(sys.x, n)
     v = _np(sys.v, n)

@@ -39,8 +39,10 @@ from lidp_tpu_torch.io.data_reader import read_data
 _NUM_RE = re.compile(r"^[\d eE+\-*/().]+$")
 
 # where the commands, styles and keywords this interpreter lacks are queued
-_FRONT_END = "ROADMAP queue 1 item 1, the script front end"
-_BREADTH = "ROADMAP queue 1 item 5, breadth"
+_FRONT_END = "ROADMAP queue 1 item 4, the script front end"
+_BREADTH = "ROADMAP queue 1 item 6, breadth"
+_NOSE_HOOVER = ("ROADMAP queue 1 item 3, the rigid Nose-Hoover thermostat "
+                "and fix nvt")
 
 # thermo keywords the port's thermo row gives (thermo.thermo_row and
 # Simulation._thermo_row)
@@ -130,6 +132,9 @@ class LammpsScript:
         self._skip_next_jump = False
         self.units = units_mod.LJ
         self.dt: float = self.units.dt
+        # neighbor skin: it sizes no structure of the port, but above the
+        # dense cap it decides the JAX package's route (sim.py)
+        self.skin: float = self.units.skin
         self.atom_style = "atomic"
         self.dimension = 3
         self.periodic = (True, True, True)
@@ -418,6 +423,7 @@ class LammpsScript:
     def cmd_units(self, a):
         self.units = units_mod.get(a[0])
         self.dt = self.units.dt        # units resets dt (update.cpp:147 etc.)
+        self.skin = self.units.skin
 
     def cmd_timestep(self, a):
         self.dt = float(a[0])
@@ -438,7 +444,7 @@ class LammpsScript:
     def cmd_processors(self, a):
         if any(tok not in ("1", "*") for tok in a[:3]):
             _unported(f"processors {' '.join(a)} (one device; multi-GPU "
-                      "is ROADMAP queue 1 item 6)")
+                      "is ROADMAP queue 1 item 7)")
 
     def cmd_atom_modify(self, a):
         # map array|hash / sort: global-ID lookup is an array index and
@@ -458,8 +464,9 @@ class LammpsScript:
         pass
 
     def cmd_neighbor(self, a):
-        # the panel engine takes every pair: no neighbour list to size
-        pass
+        # the panel engine and the dense route take every pair: no
+        # neighbour list to size
+        self.skin = float(a[0])
 
     def cmd_neigh_modify(self, a):
         if "exclude" in a:
@@ -849,7 +856,9 @@ class LammpsScript:
     def cmd_fix(self, a):
         fid, group, style = a[0], a[1], a[2]
         if style not in FIX_STYLES:
-            _unported(f"fix style {style}", _BREADTH)
+            _unported(f"fix style {style}", _NOSE_HOOVER
+                      if style in ("nvt", "rigid/nvt", "rigid/nvt/small")
+                      else _BREADTH)
         self.fixes[fid] = FixSpec(fid=fid, group=group, style=style,
                                   args=a[3:])
         self._invalidate()

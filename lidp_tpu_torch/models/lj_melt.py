@@ -53,14 +53,16 @@ def build(scale: float = 1, dtype=torch.float64, *, neighbor: str = "cells",
           cap_slack: float | None = None, device="cuda") -> LJMelt:
     """neighbor: 'cells' (generic Runner on the cell grid) or 'slots'
     (SlotRunner, state in cell-slot order).  The JAX package's 'list'
-    (neighbor lists) and 'none' (dense all-pairs) are not ported.
+    (neighbor lists) and 'none' (the dense all-pairs Runner) are not
+    offered here.
     `bin_cap` sizes the bins of a neighbor list and nothing else: it is
     accepted for the JAX signature and read by neither ported mode."""
     if neighbor in ("list", "none"):
         raise NotImplementedError(
-            f"neighbor={neighbor!r} needs ops/neighbor.py or the dense "
-            f"route, which are not ported (ROADMAP queue 1 items 3-4); use "
-            f"'cells' or 'slots'")
+            f"neighbor={neighbor!r} is not offered: 'list' needs "
+            f"ops/neighbor.py (ROADMAP queue 1 item 5, neighbour lists), "
+            f"and the melt is not built on the dense route; use 'cells' or "
+            f"'slots'")
     if neighbor not in ("cells", "slots"):
         raise ValueError(f"unknown neighbor mode {neighbor!r}")
     device = resolve_device(device)

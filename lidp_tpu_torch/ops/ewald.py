@@ -4,7 +4,8 @@ The k-space setup is host-side numpy, copied from the JAX package so the
 port depends on nothing of it: g_ewald estimate (ewald_disp.cpp:188-203),
 per-dimension kmax from the RMS error bound (ewald_disp.cpp:255-331) and
 the half-space k enumeration (ewald_disp.cpp:333-355).  Orthogonal boxes
-only.  The sum itself, [N,K] matmuls, lives in parallel/shard.py.
+only.  `ewald_forces` is the dense route's sum, [N,K] matmuls blocked over
+k past _EWALD_CHUNK_ELEMS; the panel engine's lives in parallel/shard.py.
 """
 
 from __future__ import annotations
@@ -14,6 +15,8 @@ import math
 
 import numpy as np
 import torch
+
+MY_PIS = math.sqrt(math.pi)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -128,3 +131,55 @@ class EwaldParams:
                            kvirial=t(s.kvirial), g_ewald=float(s.g_ewald),
                            qscale=float(qqrd2e), qsum=float(s.qsum),
                            qsqsum=float(s.qsqsum))
+
+
+def _ewald_kblock(x, q, hvecs, kcoeff, kvirial, c0):
+    """Structure factors, energy, forces and virial of one k block
+    (lidp_tpu/ops/ewald.py _ewald_kblock); per-k terms are independent,
+    so blocks add."""
+    phases = x @ hvecs.T                          # (N,Kb)
+    c = torch.cos(phases)
+    s = torch.sin(phases)
+    sre = q @ c                                   # (Kb,)
+    sim = q @ s
+    sk2 = sre * sre + sim * sim
+    e = c0 * torch.sum(kcoeff * sk2)
+    w = kcoeff * sre * 2.0 * c0
+    w2 = kcoeff * sim * 2.0 * c0
+    coef = s * w[None, :] - c * w2[None, :]       # (N,Kb)
+    f = (coef @ hvecs) * q[:, None]
+    # only the per-k terms enter the virial (ewald.cpp:466-474)
+    virial = c0 * (sk2 @ kvirial)
+    return f, e, virial
+
+
+# past this (N,K) working set the k axis is cut into blocks of
+# _EWALD_CHUNK_ELEMS // N vectors (at least 128), summed in block order
+_EWALD_CHUNK_ELEMS = 64_000_000
+
+
+def ewald_forces(x, q, volume, p: EwaldParams):
+    """Reciprocal-space forces, energy (less the self and background
+    terms) and virial (lidp_tpu/ops/ewald.py ewald_forces): (f (N,3),
+    elong (), virial6)."""
+    c0 = 4.0 * math.pi * p.qscale / volume
+    energy_self = (p.qsqsum * p.qscale * p.g_ewald / MY_PIS
+                   + 0.5 * math.pi * p.qscale / (p.g_ewald**2 * volume)
+                   * p.qsum * p.qsum)
+    n = x.shape[0]
+    K = p.hvecs.shape[0]
+    if n * K <= _EWALD_CHUNK_ELEMS:
+        f, e, virial = _ewald_kblock(x, q, p.hvecs, p.kcoeff, p.kvirial, c0)
+        return f, e - energy_self, virial
+    kb = max(128, _EWALD_CHUNK_ELEMS // max(n, 1))
+    f = torch.zeros_like(x)
+    e = x.new_zeros(())
+    virial = x.new_zeros(6)
+    for k0 in range(0, K, kb):
+        # the JAX package pads the last block with zero coefficients; a
+        # padded vector adds exactly zero, so the short block is the same
+        fb, eb, vb = _ewald_kblock(x, q, p.hvecs[k0:k0 + kb],
+                                   p.kcoeff[k0:k0 + kb],
+                                   p.kvirial[k0:k0 + kb], c0)
+        f, e, virial = f + fb, e + eb, virial + vb
+    return f, e - energy_self, virial

@@ -575,6 +575,10 @@ def build_sharded_polar_step(mesh, ff: ForceField,
     if mesh is not None:
         raise NotImplementedError("the multi-device panel engine is not "
                                   "ported yet; pass mesh=None")
+    if ff.pair.excl_mol:
+        raise NotImplementedError("excl_mol on the panel engine is not "
+                                  "ported (ROADMAP queue 1 item 6, breadth); "
+                                  "the dense route takes it")
     device = resolve_device(device)
     if device.type == "cuda":
         # full-precision matmuls for the Ewald [N,K] products in both

@@ -66,6 +66,6 @@ def build_fixes(ctx: FixBuildCtx):
         if builder is None:
             raise NotImplementedError(
                 f"fix style {spec.style} is not ported (only nve and "
-                "rigid/nve; ROADMAP queue 1 item 5, breadth)")
+                "rigid/nve; ROADMAP queue 1 item 6, breadth)")
         builder(ctx, spec)
     return ctx

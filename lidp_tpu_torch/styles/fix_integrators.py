@@ -46,7 +46,7 @@ def build_rigid(ctx, spec):
     if not spec.args or spec.args[0] != "molecule":
         raise NotImplementedError(
             f"fix {spec.style} {' '.join(spec.args)}: only bodies by "
-            "molecule are ported (ROADMAP queue 1 item 5, breadth)")
+            "molecule are ported (ROADMAP queue 1 item 6, breadth)")
     gmask = ctx.groups[spec.group]
     x_unwrap = (ctx.padA(script.x)
                 + ctx.padA(script.image, 0)

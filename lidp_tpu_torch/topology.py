@@ -3,7 +3,9 @@
 Host-side equivalent of Special::build (reference special.cpp:55): BFS over
 the bond graph gives each atom its 1-2, 1-3 and 1-4 neighbor sets, closer
 relations winning.  Bond ids are 1-based, as in LAMMPS data files.
-`infer_image_flags` derives image flags from the bond graph.
+`special_codes_dense` gives the same relations as an (N,N) code matrix
+for the dense route.  `infer_image_flags` derives image flags from the
+bond graph.
 """
 
 from __future__ import annotations
@@ -54,6 +56,20 @@ def _special_sets(natoms: int, bonds: np.ndarray):
         onefour -= onetwo | onethree | {i}
         out.append((onetwo, onethree, onefour))
     return out
+
+
+def special_codes_dense(natoms: int, bonds: np.ndarray) -> np.ndarray:
+    """(N,N) int8 special-bond codes: 1, 2, 3 for the 1-2, 1-3, 1-4
+    partners of each row's atom, 0 elsewhere.  bonds: (NB,2) 1-based atom
+    ids."""
+    code = np.zeros((natoms, natoms), np.int8)
+    if np.asarray(bonds).size == 0:
+        return code
+    for i, sets in enumerate(_special_sets(natoms, bonds)):
+        for level, group in enumerate(sets, start=1):
+            for j in group:
+                code[i, j] = level
+    return code
 
 
 def infer_image_flags(x, bonds, box_lo, box_hi, mol=None):

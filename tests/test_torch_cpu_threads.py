@@ -1,0 +1,139 @@
+"""The port's first float64 evaluation in a fresh process does not depend
+on the number of CPU threads torch runs it on.
+
+Each case runs its evaluation as the first of fresh `python -c` processes
+with torch's default thread count (REPEATS of them, PARALLEL at a time, so
+that the threads of several processes share the cores, as under
+pytest-xdist) and once with OMP_NUM_THREADS=1 and torch.set_num_threads(1);
+every array the threaded runs save agrees with the one-thread run's to rel
+1e-12 of its largest entry.  That bar lies far below the 2.5e-8 and 1.7e-7
+that the port's tests once recorded for a first evaluation on several
+threads, and far above what a threaded reduction's other summation order
+changes.  The subprocesses import torch and the port, never JAX:
+
+  * panel_step: PolarStep's first float64 evaluation (the panel engine's
+    plain path, LIDP_FAST_POLAR=1) on the 375-atom fluid of
+    chip_smoke.fluid_script_case(n_side=5) through
+    LammpsScript(dtype=torch.float64, device="cpu"), step 0 only: forces,
+    dipoles and the thermo row's energies;
+  * pair_plain: the plain row form of tests/test_torch_pair_symmetric.py's
+    first float64 case (ops/panel.pair_wolf_panel_plain on its _case());
+  * dense_route: the same script as panel_step without LIDP_FAST_POLAR,
+    the dense route's first evaluation.
+
+The fault these processes look for is not located (ROADMAP queue 3 item
+1): in about 410 such processes it showed once, in one of about 270 of
+panel_step, and the parity files that once recorded it passed without
+their one-thread pin in two runs under pytest-xdist.  Until an operation is found and
+repaired the parity files keep the pin and this test is marked xfail,
+not strict: it runs in every suite and reports XPASS or XFAIL.
+"""
+
+import os
+import subprocess
+import sys
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke
+
+ROOT = Path(__file__).resolve().parent.parent
+REPEATS = 12
+PARALLEL = 6
+REL = 1e-12
+
+_PRELUDE = """\
+import os, sys
+import numpy as np
+import torch
+if os.environ.get("ONE_THREAD"):
+    torch.set_num_threads(1)
+out = sys.argv[1]
+"""
+
+_SCRIPT = _PRELUDE + """\
+from lidp_tpu_torch.io.script import LammpsScript
+s = LammpsScript(dtype=torch.float64, device="cpu", log=lambda line: None)
+s.variables["nstep"] = "0"
+s.file(sys.argv[2])
+sim = s._sim
+n = sim.natoms
+row = s.thermo_rows[0]
+np.savez(out, f=sim.res.f[:n].numpy(), mu=sim.sys.mu[:n].numpy(),
+         row=np.array([row[c] for c in ("pe", "evdwl", "ecoul", "elong",
+                                        "epol", "press")]))
+assert "jax" not in sys.modules
+"""
+
+_PAIR = _PRELUDE + """\
+from lidp_tpu_torch.ops import panel
+c = np.load(sys.argv[2])
+t = lambda k: torch.as_tensor(c[k])
+f, ev, ec, vir, e0 = panel.pair_wolf_panel_plain(
+    t("x"), t("q"), t("type"), t("mol"), t("mask"), t("tabs"), t("L"),
+    float(c["cut_coulsq"]), float(c["qqrd2e"]), float(c["g_ewald"]),
+    sp=torch.as_tensor(c["sp"]))
+np.savez(out, f=f.numpy(), e0=e0.numpy(),
+         scalars=torch.cat([ev[None], ec[None], vir]).numpy())
+assert "jax" not in sys.modules
+"""
+
+
+@pytest.fixture(scope="module")
+def inputs(tmp_path_factory):
+    """The fluid's data file and input, and the pair case's arrays."""
+    from tests.test_torch_pair_symmetric import (CUT_COULSQ, G_EWALD,
+                                                 QQRD2E, _case)
+
+    d = tmp_path_factory.mktemp("threads")
+    _, in_fluid = chip_smoke.fluid_script_case(str(d), n_side=5)
+    c = _case()
+    np.savez(d / "pair_case.npz", cut_coulsq=CUT_COULSQ, qqrd2e=QQRD2E,
+             g_ewald=G_EWALD,
+             **{k: c[k] for k in ("x", "q", "type", "mol", "mask", "tabs",
+                                  "L", "sp")})
+    return {"panel_step": (_SCRIPT, in_fluid, {"LIDP_FAST_POLAR": "1"}),
+            "pair_plain": (_PAIR, str(d / "pair_case.npz"), {}),
+            "dense_route": (_SCRIPT, in_fluid, {})}
+
+
+def _run(code, arg, env_extra, out, one_thread):
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("OMP_NUM_THREADS", "MKL_NUM_THREADS",
+                        "LIDP_FAST_POLAR")}
+    env.update(env_extra, PYTHONPATH=os.pathsep.join(filter(None, (
+        str(ROOT), os.environ.get("PYTHONPATH")))))
+    if one_thread:
+        env.update(OMP_NUM_THREADS="1", ONE_THREAD="1")
+    res = subprocess.run([sys.executable, "-c", code, str(out), arg],
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    return dict(np.load(out))
+
+
+@pytest.mark.xfail(strict=False, reason=(
+    "the float64 first-evaluation fault on several CPU threads is not "
+    "located (ROADMAP queue 3 item 1): seen once in ~270 processes"))
+@pytest.mark.parametrize("case", ["panel_step", "pair_plain",
+                                  "dense_route"])
+def test_first_float64_evaluation_is_thread_independent(inputs, case,
+                                                        tmp_path):
+    code, arg, env = inputs[case]
+    ref = _run(code, arg, env, tmp_path / "one.npz", one_thread=True)
+    with ThreadPoolExecutor(PARALLEL) as pool:
+        runs = list(pool.map(
+            lambda k: _run(code, arg, env, tmp_path / f"run{k}.npz",
+                           one_thread=False), range(REPEATS)))
+    worst = {}
+    for k, got in enumerate(runs):
+        assert got.keys() == ref.keys()
+        for name, r in ref.items():
+            err = float(np.abs(got[name] - r).max() / np.abs(r).max())
+            worst[name] = max(worst.get(name, 0.0), err)
+            assert err <= REL, (case, k, name, err)
+    assert all(np.isfinite(v).all() for v in ref.values()), worst

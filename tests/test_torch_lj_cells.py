@@ -388,11 +388,15 @@ def test_atom_order_par_follows_the_box():
 
 
 def test_compute_forces_unported_routes_raise():
-    _, ti, _ = _case(GRIDS["cubic"], np.float32)
+    """Neighbour lists and a polar term on a cell grid raise; nlist=None is
+    the dense route (ported), which gives the cell route's result."""
+    _, ti, _ = _case(GRIDS["cubic"], np.float64)
     sys_t = make_system(ti["x"], box=ti["box"], device="cpu")
     ff = tff.ForceField(pair=ti["p"])
-    with pytest.raises(NotImplementedError, match="dense"):
-        tff.compute_forces(sys_t, ff, None)
+    dense = tff.compute_forces(sys_t, ff, None)
+    cells = tff.compute_forces(sys_t, ff, ti["cells"])
+    for k in ("f", "evdwl", "virial"):
+        _close(getattr(dense, k), getattr(cells, k), np.float64, k)
     with pytest.raises(NotImplementedError, match="neighbor.py"):
         tff.compute_forces(sys_t, ff, object())
     from lidp_tpu_torch.ops.polarization import PolarizationSettings

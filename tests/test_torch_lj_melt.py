@@ -326,8 +326,13 @@ def test_unported_options_raise():
         with pytest.raises(NotImplementedError, match=name):
             Runner(ff=ff, integ=integ, neighbor_cfg=t["cfg"],
                    **{name: object()})
-    with pytest.raises(NotImplementedError, match="dense"):
-        Runner(ff=ff, integ=integ).setup(t["sys"])
+    # no neighbor_cfg is the dense route (ported): its setup forces are
+    # the cell route's
+    _, rd, _, _ = Runner(ff=ff, integ=integ).setup(t["sys"])
+    _, rc, _, _ = Runner(ff=ff, integ=integ,
+                         neighbor_cfg=t["cfg"]).setup(t["sys"])
+    np.testing.assert_allclose(rd.f.numpy(), rc.f.numpy(), rtol=0,
+                               atol=1e-10 * float(rc.f.abs().max()))
     with pytest.raises(NotImplementedError, match="neighbor.py"):
         Runner(ff=ff, integ=integ, neighbor_cfg=object()).setup(t["sys"])
     # rigid/nve is ported (tests/test_torch_rigid.py); its thermostat and

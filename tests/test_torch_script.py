@@ -1,31 +1,39 @@
 """The port's script front end (lidp_tpu_torch.io.script LammpsScript ->
-sim.Simulation -> FastPolarRunner, and `python -m lidp_tpu_torch`) against
-the JAX package's (lidp_tpu.io.script LammpsScript, `python -m lidp_tpu`)
-on the 375-atom fluid of polar_bench.synthetic_system(5), written as a
-LAMMPS data file and input by chip_smoke.fluid_script_case, float64, 3
-steps.
+sim.Simulation -> FastPolarRunner or the dense route's Runner, and
+`python -m lidp_tpu_torch`) against the JAX package's (lidp_tpu.io.script
+LammpsScript, `python -m lidp_tpu`) on the 375-atom fluid of
+polar_bench.synthetic_system(5), written as a LAMMPS data file and input
+by chip_smoke.fluid_script_case, float64, 3 steps.
 
-Both take the panel engine: the input has a Bonds section and
-special_bonds but no bond_style, and LIDP_FAST_POLAR=1 (the fluid is below
-DENSE_PATH_MAX_ATOMS); the JAX side is asserted to run FastPolarRunner, so
-the comparison is never against its dense route.
+The input has a Bonds section and special_bonds but no bond_style.  With
+LIDP_FAST_POLAR=1 both take the panel engine (FastPolarRunner); without
+it, the fluid being below DENSE_PATH_MAX_ATOMS, both take the dense route
+(the generic Runner, compute_forces with nlist=None).  Each case asserts
+the runner type on both sides.
 
-  * cases: fused and LIDP_FAST_POLAR_MODE=host; fix rigid/nve molecule
-    and fix nve; `wrapped` (x shifted by +L/2 and wrapped, the molecules
-    straddling the faces, their image flags in the data file);
-    `kspace_modify gewald 0.3`.  Bars (BASELINE.md:21): every thermo
-    column within rel 1e-8 of max(1, |value|), the final x, v and mu
-    within 1e-8 of their largest entry;
+  * cases on the panel engine: fused and LIDP_FAST_POLAR_MODE=host; fix
+    rigid/nve molecule and fix nve; `wrapped` (x shifted by +L/2 and
+    wrapped, the molecules straddling the faces, their image flags in the
+    data file); `kspace_modify gewald 0.3`.  On the dense route: `dense`
+    (rigid/nve), `dense_wrapped` (both packages set the bodies up from
+    the wrapped x, ROADMAP queue 3), `dense_nve` (fix nve, 2 steps), and
+    `above_cap` (LIDP_FAST_POLAR=0 with DENSE_PATH_MAX_ATOMS mocked to 300
+    on both sides: the dense route with JAX's warning, and no special
+    codes, as JAX builds them up to the cap only).  Bars (BASELINE.md:21):
+    every thermo column within rel 1e-8 of max(1, |value|), the final x,
+    v and mu within 1e-8 of their largest entry;
   * the PolarizationSettings the two build, field by field;
   * the pair_style grammar's errors raise as in JAX: zodid while
     polar_gs_ranked is on, polar_gs with polar_gs_ranked, a negative
     static_polarizability;
   * replicate 2 1 1 of the wrapped data gives JAX's x, image, mol, type;
   * an unported command, style or keyword raises NotImplementedError
-    naming a ROADMAP item; a script at <= 4096 atoms without
-    LIDP_FAST_POLAR=1 raises (the dense route is not ported);
-  * both CLIs as subprocesses (`-device cpu` on the port): their logged
-    rows agree at rel 1e-7 of max(1, |value|).
+    naming a ROADMAP item; on the dense route, fix nvt, and above a mocked
+    cap the box on which JAX runs the pair term on a cell grid;
+  * both CLIs as subprocesses (`-device cpu` on the port): with
+    LIDP_FAST_POLAR=1 their logged rows agree at rel 1e-7 of max(1,
+    |value|); without it (the dense route), logged at 16 digits by
+    `thermo_modify format float`, at rel 1e-8.
 """
 
 import dataclasses
@@ -43,12 +51,16 @@ jnp = pytest.importorskip("jax.numpy")
 # one torch thread: with several, the first float64 evaluation in a process
 # came out up to 1.7e-7 off (pe at step 0) in about one process in three,
 # as tests/test_torch_pair_symmetric.py records for its own first
-# evaluation; the CLI's process below runs with OMP_NUM_THREADS=1
+# evaluation; the CLIs' processes below run with OMP_NUM_THREADS=1.  The
+# fault is not located (ROADMAP queue 3 item 1); the fresh processes of
+# tests/test_torch_cpu_threads.py look for it on torch's default threads
 torch.set_num_threads(1)
 
 import chip_smoke  # noqa: E402
+from lidp_tpu import sim as jsim  # noqa: E402
 from lidp_tpu.io import script as jscript  # noqa: E402
 from lidp_tpu_torch.io import script as tscript  # noqa: E402
+from lidp_tpu_torch.parallel import fast_polar as tfast  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent.parent
 NSTEP = 3
@@ -59,7 +71,7 @@ FIX_RIGID = "fix 1 all rigid/nve molecule"
 def _text(case):
     """The input of a case: FLUID_SCRIPT with its edits."""
     t = chip_smoke.FLUID_SCRIPT
-    if case == "nve":
+    if case in ("nve", "dense_nve"):
         t = t.replace(FIX_RIGID, "fix 1 all nve")
     if case == "gewald":
         t = t.replace("kspace_style ewald/disp 1e-4\n",
@@ -69,10 +81,21 @@ def _text(case):
 
 
 def _env(case):
+    if case.startswith("dense"):
+        return {"LIDP_FAST_POLAR": ""}
+    if case == "above_cap":
+        return {"LIDP_FAST_POLAR": "0"}
     env = {"LIDP_FAST_POLAR": "1"}
     if case == "host":
         env["LIDP_FAST_POLAR_MODE"] = "host"
     return env
+
+
+def _cap(value):
+    """DENSE_PATH_MAX_ATOMS mocked to `value` in both packages (the JAX
+    script engine's and the port's)."""
+    return mock.patch.multiple(jsim, DENSE_PATH_MAX_ATOMS=value), \
+        mock.patch.multiple(tfast, DENSE_PATH_MAX_ATOMS=value)
 
 
 @pytest.fixture(scope="module")
@@ -100,26 +123,40 @@ def _run(pkg, d, text, env, nstep=NSTEP):
     with mock.patch.dict(os.environ, env):
         if "LIDP_FAST_POLAR_MODE" not in env:
             os.environ.pop("LIDP_FAST_POLAR_MODE", None)
+        if not env.get("LIDP_FAST_POLAR"):
+            os.environ.pop("LIDP_FAST_POLAR", None)
         s.file(str(path))
     return s, lines
 
 
-CASES = ("fused", "host", "nve", "wrapped", "gewald")
+CASES = ("fused", "host", "nve", "wrapped", "gewald", "dense",
+         "dense_wrapped", "dense_nve", "above_cap")
+PANEL = ("fused", "host", "nve", "wrapped", "gewald")
+STEPS = {"dense_nve": 2, "above_cap": 2}
+ABOVE_CAP_N = 300
 
 
 @pytest.fixture(scope="module")
 def runs(dirs):
     """Each case through both packages, once: {case: (jax script, port
-    script)}."""
+    script, port log)}."""
     out = {}
     for case in CASES:
-        d = dirs[case == "wrapped"]
+        d = dirs[case in ("wrapped", "dense_wrapped")]
         pair = []
         for pkg in ("jax", "torch"):
-            s, _ = _run(pkg, d, _text(case), _env(case))
+            caps = _cap(ABOVE_CAP_N if case == "above_cap" else
+                        jsim.DENSE_PATH_MAX_ATOMS)
+            with caps[0], caps[1]:
+                s, lines = _run(pkg, d, _text(case), _env(case),
+                                nstep=STEPS.get(case, NSTEP))
             pair.append(s)
-        assert type(pair[0]._sim.runner).__name__ == "FastPolarRunner"
-        out[case] = tuple(pair)
+        want = "FastPolarRunner" if case in PANEL else "Runner"
+        assert type(pair[0]._sim.runner).__name__ == want
+        assert type(pair[1]._sim.runner).__name__ == want
+        assert type(pair[1]._sim.runner).__module__.startswith(
+            "lidp_tpu_torch.")
+        out[case] = (*pair, lines)
     return out
 
 
@@ -134,10 +171,12 @@ def _state(s, pkg):
 
 @pytest.mark.parametrize("case", CASES)
 def test_thermo_rows_match_jax(runs, case):
-    js, ts = runs[case]
-    assert ts._sim.runner.mode == js._sim.runner.mode == (
-        "host" if case == "host" else "fused")
-    assert len(ts.thermo_rows) == len(js.thermo_rows) == NSTEP + 1
+    js, ts, _ = runs[case]
+    if case in PANEL:
+        assert ts._sim.runner.mode == js._sim.runner.mode == (
+            "host" if case == "host" else "fused")
+    nrows = STEPS.get(case, NSTEP) + 1
+    assert len(ts.thermo_rows) == len(js.thermo_rows) == nrows
     for k, (r, g) in enumerate(zip(ts.thermo_rows, js.thermo_rows)):
         assert int(r["step"]) == int(g["step"]) == k
         for c in COLS:
@@ -146,7 +185,7 @@ def test_thermo_rows_match_jax(runs, case):
 
 @pytest.mark.parametrize("case", CASES)
 def test_final_state_matches_jax(runs, case):
-    js, ts = runs[case]
+    js, ts, _ = runs[case]
     a, b = _state(ts, "torch"), _state(js, "jax")
     for k in ("x", "v", "mu"):
         np.testing.assert_allclose(a[k], b[k], rtol=0,
@@ -155,7 +194,7 @@ def test_final_state_matches_jax(runs, case):
 
 
 def test_polarization_settings_match_jax(runs):
-    js, ts = runs["fused"]
+    js, ts, _ = runs["fused"]
     jp, tp = js._sim.runner.ff.polar, ts._sim.runner.ff.polar
     jd, td = dataclasses.asdict(jp), dataclasses.asdict(tp)
     assert jd == td
@@ -164,7 +203,7 @@ def test_polarization_settings_match_jax(runs):
 
 
 def test_gewald_override_reaches_the_pair_and_kspace(runs):
-    js, ts = runs["gewald"]
+    js, ts, _ = runs["gewald"]
     assert ts._sim.runner.ff.pair.g_ewald == 0.3
     assert ts._sim.runner.ff.ewald.g_ewald == 0.3
     assert float(js._sim.runner.ff.pair.g_ewald) == 0.3
@@ -225,12 +264,42 @@ def test_unported_commands_raise(dirs, name):
         _run("torch", dirs[False], text, _env("fused"))
 
 
+def test_dense_route_special_codes_and_warning(runs):
+    """The dense route carries the Bonds section's special codes on both
+    sides; above the (mocked) cap neither builds them, so the O-H pairs
+    take their full LJ term, and both log JAX's warning."""
+    for case in ("dense", "above_cap"):
+        js, ts, lines = runs[case]
+        jcode, tcode = js._sim.runner.ff.sp_code, ts._sim.runner.ff.sp_code
+        if case == "dense":
+            np.testing.assert_array_equal(tcode.numpy(), np.asarray(jcode))
+            assert ts.thermo_rows[0]["evdwl"] < 0
+        else:
+            assert jcode is None and tcode is None
+            assert ts.thermo_rows[0]["evdwl"] > 1e6
+            assert any(line.startswith("WARNING: polarization above the "
+                                       "dense-path size cap") for line in
+                       lines)
+        assert ts._sim.sys.x.shape[0] == ts._sim.natoms
+
+
 def test_small_system_without_fast_polar_raises(dirs):
-    """At 375 atoms without LIDP_FAST_POLAR=1 the JAX package takes its
-    dense route; the port has none and says how to take the panel
-    engine."""
-    with pytest.raises(NotImplementedError, match="LIDP_FAST_POLAR=1"):
-        _run("torch", dirs[False], _text("fused"), {"LIDP_FAST_POLAR": ""})
+    """Without LIDP_FAST_POLAR=1 the 375-atom fluid takes the dense route,
+    and what the port cannot run there raises, naming its ROADMAP item:
+    fix nvt (queue 1 item 3), and, above a cap mocked to 300 atoms under
+    LIDP_FAST_POLAR=0, a box (the fluid replicated 2 x 2 x 2) on which the
+    JAX package runs the pair term on a cell grid with its sparse
+    special-bond correction (item 5)."""
+    text = _text("dense").replace("fix 1 all rigid/nve molecule",
+                                  "fix 1 all nvt temp 300 300 100")
+    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
+        _run("torch", dirs[False], text, _env("dense"))
+    text = _text("dense").replace("read_data fluid.data\n",
+                                  "read_data fluid.data\nreplicate 2 2 2\n")
+    caps = _cap(ABOVE_CAP_N)
+    with caps[0], caps[1], \
+            pytest.raises(NotImplementedError, match="queue 1 item 5"):
+        _run("torch", dirs[False], text, _env("above_cap"))
 
 
 def _log_rows(path):
@@ -258,3 +327,31 @@ def test_clis_agree(dirs, tmp_path):
     for r, g in zip(tr, jr):
         for c in COLS:
             assert abs(r[c] - g[c]) <= 1e-7 * max(1.0, abs(g[c])), c
+
+
+def test_clis_agree_on_the_dense_route(dirs, tmp_path):
+    """Both CLIs without LIDP_FAST_POLAR take the dense route on the
+    375-atom fluid; logged at 16 digits, their rows agree at rel 1e-8."""
+    d = dirs[False]
+    (d / "in.dense16").write_text(chip_smoke.FLUID_SCRIPT.replace(
+        "thermo 1\n", "thermo 1\nthermo_modify format float %.16g\n"))
+    env = dict(os.environ, JAX_PLATFORMS="cpu", OMP_NUM_THREADS="1",
+               PYTHONPATH=os.pathsep.join(filter(None, (
+                   str(ROOT), os.environ.get("PYTHONPATH")))))
+    for k in ("LIDP_FAST_POLAR", "LIDP_FAST_POLAR_MODE"):
+        env.pop(k, None)
+    common = ["-in", "in.dense16", "-var", "nstep", str(NSTEP)]
+    for pkg, extra in (("lidp_tpu", []),
+                       ("lidp_tpu_torch", ["-device", "cpu"])):
+        res = subprocess.run(
+            [sys.executable, "-m", pkg, *common, "-log",
+             str(tmp_path / f"log.{pkg}"), *extra], cwd=d, env=env,
+            capture_output=True, text=True, timeout=300)
+        assert res.returncode == 0, res.stderr[-3000:]
+        assert "fast-polar engine" not in res.stdout
+    jr = _log_rows(tmp_path / "log.lidp_tpu")
+    tr = _log_rows(tmp_path / "log.lidp_tpu_torch")
+    assert len(jr) == len(tr) == NSTEP + 1
+    for r, g in zip(tr, jr):
+        for c in COLS:
+            assert abs(r[c] - g[c]) <= 1e-8 * max(1.0, abs(g[c])), c
