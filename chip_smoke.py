@@ -114,7 +114,9 @@ Phases, each raising on failure:
         package's bar between its two routes); steps_per_s_I from the
         Loop time line, the peak device memory, and each phase's ms a
         step by CUDA events over 2 more steps (pair, ewald, the Wolf
-        field, T build, solve with its iterations, dipole forces);
+        field, T build, solve with its iterations, dipole forces), with
+        the rigid/nve integrator's ms and host reads a step as path J
+        reads its own;
      I-CLI. `python -m lidp_tpu_torch -in in.fluid -log log.i -var nstep
         5` in a process of its own without LIDP_FAST_POLAR: exit 0, its
         rows equal path I's at the printed precision;
@@ -122,6 +124,33 @@ Phases, each raising on failure:
         cap), float64, setup + 3 steps on the dense route: counters 0,
         rows finite, every solve converged; steps/s, the phases' ms an
         evaluation and the peak memory;
+     J. the Nose-Hoover thermostat of the reference's examples, on the
+        dense route: thermostat_script("J", 8) (1,536 atoms, float64,
+        precision 1e-11, 5 steps): `fix 1 moving rigid/nvt molecule temp
+        300.0 350.0 50.0 tparam 50 1 3` on half the molecules (the SIFSIX
+        example's form), the others at rest with no integrator, `compute
+        movingtemp moving temp` and its c_movingtemp column: every counter
+        0, the dense route's Runner, rows finite; its rows and final x, v,
+        mu against its CPU twin (the same script through the port on the
+        CPU in float64 on one thread, in a process of its own started
+        before J): rows within rel 1e-9 of max(1, |value|), x, v and mu
+        within 1e-8 of their largest entry; steps/s by its Loop time line,
+        the peak memory, and over 2 more steps the phases (DensePhases),
+        the integrator's ms a step (IntegratorTimer: CUDA events around
+        its halves, the host's chain arithmetic included, and the chain
+        updates alone by the host clock) and the host reads a step
+        (HostReads: the synchronizing CUDA operations), the integrator's
+        and all;
+     J-all. the same fix on all molecules, I's columns, 5 steps: step 0's
+        row equals path I's; step 1's pe, evdwl, ecoul, elong and epol,
+        and x after one step (a 1-step run of each form), equal I's bit
+        for bit (the chain at rest in step 1's drift: exp(-dtq 0) = 1);
+        ke and temp differ from I's at steps 1-5;
+     K. `fix 1 all nvt temp 300.0 300.0 50.0` on the same 1,536 atoms, 5
+        steps: as J, with its own CPU twin and readings;
+     J-cap. J at n_side 11 (3,993 atoms, just under the cap), setup + 3
+        steps: counters 0, rows finite, every solve converged, J's
+        readings;
   5. the LJ melt of bench/in.lj on the cell engine (lj_melt.build), float32:
      kernel parity of slot_lj_forces and cell_pair_forces_lj against their
      plain versions at the melt's (11,11,11,40) grid (the melt after path
@@ -167,7 +196,7 @@ Phases, each raising on failure:
      bars there are taken of max(max |f|, 1), the nearest-neighbour pair
      force being 2;
   6. one JSON line {"kernels": [...]} with each of the ten kernels'
-     launches (summed and by path, A-I-cap), times, ms_queued and bound,
+     launches (summed and by path, A-K), times, ms_queued and bound,
      then the nvidia-smi line, then the device line last.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
@@ -194,6 +223,8 @@ G64_STEPS = 3            # path G64
 H_STEPS = 5              # path H
 I_SIDE, I_STEPS = 8, 5   # path I: 1,536 atoms on the dense route
 ICAP_SIDE, ICAP_STEPS = 11, 3   # path I-cap: 3,993 atoms, below the cap
+J_SIDE, J_STEPS = 8, 5   # paths J, J-all and K: 1,536 atoms, the dense route
+JCAP_SIDE, JCAP_STEPS = 11, 3   # path J-cap: 3,993 atoms
 SHARE_STEPS = 10         # path G's steps timed part by part
 # thermo columns held between G64's kernel and plain routes
 G64_COLS = ("etotal", "ke", "pe", "evdwl", "ecoul", "elong", "epol", "temp",
@@ -1296,8 +1327,8 @@ def g64_compare(rows_k, rows_p, states_k, states_p, n):
           f"{worst_arr:.3g} of theirs")
 
 
-def rows_agree(path, rows, ref, rels):
-    """Thermo rows against reference rows, row k's G64_COLS within rels[k]
+def rows_agree(path, rows, ref, rels, cols=G64_COLS):
+    """Thermo rows against reference rows, row k's `cols` within rels[k]
     of max(1, |value|); raises on the first that is not.  Returns the
     largest ratio of a difference to its bar."""
     if len(rows) != len(ref):
@@ -1305,7 +1336,7 @@ def rows_agree(path, rows, ref, rels):
                              f"{len(ref)}")
     worst = 0.0
     for k, (r, g, rel) in enumerate(zip(rows, ref, rels)):
-        for c in G64_COLS:
+        for c in cols:
             bar = rel * max(1.0, abs(g[c]))
             worst = max(worst, abs(r[c] - g[c]) / bar)
             if not abs(r[c] - g[c]) <= bar:
@@ -1445,7 +1476,7 @@ def log_rows(lines):
     for line in lines:
         words = line.split()
         if words and words[0] == "Step":
-            cols = [LOG_COLS[w] for w in words]
+            cols = [LOG_COLS.get(w, w) for w in words]
         elif line.startswith("Loop time"):
             cols = None
         elif cols and len(words) == len(cols):
@@ -1689,6 +1720,35 @@ def fluid_script_case(directory, n_side=15, seed=0, wrapped=False):
     with open(script, "w") as fh:
         fh.write(FLUID_SCRIPT)
     return data, script
+
+
+# the Nose-Hoover paths' edits of FLUID_SCRIPT (thermostat_script)
+RIGID_NVT = "rigid/nvt molecule temp 300.0 350.0 50.0 tparam 50 1 3"
+NVT = "nvt temp 300.0 300.0 50.0"
+
+
+def thermostat_script(kind, n_side):
+    """FLUID_SCRIPT with its `fix 1 all rigid/nve molecule` replaced, for
+    the fluid of fluid_script_case(n_side):
+      J: the SIFSIX example's form: `group moving molecule <= M` with M
+         half the molecules, the others' velocities zeroed and no
+         integrator on them, `fix 1 moving rigid/nvt ... tparam 50 1 3`,
+         `compute movingtemp moving temp` and its c_movingtemp column;
+      J-all: the same thermostat on all molecules, I's columns;
+      K: `fix 1 all nvt temp 300.0 300.0 50.0`."""
+    t = FLUID_SCRIPT
+    fix = "fix 1 all rigid/nve molecule\n"
+    if kind == "J":
+        half = n_side ** 3 // 2
+        t = t.replace(fix, (
+            f"group moving molecule <= {half}\n"
+            f"group frozen molecule > {half}\n"
+            "velocity frozen set 0.0 0.0 0.0\n"
+            f"fix 1 moving {RIGID_NVT}\n"
+            "compute movingtemp moving temp\n"))
+        return t.replace("temp press\n", "temp press c_movingtemp\n")
+    return t.replace(fix, f"fix 1 all {RIGID_NVT if kind == 'J-all' else NVT}"
+                     "\n")
 
 
 def ragged_lj_case(device="cuda", seed=3):
@@ -2007,7 +2067,8 @@ def check_rel(tag, got, want, rel):
 
 def dense_paths(launches, reset_counts, read_counts):
     """Paths I, I-CLI and I-cap: the dense route on the card (module
-    docstring).  Each sets launches[path] to its counters, all 0."""
+    docstring).  Each sets launches[path] to its counters, all 0.  Returns
+    path I's rows."""
     import torch
 
     # path I: the dense route (the reference examples' sizes) from a LAMMPS
@@ -2034,9 +2095,15 @@ def dense_paths(launches, reset_counts, read_counts):
               f"(torch.cuda.max_memory_allocated)")
         # the phases, on 2 more steps of the same run (not counted)
         sim = scriptI._sim
-        with DensePhases() as ph:
+        with HostReads() as reads, IntegratorTimer(reads) as integ, \
+                DensePhases() as ph:
             sim.runner.run(sim.sys, sim.res, None, sim.istate, 2)
+            ims, ihost, ireads, _ = integ.per_step(2)
         print(phase_line("path I", ph.ms(2), ph.iterations(), "a step"))
+        print(f"path I integrator (rigid/nve) over the same 2 steps: "
+              f"{ims:.4f} ms a step by CUDA events ({ihost:.4f} ms of host "
+              f"clock), its host reads a step {ireads:g}; host reads a "
+              f"step in all {reads.count() / 2:g}")
         del scriptI, sim
         # the same script on the panel engine (path H's route), same card
         scriptP, _, _, _ = dense_run(in_fluid, I_STEPS, fast_polar="1")
@@ -2106,6 +2173,356 @@ def dense_paths(launches, reset_counts, read_counts):
               f"{peakC / 2**20:.1f} MiB (torch.cuda.max_memory_allocated)")
         print(phase_line("path I-cap", ph.ms(nev), ph.iterations(),
                          "an evaluation"))
+        del scriptC
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return rowsI
+
+
+class HostReads:
+    """Within `with HostReads():` every synchronizing CUDA operation (a
+    read of a device value to the host: .item(), .tolist(), a copy to the
+    CPU) is recorded through torch.cuda.set_sync_debug_mode("warn");
+    `count` is the number so far."""
+
+    def __enter__(self):
+        import warnings
+
+        import torch
+
+        self._catch = warnings.catch_warnings(record=True)
+        self._log = self._catch.__enter__()
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        return self
+
+    def count(self):
+        return sum("synchroniz" in str(w.message) for w in self._log)
+
+    def __exit__(self, *exc):
+        import torch
+
+        torch.cuda.set_sync_debug_mode("default")
+        self._catch.__exit__(*exc)
+        return False
+
+
+# the integrators' halves timed by IntegratorTimer, and the chain updates
+# they call (host arithmetic, timed by the host clock)
+INTEGRATOR_HALVES = (("rigid", "initial_integrate"),
+                     ("rigid", "final_integrate"),
+                     ("nvt", "initial_integrate"),
+                     ("nvt", "final_integrate"))
+CHAIN_UPDATES = (("rigid", "_nhc_integrate"), ("nvt", "_nhc"))
+
+
+class IntegratorTimer:
+    """Within `with IntegratorTimer(reads):` every call of the
+    integrators' halves (INTEGRATOR_HALVES, the module functions the
+    driver's integrators call) is timed by CUDA events (the device
+    timeline from before the call's first launch to after its last, the
+    host's chain arithmetic and its waits on a read included) and by the
+    host clock, and the host reads inside it counted by `reads` (a live
+    HostReads); each chain update (CHAIN_UPDATES) is timed by the host
+    clock; the functions are restored on exit."""
+
+    def __init__(self, reads):
+        self.reads = reads
+
+    def __enter__(self):
+        import importlib
+
+        import torch
+
+        self.calls, self.chain, self._saved = [], [], []
+
+        def timed(fn):
+            def wrapped(*a, **kw):
+                e0, e1 = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+                n0 = self.reads.count()
+                t0 = time.perf_counter()
+                e0.record()
+                out = fn(*a, **kw)
+                e1.record()
+                self.calls.append((e0, e1, time.perf_counter() - t0,
+                                   self.reads.count() - n0))
+                return out
+            return wrapped
+
+        def host_timed(fn):
+            def wrapped(*a, **kw):
+                t0 = time.perf_counter()
+                out = fn(*a, **kw)
+                self.chain.append(time.perf_counter() - t0)
+                return out
+            return wrapped
+
+        for names, wrap in ((INTEGRATOR_HALVES, timed),
+                            (CHAIN_UPDATES, host_timed)):
+            for mod, name in names:
+                m = importlib.import_module(
+                    f"lidp_tpu_torch.integrate.{mod}")
+                self._saved.append((m, name, getattr(m, name)))
+                setattr(m, name, wrap(getattr(m, name)))
+        return self
+
+    def __exit__(self, *exc):
+        for m, name, fn in self._saved:
+            setattr(m, name, fn)
+        return False
+
+    def per_step(self, nsteps):
+        """(device-timeline ms, host ms, host reads, the chain updates'
+        host ms) a step."""
+        import torch
+
+        torch.cuda.synchronize()
+        ms = sum(e0.elapsed_time(e1) for e0, e1, _, _ in self.calls)
+        host = sum(h for _, _, h, _ in self.calls)
+        reads = sum(r for _, _, _, r in self.calls)
+        return (ms / nsteps, 1e3 * host / nsteps, reads / nsteps,
+                1e3 * sum(self.chain) / nsteps)
+
+
+# the CPU twin: the same script through the port on the CPU in float64, in
+# a process of its own on one thread (the one-thread pin of the port's CPU
+# parity tests, ROADMAP queue 3 item 1), its rows and final state saved
+CPU_TWIN = """\
+import os, sys, time
+import numpy as np
+import torch
+torch.set_num_threads(1)
+from lidp_tpu_torch.io.script import LammpsScript
+s = LammpsScript(dtype=torch.float64, device="cpu", log=lambda line: None)
+s.variables["nstep"] = sys.argv[3]
+t0 = time.perf_counter()
+s.file(sys.argv[2])
+seconds = time.perf_counter() - t0
+sim = s._sim
+n = sim.natoms
+cols = [c for c in s.thermo_rows[0] if c not in ("step", "atoms", "bonds")]
+np.savez(sys.argv[1], x=sim.sys.x[:n].numpy(), v=sim.sys.v[:n].numpy(),
+         mu=sim.sys.mu[:n].numpy(), cols=np.array(cols),
+         rows=np.array([[r[c] for c in cols] for r in s.thermo_rows]),
+         seconds=seconds)
+assert "jax" not in sys.modules
+"""
+
+
+def start_cpu_twin(work, script, steps, out):
+    """Start the CPU twin of `script` (in directory `work`) in a process
+    of its own; returns the Popen."""
+    env = dict(os.environ, OMP_NUM_THREADS="1", CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=os.pathsep.join(
+                   filter(None, (ROOT, os.environ.get("PYTHONPATH")))))
+    env.pop("LIDP_FAST_POLAR", None)
+    return subprocess.Popen(
+        [sys.executable, "-c", CPU_TWIN, out, script, str(steps)],
+        cwd=work, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+
+
+def run_state(script):
+    """The rows of a script's runs and its final x, v, mu on the host."""
+    sim = script._sim
+    return script.thermo_rows, {
+        name: getattr(sim.sys, name)[:sim.natoms].cpu().numpy()
+        for name in ("x", "v", "mu")}
+
+
+def check_cpu_twin(path, proc, out, state, cols):
+    """Path `path`'s rows and final x, v, mu (run_state) against its CPU
+    twin's: rows within rel 1e-9 of max(1, |value|), x, v and mu within
+    1e-8 of their largest entry."""
+    import numpy as np
+
+    try:
+        _, err = proc.communicate(timeout=900)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise AssertionError(f"path {path}: the CPU twin did not finish")
+    if proc.returncode != 0:
+        raise AssertionError(f"path {path}: the CPU twin exit "
+                             f"{proc.returncode}\n{err[-4000:]}")
+    twin = np.load(out)
+    ref = [dict(zip(twin["cols"].tolist(), r)) for r in twin["rows"]]
+    rows, final = state
+    worst = rows_agree(path, rows, ref, [1e-9] * len(rows), cols)
+    worst_arr = 0.0
+    for name in ("x", "v", "mu"):
+        got, want = final[name], twin[name]
+        big = float(np.abs(want).max())
+        err = float(np.abs(got - want).max())
+        worst_arr = max(worst_arr, err / (1e-8 * big))
+        if not err <= 1e-8 * big:
+            raise AssertionError(f"path {path} final {name}: max abs err "
+                                 f"{err:.3e} above 1e-8 of {big:.3e}")
+    seconds = float(twin["seconds"])
+    print(f"path {path} vs its CPU twin (the same script, the port on the "
+          f"CPU, float64, one thread, {seconds:.1f} s): {len(rows)} rows at "
+          f"{worst:.3g} of their bar (rel 1e-9 of max(1, |value|)), final "
+          f"x/v/mu at {worst_arr:.3g} of theirs (1e-8 of max)")
+
+
+EXTRA_STEPS = 2   # the steps after a path's run that its readings time
+
+
+def thermostat_readings(path, script, log, steps, peak):
+    """A Nose-Hoover path's log and readings: steps/s by the Loop time line
+    of its run (the setup's evaluation included, as in every first run of
+    a Simulation); then EXTRA_STEPS more steps of the same run (not
+    counted), each phase's ms a step (DensePhases), the integrator's ms
+    and host reads a step (IntegratorTimer), all host reads a step
+    (HostReads); and the run's peak device memory."""
+    for line in log:
+        print(f"  {path}| {line}")
+    rate = steps / loop_seconds(log, steps)
+    sim = script._sim
+    with HostReads() as reads, IntegratorTimer(reads) as integ, \
+            DensePhases() as ph:
+        sim.runner.run(sim.sys, sim.res, None, sim.istate, EXTRA_STEPS)
+        ims, ihost, ireads, chain = integ.per_step(EXTRA_STEPS)
+        nreads = reads.count() / EXTRA_STEPS
+    print(f"steps_per_s_{path.replace('-', '_')} {rate:.4f} (Loop time: "
+          f"setup and {steps} steps); peak device memory "
+          f"{peak / 2**20:.1f} MiB "
+          f"(torch.cuda.max_memory_allocated); over {EXTRA_STEPS} more "
+          f"steps: integrator {ims:.4f} ms a step by CUDA events "
+          f"({ihost:.4f} ms of host clock, of which the chain updates "
+          f"{chain:.4f}), its host reads a step {ireads:g}; host reads a "
+          f"step in all {nreads:g} (synchronizing CUDA operations, the "
+          f"re-tally's included)")
+    print(phase_line(f"path {path}", ph.ms(EXTRA_STEPS), ph.iterations(),
+                     "a step"))
+
+
+def thermostat_paths(launches, reset_counts, read_counts, rowsI):
+    """Paths J, J-all, J-cap and K: the Nose-Hoover thermostats on the
+    dense route (module docstring).  rowsI: path I's rows.  Each sets
+    launches[path] to its counters, all 0."""
+    import torch
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_")
+    twins = {}
+    try:
+        fluid_script_case(work, n_side=J_SIDE)
+        n = J_SIDE ** 3 * 3
+        for kind in ("J", "J-all", "K"):
+            with open(os.path.join(work, f"in.{kind}"), "w") as fh:
+                fh.write(thermostat_script(kind, J_SIDE))
+        # the CPU twins of J and K run beside the card's paths
+        for kind in ("J", "K"):
+            out = os.path.join(work, f"twin_{kind}.npz")
+            twins[kind] = (start_cpu_twin(work, f"in.{kind}", J_STEPS, out),
+                           out)
+
+        # path J: rigid/nvt on half the molecules, tparam 50 1 3, c_ column
+        reset_counts()
+        scriptJ, logJ, _, peakJ = dense_run(os.path.join(work, "in.J"),
+                                            J_STEPS)
+        launches["J"] = read_counts()
+        check_counts("J", launches["J"], {})
+        check_dense_runner("J", scriptJ, n)
+        rowsJ = scriptJ.thermo_rows
+        check_rows_finite("J", rowsJ, G64_COLS + ("c_movingtemp",))
+        print(f"path J: {n} atoms, `fix 1 moving {RIGID_NVT}` on "
+              f"{J_SIDE ** 3 // 2} of {J_SIDE ** 3} molecules, compute "
+              f"movingtemp, float64, precision 1e-11, {J_STEPS} steps on "
+              f"the dense route; its log:")
+        stateJ = run_state(scriptJ)
+        thermostat_readings("J", scriptJ, logJ, J_STEPS, peakJ)
+
+        # path J-all: the same thermostat on every molecule, against I
+        reset_counts()
+        scriptA, logA, _, _ = dense_run(os.path.join(work, "in.J-all"),
+                                        J_STEPS)
+        launches["J-all"] = read_counts()
+        check_counts("J-all", launches["J-all"], {})
+        check_dense_runner("J-all", scriptA, n)
+        rowsA = scriptA.thermo_rows
+        if rowsA[0] != rowsI[0]:
+            raise AssertionError(f"path J-all: step 0 {rowsA[0]} is not "
+                                 f"path I's {rowsI[0]}")
+        same = ("pe", "evdwl", "ecoul", "elong", "epol")
+        if any(rowsA[1][c] != rowsI[1][c] for c in same):
+            raise AssertionError(f"path J-all: step 1's {same} are not path "
+                                 f"I's bit for bit ({rowsA[1]} against "
+                                 f"{rowsI[1]})")
+        for k in range(1, J_STEPS + 1):
+            if any(rowsA[k][c] == rowsI[k][c] for c in ("ke", "temp")):
+                raise AssertionError(f"path J-all: step {k}'s ke or temp "
+                                     f"equals path I's")
+        # x at step 1: one step of each form, the chain at rest in step 1's
+        # drift (exp(-dtq * 0) = 1 exactly)
+        x1 = {}
+        for kind, path_in in (("I", "in.fluid"), ("J-all", "in.J-all")):
+            s1, _, _, _ = dense_run(os.path.join(work, path_in), 1)
+            x1[kind] = s1._sim.sys.x.clone()
+            del s1
+        if not torch.equal(x1["I"], x1["J-all"]):
+            raise AssertionError("path J-all: x at step 1 is not path I's "
+                                 "bit for bit")
+        print(f"path J-all: `fix 1 all {RIGID_NVT}`, {J_STEPS} steps: step "
+              f"0's row equals path I's, step 1's x and pe, evdwl, ecoul, "
+              f"elong, epol equal I's bit for bit, ke and temp differ from "
+              f"I's at steps 1-{J_STEPS} (step {J_STEPS}: ke "
+              f"{rowsA[-1]['ke']:.10g} against {rowsI[-1]['ke']:.10g}); "
+              + next(line for line in logA if line.startswith("Performance")))
+        del scriptA, x1
+
+        # path K: fix nvt on every atom
+        reset_counts()
+        scriptK, logK, _, peakK = dense_run(os.path.join(work, "in.K"),
+                                            J_STEPS)
+        launches["K"] = read_counts()
+        check_counts("K", launches["K"], {})
+        check_dense_runner("K", scriptK, n)
+        check_rows_finite("K", scriptK.thermo_rows)
+        print(f"path K: {n} atoms, `fix 1 all {NVT}`, float64, precision "
+              f"1e-11, {J_STEPS} steps on the dense route; its log:")
+        stateK = run_state(scriptK)
+        thermostat_readings("K", scriptK, logK, J_STEPS, peakK)
+
+        del scriptJ, scriptK
+        for kind, state, cols in (("J", stateJ, G64_COLS + ("c_movingtemp",)),
+                                  ("K", stateK, G64_COLS)):
+            proc, out = twins.pop(kind)
+            check_cpu_twin(kind, proc, out, state, cols)
+        torch.cuda.empty_cache()
+    finally:
+        for proc, _ in twins.values():
+            proc.kill()
+            proc.communicate()
+        shutil.rmtree(work, ignore_errors=True)
+
+    # path J-cap: J just under the cap
+    work = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        fluid_script_case(work, n_side=JCAP_SIDE)
+        n = JCAP_SIDE ** 3 * 3
+        with open(os.path.join(work, "in.J"), "w") as fh:
+            fh.write(thermostat_script("J", JCAP_SIDE))
+        reset_counts()
+        with DensePhases() as ph:
+            scriptC, logC, _, peakC = dense_run(
+                os.path.join(work, "in.J"), JCAP_STEPS)
+        launches["J-cap"] = read_counts()
+        check_counts("J-cap", launches["J-cap"], {})
+        check_dense_runner("J-cap", scriptC, n)
+        check_rows_finite("J-cap", scriptC.thermo_rows,
+                          G64_COLS + ("c_movingtemp",))
+        if not ph.all_converged():
+            raise AssertionError(f"path J-cap: a solve did not converge "
+                                 f"({ph.iterations()} iterations)")
+        print(f"path J-cap: {n} atoms, path J's fix on {JCAP_SIDE ** 3 // 2}"
+              f" of {JCAP_SIDE ** 3} molecules, float64, precision 1e-11, "
+              f"setup + {JCAP_STEPS} steps on the dense route, rows finite, "
+              f"every solve converged ({len(ph.solves)} evaluations); its "
+              f"log:")
+        thermostat_readings("J-cap", scriptC, logC, JCAP_STEPS, peakC)
         del scriptC
         torch.cuda.empty_cache()
     finally:
@@ -2653,7 +3070,8 @@ def main() -> int:
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
-    dense_paths(launches, reset_counts, read_counts)
+    rowsI = dense_paths(launches, reset_counts, read_counts)
+    thermostat_paths(launches, reset_counts, read_counts, rowsI)
 
     # 5. the LJ melt on the cell engine: path E, kernel parity on its last
     # state, then paths F and E4

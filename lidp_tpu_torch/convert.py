@@ -2,7 +2,7 @@
 
 The caller hands over the fields of lidp_tpu's dataclasses (PairParams,
 EwaldParams, PolarizationSettings, System, Cells, SlotCarry, RigidSetup,
-RigidState) as numpy arrays or scalars, e.g.
+RigidState, NVTState) as numpy arrays or scalars, e.g.
 `{f.name: np.asarray(getattr(p, f.name)) for f in dataclasses.fields(p)}`,
 so both packages compute from the same tables and the same state.  Nothing
 here imports JAX.
@@ -17,7 +17,9 @@ import torch
 
 from lidp_tpu_torch.box import Box
 from lidp_tpu_torch.forcefield import ForceField
-from lidp_tpu_torch.integrate.rigid import RigidSetup, RigidState
+from lidp_tpu_torch.integrate.nvt import NVTState
+from lidp_tpu_torch.integrate.rigid import (RigidSetup, RigidState,
+                                            chain_dtype)
 from lidp_tpu_torch.integrate.slot_runner import SlotCarry
 from lidp_tpu_torch.ops.cells import Cells
 from lidp_tpu_torch.ops.ewald import EwaldParams
@@ -173,13 +175,25 @@ def rigid_setup_from_numpy(setup: dict) -> RigidSetup:
 
 def rigid_state_from_numpy(state: dict, device="cuda") -> RigidState:
     """The port's RigidState from numpy copies of the JAX RigidState's
-    fields (rigid/nve: the thermostat and barostat fields are not read).
-    The tensors keep the dtype of xcm."""
+    fields (rigid/nve and rigid/nvt: the barostat fields are not read).
+    The tensors keep the dtype of xcm; the chain velocities eta_dot_t and
+    eta_dot_r stay host arrays of that dtype."""
     from lidp_tpu_torch import resolve_device
 
     device = resolve_device(device)
     dtype = _np_dtype(state["xcm"])
-    return RigidState(**{
-        f.name: torch.as_tensor(np.array(state[f.name]), dtype=dtype,
-                                device=device)
-        for f in dataclasses.fields(RigidState)})
+    chains = ("eta_dot_t", "eta_dot_r")
+    out = {f.name: torch.as_tensor(np.array(state[f.name]), dtype=dtype,
+                                   device=device)
+           for f in dataclasses.fields(RigidState) if f.name not in chains}
+    return RigidState(**out, **{
+        k: np.array(state[k], dtype=np.asarray(state["xcm"]).dtype)
+        for k in chains})
+
+
+def nvt_state_from_numpy(state: dict, dtype=torch.float64) -> NVTState:
+    """The port's NVTState from a numpy copy of the JAX NVTState's eta_dot
+    (rot_scale2, nvt/sphere's, is not read): a host array of the run's
+    dtype."""
+    return NVTState(eta_dot=np.array(state["eta_dot"],
+                                     dtype=chain_dtype(dtype)))

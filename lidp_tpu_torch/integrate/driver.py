@@ -10,13 +10,17 @@ Thermo sampling happens on the host between `run` calls.
 
 Ported for the dense route (`neighbor_cfg` None: every evaluation is
 compute_forces(nlist=None), with no wrap and no rebuild, as in the JAX
-package) and for a cell grid (`neighbor_cfg` a CellConfig), with the nve
-and rigid/nve integrators.  With check=False the loop reads nothing back
-from the device: the step counter and the rebuild schedule are Python
-ints.  With check=True the displacement test is computed on the device
-and read once per rebuild decision (only on the steps the schedule allows
-one).  Neighbour lists, shrink-wrapped boxes, fix deform, fix tmd and
-rRESPA are not ported; asking for them raises NotImplementedError.
+package) and for a cell grid (`neighbor_cfg` a CellConfig), with the nve,
+rigid/nve, rigid/nvt and nvt integrators.  With check=False the loop
+itself reads nothing back from the device: the step counter and the
+rebuild schedule are Python ints.  With check=True the displacement test
+is computed on the device and read once per rebuild decision (only on the
+steps the schedule allows one).  What it calls may read: the Nose-Hoover
+integrators read the kinetic energy once per chain update (rigid/nvt once
+a step, in initial_integrate; nvt twice, once in each half), and the
+dense route's CG reads its residual once an iteration.  Neighbour lists,
+shrink-wrapped boxes, fix deform, fix tmd and rRESPA are not ported;
+asking for them raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -70,16 +74,42 @@ def nve_integrator(nve_params, compensated: bool = False) -> Integrator:
 
 
 def rigid_nve_integrator(rigid_params, mass_atom) -> Integrator:
-    """fix rigid/nve: the no-squish integrator of integrate/rigid.py; its
-    init_state is init_rigid_state (set_v at setup)."""
+    """fix rigid/nve and rigid/nvt: the no-squish integrator of
+    integrate/rigid.py; its init_state is init_rigid_state (set_v at
+    setup).  With the thermostat on, each initial_integrate first takes
+    the ramped target of the step it produces, ramp_target(..., step + 1):
+    Verlet::run increments ntimestep before initial_integrate
+    (verlet.cpp:243), and the JAX package's _run_chunk substitutes it so
+    (final_integrate does not read the target)."""
     from lidp_tpu_torch.integrate import rigid
+    from lidp_tpu_torch.integrate.nvt import ramp_target
+
+    def _ramped(p, step):
+        if not p.tstat:
+            return p
+        return dataclasses.replace(p, t_target=ramp_target(
+            p.t_start, p.t_stop, p.ramp_begin, p.ramp_end, step))
 
     return Integrator(
-        initial=lambda s, r, p, st: rigid.initial_integrate(s, r.f, p, st),
+        initial=lambda s, r, p, st: rigid.initial_integrate(
+            s, r.f, _ramped(p, s.step + 1), st),
         final=lambda s, r, p, st: rigid.final_integrate(s, r.f, p, st),
         params=rigid_params,
         init_state=lambda s, f, p: rigid.init_rigid_state(s, f, p,
                                                           mass_atom),
+    )
+
+
+def nvt_integrator(nvt_params) -> Integrator:
+    """fix nvt: the Nose-Hoover chain of integrate/nvt.py (its target ramp
+    taken inside each half from sys.step)."""
+    from lidp_tpu_torch.integrate import nvt
+
+    return Integrator(
+        initial=lambda s, r, p, st: nvt.initial_integrate(s, r.f, p, st),
+        final=lambda s, r, p, st: nvt.final_integrate(s, r.f, p, st),
+        params=nvt_params,
+        init_state=nvt.init_state,
     )
 
 

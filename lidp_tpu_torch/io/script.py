@@ -41,8 +41,6 @@ _NUM_RE = re.compile(r"^[\d eE+\-*/().]+$")
 # where the commands, styles and keywords this interpreter lacks are queued
 _FRONT_END = "ROADMAP queue 1 item 4, the script front end"
 _BREADTH = "ROADMAP queue 1 item 6, breadth"
-_NOSE_HOOVER = ("ROADMAP queue 1 item 3, the rigid Nose-Hoover thermostat "
-                "and fix nvt")
 
 # thermo keywords the port's thermo row gives (thermo.thermo_row and
 # Simulation._thermo_row)
@@ -53,7 +51,8 @@ THERMO_KEYWORDS = frozenset((
     "xy", "xz", "yz", "atoms", "bonds"))
 
 # fix styles with a builder (styles/fix_integrators.py)
-FIX_STYLES = ("nve", "rigid", "rigid/nve", "rigid/small", "rigid/nve/small")
+FIX_STYLES = ("nve", "nvt", "rigid", "rigid/nve", "rigid/nvt", "rigid/small",
+              "rigid/nve/small", "rigid/nvt/small")
 
 
 def _unported(what: str, where: str = _FRONT_END):
@@ -162,6 +161,8 @@ class LammpsScript:
         self.special_coul = [1.0, 0.0, 0.0, 0.0]
         self.groups: dict[str, np.ndarray] = {}
         self.fixes: dict[str, FixSpec] = {}
+        # compute ID -> (group, style); built into the Simulation
+        self.computes: dict[str, tuple] = {}
         self.dumps: dict[str, DumpSpec] = {}
         self.thermo_every = 0
         self.thermo_columns = ["step", "temp", "epair", "emol", "etotal",
@@ -748,7 +749,13 @@ class LammpsScript:
         else:
             _unported(f"thermo_style {a[0]}")
         for c in cols:
-            if c not in THERMO_KEYWORDS:
+            if c.startswith("c_"):
+                if "[" in c:
+                    _unported(f"thermo keyword {c} (a compute's vector)")
+                if c[2:] not in self.computes:
+                    raise ValueError(f"thermo_style: compute {c[2:]} does "
+                                     "not exist")
+            elif c not in THERMO_KEYWORDS:
                 _unported(f"thermo keyword {c}")
         self.thermo_columns = cols
 
@@ -856,12 +863,20 @@ class LammpsScript:
     def cmd_fix(self, a):
         fid, group, style = a[0], a[1], a[2]
         if style not in FIX_STYLES:
-            _unported(f"fix style {style}", _NOSE_HOOVER
-                      if style in ("nvt", "rigid/nvt", "rigid/nvt/small")
-                      else _BREADTH)
+            _unported(f"fix style {style}", _BREADTH)
         self.fixes[fid] = FixSpec(fid=fid, group=group, style=style,
                                   args=a[3:])
         self._invalidate()
+
+    def cmd_compute(self, a):
+        """compute ID group temp (compute_temp.cpp): the group's temperature,
+        a thermo column and an expression's value as c_ID."""
+        cid, group, style = a[0], a[1], a[2]
+        if style != "temp":
+            _unported(f"compute style {style}")
+        if group not in self.groups:
+            raise ValueError(f"compute {cid}: group {group} does not exist")
+        self.computes[cid] = (group, style)
 
     def cmd_unfix(self, a):
         self.fixes.pop(a[0], None)
@@ -900,8 +915,9 @@ class _ExprCtx:
     expression engine needs (thermo keywords, variable references, group
     functions, atom vectors, the random stream) against the script's host
     state — the Variable::evaluate environment (variable.cpp:1168).
-    Compute and fix references, regions, vector specials and atom-style
-    variables are not ported and raise."""
+    A temp compute's c_ID reads the current thermo row; fix references,
+    regions, vector specials and atom-style variables are not ported and
+    raise."""
 
     def __init__(self, script):
         self.s = script
@@ -939,7 +955,14 @@ class _ExprCtx:
         return self.s.var_value(name)
 
     def compute_ref(self, cid, i1, i2, mode):
-        _unported(f"compute reference c_{cid} (the compute command)")
+        """c_ID of a temp compute: its value in the current thermo row."""
+        if i1 is not None or i2 is not None:
+            _unported(f"compute reference c_{cid} with an index")
+        row = self.s._current_thermo_row()
+        if row is not None and f"c_{cid}" in row:
+            return float(row[f"c_{cid}"])
+        raise ValueError(f"compute reference c_{cid} not available in "
+                         "variable formula (no live value)")
 
     def fix_ref(self, fid, i1, i2, mode):
         _unported(f"fix reference f_{fid}")

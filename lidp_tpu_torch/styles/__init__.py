@@ -6,8 +6,9 @@ Each fix style registers a builder with @fix_style(name); a builder
 receives the shared FixBuildCtx and sets ctx.integ (the time-integration
 styles) and the dof bookkeeping.  Simulation.from_script loops the
 registry.  The port registers the integrators the panel engine composes
-with, nve and rigid/nve (styles/fix_integrators.py); a fix style with no
-builder raises NotImplementedError.
+with, nve and rigid/nve, and the Nose-Hoover styles of the dense route,
+rigid/nvt and nvt (styles/fix_integrators.py); a fix style with no builder
+raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -48,8 +49,13 @@ class FixBuildCtx:
     device: Any
     mass_atom: Any         # (npad,) numpy
     padA: Callable         # pad an (n, ...) array to (npad, ...)
+    n: int = 0             # real atoms
+    dim: int = 3
     dof_removed: float = 0.0
     integ: Any = None
+    # (group name, RigidSetup) of each rigid fix: the dof a compute temp
+    # loses when all of a fix's bodies lie in its group
+    rigid_groups: list = dataclasses.field(default_factory=list)
 
 
 def build_fixes(ctx: FixBuildCtx):
@@ -65,7 +71,8 @@ def build_fixes(ctx: FixBuildCtx):
         builder = FIX_BUILDERS.get(spec.style)
         if builder is None:
             raise NotImplementedError(
-                f"fix style {spec.style} is not ported (only nve and "
-                "rigid/nve; ROADMAP queue 1 item 6, breadth)")
+                f"fix style {spec.style} is not ported (only nve, "
+                "rigid/nve, rigid/nvt and nvt; ROADMAP queue 1 item 6, "
+                "breadth)")
         builder(ctx, spec)
     return ctx

@@ -90,12 +90,13 @@ def pressure(sys: System, tp: ThermoParams, virial6):
 
 
 def thermo_row(sys: System, res: ForceResult, tp: ThermoParams,
-               extra_virial=None) -> dict:
+               extra_virial=None, extra=None) -> dict:
     """All standard columns used by the bundled inputs, as Python numbers.
 
     extra_virial: fix contributions added to the pair/kspace virial for
-    the pressure.  The scalars are stacked on the device and read with one
-    transfer; `step` is the system's Python int."""
+    the pressure.  extra: further named 0-d tensors (a compute's c_ID) to
+    read with the columns.  The scalars are stacked on the device and read
+    with one transfer; `step` is the system's Python int."""
     ke = ke_total(sys, tp)
     box = sys.box
     vol = box.volume
@@ -129,6 +130,7 @@ def thermo_row(sys: System, res: ForceResult, tp: ThermoParams,
         "xhi": hi[0], "yhi": hi[1], "zhi": hi[2],
         # the port's box is orthogonal
         "xy": zero, "xz": zero, "yz": zero,
+        **(extra or {}),
     }
     vals = torch.stack([zero + v for v in cols.values()]).tolist()
     return {"step": int(sys.step), **dict(zip(cols, vals))}

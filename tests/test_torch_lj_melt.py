@@ -335,17 +335,17 @@ def test_unported_options_raise():
                                atol=1e-10 * float(rc.f.abs().max()))
     with pytest.raises(NotImplementedError, match="neighbor.py"):
         Runner(ff=ff, integ=integ, neighbor_cfg=object()).setup(t["sys"])
-    # rigid/nve is ported (tests/test_torch_rigid.py); its thermostat and
-    # barostat are not
+    # rigid/nve and its thermostat are ported (tests/test_torch_rigid.py,
+    # tests/test_torch_thermostats.py); its barostat is not
     from lidp_tpu_torch.integrate import rigid
 
     setup = rigid.setup_bodies(np.zeros((3, 3)) + np.eye(3), np.ones(3),
                                np.ones(3, np.int64), np.ones(3, bool))
     assert rigid_nve_integrator(None, None).params is None
-    for flag in ("tstat", "pstat"):
-        with pytest.raises(NotImplementedError, match="rigid"):
-            rigid.make_rigid_params(setup, DT, 1.0, device="cpu",
-                                    **{flag: True})
+    assert rigid.make_rigid_params(setup, DT, 1.0, device="cpu",
+                                   tstat=True, t_start=1.0).tstat
+    with pytest.raises(NotImplementedError, match="rigid"):
+        rigid.make_rigid_params(setup, DT, 1.0, device="cpu", pstat=True)
     with pytest.raises(NotImplementedError, match="RespaRunner"):
         RespaRunner(ff=ff)
 

@@ -292,7 +292,7 @@ def test_package_imports_no_jax():
         "for name in ('rng', 'lattice', 'velocity', 'state', 'thermo',"
         " 'ops.cells', 'ops.cell_kernels', 'integrate.nve',"
         " 'integrate.driver', 'integrate.slot_runner', 'integrate.rigid',"
-        " 'models.lj_melt'):\n"
+        " 'integrate.nvt', 'models.lj_melt'):\n"
         "    assert 'lidp_tpu_torch.' + name in sys.modules, name\n"
         "from lidp_tpu_torch.parallel.fast_polar import FastPolarRunner,"
         " maybe_attach\n"

@@ -28,8 +28,8 @@ the runner type on both sides.
     static_polarizability;
   * replicate 2 1 1 of the wrapped data gives JAX's x, image, mol, type;
   * an unported command, style or keyword raises NotImplementedError
-    naming a ROADMAP item; on the dense route, fix nvt, and above a mocked
-    cap the box on which JAX runs the pair term on a cell grid;
+    naming a ROADMAP item; on the dense route, fix rigid/npt, and above a
+    mocked cap the box on which JAX runs the pair term on a cell grid;
   * both CLIs as subprocesses (`-device cpu` on the port): with
     LIDP_FAST_POLAR=1 their logged rows agree at rel 1e-7 of max(1,
     |value|); without it (the dense route), logged at 16 digits by
@@ -244,11 +244,13 @@ def test_replicate_matches_jax(dirs):
     np.testing.assert_array_equal(ts._bonds, js._bonds)
 
 
+# compute temp and fix nvt are ported (tests/test_torch_thermostats.py):
+# their keys keep the test names and hold a style that still raises
 UNPORTED = {
     "region": "region box block 0 1 0 1 0 1",
-    "compute": "compute t all temp",
+    "compute": "compute p all pressure thermo_temp",
     "minimize": "minimize 1e-4 1e-6 10 100",
-    "fix nvt": "fix 2 all nvt temp 300 300 100",
+    "fix nvt": "fix 2 all npt temp 300 300 100 iso 1 1 1000",
     "pair_style lj/cut": "pair_style lj/cut 2.5",
     "kspace_style pppm": "kspace_style pppm 1e-4",
     "bond_style": "bond_style harmonic",
@@ -286,13 +288,14 @@ def test_dense_route_special_codes_and_warning(runs):
 def test_small_system_without_fast_polar_raises(dirs):
     """Without LIDP_FAST_POLAR=1 the 375-atom fluid takes the dense route,
     and what the port cannot run there raises, naming its ROADMAP item:
-    fix nvt (queue 1 item 3), and, above a cap mocked to 300 atoms under
-    LIDP_FAST_POLAR=0, a box (the fluid replicated 2 x 2 x 2) on which the
-    JAX package runs the pair term on a cell grid with its sparse
-    special-bond correction (item 5)."""
-    text = _text("dense").replace("fix 1 all rigid/nve molecule",
-                                  "fix 1 all nvt temp 300 300 100")
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
+    the rigid barostat, fix rigid/npt (queue 1 item 6), and, above a cap
+    mocked to 300 atoms under LIDP_FAST_POLAR=0, a box (the fluid
+    replicated 2 x 2 x 2) on which the JAX package runs the pair term on a
+    cell grid with its sparse special-bond correction (item 5)."""
+    text = _text("dense").replace(
+        "fix 1 all rigid/nve molecule",
+        "fix 1 all rigid/npt molecule temp 300 300 100 iso 1 1 1000")
+    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
         _run("torch", dirs[False], text, _env("dense"))
     text = _text("dense").replace("read_data fluid.data\n",
                                   "read_data fluid.data\nreplicate 2 2 2\n")

@@ -1,0 +1,517 @@
+"""The port's Nose-Hoover thermostats (lidp_tpu_torch.integrate.rigid's
+rigid/nvt chains, lidp_tpu_torch.integrate.nvt, their fix styles, compute
+temp and its c_ID column) against the JAX package's, float64 on the CPU,
+inputs from numpy seeds:
+
+  * rigid._nhc_integrate for t_chain in {1, 3, 10, 50} x t_order in
+    {3, 5} x t_iter in {1, 2} (tparam 50 1 3 is the SIFSIX example's), and
+    nvt._nhc and ramp_target across a ramp's window, at rel 1e-13 of the
+    largest entry;
+  * init_rigid_state and 3 initial/final pairs with tstat under
+    tests/test_torch_rigid.py's fixed force, on its bodies, the per-step
+    ramp taken as the JAX package's _run_chunk takes it, at that file's
+    1e-10 of each array's largest entry (the chains included); the JAX
+    state carried across by convert.rigid_state_from_numpy continues
+    alike; fix nvt's integrator likewise, with convert.nvt_state_from_numpy;
+  * script cases on the 375-atom fluid (chip_smoke.fluid_script_case(
+    n_side=5)) through both packages' LammpsScript on the dense route:
+    rigid/nvt on all molecules with a 300 -> 350 ramp over two `run`
+    commands; the form of chip_smoke's path J (a sub-group, tparam 50 1 3,
+    compute temp and its c_ column, the other molecules at rest); fix nvt
+    with tchain 3; rigid/nvt/small under LIDP_FAST_POLAR=1, where both
+    packages still take the dense route.  Every thermo column within rel
+    1e-8 of max(1, |value|), the final x, v and mu within 1e-8 of their
+    largest entry (BASELINE.md:21); c_ID also through an expression;
+  * the J form through both CLIs, logged at 16 digits, at rel 1e-8;
+  * the refusals: rigid/npt, rigid/nph, a barostat keyword of rigid/nvt,
+    nvt/sllod and nvt/sphere raise naming ROADMAP queue 1 item 6; compute
+    pressure item 4; rigid/nvt above a (mocked) cap on a box where JAX
+    takes its cell grid item 5; rigid/nvt without temp and fix nvt on a
+    sub-group raise as the JAX package does, with its message.
+"""
+
+import dataclasses
+import os
+import subprocess
+import sys
+from pathlib import Path
+from types import SimpleNamespace
+from unittest import mock
+
+import numpy as np
+import pytest
+import torch
+
+jnp = pytest.importorskip("jax.numpy")
+# one torch thread, as the other script parity files pin it (ROADMAP queue
+# 3 item 1; tests/test_torch_cpu_threads.py looks for the fault)
+torch.set_num_threads(1)
+
+import chip_smoke  # noqa: E402
+from lidp_tpu.integrate import nvt as jn  # noqa: E402
+from lidp_tpu.integrate import rigid as jr  # noqa: E402
+from lidp_tpu.io import script as jscript  # noqa: E402
+from lidp_tpu_torch import convert  # noqa: E402
+from lidp_tpu_torch.integrate import nvt as tn  # noqa: E402
+from lidp_tpu_torch.integrate import rigid as tr  # noqa: E402
+from lidp_tpu_torch.integrate.driver import (nvt_integrator,  # noqa: E402
+                                             rigid_nve_integrator)
+from lidp_tpu_torch.io import script as tscript  # noqa: E402
+from lidp_tpu_torch.units import REAL  # noqa: E402
+from tests.test_torch_rigid import (DT, FTM2V, KINDS, STATE,  # noqa: E402
+                                    _bodies, _force)
+
+ROOT = Path(__file__).resolve().parent.parent
+NSTEP = 3
+COLS = chip_smoke.G64_COLS
+
+
+def _close(a, b, tol, msg=""):
+    a = a.numpy() if torch.is_tensor(a) else np.asarray(a)
+    b = np.asarray(b)
+    np.testing.assert_allclose(a, b, rtol=0,
+                               atol=tol * max(np.abs(b).max(), 1e-300),
+                               err_msg=msg)
+
+
+def _chain_params(t_chain, t_iter, t_order, **kw):
+    setup = jr.setup_bodies(*_bodies("bent"))
+    args = dict(tstat=True, t_start=300.0, t_stop=350.0, t_period=20.0,
+                t_chain=t_chain, t_iter=t_iter, t_order=t_order,
+                boltz=REAL.boltz, mvv2e=REAL.mvv2e, **kw)
+    return (jr.make_rigid_params(setup, DT, FTM2V, **args),
+            tr.make_rigid_params(tr.setup_bodies(*_bodies("bent")), DT,
+                                 FTM2V, device="cpu", **args))
+
+
+@pytest.mark.parametrize("t_iter", [1, 2])
+@pytest.mark.parametrize("t_order", [3, 5])
+@pytest.mark.parametrize("t_chain", [1, 3, 10, 50])
+def test_nhc_integrate_matches_jax(t_chain, t_order, t_iter):
+    jp, tp = _chain_params(t_chain, t_iter, t_order)
+    rng = np.random.RandomState(t_chain * 10 + t_order + t_iter)
+    eta = rng.normal(0.0, 0.02, t_chain)
+    nf = 36.0
+    # a kinetic energy 20% off its target, so the chain is driven
+    akin = 1.2 * nf * REAL.boltz * 300.0 / REAL.mvv2e
+    want = np.asarray(jr._nhc_integrate(jnp.asarray(eta), jnp.asarray(akin),
+                                        nf, jp))
+    got = tr._nhc_integrate(eta, akin, nf, tp)
+    assert got.dtype == np.float64 and got.shape == (t_chain,)
+    _close(got, want, 1e-13)
+    assert np.abs(got - eta).max() > 1e-6     # the chain moved
+
+
+def _nvt_params(t_chain):
+    n = 12
+    mass = np.random.RandomState(7).uniform(1.0, 16.0, n)
+    args = dict(dof=3 * n - 3, boltz=REAL.boltz, mvv2e=REAL.mvv2e,
+                t_chain=t_chain, t_stop=350.0)
+    jp = jn.NVTParams.create(DT, FTM2V, mass, 300.0, 20.0, **args)
+    tp = tn.NVTParams.create(DT, FTM2V, mass, 300.0, 20.0, device="cpu",
+                             **args)
+    jp = dataclasses.replace(jp, ramp_begin=jnp.asarray(10, jnp.int32),
+                             ramp_end=jnp.asarray(14, jnp.int32))
+    return jp, dataclasses.replace(tp, ramp_begin=10, ramp_end=14), mass
+
+
+@pytest.mark.parametrize("t_chain", [1, 3, 10])
+def test_nvt_chain_and_ramp_match_jax(t_chain):
+    """_nhc at the steps before, across and after a ramp's window (begin
+    10, end 14), and ramp_target itself."""
+    jp, tp, _ = _nvt_params(t_chain)
+    rng = np.random.RandomState(t_chain)
+    for step in range(8, 17):
+        jt = float(jn.ramp_target(jp.t_target, jp.t_stop, jp.ramp_begin,
+                                  jp.ramp_end, jnp.asarray(step, jnp.int32)))
+        assert tn.ramp_target(tp.t_target, tp.t_stop, 10, 14, step) == \
+            pytest.approx(jt, rel=1e-15)
+        eta = rng.normal(0.0, 0.02, t_chain)
+        ke2 = rng.uniform(0.8, 1.2) * tp.dof * REAL.boltz * 320.0
+        je, js = jn._nhc(jnp.asarray(eta), jnp.asarray(ke2), jp,
+                         jnp.asarray(step, jnp.int32))
+        te, ts = tn._nhc(eta, ke2, tp, step)
+        _close(te, np.asarray(je), 1e-13, f"step {step}")
+        assert ts == pytest.approx(float(js), rel=1e-13)
+
+
+def _rigid_runs(kind, tparam, nsteps=3):
+    """JAX and port: init_rigid_state + nsteps initial/final pairs with the
+    thermostat, ramp 300 -> 350 over steps 0..nsteps; the JAX side
+    substitutes the ramped target before each initial_integrate as its
+    _run_chunk does, the port through rigid_nve_integrator.  Lists of dicts
+    of numpy arrays per step, and the last (sys, state, params) of each."""
+    from lidp_tpu.box import Box as JBox
+    from lidp_tpu.state import make_system as jmake
+    from lidp_tpu_torch.box import Box
+    from lidp_tpu_torch.state import make_system
+
+    x, mass, mol, in_group = _bodies(kind, seed=4)
+    v = np.random.RandomState(5).normal(0, 0.01, x.shape)
+    lo, hi = np.zeros(3), np.full(3, 20.0)
+    t_chain, t_iter, t_order = tparam
+    kw = dict(tstat=True, t_start=300.0, t_stop=350.0, t_period=5.0,
+              t_chain=t_chain, t_iter=t_iter, t_order=t_order,
+              boltz=REAL.boltz, mvv2e=REAL.mvv2e)
+    jp = jr.make_rigid_params(jr.setup_bodies(x, mass, mol, in_group), DT,
+                              FTM2V, mass_atom=mass, **kw)
+    jp = dataclasses.replace(jp, ramp_begin=jnp.asarray(0, jnp.int32),
+                             ramp_end=jnp.asarray(nsteps, jnp.int32))
+    tp = tr.make_rigid_params(tr.setup_bodies(x, mass, mol, in_group), DT,
+                              FTM2V, mass_atom=mass, device="cpu", **kw)
+    tp = dataclasses.replace(tp, ramp_begin=0, ramp_end=nsteps)
+    fields = STATE + ("eta_dot_t", "eta_dot_r")
+
+    def rec(sys, st):
+        return {**{f: np.asarray(getattr(st, f)) for f in fields},
+                "x": np.asarray(sys.x), "v": np.asarray(sys.v)}
+
+    jsys = jmake(x, box=JBox.create(lo, hi, dtype=jnp.float64), v=v,
+                 mol=mol, dtype=jnp.float64)
+    jsys, jst = jr.init_rigid_state(jsys, _force(jsys.x), jp,
+                                    jnp.asarray(mass))
+    jrecs = [rec(jsys, jst)]
+    for _ in range(nsteps):
+        jpk = dataclasses.replace(jp, t_target=jn.ramp_target(
+            jp.t_target, jp.t_stop, jp.ramp_begin, jp.ramp_end,
+            jsys.step + 1))
+        jsys, jst = jr.initial_integrate(jsys, _force(jsys.x), jpk, jst)
+        jsys = jsys.replace(step=jsys.step + 1)
+        jsys, jst = jr.final_integrate(jsys, _force(jsys.x), jpk, jst)
+        jrecs.append(rec(jsys, jst))
+
+    integ = rigid_nve_integrator(tp, torch.as_tensor(mass))
+    tsys = make_system(x, box=Box.create(lo, hi), v=v, mol=mol,
+                       dtype=torch.float64, device="cpu")
+    tsys, tst = integ.init_state(tsys, _force(tsys.x), tp)
+    trecs = [rec(tsys, tst)]
+    for _ in range(nsteps):
+        tsys, tst = integ.initial(tsys, SimpleNamespace(f=_force(tsys.x)),
+                                  tp, tst)
+        tsys = tsys.replace(step=tsys.step + 1)
+        tsys, tst = integ.final(tsys, SimpleNamespace(f=_force(tsys.x)),
+                                tp, tst)
+        trecs.append(rec(tsys, tst))
+    return jrecs, trecs, (jst,), (tsys, tst, integ)
+
+
+@pytest.mark.parametrize("kind,tparam", [
+    ("linear", (50, 1, 3)), ("bent", (10, 1, 3)), ("massless", (3, 2, 5)),
+    ("free", (10, 1, 3))])
+def test_rigid_nvt_integrator_matches_jax(kind, tparam):
+    assert kind in KINDS
+    jrecs, trecs, (jst,), (tsys, tst, integ) = _rigid_runs(kind, tparam)
+    for k, (j, t) in enumerate(zip(jrecs, trecs)):
+        for name in j:
+            _close(t[name], j[name], 1e-10, f"{kind} step {k} {name}")
+    assert np.abs(trecs[-1]["eta_dot_t"]).max() > 0.0
+    assert np.abs(trecs[-1]["eta_dot_r"]).max() > 0.0
+    # the JAX state carried across continues as the port's own does
+    moved = convert.rigid_state_from_numpy(
+        {f.name: np.asarray(getattr(jst, f.name))
+         for f in dataclasses.fields(tr.RigidState)}, device="cpu")
+    assert moved.eta_dot_t.dtype == np.float64
+    res = SimpleNamespace(f=_force(tsys.x))
+    a = integ.initial(tsys, res, integ.params, moved)
+    b = integ.initial(tsys, res, integ.params, tst)
+    for name in ("x", "v"):
+        _close(getattr(a[0], name), getattr(b[0], name).numpy(), 1e-10)
+    for name in STATE + ("eta_dot_t", "eta_dot_r"):
+        _close(getattr(a[1], name), np.asarray(getattr(b[1], name)), 1e-10,
+               name)
+
+
+def test_rigid_nvt_moves_otherwise_than_rigid_nve():
+    """With the chains the trajectory leaves rigid/nve's: the same bodies
+    without the thermostat end elsewhere than 1e-10 of the largest v."""
+    _, trecs, _, _ = _rigid_runs("bent", (10, 1, 3))
+    x, mass, mol, in_group = _bodies("bent", seed=4)
+    from lidp_tpu_torch.box import Box
+    from lidp_tpu_torch.state import make_system
+
+    p = tr.make_rigid_params(tr.setup_bodies(x, mass, mol, in_group), DT,
+                             FTM2V, mass_atom=mass, device="cpu")
+    v = np.random.RandomState(5).normal(0, 0.01, x.shape)
+    sys = make_system(x, box=Box.create(np.zeros(3), np.full(3, 20.0)),
+                      v=v, mol=mol, dtype=torch.float64, device="cpu")
+    sys, st = tr.init_rigid_state(sys, _force(sys.x), p,
+                                  torch.as_tensor(mass))
+    for _ in range(3):
+        sys, st = tr.initial_integrate(sys, _force(sys.x), p, st)
+        sys, st = tr.final_integrate(sys, _force(sys.x), p, st)
+    vt = trecs[-1]["v"]
+    assert np.abs(sys.v.numpy() - vt).max() > 1e-6 * np.abs(vt).max()
+
+
+def test_nvt_integrator_matches_jax():
+    """fix nvt's halves over 3 steps on 12 atoms under _force, the ramp's
+    window the 3 steps; then the JAX state carried across."""
+    from lidp_tpu.box import Box as JBox
+    from lidp_tpu.state import make_system as jmake
+    from lidp_tpu_torch.box import Box
+    from lidp_tpu_torch.state import make_system
+
+    jp, tp, mass = _nvt_params(3)
+    jp = dataclasses.replace(jp, ramp_begin=jnp.asarray(0, jnp.int32),
+                             ramp_end=jnp.asarray(3, jnp.int32))
+    tp = dataclasses.replace(tp, ramp_begin=0, ramp_end=3)
+    rng = np.random.RandomState(9)
+    x = rng.uniform(2.0, 18.0, (12, 3))
+    v = rng.normal(0, 0.01, (12, 3))
+    lo, hi = np.zeros(3), np.full(3, 20.0)
+    jsys = jmake(x, box=JBox.create(lo, hi, dtype=jnp.float64), v=v,
+                 dtype=jnp.float64)
+    integ = nvt_integrator(tp)
+    tsys = make_system(x, box=Box.create(lo, hi), v=v, dtype=torch.float64,
+                       device="cpu")
+    jsys, jst = jn.init_state(jsys, None, jp)
+    tsys, tst = integ.init_state(tsys, None, tp)
+    for k in range(3):
+        jsys, jst = jn.initial_integrate(jsys, _force(jsys.x), jp, jst)
+        jsys = jsys.replace(step=jsys.step + 1)
+        jsys, jst = jn.final_integrate(jsys, _force(jsys.x), jp, jst)
+        tsys, tst = integ.initial(tsys, SimpleNamespace(f=_force(tsys.x)),
+                                  tp, tst)
+        tsys = tsys.replace(step=tsys.step + 1)
+        tsys, tst = integ.final(tsys, SimpleNamespace(f=_force(tsys.x)), tp,
+                                tst)
+        for name in ("x", "v"):
+            _close(getattr(tsys, name), np.asarray(getattr(jsys, name)),
+                   1e-10, f"step {k} {name}")
+        _close(tst.eta_dot, np.asarray(jst.eta_dot), 1e-10, f"step {k}")
+    moved = convert.nvt_state_from_numpy(
+        {"eta_dot": np.asarray(jst.eta_dot)})
+    res = SimpleNamespace(f=_force(tsys.x))
+    a = integ.initial(tsys, res, tp, moved)
+    b = integ.initial(tsys, res, tp, tst)
+    _close(a[0].v, b[0].v.numpy(), 1e-10)
+    _close(a[1].eta_dot, b[1].eta_dot, 1e-10)
+
+
+# ------------------------------ script cases ------------------------------
+
+RIGID_ALL = "fix 1 all rigid/nve molecule"
+
+
+def _text(case):
+    """The input of a case: FLUID_SCRIPT with its edits."""
+    t = chip_smoke.FLUID_SCRIPT
+    if case == "ramp":
+        t = t.replace(RIGID_ALL, "fix 1 all rigid/nvt molecule temp 300.0 "
+                      "350.0 50.0")
+        return t.replace("run ${nstep}\n", "run ${nstep}\nrun ${nstep}\n")
+    if case == "J":
+        return chip_smoke.thermostat_script("J", 5)
+    if case == "nvt":
+        return t.replace(RIGID_ALL, "fix 1 all nvt temp 300.0 330.0 50.0 "
+                         "tchain 3")
+    if case == "fast_polar":
+        return t.replace(RIGID_ALL, "fix 1 all rigid/nvt/small molecule "
+                         "temp 300.0 300.0 50.0")
+    raise KeyError(case)
+
+
+CASES = ("ramp", "J", "nvt", "fast_polar")
+STEPS = {"ramp": 2}
+
+
+@pytest.fixture(scope="module")
+def fluid(tmp_path_factory):
+    d = tmp_path_factory.mktemp("fluid")
+    chip_smoke.fluid_script_case(str(d), n_side=5)
+    return d
+
+
+def _run(pkg, d, text, env, nstep=NSTEP):
+    """Run `text` in directory d through pkg's LammpsScript (float64; the
+    port on the CPU): the script."""
+    path = d / f"in.{pkg}"
+    path.write_text(text)
+    if pkg == "jax":
+        s = jscript.LammpsScript(dtype=jnp.float64)
+    else:
+        s = tscript.LammpsScript(dtype=torch.float64, device="cpu")
+    s.variables["nstep"] = str(nstep)
+    with mock.patch.dict(os.environ, env):
+        for k in ("LIDP_FAST_POLAR", "LIDP_FAST_POLAR_MODE"):
+            if not env.get(k):
+                os.environ.pop(k, None)
+        s.file(str(path))
+    return s
+
+
+@pytest.fixture(scope="module")
+def runs(fluid):
+    """Each case through both packages, once: {case: (jax, port)}."""
+    out = {}
+    for case in CASES:
+        env = {"LIDP_FAST_POLAR": "1"} if case == "fast_polar" else {}
+        pair = [_run(pkg, fluid, _text(case), env,
+                     nstep=STEPS.get(case, NSTEP)) for pkg in ("jax", "torch")]
+        # every case, LIDP_FAST_POLAR=1 included, takes the dense route
+        for s in pair:
+            assert type(s._sim.runner).__name__ == "Runner"
+            assert s._sim.runner.neighbor_cfg is None
+        out[case] = tuple(pair)
+    return out
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_thermo_rows_match_jax(runs, case):
+    js, ts = runs[case]
+    nrun = 2 if case == "ramp" else 1
+    nrows = nrun * (STEPS.get(case, NSTEP) + 1)
+    assert len(ts.thermo_rows) == len(js.thermo_rows) == nrows
+    cols = COLS + (("c_movingtemp",) if case == "J" else ())
+    for k, (r, g) in enumerate(zip(ts.thermo_rows, js.thermo_rows)):
+        assert int(r["step"]) == int(g["step"])
+        for c in cols:
+            assert abs(r[c] - g[c]) <= 1e-8 * max(1.0, abs(g[c])), (k, c)
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_final_state_matches_jax(runs, case):
+    js, ts = runs[case]
+    n = ts._sim.natoms
+    for k in ("x", "v", "mu"):
+        a = getattr(ts._sim.sys, k)[:n].numpy()
+        b = np.asarray(getattr(js._sim.sys, k))[:n]
+        np.testing.assert_allclose(a, b, rtol=0,
+                                   atol=1e-8 * np.abs(b).max(), err_msg=k)
+
+
+def test_ramp_spans_each_run(runs):
+    """Two `run` commands give two ramp windows, as in the JAX package;
+    the chains carry across them."""
+    js, ts = runs["ramp"]
+    tp, jp = ts._sim.runner.integ.params, js._sim.runner.integ.params
+    nstep = STEPS["ramp"]
+    assert (tp.ramp_begin, tp.ramp_end) == (nstep, 2 * nstep)
+    assert (int(jp.ramp_begin), int(jp.ramp_end)) == (nstep, 2 * nstep)
+    jst, tst = js._sim.istate, ts._sim.istate
+    for name in ("eta_dot_t", "eta_dot_r"):
+        _close(getattr(tst, name), np.asarray(getattr(jst, name)), 1e-8,
+               name)
+    assert tp.t_chain == jp.t_chain == 10
+
+
+def test_group_temperature_column(runs):
+    """compute movingtemp moving temp: the group's dof (dim*ng - dim less
+    the rigid fix's, its bodies all in the group) equal to JAX's, the
+    frozen molecules at rest, c_movingtemp through an expression equal to
+    the row's."""
+    js, ts = runs["J"]
+    tg, jg = ts._sim.group_thermo["movingtemp"], js._sim.group_thermo[
+        "movingtemp"]
+    assert tg.dof == jg.dof
+    assert tg.dof < ts._sim.thermo_params.dof
+    frozen = ts.groups["frozen"]
+    assert frozen.any() and not ts._sim.sys.v[:ts._sim.natoms][
+        torch.as_tensor(frozen)].any()
+    row = ts.thermo_rows[-1]
+    assert ts.evaluate_expr("c_movingtemp") == pytest.approx(
+        row["c_movingtemp"], rel=1e-15)
+    assert row["c_movingtemp"] > row["temp"]
+
+
+def _log_rows(path):
+    return chip_smoke.log_rows(Path(path).read_text().splitlines())
+
+
+def test_clis_agree_on_the_j_form(fluid, tmp_path):
+    """Both CLIs on path J's form (the dense route), logged at 16 digits:
+    rows, c_movingtemp included, at rel 1e-8."""
+    (fluid / "in.j16").write_text(_text("J").replace(
+        "thermo 1\n", "thermo 1\nthermo_modify format float %.16g\n"))
+    env = dict(os.environ, JAX_PLATFORMS="cpu", OMP_NUM_THREADS="1",
+               PYTHONPATH=os.pathsep.join(filter(None, (
+                   str(ROOT), os.environ.get("PYTHONPATH")))))
+    for k in ("LIDP_FAST_POLAR", "LIDP_FAST_POLAR_MODE"):
+        env.pop(k, None)
+    common = ["-in", "in.j16", "-var", "nstep", str(NSTEP)]
+    for pkg, extra in (("lidp_tpu", []),
+                       ("lidp_tpu_torch", ["-device", "cpu"])):
+        res = subprocess.run(
+            [sys.executable, "-m", pkg, *common, "-log",
+             str(tmp_path / f"log.{pkg}"), *extra], cwd=fluid, env=env,
+            capture_output=True, text=True, timeout=300)
+        assert res.returncode == 0, res.stderr[-3000:]
+    jrows = _log_rows(tmp_path / "log.lidp_tpu")
+    trows = _log_rows(tmp_path / "log.lidp_tpu_torch")
+    assert len(jrows) == len(trows) == NSTEP + 1
+    for r, g in zip(trows, jrows):
+        for c in COLS + ("c_movingtemp",):
+            assert abs(r[c] - g[c]) <= 1e-8 * max(1.0, abs(g[c])), c
+
+
+# ------------------------------- refusals --------------------------------
+
+HEAD = "units real\natom_style full\nread_data fluid.data\n"
+UNPORTED = {
+    "rigid/npt": "fix 1 all rigid/npt molecule temp 300 300 100 iso 1 1 "
+                 "1000",
+    "rigid/nph": "fix 1 all rigid/nph molecule iso 1 1 1000",
+    "nvt/sllod": "fix 1 all nvt/sllod temp 300 300 100",
+    "nvt/sphere": "fix 1 all nvt/sphere temp 300 300 100",
+    "compute pressure": "compute p all pressure thermo_temp",
+}
+
+
+@pytest.mark.parametrize("name", list(UNPORTED))
+def test_unported_styles_raise(fluid, name):
+    item = "4" if name.startswith("compute") else "6"
+    with pytest.raises(NotImplementedError,
+                       match=f"ROADMAP queue 1 item {item}"):
+        _run("torch", fluid, HEAD + UNPORTED[name] + "\n", {})
+
+
+def test_builders_refuse_the_barostat(fluid):
+    """Past the interpreter, the fix builders refuse the barostat too:
+    rigid/npt handed to build_rigid, and a pressure keyword of
+    rigid/nvt."""
+    from lidp_tpu_torch.io.script import FixSpec
+    from lidp_tpu_torch.styles import fix_integrators
+
+    for style, args in (("rigid/npt/small", ["molecule", "temp", "300",
+                                             "300", "100"]),
+                        ("rigid/nvt", ["molecule", "temp", "300", "300",
+                                       "100", "iso", "1", "1", "1000"])):
+        with pytest.raises(NotImplementedError, match="queue 1 item 6"):
+            fix_integrators.build_rigid(
+                SimpleNamespace(u=REAL, script=None),
+                FixSpec("1", "all", style, args))
+
+
+def test_above_the_cap_raises(fluid):
+    """Above the dense cap (mocked to 300 atoms) a thermostat keeps the
+    script off the panel engine, and on a box where the JAX package runs
+    the pair term on its cell grid (the fluid replicated 2 x 2 x 2) the
+    port raises, naming queue 1 item 5."""
+    from lidp_tpu_torch.parallel import fast_polar as tfast
+
+    text = _text("ramp").replace("read_data fluid.data\n",
+                                 "read_data fluid.data\nreplicate 2 2 2\n")
+    with mock.patch.object(tfast, "DENSE_PATH_MAX_ATOMS", 300), \
+            pytest.raises(NotImplementedError, match="queue 1 item 5"):
+        _run("torch", fluid, text, {})
+
+
+REFUSED_AS_IN_JAX = {
+    "rigid/nvt without temp": ("fix 1 all rigid/nvt molecule tparam 10 1 3",
+                               ValueError),
+    "fix nvt on a sub-group": ("group few molecule <= 10\n"
+                               "fix 1 few nvt temp 300.0 300.0 50.0",
+                               NotImplementedError),
+}
+
+
+@pytest.mark.parametrize("name", list(REFUSED_AS_IN_JAX))
+def test_refusals_match_jax(fluid, name):
+    fix, exc = REFUSED_AS_IN_JAX[name]
+    text = chip_smoke.FLUID_SCRIPT.replace(RIGID_ALL, fix)
+    msgs = []
+    for pkg in ("jax", "torch"):
+        with pytest.raises(exc) as e:
+            _run(pkg, fluid, text, {})
+        msgs.append(str(e.value))
+    assert msgs[0] == msgs[1]
