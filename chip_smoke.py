@@ -195,9 +195,40 @@ Phases, each raising on failure:
      On the fcc lattice of step 0 the forces cancel to rounding, so force
      bars there are taken of max(max |f|, 1), the nearest-neighbour pair
      force being 2;
-  6. one JSON line {"kernels": [...]} with each of the ten kernels'
-     launches (summed and by path, A-K), times, ms_queued and bound,
-     then the nvidia-smi line, then the device line last.
+  6. the atomic inputs and the cell grid from a LAMMPS script
+     (script_cell_paths), each path printing its route, its steps/s by its
+     Loop time line and its peak device memory beside the nvidia-smi line:
+     L. bench/in.lj verbatim (LJ_SCRIPT: 32,000 atoms, run 100) through
+        the CLI's main() in this process with --f32: the cell grid, pair
+        route cell_pair_forces_lj; step 0 against the reference log at
+        path E's bars, step 100 TotEng within rel 2e-4 of -4.6223613;
+        cell_pair_forces_lj launched, slot_lj_forces not; its Performance
+        line beside path F's rate;
+     L64. the same input in float64 through LammpsScript: the plain
+        cell_pair_forces (JAX's gate), no launch; step 0 and step 100 at
+        tests/test_lj_bench.py's bars;
+     M. examples/melt/in.melt (MELT_SCRIPT: 4,000 atoms, the dense
+        route, run cut to 100), float64, its dump atom: step 0 at
+        tests/test_melt_example.py's bars (5e-8 absolute, Press 5e-7),
+        steps 50 and 100 at rel 2e-3 and 2e-2; three dump frames;
+     N. the point-charge fluid (point_charge_script on
+        fluid_script_case(n_side=15), 10,125 atoms, above the cap), float64:
+        at the default skin its 7^3 grid overfills and the run aborts with
+        the JAX package's message; with `neighbor 1.0 bin` (CELL_SKIN) the
+        cell grid with the special correction and Ewald: step 0's forces,
+        virial and energies against dense_forces on the same state with
+        special_codes_dense built directly, rel 1e-9 of max(1, |value|)
+        plus CANCEL_REL of the magnitude the correction cancels
+        (cancelled()); then 5 steps, rows finite, no overflow, no launch;
+     N-pol. the polar fluid at n_side 12 (5,184 atoms) with
+        LIDP_FAST_POLAR=0 and the same skin: cells, correction, Ewald and
+        the dense polar term, 3 steps, no launch; its rows against the same
+        input with LIDP_FAST_POLAR=1 (the panel engine) at rel 1e-9 plus
+        CANCEL_REL of the cancelled magnitude;
+  7. one JSON line {"kernels": [...]} with each of the ten kernels'
+     launches (summed and by path, A-K, E-E4, L, L64, M, N, N-pol),
+     times, ms_queued and bound, then the nvidia-smi line, then the
+     device line last.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.
@@ -225,6 +256,13 @@ I_SIDE, I_STEPS = 8, 5   # path I: 1,536 atoms on the dense route
 ICAP_SIDE, ICAP_STEPS = 11, 3   # path I-cap: 3,993 atoms, below the cap
 J_SIDE, J_STEPS = 8, 5   # paths J, J-all and K: 1,536 atoms, the dense route
 JCAP_SIDE, JCAP_STEPS = 11, 3   # path J-cap: 3,993 atoms
+M_STEPS = 100            # path M: in.melt's run cut from 250
+N_SIDE, N_STEPS = 15, 5  # path N: 10,125 atoms on the cell grid
+NPOL_SIDE, NPOL_STEPS = 12, 3   # path N-pol: 5,184 atoms
+# the skin of paths N and N-pol: at real units' default 2.0 the fluid's 4 A
+# lattice fills the 7^3 grid's cells unevenly (57 atoms in a cell of cap
+# 56 at n_side 15) and the run aborts, as path N's first run shows
+CELL_SKIN = "1.0"
 SHARE_STEPS = 10         # path G's steps timed part by part
 # thermo columns held between G64's kernel and plain routes
 G64_COLS = ("etotal", "ke", "pe", "evdwl", "ecoul", "elong", "epol", "temp",
@@ -329,6 +367,18 @@ MELT_WINDOW = 400        # path E's timed window
 LJ_LOG0 = dict(temp=(1.44, 1e-6), pe=(-6.7733681, 1e-5),
                etotal=(-4.6134356, 1e-5), press=(-5.0197073, 1e-4))
 LJ_LOG100_ETOTAL = (-4.6223613, 2e-4)
+# path L64's bars: tests/test_lj_bench.py's, step 0 (rel) and step 100
+LJ64_LOG0 = dict(temp=(1.44, 1e-9), pe=(-6.7733681, 1e-6),
+                 etotal=(-4.6134356, 1e-6), press=(-5.0197073, 1e-5))
+LJ64_LOG100 = dict(etotal=(-4.6223613, 2e-5), temp=(0.7574531, 2e-3),
+                   pe=(-5.7585055, 2e-4))
+# path M's: tests/test_melt_example.py's (log.5Oct16.melt.g++.1: temp,
+# E_pair, TotEng, Press), step 0 absolute, steps 50 and 100 relative
+MELT_GOLD = {0: (3.0, -6.7733681, -2.2744931, -3.7033504),
+             50: (1.6758903, -4.7955425, -2.2823355, 5.670064),
+             100: (1.6458363, -4.7492704, -2.2811332, 5.8691042)}
+MELT_BAR0 = dict(temp=5e-8, epair=5e-8, etotal=5e-8, press=5e-7)
+MELT_BARS = {50: 2e-3, 100: 2e-2}
 SP_WIDTH = 8             # special-list slots of make_case and the fluid
 
 
@@ -1327,17 +1377,48 @@ def g64_compare(rows_k, rows_p, states_k, states_p, n):
           f"{worst_arr:.3g} of theirs")
 
 
-def rows_agree(path, rows, ref, rels, cols=G64_COLS):
+# the cell route adds every special pair at full weight and subtracts it
+# again (forcefield.compute_forces, as the JAX package does): on the fluid
+# the O-H pairs' LJ term is ~1.4e6 a pair, so its float64 sums, in any
+# order, carry ~sqrt(terms) * eps (~1e-14) of that magnitude.  Bars on the
+# cell route add CANCEL_REL of it (cancelled) to their relative bar.
+CANCEL_REL = 1e-13
+
+
+def cancelled(sim):
+    """The magnitudes the special-bond correction cancels on `sim`'s
+    (a sim.Simulation's) current state, by thermo column: |E| of the
+    special pairs' LJ and coulomb terms (thermo-normalized), the pressure
+    of their virial; {} without special lists."""
+    from lidp_tpu_torch.ops.bonded import special_correction_sparse
+
+    ff = sim.runner.ff
+    if getattr(ff, "sp_idx", None) is None:
+        return {}
+    s, tp = sim.sys, sim.thermo_params
+    _, dev, dec, dvir = special_correction_sparse(
+        s.x, s.q, s.type, ff.sp_idx, ff.sp_lvl, s.mask, s.box, ff.pair)
+    norm = tp.natoms if tp.norm else 1.0
+    ev, ec = abs(float(dev)) / norm, abs(float(dec)) / norm
+    press = (float(dvir[:3].abs().sum()) / (3.0 * float(s.box.volume))
+             * tp.nktv2p)
+    return dict(evdwl=ev, ecoul=ec, pe=ev + ec, etotal=ev + ec, press=press)
+
+
+def rows_agree(path, rows, ref, rels, cols=G64_COLS, cancel=None):
     """Thermo rows against reference rows, row k's `cols` within rels[k]
-    of max(1, |value|); raises on the first that is not.  Returns the
-    largest ratio of a difference to its bar."""
+    of max(1, |value|), plus CANCEL_REL of `cancel`'s magnitude for the
+    column (cancelled()) where given; raises on the first that is not.
+    Returns the largest ratio of a difference to its bar."""
     if len(rows) != len(ref):
         raise AssertionError(f"path {path}: {len(rows)} rows, reference "
                              f"{len(ref)}")
+    cancel = cancel or {}
     worst = 0.0
     for k, (r, g, rel) in enumerate(zip(rows, ref, rels)):
         for c in cols:
-            bar = rel * max(1.0, abs(g[c]))
+            bar = (rel * max(1.0, abs(g[c]))
+                   + CANCEL_REL * cancel.get(c, 0.0))
             worst = max(worst, abs(r[c] - g[c]) / bar)
             if not abs(r[c] - g[c]) <= bar:
                 raise AssertionError(f"path {path} row {k} {c}: {r[c]!r}, "
@@ -1466,7 +1547,7 @@ def check_rows_finite(path, rows, ncols=G64_COLS):
 LOG_COLS = {"Step": "step", "TotEng": "etotal", "KinEng": "ke",
             "PotEng": "pe", "E_vdwl": "evdwl", "E_coul": "ecoul",
             "E_long": "elong", "E_pol": "epol", "Temp": "temp",
-            "Press": "press"}
+            "Press": "press", "E_pair": "epair", "E_mol": "emol"}
 
 
 def log_rows(lines):
@@ -1645,6 +1726,78 @@ def lj_compare(name, got, ref, need_ev, fscale=None):
     return err, scale
 
 
+# LAMMPS' bench/in.lj and examples/melt/in.melt, verbatim (the paths L,
+# L64 and M; the repo's tests scale their regions down)
+LJ_SCRIPT = """\
+# 3d Lennard-Jones melt
+
+variable\tx index 1
+variable\ty index 1
+variable\tz index 1
+
+variable\txx equal 20*$x
+variable\tyy equal 20*$y
+variable\tzz equal 20*$z
+
+units\t\tlj
+atom_style\tatomic
+
+lattice\t\tfcc 0.8442
+region\t\tbox block 0 ${xx} 0 ${yy} 0 ${zz}
+create_box\t1 box
+create_atoms\t1 box
+mass\t\t1 1.0
+
+velocity\tall create 1.44 87287 loop geom
+
+pair_style\tlj/cut 2.5
+pair_coeff\t1 1 1.0 1.0 2.5
+
+neighbor\t0.3 bin
+neigh_modify\tdelay 0 every 20 check no
+
+fix\t\t1 all nve
+
+run\t\t100
+"""
+
+MELT_SCRIPT = """\
+# 3d Lennard-Jones melt
+
+units\t\tlj
+atom_style\tatomic
+
+lattice\t\tfcc 0.8442
+region\t\tbox block 0 10 0 10 0 10
+create_box\t1 box
+create_atoms\t1 box
+mass\t\t1 1.0
+
+velocity\tall create 3.0 87287
+
+pair_style\tlj/cut 2.5
+pair_coeff\t1 1 1.0 1.0 2.5
+
+neighbor\t0.3 bin
+neigh_modify\tevery 20 delay 0 check no
+
+fix\t\t1 all nve
+
+dump\t\tid all atom 50 dump.melt
+
+#dump\t\t2 all image 25 image.*.jpg type type &
+#\t\taxes yes 0.8 0.02 view 60 -30
+#dump_modify\t2 pad 3
+
+#dump\t\t3 all movie 25 movie.mpg type type &
+#\t\taxes yes 0.8 0.02 view 60 -30
+#dump_modify\t3 pad 3
+
+thermo\t\t50
+run\t\t250
+"""
+
+
 FLUID_SCRIPT = """\
 variable prec index 1e-11
 variable nstep index 20
@@ -1667,6 +1820,21 @@ thermo_style custom step etotal ke pe evdwl ecoul elong epol temp press
 thermo 1
 run ${nstep}
 """
+
+
+def point_charge_script(text=FLUID_SCRIPT):
+    """The point-charge fluid: `text` (FLUID_SCRIPT by default) without
+    the static polarizabilities and with pair_style lj/cut/coul/long 6.0
+    6.5 for the polarizable style (BASELINE.json config 2's styles with
+    the fluid's ewald/disp and rigid molecules)."""
+    out = []
+    for line in text.splitlines():
+        if "static_polarizability" in line:
+            continue
+        if line.startswith("pair_style lj/cut/coul/long/polarization"):
+            line = "pair_style lj/cut/coul/long 6.0 6.5"
+        out.append(line)
+    return "\n".join(out) + "\n"
 
 
 def fluid_script_case(directory, n_side=15, seed=0, wrapped=False):
@@ -2178,6 +2346,282 @@ def dense_paths(launches, reset_counts, read_counts):
     finally:
         shutil.rmtree(work, ignore_errors=True)
     return rowsI
+
+
+def script_peak(tag, log, steps, peak):
+    """A path's steps/s by its Loop time line and its peak memory."""
+    rate = steps / loop_seconds(log, steps)
+    print(f"steps_per_s_{tag.replace('-', '_')} {rate:.4f} (Loop time); "
+          f"peak device memory {peak / 2**20:.1f} MiB "
+          f"(torch.cuda.max_memory_allocated); {smi_line()}")
+    return rate
+
+
+def script_cell_paths(launches, reset_counts, read_counts, steps_per_s_F):
+    """Paths L, L64, M, N and N-pol: the atomic inputs and the cell grid
+    from a LAMMPS script (module docstring).  Each sets launches[path]."""
+    import torch
+
+    from lidp_tpu_torch import topology
+    from lidp_tpu_torch.__main__ import main as cli
+    from lidp_tpu_torch.forcefield import dense_forces, pair_route
+    from lidp_tpu_torch.io.script import LammpsScript
+
+    def fresh():
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+    def route(script):
+        sim = script._sim
+        cfg = sim.runner.neighbor_cfg
+        if cfg is None:
+            return "dense route (Runner, nlist None)"
+        return (f"cell grid {cfg.nbins} x cap {cfg.cap} (cutneigh "
+                f"{cfg.cutneigh:g}, rebuild every {sim.runner.rebuild_every}"
+                f", check {sim.runner.check}), pair route "
+                f"{pair_route(sim.sys, sim.runner.ff, sim.nlist.nlist)}")
+
+    def check_row(tag, row, bars, absolute=False):
+        for k, (want, bar) in bars.items():
+            got = row[k]
+            err = abs(got - want) if absolute else abs(got - want) / abs(want)
+            print(f"{tag} {k}: {got!r} against {want!r} ("
+                  f"{'abs' if absolute else 'rel'} {err:.2e}, bar {bar:g})")
+            if not err <= bar:
+                raise AssertionError(f"{tag} {k}: {got!r} against {want!r}")
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        # path L: bench/in.lj as published (32,000 atoms) through the CLI's
+        # main() in this process, float32, so its launches are counted
+        in_lj = os.path.join(work, "in.lj")
+        with open(in_lj, "w") as fh:
+            fh.write(LJ_SCRIPT)
+        log_l = os.path.join(work, "log.lj")
+        fresh()
+        reset_counts()
+        cli(["-in", in_lj, "-log", log_l, "--f32"])
+        launches["L"] = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        with open(log_l) as fh:
+            logL = fh.read().splitlines()
+        rows = log_rows(logL)
+        print(f"path L: `python -m lidp_tpu_torch -in in.lj --f32` (bench/"
+              f"in.lj verbatim), {len(rows)} rows:")
+        for line in logL:
+            print(f"  L| {line}")
+        if [int(r["step"]) for r in rows] != [0, 100]:
+            raise AssertionError(f"path L: rows {rows}")
+        rows[0]["pe"] = rows[0]["epair"]
+        check_row("path L step 0", rows[0], LJ_LOG0)
+        check_rel("path L step 100 etotal vs the reference log",
+                  rows[1]["etotal"], *LJ_LOG100_ETOTAL)
+        if not (launches["L"]["cell_pair_forces_lj"] > 0
+                and launches["L"]["slot_lj_forces"] == 0):
+            raise AssertionError(f"path L launches {launches['L']}")
+        print(f"path L launches: {launches['L']}")
+        rate_L = script_peak("L", logL, 100, peak)
+        print(f"path L {next(x for x in logL if x.startswith('Performance'))}"
+              f" beside path F's {steps_per_s_F:.4f} steps/s (lj_melt.build,"
+              f" Runner on cells, this call): {rate_L / steps_per_s_F:.3f} "
+              f"of F's rate by the Loop time line, setup included")
+
+        # path L64: the same input in float64, in process
+        logs = []
+        fresh()
+        reset_counts()
+        script = LammpsScript(dtype=torch.float64, log=logs.append)
+        script.file(in_lj)
+        launches["L64"] = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        print(f"path L64: bench/in.lj, float64, LammpsScript: {route(script)}")
+        if "pair route cell_pair_forces," not in route(script) + ",":
+            raise AssertionError(f"path L64: {route(script)}")
+        check_counts("L64", launches["L64"], {})
+        rows = script.thermo_rows
+        for r in rows:
+            melt_row(f"L64 step {r['step']}", r)
+        check_row("path L64 step 0", rows[0], LJ64_LOG0)
+        check_row("path L64 step 100", rows[-1], LJ64_LOG100)
+        if bool(script._sim.nlist.overflow):
+            raise AssertionError("path L64: a cell overflowed")
+        script_peak("L64", logs, 100, peak)
+        del script
+
+        # path M: examples/melt (4,000 atoms, the dense route), float64,
+        # run 100, its dump atom into this directory
+        in_melt = os.path.join(work, "in.melt")
+        with open(in_melt, "w") as fh:
+            fh.write(MELT_SCRIPT.replace("run\t\t250", f"run {M_STEPS}"))
+        logs = []
+        fresh()
+        reset_counts()
+        script = LammpsScript(dtype=torch.float64, log=logs.append)
+        script.file(in_melt)
+        launches["M"] = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        print(f"path M: examples/melt/in.melt (run {M_STEPS}), float64: "
+              f"{route(script)}")
+        check_counts("M", launches["M"], {})
+        nM = script._sim.natoms
+        check_dense_runner("M", script, 4000)
+        rows = {int(r["step"]): r for r in script.thermo_rows}
+        for step, (t, ep, et, p) in MELT_GOLD.items():
+            r = rows[step]
+            melt_row(f"M step {step}", r)
+            if step == 0:
+                check_row("path M step 0", r, {
+                    k: (v, MELT_BAR0[k]) for k, v in zip(
+                        ("temp", "epair", "etotal", "press"),
+                        (t, ep, et, p))}, absolute=True)
+            else:
+                bar = MELT_BARS[step]
+                check_row(f"path M step {step}", r, dict(
+                    epair=(ep, bar), etotal=(et, bar)))
+        with open(os.path.join(work, "dump.melt")) as fh:
+            dump = fh.read()
+        frames = dump.count("ITEM: TIMESTEP")
+        if frames != M_STEPS // 50 + 1 or "ITEM: ATOMS id type xs ys zs" \
+                not in dump or dump.count("\n") != frames * (9 + nM):
+            raise AssertionError(f"path M: dump.melt has {frames} frames")
+        print(f"path M: dump.melt {frames} frames of {nM} atoms (id type xs "
+              f"ys zs)")
+        script_peak("M", logs, M_STEPS, peak)
+        del script
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    # path N: the point-charge fluid above the cap, on the cell grid
+    work = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        fluid_script_case(work, n_side=N_SIDE)
+        n = N_SIDE ** 3 * 3
+        text = point_charge_script()
+        with open(os.path.join(work, "in.pc2"), "w") as fh:
+            fh.write(text)
+        with open(os.path.join(work, "in.pc"), "w") as fh:
+            fh.write(text.replace("read_data fluid.data\n",
+                                  "read_data fluid.data\nneighbor "
+                                  f"{CELL_SKIN} bin\n"))
+        # at the default skin the grid overfills: the run aborts
+        script = LammpsScript(dtype=torch.float64, log=lambda line: None)
+        script.variables["nstep"] = "1"
+        try:
+            script.file(os.path.join(work, "in.pc2"))
+        except RuntimeError as e:
+            cfg = script._sim.runner.neighbor_cfg
+            print(f"path N at the default skin 2.0: grid {cfg.nbins} x cap "
+                  f"{cfg.cap}, the run aborts: {e}")
+        else:
+            raise AssertionError("path N: the overfilled grid did not abort")
+        del script
+        logs = []
+        fresh()
+        reset_counts()
+        script = LammpsScript(dtype=torch.float64, log=logs.append)
+        script.variables["nstep"] = "0"
+        script.file(os.path.join(work, "in.pc"))
+        sim = script._sim
+        print(f"path N: the point-charge fluid ({n} atoms, lj/cut/coul/long "
+              f"6.0 6.5, ewald/disp 1e-4, rigid/nve, neighbor {CELL_SKIN}), "
+              f"float64: {route(script)}")
+        if sim.runner.neighbor_cfg is None or sim.runner.ff.sp_idx is None:
+            raise AssertionError("path N: not on the cell grid")
+        # step 0 against dense_forces on the same state, the special codes
+        # built directly
+        ff_d = dataclasses.replace(
+            sim.runner.ff, sp_idx=None, sp_lvl=None,
+            sp_code=torch.as_tensor(topology.special_codes_dense(
+                n, script._bonds), device=sim.sys.x.device))
+        ref = dense_forces(sim.sys, ff_d)
+        cancel = cancelled(sim)
+        res = sim.res
+        worst = 0.0
+        for k in ("evdwl", "ecoul", "elong"):
+            a, b = float(getattr(res, k)), float(getattr(ref, k))
+            bar = 1e-9 * max(1.0, abs(b)) + CANCEL_REL * cancel.get(k, 0.0)
+            worst = max(worst, abs(a - b) / bar)
+            if not abs(a - b) <= bar:
+                raise AssertionError(f"path N step 0 {k}: {a!r}, dense {b!r}")
+        from lidp_tpu_torch.ops.bonded import special_correction_sparse
+        s_ = sim.sys
+        fc, _, _, dvir = special_correction_sparse(
+            s_.x, s_.q, s_.type, sim.runner.ff.sp_idx, sim.runner.ff.sp_lvl,
+            s_.mask, s_.box, sim.runner.ff.pair)
+        for k, a, b, c in (("f", res.f, ref.f, fc.abs().max()),
+                           ("virial", res.virial, ref.virial,
+                            dvir.abs().max())):
+            bar = 1e-9 * b.abs().clamp(min=1.0) + CANCEL_REL * float(c)
+            ratio = float(((a - b).abs() / bar).max())
+            worst = max(worst, ratio)
+            if not ratio <= 1.0:
+                raise AssertionError(f"path N step 0 {k} vs dense_forces: "
+                                     f"{ratio:.3g} of the bar")
+        print(f"path N step 0 vs dense_forces with special_codes_dense: f, "
+              f"virial and energies at {worst:.3g} of their bar (rel 1e-9 "
+              f"of max(1, |value|) + {CANCEL_REL:g} of the magnitude the "
+              f"correction cancels: E_vdwl {cancel['evdwl']:.4g}, max |f| "
+              f"{float(fc.abs().max()):.4g})")
+        del ref, ff_d, fc
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        script.execute([f"run {N_STEPS}"])
+        launches["N"] = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        check_counts("N", launches["N"], {})
+        rows = script.thermo_rows
+        check_rows_finite("N", rows)
+        if bool(script._sim.nlist.overflow):
+            raise AssertionError("path N: a cell overflowed")
+        for line in logs:
+            print(f"  N| {line}")
+        script_peak("N", logs, N_STEPS, peak)
+        del script, sim
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    # path N-pol: the polar fluid on the cell grid with the dense polar
+    # term (LIDP_FAST_POLAR=0) against the panel engine on the same input
+    work = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        fluid_script_case(work, n_side=NPOL_SIDE)
+        n = NPOL_SIDE ** 3 * 3
+        in_npol = os.path.join(work, "in.npol")
+        with open(in_npol, "w") as fh:
+            fh.write(FLUID_SCRIPT.replace(
+                "read_data fluid.data\n",
+                f"read_data fluid.data\nneighbor {CELL_SKIN} bin\n"))
+        reset_counts()
+        scriptC, logC, _, peak = dense_run(in_npol, NPOL_STEPS,
+                                           fast_polar="0")
+        launches["N-pol"] = read_counts()
+        check_counts("N-pol", launches["N-pol"], {})
+        print(f"path N-pol: the polar fluid ({n} atoms, LIDP_FAST_POLAR=0, "
+              f"neighbor {CELL_SKIN}), float64, precision 1e-11: "
+              f"{route(scriptC)}; its log:")
+        if scriptC._sim.runner.neighbor_cfg is None or \
+                scriptC._sim.runner.ff.polar is None:
+            raise AssertionError("path N-pol: not on the cell grid")
+        for line in logC:
+            print(f"  N-pol| {line}")
+        script_peak("N-pol", logC, NPOL_STEPS, peak)
+        cancel = cancelled(scriptC._sim)
+        rowsC = scriptC.thermo_rows
+        del scriptC
+        scriptP, _, _, _ = dense_run(in_npol, NPOL_STEPS, fast_polar="1")
+        if type(scriptP._sim.runner).__name__ != "FastPolarRunner":
+            raise AssertionError("path N-pol: LIDP_FAST_POLAR=1 did not take "
+                                 "the panel engine")
+        worst = rows_agree("N-pol", rowsC, scriptP.thermo_rows,
+                           [1e-9] * len(rowsC), cancel=cancel)
+        print(f"path N-pol rows vs the panel engine's over {len(rowsC)} "
+              f"rows: thermo columns at {worst:.3g} of their bar (rel 1e-9 "
+              f"of max(1, |value|) + {CANCEL_REL:g} of the magnitude the "
+              f"correction cancels)")
+        del scriptP
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
 
 class HostReads:
@@ -3347,6 +3791,9 @@ def main() -> int:
           f"({1e3 * t_run / MELT_STEPS:.3f} ms/step)")
     print(f"steps_per_s_E4 {steps_per_s_E4:.4f}")
     del melt4, sys4, res4, nl4, carry, grids4, live4
+    torch.cuda.empty_cache()
+
+    script_cell_paths(launches, reset_counts, read_counts, steps_per_s_F)
 
     # 6. results
     total = {name: sum(launches[p][name] for p in launches)

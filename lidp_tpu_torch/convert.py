@@ -71,10 +71,11 @@ def pair_from_numpy(pair: dict, device="cuda",
 
 def forcefield_from_numpy(pair: dict, ewald: dict, polar: dict, qqrd2e,
                           device="cuda", dtype=torch.float32, sp_code=None,
-                          reference_gs=False) -> ForceField:
+                          reference_gs=False, sp_idx=None,
+                          sp_lvl=None) -> ForceField:
     """The port's ForceField from numpy copies of the JAX dataclasses;
-    sp_code: the JAX ForceField's (N,N) special codes, reference_gs its
-    switch."""
+    sp_code: the JAX ForceField's (N,N) special codes, sp_idx and sp_lvl
+    its (N,S) special lists, reference_gs its switch."""
     from lidp_tpu_torch import resolve_device
 
     device = resolve_device(device)
@@ -97,8 +98,14 @@ def forcefield_from_numpy(pair: dict, ewald: dict, polar: dict, qqrd2e,
                                     if k in names})
     if sp_code is not None:
         sp_code = torch.as_tensor(np.array(sp_code), device=device)
+    if sp_idx is not None:
+        sp_idx = torch.as_tensor(np.array(sp_idx), dtype=torch.long,
+                                 device=device)
+        sp_lvl = torch.as_tensor(np.array(sp_lvl), dtype=torch.long,
+                                 device=device)
     return ForceField(pair=pp, ewald=ew, polar=s, qqrd2e=float(qqrd2e),
-                      sp_code=sp_code, reference_gs=bool(reference_gs))
+                      sp_code=sp_code, reference_gs=bool(reference_gs),
+                      sp_idx=sp_idx, sp_lvl=sp_lvl)
 
 
 def _np_dtype(a):

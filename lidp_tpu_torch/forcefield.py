@@ -1,12 +1,13 @@
 """Force-field composition (lidp_tpu/forcefield.py).
 
 `ForceField` is the container the panel engine (parallel/shard.py), the
-cell engine and the dense route read.  `compute_forces` evaluates either
-the dense route (`nlist=None`: the all-pairs LJ + coulomb pass, the Ewald
-sum and the polarization term on (N,N) tensors, in the JAX package's
-order) or the pair term of a non-polar force field on a `Cells` grid.
-Neighbour lists (ROADMAP queue 1 item 5), bonded terms and the other
-k-space styles (item 6) raise NotImplementedError.
+cell engine and the dense route read.  `compute_forces` evaluates, in the
+JAX package's order, the pair term (the all-pairs pass of the dense route,
+`nlist=None`, with the special codes; or the cell grid of a `Cells`, with
+the sparse special-bond correction), then the Ewald sum and the
+polarization term on (N,N) tensors.  Neighbour lists (ROADMAP queue 1
+item 5), bonded terms and the other k-space styles (item 6) raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -35,6 +36,11 @@ class ForceField:
     # (N,N) int8 special-bond codes of the dense pair pass
     # (topology.special_codes_dense), None for no special pairs
     sp_code: Optional[torch.Tensor] = None
+    # (N,S) special lists of the cell grid's correction
+    # (topology.special_lists: partner indices, the fill at N, and their
+    # levels 1-3), None for no special pairs
+    sp_idx: Optional[torch.Tensor] = None
+    sp_lvl: Optional[torch.Tensor] = None
     # validation: the serial Gauss-Seidel solve (scf_solve_gauss_seidel)
     # in place of scf_solve under polar_gs / polar_gs_ranked
     reference_gs: bool = False
@@ -90,13 +96,14 @@ def pair_route(sys, ff, cells) -> str:
     grid: "cell_pair_forces_lj" (the CUDA kernel on a GPU) or
     "cell_pair_forces" (plain PyTorch, on a GPU too).  The kernel's gate is
     the JAX package's _pallas_ok without its backend test: lj/cut alone, one
-    atom type, float32, an orthogonal fully periodic box, at least 3 bins in
-    every dimension.  A benchmark asks here which route its times are of."""
+    atom type, no special lists, float32, an orthogonal fully periodic box,
+    at least 3 bins in every dimension.  A benchmark asks here which route
+    its times are of."""
     from lidp_tpu_torch.ops.cell_kernels import supported
 
     p = ff.pair
     ok = (supported(p, p.lj3.shape[0] - 1 > 1, p.coul)
-          and sys.x.dtype == torch.float32
+          and ff.sp_idx is None and sys.x.dtype == torch.float32
           and not sys.box.triclinic and all(sys.box.periodic)
           and min(cells.atom_of_slot.shape[:3]) >= 3)
     return "cell_pair_forces_lj" if ok else "cell_pair_forces"
@@ -104,18 +111,21 @@ def pair_route(sys, ff, cells) -> str:
 
 def compute_forces(sys, ff: ForceField, nlist=None,
                    need_ev: bool = True) -> ForceResult:
-    """Evaluate the force field.
+    """Evaluate the force field (lidp_tpu/forcefield.py compute_forces).
 
-    nlist=None: the dense route (dense_forces), every term the force
-    field holds.  A Cells grid: the pair term of a non-polar force field;
-    the single-type float32 LJ case goes to the CUDA kernel
+    nlist=None: the dense route (dense_forces), every term the force field
+    holds.  A Cells grid: the pair term on the grid, then the sparse
+    special-bond correction where the force field has special lists, the
+    Ewald sum and the polarization term of the dense route.  The pair term
+    of the single-type float32 LJ case goes to the CUDA kernel
     (ops/cell_kernels.cell_pair_forces_lj), every other case (float64,
-    several types, coulomb, an open face, a dimension of one bin) to the
-    plain roll kernel ops/cells.cell_pair_forces, on the GPU too;
-    `pair_route` names the one taken.
-    need_ev=False skips the cell route's energy and virial sums (zeros are
-    returned); the dense route computes them always, as in the JAX
-    package."""
+    several types, coulomb, special lists, an open face, a dimension of
+    one bin) to the plain roll kernel ops/cells.cell_pair_forces, on the
+    GPU too; `pair_route` names the one taken.
+    need_ev=False skips the cell pair term's energy and virial sums (zeros
+    are returned for them); the correction, the Ewald sum and the
+    polarization term compute theirs always, as in the JAX package."""
+    from lidp_tpu_torch.ops.bonded import special_correction_sparse
     from lidp_tpu_torch.ops.cell_kernels import cell_pair_forces_lj
     from lidp_tpu_torch.ops.cells import Cells, cell_pair_forces
 
@@ -125,11 +135,10 @@ def compute_forces(sys, ff: ForceField, nlist=None,
         raise NotImplementedError(
             "neighbour lists are not ported (ops/neighbor.py; ROADMAP "
             "queue 1 item 5, neighbour lists)")
-    if ff.polar is not None or ff.ewald is not None or ff.pair.excl_mol:
+    if ff.pair.excl_mol:
         raise NotImplementedError(
-            "a polar or k-space term or excl_mol on a cell grid is not "
-            "ported: the port runs them on the dense route (nlist=None) "
-            "or the panel engine (ROADMAP queue 1 item 6, breadth)")
+            "excl_mol on a cell grid is not ported: the port runs it on the "
+            "dense route (ROADMAP queue 1 item 6, breadth)")
     if pair_route(sys, ff, nlist) == "cell_pair_forces_lj":
         f, ev, ec, vir = cell_pair_forces_lj(
             sys.x, sys.mask, nlist, sys.box, ff.pair, need_ev=need_ev)
@@ -137,29 +146,29 @@ def compute_forces(sys, ff: ForceField, nlist=None,
         f, ev, ec, vir = cell_pair_forces(
             sys.x, sys.q, sys.type, sys.mask, nlist, sys.box, ff.pair,
             need_ev=need_ev)
-    return pair_only_result(sys, f, ev, ec, vir)
+    if ff.sp_idx is not None:
+        fc, dev, dec, dvir = special_correction_sparse(
+            sys.x, sys.q, sys.type, ff.sp_idx, ff.sp_lvl, sys.mask, sys.box,
+            ff.pair)
+        f, ev, ec, vir = f + fc, ev + dev, ec + dec, vir + dvir
+    if ff.ewald is None and ff.polar is None:
+        return pair_only_result(sys, f, ev, ec, vir)
+    return _long_range_terms(sys, ff, f, ev, ec, vir)
 
 
 def dense_forces(sys, ff: ForceField) -> ForceResult:
     """The dense route of lidp_tpu/forcefield.py compute_forces
     (nlist=None) in its order: the all-pairs LJ + coulomb pass with the
-    special codes, the Ewald sum, then the polarization term (the Wolf
-    field E0, the (N,3,N,3) tensor, the dipole solve from sys.mu under
-    use_previous, the polar forces and epol).  Plain PyTorch on (N,N)
-    tensors: no kernel of ops/panel.py runs here."""
-    from lidp_tpu_torch.ops import ewald as ewald_ops
+    special codes, then the Ewald sum and the polarization term
+    (_long_range_terms).  Plain PyTorch on (N,N) tensors: no kernel of
+    ops/panel.py runs here."""
     from lidp_tpu_torch.ops import pair as pair_ops
-    from lidp_tpu_torch.ops import polarization as pol_ops
 
     x = sys.x
     zero = x.new_zeros(())
     f = torch.zeros_like(x)
-    evdwl = ecoul = elong = epol = zero
+    evdwl = ecoul = zero
     virial = x.new_zeros(6)
-    mu = sys.mu
-    scf_iters = 0
-    scf_diverged = torch.zeros((), dtype=torch.bool, device=x.device)
-
     if ff.pair is not None:
         sp = ff.sp_code if ff.sp_code is not None else 0
         fp, ev, ec, vir = pair_ops.dense_pair_forces(
@@ -167,6 +176,26 @@ def dense_forces(sys, ff: ForceField) -> ForceResult:
         f = f + fp
         evdwl, ecoul = evdwl + ev, ecoul + ec
         virial = virial + vir
+    return _long_range_terms(sys, ff, f, evdwl, ecoul, virial)
+
+
+def _long_range_terms(sys, ff: ForceField, f, evdwl, ecoul,
+                      virial) -> ForceResult:
+    """The terms after the pair term, on either route, in the JAX
+    package's order: the Ewald sum, then the polarization term (the Wolf
+    field E0, the (N,3,N,3) tensor, the dipole solve from sys.mu under
+    use_previous, the polar forces and epol), all on (N,N) tensors; the
+    ForceResult of the pair term's f, evdwl, ecoul and virial with
+    them."""
+    from lidp_tpu_torch.ops import ewald as ewald_ops
+    from lidp_tpu_torch.ops import polarization as pol_ops
+
+    x = sys.x
+    zero = x.new_zeros(())
+    elong = epol = zero
+    mu = sys.mu
+    scf_iters = 0
+    scf_diverged = torch.zeros((), dtype=torch.bool, device=x.device)
 
     if ff.ewald is not None:
         fk, el, vk = ewald_ops.ewald_forces(x, sys.q, sys.box.volume,

@@ -8,13 +8,16 @@ kept: `units` resets the timestep to the style default (update.cpp
 set_units), so an input whose `timestep` precedes `units real` runs dt = 1.
 
 The interpreter gathers the configuration on the host; `run N` assembles
-the Simulation (sim.py: the System, the lj/cut/coul/long/polarization
-tables, ewald/disp, the integrator of the fixes, FastPolarRunner) on the
-script's device and advances it.
+the Simulation (sim.py: the System, the lj/cut, lj/cut/coul/long or
+lj/cut/coul/long/polarization tables, ewald or ewald/disp, the integrator
+of the fixes, and the dense route, the cell grid or FastPolarRunner) on
+the script's device and advances it.
 
-The commands are those the polarization examples and the polar main path
-use; every other command, style or keyword raises NotImplementedError
-naming itself and the ROADMAP item that ports it, and is never ignored.
+The commands are those the polarization examples, the polar main path and
+the atomic inputs bench/in.lj and examples/melt use (lattice, region
+block, create_box, create_atoms, the neighbour schedule of neigh_modify);
+every other command, style or keyword raises NotImplementedError naming
+itself and the ROADMAP item that ports it, and is never ignored.
 """
 
 from __future__ import annotations
@@ -49,6 +52,9 @@ THERMO_KEYWORDS = frozenset((
     "epair", "emol", "ebond", "eangle", "edihed", "eimp", "press", "vol",
     "density", "lx", "ly", "lz", "xlo", "ylo", "zlo", "xhi", "yhi", "zhi",
     "xy", "xz", "yz", "atoms", "bonds"))
+
+# pair styles Simulation.from_script builds
+PAIR_STYLES = ("lj/cut", "lj/cut/coul/long", "lj/cut/coul/long/polarization")
 
 # fix styles with a builder (styles/fix_integrators.py)
 FIX_STYLES = ("nve", "nvt", "rigid", "rigid/nve", "rigid/nvt", "rigid/small",
@@ -131,13 +137,24 @@ class LammpsScript:
         self._skip_next_jump = False
         self.units = units_mod.LJ
         self.dt: float = self.units.dt
-        # neighbor skin: it sizes no structure of the port, but above the
-        # dense cap it decides the JAX package's route (sim.py)
+        # the neighbour skin and schedule (Neighbor::decide): the cell
+        # grid's bin width is the largest cutoff plus the skin, rebuilt as
+        # every/delay/check say (neighbor.cpp defaults every 1, delay 10,
+        # check yes); the dense route and the panel engine take every pair
         self.skin: float = self.units.skin
+        self.neigh_every = 1
+        self.neigh_delay = 10
+        self.neigh_check = True
         self.atom_style = "atomic"
         self.dimension = 3
         self.periodic = (True, True, True)
         self.data = None             # DataFile
+        self.lattice_style = None
+        self.lattice_spacing3 = None   # (3,) of the lattice command
+        # region ID -> (xlo, xhi, ylo, yhi, zlo, zhi) of a block, in the
+        # region's units; region ID -> {"side": in|out, "units": ...}
+        self.regions: dict[str, tuple] = {}
+        self._region_kw: dict[str, dict] = {}
         self.box_lo = None
         self.box_hi = None
         self.box_tilt = None
@@ -434,8 +451,9 @@ class LammpsScript:
             _unported(f"boundary {' '.join(a)} (p p p only)", _BREADTH)
 
     def cmd_atom_style(self, a):
-        if a[0] not in ("full", "charge"):
-            _unported(f"atom_style {a[0]} (full and charge only)", _BREADTH)
+        if a[0] not in ("atomic", "full", "charge"):
+            _unported(f"atom_style {a[0]} (atomic, full and charge only)",
+                      _BREADTH)
         self.atom_style = a[0]
 
     def cmd_dimension(self, a):
@@ -465,13 +483,155 @@ class LammpsScript:
         pass
 
     def cmd_neighbor(self, a):
-        # the panel engine and the dense route take every pair: no
-        # neighbour list to size
+        # neighbor SKIN STYLE: the binning style sizes nothing here
         self.skin = float(a[0])
 
     def cmd_neigh_modify(self, a):
-        if "exclude" in a:
-            _unported("neigh_modify exclude", _BREADTH)
+        """neigh_modify every N | delay N | check yes/no | one N | page N
+        (neighbor.cpp modify_params); one and page size the reference's
+        list pages, which the cell grid does not have."""
+        i = 0
+        while i < len(a):
+            k = a[i]
+            if k == "every":
+                self.neigh_every = int(a[i + 1])
+            elif k == "delay":
+                self.neigh_delay = int(a[i + 1])
+            elif k == "check":
+                self.neigh_check = _yesno(a[i + 1])
+            elif k not in ("one", "page"):
+                _unported(f"neigh_modify {k}", _BREADTH)
+            i += 2
+
+    # ------------------------- lattice and regions -------------------------
+
+    def cmd_lattice(self, a):
+        """lattice STYLE SCALE (lattice.cpp): fcc, bcc, sc and the 2d
+        styles of lattice.py; in lj units SCALE is the reduced density."""
+        from lidp_tpu_torch import lattice as lattice_mod
+
+        if a[0] not in lattice_mod._BASES or len(a) != 2:
+            _unported(f"lattice {' '.join(a)} (fcc, bcc, sc, sq, sq2 or hex "
+                      "with a scale and no keywords)", _BREADTH)
+        self.lattice_style = a[0]
+        self.lattice_spacing3 = lattice_mod.lattice_spacing3(
+            a[0], float(a[1]), self.units.name, dim=self.dimension)
+        self.log("Lattice spacing in x,y,z = %g %g %g" % tuple(
+            self.lattice_spacing3))
+
+    def _spacing3(self):
+        """The lattice spacings, 1 without a lattice command."""
+        if self.lattice_spacing3 is None:
+            return np.ones(3)
+        return np.asarray(self.lattice_spacing3, float)
+
+    def cmd_region(self, a):
+        """region ID block xlo xhi ylo yhi zlo zhi [side in|out] [units
+        lattice|box] (region.cpp options, region_block.cpp)."""
+        name, style = a[0], a[1]
+        if style != "block":
+            _unported(f"region style {style} (block only)", _BREADTH)
+        self.regions[name] = tuple(float(v) for v in a[2:8])
+        kw = {"side": "in", "units": "lattice"}
+        i = 8
+        while i < len(a):
+            if a[i] == "side" and a[i + 1] in ("in", "out"):
+                kw["side"] = a[i + 1]
+            elif a[i] == "units" and a[i + 1] in ("lattice", "box"):
+                kw["units"] = a[i + 1]
+            else:
+                _unported(f"region keyword {' '.join(a[i:i + 2])}", _BREADTH)
+            i += 2
+        self._region_kw[name] = kw
+
+    def _region_mask(self, name, x):
+        """Which of the points x lie in block region `name` (bounds
+        inclusive, region_block.cpp inside(); side out inverts)."""
+        kw = self._region_kw[name]
+        s3 = np.ones(3) if kw["units"] == "box" else self._spacing3()
+        lo_hi = np.asarray(self.regions[name], float) * np.repeat(s3, 2)
+        sel = np.ones(x.shape[0], bool)
+        for d in range(3):
+            # INF as a lower bound is minus infinity
+            lo = -np.inf if np.isinf(lo_hi[2 * d]) else lo_hi[2 * d]
+            sel &= (x[:, d] >= lo) & (x[:, d] <= lo_hi[2 * d + 1])
+        return ~sel if kw["side"] == "out" else sel
+
+    def cmd_create_box(self, a):
+        """create_box N region-ID (create_box.cpp), orthogonal: the box of
+        the block scaled by the lattice spacings, as the JAX package's
+        create_box scales it whatever the region's units (ROADMAP queue 3
+        item 6)."""
+        if len(a) > 2:
+            _unported(f"create_box keywords {' '.join(a[2:])}", _BREADTH)
+        self.ntypes = int(a[0])
+        b = np.asarray(self.regions[a[1]], float)
+        s3 = self._spacing3()
+        self.box_lo = b[0::2] * s3
+        self.box_hi = b[1::2] * s3
+        self.box_tilt = None
+        self.mass_type = np.zeros(self.ntypes + 1)
+        self.alpha_type = np.zeros(self.ntypes + 1)
+
+    def cmd_create_atoms(self, a):
+        """create_atoms TYPE box | region ID | single x y z [units
+        box|lattice] (create_atoms.cpp styles BOX, REGION, SINGLE): lattice
+        sites in the order of lattice.create_atoms_bounds, the order the
+        `velocity ... loop all` stream follows.  `box` replaces the atoms;
+        `region` and `single` append to them."""
+        from lidp_tpu_torch import lattice as lattice_mod
+
+        ty = int(a[0])
+        if a[1] in ("box", "region"):
+            if self.lattice_style is None:
+                raise ValueError("create_atoms: a lattice must be defined "
+                                 "first")
+            x = lattice_mod.create_atoms_bounds(
+                self.lattice_style, self._spacing3(), self.box_lo,
+                self.box_hi)
+            if a[1] == "region":
+                x = x[self._region_mask(a[2], x)]
+            rest = a[3:] if a[1] == "region" else a[2:]
+        elif a[1] == "single":
+            units = "lattice"
+            if len(a) > 5:
+                if a[5] != "units" or a[6] not in ("box", "lattice"):
+                    _unported(f"create_atoms keyword {a[5]}", _BREADTH)
+                units = a[6]
+            s3 = np.ones(3) if units == "box" else self._spacing3()
+            x = np.array([[float(a[2]) * s3[0], float(a[3]) * s3[1],
+                           float(a[4]) * s3[2]]])
+            rest = a[7:]
+        else:
+            _unported(f"create_atoms {a[1]}", _BREADTH)
+        if rest:
+            _unported(f"create_atoms keywords {' '.join(rest)}", _BREADTH)
+        self.log(f"Created {x.shape[0]} atoms")
+        nnew = x.shape[0]
+        if self.x is not None and len(self.x) and a[1] != "box":
+            self._invalidate()
+            self.x = np.concatenate([self.x, x])
+            self.v = np.concatenate([self.v, np.zeros((nnew, 3))])
+            self.q = np.concatenate([self.q, np.zeros(nnew)])
+            self.type = np.concatenate(
+                [self.type, np.full(nnew, ty, np.int32)])
+            self.mol = np.concatenate([self.mol, np.zeros(nnew, np.int32)])
+            self.image = np.concatenate(
+                [self.image, np.zeros((nnew, 3), np.int32)])
+            self.groups = {k: np.concatenate(
+                [np.asarray(v), np.full(nnew, k == "all", bool)])
+                for k, v in self.groups.items()}
+            return
+        self._sim = None
+        self.x = x
+        self.v = np.zeros((nnew, 3))
+        self.q = np.zeros(nnew)
+        self.type = np.full(nnew, ty, np.int32)
+        self.mol = np.zeros(nnew, np.int32)
+        self.image = np.zeros((nnew, 3), np.int32)
+        self._bonds = np.zeros((0, 2), np.int64)
+        self._bond_types = None
+        self.groups["all"] = np.ones(nnew, bool)
 
     def cmd_read_data(self, a):
         if len(a) > 1:
@@ -612,15 +772,24 @@ class LammpsScript:
         _unported(f"set selector {style}", _BREADTH)
 
     def cmd_pair_style(self, a):
+        """pair_style lj/cut CUT | lj/cut/coul/long CUT [CUT_COUL] |
+        lj/cut/coul/long/polarization CUT [CUT_COUL] [keywords]."""
         self._invalidate()
         self.pair_coeffs = {}
-        if a[0] != "lj/cut/coul/long/polarization":
+        if a[0] not in PAIR_STYLES:
             _unported(f"pair_style {a[0]}", _BREADTH)
         p = PairStyleSpec(name=a[0])
         p.cut_lj_global = float(a[1])
+        if a[0] == "lj/cut":
+            if len(a) > 2:
+                raise ValueError("Illegal pair_style command")
+            self.pair = p
+            return
         has_cc = len(a) > 2 and bool(_NUM_RE.match(a[2]))
         p.cut_coul = float(a[2]) if has_cc else p.cut_lj_global
         i = 3 if has_cc else 2
+        if a[0] == "lj/cut/coul/long" and i < len(a):
+            raise ValueError("Illegal pair_style command")
         while i < len(a):
             k, v = a[i], a[i + 1]
             if k == "precision":
@@ -818,16 +987,19 @@ class LammpsScript:
         gm = self.groups[group]
         if a[1] == "set":
             # velocity group set vx vy vz (velocity.cpp::set; NULL keeps).
-            # Lattice units (the default) scale by the lattice spacing,
-            # 1 without a lattice command (the port has none)
+            # Lattice units (the default) scale each component by its
+            # lattice spacing, 1 without a lattice command
+            units = "lattice"
             i = 5
             while i < len(a):
                 if a[i] != "units" or a[i + 1] not in ("box", "lattice"):
                     _unported(f"velocity set keyword {a[i]} {a[i + 1]}")
+                units = a[i + 1]
                 i += 2
+            s3 = np.ones(3) if units == "box" else self._spacing3()
             for d, tok in enumerate(a[2:5]):
                 if tok != "NULL":
-                    self.v[gm, d] = float(tok)
+                    self.v[gm, d] = float(tok) * s3[d]
             return
         if a[1] == "zero":
             # velocity group zero linear (velocity.cpp::zero_momentum)

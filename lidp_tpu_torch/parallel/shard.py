@@ -36,8 +36,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from lidp_tpu_torch.box import minimum_image
 from lidp_tpu_torch.forcefield import ForceField
+from lidp_tpu_torch.ops.bonded import special_pair_sums
 from lidp_tpu_torch.ops import panel as panel_ops
 from lidp_tpu_torch.ops.polarization import (PolarizationSettings,
                                              scf_solve_cg)
@@ -266,45 +266,17 @@ class PolarStep(nn.Module):
 
     def _special_correction(self, x, q, type_, strip=None):
         """Sparse special-bond contributions, O(N*S): ADDS factor_lj * E
-        for the pairs the dense pass excluded from LJ, and applies the
+        for the pairs the panel pass excluded from LJ, and applies the
         kspace-present coulomb convention forcecoul -= (1-factor)*prefactor
-        (...polarization.cpp:262-278).  Returns (df, dev, dec, dvir) of the
-        whole block or of the row strip."""
+        (...polarization.cpp:262-278), by ops/bonded.special_pair_sums.
+        Returns (df, dev, dec, dvir) of the whole block or of the row
+        strip."""
         rs, _, _ = self._rows(strip)
-        L = self.box_lengths
-        sp_idx, sp_lvl = self.sp_idx[rs], self.sp_lvl[rs]
-        xr, qr, tr = x[rs], q[rs], type_[rs]
-        jvalid = sp_idx < self.n
-        jc = torch.clamp(sp_idx, max=self.npad - 1).long()
-        sdx = minimum_image(xr[:, 0:1] - x[:, 0][jc], L[0])
-        sdy = minimum_image(xr[:, 1:2] - x[:, 1][jc], L[1])
-        sdz = minimum_image(xr[:, 2:3] - x[:, 2][jc], L[2])
-        srsq = torch.where(jvalid, sdx * sdx + sdy * sdy + sdz * sdz, 1.0)
-        sr2inv = 1.0 / srsq
-        ti, tj = tr[:, None], type_[jc]
-        lj3, lj4, off, cut_ljsq, cutsq = (t[ti, tj] for t in self.tabs)
-        flj = self.special_lj[sp_lvl]
-        fcl = self.special_coul[sp_lvl]
-        in_rng = jvalid & (srsq < cutsq)
-        lj_m = in_rng & (srsq < cut_ljsq)
-        r6inv = sr2inv * sr2inv * sr2inv
-        forcelj = r6inv * (12.0 * lj3 * r6inv - 6.0 * lj4)
-        evdwl_full = r6inv * (lj3 * r6inv - lj4) - off
-        dflj = torch.where(lj_m, flj * forcelj, 0.0)
-        devd = torch.where(lj_m, flj * evdwl_full, 0.0)
-        cm = in_rng & (srsq < self.cut_coulsq)
-        prefac = self.pair_qqrd2e * qr[:, None] * q[jc] / torch.sqrt(srsq)
-        dfc = torch.where(cm, -(1.0 - fcl) * prefac, 0.0)
-        fpair_c = (dflj + dfc) * sr2inv
-        df = torch.stack([torch.sum(fpair_c * sdx, dim=1),
-                          torch.sum(fpair_c * sdy, dim=1),
-                          torch.sum(fpair_c * sdz, dim=1)], dim=-1)
-        wks = 0.5 * fpair_c
-        dvir = torch.stack([
-            torch.sum(wks * sdx * sdx), torch.sum(wks * sdy * sdy),
-            torch.sum(wks * sdz * sdz), torch.sum(wks * sdx * sdy),
-            torch.sum(wks * sdx * sdz), torch.sum(wks * sdy * sdz)])
-        return df, 0.5 * torch.sum(devd), 0.5 * torch.sum(dfc), dvir
+        return special_pair_sums(
+            x[rs], q[rs], type_[rs], x, q, type_, self.sp_idx[rs],
+            self.sp_lvl[rs], self.box_lengths, self.tabs, self.special_lj,
+            self.special_coul, self.cut_coulsq, self.pair_qqrd2e,
+            nvalid=self.n, lj_counted=0.0)
 
     def _nonpolar_forces(self, x, q, type_, mask, with_kspace=True,
                          strip=None, wolf_mol=None, k=None):

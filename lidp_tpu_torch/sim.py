@@ -1,29 +1,44 @@
 """Simulation assembly: interpreter state -> a runnable system
-(lidp_tpu/sim.py, the polar route).
+(lidp_tpu/sim.py, the routes of lj/cut, lj/cut/coul/long and
+lj/cut/coul/long/polarization).
 
 The analog of the LAMMPS init phase (Run::command -> LAMMPS::init,
-run.cpp:38) for the polarizable pair style: the lj/cut/coul/long tables
-with geometric (or arithmetic) mixing for unset type pairs
-(Pair::init_one pair.cpp:660, 676), the Ewald setup with the
-`kspace_modify gewald` override, the polarization settings of the pair
-keywords, the special bonds of the Bonds section, the integrator of the
-fixes (nve, rigid/nve, rigid/nvt, nvt) with its dof removal (FixRigid::dof,
-fix_rigid.cpp:1181), the group temperatures of `compute ID group temp`;
-then `run` (each run the window of the thermostats' target ramp), the
-thermo rows with their c_ID columns and the dump frames.
+run.cpp:38): the lj/cut or lj/cut/coul/long tables with geometric (or
+arithmetic) mixing for unset type pairs (Pair::init_one pair.cpp:660,
+676), the Ewald setup of a coulomb style with the `kspace_modify gewald`
+override, the polarization settings of the pair keywords, the special
+bonds of the Bonds section, the integrator of the fixes (nve, rigid/nve,
+rigid/nvt, nvt) with its dof removal (FixRigid::dof, fix_rigid.cpp:1181),
+the group temperatures of `compute ID group temp`; then `run` (each run
+the window of the thermostats' target ramp), the thermo rows with their
+c_ID columns and the dump frames.
 
 It takes the route the JAX package takes:
   * the dense route (forcefield.compute_forces with nlist=None in the
-    generic Runner, (N,N) tensors in plain PyTorch): at most
-    DENSE_PATH_MAX_ATOMS atoms without LIDP_FAST_POLAR=1, or at any size
-    under LIDP_FAST_POLAR=0, with the System unpadded and the special
-    codes of the Bonds section (built up to the cap only, as in JAX);
+    generic Runner, (N,N) tensors in plain PyTorch): every style at most
+    DENSE_PATH_MAX_ATOMS atoms, the polar style only without
+    LIDP_FAST_POLAR=1, with the System unpadded and the special codes of
+    the Bonds section (built up to the cap only, as in JAX);
+  * the cell grid above the cap (the generic Runner on a CellConfig of the
+    largest cutoff plus the skin, cap_slack 1.7, rebuilt as neigh_modify
+    every/delay/check say): the pair term on the grid (the CUDA kernel
+    cell_pair_forces_lj for single-type float32 lj/cut, else plain
+    torch), the special lists' sparse correction, then the Ewald sum and
+    the dense polar term; the polar style takes it under LIDP_FAST_POLAR=0
+    or with a fix the panel engine does not compose with.  A cell
+    overflow aborts the run;
   * the panel engine (FastPolarRunner through maybe_attach, the CUDA
-    kernels) above the cap or under LIDP_FAST_POLAR=1, with the System
-    padded to the panel alignment and the special lists.
-A composition the JAX package runs and the port cannot (another pair or
-kspace style, the JAX package's cell-grid pair term above the cap)
-raises NotImplementedError naming the ROADMAP item that ports it.
+    kernels) for the polar style above the cap or under
+    LIDP_FAST_POLAR=1, with the System padded to the panel alignment and
+    the special lists.
+Above the cap, a box under 3 cells of the largest cutoff plus the skin a
+side takes the JAX package's neighbour list, which is not ported (ROADMAP
+queue 1 item 5) and raises; only the polar style keeps the dense pass
+without special codes there, which gives that list's rows while no pair
+comes within the cutoff between rebuilds (ROADMAP queue 3 item 5).  A
+composition the JAX package runs and the port cannot (another pair or
+kspace style) raises NotImplementedError naming the ROADMAP item that
+ports it.
 """
 
 from __future__ import annotations
@@ -39,7 +54,9 @@ from lidp_tpu_torch import topology as topo_mod
 from lidp_tpu_torch.box import Box
 from lidp_tpu_torch.forcefield import ForceField
 from lidp_tpu_torch.integrate.driver import Runner
+from lidp_tpu_torch.io.script import PAIR_STYLES
 from lidp_tpu_torch.ops import polarization as pol_ops
+from lidp_tpu_torch.ops.cells import CellConfig
 from lidp_tpu_torch.ops.ewald import EwaldParams, setup_ewald_disp
 from lidp_tpu_torch.ops.pair import make_pair_params
 from lidp_tpu_torch.parallel import fast_polar
@@ -53,25 +70,29 @@ from lidp_tpu_torch.thermo import ThermoParams, temperature, thermo_row
 _ABOVE_CAP = ("WARNING: polarization above the dense-path size cap is "
               "running the O(N^2) tensor path (fast-polar engine "
               "ineligible: unsupported fix/kspace/bonded composition)")
+# the JAX package's abort on a cell overflow (lidp_tpu/sim.py:3623-3627)
+_OVERFLOW = ("neighbor cell capacity overflow during run (Neighbor "
+             "'dangerous build' analog) — increase cap_slack")
 
 
-def _jax_pair_grid_above_cap(script, cut, n) -> bool:
-    """Whether the JAX package, above the dense cap, evaluates the pair
-    term on a cell grid (its sim.py:1798-1818: CellConfig.for_box at the
-    largest cutoff plus the skin succeeds) rather than by a neighbour
-    list.  Its cell grid adds the special bonds by a sparse correction;
-    its neighbour list, given no special codes above the cap, applies
-    none, and the dense pair pass without codes reproduces it."""
-    from lidp_tpu_torch.ops.cells import CellConfig
-
+def _cell_config(script, cut, n, coul):
+    """The cell grid the JAX package runs the pair term on above the dense
+    cap (its sim.py:1798-1820): CellConfig.for_box at the largest cutoff
+    (of the coulomb term too) plus the skin, cap_slack 1.7; None where the
+    box is under 3 such cells a side and the JAX package takes a
+    neighbour list instead."""
     L = script.box_hi - script.box_lo
-    cutmax = max(float(np.max(cut)), script.pair.cut_coul)
+    cutmax = float(np.max(cut))
+    if coul:
+        cutmax = max(cutmax, script.pair.cut_coul)
     try:
-        CellConfig.for_box(L, cutmax + script.skin,
-                           density=n / float(np.prod(L)), cap_slack=1.7)
+        # slack 1.7, the JAX package's (a cell that overfills aborts the
+        # run: Simulation.run)
+        return CellConfig.for_box(L, cutmax + script.skin,
+                                  density=n / float(np.prod(L)),
+                                  cap_slack=1.7)
     except ValueError:
-        return False
-    return True
+        return None
 
 
 def _mix_pair_tables(script):
@@ -135,6 +156,9 @@ class Simulation:
         self.natoms = natoms
         self.res = None
         self.istate = None
+        # the cell grid's carry (integrate/driver.NeighborCarry) across
+        # runs and chunks; None on the dense route and the panel engine
+        self.nlist = None
 
     @staticmethod
     def from_script(script) -> "Simulation":
@@ -143,18 +167,24 @@ class Simulation:
         device = resolve_device(script.device)
         n = script.x.shape[0]
         dim_ = script.dimension
-        if not script.pair.name.endswith("/polarization"):
+        name = script.pair.name
+        if name not in PAIR_STYLES:
             raise NotImplementedError(
-                f"pair_style {script.pair.name or '(none)'}: the port's "
-                "script engine runs lj/cut/coul/long/polarization only "
-                "(other pair styles: ROADMAP queue 1 item 6, breadth)")
-        if script.kspace is None or script.kspace[0] not in ("ewald",
-                                                             "ewald/disp"):
+                f"pair_style {name or '(none)'}: the port's script engine "
+                f"runs {', '.join(PAIR_STYLES)} only (other pair styles: "
+                "ROADMAP queue 1 item 6, breadth)")
+        polar = name.endswith("/polarization")
+        coul = "coul" in name
+        if coul and script.kspace is None:
+            raise ValueError(f"Pair style {name} requires a KSpace style")
+        if not coul and script.kspace is not None:
+            raise ValueError(f"KSpace style {script.kspace[0]} is "
+                             f"incompatible with pair style {name}")
+        if coul and script.kspace[0] not in ("ewald", "ewald/disp"):
             raise NotImplementedError(
-                f"kspace_style {script.kspace[0] if script.kspace else 'none'}"
-                ": the port runs the polarizable pair style with ewald or "
-                "ewald/disp only (pppm, msm: ROADMAP queue 1 item 6, "
-                "breadth)")
+                f"kspace_style {script.kspace[0]}: the port runs the "
+                "coulomb pair styles with ewald or ewald/disp only (pppm, "
+                "msm: ROADMAP queue 1 item 6, breadth)")
         dense = not prescan(script, n)
         above_cap = n > fast_polar.DENSE_PATH_MAX_ATOMS
         npad = n if dense else aligned_npad(n)
@@ -186,29 +216,37 @@ class Simulation:
 
         # ---- pair tables, kspace ----
         eps, sig, cut = _mix_pair_tables(script)
-        _, acc = script.kspace
-        es = setup_ewald_disp(
-            accuracy_rel=acc, qqrd2e=u.qqr2e, q=script.q, natoms=n,
-            cutoff=script.pair.cut_coul,
-            box_lengths=script.box_hi - script.box_lo,
-            g_ewald=script._gewald_override)
+        ew = None
+        g_ewald = 0.0
+        if coul:
+            _, acc = script.kspace
+            es = setup_ewald_disp(
+                accuracy_rel=acc, qqrd2e=u.qqr2e, q=script.q, natoms=n,
+                cutoff=script.pair.cut_coul,
+                box_lengths=script.box_hi - script.box_lo,
+                g_ewald=script._gewald_override)
+            g_ewald = es.g_ewald
+            ew = EwaldParams.from_setup(es, u.qqr2e, dtype=dtype,
+                                        device=device)
         pair = make_pair_params(
-            eps, sig, cut, cut_coul=script.pair.cut_coul, qqrd2e=u.qqr2e,
-            g_ewald=es.g_ewald, coul=True, special_lj=script.special_lj,
-            special_coul=script.special_coul,
+            eps, sig, cut, cut_coul=script.pair.cut_coul if coul else 0.0,
+            qqrd2e=u.qqr2e, g_ewald=g_ewald, coul=coul,
+            special_lj=script.special_lj, special_coul=script.special_coul,
             dtype=dtype, device=device)
-        ew = EwaldParams.from_setup(es, u.qqr2e, dtype=dtype, device=device)
-        pol = polarization_settings(script.pair)
+        pol = polarization_settings(script.pair) if polar else None
 
-        if dense and above_cap and _jax_pair_grid_above_cap(script, cut, n):
-            raise NotImplementedError(
-                f"{n} atoms with LIDP_FAST_POLAR=0: above the dense cap "
-                "the JAX package runs the pair term on a cell grid with a "
-                "sparse special-bond correction, which the port does not "
-                "compose with the dense polar term (ROADMAP queue 1 item "
-                "5, neighbour lists)")
+        # ---- neighbour strategy (the JAX package's sim.py:1785-1820) ----
+        ncfg = None
+        if dense and above_cap:
+            ncfg = _cell_config(script, cut, n, coul)
+            if ncfg is None and not polar:
+                raise NotImplementedError(
+                    f"{n} atoms in a box under 3 cells of the largest "
+                    f"cutoff plus the skin ({script.skin:g}) a side: above "
+                    "the dense cap the JAX package takes a neighbour list "
+                    "here (ROADMAP queue 1 item 5, neighbour lists)")
 
-        sp_lists = sp_code = None
+        sp_lists = sp_code = sp_idx = sp_lvl = None
         has_bonds = script._bonds is not None and len(script._bonds)
         if dense and has_bonds and not above_cap:
             # the JAX package builds the codes up to the cap only
@@ -216,7 +254,7 @@ class Simulation:
             sp_code = torch.as_tensor(
                 topo_mod.special_codes_dense(n, script._bonds),
                 device=device)
-        if not dense and has_bonds:
+        if has_bonds and (ncfg is not None or not dense):
             si, sl = topo_mod.special_lists(n, script._bonds)
             if npad != n:
                 # remap the "invalid" fill (== n) past the padding, then pad
@@ -225,7 +263,11 @@ class Simulation:
                     [si, np.full((npad - n, si.shape[1]), npad, si.dtype)])
                 sl = np.concatenate(
                     [sl, np.zeros((npad - n, sl.shape[1]), sl.dtype)])
-            sp_lists = (si, sl)
+            if dense:
+                sp_idx = torch.as_tensor(si, dtype=torch.long, device=device)
+                sp_lvl = torch.as_tensor(sl, dtype=torch.long, device=device)
+            else:
+                sp_lists = (si, sl)
 
         # read_data keeps each atom's stored coordinates; the polar F.r
         # virial uses them wrapped as they stood at the run's start
@@ -236,7 +278,8 @@ class Simulation:
             polar_xshift = torch.as_tensor(polar_xshift, dtype=dtype,
                                            device=device)
         ff = ForceField(pair=pair, ewald=ew, polar=pol, qqrd2e=u.qqr2e,
-                        polar_xshift=polar_xshift, sp_code=sp_code)
+                        polar_xshift=polar_xshift, sp_code=sp_code,
+                        sp_idx=sp_idx, sp_lvl=sp_lvl)
 
         # ---- integrator from fixes ----
         from lidp_tpu_torch.styles import FixBuildCtx, build_fixes
@@ -248,9 +291,12 @@ class Simulation:
             raise NotImplementedError(
                 "a run without a time-integration fix is not ported "
                 "(fix nve, rigid/nve, rigid/nvt or nvt)")
-        runner = Runner(ff, fctx.integ)
+        runner = Runner(ff, fctx.integ, neighbor_cfg=ncfg,
+                        rebuild_every=script.neigh_every if ncfg else 1,
+                        check=script.neigh_check, skin=script.skin,
+                        delay=script.neigh_delay)
         if dense:
-            if above_cap:
+            if above_cap and polar:
                 script.log(_ABOVE_CAP)
         else:
             runner = maybe_attach(
@@ -353,7 +399,8 @@ class Simulation:
                 integ, params=dataclasses.replace(
                     integ.params, ramp_begin=b, ramp_end=b + nsteps))
         if self.res is None:
-            self.sys, self.res, _, self.istate = self.runner.setup(self.sys)
+            self.sys, self.res, self.nlist, self.istate = \
+                self.runner.setup(self.sys)
         self.script.log(" ".join(
             self._HEADER.get(c, c) for c in self.script.thermo_columns))
         self._emit()
@@ -365,10 +412,12 @@ class Simulation:
         chunk = int(np.gcd.reduce(chunk_opts))
         while remaining > 0:
             todo = min(chunk, remaining)
-            self.sys, self.res, _, self.istate = self.runner.run(
-                self.sys, self.res, None, self.istate, todo)
+            self.sys, self.res, self.nlist, self.istate = self.runner.run(
+                self.sys, self.res, self.nlist, self.istate, todo)
             remaining -= todo
             step = int(self.sys.step)
+            if self.nlist is not None and bool(self.nlist.overflow):
+                raise RuntimeError(_OVERFLOW)
             if every and step % every == 0 or remaining == 0:
                 self._emit()
             self._dump()

@@ -19,7 +19,13 @@ changes.  The subprocesses import torch and the port, never JAX:
   * pair_plain: the plain row form of tests/test_torch_pair_symmetric.py's
     first float64 case (ops/panel.pair_wolf_panel_plain on its _case());
   * dense_route: the same script as panel_step without LIDP_FAST_POLAR,
-    the dense route's first evaluation.
+    the dense route's first evaluation;
+  * cell_route: bench/in.lj (chip_smoke.LJ_SCRIPT) cut to 6 lattice cells
+    a side (864 atoms) above a dense cap set to 300, so on the cell grid
+    (3 x 3 x 3: its plain pair pass, no special bonds, no Ewald, no polar
+    term), `run 1`: the rows of steps 0 and 1 and the forces of step 1 (on
+    the lattice of step 0 they cancel to rounding, which another summation
+    order changes).
 
 The fault these processes look for is not located (ROADMAP queue 3 item
 1): in about 410 such processes it showed once, in one of about 270 of
@@ -80,6 +86,21 @@ np.savez(out, f=sim.res.f[:n].numpy(), mu=sim.sys.mu[:n].numpy(),
 assert "jax" not in sys.modules
 """
 
+_LJ = _PRELUDE + """\
+from lidp_tpu_torch.io.script import LammpsScript
+from lidp_tpu_torch.parallel import fast_polar
+fast_polar.DENSE_PATH_MAX_ATOMS = 300
+s = LammpsScript(dtype=torch.float64, device="cpu", log=lambda line: None)
+s.variables.update(x="0.3", y="0.3", z="0.3")
+s.file(sys.argv[2])
+sim = s._sim
+assert sim.runner.neighbor_cfg.nbins == (3, 3, 3) and sim.natoms == 864
+np.savez(out, f=sim.res.f.numpy(),
+         rows=np.array([[r[c] for c in ("pe", "ke", "press")]
+                        for r in s.thermo_rows]))
+assert "jax" not in sys.modules
+"""
+
 _PAIR = _PRELUDE + """\
 from lidp_tpu_torch.ops import panel
 c = np.load(sys.argv[2])
@@ -107,9 +128,12 @@ def inputs(tmp_path_factory):
              g_ewald=G_EWALD,
              **{k: c[k] for k in ("x", "q", "type", "mol", "mask", "tabs",
                                   "L", "sp")})
+    (d / "in.lj").write_text(
+        chip_smoke.LJ_SCRIPT.replace("run\t\t100", "run 1"))
     return {"panel_step": (_SCRIPT, in_fluid, {"LIDP_FAST_POLAR": "1"}),
             "pair_plain": (_PAIR, str(d / "pair_case.npz"), {}),
-            "dense_route": (_SCRIPT, in_fluid, {})}
+            "dense_route": (_SCRIPT, in_fluid, {}),
+            "cell_route": (_LJ, str(d / "in.lj"), {})}
 
 
 def _run(code, arg, env_extra, out, one_thread):
@@ -131,7 +155,7 @@ def _run(code, arg, env_extra, out, one_thread):
     "the float64 first-evaluation fault on several CPU threads is not "
     "located (ROADMAP queue 3 item 1): seen once in ~270 processes"))
 @pytest.mark.parametrize("case", ["panel_step", "pair_plain",
-                                  "dense_route"])
+                                  "dense_route", "cell_route"])
 def test_first_float64_evaluation_is_thread_independent(inputs, case,
                                                         tmp_path):
     code, arg, env = inputs[case]

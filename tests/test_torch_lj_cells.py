@@ -388,8 +388,11 @@ def test_atom_order_par_follows_the_box():
 
 
 def test_compute_forces_unported_routes_raise():
-    """Neighbour lists and a polar term on a cell grid raise; nlist=None is
-    the dense route (ported), which gives the cell route's result."""
+    """Neighbour lists and excl_mol on a cell grid raise; nlist=None is
+    the dense route (ported), which gives the cell route's result, with a
+    polar term too (the dense polar term after the cell pair term, ported
+    in the script's cell route; tests/test_torch_script_cells.py holds it
+    to JAX)."""
     _, ti, _ = _case(GRIDS["cubic"], np.float64)
     sys_t = make_system(ti["x"], box=ti["box"], device="cpu")
     ff = tff.ForceField(pair=ti["p"])
@@ -401,6 +404,18 @@ def test_compute_forces_unported_routes_raise():
         tff.compute_forces(sys_t, ff, object())
     from lidp_tpu_torch.ops.polarization import PolarizationSettings
 
-    with pytest.raises(NotImplementedError, match="panel engine"):
+    ffp = dataclasses.replace(
+        ff, polar=PolarizationSettings(),
+        pair=dataclasses.replace(ff.pair, cut_coulsq=4.0))
+    sys_p = sys_t.replace(alpha=torch.full_like(sys_t.q, 0.5),
+                          q=torch.linspace(-0.3, 0.3, sys_t.q.shape[0],
+                                           dtype=sys_t.q.dtype))
+    dense = tff.compute_forces(sys_p, ffp, None)
+    cells = tff.compute_forces(sys_p, ffp, ti["cells"])
+    assert float(dense.epol) != 0.0
+    for k in ("f", "evdwl", "epol", "mu", "virial"):
+        _close(getattr(dense, k), getattr(cells, k), np.float64, k)
+    with pytest.raises(NotImplementedError, match="excl_mol"):
         tff.compute_forces(sys_t, dataclasses.replace(
-            ff, polar=PolarizationSettings()), ti["cells"])
+            ff, pair=dataclasses.replace(ff.pair, excl_mol=True)),
+            ti["cells"])

@@ -28,8 +28,11 @@ the runner type on both sides.
     static_polarizability;
   * replicate 2 1 1 of the wrapped data gives JAX's x, image, mol, type;
   * an unported command, style or keyword raises NotImplementedError
-    naming a ROADMAP item; on the dense route, fix rigid/npt, and above a
-    mocked cap the box on which JAX runs the pair term on a cell grid;
+    naming a ROADMAP item; on the dense route, fix rigid/npt; above a
+    mocked cap, the fluid replicated 2 x 2 x 2 (new velocities by
+    position) runs on JAX's cell grid with the special correction, Ewald
+    and the dense polar term, its rows within rel 1e-8 of JAX's plus
+    chip_smoke.CANCEL_REL of what the correction cancels;
   * both CLIs as subprocesses (`-device cpu` on the port): with
     LIDP_FAST_POLAR=1 their logged rows agree at rel 1e-7 of max(1,
     |value|); without it (the dense route), logged at 16 digits by
@@ -244,14 +247,15 @@ def test_replicate_matches_jax(dirs):
     np.testing.assert_array_equal(ts._bonds, js._bonds)
 
 
-# compute temp and fix nvt are ported (tests/test_torch_thermostats.py):
+# compute temp and fix nvt are ported (tests/test_torch_thermostats.py),
+# region block and pair_style lj/cut too (tests/test_torch_script_cells.py):
 # their keys keep the test names and hold a style that still raises
 UNPORTED = {
-    "region": "region box block 0 1 0 1 0 1",
+    "region": "region s sphere 0 0 0 1",
     "compute": "compute p all pressure thermo_temp",
     "minimize": "minimize 1e-4 1e-6 10 100",
     "fix nvt": "fix 2 all npt temp 300 300 100 iso 1 1 1000",
-    "pair_style lj/cut": "pair_style lj/cut 2.5",
+    "pair_style lj/cut": "pair_style lj/cut/coul/cut 2.5",
     "kspace_style pppm": "kspace_style pppm 1e-4",
     "bond_style": "bond_style harmonic",
     "thermo keyword": "thermo_style custom step cpu",
@@ -288,21 +292,42 @@ def test_dense_route_special_codes_and_warning(runs):
 def test_small_system_without_fast_polar_raises(dirs):
     """Without LIDP_FAST_POLAR=1 the 375-atom fluid takes the dense route,
     and what the port cannot run there raises, naming its ROADMAP item:
-    the rigid barostat, fix rigid/npt (queue 1 item 6), and, above a cap
-    mocked to 300 atoms under LIDP_FAST_POLAR=0, a box (the fluid
-    replicated 2 x 2 x 2) on which the JAX package runs the pair term on a
-    cell grid with its sparse special-bond correction (item 5)."""
+    the rigid barostat, fix rigid/npt (queue 1 item 6).  Above a cap
+    mocked to 300 atoms under LIDP_FAST_POLAR=0, the fluid replicated 2 x
+    2 x 2 (3,000 atoms, a 4 x 4 x 4 grid; `velocity create ... loop geom`
+    so that no two atoms stay exactly half a box apart, where the dipole
+    tensor's minimum image has no one answer) takes the JAX package's cell
+    grid: the pair term on it, the sparse special-bond correction, Ewald
+    and the dense polar term, setup and one step, its rows within rel 1e-8
+    of max(1, |value|) of JAX's plus chip_smoke.CANCEL_REL of what the
+    correction cancels (chip_smoke.cancelled)."""
     text = _text("dense").replace(
         "fix 1 all rigid/nve molecule",
         "fix 1 all rigid/npt molecule temp 300 300 100 iso 1 1 1000")
     with pytest.raises(NotImplementedError, match="queue 1 item 6"):
         _run("torch", dirs[False], text, _env("dense"))
-    text = _text("dense").replace("read_data fluid.data\n",
-                                  "read_data fluid.data\nreplicate 2 2 2\n")
+    # new velocities by position: the replicas' copies of an atom then
+    # drift apart, where with equal velocities they stay half a box apart
+    # and minimum image picks either sign of such a pair's components
+    text = _text("dense").replace(
+        "read_data fluid.data\n", "read_data fluid.data\nreplicate 2 2 2\n"
+        "velocity all create 300.0 4928 loop geom\n")
     caps = _cap(ABOVE_CAP_N)
-    with caps[0], caps[1], \
-            pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        _run("torch", dirs[False], text, _env("above_cap"))
+    pair = []
+    with caps[0], caps[1]:
+        for pkg in ("jax", "torch"):
+            pair.append(_run(pkg, dirs[False], text, _env("above_cap"),
+                             nstep=1)[0])
+    js, ts = pair
+    for s in pair:
+        runner = s._sim.runner
+        assert type(runner).__name__ == "Runner"
+        assert tuple(runner.neighbor_cfg.nbins) == (4, 4, 4)
+        assert runner.ff.polar is not None and runner.ff.sp_idx is not None
+    assert not bool(ts._sim.nlist.overflow)
+    assert len(ts.thermo_rows) == len(js.thermo_rows) == 2
+    chip_smoke.rows_agree("above_cap_cells", ts.thermo_rows, js.thermo_rows,
+                          [1e-8, 1e-8], cancel=chip_smoke.cancelled(ts._sim))
 
 
 def _log_rows(path):

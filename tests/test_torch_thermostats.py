@@ -483,17 +483,30 @@ def test_builders_refuse_the_barostat(fluid):
 
 
 def test_above_the_cap_raises(fluid):
-    """Above the dense cap (mocked to 300 atoms) a thermostat keeps the
-    script off the panel engine, and on a box where the JAX package runs
-    the pair term on its cell grid (the fluid replicated 2 x 2 x 2) the
-    port raises, naming queue 1 item 5."""
+    """Above the dense cap (mocked to 300 atoms in both packages) a
+    thermostat keeps the script off the panel engine.  On a box of 3 cells
+    of the largest cutoff plus the skin a side (the fluid with `neighbor
+    0.1 bin`), where the port once raised, both packages run the JAX
+    package's cell grid: the pair term, the special correction, Ewald and
+    the dense polar term, under the ramped rigid/nvt; the port's rows
+    within rel 1e-8 of max(1, |value|) of JAX's plus chip_smoke.CANCEL_REL
+    of the magnitude the correction cancels (chip_smoke.cancelled)."""
+    from lidp_tpu import sim as jsim
     from lidp_tpu_torch.parallel import fast_polar as tfast
 
     text = _text("ramp").replace("read_data fluid.data\n",
-                                 "read_data fluid.data\nreplicate 2 2 2\n")
+                                 "read_data fluid.data\nneighbor 0.1 bin\n")
     with mock.patch.object(tfast, "DENSE_PATH_MAX_ATOMS", 300), \
-            pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        _run("torch", fluid, text, {})
+            mock.patch.object(jsim, "DENSE_PATH_MAX_ATOMS", 300):
+        js, ts = (_run(pkg, fluid, text, {}, nstep=2)
+                  for pkg in ("jax", "torch"))
+    for s in (js, ts):
+        assert tuple(s._sim.runner.neighbor_cfg.nbins) == (3, 3, 3)
+        assert s._sim.runner.ff.polar is not None
+    assert len(ts.thermo_rows) == len(js.thermo_rows) == 6
+    chip_smoke.rows_agree("ramp_cells", ts.thermo_rows, js.thermo_rows,
+                          [1e-8] * 6, cols=COLS,
+                          cancel=chip_smoke.cancelled(ts._sim))
 
 
 REFUSED_AS_IN_JAX = {
