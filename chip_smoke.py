@@ -225,10 +225,47 @@ Phases, each raising on failure:
         the dense polar term, 3 steps, no launch; its rows against the same
         input with LIDP_FAST_POLAR=1 (the panel engine) at rel 1e-9 plus
         CANCEL_REL of the cancelled magnitude;
-  7. one JSON line {"kernels": [...]} with each of the ten kernels'
-     launches (summed and by path, A-K, E-E4, L, L64, M, N, N-pol),
-     times, ms_queued and bound, then the nvidia-smi line, then the
-     device line last.
+  7. the mesh k-space and the barostats from a LAMMPS script
+     (barostat_paths), each path printing its route, its steps/s by its
+     Loop time line and its peak device memory; the CPU twins of O, R,
+     R-pppm and Q64 (CPU_TWIN) run beside them:
+     O. path I's input with `kspace_style pppm 1e-4`, 1,536 atoms, the
+        dense route, float64 at 1e-11, 5 steps: no launch, rows and
+        final x, v, mu against the CPU twin; PPPM's grid and g_ewald
+        beside ewald/disp's g_ewald and k-vector count; the phases
+        (`pppm` among them), the integrator and host reads;
+     R. path I's input with `fix 1 all rigid/npt molecule temp 300 300
+        100 iso 1 1 1000` and ewald/disp (rescale_coeffs at every call),
+        5 steps: no launch, every_step_ev, the volume moves, the CPU
+        twin, the integrator's ms and host reads a step (IntegratorTimer,
+        HostReads); R-pppm the same with pppm;
+     Q. bench/in.lj with `fix 1 all npt temp 1.44 1.44 0.5 iso
+        -5.0197073 -5.0197073 5.0` in place of fix nve (q_script), 32,000
+        atoms, through the CLI's main() with --f32, 100 steps, a row
+        every 10: cell_pair_forces_lj launched (under a box that moves
+        each step), slot_lj_forces not; the volume moves; step 0 at path
+        L's bars against the in.lj log (NPT leaves step 0 as it is); the
+        npt integrator's ms and host reads a step; the smallest box edge
+        over the run (BoxWatch) and its bin beside cut + skin;
+     Q64. the same input in float64 through LammpsScript, 20 steps: no
+        launch; Q's steps 10 and 20 within rel 2e-4 of Q64's in etotal,
+        pe and vol; the CPU twin;
+     P. the point-charge fluid (path N's, 10,125 atoms, neighbor 1.0 bin)
+        with pppm 1e-4 on the cell grid, float64: step 0 against
+        dense_forces as N is held (cells_step0_vs_dense); pppm_forces
+        against ewald_forces on tests/test_pppm.py's case on the card
+        (pppm_vs_ewald_case: elong rel 1e-4, f 1e-4 of max |f|); two
+        evaluations of pppm_forces on one state and whether they agree
+        bit for bit; then 5 steps, no launch, no overflow, PPPM's ms a
+        call by CUDA events;
+     P100. the same fluid at n_side 32 (98,304 atoms, L = 128 A), 3
+        steps: one ewald_forces evaluation on the step-0 state at PPPM's
+        g_ewald (its ms, k-vector count and elong beside PPPM's), PPPM's
+        ms a call;
+  8. one JSON line {"kernels": [...]} with each of the ten kernels'
+     launches (summed and by path, A-K, E-E4, L, L64, M, N, N-pol, O, R,
+     R-pppm, Q, Q64, P, P100), times, ms_queued and bound, then the
+     nvidia-smi line, then the device line last.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.
@@ -259,6 +296,12 @@ JCAP_SIDE, JCAP_STEPS = 11, 3   # path J-cap: 3,993 atoms
 M_STEPS = 100            # path M: in.melt's run cut from 250
 N_SIDE, N_STEPS = 15, 5  # path N: 10,125 atoms on the cell grid
 NPOL_SIDE, NPOL_STEPS = 12, 3   # path N-pol: 5,184 atoms
+O_SIDE, O_STEPS = 8, 5   # path O: path I's input with pppm
+P_SIDE, P_STEPS = 15, 5  # path P: path N's fluid with pppm
+P100_SIDE, P100_STEPS = 32, 3   # path P100: 98,304 atoms, L = 128 A
+Q_STEPS, Q_EVERY = 100, 10      # path Q: bench/in.lj under fix npt
+Q64_STEPS = 20           # path Q64: the same in float64
+R_SIDE, R_STEPS = 8, 5   # paths R and R-pppm: path I's input, rigid/npt
 # the skin of paths N and N-pol: at real units' default 2.0 the fluid's 4 A
 # lattice fills the 7^3 grid's cells unevenly (57 atoms in a cell of cap
 # 56 at n_side 15) and the run aborts, as path N's first run shows
@@ -1430,6 +1473,7 @@ def rows_agree(path, rows, ref, rels, cols=G64_COLS, cancel=None):
 # events around the module function it calls
 DENSE_PHASES = (("pair", "pair", "dense_pair_forces"),
                 ("ewald", "ewald", "ewald_forces"),
+                ("pppm", "pppm", "pppm_forces_params"),
                 ("field", "polarization", "static_field_wolf"),
                 ("T build", "polarization", "dipole_field_tensor"),
                 ("solve", "polarization", "scf_solve"),
@@ -1547,7 +1591,8 @@ def check_rows_finite(path, rows, ncols=G64_COLS):
 LOG_COLS = {"Step": "step", "TotEng": "etotal", "KinEng": "ke",
             "PotEng": "pe", "E_vdwl": "evdwl", "E_coul": "ecoul",
             "E_long": "elong", "E_pol": "epol", "Temp": "temp",
-            "Press": "press", "E_pair": "epair", "E_mol": "emol"}
+            "Press": "press", "E_pair": "epair", "E_mol": "emol",
+            "Volume": "vol", "Lx": "lx", "Ly": "ly", "Lz": "lz"}
 
 
 def log_rows(lines):
@@ -2357,29 +2402,82 @@ def script_peak(tag, log, steps, peak):
     return rate
 
 
+def script_route(script):
+    """The route a script's Simulation takes: the dense route, or the
+    cell grid with its pair route."""
+    from lidp_tpu_torch.forcefield import pair_route
+
+    sim = script._sim
+    cfg = sim.runner.neighbor_cfg
+    if cfg is None:
+        return "dense route (Runner, nlist None)"
+    return (f"cell grid {cfg.nbins} x cap {cfg.cap} (cutneigh "
+            f"{cfg.cutneigh:g}, rebuild every {sim.runner.rebuild_every}, "
+            f"check {sim.runner.check}), pair route "
+            f"{pair_route(sim.sys, sim.runner.ff, sim.nlist.nlist)}")
+
+
+def cells_step0_vs_dense(path, script, n):
+    """Step 0 of a script on the cell grid (its Simulation set up) against
+    dense_forces on the same state and force field, the special codes
+    built directly in place of the special lists: f, virial and energies
+    within rel 1e-9 of max(1, |value|) plus CANCEL_REL of the magnitude
+    the correction cancels."""
+    import torch
+
+    from lidp_tpu_torch import topology
+    from lidp_tpu_torch.forcefield import dense_forces
+    from lidp_tpu_torch.ops.bonded import special_correction_sparse
+
+    sim = script._sim
+    ff_d = dataclasses.replace(
+        sim.runner.ff, sp_idx=None, sp_lvl=None,
+        sp_code=torch.as_tensor(topology.special_codes_dense(
+            n, script._bonds), device=sim.sys.x.device))
+    ref = dense_forces(sim.sys, ff_d)
+    cancel = cancelled(sim)
+    res = sim.res
+    worst = 0.0
+    for k in ("evdwl", "ecoul", "elong"):
+        a, b = float(getattr(res, k)), float(getattr(ref, k))
+        bar = 1e-9 * max(1.0, abs(b)) + CANCEL_REL * cancel.get(k, 0.0)
+        worst = max(worst, abs(a - b) / bar)
+        if not abs(a - b) <= bar:
+            raise AssertionError(f"path {path} step 0 {k}: {a!r}, dense "
+                                 f"{b!r}")
+    s_ = sim.sys
+    fc, _, _, dvir = special_correction_sparse(
+        s_.x, s_.q, s_.type, sim.runner.ff.sp_idx, sim.runner.ff.sp_lvl,
+        s_.mask, s_.box, sim.runner.ff.pair)
+    for k, a, b, c in (("f", res.f, ref.f, fc.abs().max()),
+                       ("virial", res.virial, ref.virial,
+                        dvir.abs().max())):
+        bar = 1e-9 * b.abs().clamp(min=1.0) + CANCEL_REL * float(c)
+        ratio = float(((a - b).abs() / bar).max())
+        worst = max(worst, ratio)
+        if not ratio <= 1.0:
+            raise AssertionError(f"path {path} step 0 {k} vs dense_forces: "
+                                 f"{ratio:.3g} of the bar")
+    print(f"path {path} step 0 vs dense_forces with special_codes_dense: f, "
+          f"virial and energies at {worst:.3g} of their bar (rel 1e-9 of "
+          f"max(1, |value|) + {CANCEL_REL:g} of the magnitude the "
+          f"correction cancels: E_vdwl {cancel['evdwl']:.4g}, max |f| "
+          f"{float(fc.abs().max()):.4g})")
+
+
 def script_cell_paths(launches, reset_counts, read_counts, steps_per_s_F):
     """Paths L, L64, M, N and N-pol: the atomic inputs and the cell grid
     from a LAMMPS script (module docstring).  Each sets launches[path]."""
     import torch
 
-    from lidp_tpu_torch import topology
     from lidp_tpu_torch.__main__ import main as cli
-    from lidp_tpu_torch.forcefield import dense_forces, pair_route
     from lidp_tpu_torch.io.script import LammpsScript
+
+    route = script_route
 
     def fresh():
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-
-    def route(script):
-        sim = script._sim
-        cfg = sim.runner.neighbor_cfg
-        if cfg is None:
-            return "dense route (Runner, nlist None)"
-        return (f"cell grid {cfg.nbins} x cap {cfg.cap} (cutneigh "
-                f"{cfg.cutneigh:g}, rebuild every {sim.runner.rebuild_every}"
-                f", check {sim.runner.check}), pair route "
-                f"{pair_route(sim.sys, sim.runner.ff, sim.nlist.nlist)}")
 
     def check_row(tag, row, bars, absolute=False):
         for k, (want, bar) in bars.items():
@@ -2527,42 +2625,7 @@ def script_cell_paths(launches, reset_counts, read_counts, steps_per_s_F):
               f"float64: {route(script)}")
         if sim.runner.neighbor_cfg is None or sim.runner.ff.sp_idx is None:
             raise AssertionError("path N: not on the cell grid")
-        # step 0 against dense_forces on the same state, the special codes
-        # built directly
-        ff_d = dataclasses.replace(
-            sim.runner.ff, sp_idx=None, sp_lvl=None,
-            sp_code=torch.as_tensor(topology.special_codes_dense(
-                n, script._bonds), device=sim.sys.x.device))
-        ref = dense_forces(sim.sys, ff_d)
-        cancel = cancelled(sim)
-        res = sim.res
-        worst = 0.0
-        for k in ("evdwl", "ecoul", "elong"):
-            a, b = float(getattr(res, k)), float(getattr(ref, k))
-            bar = 1e-9 * max(1.0, abs(b)) + CANCEL_REL * cancel.get(k, 0.0)
-            worst = max(worst, abs(a - b) / bar)
-            if not abs(a - b) <= bar:
-                raise AssertionError(f"path N step 0 {k}: {a!r}, dense {b!r}")
-        from lidp_tpu_torch.ops.bonded import special_correction_sparse
-        s_ = sim.sys
-        fc, _, _, dvir = special_correction_sparse(
-            s_.x, s_.q, s_.type, sim.runner.ff.sp_idx, sim.runner.ff.sp_lvl,
-            s_.mask, s_.box, sim.runner.ff.pair)
-        for k, a, b, c in (("f", res.f, ref.f, fc.abs().max()),
-                           ("virial", res.virial, ref.virial,
-                            dvir.abs().max())):
-            bar = 1e-9 * b.abs().clamp(min=1.0) + CANCEL_REL * float(c)
-            ratio = float(((a - b).abs() / bar).max())
-            worst = max(worst, ratio)
-            if not ratio <= 1.0:
-                raise AssertionError(f"path N step 0 {k} vs dense_forces: "
-                                     f"{ratio:.3g} of the bar")
-        print(f"path N step 0 vs dense_forces with special_codes_dense: f, "
-              f"virial and energies at {worst:.3g} of their bar (rel 1e-9 "
-              f"of max(1, |value|) + {CANCEL_REL:g} of the magnitude the "
-              f"correction cancels: E_vdwl {cancel['evdwl']:.4g}, max |f| "
-              f"{float(fc.abs().max()):.4g})")
-        del ref, ff_d, fc
+        cells_step0_vs_dense("N", script, n)
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         script.execute([f"run {N_STEPS}"])
@@ -2657,8 +2720,11 @@ class HostReads:
 INTEGRATOR_HALVES = (("rigid", "initial_integrate"),
                      ("rigid", "final_integrate"),
                      ("nvt", "initial_integrate"),
-                     ("nvt", "final_integrate"))
-CHAIN_UPDATES = (("rigid", "_nhc_integrate"), ("nvt", "_nhc"))
+                     ("nvt", "final_integrate"),
+                     ("npt", "initial_integrate"),
+                     ("npt", "final_integrate"))
+CHAIN_UPDATES = (("rigid", "_nhc_integrate"), ("rigid", "_nhc_press_rigid"),
+                 ("nvt", "_nhc"))
 
 
 class IntegratorTimer:
@@ -2800,7 +2866,9 @@ def check_cpu_twin(path, proc, out, state, cols):
         got, want = final[name], twin[name]
         big = float(np.abs(want).max())
         err = float(np.abs(got - want).max())
-        worst_arr = max(worst_arr, err / (1e-8 * big))
+        # an array of zeros (an atomic input's mu) must stay zeros
+        worst_arr = max(worst_arr, err / (1e-8 * big) if big
+                        else (0.0 if err == 0.0 else math.inf))
         if not err <= 1e-8 * big:
             raise AssertionError(f"path {path} final {name}: max abs err "
                                  f"{err:.3e} above 1e-8 of {big:.3e}")
@@ -2971,6 +3039,378 @@ def thermostat_paths(launches, reset_counts, read_counts, rowsI):
         torch.cuda.empty_cache()
     finally:
         shutil.rmtree(work, ignore_errors=True)
+
+# the barostat paths' edits of FLUID_SCRIPT and LJ_SCRIPT
+RIGID_NPT = "rigid/npt molecule temp 300 300 100 iso 1 1 1000"
+LJ_NPT = "npt temp 1.44 1.44 0.5 iso -5.0197073 -5.0197073 5.0"
+
+
+def kspace_script(text, kspace):
+    return text.replace("kspace_style ewald/disp 1e-4",
+                        f"kspace_style {kspace}")
+
+
+def q_script(steps, every):
+    """bench/in.lj with fix npt in place of fix nve, a row every `every`
+    steps with the box's volume and edge, `run steps`."""
+    return LJ_SCRIPT.replace("fix\t\t1 all nve", f"fix\t\t1 all {LJ_NPT}") \
+        .replace("run\t\t100", f"thermo {every}\nthermo_style custom step "
+                 f"temp epair emol etotal press pe vol lx\nrun {steps}")
+
+
+class BoxWatch:
+    """Within `with BoxWatch():` the box lengths after every barostat
+    remap (integrate/npt._remap) are kept on the device; `smallest()`
+    reads their least entry once."""
+
+    def __enter__(self):
+        from lidp_tpu_torch.integrate import npt
+
+        self.lengths = []
+        self._fn = npt._remap
+
+        def wrapped(*a, **kw):
+            sys_, st = self._fn(*a, **kw)
+            self.lengths.append(sys_.box.lengths.min())
+            return sys_, st
+        npt._remap = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        from lidp_tpu_torch.integrate import npt
+
+        npt._remap = self._fn
+        return False
+
+    def smallest(self):
+        import torch
+
+        return float(torch.stack(self.lengths).min())
+
+
+def pppm_vs_ewald_case():
+    """tests/test_pppm.py's random case on the card (40 charges in a 12 A
+    box, accuracy 1e-6): PPPM at the Ewald setup's g_ewald against the
+    port's ewald_forces; elong rel 1e-4, f 1e-4 of max |f|."""
+    import numpy as np
+    import torch
+
+    from lidp_tpu_torch.ops import ewald, pppm
+
+    rs = np.random.RandomState(3)
+    L, n = 12.0, 40
+    x = rs.uniform(0, L, (n, 3))
+    q = rs.normal(size=n)
+    q -= q.mean()
+    es = ewald.setup_ewald_disp(accuracy_rel=1e-6, qqrd2e=1.0, q=q,
+                                natoms=n, cutoff=5.0, box_lengths=[L] * 3)
+    ew = ewald.EwaldParams.from_setup(es, 1.0, device="cuda")
+    xt = torch.as_tensor(x, device="cuda")
+    qt = torch.as_tensor(q, device="cuda")
+    fe, ee, _ = ewald.ewald_forces(xt, qt, torch.tensor(L ** 3), ew)
+    ps = pppm.setup_pppm(accuracy_rel=1e-6, qqrd2e=1.0, q=q, natoms=n,
+                         cutoff=5.0, box_lengths=[L] * 3, g_ewald=es.g_ewald)
+    fp, ep, _ = pppm.pppm_forces(xt, qt, torch.full((3,), L,
+                                                    dtype=torch.float64,
+                                                    device="cuda"),
+                                 ps, 1.0, float((q ** 2).sum()),
+                                 float(q.sum()))
+    rel_e = abs(float(ep) - float(ee)) / abs(float(ee))
+    rel_f = float((fp - fe).abs().max() / fe.abs().max())
+    print(f"path P: pppm_forces against ewald_forces on tests/test_pppm.py's "
+          f"case (grid {ps.grid}, g_ewald {es.g_ewald:.6g}, {len(es.hvecs)} "
+          f"k-vectors), float64 on the card: elong {float(ep)!r} against "
+          f"{float(ee)!r} (rel {rel_e:.3e}, bar 1e-4), f at {rel_f:.3e} of "
+          f"max |f| (bar 1e-4)")
+    if not (rel_e <= 1e-4 and rel_f <= 1e-4):
+        raise AssertionError("path P: pppm_forces against ewald_forces")
+
+
+def kspace_ms(sim):
+    """One call of the k-space term on sim's state, by CUDA events after a
+    warm-up: (ms, (f, elong, virial))."""
+    from lidp_tpu_torch.ops.pppm import pppm_forces_params
+
+    s_, ff = sim.sys, sim.runner.ff
+
+    def call():
+        return pppm_forces_params(s_.x - s_.box.lo, s_.q, s_.box.lengths,
+                                  ff.pppm)
+    return cuda_ms(call, reps=3, warmup=1), call()
+
+
+def barostat_paths(launches, reset_counts, read_counts):
+    """Paths O, P, P100, Q, Q64, R and R-pppm: the mesh k-space and the
+    barostats from a LAMMPS script (module docstring).  Each sets
+    launches[path]."""
+    import torch
+
+    from lidp_tpu_torch.__main__ import main as cli
+    from lidp_tpu_torch.io.script import LammpsScript
+    from lidp_tpu_torch.ops import ewald
+    from lidp_tpu_torch.ops.pppm import setup_pppm
+
+    def fresh():
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+    def f64_script(text_path, nstep, log):
+        script = LammpsScript(dtype=torch.float64, log=log.append)
+        script.variables["nstep"] = str(nstep)
+        script.file(text_path)
+        return script
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_")
+    twins = {}
+    try:
+        # the inputs of O, R, R-pppm (path I's fluid) and Q64, and their
+        # CPU twins, which run beside the card's paths
+        fluid_script_case(work, n_side=O_SIDE)
+        n = O_SIDE ** 3 * 3
+        rigid = FLUID_SCRIPT.replace("fix 1 all rigid/nve molecule",
+                                     f"fix 1 all {RIGID_NPT}")
+        inputs = {"O": kspace_script(FLUID_SCRIPT, "pppm 1e-4"),
+                  "R": rigid, "R-pppm": kspace_script(rigid, "pppm 1e-4"),
+                  "Q64": q_script("${nstep}", Q_EVERY)}
+        for kind, text in inputs.items():
+            with open(os.path.join(work, f"in.{kind}"), "w") as fh:
+                fh.write(text)
+        for kind in inputs:
+            out = os.path.join(work, f"twin_{kind}.npz")
+            steps = Q64_STEPS if kind == "Q64" else O_STEPS
+            twins[kind] = (start_cpu_twin(work, f"in.{kind}", steps, out),
+                           out)
+
+        # path O: path I's input with kspace_style pppm, the dense route
+        reset_counts()
+        scriptO, logO, _, peakO = dense_run(os.path.join(work, "in.O"),
+                                            O_STEPS)
+        launches["O"] = read_counts()
+        check_counts("O", launches["O"], {})
+        check_dense_runner("O", scriptO, n)
+        check_rows_finite("O", scriptO.thermo_rows)
+        sim = scriptO._sim
+        pp = sim.runner.ff.pppm
+        es = ewald.setup_ewald_disp(
+            accuracy_rel=1e-4, qqrd2e=scriptO.units.qqr2e, q=scriptO.q,
+            natoms=n, cutoff=scriptO.pair.cut_coul,
+            box_lengths=scriptO.box_hi - scriptO.box_lo)
+        print(f"path O: {n} atoms, `kspace_style pppm 1e-4` in path I's "
+              f"input, float64, precision 1e-11, {O_STEPS} steps: "
+              f"{script_route(scriptO)}; PPPM grid {pp.grid} order "
+              f"{pp.order}, g_ewald {pp.g_ewald!r}, beside ewald/disp's "
+              f"g_ewald {es.g_ewald!r} and {len(es.hvecs)} k-vectors on the "
+              f"same script; its log:")
+        stateO = run_state(scriptO)
+        thermostat_readings("O", scriptO, logO, O_STEPS, peakO)
+        del scriptO, sim
+        fresh()
+
+        # path R: rigid/npt with ewald/disp (rescale_coeffs every call);
+        # R-pppm: the same with pppm
+        stateR = {}
+        for kind in ("R", "R-pppm"):
+            reset_counts()
+            scriptR, logR, _, peakR = dense_run(
+                os.path.join(work, f"in.{kind}"), R_STEPS)
+            launches[kind] = read_counts()
+            check_counts(kind, launches[kind], {})
+            check_dense_runner(kind, scriptR, n)
+            check_rows_finite(kind, scriptR.thermo_rows)
+            ff = scriptR._sim.runner.ff
+            if not scriptR._sim.runner.every_step_ev or (
+                    kind == "R" and not ff.kspace_dynamic) or (
+                    kind == "R-pppm" and ff.pppm is None):
+                raise AssertionError(f"path {kind}: not the barostat's "
+                                     f"route ({ff.kspace_dynamic}, "
+                                     f"{ff.pppm})")
+            vols = [r["vol"] for r in scriptR.thermo_rows]
+            if len(set(vols)) != len(vols):
+                raise AssertionError(f"path {kind}: the volume did not move "
+                                     f"({vols})")
+            print(f"path {kind}: {n} atoms, `fix 1 all {RIGID_NPT}`, "
+                  f"{'pppm' if ff.pppm else 'ewald/disp'} 1e-4, float64, "
+                  f"precision 1e-11, {R_STEPS} steps: {script_route(scriptR)}"
+                  f"; volume {vols[0]!r} -> {vols[-1]!r}; its log:")
+            stateR[kind] = run_state(scriptR)
+            thermostat_readings(kind, scriptR, logR, R_STEPS, peakR)
+            del scriptR, ff
+            fresh()
+
+        # path Q: bench/in.lj under fix npt through the CLI, float32
+        in_q = os.path.join(work, "in.Q")
+        with open(in_q, "w") as fh:
+            fh.write(q_script(Q_STEPS, Q_EVERY))
+        log_q = os.path.join(work, "log.Q")
+        fresh()
+        reset_counts()
+        with HostReads() as reads, IntegratorTimer(reads) as integ, \
+                BoxWatch() as watch:
+            cli(["-in", in_q, "-log", log_q, "--f32"])
+            ims, ihost, ireads, _ = integ.per_step(Q_STEPS)
+            nreads = reads.count() / Q_STEPS
+        launches["Q"] = read_counts()
+        peakQ = torch.cuda.max_memory_allocated()
+        with open(log_q) as fh:
+            logQ = fh.read().splitlines()
+        rowsQ = log_rows(logQ)
+        print(f"path Q: `python -m lidp_tpu_torch -in in.Q --f32` (bench/"
+              f"in.lj, `fix 1 all {LJ_NPT}` in place of fix nve, a row every "
+              f"{Q_EVERY}), {len(rowsQ)} rows:")
+        for line in logQ:
+            print(f"  Q| {line}")
+        if [int(r["step"]) for r in rowsQ] != list(range(0, Q_STEPS + 1,
+                                                         Q_EVERY)):
+            raise AssertionError(f"path Q: rows {rowsQ}")
+        if not (launches["Q"]["cell_pair_forces_lj"] > 0
+                and launches["Q"]["slot_lj_forces"] == 0):
+            raise AssertionError(f"path Q launches {launches['Q']}")
+        print(f"path Q launches: {launches['Q']} (cell_pair_forces_lj "
+              f"{launches['Q']['cell_pair_forces_lj']}, under a box that "
+              f"moves each step)")
+        vols = [r["vol"] for r in rowsQ]
+        if len(set(vols)) != len(vols):
+            raise AssertionError(f"path Q: the volume did not move ({vols})")
+        for k, (want, bar) in LJ_LOG0.items():
+            got = rowsQ[0][k]
+            err = abs(got - want) / abs(want)
+            print(f"path Q step 0 {k}: {got!r} against the in.lj log's "
+                  f"{want!r} (rel {err:.2e}, bar {bar:g})")
+            if not err <= bar:
+                raise AssertionError(f"path Q step 0 {k}: {got!r}")
+        smallest = watch.smallest()
+        print(f"path Q: box volume {vols[0]!r} -> {vols[-1]!r}; integrator "
+              f"(npt) {ims:.4f} ms a step by CUDA events ({ihost:.4f} ms of "
+              f"host clock), its host reads a step {ireads:g}; host reads a "
+              f"step in all {nreads:g} (the rows' reads included)")
+        script_peak("Q", logQ, Q_STEPS, peakQ)
+
+        # path Q64: the same input in float64, LammpsScript, 20 steps
+        logs = []
+        fresh()
+        reset_counts()
+        scriptQ = f64_script(os.path.join(work, "in.Q64"), Q64_STEPS, logs)
+        launches["Q64"] = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        check_counts("Q64", launches["Q64"], {})
+        print(f"path Q64: in.Q in float64 through LammpsScript, {Q64_STEPS} "
+              f"steps: {script_route(scriptQ)}; its log:")
+        for line in logs:
+            print(f"  Q64| {line}")
+        rows64 = scriptQ.thermo_rows
+        for step in (10, 20):
+            r32 = next(r for r in rowsQ if int(r["step"]) == step)
+            r64 = next(r for r in rows64 if int(r["step"]) == step)
+            for c in ("etotal", "pe", "vol"):
+                check_rel(f"path Q step {step} {c} vs Q64", r32[c], r64[c],
+                          2e-4)
+        stateQ = run_state(scriptQ)
+        cfg = scriptQ._sim.runner.neighbor_cfg
+        print(f"path Q: the smallest box edge over its run {smallest!r}, so "
+              f"its smallest bin {smallest / max(cfg.nbins)!r} on the "
+              f"{cfg.nbins} grid fixed at setup, beside cut + skin "
+              f"{cfg.cutneigh:g}")
+        script_peak("Q64", logs, Q64_STEPS, peak)
+        del scriptQ
+        fresh()
+
+        cols = G64_COLS + ("vol",)
+        for kind, state in (("O", stateO), ("R", stateR["R"]),
+                            ("R-pppm", stateR["R-pppm"]), ("Q64", stateQ)):
+            proc, out = twins.pop(kind)
+            check_cpu_twin(kind, proc, out, state,
+                           ("temp", "epair", "etotal", "press", "pe", "vol")
+                           if kind == "Q64" else cols)
+    finally:
+        for proc, _ in twins.values():
+            proc.kill()
+            proc.communicate()
+        shutil.rmtree(work, ignore_errors=True)
+
+    # paths P and P100: the point-charge fluid with pppm on the cell grid
+    for tag, side, steps in (("P", P_SIDE, P_STEPS),
+                             ("P100", P100_SIDE, P100_STEPS)):
+        work = tempfile.mkdtemp(prefix="chip_smoke_")
+        try:
+            fluid_script_case(work, n_side=side)
+            n = side ** 3 * 3
+            with open(os.path.join(work, "in.pc"), "w") as fh:
+                fh.write(kspace_script(point_charge_script(), "pppm 1e-4")
+                         .replace("read_data fluid.data\n",
+                                  "read_data fluid.data\nneighbor "
+                                  f"{CELL_SKIN} bin\n"))
+            logs = []
+            fresh()
+            reset_counts()
+            script = f64_script(os.path.join(work, "in.pc"), 0, logs)
+            sim = script._sim
+            pp = sim.runner.ff.pppm
+            print(f"path {tag}: the point-charge fluid ({n} atoms, L "
+                  f"{float(sim.sys.box.lengths[0]):g} A, pppm 1e-4, "
+                  f"rigid/nve, neighbor {CELL_SKIN}), float64: "
+                  f"{script_route(script)}; PPPM grid {pp.grid}, g_ewald "
+                  f"{pp.g_ewald!r}")
+            if sim.runner.neighbor_cfg is None or pp is None:
+                raise AssertionError(f"path {tag}: not the cell grid's pppm")
+            ms_mesh, (f1, e1, v1) = kspace_ms(sim)
+            if tag == "P":
+                cells_step0_vs_dense("P", script, n)
+                pppm_vs_ewald_case()
+                _, (f2, e2, v2) = kspace_ms(sim)
+                diff = max(float((f1 - f2).abs().max()),
+                           abs(float(e1) - float(e2)),
+                           float((v1 - v2).abs().max()))
+                print(f"path P: two evaluations of pppm_forces on one state "
+                      f"differ by at most {diff!r} (f, elong, virial): the "
+                      f"spread (index_add_, float atomics) is "
+                      f"{'' if diff == 0.0 else 'not '}bit-reproducible on "
+                      f"the card")
+            else:
+                # one Ewald evaluation on the step-0 state at PPPM's g_ewald
+                es = ewald.setup_ewald_disp(
+                    accuracy_rel=1e-4, qqrd2e=script.units.qqr2e,
+                    q=script.q, natoms=n, cutoff=script.pair.cut_coul,
+                    box_lengths=script.box_hi - script.box_lo,
+                    g_ewald=pp.g_ewald)
+                ew = ewald.EwaldParams.from_setup(es, script.units.qqr2e,
+                                                  device="cuda")
+                s_ = sim.sys
+                ms_ew = cuda_ms(lambda: ewald.ewald_forces(
+                    s_.x, s_.q, s_.box.volume, ew), reps=1, warmup=1)
+                _, e_ew, _ = ewald.ewald_forces(s_.x, s_.q, s_.box.volume,
+                                                ew)
+                print(f"path P100: one ewald_forces evaluation on the "
+                      f"step-0 state at PPPM's g_ewald: {ms_ew:.3f} ms, "
+                      f"{len(es.hvecs)} k-vectors, elong {float(e_ew)!r} "
+                      f"beside PPPM's {float(e1)!r} (rel "
+                      f"{abs(float(e1) - float(e_ew)) / abs(float(e_ew)):.3e}"
+                      f"); PPPM {ms_mesh:.3f} ms a call ({smi_line()})")
+                del ew
+            del f1, v1
+            fresh()
+            with DensePhases() as ph:
+                script.execute([f"run {steps}"])
+                phases = ph.ms(1)
+                calls = sum(1 for label, _, _ in ph.events
+                            if label == "pppm")
+            launches[tag] = read_counts()
+            peak = torch.cuda.max_memory_allocated()
+            check_counts(tag, launches[tag], {})
+            rows = script.thermo_rows
+            check_rows_finite(tag, rows)
+            if bool(script._sim.nlist.overflow):
+                raise AssertionError(f"path {tag}: a cell overflowed")
+            for line in logs:
+                print(f"  {tag}| {line}")
+            print(f"path {tag}: PPPM {phases['pppm'] / calls:.4f} ms a "
+                  f"force call by CUDA events over the run ({calls} calls: "
+                  f"a step's and the row's re-tally; {ms_mesh:.4f} ms a call "
+                  f"alone on step 0's state)")
+            script_peak(tag, logs, steps, peak)
+            del script, sim
+            fresh()
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
 
 
 def main() -> int:
@@ -3794,6 +4234,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     script_cell_paths(launches, reset_counts, read_counts, steps_per_s_F)
+    barostat_paths(launches, reset_counts, read_counts)
 
     # 6. results
     total = {name: sum(launches[p][name] for p in launches)

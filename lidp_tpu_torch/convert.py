@@ -1,8 +1,8 @@
 """Carry force-field tables and state across from the JAX package.
 
 The caller hands over the fields of lidp_tpu's dataclasses (PairParams,
-EwaldParams, PolarizationSettings, System, Cells, SlotCarry, RigidSetup,
-RigidState, NVTState) as numpy arrays or scalars, e.g.
+EwaldParams, PPPMParams, PolarizationSettings, System, Cells, SlotCarry,
+RigidSetup, RigidState, NVTState, NPTState) as numpy arrays or scalars, e.g.
 `{f.name: np.asarray(getattr(p, f.name)) for f in dataclasses.fields(p)}`,
 so both packages compute from the same tables and the same state.  Nothing
 here imports JAX.
@@ -17,6 +17,7 @@ import torch
 
 from lidp_tpu_torch.box import Box
 from lidp_tpu_torch.forcefield import ForceField
+from lidp_tpu_torch.integrate.npt import NPTState
 from lidp_tpu_torch.integrate.nvt import NVTState
 from lidp_tpu_torch.integrate.rigid import (RigidSetup, RigidState,
                                             chain_dtype)
@@ -25,6 +26,7 @@ from lidp_tpu_torch.ops.cells import Cells
 from lidp_tpu_torch.ops.ewald import EwaldParams
 from lidp_tpu_torch.ops.pair import PairParams
 from lidp_tpu_torch.ops.polarization import PolarizationSettings
+from lidp_tpu_torch.ops.pppm import PPPMParams
 from lidp_tpu_torch.state import System
 
 
@@ -36,16 +38,24 @@ def _scalar(v):
     return a.item() if a.ndim == 0 else a
 
 
+def _given(d: dict, k):
+    """d[k], None where it is absent or None (np.asarray(None) included)."""
+    v = d.get(k)
+    if isinstance(v, np.ndarray) and v.dtype == object and v.ndim == 0:
+        v = v.item()
+    return v
+
+
 # pair fields the port cannot express, with the only value it accepts
-_PAIR_ONLY = dict(charmm=False, charmm_fsw=False, kind="lj", excl=None,
-                  lj5=None, tab_e=None)
+_PAIR_ONLY = dict(charmm=False, charmm_fsw=False, kind="lj", lj5=None,
+                  tab_e=None)
 
 
 def pair_from_numpy(pair: dict, device="cuda",
                     dtype=torch.float32) -> PairParams:
     """The port's PairParams from a numpy copy of the JAX one: lj/cut
-    (coul=False) or lj/cut/coul/long, with excl_mol.  A table that asks
-    for another form raises."""
+    (coul=False) or lj/cut/coul/long, with excl_mol and the type exclusion
+    table excl.  A table that asks for another form raises."""
     from lidp_tpu_torch import resolve_device
 
     device = resolve_device(device)
@@ -66,7 +76,9 @@ def pair_from_numpy(pair: dict, device="cuda",
         cut_coulsq=float(_scalar(pair["cut_coulsq"])),
         qqrd2e=float(_scalar(pair["qqrd2e"])),
         g_ewald=float(_scalar(pair["g_ewald"])), coul=coul,
-        excl_mol=bool(_scalar(pair.get("excl_mol", False))))
+        excl_mol=bool(_scalar(pair.get("excl_mol", False))),
+        excl=(None if _given(pair, "excl") is None else torch.as_tensor(
+            np.array(pair["excl"]), dtype=torch.bool, device=device)))
 
 
 def forcefield_from_numpy(pair: dict, ewald: dict, polar: dict, qqrd2e,
@@ -89,6 +101,8 @@ def forcefield_from_numpy(pair: dict, ewald: dict, polar: dict, qqrd2e,
         ew = EwaldParams(
             hvecs=t(ewald["hvecs"]), kcoeff=t(ewald["kcoeff"]),
             kvirial=t(ewald["kvirial"]),
+            kints=(None if _given(ewald, "kints") is None
+                   else t(ewald["kints"])),
             **{k: float(_scalar(ewald[k]))
                for k in ("g_ewald", "qscale", "qsum", "qsqsum")})
     s = None
@@ -182,20 +196,46 @@ def rigid_setup_from_numpy(setup: dict) -> RigidSetup:
 
 def rigid_state_from_numpy(state: dict, device="cuda") -> RigidState:
     """The port's RigidState from numpy copies of the JAX RigidState's
-    fields (rigid/nve and rigid/nvt: the barostat fields are not read).
-    The tensors keep the dtype of xcm; the chain velocities eta_dot_t and
-    eta_dot_r stay host arrays of that dtype."""
+    fields, the barostat's where they are not None.  The tensors keep the
+    dtype of xcm; the chain velocities eta_dot_t, eta_dot_r and eta_dot_b
+    stay host arrays of that dtype."""
     from lidp_tpu_torch import resolve_device
 
     device = resolve_device(device)
     dtype = _np_dtype(state["xcm"])
-    chains = ("eta_dot_t", "eta_dot_r")
+    chains = ("eta_dot_t", "eta_dot_r", "eta_dot_b")
     out = {f.name: torch.as_tensor(np.array(state[f.name]), dtype=dtype,
                                    device=device)
-           for f in dataclasses.fields(RigidState) if f.name not in chains}
+           for f in dataclasses.fields(RigidState)
+           if f.name not in chains and _given(state, f.name) is not None}
     return RigidState(**out, **{
         k: np.array(state[k], dtype=np.asarray(state["xcm"]).dtype)
-        for k in chains})
+        for k in chains if _given(state, k) is not None})
+
+
+def pppm_from_numpy(pppm: dict) -> PPPMParams:
+    """The port's PPPMParams from a numpy copy of the JAX one (its scalars
+    as Python floats)."""
+    return PPPMParams(
+        **{k: float(_scalar(pppm[k]))
+           for k in ("g_ewald", "qqrd2e", "qsqsum", "qsum")},
+        grid=tuple(int(v) for v in pppm["grid"]),
+        order=int(_scalar(pppm["order"])),
+        stagger=bool(_scalar(pppm.get("stagger", False))))
+
+
+def npt_state_from_numpy(state: dict, device="cuda") -> NPTState:
+    """The port's NPTState from numpy copies of the JAX NPTState's fields
+    (rot_scale2, the /sphere styles', is not read), in the dtype of
+    omega."""
+    from lidp_tpu_torch import resolve_device
+
+    device = resolve_device(device)
+    dtype = _np_dtype(state["omega"])
+    return NPTState(**{
+        f.name: torch.as_tensor(np.array(state[f.name]), dtype=dtype,
+                                device=device)
+        for f in dataclasses.fields(NPTState)})
 
 
 def nvt_state_from_numpy(state: dict, dtype=torch.float64) -> NVTState:

@@ -4,8 +4,10 @@
 cell engine and the dense route read.  `compute_forces` evaluates, in the
 JAX package's order, the pair term (the all-pairs pass of the dense route,
 `nlist=None`, with the special codes; or the cell grid of a `Cells`, with
-the sparse special-bond correction), then the Ewald sum and the
-polarization term on (N,N) tensors.  Neighbour lists (ROADMAP queue 1
+the sparse special-bond correction unless same-molecule pairs are
+excluded), then the k-space term (the Ewald sum, rescaled to the live box
+under a barostat, or PPPM, which reads the live box at every call) and
+the polarization term on (N,N) tensors.  Neighbour lists (ROADMAP queue 1
 item 5), bonded terms and the other k-space styles (item 6) raise
 NotImplementedError.
 """
@@ -20,6 +22,7 @@ import torch
 from lidp_tpu_torch.ops.ewald import EwaldParams
 from lidp_tpu_torch.ops.pair import PairParams
 from lidp_tpu_torch.ops.polarization import PolarizationSettings
+from lidp_tpu_torch.ops.pppm import PPPMParams
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,6 +47,13 @@ class ForceField:
     # validation: the serial Gauss-Seidel solve (scf_solve_gauss_seidel)
     # in place of scf_solve under polar_gs / polar_gs_ranked
     reference_gs: bool = False
+    # the mesh k-space (kspace_style pppm, pppm/cg, pppm/stagger) in place
+    # of the Ewald sum
+    pppm: Optional[PPPMParams] = None
+    # a barostat moves the box: the Ewald tables are recomputed for the
+    # live box at each call (rescale_coeffs; the analog of
+    # force->kspace->setup(), fix_nh.cpp:877)
+    kspace_dynamic: bool = False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -97,12 +107,13 @@ def pair_route(sys, ff, cells) -> str:
     "cell_pair_forces" (plain PyTorch, on a GPU too).  The kernel's gate is
     the JAX package's _pallas_ok without its backend test: lj/cut alone, one
     atom type, no special lists, float32, an orthogonal fully periodic box,
-    at least 3 bins in every dimension.  A benchmark asks here which route
-    its times are of."""
+    at least 3 bins in every dimension, and no neigh_modify exclusion.  A
+    benchmark asks here which route its times are of."""
     from lidp_tpu_torch.ops.cell_kernels import supported
 
     p = ff.pair
     ok = (supported(p, p.lj3.shape[0] - 1 > 1, p.coul)
+          and p.excl is None and not p.excl_mol
           and ff.sp_idx is None and sys.x.dtype == torch.float32
           and not sys.box.triclinic and all(sys.box.periodic)
           and min(cells.atom_of_slot.shape[:3]) >= 3)
@@ -115,8 +126,9 @@ def compute_forces(sys, ff: ForceField, nlist=None,
 
     nlist=None: the dense route (dense_forces), every term the force field
     holds.  A Cells grid: the pair term on the grid, then the sparse
-    special-bond correction where the force field has special lists, the
-    Ewald sum and the polarization term of the dense route.  The pair term
+    special-bond correction where the force field has special lists (not
+    with excl_mol, as in the JAX package), the k-space term and the
+    polarization term of the dense route.  The pair term
     of the single-type float32 LJ case goes to the CUDA kernel
     (ops/cell_kernels.cell_pair_forces_lj), every other case (float64,
     several types, coulomb, special lists, an open face, a dimension of
@@ -135,23 +147,19 @@ def compute_forces(sys, ff: ForceField, nlist=None,
         raise NotImplementedError(
             "neighbour lists are not ported (ops/neighbor.py; ROADMAP "
             "queue 1 item 5, neighbour lists)")
-    if ff.pair.excl_mol:
-        raise NotImplementedError(
-            "excl_mol on a cell grid is not ported: the port runs it on the "
-            "dense route (ROADMAP queue 1 item 6, breadth)")
     if pair_route(sys, ff, nlist) == "cell_pair_forces_lj":
         f, ev, ec, vir = cell_pair_forces_lj(
             sys.x, sys.mask, nlist, sys.box, ff.pair, need_ev=need_ev)
     else:
         f, ev, ec, vir = cell_pair_forces(
             sys.x, sys.q, sys.type, sys.mask, nlist, sys.box, ff.pair,
-            need_ev=need_ev)
-    if ff.sp_idx is not None:
+            need_ev=need_ev, mol=sys.mol)
+    if ff.sp_idx is not None and not ff.pair.excl_mol:
         fc, dev, dec, dvir = special_correction_sparse(
             sys.x, sys.q, sys.type, ff.sp_idx, ff.sp_lvl, sys.mask, sys.box,
             ff.pair)
         f, ev, ec, vir = f + fc, ev + dev, ec + dec, vir + dvir
-    if ff.ewald is None and ff.polar is None:
+    if ff.ewald is None and ff.pppm is None and ff.polar is None:
         return pair_only_result(sys, f, ev, ec, vir)
     return _long_range_terms(sys, ff, f, ev, ec, vir)
 
@@ -182,13 +190,17 @@ def dense_forces(sys, ff: ForceField) -> ForceResult:
 def _long_range_terms(sys, ff: ForceField, f, evdwl, ecoul,
                       virial) -> ForceResult:
     """The terms after the pair term, on either route, in the JAX
-    package's order: the Ewald sum, then the polarization term (the Wolf
+    package's order: the k-space term (the Ewald sum, its tables rescaled
+    to the live box under kspace_dynamic; or PPPM on the positions
+    relative to the box's lower corner and the live box lengths), then the
+    polarization term (the Wolf
     field E0, the (N,3,N,3) tensor, the dipole solve from sys.mu under
     use_previous, the polar forces and epol), all on (N,N) tensors; the
     ForceResult of the pair term's f, evdwl, ecoul and virial with
     them."""
     from lidp_tpu_torch.ops import ewald as ewald_ops
     from lidp_tpu_torch.ops import polarization as pol_ops
+    from lidp_tpu_torch.ops.pppm import pppm_forces_params
 
     x = sys.x
     zero = x.new_zeros(())
@@ -197,9 +209,16 @@ def _long_range_terms(sys, ff: ForceField, f, evdwl, ecoul,
     scf_iters = 0
     scf_diverged = torch.zeros((), dtype=torch.bool, device=x.device)
 
-    if ff.ewald is not None:
-        fk, el, vk = ewald_ops.ewald_forces(x, sys.q, sys.box.volume,
-                                            ff.ewald)
+    if ff.ewald is not None or ff.pppm is not None:
+        if ff.ewald is not None:
+            ewp = ff.ewald
+            if ff.kspace_dynamic:
+                ewp = ewald_ops.rescale_coeffs(ewp, sys.box.lengths)
+            fk, el, vk = ewald_ops.ewald_forces(x, sys.q, sys.box.volume,
+                                                ewp)
+        else:
+            fk, el, vk = pppm_forces_params(x - sys.box.lo, sys.q,
+                                            sys.box.lengths, ff.pppm)
         f = f + fk
         elong = elong + el
         virial = virial + vk

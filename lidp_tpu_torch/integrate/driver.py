@@ -11,14 +11,18 @@ Thermo sampling happens on the host between `run` calls.
 Ported for the dense route (`neighbor_cfg` None: every evaluation is
 compute_forces(nlist=None), with no wrap and no rebuild, as in the JAX
 package) and for a cell grid (`neighbor_cfg` a CellConfig), with the nve,
-rigid/nve, rigid/nvt and nvt integrators.  With check=False the loop
+rigid/nve, rigid/nvt, rigid/npt, rigid/nph, nvt, npt and nph integrators
+(the barostats replace the System's Box inside the step; the Runner then
+runs with every_step_ev, as they read the virial each step).  With check=False the loop
 itself reads nothing back from the device: the step counter and the
 rebuild schedule are Python ints.  With check=True the displacement test
 is computed on the device and read once per rebuild decision (only on the
 steps the schedule allows one).  What it calls may read: the Nose-Hoover
 integrators read the kinetic energy once per chain update (rigid/nvt once
-a step, in initial_integrate; nvt twice, once in each half), and the
-dense route's CG reads its residual once an iteration.  Neighbour lists,
+a step, in initial_integrate, with the rigid barostat's strain rate under
+rigid/npt, and that alone under rigid/nph; nvt twice, once in each half;
+npt and nph not at all), and the dense route's CG reads its residual once
+an iteration.  Neighbour lists,
 shrink-wrapped boxes, fix deform, fix tmd and rRESPA are not ported;
 asking for them raises NotImplementedError.
 """
@@ -74,22 +78,40 @@ def nve_integrator(nve_params, compensated: bool = False) -> Integrator:
 
 
 def rigid_nve_integrator(rigid_params, mass_atom) -> Integrator:
-    """fix rigid/nve and rigid/nvt: the no-squish integrator of
-    integrate/rigid.py; its init_state is init_rigid_state (set_v at
-    setup).  With the thermostat on, each initial_integrate first takes
-    the ramped target of the step it produces, ramp_target(..., step + 1):
-    Verlet::run increments ntimestep before initial_integrate
-    (verlet.cpp:243), and the JAX package's _run_chunk substitutes it so
-    (final_integrate does not read the target)."""
+    """fix rigid/nve, rigid/nvt, rigid/npt and rigid/nph: the no-squish
+    integrator of integrate/rigid.py; its init_state is init_rigid_state
+    (set_v at setup), with the barostat's init_pstat after it (it needs
+    the setup's force virial).  With a thermostat or the barostat, each
+    half takes the ramped targets of the step it produces,
+    ramp_target(..., step + 1): Verlet::run increments ntimestep before
+    initial_integrate (verlet.cpp:243), and the JAX package's _run_chunk
+    substitutes them so for both halves (final_integrate reads them only
+    under the barostat)."""
     from lidp_tpu_torch.integrate import rigid
     from lidp_tpu_torch.integrate.nvt import ramp_target
 
     def _ramped(p, step):
-        if not p.tstat:
+        if not (p.tstat or p.pstat):
             return p
-        return dataclasses.replace(p, t_target=ramp_target(
-            p.t_start, p.t_stop, p.ramp_begin, p.ramp_end, step))
+        r = (p.ramp_begin, p.ramp_end, step)
+        return dataclasses.replace(
+            p, t_target=ramp_target(p.t_start, p.t_stop, *r),
+            p_target=tuple(ramp_target(a, b, *r)
+                           for a, b in zip(p.p_start, p.p_stop)))
 
+    if rigid_params is not None and rigid_params.pstat:
+        def _init(s, res, p):
+            s, st = rigid.init_rigid_state(s, res.f, p, mass_atom)
+            return s, rigid.init_pstat(s, res.virial, p, st)
+
+        return Integrator(
+            initial=lambda s, r, p, st: rigid.initial_integrate(
+                s, r.f, _ramped(p, s.step + 1), st),
+            final=lambda s, r, p, st: rigid.final_integrate(
+                s, r.f, _ramped(p, s.step), st, res_virial=r.virial),
+            params=rigid_params,
+            init_state_res=_init,
+        )
     return Integrator(
         initial=lambda s, r, p, st: rigid.initial_integrate(
             s, r.f, _ramped(p, s.step + 1), st),
@@ -97,6 +119,32 @@ def rigid_nve_integrator(rigid_params, mass_atom) -> Integrator:
         params=rigid_params,
         init_state=lambda s, f, p: rigid.init_rigid_state(s, f, p,
                                                           mass_atom),
+    )
+
+
+def npt_integrator(npt_params) -> Integrator:
+    """fix npt and fix nph: integrate/npt.py, each half on the ramped
+    targets of the step it produces (ramp_target(..., step + 1), as the
+    JAX package's _run_chunk substitutes them for both halves).  The
+    System's Box is replaced by the remap inside initial_integrate; the
+    force evaluation and the cell grid's rebuild read the new one."""
+    from lidp_tpu_torch.integrate import npt
+    from lidp_tpu_torch.integrate.nvt import ramp_target
+
+    def _ramped(p, step):
+        r = (p.ramp_begin, p.ramp_end, step)
+        return dataclasses.replace(
+            p, t_target=ramp_target(p.t_target, p.t_stop, *r),
+            p_target=tuple(ramp_target(a, b, *r)
+                           for a, b in zip(p.p_target, p.p_stop)))
+
+    return Integrator(
+        initial=lambda s, r, p, st: npt.initial_integrate(
+            s, r, _ramped(p, s.step + 1), st),
+        final=lambda s, r, p, st: npt.final_integrate(
+            s, r, _ramped(p, s.step), st),
+        params=npt_params,
+        init_state=npt.init_state,
     )
 
 

@@ -1,6 +1,6 @@
-"""fix rigid/nve and rigid/nvt — no-squish rigid-body integration with
-optional Nose-Hoover chains (lidp_tpu/integrate/rigid.py, the pstat=False
-branches).
+"""fix rigid/nve, rigid/nvt, rigid/npt and rigid/nph — no-squish
+rigid-body integration with optional Nose-Hoover chains and the MTK
+barostat (lidp_tpu/integrate/rigid.py).
 
 In the reference, rigid/nve and rigid/nvt are FixRigidNH (fix_rigid_nve.h:27
 and fix_rigid_nvt.h subclass it): the symplectic NO-SQUISH quaternion
@@ -45,8 +45,19 @@ ms a step and the rigid/nvt integrator 5.98-9.16 ms a step against
 rigid/nve's 5.30-5.45, both bound by the eager launches of the
 no-squish update.
 
-The barostat (rigid/npt, rigid/nph) is not ported; make_rigid_params
-(pstat=True) raises.
+rigid/npt and rigid/nph (pstat): the barostat half of FixRigidNH.  The
+strain rate epsilon_dot and mtk_term2 are device tensors: the coupled
+pressure (_press_current, the fix group's kinetic tensor and the force
+virial with the set_xv/set_v constraint tallies) enters nh_epsilon_dot
+(:1139-1165) in final_integrate and at setup (init_pstat); the box and
+the body centres dilate about the box centre in two half remaps
+(_remap_half, :1049-1103) around set_xv.  The barostat's own chain
+(nhc_press_integrate, :891-965, with the reference's exp(-0.5 tmp)) runs
+on the host as the thermostat's do: initial_integrate reads epsilon_dot
+with akin_t and akin_r in its one transfer (rigid/nph reads epsilon_dot
+alone), so a step of either style reads the device once.  The ramped
+targets t_target and p_target are substituted per step by
+driver.rigid_nve_integrator.  `dilate` other than all is not ported.
 
 Rigid-atom coordinates stay unwrapped (x = R d + xcm); the panel engine's
 minimum image and Ewald phases are periodic, so wrapped and unwrapped
@@ -68,11 +79,6 @@ from lidp_tpu_torch import resolve_device
 from lidp_tpu_torch.state import System
 
 EPSILON = 1.0e-7
-
-_BAROSTAT = ("the rigid barostat (rigid/npt, rigid/nph) is not ported "
-             "(ROADMAP queue 1 item 6, breadth: integrate/rigid.py "
-             "_nhc_press_rigid, _nh_epsilon_dot, _remap_half, init_pstat)")
-
 
 # ----------------------------- quaternion math -----------------------------
 
@@ -320,6 +326,25 @@ class RigidParams:
     nf_r: float = 0.0
     boltz: float = 1.0
     mvv2e: float = 1.0
+    # barostat (fix rigid/npt + rigid/nph, FixRigidNH's pstat_flag path);
+    # host scalars of the run's dtype, as the thermostat's.  p_target is
+    # the current ramped target (rigid_nve_integrator substitutes it with
+    # t_target), p_start and p_stop the run's ramp
+    pstat: bool = False
+    p_start: tuple = (0.0, 0.0, 0.0)
+    p_stop: tuple = (0.0, 0.0, 0.0)
+    p_target: tuple = (0.0, 0.0, 0.0)
+    p_freq: tuple = (0.0, 0.0, 0.0)     # 1/Pdamp, 0 where Pdamp <= 0
+    p_freq_max: float = 0.0
+    p_chain: int = 10
+    p_flag: tuple = (False, False, False)
+    iso: bool = True
+    nktv2p: float = 1.0
+    dim: int = 3
+    pflag: Optional[torch.Tensor] = None   # (3,) bool on the device
+    # (3,) p_freq^2 on the device, 1 where p_freq is 0: the barostat
+    # masses' denominators
+    p_denom: Optional[torch.Tensor] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -336,6 +361,12 @@ class RigidState:
     # velocities, translational and rotational
     eta_dot_t: Optional[np.ndarray] = None
     eta_dot_r: Optional[np.ndarray] = None
+    # barostat state (pstat; None otherwise): the strain rate (3,) and
+    # mtk_term2 () on the device, the barostat chain (p_chain,) a host
+    # array of the run's dtype
+    epsilon_dot: Optional[torch.Tensor] = None
+    eta_dot_b: Optional[np.ndarray] = None
+    mtk_term2: Optional[torch.Tensor] = None
 
 
 def _host_scalar(dtype):
@@ -354,14 +385,16 @@ def make_rigid_params(setup: RigidSetup, dt: float, ftm2v: float,
                       mass_atom=None, dtype=torch.float64, device="cuda", *,
                       tstat=False, t_start=0.0, t_stop=0.0, t_period=1.0,
                       t_chain=10, t_iter=1, t_order=3, boltz=1.0,
-                      mvv2e=1.0, pstat=False) -> RigidParams:
+                      mvv2e=1.0, pstat=False, p_start=(0.0, 0.0, 0.0),
+                      p_stop=(0.0, 0.0, 0.0), p_period=(1.0, 1.0, 1.0),
+                      p_flag=(False, False, False), p_chain=10, iso=True,
+                      nktv2p=1.0, dim=3) -> RigidParams:
     """The integrator's parameters on `device` in `dtype` (the dtype of the
     System's x).  tstat: the rigid/nvt chains (temp t_start t_stop
-    t_period, tparam t_chain t_iter t_order).  pstat raises: the barostat
-    is not ported."""
+    t_period, tparam t_chain t_iter t_order).  pstat: the barostat
+    (iso/aniso/x/y/z p_start p_stop p_period, p_flag the coupled
+    dimensions, iso couple xyz, pchain p_chain)."""
     device = resolve_device(device)
-    if pstat:
-        raise NotImplementedError(_BAROSTAT)
     _yoshida_w(t_order)
     n = setup.body_of_atom.shape[0]
     body = np.where(setup.body_of_atom < 0, setup.nbody, setup.body_of_atom)
@@ -384,6 +417,9 @@ def make_rigid_params(setup: RigidSetup, dt: float, ftm2v: float,
     # nf_t/nf_r per FixRigidNH::init (:225-237)
     nf_t = 3.0 * setup.nbody
     nf_r = 3.0 * setup.nbody - float(np.sum(np.abs(setup.inertia) < EPSILON))
+    p_period = np.asarray(p_period, float)
+    p_freq = np.where(p_period > 0.0, 1.0 / np.maximum(p_period, 1e-300),
+                      0.0)
     return RigidParams(
         dtv=t(dt), dtf=t(0.5 * dt * ftm2v), dtq=t(0.5 * dt),
         body=t(body, torch.int64), in_body=t(setup.body_of_atom >= 0,
@@ -394,7 +430,15 @@ def make_rigid_params(setup: RigidSetup, dt: float, ftm2v: float,
         tstat=tstat, t_start=S(t_start), t_stop=S(t_stop),
         t_freq=S(1.0 / t_period if t_period else 0.0), t_target=S(t_start),
         t_dtv=S(dt), t_dtq=S(0.5 * dt), t_chain=t_chain, t_iter=t_iter,
-        t_order=t_order, nf_t=nf_t, nf_r=nf_r, boltz=boltz, mvv2e=mvv2e)
+        t_order=t_order, nf_t=nf_t, nf_r=nf_r, boltz=boltz, mvv2e=mvv2e,
+        pstat=pstat, p_start=tuple(S(v) for v in p_start),
+        p_stop=tuple(S(v) for v in p_stop),
+        p_target=tuple(S(v) for v in p_start),
+        p_freq=tuple(S(v) for v in p_freq), p_freq_max=S(np.max(p_freq)),
+        p_chain=p_chain, p_flag=tuple(bool(b) for b in p_flag), iso=iso,
+        nktv2p=nktv2p, dim=dim,
+        pflag=t([bool(b) for b in p_flag], torch.bool),
+        p_denom=t(np.where(p_freq > 0.0, p_freq * p_freq, 1.0)))
 
 
 def _yoshida_w(order):
@@ -425,7 +469,7 @@ def _nhc_integrate(eta_dot, akin, nf, p: RigidParams):
     one sub-thermostat (translational or rotational), on host scalars:
     eta_dot a (t_chain,) numpy array, akin a host scalar of its dtype.
     Returns the new eta_dot.  The chain's exp(-tmp) is the reference's;
-    its barostat chain takes exp(-0.5 tmp) (not ported)."""
+    its barostat chain (_nhc_press_rigid) takes exp(-0.5 tmp)."""
     S = type(p.t_target)
     kt = p.boltz * p.t_target      # per-step ramped target
     gfkt = nf * kt
@@ -460,6 +504,125 @@ def _nhc_integrate(eta_dot, akin, nf, p: RigidParams):
                 f[k + 1] = (q[k] * eta[k] * eta[k] - kt) / q[k + 1]
             eta[C - 1] = eta[C - 1] + wdti2 * f[C - 1]
     return np.array(eta, dtype=eta_dot.dtype)
+
+# --------------------------- barostat (npt/nph) ----------------------------
+
+def _press_current(sys, virial, p: RigidParams):
+    """Coupled current pressure (FixRigidNH couple, fix_rigid_nh.cpp:1019):
+    per-dim (sum m v_d^2 * mvv2e + virial_d)/V * nktv2p over the fix
+    group's atom velocities and the whole virial (the force field's and
+    the set_xv/set_v constraint tallies); iso averages the dims."""
+    m = torch.where(p.in_body, p.mass_atom, 0.0)
+    ke3 = p.mvv2e * torch.sum(m[:, None] * sys.v * sys.v, dim=0)
+    L = sys.box.lengths
+    vol = L[0] * L[1] if p.dim == 2 else L[0] * L[1] * L[2]
+    ptens = (ke3 + virial[:3]) / vol * p.nktv2p
+    if p.iso:
+        ptens = torch.mean(ptens).expand(3)
+    return ptens, vol
+
+
+def _p_hydro(p: RigidParams):
+    """compute_press_target (:1121-1133): the hydrostatic target over the
+    coupled dims, of the ramped p_target."""
+    pdim = sum(p.p_flag)
+    return sum(t for t, f in zip(p.p_target, p.p_flag) if f) / max(pdim, 1)
+
+
+def _nhc_press_rigid(eta_dot_b, epsilon_dot, p: RigidParams):
+    """nhc_press_integrate (fix_rigid_nh.cpp:891-965): the barostat's
+    thermostat chain on host scalars (epsilon_dot a host list of 3).  The
+    reference takes exp(-0.5 tmp) here where the temperature chain takes
+    exp(-tmp); kept as it is."""
+    S = type(p.t_target)
+    kt = p.boltz * p.t_target
+    pdim = max(sum(p.p_flag), 1)
+    tb_mass = kt / (p.p_freq_max * p.p_freq_max)
+    q = [p.dim * p.dim * tb_mass] + [tb_mass] * (p.p_chain - 1)
+    # the barostat masses per dim, (nf_t + nf_r + dim) kT / p_freq^2 (1
+    # where p_freq is 0)
+    g = p.nf_t + p.nf_r + p.dim
+    eps_mass = [g * kt / (f * f if f > 0.0 else 1.0) for f in p.p_freq]
+    kecurrent = S(0.0)
+    for d in range(3):
+        if p.p_flag[d]:
+            kecurrent = kecurrent + eps_mass[d] * epsilon_dot[d] \
+                * epsilon_dot[d]
+    kecurrent = kecurrent / pdim
+
+    eta = [S(e) for e in eta_dot_b]
+    f = [S(0.0)] * p.p_chain
+    f[0] = (kecurrent - kt) / q[0]
+    for k in range(1, p.p_chain):
+        f[k] = (q[k - 1] * eta[k - 1] * eta[k - 1] - kt) / q[k]
+
+    w = _yoshida_w(p.t_order)
+    C = p.p_chain
+    for _ in range(p.t_iter):
+        for j in range(p.t_order):
+            wdti1 = w[j] * p.t_dtv / p.t_iter
+            wdti2 = wdti1 / 2.0
+            wdti4 = wdti1 / 4.0
+            eta[C - 1] = eta[C - 1] + wdti2 * f[C - 1]
+            for k in range(1, C):
+                tmp = wdti4 * eta[C - k]
+                s = _exp(-0.5 * tmp)
+                eta[C - k - 1] = eta[C - k - 1] * s * s + \
+                    wdti2 * f[C - k - 1] * s * _maclaurin(tmp)
+            for k in range(1, C):
+                f[k] = (q[k - 1] * eta[k - 1] * eta[k - 1] - kt) / q[k]
+            for k in range(0, C - 1):
+                tmp = wdti4 * eta[k + 1]
+                s = _exp(-0.5 * tmp)
+                eta[k] = eta[k] * s * s + wdti2 * f[k] * s * _maclaurin(tmp)
+                f[k + 1] = (q[k] * eta[k] * eta[k] - kt) / q[k + 1]
+            eta[C - 1] = eta[C - 1] + wdti2 * f[C - 1]
+    return np.array(eta, dtype=eta_dot_b.dtype)
+
+
+def _nh_epsilon_dot(akin_t, akin_r, p_current, vol, st, p: RigidParams):
+    """nh_epsilon_dot (fix_rigid_nh.cpp:1139-1165): the strain rate's
+    half-step with the MTK correction and the barostat chain's damping
+    scale (a host scalar); akin_t, akin_r, p_current and vol on the
+    device."""
+    g_f = p.nf_t + p.nf_r
+    mtk_term1 = (akin_t + akin_r) * p.mvv2e / g_f
+    scale = float(_exp(-p.t_dtq * st.eta_dot_b[0]))
+    kt = p.boltz * p.t_target
+    eps_mass = (g_f + p.dim) * float(kt) / p.p_denom
+    f_eps = ((p_current - _p_hydro(p)) * vol / p.nktv2p
+             + mtk_term1) / eps_mass
+    eps_dot = torch.where(p.pflag, (st.epsilon_dot + p.dtq * f_eps) * scale,
+                          st.epsilon_dot)
+    mtk_term2 = torch.sum(torch.where(p.pflag, eps_dot, 0.0)) / g_f
+    return dataclasses.replace(st, epsilon_dot=eps_dot, mtk_term2=mtk_term2)
+
+
+def _remap_half(sys, st, p: RigidParams, xcm):
+    """remap() (fix_rigid_nh.cpp:1049-1103): a half-step box dilation about
+    the box centre; every atom and the body centres of mass ride in lamda
+    coordinates (allremap, FixRigid::deform's xcm remap).  The System gets
+    a new Box."""
+    expfac = torch.where(p.pflag, torch.exp(p.dtq * st.epsilon_dot), 1.0)
+    lo, hi = sys.box.lo, sys.box.hi
+    ctr = 0.5 * (lo + hi)
+    lo2 = (lo - ctr) * expfac + ctr
+    hi2 = (hi - ctr) * expfac + ctr
+    x2 = (sys.x - ctr) * expfac + ctr
+    xcm2 = (xcm - ctr) * expfac + ctr
+    box2 = dataclasses.replace(sys.box, lo=lo2, hi=hi2)
+    return sys.replace(x=x2, box=box2), xcm2
+
+
+def init_pstat(sys: System, virial, p: RigidParams, st: RigidState):
+    """FixRigidNH::setup's tail (:420-422): the first compute_press_target
+    and nh_epsilon_dot, so that step 1 sees a strain rate.  Called right
+    after init_rigid_state with the setup's force virial."""
+    akin_t = torch.sum(p.masstotal * torch.sum(st.vcm * st.vcm, dim=1))
+    w = _omega_from_R(st.angmom, q_to_matrix(st.quat), p.inertia)
+    akin_r = torch.sum(torch.sum(st.angmom * w, dim=1))
+    p_cur, vol = _press_current(sys, virial + st.virial, p)
+    return _nh_epsilon_dot(akin_t, akin_r, p_cur, vol, st, p)
 
 
 def _body_sum(v, p: RigidParams):
@@ -505,6 +668,11 @@ def init_rigid_state(sys: System, f, p: RigidParams, mass_atom):
         xcm=xcm, vcm=vcm, angmom=angmom, quat=quat, conjqm=conjqm,
         fcm=fcm, torque=torque, virial=vir, eta_dot_t=chain,
         eta_dot_r=chain.copy())
+    if p.pstat:
+        st = dataclasses.replace(
+            st, epsilon_dot=sys.x.new_zeros(3),
+            eta_dot_b=np.zeros(p.p_chain, chain_dtype(sys.x.dtype)),
+            mtk_term2=sys.x.new_zeros(()))
     return sys, st
 
 
@@ -538,23 +706,44 @@ def _chain_scales(p: RigidParams, st: RigidState):
             float(_exp(-p.t_dtq * st.eta_dot_r[0])))
 
 
-def initial_integrate(sys: System, f, p: RigidParams, st: RigidState):
-    """FixRigidNH::initial_integrate (:430-589), rigid/nve and rigid/nvt
-    (with tstat: vcm and conjqm scaled by the chains, then both chains
-    advanced, after one read of akin_t and akin_r)."""
-    dtf2 = p.dtf * 2.0
+def _scales(p: RigidParams, st: RigidState):
+    """The scale of vcm (a Python scalar, or a (3,) device tensor under the
+    barostat) and of conjqm in either half: the chains' and, with pstat,
+    exp(-dtq (epsilon_dot + mtk_term2)) and exp(-dtq pdim mtk_term2)."""
     scale_t, scale_r = _chain_scales(p, st)
+    if p.pstat:
+        pdim = sum(p.p_flag)
+        scale_t = torch.exp(-p.dtq * (st.epsilon_dot + st.mtk_term2)) \
+            * scale_t
+        scale_r = torch.exp(-p.dtq * (pdim * st.mtk_term2)) * scale_r
+    return scale_t, scale_r
+
+
+def initial_integrate(sys: System, f, p: RigidParams, st: RigidState):
+    """FixRigidNH::initial_integrate (:430-589): rigid/nve, rigid/nvt (vcm
+    and conjqm scaled by the chains, then both chains advanced) and the
+    barostat (scales and the drift of the strain rate, the barostat chain,
+    the box and body centres remapped a half step before and after
+    set_xv), after one read of akin_t, akin_r and epsilon_dot."""
+    dtf2 = p.dtf * 2.0
+    thermo = p.tstat or p.pstat
+    scale_t, scale_r = _scales(p, st)
     dtfm = (p.dtf / p.masstotal)[:, None]
     vcm = st.vcm + dtfm * st.fcm
-    if p.tstat:
+    if thermo:
         vcm = vcm * scale_t
-    xcm = st.xcm + p.dtv * vcm
+    if p.pstat:
+        tmp = p.dtq * st.epsilon_dot
+        scale_v3 = p.dtv * torch.exp(tmp) * _maclaurin(tmp)
+        xcm = st.xcm + scale_v3[None, :] * vcm
+    else:
+        xcm = st.xcm + p.dtv * vcm
 
     R = q_to_matrix(st.quat)
     tbody = torch.einsum("bij,bi->bj", R, st.torque)
     fquat = quatvec(st.quat, tbody)
     conjqm = st.conjqm + dtf2 * fquat
-    if p.tstat:
+    if thermo:
         conjqm = conjqm * scale_r
 
     q = st.quat
@@ -572,14 +761,30 @@ def initial_integrate(sys: System, f, p: RigidParams, st: RigidState):
     w = _omega_from_R(angmom, R, p.inertia)
 
     eta_dot_t, eta_dot_r = st.eta_dot_t, st.eta_dot_r
-    if p.tstat:
-        akin_t = torch.sum(p.masstotal * torch.sum(vcm * vcm, dim=1))
-        akin_r = torch.sum(torch.sum(angmom * w, dim=1))
-        # the thermostat's one host read a step
+    st2 = st
+    if thermo:
+        # the integrator's one host read a step
         S = type(p.t_target)
-        akin_t, akin_r = torch.stack([akin_t, akin_r]).tolist()
-        eta_dot_t = _nhc_integrate(eta_dot_t, S(akin_t), p.nf_t, p)
-        eta_dot_r = _nhc_integrate(eta_dot_r, S(akin_r), p.nf_r, p)
+        reads = []
+        if p.tstat:
+            akin_t = torch.sum(p.masstotal * torch.sum(vcm * vcm, dim=1))
+            akin_r = torch.sum(torch.sum(angmom * w, dim=1))
+            reads += [akin_t, akin_r]
+        if p.pstat:
+            reads += list(st.epsilon_dot.unbind(0))
+        vals = [S(v) for v in torch.stack(reads).tolist()]
+        if p.tstat:
+            eta_dot_t = _nhc_integrate(eta_dot_t, vals[0], p.nf_t, p)
+            eta_dot_r = _nhc_integrate(eta_dot_r, vals[1], p.nf_r, p)
+            vals = vals[2:]
+        st2 = dataclasses.replace(st, eta_dot_t=eta_dot_t,
+                                  eta_dot_r=eta_dot_r)
+        if p.pstat:
+            # update_nhcb (nhc_press_integrate :891), then the first half
+            # remap
+            st2 = dataclasses.replace(
+                st2, eta_dot_b=_nhc_press_rigid(st2.eta_dot_b, vals, p))
+            sys, xcm = _remap_half(sys, st2, p, xcm)
 
     # set_xv (:1289): x = R d + xcm (unwrapped), v = vcm + omega x (R d)
     d_space = torch.einsum("nij,nj->ni", _of_atom(R, p), p.displace)
@@ -589,28 +794,36 @@ def initial_integrate(sys: System, f, p: RigidParams, st: RigidState):
     vir = _constraint_virial(sys.x, sys.v, v_new, f, p)
     sys = sys.replace(x=torch.where(inb, x_new, sys.x),
                       v=torch.where(inb, v_new, sys.v))
+    if p.pstat:
+        # the second half remap after set_xv (the atoms ride along,
+        # :582-586); the k-space terms read the new box at the next call
+        sys, xcm = _remap_half(sys, st2, p, xcm)
     return sys, dataclasses.replace(
-        st, xcm=xcm, vcm=vcm, angmom=angmom, quat=quat, conjqm=conjqm,
-        virial=vir, eta_dot_t=eta_dot_t, eta_dot_r=eta_dot_r)
+        st2, xcm=xcm, vcm=vcm, angmom=angmom, quat=quat, conjqm=conjqm,
+        virial=vir)
 
 
-def final_integrate(sys: System, f, p: RigidParams, st: RigidState):
-    """FixRigidNH::final_integrate (:592-790), rigid/nve and rigid/nvt
-    (with tstat: vcm and conjqm scaled by the chains before the kick; the
-    chains do not advance here)."""
+def final_integrate(sys: System, f, p: RigidParams, st: RigidState,
+                    res_virial=None):
+    """FixRigidNH::final_integrate (:592-790): rigid/nve, rigid/nvt (vcm
+    and conjqm scaled by the chains before the kick; the chains do not
+    advance here) and the barostat (its scales, then nh_epsilon_dot from
+    the pressure of the step's force virial res_virial and the
+    constraint virial, :775-790)."""
     dtf2 = p.dtf * 2.0
-    scale_t, scale_r = _chain_scales(p, st)
+    thermo = p.tstat or p.pstat
+    scale_t, scale_r = _scales(p, st)
     fcm, torque = _force_torque(sys.x, f, st.xcm, p)
     dtfm = (p.dtf / p.masstotal)[:, None]
     vcm = st.vcm
-    if p.tstat:
+    if thermo:
         vcm = vcm * scale_t
     vcm = vcm + dtfm * fcm
 
     R = q_to_matrix(st.quat)
     tbody = torch.einsum("bij,bi->bj", R, torque)
     fquat = quatvec(st.quat, tbody)
-    if p.tstat:
+    if thermo:
         conjqm = scale_r * st.conjqm + dtf2 * fquat
     else:
         conjqm = st.conjqm + dtf2 * fquat
@@ -625,6 +838,13 @@ def final_integrate(sys: System, f, p: RigidParams, st: RigidState):
     inb = p.in_body[:, None]
     vir = st.virial + _constraint_virial(sys.x, sys.v, v_new, f, p)
     sys = sys.replace(v=torch.where(inb, v_new, sys.v))
-    return sys, dataclasses.replace(
+    st2 = dataclasses.replace(
         st, vcm=vcm, angmom=angmom, conjqm=conjqm, fcm=fcm, torque=torque,
         virial=vir)
+    if p.pstat:
+        akin_t = torch.sum(p.masstotal * torch.sum(vcm * vcm, dim=1))
+        akin_r = torch.sum(torch.sum(angmom * w, dim=1))
+        total = vir if res_virial is None else res_virial + vir
+        p_cur, vol = _press_current(sys, total, p)
+        st2 = _nh_epsilon_dot(akin_t, akin_r, p_cur, vol, st2, p)
+    return sys, st2

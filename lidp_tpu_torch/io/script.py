@@ -9,13 +9,14 @@ set_units), so an input whose `timestep` precedes `units real` runs dt = 1.
 
 The interpreter gathers the configuration on the host; `run N` assembles
 the Simulation (sim.py: the System, the lj/cut, lj/cut/coul/long or
-lj/cut/coul/long/polarization tables, ewald or ewald/disp, the integrator
-of the fixes, and the dense route, the cell grid or FastPolarRunner) on
-the script's device and advances it.
+lj/cut/coul/long/polarization tables, ewald, ewald/disp or pppm, the
+integrator of the fixes, and the dense route, the cell grid or
+FastPolarRunner) on the script's device and advances it.
 
 The commands are those the polarization examples, the polar main path and
 the atomic inputs bench/in.lj and examples/melt use (lattice, region
-block, create_box, create_atoms, the neighbour schedule of neigh_modify);
+block, create_box, create_atoms, the neighbour schedule and exclusions of
+neigh_modify, the mesh k-space and the barostats);
 every other command, style or keyword raises NotImplementedError naming
 itself and the ROADMAP item that ports it, and is never ignored.
 """
@@ -57,8 +58,9 @@ THERMO_KEYWORDS = frozenset((
 PAIR_STYLES = ("lj/cut", "lj/cut/coul/long", "lj/cut/coul/long/polarization")
 
 # fix styles with a builder (styles/fix_integrators.py)
-FIX_STYLES = ("nve", "nvt", "rigid", "rigid/nve", "rigid/nvt", "rigid/small",
-              "rigid/nve/small", "rigid/nvt/small")
+FIX_STYLES = ("nve", "nvt", "npt", "nph", "rigid", "rigid/nve", "rigid/nvt",
+              "rigid/npt", "rigid/nph", "rigid/small", "rigid/nve/small",
+              "rigid/nvt/small", "rigid/npt/small", "rigid/nph/small")
 
 
 def _unported(what: str, where: str = _FRONT_END):
@@ -145,6 +147,10 @@ class LammpsScript:
         self.neigh_every = 1
         self.neigh_delay = 10
         self.neigh_check = True
+        # neigh_modify exclude: same-molecule pairs (molecule/intra all)
+        # and type pairs (type I J)
+        self.neigh_exclude_mol = False
+        self.neigh_exclude_types: list = []
         self.atom_style = "atomic"
         self.dimension = 3
         self.periodic = (True, True, True)
@@ -487,12 +493,33 @@ class LammpsScript:
         self.skin = float(a[0])
 
     def cmd_neigh_modify(self, a):
-        """neigh_modify every N | delay N | check yes/no | one N | page N
+        """neigh_modify every N | delay N | check yes/no | one N | page N |
+        exclude molecule|molecule/intra all | exclude type I J
         (neighbor.cpp modify_params); one and page size the reference's
-        list pages, which the cell grid does not have."""
+        list pages, which the cell grid does not have.  An excluded pair
+        takes no pair term (the JAX package masks it out of every pair
+        pass); exclude group and exclusions on a sub-group raise."""
         i = 0
         while i < len(a):
             k = a[i]
+            if k == "exclude":
+                kind = a[i + 1]
+                if kind in ("molecule", "molecule/intra"):
+                    # molecule was renamed molecule/intra in 2018
+                    # (neighbor.cpp:2305)
+                    if a[i + 2] != "all":
+                        _unported(f"neigh_modify exclude {kind} on a "
+                                  "sub-group", _BREADTH)
+                    self.neigh_exclude_mol = True
+                    i += 3
+                elif kind == "type":
+                    self.neigh_exclude_types.append(
+                        (int(a[i + 2]), int(a[i + 3])))
+                    i += 4
+                else:
+                    _unported(f"neigh_modify exclude {kind}", _BREADTH)
+                self._invalidate()
+                continue
             if k == "every":
                 self.neigh_every = int(a[i + 1])
             elif k == "delay":
@@ -859,18 +886,27 @@ class LammpsScript:
             i += 2
 
     def cmd_kspace_style(self, a):
+        """kspace_style ewald | ewald/disp | pppm | pppm/cg | pppm/stagger
+        ACCURACY; pppm/cg's restriction of the mesh to the charged atoms is
+        a sparsity optimisation with the same result, so it runs as pppm
+        (the JAX package's alias)."""
         if a[0] == "none":
             self.kspace = None
-        elif a[0] in ("ewald", "ewald/disp"):
+        elif a[0] in ("ewald", "ewald/disp", "pppm", "pppm/cg",
+                      "pppm/stagger"):
             self.kspace = (a[0], float(a[1]))
         else:
             _unported(f"kspace_style {a[0]}", _BREADTH)
 
     def cmd_kspace_modify(self, a):
+        """kspace_modify gewald G.  The JAX package ignores every other
+        keyword (mesh, order, ...; ROADMAP queue 3 item 10); the port
+        raises on them."""
         i = 0
         while i < len(a):
             if a[i] != "gewald":
-                _unported(f"kspace_modify {a[i]}", _BREADTH)
+                _unported(f"kspace_modify {a[i]} (the JAX package ignores "
+                          "it: ROADMAP queue 3 item 10)", _BREADTH)
             self._gewald_override = float(a[i + 1])
             i += 2
 

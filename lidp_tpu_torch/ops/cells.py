@@ -13,10 +13,13 @@ energies and the virial carry full weight.
 several atom types and coulomb systems take it on the GPU too, exactly as
 the JAX package sends them to its XLA function.  The single-type float32
 LJ case goes to the CUDA kernels of ops/cell_kernels.py instead
-(forcefield.compute_forces decides).  Only lj/cut and lj/cut/coul/long are
-ported: the port's PairParams cannot express the charmm switches, the
-other pair kinds and coulomb kinds, type exclusions or molecule
-exclusions, and a triclinic box does not exist in the port.
+(forcefield.compute_forces decides; a type exclusion table or the molecule
+exclusion keeps a system on this function, as the JAX package's
+_pallas_ok does).  Only lj/cut and lj/cut/coul/long are ported, with the
+neigh_modify exclusions (type pairs, PairParams.excl; same-molecule pairs,
+excl_mol with mol=): the port's PairParams cannot express the charmm
+switches or the other pair and coulomb kinds, and a triclinic box does not
+exist in the port.
 
 Requires >= 3 bins in every dimension that has more than one.
 """
@@ -154,13 +157,16 @@ def _roll(a, off, sign=-1):
 
 
 def cell_pair_forces(x, q, type_, mask, cells: Cells, box: Box, p,
-                     coul: bool | None = None, need_ev: bool = True):
+                     coul: bool | None = None, need_ev: bool = True,
+                     mol=None):
     """LJ (+ real-space Ewald coulomb) forces via the rolled cell grid.
 
-    `p` is a PairParams; with more than one atom type the tables are
-    indexed per slot pair.  need_ev=False skips the energy and virial sums
-    and returns zeros for them.  Returns (f (N,3), evdwl, ecoul, virial6)
-    in atom order; masked atoms get zero force."""
+    `p` is a PairParams; with more than one atom type, or a type exclusion
+    table, the tables are indexed per slot pair.  With p.excl_mol and the
+    molecule ids `mol`, pairs of one molecule take no term.  need_ev=False
+    skips the energy and virial sums and returns zeros for them.  Returns
+    (f (N,3), evdwl, ecoul, virial6) in atom order; masked atoms get zero
+    force."""
     n = x.shape[0]
     dtype = x.dtype
     if coul is None:
@@ -172,13 +178,13 @@ def cell_pair_forces(x, q, type_, mask, cells: Cells, box: Box, p,
     amax = torch.clamp(aos, max=n - 1).long()
     valid = aos < n
 
-    def slotify(a):
-        return torch.where(valid, a[amax], 0)
+    def slotify(a, pad=0):
+        return torch.where(valid, a[amax], pad)
 
     xs = [slotify(x[:, d]) for d in range(3)]
     qs = slotify(q) if coul else None
     ntypes = p.lj3.shape[0] - 1
-    multi_type = ntypes > 1
+    multi_type = ntypes > 1 or p.excl is not None
     if multi_type:
         ts = slotify(type_).long()
         tabs = [t.to(dtype) for t in (p.lj3, p.lj4, p.offset, p.cut_ljsq,
@@ -187,6 +193,10 @@ def cell_pair_forces(x, q, type_, mask, cells: Cells, box: Box, p,
         lj3, lj4, off11 = (t[1, 1].to(dtype)
                            for t in (p.lj3, p.lj4, p.offset))
         cut_ljsq, cutsq = p.cut_ljsq[1, 1].to(dtype), p.cutsq[1, 1].to(dtype)
+
+    excl_mol = p.excl_mol and mol is not None
+    if excl_mol:
+        ms = slotify(mol, -1)
 
     fx = torch.zeros(aos.shape, dtype=dtype, device=x.device)
     fy = torch.zeros_like(fx)
@@ -213,6 +223,8 @@ def cell_pair_forces(x, q, type_, mask, cells: Cells, box: Box, p,
         pair_ok = ctr(valid) & nbr(valid)
         if off == (0, 0, 0):
             pair_ok = pair_ok & tri
+        if excl_mol:
+            pair_ok = pair_ok & (ctr(ms) != nbr(ms))
         rsq = torch.where(pair_ok, rsq, 1.0e12)
         r2inv = 1.0 / rsq
 
@@ -221,6 +233,8 @@ def cell_pair_forces(x, q, type_, mask, cells: Cells, box: Box, p,
             lj3, lj4, off11, cut_ljsq, cutsq = (t[ti, tj] for t in tabs)
 
         in_rng = rsq < cutsq
+        if p.excl is not None:
+            in_rng = in_rng & ~p.excl[ti, tj]
         lj_m = in_rng & (rsq < cut_ljsq)
         r6inv = r2inv * r2inv * r2inv
         forcelj = torch.where(

@@ -3,8 +3,9 @@
 The k-space setup is host-side numpy, copied from the JAX package so the
 port depends on nothing of it: g_ewald estimate (ewald_disp.cpp:188-203),
 per-dimension kmax from the RMS error bound (ewald_disp.cpp:255-331) and
-the half-space k enumeration (ewald_disp.cpp:333-355).  Orthogonal boxes
-only.  `ewald_forces` is the dense route's sum, [N,K] matmuls blocked over
+the half-space k enumeration (ewald_disp.cpp:333-355), with the integer
+indices that `rescale_coeffs` rescales to a barostat's live box.
+Orthogonal boxes only.  `ewald_forces` is the dense route's sum, [N,K] matmuls blocked over
 k past _EWALD_CHUNK_ELEMS; the panel engine's lives in parallel/shard.py.
 """
 
@@ -12,6 +13,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Optional
 
 import numpy as np
 import torch
@@ -29,6 +31,7 @@ class EwaldSetup:
     kvirial: np.ndarray  # (K,6) virial coefficients (xx yy zz xy xz yz)
     qsum: float
     qsqsum: float
+    kints: np.ndarray = None  # (K,3) integer indices of hvecs
 
 
 def estimate_g_ewald(accuracy_rel: float, qqrd2e: float, qsqsum: float,
@@ -81,6 +84,7 @@ def setup_ewald_disp(*, accuracy_rel: float, qqrd2e: float, q: np.ndarray,
 
     # half-space enumeration, same order/symmetry rules as reallocate()
     hvecs = []
+    kints = []
     for ix in range(0, nbox + 1):
         for iy in range(-nbox, nbox + 1):
             for iz in range(-nbox, nbox + 1):
@@ -89,7 +93,9 @@ def setup_ewald_disp(*, accuracy_rel: float, qqrd2e: float, q: np.ndarray,
                 h_ = (unit[0] * ix, unit[1] * iy, unit[2] * iz)
                 if h_[0] ** 2 + h_[1] ** 2 + h_[2] ** 2 <= gsqmx:
                     hvecs.append(h_)
+                    kints.append((ix, iy, iz))
     hvecs = np.array(hvecs, np.float64).reshape(-1, 3)
+    kints = np.array(kints, np.int32).reshape(-1, 3)
 
     eta2 = 0.25 / (g_ewald * g_ewald)
     h2 = np.sum(hvecs**2, axis=1)
@@ -106,7 +112,7 @@ def setup_ewald_disp(*, accuracy_rel: float, qqrd2e: float, q: np.ndarray,
     ], axis=1)
 
     return EwaldSetup(g_ewald=float(g_ewald), hvecs=hvecs, kcoeff=c1,
-                      kvirial=kvirial, qsum=qsum, qsqsum=qsqsum)
+                      kvirial=kvirial, qsum=qsum, qsqsum=qsqsum, kints=kints)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -120,6 +126,9 @@ class EwaldParams:
     qscale: float          # qqrd2e * scale
     qsum: float
     qsqsum: float
+    # (K,3) the integer indices of hvecs, in the tables' dtype, for
+    # rescale_coeffs; None where the setup gave none
+    kints: Optional[torch.Tensor] = None
 
     @staticmethod
     def from_setup(s: EwaldSetup, qqrd2e: float, dtype=torch.float64,
@@ -130,7 +139,33 @@ class EwaldParams:
         return EwaldParams(hvecs=t(s.hvecs), kcoeff=t(s.kcoeff),
                            kvirial=t(s.kvirial), g_ewald=float(s.g_ewald),
                            qscale=float(qqrd2e), qsum=float(s.qsum),
-                           qsqsum=float(s.qsqsum))
+                           qsqsum=float(s.qsqsum),
+                           kints=None if s.kints is None else t(s.kints))
+
+
+def rescale_coeffs(p: EwaldParams, box_lengths) -> EwaldParams:
+    """The box-dependent k-space tables recomputed for the live box
+    lengths (lidp_tpu/ops/ewald.py rescale_coeffs; the analog of
+    force->kspace->setup() after a barostat's box change,
+    fix_nh.cpp:877).  The integer k set stays the one enumerated at
+    setup."""
+    dtype = p.hvecs.dtype
+    unit = 2.0 * math.pi / box_lengths.to(dtype)
+    hvecs = p.kints * unit[None, :]
+    eta2 = 0.25 / (p.g_ewald * p.g_ewald)
+    h2 = torch.sum(hvecs * hvecs, dim=1)
+    b2 = h2 * eta2
+    c1 = torch.exp(-b2) / h2
+    c2 = 2.0 * c1 * (1.0 + b2) / h2
+    kvirial = torch.stack([
+        c1 - c2 * hvecs[:, 0] * hvecs[:, 0],
+        c1 - c2 * hvecs[:, 1] * hvecs[:, 1],
+        c1 - c2 * hvecs[:, 2] * hvecs[:, 2],
+        -c2 * hvecs[:, 1] * hvecs[:, 0],
+        -c2 * hvecs[:, 2] * hvecs[:, 0],
+        -c2 * hvecs[:, 2] * hvecs[:, 1],
+    ], dim=1)
+    return dataclasses.replace(p, hvecs=hvecs, kcoeff=c1, kvirial=kvirial)
 
 
 def _ewald_kblock(x, q, hvecs, kcoeff, kvirial, c0):

@@ -10,6 +10,7 @@ reference bit-close.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -50,23 +51,27 @@ class PairParams:
     g_ewald: float
     coul: bool = True
     # neigh_modify exclude molecule all: same-molecule pairs take no pair
-    # term (read by dense_pair_forces with mol=; the cell and panel routes
-    # refuse it)
+    # term (read by dense_pair_forces and cell_pair_forces with mol=; the
+    # panel engine refuses it)
     excl_mol: bool = False
+    # neigh_modify exclude type I J: (T+1,T+1) bool, the excluded type
+    # pairs take no pair term (neighbor.cpp exclusion lists); None for none
+    excl: Optional[torch.Tensor] = None
 
 
 def make_pair_params(epsilon, sigma, cut_lj, *, cut_coul=0.0, qqrd2e=1.0,
                      g_ewald=0.0, coul=True, shift=False,
                      special_lj=(1.0, 0.0, 0.0, 0.0),
-                     special_coul=(1.0, 0.0, 0.0, 0.0),
+                     special_coul=(1.0, 0.0, 0.0, 0.0), excl_types=None,
                      dtype=torch.float64, device="cpu"):
     """PairParams of lj/cut/coul/long (coul=True) or lj/cut alone
     (coul=False: cutsq = cut_lj^2, no coulomb term) from per-type-pair
     (T+1,T+1) epsilon/sigma/cut arrays.  special_lj / special_coul: the
     special_bonds factors [1, s12, s13, s14], by default LAMMPS's (0 for
     LJ and coulomb).  shift=True fills the offset table with the LJ energy
-    at the cutoff (pair_modify shift yes).  The same tables as lidp_tpu
-    make_pair_params."""
+    at the cutoff (pair_modify shift yes).  excl_types: the (T+1,T+1) bool
+    table of neigh_modify exclude type, or None.  The same tables as
+    lidp_tpu make_pair_params."""
     def t(a):
         return torch.as_tensor(a, dtype=dtype, device=device)
 
@@ -86,7 +91,9 @@ def make_pair_params(epsilon, sigma, cut_lj, *, cut_coul=0.0, qqrd2e=1.0,
         special_lj=t(list(special_lj)),
         special_coul=t(list(special_coul)),
         cut_coulsq=float(cut_coul) ** 2, qqrd2e=float(qqrd2e),
-        g_ewald=float(g_ewald), coul=bool(coul))
+        g_ewald=float(g_ewald), coul=bool(coul),
+        excl=(None if excl_types is None else torch.as_tensor(
+            excl_types, dtype=torch.bool, device=device)))
 
 
 def _pair_terms(rsq, qi, qj, ti, tj, sp_code, p: PairParams, pair_mask):
@@ -97,6 +104,8 @@ def _pair_terms(rsq, qi, qj, ti, tj, sp_code, p: PairParams, pair_mask):
     r2inv = 1.0 / rsq
     factor_lj = p.special_lj[sp_code]
     in_range = (rsq < p.cutsq[ti, tj]) & pair_mask
+    if p.excl is not None:
+        in_range = in_range & ~p.excl[ti, tj]
     lj_mask = in_range & (rsq < p.cut_ljsq[ti, tj])
 
     r6inv = r2inv * r2inv * r2inv

@@ -548,9 +548,11 @@ def build_sharded_polar_step(mesh, ff: ForceField,
         raise NotImplementedError("the multi-device panel engine is not "
                                   "ported yet; pass mesh=None")
     if ff.pair.excl_mol:
-        raise NotImplementedError("excl_mol on the panel engine is not "
-                                  "ported (ROADMAP queue 1 item 6, breadth); "
-                                  "the dense route takes it")
+        raise NotImplementedError(
+            "excl_mol on the panel engine is not ported: the JAX package's "
+            "panel engine drops the exclusion without a word (ROADMAP "
+            "queue 3 item 12); the dense route and the cell grid take it "
+            "(LIDP_FAST_POLAR=0)")
     device = resolve_device(device)
     if device.type == "cuda":
         # full-precision matmuls for the Ewald [N,K] products in both

@@ -5,13 +5,18 @@ lj/cut/coul/long/polarization).
 The analog of the LAMMPS init phase (Run::command -> LAMMPS::init,
 run.cpp:38): the lj/cut or lj/cut/coul/long tables with geometric (or
 arithmetic) mixing for unset type pairs (Pair::init_one pair.cpp:660,
-676), the Ewald setup of a coulomb style with the `kspace_modify gewald`
+676), the neigh_modify exclusions, the k-space setup of a coulomb style
+(Ewald, or PPPM's grid and g_ewald) with the `kspace_modify gewald`
 override, the polarization settings of the pair keywords, the special
 bonds of the Bonds section, the integrator of the fixes (nve, rigid/nve,
-rigid/nvt, nvt) with its dof removal (FixRigid::dof, fix_rigid.cpp:1181),
-the group temperatures of `compute ID group temp`; then `run` (each run
-the window of the thermostats' target ramp), the thermo rows with their
-c_ID columns and the dump frames.
+rigid/nvt, rigid/npt, rigid/nph, nvt, npt, nph) with its dof removal
+(FixRigid::dof, fix_rigid.cpp:1181), the group temperatures of `compute ID
+group temp`; then `run` (each run the window of the thermostats' and
+barostats' target ramps), the thermo rows with their c_ID columns and the
+dump frames.  Under a barostat the Ewald tables follow the live box
+(ForceField.kspace_dynamic), PPPM reads it at each call, and the Runner
+evaluates the virial every step (every_step_ev), so a thermo row reads the
+step's own evaluation on the box after the step's remap.
 
 It takes the route the JAX package takes:
   * the dense route (forcefield.compute_forces with nlist=None in the
@@ -59,11 +64,19 @@ from lidp_tpu_torch.ops import polarization as pol_ops
 from lidp_tpu_torch.ops.cells import CellConfig
 from lidp_tpu_torch.ops.ewald import EwaldParams, setup_ewald_disp
 from lidp_tpu_torch.ops.pair import make_pair_params
+from lidp_tpu_torch.ops.pppm import PPPMParams, setup_pppm
 from lidp_tpu_torch.parallel import fast_polar
 from lidp_tpu_torch.parallel.fast_polar import (aligned_npad, maybe_attach,
                                                 prescan)
 from lidp_tpu_torch.state import make_system
 from lidp_tpu_torch.thermo import ThermoParams, temperature, thermo_row
+
+# the k-space styles the coulomb pair styles run with
+KSPACE_STYLES = ("ewald", "ewald/disp", "pppm", "pppm/cg", "pppm/stagger")
+# the fix styles that move the box (the JAX package's has_baro, less the
+# styles the port does not have)
+BAROSTATS = ("npt", "nph", "rigid/npt", "rigid/nph", "rigid/npt/small",
+             "rigid/nph/small")
 
 # the JAX package's warning for the dense route above the cap
 # (lidp_tpu/sim.py:2020-2025)
@@ -180,11 +193,11 @@ class Simulation:
         if not coul and script.kspace is not None:
             raise ValueError(f"KSpace style {script.kspace[0]} is "
                              f"incompatible with pair style {name}")
-        if coul and script.kspace[0] not in ("ewald", "ewald/disp"):
+        if coul and script.kspace[0] not in KSPACE_STYLES:
             raise NotImplementedError(
                 f"kspace_style {script.kspace[0]}: the port runs the "
-                "coulomb pair styles with ewald or ewald/disp only (pppm, "
-                "msm: ROADMAP queue 1 item 6, breadth)")
+                f"coulomb pair styles with {', '.join(KSPACE_STYLES)} only "
+                "(ROADMAP queue 1 item 6, breadth)")
         dense = not prescan(script, n)
         above_cap = n > fast_polar.DENSE_PATH_MAX_ATOMS
         npad = n if dense else aligned_npad(n)
@@ -214,26 +227,48 @@ class Simulation:
         # v == 0)
         mass_atom = _padA(script.mass_type[script.type], 1.0)
 
-        # ---- pair tables, kspace ----
+        # ---- pair tables, exclusions, kspace ----
         eps, sig, cut = _mix_pair_tables(script)
-        ew = None
+        excl_types = None
+        if script.neigh_exclude_types:
+            # neigh_modify exclude type (the JAX package's sim.py:1088-1096)
+            excl_types = np.zeros((script.ntypes + 1, script.ntypes + 1),
+                                  bool)
+            for t1, t2 in script.neigh_exclude_types:
+                excl_types[t1, t2] = excl_types[t2, t1] = True
+        ew = pppm = None
         g_ewald = 0.0
         if coul:
-            _, acc = script.kspace
-            es = setup_ewald_disp(
-                accuracy_rel=acc, qqrd2e=u.qqr2e, q=script.q, natoms=n,
-                cutoff=script.pair.cut_coul,
-                box_lengths=script.box_hi - script.box_lo,
-                g_ewald=script._gewald_override)
-            g_ewald = es.g_ewald
-            ew = EwaldParams.from_setup(es, u.qqr2e, dtype=dtype,
-                                        device=device)
+            style, acc = script.kspace
+            common = dict(accuracy_rel=acc, qqrd2e=u.qqr2e, q=script.q,
+                          natoms=n, cutoff=script.pair.cut_coul,
+                          box_lengths=script.box_hi - script.box_lo,
+                          g_ewald=script._gewald_override)
+            if style.startswith("pppm"):
+                # pppm/cg spreads only the charged atoms, a sparsity
+                # optimisation with the same result: it runs as pppm
+                ps = setup_pppm(**common)
+                g_ewald = ps.g_ewald
+                pppm = PPPMParams.from_setup(
+                    ps, u.qqr2e, float(np.sum(script.q ** 2)),
+                    float(np.sum(script.q)), stagger=style == "pppm/stagger")
+            else:
+                es = setup_ewald_disp(**common)
+                g_ewald = es.g_ewald
+                ew = EwaldParams.from_setup(es, u.qqr2e, dtype=dtype,
+                                            device=device)
         pair = make_pair_params(
             eps, sig, cut, cut_coul=script.pair.cut_coul if coul else 0.0,
             qqrd2e=u.qqr2e, g_ewald=g_ewald, coul=coul,
             special_lj=script.special_lj, special_coul=script.special_coul,
-            dtype=dtype, device=device)
+            excl_types=excl_types, dtype=dtype, device=device)
+        if script.neigh_exclude_mol:
+            pair = dataclasses.replace(pair, excl_mol=True)
         pol = polarization_settings(script.pair) if polar else None
+        # a barostat moves the box: the Ewald tables follow it and the
+        # integrator reads the virial every step (the JAX package's
+        # sim.py:1612-1617, 1667, 2005)
+        has_baro = any(f.style in BAROSTATS for f in script.fixes.values())
 
         # ---- neighbour strategy (the JAX package's sim.py:1785-1820) ----
         ncfg = None
@@ -279,7 +314,8 @@ class Simulation:
                                            device=device)
         ff = ForceField(pair=pair, ewald=ew, polar=pol, qqrd2e=u.qqr2e,
                         polar_xshift=polar_xshift, sp_code=sp_code,
-                        sp_idx=sp_idx, sp_lvl=sp_lvl)
+                        sp_idx=sp_idx, sp_lvl=sp_lvl, pppm=pppm,
+                        kspace_dynamic=has_baro and ew is not None)
 
         # ---- integrator from fixes ----
         from lidp_tpu_torch.styles import FixBuildCtx, build_fixes
@@ -290,11 +326,11 @@ class Simulation:
         if fctx.integ is None:
             raise NotImplementedError(
                 "a run without a time-integration fix is not ported "
-                "(fix nve, rigid/nve, rigid/nvt or nvt)")
+                "(fix nve, nvt, npt, nph or a rigid style)")
         runner = Runner(ff, fctx.integ, neighbor_cfg=ncfg,
                         rebuild_every=script.neigh_every if ncfg else 1,
                         check=script.neigh_check, skin=script.skin,
-                        delay=script.neigh_delay)
+                        delay=script.neigh_delay, every_step_ev=has_baro)
         if dense:
             if above_cap and polar:
                 script.log(_ABOVE_CAP)

@@ -6,9 +6,10 @@ Each fix style registers a builder with @fix_style(name); a builder
 receives the shared FixBuildCtx and sets ctx.integ (the time-integration
 styles) and the dof bookkeeping.  Simulation.from_script loops the
 registry.  The port registers the integrators the panel engine composes
-with, nve and rigid/nve, and the Nose-Hoover styles of the dense route,
-rigid/nvt and nvt (styles/fix_integrators.py); a fix style with no builder
-raises NotImplementedError.
+with, nve and rigid/nve, and the Nose-Hoover styles and barostats of the
+dense route and the cell grid, rigid/nvt, nvt, npt, nph, rigid/npt and
+rigid/nph (styles/fix_integrators.py); a fix style with no builder raises
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -71,8 +72,8 @@ def build_fixes(ctx: FixBuildCtx):
         builder = FIX_BUILDERS.get(spec.style)
         if builder is None:
             raise NotImplementedError(
-                f"fix style {spec.style} is not ported (only nve, "
-                "rigid/nve, rigid/nvt and nvt; ROADMAP queue 1 item 6, "
+                f"fix style {spec.style} is not ported (only nve, nvt, "
+                "npt, nph and the rigid styles; ROADMAP queue 1 item 6, "
                 "breadth)")
         builder(ctx, spec)
     return ctx

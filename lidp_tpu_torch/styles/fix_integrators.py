@@ -1,8 +1,10 @@
 """Time-integration fix styles (lidp_tpu/styles/fix_integrators.py): nve,
-rigid/nve, rigid/nvt and nvt.  Each builder sets ctx.integ.  nve/limit,
-nve/noforce, nvt/sllod, nvt/sphere and the barostat styles (npt, nph,
-rigid/npt, rigid/nph and their /small and /sphere forms) are not ported:
-the rigid and nvt ones raise here, the others have no builder.
+nvt, npt, nph, rigid/nve, rigid/nvt, rigid/npt and rigid/nph (with their
+/small forms).  Each builder sets ctx.integ.  nve/limit, nve/noforce,
+nvt/sllod, nvt/sphere and the /sphere barostats are not ported: the nvt,
+npt and nph ones raise here, the others have no builder.  Where the JAX
+package skips a keyword it does not know (build_npt's `else: i += 2`,
+build_rigid's `else: i += 1`), the port raises (ROADMAP queue 3 item 11).
 """
 
 from __future__ import annotations
@@ -15,11 +17,15 @@ import torch
 from lidp_tpu_torch.integrate import nve as nve_mod
 from lidp_tpu_torch.integrate import nvt as nvt_mod
 from lidp_tpu_torch.integrate import rigid as rigid_mod
-from lidp_tpu_torch.integrate.driver import (nve_integrator, nvt_integrator,
+from lidp_tpu_torch.integrate.driver import (npt_integrator, nve_integrator,
+                                             nvt_integrator,
                                              rigid_nve_integrator)
 from lidp_tpu_torch.styles import fix_style
 
 _BREADTH = "ROADMAP queue 1 item 6, breadth"
+# keywords the JAX package's builders skip without reading them
+_SKIPPED = ("ROADMAP queue 1 item 6, breadth; the JAX package skips it "
+            "unread: ROADMAP queue 3 item 11")
 
 
 @fix_style("nve", integrator=True)
@@ -68,11 +74,97 @@ def build_nvt(ctx, spec):
     ctx.integ = nvt_integrator(nvtp)
 
 
-def _rigid_nvt_keywords(style, a, u):
-    """make_rigid_params keywords of fix rigid/nvt's grammar (FixRigid,
-    fix_rigid.cpp:418-530): temp Tstart Tstop Tdamp, tparam Tchain Titer
-    Torder.  The barostat's keywords raise."""
+@fix_style("npt", "nph", "npt/sphere", "nph/sphere", integrator=True)
+def build_npt(ctx, spec):
+    """fix npt / nph (the JAX package's build_npt): temp Tstart Tstop
+    Tdamp, iso|aniso Pstart Pstop Pdamp, x|y|z Pstart Pstop Pdamp, mtk
+    yes|no, tchain N, pchain N; nph's barostat masses take t0 from the
+    current kinetic energy (fix_nh.cpp setup's fallback)."""
+    from lidp_tpu_torch.integrate import npt as npt_mod
+
+    if spec.style.endswith("/sphere"):
+        raise NotImplementedError(
+            f"fix {spec.style} is not ported ({_BREADTH}: integrate/npt.py "
+            "rot_ke30)")
+    script, u = ctx.script, ctx.u
+    dim_, n = ctx.dim, ctx.n
+    if not script.groups[spec.group].all():
+        # the JAX package raises the same
+        raise NotImplementedError("fix npt on sub-group")
+    a = spec.args
+    tgt = dict(t=None, tdamp=None, mtk=True, tchain=3, pchain=3,
+               iso=False, p=[None] * 3, pdamp=[1000.0] * 3,
+               t_stop=None, p_stop=[None] * 3)
+    i = 0
+    while i < len(a):
+        k = a[i]
+        if k == "temp":
+            tgt["t"], tgt["tdamp"] = float(a[i + 1]), float(a[i + 3])
+            tgt["t_stop"] = float(a[i + 2])
+            i += 4
+        elif k in ("iso", "aniso"):
+            tgt["iso"] = k == "iso"
+            tgt["p"] = [float(a[i + 1])] * 3
+            tgt["p_stop"] = [float(a[i + 2])] * 3
+            tgt["pdamp"] = [float(a[i + 3])] * 3
+            i += 4
+        elif k in ("x", "y", "z"):
+            d = "xyz".index(k)
+            tgt["p"][d] = float(a[i + 1])
+            tgt["p_stop"][d] = float(a[i + 2])
+            tgt["pdamp"][d] = float(a[i + 3])
+            i += 4
+        elif k == "mtk":
+            tgt["mtk"] = a[i + 1] == "yes"
+            i += 2
+        elif k == "tchain":
+            tgt["tchain"] = int(a[i + 1])
+            i += 2
+        elif k == "pchain":
+            tgt["pchain"] = int(a[i + 1])
+            i += 2
+        else:
+            raise NotImplementedError(
+                f"fix {spec.style} keyword {k} is not ported ({_SKIPPED})")
+    p_flag = tuple(v is not None for v in tgt["p"])
+    if not any(p_flag):
+        raise ValueError("fix npt needs a pressure keyword")
+    dof = dim_ * n - dim_
+    had_temp = tgt["t"] is not None
+    if not had_temp:
+        # nph: the barostat masses use t_target = t0, the current
+        # temperature, floored at 1.0 (lj) / 300 (fix_nh.cpp setup)
+        ke = float(np.sum(ctx.mass_atom * np.sum(
+            np.asarray(script.v) ** 2, axis=1))) * u.mvv2e
+        t0 = ke / ((dim_ * n - dim_) * u.boltz)
+        tgt["t"] = t0 if t0 > 0 else (1.0 if u.name == "lj" else 300.0)
+    nptp = npt_mod.NPTParams.create(
+        script.dt, u.ftm2v, ctx.mass_atom, tgt["t"],
+        tgt["tdamp"] if tgt["tdamp"] is not None else 1.0,
+        [v if v is not None else 0.0 for v in tgt["p"]],
+        tgt["pdamp"], natoms=n, dof=dof, boltz=u.boltz,
+        mvv2e=u.mvv2e, nktv2p=u.nktv2p, tchain=tgt["tchain"],
+        pchain=tgt["pchain"], mtk=tgt["mtk"],
+        tstat=spec.style.startswith("npt") and had_temp,
+        p_flag=p_flag, iso=tgt["iso"], t_stop=tgt["t_stop"],
+        p_stop=([v if v is not None else 0.0 for v in tgt["p_stop"]]
+                if any(v is not None for v in tgt["p_stop"]) else None),
+        dtype=ctx.dtype, device=ctx.device)
+    ctx.integ = npt_integrator(nptp)
+
+
+def _rigid_keywords(style, a, u):
+    """make_rigid_params keywords of fix rigid/nvt, rigid/npt and
+    rigid/nph's grammar (FixRigid, fix_rigid.cpp:418-530): temp Tstart
+    Tstop Tdamp, tparam Tchain Titer Torder, iso|aniso Pstart Pstop Pdamp,
+    x|y|z Pstart Pstop Pdamp, couple xyz|none, pchain N.  Returns (kw,
+    barostat keywords or None)."""
     kw = dict(boltz=u.boltz, mvv2e=u.mvv2e)
+    p_start = [0.0, 0.0, 0.0]
+    p_stop = [0.0, 0.0, 0.0]
+    p_period = [1.0, 1.0, 1.0]
+    p_flag = [False, False, False]
+    pcouple_xyz = False
     i = 1
     while i < len(a):
         if a[i] == "temp":
@@ -83,17 +175,79 @@ def _rigid_nvt_keywords(style, a, u):
             kw.update(t_chain=int(a[i + 1]), t_iter=int(a[i + 2]),
                       t_order=int(a[i + 3]))
             i += 4
-        elif a[i] in ("iso", "aniso", "x", "y", "z", "couple", "pchain",
-                      "dilate"):
+        elif a[i] in ("iso", "aniso"):
+            p_start = [float(a[i + 1])] * 3
+            p_stop = [float(a[i + 2])] * 3
+            p_period = [float(a[i + 3])] * 3
+            p_flag = [True, True, True]
+            pcouple_xyz = a[i] == "iso"
+            i += 4
+        elif a[i] in ("x", "y", "z"):
+            d = "xyz".index(a[i])
+            p_start[d] = float(a[i + 1])
+            p_stop[d] = float(a[i + 2])
+            p_period[d] = float(a[i + 3])
+            p_flag[d] = True
+            i += 4
+        elif a[i] == "couple":
+            pcouple_xyz = a[i + 1] == "xyz"
+            i += 2
+        elif a[i] == "pchain":
+            kw["p_chain"] = int(a[i + 1])
+            i += 2
+        elif a[i] == "dilate":
             raise NotImplementedError(
-                f"fix {style} keyword {a[i]}: {rigid_mod._BAROSTAT}")
+                f"fix {style} keyword dilate is not ported ({_BREADTH})")
         else:
             raise NotImplementedError(
-                f"fix {style} keyword {a[i]} is not ported ({_BREADTH})")
-    if not kw.get("tstat"):
+                f"fix {style} keyword {a[i]} is not ported ({_SKIPPED})")
+    if style in ("rigid/nvt", "rigid/npt") and not kw.get("tstat"):
         raise ValueError(f"fix {style} requires the temp keyword "
                          "(fix_rigid_nvt.cpp:38/fix_rigid_npt.cpp:38)")
-    return kw
+    if style == "rigid/nvt":
+        if any(p_flag):
+            raise NotImplementedError(
+                f"fix {style}: its pressure keywords are not ported "
+                f"({_SKIPPED})")
+        return kw, None
+    if not any(p_flag):
+        raise ValueError(f"fix {style} needs a pressure keyword "
+                         "(fix_rigid_npt.cpp:47)")
+    return kw, dict(pstat=True, p_start=tuple(p_start),
+                    p_stop=tuple(p_stop), p_period=tuple(p_period),
+                    p_flag=tuple(p_flag), iso=pcouple_xyz,
+                    nktv2p=u.nktv2p)
+
+
+def _rigid_t0(ctx, rsetup, gmask):
+    """FixRigidNH::setup's t0 fallback (:348-356), the JAX package's: the
+    barostat masses use the group temperature after the setup's set_v
+    projection onto rigid motion, body KE = sum M vcm^2 + L.omega, from
+    the data's x and v (host numpy, float64)."""
+    script, u = ctx.script, ctx.u
+    v0 = np.asarray(script.v)
+    x0 = np.asarray(script.x)
+    m0 = np.asarray(ctx.mass_atom[:v0.shape[0]])
+    akin = 0.0
+    for b in range(rsetup.nbody):
+        idx = np.nonzero(rsetup.body_of_atom[:v0.shape[0]] == b)[0]
+        M = rsetup.masstotal[b]
+        vcm0 = (m0[idx, None] * v0[idx]).sum(0) / M
+        akin += M * np.dot(vcm0, vcm0)
+        xc = (m0[idx, None] * x0[idx]).sum(0) / M
+        L0 = (m0[idx, None] * np.cross(x0[idx] - xc, v0[idx])).sum(0)
+        R0 = rigid_mod.q_to_matrix(
+            torch.as_tensor(rsetup.quat0[b], dtype=torch.float64)).numpy()
+        mb = R0.T @ L0
+        I0 = rsetup.inertia[b]
+        akin += np.dot(mb, np.where(I0 > 0.0, mb / np.where(I0 > 0.0, I0,
+                                                             1.0), 0.0))
+    g0 = np.asarray(gmask)[:v0.shape[0]]
+    dof0 = max(3.0 * int(g0.sum()) - 3.0 - rsetup.dof_removed, 1.0)
+    t0 = float(akin) * u.mvv2e / (dof0 * u.boltz)
+    if t0 <= 0.0:
+        t0 = 1.0 if u.name == "lj" else 300.0
+    return t0
 
 
 @fix_style("rigid", "rigid/nve", "rigid/nvt", "rigid/small",
@@ -104,21 +258,26 @@ def build_rigid(ctx, spec):
     if spec.style.endswith("/small"):
         spec = dataclasses.replace(spec, style=spec.style[:-6])
     script, u = ctx.script, ctx.u
-    if spec.style in ("rigid/npt", "rigid/nph"):
-        raise NotImplementedError(f"fix {spec.style}: {rigid_mod._BAROSTAT}")
     if not spec.args or spec.args[0] != "molecule":
         raise NotImplementedError(
             f"fix {spec.style} {' '.join(spec.args)}: only bodies by "
             f"molecule are ported ({_BREADTH})")
-    kw = {}
-    if spec.style == "rigid/nvt":
-        kw = _rigid_nvt_keywords(spec.style, spec.args, u)
+    kw, baro = {}, None
+    if spec.style in ("rigid/nvt", "rigid/npt", "rigid/nph"):
+        kw, baro = _rigid_keywords(spec.style, spec.args, u)
     gmask = ctx.groups[spec.group]
     x_unwrap = (ctx.padA(script.x)
                 + ctx.padA(script.image, 0)
                 * (script.box_hi - script.box_lo))
     rsetup = rigid_mod.setup_bodies(x_unwrap, ctx.mass_atom,
                                     ctx.padA(script.mol, 0), gmask)
+    if baro is not None:
+        if spec.style == "rigid/nph" or "t_start" not in kw:
+            t0 = _rigid_t0(ctx, rsetup, gmask)
+            kw.setdefault("t_start", t0)
+            kw.setdefault("t_stop", t0)
+            kw.setdefault("t_period", 1.0)
+        kw.update(baro)
     rp = rigid_mod.make_rigid_params(rsetup, script.dt, u.ftm2v,
                                      mass_atom=ctx.mass_atom,
                                      dtype=ctx.dtype, device=ctx.device,

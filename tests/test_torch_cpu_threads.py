@@ -25,7 +25,11 @@ changes.  The subprocesses import torch and the port, never JAX:
     (3 x 3 x 3: its plain pair pass, no special bonds, no Ewald, no polar
     term), `run 1`: the rows of steps 0 and 1 and the forces of step 1 (on
     the lattice of step 0 they cancel to rounding, which another summation
-    order changes).
+    order changes);
+  * dense_npt_pppm: panel_step's fluid with `fix rigid/npt` and
+    `kspace_style pppm 1e-4` (the mesh's spread, FFTs and gather, the
+    rigid barostat's remaps) on the dense route, `run 1`: the rows of
+    steps 0 and 1, step 1's forces and dipoles and its box.
 
 The fault these processes look for is not located (ROADMAP queue 3 item
 1): in about 410 such processes it showed once, in one of about 270 of
@@ -101,6 +105,22 @@ np.savez(out, f=sim.res.f.numpy(),
 assert "jax" not in sys.modules
 """
 
+_NPT = _PRELUDE + """\
+from lidp_tpu_torch.io.script import LammpsScript
+s = LammpsScript(dtype=torch.float64, device="cpu", log=lambda line: None)
+s.variables["nstep"] = "1"
+s.file(sys.argv[2])
+sim = s._sim
+n = sim.natoms
+assert sim.runner.neighbor_cfg is None and sim.runner.ff.pppm is not None
+np.savez(out, f=sim.res.f[:n].numpy(), mu=sim.sys.mu[:n].numpy(),
+         box=sim.sys.box.hi.numpy(),
+         rows=np.array([[r[c] for c in ("pe", "evdwl", "ecoul", "elong",
+                                        "epol", "press", "vol")]
+                        for r in s.thermo_rows]))
+assert "jax" not in sys.modules
+"""
+
 _PAIR = _PRELUDE + """\
 from lidp_tpu_torch.ops import panel
 c = np.load(sys.argv[2])
@@ -130,10 +150,15 @@ def inputs(tmp_path_factory):
                                   "L", "sp")})
     (d / "in.lj").write_text(
         chip_smoke.LJ_SCRIPT.replace("run\t\t100", "run 1"))
+    (d / "in.npt").write_text(chip_smoke.FLUID_SCRIPT.replace(
+        "fix 1 all rigid/nve molecule",
+        "fix 1 all rigid/npt molecule temp 300 300 100 iso 1 1 1000").replace(
+        "kspace_style ewald/disp 1e-4", "kspace_style pppm 1e-4"))
     return {"panel_step": (_SCRIPT, in_fluid, {"LIDP_FAST_POLAR": "1"}),
             "pair_plain": (_PAIR, str(d / "pair_case.npz"), {}),
             "dense_route": (_SCRIPT, in_fluid, {}),
-            "cell_route": (_LJ, str(d / "in.lj"), {})}
+            "cell_route": (_LJ, str(d / "in.lj"), {}),
+            "dense_npt_pppm": (_NPT, str(d / "in.npt"), {})}
 
 
 def _run(code, arg, env_extra, out, one_thread):
@@ -155,7 +180,8 @@ def _run(code, arg, env_extra, out, one_thread):
     "the float64 first-evaluation fault on several CPU threads is not "
     "located (ROADMAP queue 3 item 1): seen once in ~270 processes"))
 @pytest.mark.parametrize("case", ["panel_step", "pair_plain",
-                                  "dense_route", "cell_route"])
+                                  "dense_route", "cell_route",
+                                  "dense_npt_pppm"])
 def test_first_float64_evaluation_is_thread_independent(inputs, case,
                                                         tmp_path):
     code, arg, env = inputs[case]

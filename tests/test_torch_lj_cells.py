@@ -388,12 +388,13 @@ def test_atom_order_par_follows_the_box():
 
 
 def test_compute_forces_unported_routes_raise():
-    """Neighbour lists and excl_mol on a cell grid raise; nlist=None is
+    """Neighbour lists raise; excl_mol on a cell grid (which raised here
+    until it was ported) gives the JAX package's result; nlist=None is
     the dense route (ported), which gives the cell route's result, with a
     polar term too (the dense polar term after the cell pair term, ported
     in the script's cell route; tests/test_torch_script_cells.py holds it
     to JAX)."""
-    _, ti, _ = _case(GRIDS["cubic"], np.float64)
+    tj, ti, _ = _case(GRIDS["cubic"], np.float64)
     sys_t = make_system(ti["x"], box=ti["box"], device="cpu")
     ff = tff.ForceField(pair=ti["p"])
     dense = tff.compute_forces(sys_t, ff, None)
@@ -415,7 +416,20 @@ def test_compute_forces_unported_routes_raise():
     assert float(dense.epol) != 0.0
     for k in ("f", "evdwl", "epol", "mu", "virial"):
         _close(getattr(dense, k), getattr(cells, k), np.float64, k)
-    with pytest.raises(NotImplementedError, match="excl_mol"):
-        tff.compute_forces(sys_t, dataclasses.replace(
-            ff, pair=dataclasses.replace(ff.pair, excl_mol=True)),
-            ti["cells"])
+    # excl_mol on a cell grid, which raised here, is ported: the JAX
+    # package's compute_forces on the same Cells (molecules of 4 atoms)
+    from lidp_tpu.forcefield import ForceField as JFF
+    from lidp_tpu.forcefield import compute_forces as jforces
+    from lidp_tpu.state import make_system as jmake
+
+    mol = np.arange(sys_t.x.shape[0]) // 4 + 1
+    sys_m = sys_t.replace(mol=torch.as_tensor(mol, dtype=torch.int32))
+    tres = tff.compute_forces(sys_m, dataclasses.replace(
+        ff, pair=dataclasses.replace(ff.pair, excl_mol=True)), ti["cells"])
+    jres = jforces(jmake(np.asarray(tj["x"]), box=tj["box"], mol=mol,
+                         dtype=jnp.float64),
+                   JFF(pair=dataclasses.replace(tj["p"], excl_mol=True)),
+                   tj["cells"])
+    for k in ("f", "evdwl", "virial"):
+        _close(getattr(tres, k), getattr(jres, k), np.float64, k)
+    assert float(tres.evdwl) != float(cells.evdwl)

@@ -335,17 +335,23 @@ def test_unported_options_raise():
                                atol=1e-10 * float(rc.f.abs().max()))
     with pytest.raises(NotImplementedError, match="neighbor.py"):
         Runner(ff=ff, integ=integ, neighbor_cfg=object()).setup(t["sys"])
-    # rigid/nve and its thermostat are ported (tests/test_torch_rigid.py,
-    # tests/test_torch_thermostats.py); its barostat is not
+    # rigid/nve, its thermostat and its barostat are ported (tests/
+    # test_torch_rigid.py, test_torch_thermostats.py, test_torch_npt.py):
+    # pstat=True, which raised here, gives the JAX package's fields
+    from lidp_tpu.integrate import rigid as jrigid
     from lidp_tpu_torch.integrate import rigid
+    from tests.test_torch_rigid import barostat_fields_match
 
     setup = rigid.setup_bodies(np.zeros((3, 3)) + np.eye(3), np.ones(3),
                                np.ones(3, np.int64), np.ones(3, bool))
     assert rigid_nve_integrator(None, None).params is None
     assert rigid.make_rigid_params(setup, DT, 1.0, device="cpu",
                                    tstat=True, t_start=1.0).tstat
-    with pytest.raises(NotImplementedError, match="rigid"):
-        rigid.make_rigid_params(setup, DT, 1.0, device="cpu", pstat=True)
+    barostat_fields_match(
+        rigid.make_rigid_params(setup, DT, 1.0, device="cpu", pstat=True),
+        jrigid.make_rigid_params(jrigid.setup_bodies(
+            np.zeros((3, 3)) + np.eye(3), np.ones(3), np.ones(3, np.int64),
+            np.ones(3, bool)), DT, 1.0, pstat=True))
     with pytest.raises(NotImplementedError, match="RespaRunner"):
         RespaRunner(ff=ff)
 

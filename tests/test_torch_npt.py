@@ -1,0 +1,485 @@
+"""The port's barostats (lidp_tpu_torch.integrate.npt, the barostat half of
+integrate/rigid.py, their fix styles and driver integrators, the Ewald
+tables that follow the box) against the JAX package's, float64 on the CPU,
+inputs from numpy seeds and from the repo's own builders:
+
+  * fix npt / nph's functions: init_state, then 20 initial/final pairs on
+    256 LJ atoms (an fcc lattice, lj units, the dense pair pass of each
+    package's compute_forces) with the targets ramped over the 20 steps as
+    the JAX package's _run_chunk ramps them: iso, aniso, z alone with mtk
+    no / pchain 0 / tchain 1 (in.rhodo's flags) and nph; x, v, the box and
+    every chain within 1e-10 of each array's largest entry at every step;
+    the JAX state carried across by convert.npt_state_from_numpy continues
+    alike;
+  * the rigid barostat: init_rigid_state + init_pstat and 10 initial/final
+    pairs on tests/test_torch_rigid.py's bodies under its fixed force and
+    a fixed virial, rigid/npt iso and aniso and rigid/nph on x and z, the
+    ramp as above, at 1e-10 (the strain rate and the barostat chain
+    included);
+  * scripts through both packages' LammpsScript, 10 steps with a row each
+    step, every thermo column and the box's (vol, lx..lz, xlo..zhi,
+    density) within rel 1e-8 of max(1, |value|), the final x and v within
+    1e-8 of their largest entry: fix npt iso, aniso and z alone (in.rhodo's
+    flags) and fix nph on the point-charge fluid
+    (chip_smoke.point_charge_script on fluid_script_case(n_side=5), Ewald
+    rescaled to the live box); fix rigid/npt and rigid/nph on the polar
+    fluid with ewald/disp and again with pppm; bench/in.lj cut to 5 cells
+    with fix npt in place of fix nve; pppm and fix npt on the cell grid
+    (the point-charge fluid with `neighbor 0.1 bin` above a dense cap
+    mocked to 300 in both packages, plus chip_smoke.CANCEL_REL of the
+    magnitude the special correction cancels);
+  * both CLIs (`-device cpu` on the port) on the point-charge fluid with
+    pppm and fix npt, logged at 16 digits: rows within rel 1e-8;
+  * what still raises, naming its ROADMAP item: an npt keyword outside the
+    JAX package's grammar (which skips it: its rows with `drag 1.0` are
+    its rows without, ROADMAP queue 3 item 11), dilate, the /sphere
+    styles.
+"""
+
+import dataclasses
+import os
+import subprocess
+import sys
+from pathlib import Path
+from types import SimpleNamespace
+from unittest import mock
+
+import numpy as np
+import pytest
+import torch
+
+jnp = pytest.importorskip("jax.numpy")
+# one torch thread, as the port's other parity files pin it (ROADMAP queue
+# 3 item 1; tests/test_torch_cpu_threads.py looks for the fault)
+torch.set_num_threads(1)
+
+import chip_smoke  # noqa: E402
+from lidp_tpu import sim as jsim  # noqa: E402
+from lidp_tpu.integrate import npt as jnpt  # noqa: E402
+from lidp_tpu.integrate import nvt as jn  # noqa: E402
+from lidp_tpu.integrate import rigid as jr  # noqa: E402
+from lidp_tpu.io import script as jscript  # noqa: E402
+from lidp_tpu_torch import convert  # noqa: E402
+from lidp_tpu_torch.integrate import npt as tnpt  # noqa: E402
+from lidp_tpu_torch.integrate import rigid as tr  # noqa: E402
+from lidp_tpu_torch.integrate.driver import (npt_integrator,  # noqa: E402
+                                             rigid_nve_integrator)
+from lidp_tpu_torch.io import script as tscript  # noqa: E402
+from lidp_tpu_torch.parallel import fast_polar as tfast  # noqa: E402
+from lidp_tpu_torch.units import REAL  # noqa: E402
+from tests.test_torch_rigid import (DT, FTM2V, STATE, _bodies,  # noqa: E402
+                                    _force)
+
+ROOT = Path(__file__).resolve().parent.parent
+NSTEP = 10
+BOX_COLS = ("vol", "lx", "ly", "lz", "xlo", "xhi", "ylo", "yhi", "zlo",
+            "zhi", "density")
+COLS = chip_smoke.G64_COLS + BOX_COLS
+TOL = 1e-10
+
+
+def _close(a, b, tol, msg=""):
+    a = a.numpy() if torch.is_tensor(a) else np.asarray(a)
+    b = np.asarray(b)
+    np.testing.assert_allclose(a, b, rtol=0,
+                               atol=tol * max(np.abs(b).max(), 1e-300),
+                               err_msg=msg)
+
+
+# ----------------------------- npt functions -----------------------------
+
+# (keywords of NPTParams.create) of each case; lj units
+NPT_CASES = {
+    "iso": dict(p_flag=(True, True, True), iso=True),
+    "aniso": dict(p_flag=(True, True, True), iso=False),
+    "z_rhodo": dict(p_flag=(False, False, True), iso=False, mtk=False,
+                    pchain=0, tchain=1),
+    "nph": dict(p_flag=(True, True, True), iso=True, tstat=False),
+}
+NPT_STEPS = 20
+
+
+def _lattice():
+    """256 atoms on a 4^3 fcc lattice at reduced density 0.8442, jittered,
+    with seeded velocities: (x, v, L)."""
+    a = (4.0 / 0.8442) ** (1.0 / 3.0)
+    base = np.array([[0, 0, 0], [0.5, 0.5, 0], [0.5, 0, 0.5], [0, 0.5, 0.5]])
+    cells = np.array([[i, j, k] for i in range(4) for j in range(4)
+                      for k in range(4)], float)
+    x = ((cells[:, None, :] + base[None]) * a).reshape(-1, 3)
+    rng = np.random.RandomState(11)
+    x = x + rng.normal(0.0, 0.03, x.shape)
+    v = rng.normal(0.0, 1.2, x.shape)
+    return x, v - v.mean(0), 4 * a
+
+
+def _npt_runs(case, nsteps=NPT_STEPS):
+    from lidp_tpu.box import Box as JBox
+    from lidp_tpu.forcefield import ForceField as JFF
+    from lidp_tpu.forcefield import compute_forces as jforces
+    from lidp_tpu.ops.pair import make_pair_params as jpair
+    from lidp_tpu.state import make_system as jmake
+    from lidp_tpu_torch.box import Box
+    from lidp_tpu_torch.forcefield import ForceField, compute_forces
+    from lidp_tpu_torch.ops.pair import make_pair_params
+    from lidp_tpu_torch.state import make_system
+
+    x, v, L = _lattice()
+    n = x.shape[0]
+    tab = [np.ones((2, 2)), np.ones((2, 2)), np.full((2, 2), 2.5)]
+    mass = np.ones(n)
+    kw = dict(natoms=n, dof=3 * n - 3, boltz=1.0, mvv2e=1.0, nktv2p=1.0,
+              t_stop=1.6, p_stop=0.6, **NPT_CASES[case])
+    args = (0.005, 1.0, mass, 1.44, 0.5, 0.5, 5.0)
+    jp = jnpt.NPTParams.create(*args, **kw)
+    tp = tnpt.NPTParams.create(*args, device="cpu", **kw)
+    jp = dataclasses.replace(jp, ramp_begin=jnp.asarray(0, jnp.int32),
+                             ramp_end=jnp.asarray(nsteps, jnp.int32))
+    tp = dataclasses.replace(tp, ramp_begin=0, ramp_end=nsteps)
+    jff = JFF(pair=jpair(*tab))
+    tff = ForceField(pair=make_pair_params(*tab))
+    fields = ("eta", "eta_dot", "etap", "etap_dot", "omega", "omega_dot",
+              "mtk_term2")
+
+    def rec(sys, st):
+        return {**{f: np.asarray(getattr(st, f)) for f in fields},
+                "x": np.asarray(sys.x), "v": np.asarray(sys.v),
+                "lo": np.asarray(sys.box.lo), "hi": np.asarray(sys.box.hi)}
+
+    jsys = jmake(x, box=JBox.create(np.zeros(3), np.full(3, L),
+                                    dtype=jnp.float64), v=v,
+                 dtype=jnp.float64)
+    jres = jforces(jsys, jff)
+    jsys, jst = jnpt.init_state(jsys, jres.f, jp)
+    jrecs = [rec(jsys, jst)]
+    for _ in range(nsteps):
+        r = (jp.ramp_begin, jp.ramp_end, jsys.step + 1)
+        jpk = dataclasses.replace(
+            jp, t_target=jn.ramp_target(jp.t_target, jp.t_stop, *r),
+            p_target=jn.ramp_target(jp.p_target, jp.p_stop, *r))
+        jsys, jst = jnpt.initial_integrate(jsys, jres, jpk, jst)
+        jsys = jsys.replace(step=jsys.step + 1)
+        jres = jforces(jsys, jff)
+        jsys, jst = jnpt.final_integrate(jsys, jres, jpk, jst)
+        jrecs.append(rec(jsys, jst))
+
+    integ = npt_integrator(tp)
+    tsys = make_system(x, box=Box.create(np.zeros(3), np.full(3, L)), v=v,
+                       dtype=torch.float64, device="cpu")
+    tres = compute_forces(tsys, tff)
+    tsys, tst = integ.init_state(tsys, tres.f, tp)
+    trecs = [rec(tsys, tst)]
+    for _ in range(nsteps):
+        tsys, tst = integ.initial(tsys, tres, tp, tst)
+        tsys = tsys.replace(step=tsys.step + 1)
+        tres = compute_forces(tsys, tff)
+        tsys, tst = integ.final(tsys, tres, tp, tst)
+        trecs.append(rec(tsys, tst))
+    return jrecs, trecs, jst, (tsys, tres, tst, integ)
+
+
+@pytest.mark.parametrize("case", list(NPT_CASES))
+def test_npt_integrator_matches_jax(case):
+    jrecs, trecs, jst, (tsys, tres, tst, integ) = _npt_runs(case)
+    for k, (j, t) in enumerate(zip(jrecs, trecs)):
+        for name in j:
+            _close(t[name], j[name], TOL, f"{case} step {k} {name}")
+    # the box moved, on the coupled dims only
+    lo0, lo1 = trecs[0]["lo"], trecs[-1]["lo"]
+    moved = np.abs(lo1 - lo0) > 1e-9
+    assert moved.tolist() == list(NPT_CASES[case]["p_flag"])
+    if NPT_CASES[case].get("tstat", True):
+        assert np.abs(trecs[-1]["eta_dot"]).max() > 0.0
+    # the JAX state carried across continues as the port's own does
+    moved = convert.npt_state_from_numpy(
+        {f.name: np.asarray(getattr(jst, f.name))
+         for f in dataclasses.fields(tnpt.NPTState)}, device="cpu")
+    a = integ.initial(tsys, tres, integ.params, moved)
+    b = integ.initial(tsys, tres, integ.params, tst)
+    for name in ("x", "v"):
+        _close(getattr(a[0], name), getattr(b[0], name).numpy(), TOL)
+    for f in dataclasses.fields(tnpt.NPTState):
+        _close(getattr(a[1], f.name), getattr(b[1], f.name).numpy(), TOL,
+               f.name)
+
+
+# --------------------------- the rigid barostat ---------------------------
+
+RIGID_CASES = {
+    "npt_iso": dict(tstat=True, t_start=300.0, t_stop=330.0, t_period=20.0,
+                    t_chain=10, p_flag=(True, True, True), iso=True),
+    "npt_aniso": dict(tstat=True, t_start=300.0, t_stop=300.0,
+                      t_period=20.0, t_chain=3, p_flag=(True, True, True),
+                      iso=False, p_chain=3),
+    "nph_xz": dict(t_start=310.0, t_stop=310.0, t_period=1.0,
+                   p_flag=(True, False, True), iso=False),
+}
+RIGID_STEPS = 10
+
+
+def _virial(x, f):
+    return 0.5 * (x[:, [0, 1, 2, 0, 0, 1]] * f[:, [0, 1, 2, 1, 2, 2]]).sum(0)
+
+
+@pytest.mark.parametrize("case", list(RIGID_CASES))
+def test_rigid_barostat_integrator_matches_jax(case):
+    from lidp_tpu.box import Box as JBox
+    from lidp_tpu.state import make_system as jmake
+    from lidp_tpu_torch.box import Box
+    from lidp_tpu_torch.state import make_system
+
+    x, mass, mol, in_group = _bodies("bent", seed=4)
+    v = np.random.RandomState(5).normal(0, 0.01, x.shape)
+    lo, hi = np.zeros(3), np.full(3, 20.0)
+    kw = dict(RIGID_CASES[case], pstat=True, p_start=(1.0, 1.0, 1.0),
+              p_stop=(50.0, 50.0, 50.0), p_period=(100.0, 100.0, 100.0),
+              boltz=REAL.boltz, mvv2e=REAL.mvv2e, nktv2p=REAL.nktv2p)
+    jp = jr.make_rigid_params(jr.setup_bodies(x, mass, mol, in_group), DT,
+                              FTM2V, mass_atom=mass, **kw)
+    jp = dataclasses.replace(jp, ramp_begin=jnp.asarray(0, jnp.int32),
+                             ramp_end=jnp.asarray(RIGID_STEPS, jnp.int32))
+    tp = tr.make_rigid_params(tr.setup_bodies(x, mass, mol, in_group), DT,
+                              FTM2V, mass_atom=mass, device="cpu", **kw)
+    tp = dataclasses.replace(tp, ramp_begin=0, ramp_end=RIGID_STEPS)
+    fields = STATE + ("eta_dot_t", "eta_dot_r", "epsilon_dot",
+                      "eta_dot_b", "mtk_term2")
+
+    def rec(sys, st):
+        return {**{f: np.asarray(getattr(st, f)) for f in fields},
+                "x": np.asarray(sys.x), "v": np.asarray(sys.v),
+                "lo": np.asarray(sys.box.lo), "hi": np.asarray(sys.box.hi)}
+
+    def res(x_):
+        f = _force(x_)
+        return SimpleNamespace(f=f, virial=_virial(x_, f))
+
+    jsys = jmake(x, box=JBox.create(lo, hi, dtype=jnp.float64), v=v,
+                 mol=mol, dtype=jnp.float64)
+    r0 = res(jsys.x)
+    jsys, jst = jr.init_rigid_state(jsys, r0.f, jp, jnp.asarray(mass))
+    jst = jr.init_pstat(jsys, r0.virial, jp, jst)
+    jrecs = [rec(jsys, jst)]
+    for _ in range(RIGID_STEPS):
+        r = (jp.ramp_begin, jp.ramp_end, jsys.step + 1)
+        jpk = dataclasses.replace(
+            jp, t_target=jn.ramp_target(jp.t_target, jp.t_stop, *r),
+            p_target=jn.ramp_target(jp.p_target, jp.p_stop, *r))
+        jsys, jst = jr.initial_integrate(jsys, _force(jsys.x), jpk, jst)
+        jsys = jsys.replace(step=jsys.step + 1)
+        r1 = res(jsys.x)
+        jsys, jst = jr.final_integrate(jsys, r1.f, jpk, jst,
+                                       res_virial=r1.virial)
+        jrecs.append(rec(jsys, jst))
+
+    integ = rigid_nve_integrator(tp, torch.as_tensor(mass))
+    assert integ.init_state_res is not None
+    tsys = make_system(x, box=Box.create(lo, hi), v=v, mol=mol,
+                       dtype=torch.float64, device="cpu")
+    tsys, tst = integ.init_state_res(tsys, res(tsys.x), tp)
+    trecs = [rec(tsys, tst)]
+    for _ in range(RIGID_STEPS):
+        tsys, tst = integ.initial(tsys, res(tsys.x), tp, tst)
+        tsys = tsys.replace(step=tsys.step + 1)
+        tsys, tst = integ.final(tsys, res(tsys.x), tp, tst)
+        trecs.append(rec(tsys, tst))
+    for k, (j, t) in enumerate(zip(jrecs, trecs)):
+        for name in j:
+            _close(t[name], j[name], TOL, f"{case} step {k} {name}")
+    assert np.abs(trecs[-1]["epsilon_dot"]).max() > 0.0
+    assert np.abs(trecs[-1]["eta_dot_b"]).max() > 0.0
+    moved = np.abs(trecs[-1]["hi"] - trecs[0]["hi"]) > 1e-12
+    assert moved.tolist() == list(RIGID_CASES[case]["p_flag"])
+
+
+# ------------------------------ script cases ------------------------------
+
+RIGID_ALL = "fix 1 all rigid/nve molecule"
+THERMO = ("thermo_style custom step etotal ke pe evdwl ecoul elong epol "
+          "temp press vol lx ly lz xlo xhi ylo yhi zlo zhi density")
+
+
+def _thermo(t):
+    return t.replace(
+        "thermo_style custom step etotal ke pe evdwl ecoul elong epol temp "
+        "press", THERMO)
+
+
+def _pc(fix, kspace="ewald/disp 1e-4"):
+    """The point-charge fluid with `fix` for the rigid fix."""
+    t = _thermo(chip_smoke.point_charge_script()).replace(RIGID_ALL, fix)
+    return t.replace("ewald/disp 1e-4", kspace)
+
+
+def _polar(fix, kspace="ewald/disp 1e-4"):
+    t = _thermo(chip_smoke.FLUID_SCRIPT).replace(RIGID_ALL, fix)
+    return t.replace("ewald/disp 1e-4", kspace)
+
+
+RIGID_NPT = "fix 1 all rigid/npt molecule temp 300 320 100 iso 1 400 1000"
+RIGID_NPH = "fix 1 all rigid/nph/small molecule aniso 1 1 1000"
+LJ_NPT = "fix\t\t1 all npt temp 1.44 1.44 0.5 iso -5.0197073 -5.0197073 5.0"
+CASES = {
+    "npt_iso": _pc("fix 1 all npt temp 300 300 100 iso 1 1 1000"),
+    "npt_aniso": _pc("fix 1 all npt temp 300 330 100 aniso 1 200 1000"),
+    "npt_z_rhodo": _pc("fix 1 all npt temp 300 300 100 z 1 1 1000 mtk no "
+                       "pchain 0 tchain 1"),
+    "nph": _pc("fix 1 all nph iso 1 1 1000"),
+    "rigid_npt": _polar(RIGID_NPT),
+    "rigid_nph": _polar(RIGID_NPH),
+    "rigid_npt_pppm": _polar(RIGID_NPT, "pppm 1e-4"),
+    "rigid_nph_pppm": _polar(RIGID_NPH, "pppm 1e-4"),
+    "lj_npt": chip_smoke.LJ_SCRIPT.replace(
+        "fix\t\t1 all nve", LJ_NPT).replace(
+        "run\t\t100", f"thermo 1\nthermo_style custom step temp epair "
+        f"etotal press {' '.join(BOX_COLS)}\nrun ${{nstep}}"),
+    "cells_pppm_npt": _pc("fix 1 all npt temp 300 300 100 iso 1 1 1000",
+                          "pppm 1e-4").replace(
+        "read_data fluid.data\n", "read_data fluid.data\nneighbor 0.1 bin\n"),
+}
+CAPPED = {"cells_pppm_npt": 300}
+
+
+def _run(pkg, d, text, nstep=NSTEP, cap=None):
+    """`text` through pkg's LammpsScript in directory d (float64; the port
+    on the CPU), DENSE_PATH_MAX_ATOMS mocked to `cap` in both packages
+    where given."""
+    path = d / f"in.{pkg}"
+    path.write_text(text)
+    if pkg == "jax":
+        s = jscript.LammpsScript(dtype=jnp.float64)
+    else:
+        s = tscript.LammpsScript(dtype=torch.float64, device="cpu")
+    s.variables["nstep"] = str(nstep)
+    cap = cap or jsim.DENSE_PATH_MAX_ATOMS
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("LIDP_FAST_POLAR", "LIDP_FAST_POLAR_MODE")}
+    with mock.patch.dict(os.environ, env, clear=True), \
+            mock.patch.object(jsim, "DENSE_PATH_MAX_ATOMS", cap), \
+            mock.patch.object(tfast, "DENSE_PATH_MAX_ATOMS", cap):
+        s.file(str(path))
+    return s
+
+
+@pytest.fixture(scope="module")
+def fluid(tmp_path_factory):
+    d = tmp_path_factory.mktemp("fluid")
+    chip_smoke.fluid_script_case(str(d), n_side=5)
+    return d
+
+
+@pytest.fixture(scope="module")
+def runs(fluid):
+    """Each case through both packages, once: {case: (jax, port)}."""
+    out = {}
+    for case, text in CASES.items():
+        if case == "lj_npt":
+            # the region cut to 5 lattice cells a side (500 atoms)
+            for k in "xyz":
+                text = text.replace(f"variable\t{k} index 1",
+                                    f"variable\t{k} index 0.25")
+        out[case] = tuple(_run(pkg, fluid, text, cap=CAPPED.get(case))
+                          for pkg in ("jax", "torch"))
+    return out
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_script_matches_jax(runs, case):
+    js, ts = runs[case]
+    sim = ts._sim
+    assert type(sim.runner).__name__ == "Runner"
+    assert sim.runner.every_step_ev
+    cells = case in CAPPED
+    assert (sim.runner.neighbor_cfg is not None) == cells
+    assert (js._sim.runner.neighbor_cfg is not None) == cells
+    if "pppm" in case:
+        assert sim.runner.ff.pppm is not None and sim.runner.ff.ewald is None
+        assert sim.runner.ff.pair.g_ewald == float(
+            js._sim.runner.ff.pppm.g_ewald)
+    elif case != "lj_npt":
+        assert sim.runner.ff.kspace_dynamic
+        assert sim.runner.ff.ewald.kints is not None
+    cols = [c for c in COLS if c in js.thermo_rows[0]]
+    if case == "lj_npt":
+        cols = ["temp", "epair", "etotal", "press", *BOX_COLS]
+    assert len(ts.thermo_rows) == len(js.thermo_rows) == NSTEP + 1
+    chip_smoke.rows_agree(case, ts.thermo_rows, js.thermo_rows,
+                          [1e-8] * (NSTEP + 1), cols=cols,
+                          cancel=chip_smoke.cancelled(sim) if cells else None)
+    n = sim.natoms
+    for k in ("x", "v"):
+        a = getattr(sim.sys, k)[:n].numpy()
+        b = np.asarray(getattr(js._sim.sys, k))[:n]
+        _close(a, b, 1e-8, f"{case} {k}")
+    # the box moved, and every row read the box of its own step
+    vols = [r["vol"] for r in ts.thermo_rows]
+    assert len(set(vols)) == len(vols)
+    lo, hi = sim.sys.box.lo.numpy(), sim.sys.box.hi.numpy()
+    r = ts.thermo_rows[-1]
+    assert [r["xlo"], r["ylo"], r["zlo"]] == lo.tolist()
+    assert r["vol"] == pytest.approx(float(np.prod(hi - lo)), rel=1e-15)
+
+
+def test_nph_takes_t0_from_the_data(runs):
+    """nph's barostat masses use the current temperature (fix_nh.cpp
+    setup): the same t_target as the JAX package's."""
+    js, ts = runs["nph"]
+    assert not ts._sim.runner.integ.params.tstat
+    assert ts._sim.runner.integ.params.t_target == pytest.approx(
+        float(js._sim.runner.integ.params.t_target), rel=1e-14)
+
+
+def test_clis_agree(fluid, tmp_path):
+    """Both CLIs on the point-charge fluid with pppm and fix npt, 10 steps,
+    logged at 16 digits: rows within rel 1e-8."""
+    text = CASES["cells_pppm_npt"].replace(
+        "neighbor 0.1 bin\n", "").replace(
+        "run ${nstep}", "thermo_modify format float %.16g\nrun ${nstep}")
+    (fluid / "in.cli").write_text(text)
+    env = dict(os.environ, JAX_PLATFORMS="cpu", OMP_NUM_THREADS="1",
+               PYTHONPATH=os.pathsep.join(filter(None, (
+                   str(ROOT), os.environ.get("PYTHONPATH")))))
+    env.pop("LIDP_FAST_POLAR", None)
+    rows = {}
+    for pkg, extra in (("lidp_tpu", []),
+                       ("lidp_tpu_torch", ["-device", "cpu"])):
+        log = tmp_path / f"log.{pkg}"
+        res = subprocess.run(
+            [sys.executable, "-m", pkg, "-in", "in.cli", "-var", "nstep",
+             str(NSTEP), "-log", str(log), *extra], cwd=fluid, env=env,
+            capture_output=True, text=True, timeout=300)
+        assert res.returncode == 0, res.stderr[-3000:]
+        rows[pkg] = chip_smoke.log_rows(log.read_text().splitlines())
+    assert len(rows["lidp_tpu"]) == NSTEP + 1
+    chip_smoke.rows_agree("cli", rows["lidp_tpu_torch"], rows["lidp_tpu"],
+                          [1e-8] * (NSTEP + 1),
+                          cols=[c for c in rows["lidp_tpu"][0]
+                                if c != "step"])
+
+
+# -------------------------------- refusals --------------------------------
+
+UNPORTED = {
+    "npt couple": "fix 1 all npt temp 300 300 100 iso 1 1 1000 couple xyz",
+    "npt drag": "fix 1 all npt temp 300 300 100 iso 1 1 1000 drag 1.0",
+    "npt dilate": "fix 1 all npt temp 300 300 100 iso 1 1 1000 dilate all",
+    "npt/sphere": "fix 1 all npt/sphere temp 300 300 100 iso 1 1 1000",
+    "rigid/npt dilate": "fix 1 all rigid/npt molecule temp 300 300 100 "
+                        "iso 1 1 1000 dilate all",
+}
+
+
+@pytest.mark.parametrize("name", list(UNPORTED))
+def test_unported_keywords_raise(fluid, name):
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP queue 1 item 6"):
+        _run("torch", fluid, _pc(UNPORTED[name]), nstep=1)
+
+
+def test_jax_skips_npt_keywords(fluid):
+    """ROADMAP queue 3 item 11: the JAX package's build_npt skips a
+    keyword it does not know (`drag 1.0`), so its rows equal those of the
+    input without it, where the port raises (test_unported_keywords_raise)."""
+    fix = "fix 1 all npt temp 300 300 100 iso 1 1 1000"
+    a = _run("jax", fluid, _pc(fix + " drag 1.0"), nstep=2)
+    b = _run("jax", fluid, _pc(fix), nstep=2)
+    assert a.thermo_rows == b.thermo_rows and len(a.thermo_rows) == 3

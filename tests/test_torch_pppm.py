@@ -1,0 +1,319 @@
+"""The port's mesh k-space (lidp_tpu_torch/ops/pppm.py: setup_pppm,
+pppm_forces, pppm/stagger; ops/ewald.rescale_coeffs; kspace_style pppm,
+pppm/cg and pppm/stagger from a script) against the JAX package's, float64
+on the CPU, both sides in one process:
+
+  * setup_pppm: g_ewald and the grid equal to JAX's bit for bit on three
+    boxes (cubic, elongated, flat) at two accuracies, and with a g_ewald=
+    override;
+  * pppm_forces and the stagger form on a seeded random case (200 charges
+    in a 14 x 16 x 18 box, neutral): f within 1e-10 of max |f|, elong and
+    the six virial terms within rel 1e-10; convert.pppm_from_numpy carries
+    JAX's parameters across;
+  * rescale_coeffs at the setup box and at a dilated one: the tables
+    within rel 1e-13 (as tests/test_npt_kspace.py holds JAX's own);
+  * PPPM against the port's Ewald sum on tests/test_pppm.py's random case
+    (accuracy 1e-6, the g_ewald of the Ewald setup): elong within rel
+    1e-4, f within 1e-4 of max |f|; the JAX package's deconvolution is
+    1/W(k)^2, not the reference's optimal influence function (ROADMAP
+    queue 3 item 9): the port reproduces JAX's mesh, and the test records
+    its distance from Ewald;
+  * scripts, 10 steps with a row each step, every thermo column within
+    rel 1e-8 of max(1, |value|) of JAX's, the final x, v and mu within
+    1e-8 of their largest entry: pppm, pppm/cg and pppm/stagger on the
+    polar fluid (chip_smoke.fluid_script_case(n_side=5), the dense route)
+    and pppm on the point-charge fluid's cell grid (`neighbor 0.1 bin`,
+    the dense cap mocked to 300 in both packages, plus chip_smoke.
+    CANCEL_REL of what the special correction cancels);
+  * what still raises, naming its ROADMAP item: pppm/disp, pppm/tip4p,
+    msm, and kspace_modify keywords other than gewald, which the JAX
+    package accepts and ignores (ROADMAP queue 3 item 10: its run with
+    `kspace_modify mesh 8 8 8` gives the rows of its run without it).
+"""
+
+import dataclasses
+import os
+from pathlib import Path
+from unittest import mock
+
+import numpy as np
+import pytest
+import torch
+
+jnp = pytest.importorskip("jax.numpy")
+# one torch thread, as the port's other parity files pin it (ROADMAP queue
+# 3 item 1; tests/test_torch_cpu_threads.py looks for the fault)
+torch.set_num_threads(1)
+
+import chip_smoke  # noqa: E402
+from lidp_tpu import sim as jsim  # noqa: E402
+from lidp_tpu.io import script as jscript  # noqa: E402
+from lidp_tpu.ops import ewald as jewald  # noqa: E402
+from lidp_tpu.ops import pppm as jpppm  # noqa: E402
+from lidp_tpu_torch import convert  # noqa: E402
+from lidp_tpu_torch.io import script as tscript  # noqa: E402
+from lidp_tpu_torch.ops import ewald as tewald  # noqa: E402
+from lidp_tpu_torch.ops import pppm as tpppm  # noqa: E402
+from lidp_tpu_torch.parallel import fast_polar as tfast  # noqa: E402
+
+ROOT = Path(__file__).resolve().parent.parent
+NSTEP = 10
+QQRD2E = 332.06371
+
+
+def _close(a, b, tol, msg=""):
+    a = a.numpy() if torch.is_tensor(a) else np.asarray(a)
+    b = np.asarray(b)
+    np.testing.assert_allclose(a, b, rtol=0,
+                               atol=tol * max(np.abs(b).max(), 1e-300),
+                               err_msg=msg)
+
+
+def _charges(n, seed):
+    q = np.random.RandomState(seed).normal(size=n)
+    return q - q.mean()
+
+
+# ------------------------------- setup_pppm -------------------------------
+
+BOXES = {"cubic": (20.0, 20.0, 20.0), "long": (18.0, 22.0, 41.0),
+         "flat": (30.0, 31.0, 9.5)}
+
+
+@pytest.mark.parametrize("accuracy", [1e-4, 1e-5])
+@pytest.mark.parametrize("box", list(BOXES))
+def test_setup_pppm_matches_jax(box, accuracy):
+    q = _charges(300, 1)
+    kw = dict(accuracy_rel=accuracy, qqrd2e=QQRD2E, q=q, natoms=300,
+              cutoff=6.5, box_lengths=BOXES[box])
+    j, t = jpppm.setup_pppm(**kw), tpppm.setup_pppm(**kw)
+    assert t.g_ewald == j.g_ewald and t.grid == tuple(j.grid)
+    assert t.order == j.order == 5
+
+
+def test_setup_pppm_override_matches_jax():
+    q = _charges(300, 2)
+    kw = dict(accuracy_rel=1e-4, qqrd2e=QQRD2E, q=q, natoms=300,
+              cutoff=6.5, box_lengths=BOXES["long"], g_ewald=0.31)
+    j, t = jpppm.setup_pppm(**kw), tpppm.setup_pppm(**kw)
+    assert t.g_ewald == j.g_ewald == 0.31 and t.grid == tuple(j.grid)
+
+
+# ------------------------------- pppm_forces -------------------------------
+
+def _case():
+    rng = np.random.RandomState(7)
+    L = np.array([14.0, 16.0, 18.0])
+    n = 200
+    x = rng.uniform(0.0, 1.0, (n, 3)) * L
+    q = _charges(n, 8)
+    s = jpppm.setup_pppm(accuracy_rel=1e-5, qqrd2e=QQRD2E, q=q, natoms=n,
+                         cutoff=6.0, box_lengths=L)
+    return x, q, L, s
+
+
+@pytest.fixture(scope="module", params=[False, True],
+                ids=["pppm", "stagger"])
+def pppm_pair(request):
+    x, q, L, s = _case()
+    jp = jpppm.PPPMParams.from_setup(s, QQRD2E, float(np.sum(q * q)),
+                                     float(np.sum(q)),
+                                     stagger=request.param)
+    tp = convert.pppm_from_numpy(
+        {f.name: np.asarray(getattr(jp, f.name))
+         for f in dataclasses.fields(jp)})
+    assert tp == tpppm.PPPMParams.from_setup(
+        tpppm.setup_pppm(accuracy_rel=1e-5, qqrd2e=QQRD2E, q=q,
+                         natoms=len(q), cutoff=6.0, box_lengths=L),
+        QQRD2E, float(np.sum(q * q)), float(np.sum(q)),
+        stagger=request.param)
+    want = jpppm.pppm_forces_params(jnp.asarray(x), jnp.asarray(q),
+                                    jnp.asarray(L), jp)
+    got = tpppm.pppm_forces_params(torch.as_tensor(x), torch.as_tensor(q),
+                                   torch.as_tensor(L), tp)
+    return got, [np.asarray(w) for w in want]
+
+
+def test_pppm_forces_match_jax(pppm_pair):
+    (f, e, vir), (fj, ej, virj) = pppm_pair
+    assert f.dtype == torch.float64 and f.shape == fj.shape
+    _close(f, fj, 1e-10, "f")
+    assert abs(float(e) - float(ej)) <= 1e-10 * abs(float(ej))
+    _close(vir, virj, 1e-10, "virial")
+    assert np.abs(fj).max() > 1.0 and abs(float(ej)) > 1.0
+
+
+def test_assignment_weights_match_jax():
+    frac = np.random.RandomState(3).uniform(0.0, 1.0, 64)
+    for order in (2, 3, 5, 7):
+        want = np.asarray(jpppm._assignment_weights(jnp.asarray(frac),
+                                                    order))
+        got = tpppm._assignment_weights(torch.as_tensor(frac), order)
+        np.testing.assert_array_equal(got.numpy(), want)
+        np.testing.assert_allclose(got.sum(1).numpy(), 1.0, rtol=1e-14)
+
+
+def test_pppm_against_ewald():
+    """tests/test_pppm.py's case through the port: PPPM at the Ewald
+    setup's g_ewald against the port's ewald_forces (the same tinfoil
+    limit), at that file's bars.  The distance is the JAX package's mesh's
+    (1/W^2 deconvolution, ROADMAP queue 3 item 9)."""
+    rs = np.random.RandomState(3)
+    L, n = 12.0, 40
+    x = rs.uniform(0, L, (n, 3))
+    q = rs.normal(size=n)
+    q -= q.mean()
+    es = tewald.setup_ewald_disp(accuracy_rel=1e-6, qqrd2e=1.0, q=q,
+                                 natoms=n, cutoff=5.0,
+                                 box_lengths=[L, L, L])
+    ew = tewald.EwaldParams.from_setup(es, 1.0)
+    xt, qt = torch.as_tensor(x), torch.as_tensor(q)
+    fe, ee, _ = tewald.ewald_forces(xt, qt, torch.tensor(L**3), ew)
+    ps = tpppm.setup_pppm(accuracy_rel=1e-6, qqrd2e=1.0, q=q, natoms=n,
+                          cutoff=5.0, box_lengths=[L, L, L],
+                          g_ewald=es.g_ewald)
+    fp, ep, _ = tpppm.pppm_forces(xt, qt, torch.full((3,), L), ps, 1.0,
+                                  float((q ** 2).sum()), float(q.sum()))
+    rel_e = abs(float(ep) - float(ee)) / abs(float(ee))
+    rel_f = float((fp - fe).abs().max() / fe.abs().max())
+    assert rel_e <= 1e-4 and rel_f <= 1e-4, (rel_e, rel_f)
+
+
+# ----------------------------- rescale_coeffs -----------------------------
+
+@pytest.mark.parametrize("scale", [1.0, 1.03])
+def test_rescale_coeffs_matches_jax(scale):
+    q = _charges(64, 0)
+    L = np.array([18.0, 20.0, 22.0])
+    kw = dict(accuracy_rel=1e-4, qqrd2e=QQRD2E, q=q, natoms=64, cutoff=8.0,
+              box_lengths=L)
+    js, ts = jewald.setup_ewald_disp(**kw), tewald.setup_ewald_disp(**kw)
+    np.testing.assert_array_equal(ts.kints, np.asarray(js.kints))
+    jp = jewald.rescale_coeffs(jewald.EwaldParams.from_setup(js, QQRD2E),
+                               jnp.asarray(L * scale))
+    tp = tewald.rescale_coeffs(tewald.EwaldParams.from_setup(ts, QQRD2E),
+                               torch.as_tensor(L * scale))
+    for k in ("hvecs", "kcoeff", "kvirial"):
+        np.testing.assert_allclose(getattr(tp, k).numpy(),
+                                   np.asarray(getattr(jp, k)), rtol=1e-13,
+                                   atol=0, err_msg=k)
+    if scale == 1.0:
+        np.testing.assert_allclose(tp.hvecs.numpy(), ts.hvecs, rtol=1e-14)
+
+
+# ------------------------------ script cases ------------------------------
+
+POLAR_COLS = chip_smoke.G64_COLS
+
+
+def _with(text, kspace, extra=""):
+    t = text.replace("kspace_style ewald/disp 1e-4", f"kspace_style {kspace}")
+    return t.replace("read_data fluid.data\n",
+                     "read_data fluid.data\n" + extra)
+
+
+CASES = {
+    "pppm": _with(chip_smoke.FLUID_SCRIPT, "pppm 1e-4"),
+    "pppm_cg": _with(chip_smoke.FLUID_SCRIPT, "pppm/cg 1e-4"),
+    "pppm_stagger": _with(chip_smoke.FLUID_SCRIPT, "pppm/stagger 1e-4"),
+    "pppm_cells": _with(chip_smoke.point_charge_script(), "pppm 1e-4",
+                        "neighbor 0.1 bin\n"),
+}
+CAPPED = {"pppm_cells": 300}
+
+
+def _run(pkg, d, text, nstep=NSTEP, cap=None):
+    path = d / f"in.{pkg}"
+    path.write_text(text)
+    if pkg == "jax":
+        s = jscript.LammpsScript(dtype=jnp.float64)
+    else:
+        s = tscript.LammpsScript(dtype=torch.float64, device="cpu")
+    s.variables["nstep"] = str(nstep)
+    cap = cap or jsim.DENSE_PATH_MAX_ATOMS
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("LIDP_FAST_POLAR", "LIDP_FAST_POLAR_MODE")}
+    with mock.patch.dict(os.environ, env, clear=True), \
+            mock.patch.object(jsim, "DENSE_PATH_MAX_ATOMS", cap), \
+            mock.patch.object(tfast, "DENSE_PATH_MAX_ATOMS", cap):
+        s.file(str(path))
+    return s
+
+
+@pytest.fixture(scope="module")
+def fluid(tmp_path_factory):
+    d = tmp_path_factory.mktemp("fluid")
+    chip_smoke.fluid_script_case(str(d), n_side=5)
+    return d
+
+
+@pytest.fixture(scope="module")
+def runs(fluid):
+    return {case: tuple(_run(pkg, fluid, text, cap=CAPPED.get(case))
+                        for pkg in ("jax", "torch"))
+            for case, text in CASES.items()}
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_script_matches_jax(runs, case):
+    js, ts = runs[case]
+    sim = ts._sim
+    ff = sim.runner.ff
+    assert ff.ewald is None and ff.pppm is not None
+    assert ff.pppm.stagger == (case == "pppm_stagger")
+    jp = js._sim.runner.ff.pppm
+    assert ff.pppm.grid == tuple(jp.grid)
+    assert ff.pppm.g_ewald == float(jp.g_ewald) == ff.pair.g_ewald
+    cells = case in CAPPED
+    assert (sim.runner.neighbor_cfg is not None) == cells
+    assert not sim.runner.every_step_ev
+    assert len(ts.thermo_rows) == len(js.thermo_rows) == NSTEP + 1
+    chip_smoke.rows_agree(case, ts.thermo_rows, js.thermo_rows,
+                          [1e-8] * (NSTEP + 1), cols=POLAR_COLS,
+                          cancel=chip_smoke.cancelled(sim) if cells else None)
+    n = sim.natoms
+    for k in ("x", "v", "mu"):
+        a = getattr(sim.sys, k)[:n].numpy()
+        b = np.asarray(getattr(js._sim.sys, k))[:n]
+        if np.abs(b).max() > 0:
+            _close(a, b, 1e-8, f"{case} {k}")
+
+
+def test_pppm_cg_is_pppm(runs):
+    """pppm/cg runs as pppm (its charged-atom restriction changes nothing
+    in a dense spread): the same rows bit for bit."""
+    assert runs["pppm_cg"][1].thermo_rows == runs["pppm"][1].thermo_rows
+
+
+# -------------------------------- refusals --------------------------------
+
+UNPORTED = {
+    "pppm/disp": "kspace_style pppm/disp 1e-4",
+    "pppm/tip4p": "kspace_style pppm/tip4p 1e-4",
+    "msm": "kspace_style msm 1e-4",
+    "kspace_modify mesh": "kspace_style pppm 1e-4\n"
+                          "kspace_modify mesh 8 8 8",
+    "kspace_modify order": "kspace_style pppm 1e-4\nkspace_modify order 7",
+}
+
+
+@pytest.mark.parametrize("name", list(UNPORTED))
+def test_unported_kspace_raises(fluid, name):
+    text = chip_smoke.FLUID_SCRIPT.replace("kspace_style ewald/disp 1e-4",
+                                           UNPORTED[name])
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 6"):
+        _run("torch", fluid, text, nstep=1)
+
+
+def test_jax_ignores_kspace_modify_mesh(fluid):
+    """ROADMAP queue 3 item 10: the JAX package takes `kspace_modify mesh`
+    and runs its own grid; its rows equal those of the input without it,
+    where the port raises (test_unported_kspace_raises)."""
+    base = chip_smoke.point_charge_script().replace(
+        "kspace_style ewald/disp 1e-4", "kspace_style pppm 1e-4")
+    text = base.replace("kspace_style pppm 1e-4",
+                        "kspace_style pppm 1e-4\nkspace_modify mesh 8 8 8")
+    a = _run("jax", fluid, text, nstep=1)
+    b = _run("jax", fluid, base, nstep=1)
+    assert tuple(a._sim.runner.ff.pppm.grid) != (8, 8, 8)
+    assert a.thermo_rows == b.thermo_rows

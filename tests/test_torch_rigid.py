@@ -12,9 +12,9 @@ inputs from numpy seeds:
     fixed position-dependent force to 1e-10 of each array's largest entry:
     xcm, vcm, angmom, quat, conjqm, the constraint virial, x and v; the
     state carried across by convert.rigid_state_from_numpy continues alike;
-  * make_rigid_params(pstat=True) raises, naming the breadth item (the
-    barostat; the thermostat, tstat=True, is held in
-    tests/test_torch_thermostats.py).
+  * make_rigid_params(pstat=True) gives the JAX package's barostat
+    fields (the barostat's integrator is held in tests/test_torch_npt.py,
+    the thermostat, tstat=True, in tests/test_torch_thermostats.py).
 """
 
 import dataclasses
@@ -219,8 +219,40 @@ def test_body_sums_are_repeatable_and_skip_free_atoms():
     np.testing.assert_allclose(s1.numpy(), want, rtol=1e-15, atol=1e-15)
 
 
+# the barostat fields of make_rigid_params and how they compare
+BAROSTAT_FIELDS = ("pstat", "p_stop", "p_target", "p_freq", "p_freq_max",
+                   "p_chain", "p_flag", "iso", "nktv2p", "dim")
+
+
+def barostat_fields_match(t, j):
+    """The port's RigidParams t against the JAX package's j, field by
+    field, exactly; p_start is JAX's unramped p_target."""
+    for name in BAROSTAT_FIELDS:
+        a, b = getattr(t, name), getattr(j, name)
+        if isinstance(a, tuple):
+            a = np.asarray(a, np.asarray(b).dtype)
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b), name)
+    np.testing.assert_array_equal(np.asarray(t.p_start),
+                                  np.asarray(j.p_target))
+    np.testing.assert_array_equal(t.pflag.numpy(), np.asarray(j.p_flag))
+
+
 @pytest.mark.parametrize("flag", ["pstat"])
 def test_thermostat_and_barostat_raise(flag):
-    setup = tr.setup_bodies(*_bodies("bent"))
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-        tr.make_rigid_params(setup, DT, FTM2V, device="cpu", **{flag: True})
+    """The case once held the barostat's raise; the barostat is ported
+    (tests/test_torch_npt.py), and make_rigid_params(pstat=True) now gives
+    the JAX package's barostat fields: an unset dimension's zero period
+    keeps p_freq 0, pchain and the coupling ride along."""
+    kw = {flag: True, "p_start": (1.0, 2.0, 3.0), "p_stop": (4.0, 5.0, 6.0),
+          "p_period": (100.0, 0.0, 300.0), "p_flag": (True, False, True),
+          "p_chain": 4, "iso": False, "nktv2p": 68568.415,
+          "t_start": 300.0, "t_stop": 310.0, "t_period": 1.0}
+    j = jr.make_rigid_params(jr.setup_bodies(*_bodies("bent")), DT, FTM2V,
+                             **kw)
+    t = tr.make_rigid_params(tr.setup_bodies(*_bodies("bent")), DT, FTM2V,
+                             device="cpu", **kw)
+    assert t.pstat and not t.tstat
+    barostat_fields_match(t, j)
+    assert t.p_freq[1] == 0.0 and float(t.p_denom[1]) == 1.0
+
+

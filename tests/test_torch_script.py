@@ -28,7 +28,7 @@ the runner type on both sides.
     static_polarizability;
   * replicate 2 1 1 of the wrapped data gives JAX's x, image, mol, type;
   * an unported command, style or keyword raises NotImplementedError
-    naming a ROADMAP item; on the dense route, fix rigid/npt; above a
+    naming a ROADMAP item; on the dense route, fix rigid/npt's dilate; above a
     mocked cap, the fluid replicated 2 x 2 x 2 (new velocities by
     position) runs on JAX's cell grid with the special correction, Ewald
     and the dense polar term, its rows within rel 1e-8 of JAX's plus
@@ -248,15 +248,17 @@ def test_replicate_matches_jax(dirs):
 
 
 # compute temp and fix nvt are ported (tests/test_torch_thermostats.py),
-# region block and pair_style lj/cut too (tests/test_torch_script_cells.py):
-# their keys keep the test names and hold a style that still raises
+# region block and pair_style lj/cut too (tests/test_torch_script_cells.py),
+# fix npt and kspace_style pppm too (tests/test_torch_npt.py,
+# tests/test_torch_pppm.py): their keys keep the test names and hold a
+# style that still raises
 UNPORTED = {
     "region": "region s sphere 0 0 0 1",
     "compute": "compute p all pressure thermo_temp",
     "minimize": "minimize 1e-4 1e-6 10 100",
-    "fix nvt": "fix 2 all npt temp 300 300 100 iso 1 1 1000",
+    "fix nvt": "fix 2 all nvt/sllod temp 300 300 100",
     "pair_style lj/cut": "pair_style lj/cut/coul/cut 2.5",
-    "kspace_style pppm": "kspace_style pppm 1e-4",
+    "kspace_style pppm": "kspace_style msm 1e-4",
     "bond_style": "bond_style harmonic",
     "thermo keyword": "thermo_style custom step cpu",
 }
@@ -292,7 +294,7 @@ def test_dense_route_special_codes_and_warning(runs):
 def test_small_system_without_fast_polar_raises(dirs):
     """Without LIDP_FAST_POLAR=1 the 375-atom fluid takes the dense route,
     and what the port cannot run there raises, naming its ROADMAP item:
-    the rigid barostat, fix rigid/npt (queue 1 item 6).  Above a cap
+    fix rigid/npt's dilate keyword (queue 1 item 6).  Above a cap
     mocked to 300 atoms under LIDP_FAST_POLAR=0, the fluid replicated 2 x
     2 x 2 (3,000 atoms, a 4 x 4 x 4 grid; `velocity create ... loop geom`
     so that no two atoms stay exactly half a box apart, where the dipole
@@ -303,7 +305,8 @@ def test_small_system_without_fast_polar_raises(dirs):
     correction cancels (chip_smoke.cancelled)."""
     text = _text("dense").replace(
         "fix 1 all rigid/nve molecule",
-        "fix 1 all rigid/npt molecule temp 300 300 100 iso 1 1 1000")
+        "fix 1 all rigid/npt molecule temp 300 300 100 iso 1 1 1000 "
+        "dilate all")
     with pytest.raises(NotImplementedError, match="queue 1 item 6"):
         _run("torch", dirs[False], text, _env("dense"))
     # new velocities by position: the replicas' copies of an atom then

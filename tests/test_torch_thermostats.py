@@ -23,8 +23,10 @@ inputs from numpy seeds:
     1e-8 of max(1, |value|), the final x, v and mu within 1e-8 of their
     largest entry (BASELINE.md:21); c_ID also through an expression;
   * the J form through both CLIs, logged at 16 digits, at rel 1e-8;
-  * the refusals: rigid/npt, rigid/nph, a barostat keyword of rigid/nvt,
-    nvt/sllod and nvt/sphere raise naming ROADMAP queue 1 item 6; compute
+  * the refusals: rigid/npt and rigid/nph with dilate (the barostats run
+    since they were ported, tests/test_torch_npt.py), a barostat keyword of
+    rigid/nvt, nvt/sllod and nvt/sphere raise naming ROADMAP queue 1 item
+    6; compute
     pressure item 4; rigid/nvt above a (mocked) cap on a box where JAX
     takes its cell grid item 5; rigid/nvt without temp and fix nvt on a
     sub-group raise as the JAX package does, with its message.
@@ -446,11 +448,10 @@ def test_clis_agree_on_the_j_form(fluid, tmp_path):
 
 # ------------------------------- refusals --------------------------------
 
-HEAD = "units real\natom_style full\nread_data fluid.data\n"
 UNPORTED = {
     "rigid/npt": "fix 1 all rigid/npt molecule temp 300 300 100 iso 1 1 "
-                 "1000",
-    "rigid/nph": "fix 1 all rigid/nph molecule iso 1 1 1000",
+                 "1000 dilate all",
+    "rigid/nph": "fix 1 all rigid/nph molecule iso 1 1 1000 dilate all",
     "nvt/sllod": "fix 1 all nvt/sllod temp 300 300 100",
     "nvt/sphere": "fix 1 all nvt/sphere temp 300 300 100",
     "compute pressure": "compute p all pressure thermo_temp",
@@ -462,18 +463,21 @@ def test_unported_styles_raise(fluid, name):
     item = "4" if name.startswith("compute") else "6"
     with pytest.raises(NotImplementedError,
                        match=f"ROADMAP queue 1 item {item}"):
-        _run("torch", fluid, HEAD + UNPORTED[name] + "\n", {})
+        _run("torch", fluid,
+             chip_smoke.FLUID_SCRIPT.replace(RIGID_ALL, UNPORTED[name]), {},
+             nstep=1)
 
 
 def test_builders_refuse_the_barostat(fluid):
-    """Past the interpreter, the fix builders refuse the barostat too:
-    rigid/npt handed to build_rigid, and a pressure keyword of
-    rigid/nvt."""
+    """Past the interpreter, the fix builders refuse what of the barostat
+    is not ported: rigid/npt's dilate handed to build_rigid, and a
+    pressure keyword of rigid/nvt (which the JAX package skips)."""
     from lidp_tpu_torch.io.script import FixSpec
     from lidp_tpu_torch.styles import fix_integrators
 
     for style, args in (("rigid/npt/small", ["molecule", "temp", "300",
-                                             "300", "100"]),
+                                             "300", "100", "dilate",
+                                             "all"]),
                         ("rigid/nvt", ["molecule", "temp", "300", "300",
                                        "100", "iso", "1", "1", "1000"])):
         with pytest.raises(NotImplementedError, match="queue 1 item 6"):
