@@ -262,9 +262,34 @@ Phases, each raising on failure:
         steps: one ewald_forces evaluation on the step-0 state at PPPM's
         g_ewald (its ms, k-vector count and elong beside PPPM's), PPPM's
         ms a call;
-  8. one JSON line {"kernels": [...]} with each of the ten kernels'
+  8. flexible molecules from a LAMMPS script (flexible_paths):
+     flexible_script_case's solute (N-methylacetamide: harmonic bonds,
+     charmm angles with Urey-Bradley terms, charmm dihedrals with their
+     1-4 term, harmonic impropers) in TIP3P-like water with
+     examples/peptide's styles (lj/charmm/coul/long 8 10, pppm 1e-4,
+     special_bonds charmm, timestep 2.0, thermo_style multi) and `fix
+     shake` on the X-H bonds and the water; float64, 10 steps, a row
+     each step; the CPU twins (the same scripts through the port on the
+     CPU, 2 steps; T's on FLEX_T_TWIN_THREADS threads) start before the
+     kernels build and run beside the card's paths:
+     S. examples/peptide's stack on the dense route: 1,920 atoms, `fix
+        nvt temp 275 275 100 tchain 1`;
+     T. bench/in.rhodo's stack on the cell grid: S's cell replicated 2 x
+        2 x 4 (30,720 atoms), `fix npt temp 275 275 100 iso 1 1 1000 mtk
+        no pchain 0 tchain 1`;
+     each: no launch, its route, steps/s by its Loop time line and its
+     peak memory; every row finite, and at every row each SHAKE bond and
+     angle within the fix's tolerance (1e-4 relative) of its target
+     (ConstraintWatch); rows 0-2 against the CPU twin at rel 1e-9 of
+     max(1, |value|) plus CANCEL_REL of the cancelled magnitude on the
+     cell grid; two evaluations of the bonded terms on one state and
+     whether they agree bit for bit (index_add_'s float atomics); the ms
+     a step of the bonded terms, SHAKE, the pair pass (and the cell
+     grid's special correction) and PPPM by CUDA events over 2 more
+     steps;
+  9. one JSON line {"kernels": [...]} with each of the ten kernels'
      launches (summed and by path, A-K, E-E4, L, L64, M, N, N-pol, O, R,
-     R-pppm, Q, Q64, P, P100), times, ms_queued and bound, then the
+     R-pppm, Q, Q64, P, P100, S, T), times, ms_queued and bound, then the
      nvidia-smi line, then the device line last.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
@@ -1482,9 +1507,13 @@ DENSE_PHASES = (("pair", "pair", "dense_pair_forces"),
 
 class DensePhases:
     """Within `with DensePhases():` every call of the dense route's phase
-    functions (DENSE_PHASES, the module functions dense_forces calls) is
-    timed by CUDA events, and every solve's iterations and divergence flag
-    kept; the functions are restored on exit."""
+    functions (DENSE_PHASES, the module functions dense_forces calls; or
+    `phases`, whose modules are named in full) is timed by CUDA events,
+    and every solve's iterations and divergence flag kept; the functions
+    are restored on exit."""
+
+    def __init__(self, phases=DENSE_PHASES):
+        self.phases = phases
 
     def __enter__(self):
         import importlib
@@ -1506,8 +1535,10 @@ class DensePhases:
                 return out
             return wrapped
 
-        for label, mod, name in DENSE_PHASES:
-            m = importlib.import_module(f"lidp_tpu_torch.ops.{mod}")
+        for label, mod, name in self.phases:
+            m = importlib.import_module(
+                mod if mod.startswith("lidp_tpu_torch") else
+                f"lidp_tpu_torch.ops.{mod}")
             self._saved.append((m, name, getattr(m, name)))
             setattr(m, name, timed(label, getattr(m, name)))
         return self
@@ -1522,7 +1553,7 @@ class DensePhases:
         import torch
 
         torch.cuda.synchronize()
-        out = {label: 0.0 for label, _, _ in DENSE_PHASES}
+        out = {label: 0.0 for label, _, _ in self.phases}
         for label, e0, e1 in self.events:
             out[label] += e0.elapsed_time(e1) / per
         return out
@@ -1592,7 +1623,9 @@ LOG_COLS = {"Step": "step", "TotEng": "etotal", "KinEng": "ke",
             "PotEng": "pe", "E_vdwl": "evdwl", "E_coul": "ecoul",
             "E_long": "elong", "E_pol": "epol", "Temp": "temp",
             "Press": "press", "E_pair": "epair", "E_mol": "emol",
-            "Volume": "vol", "Lx": "lx", "Ly": "ly", "Lz": "lz"}
+            "Volume": "vol", "Lx": "lx", "Ly": "ly", "Lz": "lz",
+            "E_bond": "ebond", "E_angle": "eangle", "E_dihed": "edihed",
+            "E_impro": "eimp"}
 
 
 def log_rows(lines):
@@ -1933,6 +1966,303 @@ def fluid_script_case(directory, n_side=15, seed=0, wrapped=False):
     with open(script, "w") as fh:
         fh.write(FLUID_SCRIPT)
     return data, script
+
+
+# flexible molecules: examples/peptide's and bench/in.rhodo's stack
+# (flexible_script_case)
+FLEX_NVT = "nvt temp 275.0 275.0 100.0 tchain 1"
+FLEX_NPT = "npt temp 275.0 275.0 100.0 iso 1.0 1.0 1000.0 mtk no pchain 0 " \
+    "tchain 1"
+# the X-H bonds (CT-H, N-H), the water O-H bonds and the water angle
+FLEX_SHAKE = "shake 0.0001 10 100 b 1 5 7 a 10"
+
+FLEX_SCRIPT = """\
+variable nstep index 10
+units real
+atom_style full
+pair_style {pair}
+bond_style harmonic
+angle_style charmm
+dihedral_style charmm
+improper_style harmonic
+pair_modify mix arithmetic
+{kspace}read_data flex.data
+{replicate}pair_coeff 5 5 0.2 3.296 0.2 2.76
+special_bonds charmm
+neighbor 2.0 bin
+neigh_modify delay 5
+timestep 2.0
+thermo_style multi
+thermo 1
+fix 1 all {fix}
+fix 2 all {shake}
+run ${{nstep}}
+"""
+
+# atom types: name, mass, Pair Coeffs (eps sigma eps14 sigma14)
+FLEX_TYPES = (("CT", 12.011, (0.08, 3.671, 0.01, 3.385)),
+              ("HA", 1.008, (0.022, 2.352, 0.022, 2.352)),
+              ("C", 12.011, (0.11, 3.564, 0.11, 3.564)),
+              ("O", 15.999, (0.12, 3.029, 0.12, 2.494)),
+              ("N", 14.007, (0.2, 3.296, 0.2, 2.76)),
+              ("HN", 1.008, (0.046, 0.4, 0.046, 0.4)),
+              ("OW", 15.9994, (0.1521, 3.1507, 0.1521, 3.1507)),
+              ("HW", 1.008, (0.046, 0.4, 0.046, 0.4)))
+# bond types (K, r0): CT-H, CT-C, C=O, C-N, N-H, N-CT, OW-HW
+FLEX_BONDS = ((322.0, 1.09), (250.0, 1.5), (620.0, 1.23), (370.0, 1.345),
+              (440.0, 0.997), (320.0, 1.43), (450.0, 0.9572))
+# angle types (K, theta0, K_ub, r_ub), keyed by (end type, centre type,
+# end type) names, the ends sorted
+FLEX_ANGLES = {("HA", "CT", "HA"): (35.5, 108.4, 5.4, 1.802),
+               ("C", "CT", "HA"): (33.0, 109.5, 30.0, 2.163),
+               ("HA", "CT", "N"): (51.5, 109.5, 0.0, 0.0),
+               ("CT", "C", "O"): (80.0, 121.0, 0.0, 0.0),
+               ("CT", "C", "N"): (80.0, 116.5, 0.0, 0.0),
+               ("N", "C", "O"): (80.0, 122.5, 50.0, 2.37),
+               ("C", "N", "HN"): (34.0, 123.0, 0.0, 0.0),
+               ("C", "N", "CT"): (50.0, 120.0, 0.0, 0.0),
+               ("CT", "N", "HN"): (35.0, 117.0, 0.0, 0.0),
+               ("HW", "OW", "HW"): (55.0, 104.52, 0.0, 0.0)}
+# dihedral types (K, n, d, weight) by the central bond's atom names
+FLEX_DIHEDRALS = {("C", "CT"): (0.1, 3, 0, 1.0),
+                  ("C", "N"): (2.5, 2, 180, 1.0),
+                  ("CT", "N"): (0.05, 3, 0, 0.5)}
+# improper types (K, chi0): on the carbonyl C and on the amide N
+FLEX_IMPROPERS = ((120.0, 0.0), (20.0, 0.0))
+
+
+def _nma():
+    """N-methylacetamide (CH3-CO-NH-CH3), planar amide in the xy plane
+    with tetrahedral methyls, no H along the plane's normal: (names,
+    charges, (12,3) positions, bonds as 0-based pairs with their types)."""
+    import numpy as np
+
+    def at(r, deg, origin=(0.0, 0.0)):
+        a = np.deg2rad(deg)
+        return np.array([origin[0] + r * np.cos(a),
+                         origin[1] + r * np.sin(a), 0.0])
+
+    c = np.zeros(3)
+    o, ct1, n = at(1.23, 90), at(1.5, 210), at(1.345, -30)
+    ct2, hn = at(1.43, 30, n[:2]), at(0.997, 270, n[:2])
+
+    def methyl(ct, nb):
+        u = (nb - ct) / np.linalg.norm(nb - ct)
+        e1 = np.array([0.0, 0.0, 1.0])
+        e2 = np.cross(u, e1)
+        return [ct + 1.09 * (-u / 3.0 + (2.0 * np.sqrt(2.0) / 3.0)
+                             * (np.cos(p) * e1 + np.sin(p) * e2))
+                for p in np.deg2rad([90.0, 210.0, 330.0])]
+
+    pos = [ct1, *methyl(ct1, c), c, o, n, hn, ct2, *methyl(ct2, n)]
+    names = ["CT", "HA", "HA", "HA", "C", "O", "N", "HN", "CT", "HA", "HA",
+             "HA"]
+    q = [-0.27, 0.09, 0.09, 0.09, 0.51, -0.51, -0.47, 0.31, -0.11, 0.09,
+         0.09, 0.09]
+    bonds = [(0, 1, 1), (0, 2, 1), (0, 3, 1), (0, 4, 2), (4, 5, 3),
+             (4, 6, 4), (6, 7, 5), (6, 8, 6), (8, 9, 1), (8, 10, 1),
+             (8, 11, 1)]
+    return names, q, np.array(pos), bonds
+
+
+def flexible_script_case(directory, n_side=(4, 4, 5), seed=0,
+                         fix=FLEX_NVT, cut=(8.0, 10.0), replicate=None,
+                         pair=None, kspace="pppm 1e-4"):
+    """Write a box of flexible solute molecules and TIP3P-like waters at
+    0.96 g/cm^3 as `flex.data` (atom_style full; Velocities; Bonds,
+    Angles, Dihedrals, Impropers; the Pair, Bond, Angle, Dihedral and
+    Improper Coeffs sections, as data.peptide carries them) and the input
+    `in.flex` (FLEX_SCRIPT: examples/peptide's styles, lj/charmm/coul/long
+    with mix arithmetic, harmonic bonds, charmm angles with Urey-Bradley
+    terms, charmm dihedrals (multiplicity 2 and 3, weights 1.0 and 0.5)
+    with their 1-4 term, harmonic impropers, pppm 1e-4, special_bonds
+    charmm, neighbor 2.0 bin, neigh_modify delay 5, timestep 2.0,
+    thermo_style multi, a row every step, `fix 1 all <fix>` and FLEX_SHAKE
+    on the X-H and water bonds and the water angle; `-var nstep` sets the
+    steps).
+
+    The box is n_side = (nx, ny, nz) blocks of 6.3 A, each block a 2x2x2
+    lattice of 3.15 A sites: one N-methylacetamide (12 atoms, neutral)
+    along a diagonal of its lower layer (the diagonal alternating from
+    block to block) and four waters (TIP3P geometry and charges) in its
+    upper layer, each molecule displaced by up to 0.1 A and each water
+    turned at random, the best of 20 turns (numpy seed `seed`);
+    velocities from a Maxwell distribution less the centre-of-mass
+    motion, at 275 K over the dof the constraints leave.  cut: the
+    charmm inner and outer cutoffs; replicate: (a, b, c) adds `replicate a
+    b c` after read_data (bench/in.rhodo's replication); pair: a pair_style
+    line's arguments in place of lj/charmm/coul/long; kspace: the
+    kspace_style arguments, None for none.  Returns the paths (data,
+    script)."""
+    import numpy as np
+
+    nx, ny, nz = ((n_side,) * 3 if isinstance(n_side, int) else n_side)
+    rng = np.random.RandomState(seed)
+    tid = {name: k + 1 for k, (name, _, _) in enumerate(FLEX_TYPES)}
+    mass = {k + 1: m for k, (_, m, _) in enumerate(FLEX_TYPES)}
+    atoms, bonds, mols = [], [], 0      # atoms: (mol, type, q, xyz)
+    names_all = []
+    s = 3.15
+    nma_names, nma_q, nma_x, nma_bonds = _nma()
+    # the molecule's long axis (CT to CT) along a diagonal of its layer
+    axis = nma_x[8] - nma_x[0]
+    base = np.arctan2(axis[1], axis[0])
+    th = np.deg2rad(104.52)
+    L = 2.0 * s * np.array([nx, ny, nz], float)
+    blocks = [2.0 * s * np.array([bx, by, bz], float) for bz in range(nz)
+              for by in range(ny) for bx in range(nx)]
+    for kb, corner in enumerate(blocks):
+        mols += 1
+        bx, by, bz = np.rint(corner / (2.0 * s)).astype(int)
+        ang = np.deg2rad(45.0 if (bx + by + bz) % 2 == 0 else 135.0) - base
+        rot = np.array([[np.cos(ang), -np.sin(ang), 0.0],
+                        [np.sin(ang), np.cos(ang), 0.0], [0.0, 0.0, 1.0]])
+        xm = (nma_x - nma_x.mean(0)) @ rot.T + corner + np.array(
+            [s, s, 0.5 * s]) + rng.uniform(-0.1, 0.1, 3)
+        first = len(atoms)
+        for nm, qq, xx in zip(nma_names, nma_q, xm):
+            atoms.append((mols, tid[nm], qq, xx))
+            names_all.append(nm)
+        bonds += [(first + a, first + b, t) for a, b, t in nma_bonds]
+    # each water the best of 20 random orientations: the one whose atoms
+    # lie farthest from the atoms placed before it
+    hw = 0.9572 * np.array([[0.0, 0.0, 0.0],
+                            [np.cos(th / 2), np.sin(th / 2), 0.0],
+                            [np.cos(th / 2), -np.sin(th / 2), 0.0]])
+    for corner in blocks:
+        for wx in range(2):
+            for wy in range(2):
+                mols += 1
+                o = (corner + s * np.array([wx + 0.5, wy + 0.5, 1.5])
+                     + rng.uniform(-0.1, 0.1, 3))
+                placed = np.array([a[3] for a in atoms])
+                best, best_d = None, -1.0
+                for _ in range(20):
+                    qv = rng.normal(size=4)
+                    a_, b_, c_, d_ = qv / np.linalg.norm(qv)
+                    r = np.array([
+                        [a_*a_+b_*b_-c_*c_-d_*d_, 2*(b_*c_-a_*d_),
+                         2*(b_*d_+a_*c_)],
+                        [2*(b_*c_+a_*d_), a_*a_-b_*b_+c_*c_-d_*d_,
+                         2*(c_*d_-a_*b_)],
+                        [2*(b_*d_-a_*c_), 2*(c_*d_+a_*b_),
+                         a_*a_-b_*b_-c_*c_+d_*d_]])
+                    xw = o + hw @ r.T
+                    dd = xw[:, None, :] - placed[None]
+                    dd = dd - L * np.round(dd / L)
+                    dmin = float(np.sqrt((dd * dd).sum(-1)).min())
+                    if dmin > best_d:
+                        best, best_d = xw, dmin
+                first = len(atoms)
+                atoms += [(mols, tid["OW"], -0.834, best[0]),
+                          (mols, tid["HW"], 0.417, best[1]),
+                          (mols, tid["HW"], 0.417, best[2])]
+                names_all += ["OW", "HW", "HW"]
+                bonds += [(first, first + 1, 7), (first, first + 2, 7)]
+    n = len(atoms)
+    nbr = [[] for _ in range(n)]
+    for a, b, _ in bonds:
+        nbr[a].append(b)
+        nbr[b].append(a)
+    angles = []
+    for j in range(n):
+        for ia, i in enumerate(nbr[j]):
+            for k in nbr[j][ia + 1:]:
+                ends = sorted((names_all[i], names_all[k]))
+                key = (ends[0], names_all[j], ends[1])
+                angles.append((list(FLEX_ANGLES).index(key) + 1, i, j, k))
+    dihedrals = []
+    for a, b, _ in bonds:
+        key = tuple(sorted((names_all[a], names_all[b])))
+        if key not in FLEX_DIHEDRALS:
+            continue
+        t = list(FLEX_DIHEDRALS).index(key) + 1
+        for i in nbr[a]:
+            for l_ in nbr[b]:
+                if i != b and l_ != a and i != l_:
+                    dihedrals.append((t, i, a, b, l_))
+    impropers = []
+    for j in range(n):
+        if names_all[j] == "C":
+            ct, o_, nn = (nbr[j][[names_all[k] for k in nbr[j]].index(x)]
+                          for x in ("CT", "O", "N"))
+            impropers.append((1, j, ct, nn, o_))
+        elif names_all[j] == "N":
+            c_, ct, hn = (nbr[j][[names_all[k] for k in nbr[j]].index(x)]
+                          for x in ("C", "CT", "HN"))
+            impropers.append((2, j, c_, ct, hn))
+    # Maxwell velocities (real units: A/fs) less the COM motion, scaled
+    # to 275 K over the dof left by the constraints of FLEX_SHAKE (7 a
+    # solute, 3 a water)
+    m = np.array([mass[t] for _, t, _, _ in atoms])
+    mvv2e = 2390.0573615334906
+    kt = 0.0019872067 * 275.0
+    v = rng.normal(size=(n, 3)) * np.sqrt(kt / (m * mvv2e))[:, None]
+    v = v - (m[:, None] * v).sum(0) / m.sum()
+    dof = 3 * n - 3 - len(blocks) * (7 + 4 * 3)
+    v = v * np.sqrt(dof * kt / (mvv2e * float((m[:, None] * v * v).sum())))
+
+    def r(val):
+        return repr(float(val))
+
+    lines = ["LAMMPS data file: flexible solute in water", "",
+             f"{n} atoms", f"{len(bonds)} bonds", f"{len(angles)} angles",
+             f"{len(dihedrals)} dihedrals", f"{len(impropers)} impropers",
+             f"{len(FLEX_TYPES)} atom types",
+             f"{len(FLEX_BONDS)} bond types",
+             f"{len(FLEX_ANGLES)} angle types",
+             f"{len(FLEX_DIHEDRALS)} dihedral types",
+             f"{len(FLEX_IMPROPERS)} improper types", ""]
+    lines += [f"0.0 {r(L[k])} {a}lo {a}hi" for k, a in enumerate("xyz")]
+    lines += ["", "Masses", ""] + [f"{t} {r(mm)}" for t, mm in mass.items()]
+    lines += ["", "Pair Coeffs", ""] + [
+        f"{k + 1} " + " ".join(r(c) for c in co)
+        for k, (_, _, co) in enumerate(FLEX_TYPES)]
+    lines += ["", "Bond Coeffs", ""] + [
+        f"{k + 1} {r(kk)} {r(r0)}" for k, (kk, r0) in enumerate(FLEX_BONDS)]
+    lines += ["", "Angle Coeffs", ""] + [
+        f"{k + 1} " + " ".join(r(c) for c in co)
+        for k, co in enumerate(FLEX_ANGLES.values())]
+    lines += ["", "Dihedral Coeffs", ""] + [
+        f"{k + 1} {r(kk)} {nn} {dd} {r(w)}"
+        for k, (kk, nn, dd, w) in enumerate(FLEX_DIHEDRALS.values())]
+    lines += ["", "Improper Coeffs", ""] + [
+        f"{k + 1} {r(kk)} {r(c0)}"
+        for k, (kk, c0) in enumerate(FLEX_IMPROPERS)]
+    lines += ["", "Atoms # full", ""]
+    lines += [f"{i + 1} {mo} {t} {r(qq)} {r(x[0])} {r(x[1])} {r(x[2])}"
+              for i, (mo, t, qq, x) in enumerate(atoms)]
+    lines += ["", "Velocities", ""]
+    lines += [f"{i + 1} {r(v[i, 0])} {r(v[i, 1])} {r(v[i, 2])}"
+              for i in range(n)]
+    for title, rows in (("Bonds", [(t, a, b) for a, b, t in bonds]),
+                        ("Angles", angles), ("Dihedrals", dihedrals),
+                        ("Impropers", impropers)):
+        lines += ["", title, ""]
+        lines += [f"{k + 1} {row[0]} " + " ".join(str(a + 1)
+                                                   for a in row[1:])
+                  for k, row in enumerate(rows)]
+    data = os.path.join(directory, "flex.data")
+    script = os.path.join(directory, "in.flex")
+    with open(data, "w") as fh:
+        fh.write("\n".join(lines) + "\n")
+    with open(script, "w") as fh:
+        fh.write(flexible_script(fix, cut=cut, replicate=replicate,
+                                 pair=pair, kspace=kspace))
+    return data, script
+
+
+def flexible_script(fix=FLEX_NVT, cut=(8.0, 10.0), replicate=None,
+                    pair=None, kspace="pppm 1e-4", shake=FLEX_SHAKE):
+    """FLEX_SCRIPT with `fix 1 all <fix>` and `fix 2 all <shake>` (the
+    arguments of flexible_script_case)."""
+    inner, outer = cut
+    return FLEX_SCRIPT.format(
+        pair=pair or f"lj/charmm/coul/long {inner:g} {outer:g}",
+        kspace=f"kspace_style {kspace}\n" if kspace else "",
+        replicate=("replicate {} {} {}\n".format(*replicate)
+                   if replicate else ""),
+        fix=fix, shake=shake)
 
 
 # the Nose-Hoover paths' edits of FLUID_SCRIPT (thermostat_script)
@@ -2803,7 +3133,7 @@ CPU_TWIN = """\
 import os, sys, time
 import numpy as np
 import torch
-torch.set_num_threads(1)
+torch.set_num_threads(int(os.environ.get("TWIN_THREADS", "1")))
 from lidp_tpu_torch.io.script import LammpsScript
 s = LammpsScript(dtype=torch.float64, device="cpu", log=lambda line: None)
 s.variables["nstep"] = sys.argv[3]
@@ -2821,17 +3151,20 @@ assert "jax" not in sys.modules
 """
 
 
-def start_cpu_twin(work, script, steps, out):
+def start_cpu_twin(work, script, steps, out, threads=1):
     """Start the CPU twin of `script` (in directory `work`) in a process
-    of its own; returns the Popen."""
-    env = dict(os.environ, OMP_NUM_THREADS="1", CUDA_VISIBLE_DEVICES="",
+    of its own on `threads` torch threads, at the lowest CPU priority
+    (nice 19), so that the paths' host work keeps its cores; returns the
+    Popen."""
+    env = dict(os.environ, OMP_NUM_THREADS=str(threads),
+               TWIN_THREADS=str(threads), CUDA_VISIBLE_DEVICES="",
                PYTHONPATH=os.pathsep.join(
                    filter(None, (ROOT, os.environ.get("PYTHONPATH")))))
     env.pop("LIDP_FAST_POLAR", None)
     return subprocess.Popen(
         [sys.executable, "-c", CPU_TWIN, out, script, str(steps)],
         cwd=work, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-        text=True)
+        text=True, preexec_fn=lambda: os.nice(19))
 
 
 def run_state(script):
@@ -3413,6 +3746,206 @@ def barostat_paths(launches, reset_counts, read_counts):
             shutil.rmtree(work, ignore_errors=True)
 
 
+# paths S and T: flexible molecules (flexible_script_case), float64
+FLEX_SIDE = (4, 4, 5)          # path S: 1,920 atoms, examples/peptide's size
+FLEX_REPLICATE = (2, 2, 4)     # path T: S replicated, 30,720 atoms (in.rhodo)
+FLEX_STEPS = 10
+FLEX_TWIN_STEPS = 2            # the CPU twins' steps: rows 0-2 compared
+# the T twin's torch threads: its cell pass on one thread takes ~500 s on
+# the card's host, beyond the script's budget
+FLEX_T_TWIN_THREADS = 4
+FLEX_COLS = ("etotal", "ke", "temp", "pe", "ebond", "eangle", "edihed",
+             "eimp", "evdwl", "ecoul", "elong", "press", "emol", "epair")
+FLEX_TOL = 1e-4                # FLEX_SHAKE's tolerance
+# the phases timed on S and T (DensePhases): label, module, function
+FLEX_PHASES = (("bonded", "lidp_tpu_torch.forcefield", "bonded_terms"),
+               ("shake", "lidp_tpu_torch.ops.shake", "shake_post_force"),
+               ("pair", "lidp_tpu_torch.ops.pair", "dense_pair_forces"),
+               ("pair cells", "lidp_tpu_torch.ops.cells",
+                "cell_pair_forces"),
+               ("special", "lidp_tpu_torch.ops.bonded",
+                "special_correction_sparse"),
+               ("pppm", "lidp_tpu_torch.ops.pppm", "pppm_forces_params"))
+
+
+def start_flexible_twins():
+    """Write paths S's and T's inputs to a directory of their own and start
+    their CPU twins (CPU_TWIN, FLEX_TWIN_STEPS steps: rows 0-2), which run
+    while the card works through the other paths; the processes and the
+    directory go when the interpreter exits.  Returns (directory, {path:
+    input}, {path: (Popen, npz)})."""
+    import atexit
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_flex_")
+    flexible_script_case(work, n_side=FLEX_SIDE)
+    with open(os.path.join(work, "in.T"), "w") as fh:
+        fh.write(flexible_script(FLEX_NPT, replicate=FLEX_REPLICATE))
+    inputs = {"S": "in.flex", "T": "in.T"}
+    twins = {}
+    for path, name in inputs.items():
+        out = os.path.join(work, f"twin_{path}.npz")
+        twins[path] = (start_cpu_twin(
+            work, name, FLEX_TWIN_STEPS, out,
+            threads=FLEX_T_TWIN_THREADS if path == "T" else 1), out)
+
+    def stop():
+        for proc, _ in twins.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(work, ignore_errors=True)
+
+    atexit.register(stop)
+    return work, inputs, twins
+
+
+class ConstraintWatch:
+    """Within `with ConstraintWatch():` every thermo row a Simulation
+    emits also records the largest relative deviation of a fix shake
+    constraint (bond or angle 1-3 distance) from its target on that row's
+    positions (the clusters of fix_modifiers.shake_pre_pass)."""
+
+    def __enter__(self):
+        import numpy as np
+        import torch
+
+        from lidp_tpu_torch import sim as sim_mod
+        from lidp_tpu_torch.box import minimum_image
+        from lidp_tpu_torch.styles.fix_modifiers import shake_pre_pass
+
+        self.errors, self._cls = [], sim_mod.Simulation
+        self._emit = emit = sim_mod.Simulation._emit
+        found = {}
+
+        def watched(sim):
+            s = sim.script
+            if id(sim) not in found:
+                at, cp, b2, cm = shake_pre_pass(
+                    s, s.mass_type[s.type])[0][:4]
+                dev = sim.sys.x.device
+                pa = np.take_along_axis(np.maximum(at, 0),
+                                        np.maximum(cp[:, :, 0], 0), 1)
+                qa = np.take_along_axis(np.maximum(at, 0),
+                                        np.maximum(cp[:, :, 1], 0), 1)
+                found[id(sim)] = tuple(
+                    torch.as_tensor(a, device=dev)
+                    for a in (pa[cm], qa[cm], np.sqrt(b2[cm])))
+            pa, qa, target = found[id(sim)]
+            x = sim.sys.x
+            d = minimum_image(x[pa] - x[qa], sim.sys.box.lengths)
+            r = torch.sqrt(torch.sum(d * d, dim=1))
+            self.errors.append(float(torch.max(torch.abs(r / target
+                                                         - 1.0))))
+            return emit(sim)
+
+        sim_mod.Simulation._emit = watched
+        return self
+
+    def __exit__(self, *exc):
+        self._cls._emit = self._emit
+        return False
+
+
+def flexible_paths(launches, reset_counts, read_counts, flex):
+    """Paths S and T: flexible molecules from a LAMMPS script (module
+    docstring).  Each sets launches[path]."""
+    import numpy as np
+    import torch
+
+    from lidp_tpu_torch.forcefield import bonded_terms
+    from lidp_tpu_torch.io.script import LammpsScript
+
+    work, inputs, twins = flex
+    for path in ("S", "T"):
+        t_path = time.perf_counter()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        log = []
+        reset_counts()
+        with ConstraintWatch() as watch:
+            script = LammpsScript(dtype=torch.float64, log=log.append)
+            script.variables["nstep"] = str(FLEX_STEPS)
+            script.file(os.path.join(work, inputs[path]))
+        launches[path] = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        check_counts(path, launches[path], {})
+        sim = script._sim
+        ff = sim.runner.ff
+        cells = sim.runner.neighbor_cfg is not None
+        if cells != (path == "T") or (cells and bool(sim.nlist.overflow)):
+            raise AssertionError(f"path {path}: route {script_route(script)}")
+        print(f"path {path}: flexible_script_case, {sim.natoms} atoms, "
+              f"`fix 1 all {FLEX_NPT if cells else FLEX_NVT}` and `fix 2 "
+              f"all {FLEX_SHAKE}`, lj/charmm/coul/long 8 10, pppm 1e-4, "
+              f"float64, {FLEX_STEPS} steps: {script_route(script)}; "
+              f"{len(ff.bond[0].idx)} bonds, {len(ff.angle[0].idx)} angles, "
+              f"{len(ff.dihedral[0].idx)} dihedrals, "
+              f"{len(ff.improper[0].idx)} impropers left to the bonded "
+              f"terms; its log:")
+        for line in log:
+            print(f"  {path}| {line}")
+        rows = script.thermo_rows
+        cols = FLEX_COLS + (("vol",) if cells else ())
+        check_rows_finite(path, rows, cols)
+        if len(watch.errors) != FLEX_STEPS + 1 or \
+                not max(watch.errors) <= FLEX_TOL:
+            raise AssertionError(f"path {path}: the SHAKE constraints' "
+                                 f"largest relative errors by row "
+                                 f"{watch.errors}")
+        print(f"path {path}: the SHAKE constraints' largest relative error "
+              f"by row " + ", ".join(f"{e:.2e}" for e in watch.errors)
+              + f" (the fix's tolerance {FLEX_TOL:g})")
+        script_peak(path, log, FLEX_STEPS, peak)
+        cancel = dict(cancelled(sim))
+        if cancel:
+            cancel["epair"] = cancel["evdwl"] + cancel["ecoul"]
+        # the bonded terms twice on one state: index_add_'s float atomics
+        z = torch.zeros_like(sim.sys.x)
+        e0 = sim.sys.x.new_zeros(())
+        outs = [bonded_terms(sim.sys, ff, z, e0, e0, z.new_zeros(6))
+                for _ in range(2)]
+        diff = max(max(float((a - b).abs().max()) for a, b in
+                       zip(outs[0][:4], outs[1][:4])),
+                   max(abs(float(outs[0][4][k]) - float(outs[1][4][k]))
+                       for k in outs[0][4]))
+        print(f"path {path}: two evaluations of bonded_terms on one state "
+              f"differ by at most {diff!r} (f, energies, virial): the "
+              f"index_add_ scatter is {'' if diff == 0.0 else 'not '}"
+              f"bit-reproducible on the card")
+        with DensePhases(FLEX_PHASES) as ph:
+            sim.sys, sim.res, sim.nlist, sim.istate = sim.runner.run(
+                sim.sys, sim.res, sim.nlist, sim.istate, EXTRA_STEPS)
+            ms = {k: v for k, v in ph.ms(EXTRA_STEPS).items() if v}
+        print(f"path {path} phases, ms a step by CUDA events over "
+              f"{EXTRA_STEPS} more steps: " + ", ".join(
+                  f"{k} {v:.4f}" for k, v in ms.items())
+              + f" ({smi_line()})")
+        proc, out = twins.pop(path)
+        t_wait = time.perf_counter()
+        try:
+            _, err = proc.communicate(timeout=900)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+            raise AssertionError(f"path {path}: the CPU twin did not finish")
+        if proc.returncode != 0:
+            raise AssertionError(f"path {path}: the CPU twin exit "
+                                 f"{proc.returncode}\n{err[-4000:]}")
+        twin = np.load(out)
+        ref = [dict(zip(twin["cols"].tolist(), r)) for r in twin["rows"]]
+        worst = rows_agree(path, rows[:len(ref)], ref, [1e-9] * len(ref),
+                           cols, cancel=cancel)
+        print(f"path {path} vs its CPU twin (the same script, the port on "
+              f"the CPU, float64, {float(twin['seconds']):.1f} s): rows "
+              f"0-{len(ref) - 1} at {worst:.3g} of their bar (rel 1e-9 of "
+              f"max(1, |value|) + {CANCEL_REL:g} of the cancelled "
+              f"magnitude, {cancel.get('evdwl', 0.0):.4g} in E_vdwl); rows "
+              f"{len(ref)}-{FLEX_STEPS} finite; the path took "
+              f"{time.perf_counter() - t_path:.1f} s of wall time, "
+              f"{t_wait - t_path:.1f} s before the twin's wait")
+        del script, sim, ff, outs
+
+
 def main() -> int:
     import torch
 
@@ -3437,6 +3970,9 @@ def main() -> int:
     wrappers = {**panel.WRAPPERS, **cell_kernels.WRAPPERS}
     if sorted(ALL_KERNELS) != sorted(wrappers):
         raise AssertionError("the kernel table does not list every wrapper")
+
+    # the CPU twins of paths S and T run while the card works
+    flex = start_flexible_twins()
 
     # 2. build
     t0 = time.perf_counter()
@@ -4235,6 +4771,7 @@ def main() -> int:
 
     script_cell_paths(launches, reset_counts, read_counts, steps_per_s_F)
     barostat_paths(launches, reset_counts, read_counts)
+    flexible_paths(launches, reset_counts, read_counts, flex)
 
     # 6. results
     total = {name: sum(launches[p][name] for p in launches)

@@ -2,7 +2,8 @@
 
 The caller hands over the fields of lidp_tpu's dataclasses (PairParams,
 EwaldParams, PPPMParams, PolarizationSettings, System, Cells, SlotCarry,
-RigidSetup, RigidState, NVTState, NPTState) as numpy arrays or scalars, e.g.
+RigidSetup, RigidState, NVTState, NPTState, the bonded params and
+ShakeParams) as numpy arrays or scalars, e.g.
 `{f.name: np.asarray(getattr(p, f.name)) for f in dataclasses.fields(p)}`,
 so both packages compute from the same tables and the same state.  Nothing
 here imports JAX.
@@ -47,25 +48,34 @@ def _given(d: dict, k):
 
 
 # pair fields the port cannot express, with the only value it accepts
-_PAIR_ONLY = dict(charmm=False, charmm_fsw=False, kind="lj", lj5=None,
-                  tab_e=None)
+_PAIR_ONLY = dict(charmm_fsw=False, kind="lj", lj5=None, tab_e=None)
 
 
 def pair_from_numpy(pair: dict, device="cuda",
                     dtype=torch.float32) -> PairParams:
     """The port's PairParams from a numpy copy of the JAX one: lj/cut
-    (coul=False) or lj/cut/coul/long, with excl_mol and the type exclusion
-    table excl.  A table that asks for another form raises."""
+    (coul=False), lj/cut/coul/long or the lj/charmm styles (the charmm
+    switch, coul_kind long or charmm), with excl_mol and the type
+    exclusion table excl.  A table that asks for another form raises."""
     from lidp_tpu_torch import resolve_device
 
     device = resolve_device(device)
     coul = bool(_scalar(pair.get("coul", True)))
-    only = dict(_PAIR_ONLY, **({"coul_kind": "long"} if coul else {}))
-    for k, want in only.items():
+    for k, want in _PAIR_ONLY.items():
         if k in pair and _scalar(pair[k]) != want:
             raise NotImplementedError(
                 f"pair field {k}={_scalar(pair[k])!r} is not ported "
                 "(ROADMAP queue 1 item 6, breadth)")
+    coul_kind = str(_scalar(pair.get("coul_kind", "long"))) if coul \
+        else "long"
+    if coul_kind not in ("long", "charmm"):
+        raise NotImplementedError(
+            f"pair field coul_kind={coul_kind!r} is not ported (ROADMAP "
+            "queue 1 item 6, breadth)")
+
+    def f(k, default):
+        v = _given(pair, k)
+        return default if v is None else float(_scalar(v))
 
     def t(a):
         return torch.as_tensor(np.array(a), dtype=dtype, device=device)
@@ -78,7 +88,11 @@ def pair_from_numpy(pair: dict, device="cuda",
         g_ewald=float(_scalar(pair["g_ewald"])), coul=coul,
         excl_mol=bool(_scalar(pair.get("excl_mol", False))),
         excl=(None if _given(pair, "excl") is None else torch.as_tensor(
-            np.array(pair["excl"]), dtype=torch.bool, device=device)))
+            np.array(pair["excl"]), dtype=torch.bool, device=device)),
+        charmm=bool(_scalar(pair.get("charmm", False))),
+        cut_lj_innersq=f("cut_lj_innersq", 0.0), denom_lj=f("denom_lj", 1.0),
+        coul_kind=coul_kind, cut_coul_innersq=f("cut_coul_innersq", 0.0),
+        denom_coul=f("denom_coul", 1.0))
 
 
 def forcefield_from_numpy(pair: dict, ewald: dict, polar: dict, qqrd2e,
@@ -244,3 +258,38 @@ def nvt_state_from_numpy(state: dict, dtype=torch.float64) -> NVTState:
     dtype."""
     return NVTState(eta_dot=np.array(state["eta_dot"],
                                      dtype=chain_dtype(dtype)))
+
+
+# the integer and bool fields of the bonded params and ShakeParams
+_INDEX_FIELDS = ("idx", "btype", "atype", "dtype_", "itype", "type_",
+                 "ptype", "atoms", "cpairs")
+
+
+def bonded_from_numpy(cls, d: dict, device="cuda", dtype=torch.float64):
+    """One of the port's ops.bonded BondParams, AngleParams,
+    DihedralParams, ImproperParams or ops.shake.ShakeParams (`cls`) from a
+    numpy copy of the JAX one: index fields as long, masks as bool, tables
+    in `dtype`, scalars as Python scalars; fields the JAX one leaves None
+    stay None."""
+    from lidp_tpu_torch import resolve_device
+
+    device = resolve_device(device)
+    kw = {}
+    for fld in dataclasses.fields(cls):
+        v = _given(d, fld.name)
+        if v is None:
+            continue
+        a = np.asarray(v)
+        if a.ndim == 0 or isinstance(v, str):
+            kw[fld.name] = _scalar(v)
+        elif fld.name in _INDEX_FIELDS:
+            kw[fld.name] = torch.as_tensor(a, dtype=torch.long,
+                                           device=device)
+        elif a.dtype == bool:
+            kw[fld.name] = torch.as_tensor(a, device=device)
+        else:
+            kw[fld.name] = torch.as_tensor(a, dtype=dtype, device=device)
+    for k in ("dtv", "dtfsq", "qqrd2e", "tolerance"):
+        if k in kw:
+            kw[k] = float(kw[k])
+    return cls(**kw)

@@ -7,9 +7,11 @@ JAX package's order, the pair term (the all-pairs pass of the dense route,
 the sparse special-bond correction unless same-molecule pairs are
 excluded), then the k-space term (the Ewald sum, rescaled to the live box
 under a barostat, or PPPM, which reads the live box at every call) and
-the polarization term on (N,N) tensors.  Neighbour lists (ROADMAP queue 1
-item 5), bonded terms and the other k-space styles (item 6) raise
-NotImplementedError.
+the polarization term on (N,N) tensors.  The bonded terms (bond, angle,
+dihedral with the CHARMM weighted 1-4 term into E_vdwl and E_coul, and
+improper; ops/bonded.py) come after the pair term on either route, as in
+the JAX package.  Neighbour lists (ROADMAP queue 1 item 5) and the other
+k-space styles (item 6) raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -54,6 +56,13 @@ class ForceField:
     # live box at each call (rescale_coeffs; the analog of
     # force->kspace->setup(), fix_nh.cpp:877)
     kspace_dynamic: bool = False
+    # the bonded terms: tuples of ops.bonded BondParams, AngleParams,
+    # DihedralParams and ImproperParams, one per hybrid sub-style; () for
+    # none
+    bond: tuple = ()
+    angle: tuple = ()
+    dihedral: tuple = ()
+    improper: tuple = ()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -90,15 +99,60 @@ class ForceResult:
         return self.epair + self.emol + self.efix
 
 
-def pair_only_result(sys, f, evdwl, ecoul, virial) -> ForceResult:
-    """ForceResult of a pair term alone: every other energy is one shared
-    zero, the dipoles are the system's."""
+def pair_only_result(sys, f, evdwl, ecoul, virial,
+                     bonded=None) -> ForceResult:
+    """ForceResult of a pair term (and the bonded terms' energies
+    `bonded`, a dict of ebond, eangle, edihed, eimp) alone: every other
+    energy is one shared zero, the dipoles are the system's."""
     zero = torch.zeros((), dtype=f.dtype, device=f.device)
     izero = torch.zeros((), dtype=torch.int32, device=f.device)
     return ForceResult(
-        f=f, evdwl=evdwl, ecoul=ecoul, elong=zero, epol=zero, ebond=zero,
+        f=f, evdwl=evdwl, ecoul=ecoul, elong=zero, epol=zero,
         virial=virial, mu=sys.mu, scf_iters=izero,
-        scf_diverged=izero.to(torch.bool))
+        scf_diverged=izero.to(torch.bool),
+        **(bonded or dict(ebond=zero)))
+
+
+def bonded_terms(sys, ff: ForceField, f, evdwl, ecoul, virial):
+    """The bonded block of lidp_tpu/forcefield.py compute_forces (:326-380)
+    in its order: each bond style (quartic's pair subtraction into E_vdwl
+    and the virial), angle style, dihedral style (the charmm dihedral's
+    weighted 1-4 term into E_vdwl and E_coul, as the reference tallies
+    it) and improper style, summed onto the pair term's f, evdwl, ecoul and
+    virial.  Returns (f, evdwl, ecoul, virial, {ebond, eangle, edihed,
+    eimp})."""
+    from lidp_tpu_torch.ops import bonded as bonded_ops
+
+    x = sys.x
+    e = {k: x.new_zeros(()) for k in ("ebond", "eangle", "edihed", "eimp")}
+    for bp in ff.bond:
+        if bp.style == "quartic":
+            fb, eb, vb, dev, dvp = bonded_ops.bond_quartic_full(x, sys.box,
+                                                                bp)
+            evdwl = evdwl + dev
+            virial = virial + dvp
+        else:
+            fb, eb, vb = bonded_ops.bond_forces(x, sys.box, bp)
+        f, virial = f + fb, virial + vb
+        e["ebond"] = e["ebond"] + eb
+    for ap in ff.angle:
+        fa, ea, va = bonded_ops.angle_forces(x, sys.box, ap)
+        f, virial = f + fa, virial + va
+        e["eangle"] = e["eangle"] + ea
+    for dp in ff.dihedral:
+        fd, ed, vd = bonded_ops.dihedral_forces(x, sys.box, dp)
+        f, virial = f + fd, virial + vd
+        e["edihed"] = e["edihed"] + ed
+        if dp.style in ("charmm", "charmmfsw") and dp.q is not None:
+            f14, ev14, ec14, v14 = bonded_ops.charmm_14_forces(x, sys.box,
+                                                               dp)
+            f, virial = f + f14, virial + v14
+            evdwl, ecoul = evdwl + ev14, ecoul + ec14
+    for ip in ff.improper:
+        fi, ei, vi = bonded_ops.improper_forces(x, sys.box, ip)
+        f, virial = f + fi, virial + vi
+        e["eimp"] = e["eimp"] + ei
+    return f, evdwl, ecoul, virial, e
 
 
 def pair_route(sys, ff, cells) -> str:
@@ -159,17 +213,18 @@ def compute_forces(sys, ff: ForceField, nlist=None,
             sys.x, sys.q, sys.type, ff.sp_idx, ff.sp_lvl, sys.mask, sys.box,
             ff.pair)
         f, ev, ec, vir = f + fc, ev + dev, ec + dec, vir + dvir
+    f, ev, ec, vir, bonded = bonded_terms(sys, ff, f, ev, ec, vir)
     if ff.ewald is None and ff.pppm is None and ff.polar is None:
-        return pair_only_result(sys, f, ev, ec, vir)
-    return _long_range_terms(sys, ff, f, ev, ec, vir)
+        return pair_only_result(sys, f, ev, ec, vir, bonded)
+    return _long_range_terms(sys, ff, f, ev, ec, vir, bonded)
 
 
 def dense_forces(sys, ff: ForceField) -> ForceResult:
     """The dense route of lidp_tpu/forcefield.py compute_forces
     (nlist=None) in its order: the all-pairs LJ + coulomb pass with the
-    special codes, then the Ewald sum and the polarization term
-    (_long_range_terms).  Plain PyTorch on (N,N) tensors: no kernel of
-    ops/panel.py runs here."""
+    special codes, the bonded terms (bonded_terms), then the k-space sum
+    and the polarization term (_long_range_terms).  Plain PyTorch on
+    (N,N) tensors: no kernel of ops/panel.py runs here."""
     from lidp_tpu_torch.ops import pair as pair_ops
 
     x = sys.x
@@ -184,11 +239,13 @@ def dense_forces(sys, ff: ForceField) -> ForceResult:
         f = f + fp
         evdwl, ecoul = evdwl + ev, ecoul + ec
         virial = virial + vir
-    return _long_range_terms(sys, ff, f, evdwl, ecoul, virial)
+    f, evdwl, ecoul, virial, bonded = bonded_terms(sys, ff, f, evdwl, ecoul,
+                                                   virial)
+    return _long_range_terms(sys, ff, f, evdwl, ecoul, virial, bonded)
 
 
 def _long_range_terms(sys, ff: ForceField, f, evdwl, ecoul,
-                      virial) -> ForceResult:
+                      virial, bonded) -> ForceResult:
     """The terms after the pair term, on either route, in the JAX
     package's order: the k-space term (the Ewald sum, its tables rescaled
     to the live box under kspace_dynamic; or PPPM on the positions
@@ -197,7 +254,7 @@ def _long_range_terms(sys, ff: ForceField, f, evdwl, ecoul,
     field E0, the (N,3,N,3) tensor, the dipole solve from sys.mu under
     use_previous, the polar forces and epol), all on (N,N) tensors; the
     ForceResult of the pair term's f, evdwl, ecoul and virial with
-    them."""
+    them and the bonded energies `bonded`."""
     from lidp_tpu_torch.ops import ewald as ewald_ops
     from lidp_tpu_torch.ops import polarization as pol_ops
     from lidp_tpu_torch.ops.pppm import pppm_forces_params
@@ -247,7 +304,7 @@ def _long_range_terms(sys, ff: ForceField, f, evdwl, ecoul,
         virial = virial + vpol
 
     return ForceResult(
-        f=f, evdwl=evdwl, ecoul=ecoul, elong=elong, epol=epol, ebond=zero,
+        f=f, evdwl=evdwl, ecoul=ecoul, elong=elong, epol=epol, **bonded,
         virial=virial, mu=mu,
         scf_iters=torch.tensor(scf_iters, dtype=torch.int32,
                                device=x.device),

@@ -1,7 +1,7 @@
 """LAMMPS data-file writer — the inverse of io/data_reader.py
 (write_data.cpp: header + Masses + Atoms + Velocities + Bonds;
-lidp_tpu/io/data_writer.py, an own copy reading the port's tensors and
-writing the one bonded section the port's scripts read).
+lidp_tpu/io/data_writer.py, an own copy reading the port's tensors; of
+the bonded sections it writes Bonds, and raises on the others).
 
 State is taken from the live Simulation if one exists (post-run coordinates)
 else from the interpreter arrays.
@@ -32,7 +32,13 @@ def write_data(path: str, script):
     mol = script.mol if script.mol is not None else np.zeros(n, int)
     full = script.atom_style == "full"
 
-    # the port's scripts read no Angles, Dihedrals or Impropers section
+    # the writer's one bonded section is Bonds
+    for sec in ("angles", "dihedrals", "impropers"):
+        arr = getattr(script, f"_{sec}", None)
+        if arr is not None and len(arr):
+            raise NotImplementedError(
+                f"write_data of a {sec.capitalize()} section is not ported "
+                "(ROADMAP queue 1 item 4, the script front end)")
     bonds = script._bonds
 
     with open(path, "w") as fh:

@@ -16,7 +16,11 @@ FastPolarRunner) on the script's device and advances it.
 The commands are those the polarization examples, the polar main path and
 the atomic inputs bench/in.lj and examples/melt use (lattice, region
 block, create_box, create_atoms, the neighbour schedule and exclusions of
-neigh_modify, the mesh k-space and the barostats);
+neigh_modify, the mesh k-space and the barostats), and the flexible
+molecules of examples/peptide and bench/in.rhodo (the bond, angle,
+dihedral and improper styles with their coeff commands and data-file
+sections, special_bonds charmm|amber|fene, the lj/charmm pair styles with
+the four-argument pair_coeff, fix shake and fix rattle);
 every other command, style or keyword raises NotImplementedError naming
 itself and the ROADMAP item that ports it, and is never ignored.
 """
@@ -55,12 +59,27 @@ THERMO_KEYWORDS = frozenset((
     "xy", "xz", "yz", "atoms", "bonds"))
 
 # pair styles Simulation.from_script builds
-PAIR_STYLES = ("lj/cut", "lj/cut/coul/long", "lj/cut/coul/long/polarization")
+PAIR_STYLES = ("lj/cut", "lj/cut/coul/long", "lj/cut/coul/long/polarization",
+               "lj/charmm/coul/long", "lj/charmm/coul/charmm")
+# the CHARMM pair styles the JAX package runs and the port does not
+CHARMM_UNPORTED = ("lj/charmm/coul/charmm/implicit", "lj/charmm/coul/msm",
+                   "lj/charmmfsw/coul/long", "lj/charmmfsw/coul/charmmfsh")
 
-# fix styles with a builder (styles/fix_integrators.py)
+# fix styles with a builder (styles/fix_integrators.py, fix_modifiers.py)
 FIX_STYLES = ("nve", "nvt", "npt", "nph", "rigid", "rigid/nve", "rigid/nvt",
               "rigid/npt", "rigid/nph", "rigid/small", "rigid/nve/small",
-              "rigid/nvt/small", "rigid/npt/small", "rigid/nph/small")
+              "rigid/nvt/small", "rigid/npt/small", "rigid/nph/small",
+              "shake", "rattle")
+
+# the bonded styles (ops/bonded.py, styles/bonded_builders.py); dihedral
+# charmmfsw pairs with lj/charmmfsw, which is not ported
+BOND_STYLES = ("harmonic", "fene", "fene/expand", "morse", "nonlinear",
+               "gromos", "quartic", "table", "zero", "hybrid")
+ANGLE_STYLES = ("harmonic", "charmm", "cosine", "cosine/squared",
+                "cosine/delta", "cosine/periodic", "table", "zero", "hybrid")
+DIHEDRAL_STYLES = ("opls", "harmonic", "charmm", "multi/harmonic", "helix",
+                   "zero", "hybrid")
+IMPROPER_STYLES = ("harmonic", "cvff", "umbrella", "zero", "hybrid")
 
 
 def _unported(what: str, where: str = _FRONT_END):
@@ -80,6 +99,9 @@ class PairStyleSpec:
     name: str = ""
     cut_lj_global: float = 0.0
     cut_coul: float = 0.0
+    # the CHARMM switches' inner cutoffs (lj/charmm/*)
+    cut_lj_inner: float = 0.0
+    cut_coul_inner: float = 0.0
     # polarization keywords, defaults per constructor
     # (...polarization.cpp:63-79)
     iterations_max: int = 50
@@ -175,9 +197,28 @@ class LammpsScript:
         self.alpha_type = None       # (T+1,)
         self._bonds = None
         self._bond_types = None
+        self.nbondtypes = 0
+        # the Angles / Dihedrals / Impropers sections ((M,k) 1-based atom
+        # ids and their types), None without them
+        self._angles = self._angle_types = None
+        self._dihedrals = self._dihedral_types = None
+        self._impropers = self._improper_types = None
+        # the bonded styles: name, its arguments (hybrid: the sub-styles;
+        # table: interpolation and N) and type -> coefficient list
+        self.bond_style = self.angle_style = None
+        self.dihedral_style = self.improper_style = None
+        self.bond_style_args: list = []
+        self.angle_style_args: list = []
+        self.dihedral_style_args: list = []
+        self.improper_style_args: list = []
         self.bond_coeffs: dict = {}
+        self.angle_coeffs: dict = {}
+        self.dihedral_coeffs: dict = {}
+        self.improper_coeffs: dict = {}
         self.pair = PairStyleSpec()
         self.pair_coeffs: dict[tuple, tuple] = {}
+        # the CHARMM styles' (eps14, sigma14) by type pair
+        self.pair_coeffs14: dict[tuple, tuple] = {}
         self.kspace: Optional[tuple] = None      # (style, accuracy)
         # index 0 = factor for non-special pairs, always 1.0
         self.special_lj = [1.0, 0.0, 0.0, 0.0]
@@ -665,9 +706,6 @@ class LammpsScript:
             _unported(f"read_data keywords {' '.join(a[1:])}")
         d = read_data(os.path.join(self.root, a[0]),
                       atom_style=self.atom_style)
-        if any(len(getattr(d, k)) for k in ("angles", "dihedrals",
-                                            "impropers")):
-            _unported("Angles, Dihedrals and Impropers sections", _BREADTH)
         if d.tilt is not None and np.any(d.tilt != 0.0):
             _unported("a triclinic box", _BREADTH)
         self.data = d
@@ -682,9 +720,22 @@ class LammpsScript:
         self.alpha_type = np.zeros(d.ntypes + 1)
         self._bonds = d.bonds
         self._bond_types = d.bond_types
+        self.nbondtypes = d.nbondtypes
+        self._angles, self._angle_types = d.angles, d.angle_types
+        self._dihedrals, self._dihedral_types = d.dihedrals, d.dihedral_types
+        self._impropers, self._improper_types = d.impropers, d.improper_types
         self.groups["all"] = np.ones(d.natoms, bool)
-        if d.pair_coeffs or d.bond_coeffs:
-            _unported("coefficient sections in a data file")
+        # the coeff sections of the data file (read_data.cpp): Pair Coeffs
+        # rows are per type (i == i); the CHARMM styles carry eps14 and
+        # sigma14 as columns 3-4
+        for t, vals in (d.pair_coeffs or {}).items():
+            self.pair_coeffs[(t, t)] = (vals[0], vals[1],
+                                        self.pair.cut_lj_global)
+            if len(vals) >= 4 and "charmm" in self.pair.name:
+                self.pair_coeffs14[(t, t)] = (vals[2], vals[3])
+        for fam in ("bond", "angle", "dihedral", "improper"):
+            self.__dict__[f"{fam}_coeffs"].update(
+                getattr(d, f"{fam}_coeffs") or {})
 
     def cmd_replicate(self, a):
         """Replicate the system nx x ny x nz (replicate.cpp: each atom
@@ -725,6 +776,15 @@ class LammpsScript:
                        else np.zeros((0, 2), np.int64))
         if self._bond_types is not None and len(self._bonds):
             self._bond_types = np.tile(self._bond_types, rep)
+        # replicate.cpp copies every topology section with per-replica
+        # atom-index offsets
+        for sec in ("angle", "dihedral", "improper"):
+            arr = getattr(self, f"_{sec}s")
+            if arr is not None and len(arr):
+                setattr(self, f"_{sec}s", np.concatenate(
+                    [arr + r * n0 for r in range(rep)]))
+                setattr(self, f"_{sec}_types",
+                        np.tile(getattr(self, f"_{sec}_types"), rep))
         self.box_hi = self.box_lo + L * np.array([nx, ny, nz])
         self.groups = {"all": np.ones(self.x.shape[0], bool)}
         self._invalidate()
@@ -800,13 +860,45 @@ class LammpsScript:
 
     def cmd_pair_style(self, a):
         """pair_style lj/cut CUT | lj/cut/coul/long CUT [CUT_COUL] |
-        lj/cut/coul/long/polarization CUT [CUT_COUL] [keywords]."""
+        lj/cut/coul/long/polarization CUT [CUT_COUL] [keywords] |
+        lj/charmm/coul/long INNER OUTER [CUT_COUL] | lj/charmm/coul/charmm
+        INNER OUTER [INNER_COUL OUTER_COUL] (the CHARMM styles mix
+        arithmetically, as the JAX package sets them)."""
         self._invalidate()
         self.pair_coeffs = {}
+        self.pair_coeffs14 = {}
+        if a[0] in CHARMM_UNPORTED:
+            _unported(f"pair_style {a[0]} (the JAX package runs it)",
+                      _BREADTH)
         if a[0] not in PAIR_STYLES:
             _unported(f"pair_style {a[0]}", _BREADTH)
         p = PairStyleSpec(name=a[0])
         p.cut_lj_global = float(a[1])
+        if a[0] == "lj/charmm/coul/long":
+            # inner outer [coul-outer] (pair_lj_charmm_coul_long.cpp
+            # settings)
+            if len(a) not in (3, 4):
+                raise ValueError("Illegal pair_style command")
+            p.cut_lj_inner = float(a[1])
+            p.cut_lj_global = float(a[2])
+            p.cut_coul = float(a[3]) if len(a) > 3 else p.cut_lj_global
+            self._pair_mix = "arithmetic"
+            self.pair = p
+            return
+        if a[0] == "lj/charmm/coul/charmm":
+            # inner outer [inner-coul outer-coul]
+            # (pair_lj_charmm_coul_charmm.cpp settings: 2 or 4 arguments)
+            if len(a) not in (3, 5):
+                raise ValueError("Illegal pair_style command")
+            p.cut_lj_inner = float(a[1])
+            p.cut_lj_global = float(a[2])
+            if len(a) > 4:
+                p.cut_coul_inner, p.cut_coul = float(a[3]), float(a[4])
+            else:
+                p.cut_coul_inner, p.cut_coul = p.cut_lj_inner, p.cut_lj_global
+            self._pair_mix = "arithmetic"
+            self.pair = p
+            return
         if a[0] == "lj/cut":
             if len(a) > 2:
                 raise ValueError("Illegal pair_style command")
@@ -869,8 +961,87 @@ class LammpsScript:
             return
         i, j = int(a[0]), int(a[1])
         eps, sig = float(a[2]), float(a[3])
+        if "charmm" in self.pair.name:
+            # i j eps sigma [eps14 sigma14]; the cutoffs are global
+            # (pair_lj_charmm_coul_long.cpp::coeff)
+            if len(a) > 4:
+                self.pair_coeffs14[(min(i, j), max(i, j))] = (
+                    float(a[4]), float(a[5]))
+            self.pair_coeffs[(min(i, j), max(i, j))] = (
+                eps, sig, self.pair.cut_lj_global)
+            return
         cut = float(a[4]) if len(a) > 4 else self.pair.cut_lj_global
         self.pair_coeffs[(min(i, j), max(i, j))] = (eps, sig, cut)
+
+    # ------------------------------ bonded -------------------------------
+
+    @staticmethod
+    def _coeff_vals(a):
+        """Coefficient tokens: floats where possible, raw strings
+        otherwise (table file and keyword, hybrid sub-style names)."""
+        out = []
+        for v in a:
+            try:
+                out.append(float(v))
+            except ValueError:
+                out.append(v)
+        return out
+
+    def _bonded_types(self, tok, fam):
+        """force->bounds of a bonded type token: N, *, N*, *M, N*M."""
+        try:
+            return [int(tok)]
+        except ValueError:
+            pass
+        arr = getattr(self, f"_{fam}_types", None)
+        tmax = self.nbondtypes if fam == "bond" else 0
+        if not tmax and arr is not None and len(arr):
+            tmax = int(np.max(arr))
+        lo, _, hi = tok.partition("*")
+        return range(int(lo) if lo else 1, (int(hi) if hi else tmax) + 1)
+
+    def _bonded_style(self, fam, styles, a):
+        if a[0] not in styles:
+            if fam == "dihedral" and a[0] == "charmmfsw":
+                _unported("dihedral_style charmmfsw (with the lj/charmmfsw "
+                          "pair styles; the JAX package runs it)", _BREADTH)
+            _unported(f"{fam}_style {a[0]}", _BREADTH)
+        self._invalidate()
+        setattr(self, f"{fam}_style", a[0])
+        # table: interpolation and N; hybrid: the sub-styles
+        setattr(self, f"{fam}_style_args", list(a[1:]))
+        setattr(self, f"{fam}_coeffs", {})
+
+    def _bonded_coeff(self, fam, a):
+        self._invalidate()
+        vals = self._coeff_vals(a[1:])
+        store = getattr(self, f"{fam}_coeffs")
+        for t in self._bonded_types(a[0], fam):
+            store[t] = vals
+
+    def cmd_bond_style(self, a):
+        self._bonded_style("bond", BOND_STYLES, a)
+
+    def cmd_bond_coeff(self, a):
+        self._bonded_coeff("bond", a)
+
+    def cmd_angle_style(self, a):
+        self._bonded_style("angle", ANGLE_STYLES, a)
+
+    def cmd_angle_coeff(self, a):
+        self._bonded_coeff("angle", a)
+
+    def cmd_dihedral_style(self, a):
+        self._bonded_style("dihedral", DIHEDRAL_STYLES, a)
+
+    def cmd_dihedral_coeff(self, a):
+        self._bonded_coeff("dihedral", a)
+
+    def cmd_improper_style(self, a):
+        self._bonded_style("improper", IMPROPER_STYLES, a)
+
+    def cmd_improper_coeff(self, a):
+        self._bonded_coeff("improper", a)
 
     def cmd_pair_modify(self, a):
         i = 0
@@ -919,6 +1090,17 @@ class LammpsScript:
             self.special_lj[1:] = [float(v) for v in a[1:4]]
         elif a[0] == "coul":
             self.special_coul[1:] = [float(v) for v in a[1:4]]
+        elif a[0] == "fene":
+            # special_bonds fene = lj/coul 0 1 1 (special_bonds doc)
+            self.special_lj[1:] = [0.0, 1.0, 1.0]
+            self.special_coul[1:] = [0.0, 1.0, 1.0]
+        elif a[0] == "amber":
+            self.special_lj[1:] = [0.0, 0.0, 0.5]
+            self.special_coul[1:] = [0.0, 0.0, 1.0 / 1.2]
+        elif a[0] == "charmm":
+            # the charmm dihedral's weighted 1-4 term replaces the pair 1-4
+            self.special_lj[1:] = [0.0, 0.0, 0.0]
+            self.special_coul[1:] = [0.0, 0.0, 0.0]
         else:
             _unported(f"special_bonds {a[0]}", _BREADTH)
 

@@ -48,9 +48,9 @@ NPAR = 8                  # csrc/lj_cell.cuh: lj3 lj4 offset cutsq L(3) floor
 
 
 def supported(p, ntypes_gt_one: bool, coul: bool) -> bool:
-    """Whether the LJ cell kernels cover this pair style: one atom type and
-    no coulomb (the port's PairParams has no charmm switch)."""
-    return (not ntypes_gt_one) and (not coul)
+    """Whether the LJ cell kernels cover this pair style: one atom type, no
+    coulomb and no charmm switch."""
+    return (not ntypes_gt_one) and (not coul) and not p.charmm
 
 
 def sentinel_scalars(box: Box, p):

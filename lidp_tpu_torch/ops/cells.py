@@ -15,11 +15,11 @@ the JAX package sends them to its XLA function.  The single-type float32
 LJ case goes to the CUDA kernels of ops/cell_kernels.py instead
 (forcefield.compute_forces decides; a type exclusion table or the molecule
 exclusion keeps a system on this function, as the JAX package's
-_pallas_ok does).  Only lj/cut and lj/cut/coul/long are ported, with the
+_pallas_ok does).  lj/cut, lj/cut/coul/long and the lj/charmm styles
+(the LJ switch, coul/long and coul/charmm) are ported, with the
 neigh_modify exclusions (type pairs, PairParams.excl; same-molecule pairs,
-excl_mol with mol=): the port's PairParams cannot express the charmm
-switches or the other pair and coulomb kinds, and a triclinic box does not
-exist in the port.
+excl_mol with mol=); the other pair and coulomb kinds are not (ROADMAP
+queue 1 item 6), and a triclinic box does not exist in the port.
 
 Requires >= 3 bins in every dimension that has more than one.
 """
@@ -32,7 +32,8 @@ import numpy as np
 import torch
 
 from lidp_tpu_torch.box import Box, minimum_image
-from lidp_tpu_torch.ops.pair import EWALD_F, erfc_as
+from lidp_tpu_torch.ops.pair import (EWALD_F, charmm_coul, charmm_switch,
+                                     erfc_as)
 
 
 def perp_widths(lengths, tilt=None):
@@ -237,10 +238,13 @@ def cell_pair_forces(x, q, type_, mask, cells: Cells, box: Box, p,
             in_rng = in_rng & ~p.excl[ti, tj]
         lj_m = in_rng & (rsq < cut_ljsq)
         r6inv = r2inv * r2inv * r2inv
-        forcelj = torch.where(
-            lj_m, r6inv * (12.0 * lj3 * r6inv - 6.0 * lj4), 0.0)
-        if need_ev:
+        forcelj = r6inv * (12.0 * lj3 * r6inv - 6.0 * lj4)
+        if need_ev or p.charmm:
             philj = r6inv * (lj3 * r6inv - lj4)
+        if p.charmm:
+            forcelj, philj = charmm_switch(p, cut_ljsq, rsq, forcelj, philj)
+        forcelj = torch.where(lj_m, forcelj, 0.0)
+        if need_ev:
             evdwl = evdwl + torch.sum(torch.where(lj_m, philj - off11, 0.0))
 
         if coul:
@@ -248,7 +252,12 @@ def cell_pair_forces(x, q, type_, mask, cells: Cells, box: Box, p,
             cm = in_rng & (rsq < p.cut_coulsq)
             r = torch.sqrt(rsq)
             prefactor = p.qqrd2e * qi * qj / r
-            if p.g_ewald > 0:
+            if p.coul_kind == "charmm":
+                ec, fc = charmm_coul(p, prefactor, rsq, 1.0)
+                forcecoul = torch.where(cm, fc, 0.0)
+                if need_ev:
+                    ecoul = ecoul + torch.sum(torch.where(cm, ec, 0.0))
+            elif p.g_ewald > 0:
                 grij = p.g_ewald * r
                 expm2 = torch.exp(-grij * grij)
                 erfc = erfc_as(grij, expm2)
@@ -257,7 +266,7 @@ def cell_pair_forces(x, q, type_, mask, cells: Cells, box: Box, p,
             else:                                   # exact coul/cut
                 erfc = 1.0
                 forcecoul = torch.where(cm, prefactor, 0.0)
-            if need_ev:
+            if need_ev and p.coul_kind != "charmm":
                 ecoul = ecoul + torch.sum(
                     torch.where(cm, prefactor * erfc, 0.0))
         else:

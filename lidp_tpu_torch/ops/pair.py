@@ -1,5 +1,9 @@
 """LJ + real-space Ewald pair parameters and the dense all-pairs pass
-(lidp_tpu/ops/pair.py, the lj/cut/coul/long and lj/cut parts).
+(lidp_tpu/ops/pair.py, the lj/cut, lj/cut/coul/long and lj/charmm/coul/long
+and lj/charmm/coul/charmm parts: the CHARMM energy switch of the LJ term
+between the inner and outer cutoffs, pair_lj_charmm_coul_long.cpp:110-125,
+and the switched coulomb of coul/charmm, pair_lj_charmm_coul_charmm.cpp:
+123-130).
 
 The erfc of the real-space coulomb term is the reference's 5-term
 Abramowitz-Stegun polynomial (pair_lj_cut_coul_long_polarization.cpp:43-49),
@@ -57,21 +61,37 @@ class PairParams:
     # neigh_modify exclude type I J: (T+1,T+1) bool, the excluded type
     # pairs take no pair term (neighbor.cpp exclusion lists); None for none
     excl: Optional[torch.Tensor] = None
+    # CHARMM energy switching of the LJ term between the inner and outer
+    # cutoffs (lj/charmm/*): the inner cutoff^2 and (cut_lj^2 -
+    # cut_lj_inner^2)^3 of the largest LJ cutoff
+    charmm: bool = False
+    cut_lj_innersq: float = 0.0
+    denom_lj: float = 1.0
+    # the coulomb form: "long" (erfc-damped; g_ewald 0 gives the plain 1/r)
+    # or "charmm" (lj/charmm/coul/charmm: 1/r scaled by the switch between
+    # the inner and outer coulomb cutoffs, the special factor
+    # multiplicative)
+    coul_kind: str = "long"
+    cut_coul_innersq: float = 0.0
+    denom_coul: float = 1.0
 
 
 def make_pair_params(epsilon, sigma, cut_lj, *, cut_coul=0.0, qqrd2e=1.0,
                      g_ewald=0.0, coul=True, shift=False,
                      special_lj=(1.0, 0.0, 0.0, 0.0),
                      special_coul=(1.0, 0.0, 0.0, 0.0), excl_types=None,
-                     dtype=torch.float64, device="cpu"):
+                     cut_lj_inner=0.0, charmm=False, coul_kind="long",
+                     cut_coul_inner=0.0, dtype=torch.float64, device="cpu"):
     """PairParams of lj/cut/coul/long (coul=True) or lj/cut alone
     (coul=False: cutsq = cut_lj^2, no coulomb term) from per-type-pair
     (T+1,T+1) epsilon/sigma/cut arrays.  special_lj / special_coul: the
     special_bonds factors [1, s12, s13, s14], by default LAMMPS's (0 for
     LJ and coulomb).  shift=True fills the offset table with the LJ energy
     at the cutoff (pair_modify shift yes).  excl_types: the (T+1,T+1) bool
-    table of neigh_modify exclude type, or None.  The same tables as
-    lidp_tpu make_pair_params."""
+    table of neigh_modify exclude type, or None.  charmm=True switches the
+    LJ term between cut_lj_inner and the outer cutoff; coul_kind "charmm"
+    the coulomb term between cut_coul_inner and cut_coul.  The same tables
+    as lidp_tpu make_pair_params."""
     def t(a):
         return torch.as_tensor(a, dtype=dtype, device=device)
 
@@ -84,6 +104,11 @@ def make_pair_params(epsilon, sigma, cut_lj, *, cut_coul=0.0, qqrd2e=1.0,
         offset = 4.0 * epsilon * (ratio6**2 - ratio6)
     else:
         offset = torch.zeros_like(epsilon)
+    if coul_kind not in ("long", "charmm"):
+        raise NotImplementedError(
+            f"coul_kind {coul_kind} is not ported (ROADMAP queue 1 item 6, "
+            "breadth)")
+    ccsq, cisq = float(cut_coul) ** 2, float(cut_coul_inner) ** 2
     return PairParams(
         lj3=4.0 * epsilon * s6 * s6, lj4=4.0 * epsilon * s6,
         offset=offset, cut_ljsq=cut_lj**2,
@@ -93,25 +118,104 @@ def make_pair_params(epsilon, sigma, cut_lj, *, cut_coul=0.0, qqrd2e=1.0,
         cut_coulsq=float(cut_coul) ** 2, qqrd2e=float(qqrd2e),
         g_ewald=float(g_ewald), coul=bool(coul),
         excl=(None if excl_types is None else torch.as_tensor(
-            excl_types, dtype=torch.bool, device=device)))
+            excl_types, dtype=torch.bool, device=device)),
+        charmm=bool(charmm), cut_lj_innersq=float(cut_lj_inner) ** 2,
+        denom_lj=((float(cut_lj.max()) ** 2 - float(cut_lj_inner) ** 2) ** 3
+                  if charmm else 1.0),
+        coul_kind=coul_kind if coul else "long",
+        cut_coul_innersq=cisq if coul and coul_kind == "charmm" else 0.0,
+        denom_coul=((ccsq - cisq) ** 3 if coul and coul_kind == "charmm"
+                    and ccsq > cisq else 1.0))
+
+
+def charmm_switch(p: PairParams, cut_ljsq, rsq, forcelj, philj):
+    """The CHARMM energy switch of the LJ term between the inner and outer
+    cutoffs (pair_lj_charmm_coul_long.cpp:110-125): (forcelj, philj)
+    switched beyond the inner cutoff."""
+    switch1 = ((cut_ljsq - rsq) ** 2
+               * (cut_ljsq + 2.0 * rsq - 3.0 * p.cut_lj_innersq)
+               / p.denom_lj)
+    switch2 = (12.0 * rsq * (cut_ljsq - rsq)
+               * (rsq - p.cut_lj_innersq) / p.denom_lj)
+    outer = rsq > p.cut_lj_innersq
+    return (torch.where(outer, forcelj * switch1 + philj * switch2, forcelj),
+            torch.where(outer, philj * switch1, philj))
+
+
+def charmm_coul(p: PairParams, prefactor, rsq, factor_coul):
+    """(ecoul, forcecoul) of coul/charmm (pair_lj_charmm_coul_charmm.cpp:
+    123-130): the force and the energy both scaled by switch1 beyond the
+    inner coulomb cutoff (the reference's own convention), the special
+    factor multiplicative."""
+    ccsq = p.cut_coulsq
+    sw1 = ((ccsq - rsq) ** 2 * (ccsq + 2.0 * rsq - 3.0 * p.cut_coul_innersq)
+           / p.denom_coul)
+    fac = torch.where(rsq > p.cut_coul_innersq, sw1, 1.0)
+    e = prefactor * fac * factor_coul
+    return e, e
+
+
+def pair_single(rsq, itype, jtype, qi, qj, p: PairParams, factor_coul=1.0,
+                factor_lj=1.0):
+    """Pair::single (lidp_tpu/ops/pair.py pair_single): (eng, fforce) of one
+    pair at distance^2 rsq (tensors broadcast), fforce the force/r factor;
+    the CHARMM switches as in _pair_terms."""
+    rsq = torch.as_tensor(rsq, dtype=p.lj3.dtype, device=p.lj3.device)
+    r2inv = 1.0 / rsq
+    forcecoul = phicoul = torch.zeros_like(rsq)
+    if p.coul:
+        r = torch.sqrt(rsq)
+        prefactor = p.qqrd2e * qi * qj / r
+        if p.coul_kind == "charmm":
+            phicoul, forcecoul = charmm_coul(p, prefactor, rsq, factor_coul)
+        else:
+            grij = p.g_ewald * r
+            expm2 = torch.exp(-grij * grij)
+            erfc = erfc_as(grij, expm2) if p.g_ewald > 0 else 1.0
+            forcecoul = (prefactor * (erfc + EWALD_F * grij * expm2)
+                         - (1.0 - factor_coul) * prefactor)
+            phicoul = prefactor * erfc - (1.0 - factor_coul) * prefactor
+        incoul = rsq < p.cut_coulsq
+        forcecoul = torch.where(incoul, forcecoul, 0.0)
+        phicoul = torch.where(incoul, phicoul, 0.0)
+    r6inv = r2inv * r2inv * r2inv
+    lj3, lj4 = p.lj3[itype, jtype], p.lj4[itype, jtype]
+    cut_ljsq = p.cut_ljsq[itype, jtype]
+    forcelj = r6inv * (12.0 * lj3 * r6inv - 6.0 * lj4)
+    philj_raw = r6inv * (lj3 * r6inv - lj4)
+    philj = philj_raw - p.offset[itype, jtype]
+    if p.charmm:
+        # the JAX function switches the unshifted energy
+        forcelj, switched = charmm_switch(p, cut_ljsq, rsq, forcelj,
+                                          philj_raw)
+        philj = torch.where(rsq > p.cut_lj_innersq, switched, philj)
+    inlj = rsq < cut_ljsq
+    forcelj = torch.where(inlj, forcelj, 0.0)
+    philj = torch.where(inlj, philj, 0.0)
+    return (phicoul + factor_lj * philj,
+            (forcecoul + factor_lj * forcelj) * r2inv)
 
 
 def _pair_terms(rsq, qi, qj, ti, tj, sp_code, p: PairParams, pair_mask):
     """Per-pair LJ + coulomb force factor (F = fpair * d) and energies of
-    lj/cut/coul/long (lidp_tpu/ops/pair.py _pair_terms, its `kind == "lj"`
-    branch with the erfc coulomb).  Shapes broadcast; rsq must be masked
+    lj/cut/coul/long and the lj/charmm styles (lidp_tpu/ops/pair.py
+    _pair_terms, its `kind == "lj"` branch with the CHARMM switch, the erfc
+    coulomb and coul/charmm).  Shapes broadcast; rsq must be masked
     nonzero.  g_ewald == 0 is the exact coul/cut form (erfc = 1)."""
     r2inv = 1.0 / rsq
     factor_lj = p.special_lj[sp_code]
     in_range = (rsq < p.cutsq[ti, tj]) & pair_mask
     if p.excl is not None:
         in_range = in_range & ~p.excl[ti, tj]
-    lj_mask = in_range & (rsq < p.cut_ljsq[ti, tj])
+    cut_ljsq = p.cut_ljsq[ti, tj]
+    lj_mask = in_range & (rsq < cut_ljsq)
 
     r6inv = r2inv * r2inv * r2inv
     lj3, lj4 = p.lj3[ti, tj], p.lj4[ti, tj]
     forcelj = r6inv * (12.0 * lj3 * r6inv - 6.0 * lj4)
     philj = r6inv * (lj3 * r6inv - lj4)
+    if p.charmm:
+        forcelj, philj = charmm_switch(p, cut_ljsq, rsq, forcelj, philj)
     evdwl = (philj - p.offset[ti, tj]) * factor_lj
     forcelj = torch.where(lj_mask, forcelj * factor_lj, 0.0)
     evdwl = torch.where(lj_mask, evdwl, 0.0)
@@ -121,12 +225,15 @@ def _pair_terms(rsq, qi, qj, ti, tj, sp_code, p: PairParams, pair_mask):
         coul_mask = in_range & (rsq < p.cut_coulsq)
         r = torch.sqrt(rsq)
         prefactor = p.qqrd2e * qi * qj / r
-        grij = p.g_ewald * r
-        expm2 = torch.exp(-grij * grij)
-        erfc = erfc_as(grij, expm2) if p.g_ewald > 0 else 1.0
-        forcecoul = prefactor * (erfc + EWALD_F * grij * expm2)
-        forcecoul = forcecoul - (1.0 - factor_coul) * prefactor
-        ecoul = prefactor * erfc - (1.0 - factor_coul) * prefactor
+        if p.coul_kind == "charmm":
+            ecoul, forcecoul = charmm_coul(p, prefactor, rsq, factor_coul)
+        else:
+            grij = p.g_ewald * r
+            expm2 = torch.exp(-grij * grij)
+            erfc = erfc_as(grij, expm2) if p.g_ewald > 0 else 1.0
+            forcecoul = prefactor * (erfc + EWALD_F * grij * expm2)
+            forcecoul = forcecoul - (1.0 - factor_coul) * prefactor
+            ecoul = prefactor * erfc - (1.0 - factor_coul) * prefactor
         forcecoul = torch.where(coul_mask, forcecoul, 0.0)
         ecoul = torch.where(coul_mask, ecoul, 0.0)
     else:

@@ -535,10 +535,13 @@ def maybe_attach(runner, *, script, ff, pol, sys, n, npad, dt, ftm2v,
             or getattr(runner, "tmd_hook", None) is not None):
         return None
     for attr in ("pppm", "msm", "ewald6", "pppm_disp", "eam", "tip4p",
-                 "dpd", "cmap", "adapt", "bond", "angle", "dihedral",
-                 "improper"):
+                 "dpd", "cmap", "adapt"):
         if getattr(ff, attr, None) is not None:
             return None
+    # the bonded terms (tuples, empty for none)
+    if any(getattr(ff, attr, ()) for attr in ("bond", "angle", "dihedral",
+                                              "improper")):
+        return None
     if getattr(ff, "hbond", ()) or getattr(ff, "extra_pairs", ()):
         return None
     if ff.pair is None or not ff.pair.coul:

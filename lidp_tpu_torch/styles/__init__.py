@@ -8,8 +8,9 @@ styles) and the dof bookkeeping.  Simulation.from_script loops the
 registry.  The port registers the integrators the panel engine composes
 with, nve and rigid/nve, and the Nose-Hoover styles and barostats of the
 dense route and the cell grid, rigid/nvt, nvt, npt, nph, rigid/npt and
-rigid/nph (styles/fix_integrators.py); a fix style with no builder raises
-NotImplementedError.
+rigid/nph (styles/fix_integrators.py), and the constraint fixes shake and
+rattle (styles/fix_modifiers.py), which add post_force hooks; a fix style
+with no builder raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -57,12 +58,27 @@ class FixBuildCtx:
     # (group name, RigidSetup) of each rigid fix: the dof a compute temp
     # loses when all of a fix's bodies lie in its group
     rigid_groups: list = dataclasses.field(default_factory=list)
+    # the System under construction (fix shake moves x onto its
+    # constraints at setup)
+    sys: Any = None
+    # fix shake / rattle: the clusters of the pre-pass (ops/shake
+    # find_clusters, None for none), (tolerance, max_iter), the
+    # constraints removed from the dof, rattle's ShakeParams
+    shake_found: Any = None
+    shake_cfg: Any = None
+    shake_dof_removed: int = 0
+    rattle_params: Any = None
+    # post_force hooks, fn(sys, f) -> (f, extra virial6), in fix order
+    # (Modify::post_force, modify.cpp:454); the setup pass's variants
+    pf_hooks: list = dataclasses.field(default_factory=list)
+    pf_hooks_setup: list = dataclasses.field(default_factory=list)
 
 
 def build_fixes(ctx: FixBuildCtx):
     """Run every fix spec through the registry (declaration order, like
     Modify's per-hook fan-out lists)."""
     from lidp_tpu_torch.styles import fix_integrators  # noqa: F401
+    from lidp_tpu_torch.styles import fix_modifiers  # noqa: F401
 
     n_integrators = sum(1 for f in ctx.script.fixes.values()
                         if is_integrator(f.style))
@@ -73,7 +89,7 @@ def build_fixes(ctx: FixBuildCtx):
         if builder is None:
             raise NotImplementedError(
                 f"fix style {spec.style} is not ported (only nve, nvt, "
-                "npt, nph and the rigid styles; ROADMAP queue 1 item 6, "
-                "breadth)")
+                "npt, nph, the rigid styles, shake and rattle; ROADMAP "
+                "queue 1 item 6, breadth)")
         builder(ctx, spec)
     return ctx

@@ -29,17 +29,28 @@ changes.  The subprocesses import torch and the port, never JAX:
   * dense_npt_pppm: panel_step's fluid with `fix rigid/npt` and
     `kspace_style pppm 1e-4` (the mesh's spread, FFTs and gather, the
     rigid barostat's remaps) on the dense route, `run 1`: the rows of
-    steps 0 and 1, step 1's forces and dipoles and its box.
+    steps 0 and 1, step 1's forces and dipoles and its box;
+  * flexible_shake: the flexible molecules of
+    chip_smoke.flexible_script_case(n_side=(2, 2, 2), cut=(4.0, 5.5))
+    (192 atoms: lj/charmm/coul/long, the bonded terms' index_add_
+    scatters over the bond, angle, dihedral and improper lists, pppm, fix
+    nvt and the SHAKE solve of fix shake) on the dense route, `run 1`: the
+    rows of steps 0 and 1 (every energy of thermo_style multi), step 1's
+    forces and positions.
 
-The fault these processes look for is not located (ROADMAP queue 3 item
-1): in about 410 such processes it showed once, in one of about 270 of
-panel_step, and the parity files that once recorded it passed without
-their one-thread pin in two runs under pytest-xdist.  Until an operation
-is found and repaired the parity files keep the pin (test_torch_script.py,
-test_torch_pair_symmetric.py, test_torch_dense_route.py and
-test_torch_thermostats.py, whose script cases load the dense route of
-dense_route here) and this test is marked xfail, not strict: it runs in
-every suite and reports XPASS or XFAIL.
+The fault these processes look for is located (ROADMAP queue 3 item 1):
+the first call of torch.sqrt on a float64 CPU tensor in a process with
+several threads can return one thread's chunk at ~35-bit accuracy (MKL's
+vector math; the calls after it are right), so the first evaluation's
+pair term differed from the one-thread run's in one chunk of rows.
+lidp_tpu_torch/__init__.py (warm_vector_math) now calls each such
+function once on every thread when the package is imported.  Until this
+test has run clean in the suites, the parity files keep their one-thread
+pin (test_torch_script.py, test_torch_pair_symmetric.py,
+test_torch_dense_route.py and test_torch_thermostats.py, whose script
+cases load the dense route of dense_route here) and this test stays
+marked xfail, not strict: it runs in every suite and reports XPASS or
+XFAIL.
 
 A failing comparison keeps its evidence: the one-thread run's and the
 failing process's .npz are copied to a directory of their own in the
@@ -121,6 +132,21 @@ np.savez(out, f=sim.res.f[:n].numpy(), mu=sim.sys.mu[:n].numpy(),
 assert "jax" not in sys.modules
 """
 
+_FLEX = _PRELUDE + """\
+from lidp_tpu_torch.io.script import LammpsScript
+s = LammpsScript(dtype=torch.float64, device="cpu", log=lambda line: None)
+s.variables["nstep"] = "1"
+s.file(sys.argv[2])
+sim = s._sim
+assert sim.runner.neighbor_cfg is None and sim.runner.post_force is not None
+np.savez(out, f=sim.res.f.numpy(), x=sim.sys.x.numpy(),
+         rows=np.array([[r[c] for c in ("pe", "evdwl", "ecoul", "elong",
+                                        "ebond", "eangle", "edihed", "eimp",
+                                        "press")]
+                        for r in s.thermo_rows]))
+assert "jax" not in sys.modules
+"""
+
 _PAIR = _PRELUDE + """\
 from lidp_tpu_torch.ops import panel
 c = np.load(sys.argv[2])
@@ -154,11 +180,16 @@ def inputs(tmp_path_factory):
         "fix 1 all rigid/nve molecule",
         "fix 1 all rigid/npt molecule temp 300 300 100 iso 1 1 1000").replace(
         "kspace_style ewald/disp 1e-4", "kspace_style pppm 1e-4"))
+    flex = d / "flex"
+    flex.mkdir()
+    _, in_flex = chip_smoke.flexible_script_case(str(flex), n_side=(2, 2, 2),
+                                                 cut=(4.0, 5.5))
     return {"panel_step": (_SCRIPT, in_fluid, {"LIDP_FAST_POLAR": "1"}),
             "pair_plain": (_PAIR, str(d / "pair_case.npz"), {}),
             "dense_route": (_SCRIPT, in_fluid, {}),
             "cell_route": (_LJ, str(d / "in.lj"), {}),
-            "dense_npt_pppm": (_NPT, str(d / "in.npt"), {})}
+            "dense_npt_pppm": (_NPT, str(d / "in.npt"), {}),
+            "flexible_shake": (_FLEX, in_flex, {})}
 
 
 def _run(code, arg, env_extra, out, one_thread):
@@ -177,11 +208,12 @@ def _run(code, arg, env_extra, out, one_thread):
 
 
 @pytest.mark.xfail(strict=False, reason=(
-    "the float64 first-evaluation fault on several CPU threads is not "
-    "located (ROADMAP queue 3 item 1): seen once in ~270 processes"))
+    "the float64 first-evaluation fault on several CPU threads (ROADMAP "
+    "queue 3 item 1: the first torch.sqrt of a process) is repaired by "
+    "warm_vector_math; the mark stays until the harness runs clean"))
 @pytest.mark.parametrize("case", ["panel_step", "pair_plain",
                                   "dense_route", "cell_route",
-                                  "dense_npt_pppm"])
+                                  "dense_npt_pppm", "flexible_shake"])
 def test_first_float64_evaluation_is_thread_independent(inputs, case,
                                                         tmp_path):
     code, arg, env = inputs[case]

@@ -250,8 +250,9 @@ def test_replicate_matches_jax(dirs):
 # compute temp and fix nvt are ported (tests/test_torch_thermostats.py),
 # region block and pair_style lj/cut too (tests/test_torch_script_cells.py),
 # fix npt and kspace_style pppm too (tests/test_torch_npt.py,
-# tests/test_torch_pppm.py): their keys keep the test names and hold a
-# style that still raises
+# tests/test_torch_pppm.py), bond_style harmonic too
+# (tests/test_torch_flexible_script.py): their keys keep the test names and
+# hold a style that still raises
 UNPORTED = {
     "region": "region s sphere 0 0 0 1",
     "compute": "compute p all pressure thermo_temp",
@@ -259,7 +260,7 @@ UNPORTED = {
     "fix nvt": "fix 2 all nvt/sllod temp 300 300 100",
     "pair_style lj/cut": "pair_style lj/cut/coul/cut 2.5",
     "kspace_style pppm": "kspace_style msm 1e-4",
-    "bond_style": "bond_style harmonic",
+    "bond_style": "bond_style class2",
     "thermo keyword": "thermo_style custom step cpu",
 }
 
