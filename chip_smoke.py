@@ -131,9 +131,9 @@ Phases, each raising on failure:
         example's form), the others at rest with no integrator, `compute
         movingtemp moving temp` and its c_movingtemp column: every counter
         0, the dense route's Runner, rows finite; its rows and final x, v,
-        mu against its CPU twin (the same script through the port on the
-        CPU in float64 on one thread, in a process of its own started
-        before J): rows within rel 1e-9 of max(1, |value|), x, v and mu
+        mu against its CPU twin (phase 10: the same script through the
+        port on the CPU in float64, after the card's paths): rows within
+        rel 1e-9 of max(1, |value|), x, v and mu
         within 1e-8 of their largest entry; steps/s by its Loop time line,
         the peak memory, and over 2 more steps the phases (DensePhases),
         the integrator's ms a step (IntegratorTimer: CUDA events around
@@ -227,8 +227,8 @@ Phases, each raising on failure:
         CANCEL_REL of the cancelled magnitude;
   7. the mesh k-space and the barostats from a LAMMPS script
      (barostat_paths), each path printing its route, its steps/s by its
-     Loop time line and its peak device memory; the CPU twins of O, R,
-     R-pppm and Q64 (CPU_TWIN) run beside them:
+     Loop time line and its peak device memory; O, R, R-pppm and Q64
+     have CPU twins (phase 10):
      O. path I's input with `kspace_style pppm 1e-4`, 1,536 atoms, the
         dense route, float64 at 1e-11, 5 steps: no launch, rows and
         final x, v, mu against the CPU twin; PPPM's grid and g_ewald
@@ -269,9 +269,8 @@ Phases, each raising on failure:
      examples/peptide's styles (lj/charmm/coul/long 8 10, pppm 1e-4,
      special_bonds charmm, timestep 2.0, thermo_style multi) and `fix
      shake` on the X-H bonds and the water; float64, 10 steps, a row
-     each step; the CPU twins (the same scripts through the port on the
-     CPU, 2 steps; T's on FLEX_T_TWIN_THREADS threads) start before the
-     kernels build and run beside the card's paths:
+     each step; CPU twins of 2 steps (phase 10; T's on
+     FLEX_T_TWIN_THREADS threads):
      S. examples/peptide's stack on the dense route: 1,920 atoms, `fix
         nvt temp 275 275 100 tchain 1`;
      T. bench/in.rhodo's stack on the cell grid: S's cell replicated 2 x
@@ -287,10 +286,43 @@ Phases, each raising on failure:
      a step of the bonded terms, SHAKE, the pair pass (and the cell
      grid's special correction) and PPPM by CUDA events over 2 more
      steps;
-  9. one JSON line {"kernels": [...]} with each of the ten kernels'
+  9. bench/in.chain and the modifier fixes from a LAMMPS script
+     (chain_paths, modifier_paths), each path printing its route, its
+     steps/s by its Loop time line and its peak device memory, no launch:
+     U. bench/in.chain verbatim (CHAIN_SCRIPT: atom_style bond,
+        special_bonds fene, FENE bonds, lj/cut 1.12 shifted, fix nve and
+        fix langevin) on chain_script_case (320 chains of 100 beads,
+        32,000 atoms, 31,680 bonds, rho* 0.85) through the CLI's main()
+        with --f32, 100 steps: the cell grid, its pair route the plain
+        cell pass (the special lists keep the LJ kernel off, as JAX's
+        _pallas_ok does), rows finite; then the same input in float32
+        over U_PHASE_STEPS steps, the ms a step of the cell pass, the
+        special correction, the FENE bonds, fix langevin's stream and its
+        hook as a whole (stream and friction) by CUDA events;
+     U64. the same input in float64 through LammpsScript, a row each
+        step, 10 steps: U's step 0 within rel 2e-4 of U64's (Q's bar
+        against Q64); rows 0-2 against the CPU twin at rel 1e-9 of
+        max(1, |value|) plus CANCEL_REL of the cancelled magnitude (the
+        noise is integer threefry, the same on both devices);
+     V. path N's point-charge fluid (10,125 atoms, lj/cut/coul/long +
+        Ewald, neighbor 1.0 bin, the cell grid) under fix nve with
+        setforce, addforce, aveforce, viscous, efield, spring/self,
+        spring tether and planeforce each on a group of its own (100
+        molecules by ID), momentum, recenter and temp/berendsen, float64,
+        10 steps: rows 0-2 against the CPU twin at N's bars;
+     W. examples/melt (M's input, 4,000 atoms, the dense route) with
+        temp/rescale, temp/csld and langevin on three groups, float64, 10
+        steps: rows 0-2 against the CPU twin at rel 1e-9; threefry's bits
+        and uniforms of one key equal on the card and the CPU;
+ 10. the CPU twins (CPU_TWIN: the same script through the port on the CPU
+     in float64, in a process of its own) of J, K, O, R, R-pppm, Q64, S,
+     T, U64, V and W, after every path on the card, so that no timed path
+     shares the host's cores with them (run_twins: as many at once as the
+     cores take, the longest first);
+ 11. one JSON line {"kernels": [...]} with each of the ten kernels'
      launches (summed and by path, A-K, E-E4, L, L64, M, N, N-pol, O, R,
-     R-pppm, Q, Q64, P, P100, S, T), times, ms_queued and bound, then the
-     nvidia-smi line, then the device line last.
+     R-pppm, Q, Q64, P, P100, S, T, U, U64, V, W), times, ms_queued and
+     bound, then the nvidia-smi line, then the device line last.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.
@@ -1876,6 +1908,100 @@ run\t\t250
 """
 
 
+# LAMMPS' bench/in.chain, verbatim (paths U and U64; its data.chain is
+# written by chain_script_case)
+CHAIN_SCRIPT = """\
+# FENE beadspring benchmark
+
+units\t\tlj
+atom_style\tbond
+special_bonds\tfene
+
+read_data\tdata.chain
+
+neighbor\t0.4 bin
+neigh_modify\tevery 1 delay 1
+
+bond_style      fene
+bond_coeff\t1 30.0 1.5 1.0 1.0
+
+pair_style\tlj/cut 1.12
+pair_modify\tshift yes
+pair_coeff\t1 1 1.0 1.0 1.12
+
+fix\t\t1 all nve
+fix\t\t2 all langevin 1.0 1.0 10.0 904297
+
+thermo          100
+timestep\t0.012
+
+run\t\t100
+"""
+# data.chain's density and temperature (320 chains of 100 beads in a box
+# of ~33.6 sigma a side; its Velocities at T* ~ 0.97)
+CHAIN_RHO = 0.85
+CHAIN_T = 0.97
+
+
+def chain_script_case(directory, n_chains=320, n_beads=100, seed=0):
+    """Write a bead-spring melt in data.chain's form (atom_style bond, one
+    atom type of mass 1, one bond type, image flags, Velocities) and
+    CHAIN_SCRIPT as `in.chain`, in place of the reference's data.chain.
+    The beads sit on a simple-cubic lattice of m^3 >= n sites (m a side)
+    in a cubic box at density CHAIN_RHO, walked as a boustrophedon along
+    x, then y, then z, so that consecutive sites are neighbours; the first
+    n_chains * n_beads sites are cut into chains of n_beads, each site
+    jittered by up to +-0.05 sigma from the seed.  Every bond is then
+    about one spacing (~1.05 sigma at the full size, under FENE's R0 of
+    1.5) and every other pair at least ~0.93 sigma apart.  Velocities are
+    normal from the seed, with zero net momentum, scaled to CHAIN_T on 3n
+    - 3 dof.  Floats by repr, so the file reads back bit for bit.
+    Returns the paths (data, script)."""
+    import numpy as np
+
+    n = n_chains * n_beads
+    m = int(math.ceil(n ** (1.0 / 3.0) - 1e-9))
+    L = (n / CHAIN_RHO) ** (1.0 / 3.0)
+    a = L / m
+    sites = []
+    for iz in range(m):
+        ys = range(m) if iz % 2 == 0 else range(m - 1, -1, -1)
+        for k, iy in enumerate(ys):
+            xs = range(m) if (iz * m + k) % 2 == 0 else range(m - 1, -1, -1)
+            sites.extend((ix, iy, iz) for ix in xs)
+    rng = np.random.default_rng(seed)
+    x = (np.asarray(sites[:n], float) + 0.5) * a
+    x = x + rng.uniform(-0.05, 0.05, size=x.shape)
+    v = rng.standard_normal((n, 3))
+    v -= v.mean(axis=0)
+    v *= math.sqrt(CHAIN_T * (3 * n - 3) / float(np.sum(v * v)))
+    mol = np.arange(n) // n_beads + 1
+    bonds = [(i + 1, i + 2) for i in range(n) if (i + 1) % n_beads]
+
+    def r(val):
+        return repr(float(val))
+
+    lines = ["LAMMPS data file: bead-spring chains in data.chain's form", "",
+             f"{n} atoms", f"{len(bonds)} bonds", "1 atom types",
+             "1 bond types", ""]
+    lines += [f"0.0 {r(L)} {ax}lo {ax}hi" for ax in "xyz"]
+    lines += ["", "Masses", "", "1 1.0", "", "Atoms # bond", ""]
+    lines += [f"{i + 1} {mol[i]} 1 {r(x[i, 0])} {r(x[i, 1])} {r(x[i, 2])} "
+              "0 0 0" for i in range(n)]
+    lines += ["", "Velocities", ""]
+    lines += [f"{i + 1} {r(v[i, 0])} {r(v[i, 1])} {r(v[i, 2])}"
+              for i in range(n)]
+    lines += ["", "Bonds", ""]
+    lines += [f"{k + 1} 1 {i} {j}" for k, (i, j) in enumerate(bonds)]
+    data = os.path.join(directory, "data.chain")
+    script = os.path.join(directory, "in.chain")
+    with open(data, "w") as fh:
+        fh.write("\n".join(lines) + "\n")
+    with open(script, "w") as fh:
+        fh.write(CHAIN_SCRIPT)
+    return data, script
+
+
 FLUID_SCRIPT = """\
 variable prec index 1e-11
 variable nstep index 20
@@ -3127,13 +3253,14 @@ class IntegratorTimer:
 
 
 # the CPU twin: the same script through the port on the CPU in float64, in
-# a process of its own on one thread (the one-thread pin of the port's CPU
-# parity tests, ROADMAP queue 3 item 1), its rows and final state saved
+# a process of its own on TWIN_THREADS torch threads (one but for T's, so
+# that run_twins packs the host's cores; small tensors gain little from
+# more), its rows and final state saved
 CPU_TWIN = """\
 import os, sys, time
 import numpy as np
 import torch
-torch.set_num_threads(int(os.environ.get("TWIN_THREADS", "1")))
+torch.set_num_threads(int(os.environ["TWIN_THREADS"]))
 from lidp_tpu_torch.io.script import LammpsScript
 s = LammpsScript(dtype=torch.float64, device="cpu", log=lambda line: None)
 s.variables["nstep"] = sys.argv[3]
@@ -3149,13 +3276,16 @@ np.savez(sys.argv[1], x=sim.sys.x[:n].numpy(), v=sim.sys.v[:n].numpy(),
          seconds=seconds)
 assert "jax" not in sys.modules
 """
+# the twins deferred until the card's paths are done (defer_twin), and the
+# directory their inputs are copied to
+TWINS = []
+TWIN_ROOT = []
+TWIN_TIMEOUT = 900
 
 
 def start_cpu_twin(work, script, steps, out, threads=1):
     """Start the CPU twin of `script` (in directory `work`) in a process
-    of its own on `threads` torch threads, at the lowest CPU priority
-    (nice 19), so that the paths' host work keeps its cores; returns the
-    Popen."""
+    of its own on `threads` torch threads; returns the Popen."""
     env = dict(os.environ, OMP_NUM_THREADS=str(threads),
                TWIN_THREADS=str(threads), CUDA_VISIBLE_DEVICES="",
                PYTHONPATH=os.pathsep.join(
@@ -3164,7 +3294,77 @@ def start_cpu_twin(work, script, steps, out, threads=1):
     return subprocess.Popen(
         [sys.executable, "-c", CPU_TWIN, out, script, str(steps)],
         cwd=work, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-        text=True, preexec_fn=lambda: os.nice(19))
+        text=True)
+
+
+def defer_twin(path, work, script, steps, check, threads=1, cost=60.0):
+    """Queue path's CPU twin (CPU_TWIN on `script`, `steps` steps) to run
+    after every path on the card (run_twins), so that no timed path shares
+    the host's cores with it: the directory `work` (the input and its
+    data) is copied aside now; check(twin), with twin the np.load of the
+    twin's arrays, holds the path to it.  cost: the twin's expected
+    seconds on its `threads`, so that run_twins starts the longest
+    first."""
+    import atexit
+
+    if not TWIN_ROOT:
+        TWIN_ROOT.append(tempfile.mkdtemp(prefix="chip_smoke_twins_"))
+        atexit.register(shutil.rmtree, TWIN_ROOT[0], True)
+    dst = os.path.join(TWIN_ROOT[0], path)
+    shutil.copytree(work, dst)
+    TWINS.append(dict(path=path, work=dst, script=script, steps=steps,
+                      check=check, threads=threads, cost=cost))
+
+
+def run_twins():
+    """Run the queued CPU twins after the card's paths: as many at once as
+    the host's cores take their threads, the most expensive first (a
+    twin that does not fit waits for cores to free); each is checked as
+    it ends.  Raises if one fails, disagrees or runs past TWIN_TIMEOUT
+    seconds; every process started is stopped."""
+    import numpy as np
+
+    budget = os.cpu_count() or 1
+    queue = sorted(TWINS, key=lambda t: -t["cost"])
+    running = []
+    t0 = time.perf_counter()
+    try:
+        while queue or running:
+            used = sum(t["threads"] for t in running)
+            for t in list(queue):
+                if not running or used + t["threads"] <= budget:
+                    t["out"] = os.path.join(t["work"], "twin.npz")
+                    t["proc"] = start_cpu_twin(t["work"], t["script"],
+                                               t["steps"], t["out"],
+                                               t["threads"])
+                    t["t0"] = time.perf_counter()
+                    running.append(t)
+                    queue.remove(t)
+                    used += t["threads"]
+            time.sleep(0.2)
+            for t in [t for t in running if t["proc"].poll() is not None]:
+                running.remove(t)
+                _, err = t["proc"].communicate()
+                if t["proc"].returncode != 0:
+                    raise AssertionError(
+                        f"path {t['path']}: the CPU twin exit "
+                        f"{t['proc'].returncode}\n{err[-4000:]}")
+                twin = np.load(t["out"])
+                print(f"path {t['path']}: its CPU twin (the same script, "
+                      f"the port on the CPU, float64, {t['threads']} "
+                      f"thread(s)) took {float(twin['seconds']):.1f} s of "
+                      f"its {time.perf_counter() - t['t0']:.1f} s process")
+                t["check"](twin)
+            for t in running:
+                if time.perf_counter() - t["t0"] > TWIN_TIMEOUT:
+                    raise AssertionError(f"path {t['path']}: the CPU twin "
+                                         "did not finish")
+    finally:
+        for t in running:
+            t["proc"].kill()
+            t["proc"].communicate()
+    print(f"CPU twins: {len(TWINS)} in {time.perf_counter() - t0:.1f} s of "
+          f"wall time on {budget} cores, after every path on the card")
 
 
 def run_state(script):
@@ -3175,41 +3375,44 @@ def run_state(script):
         for name in ("x", "v", "mu")}
 
 
-def check_cpu_twin(path, proc, out, state, cols):
-    """Path `path`'s rows and final x, v, mu (run_state) against its CPU
-    twin's: rows within rel 1e-9 of max(1, |value|), x, v and mu within
-    1e-8 of their largest entry."""
+def twin_check(path, state, cols, cancel=None):
+    """The check of a deferred twin (defer_twin) on path's rows and final
+    x, v, mu (run_state): its first rows, as many as the twin ran, within
+    rel 1e-9 of max(1, |value|) of the twin's (plus CANCEL_REL of `cancel`,
+    cancelled()'s magnitudes); where the twin ran all of the path's steps,
+    x, v and mu within 1e-8 of their largest entry."""
     import numpy as np
 
-    try:
-        _, err = proc.communicate(timeout=900)
-    except subprocess.TimeoutExpired:
-        proc.kill()
-        proc.communicate()
-        raise AssertionError(f"path {path}: the CPU twin did not finish")
-    if proc.returncode != 0:
-        raise AssertionError(f"path {path}: the CPU twin exit "
-                             f"{proc.returncode}\n{err[-4000:]}")
-    twin = np.load(out)
-    ref = [dict(zip(twin["cols"].tolist(), r)) for r in twin["rows"]]
     rows, final = state
-    worst = rows_agree(path, rows, ref, [1e-9] * len(rows), cols)
-    worst_arr = 0.0
-    for name in ("x", "v", "mu"):
-        got, want = final[name], twin[name]
-        big = float(np.abs(want).max())
-        err = float(np.abs(got - want).max())
-        # an array of zeros (an atomic input's mu) must stay zeros
-        worst_arr = max(worst_arr, err / (1e-8 * big) if big
-                        else (0.0 if err == 0.0 else math.inf))
-        if not err <= 1e-8 * big:
-            raise AssertionError(f"path {path} final {name}: max abs err "
-                                 f"{err:.3e} above 1e-8 of {big:.3e}")
-    seconds = float(twin["seconds"])
-    print(f"path {path} vs its CPU twin (the same script, the port on the "
-          f"CPU, float64, one thread, {seconds:.1f} s): {len(rows)} rows at "
-          f"{worst:.3g} of their bar (rel 1e-9 of max(1, |value|)), final "
-          f"x/v/mu at {worst_arr:.3g} of theirs (1e-8 of max)")
+
+    def check(twin):
+        ref = [dict(zip(twin["cols"].tolist(), r)) for r in twin["rows"]]
+        worst = rows_agree(path, rows[:len(ref)], ref, [1e-9] * len(ref),
+                           cols, cancel=cancel)
+        line = (f"path {path} vs its CPU twin: rows 0-{len(ref) - 1} at "
+                f"{worst:.3g} of their bar (rel 1e-9 of max(1, |value|)"
+                + (f" + {CANCEL_REL:g} of the cancelled magnitude, "
+                   f"{cancel.get('evdwl', 0.0):.4g} in E_vdwl)" if cancel
+                   else ")"))
+        if len(ref) < len(rows):
+            print(line + f"; rows {len(ref)}-{len(rows) - 1} finite")
+            return
+        worst_arr = 0.0
+        for name in ("x", "v", "mu"):
+            got, want = final[name], twin[name]
+            big = float(np.abs(want).max())
+            err = float(np.abs(got - want).max())
+            # an array of zeros (an atomic input's mu) must stay zeros
+            worst_arr = max(worst_arr, err / (1e-8 * big) if big
+                            else (0.0 if err == 0.0 else math.inf))
+            if not err <= 1e-8 * big:
+                raise AssertionError(f"path {path} final {name}: max abs "
+                                     f"err {err:.3e} above 1e-8 of "
+                                     f"{big:.3e}")
+        print(line + f", final x/v/mu at {worst_arr:.3g} of theirs (1e-8 "
+              "of max)")
+
+    return check
 
 
 EXTRA_STEPS = 2   # the steps after a path's run that its readings time
@@ -3251,18 +3454,12 @@ def thermostat_paths(launches, reset_counts, read_counts, rowsI):
     import torch
 
     work = tempfile.mkdtemp(prefix="chip_smoke_")
-    twins = {}
     try:
         fluid_script_case(work, n_side=J_SIDE)
         n = J_SIDE ** 3 * 3
         for kind in ("J", "J-all", "K"):
             with open(os.path.join(work, f"in.{kind}"), "w") as fh:
                 fh.write(thermostat_script(kind, J_SIDE))
-        # the CPU twins of J and K run beside the card's paths
-        for kind in ("J", "K"):
-            out = os.path.join(work, f"twin_{kind}.npz")
-            twins[kind] = (start_cpu_twin(work, f"in.{kind}", J_STEPS, out),
-                           out)
 
         # path J: rigid/nvt on half the molecules, tparam 50 1 3, c_ column
         reset_counts()
@@ -3334,13 +3531,10 @@ def thermostat_paths(launches, reset_counts, read_counts, rowsI):
         del scriptJ, scriptK
         for kind, state, cols in (("J", stateJ, G64_COLS + ("c_movingtemp",)),
                                   ("K", stateK, G64_COLS)):
-            proc, out = twins.pop(kind)
-            check_cpu_twin(kind, proc, out, state, cols)
+            defer_twin(kind, work, f"in.{kind}", J_STEPS,
+                       twin_check(kind, state, cols))
         torch.cuda.empty_cache()
     finally:
-        for proc, _ in twins.values():
-            proc.kill()
-            proc.communicate()
         shutil.rmtree(work, ignore_errors=True)
 
     # path J-cap: J just under the cap
@@ -3494,10 +3688,8 @@ def barostat_paths(launches, reset_counts, read_counts):
         return script
 
     work = tempfile.mkdtemp(prefix="chip_smoke_")
-    twins = {}
     try:
-        # the inputs of O, R, R-pppm (path I's fluid) and Q64, and their
-        # CPU twins, which run beside the card's paths
+        # the inputs of O, R, R-pppm (path I's fluid) and Q64
         fluid_script_case(work, n_side=O_SIDE)
         n = O_SIDE ** 3 * 3
         rigid = FLUID_SCRIPT.replace("fix 1 all rigid/nve molecule",
@@ -3508,11 +3700,6 @@ def barostat_paths(launches, reset_counts, read_counts):
         for kind, text in inputs.items():
             with open(os.path.join(work, f"in.{kind}"), "w") as fh:
                 fh.write(text)
-        for kind in inputs:
-            out = os.path.join(work, f"twin_{kind}.npz")
-            steps = Q64_STEPS if kind == "Q64" else O_STEPS
-            twins[kind] = (start_cpu_twin(work, f"in.{kind}", steps, out),
-                           out)
 
         # path O: path I's input with kspace_style pppm, the dense route
         reset_counts()
@@ -3650,14 +3837,13 @@ def barostat_paths(launches, reset_counts, read_counts):
         cols = G64_COLS + ("vol",)
         for kind, state in (("O", stateO), ("R", stateR["R"]),
                             ("R-pppm", stateR["R-pppm"]), ("Q64", stateQ)):
-            proc, out = twins.pop(kind)
-            check_cpu_twin(kind, proc, out, state,
-                           ("temp", "epair", "etotal", "press", "pe", "vol")
-                           if kind == "Q64" else cols)
+            q64 = kind == "Q64"
+            defer_twin(kind, work, f"in.{kind}",
+                       Q64_STEPS if q64 else O_STEPS,
+                       twin_check(kind, state, (
+                           "temp", "epair", "etotal", "press", "pe", "vol")
+                           if q64 else cols), cost=120.0 if q64 else 60.0)
     finally:
-        for proc, _ in twins.values():
-            proc.kill()
-            proc.communicate()
         shutil.rmtree(work, ignore_errors=True)
 
     # paths P and P100: the point-charge fluid with pppm on the cell grid
@@ -3754,6 +3940,7 @@ FLEX_TWIN_STEPS = 2            # the CPU twins' steps: rows 0-2 compared
 # the T twin's torch threads: its cell pass on one thread takes ~500 s on
 # the card's host, beyond the script's budget
 FLEX_T_TWIN_THREADS = 4
+FLEX_T_TWIN_COST = 190.0       # its seconds on them (PR 15, call 3)
 FLEX_COLS = ("etotal", "ke", "temp", "pe", "ebond", "eangle", "edihed",
              "eimp", "evdwl", "ecoul", "elong", "press", "emol", "epair")
 FLEX_TOL = 1e-4                # FLEX_SHAKE's tolerance
@@ -3766,37 +3953,6 @@ FLEX_PHASES = (("bonded", "lidp_tpu_torch.forcefield", "bonded_terms"),
                ("special", "lidp_tpu_torch.ops.bonded",
                 "special_correction_sparse"),
                ("pppm", "lidp_tpu_torch.ops.pppm", "pppm_forces_params"))
-
-
-def start_flexible_twins():
-    """Write paths S's and T's inputs to a directory of their own and start
-    their CPU twins (CPU_TWIN, FLEX_TWIN_STEPS steps: rows 0-2), which run
-    while the card works through the other paths; the processes and the
-    directory go when the interpreter exits.  Returns (directory, {path:
-    input}, {path: (Popen, npz)})."""
-    import atexit
-
-    work = tempfile.mkdtemp(prefix="chip_smoke_flex_")
-    flexible_script_case(work, n_side=FLEX_SIDE)
-    with open(os.path.join(work, "in.T"), "w") as fh:
-        fh.write(flexible_script(FLEX_NPT, replicate=FLEX_REPLICATE))
-    inputs = {"S": "in.flex", "T": "in.T"}
-    twins = {}
-    for path, name in inputs.items():
-        out = os.path.join(work, f"twin_{path}.npz")
-        twins[path] = (start_cpu_twin(
-            work, name, FLEX_TWIN_STEPS, out,
-            threads=FLEX_T_TWIN_THREADS if path == "T" else 1), out)
-
-    def stop():
-        for proc, _ in twins.values():
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-        shutil.rmtree(work, ignore_errors=True)
-
-    atexit.register(stop)
-    return work, inputs, twins
 
 
 class ConstraintWatch:
@@ -3846,104 +4002,382 @@ class ConstraintWatch:
         return False
 
 
-def flexible_paths(launches, reset_counts, read_counts, flex):
+def flexible_paths(launches, reset_counts, read_counts):
     """Paths S and T: flexible molecules from a LAMMPS script (module
     docstring).  Each sets launches[path]."""
-    import numpy as np
     import torch
 
     from lidp_tpu_torch.forcefield import bonded_terms
     from lidp_tpu_torch.io.script import LammpsScript
 
-    work, inputs, twins = flex
-    for path in ("S", "T"):
-        t_path = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="chip_smoke_flex_")
+    try:
+        flexible_script_case(work, n_side=FLEX_SIDE)
+        with open(os.path.join(work, "in.T"), "w") as fh:
+            fh.write(flexible_script(FLEX_NPT, replicate=FLEX_REPLICATE))
+        inputs = {"S": "in.flex", "T": "in.T"}
+        for path in ("S", "T"):
+            t_path = time.perf_counter()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            log = []
+            reset_counts()
+            with ConstraintWatch() as watch:
+                script = LammpsScript(dtype=torch.float64, log=log.append)
+                script.variables["nstep"] = str(FLEX_STEPS)
+                script.file(os.path.join(work, inputs[path]))
+            launches[path] = read_counts()
+            peak = torch.cuda.max_memory_allocated()
+            check_counts(path, launches[path], {})
+            sim = script._sim
+            ff = sim.runner.ff
+            cells = sim.runner.neighbor_cfg is not None
+            if cells != (path == "T") or (cells and bool(sim.nlist.overflow)):
+                raise AssertionError(
+                    f"path {path}: route {script_route(script)}")
+            print(f"path {path}: flexible_script_case, {sim.natoms} atoms, "
+                  f"`fix 1 all {FLEX_NPT if cells else FLEX_NVT}` and `fix 2 "
+                  f"all {FLEX_SHAKE}`, lj/charmm/coul/long 8 10, pppm 1e-4, "
+                  f"float64, {FLEX_STEPS} steps: {script_route(script)}; "
+                  f"{len(ff.bond[0].idx)} bonds, "
+                  f"{len(ff.angle[0].idx)} angles, "
+                  f"{len(ff.dihedral[0].idx)} dihedrals, "
+                  f"{len(ff.improper[0].idx)} impropers left to the bonded "
+                  f"terms; its log:")
+            for line in log:
+                print(f"  {path}| {line}")
+            rows = script.thermo_rows
+            cols = FLEX_COLS + (("vol",) if cells else ())
+            check_rows_finite(path, rows, cols)
+            if len(watch.errors) != FLEX_STEPS + 1 or \
+                    not max(watch.errors) <= FLEX_TOL:
+                raise AssertionError(f"path {path}: the SHAKE constraints' "
+                                     f"largest relative errors by row "
+                                     f"{watch.errors}")
+            print(f"path {path}: the SHAKE constraints' largest relative "
+                  "error "
+                  f"by row " + ", ".join(f"{e:.2e}" for e in watch.errors)
+                  + f" (the fix's tolerance {FLEX_TOL:g})")
+            script_peak(path, log, FLEX_STEPS, peak)
+            cancel = dict(cancelled(sim))
+            if cancel:
+                cancel["epair"] = cancel["evdwl"] + cancel["ecoul"]
+            # the bonded terms twice on one state: index_add_'s float atomics
+            z = torch.zeros_like(sim.sys.x)
+            e0 = sim.sys.x.new_zeros(())
+            outs = [bonded_terms(sim.sys, ff, z, e0, e0, z.new_zeros(6))
+                    for _ in range(2)]
+            diff = max(max(float((a - b).abs().max()) for a, b in
+                           zip(outs[0][:4], outs[1][:4])),
+                       max(abs(float(outs[0][4][k]) - float(outs[1][4][k]))
+                           for k in outs[0][4]))
+            print(f"path {path}: two evaluations of bonded_terms on one state "
+                  f"differ by at most {diff!r} (f, energies, virial): the "
+                  f"index_add_ scatter is {'' if diff == 0.0 else 'not '}"
+                  f"bit-reproducible on the card")
+            with DensePhases(FLEX_PHASES) as ph:
+                sim.sys, sim.res, sim.nlist, sim.istate = sim.runner.run(
+                    sim.sys, sim.res, sim.nlist, sim.istate, EXTRA_STEPS)
+                ms = {k: v for k, v in ph.ms(EXTRA_STEPS).items() if v}
+            print(f"path {path} phases, ms a step by CUDA events over "
+                  f"{EXTRA_STEPS} more steps: " + ", ".join(
+                      f"{k} {v:.4f}" for k, v in ms.items())
+                  + f" ({smi_line()})")
+            defer_twin(path, work, inputs[path], FLEX_TWIN_STEPS,
+                       twin_check(path, (rows, None), cols, cancel=cancel),
+                       threads=FLEX_T_TWIN_THREADS if cells else 1,
+                       cost=FLEX_T_TWIN_COST if cells else 10.0)
+            print(f"path {path}: rows {FLEX_TWIN_STEPS + 1}-{FLEX_STEPS} "
+                  f"finite; the path took "
+                  f"{time.perf_counter() - t_path:.1f} s of wall time")
+            del script, sim, ff, outs
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+# paths U and U64: bench/in.chain (CHAIN_SCRIPT on chain_script_case)
+U_STEPS = 100                  # in.chain's own run
+U_PHASE_STEPS = 20             # the steps U's phases are timed over
+U64_STEPS = 10                 # U64, a row each step
+CHAIN_COLS = ("temp", "epair", "emol", "etotal", "press")
+# the phases timed on U (DensePhases): the plain cell pass, the special
+# lists' correction, the FENE bonds and fix langevin's stream (the hook as
+# a whole is timed around the Runner's post_force)
+CHAIN_PHASES = (("pair cells", "lidp_tpu_torch.ops.cells",
+                 "cell_pair_forces"),
+                ("special", "lidp_tpu_torch.ops.bonded",
+                 "special_correction_sparse"),
+                ("fene bonds", "lidp_tpu_torch.forcefield", "bonded_terms"),
+                ("langevin stream", "lidp_tpu_torch.threefry", "uniform"))
+# paths V and W: the modifier fixes; V's phases: the cell pass, the
+# special correction and Ewald (W's are DENSE_PHASES)
+V_STEPS = W_STEPS = 10
+V_PHASES = CHAIN_PHASES[:2] + DENSE_PHASES[1:2]
+MOD_TWIN_STEPS = 2             # their CPU twins' steps: rows 0-2 compared
+
+
+def chain_text(every, run):
+    """CHAIN_SCRIPT with a row every `every` steps and `run <run>`."""
+    return CHAIN_SCRIPT.replace("thermo          100",
+                                f"thermo {every}").replace(
+                                    "run\t\t100", f"run {run}")
+
+
+def id_group(name, first, last):
+    """`group <name> id first ... last` (the port's group id takes a list
+    of IDs)."""
+    return f"group {name} id " + " ".join(
+        str(i) for i in range(first, last + 1)) + "\n"
+
+
+def modifier_script():
+    """Path V's input: the point-charge fluid (point_charge_script) with
+    `neighbor CELL_SKIN bin`, fix nve in place of rigid/nve, and every
+    post_force modifier on a group of its own (100 molecules each, by atom
+    ID), with momentum, recenter and temp/berendsen; a row each step."""
+    fixes = ("setforce NULL NULL 0.0", "addforce 0.0 0.0 0.05",
+             "aveforce NULL 0.0 NULL", "viscous 0.02",
+             "efield 0.0 0.0 0.05", "spring/self 0.5",
+             "spring tether 2.0 NULL NULL 30.0 0.0",
+             "planeforce 0 0 1")
+    lines = "".join(id_group(f"v{k}", 300 * k + 1, 300 * (k + 1))
+                    for k in range(len(fixes) + 1))
+    lines += "".join(f"fix m{k} v{k} {f}\n" for k, f in enumerate(fixes))
+    lines += (f"fix m8 all momentum 5 linear 1 1 1\n"
+              f"fix m9 v{len(fixes)} recenter INIT INIT INIT\n"
+              "fix m10 all temp/berendsen 300.0 300.0 50.0\n")
+    return point_charge_script().replace(
+        "read_data fluid.data\n",
+        f"read_data fluid.data\nneighbor {CELL_SKIN} bin\n").replace(
+        "fix 1 all rigid/nve molecule\n", "fix 1 all nve\n" + lines)
+
+
+def thermostat_melt_script():
+    """Path W's input: examples/melt (MELT_SCRIPT, 4,000 atoms, no dump)
+    with its atoms in three groups by ID, `fix temp/rescale` on the first,
+    `fix temp/csld` on the second and `fix langevin` on the third; a row
+    each step."""
+    extra = (id_group("wa", 1, 1333) + id_group("wb", 1334, 2666)
+             + id_group("wc", 2667, 4000)
+             + "fix 2 wa temp/rescale 1 3.0 3.0 0.05 0.5\n"
+             "fix 3 wb temp/csld 2.5 2.5 0.5 4567\n"
+             "fix 4 wc langevin 2.0 2.0 0.5 904297\n")
+    text = MELT_SCRIPT.replace("fix\t\t1 all nve\n",
+                               "fix\t\t1 all nve\n" + extra)
+    text = text.replace("dump\t\tid all atom 50 dump.melt\n", "")
+    return text.replace("thermo\t\t50\nrun\t\t250",
+                        "thermo 1\nrun ${nstep}")
+
+
+def stream_on_both_devices():
+    """threefry's bits and uniforms of one key on the card and on the CPU:
+    equal bit for bit (the same integer arithmetic)."""
+    import torch
+
+    from lidp_tpu_torch import threefry
+
+    key = threefry.fold_in(threefry.prng_key(904297), 12345)
+    shape = (32_000, 3)
+    for what, fn in (
+            ("bits32", lambda d: threefry.random_bits(key, 32, shape, d)),
+            ("bits64", lambda d: threefry.random_bits(key, 64, shape, d)),
+            ("uniform float32", lambda d: threefry.uniform(
+                key, shape, torch.float32, d).view(torch.int32)),
+            ("uniform float64", lambda d: threefry.uniform(
+                key, shape, torch.float64, d).view(torch.int64))):
+        if not torch.equal(fn("cuda").cpu(), fn("cpu")):
+            raise AssertionError(f"threefry {what}: the card's draw is not "
+                                 "the CPU's")
+    print(f"threefry: bits (32 and 64) and uniforms (float32, float64) of "
+          f"one key, shape {shape}, equal bit for bit on the card and the "
+          "CPU")
+
+
+def fix_phases(sim, phases, steps):
+    """Run `steps` more steps of a Simulation with the module functions
+    `phases` (DensePhases) and the Runner's post_force and end_of_step
+    (the fixes' hooks, composed) timed by CUDA events: ms a step of each,
+    the hooks as "post_force" and "end_of_step"."""
+    import torch
+
+    runner, events = sim.runner, {}
+    saved = {k: getattr(runner, k) for k in ("post_force", "end_of_step")}
+
+    def timed(name, fn):
+        def wrapped(*a):
+            e0, e1 = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+            e0.record()
+            out = fn(*a)
+            e1.record()
+            events.setdefault(name, []).append((e0, e1))
+            return out
+        return wrapped
+
+    for name, fn in saved.items():
+        if fn is not None:
+            setattr(runner, name, timed(name, fn))
+    try:
+        with DensePhases(phases) as ph:
+            sim.sys, sim.res, sim.nlist, sim.istate = runner.run(
+                sim.sys, sim.res, sim.nlist, sim.istate, steps)
+            ms = {k: v for k, v in ph.ms(steps).items() if v}
+    finally:
+        for name, fn in saved.items():
+            setattr(runner, name, fn)
+    for name, evs in events.items():
+        ms[name] = sum(a.elapsed_time(b) for a, b in evs) / steps
+    return ms
+
+
+def chain_paths(launches, reset_counts, read_counts):
+    """Paths U and U64: bench/in.chain from a LAMMPS script (module
+    docstring).  Each sets launches[path]."""
+    import torch
+
+    from lidp_tpu_torch.__main__ import main as cli
+    from lidp_tpu_torch.io.script import LammpsScript
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_chain_")
+    try:
+        chain_script_case(work)
+        in_u = os.path.join(work, "in.chain")
+        # path U: as published, through the CLI's main() in this process
+        log_u = os.path.join(work, "log.chain")
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        log = []
         reset_counts()
-        with ConstraintWatch() as watch:
-            script = LammpsScript(dtype=torch.float64, log=log.append)
-            script.variables["nstep"] = str(FLEX_STEPS)
-            script.file(os.path.join(work, inputs[path]))
-        launches[path] = read_counts()
+        cli(["-in", in_u, "-log", log_u, "--f32"])
+        launches["U"] = read_counts()
         peak = torch.cuda.max_memory_allocated()
-        check_counts(path, launches[path], {})
+        check_counts("U", launches["U"], {})
+        with open(log_u) as fh:
+            logU = fh.read().splitlines()
+        rowsU = log_rows(logU)
+        print(f"path U: `python -m lidp_tpu_torch -in in.chain --f32` "
+              f"(bench/in.chain verbatim on chain_script_case: 320 chains of "
+              f"100 beads), {len(rowsU)} rows:")
+        for line in logU:
+            print(f"  U| {line}")
+        if [int(r["step"]) for r in rowsU] != [0, U_STEPS]:
+            raise AssertionError(f"path U: rows {rowsU}")
+        check_rows_finite("U", rowsU, CHAIN_COLS)
+        script_peak("U", logU, U_STEPS, peak)
+
+        # U's phases: the same input in float32, set up, then timed steps
+        with open(os.path.join(work, "in.u0"), "w") as fh:
+            fh.write(chain_text(100, 0))
+        script = LammpsScript(dtype=torch.float32, log=lambda line: None)
+        script.file(os.path.join(work, "in.u0"))
         sim = script._sim
-        ff = sim.runner.ff
-        cells = sim.runner.neighbor_cfg is not None
-        if cells != (path == "T") or (cells and bool(sim.nlist.overflow)):
-            raise AssertionError(f"path {path}: route {script_route(script)}")
-        print(f"path {path}: flexible_script_case, {sim.natoms} atoms, "
-              f"`fix 1 all {FLEX_NPT if cells else FLEX_NVT}` and `fix 2 "
-              f"all {FLEX_SHAKE}`, lj/charmm/coul/long 8 10, pppm 1e-4, "
-              f"float64, {FLEX_STEPS} steps: {script_route(script)}; "
-              f"{len(ff.bond[0].idx)} bonds, {len(ff.angle[0].idx)} angles, "
-              f"{len(ff.dihedral[0].idx)} dihedrals, "
-              f"{len(ff.improper[0].idx)} impropers left to the bonded "
-              f"terms; its log:")
-        for line in log:
-            print(f"  {path}| {line}")
-        rows = script.thermo_rows
-        cols = FLEX_COLS + (("vol",) if cells else ())
-        check_rows_finite(path, rows, cols)
-        if len(watch.errors) != FLEX_STEPS + 1 or \
-                not max(watch.errors) <= FLEX_TOL:
-            raise AssertionError(f"path {path}: the SHAKE constraints' "
-                                 f"largest relative errors by row "
-                                 f"{watch.errors}")
-        print(f"path {path}: the SHAKE constraints' largest relative error "
-              f"by row " + ", ".join(f"{e:.2e}" for e in watch.errors)
-              + f" (the fix's tolerance {FLEX_TOL:g})")
-        script_peak(path, log, FLEX_STEPS, peak)
-        cancel = dict(cancelled(sim))
-        if cancel:
-            cancel["epair"] = cancel["evdwl"] + cancel["ecoul"]
-        # the bonded terms twice on one state: index_add_'s float atomics
-        z = torch.zeros_like(sim.sys.x)
-        e0 = sim.sys.x.new_zeros(())
-        outs = [bonded_terms(sim.sys, ff, z, e0, e0, z.new_zeros(6))
-                for _ in range(2)]
-        diff = max(max(float((a - b).abs().max()) for a, b in
-                       zip(outs[0][:4], outs[1][:4])),
-                   max(abs(float(outs[0][4][k]) - float(outs[1][4][k]))
-                       for k in outs[0][4]))
-        print(f"path {path}: two evaluations of bonded_terms on one state "
-              f"differ by at most {diff!r} (f, energies, virial): the "
-              f"index_add_ scatter is {'' if diff == 0.0 else 'not '}"
-              f"bit-reproducible on the card")
-        with DensePhases(FLEX_PHASES) as ph:
-            sim.sys, sim.res, sim.nlist, sim.istate = sim.runner.run(
-                sim.sys, sim.res, sim.nlist, sim.istate, EXTRA_STEPS)
-            ms = {k: v for k, v in ph.ms(EXTRA_STEPS).items() if v}
-        print(f"path {path} phases, ms a step by CUDA events over "
-              f"{EXTRA_STEPS} more steps: " + ", ".join(
+        route = script_route(script)
+        print(f"path U: {sim.natoms} atoms, {len(script._bonds)} bonds, "
+              f"float32: {route}")
+        if not route.endswith("pair route cell_pair_forces"):
+            raise AssertionError(f"path U: {route}")
+        ms = fix_phases(sim, CHAIN_PHASES, U_PHASE_STEPS)
+        print(f"path U phases, ms a step by CUDA events over "
+              f"{U_PHASE_STEPS} steps: " + ", ".join(
                   f"{k} {v:.4f}" for k, v in ms.items())
-              + f" ({smi_line()})")
-        proc, out = twins.pop(path)
-        t_wait = time.perf_counter()
+              + f" (post_force: fix langevin's hook, its stream and "
+              f"friction; {smi_line()})")
+        del script, sim
+        torch.cuda.empty_cache()
+
+        # path U64: float64, a row each step
+        with open(os.path.join(work, "in.u64"), "w") as fh:
+            fh.write(chain_text(1, "${nstep}"))
+        logs = []
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        script = LammpsScript(dtype=torch.float64, log=logs.append)
+        script.variables["nstep"] = str(U64_STEPS)
+        script.file(os.path.join(work, "in.u64"))
+        launches["U64"] = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        check_counts("U64", launches["U64"], {})
+        print(f"path U64: in.chain in float64, a row each step, "
+              f"{U64_STEPS} steps: {script_route(script)}; its log:")
+        for line in logs:
+            print(f"  U64| {line}")
+        rows = script.thermo_rows
+        check_rows_finite("U64", rows, CHAIN_COLS)
+        script_peak("U64", logs, U64_STEPS, peak)
+        worst = rows_agree("U step 0 vs U64", rowsU[:1], rows[:1],
+                           [2e-4], CHAIN_COLS)
+        print(f"path U step 0 (float32) vs U64's: {worst:.3g} of the bar "
+              "(rel 2e-4 of max(1, |value|))")
+        cancel = dict(cancelled(script._sim))
+        cancel["epair"] = cancel["evdwl"] + cancel["ecoul"]
+        defer_twin("U64", work, "in.u64", MOD_TWIN_STEPS,
+                   twin_check("U64", (rows, None), CHAIN_COLS,
+                              cancel=cancel), cost=40.0)
+        del script
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def modifier_paths(launches, reset_counts, read_counts):
+    """Paths V and W: the modifier fixes on the cell grid and the rescale
+    thermostats and the stream on the dense route (module docstring).
+    Each sets launches[path]."""
+    import torch
+
+    from lidp_tpu_torch.io.script import LammpsScript
+
+    for path, nstep in (("V", V_STEPS), ("W", W_STEPS)):
+        work = tempfile.mkdtemp(prefix="chip_smoke_mod_")
         try:
-            _, err = proc.communicate(timeout=900)
-        except subprocess.TimeoutExpired:
-            proc.kill()
-            proc.communicate()
-            raise AssertionError(f"path {path}: the CPU twin did not finish")
-        if proc.returncode != 0:
-            raise AssertionError(f"path {path}: the CPU twin exit "
-                                 f"{proc.returncode}\n{err[-4000:]}")
-        twin = np.load(out)
-        ref = [dict(zip(twin["cols"].tolist(), r)) for r in twin["rows"]]
-        worst = rows_agree(path, rows[:len(ref)], ref, [1e-9] * len(ref),
-                           cols, cancel=cancel)
-        print(f"path {path} vs its CPU twin (the same script, the port on "
-              f"the CPU, float64, {float(twin['seconds']):.1f} s): rows "
-              f"0-{len(ref) - 1} at {worst:.3g} of their bar (rel 1e-9 of "
-              f"max(1, |value|) + {CANCEL_REL:g} of the cancelled "
-              f"magnitude, {cancel.get('evdwl', 0.0):.4g} in E_vdwl); rows "
-              f"{len(ref)}-{FLEX_STEPS} finite; the path took "
-              f"{time.perf_counter() - t_path:.1f} s of wall time, "
-              f"{t_wait - t_path:.1f} s before the twin's wait")
-        del script, sim, ff, outs
+            if path == "V":
+                fluid_script_case(work, n_side=N_SIDE)
+                text = modifier_script()
+            else:
+                text = thermostat_melt_script()
+            with open(os.path.join(work, f"in.{path}"), "w") as fh:
+                fh.write(text)
+            logs = []
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            script = LammpsScript(dtype=torch.float64, log=logs.append)
+            script.variables["nstep"] = str(nstep)
+            script.file(os.path.join(work, f"in.{path}"))
+            launches[path] = read_counts()
+            peak = torch.cuda.max_memory_allocated()
+            check_counts(path, launches[path], {})
+            sim = script._sim
+            cells = sim.runner.neighbor_cfg is not None
+            if cells != (path == "V") or (cells and bool(sim.nlist.overflow)):
+                raise AssertionError(f"path {path}: {script_route(script)}")
+            fixes = [f"{f.style} on {f.group}" for f in script.fixes.values()
+                     if f.style != "nve"]
+            print(f"path {path}: {sim.natoms} atoms, float64, {nstep} steps, "
+                  f"fix nve with " + ", ".join(fixes) + f": "
+                  f"{script_route(script)}; every_step_ev "
+                  f"{sim.runner.every_step_ev}; its log:")
+            for line in logs:
+                print(f"  {path}| {line}")
+            rows = script.thermo_rows
+            cols = [c for c in script.thermo_columns if c != "step"]
+            check_rows_finite(path, rows, cols)
+            script_peak(path, logs, nstep, peak)
+            ms = fix_phases(sim, V_PHASES if cells else DENSE_PHASES,
+                            EXTRA_STEPS)
+            print(f"path {path} phases, ms a step by CUDA events over "
+                  f"{EXTRA_STEPS} more steps: " + ", ".join(
+                      f"{k} {v:.4f}" for k, v in ms.items())
+                  + f" (post_force, end_of_step: the fixes' hooks; "
+                  f"{smi_line()})")
+            cancel = dict(cancelled(sim)) if cells else None
+            defer_twin(path, work, f"in.{path}", MOD_TWIN_STEPS,
+                       twin_check(path, (rows, None), cols, cancel=cancel),
+                       cost=60.0 if cells else 20.0)
+            del script, sim
+            torch.cuda.empty_cache()
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+    stream_on_both_devices()
 
 
 def main() -> int:
@@ -3970,9 +4404,6 @@ def main() -> int:
     wrappers = {**panel.WRAPPERS, **cell_kernels.WRAPPERS}
     if sorted(ALL_KERNELS) != sorted(wrappers):
         raise AssertionError("the kernel table does not list every wrapper")
-
-    # the CPU twins of paths S and T run while the card works
-    flex = start_flexible_twins()
 
     # 2. build
     t0 = time.perf_counter()
@@ -4771,7 +5202,10 @@ def main() -> int:
 
     script_cell_paths(launches, reset_counts, read_counts, steps_per_s_F)
     barostat_paths(launches, reset_counts, read_counts)
-    flexible_paths(launches, reset_counts, read_counts, flex)
+    flexible_paths(launches, reset_counts, read_counts)
+    chain_paths(launches, reset_counts, read_counts)
+    modifier_paths(launches, reset_counts, read_counts)
+    run_twins()
 
     # 6. results
     total = {name: sum(launches[p][name] for p in launches)

@@ -1,7 +1,9 @@
 """LAMMPS data-file writer — the inverse of io/data_reader.py
-(write_data.cpp: header + Masses + Atoms + Velocities + Bonds;
-lidp_tpu/io/data_writer.py, an own copy reading the port's tensors; of
-the bonded sections it writes Bonds, and raises on the others).
+(write_data.cpp: header + Masses + Atoms + Velocities + the Bonds, Angles,
+Dihedrals and Impropers sections; lidp_tpu/io/data_writer.py, an own copy
+reading the port's tensors).  As in the JAX package, the Atoms section of
+every style but full takes the atomic layout `id type x y z`, which a
+bond, angle or molecular reader does not take back (ROADMAP queue 3).
 
 State is taken from the live Simulation if one exists (post-run coordinates)
 else from the interpreter arrays.
@@ -32,23 +34,24 @@ def write_data(path: str, script):
     mol = script.mol if script.mol is not None else np.zeros(n, int)
     full = script.atom_style == "full"
 
-    # the writer's one bonded section is Bonds
-    for sec in ("angles", "dihedrals", "impropers"):
-        arr = getattr(script, f"_{sec}", None)
-        if arr is not None and len(arr):
-            raise NotImplementedError(
-                f"write_data of a {sec.capitalize()} section is not ported "
-                "(ROADMAP queue 1 item 4, the script front end)")
-    bonds = script._bonds
+    sections = (("bonds", script._bonds, script._bond_types,
+                 script.bond_coeffs),
+                ("angles", script._angles, script._angle_types,
+                 script.angle_coeffs),
+                ("dihedrals", script._dihedrals, script._dihedral_types,
+                 script.dihedral_coeffs),
+                ("impropers", script._impropers, script._improper_types,
+                 script.improper_coeffs))
+    sections = [sec for sec in sections
+                if sec[1] is not None and len(sec[1])]
 
     with open(path, "w") as fh:
         fh.write("LAMMPS data file via lidp_tpu_torch write_data\n\n")
         fh.write(f"{n} atoms\n")
         fh.write(f"{script.ntypes} atom types\n")
-        if bonds is not None and len(bonds):
-            fh.write(f"{len(bonds)} bonds\n")
-            fh.write(f"{max(script.bond_coeffs.keys(), default=1)} "
-                     f"bond types\n")
+        for name, arr, _, coeffs in sections:
+            fh.write(f"{len(arr)} {name}\n")
+            fh.write(f"{max(coeffs.keys(), default=1)} {name[:-1]} types\n")
         fh.write(f"\n{lo[0]:.16g} {hi[0]:.16g} xlo xhi\n")
         fh.write(f"{lo[1]:.16g} {hi[1]:.16g} ylo yhi\n")
         fh.write(f"{lo[2]:.16g} {hi[2]:.16g} zlo zhi\n")
@@ -68,10 +71,9 @@ def write_data(path: str, script):
         fh.write("\nVelocities\n\n")
         for i in range(n):
             fh.write(f"{i+1} {v[i,0]:.16g} {v[i,1]:.16g} {v[i,2]:.16g}\n")
-        if bonds is not None and len(bonds):
-            types = script._bond_types
-            fh.write("\nBonds\n\n")
-            for k, row in enumerate(np.asarray(bonds)):
+        for name, arr, types, _ in sections:
+            fh.write(f"\n{name.capitalize()}\n\n")
+            for k, row in enumerate(np.asarray(arr)):
                 t = int(types[k]) if types is not None else 1
                 fh.write(f"{k+1} {t} "
                          + " ".join(str(int(b)) for b in row) + "\n")

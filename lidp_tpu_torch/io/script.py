@@ -20,7 +20,9 @@ neigh_modify, the mesh k-space and the barostats), and the flexible
 molecules of examples/peptide and bench/in.rhodo (the bond, angle,
 dihedral and improper styles with their coeff commands and data-file
 sections, special_bonds charmm|amber|fene, the lj/charmm pair styles with
-the four-argument pair_coeff, fix shake and fix rattle);
+the four-argument pair_coeff, fix shake and fix rattle), bench/in.chain
+(atom_style bond, fix langevin) and the modifier fixes of
+styles/fix_modifiers.py;
 every other command, style or keyword raises NotImplementedError naming
 itself and the ROADMAP item that ports it, and is never ignored.
 """
@@ -69,7 +71,25 @@ CHARMM_UNPORTED = ("lj/charmm/coul/charmm/implicit", "lj/charmm/coul/msm",
 FIX_STYLES = ("nve", "nvt", "npt", "nph", "rigid", "rigid/nve", "rigid/nvt",
               "rigid/npt", "rigid/nph", "rigid/small", "rigid/nve/small",
               "rigid/nvt/small", "rigid/npt/small", "rigid/nph/small",
-              "shake", "rattle")
+              "shake", "rattle", "langevin", "setforce", "addforce",
+              "aveforce", "spring", "spring/self", "viscous", "efield",
+              "planeforce", "lineforce", "momentum", "recenter",
+              "temp/rescale", "temp/berendsen", "temp/csld")
+# where the fix styles the port lacks are queued: the modifier fixes of
+# the JAX package's styles/fix_modifiers.py, and the others by their item
+_MODIFIERS = "ROADMAP queue 1 item 6.1, the modifier fixes"
+_FIX_ITEMS = {
+    "enforce2d": "ROADMAP queue 1 item 6.2, minimize and 2d",
+    "cmap": "ROADMAP queue 1 item 6.6, the CHARMM family",
+    "nvt/sllod": "ROADMAP queue 1 item 6.8, integrator keywords",
+    "nvt/sphere": "ROADMAP queue 1 item 6.8, integrator keywords",
+    "npt/sphere": "ROADMAP queue 1 item 6.8, integrator keywords",
+    "nph/sphere": "ROADMAP queue 1 item 6.8, integrator keywords",
+    "wall/gran": "ROADMAP queue 1 item 6.11, granular",
+    "wall/gran/region": "ROADMAP queue 1 item 6.11, granular",
+    "pour": "ROADMAP queue 1 item 6.11, granular",
+    "nve/sphere": "ROADMAP queue 1 item 6.11, granular",
+}
 
 # the bonded styles (ops/bonded.py, styles/bonded_builders.py); dihedral
 # charmmfsw pairs with lj/charmmfsw, which is not ported
@@ -235,6 +255,7 @@ class LammpsScript:
         self.thermo_rows: list[dict] = []
         self._sim = None             # live Simulation between run commands
         self._pair_mix = "geometric"  # pair_modify mix
+        self._pair_shift = False      # pair_modify shift
         self._gewald_override = None  # kspace_modify gewald
         self._thermo_norm = None
         self._thermo_float_format = None
@@ -498,9 +519,11 @@ class LammpsScript:
             _unported(f"boundary {' '.join(a)} (p p p only)", _BREADTH)
 
     def cmd_atom_style(self, a):
-        if a[0] not in ("atomic", "full", "charge"):
-            _unported(f"atom_style {a[0]} (atomic, full and charge only)",
-                      _BREADTH)
+        # bond, angle and molecular read `id mol type x y z` (no charge)
+        if a[0] not in ("atomic", "full", "charge", "bond", "angle",
+                        "molecular"):
+            _unported(f"atom_style {a[0]} (atomic, charge, bond, angle, "
+                      "molecular and full only)", _FRONT_END)
         self.atom_style = a[0]
 
     def cmd_dimension(self, a):
@@ -1052,6 +1075,10 @@ class LammpsScript:
                 self._pair_mix = a[i + 1]
             elif a[i] == "table":
                 pass   # erfc is evaluated by its polynomial (no tables)
+            elif a[i] == "shift":
+                # the LJ energy less its value at the cutoff (the pair
+                # tables' offset)
+                self._pair_shift = _yesno(a[i + 1])
             else:
                 _unported(f"pair_modify {a[i]}", _BREADTH)
             i += 2
@@ -1253,7 +1280,8 @@ class LammpsScript:
     def cmd_fix(self, a):
         fid, group, style = a[0], a[1], a[2]
         if style not in FIX_STYLES:
-            _unported(f"fix style {style}", _BREADTH)
+            _unported(f"fix style {style}",
+                      _FIX_ITEMS.get(style, _MODIFIERS))
         self.fixes[fid] = FixSpec(fid=fid, group=group, style=style,
                                   args=a[3:])
         self._invalidate()
@@ -1267,6 +1295,9 @@ class LammpsScript:
         if group not in self.groups:
             raise ValueError(f"compute {cid}: group {group} does not exist")
         self.computes[cid] = (group, style)
+
+    def cmd_fix_modify(self, a):
+        _unported(f"fix_modify {' '.join(a)}", _MODIFIERS)
 
     def cmd_unfix(self, a):
         self.fixes.pop(a[0], None)

@@ -1,7 +1,7 @@
 """Simulation assembly: interpreter state -> a runnable system
 (lidp_tpu/sim.py, the routes of lj/cut, lj/cut/coul/long,
 lj/cut/coul/long/polarization, lj/charmm/coul/long and
-lj/charmm/coul/charmm, with the bonded terms and fix shake / rattle).
+lj/charmm/coul/charmm, with the bonded terms and the modifier fixes).
 
 The analog of the LAMMPS init phase (Run::command -> LAMMPS::init,
 run.cpp:38): the lj/cut or lj/cut/coul/long tables with geometric (or
@@ -14,8 +14,9 @@ and improper styles (less the bonds and angles fix shake constrains, the
 clusters found in a pre-pass), the integrator of the fixes (nve,
 rigid/nve, rigid/nvt, rigid/npt, rigid/nph, nvt, npt, nph) with its dof
 removal (FixRigid::dof, fix_rigid.cpp:1181; FixShake's constraints, which
-the thermostats' dof lose too), the constraint fixes' post_force hooks and
-rattle's velocity projection, the group temperatures of `compute ID
+the thermostats' dof lose too), the modifier fixes' post_force and
+end_of_step hooks (rattle's velocity projection, the deferred temp/rescale
+and temp/berendsen on their group's dof), the group temperatures of `compute ID
 group temp`; then `run` (each run the window of the thermostats' and
 barostats' target ramps), the thermo rows with their c_ID columns and the
 dump frames.  Under a barostat the Ewald tables follow the live box
@@ -191,16 +192,44 @@ def _compose_pf(hooks):
     return composed
 
 
-def _rattle_eos(rattle_params):
-    """fix rattle's end_of_step: the velocity projection after
-    final_integrate (FixRattle::final_integrate -> vrattle*); None without
-    rattle."""
-    if rattle_params is None:
-        return None
-    from lidp_tpu_torch.ops import shake as shake_mod
+def _compose_eos(fctx):
+    """The end_of_step of the fixes, in the JAX package's order (its
+    sim.py:1833-1920): fix rattle's velocity projection
+    (FixRattle::final_integrate -> vrattle*), then the end_of_step hooks
+    in declaration order, then the deferred temp/rescale or
+    temp/berendsen; None for none."""
+    from lidp_tpu_torch.styles.fix_modifiers import temp_fix_end_of_step
 
-    return lambda sys_, res_=None: shake_mod.rattle_velocity(sys_,
-                                                             rattle_params)
+    hooks = list(fctx.eos_hooks)
+    if fctx.pending_temp_fix is not None:
+        hooks.append(temp_fix_end_of_step(fctx, fctx.pending_temp_fix))
+    if fctx.rattle_params is not None:
+        from lidp_tpu_torch.ops import shake as shake_mod
+
+        hooks.insert(0, lambda sys_, res_=None, _p=fctx.rattle_params:
+                     shake_mod.rattle_velocity(sys_, _p))
+    if not hooks:
+        return None
+
+    def end_of_step(sys_, res_=None, _hooks=tuple(hooks)):
+        for h in _hooks:
+            sys_ = h(sys_, res_)
+        return sys_
+
+    return end_of_step
+
+
+def _compose_pi(hooks):
+    """The post_integrate hooks in declaration order; None for none."""
+    if not hooks:
+        return None
+
+    def post_integrate(sys_, _hooks=tuple(hooks)):
+        for h in _hooks:
+            sys_ = h(sys_)
+        return sys_
+
+    return post_integrate
 
 
 def polarization_settings(p) -> pol_ops.PolarizationSettings:
@@ -330,7 +359,8 @@ class Simulation:
             eps, sig, cut, cut_coul=script.pair.cut_coul if coul else 0.0,
             qqrd2e=u.qqr2e, g_ewald=g_ewald, coul=coul,
             special_lj=script.special_lj, special_coul=script.special_coul,
-            excl_types=excl_types, cut_lj_inner=script.pair.cut_lj_inner,
+            excl_types=excl_types, shift=script._pair_shift,
+            cut_lj_inner=script.pair.cut_lj_inner,
             charmm=charmm, coul_kind="long" if coul_long else "charmm",
             cut_coul_inner=script.pair.cut_coul_inner, dtype=dtype,
             device=device)
@@ -341,11 +371,14 @@ class Simulation:
         # integrator reads the virial every step (the JAX package's
         # sim.py:1612-1617, 1667, 2005)
         has_baro = any(f.style in BAROSTATS for f in script.fixes.values())
-        # the constraint forces and their virial depend on the velocities:
-        # the Runner evaluates the virial every step (no chunk-boundary
-        # re-tally, the JAX package's has_vdep_pf)
-        has_shake = any(f.style in ("shake", "rattle")
-                        for f in script.fixes.values())
+        # the post_force terms that depend on the velocities (the
+        # constraint forces and their virial, langevin's friction and
+        # noise, viscous drag) cannot be re-tallied at a chunk boundary:
+        # the Runner evaluates the virial every step (the JAX package's
+        # has_vdep_pf, its sim.py:1618-1620)
+        has_vdep_pf = any(f.style in ("shake", "rattle", "langevin",
+                                      "viscous")
+                          for f in script.fixes.values())
 
         # ---- neighbour strategy (the JAX package's sim.py:1785-1820) ----
         ncfg = None
@@ -426,12 +459,13 @@ class Simulation:
                         rebuild_every=script.neigh_every if ncfg else 1,
                         check=script.neigh_check, skin=script.skin,
                         delay=script.neigh_delay,
-                        every_step_ev=has_baro or has_shake,
+                        every_step_ev=has_baro or has_vdep_pf,
                         post_force=_compose_pf(fctx.pf_hooks),
                         post_force_setup=(_compose_pf(fctx.pf_hooks_setup)
                                           if fctx.pf_hooks_setup
                                           != fctx.pf_hooks else None),
-                        end_of_step=_rattle_eos(fctx.rattle_params))
+                        end_of_step=_compose_eos(fctx),
+                        post_integrate=_compose_pi(fctx.pi_hooks))
         if dense:
             if above_cap and polar:
                 script.log(_ABOVE_CAP)

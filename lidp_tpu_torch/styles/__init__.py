@@ -8,9 +8,12 @@ styles) and the dof bookkeeping.  Simulation.from_script loops the
 registry.  The port registers the integrators the panel engine composes
 with, nve and rigid/nve, and the Nose-Hoover styles and barostats of the
 dense route and the cell grid, rigid/nvt, nvt, npt, nph, rigid/npt and
-rigid/nph (styles/fix_integrators.py), and the constraint fixes shake and
-rattle (styles/fix_modifiers.py), which add post_force hooks; a fix style
-with no builder raises NotImplementedError.
+rigid/nph (styles/fix_integrators.py), and the modifier fixes
+(styles/fix_modifiers.py): the constraint fixes shake and rattle, the
+post_force styles (langevin, setforce, addforce, aveforce, spring,
+spring/self, viscous, efield, planeforce, lineforce), the end_of_step
+styles (momentum, recenter, temp/csld) and the deferred temp/rescale and
+temp/berendsen; a fix style with no builder raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -72,6 +75,15 @@ class FixBuildCtx:
     # (Modify::post_force, modify.cpp:454); the setup pass's variants
     pf_hooks: list = dataclasses.field(default_factory=list)
     pf_hooks_setup: list = dataclasses.field(default_factory=list)
+    # Modify::post_integrate hooks, fn(sys) -> sys, and the end_of_step
+    # hooks, fn(sys, res) -> sys, in declaration order
+    pi_hooks: list = dataclasses.field(default_factory=list)
+    eos_hooks: list = dataclasses.field(default_factory=list)
+    # fix shake's constraints as their two atoms' indices (pa, qa): those
+    # a temperature group holds whole leave its dof
+    shake_pairs: Any = None
+    # temp/rescale or temp/berendsen, built after the fix loop
+    pending_temp_fix: Any = None
 
 
 def build_fixes(ctx: FixBuildCtx):
@@ -88,8 +100,7 @@ def build_fixes(ctx: FixBuildCtx):
         builder = FIX_BUILDERS.get(spec.style)
         if builder is None:
             raise NotImplementedError(
-                f"fix style {spec.style} is not ported (only nve, nvt, "
-                "npt, nph, the rigid styles, shake and rattle; ROADMAP "
-                "queue 1 item 6, breadth)")
+                f"fix style {spec.style} is not ported (ROADMAP queue 1 "
+                "item 6.1, the modifier fixes)")
         builder(ctx, spec)
     return ctx

@@ -1,15 +1,30 @@
 """The port's first float64 evaluation in a fresh process does not depend
 on the number of CPU threads torch runs it on.
 
-Each case runs its evaluation as the first of fresh `python -c` processes
-with torch's default thread count (REPEATS of them, PARALLEL at a time, so
+Each case runs its evaluation as the first of fresh processes with
+torch's default thread count (REPEATS of them, PARALLEL at a time, so
 that the threads of several processes share the cores, as under
 pytest-xdist) and once with OMP_NUM_THREADS=1 and torch.set_num_threads(1);
 every array the threaded runs save agrees with the one-thread run's to rel
 1e-12 of its largest entry.  That bar lies far below the 2.5e-8 and 1.7e-7
 that the port's tests once recorded for a first evaluation on several
 threads, and far above what a threaded reduction's other summation order
-changes.  The subprocesses import torch and the port, never JAX:
+changes.  The processes are forked from zygotes (_ZYGOTE): processes
+that import numpy and torch once and then compute nothing, so that each
+child's first parallel region, first vector-math call and import of the
+port (with its warm_vector_math) are its own, as in a fresh interpreter,
+without the ~3 s of importing torch in each of the 78 processes.  The
+one-thread runs fork from a zygote started with OMP_NUM_THREADS=1, the
+others from PARALLEL zygotes on the default threads.  Every zygote runs
+under OMP_WAIT_POLICY=PASSIVE: idle OpenMP threads sleep rather than spin,
+so that PARALLEL processes of a core's count of threads each share the
+cores without each parallel region's barrier waiting on spinning threads
+(with the default policy one process's run of the cell_route case took
+~15 s among them against 0.7 s alone; passive, 12 take 1.6 s in all).
+Without warm_vector_math, 16 and 17 of 600 such children (default and
+passive policy) computed their first float64 torch.sqrt with a chunk at
+~1e-11, the rate recorded for fresh interpreters.  The children import
+the port, never JAX:
 
   * panel_step: PolarStep's first float64 evaluation (the panel engine's
     plain path, LIDP_FAST_POLAR=1) on the 375-atom fluid of
@@ -44,13 +59,8 @@ several threads can return one thread's chunk at ~35-bit accuracy (MKL's
 vector math; the calls after it are right), so the first evaluation's
 pair term differed from the one-thread run's in one chunk of rows.
 lidp_tpu_torch/__init__.py (warm_vector_math) now calls each such
-function once on every thread when the package is imported.  Until this
-test has run clean in the suites, the parity files keep their one-thread
-pin (test_torch_script.py, test_torch_pair_symmetric.py,
-test_torch_dense_route.py and test_torch_thermostats.py, whose script
-cases load the dense route of dense_route here) and this test stays
-marked xfail, not strict: it runs in every suite and reports XPASS or
-XFAIL.
+function once on every thread when the package is imported; the test ran
+clean in the suites after it, and a recurrence now fails it.
 
 A failing comparison keeps its evidence: the one-thread run's and the
 failing process's .npz are copied to a directory of their own in the
@@ -59,7 +69,9 @@ its tmp_path does not remove), and the assertion names that directory,
 the case, the process, the array and the first index that differs.
 """
 
+import json
 import os
+import queue
 import shutil
 import subprocess
 import sys
@@ -192,36 +204,111 @@ def inputs(tmp_path_factory):
             "flexible_shake": (_FLEX, in_flex, {})}
 
 
-def _run(code, arg, env_extra, out, one_thread):
-    env = {k: v for k, v in os.environ.items()
-           if k not in ("OMP_NUM_THREADS", "MKL_NUM_THREADS",
-                        "LIDP_FAST_POLAR")}
-    env.update(env_extra, PYTHONPATH=os.pathsep.join(filter(None, (
-        str(ROOT), os.environ.get("PYTHONPATH")))))
-    if one_thread:
-        env.update(OMP_NUM_THREADS="1", ONE_THREAD="1")
-    res = subprocess.run([sys.executable, "-c", code, str(out), arg],
-                         env=env, capture_output=True, text=True,
-                         timeout=300)
-    assert res.returncode == 0, res.stderr[-3000:]
-    return dict(np.load(out))
+# a zygote: imports numpy and torch, computes nothing, and forks a child
+# for each request read from stdin ({code, out, arg, env, err}); the child
+# sets the request's environment and runs `code` with sys.argv [-c, out,
+# arg], its output to the file `err`; the zygote answers each request with
+# the child's exit code.  It forks with one thread (OpenBLAS's pool, which
+# numpy's import starts, is held to one thread), so no lock is held by a
+# thread the child lacks
+_ZYGOTE = """\
+import json, os, sys, traceback
+import numpy
+import torch
+assert len(os.listdir("/proc/self/task")) == 1
+for line in sys.stdin:
+    req = json.loads(line)
+    pid = os.fork()
+    if pid == 0:
+        fd = os.open(req["err"], os.O_WRONLY | os.O_CREAT | os.O_TRUNC)
+        os.dup2(fd, 1)
+        os.dup2(fd, 2)
+        rc = 0
+        try:
+            os.environ.update(req["env"])
+            sys.argv = ["-c", req["out"], req["arg"]]
+            exec(compile(req["code"], "<case>", "exec"),
+                 {"__name__": "__main__"})
+        except BaseException:
+            traceback.print_exc()
+            rc = 1
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(rc)
+    _, status = os.waitpid(pid, 0)
+    print(json.dumps(os.waitstatus_to_exitcode(status)), flush=True)
+"""
 
 
-@pytest.mark.xfail(strict=False, reason=(
-    "the float64 first-evaluation fault on several CPU threads (ROADMAP "
-    "queue 3 item 1: the first torch.sqrt of a process) is repaired by "
-    "warm_vector_math; the mark stays until the harness runs clean"))
+class _Zygote:
+    """A _ZYGOTE process on torch's default threads or, with one_thread,
+    under OMP_NUM_THREADS=1."""
+
+    def __init__(self, one_thread):
+        env = {k: v for k, v in os.environ.items()
+               if k not in ("OMP_NUM_THREADS", "MKL_NUM_THREADS",
+                            "LIDP_FAST_POLAR")}
+        env["PYTHONPATH"] = os.pathsep.join(filter(None, (
+            str(ROOT), os.environ.get("PYTHONPATH"))))
+        env.update(OMP_WAIT_POLICY="PASSIVE", OPENBLAS_NUM_THREADS="1")
+        if one_thread:
+            env["OMP_NUM_THREADS"] = "1"
+        self.one_thread = one_thread
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", _ZYGOTE], env=env, stdin=subprocess.PIPE,
+            stdout=subprocess.PIPE, text=True)
+
+    def run(self, code, arg, env_extra, out):
+        """A child's run of `code` on `arg`: the arrays it saved to out."""
+        env = dict(env_extra, ONE_THREAD="1") if self.one_thread \
+            else dict(env_extra)
+        err = f"{out}.log"
+        self.proc.stdin.write(json.dumps(dict(
+            code=code, out=str(out), arg=arg, env=env, err=err)) + "\n")
+        self.proc.stdin.flush()
+        rc = json.loads(self.proc.stdout.readline())
+        assert rc == 0, Path(err).read_text()[-3000:]
+        return dict(np.load(out))
+
+    def close(self):
+        self.proc.stdin.close()
+        self.proc.wait(timeout=60)
+
+
+@pytest.fixture(scope="module")
+def zygotes():
+    """The one-thread zygote and a queue of PARALLEL default-thread ones."""
+    one = _Zygote(one_thread=True)
+    many = [_Zygote(one_thread=False) for _ in range(PARALLEL)]
+    free = queue.Queue()
+    for z in many:
+        free.put(z)
+    yield one, free
+    for z in [one, *many]:
+        z.close()
+
+
+def _run_many(free, code, arg, env, out):
+    """A run on the next free default-thread zygote."""
+    z = free.get()
+    try:
+        return z.run(code, arg, env, out)
+    finally:
+        free.put(z)
+
+
 @pytest.mark.parametrize("case", ["panel_step", "pair_plain",
                                   "dense_route", "cell_route",
                                   "dense_npt_pppm", "flexible_shake"])
-def test_first_float64_evaluation_is_thread_independent(inputs, case,
-                                                        tmp_path):
+def test_first_float64_evaluation_is_thread_independent(inputs, zygotes,
+                                                        case, tmp_path):
     code, arg, env = inputs[case]
-    ref = _run(code, arg, env, tmp_path / "one.npz", one_thread=True)
+    one, free = zygotes
+    ref = one.run(code, arg, env, tmp_path / "one.npz")
     with ThreadPoolExecutor(PARALLEL) as pool:
         runs = list(pool.map(
-            lambda k: _run(code, arg, env, tmp_path / f"run{k}.npz",
-                           one_thread=False), range(REPEATS)))
+            lambda k: _run_many(free, code, arg, env,
+                                tmp_path / f"run{k}.npz"), range(REPEATS)))
     worst = {}
     for k, got in enumerate(runs):
         assert got.keys() == ref.keys()

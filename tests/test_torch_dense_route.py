@@ -21,9 +21,10 @@ import pytest
 import torch
 
 jnp = pytest.importorskip("jax.numpy")
-# one torch thread, as the port's other parity files pin it: the first
-# float64 evaluation of a process on several threads once came out wrong
-# (ROADMAP queue 3 item 1, not located; tests/test_torch_cpu_threads.py)
+# one torch thread, for time: under pytest-xdist torch's threads spin
+# on the cores the other workers use (this file and nine like it took
+# over 4x as long under -n 6 without the pin; the CPU-thread fault it
+# once guarded is repaired, ROADMAP queue 3 item 1)
 torch.set_num_threads(1)
 
 from lidp_tpu import topology as jtopo  # noqa: E402

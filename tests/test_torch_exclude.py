@@ -34,8 +34,10 @@ import pytest
 import torch
 
 jnp = pytest.importorskip("jax.numpy")
-# one torch thread, as the port's other parity files pin it (ROADMAP queue
-# 3 item 1; tests/test_torch_cpu_threads.py looks for the fault)
+# one torch thread, for time: under pytest-xdist torch's threads spin
+# on the cores the other workers use (this file and nine like it took
+# over 4x as long under -n 6 without the pin; the CPU-thread fault it
+# once guarded is repaired, ROADMAP queue 3 item 1)
 torch.set_num_threads(1)
 
 import chip_smoke  # noqa: E402
@@ -204,18 +206,19 @@ def test_unported_exclusions_raise(fluid, name):
              nstep=1)
 
 
-def test_panel_engine_refuses_excl_mol(fluid):
+def test_panel_engine_refuses_excl_mol(runs, fluid):
     """Under LIDP_FAST_POLAR=1 the port raises on excl_mol, naming ROADMAP
     queue 3 item 12: the JAX package's panel engine runs the input without
     the exclusion, so its rows there are those of its dense route without
-    the exclusion, and far from those with it."""
+    the exclusion, and far from those with it (step 0 of each; the dense
+    route with it is the dense_mol case's JAX run)."""
     text = CASES["dense_mol"]
     with pytest.raises(NotImplementedError, match="queue 3 item 12"):
         _run("torch", fluid, text, nstep=1, fast_polar="1")
-    panel = _run("jax", fluid, text, nstep=1, fast_polar="1")
+    panel = _run("jax", fluid, text, nstep=0, fast_polar="1")
     assert type(panel._sim.runner).__name__ == "FastPolarRunner"
-    plain = _run("jax", fluid, chip_smoke.FLUID_SCRIPT, nstep=1)
-    dense = _run("jax", fluid, text, nstep=1)
+    plain = _run("jax", fluid, chip_smoke.FLUID_SCRIPT, nstep=0)
+    dense = runs["dense_mol"][0]
     a, b, c = (s.thermo_rows[0]["pe"] for s in (panel, plain, dense))
     print(f"JAX step 0 PE: panel engine with the exclusion {a!r}, dense "
           f"route without it {b!r}, dense route with it {c!r}")

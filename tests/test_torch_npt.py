@@ -49,8 +49,11 @@ import pytest
 import torch
 
 jnp = pytest.importorskip("jax.numpy")
-# one torch thread, as the port's other parity files pin it (ROADMAP queue
-# 3 item 1; tests/test_torch_cpu_threads.py looks for the fault)
+# one torch thread, for time: under pytest-xdist torch's threads spin
+# on the cores the other workers use (this file and nine like it took
+# over 4x as long under -n 6 without the pin; the CPU-thread fault it
+# once guarded is repaired, ROADMAP queue 3 item 1); so the CLI processes
+# it starts run with OMP_NUM_THREADS=1
 torch.set_num_threads(1)
 
 import chip_smoke  # noqa: E402

@@ -62,10 +62,10 @@ import pytest
 import torch
 
 jnp = pytest.importorskip("jax.numpy")
-# one torch thread: with several, the first float64 evaluation in a process
-# came out up to 2.5e-8 off in about one process in six (whole chunks of
-# rows of one elementwise pass, as if one worker thread took a less
-# accurate path), far above the 1e-12 this file holds
+# one torch thread, for time: under pytest-xdist torch's threads spin
+# on the cores the other workers use (this file and nine like it took
+# over 4x as long under -n 6 without the pin; the CPU-thread fault it
+# once guarded is repaired, ROADMAP queue 3 item 1)
 torch.set_num_threads(1)
 
 import chip_smoke  # noqa: E402

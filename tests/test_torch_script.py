@@ -33,8 +33,10 @@ the runner type on both sides.
     position) runs on JAX's cell grid with the special correction, Ewald
     and the dense polar term, its rows within rel 1e-8 of JAX's plus
     chip_smoke.CANCEL_REL of what the correction cancels;
-  * both CLIs as subprocesses (`-device cpu` on the port): with
-    LIDP_FAST_POLAR=1 their logged rows agree at rel 1e-7 of max(1,
+  * the port's CLI as a subprocess (`-device cpu`) against the JAX
+    package's script engine on the same input (the fused and dense cases'
+    runs, which are what `python -m lidp_tpu` runs): with
+    LIDP_FAST_POLAR=1 its logged rows agree at rel 1e-7 of max(1,
     |value|); without it (the dense route), logged at 16 digits by
     `thermo_modify format float`, at rel 1e-8.
 """
@@ -51,12 +53,11 @@ import pytest
 import torch
 
 jnp = pytest.importorskip("jax.numpy")
-# one torch thread: with several, the first float64 evaluation in a process
-# came out up to 1.7e-7 off (pe at step 0) in about one process in three,
-# as tests/test_torch_pair_symmetric.py records for its own first
-# evaluation; the CLIs' processes below run with OMP_NUM_THREADS=1.  The
-# fault is not located (ROADMAP queue 3 item 1); the fresh processes of
-# tests/test_torch_cpu_threads.py look for it on torch's default threads
+# one torch thread, for time: under pytest-xdist torch's threads spin
+# on the cores the other workers use (this file and nine like it took
+# over 4x as long under -n 6 without the pin; the CPU-thread fault it
+# once guarded is repaired, ROADMAP queue 3 item 1); so the CLI processes
+# it starts run with OMP_NUM_THREADS=1
 torch.set_num_threads(1)
 
 import chip_smoke  # noqa: E402
@@ -338,51 +339,47 @@ def _log_rows(path):
     return chip_smoke.log_rows(Path(path).read_text().splitlines())
 
 
-def test_clis_agree(dirs, tmp_path):
-    d = dirs[False]
-    env = dict(os.environ, LIDP_FAST_POLAR="1", JAX_PLATFORMS="cpu",
-               OMP_NUM_THREADS="1",
-               PYTHONPATH=os.pathsep.join(filter(None, (
-                   str(ROOT), os.environ.get("PYTHONPATH")))))
-    env.pop("LIDP_FAST_POLAR_MODE", None)
-    common = ["-in", "in.fluid", "-var", "nstep", str(NSTEP)]
-    for pkg, extra in (("lidp_tpu", []),
-                       ("lidp_tpu_torch", ["-device", "cpu"])):
-        res = subprocess.run(
-            [sys.executable, "-m", pkg, *common, "-log",
-             str(tmp_path / f"log.{pkg}"), *extra], cwd=d, env=env,
-            capture_output=True, text=True, timeout=300)
-        assert res.returncode == 0, res.stderr[-3000:]
-    jr = _log_rows(tmp_path / "log.lidp_tpu")
-    tr = _log_rows(tmp_path / "log.lidp_tpu_torch")
+def _port_cli(d, tmp_path, infile, env):
+    """The port's CLI (`-device cpu`) on `infile` in d, NSTEP steps: its
+    logged rows."""
+    env = dict(os.environ, **env, PYTHONPATH=os.pathsep.join(filter(None, (
+        str(ROOT), os.environ.get("PYTHONPATH")))))
+    for k in ("LIDP_FAST_POLAR", "LIDP_FAST_POLAR_MODE"):
+        if not env.get(k):
+            env.pop(k, None)
+    res = subprocess.run(
+        [sys.executable, "-m", "lidp_tpu_torch", "-in", infile, "-var",
+         "nstep", str(NSTEP), "-log", str(tmp_path / "log.torch"),
+         "-device", "cpu"], cwd=d, env=env, capture_output=True, text=True,
+        timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    return res, _log_rows(tmp_path / "log.torch")
+
+
+def test_clis_agree(runs, dirs, tmp_path):
+    """The port's CLI on in.fluid under LIDP_FAST_POLAR=1 (the panel
+    engine), its rows as printed against the JAX package's script engine
+    on the same input (the fused case's run) at rel 1e-7."""
+    _, tr = _port_cli(dirs[False], tmp_path, "in.fluid",
+                      {"LIDP_FAST_POLAR": "1", "OMP_NUM_THREADS": "1"})
+    jr = runs["fused"][0].thermo_rows
     assert len(jr) == len(tr) == NSTEP + 1
     for r, g in zip(tr, jr):
         for c in COLS:
             assert abs(r[c] - g[c]) <= 1e-7 * max(1.0, abs(g[c])), c
 
 
-def test_clis_agree_on_the_dense_route(dirs, tmp_path):
-    """Both CLIs without LIDP_FAST_POLAR take the dense route on the
-    375-atom fluid; logged at 16 digits, their rows agree at rel 1e-8."""
+def test_clis_agree_on_the_dense_route(runs, dirs, tmp_path):
+    """The port's CLI without LIDP_FAST_POLAR takes the dense route on the
+    375-atom fluid; logged at 16 digits, its rows agree with the JAX
+    package's script engine on the same input (the dense case's run) at
+    rel 1e-8."""
     d = dirs[False]
     (d / "in.dense16").write_text(chip_smoke.FLUID_SCRIPT.replace(
         "thermo 1\n", "thermo 1\nthermo_modify format float %.16g\n"))
-    env = dict(os.environ, JAX_PLATFORMS="cpu", OMP_NUM_THREADS="1",
-               PYTHONPATH=os.pathsep.join(filter(None, (
-                   str(ROOT), os.environ.get("PYTHONPATH")))))
-    for k in ("LIDP_FAST_POLAR", "LIDP_FAST_POLAR_MODE"):
-        env.pop(k, None)
-    common = ["-in", "in.dense16", "-var", "nstep", str(NSTEP)]
-    for pkg, extra in (("lidp_tpu", []),
-                       ("lidp_tpu_torch", ["-device", "cpu"])):
-        res = subprocess.run(
-            [sys.executable, "-m", pkg, *common, "-log",
-             str(tmp_path / f"log.{pkg}"), *extra], cwd=d, env=env,
-            capture_output=True, text=True, timeout=300)
-        assert res.returncode == 0, res.stderr[-3000:]
-        assert "fast-polar engine" not in res.stdout
-    jr = _log_rows(tmp_path / "log.lidp_tpu")
-    tr = _log_rows(tmp_path / "log.lidp_tpu_torch")
+    res, tr = _port_cli(d, tmp_path, "in.dense16", {"OMP_NUM_THREADS": "1"})
+    assert "fast-polar engine" not in res.stdout
+    jr = runs["dense"][0].thermo_rows
     assert len(jr) == len(tr) == NSTEP + 1
     for r, g in zip(tr, jr):
         for c in COLS:

@@ -31,9 +31,10 @@ float64 on the CPU unless named, both sides in one process.
     the final x and v within 1e-8 of their largest entry;
   * in.melt (chip_smoke.MELT_SCRIPT) cut to 5 cells a side, 100 steps: its
     `dump atom` frames equal JAX's text;
-  * both CLIs as subprocesses (`-device cpu` on the port) on in.lj cut to
-    5 cells, in.melt cut the same way and the point-charge fluid, logged
-    at 16 digits: rows within rel 1e-8 of max(1, |value|);
+  * the port's CLI as a subprocess (`-device cpu`) on in.lj cut to 5
+    cells, in.melt cut the same way and the point-charge fluid, logged at
+    16 digits, against the JAX package's script engine on the same input
+    in this process: rows within rel 1e-8 of max(1, |value|);
   * what still raises, naming its ROADMAP item.
 """
 
@@ -49,8 +50,11 @@ import pytest
 import torch
 
 jnp = pytest.importorskip("jax.numpy")
-# one torch thread, as the port's other parity files pin it (ROADMAP queue
-# 3 item 1, tests/test_torch_cpu_threads.py)
+# one torch thread, for time: under pytest-xdist torch's threads spin
+# on the cores the other workers use (this file and nine like it took
+# over 4x as long under -n 6 without the pin; the CPU-thread fault it
+# once guarded is repaired, ROADMAP queue 3 item 1); so the CLI processes
+# it starts run with OMP_NUM_THREADS=1
 torch.set_num_threads(1)
 
 import chip_smoke  # noqa: E402
@@ -193,12 +197,30 @@ LJ_CASES = {"dense_every20": (5, EVERY20), "dense_check": (5, CHECK),
             "cells_every20": (11, EVERY20), "cells_check": (11, CHECK)}
 
 
+@pytest.fixture(scope="module")
+def jax_lj(tmp_path_factory):
+    """JAX's float64 run of lj_text(schedule) at `side` cells, once per
+    module: jax_lj(side, schedule)."""
+    done = {}
+
+    def get(side, schedule):
+        if (side, schedule) not in done:
+            d = tmp_path_factory.mktemp("jax_lj")
+            done[side, schedule] = _run("jax", lj_text(schedule), d,
+                                        variables=lj_side(side))[0]
+        return done[side, schedule]
+
+    return get
+
+
 @pytest.mark.parametrize("name", list(LJ_CASES))
-def test_lj_bench_rows_match_jax(tmp_path, name):
+def test_lj_bench_rows_match_jax(jax_lj, tmp_path, name):
     from lidp_tpu_torch.forcefield import pair_route
 
     side, schedule = LJ_CASES[name]
-    js, ts = _both(lj_text(schedule), tmp_path, variables=lj_side(side))
+    js = jax_lj(side, schedule)
+    ts = _run("torch", lj_text(schedule), tmp_path,
+              variables=lj_side(side))[0]
     assert ts._sim.natoms == js._sim.natoms == 4 * side ** 3
     jr, tr = js._sim.runner, ts._sim.runner
     assert _cfg(tr.neighbor_cfg) == _cfg(jr.neighbor_cfg)
@@ -216,15 +238,16 @@ def test_lj_bench_rows_match_jax(tmp_path, name):
     _state_close(ts, js)
 
 
-def test_lj_bench_float32_takes_the_lj_kernel_route(tmp_path):
+def test_lj_bench_float32_takes_the_lj_kernel_route(jax_lj, tmp_path):
     """--f32 on the cell grid: the pair route of the kernel's gate (its
-    plain twin on the CPU); rows at rel 1e-5 of JAX's float64 rows.  (JAX's
-    own float32 rows are no reference at that bar: its plain cell pass
-    sums the float32 pair energies to 1.4e-4 of E_pair at step 0, where
-    the port's sum, like the reference log, is within 2e-7.)"""
+    plain twin on the CPU); rows at rel 1e-5 of JAX's float64 rows (the
+    cells_every20 case's run).  (JAX's own float32 rows are no reference
+    at that bar: its plain cell pass sums the float32 pair energies to
+    1.4e-4 of E_pair at step 0, where the port's sum, like the reference
+    log, is within 2e-7.)"""
     from lidp_tpu_torch.forcefield import pair_route
 
-    js = _run("jax", lj_text(), tmp_path, variables=lj_side(11))[0]
+    js = jax_lj(11, EVERY20)
     ts = _run("torch", lj_text(), tmp_path, variables=lj_side(11),
               dtype64=False)[0]
     assert ts._sim.sys.x.dtype == torch.float32
@@ -455,29 +478,34 @@ def _cli_cases():
 
 @pytest.mark.parametrize("name", ["in.lj", "in.melt", "in.fluid"])
 def test_clis_agree(fluid_dir, tmp_path, name):
-    """Both CLIs on the input as a user runs it, logged at 16 digits."""
+    """The port's CLI on the input as a user runs it, logged at 16 digits,
+    against the JAX package's script engine on the same input (what
+    `python -m lidp_tpu` runs) in this process."""
     text, args = _cli_cases()[name]
     text = text.replace("run", "thermo_modify format float %.16g\nrun", 1)
     d = fluid_dir if name == "in.fluid" else tmp_path
     (d / f"{name}.16").write_text(text)
-    env = dict(os.environ, JAX_PLATFORMS="cpu", OMP_NUM_THREADS="1",
+    env = dict(os.environ, OMP_NUM_THREADS="1",
                PYTHONPATH=os.pathsep.join(filter(None, (
                    str(ROOT), os.environ.get("PYTHONPATH")))))
     for k in ("LIDP_FAST_POLAR", "LIDP_FAST_POLAR_MODE"):
         env.pop(k, None)
-    for pkg, extra in (("lidp_tpu", []),
-                       ("lidp_tpu_torch", ["-device", "cpu"])):
-        res = subprocess.run(
-            [sys.executable, "-m", pkg, "-in", f"{name}.16", "-log",
-             str(tmp_path / f"log.{pkg}"), *args, *extra], cwd=d, env=env,
-            capture_output=True, text=True, timeout=600)
-        assert res.returncode == 0, res.stderr[-3000:]
-    jr = chip_smoke.log_rows(
-        (tmp_path / "log.lidp_tpu").read_text().splitlines())
+    res = subprocess.run(
+        [sys.executable, "-m", "lidp_tpu_torch", "-in", f"{name}.16",
+         "-log", str(tmp_path / "log.torch"), *args, "-device", "cpu"],
+        cwd=d, env=env, capture_output=True, text=True, timeout=600)
+    assert res.returncode == 0, res.stderr[-3000:]
     tr = chip_smoke.log_rows(
-        (tmp_path / "log.lidp_tpu_torch").read_text().splitlines())
+        (tmp_path / "log.torch").read_text().splitlines())
+    jd = d
+    if d == tmp_path:
+        # its own directory: in.melt writes dump.melt
+        jd = tmp_path / "jax"
+        jd.mkdir()
+    jr = _run("jax", text, jd, variables=dict(zip(args[1::3], args[2::3])))[
+        0].thermo_rows
     assert len(jr) == len(tr) > 1
-    cols = [c for c in jr[0] if c != "step"]
+    cols = [c for c in tr[0] if c != "step"]
     chip_smoke.rows_agree(name, tr, jr, [ROWS] * len(jr), cols=cols)
 
 
