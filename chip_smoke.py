@@ -314,15 +314,39 @@ Phases, each raising on failure:
         temp/rescale, temp/csld and langevin on three groups, float64, 10
         steps: rows 0-2 against the CPU twin at rel 1e-9; threefry's bits
         and uniforms of one key equal on the card and the CPU;
- 10. the CPU twins (CPU_TWIN: the same script through the port on the CPU
+ 10. bench/in.eam and the setfl styles from a LAMMPS script (eam_paths),
+     the potentials written by eam_funcfl_case and eam_setfl_case from
+     closed forms (Cu_u3.eam is not in the repo), each path printing its
+     route (pair_route: the plain EAM passes of ops/eam.py), the cell
+     grid, its steps/s by its Loop time line and its peak device memory,
+     no launch, rows finite:
+     X. EAM_SCRIPT (bench/in.eam verbatim but for the potential's name:
+        32,000 atoms, pair_style eam, run 100) through the CLI's main()
+        with --f32: step 0's Temp 1600 within float32's rounding (rel
+        1e-6); then the same input in float32 over X_PHASE_STEPS steps,
+        the ms a step of the EAM term, its embedding and its force pass by
+        CUDA events (the density pass the rest);
+     X64. the same input in float64 through LammpsScript, a row each step,
+        20 steps: step 0's Temp 1600 at rel 1e-9 (loop geom's RanPark
+        draws are bit-exact), X's step 0 within rel 2e-4 of X64's (U's bar
+        against U64), TotEng within EAM_CONSERVE (2e-4) relative of step
+        0's at every step (JAX's tests/test_eam_bench.py bar); rows 0-2
+        against the CPU twin at rel 1e-9 of max(1, |value|);
+     Y. eam_alloy_script: pair_style eam/alloy on X's lattice with each
+        atom made type 2 (the lighter metal) by `set type 1 type/fraction
+        2 0.5 4987`, float64, 10 steps, rows 0-2 against the CPU twin;
+     Z. the same under eam/fs (eam_setfl_case(fs=True)) at 4,000 atoms
+        (Z_SCALE: a 10^3 region), float64, 10 steps, against the CPU twin;
+ 11. the CPU twins (CPU_TWIN: the same script through the port on the CPU
      in float64, in a process of its own) of J, K, O, R, R-pppm, Q64, S,
-     T, U64, V and W, after every path on the card, so that no timed path
-     shares the host's cores with them (run_twins: as many at once as the
-     cores take, the longest first);
- 11. one JSON line {"kernels": [...]} with each of the ten kernels'
+     T, U64, V, W, X64, Y and Z, after every path on the card, so that no
+     timed path shares the host's cores with them (run_twins: as many at
+     once as the cores take, the longest first);
+ 12. one JSON line {"kernels": [...]} with each of the ten kernels'
      launches (summed and by path, A-K, E-E4, L, L64, M, N, N-pol, O, R,
-     R-pppm, Q, Q64, P, P100, S, T, U, U64, V, W), times, ms_queued and
-     bound, then the nvidia-smi line, then the device line last.
+     R-pppm, Q, Q64, P, P100, S, T, U, U64, V, W, X, X64, Y, Z), times,
+     ms_queued and bound, then the nvidia-smi line, then the device line
+     last.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.
@@ -2000,6 +2024,163 @@ def chain_script_case(directory, n_chains=320, n_beads=100, seed=0):
     with open(script, "w") as fh:
         fh.write(CHAIN_SCRIPT)
     return data, script
+
+
+# LAMMPS' bench/in.eam, verbatim but for the potential file: pair_coeff
+# names the synthetic funcfl file eam_funcfl_case writes (paths X, X64)
+EAM_FILE = "Cu_synth.eam"
+EAM_SCRIPT = """\
+# bulk Cu lattice
+
+variable\tx index 1
+variable\ty index 1
+variable\tz index 1
+
+variable\txx equal 20*$x
+variable\tyy equal 20*$y
+variable\tzz equal 20*$z
+
+units\t\tmetal
+atom_style\tatomic
+
+lattice\t\tfcc 3.615
+region\t\tbox block 0 ${xx} 0 ${yy} 0 ${zz}
+create_box\t1 box
+create_atoms\t1 box
+
+pair_style\team
+pair_coeff\t1 1 Cu_synth.eam
+
+velocity\tall create 1600.0 376847 loop geom
+
+neighbor\t1.0 bin
+neigh_modify    every 1 delay 5 check yes
+
+fix\t\t1 all nve
+
+timestep\t0.005
+thermo\t\t50
+
+run\t\t100
+"""
+# the synthetic potentials' tables (eam_funcfl_case, eam_setfl_case):
+# Cu_u3.eam's grid (nr = nrho = 500, dr 0.01 A, cut 4.95 A) and a drho
+# that puts the lattice's density (~12.7) a third of the way up the table
+EAM_NR, EAM_DR, EAM_CUT = 500, 0.01, 4.95
+EAM_NRHO, EAM_DRHO = 500, 0.08
+# r_e, the nearest-neighbour distance of fcc at a = 3.615 A, and the start
+# of the quintic switch that takes each r-function, its slope and its
+# curvature to 0 at the cut
+EAM_RE = 3.615 / math.sqrt(2.0)
+EAM_RS = 4.0
+# per element: name, atomic number, mass, lattice constant, and the closed
+# forms' constants: rho(r) = fe exp(-beta (r/r_e - 1)) s(r), Z(r) = Z0
+# exp(-alpha (r/r_e - 1)) s(r), F(rho) = -A sqrt(rho) + B rho^2.  Cu's
+# lattice at 3.615 A is bound (-3.5625 eV an atom) and lower than at 3.50
+# and at 3.75 A (tests/test_torch_eam.py holds both); the second, lighter
+# metal is less bound
+EAM_ELEMENTS = (
+    dict(name="Cu", z=29, mass=63.55, a0=3.615, beta=5.0, alpha=2.5,
+         z0=0.25, fe=1.0, A=1.66, B=0.0013),
+    dict(name="Al", z=13, mass=26.98, a0=4.05, beta=5.0, alpha=2.5,
+         z0=0.20, fe=0.8, A=1.2, B=0.002))
+# eam/fs: the density amplitude of element i toward element j (rhor[i][j]
+# of pair_eam_fs.cpp), asymmetric so that the table j -> i is not i -> j
+EAM_FS_FE = ((1.0, 0.9), (0.7, 0.8))
+
+
+def _eam_switch(r):
+    import numpy as np
+
+    t = np.clip((r - EAM_RS) / (EAM_CUT - EAM_RS), 0.0, 1.0)
+    return 1.0 - t ** 3 * (10.0 - 15.0 * t + 6.0 * t * t)
+
+
+def _eam_forms(el, fe=None):
+    """An element's tabulated F(rho), Z(r) and rho(r) (amplitude `fe`,
+    the element's own by default) on the tables' grids."""
+    import numpy as np
+
+    r = np.arange(EAM_NR) * EAM_DR
+    rho = np.arange(EAM_NRHO) * EAM_DRHO
+    s = _eam_switch(r)
+    f = -el["A"] * np.sqrt(rho) + el["B"] * rho * rho
+    z = el["z0"] * np.exp(-el["alpha"] * (r / EAM_RE - 1.0)) * s
+    dens = (el["fe"] if fe is None else fe) * np.exp(
+        -el["beta"] * (r / EAM_RE - 1.0)) * s
+    return f, z, dens
+
+
+def _eam_lines(values):
+    """Floats by repr, five a line, so that the file reads back bit for
+    bit."""
+    vals = [repr(float(v)) for v in values]
+    return [" ".join(vals[i:i + 5]) for i in range(0, len(vals), 5)]
+
+
+def eam_funcfl_case(directory):
+    """Write EAM_FILE, a single-element funcfl file in the form of LAMMPS'
+    Cu_u3.eam (a comment line, `29 63.55 3.615 FCC`, `nrho drho nr dr
+    cut`, then F(rho), Z(r) and rho(r)), tabulated from EAM_ELEMENTS[0]'s
+    closed forms, in place of Cu_u3.eam, which is not in the repo.
+    Returns its path."""
+    el = EAM_ELEMENTS[0]
+    f, z, dens = _eam_forms(el)
+    lines = ["synthetic Cu: closed-form rho, Z and F in Cu_u3.eam's form",
+             f"{el['z']} {el['mass']} {el['a0']} FCC",
+             f"{EAM_NRHO} {EAM_DRHO!r} {EAM_NR} {EAM_DR!r} {EAM_CUT!r}"]
+    for arr in (f, z, dens):
+        lines += _eam_lines(arr)
+    path = os.path.join(directory, EAM_FILE)
+    with open(path, "w") as fh:
+        fh.write("\n".join(lines) + "\n")
+    return path
+
+
+def eam_setfl_case(directory, fs=False):
+    """Write the two elements of EAM_ELEMENTS (Cu and a lighter metal) as
+    a setfl file (eam/alloy), or with fs=True its Finnis-Sinclair variant
+    (eam/fs: each element block carries a density function toward each
+    element, EAM_FS_FE's amplitudes).  The cross pair's r*phi is
+    27.2*0.529*Z_Cu(r)*Z_Al(r), unlike either element's own.  Returns its
+    path."""
+    els = EAM_ELEMENTS
+    forms = [_eam_forms(el) for el in els]
+    lines = ["synthetic Cu-Al: closed-form tables", "#", "#",
+             f"{len(els)} " + " ".join(el["name"] for el in els),
+             f"{EAM_NRHO} {EAM_DRHO!r} {EAM_NR} {EAM_DR!r} {EAM_CUT!r}"]
+    for i, el in enumerate(els):
+        lines.append(f"{el['z']} {el['mass']} {el['a0']} fcc")
+        lines += _eam_lines(forms[i][0])
+        if fs:
+            for j in range(len(els)):
+                lines += _eam_lines(_eam_forms(el, EAM_FS_FE[i][j])[2])
+        else:
+            lines += _eam_lines(forms[i][2])
+    for i in range(len(els)):
+        for j in range(i + 1):
+            lines += _eam_lines(27.2 * 0.529 * forms[i][1] * forms[j][1])
+    path = os.path.join(directory, "CuAl_synth.eam." + ("fs" if fs
+                                                        else "alloy"))
+    with open(path, "w") as fh:
+        fh.write("\n".join(lines) + "\n")
+    return path
+
+
+def eam_alloy_script(fs=False):
+    """EAM_SCRIPT with two atom types: pair_style eam/alloy (or eam/fs) on
+    eam_setfl_case's file, `pair_coeff * * <file> Cu Al`, and each atom
+    made type 2 with probability 0.5 by `set type 1 type/fraction` (a
+    RanPark draw per atom from the seed 4987 and its coordinates) before
+    the velocities are drawn (paths Y and Z)."""
+    style = "eam/fs" if fs else "eam/alloy"
+    name = "CuAl_synth.eam." + ("fs" if fs else "alloy")
+    return EAM_SCRIPT.replace("create_box\t1 box", "create_box\t2 box") \
+        .replace("create_atoms\t1 box\n",
+                 "create_atoms\t1 box\nset\t\ttype 1 type/fraction 2 0.5 "
+                 "4987\n") \
+        .replace(f"pair_style\team\npair_coeff\t1 1 {EAM_FILE}",
+                 f"pair_style\t{style}\npair_coeff\t* * {name} Cu Al")
 
 
 FLUID_SCRIPT = """\
@@ -4380,6 +4561,181 @@ def modifier_paths(launches, reset_counts, read_counts):
     stream_on_both_devices()
 
 
+# paths X, X64, Y and Z: bench/in.eam (EAM_SCRIPT on eam_funcfl_case)
+# and the setfl styles on eam_setfl_case
+X_STEPS = 100                  # in.eam's own run
+X_PHASE_STEPS = 20             # the steps X's phases are timed over
+X64_STEPS = 20                 # X64, a row each step
+YZ_STEPS = 10                  # Y and Z, a row each step
+EAM_TWIN_STEPS = 2             # their CPU twins' steps: rows 0-2 compared
+EAM_CONSERVE = 2e-4            # X64's TotEng bar (tests/test_eam_bench.py)
+# the phases timed on X (DensePhases): the whole EAM term, the embedding
+# and the force pass; the density pass is the rest of the whole
+EAM_PHASES = (("eam", "eam", "eam_cell_forces"),
+              ("embedding", "eam", "_embedding"),
+              ("force pass", "eam", "_force_pass"))
+# Z's region: in.eam's 20^3 scaled to 10^3 (4,000 atoms) by its index
+# variables x, y and z, written into the script so that its CPU twin
+# runs the same size
+Z_SCALE = "0.5"
+
+
+def eam_text(text, every, run, scale="1"):
+    """An EAM script with a row every `every` steps, `run <run>` and its
+    region scaled by `scale` (its x, y, z index variables)."""
+    return text.replace("thermo\t\t50", f"thermo {every}").replace(
+        "run\t\t100", f"run {run}").replace("index 1\n",
+                                            f"index {scale}\n")
+
+
+def eam_script_run(path, work, name, text, steps):
+    """`text` (written to work/name, its `run ${nstep}`) through
+    LammpsScript in float64 on the card for `steps` steps: (script, log
+    lines, peak memory)."""
+    import torch
+
+    from lidp_tpu_torch.io.script import LammpsScript
+
+    with open(os.path.join(work, name), "w") as fh:
+        fh.write(text)
+    logs = []
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    script = LammpsScript(dtype=torch.float64, log=logs.append)
+    script.variables["nstep"] = str(steps)
+    script.file(os.path.join(work, name))
+    peak = torch.cuda.max_memory_allocated()
+    print(f"path {path}: {script._sim.natoms} atoms, float64, {steps} "
+          f"steps: {script_route(script)}; its log:")
+    for line in logs:
+        print(f"  {path}| {line}")
+    check_rows_finite(path, script.thermo_rows, CHAIN_COLS)
+    script_peak(path, logs, steps, peak)
+    return script, logs, peak
+
+
+def check_eam_route(path, script, route):
+    from lidp_tpu_torch.forcefield import pair_route
+
+    sim = script._sim
+    got = pair_route(sim.sys, sim.runner.ff, sim.nlist.nlist)
+    if got != route or sim.runner.ff.pair is not None \
+            or bool(sim.nlist.overflow):
+        raise AssertionError(f"path {path}: {script_route(script)}")
+
+
+def eam_paths(launches, reset_counts, read_counts):
+    """Paths X, X64, Y and Z: bench/in.eam and the setfl styles from a
+    LAMMPS script (module docstring).  Each sets launches[path]."""
+    import torch
+
+    from lidp_tpu_torch.__main__ import main as cli
+    from lidp_tpu_torch.io.script import LammpsScript
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_eam_")
+    try:
+        eam_funcfl_case(work)
+        eam_setfl_case(work)
+        eam_setfl_case(work, fs=True)
+        in_x = os.path.join(work, "in.eam")
+        with open(in_x, "w") as fh:
+            fh.write(EAM_SCRIPT)
+        # path X: as published, through the CLI's main() in this process
+        log_x = os.path.join(work, "log.eam")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        cli(["-in", in_x, "-log", log_x, "--f32"])
+        launches["X"] = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        check_counts("X", launches["X"], {})
+        with open(log_x) as fh:
+            logX = fh.read().splitlines()
+        rowsX = log_rows(logX)
+        print(f"path X: `python -m lidp_tpu_torch -in in.eam --f32` "
+              f"(bench/in.eam verbatim but for the potential, "
+              f"{EAM_FILE} from eam_funcfl_case), {len(rowsX)} rows:")
+        for line in logX:
+            print(f"  X| {line}")
+        if [int(r["step"]) for r in rowsX] != [0, 50, X_STEPS]:
+            raise AssertionError(f"path X: rows {rowsX}")
+        check_rows_finite("X", rowsX, CHAIN_COLS)
+        # loop geom draws bit-exact RanPark velocities on the host: Temp
+        # 1600 at step 0, to float32's rounding here (path L's bar for
+        # in.lj's temp) and at rel 1e-9 in X64
+        check_rel("X step 0 temp", rowsX[0]["temp"], 1600.0, 1e-6)
+        script_peak("X", logX, X_STEPS, peak)
+
+        # X's phases: the same input in float32, set up, then timed steps
+        with open(os.path.join(work, "in.x0"), "w") as fh:
+            fh.write(eam_text(EAM_SCRIPT, 50, 0))
+        script = LammpsScript(dtype=torch.float32, log=lambda line: None)
+        script.file(os.path.join(work, "in.x0"))
+        sim = script._sim
+        check_eam_route("X", script, "eam_cell_forces")
+        print(f"path X: {sim.natoms} atoms, float32: {script_route(script)}")
+        ms = fix_phases(sim, EAM_PHASES, X_PHASE_STEPS)
+        ms["density pass"] = ms["eam"] - ms["embedding"] - ms["force pass"]
+        print(f"path X phases, ms a step by CUDA events over "
+              f"{X_PHASE_STEPS} more steps: the EAM term {ms['eam']:.4f} "
+              f"(density pass {ms['density pass']:.4f}, embedding "
+              f"{ms['embedding']:.4f}, force pass {ms['force pass']:.4f}; "
+              f"the density pass is the term less the other two); "
+              f"{smi_line()}")
+        del script, sim
+        torch.cuda.empty_cache()
+
+        # path X64: float64, a row each step
+        reset_counts()
+        script, logs, _ = eam_script_run(
+            "X64", work, "in.x64", eam_text(EAM_SCRIPT, 1, "${nstep}"),
+            X64_STEPS)
+        launches["X64"] = read_counts()
+        check_counts("X64", launches["X64"], {})
+        check_eam_route("X64", script, "eam_cell_forces")
+        rows = script.thermo_rows
+        check_rel("X64 step 0 temp", rows[0]["temp"], 1600.0, 1e-9)
+        worst = rows_agree("X step 0 vs X64", rowsX[:1], rows[:1], [2e-4],
+                           CHAIN_COLS)
+        print(f"path X step 0 (float32) vs X64's: {worst:.3g} of the bar "
+              "(rel 2e-4 of max(1, |value|))")
+        e0 = rows[0]["etotal"]
+        drift = max(abs(r["etotal"] - e0) for r in rows) / abs(e0)
+        print(f"path X64: TotEng within {drift:.3e} of step 0's, relative, "
+              f"over {X64_STEPS} steps (bar {EAM_CONSERVE:g})")
+        if not drift < EAM_CONSERVE:
+            raise AssertionError(f"path X64: TotEng drift {drift}")
+        defer_twin("X64", work, "in.x64", EAM_TWIN_STEPS,
+                   twin_check("X64", (rows, None), CHAIN_COLS), threads=2,
+                   cost=80.0)
+        del script
+        torch.cuda.empty_cache()
+
+        # paths Y and Z: eam/alloy at X's size, eam/fs at 4,000 atoms
+        for path, fs, scale in (("Y", False, "1"), ("Z", True, Z_SCALE)):
+            reset_counts()
+            script, _, _ = eam_script_run(
+                path, work, f"in.{path}",
+                eam_text(eam_alloy_script(fs=fs), 1, "${nstep}", scale),
+                YZ_STEPS)
+            launches[path] = read_counts()
+            check_counts(path, launches[path], {})
+            check_eam_route(path, script, "eam_alloy_cell_forces")
+            types = script._sim.sys.type
+            print(f"path {path}: {int((types == 2).sum())} of "
+                  f"{script._sim.natoms} atoms of type 2 (Al) by `set "
+                  f"type/fraction`")
+            defer_twin(path, work, f"in.{path}", EAM_TWIN_STEPS,
+                       twin_check(path, (script.thermo_rows, None),
+                                  CHAIN_COLS),
+                       threads=2 if path == "Y" else 1,
+                       cost=100.0 if path == "Y" else 10.0)
+            del script
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -5205,6 +5561,7 @@ def main() -> int:
     flexible_paths(launches, reset_counts, read_counts)
     chain_paths(launches, reset_counts, read_counts)
     modifier_paths(launches, reset_counts, read_counts)
+    eam_paths(launches, reset_counts, read_counts)
     run_twins()
 
     # 6. results

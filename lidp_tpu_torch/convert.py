@@ -293,3 +293,29 @@ def bonded_from_numpy(cls, d: dict, device="cuda", dtype=torch.float64):
         if k in kw:
             kw[k] = float(kw[k])
     return cls(**kw)
+
+
+def eam_from_numpy(d: dict, device="cuda"):
+    """The port's ops.eam EAMParams (funcfl) or EAMAlloyParams (setfl,
+    where `d` has seg_rho) from a numpy copy of the JAX one: the tables
+    and the 0-d scalars (cut, cutsq, drho, rhomax) as tensors in the
+    tables' dtype, type2elem as int64, the static fields as Python
+    scalars."""
+    from lidp_tpu_torch import resolve_device
+    from lidp_tpu_torch.ops.eam import EAMAlloyParams, EAMParams
+
+    device = resolve_device(device)
+    cls = EAMAlloyParams if _given(d, "seg_rho") is not None else EAMParams
+    tab = np.asarray(d["frho_spline"])
+    kw = {}
+    for fld in dataclasses.fields(cls):
+        a = np.array(d[fld.name])
+        if fld.name == "type2elem":
+            kw[fld.name] = torch.as_tensor(a, dtype=torch.long,
+                                           device=device)
+        elif fld.type in ("int", "bool"):
+            kw[fld.name] = _scalar(a)
+        else:
+            kw[fld.name] = torch.as_tensor(a, dtype=_np_dtype(tab),
+                                           device=device)
+    return cls(**kw)

@@ -10,8 +10,11 @@ under a barostat, or PPPM, which reads the live box at every call) and
 the polarization term on (N,N) tensors.  The bonded terms (bond, angle,
 dihedral with the CHARMM weighted 1-4 term into E_vdwl and E_coul, and
 improper; ops/bonded.py) come after the pair term on either route, as in
-the JAX package.  Neighbour lists (ROADMAP queue 1 item 5) and the other
-k-space styles (item 6) raise NotImplementedError.
+the JAX package.  The many-body EAM term (pair_style eam, eam/alloy,
+eam/fs; ops/eam.py) takes the pair term's place on a `Cells` grid, with
+`pair` None; the dense route raises for it, as the JAX package's does.
+Neighbour lists (ROADMAP queue 1 item 5) and the other k-space styles
+(item 6) raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -29,7 +32,8 @@ from lidp_tpu_torch.ops.pppm import PPPMParams
 
 @dataclasses.dataclass(frozen=True)
 class ForceField:
-    pair: PairParams
+    # None under EAM (the JAX package's ForceField(pair=None, eam=...))
+    pair: Optional[PairParams]
     ewald: Optional[EwaldParams] = None
     polar: Optional[PolarizationSettings] = None
     qqrd2e: float = 1.0
@@ -63,6 +67,9 @@ class ForceField:
     angle: tuple = ()
     dihedral: tuple = ()
     improper: tuple = ()
+    # pair_style eam / eam/alloy / eam/fs: an ops.eam EAMParams or
+    # EAMAlloyParams, evaluated on the cell grid in place of the pair term
+    eam: Optional[object] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -158,13 +165,19 @@ def bonded_terms(sys, ff: ForceField, f, evdwl, ecoul, virial):
 def pair_route(sys, ff, cells) -> str:
     """Which function compute_forces evaluates the pair term with on this
     grid: "cell_pair_forces_lj" (the CUDA kernel on a GPU) or
-    "cell_pair_forces" (plain PyTorch, on a GPU too).  The kernel's gate is
+    "cell_pair_forces" (plain PyTorch, on a GPU too); under EAM
+    "eam_cell_forces" or "eam_alloy_cell_forces" (ops/eam.py, plain
+    PyTorch).  The kernel's gate is
     the JAX package's _pallas_ok without its backend test: lj/cut alone, one
     atom type, no special lists, float32, an orthogonal fully periodic box,
     at least 3 bins in every dimension, and no neigh_modify exclusion.  A
     benchmark asks here which route its times are of."""
     from lidp_tpu_torch.ops.cell_kernels import supported
+    from lidp_tpu_torch.ops.eam import EAMAlloyParams
 
+    if ff.eam is not None:
+        return ("eam_alloy_cell_forces" if isinstance(ff.eam, EAMAlloyParams)
+                else "eam_cell_forces")
     p = ff.pair
     ok = (supported(p, p.lj3.shape[0] - 1 > 1, p.coul)
           and p.excl is None and not p.excl_mol
@@ -187,13 +200,15 @@ def compute_forces(sys, ff: ForceField, nlist=None,
     (ops/cell_kernels.cell_pair_forces_lj), every other case (float64,
     several types, coulomb, special lists, an open face, a dimension of
     one bin) to the plain roll kernel ops/cells.cell_pair_forces, on the
-    GPU too; `pair_route` names the one taken.
+    GPU too; EAM to ops/eam.py's two passes; `pair_route` names the one
+    taken.
     need_ev=False skips the cell pair term's energy and virial sums (zeros
     are returned for them); the correction, the Ewald sum and the
     polarization term compute theirs always, as in the JAX package."""
     from lidp_tpu_torch.ops.bonded import special_correction_sparse
     from lidp_tpu_torch.ops.cell_kernels import cell_pair_forces_lj
     from lidp_tpu_torch.ops.cells import Cells, cell_pair_forces
+    from lidp_tpu_torch.ops.eam import eam_alloy_cell_forces, eam_cell_forces
 
     if nlist is None:
         return dense_forces(sys, ff)
@@ -201,7 +216,17 @@ def compute_forces(sys, ff: ForceField, nlist=None,
         raise NotImplementedError(
             "neighbour lists are not ported (ops/neighbor.py; ROADMAP "
             "queue 1 item 5, neighbour lists)")
-    if pair_route(sys, ff, nlist) == "cell_pair_forces_lj":
+    route = pair_route(sys, ff, nlist)
+    if route == "eam_alloy_cell_forces":
+        f, ev, vir = eam_alloy_cell_forces(
+            sys.x, sys.type, sys.mask, nlist, sys.box, ff.eam,
+            need_ev=need_ev)
+        ec = ev.new_zeros(())
+    elif route == "eam_cell_forces":
+        f, ev, vir = eam_cell_forces(sys.x, sys.mask, nlist, sys.box, ff.eam,
+                                     need_ev=need_ev)
+        ec = ev.new_zeros(())
+    elif route == "cell_pair_forces_lj":
         f, ev, ec, vir = cell_pair_forces_lj(
             sys.x, sys.mask, nlist, sys.box, ff.pair, need_ev=need_ev)
     else:
@@ -227,6 +252,8 @@ def dense_forces(sys, ff: ForceField) -> ForceResult:
     (N,N) tensors: no kernel of ops/panel.py runs here."""
     from lidp_tpu_torch.ops import pair as pair_ops
 
+    if ff.eam is not None:
+        raise NotImplementedError("pair_style eam requires the cell path")
     x = sys.x
     zero = x.new_zeros(())
     f = torch.zeros_like(x)

@@ -21,8 +21,9 @@ molecules of examples/peptide and bench/in.rhodo (the bond, angle,
 dihedral and improper styles with their coeff commands and data-file
 sections, special_bonds charmm|amber|fene, the lj/charmm pair styles with
 the four-argument pair_coeff, fix shake and fix rattle), bench/in.chain
-(atom_style bond, fix langevin) and the modifier fixes of
-styles/fix_modifiers.py;
+(atom_style bond, fix langevin), the modifier fixes of
+styles/fix_modifiers.py, and bench/in.eam (pair_style eam, eam/alloy and
+eam/fs with their potential files; set type/fraction);
 every other command, style or keyword raises NotImplementedError naming
 itself and the ROADMAP item that ports it, and is never ignored.
 """
@@ -63,6 +64,9 @@ THERMO_KEYWORDS = frozenset((
 # pair styles Simulation.from_script builds
 PAIR_STYLES = ("lj/cut", "lj/cut/coul/long", "lj/cut/coul/long/polarization",
                "lj/charmm/coul/long", "lj/charmm/coul/charmm")
+# the many-body styles (ops/eam.py): the cutoff comes from the potential
+# file that pair_coeff names
+EAM_STYLES = ("eam", "eam/alloy", "eam/fs")
 # the CHARMM pair styles the JAX package runs and the port does not
 CHARMM_UNPORTED = ("lj/charmm/coul/charmm/implicit", "lj/charmm/coul/msm",
                    "lj/charmmfsw/coul/long", "lj/charmmfsw/coul/charmmfsh")
@@ -239,6 +243,10 @@ class LammpsScript:
         self.pair_coeffs: dict[tuple, tuple] = {}
         # the CHARMM styles' (eps14, sigma14) by type pair
         self.pair_coeffs14: dict[tuple, tuple] = {}
+        # the EAM styles' potential file and, for eam/alloy and eam/fs,
+        # the element name (None for NULL) of each type
+        self.eam_file: Optional[str] = None
+        self.eam_type_elems: Optional[list] = None
         self.kspace: Optional[tuple] = None      # (style, accuracy)
         # index 0 = factor for non-special pairs, always 1.0
         self.special_lj = [1.0, 0.0, 0.0, 0.0]
@@ -858,6 +866,19 @@ class LammpsScript:
         elif a[2] == "mol":
             self.mol = np.where(self._set_selector(a[0], a[1]), int(a[3]),
                                 self.mol)
+        elif a[2] == "type/fraction":
+            # set type|group X type/fraction newtype frac seed (set.cpp
+            # :947): a RanPark stream per atom, reset from the seed and its
+            # coordinates, one uniform; <= frac switches the type
+            from lidp_tpu_torch.rng import park_geom_streams
+
+            if a[0] not in ("type", "group"):
+                _unported(f"set selector {a[0]} with type/fraction",
+                          _BREADTH)
+            newtype, frac, seed = int(a[3]), float(a[4]), int(a[5])
+            hit = self._set_selector(a[0], a[1]) & (
+                park_geom_streams(seed, self.x).uniform() <= frac)
+            self.type = np.where(hit, newtype, self.type).astype(np.int32)
         else:
             _unported(f"set {' '.join(a)}", _BREADTH)
 
@@ -886,16 +907,24 @@ class LammpsScript:
         lj/cut/coul/long/polarization CUT [CUT_COUL] [keywords] |
         lj/charmm/coul/long INNER OUTER [CUT_COUL] | lj/charmm/coul/charmm
         INNER OUTER [INNER_COUL OUTER_COUL] (the CHARMM styles mix
-        arithmetically, as the JAX package sets them)."""
+        arithmetically, as the JAX package sets them) | eam | eam/alloy |
+        eam/fs."""
         self._invalidate()
         self.pair_coeffs = {}
         self.pair_coeffs14 = {}
         if a[0] in CHARMM_UNPORTED:
             _unported(f"pair_style {a[0]} (the JAX package runs it)",
                       _BREADTH)
-        if a[0] not in PAIR_STYLES:
+        if a[0] not in PAIR_STYLES + EAM_STYLES:
             _unported(f"pair_style {a[0]}", _BREADTH)
         p = PairStyleSpec(name=a[0])
+        if a[0] in EAM_STYLES:
+            # no settings: the cutoff is the potential file's
+            # (PairEAM::settings, pair_eam.cpp)
+            if len(a) > 1:
+                raise ValueError("Illegal pair_style command")
+            self.pair = p
+            return
         p.cut_lj_global = float(a[1])
         if a[0] == "lj/charmm/coul/long":
             # inner outer [coul-outer] (pair_lj_charmm_coul_long.cpp
@@ -973,6 +1002,9 @@ class LammpsScript:
 
     def cmd_pair_coeff(self, a):
         self._invalidate()
+        if self.pair.name in EAM_STYLES:
+            self._eam_coeff(a)
+            return
         if a[0] == "*" or a[1] == "*":
             # pair_coeff * * ... — wildcard ranges (Force::bounds)
             ii = range(1, self.ntypes + 1) if a[0] == "*" else [int(a[0])]
@@ -995,6 +1027,44 @@ class LammpsScript:
             return
         cut = float(a[4]) if len(a) > 4 else self.pair.cut_lj_global
         self.pair_coeffs[(min(i, j), max(i, j))] = (eps, sig, cut)
+
+    def _eam_coeff(self, a):
+        """pair_coeff of the EAM styles (the JAX package's script.py
+        :1430-1466).  eam: `I J file`, a funcfl file, whose header's mass
+        every type without a `mass` takes (pair_eam.cpp coeff/read_file).
+        eam/alloy, eam/fs: `* * file El1 ... ElN`, a setfl file and one
+        element name or NULL per type (pair_eam_alloy.cpp::coeff,
+        pair_eam_fs.cpp::coeff), each named type without a mass taking its
+        element's."""
+        from lidp_tpu_torch.ops.eam import read_funcfl, read_setfl
+
+        name = self.pair.name
+        if self.mass_type is None:
+            self.mass_type = np.zeros(self.ntypes + 1)
+        if name == "eam":
+            self.eam_file = os.path.join(self.root, a[2])
+            mass = read_funcfl(self.eam_file)["mass"]
+            for t in range(1, self.ntypes + 1):
+                if self.mass_type[t] == 0.0:
+                    self.mass_type[t] = mass
+            return
+        if a[0] != "*" or a[1] != "*":
+            raise ValueError(f"{name} pair_coeff must be * *")
+        self.eam_file = os.path.join(self.root, a[2])
+        names = a[3:3 + self.ntypes]
+        if len(names) != self.ntypes:
+            raise ValueError(f"{name} needs {self.ntypes} element names, "
+                             f"got {len(names)}")
+        self.eam_type_elems = [None if e == "NULL" else e for e in names]
+        d = read_setfl(self.eam_file, fs=name == "eam/fs")
+        for t, elem in enumerate(self.eam_type_elems, start=1):
+            if elem is None:
+                continue
+            if elem not in d["names"]:
+                raise ValueError(f"element {elem} not found in "
+                                 f"{self.eam_file}: has {d['names']}")
+            if self.mass_type[t] == 0.0:
+                self.mass_type[t] = d["mass"][d["names"].index(elem)]
 
     # ------------------------------ bonded -------------------------------
 

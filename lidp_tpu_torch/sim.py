@@ -1,7 +1,8 @@
 """Simulation assembly: interpreter state -> a runnable system
 (lidp_tpu/sim.py, the routes of lj/cut, lj/cut/coul/long,
-lj/cut/coul/long/polarization, lj/charmm/coul/long and
-lj/charmm/coul/charmm, with the bonded terms and the modifier fixes).
+lj/cut/coul/long/polarization, lj/charmm/coul/long,
+lj/charmm/coul/charmm, eam, eam/alloy and eam/fs, with the bonded terms
+and the modifier fixes).
 
 The analog of the LAMMPS init phase (Run::command -> LAMMPS::init,
 run.cpp:38): the lj/cut or lj/cut/coul/long tables with geometric (or
@@ -41,7 +42,10 @@ It takes the route the JAX package takes:
   * the panel engine (FastPolarRunner through maybe_attach, the CUDA
     kernels) for the polar style above the cap or under
     LIDP_FAST_POLAR=1, with the System padded to the panel alignment and
-    the special lists.
+    the special lists;
+  * the EAM styles on the cell grid at every atom count (the file's
+    cutoff plus the skin; ForceField(pair=None, eam=...), ops/eam.py in
+    plain torch), orthogonal boxes only, as in the JAX package.
 Above the cap, a box under 3 cells of the largest cutoff plus the skin a
 side takes the JAX package's neighbour list, which is not ported (ROADMAP
 queue 1 item 5) and raises; only the polar style keeps the dense pass
@@ -65,9 +69,10 @@ from lidp_tpu_torch import topology as topo_mod
 from lidp_tpu_torch.box import Box
 from lidp_tpu_torch.forcefield import ForceField
 from lidp_tpu_torch.integrate.driver import Runner
-from lidp_tpu_torch.io.script import PAIR_STYLES
+from lidp_tpu_torch.io.script import EAM_STYLES, PAIR_STYLES
 from lidp_tpu_torch.ops import polarization as pol_ops
 from lidp_tpu_torch.ops.cells import CellConfig
+from lidp_tpu_torch.ops.eam import build_eam_alloy_params, build_eam_params
 from lidp_tpu_torch.ops.ewald import EwaldParams, setup_ewald_disp
 from lidp_tpu_torch.ops.pair import make_pair_params
 from lidp_tpu_torch.ops.pppm import PPPMParams, setup_pppm
@@ -96,10 +101,11 @@ _OVERFLOW = ("neighbor cell capacity overflow during run (Neighbor "
 
 def _cell_config(script, cut, n, coul):
     """The cell grid the JAX package runs the pair term on above the dense
-    cap (its sim.py:1798-1820): CellConfig.for_box at the largest cutoff
-    (of the coulomb term too) plus the skin, cap_slack 1.7; None where the
-    box is under 3 such cells a side and the JAX package takes a
-    neighbour list instead."""
+    cap, and EAM at every size (its sim.py:1798-1820): CellConfig.for_box
+    at the largest cutoff (of the coulomb term too; EAM's the potential
+    file's) plus the skin, cap_slack 1.7; None where the box is under 3
+    such cells a side and the JAX package takes a neighbour list
+    instead."""
     L = script.box_hi - script.box_lo
     cutmax = float(np.max(cut))
     if coul:
@@ -276,11 +282,19 @@ class Simulation:
         n = script.x.shape[0]
         dim_ = script.dimension
         name = script.pair.name
-        if name not in PAIR_STYLES:
+        if name not in PAIR_STYLES + EAM_STYLES:
             raise NotImplementedError(
                 f"pair_style {name or '(none)'}: the port's script engine "
-                f"runs {', '.join(PAIR_STYLES)} only (other pair styles: "
-                "ROADMAP queue 1 item 6, breadth)")
+                f"runs {', '.join(PAIR_STYLES + EAM_STYLES)} only (other "
+                "pair styles: ROADMAP queue 1 item 6, breadth)")
+        eam = name in EAM_STYLES
+        if eam and script.box_tilt is not None and any(
+                float(v) != 0.0 for v in script.box_tilt):
+            # the JAX package's message (its sim.py:1788-1790)
+            raise NotImplementedError(
+                "triclinic + eam: the EAM cell kernel is orthogonal-only")
+        if eam and script.eam_file is None:
+            raise ValueError("All pair coeffs are not set")
         polar = name.endswith("/polarization")
         coul = "coul" in name
         charmm = "charmm" in name
@@ -355,16 +369,27 @@ class Simulation:
                 g_ewald = es.g_ewald
                 ew = EwaldParams.from_setup(es, u.qqr2e, dtype=dtype,
                                             device=device)
-        pair = make_pair_params(
-            eps, sig, cut, cut_coul=script.pair.cut_coul if coul else 0.0,
-            qqrd2e=u.qqr2e, g_ewald=g_ewald, coul=coul,
-            special_lj=script.special_lj, special_coul=script.special_coul,
-            excl_types=excl_types, shift=script._pair_shift,
-            cut_lj_inner=script.pair.cut_lj_inner,
-            charmm=charmm, coul_kind="long" if coul_long else "charmm",
-            cut_coul_inner=script.pair.cut_coul_inner, dtype=dtype,
-            device=device)
-        if script.neigh_exclude_mol:
+        eamp = pair = None
+        if name == "eam":
+            eamp, _ = build_eam_params(script.eam_file, dtype=dtype,
+                                       device=device)
+        elif eam:
+            eamp, _ = build_eam_alloy_params(
+                script.eam_file, script.eam_type_elems, dtype=dtype,
+                device=device, fs=name == "eam/fs")
+        else:
+            pair = make_pair_params(
+                eps, sig, cut,
+                cut_coul=script.pair.cut_coul if coul else 0.0,
+                qqrd2e=u.qqr2e, g_ewald=g_ewald, coul=coul,
+                special_lj=script.special_lj,
+                special_coul=script.special_coul, excl_types=excl_types,
+                shift=script._pair_shift,
+                cut_lj_inner=script.pair.cut_lj_inner, charmm=charmm,
+                coul_kind="long" if coul_long else "charmm",
+                cut_coul_inner=script.pair.cut_coul_inner, dtype=dtype,
+                device=device)
+        if script.neigh_exclude_mol and pair is not None:
             pair = dataclasses.replace(pair, excl_mol=True)
         pol = polarization_settings(script.pair) if polar else None
         # a barostat moves the box: the Ewald tables follow it and the
@@ -382,7 +407,17 @@ class Simulation:
 
         # ---- neighbour strategy (the JAX package's sim.py:1785-1820) ----
         ncfg = None
-        if dense and above_cap:
+        if eam:
+            # the file's cutoff in the run's dtype, as the JAX package reads
+            # float(eamp.cut)
+            ncfg = _cell_config(script, float(eamp.cut), n, False)
+            if ncfg is None:
+                raise NotImplementedError(
+                    f"pair_style {name} in a box under 3 cells of the "
+                    f"potential's cutoff plus the skin ({script.skin:g}) a "
+                    "side: the JAX package takes a neighbour list here "
+                    "(ROADMAP queue 1 item 5, neighbour lists)")
+        elif dense and above_cap:
             ncfg = _cell_config(script, cut, n, coul)
             if ncfg is None and not polar:
                 raise NotImplementedError(
@@ -429,7 +464,8 @@ class Simulation:
             script, mass_atom)
         bonded = _bonded_params(script, dtype, device, u, eps, sig, cut,
                                 bond_keep, angle_keep)
-        ff = ForceField(pair=pair, ewald=ew, polar=pol, qqrd2e=u.qqr2e,
+        ff = ForceField(pair=pair, eam=eamp, ewald=ew, polar=pol,
+                        qqrd2e=u.qqr2e,
                         polar_xshift=polar_xshift, sp_code=sp_code,
                         sp_idx=sp_idx, sp_lvl=sp_lvl, pppm=pppm,
                         kspace_dynamic=has_baro and ew is not None,
