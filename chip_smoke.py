@@ -337,16 +337,47 @@ Phases, each raising on failure:
         2 0.5 4987`, float64, 10 steps, rows 0-2 against the CPU twin;
      Z. the same under eam/fs (eam_setfl_case(fs=True)) at 4,000 atoms
         (Z_SCALE: a 10^3 region), float64, 10 steps, against the CPU twin;
- 11. the CPU twins (CPU_TWIN: the same script through the port on the CPU
-     in float64, in a process of its own) of J, K, O, R, R-pppm, Q64, S,
-     T, U64, V, W, X64, Y and Z, after every path on the card, so that no
-     timed path shares the host's cores with them (run_twins: as many at
-     once as the cores take, the longest first);
- 12. one JSON line {"kernels": [...]} with each of the ten kernels'
+ 11. energy minimization and two dimensions from a LAMMPS script
+     (minimize_paths: integrate/minimize.py through minimize, min_style,
+     dimension 2, fix enforce2d, displace_atoms; the dense route, no
+     launch), each minimize command timed under MinimizeTimer (its
+     iterations, force evaluations, iterations/s, ms an evaluation and
+     host reads an iteration, synchronized, by the host clock) with the
+     path's peak device memory:
+     AA. examples/min's in.min verbatim (MIN_SCRIPT: 800 atoms, 2d LJ,
+        fix nve + fix enforce2d, run 1000, then minimize with the default
+        cg) through the CLI's main(), float64: step 0 against LAMMPS's
+        log.5Oct16.min.g++.1 at tests/test_min_example.py's bars, the
+        minimized E_pair per atom under -2.6, steps/s by its Loop time
+        line; then the same input through LammpsScript with the run and
+        the minimization apart: the atoms planar after each (|z|, |v_z|
+        under 1e-12), the rows and the minimize line the CLI's; then
+        AA-100, in.min with its run cut to 100 steps (the liquid is
+        chaotic: run 1000's rows part from another device's), whose rows,
+        minimized E and x are held to the CPU twin;
+     AB. tests/test_min_styles.py's 72 atoms (displace_atoms random):
+        quickmin (500 iterations) and then hftn to that file's goldens
+        (rel 1e-7, rel 1e-9), against the CPU twin (E rel 1e-9; hftn's
+        iterations at its rounding-set tail not compared), a force
+        evaluation and a Hessian-vector product timed warm; cg, sd and fire
+        from the same start, 20 iterations each, against their twins
+        (iterations equal, E rel 1e-10, x 1e-10 of its largest entry);
+     AC. minimize on the polarizable fluid at path I's 1,536 atoms
+        (float64, polar precision 1e-11): fire (6 iterations) then cg
+        (3), the ms of a force evaluation at the minimized state by CUDA
+        events, against the CPU twin;
+ 12. the CPU twins (CPU_TWIN: the same script through the port on the CPU
+     in float64, in a process of its own; its rows, final state and each
+     minimize's (E, iterations, converged)) of J, K, O, R, R-pppm, Q64, S,
+     T, U64, V, W, X64, Y, Z, AA-100, AB (and AB's cg, sd, fire) and AC, after
+     every path on the card, so that no timed path shares the host's
+     cores with them (run_twins: as many at once as the cores take, the
+     longest first);
+ 13. one JSON line {"kernels": [...]} with each of the ten kernels'
      launches (summed and by path, A-K, E-E4, L, L64, M, N, N-pol, O, R,
-     R-pppm, Q, Q64, P, P100, S, T, U, U64, V, W, X, X64, Y, Z), times,
-     ms_queued and bound, then the nvidia-smi line, then the device line
-     last.
+     R-pppm, Q, Q64, P, P100, S, T, U, U64, V, W, X, X64, Y, Z, AA, AB,
+     AC), times, ms_queued and bound, then the nvidia-smi line, then the
+     device line last.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.
@@ -3450,10 +3481,13 @@ s.file(sys.argv[2])
 seconds = time.perf_counter() - t0
 sim = s._sim
 n = sim.natoms
-cols = [c for c in s.thermo_rows[0] if c not in ("step", "atoms", "bonds")]
+rows = s.thermo_rows
+cols = [c for c in rows[0] if c not in ("step", "atoms", "bonds")] \
+    if rows else []
 np.savez(sys.argv[1], x=sim.sys.x[:n].numpy(), v=sim.sys.v[:n].numpy(),
-         mu=sim.sys.mu[:n].numpy(), cols=np.array(cols),
-         rows=np.array([[r[c] for c in cols] for r in s.thermo_rows]),
+         mu=sim.sys.mu[:n].numpy(), cols=np.array(cols, dtype=str),
+         rows=np.array([[r[c] for c in cols] for r in rows]),
+         minimized=np.array(s.minimized, float).reshape(-1, 3),
          seconds=seconds)
 assert "jax" not in sys.modules
 """
@@ -4736,6 +4770,375 @@ def eam_paths(launches, reset_counts, read_counts):
         shutil.rmtree(work, ignore_errors=True)
 
 
+# paths AA, AB and AC: energy minimization and two dimensions
+# (integrate/minimize.py through the script commands minimize, min_style,
+# min_modify, dimension 2, fix enforce2d, displace_atoms)
+MIN_SCRIPT = """\
+# 2d Lennard-Jones melt and subsequent energy minimization
+
+units		lj
+dimension	2
+atom_style	atomic
+
+lattice		sq2 0.8442
+region		box block 0 20 0 20 -0.1 0.1
+create_box	1 box
+create_atoms	1 box
+mass		1 1.0
+
+velocity	all create 5.0 87287 loop geom
+
+pair_style	lj/cut 2.5
+pair_coeff	1 1 1.0 1.0 2.5
+pair_modify	shift yes
+
+neighbor	0.3 bin
+neigh_modify	delay 0 every 1 check yes
+
+fix		1 all nve
+fix		2 all enforce2d
+
+thermo		100
+
+run		1000
+
+minimize	1.0e-4 1.0e-6 100 1000
+"""
+MIN_STEPS = 1000               # in.min's run
+# LAMMPS's log.5Oct16.min.g++.1, step 0, and the bars of
+# tests/test_min_example.py:32-36
+MIN_GOLD0 = dict(temp=5.0, epair=-2.461717, etotal=2.532033, press=5.0190509)
+MIN_BARS0 = dict(temp=1e-10, epair=5e-7, etotal=5e-7, press=5e-7)
+MIN_EPAIR = -2.6               # test_min_example.py's E_pair per atom bar
+# tests/test_min_styles.py's 72-atom input and the rebuilt reference's
+# minimized E_pair per atom, each with its bar
+MIN_STYLES_HEAD = """\
+units lj
+dimension 2
+atom_style atomic
+lattice sq2 0.8442
+region box block 0 6 0 6 -0.1 0.1
+create_box 1 box
+create_atoms 1 box
+mass 1 1.0
+pair_style lj/cut 2.5
+pair_coeff 1 1 1.0 1.0 2.5
+pair_modify shift yes
+neighbor 0.3 bin
+displace_atoms all random 0.15 0.15 0 424242
+fix 2 all enforce2d
+"""
+MIN_GOLDS = (("quickmin", "minimize 0.0 1.0e-6 500 5000", -2.96612445689,
+              1e-7),
+             ("hftn", "minimize 0.0 1.0e-8 100 5000", -2.96613896543, 1e-9))
+# AB's other styles from the same start, 20 iterations each
+AB_OTHERS = ("cg", "sd", "fire")
+AB_MIN = "minimize 0.0 1.0e-12 20 1000"
+# path AC: the polar fluid at path I's size, fire then cg
+AC_MIN = """\
+min_style fire
+minimize 0.0 1.0e-6 6 100
+min_style cg
+minimize 0.0 1.0e-6 3 100
+"""
+
+
+class MinimizeTimer:
+    """Within `with MinimizeTimer():` each `minimize` command of the port's
+    LammpsScript is timed (synchronized, the host clock) with its force
+    evaluations (the compute_forces calls it makes) and its host reads
+    (HostReads): `calls` holds (seconds, evaluations, host reads,
+    iterations) for each."""
+
+    def __enter__(self):
+        import torch
+
+        from lidp_tpu_torch import forcefield
+        from lidp_tpu_torch.io import script as script_mod
+
+        self.calls = []
+        self._cls = script_mod.LammpsScript
+        self._orig = self._cls.cmd_minimize
+        self._ff = forcefield
+        self._cf = forcefield.compute_forces
+        evals = [0]
+
+        def counted(*a, **kw):
+            evals[0] += 1
+            return self._cf(*a, **kw)
+
+        def timed(script, a, _orig=self._orig):
+            torch.cuda.synchronize()
+            evals[0] = 0
+            t0 = time.perf_counter()
+            with HostReads() as reads:
+                _orig(script, a)
+                torch.cuda.synchronize()
+                nreads = reads.count()
+            self.calls.append((time.perf_counter() - t0, evals[0], nreads,
+                               script.minimized[-1][1]))
+
+        forcefield.compute_forces = counted
+        self._cls.cmd_minimize = timed
+        return self
+
+    def __exit__(self, *exc):
+        self._ff.compute_forces = self._cf
+        self._cls.cmd_minimize = self._orig
+        return False
+
+
+def minimize_line(path, calls, peak):
+    """A minimizing path's readings: for each minimize command its
+    iterations, force evaluations, iterations/s, ms an evaluation and host
+    reads an iteration by the host clock, and the peak device memory."""
+    for k, (sec, evals, reads, its) in enumerate(calls):
+        print(f"path {path} minimize {k + 1}: {its} iterations, {evals} "
+              f"force evaluations in {sec:.4f} s: iterations_per_s_"
+              f"{path.replace('-', '_')} {its / sec:.4f}, "
+              f"{1e3 * sec / max(evals, 1):.4f} ms an evaluation, "
+              f"{reads / max(its, 1):.2f} host reads an iteration "
+              f"(synchronized, the host clock)")
+    print(f"path {path}: peak device memory {peak / 2**20:.1f} MiB "
+          f"(torch.cuda.max_memory_allocated); {smi_line()}")
+
+
+def min_twin_check(path, script, cols=(), iterations=True, e_rel=1e-9,
+                   x_tol=1e-8):
+    """The check of a minimizing path's deferred twin (defer_twin): its
+    rows as twin_check holds them, each minimize's energy within e_rel
+    and its iteration count equal (where `iterations`), the final x within
+    x_tol of its largest entry."""
+    import numpy as np
+
+    rows = script.thermo_rows
+    mins = np.array(script.minimized, float).reshape(-1, 3)
+    x = script._sim.sys.x[:script._sim.natoms].cpu().numpy()
+
+    def check(twin):
+        ref = [dict(zip(twin["cols"].tolist(), r)) for r in twin["rows"]]
+        worst = rows_agree(path, rows, ref, [1e-9] * len(ref), cols) \
+            if ref else 0.0
+        tm = twin["minimized"]
+        if tm.shape != mins.shape:
+            raise AssertionError(f"path {path}: {len(mins)} minimizations, "
+                                 f"the twin {len(tm)}")
+        e_worst = float(np.max(np.abs(mins[:, 0] - tm[:, 0])
+                               / (e_rel * np.abs(tm[:, 0]))))
+        if not e_worst <= 1.0:
+            raise AssertionError(f"path {path}: minimized E {mins[:, 0]}, "
+                                 f"the twin's {tm[:, 0]}")
+        if iterations and not np.array_equal(mins[:, 1], tm[:, 1]):
+            raise AssertionError(f"path {path}: iterations {mins[:, 1]}, "
+                                 f"the twin's {tm[:, 1]}")
+        big = float(np.abs(twin["x"]).max())
+        x_err = float(np.abs(x - twin["x"]).max())
+        if not x_err <= x_tol * big:
+            raise AssertionError(f"path {path}: final x off by {x_err:.3e}")
+        print(f"path {path} vs its CPU twin: {len(ref)} rows at "
+              f"{worst:.3g} of their bar (rel 1e-9 of max(1, |value|)), "
+              f"minimized E at {e_worst:.3g} of theirs (rel {e_rel:g}), "
+              f"iterations {mins[:, 1].astype(int).tolist()} against "
+              f"{tm[:, 1].astype(int).tolist()}, final x at "
+              f"{x_err / (x_tol * big):.3g} of theirs ({x_tol:g} of max)")
+
+    return check
+
+
+def check_planar(path, sys_):
+    import torch
+
+    z = float(torch.abs(sys_.x[:, 2]).max())
+    vz = float(torch.abs(sys_.v[:, 2]).max())
+    print(f"path {path}: max |z| {z:.3g}, max |v_z| {vz:.3g} (bars 1e-12)")
+    if not (z < 1e-12 and vz < 1e-12):
+        raise AssertionError(f"path {path}: the atoms left the plane")
+
+
+def min_script_run(path, work, name, text):
+    """`text` (written to work/name) through LammpsScript in float64 on
+    the card under MinimizeTimer: (script, log lines, calls, peak)."""
+    import torch
+
+    from lidp_tpu_torch.io.script import LammpsScript
+
+    with open(os.path.join(work, name), "w") as fh:
+        fh.write(text)
+    logs = []
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    script = LammpsScript(dtype=torch.float64, log=logs.append)
+    with MinimizeTimer() as timer:
+        script.file(os.path.join(work, name))
+    peak = torch.cuda.max_memory_allocated()
+    for line in logs:
+        print(f"  {path}| {line}")
+    return script, logs, timer.calls, peak
+
+
+def minimize_paths(launches, reset_counts, read_counts):
+    """Paths AA, AB and AC: energy minimization and two dimensions from a
+    LAMMPS script (module docstring).  Each sets launches[path]."""
+    import torch
+
+    from lidp_tpu_torch.__main__ import main as cli
+    from lidp_tpu_torch.forcefield import compute_forces
+    from lidp_tpu_torch.integrate.minimize import hvp
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_min_")
+    try:
+        # path AA: examples/min's in.min verbatim through the CLI's main()
+        in_min = os.path.join(work, "in.min")
+        with open(in_min, "w") as fh:
+            fh.write(MIN_SCRIPT)
+        log_aa = os.path.join(work, "log.min")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        with MinimizeTimer() as timer:
+            cli(["-in", in_min, "-log", log_aa])
+        peak = torch.cuda.max_memory_allocated()
+        with open(log_aa) as fh:
+            log = fh.read().splitlines()
+        print("path AA: `python -m lidp_tpu_torch -in in.min` (examples/min "
+              "verbatim: 800 atoms, 2d, fix nve + enforce2d, run 1000, "
+              "then minimize with cg), the dense route; its log:")
+        for line in log:
+            print(f"  AA| {line}")
+        rows = log_rows(log)
+        if [int(r["step"]) for r in rows] != list(range(0, MIN_STEPS + 1,
+                                                        100)):
+            raise AssertionError(f"path AA: rows {rows}")
+        check_rows_finite("AA", rows, CHAIN_COLS)
+        for k, bar in MIN_BARS0.items():
+            err = abs(rows[0][k] - MIN_GOLD0[k])
+            print(f"path AA step 0 {k}: {rows[0][k]!r} against LAMMPS's "
+                  f"{MIN_GOLD0[k]!r} (abs err {err:.2e}, bar {bar:g})")
+            if not err < bar:
+                raise AssertionError(f"path AA step 0 {k}: {rows[0][k]}")
+        mline = [w for w in log if w.startswith("# minimize:")]
+        e_aa = float(mline[0].split()[4]) / 800
+        print(f"path AA: minimized E_pair {e_aa:.8g} per atom (bar "
+              f"{MIN_EPAIR:g})")
+        if not e_aa < MIN_EPAIR:
+            raise AssertionError(f"path AA: minimized E_pair {e_aa}")
+        script_peak("AA", log, MIN_STEPS, peak)
+        minimize_line("AA", timer.calls, peak)
+
+        # AA's state: the same input through LammpsScript, the run and the
+        # minimization apart; rows and minimized E as the CLI printed them
+        text = MIN_SCRIPT.split("minimize")
+        script, logs, _, _ = min_script_run("AA-state", work, "in.aa",
+                                            text[0])
+        check_planar("AA after the run", script._sim.sys)
+        script.one("minimize " + text[1].strip())
+        if log_rows(logs) != rows or not logs[-1] == mline[0]:
+            raise AssertionError("path AA: LammpsScript's rows or minimize "
+                                 "line differ from the CLI's")
+        sim = script._sim
+        if sim.runner.neighbor_cfg is not None or sim.res is not None \
+                or bool(torch.any(sim.sys.v)):
+            raise AssertionError(f"path AA: {script_route(script)}")
+        check_planar("AA after minimize", sim.sys)
+        print("path AA: LammpsScript on in.min gives the CLI's rows and "
+              f"minimize line; {script_route(script)}")
+        del script, sim
+        # the hot 2d liquid is chaotic: run 1000's rows part from another
+        # device's after a few hundred steps, so the twin holds in.min
+        # with its run cut to 100 steps, as tests/test_min_example.py
+        # cuts it
+        script, _, calls, peak = min_script_run(
+            "AA-100", work, "in.aa100",
+            MIN_SCRIPT.replace(f"run		{MIN_STEPS}", "run		100"))
+        check_planar("AA-100", script._sim.sys)
+        minimize_line("AA-100", calls, peak)
+        defer_twin("AA-100", work, "in.aa100", 0,
+                   min_twin_check("AA-100", script, CHAIN_COLS), threads=2,
+                   cost=40.0)
+        launches["AA"] = read_counts()
+        check_counts("AA", launches["AA"], {})
+        del script
+        torch.cuda.empty_cache()
+
+        # path AB: tests/test_min_styles.py's 72 atoms, quickmin then hftn
+        # to its goldens; cg, sd and fire from the same start
+        reset_counts()
+        text = MIN_STYLES_HEAD + "".join(
+            f"min_style {style}\n{cmd}\n" for style, cmd, _, _ in MIN_GOLDS)
+        script, _, calls, peak = min_script_run("AB", work, "in.ab", text)
+        for (style, _, gold, rel), (e, it, _) in zip(MIN_GOLDS,
+                                                     script.minimized):
+            check_rel(f"AB {style} E_pair per atom ({it} iterations)",
+                      e / 72, gold, rel)
+        check_planar("AB", script._sim.sys)
+        minimize_line("AB", calls, peak)
+        # hftn's cost, warm: a force evaluation against a Hessian-vector
+        # product by forward-mode AD through it, at the minimized state
+        sim = script._sim
+        ff = sim.runner.ff
+        d = torch.ones_like(sim.sys.x)
+
+        def compute(sys_):
+            res = compute_forces(sys_, ff)
+            return res.f, res.epair
+
+        ms = cuda_ms(lambda: compute(sim.sys), reps=5)
+        ms_hvp = cuda_ms(lambda: hvp(sim.sys, compute, sim.sys.x, d), reps=5)
+        print(f"path AB: at the minimized state, warm, a force evaluation "
+              f"{ms:.4f} ms, a Hessian-vector product (hvp, forward-mode "
+              f"AD through it) {ms_hvp:.4f} ms (medians of 5 by CUDA "
+              "events)")
+        del sim
+        # hftn's iteration count is set by rounding at its tail, where its
+        # Armijo test compares energies at their rounding
+        defer_twin("AB", work, "in.ab", 0,
+                   min_twin_check("AB", script, iterations=False),
+                   cost=20.0)
+        for style in AB_OTHERS:
+            name = f"in.ab-{style}"
+            script, _, calls, peak = min_script_run(
+                f"AB-{style}", work, name,
+                MIN_STYLES_HEAD + f"min_style {style}\n{AB_MIN}\n")
+            minimize_line(f"AB-{style}", calls, peak)
+            defer_twin(f"AB-{style}", work, name, 0,
+                       min_twin_check(f"AB-{style}", script, e_rel=1e-10,
+                                      x_tol=1e-10), cost=10.0)
+        launches["AB"] = read_counts()
+        check_counts("AB", launches["AB"], {})
+        del script
+        torch.cuda.empty_cache()
+
+        # path AC: the polar fluid at path I's size, fire then cg
+        fluid_script_case(work, n_side=I_SIDE)
+        reset_counts()
+        script, _, calls, peak = min_script_run(
+            "AC", work, "in.ac", FLUID_SCRIPT.replace("run ${nstep}\n",
+                                                      AC_MIN))
+        launches["AC"] = read_counts()
+        check_counts("AC", launches["AC"], {})
+        sim = script._sim
+        if sim.runner.neighbor_cfg is not None or len(script.minimized) != 2:
+            raise AssertionError(f"path AC: {script_route(script)}")
+        for e, it, _ in script.minimized:
+            if not math.isfinite(e):
+                raise AssertionError(f"path AC: E {e}")
+        ff = sim.runner.ff
+        ms = cuda_ms(lambda: compute_forces(sim.sys, ff), reps=5)
+        print(f"path AC: {sim.natoms} atoms, float64, polar precision "
+              f"1e-11, the dense route: minimized E "
+              f"{[m[0] for m in script.minimized]} after "
+              f"{[m[1] for m in script.minimized]} iterations (fire, cg); "
+              f"a force evaluation {ms:.3f} ms (median of 5 by CUDA "
+              "events, at the minimized state)")
+        minimize_line("AC", calls, peak)
+        defer_twin("AC", work, "in.ac", 0,
+                   min_twin_check("AC", script), threads=4, cost=120.0)
+        del script, sim
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -5562,6 +5965,7 @@ def main() -> int:
     chain_paths(launches, reset_counts, read_counts)
     modifier_paths(launches, reset_counts, read_counts)
     eam_paths(launches, reset_counts, read_counts)
+    minimize_paths(launches, reset_counts, read_counts)
     run_twins()
 
     # 6. results

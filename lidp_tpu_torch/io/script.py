@@ -22,8 +22,10 @@ dihedral and improper styles with their coeff commands and data-file
 sections, special_bonds charmm|amber|fene, the lj/charmm pair styles with
 the four-argument pair_coeff, fix shake and fix rattle), bench/in.chain
 (atom_style bond, fix langevin), the modifier fixes of
-styles/fix_modifiers.py, and bench/in.eam (pair_style eam, eam/alloy and
-eam/fs with their potential files; set type/fraction);
+styles/fix_modifiers.py, bench/in.eam (pair_style eam, eam/alloy and
+eam/fs with their potential files; set type/fraction), and examples/min
+(dimension 2, fix enforce2d, displace_atoms, and minimize with min_style,
+min_modify and fix box/relax: integrate/minimize.py);
 every other command, style or keyword raises NotImplementedError naming
 itself and the ROADMAP item that ports it, and is never ignored.
 """
@@ -78,12 +80,12 @@ FIX_STYLES = ("nve", "nvt", "npt", "nph", "rigid", "rigid/nve", "rigid/nvt",
               "shake", "rattle", "langevin", "setforce", "addforce",
               "aveforce", "spring", "spring/self", "viscous", "efield",
               "planeforce", "lineforce", "momentum", "recenter",
-              "temp/rescale", "temp/berendsen", "temp/csld")
+              "temp/rescale", "temp/berendsen", "temp/csld", "enforce2d",
+              "box/relax")
 # where the fix styles the port lacks are queued: the modifier fixes of
 # the JAX package's styles/fix_modifiers.py, and the others by their item
 _MODIFIERS = "ROADMAP queue 1 item 6.1, the modifier fixes"
 _FIX_ITEMS = {
-    "enforce2d": "ROADMAP queue 1 item 6.2, minimize and 2d",
     "cmap": "ROADMAP queue 1 item 6.6, the CHARMM family",
     "nvt/sllod": "ROADMAP queue 1 item 6.8, integrator keywords",
     "nvt/sphere": "ROADMAP queue 1 item 6.8, integrator keywords",
@@ -94,6 +96,9 @@ _FIX_ITEMS = {
     "pour": "ROADMAP queue 1 item 6.11, granular",
     "nve/sphere": "ROADMAP queue 1 item 6.11, granular",
 }
+
+# the min styles of integrate/minimize.py
+MIN_STYLES = ("fire", "cg", "sd", "quickmin", "hftn")
 
 # the bonded styles (ops/bonded.py, styles/bonded_builders.py); dihedral
 # charmmfsw pairs with lj/charmmfsw, which is not ported
@@ -267,6 +272,11 @@ class LammpsScript:
         self._gewald_override = None  # kspace_modify gewald
         self._thermo_norm = None
         self._thermo_float_format = None
+        # min_style, min_modify dmax, and each minimize's (energy,
+        # iterations, converged)
+        self._min_style = "cg"
+        self._min_modify: dict = {}
+        self.minimized: list = []
 
     # ------------------------------ parsing ------------------------------
 
@@ -535,8 +545,12 @@ class LammpsScript:
         self.atom_style = a[0]
 
     def cmd_dimension(self, a):
-        if int(a[0]) != 3:
-            _unported(f"dimension {a[0]}", _BREADTH)
+        """dimension 2|3: a 2d run keeps its atoms on the z = 0 plane
+        (create_atoms), takes dim*N - dim dof and the area as its volume
+        in the pressure and the vol column; fix enforce2d zeroes f_z."""
+        if a[0] not in ("2", "3"):
+            raise ValueError("dimension must be 2 or 3")
+        self.dimension = int(a[0])
 
     def cmd_processors(self, a):
         if any(tok not in ("1", "*") for tok in a[:3]):
@@ -690,6 +704,10 @@ class LammpsScript:
                 self.box_hi)
             if a[1] == "region":
                 x = x[self._region_mask(a[2], x)]
+            if self.dimension == 2:
+                # the sites of the z = 0 plane, z set to exactly 0
+                x = x[np.abs(x[:, 2]) < 1e-12]
+                x[:, 2] = 0.0
             rest = a[3:] if a[1] == "region" else a[2:]
         elif a[1] == "single":
             units = "lattice"
@@ -1378,6 +1396,191 @@ class LammpsScript:
         from lidp_tpu_torch.io.data_writer import write_data
 
         write_data(os.path.join(self.root, a[0]), self)
+
+    def cmd_min_style(self, a):
+        if a[0] not in MIN_STYLES:
+            raise ValueError(f"unsupported min_style {a[0]}")
+        self._min_style = a[0]
+
+    def cmd_min_modify(self, a):
+        """min_modify dmax D | line quadratic (min.cpp modify_params): dmax
+        caps the steps of cg, sd, quickmin and hftn; the JAX package's line
+        search is its secant emulation of linemin_quadratic, the default.
+        The JAX package stores every other key unread; the port raises on
+        them (ROADMAP queue 3 item 11)."""
+        i = 0
+        while i < len(a):
+            if a[i] == "dmax":
+                self._min_modify["dmax"] = float(a[i + 1])
+            elif not (a[i] == "line" and a[i + 1] == "quadratic"):
+                _unported(f"min_modify {' '.join(a[i:i + 2])} (the JAX "
+                          "package stores it unread: ROADMAP queue 3 item "
+                          "11)", _BREADTH)
+            i += 2
+
+    def cmd_minimize(self, a):
+        """minimize etol ftol maxiter maxeval (Min::run; the JAX package's
+        script.py:2527-2583) with the current min_style
+        (integrate/minimize.py; cg by default) on the force field's pair
+        and k-space energy (E_pair), evaluated on the dense route at every
+        size, with no fix's post_force; then fix box/relax's outer loop.
+        maxeval is read and unused, as in the JAX package.  v is zeroed,
+        the next run sets up again, and the minimized x is adopted."""
+        from lidp_tpu_torch.forcefield import compute_forces
+        from lidp_tpu_torch.integrate import minimize as min_mod
+        from lidp_tpu_torch.sim import Simulation
+
+        etol, ftol, maxiter = float(a[0]), float(a[1]), int(a[2])
+        if self._sim is None:
+            self._sim = Simulation.from_script(self)
+        sim = self._sim
+        ff = sim.runner.ff
+        if ff.polar_xshift is not None \
+                and not isinstance(ff.polar_xshift, torch.Tensor):
+            # the panel engine keeps it on the host
+            ff = dataclasses.replace(ff, polar_xshift=torch.as_tensor(
+                ff.polar_xshift, dtype=self.dtype, device=self.device))
+        mass_atom = self.mass_type[self.type]
+
+        def compute(sys_):
+            res = compute_forces(sys_, ff)
+            return res.f, res.epair
+
+        style = self._min_style
+        kw = dict(etol=etol, ftol=ftol, maxiter=maxiter)
+        dmax = self._min_modify.get("dmax", 0.1)
+        if style == "fire":
+            run_min = lambda s_: min_mod.fire_minimize(  # noqa: E731
+                s_, compute, mass_atom, **kw)
+        elif style == "quickmin":
+            run_min = lambda s_: min_mod.quickmin_minimize(  # noqa: E731
+                s_, compute, mass_atom, dt=self.dt, dmax=dmax,
+                ftm2v=self.units.ftm2v, **kw)
+        elif style == "hftn":
+            run_min = lambda s_: min_mod.hftn_minimize(  # noqa: E731
+                s_, compute, dmax=dmax, **kw)
+        else:
+            run_min = lambda s_: min_mod.cg_minimize(  # noqa: E731
+                s_, compute, dmax=dmax, style=style, **kw)
+        sys2, e, it, conv = run_min(sim.sys)
+        relax = next((f for f in self.fixes.values()
+                      if f.style == "box/relax"), None)
+        if relax is not None:
+            sys2, e = self._box_relax(relax, sys2, run_min, ff)
+        sim.sys = sys2.replace(v=torch.zeros_like(sys2.v))
+        sim.res = None    # the next run sets up again
+        self.x = sys2.x[:sim.natoms].cpu().numpy().copy()
+        self.minimized.append((float(e), int(it), bool(conv)))
+        self.log(f"# minimize: E = {float(e):.8g} after {int(it)} "
+                 "iterations")
+
+    def _box_relax(self, spec, sys2, run_min, ff):
+        """fix box/relax iso|aniso|x|y|z P [vmax V] (the JAX package's
+        _box_relax, script.py:2585-2666): a secant loop on P(strain), each
+        step a vmax-capped affine strain of the box about its centre
+        followed by a whole minimization, until P is within max(1e-8,
+        1e-6 |P_target|) of the target (400 steps at most).  The pressure
+        is the virial's diagonal over the box volume, in 2d too, as in the
+        JAX package (ROADMAP queue 3); iso averages the first `dimension`
+        components.  Returns (sys, energy)."""
+        from lidp_tpu_torch.box import Box
+        from lidp_tpu_torch.forcefield import compute_forces
+        from lidp_tpu_torch.styles.fix_modifiers import box_relax_spec
+
+        p_t, iso, vmax = box_relax_spec(spec.args)
+        flags = np.array([v is not None for v in p_t])
+        tgt = np.array([v if v is not None else 0.0 for v in p_t])
+        nktv2p = self.units.nktv2p
+        dim = self.dimension
+
+        def press_dims(sys_):
+            res = compute_forces(sys_, ff)
+            v6 = res.virial.cpu().numpy()
+            p = v6[:3] / float(sys_.box.volume) * nktv2p
+            return (np.full(3, p[:dim].mean()) if iso else p), float(
+                res.epair)
+
+        prev = None
+        e = None
+        for _ in range(400):
+            p_cur, e = press_dims(sys2)
+            dp = np.where(flags, p_cur - tgt, 0.0)
+            if np.abs(dp).max() < max(1e-8, 1e-6 * np.abs(tgt).max()):
+                break
+            if prev is None:
+                # the probe: expand where P is above the target
+                ds = np.clip(np.sign(dp) * 1e-4, -vmax, vmax)
+            else:
+                s_prev, p_prev = prev
+                dPds = (p_cur - p_prev) / np.where(
+                    np.abs(s_prev) > 0, s_prev, 1.0)
+                dPds = np.where(np.abs(dPds) > 1e-30, dPds, -1e30)
+                ds = np.clip(-dp / dPds, -vmax, vmax)
+            ds = np.where(flags, ds, 0.0)
+            if iso:
+                ds[:] = ds[:dim].mean()
+                if dim == 2:
+                    ds[2] = 0.0
+            lo = sys2.box.lo.cpu().numpy()
+            hi = sys2.box.hi.cpu().numpy()
+            c = 0.5 * (lo + hi)
+            scale = 1.0 + ds
+            box = Box.create(c + (lo - c) * scale, c + (hi - c) * scale,
+                             dtype=sys2.x.dtype, periodic=sys2.box.periodic,
+                             device=sys2.x.device)
+            x = torch.as_tensor(c + (sys2.x.cpu().numpy() - c) * scale,
+                                dtype=sys2.x.dtype, device=sys2.x.device)
+            sys2, e, _, _ = run_min(sys2.replace(x=x, box=box))
+            prev = (ds, p_cur)
+        return sys2, e
+
+    def cmd_displace_atoms(self, a):
+        """displace_atoms group move dx dy dz | ramp ddim dlo dhi cdim clo
+        chi | random dx dy dz seed [units box|lattice]
+        (displace_atoms.cpp:111-199; lattice units by default), then each
+        atom remapped into the box along the periodic dimensions with its
+        image flags.  random draws each atom's three uniforms from a
+        RanPark stream seeded by its coordinates (park_geom_streams), as
+        the reference and the JAX package do."""
+        self._invalidate()
+        gm = np.asarray(self.groups[a[0]], bool)
+        style = a[1]
+        nargs = {"move": 5, "ramp": 8, "random": 6}
+        if style not in nargs:
+            _unported(f"displace_atoms {style}", _BREADTH)
+        kw = a[nargs[style]:]
+        if kw and (len(kw) != 2 or kw[0] != "units"
+                   or kw[1] not in ("box", "lattice")):
+            _unported(f"displace_atoms keywords {' '.join(kw)}", _BREADTH)
+        scale = (np.ones(3) if kw and kw[1] == "box"
+                 else self._spacing3())
+        x = np.asarray(self.x, float).copy()
+        if style == "move":
+            d = scale * np.array([float(a[2]), float(a[3]), float(a[4])])
+            x[gm] += d
+        elif style == "ramp":
+            ddim = "xyz".index(a[2])
+            dlo, dhi = scale[ddim] * float(a[3]), scale[ddim] * float(a[4])
+            cdim = "xyz".index(a[5])
+            clo, chi = scale[cdim] * float(a[6]), scale[cdim] * float(a[7])
+            frac = np.clip((x[:, cdim] - clo) / (chi - clo), 0.0, 1.0)
+            x[gm, ddim] += (dlo + frac * (dhi - dlo))[gm]
+        else:
+            from lidp_tpu_torch.rng import park_geom_streams
+
+            d = scale * np.array([float(a[2]), float(a[3]), float(a[4])])
+            streams = park_geom_streams(int(a[5]), x)
+            disp = np.stack([d[k] * 2.0 * (streams.uniform() - 0.5)
+                             for k in range(3)], axis=1)
+            x[gm] += disp[gm]
+        # Domain::remap on the periodic dimensions
+        L = self.box_hi - self.box_lo
+        for dim in range(3):
+            if self.periodic[dim]:
+                shift = np.floor((x[:, dim] - self.box_lo[dim]) / L[dim])
+                x[:, dim] -= shift * L[dim]
+                self.image[:, dim] += shift.astype(self.image.dtype)
+        self.x = x
 
     def cmd_run(self, a):
         nsteps = int(a[0])

@@ -13,12 +13,14 @@ override, the polarization settings of the pair keywords, the special
 bonds of the Bonds section, the bonded terms of the bond, angle, dihedral
 and improper styles (less the bonds and angles fix shake constrains, the
 clusters found in a pre-pass), the integrator of the fixes (nve,
-rigid/nve, rigid/nvt, rigid/npt, rigid/nph, nvt, npt, nph) with its dof
+rigid/nve, rigid/nvt, rigid/npt, rigid/nph, nvt, npt, nph; without one,
+nve with dt 0, the atoms frozen, as in the JAX package) with its dof
 removal (FixRigid::dof, fix_rigid.cpp:1181; FixShake's constraints, which
 the thermostats' dof lose too), the modifier fixes' post_force and
 end_of_step hooks (rattle's velocity projection, the deferred temp/rescale
 and temp/berendsen on their group's dof), the group temperatures of `compute ID
-group temp`; then `run` (each run the window of the thermostats' and
+group temp`, in 2d (dimension 2) dim*N - dim dof and the pressure over the
+area; then `run` (each run the window of the thermostats' and
 barostats' target ramps), the thermo rows with their c_ID columns and the
 dump frames.  Under a barostat the Ewald tables follow the live box
 (ForceField.kspace_dynamic), PPPM reads it at each call, and the Runner
@@ -395,7 +397,10 @@ class Simulation:
         # a barostat moves the box: the Ewald tables follow it and the
         # integrator reads the virial every step (the JAX package's
         # sim.py:1612-1617, 1667, 2005)
-        has_baro = any(f.style in BAROSTATS for f in script.fixes.values())
+        # (fix box/relax, which moves the box only in `minimize`, counts
+        # as one there too)
+        has_baro = any(f.style in BAROSTATS + ("box/relax",)
+                       for f in script.fixes.values())
         # the post_force terms that depend on the velocities (the
         # constraint forces and their virial, langevin's friction and
         # noise, viscous drag) cannot be re-tallied at a chunk boundary:
@@ -428,12 +433,15 @@ class Simulation:
 
         sp_lists = sp_code = sp_idx = sp_lvl = None
         has_bonds = script._bonds is not None and len(script._bonds)
-        if dense and has_bonds and not above_cap:
+        if has_bonds and not above_cap:
             # the JAX package builds the codes up to the cap only
-            # (lidp_tpu/sim.py:1471; ROADMAP queue 3)
-            sp_code = torch.as_tensor(
-                topo_mod.special_codes_dense(n, script._bonds),
-                device=device)
+            # (lidp_tpu/sim.py:1471; ROADMAP queue 3), on the panel engine
+            # too (padded), where only `minimize`'s dense evaluation reads
+            # them
+            code = topo_mod.special_codes_dense(n, script._bonds)
+            if npad != n:
+                code = np.pad(code, ((0, npad - n), (0, npad - n)))
+            sp_code = torch.as_tensor(code, device=device)
         if has_bonds and (ncfg is not None or not dense):
             si, sl = topo_mod.special_lists(n, script._bonds)
             if npad != n:
@@ -479,9 +487,13 @@ class Simulation:
             mass_atom=mass_atom, padA=_padA, n=n, dim=dim_, sys=sys,
             shake_found=shake_found, shake_cfg=shake_cfg))
         if fctx.integ is None:
-            raise NotImplementedError(
-                "a run without a time-integration fix is not ported "
-                "(fix nve, nvt, npt, nph or a rigid style)")
+            # no time-integration fix: nve with dt 0, the atoms frozen (the
+            # JAX package's sim.py:1781-1783)
+            from lidp_tpu_torch.integrate import nve as nve_mod
+            from lidp_tpu_torch.integrate.driver import nve_integrator
+
+            fctx.integ = nve_integrator(nve_mod.NVEParams.create(
+                0.0, u.ftm2v, mass_atom, dtype=dtype, device=device))
         sys = fctx.sys
         integ = fctx.integ
         if fctx.shake_dof_removed and hasattr(integ.params, "dof"):

@@ -12,8 +12,9 @@ rigid/nph (styles/fix_integrators.py), and the modifier fixes
 (styles/fix_modifiers.py): the constraint fixes shake and rattle, the
 post_force styles (langevin, setforce, addforce, aveforce, spring,
 spring/self, viscous, efield, planeforce, lineforce), the end_of_step
-styles (momentum, recenter, temp/csld) and the deferred temp/rescale and
-temp/berendsen; a fix style with no builder raises NotImplementedError.
+styles (momentum, recenter, temp/csld), the deferred temp/rescale and
+temp/berendsen, fix enforce2d and fix box/relax (which only `minimize`
+reads); a fix style with no builder raises NotImplementedError.
 """
 
 from __future__ import annotations

@@ -3,13 +3,14 @@ appends its hooks to the FixBuildCtx sinks.
   * post_force, fn(sys, f) -> (f, virial6), with the same hook for the
     setup pass unless noted: the constraint fixes shake and rattle (their
     setup variant takes dtfsq/2; rattle's velocity stage goes to
-    ctx.rattle_params), setforce, langevin, addforce, aveforce,
+    ctx.rattle_params), setforce, enforce2d, langevin, addforce, aveforce,
     spring/self, viscous, efield, spring (tether and couple), planeforce
     and lineforce;
   * end_of_step, fn(sys, res) -> sys: momentum, recenter and temp/csld;
   * temp/rescale and temp/berendsen, which Simulation.from_script builds
     after the fix loop from ctx.pending_temp_fix (their dof needs every
-    constraint).
+    constraint);
+  * box/relax, which adds no hook: `minimize` reads it.
 fix langevin and temp/csld draw from jax.random's stream (threefry.py),
 keyed on the seed and sys.step as the JAX builders key theirs.  Where a
 JAX builder reads fewer arguments than LAMMPS takes, the port raises on
@@ -120,6 +121,55 @@ def build_setforce(ctx, spec):
                 f_.new_zeros(6))
 
     _post_force(ctx, setforce)
+
+
+@fix_style("enforce2d")
+def build_enforce2d(ctx, spec):
+    """fix enforce2d (fix_enforce2d.cpp): f_z zeroed, with no virial, in
+    the run and its setup pass; v_z, zero from velocity create in 2d,
+    stays so.  The JAX builder applies it to every atom whatever the
+    group, and so does the port."""
+    _nargs(spec, 0)
+
+    def enforce2d(sys_, f_):
+        return (f_ * torch.tensor([1.0, 1.0, 0.0], dtype=f_.dtype,
+                                  device=f_.device), f_.new_zeros(6))
+
+    _post_force(ctx, enforce2d)
+
+
+def box_relax_spec(args):
+    """fix box/relax iso|aniso|x|y|z P ... [vmax V] (the keywords the JAX
+    package's _box_relax reads, its io/script.py:2595-2611): the target
+    pressure of each dimension (None where unset), iso, and vmax (0.0001
+    by default).  Its other keywords (couple, nreset, fixedpoint, ...)
+    raise: the JAX package skips them unread."""
+    p_t = [None, None, None]
+    iso = False
+    vmax = 0.0001
+    for i in range(0, len(args), 2):
+        k = args[i]
+        if k in ("iso", "aniso"):
+            iso = k == "iso"
+            p_t = [float(args[i + 1])] * 3
+        elif k in ("x", "y", "z"):
+            p_t["xyz".index(k)] = float(args[i + 1])
+        elif k == "vmax":
+            vmax = float(args[i + 1])
+        else:
+            raise NotImplementedError(
+                f"fix box/relax keyword {k} is not ported (ROADMAP queue 1 "
+                "item 6.1, the modifier fixes; the JAX package skips it "
+                "unread: ROADMAP queue 3 item 11)")
+    return p_t, iso, vmax
+
+
+@fix_style("box/relax")
+def build_box_relax(ctx, spec):
+    """fix box/relax: no hook in a run; `minimize` reads its spec
+    (io/script.py _box_relax), as the JAX package's does.  Its keywords
+    are checked here."""
+    box_relax_spec(spec.args)
 
 
 @fix_style("langevin")

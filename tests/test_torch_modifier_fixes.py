@@ -294,7 +294,8 @@ UNPORTED = {
     "ehex": ("fix t a ehex 1 1.0", "item 6.1"),
     "store/force": ("fix t all store/force", "item 6.1"),
     "dt/reset": ("fix t all dt/reset 1 NULL 1.0 0.1", "item 6.1"),
-    "box/relax": ("fix t all box/relax iso 0.0", "item 6.1"),
+    "box/relax": ("fix t all box/relax iso 0.0 nreset 10",
+                  "item 6.1.*queue 3 item 11"),
     "deform": ("fix t all deform 1 x scale 1.1", "item 6.1"),
     "external": ("fix t all external pf/array 1", "item 6.1"),
     "fix_modify": ("fix_modify 1 temp thermo_temp", "item 6.1"),

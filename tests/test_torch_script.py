@@ -252,12 +252,13 @@ def test_replicate_matches_jax(dirs):
 # region block and pair_style lj/cut too (tests/test_torch_script_cells.py),
 # fix npt and kspace_style pppm too (tests/test_torch_npt.py,
 # tests/test_torch_pppm.py), bond_style harmonic too
-# (tests/test_torch_flexible_script.py): their keys keep the test names and
+# (tests/test_torch_flexible_script.py), minimize too
+# (tests/test_torch_min_script.py): their keys keep the test names and
 # hold a style that still raises
 UNPORTED = {
     "region": "region s sphere 0 0 0 1",
     "compute": "compute p all pressure thermo_temp",
-    "minimize": "minimize 1e-4 1e-6 10 100",
+    "minimize": "min_modify line backtrack",
     "fix nvt": "fix 2 all nvt/sllod temp 300 300 100",
     "pair_style lj/cut": "pair_style lj/cut/coul/cut 2.5",
     "kspace_style pppm": "kspace_style msm 1e-4",
