@@ -366,18 +366,47 @@ Phases, each raising on failure:
         (float64, polar precision 1e-11): fire (6 iterations) then cg
         (3), the ms of a force evaluation at the minimized state by CUDA
         events, against the CPU twin;
- 12. the CPU twins (CPU_TWIN: the same script through the port on the CPU
+ 12. non-periodic boundaries, walls and regions from a LAMMPS script
+     (nonperiodic_paths: LAMMPS's in.crack, in.flow.couette, in.flow.pois
+     and in.obstacle as shipped, CRACK_SCRIPT, ..., their runs cut by
+     cut_run), each path printing its route, its steps/s by its Loop time
+     line, its peak device memory and, over NP_PHASE_STEPS more steps,
+     the ms a step of its phases and of the fixes' hooks by CUDA events;
+     no launch (the JAX gate refuses a non-periodic box and several atom
+     types: the plain cell pass, or the dense route):
+     AD. in.crack through the CLI's main(), run 200 (8,141 atoms, 2d,
+        boundary s s p, float64, the cell grid): steps 0 and 200 against
+        log.5Oct16.crack.g++.1 at tests/test_crack.py's bars, the count of
+        its `Created` line, the box reset_box of the last rebuild's
+        positions bit for bit (its x and y faces their extent -/+ small,
+        z periodic); rows and final x, v against the CPU twin (rel 1e-9,
+        1e-8 of max);
+     AE. in.flow.couette and in.flow.pois through LammpsScript, run 100
+        (420 atoms, boundary p s p, float64, the dense route): step 0
+        against log.5Oct16.flow.couette.g++.1 at tests/test_flow.py's
+        bars (Poiseuille's Temp and E_pair as that file holds them); rows
+        and final x, v against the CPU twins at rel 1e-8;
+     AF. in.obstacle through LammpsScript, run 100 (float64, dense): the
+        count after delete_atoms in tests/test_obstacle.py's band and the
+        twin's, no atom nearer an indenter's centre than 0.55 R (that
+        file's bar; the count inside R printed), rows and final x, v
+        against the twin at rel 1e-8;
+     AG. in.crack on a 4x area (AG_REGION: 32,281 atoms) through the
+        CLI's main() with --f32, run 100: the cell grid, the box as AD's
+        (at float32's rounding), step 0 against a float64 CPU twin of
+        the port at path E's bars (AG_BARS, of max(1, |value|));
+ 13. the CPU twins (CPU_TWIN: the same script through the port on the CPU
      in float64, in a process of its own; its rows, final state and each
      minimize's (E, iterations, converged)) of J, K, O, R, R-pppm, Q64, S,
-     T, U64, V, W, X64, Y, Z, AA-100, AB (and AB's cg, sd, fire) and AC, after
-     every path on the card, so that no timed path shares the host's
-     cores with them (run_twins: as many at once as the cores take, the
-     longest first);
- 13. one JSON line {"kernels": [...]} with each of the ten kernels'
+     T, U64, V, W, X64, Y, Z, AA-100, AB (and AB's cg, sd, fire), AC, AD,
+     AE-couette, AE-pois, AF and AG, after every path on the card, so that
+     no timed path shares the host's cores with them (run_twins: as many
+     at once as the cores take, the longest first);
+ 14. one JSON line {"kernels": [...]} with each of the ten kernels'
      launches (summed and by path, A-K, E-E4, L, L64, M, N, N-pol, O, R,
      R-pppm, Q, Q64, P, P100, S, T, U, U64, V, W, X, X64, Y, Z, AA, AB,
-     AC), times, ms_queued and bound, then the nvidia-smi line, then the
-     device line last.
+     AC, AD, AE, AF, AG), times, ms_queued and bound, then the nvidia-smi
+     line, then the device line last.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.
@@ -3590,10 +3619,10 @@ def run_state(script):
         for name in ("x", "v", "mu")}
 
 
-def twin_check(path, state, cols, cancel=None):
+def twin_check(path, state, cols, cancel=None, rel=1e-9):
     """The check of a deferred twin (defer_twin) on path's rows and final
     x, v, mu (run_state): its first rows, as many as the twin ran, within
-    rel 1e-9 of max(1, |value|) of the twin's (plus CANCEL_REL of `cancel`,
+    rel (1e-9) of max(1, |value|) of the twin's (plus CANCEL_REL of `cancel`,
     cancelled()'s magnitudes); where the twin ran all of the path's steps,
     x, v and mu within 1e-8 of their largest entry."""
     import numpy as np
@@ -3602,10 +3631,10 @@ def twin_check(path, state, cols, cancel=None):
 
     def check(twin):
         ref = [dict(zip(twin["cols"].tolist(), r)) for r in twin["rows"]]
-        worst = rows_agree(path, rows[:len(ref)], ref, [1e-9] * len(ref),
+        worst = rows_agree(path, rows[:len(ref)], ref, [rel] * len(ref),
                            cols, cancel=cancel)
         line = (f"path {path} vs its CPU twin: rows 0-{len(ref) - 1} at "
-                f"{worst:.3g} of their bar (rel 1e-9 of max(1, |value|)"
+                f"{worst:.3g} of their bar (rel {rel:g} of max(1, |value|)"
                 + (f" + {CANCEL_REL:g} of the cancelled magnitude, "
                    f"{cancel.get('evdwl', 0.0):.4g} in E_vdwl)" if cancel
                    else ")"))
@@ -5139,6 +5168,648 @@ def minimize_paths(launches, reset_counts, read_counts):
         shutil.rmtree(work, ignore_errors=True)
 
 
+# examples/crack, flow and obstacle: in.crack, in.flow.couette,
+# in.flow.pois and in.obstacle as LAMMPS ships them (the 5Oct16 examples
+# whose logs tests/test_crack.py, test_flow.py and test_obstacle.py hold)
+CRACK_SCRIPT = """\
+# 2d LJ crack simulation
+
+dimension	2
+boundary	s s p
+
+atom_style	atomic
+neighbor	0.3 bin
+neigh_modify	delay 5
+
+# create geometry
+
+lattice		hex 0.93
+region		box block 0 100 0 40 -0.25 0.25
+create_box	5 box
+create_atoms	1 box
+
+mass		1 1.0
+mass		2 1.0
+mass		3 1.0
+mass		4 1.0
+mass		5 1.0
+
+# LJ potentials
+
+pair_style	lj/cut 2.5
+pair_coeff	* * 1.0 1.0 2.5
+
+# define groups
+
+region	        1 block INF INF INF 1.25 INF INF
+group		lower region 1
+region		2 block INF INF 38.75 INF INF INF
+group		upper region 2
+group		boundary union lower upper
+group		mobile subtract all boundary
+
+region		leftupper block INF 20 20 INF INF INF
+region		leftlower block INF 20 INF 20 INF INF
+group		leftupper region leftupper
+group		leftlower region leftlower
+
+set		group leftupper type 2
+set		group leftlower type 3
+set		group lower type 4
+set		group upper type 5
+
+# initial velocities
+
+compute	  	new mobile temp
+velocity	mobile create 0.01 887723 temp new
+velocity	upper set 0.0 0.3 0.0
+velocity	mobile ramp vy 0.0 0.3 y 1.25 38.75 sum yes
+
+# fixes
+
+fix		1 all nve
+fix		2 boundary setforce NULL 0.0 0.0
+
+# run
+
+timestep	0.003
+thermo		200
+thermo_modify	temp new
+
+neigh_modify	exclude type 2 3
+
+#dump		1 all atom 500 dump.crack
+
+#dump		2 all image 250 image.*.jpg type type &
+#		zoom 1.6 adiam 1.5
+#dump_modify	2 pad 4
+
+#dump		3 all movie 250 movie.mpg type type &
+#		zoom 1.6 adiam 1.5
+#dump_modify	3 pad 4
+
+run		5000
+"""
+FLOW_COUETTE_SCRIPT = """\
+# 2-d LJ flow simulation
+
+dimension	2
+boundary	p s p
+
+atom_style	atomic
+neighbor	0.3 bin
+neigh_modify	delay 5
+
+# create geometry
+
+lattice		hex 0.7
+region		box block 0 20 0 10 -0.25 0.25
+create_box	3 box
+create_atoms	1 box
+
+mass		1 1.0
+mass		2 1.0
+mass		3 1.0
+
+# LJ potentials
+
+pair_style	lj/cut 1.12246
+pair_coeff	* * 1.0 1.0 1.12246
+
+# define groups
+
+region	     1 block INF INF INF 1.25 INF INF
+group	     lower region 1
+region	     2 block INF INF 8.75 INF INF INF
+group	     upper region 2
+group	     boundary union lower upper
+group	     flow subtract all boundary
+
+set	     group lower type 2
+set	     group upper type 3
+
+# initial velocities
+
+compute	     mobile flow temp
+velocity     flow create 1.0 482748 temp mobile
+fix	     1 all nve
+fix	     2 flow temp/rescale 200 1.0 1.0 0.02 1.0
+fix_modify   2 temp mobile
+
+# Couette flow
+
+velocity     lower set 0.0 0.0 0.0
+velocity     upper set 3.0 0.0 0.0
+fix	     3 boundary setforce 0.0 0.0 0.0
+fix	     4 all enforce2d
+
+# Poiseuille flow
+
+#velocity     boundary set 0.0 0.0 0.0
+#fix	     3 lower setforce 0.0 0.0 0.0
+#fix	     4 upper setforce 0.0 NULL 0.0
+#fix	     5 upper aveforce 0.0 -1.0 0.0
+#fix	     6 flow addforce 0.5 0.0 0.0
+#fix	     7 all enforce2d
+
+# Run
+
+timestep	0.003
+thermo		500
+thermo_modify	temp mobile
+
+#dump		1 all atom 100 dump.flow
+
+#dump		2 all image 100 image.*.jpg type type &
+#		zoom 1.6 adiam 1.5
+#dump_modify	2 pad 4
+
+#dump		3 all movie 100 movie.mpg type type &
+#		zoom 1.6 adiam 1.5
+#dump_modify	3 pad 4
+
+run		10000
+"""
+FLOW_POIS_SCRIPT = """\
+# 2-d LJ flow simulation
+
+dimension	2
+boundary	p s p
+
+atom_style	atomic
+neighbor	0.3 bin
+neigh_modify	delay 5
+
+# create geometry
+
+lattice		hex 0.7
+region		box block 0 20 0 10 -0.25 0.25
+create_box	3 box
+create_atoms	1 box
+
+mass		1 1.0
+mass		2 1.0
+mass		3 1.0
+
+# LJ potentials
+
+pair_style	lj/cut 1.12246
+pair_coeff	* * 1.0 1.0 1.12246
+
+# define groups
+
+region	     1 block INF INF INF 1.25 INF INF
+group	     lower region 1
+region	     2 block INF INF 8.75 INF INF INF
+group	     upper region 2
+group	     boundary union lower upper
+group	     flow subtract all boundary
+
+set	     group lower type 2
+set	     group upper type 3
+
+# initial velocities
+
+compute	     mobile flow temp
+velocity     flow create 1.0 482748 temp mobile
+fix	     1 all nve
+fix	     2 flow temp/rescale 200 1.0 1.0 0.02 1.0
+fix_modify   2 temp mobile
+
+# Couette flow
+
+#velocity     lower set 0.0 0.0 0.0
+#velocity     upper set 3.0 0.0 0.0
+#fix	     3 boundary setforce 0.0 0.0 0.0
+#fix	     4 all enforce2d
+
+# Poiseuille flow
+
+velocity     boundary set 0.0 0.0 0.0
+fix	     3 lower setforce 0.0 0.0 0.0
+fix	     4 upper setforce 0.0 NULL 0.0
+fix	     5 upper aveforce 0.0 -1.0 0.0
+fix	     6 flow addforce 0.5 0.0 0.0
+fix	     7 all enforce2d
+
+# Run
+
+timestep	0.003
+thermo		500
+thermo_modify	temp mobile
+
+#dump		1 all atom 100 dump.flow
+
+#dump		2 all image 100 image.*.jpg type type &
+#		zoom 1.6 adiam 1.5
+#dump_modify	2 pad 4
+
+#dump		3 all movie 100 movie.mpg type type &
+#		zoom 1.6 adiam 1.5
+#dump_modify	3 pad 4
+
+run		10000
+"""
+OBSTACLE_SCRIPT = """\
+# 2d LJ obstacle flow
+
+dimension	2
+boundary	p s p
+
+atom_style	atomic
+neighbor	0.3 bin
+neigh_modify	delay 5
+
+# create geometry
+
+lattice		hex 0.7
+region		box block 0 40 0 10 -0.25 0.25
+create_box	3 box
+create_atoms	1 box
+
+mass		1 1.0
+mass		2 1.0
+mass		3 1.0
+
+# LJ potentials
+
+pair_style	lj/cut 1.12246
+pair_coeff	* * 1.0 1.0 1.12246
+
+# define groups
+
+region	     1 block INF INF INF 1.25 INF INF
+group	     lower region 1
+region	     2 block INF INF 8.75 INF INF INF
+group	     upper region 2
+group	     boundary union lower upper
+group	     flow subtract all boundary
+
+set	     group lower type 2
+set	     group upper type 3
+
+# initial velocities
+
+compute	     mobile flow temp
+velocity     flow create 1.0 482748 temp mobile
+fix	     1 all nve
+fix	     2 flow temp/rescale 200 1.0 1.0 0.02 1.0
+fix_modify   2 temp mobile
+
+# Poiseuille flow
+
+velocity     boundary set 0.0 0.0 0.0
+fix	     3 lower setforce 0.0 0.0 0.0
+fix	     4 upper setforce 0.0 NULL 0.0
+fix	     5 upper aveforce 0.0 -1.0 0.0
+fix	     6 flow addforce 1.0 0.0 0.0
+
+# 2 obstacles
+
+region	     void1 sphere 10 4 0 3
+delete_atoms region void1
+region	     void2 sphere 20 7 0 3
+delete_atoms region void2
+
+fix	     7 flow indent 100 sphere 10 4 0 4
+fix	     8 flow indent 100 sphere 20 7 0 4
+fix	     9 all enforce2d
+
+# Run
+
+timestep	0.003
+thermo		1000
+thermo_modify	temp mobile
+
+#dump		1 all atom 100 dump.obstacle
+
+#dump		2 all image 500 image.*.jpg type type &
+#		zoom 1.6 adiam 1.5
+#dump_modify	2 pad 4
+
+#dump		3 all movie 500 movie.mpg type type &
+#		zoom 1.6 adiam 1.5
+#dump_modify	3 pad 4
+
+run		25000
+"""
+
+
+def cut_run(text, steps):
+    """A stock script with its one `run` cut to `steps` steps (nothing
+    else changed)."""
+    lines = text.splitlines(keepends=True)
+    runs = [i for i, line in enumerate(lines) if line.startswith("run")]
+    if len(runs) != 1:
+        raise ValueError("the script has no single run command")
+    lines[runs[0]] = f"run\t\t{steps}\n"
+    return "".join(lines)
+
+
+AD_STEPS = 200                 # in.crack's run cut from 5000
+AE_STEPS = 100                 # in.flow.couette's and pois's cut from 10000
+AF_STEPS = 100                 # in.obstacle's cut from 25000
+AG_STEPS = 100                 # the 4x-area crack
+AG_REGION = "block 0 200 0 80"
+NP_PHASE_STEPS = 20            # the steps each path's phases are timed over
+# log.5Oct16.crack.g++.1 (steps 0 and 200) and log.5Oct16.flow.couette.
+# g++.1 (step 0), each column at tests/test_crack.py's and test_flow.py's
+# bars; test_flow.py holds Poiseuille's Temp and E_pair at step 0
+CRACK_GOLD = {
+    0: dict(temp=(0.065651733, 5e-9), epair=(-3.2595015, 5e-7),
+            etotal=(-3.1987287, 5e-7), press=(-0.036239172, 5e-8)),
+    200: dict(temp=(0.060086376, 1e-7), epair=(-3.2531936, 1e-6),
+              etotal=(-3.1975725, 1e-6), press=(-0.23125026, 1e-6))}
+CRACK_ATOMS = 8141             # the log's `Created 8141 atoms`
+FLOW_GOLD0 = dict(temp=(1.0, 1e-9), epair=(0.0, 1e-9),
+                  etotal=(0.71190476, 1e-7), press=(0.52314537, 1e-7),
+                  vol=(571.54286, 1e-4))
+POIS_GOLD0 = dict(temp=(1.0, 1e-9), epair=(0.0, 1e-9))
+# tests/test_obstacle.py: 769 in the log, its deletions ulp-sensitive
+OBSTACLE_BAND = (765, 771)
+# its indenters (x, y, R in lattice units) and test_obstacle.py's bar: no
+# atom nearer a centre than 0.55 R
+INDENTERS = ((10, 4, 4), (20, 7, 4))
+INDENT_DEPTH = 0.55
+# AG's step 0 against its float64 twin: path E's float32 bars (LJ_LOG0),
+# relative to max(1, |value|) (crack's Press is -0.036)
+AG_BARS = dict(temp=1e-6, epair=1e-5, etotal=1e-5, press=1e-4)
+# the phases timed on the crack (cells) and flow (dense) paths
+CRACK_PHASES = (("pair cells", "lidp_tpu_torch.ops.cells",
+                 "cell_pair_forces"),
+                ("rebuild", "lidp_tpu_torch.integrate.driver", "_rebuild"),
+                ("reset_box", "lidp_tpu_torch.box", "reset_box"))
+FLOW_PHASES = DENSE_PHASES[:1]
+
+
+class ScriptCapture:
+    """Within `with ScriptCapture():` the LammpsScript objects that run
+    (through the CLI's main() too) are kept in `scripts`."""
+
+    def __enter__(self):
+        from lidp_tpu_torch.io import script as script_mod
+
+        self.scripts = []
+        self._cls = script_mod.LammpsScript
+        self._orig = self._cls.cmd_run
+
+        def run(script, a, _orig=self._orig):
+            if script not in self.scripts:
+                self.scripts.append(script)
+            return _orig(script, a)
+
+        self._cls.cmd_run = run
+        return self
+
+    def __exit__(self, *exc):
+        self._cls.cmd_run = self._orig
+        return False
+
+
+def check_gold(path, row, gold):
+    """A logged row's columns against a LAMMPS log's, each within its
+    bar (absolute, as the JAX package's tests hold them)."""
+    for k, (want, bar) in gold.items():
+        err = abs(row[k] - want)
+        print(f"path {path} step {int(row['step'])} {k}: {row[k]!r} against "
+              f"LAMMPS's {want!r} (abs err {err:.2e}, bar {bar:g})")
+        if not err < bar:
+            raise AssertionError(f"path {path} step {int(row['step'])} {k}: "
+                                 f"{row[k]}")
+
+
+def check_shrink(path, script):
+    """The box of a shrink-wrapped run is reset_box of the positions at
+    the last rebuild (the grid's x_ref): equal bit for bit, its s faces
+    the extent -/+ small of those positions, the periodic faces the
+    created box's; printed beside the atoms' extent now."""
+    import numpy as np
+    import torch
+
+    from lidp_tpu_torch.box import reset_box
+
+    sim = script._sim
+    spec, box, n = sim.runner.shrink, sim.sys.box, sim.natoms
+    want = reset_box(sim.nlist.x_ref, sim.sys.mask, box, spec)
+    if not (bool((want.lo == box.lo).all())
+            and bool((want.hi == box.hi).all())):
+        raise AssertionError(f"path {path}: the box {box} is not reset_box "
+                             "of the last rebuild's positions")
+    x_ref = sim.nlist.x_ref[:n].double().cpu().numpy()
+    x = sim.sys.x[:n].double().cpu().numpy()
+    lo, hi = box.lo.double().cpu().numpy(), box.hi.double().cpu().numpy()
+    small = np.asarray(spec.small)
+    err = max(float(np.abs(lo[:2] - (x_ref[:, :2].min(0) - small[:2])).max()),
+              float(np.abs(hi[:2] - (x_ref[:, :2].max(0) + small[:2])).max()))
+    c_lo, c_hi = script._created_box
+    # the faces are formed in the run's dtype
+    tol = 4 * torch.finfo(box.lo.dtype).eps * float(np.abs(hi).max())
+    if not (err <= tol and abs(lo[2] - c_lo[2]) <= tol
+            and abs(hi[2] - c_hi[2]) <= tol
+            and sim.sys.box.periodic == (False, False, True)):
+        raise AssertionError(f"path {path}: box {lo} {hi}, extent err {err}")
+    print(f"path {path}: the box {lo[:2].tolist()} - {hi[:2].tolist()} in "
+          f"x, y is the extent at the last rebuild -/+ small "
+          f"{small[:2].tolist()} (max err {err:.2e}, bar {tol:.2e}; "
+          f"reset_box's bit for "
+          f"bit), the atoms' extent now {x[:, :2].min(0).tolist()} - "
+          f"{x[:, :2].max(0).tolist()}; z {lo[2]:.6g} - {hi[2]:.6g} "
+          "periodic, the created box's")
+
+
+def np_phases(path, script, phases):
+    """NP_PHASE_STEPS more steps of a path's Simulation, its phases and
+    the fixes' hooks timed by CUDA events (fix_phases)."""
+    ms = fix_phases(script._sim, phases, NP_PHASE_STEPS)
+    print(f"path {path} phases over {NP_PHASE_STEPS} more steps, ms a step "
+          "(CUDA events): " + ", ".join(f"{k} {v:.4f}" for k, v in
+                                        ms.items()))
+
+
+def np_cli_run(path, work, name, text, extra=()):
+    """`text` (written to work/name) through the CLI's main() on the card,
+    its script kept (ScriptCapture): (script, log lines, peak memory)."""
+    import torch
+
+    from lidp_tpu_torch.__main__ import main as cli
+
+    with open(os.path.join(work, name), "w") as fh:
+        fh.write(text)
+    log_path = os.path.join(work, f"log.{name}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with ScriptCapture() as cap:
+        cli(["-in", os.path.join(work, name), "-log", log_path, *extra])
+    peak = torch.cuda.max_memory_allocated()
+    with open(log_path) as fh:
+        log = fh.read().splitlines()
+    return cap.scripts[-1], log, peak
+
+
+def created_atoms(path, log):
+    """The counts of a log's `Created N atoms` and `Deleted ...` lines."""
+    lines = [w for w in log if w.startswith(("Created", "Deleted"))]
+    print(f"path {path}: " + "; ".join(lines))
+    return lines
+
+
+def nonperiodic_paths(launches, reset_counts, read_counts):
+    """Paths AD, AE, AF and AG: non-periodic boundaries, walls and regions
+    from a LAMMPS script (module docstring).  Each sets launches[path]."""
+    import numpy as np
+    import torch
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_np_")
+    try:
+        # path AD: examples/crack as shipped through the CLI, run 200
+        reset_counts()
+        script, log, peak = np_cli_run(
+            "AD", work, "in.crack", cut_run(CRACK_SCRIPT, AD_STEPS))
+        launches["AD"] = read_counts()
+        check_counts("AD", launches["AD"], {})
+        lines = created_atoms("AD", log)
+        if lines != [f"Created {CRACK_ATOMS} atoms"] \
+                or script._sim.natoms != CRACK_ATOMS:
+            raise AssertionError(f"path AD: {lines}")
+        rows = log_rows(log)
+        if [int(r["step"]) for r in rows] != [0, AD_STEPS]:
+            raise AssertionError(f"path AD: rows {rows}")
+        check_rows_finite("AD", rows, CHAIN_COLS)
+        for row in rows:
+            check_gold("AD", row, CRACK_GOLD[int(row["step"])])
+        route = script_route(script)
+        if "cell grid" not in route:
+            raise AssertionError(f"path AD: {route}")
+        print(f"path AD: examples/crack (in.crack as shipped, run "
+              f"{AD_STEPS}: {CRACK_ATOMS} atoms, 2d, boundary s s p, "
+              f"float64), {route}")
+        check_shrink("AD", script)
+        script_peak("AD", log, AD_STEPS, peak)
+        state = run_state(script)
+        np_phases("AD", script, CRACK_PHASES)
+        defer_twin("AD", work, "in.crack", 0,
+                   twin_check("AD", state, CHAIN_COLS), threads=4,
+                   cost=60.0)
+        del script
+        torch.cuda.empty_cache()
+
+        # path AE: in.flow.couette and in.flow.pois, run 100, dense
+        reset_counts()
+        for tag, text, gold in (("AE-couette", FLOW_COUETTE_SCRIPT,
+                                 FLOW_GOLD0),
+                                ("AE-pois", FLOW_POIS_SCRIPT, POIS_GOLD0)):
+            name = f"in.{tag}"
+            script, log, _, peak = min_script_run(tag, work, name,
+                                                  cut_run(text, AE_STEPS))
+            rows = script.thermo_rows
+            if [r["step"] for r in rows] != [0, AE_STEPS] \
+                    or script._sim.runner.neighbor_cfg is not None:
+                raise AssertionError(f"path {tag}: {script_route(script)}")
+            check_rows_finite(tag, rows, CHAIN_COLS)
+            check_gold(tag, rows[0], gold)
+            print(f"path {tag}: {script._sim.natoms} atoms, boundary p s p, "
+                  f"float64, {script_route(script)}")
+            script_peak(tag, log, AE_STEPS, peak)
+            state = run_state(script)
+            np_phases(tag, script, FLOW_PHASES)
+            defer_twin(tag, work, name, 0,
+                       twin_check(tag, state, CHAIN_COLS, rel=1e-8),
+                       cost=15.0)
+            del script
+        launches["AE"] = read_counts()
+        check_counts("AE", launches["AE"], {})
+        torch.cuda.empty_cache()
+
+        # path AF: in.obstacle, run 100, dense
+        reset_counts()
+        script, log, _, peak = min_script_run(
+            "AF", work, "in.obstacle", cut_run(OBSTACLE_SCRIPT, AF_STEPS))
+        launches["AF"] = read_counts()
+        check_counts("AF", launches["AF"], {})
+        created_atoms("AF", log)
+        sim = script._sim
+        n = sim.natoms
+        rows = script.thermo_rows
+        if not OBSTACLE_BAND[0] <= n <= OBSTACLE_BAND[1] \
+                or [r["step"] for r in rows] != [0, AF_STEPS] \
+                or sim.runner.neighbor_cfg is not None:
+            raise AssertionError(f"path AF: {n} atoms, "
+                                 f"{script_route(script)}")
+        check_rows_finite("AF", rows, CHAIN_COLS)
+        s3 = script._spacing3()
+        x = sim.sys.x[:n].cpu().numpy()
+        for k, (cx, cy, rad) in enumerate(INDENTERS):
+            d = np.hypot(x[:, 0] - cx * s3[0], x[:, 1] - cy * s3[1])
+            near = float(d.min()) / (rad * s3[0])
+            inside = int((d < rad * s3[0]).sum())
+            print(f"path AF indenter {k + 1}: nearest atom at {near:.4f} R "
+                  f"(bar {INDENT_DEPTH}: tests/test_obstacle.py), {inside} "
+                  f"atoms inside R after {AF_STEPS} steps")
+            if not near > INDENT_DEPTH:
+                raise AssertionError(f"path AF: an atom at {near} R")
+        print(f"path AF: in.obstacle, {n} atoms after delete_atoms (band "
+              f"{OBSTACLE_BAND}), float64, {script_route(script)}")
+        script_peak("AF", log, AF_STEPS, peak)
+        state = run_state(script)
+        np_phases("AF", script, FLOW_PHASES)
+
+        def af_twin(twin, _check=twin_check("AF", state, CHAIN_COLS,
+                                            rel=1e-8), _n=n):
+            if twin["x"].shape[0] != _n:
+                raise AssertionError(f"path AF: {_n} atoms, the twin "
+                                     f"{twin['x'].shape[0]}")
+            print(f"path AF: the twin deleted to the same {_n} atoms")
+            _check(twin)
+
+        defer_twin("AF", work, "in.obstacle", 0, af_twin, cost=40.0)
+        del script, sim
+        torch.cuda.empty_cache()
+
+        # path AG: the 4x-area crack in float32 through the CLI
+        text = CRACK_SCRIPT.replace("block 0 100 0 40", AG_REGION)
+        reset_counts()
+        script, log, peak = np_cli_run("AG", work, "in.crack4x",
+                                       cut_run(text, AG_STEPS), ["--f32"])
+        launches["AG"] = read_counts()
+        check_counts("AG", launches["AG"], {})
+        created_atoms("AG", log)
+        rows = log_rows(log)
+        if [int(r["step"]) for r in rows] != [0, AG_STEPS]:
+            raise AssertionError(f"path AG: rows {rows}")
+        check_rows_finite("AG", rows, CHAIN_COLS)
+        route = script_route(script)
+        if "cell grid" not in route:
+            raise AssertionError(f"path AG: {route}")
+        print(f"path AG: in.crack on {AG_REGION} (4x the area), "
+              f"{script._sim.natoms} atoms, float32, {route}")
+        check_shrink("AG", script)
+        script_peak("AG", log, AG_STEPS, peak)
+        np_phases("AG", script, CRACK_PHASES)
+        with open(os.path.join(work, "in.crack4x0"), "w") as fh:
+            fh.write(cut_run(text, 0))
+        row0 = rows[0]
+
+        def ag_twin(twin, _row=row0):
+            ref = dict(zip(twin["cols"].tolist(), twin["rows"][0]))
+            worst = 0.0
+            for k, rel in AG_BARS.items():
+                bar = rel * max(1.0, abs(ref[k]))
+                worst = max(worst, abs(_row[k] - ref[k]) / bar)
+                if not abs(_row[k] - ref[k]) <= bar:
+                    raise AssertionError(f"path AG step 0 {k}: {_row[k]!r}, "
+                                         f"the float64 twin's {ref[k]!r}")
+            print(f"path AG step 0 (float32 on the card, as printed) vs its "
+                  f"float64 CPU twin: at {worst:.3g} of path E's bars "
+                  f"{AG_BARS} (relative to max(1, |value|))")
+
+        defer_twin("AG", work, "in.crack4x0", 0, ag_twin, threads=4,
+                   cost=20.0)
+        del script
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -5966,6 +6637,7 @@ def main() -> int:
     modifier_paths(launches, reset_counts, read_counts)
     eam_paths(launches, reset_counts, read_counts)
     minimize_paths(launches, reset_counts, read_counts)
+    nonperiodic_paths(launches, reset_counts, read_counts)
     run_twins()
 
     # 6. results

@@ -4,8 +4,10 @@
 static tuple.  Non-periodic dimensions get an effective image length of
 1e30 (`img_lengths`), so the minimum image is the identity there and
 roll-stencil cell pairs that wrap across an open face reject themselves
-through the cutoff test.  Triclinic cells, shrink-wrapped faces
-(`ShrinkSpec`, `reset_box`) are not ported: `Box.create` raises on a tilt.
+through the cutoff test.  Shrink-wrapped faces (`boundary s` and `m`) are
+`ShrinkSpec` and `reset_box` (Domain::reset_box, domain.cpp:358), a masked
+min/max on the device.  Triclinic cells are not ported: `Box.create`
+raises on a tilt (ROADMAP queue 1 item 6.4).
 """
 
 from __future__ import annotations
@@ -51,8 +53,8 @@ class Box:
         if force_triclinic or (tilt is not None
                                and any(float(v) != 0.0 for v in tilt)):
             raise NotImplementedError(
-                "triclinic boxes are not ported (ROADMAP queue 1 item 6, "
-                "breadth)")
+                "triclinic boxes are not ported (ROADMAP queue 1 item 6.4, "
+                "triclinic boxes)")
         def t(a):
             if not isinstance(a, torch.Tensor):
                 a = np.array(a)
@@ -88,3 +90,45 @@ def unwrap(x: torch.Tensor, box: Box, image: torch.Tensor) -> torch.Tensor:
     """Unwrapped coordinates from wrapped positions and image flags
     (Domain::unmap)."""
     return x + image.to(x.dtype) * box.lengths
+
+
+@dataclasses.dataclass(frozen=True)
+class ShrinkSpec:
+    """Static shrink-wrap configuration (Domain::reset_box, domain.cpp:358).
+
+    Per face: 0 = fixed or periodic (left), 2 = 's' (the atoms' extent
+    -/+ small), 3 = 'm' (like 's' but never inside the created box's
+    face).  `small` is 1e-4 of the created box length (set_initial_box,
+    domain.cpp:204)."""
+
+    lo_style: tuple   # (3,) int face codes
+    hi_style: tuple
+    small: tuple      # (3,) float
+    min_lo: tuple     # (3,) the created box's faces, for 'm'
+    min_hi: tuple
+
+    @property
+    def active(self) -> bool:
+        return any(s in (2, 3) for s in self.lo_style + self.hi_style)
+
+
+def reset_box(x, mask, box: Box, spec: ShrinkSpec) -> Box:
+    """Shrink-wrap the box faces to the extent of the unmasked atoms: a
+    masked min and max on the device, no host read."""
+    ext_lo = torch.amin(torch.where(mask[:, None], x, _BIG), dim=0)
+    ext_hi = torch.amax(torch.where(mask[:, None], x, -_BIG), dim=0)
+    los, his = [], []
+    for d in range(3):
+        lo_d, hi_d = box.lo[d], box.hi[d]
+        if spec.lo_style[d] == 2:
+            lo_d = ext_lo[d] - spec.small[d]
+        elif spec.lo_style[d] == 3:
+            lo_d = torch.clamp(ext_lo[d] - spec.small[d], max=spec.min_lo[d])
+        if spec.hi_style[d] == 2:
+            hi_d = ext_hi[d] + spec.small[d]
+        elif spec.hi_style[d] == 3:
+            hi_d = torch.clamp(ext_hi[d] + spec.small[d], min=spec.min_hi[d])
+        los.append(lo_d)
+        his.append(hi_d)
+    return Box(lo=torch.stack(los), hi=torch.stack(his),
+               periodic=box.periodic)

@@ -22,9 +22,12 @@ integrators read the kinetic energy once per chain update (rigid/nvt once
 a step, in initial_integrate, with the rigid barostat's strain rate under
 rigid/npt, and that alone under rigid/nph; nvt twice, once in each half;
 npt and nph not at all), and the dense route's CG reads its residual once
-an iteration.  Neighbour lists,
-shrink-wrapped boxes, fix deform, fix tmd and rRESPA are not ported;
-asking for them raises NotImplementedError.
+an iteration.  A shrink-wrapped box (`shrink`, a box.ShrinkSpec) is
+reset to the atoms' extent at setup and at every rebuild the schedule
+takes, before the grid is built (Domain::reset_box; the dense route
+rebuilds nothing, so there only setup resets it), as in the JAX package.
+Neighbour lists, fix deform, fix tmd and rRESPA are not ported; asking
+for them raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -202,7 +205,15 @@ def _nlist_of(carry):
     return None if carry is None else carry.nlist
 
 
-def _setup_forces(sys, ff, *, neighbor_cfg, post_force=None):
+def _shrink(sys, shrink):
+    if shrink is None:
+        return sys
+    return sys.replace(box=box_mod.reset_box(sys.x, sys.mask, sys.box,
+                                             shrink))
+
+
+def _setup_forces(sys, ff, *, neighbor_cfg, post_force=None, shrink=None):
+    sys = _shrink(sys, shrink)
     nlist = None
     if neighbor_cfg is not None:
         x, image = box_mod.wrap(sys.x, sys.box, sys.image)
@@ -215,7 +226,8 @@ def _setup_forces(sys, ff, *, neighbor_cfg, post_force=None):
     return sys, res, nlist
 
 
-def _rebuild(sys, nc, neighbor_cfg):
+def _rebuild(sys, nc, neighbor_cfg, shrink=None):
+    sys = _shrink(sys, shrink)
     x, image = box_mod.wrap(sys.x, sys.box, sys.image)
     sys = sys.replace(x=x, image=image)
     new = _build_struct(sys, neighbor_cfg)
@@ -228,7 +240,7 @@ def _rebuild(sys, nc, neighbor_cfg):
 def _run_chunk(sys, res, nlist, istate, ff, iparams, *, nsteps, initial,
                final, neighbor_cfg, rebuild_every, post_force=None,
                end_of_step=None, every_step_ev=True, check=False, skin=0.0,
-               delay=0, post_integrate=None):
+               delay=0, post_integrate=None, shrink=None):
     for _ in range(nsteps):
         sys, istate = initial(sys, res, iparams, istate)
         if post_integrate is not None:
@@ -246,7 +258,7 @@ def _run_chunk(sys, res, nlist, istate, ff, iparams, *, nsteps, initial,
                 disp2 = torch.where(sys.mask, disp2, 0.0)
                 need = bool(torch.max(disp2) > (0.5 * skin) ** 2)
             if need:
-                sys, nlist = _rebuild(sys, nlist, neighbor_cfg)
+                sys, nlist = _rebuild(sys, nlist, neighbor_cfg, shrink)
 
         res = compute_forces(sys, ff, _nlist_of(nlist),
                              need_ev=every_step_ev)
@@ -291,24 +303,27 @@ class Runner:
     check: bool = False
     skin: float = 0.0
     delay: int = 0
-    # not ported: shrink-wrapped faces, fix deform, fix tmd
+    # shrink-wrapped faces (a box.ShrinkSpec): reset at setup and at every
+    # rebuild (Domain::reset_box, domain.cpp:358)
     shrink: Optional[Any] = None
+    # not ported: fix deform, fix tmd
     deform: Optional[Any] = None
     tmd_hook: Optional[Callable] = None
 
     def __post_init__(self):
-        for name in ("shrink", "deform", "tmd_hook"):
+        for name in ("deform", "tmd_hook"):
             if getattr(self, name) is not None:
                 raise NotImplementedError(
                     f"Runner({name}=...) is not ported (ROADMAP queue 1 "
-                    f"item 6, breadth)")
+                    f"item 6.1, the modifier fixes)")
 
     def setup(self, sys: System):
         """Initial force evaluation (Verlet::setup).  Returns (sys, res,
         nlist, istate)."""
         sys, res, nlist = _setup_forces(
             sys, self.ff, neighbor_cfg=self.neighbor_cfg,
-            post_force=self.post_force_setup or self.post_force)
+            post_force=self.post_force_setup or self.post_force,
+            shrink=self.shrink)
         if self.integ.init_state_res is not None:
             sys, istate = self.integ.init_state_res(sys, res,
                                                     self.integ.params)
@@ -326,7 +341,7 @@ class Runner:
             rebuild_every=self.rebuild_every, post_force=self.post_force,
             end_of_step=self.end_of_step, every_step_ev=self.every_step_ev,
             check=self.check, skin=self.skin, delay=self.delay,
-            post_integrate=self.post_integrate)
+            post_integrate=self.post_integrate, shrink=self.shrink)
 
 
 class RespaRunner:

@@ -23,9 +23,13 @@ sections, special_bonds charmm|amber|fene, the lj/charmm pair styles with
 the four-argument pair_coeff, fix shake and fix rattle), bench/in.chain
 (atom_style bond, fix langevin), the modifier fixes of
 styles/fix_modifiers.py, bench/in.eam (pair_style eam, eam/alloy and
-eam/fs with their potential files; set type/fraction), and examples/min
+eam/fs with their potential files; set type/fraction), examples/min
 (dimension 2, fix enforce2d, displace_atoms, and minimize with min_style,
-min_modify and fix box/relax: integrate/minimize.py);
+min_modify and fix box/relax: integrate/minimize.py), and examples/crack,
+flow and obstacle (boundary f, s and m with the shrink-wrapped box, the
+region styles, group region|union|subtract, set ... type, delete_atoms,
+velocity ramp and velocity create ... temp, thermo_modify temp, fix_modify
+temp, and the walls, indent and move of styles/fix_modifiers.py);
 every other command, style or keyword raises NotImplementedError naming
 itself and the ROADMAP item that ports it, and is never ignored.
 """
@@ -54,6 +58,7 @@ _NUM_RE = re.compile(r"^[\d eE+\-*/().]+$")
 # where the commands, styles and keywords this interpreter lacks are queued
 _FRONT_END = "ROADMAP queue 1 item 4, the script front end"
 _BREADTH = "ROADMAP queue 1 item 6, breadth"
+_TRICLINIC = "ROADMAP queue 1 item 6.4, triclinic boxes"
 
 # thermo keywords the port's thermo row gives (thermo.thermo_row and
 # Simulation._thermo_row)
@@ -81,7 +86,9 @@ FIX_STYLES = ("nve", "nvt", "npt", "nph", "rigid", "rigid/nve", "rigid/nvt",
               "aveforce", "spring", "spring/self", "viscous", "efield",
               "planeforce", "lineforce", "momentum", "recenter",
               "temp/rescale", "temp/berendsen", "temp/csld", "enforce2d",
-              "box/relax")
+              "box/relax", "wall/reflect", "wall/lj93", "wall/lj126",
+              "wall/lj1043", "wall/harmonic", "wall/region", "indent",
+              "move")
 # where the fix styles the port lacks are queued: the modifier fixes of
 # the JAX package's styles/fix_modifiers.py, and the others by their item
 _MODIFIERS = "ROADMAP queue 1 item 6.1, the modifier fixes"
@@ -204,12 +211,18 @@ class LammpsScript:
         self.neigh_exclude_types: list = []
         self.atom_style = "atomic"
         self.dimension = 3
-        self.periodic = (True, True, True)
+        # boundary: each dimension's (lo, hi) face styles p, f, s or m;
+        # the box create_box made, before the `s` faces' expansion (the
+        # shrink-wrap's `small` and the `m` faces' limits)
+        self.boundary_styles = [("p", "p")] * 3
+        self._created_box = None
         self.data = None             # DataFile
         self.lattice_style = None
         self.lattice_spacing3 = None   # (3,) of the lattice command
-        # region ID -> (xlo, xhi, ylo, yhi, zlo, zhi) of a block, in the
-        # region's units; region ID -> {"side": in|out, "units": ...}
+        # region ID -> its arguments, in the region's units: the block's
+        # (xlo, xhi, ylo, yhi, zlo, zhi), else (style, *args) and for
+        # union and intersect (style, *sub-region IDs); region ID ->
+        # {"side": in|out, "units": lattice|box}
         self.regions: dict[str, tuple] = {}
         self._region_kw: dict[str, dict] = {}
         self.box_lo = None
@@ -272,6 +285,10 @@ class LammpsScript:
         self._gewald_override = None  # kspace_modify gewald
         self._thermo_norm = None
         self._thermo_float_format = None
+        # thermo_modify temp ID: the temp compute the thermo temperature,
+        # KE and pressure follow; fix_modify ID temp ID by fix
+        self._thermo_temp = None
+        self._fix_modify: dict = {}
         # min_style, min_modify dmax, and each minimize's (energy,
         # iterations, converged)
         self._min_style = "cg"
@@ -533,8 +550,36 @@ class LammpsScript:
         self.dt = float(a[0])
 
     def cmd_boundary(self, a):
-        if any(tok != "p" for tok in a):
-            _unported(f"boundary {' '.join(a)} (p p p only)", _BREADTH)
+        """boundary X Y Z, each p, f, s or m or a two-letter per-face form
+        (domain.cpp:418-460); p takes both faces of a dimension."""
+        styles = []
+        for tok in a[:3]:
+            tok = tok if len(tok) == 2 else tok + tok
+            for c in tok:
+                if c not in "pfsm":
+                    raise ValueError(f"illegal boundary style {tok!r}")
+            if "p" in tok and tok != "pp":
+                raise ValueError("both faces of a dim must be periodic")
+            styles.append((tok[0], tok[1]))
+        while len(styles) < 3:
+            styles.append(("p", "p"))
+        self.boundary_styles = styles
+
+    @property
+    def periodic(self):
+        return tuple(st == ("p", "p") for st in self.boundary_styles)
+
+    def _apply_initial_box(self):
+        """Domain::set_initial_box (domain.cpp:204-224): the created box
+        kept for the shrink-wrap, and each `s` face moved outward by small
+        = 1e-4 of the created length."""
+        self._created_box = (self.box_lo.copy(), self.box_hi.copy())
+        small = 1.0e-4 * (self.box_hi - self.box_lo)
+        for d, (lo_s, hi_s) in enumerate(self.boundary_styles):
+            if lo_s == "s":
+                self.box_lo[d] -= small[d]
+            if hi_s == "s":
+                self.box_hi[d] += small[d]
 
     def cmd_atom_style(self, a):
         # bond, angle and molecular read `id mol type x y z` (no charge)
@@ -638,51 +683,140 @@ class LammpsScript:
             return np.ones(3)
         return np.asarray(self.lattice_spacing3, float)
 
+    # the arguments of each region style (region_*.cpp)
+    _REGION_NARGS = {"block": 6, "sphere": 4, "prism": 9, "cylinder": 6,
+                     "cone": 7, "plane": 6}
+
     def cmd_region(self, a):
-        """region ID block xlo xhi ylo yhi zlo zhi [side in|out] [units
-        lattice|box] (region.cpp options, region_block.cpp)."""
+        """region ID STYLE args [side in|out] [units lattice|box]
+        (region.cpp options; region_block, sphere, cylinder, cone, plane,
+        prism, union and intersect.cpp).  INF and -INF bounds stand for
+        no bound.  A prism takes no membership test (the JAX package's
+        has none) and makes no box: the port's box is orthogonal."""
         name, style = a[0], a[1]
-        if style != "block":
-            _unported(f"region style {style} (block only)", _BREADTH)
-        self.regions[name] = tuple(float(v) for v in a[2:8])
-        kw = {"side": "in", "units": "lattice"}
-        i = 8
-        while i < len(a):
-            if a[i] == "side" and a[i + 1] in ("in", "out"):
-                kw["side"] = a[i + 1]
-            elif a[i] == "units" and a[i + 1] in ("lattice", "box"):
-                kw["units"] = a[i + 1]
+        if style in ("union", "intersect"):
+            cnt = int(a[2])
+            subs = a[3:3 + cnt]
+            for sub in subs:
+                if sub not in self.regions:
+                    raise ValueError(f"region {name}: region {sub} does "
+                                     "not exist")
+            tail = a[3 + cnt:]
+            self.regions[name] = (style,) + tuple(subs)
+        elif style in self._REGION_NARGS:
+            k = self._REGION_NARGS[style]
+            toks = a[2:2 + k]
+            if len(toks) != k:
+                raise ValueError(f"Illegal region {style} command")
+            if style in ("cylinder", "cone"):
+                if toks[0] not in ("x", "y", "z"):
+                    raise ValueError(f"Illegal region {style} axis")
+                vals = [toks[0]] + [float(v) for v in toks[1:]]
             else:
-                _unported(f"region keyword {' '.join(a[i:i + 2])}", _BREADTH)
+                vals = [float(v) for v in toks]
+            tail = a[2 + k:]
+            self.regions[name] = (tuple(vals) if style == "block"
+                                  else (style,) + tuple(vals))
+        else:
+            _unported(f"region style {style}", _BREADTH)
+        kw = {"side": "in", "units": "lattice"}
+        i = 0
+        while i < len(tail):
+            if tail[i] == "side" and tail[i + 1:i + 2] in (["in"], ["out"]):
+                kw["side"] = tail[i + 1]
+            elif tail[i] == "units" and tail[i + 1:i + 2] in (["lattice"],
+                                                           ["box"]):
+                kw["units"] = tail[i + 1]
+            else:
+                _unported(f"region keyword {' '.join(tail[i:i + 2])}",
+                          _BREADTH)
             i += 2
         self._region_kw[name] = kw
 
-    def _region_mask(self, name, x):
-        """Which of the points x lie in block region `name` (bounds
-        inclusive, region_block.cpp inside(); side out inverts)."""
-        kw = self._region_kw[name]
-        s3 = np.ones(3) if kw["units"] == "box" else self._spacing3()
-        lo_hi = np.asarray(self.regions[name], float) * np.repeat(s3, 2)
-        sel = np.ones(x.shape[0], bool)
-        for d in range(3):
-            # INF as a lower bound is minus infinity
-            lo = -np.inf if np.isinf(lo_hi[2 * d]) else lo_hi[2 * d]
-            sel &= (x[:, d] >= lo) & (x[:, d] <= lo_hi[2 * d + 1])
-        return ~sel if kw["side"] == "out" else sel
+    def _region_spacing(self, name):
+        """The scale of a region's arguments: 1 in box units, else the
+        lattice spacings."""
+        return (np.ones(3) if self._region_kw[name]["units"] == "box"
+                else self._spacing3())
+
+    def _region_mask(self, name, x=None):
+        """Which of the points x (the host's x by default) lie in region
+        `name`: bounds inclusive (Region::match through each style's
+        inside()), side out inverting, union and intersect through their
+        sub-regions, as the JAX package's _region_mask tests them."""
+        r = self.regions[name]
+        s3 = self._region_spacing(name)
+        if x is None:
+            x = self.x
+        n = x.shape[0]
+        if not isinstance(r[0], str):
+            lo_hi = np.asarray(r, float) * np.repeat(s3, 2)
+            sel = np.ones(n, bool)
+            for d in range(3):
+                # INF as a lower bound is minus infinity
+                lo = -np.inf if np.isinf(lo_hi[2 * d]) else lo_hi[2 * d]
+                sel &= (x[:, d] >= lo) & (x[:, d] <= lo_hi[2 * d + 1])
+        elif r[0] == "sphere":
+            c = np.array(r[1:4]) * s3
+            rad = r[4] * s3[0]
+            d = x - c
+            sel = np.sum(d * d, axis=1) <= rad * rad
+        elif r[0] in ("cylinder", "cone"):
+            # the axis dim, the centre c1, c2 in the two other dims; a
+            # cone's radius goes linearly from radlo to radhi along it
+            dim = "xyz".index(r[1])
+            d1, d2 = [d for d in range(3) if d != dim]
+            c1, c2 = r[2] * s3[d1], r[3] * s3[d2]
+            rs = s3[(dim + 1) % 3]
+            lo, hi = (r[5], r[6]) if r[0] == "cylinder" else (r[6], r[7])
+            lo, hi = lo * s3[dim], hi * s3[dim]
+            if np.isinf(lo):
+                lo = -np.inf
+            if r[0] == "cylinder":
+                rad = r[4] * rs
+            else:
+                t = np.clip((x[:, dim] - lo) / max(hi - lo, 1e-300), 0.0,
+                            1.0)
+                rad = r[4] * rs + t * (r[5] * rs - r[4] * rs)
+            dd = (x[:, d1] - c1) ** 2 + (x[:, d2] - c2) ** 2
+            sel = (dd <= rad * rad) & (x[:, dim] >= lo) & (x[:, dim] <= hi)
+        elif r[0] == "plane":
+            # inside: the side the normal points to
+            p = np.array(r[1:4]) * s3
+            sel = (x - p) @ np.array(r[4:7]) >= 0.0
+        elif r[0] == "union":
+            sel = np.zeros(n, bool)
+            for sub in r[1:]:
+                sel |= self._region_mask(sub, x)
+        elif r[0] == "intersect":
+            sel = np.ones(n, bool)
+            for sub in r[1:]:
+                sel &= self._region_mask(sub, x)
+        else:
+            raise ValueError(f"region {name}: no membership test for {r[0]}")
+        return ~sel if self._region_kw[name]["side"] == "out" else sel
 
     def cmd_create_box(self, a):
         """create_box N region-ID (create_box.cpp), orthogonal: the box of
         the block scaled by the lattice spacings, as the JAX package's
         create_box scales it whatever the region's units (ROADMAP queue 3
-        item 6)."""
+        item 6); then Domain::set_initial_box (_apply_initial_box)."""
         if len(a) > 2:
             _unported(f"create_box keywords {' '.join(a[2:])}", _BREADTH)
+        r = self.regions[a[1]]
+        if isinstance(r[0], str):
+            if r[0] == "prism":
+                _unported("a triclinic box (create_box of a prism)",
+                          _TRICLINIC)
+            raise ValueError("Create_box region must be of type block or "
+                             "prism")
         self.ntypes = int(a[0])
-        b = np.asarray(self.regions[a[1]], float)
+        b = np.asarray(r, float)
         s3 = self._spacing3()
         self.box_lo = b[0::2] * s3
         self.box_hi = b[1::2] * s3
         self.box_tilt = None
+        self._apply_initial_box()
         self.mass_type = np.zeros(self.ntypes + 1)
         self.alpha_type = np.zeros(self.ntypes + 1)
 
@@ -756,7 +890,7 @@ class LammpsScript:
         d = read_data(os.path.join(self.root, a[0]),
                       atom_style=self.atom_style)
         if d.tilt is not None and np.any(d.tilt != 0.0):
-            _unported("a triclinic box", _BREADTH)
+            _unported("a triclinic box", _TRICLINIC)
         self.data = d
         self.ntypes = d.ntypes
         self.box_lo, self.box_hi = d.box_lo, d.box_hi
@@ -897,16 +1031,22 @@ class LammpsScript:
             hit = self._set_selector(a[0], a[1]) & (
                 park_geom_streams(seed, self.x).uniform() <= frac)
             self.type = np.where(hit, newtype, self.type).astype(np.int32)
+        elif a[2] == "type" and len(a) == 4:
+            # set group|type|region|atom X type N (set.cpp TYPE)
+            self.type = np.where(self._set_selector(a[0], a[1]), int(a[3]),
+                                 self.type).astype(np.int32)
         else:
             _unported(f"set {' '.join(a)}", _BREADTH)
 
     def _set_selector(self, style, ident):
-        """set.cpp selection styles: atom (id range), type, group."""
+        """set.cpp selection styles: atom (id range), type, group, region."""
         n = len(self.x)
         if style == "group":
             return self.groups[ident].copy()
         if style == "type":
             return self.type == int(ident)
+        if style == "region":
+            return self._region_mask(ident)
         if style == "atom":
             ids = np.arange(1, n + 1)
             if "*" in ident:
@@ -1236,8 +1376,18 @@ class LammpsScript:
                 sel = np.isin(self.type, [int(v) for v in a[2:]])
         elif a[1] == "id":
             sel = np.isin(np.arange(1, n + 1), [int(v) for v in a[2:]])
+        elif a[1] == "region":
+            sel = self._region_mask(a[2])
+        elif a[1] == "union":
+            sel = np.zeros(n, bool)
+            for gname in a[2:]:
+                sel |= self.groups[gname]
+        elif a[1] == "subtract":
+            sel = self.groups[a[2]].copy()
+            for gname in a[3:]:
+                sel &= ~self.groups[gname]
         else:
-            _unported(f"group style {a[1]}", _BREADTH)
+            _unported(f"group style {a[1]}", _FRONT_END)
         self.groups[name] = sel
 
     def cmd_thermo_style(self, a):
@@ -1269,6 +1419,16 @@ class LammpsScript:
         while i < len(a):
             if a[i] == "norm":
                 self._thermo_norm = _yesno(a[i + 1])
+                i += 2
+            elif a[i] == "temp":
+                # thermo_modify temp ID (thermo.cpp modify_params): the
+                # thermo temperature, KE and the pressure's kinetic part
+                # follow this compute's group and dof (sim.py)
+                if a[i + 1] not in self.computes:
+                    raise ValueError("Could not find thermo_modify "
+                                     f"temperature ID {a[i + 1]}")
+                self._thermo_temp = a[i + 1]
+                self._invalidate()
                 i += 2
             elif a[i] == "format" and a[i + 1] in ("float", "none"):
                 # thermo_modify format float FMT (thermo.cpp:586)
@@ -1341,12 +1501,16 @@ class LammpsScript:
             m = self.mass_type[self.type][gm]
             self.v[gm] -= (m[:, None] * self.v[gm]).sum(0) / m.sum()
             return
+        if a[1] == "ramp":
+            self._velocity_ramp(gm, a)
+            return
         if a[1] != "create":
-            _unported(f"velocity {a[1]}", _BREADTH)
+            _unported(f"velocity {a[1]}", _FRONT_END)
         t_desired, seed = float(a[2]), int(a[3])
         # velocity.cpp options() defaults: dist uniform, loop all, mom yes,
         # rot no
         kw = dict(dist="uniform", loop="all", momentum=True, rotation=False)
+        temp_group = None
         i = 4
         while i < len(a):
             k, v = a[i], a[i + 1]
@@ -1356,6 +1520,13 @@ class LammpsScript:
                 kw["momentum"] = _yesno(v)
             elif k == "rot":
                 kw["rotation"] = _yesno(v)
+            elif k == "temp":
+                # rescaled by this temp compute's group and its dof,
+                # dim*N - dim (velocity.cpp; the JAX package's :2110)
+                if v not in self.computes:
+                    raise ValueError(f"Could not find velocity temperature "
+                                     f"ID {v}")
+                temp_group = self.groups[self.computes[v][0]]
             elif k != "units":
                 _unported(f"velocity create keyword {k}", _BREADTH)
             i += 2
@@ -1363,7 +1534,33 @@ class LammpsScript:
             self.x, self.mass_type[self.type], t_desired, seed,
             units=self.units, image=self.image,
             box_lengths=self.box_hi - self.box_lo, dim=self.dimension,
-            group=None if group == "all" else gm, v_prev=self.v, **kw)
+            group=None if group == "all" else gm, v_prev=self.v,
+            temp_group=temp_group, **kw)
+
+    def _velocity_ramp(self, gm, a):
+        """velocity group ramp vdim vlo vhi cdim clo chi [sum yes|no]
+        [units lattice|box] (velocity.cpp:631): in lattice units, the
+        default, the velocities scale by the spacing along vdim and the
+        coordinates by the spacing along cdim."""
+        s3 = self._spacing3()
+        v_dim = ("vx", "vy", "vz").index(a[2])
+        c_dim = "xyz".index(a[5])
+        sum_flag = False
+        units_box = False
+        i = 8
+        while i < len(a):
+            if a[i] == "sum":
+                sum_flag = _yesno(a[i + 1])
+            elif a[i] == "units" and a[i + 1] in ("box", "lattice"):
+                units_box = a[i + 1] == "box"
+            else:
+                _unported(f"velocity ramp keyword {a[i]}", _FRONT_END)
+            i += 2
+        vs = 1.0 if units_box else s3[v_dim]
+        cs = 1.0 if units_box else s3[c_dim]
+        self.v = velocity_mod.ramp(
+            self.x, self.v, gm, v_dim, float(a[3]) * vs, float(a[4]) * vs,
+            c_dim, float(a[6]) * cs, float(a[7]) * cs, sum_flag)
 
     def cmd_fix(self, a):
         fid, group, style = a[0], a[1], a[2]
@@ -1385,7 +1582,31 @@ class LammpsScript:
         self.computes[cid] = (group, style)
 
     def cmd_fix_modify(self, a):
-        _unported(f"fix_modify {' '.join(a)}", _MODIFIERS)
+        """fix_modify ID temp COMPUTE-ID (fix.cpp modify_params) on fix
+        temp/rescale or temp/berendsen: the fix's temperature takes the
+        compute's group and dof (sim.py; the JAX package's sim.py
+        :1839-1846).  The JAX package stores every other keyword, and
+        `temp` on every other fix style, and reads them nowhere: the port
+        raises on them (ROADMAP queue 3 item 11)."""
+        fid = a[0]
+        if fid not in self.fixes:
+            raise ValueError(f"Could not find fix_modify ID {fid}")
+        style = self.fixes[fid].style
+        kw = {}
+        i = 1
+        while i < len(a):
+            if a[i] != "temp" or style not in ("temp/rescale",
+                                                "temp/berendsen"):
+                _unported(f"fix_modify {a[i]} on fix {style} (the JAX "
+                          "package stores it unread: ROADMAP queue 3 item "
+                          "11)", _MODIFIERS)
+            if a[i + 1] not in self.computes:
+                raise ValueError("Could not find fix_modify temperature "
+                                 f"ID {a[i + 1]}")
+            kw["temp"] = a[i + 1]
+            i += 2
+        self._fix_modify.setdefault(fid, {}).update(kw)
+        self._invalidate()
 
     def cmd_unfix(self, a):
         self.fixes.pop(a[0], None)
@@ -1582,6 +1803,100 @@ class LammpsScript:
                 self.image[:, dim] += shift.astype(self.image.dtype)
         self.x = x
 
+    def cmd_delete_atoms(self, a):
+        """delete_atoms region ID | group ID | overlap cut group1 group2 |
+        porosity region-ID frac seed (delete_atoms.cpp; the JAX package's
+        script.py:2191-2294): every per-atom host array and the groups
+        compacted, the survivors keeping their order.  With bonds (or any
+        topology) present it raises, as the JAX package does."""
+        self._invalidate()
+        nargs = {"region": 2, "group": 2, "overlap": 4, "porosity": 4}
+        if a[0] not in nargs:
+            _unported(f"delete_atoms {a[0]}", _FRONT_END)
+        if len(a) > nargs[a[0]]:
+            _unported(f"delete_atoms keywords {' '.join(a[nargs[a[0]]:])}",
+                      _FRONT_END)
+        if a[0] == "region":
+            kill = self._region_mask(a[1])
+        elif a[0] == "group":
+            kill = self.groups[a[1]].copy()
+        elif a[0] == "overlap":
+            kill = self._delete_overlap(float(a[1]), a[2], a[3])
+        else:
+            kill = self._delete_porosity(a[1], float(a[2]), int(a[3]))
+        if any(t is not None and len(t) for t in (
+                self._bonds, self._angles, self._dihedrals, self._impropers)):
+            raise NotImplementedError("delete_atoms with bonds present")
+        keep = ~kill
+        for attr in ("x", "v", "q", "type", "mol", "image"):
+            setattr(self, attr, np.asarray(getattr(self, attr))[keep])
+        self.groups = {k: np.asarray(v)[keep]
+                       for k, v in self.groups.items()}
+        self.log(f"Deleted {int(kill.sum())} atoms, "
+                 f"new total = {self.x.shape[0]}")
+
+    def _delete_overlap(self, cut, g1, g2):
+        """delete_atoms overlap (DeleteAtoms::delete_overlap, serial): in
+        index order, atom i of group1 is deleted when an atom j of group2
+        lies within cut and j is not deleted yet.  A pair found across a
+        periodic face has j a ghost (delete_atoms.cpp:404-407): if i is in
+        group2 and j in group1, only the lower index dies; otherwise i
+        dies whatever j's state.  No topology, so no special pair to
+        skip; the JAX package's sweep."""
+        x = np.asarray(self.x, np.float64)
+        n = x.shape[0]
+        if self._bonds is not None and len(self._bonds):
+            raise NotImplementedError("delete_atoms overlap with bonds")
+        in1 = np.asarray(self.groups[g1], bool)
+        in2 = np.asarray(self.groups[g2], bool)
+        L = (self.box_hi - self.box_lo).astype(np.float64)
+        per = np.asarray(self.periodic, bool)
+        cutsq = cut * cut
+        neigh = [[] for _ in range(n)]
+        chunk = max(1, min(n, 4_000_000 // max(n, 1) + 1))
+        for s in range(0, n, chunk):
+            e = min(n, s + chunk)
+            d = x[s:e, None, :] - x[None, :, :]
+            crossed = np.zeros(d.shape[:2], bool)
+            for k in range(3):
+                if per[k]:
+                    shift = np.round(d[:, :, k] / L[k])
+                    d[:, :, k] -= L[k] * shift
+                    crossed |= shift != 0
+            rsq = (d * d).sum(-1)
+            ii, jj = np.nonzero((rsq < cutsq) & in1[s:e, None]
+                                & in2[None, :])
+            ghost = crossed[ii, jj]
+            ii += s
+            own = ii != jj
+            for i, j, g in zip(ii[own], jj[own], ghost[own]):
+                neigh[i].append((j, bool(g)))
+        dlist = np.zeros(n, bool)
+        for i in range(n):
+            for j, ghost in neigh[i]:
+                if not ghost:
+                    if dlist[j]:
+                        continue
+                elif in2[i] and in1[j] and i > j:
+                    continue
+                dlist[i] = True
+                break
+        return dlist
+
+    def _delete_porosity(self, region, frac, seed):
+        """delete_atoms porosity (delete_atoms.cpp:420): one RanMars(seed)
+        uniform per atom of the region, in atom order; deleted when it is
+        <= frac."""
+        from lidp_tpu_torch.rng import RanMars
+
+        rng = RanMars(seed)
+        inside = np.asarray(self._region_mask(region), bool)
+        dlist = np.zeros(inside.shape[0], bool)
+        for i in np.nonzero(inside)[0]:
+            if rng.uniform() <= frac:
+                dlist[i] = True
+        return dlist
+
     def cmd_run(self, a):
         nsteps = int(a[0])
         if len(a) > 1:
@@ -1682,7 +1997,7 @@ class _ExprCtx:
         return np.asarray(self.s.groups[name], bool)
 
     def region_mask(self, name):
-        _unported("regions", _BREADTH)
+        return np.asarray(self.s._region_mask(name), bool)
 
     def group_func(self, word, raw):
         """Group functions (variable.cpp:3669-3911) on the host arrays."""

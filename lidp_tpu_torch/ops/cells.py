@@ -41,8 +41,8 @@ def perp_widths(lengths, tilt=None):
     the edge lengths of an orthogonal box."""
     if tilt is not None and np.any(np.asarray(tilt, float) != 0.0):
         raise NotImplementedError(
-            "triclinic boxes are not ported (ROADMAP queue 1 item 6, "
-            "breadth)")
+            "triclinic boxes are not ported (ROADMAP queue 1 item 6.4, "
+            "triclinic boxes)")
     return np.asarray(lengths, float)
 
 

@@ -20,7 +20,13 @@ the thermostats' dof lose too), the modifier fixes' post_force and
 end_of_step hooks (rattle's velocity projection, the deferred temp/rescale
 and temp/berendsen on their group's dof), the group temperatures of `compute ID
 group temp`, in 2d (dimension 2) dim*N - dim dof and the pressure over the
-area; then `run` (each run the window of the thermostats' and
+area, the thermo temperature of `thermo_modify temp` (that compute's group
+and dof for Temp, KE, TotEng and the pressure's kinetic part), and the
+shrink-wrapped box of `boundary s` or `m` after create_box (a
+box.ShrinkSpec the Runner resets the box with at setup and, on the cell
+grid, at every rebuild; its static bins can then grow thinner than the
+cutoff, which sets the grid's overflow flag, and the run aborts as the
+JAX package's does); then `run` (each run the window of the thermostats' and
 barostats' target ramps), the thermo rows with their c_ID columns and the
 dump frames.  Under a barostat the Ewald tables follow the live box
 (ForceField.kspace_dynamic), PPPM reads it at each call, and the Runner
@@ -238,6 +244,28 @@ def _compose_pi(hooks):
         return sys_
 
     return post_integrate
+
+
+def shrink_spec(script):
+    """The ShrinkSpec of the script's boundary (the JAX package's
+    sim.py:1933-1947): face codes p and f 0, s 2, m 3; small 1e-4 of the
+    created box's length, the `m` faces' limits the created box's.  None
+    without a shrink-wrapped face or a box from create_box (a read_data
+    box is not shrink-wrapped, as in the JAX package)."""
+    from lidp_tpu_torch.box import ShrinkSpec
+
+    if script._created_box is None:
+        return None
+    code = {"p": 0, "f": 0, "s": 2, "m": 3}
+    lo_c = tuple(code[st[0]] for st in script.boundary_styles)
+    hi_c = tuple(code[st[1]] for st in script.boundary_styles)
+    if not any(c in (2, 3) for c in lo_c + hi_c):
+        return None
+    c_lo, c_hi = script._created_box
+    return ShrinkSpec(lo_style=lo_c, hi_style=hi_c,
+                      small=tuple(float(v) for v in 1.0e-4 * (c_hi - c_lo)),
+                      min_lo=tuple(float(v) for v in c_lo),
+                      min_hi=tuple(float(v) for v in c_hi))
 
 
 def polarization_settings(p) -> pol_ops.PolarizationSettings:
@@ -513,7 +541,8 @@ class Simulation:
                                           if fctx.pf_hooks_setup
                                           != fctx.pf_hooks else None),
                         end_of_step=_compose_eos(fctx),
-                        post_integrate=_compose_pi(fctx.pi_hooks))
+                        post_integrate=_compose_pi(fctx.pi_hooks),
+                        shrink=shrink_spec(script))
         if dense:
             if above_cap and polar:
                 script.log(_ABOVE_CAP)
@@ -538,6 +567,18 @@ class Simulation:
             mass_atom, dof=dof, units=u,
             norm=(u.name == "lj") if norm is None else norm, natoms=n,
             dim=dim_, dtype=dtype, device=device)
+        if script._thermo_temp is not None:
+            # thermo_modify temp ID: Temp, KE, TotEng and the pressure's
+            # kinetic part follow the compute's group, its dof dim*ng - dim
+            # less every fix's removed dof; the norm is the units' default
+            # and natoms stay global (the JAX package's sim.py:2153-2162)
+            tgmask = groups[script.computes[script._thermo_temp][0]]
+            ngt = int(np.count_nonzero(tgmask))
+            tp = ThermoParams.create(
+                np.where(tgmask, mass_atom, 0.0),
+                dof=dim_ * ngt - dim_ - fctx.dof_removed, units=u,
+                norm=u.name == "lj", natoms=n, dim=dim_, dtype=dtype,
+                device=device)
         # compute ID group temp: the group's dof is dim*ng - dim, less a
         # rigid fix's removed dof when all its bodies lie in the group (the
         # JAX package's rule, its sim.py:2126-2151)

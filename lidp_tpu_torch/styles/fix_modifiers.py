@@ -4,8 +4,10 @@ appends its hooks to the FixBuildCtx sinks.
     setup pass unless noted: the constraint fixes shake and rattle (their
     setup variant takes dtfsq/2; rattle's velocity stage goes to
     ctx.rattle_params), setforce, enforce2d, langevin, addforce, aveforce,
-    spring/self, viscous, efield, spring (tether and couple), planeforce
-    and lineforce;
+    spring/self, viscous, efield, spring (tether and couple), planeforce,
+    lineforce, the flat walls wall/lj93, wall/lj126, wall/lj1043 and
+    wall/harmonic, wall/region and indent;
+  * post_integrate, fn(sys) -> sys: wall/reflect and move;
   * end_of_step, fn(sys, res) -> sys: momentum, recenter and temp/csld;
   * temp/rescale and temp/berendsen, which Simulation.from_script builds
     after the fix loop from ctx.pending_temp_fix (their dof needs every
@@ -15,7 +17,10 @@ fix langevin and temp/csld draw from jax.random's stream (threefry.py),
 keyed on the seed and sys.step as the JAX builders key theirs.  Where a
 JAX builder reads fewer arguments than LAMMPS takes, the port raises on
 the rest (ROADMAP queue 3 item 11).  The JAX module's other styles are
-not ported (ROADMAP queue 1 item 6.1): io/script.py refuses them.
+not ported (ROADMAP queue 1 item 6.1): io/script.py refuses them.  The
+walls, indent and move take their coordinates as the JAX builders read
+them: the walls and move in box units, indent in lattice units (ROADMAP
+queue 3 item 22).
 """
 
 from __future__ import annotations
@@ -435,27 +440,31 @@ def temp_fix_end_of_step(ctx, spec):
     """fix temp/rescale N Tstart Tstop window fraction
     (fix_temp_rescale.cpp) and temp/berendsen Tstart Tstop damp
     (fix_temp_berendsen.cpp) at the end of the step, as the JAX package
-    builds them (its sim.py:1833-1896): the temperature of the fix's group
-    on dof = dim ng - dim less the shake constraints with both atoms in
-    the group and the dof of a rigid fix whose bodies all lie in it; the
-    target is Tstart (no ramp).  rescale scales the group's velocities by
-    sqrt(1 + fraction (T/Tcur - 1)) every N steps when |Tcur - T| >
+    builds them (its sim.py:1833-1896): the temperature of the fix's group,
+    or of the temp compute's group that `fix_modify ID temp` names, on dof
+    = dim ng - dim less the shake constraints with both atoms in that
+    group and the dof of a rigid fix whose bodies all lie in it; the
+    target is Tstart (no ramp).  rescale scales the fix group's velocities
+    by sqrt(1 + fraction (T/Tcur - 1)) every N steps when |Tcur - T| >
     window; berendsen by sqrt(1 + dt/damp (T/Tcur - 1)) every step."""
-    u, a = ctx.u, spec.args
-    tgrp = ctx.script.groups[spec.group]
+    u, a, script = ctx.u, spec.args, ctx.script
+    tmod = script._fix_modify.get(spec.fid, {}).get("temp")
+    tname = script.computes[tmod][0] if tmod is not None else spec.group
+    tgrp = script.groups[tname]
     rm = 0.0
     if ctx.shake_pairs is not None:
         pa, qa = ctx.shake_pairs
         rm += int(np.count_nonzero(tgrp[pa] & tgrp[qa]))
     for _, rsetup in ctx.rigid_groups:
-        if np.all(ctx.groups[spec.group][rsetup.body_of_atom >= 0]):
+        if np.all(ctx.groups[tname][rsetup.body_of_atom >= 0]):
             rm += rsetup.dof_removed
     dof = ctx.dim * int(np.count_nonzero(tgrp)) - ctx.dim - rm
     g = _group(ctx, spec)
+    tg = _group(ctx, spec, tname)
     m = _masses(ctx)
 
     def t_cur(sys_):
-        mg = torch.where(sys_.mask & g, m, 0.0)
+        mg = torch.where(sys_.mask & tg, m, 0.0)
         return u.mvv2e * torch.sum(mg[:, None] * sys_.v * sys_.v) \
             / (dof * u.boltz)
 
@@ -559,3 +568,302 @@ def shake_pre_pass(script, mass_atom):
         angle_keep = np.ones(len(script._angles), bool)
         angle_keep[found[6]] = False
     return found, cfg, bond_keep, angle_keep
+
+
+_FACES = ("xlo", "xhi", "ylo", "yhi", "zlo", "zhi")
+
+
+def _wall_faces(spec, nvals):
+    """The faces of a wall fix: (dim, +1 for a lo face or -1 for hi, and
+    the face's nvals numbers, its coordinate first), read as the JAX
+    builders read them, in box units.  `units box` is their reading too;
+    a coordinate EDGE, CONSTANT or a variable and any other keyword raise,
+    where the JAX builders fail or skip them."""
+    a = spec.args
+    faces = []
+    i = 0
+    while i < len(a):
+        if a[i] in _FACES:
+            vals = a[i + 1:i + 1 + nvals]
+            try:
+                nums = [float(v) for v in vals]
+            except ValueError:
+                raise NotImplementedError(
+                    f"fix {spec.style} {a[i]} {' '.join(vals)}: a face takes "
+                    "numbers only (EDGE, CONSTANT and variables are not "
+                    "ported: ROADMAP queue 1 item 6.1, the modifier fixes)"
+                ) from None
+            faces.append(("xyz".index(a[i][0]),
+                          1.0 if a[i].endswith("lo") else -1.0, *nums))
+            i += 1 + nvals
+        elif a[i:i + 2] == ["units", "box"]:
+            i += 2
+        else:
+            _nargs(spec, i)
+    if not faces:
+        raise ValueError(f"Illegal fix {spec.style} command")
+    return faces
+
+
+def _column(d, x):
+    """(1, 3) bool selecting column d."""
+    return (torch.arange(3, device=x.device) == d)[None, :]
+
+
+@fix_style("wall/reflect")
+def build_wall_reflect(ctx, spec):
+    """fix wall/reflect face coord ... (FixWallReflect::post_integrate,
+    fix_wall_reflect.cpp:188): an atom of the group past a face is
+    mirrored back across it and its velocity component flipped, after the
+    position update."""
+    faces = _wall_faces(spec, 1)
+    g = _group(ctx, spec)
+
+    def wall_reflect(sys_):
+        x_, v_ = sys_.x, sys_.v
+        for d, sgn, coord in faces:
+            past = ((x_[:, d] - coord) * sgn < 0) & g & sys_.mask
+            sel = past[:, None] & _column(d, x_)
+            x_ = torch.where(sel, 2.0 * coord - x_, x_)
+            v_ = torch.where(sel, -v_, v_)
+        return sys_.replace(x=x_, v=v_)
+
+    ctx.pi_hooks.append(wall_reflect)
+
+
+def _flat_wall_force(kind, delta, eps, sig, cut):
+    """The force on an atom at distance delta from a wall, along the
+    wall's normal (fix_wall_lj93.cpp, fix_wall_lj126.cpp,
+    fix_wall_lj1043.cpp, fix_wall_harmonic.cpp, in the JAX builders' form;
+    fix_wall_region.cpp's kernels are the same functions)."""
+    rinv = 1.0 / delta
+    if kind == "lj93":
+        c1 = 6.0 / 5.0 * eps * sig**9
+        c2 = 3.0 * eps * sig**3
+        r4 = rinv**4
+        return c1 * r4 * r4 * rinv * rinv - c2 * r4
+    if kind == "lj126":
+        c1 = 48.0 * eps * sig**12
+        c2 = 24.0 * eps * sig**6
+        r6 = rinv**6
+        return (c1 * r6 - c2) * r6 * rinv
+    if kind == "lj1043":
+        c5 = 8.0 * math.pi * eps * sig**10
+        c6 = 8.0 * math.pi * eps * sig**4
+        c7 = 2.0 * math.pi * math.sqrt(2.0) * eps * sig**3
+        d0 = 0.61 / math.sqrt(2.0) * sig
+        r4 = rinv**4
+        r10 = r4 * r4 * rinv * rinv
+        rs = 1.0 / (delta + d0)
+        return c5 * r10 * rinv - c6 * r4 * rinv - c7 * rs**4
+    # harmonic: E = eps (cut - d)^2, the force toward the interior
+    return 2.0 * eps * (cut - delta)
+
+
+@fix_style("wall/lj93", "wall/lj126", "wall/lj1043", "wall/harmonic")
+def build_wall_flat(ctx, spec):
+    """fix wall/lj93|lj126|lj1043|harmonic face coord eps sigma cutoff ...
+    (fix_wall.cpp's children): on each atom of the group at a distance d
+    from a face with 0 < d < cutoff, the wall's force along its normal,
+    in the run and its setup pass; no energy or virial, as in the JAX
+    builder."""
+    faces = _wall_faces(spec, 4)
+    g = _group(ctx, spec)
+    kind = spec.style.split("/")[1]
+
+    def wall_flat(sys_, f_):
+        for d, sgn, coord, eps, sig, cut in faces:
+            delta = (sys_.x[:, d] - coord) * sgn
+            act = g & sys_.mask & (delta > 0) & (delta < cut)
+            fmag = _flat_wall_force(kind, torch.where(act, delta, 1.0), eps,
+                                    sig, cut)
+            fw = torch.where(act, fmag, 0.0) * sgn
+            f_ = f_ + torch.where(_column(d, f_), fw[:, None], 0.0)
+        return f_, f_.new_zeros(6)
+
+    _post_force(ctx, wall_flat)
+
+
+@fix_style("wall/region")
+def build_wall_region(ctx, spec):
+    """fix wall/region region-ID lj93|lj126|lj1043|harmonic eps sigma
+    cutoff (fix_wall_region.cpp, side in): on each atom of the group
+    within cutoff of a surface of the region (Region::surface_interior of
+    a block's finite faces, a sphere, a cylinder's side and caps), the
+    wall's force along the contact, in the JAX builder's form.  side out
+    and the other region styles raise, as there."""
+    _nargs(spec, 5)
+    a = spec.args
+    rname, kind = a[0], a[1]
+    if kind not in ("lj93", "lj126", "lj1043", "harmonic"):
+        raise NotImplementedError(
+            f"fix wall/region style {kind} is not ported (ROADMAP queue 1 "
+            "item 6.1, the modifier fixes)")
+    eps, sig, cut = float(a[2]), float(a[3]), float(a[4])
+    script = ctx.script
+    reg = script.regions[rname]
+    if script._region_kw[rname]["side"] != "in":
+        raise NotImplementedError(
+            "fix wall/region with a side out region is not ported (the JAX "
+            "package raises too: ROADMAP queue 1 item 6.1, the modifier "
+            "fixes)")
+    s3 = script._region_spacing(rname)
+    g = _group(ctx, spec)
+
+    def axis_contact(x, d, coord, sgn):
+        # a flat face: its distance and the contact vector along d
+        rf = (x[:, d] - coord) * sgn
+        return rf, torch.where(_column(d, x), (rf * sgn)[:, None], 0.0), \
+            torch.ones_like(rf, dtype=torch.bool)
+
+    if isinstance(reg[0], str) and reg[0] == "sphere":
+        c = torch.tensor(np.asarray(reg[1:4], float) * s3, dtype=ctx.dtype,
+                         device=ctx.device)
+        rad = float(reg[4]) * s3[0]
+
+        def contacts(x):
+            d = x - c
+            dist = torch.sqrt(torch.sum(d * d, 1))
+            scale = 1.0 - rad / torch.where(dist > 0, dist, 1.0)
+            return [(rad - dist, d * scale[:, None], dist > 0)]
+    elif isinstance(reg[0], str) and reg[0] == "cylinder":
+        axis = "xyz".index(reg[1])
+        o1, o2 = [d for d in range(3) if d != axis]
+        c1v, c2v = float(reg[2]) * s3[o1], float(reg[3]) * s3[o2]
+        rad = float(reg[4]) * s3[o1]
+        lo_a, hi_a = float(reg[5]) * s3[axis], float(reg[6]) * s3[axis]
+        if not (math.isfinite(lo_a) and math.isfinite(hi_a)):
+            # the JAX builder's cap contact at an INF bound is inf, its
+            # force 0 * inf: NaN on every atom
+            raise NotImplementedError(
+                f"fix wall/region on cylinder {rname} with an INF cap (the "
+                "JAX builder's forces are NaN there: ROADMAP queue 3 item "
+                "22)")
+
+        def contacts(x):
+            d1 = x[:, o1] - c1v
+            d2 = x[:, o2] - c2v
+            dist = torch.sqrt(d1 * d1 + d2 * d2)
+            scale = 1.0 - rad / torch.where(dist > 0, dist, 1.0)
+            dl = torch.where(_column(o1, x), (d1 * scale)[:, None],
+                             torch.where(_column(o2, x),
+                                         (d2 * scale)[:, None], 0.0))
+            return [(rad - dist, dl, dist > 0),
+                    axis_contact(x, axis, lo_a, 1.0),
+                    axis_contact(x, axis, hi_a, -1.0)]
+    elif not isinstance(reg[0], str):
+        # a block: each finite face (an INF bound takes no wall)
+        b = np.asarray(reg, float) * np.repeat(s3, 2)
+        planes = [(d, float(b[2 * d + k]), (1.0, -1.0)[k])
+                  for d in range(3) for k in (0, 1)
+                  if np.isfinite(b[2 * d + k])]
+
+        def contacts(x):
+            return [axis_contact(x, d, coord, sgn)
+                    for d, coord, sgn in planes]
+    else:
+        raise ValueError(f"fix wall/region: region {rname} is a {reg[0]}; "
+                         "the walls take a block, a sphere or a cylinder, "
+                         "as the JAX builder does")
+
+    def wall_region(sys_, f_):
+        for r, dl, ok in contacts(sys_.x):
+            act = g & sys_.mask & ok & (r > 0) & (r < cut)
+            rsafe = torch.where(act, r, 1.0)
+            fw = torch.where(act, _flat_wall_force(kind, rsafe, eps, sig,
+                                                   cut), 0.0)
+            f_ = f_ + fw[:, None] * dl / rsafe[:, None]
+        return f_, f_.new_zeros(6)
+
+    _post_force(ctx, wall_region)
+
+
+@fix_style("indent")
+def build_indent(ctx, spec):
+    """fix indent K sphere x y z R (fix_indent.cpp, the JAX builder's
+    form): on each atom of the group inside the sphere, F = K (R - r)^2
+    outward along r, in the run and its setup pass; the centre and R in
+    lattice units (R by the x spacing).  Other geometries, a variable
+    centre and the keywords the JAX builder does not read raise; `side
+    out` and `units lattice` are its reading."""
+    a = spec.args
+    if len(a) < 2 or a[1] != "sphere":
+        raise NotImplementedError(
+            f"fix indent {' '.join(a[1:2])}: the sphere only is ported, as "
+            "in the JAX package (ROADMAP queue 1 item 6.1, the modifier "
+            "fixes)")
+    if any(t.startswith("v_") for t in a[:6]):
+        raise NotImplementedError(
+            "fix indent with a variable is not ported (the JAX builder "
+            "reads numbers: ROADMAP queue 3 item 22)")
+    rest = a[6:]
+    if rest not in ([], ["side", "out"], ["units", "lattice"],
+                    ["side", "out", "units", "lattice"],
+                    ["units", "lattice", "side", "out"]):
+        _nargs(spec, 6)
+    k = float(a[0])
+    s3 = ctx.script._spacing3()
+    ctr = _vec([float(a[2]) * s3[0], float(a[3]) * s3[1],
+                float(a[4]) * s3[2]], ctx)
+    rad = float(a[5]) * float(s3[0])
+    g = _group(ctx, spec)
+
+    def indent(sys_, f_):
+        d = sys_.x - ctr[None, :]
+        r = torch.sqrt(torch.sum(d * d, dim=1))
+        inside = (r < rad) & g & sys_.mask & (r > 1e-10)
+        dr = r - rad
+        fmag = torch.where(inside, -k * dr * dr
+                           / torch.where(r > 1e-10, r, 1.0), 0.0)
+        return f_ - fmag[:, None] * d, f_.new_zeros(6)
+
+    _post_force(ctx, indent)
+
+
+@fix_style("move")
+def build_move(ctx, spec):
+    """fix move linear Vx Vy Vz | wiggle Ax Ay Az period (fix_move.cpp
+    LINEAR and WIGGLE, the JAX builder's form): after the position
+    update the group's x and v are set to the prescribed motion from their
+    unwrapped positions when the Simulation is built, in box units.
+    NULL components, the other styles and keywords but `units box` raise,
+    as the JAX builder refuses or skips them."""
+    a = list(spec.args)
+    mode = a[0] if a else ""
+    if mode not in ("linear", "wiggle"):
+        raise NotImplementedError(
+            f"fix move {mode} is not ported (ROADMAP queue 1 item 6.1, the "
+            "modifier fixes)")
+    if any(t == "NULL" for t in a[1:4]):
+        raise NotImplementedError(
+            "fix move with NULL components is not ported, as in the JAX "
+            "package (ROADMAP queue 1 item 6.1, the modifier fixes)")
+    nv = 5 if mode == "wiggle" else 4
+    if a[nv:] not in ([], ["units", "box"]):
+        _nargs(spec, nv)
+    vals = _vec([float(t) for t in a[1:4]], ctx)
+    period = float(a[4]) if mode == "wiggle" else 1.0
+    g = _group(ctx, spec)[:, None]
+    script = ctx.script
+    x0 = torch.as_tensor(
+        ctx.padA(script.x + script.image * (script.box_hi - script.box_lo)),
+        dtype=ctx.dtype, device=ctx.device)
+    t0 = int(script.step)
+    dt = script.dt
+    omega = 2.0 * math.pi / period
+
+    def move(sys_):
+        # post_integrate runs before the step counter's increment, where
+        # FixMove::initial_integrate sees the step it produces
+        delta = (sys_.step + 1 - t0) * dt
+        if mode == "linear":
+            xm = x0 + delta * vals[None, :]
+            vm = vals[None, :]
+        else:
+            xm = x0 + vals[None, :] * math.sin(omega * delta)
+            vm = vals[None, :] * omega * math.cos(omega * delta)
+        upd = g & sys_.mask[:, None]
+        return sys_.replace(x=torch.where(upd, xm, sys_.x),
+                            v=torch.where(upd, vm, sys_.v))
+
+    ctx.pi_hooks.append(move)

@@ -3,10 +3,13 @@
 checkouts alternated, each run in a fresh process.
 
     python3 scripts/first_run_ab.py --tree _tree/parent [--seq PCCPPC]
+        [--path H|O]
 
-The input is chip_smoke.py's path H: the 10,125-atom polarizable fluid
-(fluid_script_case), float64 at polar precision 1e-11, 5 steps on the
-panel engine.  Each process of the sequence (P: the checkout at
+The input is chip_smoke.py's path H (the default): the 10,125-atom
+polarizable fluid (fluid_script_case), float64 at polar precision 1e-11,
+5 steps on the panel engine; or its path O: the fluid at O_SIDE (1,536
+atoms) with `kspace_style pppm 1e-4`, 5 steps on the dense route.  Each
+process of the sequence (P: the checkout at
 `--tree`, C: this one) writes the input, runs it twice through
 LammpsScript and prints both runs' `Loop time` lines (setup included):
 the first run carries what a fresh process pays once (the kernels'
@@ -33,7 +36,14 @@ if not torch.cuda.is_available():
 import chip_smoke
 from lidp_tpu_torch.io.script import LammpsScript
 work = tempfile.mkdtemp()
-_, path = chip_smoke.fluid_script_case(work)
+if sys.argv[2] == "H":
+    _, path = chip_smoke.fluid_script_case(work)
+else:
+    chip_smoke.fluid_script_case(work, n_side=chip_smoke.O_SIDE)
+    path = os.path.join(work, "in.o")
+    with open(path, "w") as fh:
+        fh.write(chip_smoke.kspace_script(chip_smoke.FLUID_SCRIPT,
+                                          "pppm 1e-4"))
 for k in range(2):
     logs = []
     s = LammpsScript(dtype=torch.float64, log=logs.append)
@@ -52,10 +62,11 @@ def main() -> int:
                     help="the other checkout (P), e.g. the parent unpacked "
                     "by git archive")
     ap.add_argument("--seq", default="PCCPPC")
+    ap.add_argument("--path", default="H", choices=("H", "O"))
     args = ap.parse_args()
     trees = {"P": os.path.abspath(args.tree), "C": ROOT}
     for name in args.seq:
-        out = subprocess.run([sys.executable, "-c", RUN, name],
+        out = subprocess.run([sys.executable, "-c", RUN, name, args.path],
                              cwd=trees[name], capture_output=True, text=True,
                              timeout=900)
         if out.returncode != 0:

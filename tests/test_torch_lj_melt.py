@@ -322,7 +322,8 @@ def test_unported_options_raise():
     _, t, Lb, n = _both(np.float64)
     ff = ForceField(pair=t["pair"])
     integ = nve_integrator(tnve.NVEParams.create(DT, 1.0, np.ones(n)))
-    for name in ("shrink", "deform", "tmd_hook"):
+    # shrink is ported (tests/test_torch_nonperiodic.py)
+    for name in ("deform", "tmd_hook"):
         with pytest.raises(NotImplementedError, match=name):
             Runner(ff=ff, integ=integ, neighbor_cfg=t["cfg"],
                    **{name: object()})

@@ -253,10 +253,11 @@ def test_replicate_matches_jax(dirs):
 # fix npt and kspace_style pppm too (tests/test_torch_npt.py,
 # tests/test_torch_pppm.py), bond_style harmonic too
 # (tests/test_torch_flexible_script.py), minimize too
-# (tests/test_torch_min_script.py): their keys keep the test names and
-# hold a style that still raises
+# (tests/test_torch_min_script.py), region sphere too
+# (tests/test_torch_regions.py): their keys keep the test names and hold
+# a style that still raises
 UNPORTED = {
-    "region": "region s sphere 0 0 0 1",
+    "region": "region s sphere 0 0 0 1 rotate v_a 0 0 0 0 0 1",
     "compute": "compute p all pressure thermo_temp",
     "minimize": "min_modify line backtrack",
     "fix nvt": "fix 2 all nvt/sllod temp 300 300 100",
