@@ -395,18 +395,52 @@ Phases, each raising on failure:
         CLI's main() with --f32, run 100: the cell grid, the box as AD's
         (at float32's rounding), step 0 against a float64 CPU twin of
         the port at path E's bars (AG_BARS, of max(1, |value|));
- 13. the CPU twins (CPU_TWIN: the same script through the port on the CPU
+ 13. the computes and the output fixes through lidp_tpu_torch.api.lammps
+     (compute_paths), each path printing its steps/s by its Loop time line
+     and its peak device memory, then the time and peak of one sample step
+     (the thermo row formed anew) and of its costliest computes, and its
+     computes checked against the same evaluated on the CPU from the
+     card's final state (cpu_clone: the thermo row's compute columns at
+     rel 1e-9 of max(1, |value|), the rdf's pair counts exactly):
+     AH. FLUID_SCRIPT's fluid at n_side 15 (10,125 atoms) in float32 at
+        precision 1e-6 as H32 runs it (the panel engine, fused), 20 steps,
+        thermo 1, with compute pe, ke, and com, gyration, msd and temp/com
+        of half the molecules, group/group between the halves, ke/rigid,
+        erotate/rigid, reduce max of ke/atom, rdf 100 (read after the run
+        through extract_compute), fix ave/time 2 5 10 with a file, fix
+        print 5, thermo c_ID, c_ID[i] and v_NAME columns: the kernels path
+        G launches (and no strip launch counted apart), c_cpe the row's pe
+        less its tail term, the H32 columns (as printed) within H32's bars
+        of H32's rows, the ave/time file the means of the rows' values and
+        the print lines the rows'; the time and peak of group/group and
+        rdf;
+     AI. bench/in.lj (LJ_SCRIPT, 32,000 atoms, float32, the cell grid)
+        with ke/atom, pe/atom, stress/atom, coord/atom and displace/atom
+        each reduced, msd, vacf, temp/ramp, temp/region, temp/profile, rdf
+        100, fix ave/time, ave/atom, ave/histo, ave/correlate and vector,
+        dump custom 50 with c_pa c_sa[1] f_avg[1] columns, thermo 10, run
+        100: cell_pair_forces_lj launched, its ave/time file the means of
+        the rows', fix vector's series the rows', the files' and frames'
+        counts; the time and peak of the per-atom pair pass, coord/atom
+        and rdf; step 0 (run 0) against a float64 CPU twin at path E's bars
+        (the computes at 1e-5 of max(1, |value|), the reduced stresses
+        1e-4), and against a float32 CPU twin (the same float32 state):
+        the compute columns at 1e-6 of max(1, |value|), the dump frame's
+        id and type exactly, its floats at 1e-6 of their column's
+        largest;
+ 14. the CPU twins (CPU_TWIN: the same script through the port on the CPU
      in float64, in a process of its own; its rows, final state and each
      minimize's (E, iterations, converged)) of J, K, O, R, R-pppm, Q64, S,
      T, U64, V, W, X64, Y, Z, AA-100, AB (and AB's cg, sd, fire), AC, AD,
-     AE-couette, AE-pois, AF and AG, after every path on the card, so that
-     no timed path shares the host's cores with them (run_twins: as many
-     at once as the cores take, the longest first);
- 14. one JSON line {"kernels": [...]} with each of the ten kernels'
+     AE-couette, AE-pois, AF, AG, AI and AI-f32 (AI's in float32, its
+     setup state), after every path on the card, so that no timed path
+     shares the host's cores with them (run_twins: as many at once as the
+     cores take, the longest first);
+ 15. one JSON line {"kernels": [...]} with each of the ten kernels'
      launches (summed and by path, A-K, E-E4, L, L64, M, N, N-pol, O, R,
      R-pppm, Q, Q64, P, P100, S, T, U, U64, V, W, X, X64, Y, Z, AA, AB,
-     AC, AD, AE, AF, AG), times, ms_queued and bound, then the nvidia-smi
-     line, then the device line last.
+     AC, AD, AE, AF, AG, AH, AI), times, ms_queued and bound, then the
+     nvidia-smi line, then the device line last.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.
@@ -3503,7 +3537,8 @@ import numpy as np
 import torch
 torch.set_num_threads(int(os.environ["TWIN_THREADS"]))
 from lidp_tpu_torch.io.script import LammpsScript
-s = LammpsScript(dtype=torch.float64, device="cpu", log=lambda line: None)
+s = LammpsScript(dtype=getattr(torch, os.environ["TWIN_DTYPE"]),
+                 device="cpu", log=lambda line: None)
 s.variables["nstep"] = sys.argv[3]
 t0 = time.perf_counter()
 s.file(sys.argv[2])
@@ -3515,6 +3550,7 @@ cols = [c for c in rows[0] if c not in ("step", "atoms", "bonds")] \
     if rows else []
 np.savez(sys.argv[1], x=sim.sys.x[:n].numpy(), v=sim.sys.v[:n].numpy(),
          mu=sim.sys.mu[:n].numpy(), cols=np.array(cols, dtype=str),
+         root=s.root,
          rows=np.array([[r[c] for c in cols] for r in rows]),
          minimized=np.array(s.minimized, float).reshape(-1, 3),
          seconds=seconds)
@@ -3527,11 +3563,13 @@ TWIN_ROOT = []
 TWIN_TIMEOUT = 900
 
 
-def start_cpu_twin(work, script, steps, out, threads=1):
+def start_cpu_twin(work, script, steps, out, threads=1, dtype="float64"):
     """Start the CPU twin of `script` (in directory `work`) in a process
-    of its own on `threads` torch threads; returns the Popen."""
+    of its own on `threads` torch threads, in `dtype` (float64 but for a
+    twin of a float32 run's setup state); returns the Popen."""
     env = dict(os.environ, OMP_NUM_THREADS=str(threads),
-               TWIN_THREADS=str(threads), CUDA_VISIBLE_DEVICES="",
+               TWIN_THREADS=str(threads), TWIN_DTYPE=dtype,
+               CUDA_VISIBLE_DEVICES="",
                PYTHONPATH=os.pathsep.join(
                    filter(None, (ROOT, os.environ.get("PYTHONPATH")))))
     env.pop("LIDP_FAST_POLAR", None)
@@ -3541,7 +3579,8 @@ def start_cpu_twin(work, script, steps, out, threads=1):
         text=True)
 
 
-def defer_twin(path, work, script, steps, check, threads=1, cost=60.0):
+def defer_twin(path, work, script, steps, check, threads=1, cost=60.0,
+               dtype="float64"):
     """Queue path's CPU twin (CPU_TWIN on `script`, `steps` steps) to run
     after every path on the card (run_twins), so that no timed path shares
     the host's cores with it: the directory `work` (the input and its
@@ -3557,7 +3596,7 @@ def defer_twin(path, work, script, steps, check, threads=1, cost=60.0):
     dst = os.path.join(TWIN_ROOT[0], path)
     shutil.copytree(work, dst)
     TWINS.append(dict(path=path, work=dst, script=script, steps=steps,
-                      check=check, threads=threads, cost=cost))
+                      check=check, threads=threads, cost=cost, dtype=dtype))
 
 
 def run_twins():
@@ -3580,7 +3619,7 @@ def run_twins():
                     t["out"] = os.path.join(t["work"], "twin.npz")
                     t["proc"] = start_cpu_twin(t["work"], t["script"],
                                                t["steps"], t["out"],
-                                               t["threads"])
+                                               t["threads"], t["dtype"])
                     t["t0"] = time.perf_counter()
                     running.append(t)
                     queue.remove(t)
@@ -3595,7 +3634,7 @@ def run_twins():
                         f"{t['proc'].returncode}\n{err[-4000:]}")
                 twin = np.load(t["out"])
                 print(f"path {t['path']}: its CPU twin (the same script, "
-                      f"the port on the CPU, float64, {t['threads']} "
+                      f"the port on the CPU, {t['dtype']}, {t['threads']} "
                       f"thread(s)) took {float(twin['seconds']):.1f} s of "
                       f"its {time.perf_counter() - t['t0']:.1f} s process")
                 t["check"](twin)
@@ -5810,6 +5849,468 @@ def nonperiodic_paths(launches, reset_counts, read_counts):
         shutil.rmtree(work, ignore_errors=True)
 
 
+# computes and the output fixes (compute_paths): AH on the polar fluid's
+# panel engine, AI on bench/in.lj's cell grid
+AH_SIDE = 15                   # 10,125 atoms: path H32's fluid
+AH_STEPS = 20                  # H32's run
+AH_COMPUTES = """\
+group half molecule <= {half}
+group other subtract all half
+compute cpe all pe
+compute ke1 all ke
+compute com1 half com
+compute gyr half gyration
+compute msd1 half msd
+compute tcom half temp/com
+compute gg half group/group other
+compute kr all ke/rigid 1
+compute er all erotate/rigid 1
+compute ka all ke/atom
+compute mka all reduce max c_ka
+compute r all rdf 100
+variable twice equal 2*c_tcom
+fix 2 all ave/time 2 5 10 c_cpe c_gg c_kr file ah_time.out
+fix 3 all print 5 "step ${{step}} pe ${{pe}} temp ${{temp}}"
+thermo_style custom step etotal ke pe evdwl ecoul elong epol temp press \
+c_cpe c_ke1 c_com1[1] c_com1[2] c_com1[3] c_gyr c_msd1[4] c_tcom c_gg \
+c_kr c_er c_mka v_twice
+"""
+AH_COLS = ("c_cpe", "c_ke1", "c_com1[1]", "c_com1[2]", "c_com1[3]", "c_gyr",
+           "c_msd1[4]", "c_tcom", "c_gg", "c_kr", "c_er", "c_mka", "v_twice")
+AI_STEPS = 100                 # in.lj's run
+AI_COMPUTES = """\
+compute ka all ke/atom
+compute pa all pe/atom
+compute sa all stress/atom NULL
+compute crd all coord/atom cutoff 1.5
+compute dsp all displace/atom
+compute rka all reduce sum c_ka
+compute rpa all reduce sum c_pa
+compute rsa all reduce sum c_sa[1] c_sa[2] c_sa[3]
+compute rcrd all reduce ave c_crd
+compute rdsp all reduce max c_dsp[4]
+compute msd all msd
+compute vac all vacf
+region half block 0 $(v_xx/2+0.25) 0 ${yy} 0 ${zz}
+compute tr all temp/ramp vx 0.0 1.0 x 0.0 ${xx}
+compute treg all temp/region half
+compute tp all temp/profile 1 1 1 x 7
+compute r all rdf 100
+fix avg all ave/atom 10 5 50 c_pa c_ka
+fix at all ave/time 10 5 50 c_tr c_treg c_tp c_msd[4] file ai_time.out
+fix ah all ave/histo 10 5 50 -8.0 -4.0 40 c_pa file ai_histo.out
+fix ac all ave/correlate 10 5 50 c_vac[4] c_treg file ai_corr.out
+fix vec all vector 10 c_rpa c_rka
+thermo_style custom step temp epair emol etotal press c_rka c_rpa \
+c_rsa[1] c_rsa[2] c_rsa[3] c_rcrd c_rdsp c_msd[4] c_vac[1] c_vac[4] \
+c_tr c_treg c_tp
+thermo 10
+dump d all custom 50 ai.dump id type x y z c_pa c_sa[1] f_avg[1]
+dump_modify d format float %.10g
+"""
+AI_SCALE = "1"                 # in.lj's x, y, z: 32,000 atoms
+AI_COLS = ("c_rka", "c_rpa", "c_rsa[1]", "c_rsa[2]", "c_rsa[3]", "c_rcrd",
+           "c_rdsp", "c_msd[4]", "c_vac[1]", "c_vac[4]", "c_tr", "c_treg",
+           "c_tp")
+# the computes on the card against the same computes evaluated on the CPU
+# from the card's final state (cpu_clone): float64 sums (the pair passes
+# formed in float64) of the same float32 state, 1e-9 of max(1, |value|);
+# the temperature computes, which reduce in the run's dtype as the
+# thermo's own temperature does, 1e-6
+CLONE_REL = 1e-9
+CLONE_TEMP_REL = 1e-6
+# the float32 card's step 0 against the float64 twin: path E's bars for the
+# thermo columns, the computes at 1e-5 of max(1, |value|), the reduced
+# stresses 1e-4 (press's); against the float32 twin (the same float32
+# state of step 0: the per-atom pair passes in float64 on it) the compute
+# columns and the dump frame's floats at 1e-6 of max(1, |value|) and of
+# their column's largest.  The float64 state differs from the float32 one
+# by the positions' rounding (up to 1.9e-6 at x ~ 33.6), which moves each
+# atom's pe and stress by 2.7e-6 and 4.9e-6 of their columns at 32,000
+# atoms (an H100, float32, against the float64 CPU twin)
+AI_COMPUTE_BAR = 1e-5
+AI_STRESS_BAR = 1e-4
+AI_DUMP_REL = 1e-6
+
+
+def cpu_clone(sim):
+    """A copy of a Simulation with its state, force field, thermo and
+    computes' tensors on the CPU (the runner reduced to its force field
+    and integrator parameters), to evaluate the computes there on the
+    card's state."""
+    import copy
+    import types
+
+    import torch
+
+    def mv(o):
+        if isinstance(o, torch.Tensor):
+            return o.cpu()
+        if dataclasses.is_dataclass(o) and not isinstance(o, type):
+            return dataclasses.replace(o, **{
+                f.name: mv(getattr(o, f.name))
+                for f in dataclasses.fields(o) if f.init})
+        if isinstance(o, tuple):
+            return tuple(mv(v) for v in o)
+        if isinstance(o, dict):
+            return {k: mv(v) for k, v in o.items()}
+        return o
+
+    c = copy.copy(sim)
+    for name in ("sys", "res", "thermo_params", "istate", "group_thermo",
+                 "msd_computes", "vacf_computes", "peratom_computes"):
+        setattr(c, name, mv(getattr(sim, name)))
+    c.runner = types.SimpleNamespace(
+        ff=mv(sim.runner.ff),
+        integ=types.SimpleNamespace(params=mv(sim.runner.integ.params)))
+    c._peratom = (None, None, {})
+    c._row_cache = None
+    return c
+
+
+def clone_check(path, sim, cols, rdf_cid, peratom=()):
+    """The thermo row's compute columns, the rdf and the per-atom vectors
+    `peratom` on the card against the same evaluated on the CPU from the
+    card's state (cpu_clone): rows at CLONE_REL of max(1, |value|)
+    (CLONE_TEMP_REL for the temperature computes), the rdf's counts
+    exactly, the per-atom vectors at CLONE_REL of their largest entry."""
+    import numpy as np
+
+    from lidp_tpu_torch import computes
+
+    sim._row_cache = None
+    sim._peratom = (None, None, {})
+    row = sim.thermo_row()
+    clone = cpu_clone(sim)
+    crow = clone.thermo_row()
+    worst = 0.0
+    for c in cols:
+        rel = (CLONE_TEMP_REL if c[2:].split("[")[0] in sim.group_thermo
+               else CLONE_REL)
+        bar = rel * max(1.0, abs(crow[c]))
+        worst = max(worst, abs(row[c] - crow[c]) / bar)
+        if not abs(row[c] - crow[c]) <= bar:
+            raise AssertionError(f"path {path} {c}: the card's {row[c]!r}, "
+                                 f"the CPU's {crow[c]!r} on its state")
+    rdf, crdf = sim.compute_rdf(rdf_cid), clone.compute_rdf(rdf_cid)
+    ng = int(np.asarray(sim.rdf_computes[rdf_cid][0]).sum())
+    counts = np.round(rdf[:, 2] * ng / 2)
+    if not np.array_equal(counts, np.round(crdf[:, 2] * ng / 2)) \
+            or not np.isfinite(rdf).all():
+        raise AssertionError(f"path {path}: the rdf's counts differ from "
+                             "the CPU's on the card's state")
+    for cid in peratom:
+        got = computes.eval_peratom(sim, cid).cpu().numpy()
+        want = computes.eval_peratom(clone, cid).numpy()
+        err = float(np.abs(got - want).max())
+        if not err <= CLONE_REL * float(np.abs(want).max()):
+            raise AssertionError(f"path {path} c_{cid}: the card's per-atom "
+                                 f"values {err:.3e} from the CPU's")
+    print(f"path {path}: the computes on the card vs the same on the CPU "
+          f"from the card's state (cpu_clone): {', '.join(cols)} at "
+          f"{worst:.3g} of their bar (rel {CLONE_REL:g} of max(1, "
+          f"|value|), the temperatures {CLONE_TEMP_REL:g}); the rdf's "
+          f"{int(counts[-1])} pair counts equal; "
+          f"per-atom {', '.join(peratom) or 'none'} within {CLONE_REL:g} of "
+          "their largest")
+    return rdf
+
+
+def timed_phase(path, label, fn):
+    """One call of fn on the card, synchronized: its ms by the host clock
+    and the peak device memory over it; printed and returned with fn's
+    value."""
+    import torch
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() - base
+    print(f"path {path} {label}: {ms:.3f} ms, peak {peak / 2**20:.1f} MiB "
+          f"over the state's (host clock, synchronized; {smi_line()})")
+    return out
+
+
+def compute_timings(path, sim, phases):
+    """The time and peak of one sample step (the thermo row formed anew:
+    every compute and the one transfer) and of each of `phases` ((label,
+    fn) on a fresh per-atom cache)."""
+    def sample():
+        sim._row_cache = None
+        sim._peratom = (None, None, {})
+        return sim.thermo_row()
+
+    timed_phase(path, "one sample step (thermo_row, every compute)", sample)
+    for label, fn in phases:
+        sim._peratom = (None, None, {})
+        timed_phase(path, label, fn)
+
+
+def file_lines(name):
+    """The whitespace-split lines of a file."""
+    with open(name) as fh:
+        return [line.split() for line in fh.read().splitlines()]
+
+
+def check_ave_time_file(path, name, rows, cols, nev, nrep, nfreq):
+    """A scalar fix ave/time's file against the rows: each line at step s
+    the mean of the row values at the Nrepeat samples before it (rows at
+    every sample step), at 1e-9 of max(1, |value|) (%.10g in the file)."""
+    by_step = {int(r["step"]): r for r in rows}
+    lines = file_lines(name)
+    if not lines:
+        raise AssertionError(f"path {path}: {name} is empty")
+    for words in lines:
+        step = int(words[0])
+        steps = [step - k * nev for k in range(nrep)]
+        for j, c in enumerate(cols):
+            want = sum(by_step[s][c] for s in steps) / nrep
+            got = float(words[1 + j])
+            if not abs(got - want) <= 1e-9 * max(1.0, abs(want)):
+                raise AssertionError(f"path {path} {name} step {step} {c}: "
+                                     f"{got!r}, the rows' mean {want!r}")
+    print(f"path {path}: {name}'s {len(lines)} lines (steps "
+          f"{[int(w[0]) for w in lines]}) the means of the rows' "
+          f"{', '.join(cols)} over {nrep} samples every {nev}")
+
+
+def compute_paths(launches, reset_counts, read_counts, rowsH32, launchesG):
+    """Paths AH and AI: the computes and the output fixes (module
+    docstring).  Each sets launches[path]."""
+    import numpy as np
+    import torch
+
+    from lidp_tpu_torch import api, computes
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_computes_")
+    try:
+        # path AH: the polar fluid with computes through api.lammps,
+        # float32 at 1e-6 as H32 runs it (the panel engine, fused)
+        fluid_script_case(work, AH_SIDE)
+        n_mol = AH_SIDE ** 3
+        text = FLUID_SCRIPT.replace(
+            "thermo_style custom step etotal ke pe evdwl ecoul elong epol "
+            "temp press\n", AH_COMPUTES.format(half=n_mol // 2))
+        with open(os.path.join(work, "in.ah"), "w") as fh:
+            fh.write(text)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        L = api.lammps(cmdargs=["-log", os.path.join(work, "log.ah"),
+                                "-var", "prec", "1e-6", "-var", "nstep",
+                                str(AH_STEPS)], dtype=torch.float32)
+        L.file(os.path.join(work, "in.ah"))
+        rdf = L.extract_compute("r")
+        launches["AH"] = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        script = L.lmp
+        sim = script._sim
+        with open(os.path.join(work, "log.ah")) as fh:
+            log = fh.read().splitlines()
+        for line in log:
+            if not line.startswith(("step ", "fast-polar")):
+                continue
+            print(f"  AH| {line}")
+        runner = sim.runner
+        if type(runner).__name__ != "FastPolarRunner" \
+                or runner.mode != "fused":
+            raise AssertionError(f"path AH: runner {type(runner).__name__}")
+        got = {k for k, v in launches["AH"].items() if v}
+        want = {k for k, v in launchesG.items() if v}
+        print(f"path AH launches: {launches['AH']}; path G's (the same "
+              f"fluid through polar_bench.build_rigid): {launchesG}")
+        if got != want:
+            raise AssertionError(f"path AH launched {sorted(got)}, path G "
+                                 f"{sorted(want)}")
+        rows = script.thermo_rows
+        if [r["step"] for r in rows] != list(range(AH_STEPS + 1)):
+            raise AssertionError(f"path AH: rows {len(rows)}")
+        check_rows_finite("AH", rows, G64_COLS + AH_COLS)
+        # compute pe: the row's pe, polarization in, the tail term out
+        tp = sim.thermo_params
+        nrm = float(tp.natoms) if tp.norm else 1.0
+        etail = tp.etail / float(sim.sys.box.volume) if tp.etail else 0.0
+        for r in rows:
+            if not abs(r["c_cpe"] / nrm - (r["pe"] - etail / nrm)) <= \
+                    1e-12 * abs(r["pe"]):
+                raise AssertionError(f"path AH step {r['step']}: c_cpe "
+                                     f"{r['c_cpe']} against pe {r['pe']}")
+        worst = rows_agree("AH", [{c: float(f"{r[c]:.8g}") for c in G64_COLS}
+                                  for r in rows], rowsH32,
+                           [1e-6] + [1e-5] * AH_STEPS)
+        print(f"path AH: {sim.natoms} atoms, float32 at 1e-6, the panel "
+              f"engine (fused); c_cpe the row's pe (epol "
+              f"{rows[-1]['epol']:.6g} in, no tail); its H32 columns (as printed) vs H32's rows at "
+              f"{worst:.3g} of H32's bars (step 0 rel 1e-6, steps 1-"
+              f"{AH_STEPS} rel 1e-5 of max(1, |value|)); step {AH_STEPS}: "
+              + ", ".join(f"{c} {rows[-1][c]:.8g}" for c in AH_COLS))
+        if not rows[-1]["c_msd1[4]"] > 0.0:
+            raise AssertionError("path AH: msd did not grow")
+        check_ave_time_file("AH", os.path.join(work, "ah_time.out"), rows,
+                            ("c_cpe", "c_gg", "c_kr"), 2, 5, 10)
+        prints = [w for w in log if w.startswith("step ")]
+        want_prints = [f"step {s} pe {rows[s]['pe']:.8g} temp "
+                       f"{rows[s]['temp']:.8g}" for s in (5, 10, 15, 20)]
+        if prints != want_prints:
+            raise AssertionError(f"path AH: fix print {prints}")
+        if rdf.shape != (100, 3) or not np.isfinite(rdf).all() \
+                or not (np.diff(rdf[:, 2]) >= 0).all():
+            raise AssertionError("path AH: rdf")
+        print(f"path AH: fix print's {len(prints)} lines the rows' values; "
+              f"rdf (100, 3) through api.lammps.extract_compute, g(r) peak "
+              f"{rdf[:, 1].max():.4f} at r {rdf[rdf[:, 1].argmax(), 0]:.3f}, "
+              f"coord at the cutoff {rdf[-1, 2]:.4f}")
+        script_peak("AH", log, AH_STEPS, peak)
+        clone_check("AH", sim, AH_COLS[:-1], "r")
+        compute_timings("AH", sim, (
+            ("group/group", lambda: computes.group_group_energy(
+                sim, *sim.gg_computes["gg"])),
+            ("rdf 100", lambda: sim.compute_rdf("r"))))
+        del L, script, sim, runner
+        torch.cuda.empty_cache()
+
+        # path AI: bench/in.lj with computes and the output fixes through
+        # api.lammps, float32 on the cell grid (L's route)
+        text = LJ_SCRIPT.replace("run\t\t100", AI_COMPUTES + "run\t\t100")
+        with open(os.path.join(work, "in.ai"), "w") as fh:
+            fh.write(text)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        L = api.lammps(cmdargs=["-log", os.path.join(work, "log.ai"),
+                                "-var", "x", AI_SCALE, "-var", "y", AI_SCALE,
+                                "-var", "z", AI_SCALE], dtype=torch.float32)
+        L.file(os.path.join(work, "in.ai"))
+        rdf = L.extract_compute("r")
+        launches["AI"] = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        script = L.lmp
+        sim = script._sim
+        with open(os.path.join(work, "log.ai")) as fh:
+            log = fh.read().splitlines()
+        route = script_route(script)
+        print(f"path AI: bench/in.lj with computes and output fixes, "
+              f"{sim.natoms} atoms, float32, {route}")
+        if sim.natoms > 4096 and not (
+                launches["AI"]["cell_pair_forces_lj"] > 0
+                and "cell_pair_forces_lj" in route):
+            raise AssertionError(f"path AI launches {launches['AI']}")
+        check_counts("AI", launches["AI"], {
+            "cell_pair_forces_lj": launches["AI"]["cell_pair_forces_lj"]})
+        rows = script.thermo_rows
+        if [r["step"] for r in rows] != list(range(0, AI_STEPS + 1, 10)):
+            raise AssertionError(f"path AI: rows {len(rows)}")
+        check_rows_finite("AI", rows, ("temp", "epair", "etotal", "press")
+                          + AI_COLS)
+        for r in rows[::5]:
+            print(f"  AI| step {r['step']}: " + ", ".join(
+                f"{c} {r[c]:.8g}" for c in ("temp", "epair") + AI_COLS))
+        check_ave_time_file("AI", os.path.join(work, "ai_time.out"), rows,
+                            ("c_tr", "c_treg", "c_tp", "c_msd[4]"),
+                            10, 5, 50)
+        series = np.asarray(script.fixes["vec"]._series)
+        want = np.array([[r["c_rpa"], r["c_rka"]] for r in rows])
+        if series.shape != want.shape or not np.array_equal(series, want):
+            raise AssertionError("path AI: fix vector's series is not the "
+                                 "rows'")
+        histo = file_lines(os.path.join(work, "ai_histo.out"))
+        corr = file_lines(os.path.join(work, "ai_corr.out"))
+        frames = open(os.path.join(work, "ai.dump")).read().count(
+            "ITEM: TIMESTEP")
+        if [int(w[0]) for w in histo if len(w) == 6] != [50, 100] \
+                or frames != 3 or len(corr) != 12:
+            raise AssertionError(f"path AI: histo {len(histo)} lines, "
+                                 f"corr {len(corr)}, {frames} dump frames")
+        print(f"path AI: ai_time.out, fix vector's {len(series)} samples "
+              f"the rows'; ai_histo.out {len(histo)} lines (steps 50, 100; "
+              f"{histo[0][2]} values inside over its samples to step 50), "
+              f"ai_corr.out {len(corr)} lines, ai.dump {frames} frames; rdf "
+              f"(100, 3) through extract_compute, g(r) peak "
+              f"{rdf[:, 1].max():.4f}")
+        script_peak("AI", log, AI_STEPS, peak)
+        clone_check("AI", sim, AI_COLS, "r", peratom=("pa", "sa", "crd"))
+        compute_timings("AI", sim, (
+            ("per-atom pair pass (pe/atom, stress/atom)",
+             lambda: computes.pair_pass(sim, want_stress=True)),
+            ("coord/atom", lambda: computes.eval_peratom(sim, "crd")),
+            ("rdf 100", lambda: sim.compute_rdf("r"))))
+        row0 = rows[0]
+        frame0 = open(os.path.join(work, "ai.dump")).read().split(
+            "ITEM: TIMESTEP")[1]
+        with open(os.path.join(work, "in.ai0"), "w") as fh:
+            # the twin sets no -var: the scale goes into the script
+            text0 = cut_run(text, 0)
+            for a in "xyz":
+                text0 = text0.replace(f"variable\t{a} index 1",
+                                      f"variable\t{a} index {AI_SCALE}")
+            fh.write(text0)
+
+        def ai_twin64(twin, _row=row0):
+            ref = dict(zip(twin["cols"].tolist(), twin["rows"][0]))
+            worst = 0.0
+            bars = {**AG_BARS, **{c: AI_COMPUTE_BAR for c in AI_COLS},
+                    **{c: AI_STRESS_BAR for c in AI_COLS if "rsa" in c}}
+            for k, rel in bars.items():
+                bar = rel * max(1.0, abs(ref[k]))
+                worst = max(worst, abs(_row[k] - ref[k]) / bar)
+                if not abs(_row[k] - ref[k]) <= bar:
+                    raise AssertionError(f"path AI step 0 {k}: {_row[k]!r}, "
+                                         f"the float64 twin's {ref[k]!r}")
+            print(f"path AI step 0 (float32 on the card) vs its float64 CPU "
+                  f"twin: at {worst:.3g} of path E's bars (the computes "
+                  f"{AI_COMPUTE_BAR:g}, the reduced stress "
+                  f"{AI_STRESS_BAR:g}, of max(1, |value|))")
+
+        def ai_twin32(twin, _row=row0, _frame=frame0):
+            ref = dict(zip(twin["cols"].tolist(), twin["rows"][0]))
+            worst = 0.0
+            for k in AI_COLS:
+                bar = AI_DUMP_REL * max(1.0, abs(ref[k]))
+                worst = max(worst, abs(_row[k] - ref[k]) / bar)
+                if not abs(_row[k] - ref[k]) <= bar:
+                    raise AssertionError(f"path AI step 0 {k}: {_row[k]!r}, "
+                                         f"the float32 twin's {ref[k]!r}")
+            with open(os.path.join(str(twin["root"]), "ai.dump")) as fh:
+                tframe = fh.read().split("ITEM: TIMESTEP")[1]
+            a = [line.split() for line in _frame.splitlines()]
+            b = [line.split() for line in tframe.splitlines()]
+            if a != b and ([w for w in a if len(w) != 8]
+                           != [w for w in b if len(w) != 8]):
+                raise AssertionError("path AI: the dump frame's header")
+            ga = np.array([w for w in a if len(w) == 8], float)
+            gb = np.array([w for w in b if len(w) == 8], float)
+            if not np.array_equal(ga[:, :2], gb[:, :2]):
+                raise AssertionError("path AI: the dump's id and type")
+            # x y z c_pa c_sa[1] f_avg[1]; a column of zeros (f_avg before
+            # its first Nfreq) stays zeros
+            scale = np.abs(gb[:, 2:]).max(0)
+            diff = np.abs(ga[:, 2:] - gb[:, 2:]).max(0)
+            rel = np.where(scale > 0, diff / np.where(scale > 0, scale, 1.0),
+                           np.where(diff > 0, np.inf, 0.0))
+            if not (rel <= AI_DUMP_REL).all():
+                raise AssertionError(f"path AI: the dump frame's columns at "
+                                     f"{rel} of their largest")
+            print(f"path AI step 0 vs its float32 CPU twin (the same float32 "
+                  f"state): the compute columns at {worst:.3g} of rel "
+                  f"{AI_DUMP_REL:g} of max(1, |value|); the dump's frame 0 "
+                  f"({len(ga)} rows) id and type equal, the floats x y z "
+                  f"c_pa c_sa[1] f_avg[1] at " + ", ".join(
+                      f"{r:.3g}" for r in rel)
+                  + f" of their column's largest (bar {AI_DUMP_REL:g})")
+
+        defer_twin("AI", work, "in.ai0", 0, ai_twin64, threads=4, cost=20.0)
+        defer_twin("AI-f32", work, "in.ai0", 0, ai_twin32, threads=4,
+                   cost=20.0, dtype="float32")
+        del L, script, sim
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -6638,6 +7139,8 @@ def main() -> int:
     eam_paths(launches, reset_counts, read_counts)
     minimize_paths(launches, reset_counts, read_counts)
     nonperiodic_paths(launches, reset_counts, read_counts)
+    compute_paths(launches, reset_counts, read_counts, rowsH32,
+                  launches["G"])
     run_twins()
 
     # 6. results

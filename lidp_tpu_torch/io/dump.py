@@ -4,9 +4,11 @@ tensors; the Python row formatter, not the compiled one).
 
 Matches the reference Dump::write (dump.cpp:302) / DumpCustom text layout
 (columns like ``x y z type mol``), with ``dump_modify sort id`` ordering
-(the arrays are already id-ordered).  Per-atom compute and fix columns
-(c_ID, f_ID), and the xyz, dcd, cfg, local, image and movie styles, are
-not ported (ROADMAP queue 1 item 4).
+(the arrays are already id-ordered).  The per-atom compute columns c_ID
+and c_ID[i] (computes.eval_peratom) and fix ave/atom's f_ID and f_ID[i]
+(zeros before its first Nfreq), as the JAX writer forms them (its
+io/dump.py:45-60).  The xyz, dcd, cfg, image and movie styles and dump
+local are not ported (ROADMAP queue 1 items 6.17 and 6.15).
 """
 
 from __future__ import annotations
@@ -30,10 +32,10 @@ def write_dump_frame(spec, sys, script, gmask, f=None):
     coordinates unwrapped), unwrapped ones as xu yu zu.  f: the forces of
     the frame's step (zeros when absent)."""
     for c in spec.columns:
-        if c not in COLUMNS:
+        if c not in COLUMNS and not c.startswith(("c_", "f_")):
             raise NotImplementedError(
-                f"dump column {c} is not ported (only {', '.join(COLUMNS)}; "
-                "ROADMAP queue 1 item 4)")
+                f"dump column {c} is not ported (only {', '.join(COLUMNS)}, "
+                "c_ID and f_ID; ROADMAP queue 1 item 4)")
     n = len(gmask)
     x = _np(sys.x, n)
     v = _np(sys.v, n)
@@ -62,6 +64,9 @@ def write_dump_frame(spec, sys, script, gmask, f=None):
         "fx": fv[ids, 0], "fy": fv[ids, 1], "fz": fv[ids, 2],
         "mux": mu[ids, 0], "muy": mu[ids, 1], "muz": mu[ids, 2],
     }
+    for c in spec.columns:
+        if c.startswith(("c_", "f_")):
+            colvec[c] = _peratom_column(script, c, n)[ids]
     mode = "a" if getattr(spec, "_started", False) else "w"
     with open(spec.path, mode) as fh:
         fh.write("ITEM: TIMESTEP\n%d\n" % int(sys.step))
@@ -79,3 +84,21 @@ def write_dump_frame(spec, sys, script, gmask, f=None):
                 str(int(vals[r, c])) if flags[c] else ffmt % vals[r, c]
                 for c in range(vals.shape[1])) + "\n")
     spec._started = True
+
+
+def _peratom_column(script, c, n):
+    """A dump column c_ID[/i] (a per-atom compute) or f_ID[/i] (fix
+    ave/atom's average, zeros before it has one) as an (n,) numpy array."""
+    from lidp_tpu_torch import computes
+
+    sim = script._sim
+    name = c[2:].split("[")[0]
+    if c.startswith("c_"):
+        if name not in sim.peratom_computes:
+            raise ValueError(f"dump column {c}: compute {name} is not a "
+                             "per-atom compute")
+    elif script.fixes[name].style != "ave/atom":
+        raise NotImplementedError(
+            f"dump column {c}: only fix ave/atom's per-atom values are "
+            "ported (fix store/state: ROADMAP queue 1 item 6.16)")
+    return computes.peratom_column(sim, c).cpu().numpy()[:n]

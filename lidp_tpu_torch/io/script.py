@@ -29,7 +29,11 @@ min_modify and fix box/relax: integrate/minimize.py), and examples/crack,
 flow and obstacle (boundary f, s and m with the shrink-wrapped box, the
 region styles, group region|union|subtract, set ... type, delete_atoms,
 velocity ramp and velocity create ... temp, thermo_modify temp, fix_modify
-temp, and the walls, indent and move of styles/fix_modifiers.py);
+temp, and the walls, indent and move of styles/fix_modifiers.py), and
+the computes and output fixes (compute with the styles of computes.py,
+uncompute, compute_modify, thermo c_ID[i] and v_NAME columns, fix print,
+ave/time, ave/atom, ave/histo, ave/histo/weight, ave/correlate and vector
+of styles/fix_output.py, dump custom c_ID and f_ID columns);
 every other command, style or keyword raises NotImplementedError naming
 itself and the ROADMAP item that ports it, and is never ignored.
 """
@@ -50,6 +54,8 @@ from lidp_tpu_torch import units as units_mod
 from lidp_tpu_torch import velocity as velocity_mod
 from lidp_tpu_torch.io import expr as expr_mod
 from lidp_tpu_torch.io.data_reader import read_data
+from lidp_tpu_torch.styles import fix_output
+from lidp_tpu_torch.styles.fix_output import OUTPUT_STYLES
 
 # bare-number detector for optional positional args (the pair_style
 # polarization grammar's optional cut_coul before keywords)
@@ -66,7 +72,7 @@ THERMO_KEYWORDS = frozenset((
     "step", "temp", "ke", "pe", "etotal", "evdwl", "ecoul", "elong", "epol",
     "epair", "emol", "ebond", "eangle", "edihed", "eimp", "press", "vol",
     "density", "lx", "ly", "lz", "xlo", "ylo", "zlo", "xhi", "yhi", "zhi",
-    "xy", "xz", "yz", "atoms", "bonds"))
+    "xy", "xz", "yz", "atoms", "bonds", "dt"))
 
 # pair styles Simulation.from_script builds
 PAIR_STYLES = ("lj/cut", "lj/cut/coul/long", "lj/cut/coul/long/polarization",
@@ -103,6 +109,43 @@ _FIX_ITEMS = {
     "pour": "ROADMAP queue 1 item 6.11, granular",
     "nve/sphere": "ROADMAP queue 1 item 6.11, granular",
 }
+
+_FIX_ITEMS.update({
+    "ave/chunk": "ROADMAP queue 1 item 6.13, the chunk computes",
+    "store/state": "ROADMAP queue 1 item 6.16, store/state and controller",
+    "controller": "ROADMAP queue 1 item 6.16, store/state and controller",
+    "external": "ROADMAP queue 1 item 6.1, the modifier fixes; its library "
+                "callbacks item 6.18",
+})
+
+# the compute styles (computes.py and sim.py) and where the others are
+# queued
+COMPUTE_STYLES = (
+    "temp", "temp/partial", "temp/com", "temp/ramp", "temp/region",
+    "temp/profile", "pe", "ke", "com", "gyration", "msd", "vacf", "rdf",
+    "group/group", "pressure", "reduce", "reduce/region", "slice",
+    "ke/rigid", "erotate/rigid", "ke/atom", "pe/atom", "stress/atom",
+    "coord/atom", "cluster/atom", "displace/atom", "property/atom")
+_CHUNK = "ROADMAP queue 1 item 6.13, the chunk computes"
+_STRUCTURE = "ROADMAP queue 1 item 6.14, the structure computes"
+_LOCAL = "ROADMAP queue 1 item 6.15, local computes and dump local"
+_DUMPS = "ROADMAP queue 1 item 6.17, the other dump styles"
+_COMPUTE_ITEMS = {
+    **{st: _STRUCTURE for st in (
+        "centro/atom", "cna/atom", "orientorder/atom", "hexorder/atom",
+        "fragment/atom", "aggregate/atom", "global/atom", "heat/flux")},
+    **{st: _LOCAL for st in (
+        "pair/local", "bond/local", "angle/local", "dihedral/local",
+        "improper/local", "property/local", "rigid/local")},
+    **{st: "ROADMAP queue 1 item 6.11, granular" for st in (
+        "erotate/sphere", "temp/sphere", "erotate/sphere/atom",
+        "contact/atom")},
+    "temp/deform": "ROADMAP queue 1 item 6.1, the modifier fixes (deform)",
+    "chunk/atom": _CHUNK,
+}
+# JAX's thermo row has no value for these (ROADMAP queue 3 item 26)
+_NO_VALUE = "ROADMAP queue 3 item 26, values JAX's thermo row lacks"
+_OUTPUT_FIXES = "ROADMAP queue 3 item 25, keywords JAX skips"
 
 # the min styles of integrate/minimize.py
 MIN_STYLES = ("fire", "cg", "sd", "quickmin", "hftn")
@@ -289,6 +332,17 @@ class LammpsScript:
         # KE and pressure follow; fix_modify ID temp ID by fix
         self._thermo_temp = None
         self._fix_modify: dict = {}
+        # compute_modify by compute ID (thermo_temp: the thermo's)
+        self._compute_modify: dict = {}
+        # the thermo row while its v_NAME columns are evaluated, so that a
+        # thermo keyword in the expression reads this row
+        self._kw_row = None
+        # the output fixes' results by fix ID (as the JAX package keeps
+        # them): ave/time's (step, mean) pairs, ave/histo's last
+        # histogram, ave/correlate's (correlations, counts)
+        self.ave_time_values: dict = {}
+        self.ave_histo_values: dict = {}
+        self.ave_correlate_values: dict = {}
         # min_style, min_modify dmax, and each minimize's (energy,
         # iterations, converged)
         self._min_style = "cg"
@@ -433,6 +487,9 @@ class LammpsScript:
         """Thermo::evaluate_keyword analog for expressions: geometry and
         configuration keywords from the host state, state keywords from
         the live Simulation's thermo row."""
+        if self._kw_row is not None and isinstance(
+                self._kw_row.get(word), (int, float)):
+            return float(self._kw_row[word])
         if word == "step":
             return float(self.step)
         if word == "dt":
@@ -466,8 +523,10 @@ class LammpsScript:
     def _current_thermo_row(self):
         """Thermo row for the CURRENT state (between runs this is the last
         force evaluation — the reference's staleness)."""
+        if self._kw_row is not None:
+            return self._kw_row
         if self._sim is not None and self._sim.res is not None:
-            return self._sim._thermo_row()
+            return self._sim.thermo_row()
         return None
 
     # ----------------------------- commands ------------------------------
@@ -1402,12 +1461,14 @@ class LammpsScript:
             _unported(f"thermo_style {a[0]}")
         for c in cols:
             if c.startswith("c_"):
-                if "[" in c:
-                    _unported(f"thermo keyword {c} (a compute's vector)")
-                if c[2:] not in self.computes:
+                if c[2:].split("[")[0] not in self.computes:
                     raise ValueError(f"thermo_style: compute {c[2:]} does "
                                      "not exist")
-            elif c not in THERMO_KEYWORDS:
+            elif c.startswith("f_"):
+                # JAX's thermo row has no output fix's value: it prints nan
+                _unported(f"thermo keyword {c} (a fix's global value)",
+                          _NO_VALUE)
+            elif not c.startswith("v_") and c not in THERMO_KEYWORDS:
                 _unported(f"thermo keyword {c}")
         self.thermo_columns = cols
 
@@ -1448,8 +1509,17 @@ class LammpsScript:
         elif style == "custom":
             cols = a[5:]
             for c in cols:
-                if c not in COLUMNS:
+                if c.startswith("v_"):
+                    # an atom-style variable's column (JAX's writer has no
+                    # such column either)
+                    _unported(f"dump custom column {c} (atom-style "
+                              "variables)", _BREADTH)
+                if c not in COLUMNS and not c.startswith(("c_", "f_")):
                     _unported(f"dump custom column {c}")
+        elif style == "local":
+            _unported("dump style local", _LOCAL)
+        elif style in ("xyz", "cfg", "dcd", "image", "movie"):
+            _unported(f"dump style {style}", _DUMPS)
         else:
             _unported(f"dump style {style}")
         self.dumps[did] = DumpSpec(did=did, group=group, style=style,
@@ -1564,22 +1634,161 @@ class LammpsScript:
 
     def cmd_fix(self, a):
         fid, group, style = a[0], a[1], a[2]
-        if style not in FIX_STYLES:
+        if style not in FIX_STYLES + OUTPUT_STYLES:
             _unported(f"fix style {style}",
                       _FIX_ITEMS.get(style, _MODIFIERS))
-        self.fixes[fid] = FixSpec(fid=fid, group=group, style=style,
-                                  args=a[3:])
+        spec = FixSpec(fid=fid, group=group, style=style, args=a[3:])
+        if style in OUTPUT_STYLES:
+            fix_output.check_spec(self, spec)
+        self.fixes[fid] = spec
         self._invalidate()
 
+    def _unwrapped_x(self):
+        """The host positions unwrapped by their image flags: where msd
+        and displace/atom take their reference, at the compute's
+        definition (compute_msd.cpp; the JAX package's cmd_compute)."""
+        return (self.x + self.image * (self.box_hi - self.box_lo)).copy()
+
     def cmd_compute(self, a):
-        """compute ID group temp (compute_temp.cpp): the group's temperature,
-        a thermo column and an expression's value as c_ID."""
+        """compute ID group style args (the JAX package's cmd_compute): the
+        temperatures (temp, temp/partial, temp/com, temp/ramp,
+        temp/region, temp/profile), pe, ke, com, gyration, msd and vacf
+        (their reference taken now), rdf, group/group, pressure, reduce
+        and reduce/region, slice, ke/rigid and erotate/rigid, and the
+        per-atom styles of computes.py.  Stored as (group, style[, spec])
+        and built into the Simulation; like the JAX package's, a compute
+        defined after a run joins the run only once something rebuilds
+        the Simulation."""
         cid, group, style = a[0], a[1], a[2]
-        if style != "temp":
-            _unported(f"compute style {style}")
+        if style not in COMPUTE_STYLES:
+            if style in _COMPUTE_ITEMS or style.endswith("/chunk"):
+                _unported(f"compute style {style}",
+                          _COMPUTE_ITEMS.get(style, _CHUNK))
+            raise ValueError(f"unsupported compute style {style}")
         if group not in self.groups:
             raise ValueError(f"compute {cid}: group {group} does not exist")
-        self.computes[cid] = (group, style)
+        args = list(a[3:])
+        if style == "temp":
+            self.computes[cid] = (group, style)
+            return
+        if style == "temp/partial":
+            spec = tuple(int(v) for v in args[:3])
+        elif style == "temp/com":
+            spec = ()
+        elif style in ("pe", "ke", "com", "gyration"):
+            if args:
+                _unported(f"compute {style} arguments {' '.join(args)}",
+                          _BREADTH)
+            spec = None
+        elif style == "msd":
+            if args:
+                _unported(f"compute msd keywords {' '.join(args)} (the JAX "
+                          "package reads none)", _OUTPUT_FIXES)
+            spec = self._unwrapped_x()
+        elif style == "vacf":
+            spec = self.v.copy()
+        elif style == "rdf":
+            if len(args) != 1:
+                _unported(f"compute rdf {' '.join(args)} (Nbin alone: the "
+                          "JAX package reads no type pairs)", _OUTPUT_FIXES)
+            spec = int(args[0])
+        elif style == "group/group":
+            if len(args) != 1:
+                _unported(f"compute group/group keywords {' '.join(args[1:])}"
+                          " (the JAX package reads none)", _OUTPUT_FIXES)
+            if args[0] not in self.groups:
+                raise ValueError(f"compute {cid}: group {args[0]} does not "
+                                 "exist")
+            spec = args[0]
+        elif style == "pressure":
+            # thermo_temp: the thermo's own temperature (LAMMPS's default
+            # compute; the JAX package falls back to the thermo's)
+            spec = {"temp": args[0] if args else "NULL", "kw": args[1:]}
+            if spec["temp"] not in ("NULL", "thermo_temp") \
+                    and spec["temp"] not in self.computes:
+                raise ValueError(f"compute {cid}: temperature compute "
+                                 f"{spec['temp']} does not exist")
+            if any(k != "virial" for k in spec["kw"]):
+                _unported(f"compute pressure keywords {' '.join(spec['kw'])}"
+                          " (the JAX package reads `virial` alone)",
+                          _OUTPUT_FIXES)
+        elif style in ("reduce", "reduce/region"):
+            region = None
+            if style == "reduce/region":
+                region, args = args[0], args[1:]
+                if region not in self.regions:
+                    raise ValueError(f"compute {cid}: region {region} does "
+                                     "not exist")
+            if args[0] not in ("sum", "min", "max", "ave"):
+                _unported(f"compute reduce mode {args[0]}", _BREADTH)
+            for t in args[1:]:
+                if t.startswith("v_"):
+                    _unported(f"compute reduce input {t} (atom-style "
+                              "variables)", _BREADTH)
+            style = "reduce"
+            spec = {"mode": args[0], "inputs": args[1:], "region": region}
+        elif style == "slice":
+            spec = {"start": int(args[0]), "stop": int(args[1]),
+                    "skip": int(args[2]), "inputs": list(args[3:])}
+            for t in spec["inputs"]:
+                name = t[2:].split("[")[0] if t.startswith("c_") else None
+                if name not in self.computes:
+                    raise ValueError(f"compute slice input {t}: no such "
+                                     "compute")
+                # the JAX package takes the chunk computes' and heat/flux's
+                # arrays, which the port does not have
+                fix_output.global_array(None, t)
+        elif style in ("temp/ramp", "temp/region", "temp/profile"):
+            spec = args
+            if style == "temp/region" and args[0] not in self.regions:
+                raise ValueError(f"compute {cid}: region {args[0]} does not "
+                                 "exist")
+        elif style in ("ke/rigid", "erotate/rigid"):
+            spec = args[0]
+        elif style == "stress/atom":
+            # the bias temperature compute (compute_stress_atom.cpp:42)
+            if args and args[0] != "NULL" or len(args) > 1:
+                raise NotImplementedError(
+                    "compute stress/atom supports temp-ID NULL only")
+            spec = {}
+        elif style in ("coord/atom", "cluster/atom"):
+            # coord/atom cutoff X | cluster/atom X
+            spec = {"cutoff": float(args[1] if args[0] == "cutoff"
+                                    else args[0])}
+        elif style == "displace/atom":
+            spec = {"x0": self._unwrapped_x()}
+        elif style == "property/atom":
+            for w in args:
+                if w not in ("x", "y", "z", "vx", "vy", "vz", "fx", "fy",
+                             "fz", "q", "type", "mol", "mass", "id"):
+                    raise KeyError(f"compute property/atom field {w}")
+            spec = {"fields": args}
+        else:   # ke/atom, pe/atom
+            spec = {}
+        self.computes[cid] = (group, style, spec)
+
+    def cmd_uncompute(self, a):
+        self.computes.pop(a[0], None)
+        self._invalidate()
+
+    def cmd_compute_modify(self, a):
+        """compute_modify ID extra N | dynamic yes|no (compute.cpp
+        modify_params): extra replaces the dof a temperature compute
+        subtracts (thermo_temp's the thermo temperature's).  dynamic, which
+        the JAX package stores unread, changes nothing while no atom
+        joins or leaves a group (the port has no such run)."""
+        cmod = self._compute_modify.setdefault(a[0], {})
+        i = 1
+        while i < len(a):
+            if a[i] == "extra":
+                cmod["extra"] = a[i + 1]
+            elif a[i] == "dynamic":
+                _yesno(a[i + 1])
+            else:
+                _unported(f"compute_modify {a[i]} (the JAX package stores "
+                          "it unread)", _OUTPUT_FIXES)
+            i += 2
+        self._invalidate()
 
     def cmd_fix_modify(self, a):
         """fix_modify ID temp COMPUTE-ID (fix.cpp modify_params) on fix
@@ -1924,9 +2133,9 @@ class _ExprCtx:
     expression engine needs (thermo keywords, variable references, group
     functions, atom vectors, the random stream) against the script's host
     state — the Variable::evaluate environment (variable.cpp:1168).
-    A temp compute's c_ID reads the current thermo row; fix references,
-    regions, vector specials and atom-style variables are not ported and
-    raise."""
+    A compute's c_ID or c_ID[i] reads the current thermo row, a vector
+    special fix vector's series or a compute's c_ID[1..]; f_ID (which
+    JAX's thermo row never holds) and atom-style variables raise."""
 
     def __init__(self, script):
         self.s = script
@@ -1964,17 +2173,25 @@ class _ExprCtx:
         return self.s.var_value(name)
 
     def compute_ref(self, cid, i1, i2, mode):
-        """c_ID of a temp compute: its value in the current thermo row."""
-        if i1 is not None or i2 is not None:
-            _unported(f"compute reference c_{cid} with an index")
+        """c_ID or c_ID[i] of a global compute: its value in the current
+        thermo row (the JAX package's lookup)."""
+        key = f"c_{cid}"
+        if i1 is not None:
+            key += f"[{i1}]"
+        if i2 is not None:
+            key += f"[{i2}]"
         row = self.s._current_thermo_row()
-        if row is not None and f"c_{cid}" in row:
-            return float(row[f"c_{cid}"])
-        raise ValueError(f"compute reference c_{cid} not available in "
+        if row is not None and key in row:
+            return float(row[key])
+        raise ValueError(f"compute reference {key} not available in "
                          "variable formula (no live value)")
 
     def fix_ref(self, fid, i1, i2, mode):
-        _unported(f"fix reference f_{fid}")
+        """f_ID: the JAX package looks it up in its thermo row, which holds
+        no value of a fix the port has; the port raises."""
+        key = f"f_{fid}" + (f"[{i1}]" if i1 is not None else "")
+        _unported(f"fix reference {key} (JAX's thermo row has no fix's "
+                  "value)", _NO_VALUE)
 
     def atom_vec(self, word):
         s = self.s
@@ -2045,7 +2262,34 @@ class _ExprCtx:
         return np.zeros((n, 3))
 
     def special_vector(self, tok):
-        _unported(f"vector reference {tok}")
+        """A global vector for the special functions (slope, ave, ...):
+        fix vector's series (fix_vector.cpp compute_vector), else the
+        c_ID[1], c_ID[2], ... values of the current thermo row."""
+        m = re.match(r"^([cfv])_(\w+)$", tok)
+        if not m:
+            raise ValueError(f"invalid vector reference {tok!r}")
+        if m.group(1) == "f":
+            spec = self.s.fixes.get(m.group(2))
+            if spec is None or spec.style != "vector":
+                _unported(f"vector reference {tok} (a fix other than fix "
+                          "vector)", _NO_VALUE)
+            buf = getattr(spec, "_series", None)
+            if not buf:
+                raise ValueError(f"fix vector {m.group(2)} has no values "
+                                 "yet")
+            return np.asarray(buf, float)
+        row = self.s._current_thermo_row()
+        if row is None:
+            raise ValueError("no live values for vector special function")
+        key = {"c": "c_", "v": "v_"}[m.group(1)] + m.group(2)
+        vals = []
+        i = 1
+        while f"{key}[{i}]" in row:
+            vals.append(float(row[f"{key}[{i}]"]))
+            i += 1
+        if not vals:
+            raise ValueError(f"vector reference {tok!r} has no values")
+        return np.asarray(vals)
 
     def random_source(self, seed, atom):
         if atom:
@@ -2078,6 +2322,8 @@ class _ExprCtx:
         s = self.s
         if cat == "variable":
             return float(ident in s.variables or ident in s._equal_exprs)
+        if cat == "compute":
+            return float(ident in s.computes)
         if cat == "fix":
             return float(ident in s.fixes)
         if cat == "dump":

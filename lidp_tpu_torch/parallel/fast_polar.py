@@ -77,9 +77,15 @@ def prescan(script, n: int) -> bool:
     if not all(getattr(script, "periodic", (True, True, True))):
         return False
     # integration fixes the panel engine composes with; anything else
-    # (thermostats, constraints, walls, ...) stays on the dense path
+    # (thermostats, constraints, walls, ...) stays on the dense path.  The
+    # output fixes sample the state between run chunks and compose with
+    # any runner; the JAX package's prescan sends them off the panel
+    # engine too (ROADMAP queue 3 item 27)
+    from lidp_tpu_torch.styles.fix_output import OUTPUT_STYLES
+
     for f in getattr(script, "fixes", {}).values():
-        if f.style not in ("nve", "rigid/nve", "rigid/nve/small"):
+        if f.style not in ("nve", "rigid/nve", "rigid/nve/small") \
+                + OUTPUT_STYLES:
             return False
     # bonded force terms are outside the panel engine (special-bond pair
     # exclusions ARE handled, via the sparse correction pass)

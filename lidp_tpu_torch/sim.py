@@ -26,9 +26,11 @@ shrink-wrapped box of `boundary s` or `m` after create_box (a
 box.ShrinkSpec the Runner resets the box with at setup and, on the cell
 grid, at every rebuild; its static bins can then grow thinner than the
 cutoff, which sets the grid's overflow flag, and the run aborts as the
-JAX package's does); then `run` (each run the window of the thermostats' and
-barostats' target ramps), the thermo rows with their c_ID columns and the
-dump frames.  Under a barostat the Ewald tables follow the live box
+JAX package's does), and the computes (_wire_computes: the tables of
+computes.py); then `run` (each run the window of the thermostats' and
+barostats' target ramps), the output fixes of styles/fix_output.py at the
+run chunks' ends, the thermo rows with every compute's c_ID and c_ID[i]
+and the v_NAME columns (thermo_row), and the dump frames.  Under a barostat the Ewald tables follow the live box
 (ForceField.kspace_dynamic), PPPM reads it at each call, and the Runner
 evaluates the virial every step (every_step_ev), so a thermo row reads the
 step's own evaluation on the box after the step's remap.
@@ -72,7 +74,7 @@ import time
 import numpy as np
 import torch
 
-from lidp_tpu_torch import resolve_device
+from lidp_tpu_torch import computes, resolve_device
 from lidp_tpu_torch import topology as topo_mod
 from lidp_tpu_torch.box import Box
 from lidp_tpu_torch.forcefield import ForceField
@@ -88,7 +90,9 @@ from lidp_tpu_torch.parallel import fast_polar
 from lidp_tpu_torch.parallel.fast_polar import (aligned_npad, maybe_attach,
                                                 prescan)
 from lidp_tpu_torch.state import make_system
-from lidp_tpu_torch.thermo import ThermoParams, temperature, thermo_row
+from lidp_tpu_torch.styles import fix_output
+from lidp_tpu_torch.thermo import (ThermoParams, compute_pressure,
+                                   temperature, thermo_row)
 
 # the k-space styles the coulomb pair styles run with
 KSPACE_STYLES = ("ewald", "ewald/disp", "pppm", "pppm/cg", "pppm/stagger")
@@ -303,6 +307,25 @@ class Simulation:
         # the cell grid's carry (integrate/driver.NeighborCarry) across
         # runs and chunks; None on the dense route and the panel engine
         self.nlist = None
+        # the other computes by kind (_wire_computes): ID -> group mask
+        # and what the style needs
+        self.gg_computes = {}
+        self.rigid_computes = {}
+        self.msd_computes = {}
+        self.rdf_computes = {}
+        self.simple_computes = {}
+        self.vacf_computes = {}
+        self.peratom_computes = {}
+        self.reduce_computes = {}
+        self.tempvar_computes = {}
+        self.slice_computes = {}
+        self.press_computes = {}
+        # a state's per-atom values (computes.eval_peratom) and thermo row
+        # are formed once: keyed by the step and the force result, the
+        # row also by a generation the fixes' per-atom stores bump
+        self._gen = 0
+        self._peratom = (None, None, {})
+        self._row_cache = None
 
     @staticmethod
     def from_script(script) -> "Simulation":
@@ -561,7 +584,11 @@ class Simulation:
                     "System: ROADMAP queue 1 item 6, breadth)")
 
         # ---- thermo ----
-        dof = dim_ * n - dim_ - fctx.dof_removed
+        # compute_modify thermo_temp extra N replaces the default extra dof
+        # (dim; compute.cpp modify_params)
+        cmod = script._compute_modify
+        extra_dof = float(cmod.get("thermo_temp", {}).get("extra", dim_))
+        dof = dim_ * n - extra_dof - fctx.dof_removed
         norm = script._thermo_norm
         tp = ThermoParams.create(
             mass_atom, dof=dof, units=u,
@@ -579,37 +606,193 @@ class Simulation:
                 dof=dim_ * ngt - dim_ - fctx.dof_removed, units=u,
                 norm=u.name == "lj", natoms=n, dim=dim_, dtype=dtype,
                 device=device)
-        # compute ID group temp: the group's dof is dim*ng - dim, less a
-        # rigid fix's removed dof when all its bodies lie in the group (the
-        # JAX package's rule, its sim.py:2126-2151)
-        group_tp = {}
-        for cid, (gname, _) in script.computes.items():
-            gmask = groups[gname]
-            ng = int(gmask.sum())
-            gdof = dim_ * ng - dim_
-            for _, rsetup in fctx.rigid_groups:
-                if np.all(gmask[rsetup.body_of_atom >= 0]):
-                    gdof -= rsetup.dof_removed
-            group_tp[cid] = ThermoParams.create(
-                np.where(gmask, mass_atom, 0.0), dof=gdof, units=u,
-                norm=False, natoms=ng, dim=dim_, dtype=dtype, device=device)
-        return Simulation(script, sys, runner, tp, n, group_tp)
+        sim = Simulation(script, sys, runner, tp, n)
+        sim._wire_computes(groups, mass_atom, fctx.rigid_groups)
+        return sim
+
+    def _wire_computes(self, groups, mass_atom, rigid_groups):
+        """Sort the script's computes into the tables the thermo row, the
+        output fixes and the dumps read (the JAX package's sim.py
+        :2041-2151).  A temperature compute (temp, temp/partial, temp/com)
+        gets the ThermoParams of its group: dof dim*ng - dim (compute_modify
+        extra replacing dim; temp/partial nper*ng - nper,
+        compute_temp_partial.cpp:77-86), less a rigid fix's removed dof
+        when all its bodies lie in the group.  Group masks are the script's
+        (the real atoms); references become float64 tensors on the
+        device."""
+        script = self.script
+        dim_ = script.dimension
+        dev = self.sys.x.device
+        cmod = script._compute_modify
+
+        def ref(a):
+            return torch.as_tensor(np.asarray(a, np.float64), device=dev)
+
+        for cid, spec_c in script.computes.items():
+            gname, style = spec_c[0], spec_c[1]
+            gm = script.groups[gname].copy()
+            if style in ("temp", "temp/partial", "temp/com"):
+                gmask = groups[gname]
+                ng = int(gmask.sum())
+                gdof = dim_ * ng - dim_
+                if "extra" in cmod.get(cid, {}):
+                    gdof = dim_ * ng - float(cmod[cid]["extra"])
+                vcomp = (True, True, True)
+                if style == "temp/partial":
+                    flags = spec_c[2]
+                    vcomp = tuple(bool(f) for f in flags)
+                    nper = sum(1 for f in flags if f)
+                    gdof = nper * ng - (nper / dim_) * dim_
+                for _, rsetup in rigid_groups:
+                    if np.all(gmask[rsetup.body_of_atom >= 0]):
+                        gdof -= rsetup.dof_removed
+                self.group_thermo[cid] = ThermoParams.create(
+                    np.where(gmask, mass_atom, 0.0), dof=gdof,
+                    units=script.units, norm=False, natoms=ng, dim=dim_,
+                    vcomp=vcomp, com_bias=style == "temp/com",
+                    dtype=self.sys.x.dtype, device=dev)
+                continue
+            spec = spec_c[2]
+            if style in ("ke/rigid", "erotate/rigid"):
+                self.rigid_computes[cid] = style
+            elif style == "group/group":
+                self.gg_computes[cid] = (gm, script.groups[spec].copy())
+            elif style == "msd":
+                self.msd_computes[cid] = (gm, ref(spec))
+            elif style == "vacf":
+                self.vacf_computes[cid] = (gm, ref(spec))
+            elif style == "rdf":
+                self.rdf_computes[cid] = (gm, int(spec))
+            elif style in ("com", "gyration", "ke", "pe"):
+                self.simple_computes[cid] = (gm, style)
+            elif style in computes.PERATOM_STYLES:
+                if style == "displace/atom":
+                    spec = {"x0": ref(spec["x0"])}
+                self.peratom_computes[cid] = (gm, style, spec)
+            elif style == "slice":
+                self.slice_computes[cid] = dict(spec)
+            elif style == "pressure":
+                self.press_computes[cid] = dict(spec)
+            elif style == "reduce":
+                self.reduce_computes[cid] = (gm, spec)
+            else:   # temp/ramp, temp/region, temp/profile
+                self.tempvar_computes[cid] = (gm, style, spec)
 
     # ------------------------------ output -------------------------------
 
-    def _thermo_row(self) -> dict:
+    def peratom_cache(self) -> dict:
+        """The per-atom values of the current state (computes.py), emptied
+        when the step or the force result changes."""
+        step, res, cache = self._peratom
+        if step != int(self.sys.step) or res is not self.res:
+            cache = {}
+            self._peratom = (int(self.sys.step), self.res, cache)
+        return cache
+
+    def bump_generation(self):
+        """A fix's per-atom store changed: the next row is formed anew."""
+        self._gen += 1
+
+    def _global_computes(self) -> tuple:
+        """The global computes' values as 0-d tensors, not yet read: the
+        c_ID and c_ID[i] columns (the JAX package's sim.py:2998-3064 and
+        the pressure computes of :3081-3098, which it adds after the
+        v_NAME columns)."""
+        out = {"c_" + cid: temperature(self.sys, tp)
+               for cid, tp in self.group_thermo.items()}
+        for cid, (ma, mb) in self.gg_computes.items():
+            out["c_" + cid] = computes.group_group_energy(self, ma, mb)
+        for cid, rstyle in self.rigid_computes.items():
+            out["c_" + cid] = computes.rigid_scalar(self, rstyle)
+        for cid, (gm, style) in self.simple_computes.items():
+            vals = computes.simple_compute(self, gm, style)
+            if style == "com":
+                for d in range(3):
+                    out[f"c_{cid}[{d + 1}]"] = vals[d]
+            else:
+                out["c_" + cid] = vals[0]
+        for table, fn in ((self.msd_computes, computes.msd),
+                          (self.vacf_computes, computes.vacf)):
+            for cid, (gm, ref) in table.items():
+                for k, val in enumerate(fn(self, gm, ref)):
+                    out[f"c_{cid}[{k + 1}]"] = val
+        tp = self.thermo_params
+        for cid, (_, spec) in self.reduce_computes.items():
+            vals = computes.eval_reduce(self, cid)
+            # reduce sum is extensive (compute_reduce.cpp extvector=1):
+            # thermo normalizes it by natoms under norm yes
+            nrm = (1.0 / tp.natoms if tp.norm and spec["mode"] == "sum"
+                   else 1.0)
+            if len(vals) == 1:
+                out["c_" + cid] = vals[0] * nrm
+            else:
+                for k, val in enumerate(vals):
+                    out[f"c_{cid}[{k + 1}]"] = val * nrm
+        for cid, (gm, style, args) in self.tempvar_computes.items():
+            out["c_" + cid] = computes.temp_variant(self, gm, style, args)
+        late = {}
+        virial = self.res.virial
+        ev = getattr(self.istate, "virial", None)
+        if ev is not None:
+            virial = virial + ev
+        for cid, spec in self.press_computes.items():
+            # compute pressure temp-ID|NULL [virial]: the named temperature
+            # compute's kinetic part, none for NULL or virial
+            tcid = spec["temp"]
+            late["c_" + cid] = compute_pressure(
+                self.sys, self.group_thermo.get(tcid, self.thermo_params),
+                virial, kinetic=tcid != "NULL" and "virial" not in spec["kw"])
+        return out, late
+
+    def thermo_row(self) -> dict:
         """The thermo row of the current state: thermo_row with the
-        integrator's constraint virial in the pressure and each temp
-        compute's c_ID, every scalar read to the host in one transfer;
-        plus the atom and topology counts."""
-        row = thermo_row(self.sys, self.res, self.thermo_params,
-                         extra_virial=getattr(self.istate, "virial", None),
-                         extra={"c_" + cid: temperature(self.sys, tp)
-                                for cid, tp in self.group_thermo.items()})
-        row["atoms"] = self.natoms
-        bonds = self.script._bonds
-        row["bonds"] = 0 if bonds is None else len(bonds)
+        integrator's constraint virial in the pressure and every global
+        compute's c_ID / c_ID[i] (temperatures, pe, ke, com, gyration, msd,
+        vacf, reduce, group/group, the rigid and biased temperatures,
+        pressure), every scalar read to the host in one transfer; the atom
+        and topology counts and dt; then the v_NAME columns, evaluated with
+        this row as the thermo keywords' context (thermo.cpp
+        compute_variable), and the pressure computes after them, as the
+        JAX package orders them.  The read is formed once per state."""
+        key = (int(self.sys.step), self._gen)
+        cached = self._row_cache
+        if cached is not None and cached[0] == key and cached[1] is self.res:
+            base, late = cached[2], cached[3]
+        else:
+            extra, late = self._global_computes()
+            base = thermo_row(self.sys, self.res, self.thermo_params,
+                              extra_virial=getattr(self.istate, "virial",
+                                                   None),
+                              extra={**extra, **late})
+            late = {k: base.pop(k) for k in late}
+            base["atoms"] = self.natoms
+            bonds = self.script._bonds
+            base["bonds"] = 0 if bonds is None else len(bonds)
+            base["dt"] = float(self.script.dt)
+            self._row_cache = (key, self.res, base, late)
+        row = dict(base)
+        prev = self.script._kw_row
+        self.script._kw_row = row
+        try:
+            for c in self.script.thermo_columns:
+                if c.startswith("v_"):
+                    try:
+                        row[c] = float(self.script.var_value(c[2:]))
+                    except (KeyError, ValueError) as e:
+                        raise NotImplementedError(
+                            f"thermo column {c}: {e} (the JAX package prints "
+                            "nan: ROADMAP queue 3 item 26, values JAX's "
+                            "thermo row lacks)") from e
+        finally:
+            self.script._kw_row = prev
+        row.update(late)
         return row
+
+    def compute_rdf(self, cid):
+        """compute rdf: its (Nbin, 3) array [r, g(r), coord] now
+        (computes.rdf), read through api.lammps.extract_compute."""
+        gm, nbin = self.rdf_computes[cid]
+        return computes.rdf(self, gm, nbin)
 
     _HEADER = {"step": "Step", "etotal": "TotEng", "ke": "KinEng",
                "pe": "PotEng", "evdwl": "E_vdwl", "ecoul": "E_coul",
@@ -620,10 +803,10 @@ class Simulation:
                "atoms": "Atoms", "lx": "Lx", "ly": "Ly", "lz": "Lz",
                "xlo": "Xlo", "xhi": "Xhi", "ylo": "Ylo", "yhi": "Yhi",
                "zlo": "Zlo", "zhi": "Zhi", "xy": "Xy", "xz": "Xz",
-               "yz": "Yz", "bonds": "Bonds"}
+               "yz": "Yz", "bonds": "Bonds", "dt": "Dt"}
 
     def _emit(self):
-        row = self._thermo_row()
+        row = self.thermo_row()
         self.script.thermo_rows.append(row)
         cols = self.script.thermo_columns
         # thermo_modify format float FMT (thermo.cpp modify_params)
@@ -647,9 +830,11 @@ class Simulation:
     # -------------------------------- run --------------------------------
 
     def run(self, nsteps: int):
-        """Advance nsteps: setup on the first run, the header and the row of
-        the start, then the steps in chunks of the gcd of the thermo and
-        dump intervals, a row and the dump frames at each boundary, and the
+        """Advance nsteps: setup on the first run, fix vector's setup
+        sample, the header, the row of the start and its dump frames, fix
+        ave/time's setup sample, then the steps in chunks of the gcd of the
+        thermo, dump and output-fix intervals, at each boundary the output
+        fixes (styles/fix_output.py), a row and the dump frames, and the
         `Loop time` / `Performance` lines (Finish::end, finish.cpp:64)."""
         t_start = time.perf_counter()
         # the thermostats' target ramps span exactly this run
@@ -663,14 +848,31 @@ class Simulation:
         if self.res is None:
             self.sys, self.res, self.nlist, self.istate = \
                 self.runner.setup(self.sys)
+        fixes = list(self.script.fixes.values())
+        # FixVector::setup samples at run start when the step lands on
+        # the Nevery grid (fix_vector.cpp:242-253)
+        for spec in fixes:
+            if spec.style == "vector":
+                fix_output.vector_sample(self, spec, int(self.sys.step))
         self.script.log(" ".join(
             self._HEADER.get(c, c) for c in self.script.thermo_columns))
         self._emit()
         self._dump()
+        # FixAveTime::setup -> end_of_step fires at the setup step when
+        # nrepeat == 1 and the step is a multiple of Nfreq, once
+        step0 = int(self.sys.step)
+        for spec in fixes:
+            if (spec.style == "ave/time" and int(spec.args[1]) == 1
+                    and int(spec.args[2]) > 0
+                    and step0 % int(spec.args[2]) == 0
+                    and not getattr(spec, "_started_setup", False)):
+                spec._started_setup = True
+                fix_output.ave_time(self, spec, step0)
         remaining = nsteps
         every = self.script.thermo_every or nsteps
         chunk_opts = [every] + [d.every for d in self.script.dumps.values()
-                                if d.every]
+                                if d.every] \
+            + fix_output.chunk_periods(self.script)
         chunk = int(np.gcd.reduce(chunk_opts))
         while remaining > 0:
             todo = min(chunk, remaining)
@@ -680,6 +882,7 @@ class Simulation:
             step = int(self.sys.step)
             if self.nlist is not None and bool(self.nlist.overflow):
                 raise RuntimeError(_OVERFLOW)
+            fix_output.host_fixes(self, step)
             if every and step % every == 0 or remaining == 0:
                 self._emit()
             self._dump()

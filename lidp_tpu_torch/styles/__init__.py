@@ -14,7 +14,9 @@ post_force styles (langevin, setforce, addforce, aveforce, spring,
 spring/self, viscous, efield, planeforce, lineforce), the end_of_step
 styles (momentum, recenter, temp/csld), the deferred temp/rescale and
 temp/berendsen, fix enforce2d and fix box/relax (which only `minimize`
-reads); a fix style with no builder raises NotImplementedError.
+reads); the output fixes of styles/fix_output.py have no builder (the
+Simulation samples them between run chunks); any other fix style with no
+builder raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -97,7 +99,13 @@ def build_fixes(ctx: FixBuildCtx):
                         if is_integrator(f.style))
     if n_integrators > 1:
         raise NotImplementedError("multiple simultaneous integrator fixes")
+    from lidp_tpu_torch.styles.fix_output import OUTPUT_STYLES
+
     for spec in ctx.script.fixes.values():
+        if spec.style in OUTPUT_STYLES:
+            # sampled by the Simulation between run chunks
+            # (styles/fix_output.py)
+            continue
         builder = FIX_BUILDERS.get(spec.style)
         if builder is None:
             raise NotImplementedError(

@@ -1,0 +1,453 @@
+"""The output fixes (lidp_tpu/sim.py _host_fixes, _fix_vector_sample,
+_ave_time, _ave_histo, _histo_emit, _ave_correlate, _global_array,
+eval_slice): fix print, ave/time, ave/atom, ave/histo, ave/histo/weight,
+ave/correlate and vector, sampled on the host at run-chunk boundaries
+(their periods fold into the chunk gcd, Simulation.run).
+
+Each keeps its buffers and its file on its FixSpec, so that they carry
+over a second `run` as the reference's fix objects do, and writes its file
+line for line as the JAX package does.  The global values come from the
+Simulation's thermo row (one device read a row); the per-atom ones from
+computes.peratom_column.  Where the JAX package reads a keyword nowhere,
+or samples 0.0 for a value its thermo row lacks, the port raises
+NotImplementedError naming ROADMAP queue 3 items 25 and 26.
+"""
+
+from __future__ import annotations
+
+import os
+import re
+
+import numpy as np
+import torch
+
+from lidp_tpu_torch import computes
+
+# the output fix styles, which have no builder (styles/__init__.py)
+OUTPUT_STYLES = ("print", "ave/time", "ave/atom", "ave/histo",
+                 "ave/histo/weight", "ave/correlate", "vector")
+_SKIPPED = "ROADMAP queue 3 item 25, keywords JAX skips"
+_NO_VALUE = "ROADMAP queue 3 item 26, values JAX's thermo row lacks"
+_CHUNK = "ROADMAP queue 1 item 6.13, the chunk computes"
+_STRUCTURE = "ROADMAP queue 1 item 6.14, the structure computes"
+
+
+def _skipped(style, kw):
+    raise NotImplementedError(
+        f"fix {style} keyword {kw}: the JAX package reads it nowhere, and the "
+        f"port does not take it ({_SKIPPED})")
+
+
+def parse_print(args):
+    """fix print N "message" [file F]: (N, message, file or None).  The
+    tokenizer split the quoted message; it is put back together."""
+    msg_toks = []
+    rest = list(args[1:])
+    while rest:
+        t = rest.pop(0)
+        msg_toks.append(t)
+        if t.endswith('"') and (len(msg_toks) > 1 or len(t) > 1):
+            break
+    msg = " ".join(msg_toks).strip('"')
+    fpath = None
+    while rest:
+        if rest[0] == "file":
+            fpath = rest[1]
+        else:
+            _skipped("print", rest[0])
+        rest = rest[2:]
+    return int(args[0]), msg, fpath
+
+
+def parse_ave_time(args):
+    """fix ave/time Nevery Nrepeat Nfreq value... [mode scalar|vector]
+    [file F]: (Nevery, Nrepeat, Nfreq, values, mode, file)."""
+    nev, nrep, nfreq = int(args[0]), int(args[1]), int(args[2])
+    vals, mode, fpath = [], "scalar", None
+    i = 3
+    while i < len(args):
+        if args[i] == "mode":
+            mode = args[i + 1]
+            i += 2
+        elif args[i] == "file":
+            fpath = args[i + 1]
+            i += 2
+        elif args[i] in ("ave", "start", "format", "off", "title1",
+                         "title2", "title3"):
+            # JAX's _ave_time skips them: one window of Nrepeat, its own
+            # format and titles
+            _skipped("ave/time", args[i])
+        else:
+            vals.append(args[i])
+            i += 1
+    return nev, nrep, nfreq, vals, mode, fpath
+
+
+def parse_ave_histo(args):
+    """fix ave/histo[/weight] Nevery Nrepeat Nfreq lo hi Nbin value...
+    [file F]."""
+    nev, nrep, nfreq = int(args[0]), int(args[1]), int(args[2])
+    lo, hi, nbin = float(args[3]), float(args[4]), int(args[5])
+    vals, fpath = [], None
+    i = 6
+    while i < len(args):
+        if args[i] == "file":
+            fpath = args[i + 1]
+            i += 2
+        elif args[i] in ("mode", "ave", "start", "beyond", "overwrite",
+                         "title1", "title2", "title3", "kind"):
+            _skipped("ave/histo", args[i])
+        else:
+            vals.append(args[i])
+            i += 1
+    return nev, nrep, nfreq, lo, hi, nbin, vals, fpath
+
+
+def parse_ave_correlate(args):
+    """fix ave/correlate Nevery Nrepeat Nfreq value... [type auto] [file
+    F]: the JAX package computes the auto-correlation whatever `type`
+    says, so only `type auto` is taken."""
+    nev, nrep, nfreq = int(args[0]), int(args[1]), int(args[2])
+    vals, fpath = [], None
+    i = 3
+    while i < len(args):
+        if args[i] == "file":
+            fpath = args[i + 1]
+            i += 2
+        elif args[i] == "type" and args[i + 1] == "auto":
+            i += 2
+        elif args[i] in ("type", "ave", "start", "prefactor", "overwrite",
+                         "title1", "title2", "title3"):
+            _skipped("ave/correlate", f"{args[i]} {args[i + 1]}"
+                     if args[i] == "type" else args[i])
+        else:
+            vals.append(args[i])
+            i += 1
+    return nev, nrep, nfreq, vals, fpath
+
+
+def check_spec(script, spec):
+    """Parse a new output fix's arguments at its definition (raising on
+    what the port does not take), and its values against the script."""
+    st = spec.style
+    a = list(spec.args)
+    if st == "print":
+        parse_print(a)
+        return
+    if st == "ave/time":
+        vals, mode = parse_ave_time(a)[3:5]
+        if mode not in ("scalar", "vector"):
+            raise ValueError(f"fix ave/time mode {mode}")
+        if mode == "vector":
+            for t in vals:
+                name = t[2:].split("[")[0] if t.startswith("c_") else None
+                style = script.computes.get(name, (None, None))[1]
+                if style != "slice":
+                    raise NotImplementedError(
+                        f"fix ave/time mode vector input {t}: the port takes "
+                        "compute slice; the chunk computes and heat/flux are "
+                        f"not ported ({_CHUNK}; {_STRUCTURE})")
+        else:
+            _check_scalars(script, "ave/time", vals)
+        return
+    if st in ("ave/histo", "ave/histo/weight"):
+        vals = parse_ave_histo(a)[6]
+        if st == "ave/histo/weight" and len(vals) != 2:
+            raise ValueError("fix ave/histo/weight takes two values")
+        return
+    if st == "ave/correlate":
+        _check_scalars(script, "ave/correlate", parse_ave_correlate(a)[3])
+        return
+    if st == "vector":
+        _check_scalars(script, "vector", a[1:])
+        return
+    if st == "ave/atom":
+        for t in a[3:]:
+            if t.startswith("v_"):
+                raise NotImplementedError(
+                    f"fix ave/atom input {t}: atom-style variables are not "
+                    "ported (ROADMAP queue 1 item 6, breadth)")
+
+
+def _check_scalars(script, style, vals):
+    for t in vals:
+        if t.startswith("f_"):
+            raise NotImplementedError(
+                f"fix {style} value {t}: JAX's thermo row has no fix's "
+                f"value; it samples 0.0 ({_NO_VALUE})")
+        if t.startswith("c_") and t[2:].split("[")[0] not in script.computes:
+            raise ValueError(f"fix {style}: compute {t[2:]} does not exist")
+
+
+def _row_value(sim, what, style):
+    """A global value of the thermo row (lidp_tpu/sim.py's lookup: c_ID
+    and c_ID[i], thermo keywords, v_NAME of the thermo columns).  The JAX
+    package samples 0.0 where the row lacks it; the port raises."""
+    row = sim.thermo_row()
+    key = what[2:] if what.startswith("c_") else what.lower()
+    v = row.get("c_" + key, row.get(key))
+    if v is None:
+        raise NotImplementedError(
+            f"fix {style} value {what}: not in the thermo row (the JAX "
+            f"package samples 0.0; {_NO_VALUE})")
+    return float(v)
+
+
+def host_fixes(sim, step):
+    """Every output fix at step, in declaration order (_host_fixes)."""
+    for spec in list(sim.script.fixes.values()):
+        st = spec.style
+        if st == "print":
+            fix_print(sim, spec, step)
+        elif st == "ave/atom":
+            ave_atom(sim, spec, step)
+        elif st in ("ave/histo", "ave/histo/weight"):
+            ave_histo(sim, spec, step)
+        elif st == "ave/correlate":
+            ave_correlate(sim, spec, step)
+        elif st == "vector":
+            vector_sample(sim, spec, step)
+        elif st == "ave/time":
+            ave_time(sim, spec, step)
+
+
+def _write(sim, spec, fpath, text):
+    """Append text to the fix's file (truncated at its first write)."""
+    mode = "a" if getattr(spec, "_started", False) else "w"
+    with open(os.path.join(sim.script.root, fpath), mode) as fh:
+        fh.write(text)
+    spec._started = True
+
+
+def fix_print(sim, spec, step):
+    """fix print (fix_print.cpp): the message with ${name} substituted
+    (a thermo keyword of the row, else a variable; floats %.8g) every N
+    steps, to the log or the file."""
+    nev, msg, fpath = parse_print(spec.args)
+    if not nev or step % nev:
+        return
+    row = sim.thermo_row()
+
+    def sub(m):
+        k = m.group(1)
+        v = row.get(k.lower())
+        if v is None:
+            v = sim.script.var_str(k)
+            if v is None:
+                v = ""
+        return f"{v:.8g}" if isinstance(v, float) else str(v)
+
+    out = re.sub(r"\$\{(\w+)\}", sub, msg)
+    if fpath:
+        _write(sim, spec, fpath, out + "\n")
+    else:
+        sim.script.log(out)
+
+
+def ave_atom(sim, spec, step):
+    """fix ave/atom Nevery Nrepeat Nfreq value... (fix_ave_atom.cpp): the
+    per-atom means of the last Nrepeat samples, refreshed every Nfreq and
+    read as f_ID[col] by dumps and compute reduce."""
+    a = spec.args
+    nev, nrep, nfreq = int(a[0]), int(a[1]), int(a[2])
+    if nev and step % nev == 0:
+        cols = [computes.peratom_column(sim, t) for t in a[3:]]
+        sample = cols[0] if len(cols) == 1 else torch.stack(cols, dim=1)
+        buf = getattr(spec, "_samples", [])
+        buf.append(sample)
+        spec._samples = buf[-nrep:]
+    if nfreq and step % nfreq == 0 and getattr(spec, "_samples", None):
+        spec._peratom_store = torch.stack(spec._samples).mean(0)
+        sim.bump_generation()
+
+
+def vector_sample(sim, spec, step):
+    """fix vector Nevery value... (fix_vector.cpp): append the values to a
+    growing series on the Nevery grid; also at run setup (FixVector::setup
+    samples when the step is on the grid).  _last_step guards against a
+    sample taken twice at a run boundary."""
+    nev = int(spec.args[0])
+    if not nev or step % nev != 0:
+        return
+    if getattr(spec, "_last_step", None) == step:
+        return
+    spec._last_step = step
+    vals = [_row_value(sim, t, "vector") for t in spec.args[1:]]
+    buf = getattr(spec, "_series", [])
+    buf.append(vals[0] if len(vals) == 1 else vals)
+    spec._series = buf
+
+
+def ave_time(sim, spec, step):
+    """fix ave/time (fix_ave_time.cpp as the JAX package runs it): the
+    mean of the last Nrepeat samples taken every Nevery, written every
+    Nfreq; mode scalar `step v1 v2 ...` rows (%.10g), mode vector a `step
+    nrows` header and `row v1 v2 ...` rows."""
+    nev, nrep, nfreq, vals, mode, fpath = parse_ave_time(spec.args)
+    if nev and step % nev == 0:
+        if mode == "vector":
+            sample = np.concatenate([_resolve_vector(sim, t) for t in vals],
+                                    axis=1)
+        else:
+            sample = np.asarray([_row_value(sim, t, "ave/time")
+                                 for t in vals])
+        buf = getattr(spec, "_avebuf", [])
+        buf.append(sample)
+        spec._avebuf = buf[-nrep:]
+    if nfreq and step % nfreq == 0 and getattr(spec, "_avebuf", None):
+        ave = np.mean(spec._avebuf, axis=0)
+        sim.script.ave_time_values.setdefault(spec.fid, []).append(
+            (step, ave if ave.size > 1 else float(ave.reshape(-1)[0])))
+        if fpath:
+            if mode == "vector":
+                text = f"{step} {ave.shape[0]}\n" + "".join(
+                    " ".join([str(r + 1)] + [f"{v:.10g}" for v in ave[r]])
+                    + "\n" for r in range(ave.shape[0]))
+            else:
+                text = " ".join([str(step)] + [f"{v:.10g}"
+                                               for v in ave.reshape(-1)]) \
+                    + "\n"
+            _write(sim, spec, fpath, text)
+
+
+def _resolve_vector(sim, tok):
+    """ave/time mode vector's input: c_ID of a compute slice (its columns;
+    c_ID[j] one of them), else a global array (_global_array)."""
+    mm = re.match(r"c_(\w+)(?:\[(\d+)\])?$", tok)
+    if mm and mm.group(1) in sim.slice_computes:
+        arr = np.asarray(eval_slice(sim, mm.group(1)), float)
+        if mm.group(2):
+            arr = arr[:, [int(mm.group(2)) - 1]]
+        return arr
+    return global_array(sim, tok)
+
+
+def global_array(sim, tok):
+    """c_ID / c_ID[j] of a global vector or array compute as a 2-d array:
+    the JAX package's are the chunk computes and heat/flux, which the port
+    does not have (ROADMAP queue 1 items 6.13 and 6.14)."""
+    raise ValueError(f"{tok}: not a global vector/array compute (the chunk "
+                     f"computes and heat/flux: {_CHUNK}; {_STRUCTURE})")
+
+
+def eval_slice(sim, cid):
+    """compute slice Nstart Nstop Nskip input... (ComputeSlice::
+    extract_one): rows Nstart, Nstart+Nskip, ... below Nstop (exclusive,
+    1-based) of each input's global array, one column per input."""
+    spec = sim.slice_computes[cid]
+    sel = slice(spec["start"] - 1, spec["stop"] - 1, spec["skip"])
+    cols = [global_array(sim, t)[sel] for t in spec["inputs"]]
+    return np.concatenate(cols, axis=1)
+
+
+def _histo_state(nbin):
+    return dict(hist=np.zeros(nbin), total=0.0, missing=0.0, vmin=np.inf,
+                vmax=-np.inf, nsamp=0)
+
+
+def ave_histo(sim, spec, step):
+    """fix ave/histo[/weight] (fix_ave_histo.cpp as the JAX package runs
+    it): a histogram of per-atom values (the fix's group) or global ones,
+    Nrepeat samples accumulated, written every Nfreq: `step nbins total
+    missing min max`, then `i coord count count/total` rows.  /weight:
+    the first value binned, the second the weights."""
+    nev, nrep, nfreq, lo, hi, nbin, vals, fpath = \
+        parse_ave_histo(spec.args)
+    if nev and step % nev == 0:
+        gm = np.asarray(sim.script.groups[spec.group])[:sim.natoms]
+        samples = []
+        for t in vals:
+            try:
+                arr = computes.peratom_column(sim, t)
+                samples.append(arr.cpu().numpy()[gm])
+            except KeyError:
+                samples.append(np.array([_row_value(sim, t, spec.style)]))
+        if spec.style == "ave/histo/weight":
+            data, weights = samples[0], samples[1]
+            inside = (data >= lo) & (data <= hi)
+            hist, _ = np.histogram(data[inside], bins=nbin, range=(lo, hi),
+                                   weights=weights[inside])
+            st = getattr(spec, "_histo", None) or _histo_state(nbin)
+            st["hist"] = st["hist"] + hist
+            st["total"] += float(weights[inside].sum())
+            st["missing"] += float(weights[~inside].sum())
+            if len(data):
+                st["vmin"] = min(st["vmin"], float(data.min()))
+                st["vmax"] = max(st["vmax"], float(data.max()))
+            st["nsamp"] += 1
+            spec._histo = st
+            histo_emit(sim, spec, step, nfreq, nbin, lo, hi, fpath)
+            return
+        data = np.concatenate(samples)
+        inside = (data >= lo) & (data <= hi)
+        hist, _ = np.histogram(data[inside], bins=nbin, range=(lo, hi))
+        st = getattr(spec, "_histo", None) or _histo_state(nbin)
+        st["hist"] = st["hist"] + hist
+        st["total"] += inside.sum()
+        st["missing"] += (~inside).sum()
+        if len(data):
+            st["vmin"] = min(st["vmin"], float(data.min()))
+            st["vmax"] = max(st["vmax"], float(data.max()))
+        st["nsamp"] += 1
+        if st["nsamp"] > nrep:
+            st = dict(hist=np.asarray(hist, float),
+                      total=float(inside.sum()),
+                      missing=float((~inside).sum()),
+                      vmin=float(data.min()) if len(data) else np.inf,
+                      vmax=float(data.max()) if len(data) else -np.inf,
+                      nsamp=1)
+        spec._histo = st
+    histo_emit(sim, spec, step, nfreq, nbin, lo, hi, fpath)
+
+
+def histo_emit(sim, spec, step, nfreq, nbin, lo, hi, fpath):
+    """Write and reset the accumulated histogram at an Nfreq step."""
+    if not (nfreq and step % nfreq == 0 and getattr(spec, "_histo", None)):
+        return
+    st = spec._histo
+    sim.script.ave_histo_values[spec.fid] = dict(st)
+    if fpath:
+        binw = (hi - lo) / nbin
+        tot = max(st["total"], 1.0)
+        text = (f"{step} {nbin} {st['total']:.8g} {st['missing']:.8g} "
+                f"{st['vmin']:.8g} {st['vmax']:.8g}\n")
+        for b in range(nbin):
+            text += (f"{b + 1} {lo + (b + 0.5) * binw:.8g} "
+                     f"{st['hist'][b]:.8g} {st['hist'][b] / tot:.8g}\n")
+        _write(sim, spec, fpath, text)
+    spec._histo = None
+
+
+def ave_correlate(sim, spec, step):
+    """fix ave/correlate (type auto, as the JAX package runs it): <A(t)
+    A(t + m Nevery)> over the last Nrepeat samples, written every Nfreq:
+    `step nlags`, then `m+1 m*Nevery count c1 c2 ...` rows (%.8g)."""
+    nev, nrep, nfreq, vals, fpath = parse_ave_correlate(spec.args)
+    if nev and step % nev == 0:
+        samp = [_row_value(sim, t, "ave/correlate") for t in vals]
+        buf = getattr(spec, "_series", [])
+        buf.append(samp)
+        spec._series = buf[-nrep:]
+    if not (nfreq and step % nfreq == 0 and getattr(spec, "_series", None)):
+        return
+    series = np.asarray(spec._series)      # (nsamp, nval)
+    nsamp = len(series)
+    corr = np.zeros((nrep, series.shape[1]))
+    cnt = np.zeros(nrep)
+    for m in range(min(nrep, nsamp)):
+        corr[m] = (series[:nsamp - m] * series[m:]).mean(axis=0)
+        cnt[m] = nsamp - m
+    sim.script.ave_correlate_values[spec.fid] = (corr, cnt)
+    if fpath:
+        text = f"{step} {min(nrep, nsamp)}\n" + "".join(
+            f"{m + 1} {m * nev} {int(cnt[m])} "
+            + " ".join(f"{c:.8g}" for c in corr[m]) + "\n"
+            for m in range(min(nrep, nsamp)))
+        _write(sim, spec, fpath, text)
+
+
+def chunk_periods(script):
+    """The output fixes' Nevery periods (Simulation.run's chunk gcd)."""
+    return [max(1, int(spec.args[0])) for spec in script.fixes.values()
+            if spec.style in OUTPUT_STYLES]
+

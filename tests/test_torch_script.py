@@ -258,7 +258,7 @@ def test_replicate_matches_jax(dirs):
 # a style that still raises
 UNPORTED = {
     "region": "region s sphere 0 0 0 1 rotate v_a 0 0 0 0 0 1",
-    "compute": "compute p all pressure thermo_temp",
+    "compute": "compute c all chunk/atom molecule",
     "minimize": "min_modify line backtrack",
     "fix nvt": "fix 2 all nvt/sllod temp 300 300 100",
     "pair_style lj/cut": "pair_style lj/cut/coul/cut 2.5",
