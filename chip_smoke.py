@@ -428,19 +428,51 @@ Phases, each raising on failure:
         the compute columns at 1e-6 of max(1, |value|), the dump frame's
         id and type exactly, its floats at 1e-6 of their column's
         largest;
- 14. the CPU twins (CPU_TWIN: the same script through the port on the CPU
+ 14. the k-space breadth from LAMMPS scripts (kspace_paths), float64,
+     every launch counter 0 on each path, each printing its route, its
+     log, its steps/s by the Loop time line and peak device memory, the
+     ms a call of its pair term, TIP4P pass and k-space terms by CUDA
+     events on its final state (ks_readings; for each mesh the difference
+     between two calls on one state, the spread's index_add_), its
+     compute_forces against the CPU's on the card's final state (f,
+     energies and virial at rel 1e-9 of max(1, |value|), plus
+     CANCEL_REL on the cell grid), and its rows 0-3 (AN's 0-1) against a
+     CPU twin at rel 1e-9 (plus CANCEL_REL of the cancelled magnitude on
+     cells):
+     AJ. the point-charge fluid at n_side 15 (10,125 atoms, neighbor 1.0
+        bin, rigid/nve) with lj/long/coul/long long long 6.0 6.5 and
+        ewald/disp 1e-4 (the charge and dispersion sums), 20 steps, the
+        cell grid;
+     AK. AJ's input with pppm/disp 1e-4 (the charge and dispersion
+        meshes);
+     AN. the fluid with lj/cut/coul/msm 6.0 6.5 and msm 1e-4, its
+        cutoff adjusted (18.06 A) and pushed into the pair table and the
+        cell grid;
+     then ewald_dipole_forces at AJ's final positions (seeded dipoles)
+     against the same call on the CPU at rel 1e-10, its ms and peak;
+     AL. 1,331 TIP4P/2005 waters (3,993 atoms, write_water_data's layout
+        at nside 11 in a 34.1 A box, no jitter, written by the port's
+        io/data_writer.py) with lj/cut/tip4p/long 1 2 1 1 0.1546 8.5,
+        pppm/tip4p 1e-5, fix shake on the O-H bond and the H-O-H angle,
+        fix nvt at 300 K, 2 fs, 20 steps, the dense route;
+     AM. AL's water with lj/long/tip4p/long long long and pppm/disp/tip4p
+        1e-5;
+     then the LAMMPS rows of tests/test_tip4p_cut.py's five cases on the
+     8-molecule box and of tests/test_msm.py's 32^3 case (golden_phases),
+     at those tests' tolerances;
+ 15. the CPU twins (CPU_TWIN: the same script through the port on the CPU
      in float64, in a process of its own; its rows, final state and each
      minimize's (E, iterations, converged)) of J, K, O, R, R-pppm, Q64, S,
      T, U64, V, W, X64, Y, Z, AA-100, AB (and AB's cg, sd, fire), AC, AD,
-     AE-couette, AE-pois, AF, AG, AI and AI-f32 (AI's in float32, its
-     setup state), after every path on the card, so that no timed path
-     shares the host's cores with them (run_twins: as many at once as the
-     cores take, the longest first);
- 15. one JSON line {"kernels": [...]} with each of the ten kernels'
+     AE-couette, AE-pois, AF, AG, AI, AI-f32 (AI's in float32, its
+     setup state) and AJ-AN, after every path on the card, so that no
+     timed path shares the host's cores with them (run_twins: as many at
+     once as the cores take, the longest first);
+ 16. one JSON line {"kernels": [...]} with each of the ten kernels'
      launches (summed and by path, A-K, E-E4, L, L64, M, N, N-pol, O, R,
      R-pppm, Q, Q64, P, P100, S, T, U, U64, V, W, X, X64, Y, Z, AA, AB,
-     AC, AD, AE, AF, AG, AH, AI), times, ms_queued and bound, then the
-     nvidia-smi line, then the device line last.
+     AC, AD, AE, AF, AG, AH, AI, AJ, AK, AN, AL, AM), times, ms_queued
+     and bound, then the nvidia-smi line, then the device line last.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.
@@ -5933,6 +5965,24 @@ AI_STRESS_BAR = 1e-4
 AI_DUMP_REL = 1e-6
 
 
+def to_cpu(o):
+    """A copy of o with every tensor in it (through dataclasses, tuples and
+    dicts) on the CPU."""
+    import torch
+
+    if isinstance(o, torch.Tensor):
+        return o.cpu()
+    if dataclasses.is_dataclass(o) and not isinstance(o, type):
+        return dataclasses.replace(o, **{
+            f.name: to_cpu(getattr(o, f.name))
+            for f in dataclasses.fields(o) if f.init})
+    if isinstance(o, tuple):
+        return tuple(to_cpu(v) for v in o)
+    if isinstance(o, dict):
+        return {k: to_cpu(v) for k, v in o.items()}
+    return o
+
+
 def cpu_clone(sim):
     """A copy of a Simulation with its state, force field, thermo and
     computes' tensors on the CPU (the runner reduced to its force field
@@ -5941,21 +5991,7 @@ def cpu_clone(sim):
     import copy
     import types
 
-    import torch
-
-    def mv(o):
-        if isinstance(o, torch.Tensor):
-            return o.cpu()
-        if dataclasses.is_dataclass(o) and not isinstance(o, type):
-            return dataclasses.replace(o, **{
-                f.name: mv(getattr(o, f.name))
-                for f in dataclasses.fields(o) if f.init})
-        if isinstance(o, tuple):
-            return tuple(mv(v) for v in o)
-        if isinstance(o, dict):
-            return {k: mv(v) for k, v in o.items()}
-        return o
-
+    mv = to_cpu
     c = copy.copy(sim)
     for name in ("sys", "res", "thermo_params", "istate", "group_thermo",
                  "msd_computes", "vacf_computes", "peratom_computes"):
@@ -6309,6 +6345,540 @@ def compute_paths(launches, reset_counts, read_counts, rowsH32, launchesG):
         torch.cuda.empty_cache()
     finally:
         shutil.rmtree(work, ignore_errors=True)
+
+
+# paths AJ-AN: the k-space breadth from LAMMPS scripts (ewald/disp's
+# dispersion sum, pppm/disp, TIP4P with pppm/tip4p and pppm/disp/tip4p,
+# MSM), then the LAMMPS rows of the TIP4P styles and of MSM and the
+# point-dipole function (kspace_paths)
+KS_SIDE = 15                   # AJ, AK, AN: the fluid's 10,125 atoms
+KS_STEPS = 20
+KS_TWIN_STEPS = 3              # the CPU twins' steps: rows 0-3 compared
+# AN's twin: one step, rows 0-1 (each CPU evaluation of its 3^3 grid of cap
+# 640 takes ~50 s on 2 threads)
+AN_TWIN_STEPS = 1
+WATER_SIDE, WATER_L = 11, 34.1  # AL, AM: 1,331 waters, 3,993 atoms
+WATER_STEPS = 20
+WATER_COLS = ("etotal", "ke", "temp", "pe", "evdwl", "ecoul", "elong",
+              "ebond", "eangle", "press")
+# TIP4P/2005's geometry, charges and O-O LJ (scripts/gen_tip4p_goldens.py
+# :19-22, the values its LAMMPS rows were made with)
+QO, QH = -1.1128, 0.5564
+R0, THETA0 = 0.9572, 104.52
+QDIST = 0.1546
+EPS_OO, SIG_OO = 0.1852, 3.1589
+WATER_MASSES = (15.9994, 1.008)
+WATER_SCRIPT = """\
+variable nstep index 20
+units real
+atom_style full
+read_data {data}
+bond_style harmonic
+bond_coeff 1 450.0 {r0}
+angle_style harmonic
+angle_coeff 1 55.0 {theta0}
+{pair}
+special_bonds lj/coul 0.0 0.0 0.5
+neighbor 2.0 bin
+velocity all create 300.0 4928459 loop geom
+{run}"""
+WATER_RUN = """\
+timestep 2.0
+fix 1 all shake 0.0001 20 0 b 1 a 1
+fix 2 all nvt temp 300.0 300.0 100.0
+thermo_style custom step etotal ke temp pe evdwl ecoul elong ebond eangle \
+press
+thermo 1
+run ${nstep}
+"""
+AL_PAIR = (f"pair_style lj/cut/tip4p/long 1 2 1 1 {QDIST} 8.5\n"
+           f"pair_coeff 1 1 {EPS_OO} {SIG_OO}\npair_coeff 2 2 0.0 0.0\n"
+           "kspace_style pppm/tip4p 1.0e-5")
+AM_PAIR = (f"pair_style lj/long/tip4p/long long long 1 2 1 1 {QDIST} 8.5\n"
+           f"pair_coeff 1 1 {EPS_OO} {SIG_OO}\npair_coeff 2 2 0.0 0.0\n"
+           "kspace_style pppm/disp/tip4p 1.0e-5")
+# the five cases of tests/test_tip4p_cut.py on the 8-molecule box
+# (scripts/gen_tip4p_goldens.py :79-142 CASES, make_input)
+TIP4P_GOLDEN_PAIRS = {
+    "tip4pcut": f"pair_style tip4p/cut 1 2 1 1 {QDIST} 5.0\npair_coeff * *",
+    "ljtip4pcut": (f"pair_style lj/cut/tip4p/cut 1 2 1 1 {QDIST} 5.9 5.0\n"
+                   f"pair_coeff 1 1 {EPS_OO} {SIG_OO}\npair_coeff 2 2 0.0 "
+                   "0.0"),
+    "tip4plong": (f"pair_style tip4p/long 1 2 1 1 {QDIST} 5.0\npair_coeff "
+                  "* *\nkspace_style pppm/tip4p 1.0e-4"),
+    "ljlongtip4p_cut": (
+        f"pair_style lj/long/tip4p/long cut long 1 2 1 1 {QDIST} 5.9 5.0\n"
+        f"pair_coeff 1 1 {EPS_OO} {SIG_OO}\npair_coeff 2 2 0.0 0.0\n"
+        "kspace_style pppm/disp/tip4p 1.0e-4\nkspace_modify gewald 0.521103"),
+    "ljlongtip4p_long": (
+        f"pair_style lj/long/tip4p/long long long 1 2 1 1 {QDIST} 5.9 5.0\n"
+        f"pair_coeff 1 1 {EPS_OO} {SIG_OO}\npair_coeff 2 2 0.0 0.0\n"
+        "kspace_style pppm/disp/tip4p 1.0e-4\nkspace_modify gewald 0.521103 "
+        "gewald/disp 0.28"),
+}
+TIP4P_GOLDEN_RUN = """\
+timestep 0.2
+fix 1 all nve
+thermo 1
+thermo_style custom step temp pe evdwl ecoul elong ebond eangle press
+thermo_modify format float %.12g
+run 5
+"""
+# the LAMMPS rows (16Mar18, rebuilt) of those cases, tests/test_tip4p_cut.py
+# :22-63: step temp pe evdwl ecoul elong ebond eangle press
+TIP4P_GOLDEN_COLS = ("temp", "pe", "evdwl", "ecoul", "elong", "ebond",
+                     "eangle", "press")
+TIP4P_GOLDEN = {
+    'tip4pcut': [
+        [0.0, 300.0, 32.0919872983, 0.0, 32.0919872983, 0.0, 3.24724730873e-25, 4.06051359821e-26, 968.570738187],
+        [1.0, 297.826060061, -8.88888320993, 0.0, -8.98627783694, 0.0, 0.088513494793, 0.00888113221493, 244.436129027],
+        [2.0, 293.264099187, -8.57486580263, 0.0, -8.95702676863, 0.0, 0.346975198177, 0.035185767823, 58.5011235308],
+        [3.0, 286.394275108, -8.10201927732, 0.0, -8.93709989981, 0.0, 0.756885669626, 0.0781949528651, -129.707703068],
+        [4.0, 277.647062913, -7.49997274399, 0.0, -8.92719794996, 0.0, 1.29029942289, 0.136925783082, -316.029585646],
+        [5.0, 267.566113032, -6.80614479418, 0.0, -8.92794110819, 0.0, 1.91164032397, 0.210155990039, -496.029509342],
+    ],
+    'ljtip4pcut': [
+        [0.0, 300.0, 31.9333492905, -0.15863800775, 32.0919872983, 0.0, 3.24724730873e-25, 4.06051359821e-26, 956.404640512],
+        [1.0, 297.825424878, -9.04747776331, -0.158594297178, -8.98627828035, 0.0, 0.0885136917657, 0.00888112244913, 232.272264968],
+        [2.0, 293.262834304, -8.73341727054, -0.158551170387, -8.95702854198, 0.0, 0.346976752006, 0.0351856898268, 46.3398640525],
+        [3.0, 286.392366138, -8.26052666076, -0.158508258673, -8.93710389149, 0.0, 0.756890799005, 0.0781946904026, -141.86603084],
+        [4.0, 277.644478554, -7.65843387927, -0.15846520767, -8.92720505267, 0.0, 1.29031121762, 0.136925163456, -328.184696119],
+        [5.0, 267.562809166, -6.96455663509, -0.158421683364, -8.92795222141, 0.0, 1.91166248373, 0.210154785962, -508.181152362],
+    ],
+    'tip4plong': [
+        [0.0, 300.0, -0.382946710379, 0.0, 1504.66437039, -1505.0473171, 3.24724730873e-25, 4.06051359821e-26, 534.752678013],
+        [1.0, 298.555470982, -0.286620199243, 0.0, 1504.45973653, -1504.84438979, 0.0890808578837, 0.00895220456817, 351.554007651],
+        [2.0, 294.357522858, 0.00234892044296, 0.0, 1504.25500284, -1504.63900152, 0.350607580869, 0.0357400158977, 157.887875077],
+        [3.0, 287.6522113, 0.463850871337, 0.0, 1504.04957013, -1504.43367013, 0.767936553911, 0.0800143186641, -43.211255083],
+        [4.0, 278.833010092, 1.07080206321, 0.0, 1503.84608532, -1504.23099056, 1.31460011816, 0.141107184633, -247.457580552],
+        [5.0, 268.415920808, 1.7876845101, 0.0, 1503.64723723, -1504.03358637, 1.95598563041, 0.218048015276, -450.183280415],
+    ],
+    'ljlongtip4p_cut': [
+        [0.0, 300.0, -0.439435361031, -0.15863800775, 1409.81987676, -1410.10067412, 3.24724730873e-25, 4.06051359821e-26, 521.256430613],
+        [1.0, 298.551208987, -0.348154781034, -0.158593998369, 1409.64360064, -1409.93119513, 0.08908199751, 0.00895170735857, 336.766652616],
+        [2.0, 294.34930684, -0.0579869766052, -0.158549861863, 1409.47409156, -1409.75988308, 0.350618359297, 0.0357360402313, 143.013021977],
+        [3.0, 287.63977927, 0.404701441143, -0.158505226894, 1409.30400625, -1409.58877456, 0.767974044323, 0.0800009391059, -58.1586523481],
+        [4.0, 278.81601971, 1.01282747447, -0.158459732874, 1409.13549107, -1409.41996794, 1.31468844253, 0.141075636977, -262.461690331],
+        [5.0, 268.393981393, 1.73084887493, -0.158413036162, 1408.97070551, -1409.25558435, 1.95615388056, 0.217986871775, -465.227157797],
+    ],
+    'ljlongtip4p_long': [
+        [0.0, 300.0, -0.68656059321, -0.0853489549344, 1409.81987676, -1410.4210884, 3.24724730873e-25, 4.06051359821e-26, 502.274759841],
+        [1.0, 298.551347392, -0.595283897253, -0.0853143924021, 1409.64360059, -1410.25160376, 0.089081948359, 0.008951711027, 317.785050743],
+        [2.0, 294.34958774, -0.305120208403, -0.0852796856295, 1409.47409137, -1410.08028593, 0.350617970109, 0.035736069235, 124.031394573],
+        [3.0, 287.640211676, 0.157563469742, -0.0852446229345, 1409.30400581, -1409.90917151, 0.767972754692, 0.0800010356772, -77.1403884555],
+        [4.0, 278.816616917, 0.765683773402, -0.0852089997048, 1409.13549031, -1409.74035887, 1.31468546562, 0.14107586244, -281.443610569],
+        [5.0, 268.394760043, 1.48369830625, -0.0851724904123, 1408.97070434, -1409.57596911, 1.95614826528, 0.217987304811, -484.20931629],
+    ],
+}
+# the LAMMPS rows of lj/cut/coul/msm + msm (32^3, order 10, cutoff/adjust
+# no) on scripts/gen_breadth_goldens.py's 64-atom box, tests/test_msm.py
+# :208-251: step -> temp pe evdwl ecoul elong press
+MSM_GOLDEN = {
+    0: (1.0, -2.00554866157, -1.42299977076, -0.046983932177,
+        -0.535564958637, -0.514594621195),
+    5: (1.00633887599, -2.00241169314, -1.4195991171,
+        -0.0476721452896, -0.535140430753, -0.50633974749),
+}
+MSM_GOLDEN_SCRIPT = """\
+units lj
+atom_style charge
+read_data data.breadth
+pair_style lj/cut/coul/msm 2.2 2.5
+pair_coeff 1 1 1.0 1.0
+pair_coeff 2 2 0.8 1.1
+kspace_style msm 1.0e-4
+kspace_modify cutoff/adjust no
+velocity all create 1.0 87287 loop geom
+timestep 0.005
+fix 1 all nve
+thermo 1
+run 5
+"""
+
+
+def water_layout(nside, L, seed=7, jitter=0.4):
+    """scripts/gen_tip4p_goldens.py write_water_data's layout: nside^3
+    flexible TIP4P/2005 waters, O on a grid of spacing L/nside offset by a
+    uniform jitter (its 0.4 A by default), each H1-O-H2 at R0 and THETA0
+    rotated by a random unit quaternion, in an L^3 box (atom_style full:
+    ids O, H1, H2 in turn, types 1 and 2); as the namespace of
+    interpreter arrays the port's data writer (io/data_writer.py
+    write_data) reads, the positions at 15 significant digits as that
+    writer's file holds them."""
+    import types
+
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    th = math.radians(THETA0)
+    h1 = np.array([R0 * math.sin(th / 2), R0 * math.cos(th / 2), 0.0])
+    h2 = np.array([-R0 * math.sin(th / 2), R0 * math.cos(th / 2), 0.0])
+    x, bonds, angles = [], [], []
+    for mi in range(nside ** 3):
+        i, j, k = mi % nside, (mi // nside) % nside, mi // nside ** 2
+        o = (np.array([i, j, k]) + 0.5) * (L / nside) \
+            + rng.uniform(-jitter, jitter, 3)
+        q = rng.normal(size=4)
+        w, a, b, c = q / np.linalg.norm(q)
+        rot = np.array([
+            [1 - 2 * (b * b + c * c), 2 * (a * b - w * c), 2 * (a * c + w * b)],
+            [2 * (a * b + w * c), 1 - 2 * (a * a + c * c), 2 * (b * c - w * a)],
+            [2 * (a * c - w * b), 2 * (b * c + w * a), 1 - 2 * (a * a + b * b)]])
+        x += [o, o + rot @ h1, o + rot @ h2]
+        bonds += [(3 * mi + 1, 3 * mi + 2), (3 * mi + 1, 3 * mi + 3)]
+        angles.append((3 * mi + 2, 3 * mi + 1, 3 * mi + 3))
+    nmol = nside ** 3
+    x = np.array([[float(f"{v:.15g}") for v in p] for p in x])
+    return types.SimpleNamespace(
+        _sim=None, x=x, v=np.zeros_like(x), box_lo=np.zeros(3),
+        box_hi=np.full(3, float(L)), q=np.tile([QO, QH, QH], nmol),
+        mol=np.repeat(np.arange(1, nmol + 1), 3), atom_style="full",
+        ntypes=2, type=np.tile([1, 2, 2], nmol),
+        mass_type=np.array([0.0, *WATER_MASSES]),
+        _bonds=np.array(bonds), _bond_types=np.ones(len(bonds), int),
+        bond_coeffs={1: [450.0, R0]}, _angles=np.array(angles),
+        _angle_types=np.ones(len(angles), int),
+        angle_coeffs={1: [55.0, THETA0]}, _dihedrals=None,
+        _dihedral_types=None, dihedral_coeffs={}, _impropers=None,
+        _improper_types=None, improper_coeffs={})
+
+
+def write_breadth_data(path):
+    """scripts/gen_breadth_goldens.py write_data's 64-atom box (two
+    types): a 4^3 simple cubic lattice in a 6^3 box, checkerboard charges
+    +-1 and types 1/2, the RandomState(12345) jitter: the file MSM_GOLDEN
+    was made on."""
+    import numpy as np
+
+    rng = np.random.RandomState(12345)
+    pos, typ, q = [], [], []
+    for i in range(4):
+        for j in range(4):
+            for k in range(4):
+                pos.append((np.array([i, j, k]) + 0.5) * 1.5)
+                parity = (i + j + k) % 2
+                typ.append(1 + parity)
+                q.append(1.0 if parity == 0 else -1.0)
+    pos = np.array(pos) + rng.uniform(-0.05, 0.05, (len(pos), 3))
+    with open(path, "w") as f:
+        f.write("breadth golden box\n\n")
+        f.write(f"{len(pos)} atoms\n2 atom types\n\n")
+        f.write("0.0 6.0 xlo xhi\n0.0 6.0 ylo yhi\n0.0 6.0 zlo zhi\n\n")
+        f.write("Masses\n\n1 1.0\n2 1.5\n\n")
+        f.write("Atoms\n\n")
+        for m, (p, t, qq) in enumerate(zip(pos, typ, q), start=1):
+            f.write(f"{m} {t} {qq:.1f} {p[0]:.15g} {p[1]:.15g} "
+                    f"{p[2]:.15g}\n")
+
+
+def ks_term_calls(sim):
+    """The k-space breadth's terms on sim's state, each the call
+    forcefield.compute_forces makes (the charge sums on the TIP4P charge
+    sites), and the pair term: label -> a callable."""
+    from lidp_tpu_torch.ops import ewald, msm, pppm, tip4p
+    from lidp_tpu_torch.ops.cells import cell_pair_forces
+    from lidp_tpu_torch.ops.pair import dense_pair_forces
+
+    s, ff = sim.sys, sim.runner.ff
+    x, L = s.x, s.box.lengths
+    xk = x if ff.tip4p is None else tip4p.charge_sites(x, s.box, ff.tip4p)
+    calls = {}
+    if sim.nlist is None:
+        sp = ff.sp_code if ff.sp_code is not None else 0
+        calls["pair (dense_pair_forces)"] = lambda: dense_pair_forces(
+            x, s.q, s.type, sp, s.mask, s.box, ff.pair, mol=s.mol)
+    else:
+        calls["pair (cell_pair_forces)"] = lambda: cell_pair_forces(
+            x, s.q, s.type, s.mask, sim.nlist.nlist, s.box, ff.pair,
+            mol=s.mol)
+    if ff.tip4p is not None:
+        sp4 = ff.sp_code if ff.sp_code is not None else 0
+        calls["tip4p_coul_dense"] = lambda: tip4p.tip4p_coul_dense(
+            x, s.q, sp4, s.mask, s.box, ff.pair.cut_coulsq,
+            ff.pair.g_ewald, ff.qqrd2e, ff.pair.special_coul, ff.tip4p,
+            mode="cut" if ff.tip4p_cut else "long")
+    if ff.ewald is not None:
+        calls["ewald_forces"] = lambda: ewald.ewald_forces(
+            xk, s.q, s.box.volume, ff.ewald)
+    if ff.pppm is not None:
+        calls["pppm_forces_params"] = lambda: pppm.pppm_forces_params(
+            xk - s.box.lo, s.q, L, ff.pppm)
+    if ff.msm is not None:
+        calls["msm_forces"] = lambda: msm.msm_forces(x - s.box.lo, s.q, L,
+                                                     ff.msm)
+    if ff.pppm_disp is not None:
+        calls["pppm_disp_forces"] = lambda: pppm.pppm_disp_forces(
+            x - s.box.lo, ff.b_atom, L, ff.pppm_disp)
+    if ff.ewald6 is not None:
+        calls["ewald6_forces"] = lambda: ewald.ewald6_forces(
+            x, ff.b_atom, s.box.volume, ff.ewald6)
+    return calls
+
+
+def ks_readings(path, sim):
+    """A path's terms (ks_term_calls) timed on its final state by CUDA
+    events after a warm-up, ms a call; for each mesh term (the spreads add
+    by index_add_) the difference between two calls on one state, of
+    max |f| and of |E|."""
+    calls = ks_term_calls(sim)
+    parts = []
+    for label, fn in calls.items():
+        parts.append(f"{label} {cuda_ms(fn, reps=3, warmup=1):.4f}")
+    print(f"path {path} ms a call by CUDA events on its final state: "
+          + ", ".join(parts) + f"; {smi_line()}")
+    for label in ("pppm_forces_params", "msm_forces", "pppm_disp_forces"):
+        if label in calls:
+            (f1, e1, _), (f2, e2, _) = calls[label](), calls[label]()
+            df = float((f1 - f2).abs().max() / f1.abs().max())
+            de = abs(float(e1 - e2)) / abs(float(e1))
+            print(f"path {path} {label}: two calls on one state differ by "
+                  f"{df:.3e} of max |f|, {de:.3e} of |E| (the spread's "
+                  "index_add_)")
+
+
+def ks_state_check(path, sim):
+    """compute_forces on the card against the same on the CPU from the
+    card's final state (to_cpu of the System, the force field and the
+    cell grid): f, the energies and the virial within rel 1e-9 of max(1,
+    |value|) (f of its largest entry), plus CANCEL_REL of what the special
+    correction cancels on the cell grid."""
+    from lidp_tpu_torch.forcefield import compute_forces
+    from lidp_tpu_torch.ops.bonded import special_correction_sparse
+
+    s, ff = sim.sys, sim.runner.ff
+    nl = None if sim.nlist is None else sim.nlist.nlist
+    res = compute_forces(s, ff, nl)
+    sc, ffc = to_cpu(s), to_cpu(ff)
+    ref = compute_forces(sc, ffc, to_cpu(nl))
+    cancel = dict(f=0.0, evdwl=0.0, ecoul=0.0, elong=0.0, virial=0.0)
+    if nl is not None and ffc.sp_idx is not None:
+        fc, dev, dec, dvir = special_correction_sparse(
+            sc.x, sc.q, sc.type, ffc.sp_idx, ffc.sp_lvl, sc.mask, sc.box,
+            ffc.pair)
+        cancel.update(f=float(fc.abs().max()), evdwl=abs(float(dev)),
+                      ecoul=abs(float(dec)), virial=float(dvir.abs().max()))
+    worst = 0.0
+    for k in ("f", "evdwl", "ecoul", "elong", "virial"):
+        a, b = getattr(res, k).cpu(), getattr(ref, k)
+        bar = 1e-9 * max(1.0, float(b.abs().max())) + CANCEL_REL * cancel[k]
+        err = float((a - b).abs().max())
+        worst = max(worst, err / bar)
+        if not err <= bar:
+            raise AssertionError(f"path {path} {k} on the card vs the CPU on "
+                                 f"its state: {err:.3e} above {bar:.3e}")
+    print(f"path {path}: compute_forces on the card vs the CPU on the card's "
+          f"final state: f, E_vdwl, E_coul, E_long and the virial at "
+          f"{worst:.3g} of their bar (rel 1e-9 of max(1, |value|)"
+          + (f" + {CANCEL_REL:g} of the cancelled magnitude)" if nl is not
+             None else ")"))
+
+
+def ks_path(path, work, name, text, steps, cells, launches, reset_counts,
+            read_counts, cols, twin_threads, twin_cost,
+            twin_steps=KS_TWIN_STEPS):
+    """One k-space path: `text` (written to work/name) through
+    LammpsScript in float64 on the card for `steps` steps, its launches
+    (0 in every counter), route, log, finite rows, steps/s by the Loop
+    time line, peak memory, its terms' ms (ks_readings), the state check
+    (ks_state_check) and its CPU twin (`twin_steps` steps, rows at rel
+    1e-9 of max(1, |value|), plus CANCEL_REL of the cancelled magnitude
+    on the cell grid).  Returns the script."""
+    import torch
+
+    from lidp_tpu_torch.forcefield import pair_route
+    from lidp_tpu_torch.io.script import LammpsScript
+
+    with open(os.path.join(work, name), "w") as fh:
+        fh.write(text)
+    logs = []
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    script = LammpsScript(dtype=torch.float64, log=logs.append)
+    script.variables["nstep"] = str(steps)
+    script.file(os.path.join(work, name))
+    launches[path] = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    check_counts(path, launches[path], {})
+    sim = script._sim
+    print(f"path {path}: {sim.natoms} atoms, float64, {steps} steps: "
+          f"{script_route(script)}; its log:")
+    for line in logs:
+        print(f"  {path}| {line}")
+    on_cells = sim.runner.neighbor_cfg is not None
+    if on_cells != cells or (cells and (
+            pair_route(sim.sys, sim.runner.ff, sim.nlist.nlist)
+            != "cell_pair_forces" or bool(sim.nlist.overflow))):
+        raise AssertionError(f"path {path}: {script_route(script)}")
+    rows = script.thermo_rows
+    if len(rows) != steps + 1:
+        raise AssertionError(f"path {path}: {len(rows)} rows")
+    check_rows_finite(path, rows, cols)
+    script_peak(path, logs, steps, peak)
+    ks_readings(path, sim)
+    ks_state_check(path, sim)
+    defer_twin(path, work, name, twin_steps,
+               twin_check(path, (rows, None), cols,
+                          cancel=cancelled(sim) if cells else None),
+               threads=twin_threads, cost=twin_cost)
+    return script
+
+
+def dipole_phase(x, lengths, q):
+    """ewald_dipole_forces on the card at the fluid's 10,125 atoms (its
+    charge function's k set at accuracy 1e-4, seeded dipoles) against the
+    same call on the CPU: f within 1e-10 of max |f|, the energy rel 1e-10;
+    its ms a call and peak memory."""
+    import numpy as np
+    import torch
+
+    from lidp_tpu_torch.ops.ewald import ewald_dipole_forces, setup_ewald_disp
+
+    n = x.shape[0]
+    es = setup_ewald_disp(accuracy_rel=1e-4, qqrd2e=332.06371,
+                          q=q.cpu().numpy(), natoms=n, cutoff=6.5,
+                          box_lengths=lengths.cpu().numpy())
+    mu = torch.as_tensor(0.3 * np.random.RandomState(21).normal(
+        size=(n, 3)), dtype=torch.float64)
+    vol = float(torch.prod(lengths))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    f, e = ewald_dipole_forces(x, mu.cuda(), vol, es, scale=332.06371)
+    peak = torch.cuda.max_memory_allocated()
+    fc, ec = ewald_dipole_forces(x.cpu(), mu, vol, es, scale=332.06371)
+    err = float((f.cpu() - fc).abs().max() / fc.abs().max())
+    erel = abs(float(e) - float(ec)) / abs(float(ec))
+    if not (err <= 1e-10 and erel <= 1e-10):
+        raise AssertionError(f"ewald_dipole_forces on the card vs the CPU: "
+                             f"f {err:.3e}, E {erel:.3e}")
+    ms = cuda_ms(lambda: ewald_dipole_forces(x, mu.cuda(), vol, es,
+                                             scale=332.06371), reps=3,
+                 warmup=1)
+    print(f"ewald_dipole_forces at {n} atoms, K {len(es.hvecs)}, float64: "
+          f"card vs CPU f at {err:.3e} of max |f|, E at {erel:.3e} (bar "
+          f"1e-10); {ms:.4f} ms a call by CUDA events; peak "
+          f"{peak / 2**20:.1f} MiB; {smi_line()}")
+
+
+def golden_phases():
+    """tests/test_tip4p_cut.py's five cases on the 8-molecule box and
+    tests/test_msm.py's 32^3 case through LammpsScript in float64 on the
+    card, each row against the LAMMPS rows at those tests' tolerances
+    (the TIP4P k-space cases at the mesh band: rel 1e-3 or abs 0.2, Press
+    rel 5e-2 or abs 25)."""
+    import torch
+
+    from lidp_tpu_torch.io.data_writer import write_data
+    from lidp_tpu_torch.io.script import LammpsScript
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_gold_")
+    try:
+        write_data(os.path.join(work, "data.tip4p"), water_layout(2, 12.0))
+        for case, pair in TIP4P_GOLDEN_PAIRS.items():
+            path = os.path.join(work, f"in.{case}")
+            with open(path, "w") as fh:
+                fh.write(WATER_SCRIPT.format(
+                    data="data.tip4p", r0=R0, theta0=THETA0, pair=pair,
+                    run=TIP4P_GOLDEN_RUN))
+            s = LammpsScript(dtype=torch.float64, log=lambda line: None)
+            s.file(path)
+            band = case in ("tip4plong", "ljlongtip4p_cut",
+                            "ljlongtip4p_long")
+            worst = 0.0
+            for r, ref in zip(s.thermo_rows, TIP4P_GOLDEN[case]):
+                for name, g in zip(TIP4P_GOLDEN_COLS, ref[1:]):
+                    rel, ab = ((5e-2, 25.0) if band and name == "press"
+                               else (1e-3, 0.2) if band else (2e-5, 2e-6))
+                    bar = max(rel * abs(g), ab)
+                    worst = max(worst, abs(r[name] - g) / bar)
+                    if not abs(r[name] - g) <= bar:
+                        raise AssertionError(
+                            f"{case} step {int(r['step'])} {name}: "
+                            f"{r[name]!r}, LAMMPS {g!r}")
+            if len(s.thermo_rows) != 6:
+                raise AssertionError(f"{case}: {len(s.thermo_rows)} rows")
+            print(f"golden {case} (tests/test_tip4p_cut.py): 6 rows at "
+                  f"{worst:.3g} of that test's bars")
+        write_breadth_data(os.path.join(work, "data.breadth"))
+        path = os.path.join(work, "in.msm")
+        with open(path, "w") as fh:
+            fh.write(MSM_GOLDEN_SCRIPT)
+        s = LammpsScript(dtype=torch.float64, log=lambda line: None)
+        s.file(path)
+        if s._sim.runner.ff.msm.grid != (32, 32, 32):
+            raise AssertionError(f"msm golden: grid {s._sim.runner.ff.msm}")
+        rows = {int(r["step"]): r for r in s.thermo_rows}
+        worst = 0.0
+        for step, ref in MSM_GOLDEN.items():
+            for name, g, rel in zip(
+                    ("temp", "pe", "evdwl", "ecoul", "elong", "press"), ref,
+                    (2e-6, 2e-6, 2e-6, 2e-5, 2e-5, 2e-3)):
+                worst = max(worst, abs(rows[step][name] - g) / (rel * abs(g)))
+                if not abs(rows[step][name] - g) <= rel * abs(g):
+                    raise AssertionError(f"msm golden step {step} {name}: "
+                                         f"{rows[step][name]!r}, LAMMPS {g!r}")
+        print(f"golden msm (tests/test_msm.py, 32^3, order 10): steps 0 and "
+              f"5 at {worst:.3g} of that test's bars")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def kspace_paths(launches, reset_counts, read_counts):
+    """Paths AJ, AK, AL, AM and AN, the goldens and the point-dipole
+    function (module docstring).  Each path sets launches[path]."""
+    import torch
+
+    from lidp_tpu_torch.io.data_writer import write_data
+
+    fluid_pair = "pair_style lj/cut/coul/long 6.0 6.5"
+    work = tempfile.mkdtemp(prefix="chip_smoke_ks_")
+    try:
+        fluid_script_case(work, n_side=KS_SIDE)
+        base = point_charge_script().replace(
+            "read_data fluid.data\n",
+            f"read_data fluid.data\nneighbor {CELL_SKIN} bin\n")
+        aj = base.replace(
+            fluid_pair, "pair_style lj/long/coul/long long long 6.0 6.5")
+        s = ks_path("AJ", work, "in.aj", aj, KS_STEPS, True, launches,
+                    reset_counts, read_counts, G64_COLS, 2, 60.0)
+        sys_ = s._sim.sys
+        n = s._sim.natoms
+        x_aj, len_aj, q_aj = sys_.x[:n].clone(), sys_.box.lengths.clone(), \
+            sys_.q[:n].clone()
+        del s, sys_
+        ks_path("AK", work, "in.ak",
+                aj.replace("kspace_style ewald/disp 1e-4",
+                           "kspace_style pppm/disp 1e-4"),
+                KS_STEPS, True, launches, reset_counts, read_counts,
+                G64_COLS, 2, 30.0)
+        ks_path("AN", work, "in.an",
+                base.replace(fluid_pair,
+                             "pair_style lj/cut/coul/msm 6.0 6.5").replace(
+                    "kspace_style ewald/disp 1e-4", "kspace_style msm 1e-4"),
+                KS_STEPS, True, launches, reset_counts, read_counts,
+                G64_COLS, 2, 130.0, twin_steps=AN_TWIN_STEPS)
+        torch.cuda.empty_cache()
+        dipole_phase(x_aj, len_aj, q_aj)
+        del x_aj
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_water_")
+    try:
+        data = os.path.join(work, "water.data")
+        write_data(data, water_layout(WATER_SIDE, WATER_L, jitter=0.0))
+        for path, pair in (("AL", AL_PAIR), ("AM", AM_PAIR)):
+            text = WATER_SCRIPT.format(data="water.data", r0=R0,
+                                       theta0=THETA0, pair=pair,
+                                       run=WATER_RUN)
+            ks_path(path, work, f"in.{path}", text, WATER_STEPS, False,
+                    launches, reset_counts, read_counts, WATER_COLS, 2,
+                    40.0)
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    golden_phases()
 
 
 def main() -> int:
@@ -7141,6 +7711,7 @@ def main() -> int:
     nonperiodic_paths(launches, reset_counts, read_counts)
     compute_paths(launches, reset_counts, read_counts, rowsH32,
                   launches["G"])
+    kspace_paths(launches, reset_counts, read_counts)
     run_twins()
 
     # 6. results

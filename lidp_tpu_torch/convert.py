@@ -1,7 +1,8 @@
 """Carry force-field tables and state across from the JAX package.
 
 The caller hands over the fields of lidp_tpu's dataclasses (PairParams,
-EwaldParams, PPPMParams, PolarizationSettings, System, Cells, SlotCarry,
+EwaldParams, PPPMParams, Ewald6Params, PPPMDispParams, MSMParams,
+TIP4PParams, PolarizationSettings, System, Cells, SlotCarry,
 RigidSetup, RigidState, NVTState, NPTState, the bonded params and
 ShakeParams) as numpy arrays or scalars, e.g.
 `{f.name: np.asarray(getattr(p, f.name)) for f in dataclasses.fields(p)}`,
@@ -24,10 +25,12 @@ from lidp_tpu_torch.integrate.rigid import (RigidSetup, RigidState,
                                             chain_dtype)
 from lidp_tpu_torch.integrate.slot_runner import SlotCarry
 from lidp_tpu_torch.ops.cells import Cells
-from lidp_tpu_torch.ops.ewald import EwaldParams
+from lidp_tpu_torch.ops.ewald import Ewald6Params, EwaldParams
+from lidp_tpu_torch.ops.msm import MSMParams
 from lidp_tpu_torch.ops.pair import PairParams
 from lidp_tpu_torch.ops.polarization import PolarizationSettings
-from lidp_tpu_torch.ops.pppm import PPPMParams
+from lidp_tpu_torch.ops.pppm import PPPMDispParams, PPPMParams
+from lidp_tpu_torch.ops.tip4p import TIP4PParams
 from lidp_tpu_torch.state import System
 
 
@@ -47,31 +50,53 @@ def _given(d: dict, k):
     return v
 
 
-# pair fields the port cannot express, with the only value it accepts
-_PAIR_ONLY = dict(charmm_fsw=False, kind="lj", lj5=None, tab_e=None)
+_KINDS = ("lj", "lj/long", "buck/long")
+_COUL_KINDS = ("long", "charmm", "msm")
 
 
 def pair_from_numpy(pair: dict, device="cuda",
                     dtype=torch.float32) -> PairParams:
     """The port's PairParams from a numpy copy of the JAX one: lj/cut
     (coul=False), lj/cut/coul/long or the lj/charmm styles (the charmm
-    switch, coul_kind long or charmm), with excl_mol and the type
-    exclusion table excl.  A table that asks for another form raises."""
+    switch, coul_kind long, charmm or msm with its msm_order), the long
+    dispersion kinds lj/long (lj3, lj4 as they are) and buck/long (the JAX
+    tables lj1 = A, lj2 = 1/rho, lj3 = C become lj3, rhoinv and lj4), both
+    with the g6 of their lj5 table, and excl_mol and the type exclusion
+    table excl.  A table that asks for another form raises."""
     from lidp_tpu_torch import resolve_device
 
     device = resolve_device(device)
     coul = bool(_scalar(pair.get("coul", True)))
-    for k, want in _PAIR_ONLY.items():
-        if k in pair and _scalar(pair[k]) != want:
+    # the fields the port cannot express: charmm force switching and the
+    # tabulated pair
+    for k, given in (("charmm_fsw", bool(_scalar(pair.get("charmm_fsw",
+                                                          False)))),
+                     ("tab_e", _given(pair, "tab_e") is not None)):
+        if given:
             raise NotImplementedError(
-                f"pair field {k}={_scalar(pair[k])!r} is not ported "
-                "(ROADMAP queue 1 item 6, breadth)")
+                f"pair field {k} is not ported (ROADMAP queue 1 item 6.9, "
+                "the other pair styles)")
+    kind = str(_scalar(pair.get("kind", "lj")))
     coul_kind = str(_scalar(pair.get("coul_kind", "long"))) if coul \
         else "long"
-    if coul_kind not in ("long", "charmm"):
+    for field, val, ok in (("kind", kind, _KINDS),
+                           ("coul_kind", coul_kind, _COUL_KINDS)):
+        if val not in ok:
+            raise NotImplementedError(
+                f"pair field {field}={val!r} is not ported (ROADMAP queue "
+                "1 item 6.9, the other pair styles)")
+    g6 = 1.0
+    lj5 = _given(pair, "lj5")
+    if kind == "lj" and lj5 is not None:
         raise NotImplementedError(
-            f"pair field coul_kind={coul_kind!r} is not ported (ROADMAP "
-            "queue 1 item 6, breadth)")
+            "pair field lj5 is not ported with kind 'lj' (ROADMAP queue 1 "
+            "item 6.9, the other pair styles)")
+    if kind != "lj":
+        # the JAX package fills the whole table with the global g6
+        lj5 = np.asarray(lj5, float)
+        g6 = float(lj5.flat[0])
+        if not np.all(lj5 == g6):
+            raise ValueError("the long kinds' lj5 table is not one g6")
 
     def f(k, default):
         v = _given(pair, k)
@@ -80,9 +105,14 @@ def pair_from_numpy(pair: dict, device="cuda",
     def t(a):
         return torch.as_tensor(np.array(a), dtype=dtype, device=device)
 
+    tabs = {k: t(pair[k]) for k in ("lj3", "lj4", "offset", "cut_ljsq",
+                                    "cutsq", "special_lj", "special_coul")}
+    rhoinv = None
+    if kind == "buck/long":
+        tabs["lj3"], tabs["lj4"] = t(pair["lj1"]), t(pair["lj3"])
+        rhoinv = t(pair["lj2"])
     return PairParams(
-        **{k: t(pair[k]) for k in ("lj3", "lj4", "offset", "cut_ljsq",
-                                   "cutsq", "special_lj", "special_coul")},
+        **tabs,
         cut_coulsq=float(_scalar(pair["cut_coulsq"])),
         qqrd2e=float(_scalar(pair["qqrd2e"])),
         g_ewald=float(_scalar(pair["g_ewald"])), coul=coul,
@@ -92,7 +122,8 @@ def pair_from_numpy(pair: dict, device="cuda",
         charmm=bool(_scalar(pair.get("charmm", False))),
         cut_lj_innersq=f("cut_lj_innersq", 0.0), denom_lj=f("denom_lj", 1.0),
         coul_kind=coul_kind, cut_coul_innersq=f("cut_coul_innersq", 0.0),
-        denom_coul=f("denom_coul", 1.0))
+        denom_coul=f("denom_coul", 1.0), kind=kind, g6=g6, rhoinv=rhoinv,
+        msm_order=int(_scalar(pair.get("msm_order", 10))))
 
 
 def forcefield_from_numpy(pair: dict, ewald: dict, polar: dict, qqrd2e,
@@ -236,6 +267,71 @@ def pppm_from_numpy(pppm: dict) -> PPPMParams:
         grid=tuple(int(v) for v in pppm["grid"]),
         order=int(_scalar(pppm["order"])),
         stagger=bool(_scalar(pppm.get("stagger", False))))
+
+
+def ewald6_from_numpy(d: dict, device="cuda",
+                      dtype=torch.float64) -> Ewald6Params:
+    """The port's Ewald6Params from a numpy copy of the JAX one."""
+    from lidp_tpu_torch import resolve_device
+
+    device = resolve_device(device)
+    return Ewald6Params(
+        **{k: torch.as_tensor(np.array(d[k]), dtype=dtype, device=device)
+           for k in ("hvecs", "kcoeff6", "kvirial6")},
+        **{k: float(_scalar(d[k])) for k in ("g6", "bsum", "bsbsum")})
+
+
+def pppm_disp_from_numpy(d: dict) -> PPPMDispParams:
+    """The port's PPPMDispParams from a numpy copy of the JAX one."""
+    return PPPMDispParams(g6=float(_scalar(d["g6"])),
+                          grid=tuple(int(v) for v in d["grid"]),
+                          order=int(_scalar(d["order"])),
+                          bsum=float(_scalar(d["bsum"])),
+                          bsbsum=float(_scalar(d["bsbsum"])))
+
+
+def msm_from_numpy(d: dict, device="cuda", dtype=torch.float64) -> MSMParams:
+    """The port's MSMParams from a numpy copy of the JAX one (its ghat
+    and vhat tuples of complex arrays, the static scalars)."""
+    from lidp_tpu_torch import resolve_device
+
+    device = resolve_device(device)
+    cdtype = torch.complex128 if dtype == torch.float64 else torch.complex64
+
+    def t(a):
+        return torch.as_tensor(np.array(a), device=device).to(cdtype)
+
+    return MSMParams(ghat=tuple(t(g) for g in d["ghat"]),
+                     vhat=tuple(t(v) for v in d.get("vhat", ())),
+                     order=int(_scalar(d["order"])),
+                     cutoff=float(_scalar(d["cutoff"])),
+                     grid=tuple(int(v) for v in d["grid"]),
+                     levels=int(_scalar(d["levels"])),
+                     gamma0=float(_scalar(d["gamma0"])),
+                     qscale=float(_scalar(d["qscale"])))
+
+
+def tip4p_from_numpy(d: dict, device="cuda") -> TIP4PParams:
+    """The port's TIP4PParams from a numpy copy of the JAX one (h1, h2,
+    is_o, alpha), with each H's O found from h1 and h2."""
+    from lidp_tpu_torch import resolve_device
+
+    device = resolve_device(device)
+    h1, h2 = np.array(d["h1"]), np.array(d["h2"])
+    is_o = np.array(d["is_o"], bool)
+    o_of = np.arange(h1.shape[0])
+    is_h = np.zeros(h1.shape[0], bool)
+    for i in np.nonzero(is_o)[0]:
+        o_of[h1[i]] = o_of[h2[i]] = i
+        is_h[h1[i]] = is_h[h2[i]] = True
+
+    def t(a, dt):
+        return torch.as_tensor(a, dtype=dt, device=device)
+
+    return TIP4PParams(h1=t(h1, torch.long), h2=t(h2, torch.long),
+                       is_o=t(is_o, torch.bool), o_of=t(o_of, torch.long),
+                       is_h=t(is_h, torch.bool),
+                       alpha=float(_scalar(d["alpha"])))
 
 
 def npt_state_from_numpy(state: dict, device="cuda") -> NPTState:

@@ -13,8 +13,12 @@ improper; ops/bonded.py) come after the pair term on either route, as in
 the JAX package.  The many-body EAM term (pair_style eam, eam/alloy,
 eam/fs; ops/eam.py) takes the pair term's place on a `Cells` grid, with
 `pair` None; the dense route raises for it, as the JAX package's does.
-Neighbour lists (ROADMAP queue 1 item 5) and the other k-space styles
-(item 6) raise NotImplementedError.
+The k-space breadth follows the JAX package's order: the TIP4P
+charge-site coulomb (ops/tip4p.py) after the pair term, the charge
+k-space on the charge sites with its forces redistributed, then MSM
+(ops/msm.py), the pppm/disp dispersion mesh and the ewald/disp dispersion
+sum, each into E_long and the virial.  Neighbour lists (ROADMAP queue 1
+item 5) raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -70,6 +74,20 @@ class ForceField:
     # pair_style eam / eam/alloy / eam/fs: an ops.eam EAMParams or
     # EAMAlloyParams, evaluated on the cell grid in place of the pair term
     eam: Optional[object] = None
+    # the TIP4P off-site charges (ops.tip4p.TIP4PParams): the coulomb
+    # term on the charge sites after the pair term, and the charge
+    # k-space on them; tip4p_cut: the bare cutoff coulomb of the tip4p/cut
+    # styles in place of the erfc form
+    tip4p: Optional[object] = None
+    tip4p_cut: bool = False
+    # the ewald/disp dispersion sum (ops.ewald.Ewald6Params) and the
+    # pppm/disp mesh (ops.pppm.PPPMDispParams), both on the per-atom B_i
+    # of b_atom (N,)
+    ewald6: Optional[object] = None
+    b_atom: Optional[torch.Tensor] = None
+    pppm_disp: Optional[object] = None
+    # the multilevel summation (kspace_style msm; ops.msm.MSMParams)
+    msm: Optional[object] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -238,10 +256,29 @@ def compute_forces(sys, ff: ForceField, nlist=None,
             sys.x, sys.q, sys.type, ff.sp_idx, ff.sp_lvl, sys.mask, sys.box,
             ff.pair)
         f, ev, ec, vir = f + fc, ev + dev, ec + dec, vir + dvir
+    f, ec, vir = tip4p_term(sys, ff, f, ec, vir)
     f, ev, ec, vir, bonded = bonded_terms(sys, ff, f, ev, ec, vir)
-    if ff.ewald is None and ff.pppm is None and ff.polar is None:
+    if all(getattr(ff, k) is None for k in ("ewald", "pppm", "polar", "msm",
+                                            "pppm_disp", "ewald6")):
         return pair_only_result(sys, f, ev, ec, vir, bonded)
     return _long_range_terms(sys, ff, f, ev, ec, vir, bonded)
+
+
+def tip4p_term(sys, ff: ForceField, f, ecoul, virial):
+    """The TIP4P charge-site coulomb (lidp_tpu/forcefield.py :296-304),
+    the dense (N,N) pass with the special codes, its forces redistributed
+    onto O, H1, H2, added to f, ecoul and virial; they pass through
+    without ff.tip4p."""
+    if ff.tip4p is None:
+        return f, ecoul, virial
+    from lidp_tpu_torch.ops.tip4p import redistribute, tip4p_coul_dense
+
+    sp = ff.sp_code if ff.sp_code is not None else 0
+    fcs, ec4, vc4 = tip4p_coul_dense(
+        sys.x, sys.q, sp, sys.mask, sys.box, ff.pair.cut_coulsq,
+        ff.pair.g_ewald, ff.qqrd2e, ff.pair.special_coul, ff.tip4p,
+        mode="cut" if ff.tip4p_cut else "long")
+    return f + redistribute(fcs, ff.tip4p), ecoul + ec4, virial + vc4
 
 
 def dense_forces(sys, ff: ForceField) -> ForceResult:
@@ -266,6 +303,7 @@ def dense_forces(sys, ff: ForceField) -> ForceResult:
         f = f + fp
         evdwl, ecoul = evdwl + ev, ecoul + ec
         virial = virial + vir
+    f, ecoul, virial = tip4p_term(sys, ff, f, ecoul, virial)
     f, evdwl, ecoul, virial, bonded = bonded_terms(sys, ff, f, evdwl, ecoul,
                                                    virial)
     return _long_range_terms(sys, ff, f, evdwl, ecoul, virial, bonded)
@@ -276,8 +314,9 @@ def _long_range_terms(sys, ff: ForceField, f, evdwl, ecoul,
     """The terms after the pair term, on either route, in the JAX
     package's order: the k-space term (the Ewald sum, its tables rescaled
     to the live box under kspace_dynamic; or PPPM on the positions
-    relative to the box's lower corner and the live box lengths), then the
-    polarization term (the Wolf
+    relative to the box's lower corner and the live box lengths; on the
+    TIP4P charge sites where there are some), MSM, the pppm/disp mesh,
+    the ewald/disp dispersion sum, then the polarization term (the Wolf
     field E0, the (N,3,N,3) tensor, the dipole solve from sys.mu under
     use_previous, the polar forces and epol), all on (N,N) tensors; the
     ForceResult of the pair term's f, evdwl, ecoul and virial with
@@ -294,18 +333,49 @@ def _long_range_terms(sys, ff: ForceField, f, evdwl, ecoul,
     scf_diverged = torch.zeros((), dtype=torch.bool, device=x.device)
 
     if ff.ewald is not None or ff.pppm is not None:
+        # TIP4P: the charge sum sees the charge sites and its forces
+        # redistribute onto O, H1, H2 (pppm_tip4p.cpp particle_map +
+        # fieldforce)
+        xk = x
+        if ff.tip4p is not None:
+            from lidp_tpu_torch.ops.tip4p import charge_sites
+
+            xk = charge_sites(x, sys.box, ff.tip4p)
         if ff.ewald is not None:
             ewp = ff.ewald
             if ff.kspace_dynamic:
                 ewp = ewald_ops.rescale_coeffs(ewp, sys.box.lengths)
-            fk, el, vk = ewald_ops.ewald_forces(x, sys.q, sys.box.volume,
+            fk, el, vk = ewald_ops.ewald_forces(xk, sys.q, sys.box.volume,
                                                 ewp)
         else:
-            fk, el, vk = pppm_forces_params(x - sys.box.lo, sys.q,
+            fk, el, vk = pppm_forces_params(xk - sys.box.lo, sys.q,
                                             sys.box.lengths, ff.pppm)
+        if ff.tip4p is not None:
+            from lidp_tpu_torch.ops.tip4p import redistribute
+
+            fk = redistribute(fk, ff.tip4p)
         f = f + fk
         elong = elong + el
         virial = virial + vk
+
+    # then MSM, the pppm/disp mesh and the ewald/disp dispersion sum, each
+    # into E_long as every k-space energy (ewald_disp.cpp compute())
+    if ff.msm is not None:
+        from lidp_tpu_torch.ops.msm import msm_forces
+
+        fm, em, vm = msm_forces(x - sys.box.lo, sys.q, sys.box.lengths,
+                                ff.msm)
+        f, elong, virial = f + fm, elong + em, virial + vm
+    if ff.pppm_disp is not None:
+        from lidp_tpu_torch.ops.pppm import pppm_disp_forces
+
+        f6, e6, v6 = pppm_disp_forces(x - sys.box.lo, ff.b_atom,
+                                      sys.box.lengths, ff.pppm_disp)
+        f, elong, virial = f + f6, elong + e6, virial + v6
+    if ff.ewald6 is not None:
+        f6, e6, v6 = ewald_ops.ewald6_forces(x, ff.b_atom, sys.box.volume,
+                                             ff.ewald6)
+        f, elong, virial = f + f6, elong + e6, virial + v6
 
     if ff.polar is not None:
         s = ff.polar

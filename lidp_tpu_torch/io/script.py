@@ -76,13 +76,30 @@ THERMO_KEYWORDS = frozenset((
 
 # pair styles Simulation.from_script builds
 PAIR_STYLES = ("lj/cut", "lj/cut/coul/long", "lj/cut/coul/long/polarization",
-               "lj/charmm/coul/long", "lj/charmm/coul/charmm")
+               "lj/charmm/coul/long", "lj/charmm/coul/charmm",
+               "lj/long/coul/long", "buck/long/coul/long",
+               "lj/cut/tip4p/long", "lj/cut/tip4p/cut", "tip4p/long",
+               "tip4p/cut", "lj/long/tip4p/long", "lj/cut/coul/msm",
+               "lj/charmm/coul/msm")
+# the TIP4P styles: the oxygen's charge on the M site (ops/tip4p.py)
+TIP4P_STYLES = ("lj/cut/tip4p/long", "lj/cut/tip4p/cut", "tip4p/long",
+                "tip4p/cut", "lj/long/tip4p/long")
+# the k-space styles the script reads (pppm/cg and msm/cg run as pppm and
+# msm)
+KSPACE_STYLES = ("ewald", "ewald/disp", "pppm", "pppm/cg", "pppm/stagger",
+                 "pppm/tip4p", "pppm/disp", "pppm/disp/tip4p", "msm",
+                 "msm/cg")
 # the many-body styles (ops/eam.py): the cutoff comes from the potential
 # file that pair_coeff names
 EAM_STYLES = ("eam", "eam/alloy", "eam/fs")
 # the CHARMM pair styles the JAX package runs and the port does not
-CHARMM_UNPORTED = ("lj/charmm/coul/charmm/implicit", "lj/charmm/coul/msm",
+CHARMM_UNPORTED = ("lj/charmm/coul/charmm/implicit",
                    "lj/charmmfsw/coul/long", "lj/charmmfsw/coul/charmmfsh")
+# the other coul/msm and */long variants, which the JAX package runs
+# through its generic pair dispatch
+OTHER_KSPACE_PAIRS = ("coul/msm", "born/coul/msm", "buck/coul/msm",
+                      "coul/long", "buck/coul/long", "born/coul/long")
+_OTHER_PAIRS = "ROADMAP queue 1 item 6.9, the other pair styles"
 
 # fix styles with a builder (styles/fix_integrators.py, fix_modifiers.py)
 FIX_STYLES = ("nve", "nvt", "npt", "nph", "rigid", "rigid/nve", "rigid/nvt",
@@ -194,6 +211,10 @@ class PairStyleSpec:
     polar_gamma: float = 1.03
     use_previous: bool = False
     debug: bool = False
+    # the TIP4P styles: (O type, H type, O-H bond type, H-O-H angle type,
+    # qdist), and "long" (erfc + k-space) or "cut" (the bare coulomb)
+    tip4p: tuple = None
+    tip4p_mode: str = "long"
 
 
 @dataclasses.dataclass
@@ -326,6 +347,10 @@ class LammpsScript:
         self._pair_mix = "geometric"  # pair_modify mix
         self._pair_shift = False      # pair_modify shift
         self._gewald_override = None  # kspace_modify gewald
+        self._gewald6_override = None  # kspace_modify gewald/disp
+        self._msm_cutoff_adjust = True  # kspace_modify cutoff/adjust
+        # lj/long/tip4p/long's LJ flag: long (the dispersion sum) or cut
+        self._tip4p_lj_long = False
         self._thermo_norm = None
         self._thermo_float_format = None
         # thermo_modify temp ID: the temp compute the thermo temperature,
@@ -1125,7 +1150,8 @@ class LammpsScript:
         lj/charmm/coul/long INNER OUTER [CUT_COUL] | lj/charmm/coul/charmm
         INNER OUTER [INNER_COUL OUTER_COUL] (the CHARMM styles mix
         arithmetically, as the JAX package sets them) | eam | eam/alloy |
-        eam/fs."""
+        eam/fs | the long-dispersion, TIP4P and coul/msm styles
+        (_kspace_pair_style)."""
         self._invalidate()
         self.pair_coeffs = {}
         self.pair_coeffs14 = {}
@@ -1133,8 +1159,17 @@ class LammpsScript:
             _unported(f"pair_style {a[0]} (the JAX package runs it)",
                       _BREADTH)
         if a[0] not in PAIR_STYLES + EAM_STYLES:
+            if a[0] in OTHER_KSPACE_PAIRS:
+                _unported(f"pair_style {a[0]} (the JAX package runs it)",
+                          _OTHER_PAIRS)
             _unported(f"pair_style {a[0]}", _BREADTH)
         p = PairStyleSpec(name=a[0])
+        if a[0] in ("lj/long/coul/long", "buck/long/coul/long",
+                    "lj/long/tip4p/long", "lj/cut/coul/msm",
+                    "lj/charmm/coul/msm") or a[0] in TIP4P_STYLES:
+            self._kspace_pair_style(p, a)
+            self.pair = p
+            return
         if a[0] in EAM_STYLES:
             # no settings: the cutoff is the potential file's
             # (PairEAM::settings, pair_eam.cpp)
@@ -1217,11 +1252,64 @@ class LammpsScript:
             i += 2
         self.pair = p
 
+    def _kspace_pair_style(self, p, a):
+        """The settings of the k-space breadth's pair styles (the JAX
+        package's script.py:1197-1203, :1318-1383):
+        lj/long/coul/long and buck/long/coul/long FLAG_LJ FLAG_COUL CUT
+        [CUT_COUL], the flags `long long` only; lj/long/tip4p/long
+        FLAG_LJ long OTYPE HTYPE BTYPE ATYPE QDIST CUT [CUT_COUL], FLAG_LJ
+        cut or long; lj/cut/tip4p/long and lj/cut/tip4p/cut OTYPE HTYPE
+        BTYPE ATYPE QDIST CUT [CUT_COUL]; tip4p/long and tip4p/cut OTYPE
+        HTYPE BTYPE ATYPE QDIST CUT_COUL; lj/cut/coul/msm CUT [CUT_COUL];
+        lj/charmm/coul/msm INNER OUTER [CUT_COUL], mixed
+        arithmetically."""
+        name = a[0]
+        if name in ("lj/long/coul/long", "buck/long/coul/long"):
+            if a[1] != "long" or a[2] != "long":
+                raise NotImplementedError(
+                    f"{name}: only 'long long' flags supported")
+            p.cut_lj_global = float(a[3])
+            p.cut_coul = float(a[4]) if len(a) > 4 else p.cut_lj_global
+        elif name == "lj/long/tip4p/long":
+            if a[2] != "long":
+                raise NotImplementedError(
+                    "lj/long/tip4p/long: coulomb flag must be 'long'")
+            if a[1] not in ("cut", "long"):
+                raise NotImplementedError(
+                    "lj/long/tip4p/long: lj flag must be 'cut' or 'long'")
+            self._tip4p_lj_long = a[1] == "long"
+            p.tip4p = (int(a[3]), int(a[4]), int(a[5]), int(a[6]),
+                       float(a[7]))
+            p.cut_lj_global = float(a[8])
+            p.cut_coul = float(a[9]) if len(a) > 9 else p.cut_lj_global
+        elif name in ("lj/cut/tip4p/long", "lj/cut/tip4p/cut"):
+            p.tip4p = (int(a[1]), int(a[2]), int(a[3]), int(a[4]),
+                       float(a[5]))
+            p.tip4p_mode = "cut" if name.endswith("/cut") else "long"
+            p.cut_lj_global = float(a[6])
+            p.cut_coul = float(a[7]) if len(a) > 7 else p.cut_lj_global
+        elif name in ("tip4p/long", "tip4p/cut"):
+            p.tip4p = (int(a[1]), int(a[2]), int(a[3]), int(a[4]),
+                       float(a[5]))
+            p.tip4p_mode = "cut" if name.endswith("/cut") else "long"
+            p.cut_coul = float(a[6])
+            p.cut_lj_global = 0.0   # no van der Waals term
+        elif name == "lj/cut/coul/msm":
+            p.cut_lj_global = float(a[1])
+            p.cut_coul = float(a[2]) if len(a) > 2 else p.cut_lj_global
+        else:   # lj/charmm/coul/msm
+            p.cut_lj_inner = float(a[1])
+            p.cut_lj_global = float(a[2])
+            p.cut_coul = float(a[3]) if len(a) > 3 else p.cut_lj_global
+            self._pair_mix = "arithmetic"
+
     def cmd_pair_coeff(self, a):
         self._invalidate()
         if self.pair.name in EAM_STYLES:
             self._eam_coeff(a)
             return
+        if self.pair.name in ("tip4p/cut", "tip4p/long"):
+            return   # the coulomb-only off-site styles take no coefficients
         if a[0] == "*" or a[1] == "*":
             # pair_coeff * * ... — wildcard ranges (Force::bounds)
             ii = range(1, self.ntypes + 1) if a[0] == "*" else [int(a[0])]
@@ -1232,6 +1320,12 @@ class LammpsScript:
                         self.cmd_pair_coeff([str(i_), str(j_)] + list(a[2:]))
             return
         i, j = int(a[0]), int(a[1])
+        if self.pair.name == "buck/long/coul/long":
+            # i j A rho C [cut] (pair_buck_long_coul_long.cpp::coeff)
+            vals = tuple(float(v) for v in a[2:5])
+            cut = float(a[5]) if len(a) > 5 else self.pair.cut_lj_global
+            self.pair_coeffs[(min(i, j), max(i, j))] = vals + (cut,)
+            return
         eps, sig = float(a[2]), float(a[3])
         if "charmm" in self.pair.name:
             # i j eps sigma [eps14 sigma14]; the cutoffs are global
@@ -1372,27 +1466,34 @@ class LammpsScript:
 
     def cmd_kspace_style(self, a):
         """kspace_style ewald | ewald/disp | pppm | pppm/cg | pppm/stagger
-        ACCURACY; pppm/cg's restriction of the mesh to the charged atoms is
-        a sparsity optimisation with the same result, so it runs as pppm
-        (the JAX package's alias)."""
+        | pppm/tip4p | pppm/disp | pppm/disp/tip4p | msm | msm/cg
+        ACCURACY; pppm/cg's and msm/cg's restriction to the charged atoms
+        is a sparsity optimisation with the same result, so they run as
+        pppm and msm (the JAX package's aliases)."""
         if a[0] == "none":
             self.kspace = None
-        elif a[0] in ("ewald", "ewald/disp", "pppm", "pppm/cg",
-                      "pppm/stagger"):
+        elif a[0] in KSPACE_STYLES:
             self.kspace = (a[0], float(a[1]))
         else:
             _unported(f"kspace_style {a[0]}", _BREADTH)
 
     def cmd_kspace_modify(self, a):
-        """kspace_modify gewald G.  The JAX package ignores every other
+        """kspace_modify gewald G | gewald/disp G6 (pppm/disp's g_ewald_6,
+        kspace.cpp modify_params) | cutoff/adjust yes|no (MSM's cutoff
+        adjustment, kspace.cpp:534).  The JAX package ignores every other
         keyword (mesh, order, ...; ROADMAP queue 3 item 10); the port
         raises on them."""
         i = 0
         while i < len(a):
-            if a[i] != "gewald":
+            if a[i] == "gewald":
+                self._gewald_override = float(a[i + 1])
+            elif a[i] == "gewald/disp":
+                self._gewald6_override = float(a[i + 1])
+            elif a[i] == "cutoff/adjust":
+                self._msm_cutoff_adjust = a[i + 1] == "yes"
+            else:
                 _unported(f"kspace_modify {a[i]} (the JAX package ignores "
                           "it: ROADMAP queue 3 item 10)", _BREADTH)
-            self._gewald_override = float(a[i + 1])
             i += 2
 
     def cmd_special_bonds(self, a):

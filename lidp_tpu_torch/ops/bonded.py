@@ -675,8 +675,17 @@ def special_correction_sparse(x, q, type_, sp_idx, sp_lvl, mask, box, p):
     sp_lvl (N,S) (topology.special_lists, the fill at x.shape[0]); p is
     a PairParams, without coulomb when p.coul is false.  The LJ term is the
     unswitched one under the charmm switch too, as in the JAX package
-    (ROADMAP queue 3).  Returns (f_corr, devdwl, decoul, dvir6), as the JAX
-    function."""
+    (ROADMAP queue 3).  The lj/long table takes the same plain LJ share,
+    the k-space sum running over every pair, as the JAX function forms it;
+    a buck/long table raises: the JAX function forms the LJ share of its
+    A, 1/rho and C tables there (ROADMAP queue 3 item 30).  The msm
+    coulomb takes (1 - factor) prefactor like the erfc form.  Returns
+    (f_corr, devdwl, decoul, dvir6), as the JAX function."""
+    if p.kind == "buck/long":
+        raise NotImplementedError(
+            "buck/long/coul/long with special bonds on the cell grid: the "
+            "JAX package's special correction takes the LJ form of the "
+            "Buckingham tables there (ROADMAP queue 3 item 30)")
     cut_coulsq = p.cut_coulsq if p.coul else 0.0
     return special_pair_sums(
         x, q, type_, x, q, type_, sp_idx, sp_lvl, box.lengths,

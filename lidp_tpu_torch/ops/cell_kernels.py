@@ -48,9 +48,20 @@ NPAR = 8                  # csrc/lj_cell.cuh: lj3 lj4 offset cutsq L(3) floor
 
 
 def supported(p, ntypes_gt_one: bool, coul: bool) -> bool:
-    """Whether the LJ cell kernels cover this pair style: one atom type, no
-    coulomb and no charmm switch."""
-    return (not ntypes_gt_one) and (not coul) and not p.charmm
+    """Whether the LJ cell kernels cover this pair style: plain lj/cut
+    alone, one atom type, no coulomb (of any kind, msm's included) and no
+    charmm switch; the long dispersion kinds (lj/long, buck/long) are
+    not the kernels' form."""
+    return (not ntypes_gt_one) and (not coul) and not p.charmm \
+        and p.kind == "lj" and p.coul_kind != "msm"
+
+
+def _check_kind(name, p):
+    """The kernels compute lj/cut: a table of another van der Waals form
+    (lj/long, buck/long) raises."""
+    if p.kind != "lj":
+        raise ValueError(f"{name}: the kernel computes lj/cut, not the "
+                         f"{p.kind} table")
 
 
 def sentinel_scalars(box: Box, p):
@@ -276,6 +287,7 @@ def slot_lj_forces(grids, box: Box, p, need_ev: bool = True, par=None):
     columns of one (...,cap,3) tensor, and the force grids returned are the
     columns of one such tensor.  `par` is `lj_par(box, p, base)` when the
     caller has it already (the box and the table do not change in a run)."""
+    _check_kind("slot_lj_forces", p)
     if grids[0].device.type == "cpu":
         return slot_lj_forces_plain(grids, box, p, need_ev=need_ev)
     name = "slot_lj_forces"
@@ -319,6 +331,7 @@ def cell_pair_forces_lj(x, mask, cells: Cells, box: Box, p,
     slot_of_atom takes each atom's.  `par` is `lj_par(box, p)` when the
     caller has it already; without it the wrapper forms it once for each
     box and table (_atom_order_par)."""
+    _check_kind("cell_pair_forces_lj", p)
     if x.device.type == "cpu":
         return cell_pair_forces_lj_plain(x, mask, cells, box, p,
                                          need_ev=need_ev)

@@ -15,11 +15,13 @@ the JAX package sends them to its XLA function.  The single-type float32
 LJ case goes to the CUDA kernels of ops/cell_kernels.py instead
 (forcefield.compute_forces decides; a type exclusion table or the molecule
 exclusion keeps a system on this function, as the JAX package's
-_pallas_ok does).  lj/cut, lj/cut/coul/long and the lj/charmm styles
-(the LJ switch, coul/long and coul/charmm) are ported, with the
+_pallas_ok does).  lj/cut, lj/cut/coul/long, the lj/charmm styles
+(the LJ switch, coul/long, coul/charmm and coul/msm), the long dispersion
+kinds lj/long and buck/long (at full weight: the special correction takes
+the special pairs' share) and the msm coulomb are ported, with the
 neigh_modify exclusions (type pairs, PairParams.excl; same-molecule pairs,
 excl_mol with mol=); the other pair and coulomb kinds are not (ROADMAP
-queue 1 item 6), and a triclinic box does not exist in the port.
+queue 1 item 6.9), and a triclinic box does not exist in the port.
 
 Requires >= 3 bins in every dimension that has more than one.
 """
@@ -32,8 +34,9 @@ import numpy as np
 import torch
 
 from lidp_tpu_torch.box import Box, minimum_image
-from lidp_tpu_torch.ops.pair import (EWALD_F, charmm_coul, charmm_switch,
-                                     erfc_as)
+from lidp_tpu_torch.ops.pair import (EWALD_F, LONG_KINDS, charmm_coul,
+                                     charmm_switch, erfc_as, long_vdw,
+                                     msm_coul)
 
 
 def perp_widths(lengths, tilt=None):
@@ -186,13 +189,16 @@ def cell_pair_forces(x, q, type_, mask, cells: Cells, box: Box, p,
     qs = slotify(q) if coul else None
     ntypes = p.lj3.shape[0] - 1
     multi_type = ntypes > 1 or p.excl is not None
+    # buck/long's 1/rho table rides with the others (the offset table
+    # stands in for it elsewhere, never read)
+    rho_t = p.rhoinv if p.rhoinv is not None else p.offset
     if multi_type:
         ts = slotify(type_).long()
         tabs = [t.to(dtype) for t in (p.lj3, p.lj4, p.offset, p.cut_ljsq,
-                                      p.cutsq)]
+                                      p.cutsq, rho_t)]
     else:
-        lj3, lj4, off11 = (t[1, 1].to(dtype)
-                           for t in (p.lj3, p.lj4, p.offset))
+        lj3, lj4, off11, rhoinv = (t[1, 1].to(dtype)
+                                   for t in (p.lj3, p.lj4, p.offset, rho_t))
         cut_ljsq, cutsq = p.cut_ljsq[1, 1].to(dtype), p.cutsq[1, 1].to(dtype)
 
     excl_mol = p.excl_mol and mol is not None
@@ -231,16 +237,20 @@ def cell_pair_forces(x, q, type_, mask, cells: Cells, box: Box, p,
 
         if multi_type:
             ti, tj = ctr(ts), nbr(ts)
-            lj3, lj4, off11, cut_ljsq, cutsq = (t[ti, tj] for t in tabs)
+            lj3, lj4, off11, cut_ljsq, cutsq, rhoinv = (t[ti, tj]
+                                                        for t in tabs)
 
         in_rng = rsq < cutsq
         if p.excl is not None:
             in_rng = in_rng & ~p.excl[ti, tj]
         lj_m = in_rng & (rsq < cut_ljsq)
-        r6inv = r2inv * r2inv * r2inv
-        forcelj = r6inv * (12.0 * lj3 * r6inv - 6.0 * lj4)
-        if need_ev or p.charmm:
-            philj = r6inv * (lj3 * r6inv - lj4)
+        if p.kind in LONG_KINDS:
+            forcelj, philj = long_vdw(p, rsq, r2inv, lj3, lj4, rhoinv)
+        else:
+            r6inv = r2inv * r2inv * r2inv
+            forcelj = r6inv * (12.0 * lj3 * r6inv - 6.0 * lj4)
+            if need_ev or p.charmm:
+                philj = r6inv * (lj3 * r6inv - lj4)
         if p.charmm:
             forcelj, philj = charmm_switch(p, cut_ljsq, rsq, forcelj, philj)
         forcelj = torch.where(lj_m, forcelj, 0.0)
@@ -252,8 +262,11 @@ def cell_pair_forces(x, q, type_, mask, cells: Cells, box: Box, p,
             cm = in_rng & (rsq < p.cut_coulsq)
             r = torch.sqrt(rsq)
             prefactor = p.qqrd2e * qi * qj / r
-            if p.coul_kind == "charmm":
-                ec, fc = charmm_coul(p, prefactor, rsq, 1.0)
+            if p.coul_kind in ("charmm", "msm"):
+                ec, fc = (charmm_coul(p, prefactor, rsq, 1.0)
+                          if p.coul_kind == "charmm" else
+                          msm_coul(prefactor, r, rsq, p.cut_coulsq,
+                                   p.msm_order))
                 forcecoul = torch.where(cm, fc, 0.0)
                 if need_ev:
                     ecoul = ecoul + torch.sum(torch.where(cm, ec, 0.0))
@@ -266,7 +279,7 @@ def cell_pair_forces(x, q, type_, mask, cells: Cells, box: Box, p,
             else:                                   # exact coul/cut
                 erfc = 1.0
                 forcecoul = torch.where(cm, prefactor, 0.0)
-            if need_ev and p.coul_kind != "charmm":
+            if need_ev and p.coul_kind == "long":
                 ecoul = ecoul + torch.sum(
                     torch.where(cm, prefactor * erfc, 0.0))
         else:

@@ -20,7 +20,9 @@ box-dependent factor (the k vectors, the Green's function, the
 deconvolution, the volume) is formed from the box lengths of each call, so
 the mesh follows a barostat's box.
 
-pppm/disp and pppm/tip4p are not ported (ROADMAP queue 1 item 6, breadth).
+pppm/disp's dispersion mesh (setup_pppm_disp, pppm_disp_forces) shares
+the charge mesh's stencil, spread and mode lattice.  pppm/tip4p is the
+charge mesh on the TIP4P charge sites (forcefield.py, ops/tip4p.py).
 """
 
 from __future__ import annotations
@@ -221,21 +223,13 @@ def _integer_pow(x, y: int):
     return acc
 
 
-def pppm_forces(x, q, box_lengths, setup: PPPMSetup, qqrd2e, qsqsum, qsum):
-    """The mesh's (f (N,3), elong, virial6) for positions x relative to the
-    box's lower corner, charges q and the box lengths (a (3,) tensor); the
-    energy less the self and neutralising-background terms, the virial of
-    the per-mode terms only (pppm.cpp poisson_ik, as ewald.cpp:466-474)."""
-    dtype = x.dtype
-    dev = x.device
-    cdtype = torch.complex128 if dtype == torch.float64 else torch.complex64
-    nx, ny, nz = setup.grid
-    L = box_lengths.to(dtype)
-    n = x.shape[0]
-    order = setup.order
-    g = setup.g_ewald
-
-    # --- charge assignment (scatter) ---
+def _stencil(x, L, grid, order):
+    """The assignment stencil of positions x (relative to the box's lower
+    corner) on the grid: the (N,P,P,P) weights, the products of the
+    per-dimension order-P B-spline weights, and the (N*P^3,) linear grid
+    index of each."""
+    dtype, dev = x.dtype, x.device
+    nx, ny, nz = grid
     h = L / torch.tensor([nx, ny, nz], dtype=dtype, device=dev)
     s = x / h[None, :]
     base = torch.floor(s - (order - 1) / 2.0).to(torch.int64)
@@ -245,18 +239,31 @@ def pppm_forces(x, q, box_lengths, setup: PPPMSetup, qqrd2e, qsqsum, qsum):
 
     offs = torch.arange(order, device=dev)
     gi = torch.remainder(base[:, :, None] + offs,
-                         torch.tensor(setup.grid, device=dev)[:, None])
+                         torch.tensor(grid, device=dev)[:, None])
     gx, gy, gz = gi[:, 0], gi[:, 1], gi[:, 2]           # (N,P)
 
     w3 = (wx[:, :, None, None] * wy[:, None, :, None]
           * wz[:, None, None, :])                      # (N,P,P,P)
     lin = ((gx[:, :, None, None] * ny + gy[:, None, :, None]) * nz
            + gz[:, None, None, :]).reshape(-1)         # (N*P^3,)
-    rho = torch.zeros(nx * ny * nz, dtype=dtype, device=dev)
-    rho.index_add_(0, lin, (w3 * q[:, None, None, None]).reshape(-1))
-    rho = rho.reshape(nx, ny, nz)
+    return w3, lin
 
-    # --- reciprocal convolution ---
+
+def _spread(vals, w3, lin, grid):
+    """The (nx,ny,nz) grid of the per-atom values spread by the stencil:
+    a scatter-add of N * P^3 weights."""
+    nx, ny, nz = grid
+    rho = torch.zeros(nx * ny * nz, dtype=w3.dtype, device=w3.device)
+    rho.index_add_(0, lin, (w3 * vals[:, None, None, None]).reshape(-1))
+    return rho.reshape(nx, ny, nz)
+
+
+def _modes(grid, L, order, dtype, dev):
+    """The FFT mode lattice of the grid: KX, KY, KZ (the wave vectors of
+    the box lengths L), k^2 with its k = 0 entry set to 1, and W(k)^2, the
+    square of the assignment function's transform
+    prod_d sinc(pi m_d / n_d)^order, floored at 1e-12."""
+    nx, ny, nz = grid
     two_pi = 2 * math.pi
     kx = two_pi * _fftfreq(nx, float(1) / nx, dtype, dev) / L[0]
     ky = two_pi * _fftfreq(ny, float(1) / ny, dtype, dev) / L[1]
@@ -264,12 +271,7 @@ def pppm_forces(x, q, box_lengths, setup: PPPMSetup, qqrd2e, qsqsum, qsum):
     KX, KY, KZ = torch.meshgrid(kx, ky, kz, indexing="ij")
     k2 = KX * KX + KY * KY + KZ * KZ
     k2[0, 0, 0] = 1.0
-    green = torch.exp(-k2 / (4 * g * g)) / k2
-    green[0, 0, 0] = 0.0
 
-    # B-spline deconvolution: assignment and interpolation each smear by
-    # W(k) = prod_d sinc(pi m_d / n_d)^order, so the effective Green's
-    # function carries 1/W(k)^2
     def sinc(m, nn):
         u = math.pi * m / nn
         zero = m == 0
@@ -281,7 +283,42 @@ def pppm_forces(x, q, box_lengths, setup: PPPMSetup, qqrd2e, qsqsum, qsum):
     mz = _fftfreq(nz, 1.0, dtype, dev) * nz
     MX, MY, MZ = torch.meshgrid(mx, my, mz, indexing="ij")
     wk = _integer_pow(sinc(MX, nx) * sinc(MY, ny) * sinc(MZ, nz), order)
-    wk2 = torch.clamp(wk * wk, min=1e-12)
+    return KX, KY, KZ, k2, torch.clamp(wk * wk, min=1e-12)
+
+
+def _fields(KX, KY, KZ, phi_k, w3, lin, n):
+    """The ik-differentiated fields of the mode potential phi_k (the three
+    inverse transforms as one batch), interpolated at the atoms with the
+    spreading weights: (N,3)."""
+    fields = torch.real(torch.fft.ifftn(
+        -1j * torch.stack([KX, KY, KZ]) * phi_k, dim=(1, 2, 3)))
+    vals = fields.reshape(3, -1)[:, lin].reshape(3, n, -1)
+    return torch.sum(vals * w3.reshape(1, n, -1), dim=2).T
+
+
+def pppm_forces(x, q, box_lengths, setup: PPPMSetup, qqrd2e, qsqsum, qsum):
+    """The mesh's (f (N,3), elong, virial6) for positions x relative to the
+    box's lower corner, charges q and the box lengths (a (3,) tensor); the
+    energy less the self and neutralising-background terms, the virial of
+    the per-mode terms only (pppm.cpp poisson_ik, as ewald.cpp:466-474)."""
+    dtype = x.dtype
+    dev = x.device
+    cdtype = torch.complex128 if dtype == torch.float64 else torch.complex64
+    nx, ny, nz = setup.grid
+    L = box_lengths.to(dtype)
+    n = x.shape[0]
+    g = setup.g_ewald
+
+    # --- charge assignment (scatter) ---
+    w3, lin = _stencil(x, L, setup.grid, setup.order)
+    rho = _spread(q, w3, lin, setup.grid)
+
+    # --- reciprocal convolution, with the B-spline deconvolution: the
+    # assignment and the interpolation each smear by W(k), so the
+    # effective Green's function carries 1/W(k)^2 ---
+    KX, KY, KZ, k2, wk2 = _modes(setup.grid, L, setup.order, dtype, dev)
+    green = torch.exp(-k2 / (4 * g * g)) / k2
+    green[0, 0, 0] = 0.0
 
     rho_k = torch.fft.fftn(rho.to(cdtype))
     vol = L[0] * L[1] * L[2]
@@ -296,13 +333,8 @@ def pppm_forces(x, q, box_lengths, setup: PPPMSetup, qqrd2e, qsqsum, qsum):
     elong = elong - qqrd2e * (qsqsum * g / math.sqrt(math.pi)
                               + math.pi / (2 * g * g * vol) * qsum * qsum)
 
-    # fields via ik differentiation (the three inverse transforms as one
-    # batch), interpolated with the same weights
-    fields = torch.real(torch.fft.ifftn(
-        -1j * torch.stack([KX, KY, KZ]) * phi_k, dim=(1, 2, 3)))
-    vals = fields.reshape(3, -1)[:, lin].reshape(3, n, order ** 3)
-    f = qqrd2e * q[:, None] * torch.sum(vals * w3.reshape(1, n, -1),
-                                        dim=2).T
+    # fields via ik differentiation, interpolated with the same weights
+    f = qqrd2e * q[:, None] * _fields(KX, KY, KZ, phi_k, w3, lin, n)
 
     # mesh virial (pppm.cpp vg coefficients + poisson_ik's virial branch):
     # v_ab = delta_ab - 2 k_a k_b (1/k^2 + 1/(4g^2)) on each mode's energy
@@ -316,3 +348,129 @@ def pppm_forces(x, q, box_lengths, setup: PPPMSetup, qqrd2e, qsqsum, qsum):
         vcomp(KX, KX, True), vcomp(KY, KY, True), vcomp(KZ, KZ, True),
         vcomp(KX, KY, False), vcomp(KX, KZ, False), vcomp(KY, KZ, False)])
     return f, elong, virial
+
+
+# --------------------------- pppm/disp -------------------------------------
+#
+# The dispersion mesh (lidp_tpu/ops/pppm.py :290-468): the mesh analog of
+# the geometric-mixing 1/r^6 Ewald function (ops/ewald.py setup_dispersion,
+# ewald6_forces), the reference's KSPACE/pppm_disp.cpp geometric branch.
+# The charge mesh's stencil, spread and mode lattice, with the per-atom B_i
+# spread and the per-mode coefficients of ewald_disp.cpp's func[1] branch
+# (:469-478) on the full FFT lattice in place of a half-space k list.
+
+
+@dataclasses.dataclass(frozen=True)
+class PPPMDispSetup:
+    g6: float
+    grid: tuple
+    order: int
+    bsum: float
+    bsbsum: float
+
+
+@dataclasses.dataclass(frozen=True)
+class PPPMDispParams:
+    """The dispersion mesh's parameters, all Python values (the same
+    attribute names as PPPMDispSetup; pppm_disp_forces takes either)."""
+
+    g6: float = 1.0
+    grid: tuple = (8, 8, 8)
+    order: int = 7
+    bsum: float = 0.0
+    bsbsum: float = 0.0
+
+    @staticmethod
+    def from_setup(s: PPPMDispSetup) -> "PPPMDispParams":
+        return PPPMDispParams(g6=float(s.g6),
+                              grid=tuple(int(v) for v in s.grid),
+                              order=int(s.order), bsum=float(s.bsum),
+                              bsbsum=float(s.bsbsum))
+
+
+def setup_pppm_disp(*, accuracy_rel: float, qqrd2e: float, b_atom,
+                    natoms: int, cutoff: float, box_lengths,
+                    order: int = 7, g6: float | None = None,
+                    h_per_g: float = 0.2) -> PPPMDispSetup:
+    """The dispersion grid (lidp_tpu/ops/pppm.py setup_pppm_disp): g6 from
+    the Newton solve of ops/ewald.newton_g6 unless `kspace_modify
+    gewald/disp` pins it, the grid from the spacing h g6 <= h_per_g raised
+    to 2/3/5-factorable sizes (the JAX package's rule in place of
+    pppm_disp.cpp set_grid_6's error series; order 7 by default)."""
+    from lidp_tpu_torch.ops.ewald import newton_g6
+
+    L = np.asarray(box_lengths, float)
+    b_atom = np.asarray(b_atom, float)
+    bsum = float(np.sum(b_atom))
+    bsbsum = float(np.sum(b_atom ** 2))
+    if g6 is None:
+        accuracy = accuracy_rel * qqrd2e
+        g6 = newton_g6(accuracy, bsbsum, natoms, cutoff, float(np.prod(L)))
+    grid = []
+    for prd in L:
+        n = max(2, int(math.ceil(prd * g6 / h_per_g)))
+        while not _factorable(n):
+            n += 1
+        grid.append(n)
+    return PPPMDispSetup(g6=float(g6), grid=tuple(grid), order=order,
+                         bsum=bsum, bsbsum=bsbsum)
+
+
+def pppm_disp_forces(x, b_atom, box_lengths, s):
+    """The dispersion mesh's (f (N,3), edisp, virial6) for positions x
+    relative to the box's lower corner, the per-atom B_i and the box
+    lengths.  The mode coefficient (ewald_disp.cpp coefficients()
+    func[1]) ke6(k) = -|k|^3 (sqrt(pi) erfc(b) + (0.5/b^2 - 1) e^{-b^2}
+    / b), b = |k| / (2 g6), with E = (c_e/2) sum_{k != 0} ke6 |S(k)|^2 -
+    self over the full lattice, c_e = 2 pi^{3/2} / (24 V)."""
+    dtype = x.dtype
+    dev = x.device
+    cdtype = torch.complex128 if dtype == torch.float64 else torch.complex64
+    nx, ny, nz = s.grid
+    L = torch.as_tensor(box_lengths, device=dev).to(dtype)
+    n = x.shape[0]
+    g = s.g6
+
+    b = torch.as_tensor(b_atom, device=dev).to(dtype)
+    w3, lin = _stencil(x, L, s.grid, s.order)
+    rho_k = torch.fft.fftn(_spread(b, w3, lin, s.grid).to(cdtype))
+
+    # the dispersion Green's function on the mode lattice
+    KX, KY, KZ, k2safe, wk2 = _modes(s.grid, L, s.order, dtype, dev)
+    h1 = torch.sqrt(k2safe)
+    b1 = h1 / (2.0 * g)
+    b2 = b1 * b1
+    expb2 = torch.exp(-b2)
+    erfcb = torch.special.erfc(b1)
+    pis = math.sqrt(math.pi)
+    ke6 = -h1 * k2safe * (pis * erfcb + (0.5 / b2 - 1.0) * expb2 / b1)
+    ke6[0, 0, 0] = 0.0
+    # the virial tensor factor (ewald_disp.cpp compute_virial func[1])
+    c2v = 3.0 * h1 * (pis * erfcb - expb2 / b1)
+    c2v[0, 0, 0] = 0.0
+
+    vol = L[0] * L[1] * L[2]
+    c_e = 2.0 * math.pi * pis / (24.0 * vol)
+    sk2 = torch.abs(rho_k)
+    sk2 = sk2 * sk2 / wk2
+
+    g3 = g ** 3
+    virial_self = math.pi * pis * g3 / (6.0 * vol) * s.bsum * s.bsum
+    energy_self = -s.bsbsum * g3 * g3 / 12.0 + virial_self
+    edisp = 0.5 * c_e * torch.sum(ke6 * sk2) - energy_self
+
+    # forces: phi6_k = c_e ke6 rho_k / W^2 Ngrid (the 0.5 of the
+    # full-lattice energy and the 2 of d|S|^2 cancel); f_i = B_i E6(r_i)
+    phi_k = c_e * ke6 * rho_k / wk2 * (nx * ny * nz)
+    f = b[:, None] * _fields(KX, KY, KZ, phi_k, w3, lin, n)
+
+    def vcomp(ka, kb, diag):
+        w = (ke6 if diag else 0.0) - c2v * ka * kb
+        return 0.5 * c_e * torch.sum(sk2 * w)
+
+    virial = torch.stack([
+        vcomp(KX, KX, True), vcomp(KY, KY, True), vcomp(KZ, KZ, True),
+        vcomp(KX, KY, False), vcomp(KX, KZ, False), vcomp(KY, KZ, False)])
+    virial = virial - virial_self * torch.tensor(
+        [1.0, 1.0, 1.0, 0.0, 0.0, 0.0], dtype=dtype, device=dev)
+    return f, edisp, virial

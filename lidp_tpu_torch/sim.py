@@ -1,8 +1,10 @@
 """Simulation assembly: interpreter state -> a runnable system
 (lidp_tpu/sim.py, the routes of lj/cut, lj/cut/coul/long,
 lj/cut/coul/long/polarization, lj/charmm/coul/long,
-lj/charmm/coul/charmm, eam, eam/alloy and eam/fs, with the bonded terms
-and the modifier fixes).
+lj/charmm/coul/charmm, eam, eam/alloy and eam/fs, the k-space breadth's
+lj/long/coul/long, buck/long/coul/long, the five TIP4P styles,
+lj/cut/coul/msm and lj/charmm/coul/msm, with the bonded terms and the
+modifier fixes).
 
 The analog of the LAMMPS init phase (Run::command -> LAMMPS::init,
 run.cpp:38): the lj/cut or lj/cut/coul/long tables with geometric (or
@@ -10,7 +12,11 @@ arithmetic) mixing for unset type pairs (Pair::init_one pair.cpp:660,
 676), the neigh_modify exclusions, the k-space setup of a coulomb style
 (Ewald, or PPPM's grid and g_ewald) with the `kspace_modify gewald`
 override, the polarization settings of the pair keywords, the special
-bonds of the Bonds section, the bonded terms of the bond, angle, dihedral
+bonds of the Bonds section, the k-space breadth (_kspace_terms: the
+ewald/disp dispersion sum on the per-atom B_i with g6 = g_ewald, the
+pppm/disp mesh, MSM with its adjusted cutoff pushed back into the pair
+table and the cell grid; _tip4p_params: the TIP4P sites, the dense route
+only), the bonded terms of the bond, angle, dihedral
 and improper styles (less the bonds and angles fix shake constrains, the
 clusters found in a pre-pass), the integrator of the fixes (nve,
 rigid/nve, rigid/nvt, rigid/npt, rigid/nph, nvt, npt, nph; without one,
@@ -40,7 +46,9 @@ It takes the route the JAX package takes:
     generic Runner, (N,N) tensors in plain PyTorch): every style at most
     DENSE_PATH_MAX_ATOMS atoms, the polar style only without
     LIDP_FAST_POLAR=1, with the System unpadded and the special codes of
-    the Bonds section (built up to the cap only, as in JAX);
+    the Bonds section (built up to the cap only, as in JAX); the TIP4P
+    styles take it only, and raise above the cap as the JAX package's
+    do;
   * the cell grid above the cap (the generic Runner on a CellConfig of the
     largest cutoff plus the skin, cap_slack 1.7, rebuilt as neigh_modify
     every/delay/check say): the pair term on the grid (the CUDA kernel
@@ -83,9 +91,12 @@ from lidp_tpu_torch.io.script import EAM_STYLES, PAIR_STYLES
 from lidp_tpu_torch.ops import polarization as pol_ops
 from lidp_tpu_torch.ops.cells import CellConfig
 from lidp_tpu_torch.ops.eam import build_eam_alloy_params, build_eam_params
-from lidp_tpu_torch.ops.ewald import EwaldParams, setup_ewald_disp
-from lidp_tpu_torch.ops.pair import make_pair_params
-from lidp_tpu_torch.ops.pppm import PPPMParams, setup_pppm
+from lidp_tpu_torch.ops.ewald import (Ewald6Params, EwaldParams,
+                                      setup_dispersion, setup_ewald_disp)
+from lidp_tpu_torch.ops.msm import MSMParams, setup_msm
+from lidp_tpu_torch.ops.pair import make_long_pair_params, make_pair_params
+from lidp_tpu_torch.ops.pppm import (PPPMDispParams, PPPMParams,
+                                     setup_pppm, setup_pppm_disp)
 from lidp_tpu_torch.parallel import fast_polar
 from lidp_tpu_torch.parallel.fast_polar import (aligned_npad, maybe_attach,
                                                 prescan)
@@ -94,8 +105,10 @@ from lidp_tpu_torch.styles import fix_output
 from lidp_tpu_torch.thermo import (ThermoParams, compute_pressure,
                                    temperature, thermo_row)
 
-# the k-space styles the coulomb pair styles run with
-KSPACE_STYLES = ("ewald", "ewald/disp", "pppm", "pppm/cg", "pppm/stagger")
+# the charge meshes without a dispersion mesh
+_CHARGE_MESHES = ("pppm", "pppm/cg", "pppm/stagger", "pppm/tip4p")
+_KSPACE_ITEM = ("ROADMAP queue 1 item 6.5, the k-space: its other "
+                "compositions")
 # the fix styles that move the box (the JAX package's has_baro, less the
 # styles the port does not have)
 BAROSTATS = ("npt", "nph", "rigid/npt", "rigid/nph", "rigid/npt/small",
@@ -130,6 +143,150 @@ def _cell_config(script, cut, n, coul):
                                   cap_slack=1.7)
     except ValueError:
         return None
+
+
+def _check_kspace(name, style, msm_pair, long_disp):
+    """Refuse the compositions of a k-space pair style and a k-space style
+    the port does not run: the JAX package's own refusal of pppm/disp
+    without a dispersion style, and the compositions it runs with one sum
+    of a pair's terms missing or doubled (a coul/msm style with another
+    k-space, msm with another coulomb, a long dispersion style with a
+    charge mesh alone), which the port leaves to ROADMAP queue 1 item
+    6.5."""
+    if style == "pppm/disp" and not long_disp:
+        # the JAX package's message (its sim.py:1337-1340)
+        raise NotImplementedError(
+            "kspace pppm/disp needs a */long/* dispersion pair style")
+    if (style in ("msm", "msm/cg")) != msm_pair:
+        raise NotImplementedError(
+            f"pair_style {name} with kspace_style {style}: the port runs "
+            f"the coul/msm styles with msm, and msm with them, only (the "
+            f"JAX package runs it; {_KSPACE_ITEM})")
+    if long_disp and style in _CHARGE_MESHES:
+        raise NotImplementedError(
+            f"pair_style {name} with kspace_style {style}: the charge mesh "
+            f"has no dispersion sum (the JAX package runs it without one; "
+            f"{_KSPACE_ITEM})")
+
+
+def _buck_tables(script):
+    """buck/long/coul/long's (T+1,T+1) A, 1/rho, C and cutoff tables from
+    its pair_coeff rows; every type pair must be set (the JAX package's
+    sim.py:1180-1200)."""
+    T = script.ntypes
+    tA = np.zeros((T + 1, T + 1))
+    tRinv = np.zeros((T + 1, T + 1))
+    tC = np.zeros((T + 1, T + 1))
+    cut = np.full((T + 1, T + 1), script.pair.cut_lj_global)
+    seen = np.zeros((T + 1, T + 1), bool)
+    for (i, j), (a_, rho_, c_, cut_) in script.pair_coeffs.items():
+        tA[i, j] = tA[j, i] = a_
+        tRinv[i, j] = tRinv[j, i] = 1.0 / rho_
+        tC[i, j] = tC[j, i] = c_
+        cut[i, j] = cut[j, i] = cut_
+        seen[i, j] = seen[j, i] = True
+    for i in range(1, T + 1):
+        for j in range(i + 1, T + 1):
+            if not seen[i, j]:
+                raise ValueError("All pair coeffs are not set "
+                                 f"(buck/long/coul/long {i} {j})")
+    return tA, tRinv, tC, cut
+
+
+def _kspace_terms(script, pair, b_atom, n, dtype, device) -> dict:
+    """The k-space setup of the JAX package's sim.py:1293-1425: the
+    ForceField fields (ewald, pppm, msm, ewald6, pppm_disp) and the pair
+    table with its g_ewald, g6 or MSM cutoff ("pair").  pppm/cg and
+    msm/cg run as pppm and msm, pppm/tip4p and pppm/disp/tip4p as pppm
+    and pppm/disp (the charge sites are the ForceField's tip4p).  The
+    ewald/disp dispersion sum takes g6 = g_ewald (ewald_disp.cpp:230;
+    kspace_modify gewald/disp counts for pppm/disp only, as in the JAX
+    package); MSM's adjusted cutoff goes back into the pair table and the
+    script (msm.cpp:1048), where the cell grid reads it."""
+    u = script.units
+    style, acc = script.kspace
+    L = script.box_hi - script.box_lo
+    out = {}
+    if style.startswith("pppm"):
+        ps = setup_pppm(accuracy_rel=acc, qqrd2e=u.qqr2e, q=script.q,
+                        natoms=n, cutoff=script.pair.cut_coul,
+                        box_lengths=L, g_ewald=script._gewald_override)
+        pair = dataclasses.replace(pair, g_ewald=float(ps.g_ewald))
+        out["pppm"] = PPPMParams.from_setup(
+            ps, u.qqr2e, float(np.sum(script.q ** 2)),
+            float(np.sum(script.q)), stagger=style == "pppm/stagger")
+        if style in ("pppm/disp", "pppm/disp/tip4p") and b_atom is not None:
+            # the pair flag `cut long` leaves the dispersion mesh off
+            ps6 = setup_pppm_disp(
+                accuracy_rel=acc, qqrd2e=u.qqr2e, b_atom=b_atom, natoms=n,
+                cutoff=script.pair.cut_lj_global, box_lengths=L,
+                g6=script._gewald6_override)
+            pair = dataclasses.replace(pair, g6=float(ps6.g6))
+            out["pppm_disp"] = PPPMDispParams.from_setup(ps6)
+    elif style in ("msm", "msm/cg"):
+        ms = setup_msm(accuracy_rel=acc, qqrd2e=u.qqr2e, q=script.q,
+                       natoms=n, cutoff=script.pair.cut_coul, box_lengths=L,
+                       cutoff_adjust=script._msm_cutoff_adjust)
+        out["msm"] = MSMParams.from_setup(ms, dtype=dtype, device=device)
+        if ms.cutoff != script.pair.cut_coul:
+            script.log(f"Adjusting Coulombic cutoff for MSM, new cutoff = "
+                       f"{ms.cutoff:g}")
+            script.pair.cut_coul = ms.cutoff
+            cc2 = ms.cutoff ** 2
+            pair = dataclasses.replace(
+                pair, cut_coulsq=cc2, cutsq=torch.clamp(pair.cutsq,
+                                                        min=cc2))
+    else:
+        # ewald/disp on an uncharged system: the charge function is off
+        # and only the dispersion function runs (EwaldDisp::init)
+        es = None
+        if not (float(np.sum(script.q ** 2)) == 0.0 and b_atom is not None):
+            es = setup_ewald_disp(
+                accuracy_rel=acc, qqrd2e=u.qqr2e, q=script.q, natoms=n,
+                cutoff=script.pair.cut_coul, box_lengths=L,
+                g_ewald=script._gewald_override)
+            pair = dataclasses.replace(pair, g_ewald=float(es.g_ewald))
+            out["ewald"] = EwaldParams.from_setup(es, u.qqr2e, dtype=dtype,
+                                                  device=device)
+        if b_atom is not None:
+            es6 = setup_dispersion(
+                accuracy_rel=acc, qqrd2e=u.qqr2e, b_atom=b_atom, natoms=n,
+                cutoff=script.pair.cut_lj_global, box_lengths=L,
+                g6=(es.g_ewald if es is not None
+                    else script._gewald_override))
+            pair = dataclasses.replace(pair, g6=float(es6.g6))
+            out["ewald6"] = Ewald6Params.from_setup(es6, dtype=dtype,
+                                                    device=device)
+    out["pair"] = pair
+    return out
+
+
+def _tip4p_params(script, npad, n, device):
+    """The TIP4P sites of the pair style's O and H types (the JAX
+    package's sim.py:1442-1465): alpha = qdist / (cos(theta0/2) r0) from
+    the O-H bond's and H-O-H angle's coefficients, the H of each O by tag
+    (atom index + 1, as there); above the dense cap it raises as the JAX
+    package does."""
+    import math
+
+    from lidp_tpu_torch.ops.tip4p import make_tip4p_params
+
+    otype, htype, btype, atype, qdist = script.pair.tip4p
+    if btype not in script.bond_coeffs or atype not in script.angle_coeffs:
+        raise ValueError("TIP4P needs bond/angle coeffs for the O-H bond "
+                         "and H-O-H angle types")
+    r0 = float(script.bond_coeffs[btype][1])
+    th0 = math.radians(float(script.angle_coeffs[atype][1]))
+    type_pad = np.zeros(npad, np.asarray(script.type).dtype)
+    type_pad[:n] = script.type
+    tipp = make_tip4p_params(type_pad, np.arange(1, npad + 1), otype, htype,
+                             qdist / (math.cos(0.5 * th0) * r0),
+                             device=device)
+    if n > fast_polar.DENSE_PATH_MAX_ATOMS:
+        raise NotImplementedError(
+            "TIP4P pair styles run the dense path only "
+            f"(n <= {fast_polar.DENSE_PATH_MAX_ATOMS})")
+    return tipp
 
 
 def _mix_pair_tables(script):
@@ -351,18 +508,23 @@ class Simulation:
         polar = name.endswith("/polarization")
         coul = "coul" in name
         charmm = "charmm" in name
-        # lj/charmm/coul/charmm: the switched coulomb, no k-space
+        tip4p = script.pair.tip4p is not None
+        msm_pair = name.endswith("/msm")
+        # the long dispersion styles: the r^-6 term's k-space half in the
+        # ewald/disp or pppm/disp dispersion sum
+        long_disp = name in ("lj/long/coul/long", "buck/long/coul/long") \
+            or (name == "lj/long/tip4p/long" and script._tip4p_lj_long)
+        # lj/charmm/coul/charmm and the tip4p/cut styles: no k-space
         coul_long = coul and not name.endswith("coul/charmm")
-        if coul_long and script.kspace is None:
+        needs_kspace = coul_long or (tip4p
+                                     and script.pair.tip4p_mode == "long")
+        if needs_kspace and script.kspace is None:
             raise ValueError(f"Pair style {name} requires a KSpace style")
-        if not coul_long and script.kspace is not None:
+        if not needs_kspace and script.kspace is not None:
             raise ValueError(f"KSpace style {script.kspace[0]} is "
                              f"incompatible with pair style {name}")
-        if coul_long and script.kspace[0] not in KSPACE_STYLES:
-            raise NotImplementedError(
-                f"kspace_style {script.kspace[0]}: the port runs the "
-                f"coulomb pair styles with {', '.join(KSPACE_STYLES)} only "
-                "(ROADMAP queue 1 item 6, breadth)")
+        if needs_kspace:
+            _check_kspace(name, script.kspace[0], msm_pair, long_disp)
         dense = not prescan(script, n)
         above_cap = n > fast_polar.DENSE_PATH_MAX_ATOMS
         npad = n if dense else aligned_npad(n)
@@ -393,7 +555,11 @@ class Simulation:
         mass_atom = _padA(script.mass_type[script.type], 1.0)
 
         # ---- pair tables, exclusions, kspace ----
-        eps, sig, cut = _mix_pair_tables(script)
+        if name == "buck/long/coul/long":
+            eps = sig = np.zeros((script.ntypes + 1, script.ntypes + 1))
+            tA, tRinv, tC, cut = _buck_tables(script)
+        else:
+            eps, sig, cut = _mix_pair_tables(script)
         excl_types = None
         if script.neigh_exclude_types:
             # neigh_modify exclude type (the JAX package's sim.py:1088-1096)
@@ -401,28 +567,7 @@ class Simulation:
                                   bool)
             for t1, t2 in script.neigh_exclude_types:
                 excl_types[t1, t2] = excl_types[t2, t1] = True
-        ew = pppm = None
-        g_ewald = 0.0
-        if coul_long:
-            style, acc = script.kspace
-            common = dict(accuracy_rel=acc, qqrd2e=u.qqr2e, q=script.q,
-                          natoms=n, cutoff=script.pair.cut_coul,
-                          box_lengths=script.box_hi - script.box_lo,
-                          g_ewald=script._gewald_override)
-            if style.startswith("pppm"):
-                # pppm/cg spreads only the charged atoms, a sparsity
-                # optimisation with the same result: it runs as pppm
-                ps = setup_pppm(**common)
-                g_ewald = ps.g_ewald
-                pppm = PPPMParams.from_setup(
-                    ps, u.qqr2e, float(np.sum(script.q ** 2)),
-                    float(np.sum(script.q)), stagger=style == "pppm/stagger")
-            else:
-                es = setup_ewald_disp(**common)
-                g_ewald = es.g_ewald
-                ew = EwaldParams.from_setup(es, u.qqr2e, dtype=dtype,
-                                            device=device)
-        eamp = pair = None
+        eamp = pair = b_atom = None
         if name == "eam":
             eamp, _ = build_eam_params(script.eam_file, dtype=dtype,
                                        device=device)
@@ -430,18 +575,49 @@ class Simulation:
             eamp, _ = build_eam_alloy_params(
                 script.eam_file, script.eam_type_elems, dtype=dtype,
                 device=device, fs=name == "eam/fs")
+        elif long_disp:
+            # both sums long (the JAX package's sim.py:1158-1233): the
+            # short-range part and the g6-damped r^-6 complement, with the
+            # per-atom B_i of EwaldDisp::init_coeffs; the tip4p flavour's
+            # coulomb runs on the charge sites (coul False)
+            kw = dict(cut_coul=script.pair.cut_coul, qqrd2e=u.qqr2e,
+                      coul=not tip4p, special_lj=script.special_lj,
+                      special_coul=script.special_coul,
+                      excl_types=excl_types, dtype=dtype, device=device)
+            tt = np.arange(1, script.ntypes + 1)
+            if name == "buck/long/coul/long":
+                pair = make_long_pair_params("buck/long", tA, tC, cut,
+                                             rhoinv=tRinv, **kw)
+                # B_i = sqrt(|C_tt|)
+                b_type = np.sqrt(np.abs(np.concatenate([[0.0],
+                                                        tC[tt, tt]])))
+            else:
+                s6t = sig ** 6
+                pair = make_long_pair_params("lj/long", 4.0 * eps * s6t * s6t,
+                                             4.0 * eps * s6t, cut, **kw)
+                # B_i = sqrt(4 eps_tt) sigma_tt^3
+                b_type = (np.sqrt(4.0 * np.concatenate([[0.0], eps[tt, tt]]))
+                          * np.concatenate([[0.0], sig[tt, tt]]) ** 3)
+            b_atom = b_type[script.type]
         else:
             pair = make_pair_params(
                 eps, sig, cut,
-                cut_coul=script.pair.cut_coul if coul else 0.0,
-                qqrd2e=u.qqr2e, g_ewald=g_ewald, coul=coul,
+                cut_coul=script.pair.cut_coul if coul or tip4p else 0.0,
+                qqrd2e=u.qqr2e, coul=coul,
                 special_lj=script.special_lj,
                 special_coul=script.special_coul, excl_types=excl_types,
                 shift=script._pair_shift,
                 cut_lj_inner=script.pair.cut_lj_inner, charmm=charmm,
-                coul_kind="long" if coul_long else "charmm",
+                coul_kind=("msm" if msm_pair else "long" if coul_long
+                           else "charmm"),
                 cut_coul_inner=script.pair.cut_coul_inner, dtype=dtype,
                 device=device)
+        ks = _kspace_terms(script, pair, b_atom, n, dtype, device) \
+            if needs_kspace else {}
+        pair = ks.pop("pair", pair)
+        # the TIP4P sites (the JAX package's sim.py:1442-1465): the dense
+        # route only
+        tipp = _tip4p_params(script, npad, n, device) if tip4p else None
         if script.neigh_exclude_mol and pair is not None:
             pair = dataclasses.replace(pair, excl_mol=True)
         pol = polarization_settings(script.pair) if polar else None
@@ -523,12 +699,16 @@ class Simulation:
             script, mass_atom)
         bonded = _bonded_params(script, dtype, device, u, eps, sig, cut,
                                 bond_keep, angle_keep)
-        ff = ForceField(pair=pair, eam=eamp, ewald=ew, polar=pol,
-                        qqrd2e=u.qqr2e,
+        ff = ForceField(pair=pair, eam=eamp, polar=pol, qqrd2e=u.qqr2e,
                         polar_xshift=polar_xshift, sp_code=sp_code,
-                        sp_idx=sp_idx, sp_lvl=sp_lvl, pppm=pppm,
-                        kspace_dynamic=has_baro and ew is not None,
-                        **bonded)
+                        sp_idx=sp_idx, sp_lvl=sp_lvl,
+                        kspace_dynamic=(has_baro
+                                        and ks.get("ewald") is not None),
+                        tip4p=tipp,
+                        tip4p_cut=script.pair.tip4p_mode == "cut",
+                        b_atom=(None if b_atom is None else torch.as_tensor(
+                            _padA(b_atom), dtype=dtype, device=device)),
+                        **ks, **bonded)
 
         # ---- integrator from fixes ----
         from lidp_tpu_torch.styles import FixBuildCtx, build_fixes

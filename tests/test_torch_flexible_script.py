@@ -17,7 +17,9 @@ atoms (n_side (2, 2, 2), cutoffs 4.0 / 5.5 inside the 12.6 A box):
     pppm), dense route: the same;
   * what the port leaves out raises NotImplementedError naming itself and
     its ROADMAP item: the other CHARMM pair styles (coul/charmm/implicit,
-    coul/msm, the charmmfsw styles), dihedral_style charmmfsw, fix cmap,
+    the charmmfsw styles; lj/charmm/coul/msm runs with kspace_style msm,
+    tests/test_torch_msm.py, and raises with this script's pppm, a
+    composition left to item 6.5), dihedral_style charmmfsw, fix cmap,
     pair hbond/dreiding, and bonded terms with the polar style on the
     panel engine (LIDP_FAST_POLAR=1).
 """

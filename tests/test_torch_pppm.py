@@ -25,10 +25,11 @@ on the CPU, both sides in one process:
     and pppm on the point-charge fluid's cell grid (`neighbor 0.1 bin`,
     the dense cap mocked to 300 in both packages, plus chip_smoke.
     CANCEL_REL of what the special correction cancels);
-  * what still raises, naming its ROADMAP item: pppm/disp, pppm/tip4p,
-    msm, and kspace_modify keywords other than gewald, which the JAX
-    package accepts and ignores (ROADMAP queue 3 item 10: its run with
-    `kspace_modify mesh 8 8 8` gives the rows of its run without it).
+  * what still raises, naming its ROADMAP item: pppm/dipole, msm with the
+    polar style, and kspace_modify keywords other than gewald,
+    gewald/disp and cutoff/adjust, which the JAX package accepts and
+    ignores (ROADMAP queue 3 item 10: its run with `kspace_modify mesh 8
+    8 8` gives the rows of its run without it).
 """
 
 import dataclasses
@@ -289,9 +290,12 @@ def test_pppm_cg_is_pppm(runs):
 
 # -------------------------------- refusals --------------------------------
 
+# pppm/disp, pppm/tip4p and msm are ported (tests/test_torch_pppm_disp.py,
+# test_torch_tip4p.py, test_torch_msm.py); on the polar fluid msm is a
+# composition the port leaves to item 6.5, and pppm/dipole a style it
+# lacks
 UNPORTED = {
-    "pppm/disp": "kspace_style pppm/disp 1e-4",
-    "pppm/tip4p": "kspace_style pppm/tip4p 1e-4",
+    "pppm/dipole": "kspace_style pppm/dipole 1e-4",
     "msm": "kspace_style msm 1e-4",
     "kspace_modify mesh": "kspace_style pppm 1e-4\n"
                           "kspace_modify mesh 8 8 8",

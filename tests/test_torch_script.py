@@ -251,7 +251,8 @@ def test_replicate_matches_jax(dirs):
 # compute temp and fix nvt are ported (tests/test_torch_thermostats.py),
 # region block and pair_style lj/cut too (tests/test_torch_script_cells.py),
 # fix npt and kspace_style pppm too (tests/test_torch_npt.py,
-# tests/test_torch_pppm.py), bond_style harmonic too
+# tests/test_torch_pppm.py), msm too (tests/test_torch_msm.py),
+# bond_style harmonic too
 # (tests/test_torch_flexible_script.py), minimize too
 # (tests/test_torch_min_script.py), region sphere too
 # (tests/test_torch_regions.py): their keys keep the test names and hold
@@ -262,7 +263,7 @@ UNPORTED = {
     "minimize": "min_modify line backtrack",
     "fix nvt": "fix 2 all nvt/sllod temp 300 300 100",
     "pair_style lj/cut": "pair_style lj/cut/coul/cut 2.5",
-    "kspace_style pppm": "kspace_style msm 1e-4",
+    "kspace_style pppm": "kspace_style pppm/dipole 1e-4",
     "bond_style": "bond_style class2",
     "thermo keyword": "thermo_style custom step cpu",
 }
