@@ -460,19 +460,52 @@ Phases, each raising on failure:
      then the LAMMPS rows of tests/test_tip4p_cut.py's five cases on the
      8-molecule box and of tests/test_msm.py's 32^3 case (golden_phases),
      at those tests' tolerances;
- 15. the CPU twins (CPU_TWIN: the same script through the port on the CPU
+ 15. the other pair styles from LAMMPS scripts (pair_style_paths),
+     float64, every launch counter 0 on each path, each printing its
+     route, its log's first rows and its last, its steps/s by the Loop
+     time line, peak device memory and the ms a call of each pair pass
+     (and the mesh) by CUDA events on its final state (pair_readings):
+     AO. NaCl near its melting point: 16^3 rocksalt cells (32,768 ions,
+        a = 5.64 A, written by the port's io/data_writer.py from
+        nacl_layout, atom_style full), units metal, born/coul/long 9.0
+        with the Tosi-Fumi Born-Mayer-Huggins tables (NACL_BORN), pppm
+        1e-5, fix nvt at 1100 K, 2 fs, 20 steps, the cell grid through
+        cell_pair_forces; compute_forces on the card's final state against
+        the CPU's at rel 1e-9 of max(1, |value|) (ks_state_check); then
+        the same at 10^3 cells (8,000 ions, still cells), one step, rows
+        0-1 against its CPU twin at rel 1e-9;
+     AP. AO's input as hybrid/overlay born 9.0 coul/long 9.0 (two masked
+        passes), 5 steps: rows 0-5 equal AO's at rel 1e-10;
+     AQ. examples/melt (path M's 4,000 atoms): pair_write 1 1 2000 r 0.8
+        2.5 under lj/cut 2.5, then pair_style table linear 2000 reading
+        it, 100 steps, the dense route: E_pair at step 0 within 2e-5 of
+        lj/cut's and the forces on the final state within 1e-3 of max |f|
+        (tests/test_pair_table.py's round trip); rows 0-2 against its CPU
+        twin at rel 1e-9;
+     AR. a Groot-Warren DPD fluid: 3,000 beads at rho 3 in a 10^3 box
+        (dpd_layout), pair_style dpd 1.0 1.0 34387, a = 25, gamma = 4.5,
+        comm_modify vel yes, dt 0.04, fix nve, 100 steps, the dense
+        route: |sum of f| within 1e-10 of max |f| at every evaluation
+        (theta_ij == theta_ji), rows 0-2 against its CPU twin at rel
+        1e-9 (the twin draws the same threefry bits; torch's erfinv on
+        the card and the CPU part in the last bits);
+     then tests/test_pair_breadth2.py's 16 GOLDEN cases (its rows and
+     scripts/gen_breadth_goldens.py's inputs copied: BREADTH_GOLDEN,
+     BREADTH_CASES) at that test's bars (breadth_golden_phases);
+ 16. the CPU twins (CPU_TWIN: the same script through the port on the CPU
      in float64, in a process of its own; its rows, final state and each
      minimize's (E, iterations, converged)) of J, K, O, R, R-pppm, Q64, S,
      T, U64, V, W, X64, Y, Z, AA-100, AB (and AB's cg, sd, fire), AC, AD,
      AE-couette, AE-pois, AF, AG, AI, AI-f32 (AI's in float32, its
-     setup state) and AJ-AN, after every path on the card, so that no
-     timed path shares the host's cores with them (run_twins: as many at
-     once as the cores take, the longest first);
- 16. one JSON line {"kernels": [...]} with each of the ten kernels'
+     setup state), AJ-AN, AO-8k, AQ and AR, after every path on the card,
+     so that no timed path shares the host's cores with them (run_twins:
+     as many at once as the cores take, the longest first);
+ 17. one JSON line {"kernels": [...]} with each of the ten kernels'
      launches (summed and by path, A-K, E-E4, L, L64, M, N, N-pol, O, R,
      R-pppm, Q, Q64, P, P100, S, T, U, U64, V, W, X, X64, Y, Z, AA, AB,
-     AC, AD, AE, AF, AG, AH, AI, AJ, AK, AN, AL, AM), times, ms_queued
-     and bound, then the nvidia-smi line, then the device line last.
+     AC, AD, AE, AF, AG, AH, AI, AJ, AK, AN, AL, AM, AO, AP, AQ, AR),
+     times, ms_queued and bound, then the nvidia-smi line, then the device
+     line last.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.
@@ -6543,11 +6576,11 @@ def water_layout(nside, L, seed=7, jitter=0.4):
         _improper_types=None, improper_coeffs={})
 
 
-def write_breadth_data(path):
+def write_breadth_data(path, one_type=False):
     """scripts/gen_breadth_goldens.py write_data's 64-atom box (two
-    types): a 4^3 simple cubic lattice in a 6^3 box, checkerboard charges
-    +-1 and types 1/2, the RandomState(12345) jitter: the file MSM_GOLDEN
-    was made on."""
+    types; one with one_type): a 4^3 simple cubic lattice in a 6^3 box,
+    checkerboard charges +-1 and types 1/2, the RandomState(12345) jitter:
+    the file MSM_GOLDEN and BREADTH_GOLDEN were made on."""
     import numpy as np
 
     rng = np.random.RandomState(12345)
@@ -6557,14 +6590,15 @@ def write_breadth_data(path):
             for k in range(4):
                 pos.append((np.array([i, j, k]) + 0.5) * 1.5)
                 parity = (i + j + k) % 2
-                typ.append(1 + parity)
+                typ.append(1 if one_type else 1 + parity)
                 q.append(1.0 if parity == 0 else -1.0)
     pos = np.array(pos) + rng.uniform(-0.05, 0.05, (len(pos), 3))
     with open(path, "w") as f:
         f.write("breadth golden box\n\n")
-        f.write(f"{len(pos)} atoms\n2 atom types\n\n")
+        f.write(f"{len(pos)} atoms\n{1 if one_type else 2} atom types\n\n")
         f.write("0.0 6.0 xlo xhi\n0.0 6.0 ylo yhi\n0.0 6.0 zlo zhi\n\n")
-        f.write("Masses\n\n1 1.0\n2 1.5\n\n")
+        f.write("Masses\n\n1 1.0\n" + ("" if one_type else "2 1.5\n")
+                + "\n")
         f.write("Atoms\n\n")
         for m, (p, t, qq) in enumerate(zip(pos, typ, q), start=1):
             f.write(f"{m} {t} {qq:.1f} {p[0]:.15g} {p[1]:.15g} "
@@ -6879,6 +6913,709 @@ def kspace_paths(launches, reset_counts, read_counts):
     finally:
         shutil.rmtree(work, ignore_errors=True)
     golden_phases()
+
+
+# the other pair styles (pair_style_paths): AO, the NaCl melt under the
+# Born-Mayer-Huggins (Tosi-Fumi) model on the rocksalt lattice; AP, the
+# same as hybrid/overlay born + coul/long; AQ, examples/melt through
+# pair_write and pair_style table; AR, a Groot-Warren DPD fluid; then the
+# breadth goldens (breadth_golden_phases)
+NACL_A = 5.64                  # the rocksalt lattice constant, A
+NACL_SIDE = 16                 # AO, AP: 16^3 cells, 32,768 ions
+NACL_TWIN_SIDE = 10            # AO-8k: 10^3 cells, 8,000 ions (still cells)
+NACL_STEPS = 20
+AP_STEPS = 5
+NACL_MASSES = (22.98977, 35.453)
+# pair_coeff A rho sigma C D of Na-Na, Na-Cl, Cl-Cl (eV, A)
+NACL_BORN = (("1 1", "0.2637 0.317 2.340 1.0486 -0.4993"),
+             ("1 2", "0.2110 0.317 2.755 6.9906 -8.6758"),
+             ("2 2", "0.1582 0.317 3.170 75.0547 -150.7520"))
+NACL_CUT = "9.0"
+NACL_SCRIPT = """\
+variable nstep index 20
+units metal
+atom_style full
+read_data {data}
+{pair}
+kspace_style pppm 1e-5
+velocity all create 1100.0 4928459 loop geom
+fix 1 all nvt temp 1100.0 1100.0 0.1
+timestep 0.002
+thermo_style custom step temp pe evdwl ecoul elong press
+thermo 1
+run ${{nstep}}
+"""
+NACL_COLS = ("temp", "pe", "evdwl", "ecoul", "elong", "press")
+AQ_STEPS = 100
+AQ_N = 2000                    # the table's rows (tests/test_pair_table.py)
+MELT_COLS = ("temp", "epair", "emol", "etotal", "press")
+DPD_N, DPD_L = 3000, 10.0      # AR: rho 3 (Groot and Warren 1997)
+DPD_STEPS = 100
+DPD_SCRIPT = """\
+variable nstep index 100
+units lj
+atom_style atomic
+read_data dpd.data
+pair_style dpd 1.0 1.0 34387
+pair_coeff 1 1 25.0 4.5
+comm_modify vel yes
+timestep 0.04
+fix 1 all nve
+thermo_style custom step temp pe ke etotal press
+thermo 1
+run ${nstep}
+"""
+DPD_COLS = ("temp", "pe", "ke", "etotal", "press")
+DPD_SUM_BAR = 1e-10            # |sum of f| over max |f|, every step
+PAIR_TWIN_STEPS = 2            # AQ's and AR's twins: rows 0-2
+
+
+def nacl_born_pair(overlay=False, cut=NACL_CUT):
+    """AO's pair lines: born/coul/long 9.0 with NACL_BORN; AP's the same
+    physics as hybrid/overlay born 9.0 coul/long 9.0."""
+    if overlay:
+        head = f"pair_style hybrid/overlay born {cut} coul/long {cut}\n"
+        return head + "".join(f"pair_coeff {ij} born {c}\n"
+                              for ij, c in NACL_BORN) \
+            + "pair_coeff * * coul/long\n"
+    return f"pair_style born/coul/long {cut}\n" + "".join(
+        f"pair_coeff {ij} {c}\n" for ij, c in NACL_BORN)
+
+
+def nacl_layout(nside, a=NACL_A):
+    """nside^3 rocksalt cells of Na+ (type 1) and Cl- (type 2), lattice
+    constant a, shifted by a/4 so that no lattice plane lies on a cell-grid
+    bin edge (a bin of 2a would take five planes a side and overfill), as
+    the interpreter arrays the port's data writer (io/data_writer.py
+    write_data) reads; atom_style full (the writer keeps the charges in
+    the full layout only, as the JAX package's does), each ion its own
+    molecule."""
+    import types
+
+    import numpy as np
+
+    basis = np.array([[0, 0, 0], [0.5, 0.5, 0], [0.5, 0, 0.5],
+                      [0, 0.5, 0.5]])
+    g = np.stack(np.meshgrid(*[np.arange(nside)] * 3, indexing="ij"),
+                 -1).reshape(-1, 1, 3)
+    na = ((g + basis + 0.25) * a).reshape(-1, 3)
+    cl = ((g + basis + np.array([0.75, 0.25, 0.25])) * a).reshape(-1, 3)
+    x = np.concatenate([na, cl])
+    n = x.shape[0]
+    typ = np.repeat([1, 2], n // 2)
+    return types.SimpleNamespace(
+        _sim=None, x=x, v=np.zeros_like(x), box_lo=np.zeros(3),
+        box_hi=np.full(3, nside * a), q=np.where(typ == 1, 1.0, -1.0),
+        mol=np.arange(1, n + 1), atom_style="full", ntypes=2, type=typ,
+        mass_type=np.array([0.0, *NACL_MASSES]), _bonds=None,
+        _bond_types=None, bond_coeffs={}, _angles=None, _angle_types=None,
+        angle_coeffs={}, _dihedrals=None, _dihedral_types=None,
+        dihedral_coeffs={}, _impropers=None, _improper_types=None,
+        improper_coeffs={})
+
+
+def dpd_layout(n, L, seed=11):
+    """AR's beads: n positions uniform in an L^3 box from RandomState(seed),
+    at rest, mass 1, one type, as the interpreter arrays the port's data
+    writer reads (atom_style atomic)."""
+    import types
+
+    import numpy as np
+
+    x = np.random.RandomState(seed).uniform(0.0, L, (n, 3))
+    return types.SimpleNamespace(
+        _sim=None, x=x, v=np.zeros_like(x), box_lo=np.zeros(3),
+        box_hi=np.full(3, float(L)), q=np.zeros(n), mol=np.zeros(n, int),
+        atom_style="atomic", ntypes=1, type=np.ones(n, int),
+        mass_type=np.array([0.0, 1.0]), _bonds=None, _bond_types=None,
+        bond_coeffs={}, _angles=None, _angle_types=None, angle_coeffs={},
+        _dihedrals=None, _dihedral_types=None, dihedral_coeffs={},
+        _impropers=None, _improper_types=None, improper_coeffs={})
+
+
+def table_melt_script(pair):
+    """examples/melt (MELT_SCRIPT, path M's input) without its dump, with
+    `pair_style ...` lines `pair`, a thermo row a step and `run
+    ${nstep}`."""
+    text = MELT_SCRIPT.replace(
+        "pair_style\tlj/cut 2.5\npair_coeff\t1 1 1.0 1.0 2.5", pair)
+    text = text.replace("dump\t\tid all atom 50 dump.melt\n", "")
+    text = text.replace("thermo\t\t50\nrun\t\t250",
+                        "thermo\t\t1\nrun\t\t${nstep}")
+    return f"variable nstep index {AQ_STEPS}\n" + text
+
+
+# the breadth goldens on the card (breadth_golden_phases): the rows of
+# tests/test_pair_breadth2.py:32-170 (GOLDEN: a rebuilt 16Mar18 LAMMPS on
+# a 64-atom charge checkerboard; step temp pe evdwl ecoul press) and the
+# inputs of scripts/gen_breadth_goldens.py:76-139 (CASES: units,
+# timestep, the pair lines, the data file), copied
+BREADTH_CASES = {
+    'lj96': ('lj', 0.005, [
+        'pair_style lj96/cut 2.5',
+        'pair_coeff 1 1 1.0 1.0',
+        'pair_coeff 2 2 0.8 1.1',
+    ]),
+    'ljsmooth': ('lj', 0.005, [
+        'pair_style lj/smooth 2.0 2.5',
+        'pair_coeff 1 1 1.0 1.0',
+        'pair_coeff 2 2 0.8 1.1',
+    ]),
+    'ljsmoothlin': ('lj', 0.005, [
+        'pair_style lj/smooth/linear 2.5',
+        'pair_coeff 1 1 1.0 1.0',
+        'pair_coeff 2 2 0.8 1.1',
+    ]),
+    'ufm': ('lj', 0.005, [
+        'pair_style ufm 2.5',
+        'pair_coeff 1 1 2.0 1.2',
+        'pair_coeff 1 2 1.73205080756887729 1.29614813968157218',
+        'pair_coeff 2 2 1.5 1.4',
+    ]),
+    'beck': ('lj', 0.005, [
+        'pair_style beck 2.5',
+        'pair_coeff * * 5.0 1.0 0.9 3.0 0.2',
+    ]),
+    'zbl': ('metal', 1e-05, [
+        'pair_style zbl 2.0 2.5',
+        'pair_coeff 1 1 13 13',
+        'pair_coeff 1 2 13 29',
+        'pair_coeff 2 2 29 29',
+    ]),
+    'couldsf': ('lj', 0.005, [
+        'pair_style coul/dsf 0.5 2.5',
+        'pair_coeff * *',
+    ]),
+    'coulwolf': ('lj', 0.005, [
+        'pair_style coul/wolf 0.5 2.5',
+        'pair_coeff * *',
+    ]),
+    'ljdsf': ('lj', 0.005, [
+        'pair_style lj/cut/coul/dsf 0.5 2.2 2.5',
+        'pair_coeff 1 1 1.0 1.0',
+        'pair_coeff 2 2 0.8 1.1',
+    ]),
+    'ljwolf': ('lj', 0.005, [
+        'pair_style lj/cut/coul/wolf 0.5 2.5',
+        'pair_coeff 1 1 1.0 1.0',
+    ], 'data.breadth1'),
+    'hybover': ('lj', 0.005, [
+        'pair_style hybrid/overlay lj/cut 2.5 coul/dsf 0.5 2.5',
+        'pair_coeff 1 1 lj/cut 1.0 1.0',
+        'pair_coeff 1 2 lj/cut 0.9 1.05',
+        'pair_coeff 2 2 lj/cut 0.8 1.1',
+        'pair_coeff * * coul/dsf',
+    ]),
+    'hybrid': ('lj', 0.005, [
+        'pair_style hybrid lj/cut 2.5 morse 3.0',
+        'pair_coeff 1 1 lj/cut 1.0 1.0',
+        'pair_coeff 1 2 lj/cut 0.9 1.05',
+        'pair_coeff 2 2 morse 2.0 1.5 1.2',
+    ]),
+    'hybmix': ('lj', 0.005, [
+        'pair_style hybrid/overlay lj/cut 2.5 morse 3.0',
+        'pair_coeff 1 1 lj/cut 1.0 1.0',
+        'pair_coeff 2 2 lj/cut 0.8 1.1',
+        'pair_coeff 1 2 morse 0.5 1.5 1.6',
+    ]),
+    'borndsf': ('lj', 0.005, [
+        'pair_style born/coul/dsf 0.5 2.2 2.5',
+        'pair_coeff 1 1 1.0 0.4 1.0 1.0 0.5',
+        'pair_coeff 1 2 0.9 0.45 1.05 1.0 0.5',
+        'pair_coeff 2 2 0.8 0.5 1.1 1.0 0.5',
+    ]),
+    'bornwolf': ('lj', 0.005, [
+        'pair_style born/coul/wolf 0.5 2.2 2.5',
+        'pair_coeff 1 1 1.0 0.4 1.0 1.0 0.5',
+        'pair_coeff 1 2 0.9 0.45 1.05 1.0 0.5',
+        'pair_coeff 2 2 0.8 0.5 1.1 1.0 0.5',
+    ]),
+    'bucklong': ('lj', 0.005, [
+        'pair_style buck/long/coul/long long long 2.5',
+        'pair_coeff 1 1 100.0 0.5 1.0',
+        'pair_coeff 1 2 90.0 0.55 0.894427190999916',
+        'pair_coeff 2 2 80.0 0.6 0.8',
+        'kspace_style ewald/disp 1.0e-4',
+        'pair_modify table/disp 0 table 0',
+    ]),
+}
+BREADTH_GOLDEN = {
+    'lj96': [
+        [0.0, 1.0, -1.10851734218, -1.10851734218, 0.0, -0.222544426775],
+        [1.0, 1.00025254968, -1.10889036676, -1.10889036676, 0.0,
+         -0.222358850888],
+        [2.0, 1.00063315375, -1.10973492161, -1.10973492161, 0.0,
+         -0.222220437058],
+        [3.0, 1.00114668601, -1.11133886819, -1.11133886819, 0.0,
+         -0.222288708271],
+        [4.0, 1.00179065953, -1.11256910708, -1.11256910708, 0.0,
+         -0.22191608249],
+        [5.0, 1.00255901587, -1.11426632229, -1.11426632229, 0.0,
+         -0.221578175859],
+    ],
+    'ljsmooth': [
+        [0.0, 1.0, -1.43481747764, -1.43481747764, 0.0, -0.445534732454],
+        [1.0, 1.00056237752, -1.43564794263, -1.43564794263, 0.0,
+         -0.44537992762],
+        [2.0, 1.0014390293, -1.43747995562, -1.43747995562,
+         0.0, -0.44510099716],
+        [3.0, 1.00262872047, -1.44084910233, -1.44084910233, 0.0,
+         -0.444693170175],
+        [4.0, 1.00412945481, -1.44360282863, -1.44360282863, 0.0,
+         -0.444149537204],
+        [5.0, 1.00593840786, -1.44734917959, -1.44734917959, 0.0,
+         -0.443461397888],
+    ],
+    'ljsmoothlin': [
+        [0.0, 1.0, -1.00832341342, -1.00832341342, 0.0, -0.381421060745],
+        [1.0, 1.00054645501, -1.00913035163, -1.00913035163, 0.0,
+         -0.381329855936],
+        [2.0, 1.0013926758, -1.01037993666, -1.01037993666, 0.0,
+         -0.381167602454],
+        [3.0, 1.00253790504, -1.01207111943, -1.01207111943, 0.0,
+         -0.380934123546],
+        [4.0, 1.00398077791, -1.01420192583, -1.01420192583, 0.0,
+         -0.380620183981],
+        [5.0, 1.0057191701, -1.01676919386, -1.01676919386, 0.0,
+         -0.380213440376],
+    ],
+    'ufm': [
+        [0.0, 1.0, 2.33083795588, 2.33083795588, 0.0, 1.17903275219],
+        [1.0, 0.999739349277, 2.3312228395, 2.3312228395, 0.0, 1.17897075068],
+        [2.0, 0.999353737117, 2.3324563221, 2.3324563221, 0.0, 1.1793590721],
+        [3.0, 0.998823608116, 2.33522597971, 2.33522597971,
+         0.0, 1.18069901161],
+        [4.0, 0.998150041348, 2.33687421207, 2.33687421207,
+         0.0, 1.18101429841],
+        [5.0, 0.997345479155, 2.33872206343, 2.33872206343,
+         0.0, 1.18129276843],
+    ],
+    'beck': [
+        [0.0, 1.0, -0.343736969178, -0.343736969178, 0.0, 0.128161197431],
+        [1.0, 1.00008191671, -0.343857900226, -0.343857900226, 0.0,
+         0.128165404183],
+        [2.0, 1.00020638906, -0.344118403892, -0.344118403892, 0.0,
+         0.128125588518],
+        [3.0, 1.00037559406, -0.344597956316, -0.344597956316, 0.0,
+         0.127994288834],
+        [4.0, 1.00058992857, -0.344990149319, -0.344990149319, 0.0,
+         0.127954175527],
+        [5.0, 1.00084910258, -0.345525518419, -0.345525518419, 0.0,
+         0.127866306379],
+    ],
+    'zbl': [
+        [0.0, 10.0, 2709.89288474, 2709.89288474, 0.0, 43695226.344],
+        [1.0, 10.0310875151, 2709.89263144, 2709.89263144, 0.0, 43695236.3428],
+        [2.0, 12.1154176204, 2709.87565607, 2709.87565607, 0.0, 43695226.2252],
+        [3.0, 16.2493455875, 2709.84198832, 2709.84198832, 0.0, 43695196.0379],
+        [4.0, 22.4258690912, 2709.79168522, 2709.79168522, 0.0, 43695145.8732],
+        [5.0, 30.6346419344, 2709.72483103, 2709.72483103, 0.0, 43695075.8683],
+    ],
+    'couldsf': [
+        [0.0, 1.0, -0.620841323336, 0.0, -0.620841323336, 0.236791717932],
+        [1.0, 1.00003030179, -0.620886066396, 0.0, -0.620886066396,
+         0.236787556325],
+        [2.0, 1.00005610758, -0.620924121983, 0.0, -0.620924121983,
+         0.236781021482],
+        [3.0, 1.00007760095, -0.620955812944, 0.0, -0.620955812944,
+         0.236767285708],
+        [4.0, 1.00009499973, -0.620981489547, 0.0, -0.620981489547,
+         0.236746971323],
+        [5.0, 1.00010849638, -0.621001403623, 0.0, -0.621001403623,
+         0.236721341802],
+    ],
+    'coulwolf': [
+        [0.0, 1.0, -0.58980503807, 0.0, -0.58980503807, 0.236791713798],
+        [1.0, 1.00003030183, -0.58987561584, 0.0, -0.58987561584,
+         0.236787552196],
+        [2.0, 1.00005610771, -0.589950300881, 0.0, -0.589950300881,
+         0.23678101731],
+        [3.0, 1.0000776012, -0.590040283627, 0.0, -0.590040283627,
+         0.23676728139],
+        [4.0, 1.00009500013, -0.590144463389, 0.0, -0.590144463389,
+         0.236746966983],
+        [5.0, 1.00010849697, -0.590260220134, 0.0, -0.590260220134,
+         0.23672133745],
+    ],
+    'ljdsf': [
+        [0.0, 1.0, -2.04384109409, -1.42299977076, -0.620841323336,
+         -0.511933877009],
+        [1.0, 1.00059594247, -2.04417782702, -1.42329164924, -0.620886177774,
+         -0.511537895069],
+        [2.0, 1.00151170179, -2.04521311528, -1.42428851739, -0.620924597892,
+         -0.511225165566],
+        [3.0, 1.00275918595, -2.04255929116, -1.42160231978, -0.620956971374,
+         -0.508429943744],
+        [4.0, 1.00434913691, -2.04302593566, -1.42204219348, -0.620983742187,
+         -0.507120821117],
+        [5.0, 1.00627069508, -2.04060334217, -1.41959805883, -0.621005283347,
+         -0.503775831543],
+    ],
+    'ljwolf': [
+        [0.0, 1.0, -1.82098700494, -1.23118196687, -0.58980503807,
+         -0.4332919483],
+        [1.0, 1.00067804433, -1.82201820665, -1.23213224166, -0.589885964991,
+         -0.433373276841],
+        [2.0, 1.00171729194, -1.82385416598, -1.23387942005, -0.589974745929,
+         -0.433640656949],
+        [3.0, 1.00312586495, -1.82677958526, -1.23669100099, -0.590088584274,
+         -0.434251808558],
+        [4.0, 1.00490464067, -1.82975448138, -1.23953989481, -0.590214586574,
+         -0.434587387957],
+        [5.0, 1.00705227612, -1.83355052668, -1.24319416314, -0.59035636354,
+         -0.4350933882],
+    ],
+    'hybover': [
+        [0.0, 1.0, -2.06485785659, -1.44401653326, -0.620841323336,
+         -0.522496943896],
+        [1.0, 1.00058016947, -2.0657145791, -1.44482839713, -0.620886181974,
+         -0.522403537259],
+        [2.0, 1.00144843413, -2.06730391051, -1.44637929738, -0.620924613132,
+         -0.522422213498],
+        [3.0, 1.00261133297, -2.06994087139, -1.44898386691, -0.620957004479,
+         -0.522735640256],
+        [4.0, 1.00406728088, -2.07239440899, -1.45141060926, -0.620983799725,
+         -0.522610105358],
+        [5.0, 1.0058107228, -2.07558079595, -1.45457542217, -0.621005373782,
+         -0.522575958342],
+    ],
+    'hybrid': [
+        [0.0, 1.0, -4.10034071088, -4.10034071088, 0.0, -1.15570855624],
+        [1.0, 1.00074417167, -4.09328778374, -4.09328778374, 0.0,
+         -1.15207997336],
+        [2.0, 1.0018520244, -4.10336055223, -4.10336055223,
+         0.0, -1.15550526127],
+        [3.0, 1.00325827677, -4.10229855191, -4.10229855191, 0.0,
+         -1.15394295606],
+        [4.0, 1.00504132107, -4.10930683543, -4.10930683543, 0.0,
+         -1.15538732096],
+        [5.0, 1.00720041639, -4.10499288224, -4.10499288224,
+         0.0, -1.1516574505],
+    ],
+    'hybmix': [
+        [0.0, 1.0, -2.56277252437, -2.56277252437, 0.0, -0.0316272799458],
+        [1.0, 0.999616493769, -2.56220626023, -2.56220626023, 0.0,
+         -0.0315542343822],
+        [2.0, 0.999032163694, -2.56134343918, -2.56134343918, 0.0,
+         -0.0314735784458],
+        [3.0, 0.998247300826, -2.5601844905, -2.5601844905, 0.0,
+         -0.0313857204259],
+        [4.0, 0.997262474439, -2.55873025419, -2.55873025419, 0.0,
+         -0.0312912119941],
+        [5.0, 0.996078536935, -2.55698198826, -2.55698198826, 0.0,
+         -0.0311907462789],
+    ],
+    'borndsf': [
+        [0.0, 1.0, 0.592441002597, 1.21328236779, -0.620841365197,
+         0.640916643464],
+        [1.0, 0.999927797783, 0.591897339743, 1.21278343735, -0.620886097603,
+         0.640490981723],
+        [2.0, 0.999781318144, 0.592073855842, 1.21299797277, -0.620924116932,
+         0.640212652551],
+        [3.0, 0.999546232291, 0.586015273337, 1.20697101153, -0.620955738189,
+         0.637062415446],
+        [4.0, 0.999209328469, 0.583920481214, 1.20490177928, -0.620981298062,
+         0.63564140403],
+        [5.0, 0.998780876364, 0.576888879842, 1.19788991694, -0.621001037094,
+         0.631896069717],
+    ],
+    'bornwolf': [
+        [0.0, 1.0, 0.623477329724, 1.21328236779, -0.58980503807,
+         0.640916643464],
+        [1.0, 0.999927797783, 0.622907835414, 1.21278343735, -0.589875601933,
+         0.640490981723],
+        [2.0, 0.999781318144, 0.623047749934, 1.21299797277, -0.589950222839,
+         0.640212652551],
+        [3.0, 0.999546232291, 0.616930944398, 1.20697101153, -0.590040067128,
+         0.637062415446],
+        [4.0, 0.999209328469, 0.614757749521, 1.20490177928, -0.590144029755,
+         0.63564140403],
+        [5.0, 0.998780876364, 0.607630524401, 1.19788991694, -0.590259392535,
+         0.631896069717],
+    ],
+    'bucklong': [
+        [0.0, 1.0, 28.1079554395, 28.9281580226, -0.0226758552563,
+         9.05390201464],
+        [1.0, 0.997648721184, 28.1114282069, 28.9317318275, -0.0227117412837,
+         9.05335678808],
+        [2.0, 0.994331680531, 28.1312588766, 28.9516942874, -0.0227653950795,
+         9.05916099863],
+        [3.0, 0.989803595978, 28.1826615519, 29.0032589311, -0.0228368025403,
+         9.07805014336],
+        [4.0, 0.984105194842, 28.2058644612, 29.026652203, -0.0229249955975,
+         9.08322204009],
+        [5.0, 0.97743473188, 28.2305594281, 29.0515649715, -0.0230299363399,
+         9.08809008563],
+    ],
+}
+
+
+def breadth_input(case):
+    """scripts/gen_breadth_goldens.py make_input's script of a case."""
+    units, dt, pair_lines = BREADTH_CASES[case][:3]
+    data = BREADTH_CASES[case][3] if len(BREADTH_CASES[case]) > 3 \
+        else "data.breadth"
+    return "\n".join([
+        f"units {units}", "atom_style charge", f"read_data {data}",
+        *pair_lines, "neighbor 0.3 bin",
+        f"velocity all create {'1.0' if units == 'lj' else '10.0'} 87287 "
+        "loop geom", f"timestep {dt}", "fix 1 all nve", "thermo 1",
+        "thermo_style custom step temp pe evdwl ecoul press",
+        "thermo_modify format float %.12g", "run 5"]) + "\n"
+
+
+def breadth_golden_phases():
+    """tests/test_pair_breadth2.py's 16 GOLDEN cases through LammpsScript
+    in float64 on the card, each row at that test's bars (rel 2e-6, abs
+    5e-8) of the LAMMPS rows."""
+    import torch
+
+    from lidp_tpu_torch.io.script import LammpsScript
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_breadth_")
+    try:
+        write_breadth_data(os.path.join(work, "data.breadth"))
+        write_breadth_data(os.path.join(work, "data.breadth1"), one_type=True)
+        worst_all = 0.0
+        for case, ref in BREADTH_GOLDEN.items():
+            path = os.path.join(work, f"in.{case}")
+            with open(path, "w") as fh:
+                fh.write(breadth_input(case))
+            s = LammpsScript(dtype=torch.float64, log=lambda line: None)
+            s.file(path)
+            got = {int(r["step"]): r for r in s.thermo_rows}
+            worst = 0.0
+            for row in ref:
+                r = got[int(row[0])]
+                for name, g in zip(("temp", "pe", "evdwl", "ecoul",
+                                    "press"), row[1:]):
+                    bar = max(2e-6 * abs(g), 5e-8)
+                    worst = max(worst, abs(r[name] - g) / bar)
+                    if not abs(r[name] - g) <= bar:
+                        raise AssertionError(
+                            f"golden {case} step {int(row[0])} {name}: "
+                            f"{r[name]!r}, LAMMPS {g!r}")
+            worst_all = max(worst_all, worst)
+            print(f"golden {case} (tests/test_pair_breadth2.py): "
+                  f"{len(ref)} rows at {worst:.3g} of that test's bars")
+        print(f"breadth goldens: {len(BREADTH_GOLDEN)} cases on the card, "
+              f"the worst at {worst_all:.3g} of the bars")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def pair_term_calls(sim):
+    """The pair term of sim's state, each pass compute_forces makes: the
+    pair table's and each hybrid sub-style's (cell_pair_forces on the
+    grid, dense_pair_forces on the dense route) and the DPD pairs; label
+    -> a callable."""
+    from lidp_tpu_torch.ops.cells import cell_pair_forces
+    from lidp_tpu_torch.ops.dpd import dpd_forces
+    from lidp_tpu_torch.ops.pair import dense_pair_forces
+
+    s, ff = sim.sys, sim.runner.ff
+    calls = {}
+    pairs = ((ff.pair,) if ff.pair is not None else ()) + ff.extra_pairs
+    for k, p in enumerate(pairs):
+        tag = f"{p.kind}/{p.coul_kind if p.coul else 'no coul'}"
+        if sim.nlist is None:
+            sp = ff.sp_code if ff.sp_code is not None else 0
+            calls[f"dense_pair_forces[{k}: {tag}]"] = (
+                lambda p=p, sp=sp: dense_pair_forces(
+                    s.x, s.q, s.type, sp, s.mask, s.box, p, mol=s.mol))
+        else:
+            calls[f"cell_pair_forces[{k}: {tag}]"] = (
+                lambda p=p: cell_pair_forces(s.x, s.q, s.type, s.mask,
+                                             sim.nlist.nlist, s.box, p,
+                                             mol=s.mol))
+    if ff.dpd is not None:
+        calls["dpd_forces"] = lambda: dpd_forces(
+            s.x, s.v, s.type, s.mask, s.box, ff.dpd, s.step,
+            sp_code=ff.sp_code)
+    return calls
+
+
+def pair_readings(path, sim):
+    """A path's pair passes (pair_term_calls) and its k-space term timed
+    on its final state by CUDA events after a warm-up, ms a call."""
+    from lidp_tpu_torch.ops.pppm import pppm_forces_params
+
+    s, ff = sim.sys, sim.runner.ff
+    calls = pair_term_calls(sim)
+    if ff.pppm is not None:
+        calls["pppm_forces_params"] = lambda: pppm_forces_params(
+            s.x - s.box.lo, s.q, s.box.lengths, ff.pppm)
+    parts = [f"{label} {cuda_ms(fn, reps=3, warmup=1):.4f}"
+             for label, fn in calls.items()]
+    print(f"path {path} ms a call by CUDA events on its final state: "
+          + ", ".join(parts) + f"; {smi_line()}")
+
+
+def pair_path(path, work, name, text, steps, cells, launches, reset_counts,
+              read_counts, cols, record=True):
+    """One pair-style path: `text` (written to work/name) through
+    LammpsScript in float64 on the card for `steps` steps; its launches
+    (0 in every counter; kept as launches[path] where `record`), route
+    (the cell grid through cell_pair_forces with no overflow, or the dense
+    route), log, finite rows, steps/s by the Loop time line and peak
+    memory.  Returns the script."""
+    import torch
+
+    from lidp_tpu_torch.forcefield import pair_route
+    from lidp_tpu_torch.io.script import LammpsScript
+
+    with open(os.path.join(work, name), "w") as fh:
+        fh.write(text)
+    logs = []
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    script = LammpsScript(dtype=torch.float64, log=logs.append)
+    script.variables["nstep"] = str(steps)
+    script.file(os.path.join(work, name))
+    counts = read_counts()
+    if record:
+        launches[path] = counts
+    peak = torch.cuda.max_memory_allocated()
+    check_counts(path, counts, {})
+    sim = script._sim
+    print(f"path {path}: {sim.natoms} atoms, float64, {steps} steps: "
+          f"{script_route(script)}; its log (rows 0-2 and the last):")
+    rows_seen = 0
+    for line in logs:
+        is_row = line.split()[:1] and line.split()[0].isdigit()
+        rows_seen += bool(is_row)
+        if not is_row or rows_seen <= 3 or rows_seen == steps + 1:
+            print(f"  {path}| {line}")
+    on_cells = sim.runner.neighbor_cfg is not None
+    if on_cells != cells or (cells and (
+            pair_route(sim.sys, sim.runner.ff, sim.nlist.nlist)
+            != "cell_pair_forces" or bool(sim.nlist.overflow))):
+        raise AssertionError(f"path {path}: {script_route(script)}")
+    rows = script.thermo_rows
+    if len(rows) != steps + 1:
+        raise AssertionError(f"path {path}: {len(rows)} rows")
+    check_rows_finite(path, rows, cols)
+    if steps > 1:
+        script_peak(path, logs, steps, peak)
+    return script
+
+
+def pair_style_paths(launches, reset_counts, read_counts):
+    """Paths AO, AP, AQ and AR and the breadth goldens (module
+    docstring).  Each path sets launches[path]."""
+    import torch
+
+    from lidp_tpu_torch.forcefield import compute_forces
+    from lidp_tpu_torch.io.data_writer import write_data
+    from lidp_tpu_torch.io.script import LammpsScript
+    from lidp_tpu_torch.ops import dpd as dpd_ops
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_pairs_")
+    try:
+        args = (launches, reset_counts, read_counts)
+        # AO: the NaCl melt on the cell grid; its state against the CPU
+        write_data(os.path.join(work, "nacl.data"), nacl_layout(NACL_SIDE))
+        s = pair_path("AO", work, "in.ao", NACL_SCRIPT.format(
+            data="nacl.data", pair=nacl_born_pair()), NACL_STEPS, True,
+            *args, NACL_COLS)
+        rows_ao = s.thermo_rows
+        pair_readings("AO", s._sim)
+        ks_state_check("AO", s._sim)
+        del s
+        # AP: the same physics as hybrid/overlay, two masked passes
+        s = pair_path("AP", work, "in.ap", NACL_SCRIPT.format(
+            data="nacl.data", pair=nacl_born_pair(overlay=True)), AP_STEPS,
+            True, *args, NACL_COLS)
+        worst = rows_agree("AP", s.thermo_rows, rows_ao[:AP_STEPS + 1],
+                           [1e-10] * (AP_STEPS + 1), cols=NACL_COLS)
+        print(f"path AP: rows 0-{AP_STEPS} equal AO's at {worst:.3g} of "
+              "their bar (rel 1e-10 of max(1, |value|))")
+        pair_readings("AP", s._sim)
+        del s, rows_ao
+        # AO at 10^3 cells (8,000 ions, still the cell grid): rows 0-1
+        # against its CPU twin
+        write_data(os.path.join(work, "nacl8k.data"),
+                   nacl_layout(NACL_TWIN_SIDE))
+        s = pair_path("AO-8k", work, "in.ao8k", NACL_SCRIPT.format(
+            data="nacl8k.data", pair=nacl_born_pair()), 1, True, *args,
+            NACL_COLS, record=False)
+        defer_twin("AO-8k", work, "in.ao8k", 1,
+                   twin_check("AO-8k", run_state(s), NACL_COLS), threads=2,
+                   cost=60.0)
+        del s
+        torch.cuda.empty_cache()
+
+        # AQ: examples/melt through pair_write and pair_style table
+        lj = LammpsScript(dtype=torch.float64, log=lambda line: None)
+        with open(os.path.join(work, "in.aq_lj"), "w") as fh:
+            fh.write(table_melt_script(
+                "pair_style\tlj/cut 2.5\npair_coeff\t1 1 1.0 1.0 2.5"))
+        lj.variables["nstep"] = "0"
+        lj.file(os.path.join(work, "in.aq_lj"))
+        lj.one(f"pair_write 1 1 {AQ_N} r 0.8 2.5 lj.table LJ11")
+        s = pair_path("AQ", work, "in.aq", table_melt_script(
+            f"pair_style table linear {AQ_N}\n"
+            "pair_coeff 1 1 lj.table LJ11 2.5"), AQ_STEPS, False, *args,
+            MELT_COLS)
+        # E_pair at step 0; the forces on AQ's final state (the lattice's
+        # own are zero by symmetry), the table's against lj/cut's there
+        de = abs(s.thermo_rows[0]["epair"] - lj.thermo_rows[0]["epair"])
+        f_tab = s._sim.res.f
+        f_lj = compute_forces(s._sim.sys, lj._sim.runner.ff).f
+        df = float((f_tab - f_lj).abs().max() / f_lj.abs().max())
+        if not (de < 2e-5 and df < 1e-3):
+            raise AssertionError(f"path AQ against lj/cut: E_pair {de:.3e} "
+                                 f"at step 0, f {df:.3e} of max |f| at step "
+                                 f"{AQ_STEPS}")
+        fmax = float(f_lj.abs().max())
+        print(f"path AQ against path M's lj/cut: E_pair {de:.3e} at step 0 "
+              f"(bar 2e-5), f {df:.3e} of max |f| ({fmax:.4g}) at step "
+              f"{AQ_STEPS} (bar 1e-3; tests/test_pair_table.py's round "
+              "trip)")
+        pair_readings("AQ", s._sim)
+        defer_twin("AQ", work, "in.aq", PAIR_TWIN_STEPS,
+                   twin_check("AQ", run_state(s), MELT_COLS), threads=2,
+                   cost=30.0)
+        del s, lj, f_tab, f_lj
+        torch.cuda.empty_cache()
+
+        # AR: a Groot-Warren DPD fluid, sum f = 0 at every evaluation
+        write_data(os.path.join(work, "dpd.data"), dpd_layout(DPD_N, DPD_L))
+        with open(os.path.join(work, "in.ar"), "w") as fh:
+            fh.write(DPD_SCRIPT)
+        sums = []
+        plain = dpd_ops.dpd_forces
+
+        def summed(*a, **k):
+            out = plain(*a, **k)
+            f = out[0]
+            sums.append(f.sum(0).abs().max() / f.abs().max())
+            return out
+
+        dpd_ops.dpd_forces = summed
+        try:
+            s = pair_path("AR", work, "in.ar", DPD_SCRIPT, DPD_STEPS, False,
+                          *args, DPD_COLS)
+        finally:
+            dpd_ops.dpd_forces = plain
+        worst = float(torch.stack(sums).max())
+        # every step's evaluation, and the energy re-tally at each thermo
+        # row's chunk end (integrate/driver.py _run_chunk)
+        if len(sums) < DPD_STEPS + 1 or not worst <= DPD_SUM_BAR:
+            raise AssertionError(f"path AR: {len(sums)} evaluations, |sum "
+                                 f"f| up to {worst:.3e} of max |f|")
+        print(f"path AR: |sum of f| at most {worst:.3e} of max |f| over its "
+              f"{len(sums)} evaluations (bar {DPD_SUM_BAR:g})")
+        pair_readings("AR", s._sim)
+        defer_twin("AR", work, "in.ar", PAIR_TWIN_STEPS,
+                   twin_check("AR", run_state(s), DPD_COLS), threads=2,
+                   cost=30.0)
+        del s
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    breadth_golden_phases()
 
 
 def main() -> int:
@@ -7712,6 +8449,7 @@ def main() -> int:
     compute_paths(launches, reset_counts, read_counts, rowsH32,
                   launches["G"])
     kspace_paths(launches, reset_counts, read_counts)
+    pair_style_paths(launches, reset_counts, read_counts)
     run_twins()
 
     # 6. results

@@ -1,7 +1,7 @@
 """Carry force-field tables and state across from the JAX package.
 
 The caller hands over the fields of lidp_tpu's dataclasses (PairParams,
-EwaldParams, PPPMParams, Ewald6Params, PPPMDispParams, MSMParams,
+DPDParams, EwaldParams, PPPMParams, Ewald6Params, PPPMDispParams, MSMParams,
 TIP4PParams, PolarizationSettings, System, Cells, SlotCarry,
 RigidSetup, RigidState, NVTState, NPTState, the bonded params and
 ShakeParams) as numpy arrays or scalars, e.g.
@@ -27,7 +27,7 @@ from lidp_tpu_torch.integrate.slot_runner import SlotCarry
 from lidp_tpu_torch.ops.cells import Cells
 from lidp_tpu_torch.ops.ewald import Ewald6Params, EwaldParams
 from lidp_tpu_torch.ops.msm import MSMParams
-from lidp_tpu_torch.ops.pair import PairParams
+from lidp_tpu_torch.ops.pair import COUL_KINDS, KINDS, PairParams
 from lidp_tpu_torch.ops.polarization import PolarizationSettings
 from lidp_tpu_torch.ops.pppm import PPPMDispParams, PPPMParams
 from lidp_tpu_torch.ops.tip4p import TIP4PParams
@@ -50,53 +50,42 @@ def _given(d: dict, k):
     return v
 
 
-_KINDS = ("lj", "lj/long", "buck/long")
-_COUL_KINDS = ("long", "charmm", "msm")
-
-
 def pair_from_numpy(pair: dict, device="cuda",
                     dtype=torch.float32) -> PairParams:
-    """The port's PairParams from a numpy copy of the JAX one: lj/cut
-    (coul=False), lj/cut/coul/long or the lj/charmm styles (the charmm
-    switch, coul_kind long, charmm or msm with its msm_order), the long
+    """The port's PairParams from a numpy copy of the JAX one, every kind
+    and coulomb kind of ops/pair.py: lj/cut (coul=False), lj/cut/coul/long
+    or the lj/charmm styles (lj3, lj4, the charmm switch); the long
     dispersion kinds lj/long (lj3, lj4 as they are) and buck/long (the JAX
-    tables lj1 = A, lj2 = 1/rho, lj3 = C become lj3, rhoinv and lj4), both
-    with the g6 of their lj5 table, and excl_mol and the type exclusion
-    table excl.  A table that asks for another form raises."""
+    tables lj1 = A, lj2 = 1/rho, lj3 = C become lj3, rhoinv and lj4),
+    both with the g6 of their lj5 table; the generic kinds with their
+    tables lj1..lj5 as they are; the table (tab_e, tab_f, tab_rlo,
+    tab_dr); the coulomb kinds with their scalars (msm_order, the charmm
+    switch, the dsf/wolf shifts, gromacs's coulsw); and excl_mol and the
+    type exclusion table excl.  CHARMM force switching (charmm_fsw) and a
+    kind or coulomb kind the JAX package does not have raise."""
     from lidp_tpu_torch import resolve_device
 
     device = resolve_device(device)
     coul = bool(_scalar(pair.get("coul", True)))
-    # the fields the port cannot express: charmm force switching and the
-    # tabulated pair
-    for k, given in (("charmm_fsw", bool(_scalar(pair.get("charmm_fsw",
-                                                          False)))),
-                     ("tab_e", _given(pair, "tab_e") is not None)):
-        if given:
-            raise NotImplementedError(
-                f"pair field {k} is not ported (ROADMAP queue 1 item 6.9, "
-                "the other pair styles)")
+    if bool(_scalar(pair.get("charmm_fsw", False))):
+        raise NotImplementedError(
+            "pair field charmm_fsw (lj/charmmfsw/*) is not ported (ROADMAP "
+            "queue 1 item 6.6, the CHARMM family)")
     kind = str(_scalar(pair.get("kind", "lj")))
     coul_kind = str(_scalar(pair.get("coul_kind", "long"))) if coul \
         else "long"
-    for field, val, ok in (("kind", kind, _KINDS),
-                           ("coul_kind", coul_kind, _COUL_KINDS)):
-        if val not in ok:
-            raise NotImplementedError(
-                f"pair field {field}={val!r} is not ported (ROADMAP queue "
-                "1 item 6.9, the other pair styles)")
-    g6 = 1.0
+    if kind not in KINDS:
+        raise NotImplementedError(f"pair field kind={kind!r}: no van der "
+                                  "Waals kind of the JAX package")
+    if coul_kind not in COUL_KINDS:
+        # charmm/implicit and charmmfsh, the rest of the CHARMM family
+        raise NotImplementedError(
+            f"pair field coul_kind={coul_kind!r} is not ported (ROADMAP "
+            "queue 1 item 6.6, the CHARMM family)")
     lj5 = _given(pair, "lj5")
     if kind == "lj" and lj5 is not None:
-        raise NotImplementedError(
-            "pair field lj5 is not ported with kind 'lj' (ROADMAP queue 1 "
-            "item 6.9, the other pair styles)")
-    if kind != "lj":
-        # the JAX package fills the whole table with the global g6
-        lj5 = np.asarray(lj5, float)
-        g6 = float(lj5.flat[0])
-        if not np.all(lj5 == g6):
-            raise ValueError("the long kinds' lj5 table is not one g6")
+        raise ValueError("pair field lj5 with kind 'lj': the JAX package "
+                         "builds no such table")
 
     def f(k, default):
         v = _given(pair, k)
@@ -107,12 +96,26 @@ def pair_from_numpy(pair: dict, device="cuda",
 
     tabs = {k: t(pair[k]) for k in ("lj3", "lj4", "offset", "cut_ljsq",
                                     "cutsq", "special_lj", "special_coul")}
-    rhoinv = None
-    if kind == "buck/long":
-        tabs["lj3"], tabs["lj4"] = t(pair["lj1"]), t(pair["lj3"])
-        rhoinv = t(pair["lj2"])
+    extra = {}
+    g6 = 1.0
+    if kind in ("lj/long", "buck/long"):
+        # the JAX package fills the whole table with the global g6
+        lj5 = np.asarray(lj5, float)
+        g6 = float(lj5.flat[0])
+        if not np.all(lj5 == g6):
+            raise ValueError("the long kinds' lj5 table is not one g6")
+        if kind == "buck/long":
+            tabs["lj3"], tabs["lj4"] = t(pair["lj1"]), t(pair["lj3"])
+            extra["rhoinv"] = t(pair["lj2"])
+    elif kind == "table":
+        extra.update(tab_e=t(pair["tab_e"]), tab_f=t(pair["tab_f"]),
+                     tab_rlo=f("tab_rlo", 0.0), tab_dr=f("tab_dr", 1.0))
+    elif kind != "lj":
+        extra.update(lj1=t(pair["lj1"]), lj2=t(pair["lj2"]),
+                     lj5=None if lj5 is None else t(lj5))
+    coulsw = _given(pair, "coulsw")
     return PairParams(
-        **tabs,
+        **tabs, **extra,
         cut_coulsq=float(_scalar(pair["cut_coulsq"])),
         qqrd2e=float(_scalar(pair["qqrd2e"])),
         g_ewald=float(_scalar(pair["g_ewald"])), coul=coul,
@@ -122,8 +125,26 @@ def pair_from_numpy(pair: dict, device="cuda",
         charmm=bool(_scalar(pair.get("charmm", False))),
         cut_lj_innersq=f("cut_lj_innersq", 0.0), denom_lj=f("denom_lj", 1.0),
         coul_kind=coul_kind, cut_coul_innersq=f("cut_coul_innersq", 0.0),
-        denom_coul=f("denom_coul", 1.0), kind=kind, g6=g6, rhoinv=rhoinv,
-        msm_order=int(_scalar(pair.get("msm_order", 10))))
+        denom_coul=f("denom_coul", 1.0), kind=kind, g6=g6,
+        msm_order=int(_scalar(pair.get("msm_order", 10))),
+        coul_eshift=f("coul_eshift", 0.0), coul_fshift=f("coul_fshift", 0.0),
+        coulsw=(None if coulsw is None
+                else tuple(float(v) for v in np.asarray(coulsw))))
+
+
+def dpd_from_numpy(d: dict, device="cuda", dtype=torch.float64):
+    """The port's ops.dpd.DPDParams from a numpy copy of the JAX one (its
+    tables in `dtype`, dtinvsqrt a Python float, seed and tstat as they
+    are)."""
+    from lidp_tpu_torch import resolve_device
+    from lidp_tpu_torch.ops.dpd import DPDParams
+
+    device = resolve_device(device)
+    return DPDParams(
+        **{k: torch.as_tensor(np.array(d[k]), dtype=dtype, device=device)
+           for k in ("a0", "gamma", "sigma", "cut", "cutsq", "special_lj")},
+        dtinvsqrt=float(_scalar(d["dtinvsqrt"])),
+        seed=int(_scalar(d["seed"])), tstat=bool(_scalar(d["tstat"])))
 
 
 def forcefield_from_numpy(pair: dict, ewald: dict, polar: dict, qqrd2e,

@@ -17,8 +17,12 @@ The k-space breadth follows the JAX package's order: the TIP4P
 charge-site coulomb (ops/tip4p.py) after the pair term, the charge
 k-space on the charge sites with its forces redistributed, then MSM
 (ops/msm.py), the pppm/disp dispersion mesh and the ewald/disp dispersion
-sum, each into E_long and the virial.  Neighbour lists (ROADMAP queue 1
-item 5) raise NotImplementedError.
+sum, each into E_long and the virial.  The pair term is that of
+`pair`, then of each hybrid sub-style in `extra_pairs` (one masked pass
+each, with its own special correction on the cell grid; the dsf and wolf
+kinds' self energy into E_coul when energies are asked for), then the DPD
+term (ops/dpd.py), as in the JAX package.  Neighbour lists (ROADMAP queue
+1 item 5) raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -88,6 +92,13 @@ class ForceField:
     pppm_disp: Optional[object] = None
     # the multilevel summation (kspace_style msm; ops.msm.MSMParams)
     msm: Optional[object] = None
+    # pair_style hybrid and hybrid/overlay: the sub-styles after the first
+    # (`pair`), one masked pass each, their unassigned type pairs excluded
+    # by their excl tables
+    extra_pairs: tuple = ()
+    # pair_style dpd and dpd/tstat (ops.dpd.DPDParams), with `pair` None:
+    # the dense (N,N) pass at every size
+    dpd: Optional[object] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -198,6 +209,7 @@ def pair_route(sys, ff, cells) -> str:
                 else "eam_cell_forces")
     p = ff.pair
     ok = (supported(p, p.lj3.shape[0] - 1 > 1, p.coul)
+          and not ff.extra_pairs and ff.dpd is None
           and p.excl is None and not p.excl_mol
           and ff.sp_idx is None and sys.x.dtype == torch.float32
           and not sys.box.triclinic and all(sys.box.periodic)
@@ -225,6 +237,7 @@ def compute_forces(sys, ff: ForceField, nlist=None,
     polarization term compute theirs always, as in the JAX package."""
     from lidp_tpu_torch.ops.bonded import special_correction_sparse
     from lidp_tpu_torch.ops.cell_kernels import cell_pair_forces_lj
+    from lidp_tpu_torch.ops.pair import dsf_wolf_self_energy
     from lidp_tpu_torch.ops.cells import Cells, cell_pair_forces
     from lidp_tpu_torch.ops.eam import eam_alloy_cell_forces, eam_cell_forces
 
@@ -244,24 +257,55 @@ def compute_forces(sys, ff: ForceField, nlist=None,
         f, ev, vir = eam_cell_forces(sys.x, sys.mask, nlist, sys.box, ff.eam,
                                      need_ev=need_ev)
         ec = ev.new_zeros(())
-    elif route == "cell_pair_forces_lj":
-        f, ev, ec, vir = cell_pair_forces_lj(
-            sys.x, sys.mask, nlist, sys.box, ff.pair, need_ev=need_ev)
     else:
-        f, ev, ec, vir = cell_pair_forces(
-            sys.x, sys.q, sys.type, sys.mask, nlist, sys.box, ff.pair,
-            need_ev=need_ev, mol=sys.mol)
-    if ff.sp_idx is not None and not ff.pair.excl_mol:
-        fc, dev, dec, dvir = special_correction_sparse(
-            sys.x, sys.q, sys.type, ff.sp_idx, ff.sp_lvl, sys.mask, sys.box,
-            ff.pair)
-        f, ev, ec, vir = f + fc, ev + dev, ec + dec, vir + dvir
+        # the pair table, then each hybrid sub-style: one masked pass
+        # each, its special correction and the dsf/wolf self energy
+        total = None
+        for p in (ff.pair,) + tuple(ff.extra_pairs):
+            if p is ff.pair and route == "cell_pair_forces_lj":
+                out = cell_pair_forces_lj(sys.x, sys.mask, nlist, sys.box, p,
+                                          need_ev=need_ev)
+            else:
+                out = cell_pair_forces(sys.x, sys.q, sys.type, sys.mask,
+                                       nlist, sys.box, p, need_ev=need_ev,
+                                       mol=sys.mol)
+            if ff.sp_idx is not None and not p.excl_mol:
+                out = [a + b for a, b in zip(out, special_correction_sparse(
+                    sys.x, sys.q, sys.type, ff.sp_idx, ff.sp_lvl, sys.mask,
+                    sys.box, p))]
+            out = list(out)
+            if need_ev and has_self_energy(p):
+                out[2] = out[2] + dsf_wolf_self_energy(p, sys.q, sys.mask)
+            total = out if total is None else [a + b for a, b in
+                                               zip(total, out)]
+        f, ev, ec, vir = total
+    f, ev, vir = dpd_term(sys, ff, f, ev, vir, need_ev)
     f, ec, vir = tip4p_term(sys, ff, f, ec, vir)
     f, ev, ec, vir, bonded = bonded_terms(sys, ff, f, ev, ec, vir)
     if all(getattr(ff, k) is None for k in ("ewald", "pppm", "polar", "msm",
                                             "pppm_disp", "ewald6")):
         return pair_only_result(sys, f, ev, ec, vir, bonded)
     return _long_range_terms(sys, ff, f, ev, ec, vir, bonded)
+
+
+def has_self_energy(p) -> bool:
+    """Whether a pair table's coulomb kind tallies a self energy into
+    E_coul (dsf and wolf: ops/pair.py dsf_wolf_self_energy)."""
+    return p.coul and p.coul_kind in ("dsf", "wolf")
+
+
+def dpd_term(sys, ff: ForceField, f, evdwl, virial, need_ev: bool = True):
+    """The DPD pairs (ops/dpd.py dpd_forces at the System's step, with the
+    special codes) added to f, evdwl and virial; they pass through
+    without ff.dpd."""
+    if ff.dpd is None:
+        return f, evdwl, virial
+    from lidp_tpu_torch.ops.dpd import dpd_forces
+
+    fd, evd, vird = dpd_forces(sys.x, sys.v, sys.type, sys.mask, sys.box,
+                               ff.dpd, sys.step, sp_code=ff.sp_code,
+                               need_ev=need_ev)
+    return f + fd, evdwl + evd, virial + vird
 
 
 def tip4p_term(sys, ff: ForceField, f, ecoul, virial):
@@ -283,11 +327,13 @@ def tip4p_term(sys, ff: ForceField, f, ecoul, virial):
 
 def dense_forces(sys, ff: ForceField) -> ForceResult:
     """The dense route of lidp_tpu/forcefield.py compute_forces
-    (nlist=None) in its order: the all-pairs LJ + coulomb pass with the
-    special codes, the bonded terms (bonded_terms), then the k-space sum
+    (nlist=None) in its order: the all-pairs pass of the pair style and
+    of each hybrid sub-style with the special codes, the DPD pairs, the
+    TIP4P sites, the bonded terms (bonded_terms), then the k-space sum
     and the polarization term (_long_range_terms).  Plain PyTorch on
     (N,N) tensors: no kernel of ops/panel.py runs here."""
     from lidp_tpu_torch.ops import pair as pair_ops
+    from lidp_tpu_torch.ops.pair import dsf_wolf_self_energy
 
     if ff.eam is not None:
         raise NotImplementedError("pair_style eam requires the cell path")
@@ -296,13 +342,17 @@ def dense_forces(sys, ff: ForceField) -> ForceResult:
     f = torch.zeros_like(x)
     evdwl = ecoul = zero
     virial = x.new_zeros(6)
-    if ff.pair is not None:
-        sp = ff.sp_code if ff.sp_code is not None else 0
+    sp = ff.sp_code if ff.sp_code is not None else 0
+    for p in ((ff.pair,) + tuple(ff.extra_pairs) if ff.pair is not None
+              else ()):
         fp, ev, ec, vir = pair_ops.dense_pair_forces(
-            x, sys.q, sys.type, sp, sys.mask, sys.box, ff.pair, mol=sys.mol)
+            x, sys.q, sys.type, sp, sys.mask, sys.box, p, mol=sys.mol)
+        if has_self_energy(p):
+            ec = ec + dsf_wolf_self_energy(p, sys.q, sys.mask)
         f = f + fp
         evdwl, ecoul = evdwl + ev, ecoul + ec
         virial = virial + vir
+    f, evdwl, virial = dpd_term(sys, ff, f, evdwl, virial)
     f, ecoul, virial = tip4p_term(sys, ff, f, ecoul, virial)
     f, evdwl, ecoul, virial, bonded = bonded_terms(sys, ff, f, evdwl, ecoul,
                                                    virial)

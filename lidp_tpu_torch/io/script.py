@@ -33,7 +33,10 @@ temp, and the walls, indent and move of styles/fix_modifiers.py), and
 the computes and output fixes (compute with the styles of computes.py,
 uncompute, compute_modify, thermo c_ID[i] and v_NAME columns, fix print,
 ave/time, ave/atom, ave/histo, ave/histo/weight, ave/correlate and vector
-of styles/fix_output.py, dump custom c_ID and f_ID columns);
+of styles/fix_output.py, dump custom c_ID and f_ID columns), and the
+other pair styles (the generic styles of styles/pair_builders.py,
+pair_style table with pair_write, hybrid and hybrid/overlay, dpd and
+dpd/tstat, pair_modify tail);
 every other command, style or keyword raises NotImplementedError naming
 itself and the ROADMAP item that ports it, and is never ignored.
 """
@@ -74,13 +77,28 @@ THERMO_KEYWORDS = frozenset((
     "density", "lx", "ly", "lz", "xlo", "ylo", "zlo", "xhi", "yhi", "zhi",
     "xy", "xz", "yz", "atoms", "bonds", "dt"))
 
+# the generic pair styles: one van der Waals kind x coulomb kind
+# (sim.GENERIC_PAIR_KINDS, ops/pair.py generic_vdw)
+GENERIC_STYLES = (
+    "morse", "buck", "buck/coul/cut", "buck/coul/long", "yukawa", "gauss",
+    "soft", "born", "coul/cut", "coul/long", "coul/msm", "coul/debye",
+    "lj/expand", "born/coul/long", "mie/cut", "lj/gromacs", "coul/dsf",
+    "coul/wolf", "born/coul/dsf", "born/coul/wolf", "born/coul/msm",
+    "buck/coul/msm", "lj/gromacs/coul/gromacs", "beck", "zero", "lj96/cut",
+    "lj/smooth/linear", "lj/smooth", "ufm", "zbl", "lj/cubic")
+# lj/cut with the other coulomb kinds (the lj/cut tables)
+LJ_COUL_STYLES = ("lj/cut/coul/cut", "lj/cut/coul/debye", "lj/cut/coul/dsf",
+                  "lj/cut/coul/wolf")
 # pair styles Simulation.from_script builds
 PAIR_STYLES = ("lj/cut", "lj/cut/coul/long", "lj/cut/coul/long/polarization",
                "lj/charmm/coul/long", "lj/charmm/coul/charmm",
                "lj/long/coul/long", "buck/long/coul/long",
                "lj/cut/tip4p/long", "lj/cut/tip4p/cut", "tip4p/long",
                "tip4p/cut", "lj/long/tip4p/long", "lj/cut/coul/msm",
-               "lj/charmm/coul/msm")
+               "lj/charmm/coul/msm") + LJ_COUL_STYLES + GENERIC_STYLES + (
+                   "table", "dpd", "dpd/tstat", "hybrid", "hybrid/overlay")
+# registration aliases (pair_lj_smooth_linear.h:17 lj/sf)
+PAIR_STYLE_ALIASES = {"lj/sf": "lj/smooth/linear"}
 # the TIP4P styles: the oxygen's charge on the M site (ops/tip4p.py)
 TIP4P_STYLES = ("lj/cut/tip4p/long", "lj/cut/tip4p/cut", "tip4p/long",
                 "tip4p/cut", "lj/long/tip4p/long")
@@ -92,14 +110,60 @@ KSPACE_STYLES = ("ewald", "ewald/disp", "pppm", "pppm/cg", "pppm/stagger",
 # the many-body styles (ops/eam.py): the cutoff comes from the potential
 # file that pair_coeff names
 EAM_STYLES = ("eam", "eam/alloy", "eam/fs")
-# the CHARMM pair styles the JAX package runs and the port does not
+# the CHARMM pair styles and DREIDING hydrogen bonds the JAX package runs
+# and the port does not
 CHARMM_UNPORTED = ("lj/charmm/coul/charmm/implicit",
-                   "lj/charmmfsw/coul/long", "lj/charmmfsw/coul/charmmfsh")
-# the other coul/msm and */long variants, which the JAX package runs
-# through its generic pair dispatch
-OTHER_KSPACE_PAIRS = ("coul/msm", "born/coul/msm", "buck/coul/msm",
-                      "coul/long", "buck/coul/long", "born/coul/long")
-_OTHER_PAIRS = "ROADMAP queue 1 item 6.9, the other pair styles"
+                   "lj/charmmfsw/coul/long", "lj/charmmfsw/coul/charmmfsh",
+                   "hbond/dreiding/lj", "hbond/dreiding/morse")
+_CHARMM = "ROADMAP queue 1 item 6.6, the CHARMM family"
+# every style name the JAX interpreter knows: a hybrid's argument list
+# splits at these (PairHybrid::settings, pair_hybrid.cpp)
+KNOWN_PAIR_STYLES = frozenset(
+    PAIR_STYLES + EAM_STYLES + CHARMM_UNPORTED
+    + tuple(PAIR_STYLE_ALIASES)) - {"hybrid", "hybrid/overlay"}
+# pair_coeff's coefficient count of the generic styles (the JAX package's
+# script.py _NCOEFF), the cutoff after them optional
+_NCOEFF = {"morse": 3, "buck": 3, "buck/coul/cut": 3, "buck/coul/long": 3,
+           "yukawa": 1, "gauss": 2, "soft": 1, "born": 5, "coul/cut": 0,
+           "coul/long": 0, "coul/debye": 0, "coul/msm": 0, "lj/expand": 3,
+           "born/coul/long": 5, "mie/cut": 4, "born/coul/dsf": 5,
+           "born/coul/wolf": 5, "beck": 5, "born/coul/msm": 5,
+           "buck/coul/msm": 3, "coul/dsf": 0, "coul/wolf": 0, "zero": 0,
+           "zbl": 2, "dpd": 2, "dpd/tstat": 1}
+
+
+def _read_pair_table(path: str, keyword: str):
+    """One section of a LAMMPS pair table file (pair_table.cpp read_table;
+    the JAX package's script.py _read_pair_table): the KEYWORD line, its
+    `N n ...` line, then n rows `i r E F`.  Returns the r, E, F arrays."""
+    with open(path) as fh:
+        lines = fh.read().splitlines()
+    i = 0
+    while i < len(lines):
+        t = lines[i].split("#")[0].strip()
+        if t == keyword or t.split()[:1] == [keyword]:
+            break
+        i += 1
+    else:
+        raise ValueError(f"table keyword {keyword!r} not found in {path}")
+    i += 1
+    n = None
+    while i < len(lines):
+        t = lines[i].split("#")[0].split()
+        i += 1
+        if t and t[0] == "N":
+            n = int(t[1])
+            break
+    if n is None:
+        raise ValueError(f"no N line after keyword {keyword!r}")
+    rows = []
+    while i < len(lines) and len(rows) < n:
+        t = lines[i].split("#")[0].split()
+        if len(t) >= 4:
+            rows.append((float(t[1]), float(t[2]), float(t[3])))
+        i += 1
+    r, e, f = (np.array([row[k] for row in rows]) for k in range(3))
+    return r, e, f
 
 # fix styles with a builder (styles/fix_integrators.py, fix_modifiers.py)
 FIX_STYLES = ("nve", "nvt", "npt", "nph", "rigid", "rigid/nve", "rigid/nvt",
@@ -180,6 +244,14 @@ IMPROPER_STYLES = ("harmonic", "cvff", "umbrella", "zero", "hybrid")
 
 def _unported(what: str, where: str = _FRONT_END):
     raise NotImplementedError(f"{what} is not ported ({where})")
+
+
+def _to_host(p):
+    """A pair table's tensors on the host (pair_write's rows are formed
+    there)."""
+    return dataclasses.replace(p, **{
+        f.name: getattr(p, f.name).cpu() for f in dataclasses.fields(p)
+        if isinstance(getattr(p, f.name), torch.Tensor)})
 
 
 def _yesno(tok: str) -> bool:
@@ -325,6 +397,19 @@ class LammpsScript:
         self.pair_coeffs: dict[tuple, tuple] = {}
         # the CHARMM styles' (eps14, sigma14) by type pair
         self.pair_coeffs14: dict[tuple, tuple] = {}
+        # pair_style hybrid[/overlay]: (name, args) of each sub-style and
+        # its raw pair_coeff rows (I token, J token, coefficient tokens or
+        # None for `none`), replayed through the sub-style at build time
+        self.pair_hybrid: list = []
+        self.hybrid_raw_coeffs: list = []
+        # the settings of the generic styles: coul/dsf|wolf's alpha,
+        # coul/debye's kappa, yukawa's kappa, table's N, and dpd's
+        # temperatures, seed and flavour
+        self._dsf_alpha = 0.0
+        self._debye_kappa = 0.0
+        self._yukawa_kappa = 0.0
+        self._table_n = 1000
+        self._dpd = None
         # the EAM styles' potential file and, for eam/alloy and eam/fs,
         # the element name (None for NULL) of each type
         self.eam_file: Optional[str] = None
@@ -346,6 +431,7 @@ class LammpsScript:
         self._sim = None             # live Simulation between run commands
         self._pair_mix = "geometric"  # pair_modify mix
         self._pair_shift = False      # pair_modify shift
+        self._pair_tail = False       # pair_modify tail
         self._gewald_override = None  # kspace_modify gewald
         self._gewald6_override = None  # kspace_modify gewald/disp
         self._msm_cutoff_adjust = True  # kspace_modify cutoff/adjust
@@ -1151,19 +1237,28 @@ class LammpsScript:
         INNER OUTER [INNER_COUL OUTER_COUL] (the CHARMM styles mix
         arithmetically, as the JAX package sets them) | eam | eam/alloy |
         eam/fs | the long-dispersion, TIP4P and coul/msm styles
-        (_kspace_pair_style)."""
+        (_kspace_pair_style) | the generic styles, lj/cut/coul/cut|debye|
+        dsf|wolf, table and dpd (_generic_pair_style) | hybrid and
+        hybrid/overlay with their sub-styles (_hybrid_pair_style)."""
         self._invalidate()
         self.pair_coeffs = {}
         self.pair_coeffs14 = {}
+        a = [PAIR_STYLE_ALIASES.get(a[0], a[0])] + list(a[1:])
         if a[0] in CHARMM_UNPORTED:
             _unported(f"pair_style {a[0]} (the JAX package runs it)",
-                      _BREADTH)
+                      _CHARMM)
         if a[0] not in PAIR_STYLES + EAM_STYLES:
-            if a[0] in OTHER_KSPACE_PAIRS:
-                _unported(f"pair_style {a[0]} (the JAX package runs it)",
-                          _OTHER_PAIRS)
             _unported(f"pair_style {a[0]}", _BREADTH)
         p = PairStyleSpec(name=a[0])
+        if a[0] in ("hybrid", "hybrid/overlay"):
+            self._hybrid_pair_style(a)
+            self.pair = p
+            return
+        if a[0] in GENERIC_STYLES + LJ_COUL_STYLES + ("table", "dpd",
+                                                       "dpd/tstat"):
+            self._generic_pair_style(p, a)
+            self.pair = p
+            return
         if a[0] in ("lj/long/coul/long", "buck/long/coul/long",
                     "lj/long/tip4p/long", "lj/cut/coul/msm",
                     "lj/charmm/coul/msm") or a[0] in TIP4P_STYLES:
@@ -1252,6 +1347,102 @@ class LammpsScript:
             i += 2
         self.pair = p
 
+    def _hybrid_pair_style(self, a):
+        """pair_style hybrid|hybrid/overlay S1 ARGS1 S2 ARGS2 ...
+        (pair_hybrid.cpp::settings): each sub-style's arguments run to the
+        next known style name; a sub-style the port does not run raises
+        (the DREIDING hydrogen bonds and the rest of the CHARMM family
+        naming item 6.6)."""
+        subs = []
+        i = 1
+        while i < len(a):
+            name = PAIR_STYLE_ALIASES.get(a[i], a[i])
+            if name not in KNOWN_PAIR_STYLES:
+                raise ValueError(f"unsupported hybrid sub-style {name}")
+            if name in CHARMM_UNPORTED:
+                _unported(f"hybrid sub-style {name} (the JAX package runs "
+                          "it)", _CHARMM)
+            i += 1
+            args = []
+            while i < len(a) and a[i] not in KNOWN_PAIR_STYLES:
+                args.append(a[i])
+                i += 1
+            subs.append((name, args))
+        self.pair_hybrid = subs
+        self.hybrid_raw_coeffs = [[] for _ in subs]
+
+    def _generic_pair_style(self, p, a):
+        """The settings of the generic styles (the JAX package's
+        script.py:1269-1390): CUT for morse, buck, gauss, soft, born,
+        lj/expand, mie/cut, lj96/cut, lj/smooth/linear, beck, ufm, zero;
+        CUT [CUT_COUL] for buck/coul/cut|long, born/coul/long|msm,
+        buck/coul/msm and lj/cut/coul/cut; KAPPA CUT for yukawa; KAPPA
+        CUT [CUT_COUL] for lj/cut/coul/debye; KAPPA CUT_COUL for
+        coul/debye; ALPHA CUT_COUL for coul/dsf|wolf; ALPHA CUT [CUT_COUL]
+        for lj/cut/coul/dsf|wolf and born/coul/dsf|wolf; CUT_COUL for
+        coul/cut|long|msm; INNER OUTER for lj/smooth (OUTER optional), zbl
+        and lj/gromacs; INNER OUTER [INNER_COUL OUTER_COUL] for
+        lj/gromacs/coul/gromacs; none for lj/cubic; STYLE N for table
+        (linear: every table is resampled on one linear grid); T CUT SEED
+        for dpd, TSTART TSTOP CUT SEED for dpd/tstat."""
+        name = a[0]
+        if name in ("morse", "buck", "gauss", "soft", "born", "lj/expand",
+                    "mie/cut", "lj96/cut", "lj/smooth/linear", "beck",
+                    "ufm", "zero"):
+            p.cut_lj_global = float(a[1])
+        elif name in ("buck/coul/cut", "buck/coul/long", "born/coul/long",
+                      "born/coul/msm", "buck/coul/msm", "lj/cut/coul/cut"):
+            p.cut_lj_global = float(a[1])
+            p.cut_coul = float(a[2]) if len(a) > 2 else p.cut_lj_global
+        elif name == "yukawa":
+            self._yukawa_kappa = float(a[1])
+            p.cut_lj_global = float(a[2])
+        elif name == "lj/cut/coul/debye":
+            self._debye_kappa = float(a[1])
+            p.cut_lj_global = float(a[2])
+            p.cut_coul = float(a[3]) if len(a) > 3 else p.cut_lj_global
+        elif name == "coul/debye":
+            self._debye_kappa = float(a[1])
+            p.cut_coul = float(a[2])
+        elif name in ("coul/dsf", "coul/wolf"):
+            self._dsf_alpha = float(a[1])
+            p.cut_coul = float(a[2])
+        elif name in ("lj/cut/coul/dsf", "lj/cut/coul/wolf",
+                      "born/coul/dsf", "born/coul/wolf"):
+            self._dsf_alpha = float(a[1])
+            p.cut_lj_global = float(a[2])
+            p.cut_coul = float(a[3]) if len(a) > 3 else p.cut_lj_global
+        elif name in ("coul/cut", "coul/long", "coul/msm"):
+            p.cut_coul = float(a[1])
+        elif name == "lj/smooth":
+            p.cut_lj_inner = float(a[1])
+            p.cut_lj_global = float(a[2]) if len(a) > 2 else p.cut_lj_inner
+        elif name in ("zbl", "lj/gromacs"):
+            p.cut_lj_inner = float(a[1])
+            p.cut_lj_global = float(a[2])
+        elif name == "lj/gromacs/coul/gromacs":
+            p.cut_lj_inner = float(a[1])
+            p.cut_lj_global = float(a[2])
+            if len(a) > 4:
+                p.cut_coul_inner, p.cut_coul = float(a[3]), float(a[4])
+            else:
+                p.cut_coul_inner, p.cut_coul = p.cut_lj_inner, \
+                    p.cut_lj_global
+        elif name == "table":
+            if a[1] != "linear":
+                _unported(f"pair_style table {a[1]} (the JAX package "
+                          "resamples it linearly)", _BREADTH)
+            self._table_n = int(a[2])
+        elif name == "dpd":
+            self._dpd = dict(T=float(a[1]), Tstop=float(a[1]),
+                             seed=int(a[3]), tstat=False)
+            p.cut_lj_global = float(a[2])
+        elif name == "dpd/tstat":
+            self._dpd = dict(T=float(a[1]), Tstop=float(a[2]),
+                             seed=int(a[4]), tstat=True)
+            p.cut_lj_global = float(a[3])
+        # lj/cubic: no settings (its cutoffs derive from sigma)
+
     def _kspace_pair_style(self, p, a):
         """The settings of the k-space breadth's pair styles (the JAX
         package's script.py:1197-1203, :1318-1383):
@@ -1308,8 +1499,14 @@ class LammpsScript:
         if self.pair.name in EAM_STYLES:
             self._eam_coeff(a)
             return
-        if self.pair.name in ("tip4p/cut", "tip4p/long"):
-            return   # the coulomb-only off-site styles take no coefficients
+        name = self.pair.name
+        if name in ("hybrid", "hybrid/overlay"):
+            self._hybrid_coeff(a)
+            return
+        if name in ("tip4p/cut", "tip4p/long") or (
+                name in _NCOEFF and name.startswith("coul")
+                and a[0] == "*" and a[1] == "*"):
+            return   # the coulomb-only styles take no coefficients
         if a[0] == "*" or a[1] == "*":
             # pair_coeff * * ... — wildcard ranges (Force::bounds)
             ii = range(1, self.ntypes + 1) if a[0] == "*" else [int(a[0])]
@@ -1320,6 +1517,29 @@ class LammpsScript:
                         self.cmd_pair_coeff([str(i_), str(j_)] + list(a[2:]))
             return
         i, j = int(a[0]), int(a[1])
+        key = (min(i, j), max(i, j))
+        if name == "table":
+            # i j FILE KEYWORD [cutoff]
+            r_t, e_t, f_t = _read_pair_table(os.path.join(self.root, a[2]),
+                                             a[3])
+            cut = float(a[4]) if len(a) > 4 else float(r_t[-1])
+            self.pair_coeffs[key] = (("tablefile", r_t, e_t, f_t), 0.0,
+                                     cut)
+            return
+        if name in _NCOEFF:
+            nc = _NCOEFF[name]
+            vals = tuple(float(v) for v in a[2:2 + nc])
+            cut = (float(a[2 + nc]) if len(a) > 2 + nc
+                   else self.pair.cut_lj_global)
+            self.pair_coeffs[key] = vals + (cut,)
+            return
+        if name in ("lj/gromacs", "lj/smooth"):
+            # i j eps sigma [inner outer]
+            vals = (float(a[2]), float(a[3]))
+            vals += ((float(a[4]), float(a[5])) if len(a) > 5
+                     else (self.pair.cut_lj_global,))
+            self.pair_coeffs[key] = vals
+            return
         if self.pair.name == "buck/long/coul/long":
             # i j A rho C [cut] (pair_buck_long_coul_long.cpp::coeff)
             vals = tuple(float(v) for v in a[2:5])
@@ -1338,6 +1558,32 @@ class LammpsScript:
             return
         cut = float(a[4]) if len(a) > 4 else self.pair.cut_lj_global
         self.pair_coeffs[(min(i, j), max(i, j))] = (eps, sig, cut)
+
+    def _hybrid_coeff(self, a):
+        """pair_coeff I J SUBSTYLE [K] COEFFS... under hybrid
+        (PairHybrid::coeff): the tokens are kept raw for the sub-style
+        (the K-th of that name where it repeats); `pair_coeff I J none`
+        drops the pair from every sub-style."""
+        sub = a[2]
+        if sub == "none":
+            for store in self.hybrid_raw_coeffs:
+                store.append((a[0], a[1], None))
+            return
+        sub = PAIR_STYLE_ALIASES.get(sub, sub)
+        names = [n for n, _ in self.pair_hybrid]
+        if sub not in names:
+            raise ValueError(f"pair_coeff sub-style {sub} not in hybrid "
+                             "list")
+        rest = list(a[3:])
+        k = names.index(sub)
+        if names.count(sub) > 1:
+            if not (rest and rest[0].isdigit()):
+                raise ValueError(f"duplicate hybrid sub-style {sub} needs "
+                                 "an index")
+            k = [ix for ix, n in enumerate(names) if n == sub][
+                int(rest[0]) - 1]
+            rest = rest[1:]
+        self.hybrid_raw_coeffs[k].append((a[0], a[1], rest))
 
     def _eam_coeff(self, a):
         """pair_coeff of the EAM styles (the JAX package's script.py
@@ -1454,12 +1700,18 @@ class LammpsScript:
                 if a[i + 1] not in ("geometric", "arithmetic"):
                     _unported(f"pair_modify mix {a[i + 1]}", _BREADTH)
                 self._pair_mix = a[i + 1]
-            elif a[i] == "table":
-                pass   # erfc is evaluated by its polynomial (no tables)
+            elif a[i] in ("table", "table/disp"):
+                # erfc is evaluated by its polynomial and the dispersion
+                # complement in closed form (no tables)
+                pass
             elif a[i] == "shift":
                 # the LJ energy less its value at the cutoff (the pair
                 # tables' offset)
                 self._pair_shift = _yesno(a[i + 1])
+            elif a[i] == "tail":
+                # the lj/cut family's long-range corrections (sim.py
+                # tail_corrections), over the volume at each row
+                self._pair_tail = _yesno(a[i + 1])
             else:
                 _unported(f"pair_modify {a[i]}", _BREADTH)
             i += 2
@@ -1921,6 +2173,54 @@ class LammpsScript:
     def cmd_unfix(self, a):
         self.fixes.pop(a[0], None)
         self._invalidate()
+
+    def cmd_pair_write(self, a):
+        """pair_write ITYPE JTYPE N r|rsq INNER OUTER FILE [KEYWORD [QI
+        QJ]] (Pair::write_file, pair.cpp:1549; the JAX package's
+        cmd_pair_write): N rows `i r E F` of the pair style's single()
+        (ops/pair.py pair_single on the first pair table, in float64 on
+        the host), zero beyond the pair's cutoff, appended to FILE in the
+        format pair_style table reads."""
+        from lidp_tpu_torch.computes import pair64
+        from lidp_tpu_torch.ops.pair import pair_single
+        from lidp_tpu_torch.sim import Simulation
+
+        itype, jtype, n = int(a[0]), int(a[1]), int(a[2])
+        style = a[3]
+        inner, outer = float(a[4]), float(a[5])
+        if inner <= 0.0 or inner >= outer:
+            raise ValueError("Invalid cutoffs in pair_write command")
+        if style not in ("r", "rsq"):
+            raise ValueError(f"Invalid style in pair_write command: {style}")
+        path = os.path.join(self.root, a[6])
+        keyword = a[7] if len(a) > 7 else "TABLE"
+        qi = float(a[8]) if len(a) > 8 else 1.0
+        qj = float(a[9]) if len(a) > 9 else 1.0
+        if self._sim is None:
+            self._sim = Simulation.from_script(self)
+        pp = pair64(self._sim)
+        if pp is None:
+            raise ValueError("Pair style does not support pair_write")
+        k = np.arange(n)
+        if style == "r":
+            r = inner + (outer - inner) * k / (n - 1)
+            rsq = r * r
+        else:
+            rsq = inner**2 + (outer**2 - inner**2) * k / (n - 1)
+            r = np.sqrt(rsq)
+        e, ff = pair_single(torch.as_tensor(rsq), itype, jtype, qi, qj,
+                            _to_host(pp))
+        e, ff = e.numpy(), ff.numpy() * r
+        incut = rsq < float(pp.cutsq[itype, jtype])
+        e = np.where(incut, e, 0.0)
+        ff = np.where(incut, ff, 0.0)
+        with open(path, "a") as fh:
+            fh.write(f"# Pair potential {self.pair.name} for atom types "
+                     f"{itype} {jtype}: i,r,energy,force\n")
+            fh.write(f"\n{keyword}\nN {n} {'R' if style == 'r' else 'RSQ'} "
+                     f"{inner:.15g} {outer:.15g}\n\n")
+            for m in range(n):
+                fh.write(f"{m + 1} {r[m]:.15g} {e[m]:.15g} {ff[m]:.15g}\n")
 
     def cmd_write_data(self, a):
         """write_data file — the inverse of read_data (write_data.cpp)."""

@@ -669,6 +669,15 @@ def special_pair_sums(xr, qr, tr, x, q, type_, sp_idx, sp_lvl, L, tabs,
     return df, 0.5 * torch.sum(devd), 0.5 * torch.sum(dfc), dvir
 
 
+# the kinds whose special pairs the correction below takes as the dense
+# route does (tests/test_torch_pair_generic.py measures the others, ROADMAP
+# queue 3 item 34): the LJ form r^-6 (12 lj3 r^-6 - 6 lj4) of lj/cut (and
+# lj/long's plain share), nothing of the coulomb-only tables, and a
+# coulomb kind that subtracts (1 - f) qq/r
+CORRECTED_KINDS = ("lj", "lj/long", "none")
+CORRECTED_COUL_KINDS = ("long", "charmm", "msm", "dsf", "wolf")
+
+
 def special_correction_sparse(x, q, type_, sp_idx, sp_lvl, mask, box, p):
     """The correction of a pair pass that took every pair at factor 1.0
     (the cell grid's cell_pair_forces), for the special pairs of sp_idx,
@@ -686,6 +695,14 @@ def special_correction_sparse(x, q, type_, sp_idx, sp_lvl, mask, box, p):
             "buck/long/coul/long with special bonds on the cell grid: the "
             "JAX package's special correction takes the LJ form of the "
             "Buckingham tables there (ROADMAP queue 3 item 30)")
+    if p.kind not in CORRECTED_KINDS or (
+            p.coul and p.coul_kind not in CORRECTED_COUL_KINDS):
+        raise NotImplementedError(
+            f"pair kind {p.kind} (coulomb {p.coul_kind if p.coul else 'none'}"
+            ") with special bonds on the cell grid: the JAX package's "
+            "special correction takes the LJ form of the tables and an "
+            "unscreened (1 - f) qq/r there, not this kind's terms (ROADMAP "
+            "queue 3 item 34)")
     cut_coulsq = p.cut_coulsq if p.coul else 0.0
     return special_pair_sums(
         x, q, type_, x, q, type_, sp_idx, sp_lvl, box.lengths,

@@ -15,13 +15,15 @@ the JAX package sends them to its XLA function.  The single-type float32
 LJ case goes to the CUDA kernels of ops/cell_kernels.py instead
 (forcefield.compute_forces decides; a type exclusion table or the molecule
 exclusion keeps a system on this function, as the JAX package's
-_pallas_ok does).  lj/cut, lj/cut/coul/long, the lj/charmm styles
-(the LJ switch, coul/long, coul/charmm and coul/msm), the long dispersion
+_pallas_ok does).  Every van der Waals kind of ops/pair.py but the table
+(which the JAX package sends to the dense route at every size) and every
+coulomb kind is ported: lj/cut with the CHARMM switch, the long dispersion
 kinds lj/long and buck/long (at full weight: the special correction takes
-the special pairs' share) and the msm coulomb are ported, with the
+the special pairs' share), the generic kinds on their coefficient tables
+(lj1, lj2, lj3, lj4 and lj5, one gather of each per slot pair), and the
+long, charmm, msm, debye, dsf, wolf and gromacs coulomb terms, with the
 neigh_modify exclusions (type pairs, PairParams.excl; same-molecule pairs,
-excl_mol with mol=); the other pair and coulomb kinds are not (ROADMAP
-queue 1 item 6.9), and a triclinic box does not exist in the port.
+excl_mol with mol=); a triclinic box does not exist in the port.
 
 Requires >= 3 bins in every dimension that has more than one.
 """
@@ -34,9 +36,9 @@ import numpy as np
 import torch
 
 from lidp_tpu_torch.box import Box, minimum_image
-from lidp_tpu_torch.ops.pair import (EWALD_F, LONG_KINDS, charmm_coul,
-                                     charmm_switch, erfc_as, long_vdw,
-                                     msm_coul)
+from lidp_tpu_torch.ops.pair import (EWALD_F, LONG_KINDS, _coul_terms,
+                                     charmm_switch, dsf_wolf_coul, erfc_as,
+                                     generic_vdw, long_vdw, msm_coul)
 
 
 def perp_widths(lengths, tilt=None):
@@ -187,20 +189,24 @@ def cell_pair_forces(x, q, type_, mask, cells: Cells, box: Box, p,
 
     xs = [slotify(x[:, d]) for d in range(3)]
     qs = slotify(q) if coul else None
+    if p.kind == "table":
+        raise ValueError("pair_style table takes the dense route (the JAX "
+                         "package's at every size)")
     ntypes = p.lj3.shape[0] - 1
     multi_type = ntypes > 1 or p.excl is not None
-    # buck/long's 1/rho table rides with the others (the offset table
-    # stands in for it elsewhere, never read)
-    rho_t = p.rhoinv if p.rhoinv is not None else p.offset
+    generic = p.kind not in LONG_KINDS + ("lj",)
+    # the tables the kind reads, gathered once each per slot pair: buck/
+    # long's 1/rho, the generic kinds' lj1, lj2 and lj5
+    names = ["lj3", "lj4", "offset", "cut_ljsq", "cutsq"]
+    if p.rhoinv is not None:
+        names.append("rhoinv")
+    if generic:
+        names += ["lj1", "lj2"] + (["lj5"] if p.lj5 is not None else [])
     if multi_type:
         ts = slotify(type_).long()
-        tabs = [t.to(dtype) for t in (p.lj3, p.lj4, p.offset, p.cut_ljsq,
-                                      p.cutsq, rho_t)]
+        tabs = {k: getattr(p, k).to(dtype) for k in names}
     else:
-        lj3, lj4, off11, rhoinv = (t[1, 1].to(dtype)
-                                   for t in (p.lj3, p.lj4, p.offset, rho_t))
-        cut_ljsq, cutsq = p.cut_ljsq[1, 1].to(dtype), p.cutsq[1, 1].to(dtype)
-
+        v = {k: getattr(p, k)[1, 1].to(dtype) for k in names}
     excl_mol = p.excl_mol and mol is not None
     if excl_mol:
         ms = slotify(mol, -1)
@@ -237,15 +243,21 @@ def cell_pair_forces(x, q, type_, mask, cells: Cells, box: Box, p,
 
         if multi_type:
             ti, tj = ctr(ts), nbr(ts)
-            lj3, lj4, off11, cut_ljsq, cutsq, rhoinv = (t[ti, tj]
-                                                        for t in tabs)
+            v = {k: t[ti, tj] for k, t in tabs.items()}
+        lj3, lj4, off11, cut_ljsq, cutsq = (v[k] for k in names[:5])
 
         in_rng = rsq < cutsq
         if p.excl is not None:
             in_rng = in_rng & ~p.excl[ti, tj]
         lj_m = in_rng & (rsq < cut_ljsq)
         if p.kind in LONG_KINDS:
-            forcelj, philj = long_vdw(p, rsq, r2inv, lj3, lj4, rhoinv)
+            forcelj, philj = long_vdw(p, rsq, r2inv, lj3, lj4,
+                                      v.get("rhoinv"))
+        elif generic:
+            forcelj, philj = generic_vdw(
+                p.kind, rsq, r2inv, v["lj1"], v["lj2"], lj3, lj4,
+                v.get("lj5"),
+                torch.sqrt(cut_ljsq) if p.kind == "soft" else None)
         else:
             r6inv = r2inv * r2inv * r2inv
             forcelj = r6inv * (12.0 * lj3 * r6inv - 6.0 * lj4)
@@ -262,11 +274,16 @@ def cell_pair_forces(x, q, type_, mask, cells: Cells, box: Box, p,
             cm = in_rng & (rsq < p.cut_coulsq)
             r = torch.sqrt(rsq)
             prefactor = p.qqrd2e * qi * qj / r
-            if p.coul_kind in ("charmm", "msm"):
-                ec, fc = (charmm_coul(p, prefactor, rsq, 1.0)
-                          if p.coul_kind == "charmm" else
-                          msm_coul(prefactor, r, rsq, p.cut_coulsq,
-                                   p.msm_order))
+            if p.coul_kind != "long":
+                # the raw terms: msm, dsf and wolf subtract nothing at
+                # factor 1, the others take it multiplicatively
+                if p.coul_kind == "msm":
+                    ec, fc = msm_coul(prefactor, r, rsq, p.cut_coulsq,
+                                      p.msm_order)
+                elif p.coul_kind in ("dsf", "wolf"):
+                    ec, fc = dsf_wolf_coul(p, prefactor, r, rsq)
+                else:
+                    ec, fc = _coul_terms(p, prefactor, r, rsq, 1.0)
                 forcecoul = torch.where(cm, fc, 0.0)
                 if need_ev:
                     ecoul = ecoul + torch.sum(torch.where(cm, ec, 0.0))

@@ -3,8 +3,10 @@
 lj/cut/coul/long/polarization, lj/charmm/coul/long,
 lj/charmm/coul/charmm, eam, eam/alloy and eam/fs, the k-space breadth's
 lj/long/coul/long, buck/long/coul/long, the five TIP4P styles,
-lj/cut/coul/msm and lj/charmm/coul/msm, with the bonded terms and the
-modifier fixes).
+lj/cut/coul/msm and lj/charmm/coul/msm, the other pair styles of
+styles/pair_builders.py (the generic styles, lj/cut/coul/cut|debye|dsf|
+wolf, table, hybrid, hybrid/overlay, dpd, dpd/tstat, pair_modify tail),
+with the bonded terms and the modifier fixes).
 
 The analog of the LAMMPS init phase (Run::command -> LAMMPS::init,
 run.cpp:38): the lj/cut or lj/cut/coul/long tables with geometric (or
@@ -63,7 +65,9 @@ It takes the route the JAX package takes:
     the special lists;
   * the EAM styles on the cell grid at every atom count (the file's
     cutoff plus the skin; ForceField(pair=None, eam=...), ops/eam.py in
-    plain torch), orthogonal boxes only, as in the JAX package.
+    plain torch), orthogonal boxes only, as in the JAX package;
+  * pair_style table and dpd on the dense route at every atom count
+    (ForceField(pair=None, dpd=...) for dpd), as in the JAX package.
 Above the cap, a box under 3 cells of the largest cutoff plus the skin a
 side takes the JAX package's neighbour list, which is not ported (ROADMAP
 queue 1 item 5) and raises; only the polar style keeps the dense pass
@@ -102,6 +106,7 @@ from lidp_tpu_torch.parallel.fast_polar import (aligned_npad, maybe_attach,
                                                 prescan)
 from lidp_tpu_torch.state import make_system
 from lidp_tpu_torch.styles import fix_output
+from lidp_tpu_torch.styles import pair_builders as pb
 from lidp_tpu_torch.thermo import (ThermoParams, compute_pressure,
                                    temperature, thermo_row)
 
@@ -289,35 +294,6 @@ def _tip4p_params(script, npad, n, device):
     return tipp
 
 
-def _mix_pair_tables(script):
-    """Per-type-pair eps/sigma/cut tables with geometric mixing for unset
-    pairs (Pair::mix_energy/mix_distance defaults for lj/cut styles;
-    pair_modify mix arithmetic mixes sigma arithmetically)."""
-    T = script.ntypes
-    eps = np.zeros((T + 1, T + 1))
-    sig = np.zeros((T + 1, T + 1))
-    cut = np.full((T + 1, T + 1), script.pair.cut_lj_global)
-    seen = np.zeros((T + 1, T + 1), bool)
-    for (i, j), (e, s, c) in script.pair_coeffs.items():
-        eps[i, j] = eps[j, i] = e
-        sig[i, j] = sig[j, i] = s
-        cut[i, j] = cut[j, i] = c
-        seen[i, j] = seen[j, i] = True
-    mix = getattr(script, "_pair_mix", "geometric")
-    for i in range(1, T + 1):
-        for j in range(i + 1, T + 1):
-            if not seen[i, j]:
-                if not (seen[i, i] and seen[j, j]):
-                    continue
-                eps[i, j] = eps[j, i] = np.sqrt(eps[i, i] * eps[j, j])
-                if mix == "arithmetic":
-                    sig[i, j] = sig[j, i] = 0.5 * (sig[i, i] + sig[j, j])
-                else:
-                    sig[i, j] = sig[j, i] = np.sqrt(sig[i, i] * sig[j, j])
-                cut[i, j] = cut[j, i] = 0.5 * (cut[i, i] + cut[j, j])
-    return eps, sig, cut
-
-
 def _bonded_params(script, dtype, device, u, eps, sig, cut, bond_keep,
                    angle_keep):
     """The ForceField's bond, angle, dihedral and improper tuples (the JAX
@@ -333,10 +309,13 @@ def _bonded_params(script, dtype, device, u, eps, sig, cut, bond_keep,
         if script.bond_style == "quartic" or (
                 script.bond_style == "hybrid"
                 and "quartic" in script.bond_style_args):
-            if not script.pair.name.startswith("lj/cut"):
+            # pair_style zero: nothing to subtract (the JAX package's
+            # sim.py:1578-1588)
+            if script.pair.name.startswith("lj/cut"):
+                pair_tables = (eps, sig, cut)
+            elif script.pair.name != "zero":
                 raise NotImplementedError(
                     "bond quartic pair subtraction supports lj/cut")
-            pair_tables = (eps, sig, cut)
         out["bond"] = bb.build_bond_params(script, dtype, bond_keep,
                                            pair_tables, device=device)
     for fam, build, args in (
@@ -509,13 +488,18 @@ class Simulation:
         coul = "coul" in name
         charmm = "charmm" in name
         tip4p = script.pair.tip4p is not None
-        msm_pair = name.endswith("/msm")
+        hybrid = name in ("hybrid", "hybrid/overlay")
+        # the style, or a hybrid's sub-styles
+        names = [n for n, _ in script.pair_hybrid] if hybrid else [name]
+        msm_pair = any(n.endswith("/msm") for n in names)
         # the long dispersion styles: the r^-6 term's k-space half in the
         # ewald/disp or pppm/disp dispersion sum
         long_disp = name in ("lj/long/coul/long", "buck/long/coul/long") \
             or (name == "lj/long/tip4p/long" and script._tip4p_lj_long)
-        # lj/charmm/coul/charmm and the tip4p/cut styles: no k-space
-        coul_long = coul and not name.endswith("coul/charmm")
+        # the coulomb styles a k-space sum completes (coul/cut, debye,
+        # dsf, wolf, charmm, gromacs and the tip4p/cut styles take none)
+        coul_long = any(n.endswith(("coul/long", "coul/msm",
+                                    "/polarization")) for n in names)
         needs_kspace = coul_long or (tip4p
                                      and script.pair.tip4p_mode == "long")
         if needs_kspace and script.kspace is None:
@@ -555,11 +539,17 @@ class Simulation:
         mass_atom = _padA(script.mass_type[script.type], 1.0)
 
         # ---- pair tables, exclusions, kspace ----
-        if name == "buck/long/coul/long":
+        generic = name in pb.GENERIC_PAIR_KINDS or name in (
+            "table", "dpd", "dpd/tstat") or hybrid
+        if generic:
+            # no LJ tables: the charmm dihedral's 1-4 term has none, as in
+            # the JAX package
+            eps = sig = None
+        elif name == "buck/long/coul/long":
             eps = sig = np.zeros((script.ntypes + 1, script.ntypes + 1))
             tA, tRinv, tC, cut = _buck_tables(script)
         else:
-            eps, sig, cut = _mix_pair_tables(script)
+            eps, sig, cut = pb.mix_pair_tables(script)
         excl_types = None
         if script.neigh_exclude_types:
             # neigh_modify exclude type (the JAX package's sim.py:1088-1096)
@@ -567,8 +557,27 @@ class Simulation:
                                   bool)
             for t1, t2 in script.neigh_exclude_types:
                 excl_types[t1, t2] = excl_types[t2, t1] = True
-        eamp = pair = b_atom = None
-        if name == "eam":
+        eamp = pair = b_atom = dpdp = None
+        extra_pairs, extra_flags = (), ()
+        etail = ptail = 0.0
+        if script._pair_tail and (generic or eam or long_disp):
+            # the JAX package forms the tail of the lj/cut family alone
+            # (its sim.py:1237-1258) and skips the keyword for the rest
+            raise NotImplementedError(
+                f"pair_modify tail with pair_style {name}: the JAX package "
+                "adds no tail correction there (ROADMAP queue 3 item 37)")
+        if name == "table":
+            pair, cut = pb._build_table_pair(script, excl_types, dtype,
+                                             device)
+        elif name in ("dpd", "dpd/tstat"):
+            cut, dpdp = pb._build_dpd_pair(script, u, dtype, device)
+        elif hybrid:
+            pair, extra_pairs, extra_flags, cut = pb._build_hybrid_pair(
+                script, u, excl_types, dtype, device)
+        elif name in pb.GENERIC_PAIR_KINDS:
+            pair, cut = pb._build_generic_pair(script, u, excl_types, dtype,
+                                               device)
+        elif name == "eam":
             eamp, _ = build_eam_params(script.eam_file, dtype=dtype,
                                        device=device)
         elif eam:
@@ -600,26 +609,35 @@ class Simulation:
                           * np.concatenate([[0.0], sig[tt, tt]]) ** 3)
             b_atom = b_type[script.type]
         else:
+            if script._pair_tail and not charmm:
+                etail, ptail = pb.tail_corrections(script, eps, sig, cut)
             pair = make_pair_params(
                 eps, sig, cut,
                 cut_coul=script.pair.cut_coul if coul or tip4p else 0.0,
-                qqrd2e=u.qqr2e, coul=coul,
+                qqrd2e=u.qqr2e, coul=coul, g_ewald=pb.coul_g(script, name),
                 special_lj=script.special_lj,
                 special_coul=script.special_coul, excl_types=excl_types,
                 shift=script._pair_shift,
                 cut_lj_inner=script.pair.cut_lj_inner, charmm=charmm,
-                coul_kind=("msm" if msm_pair else "long" if coul_long
-                           else "charmm"),
+                coul_kind=pb.coul_kind_of(name),
                 cut_coul_inner=script.pair.cut_coul_inner, dtype=dtype,
                 device=device)
         ks = _kspace_terms(script, pair, b_atom, n, dtype, device) \
             if needs_kspace else {}
         pair = ks.pop("pair", pair)
+        if extra_pairs and ("ewald" in ks or "pppm" in ks):
+            # the coul/long sub-styles take the k-space g_ewald (the JAX
+            # package's sim.py:1319-1324, 1396-1402)
+            extra_pairs = tuple(
+                dataclasses.replace(pe, g_ewald=pair.g_ewald) if fl else pe
+                for pe, fl in zip(extra_pairs, extra_flags[1:]))
         # the TIP4P sites (the JAX package's sim.py:1442-1465): the dense
         # route only
         tipp = _tip4p_params(script, npad, n, device) if tip4p else None
         if script.neigh_exclude_mol and pair is not None:
             pair = dataclasses.replace(pair, excl_mol=True)
+            extra_pairs = tuple(dataclasses.replace(pe, excl_mol=True)
+                                for pe in extra_pairs)
         pol = polarization_settings(script.pair) if polar else None
         # a barostat moves the box: the Ewald tables follow it and the
         # integrator reads the virial every step (the JAX package's
@@ -649,7 +667,10 @@ class Simulation:
                     f"potential's cutoff plus the skin ({script.skin:g}) a "
                     "side: the JAX package takes a neighbour list here "
                     "(ROADMAP queue 1 item 5, neighbour lists)")
-        elif dense and above_cap:
+        elif dense and above_cap and name not in ("table", "dpd",
+                                                   "dpd/tstat"):
+            # the table and DPD take the dense route at every size, as in
+            # the JAX package (its sim.py:1791-1797)
             ncfg = _cell_config(script, cut, n, coul)
             if ncfg is None and not polar:
                 raise NotImplementedError(
@@ -700,6 +721,7 @@ class Simulation:
         bonded = _bonded_params(script, dtype, device, u, eps, sig, cut,
                                 bond_keep, angle_keep)
         ff = ForceField(pair=pair, eam=eamp, polar=pol, qqrd2e=u.qqr2e,
+                        extra_pairs=extra_pairs, dpd=dpdp,
                         polar_xshift=polar_xshift, sp_code=sp_code,
                         sp_idx=sp_idx, sp_lvl=sp_lvl,
                         kspace_dynamic=(has_baro
@@ -773,7 +795,7 @@ class Simulation:
         tp = ThermoParams.create(
             mass_atom, dof=dof, units=u,
             norm=(u.name == "lj") if norm is None else norm, natoms=n,
-            dim=dim_, dtype=dtype, device=device)
+            dim=dim_, etail=etail, ptail=ptail, dtype=dtype, device=device)
         if script._thermo_temp is not None:
             # thermo_modify temp ID: Temp, KE, TotEng and the pressure's
             # kinetic part follow the compute's group, its dof dim*ng - dim

@@ -1,0 +1,589 @@
+"""Builders of the generic pair styles (lidp_tpu/sim.py:36-618, the
+functions of the same names): the parsed script's pair_style and
+pair_coeff rows -> ops/pair.py PairParams (or ops/dpd.py DPDParams), the
+tables formed in numpy float64 as the JAX package forms them, then moved to
+the run's dtype and device.
+
+  * _build_generic_pair: the generic styles (GENERIC_PAIR_KINDS), their
+    off-diagonal coefficients explicit (these styles do not mix);
+  * _build_mixed_generic_pair: mie/cut, lj96/cut, lj/smooth/linear,
+    lj/smooth, ufm, lj/cubic and lj/gromacs, mixed geometrically, with
+    their stacked lj5 tables;
+  * _build_zbl_pair: zbl's exponential tables and switch constants;
+  * _build_table_pair: pair_style table, every pair's rows resampled on one
+    linear grid;
+  * _build_hybrid_pair: hybrid and hybrid/overlay, each sub-style one
+    PairParams whose unassigned type pairs are excluded (_build_sub_pair);
+  * _build_dpd_pair: dpd and dpd/tstat;
+  * tail_corrections: pair_modify tail's etail and ptail of the lj/cut
+    family.
+"""
+
+from __future__ import annotations
+
+import copy
+
+import numpy as np
+import torch
+
+from lidp_tpu_torch.ops.pair import (make_generic_pair_params,
+                                     make_pair_params,
+                                     make_table_pair_params)
+
+# pair_style name -> (generic_vdw kind, number of coefficients)
+GENERIC_PAIR_KINDS = {
+    "morse": ("morse", 3), "buck": ("buck", 3),
+    "buck/coul/cut": ("buck", 3), "buck/coul/long": ("buck", 3),
+    "yukawa": ("yukawa", 1), "gauss": ("gauss", 2), "soft": ("soft", 1),
+    "born": ("born", 5), "coul/cut": ("none", 0), "coul/long": ("none", 0),
+    "coul/msm": ("none", 0),
+    "coul/debye": ("none", 0), "lj/expand": ("lj/expand", 3),
+    "born/coul/long": ("born", 5), "mie/cut": ("mie", 4),
+    "lj/gromacs": ("lj/gromacs", 2),
+    "coul/dsf": ("none", 0), "coul/wolf": ("none", 0),
+    "born/coul/dsf": ("born", 5), "born/coul/wolf": ("born", 5),
+    "born/coul/msm": ("born", 5), "buck/coul/msm": ("buck", 3),
+    "lj/gromacs/coul/gromacs": ("lj/gromacs", 2),
+    "beck": ("beck", 5), "zero": ("none", 0),
+    "lj96/cut": ("lj96", 2), "lj/smooth/linear": ("lj/smooth/linear", 2),
+    "lj/smooth": ("lj/smooth", 2), "ufm": ("ufm", 2),
+    "zbl": ("zbl", 2), "lj/cubic": ("lj/cubic", 2),
+}
+_MIXED_KINDS = ("mie", "lj/gromacs", "lj96", "lj/smooth/linear",
+                "lj/smooth", "ufm", "lj/cubic")
+
+
+def coul_kind_of(name: str) -> str:
+    """The coulomb kind of a style name: debye, msm, dsf, wolf, charmm
+    (lj/charmm/coul/charmm), gromacs, or long (the erfc form; coul/cut's
+    exact 1/r where no k-space sets g_ewald)."""
+    if "debye" in name:
+        return "debye"
+    for k in ("msm", "dsf", "wolf"):
+        if name.endswith("/" + k):
+            return k
+    if name.endswith("coul/charmm"):
+        return "charmm"
+    if name.endswith("coul/gromacs"):
+        return "gromacs"
+    return "long"
+
+
+def coul_g(script, name: str) -> float:
+    """The scalar a coulomb kind carries in g_ewald before any k-space
+    setup: debye's kappa, dsf's and wolf's alpha, else 0."""
+    kind = coul_kind_of(name)
+    if kind == "debye":
+        return script._debye_kappa
+    if kind in ("dsf", "wolf"):
+        return script._dsf_alpha
+    return 0.0
+
+
+def mix_pair_tables(script):
+    """Per-type-pair eps/sigma/cut tables with geometric mixing for unset
+    pairs (Pair::mix_energy/mix_distance defaults for lj/cut styles;
+    pair_modify mix arithmetic mixes sigma arithmetically)."""
+    T = script.ntypes
+    eps = np.zeros((T + 1, T + 1))
+    sig = np.zeros((T + 1, T + 1))
+    cut = np.full((T + 1, T + 1), script.pair.cut_lj_global)
+    seen = np.zeros((T + 1, T + 1), bool)
+    for (i, j), (e, s, c) in script.pair_coeffs.items():
+        eps[i, j] = eps[j, i] = e
+        sig[i, j] = sig[j, i] = s
+        cut[i, j] = cut[j, i] = c
+        seen[i, j] = seen[j, i] = True
+    mix = getattr(script, "_pair_mix", "geometric")
+    for i in range(1, T + 1):
+        for j in range(i + 1, T + 1):
+            if not seen[i, j]:
+                if not (seen[i, i] and seen[j, j]):
+                    continue
+                eps[i, j] = eps[j, i] = np.sqrt(eps[i, i] * eps[j, j])
+                if mix == "arithmetic":
+                    sig[i, j] = sig[j, i] = 0.5 * (sig[i, i] + sig[j, j])
+                else:
+                    sig[i, j] = sig[j, i] = np.sqrt(sig[i, i] * sig[j, j])
+                cut[i, j] = cut[j, i] = 0.5 * (cut[i, i] + cut[j, j])
+    return eps, sig, cut
+
+
+def _common(script, excl_types, dtype, device):
+    return dict(special_lj=np.array(script.special_lj),
+                special_coul=np.array(script.special_coul),
+                excl_types=excl_types, dtype=dtype, device=device)
+
+
+def _build_table_pair(script, excl_types, dtype, device):
+    """pair_style table linear N: every pair's (r, E, F) rows resampled
+    on one linear grid from the smallest first point to the largest
+    cutoff (pair_table.cpp compute_table; the JAX package's grid)."""
+    T = script.ntypes
+    nt = script._table_n
+    cut = np.zeros((T + 1, T + 1))
+    entries = {}
+    rlo_all = np.inf
+    for (i, j), co in script.pair_coeffs.items():
+        _, r_t, e_t, f_t = co[0]
+        cut[i, j] = cut[j, i] = co[2]
+        entries[(i, j)] = (r_t, e_t, f_t)
+        rlo_all = min(rlo_all, float(r_t[0]))
+    for i in range(1, T + 1):
+        for j in range(i, T + 1):
+            if (i, j) not in entries:
+                raise ValueError(
+                    f"All pair coeffs are not set (table {i} {j})")
+    grid = np.linspace(rlo_all, float(np.max(cut)), nt)
+    tab_e = np.zeros((T + 1, T + 1, nt))
+    tab_f = np.zeros((T + 1, T + 1, nt))
+    for (i, j), (r_t, e_t, f_t) in entries.items():
+        tab_e[i, j] = tab_e[j, i] = np.interp(grid, r_t, e_t, left=e_t[0],
+                                              right=0.0)
+        tab_f[i, j] = tab_f[j, i] = np.interp(grid, r_t, f_t, left=f_t[0],
+                                              right=0.0)
+    pair = make_table_pair_params(tab_e, tab_f, grid[0], grid[1] - grid[0],
+                                  cut, **_common(script, excl_types, dtype,
+                                                 device))
+    return pair, cut
+
+
+def _mixed_tables(kind, raw, cut, inner):
+    """The (t1..t4, t5, cut) of the mixed kinds from the per-pair raw
+    coefficients (the JAX package's init_one translations)."""
+    tabs = [np.zeros_like(cut) for _ in range(4)]
+    if kind == "mie":
+        # pair_mie_cut.cpp init_one:530-540
+        eps, sig, gam_r, gam_a = (raw[..., k] for k in range(4))
+        with np.errstate(divide="ignore", invalid="ignore"):
+            cmie = np.where(
+                gam_r != gam_a,
+                gam_r / np.where(gam_r != gam_a, gam_r - gam_a, 1.0)
+                * np.power(np.where(gam_a > 0, gam_r / np.where(
+                    gam_a > 0, gam_a, 1.0), 1.0),
+                    gam_a / np.where(gam_r != gam_a, gam_r - gam_a, 1.0)),
+                0.0)
+        tabs[0] = cmie * gam_r * eps * np.power(sig, gam_r)
+        tabs[1] = cmie * gam_a * eps * np.power(sig, gam_a)
+        tabs[2] = cmie * eps * np.power(sig, gam_r)
+        tabs[3] = cmie * eps * np.power(sig, gam_a)
+        return tabs, np.stack([gam_r, gam_a], axis=-1), cut
+    eps, sig = raw[..., 0], raw[..., 1]
+    if kind == "ufm":
+        # pair_ufm.cpp init_one:237-245
+        sg = np.where(sig > 0, sig, 1.0)
+        tabs[0] = 2.0 * eps / (sg * sg)
+        tabs[1] = 1.0 / (sg * sg)
+        tabs[2] = eps
+        return tabs, None, cut
+    s6 = sig ** 6
+    if kind == "lj96":
+        # pair_lj96_cut.cpp init_one:529-532
+        s9 = s6 * sig ** 3
+        return [36.0 * eps * s9, 24.0 * eps * s6, 4.0 * eps * s9,
+                4.0 * eps * s6], None, cut
+    tabs = [48.0 * eps * s6 * s6, 24.0 * eps * s6, 4.0 * eps * s6 * s6,
+            4.0 * eps * s6]
+    if kind == "lj/smooth/linear":
+        # pair_lj_smooth_linear.cpp init_one:239-240
+        rc = np.where(cut > 0, cut, 1.0)
+        c6i = rc ** -6.0
+        ljcut = c6i * (tabs[2] * c6i - tabs[3])
+        dljcut = (1.0 / rc) * c6i * (tabs[0] * c6i - tabs[1])
+        return tabs, np.stack([ljcut, dljcut, cut], axis=-1), cut
+    if kind == "lj/smooth":
+        # pair_lj_smooth.cpp init_one: the cubic force skin
+        ri = np.where(inner > 0, inner, 1.0)
+        r6i = ri ** -6.0
+        have_sw = cut > inner
+        t = np.where(have_sw, cut - inner, 1.0)
+        tsq = t * t
+        ratio = sig / ri
+        ljsw0 = 4.0 * eps * (ratio ** 12 - ratio ** 6)
+        ljsw1 = r6i * (tabs[0] * r6i - tabs[1]) / ri
+        ljsw2 = -r6i * (13.0 * tabs[0] * r6i - 7.0 * tabs[1]) / (ri * ri)
+        ljsw3 = -(3.0 / tsq) * (ljsw1 + 2.0 / 3.0 * ljsw2 * t)
+        ljsw4 = -1.0 / (3.0 * tsq) * (ljsw2 + 2.0 * ljsw3 * t)
+        for arr in (ljsw1, ljsw2, ljsw3, ljsw4):
+            arr[~have_sw] = 0.0
+        return tabs, np.stack([ljsw0, ljsw1, ljsw2, ljsw3, ljsw4, inner],
+                              axis=-1), cut
+    if kind == "lj/cubic":
+        # pair_lj_cubic.cpp: the cutoffs derive from sigma
+        rmin = sig * 1.1224621
+        inner = rmin * 1.1086834
+        cut = rmin * 1.5475375
+        return tabs, np.stack([eps, sig, inner], axis=-1), cut
+    # lj/gromacs (pair_lj_gromacs.cpp init_one)
+    rc = np.where(cut > 0, cut, 1.0)
+    ri = inner
+    r6inv = 1.0 / rc ** 6
+    r8inv = 1.0 / rc ** 8
+    t = np.where(rc > ri, rc - ri, 1.0)
+    t2inv = 1.0 / (t * t)
+    t3inv = t2inv / t
+    t3 = 1.0 / t3inv
+    a6 = (7.0 * ri - 10.0 * rc) * r8inv * t2inv
+    b6 = (9.0 * rc - 7.0 * ri) * r8inv * t3inv
+    a12 = (13.0 * ri - 16.0 * rc) * r6inv * r8inv * t2inv
+    b12 = (15.0 * rc - 13.0 * ri) * r6inv * r8inv * t3inv
+    c6 = r6inv - t3 * (6.0 * a6 / 3.0 + 6.0 * b6 * t / 4.0)
+    c12 = r6inv * r6inv - t3 * (12.0 * a12 / 3.0 + 12.0 * b12 * t / 4.0)
+    sw = [tabs[0] * a12 - tabs[1] * a6, tabs[0] * b12 - tabs[1] * b6,
+          -tabs[2] * 12.0 * a12 / 3.0 + tabs[3] * 6.0 * a6 / 3.0,
+          -tabs[2] * 12.0 * b12 / 4.0 + tabs[3] * 6.0 * b6 / 4.0,
+          -tabs[2] * c12 + tabs[3] * c6, inner]
+    return tabs, np.stack(sw, axis=-1), cut
+
+
+def _build_mixed_generic_pair(script, u, excl_types, dtype, device, kind,
+                              nc):
+    """mie/cut, lj96/cut, lj/smooth/linear, lj/smooth, ufm, lj/cubic and
+    lj/gromacs(/coul/gromacs): geometric mixing of every coefficient and
+    cutoff for the unset pairs (the Pair::mix_flag GEOMETRIC default),
+    the kind's stacked extra table in lj5."""
+    T = script.ntypes
+    cut = np.full((T + 1, T + 1), script.pair.cut_lj_global)
+    inner = np.full((T + 1, T + 1), script.pair.cut_lj_inner)
+    raw = np.zeros((T + 1, T + 1, nc))
+    seen = np.zeros((T + 1, T + 1), bool)
+    for (i, j), co in script.pair_coeffs.items():
+        raw[i, j] = raw[j, i] = co[:nc]
+        if kind in ("lj/gromacs", "lj/smooth") and len(co) >= nc + 2:
+            inner[i, j] = inner[j, i] = co[nc]
+            cut[i, j] = cut[j, i] = co[nc + 1]
+        elif len(co) > nc:
+            cut[i, j] = cut[j, i] = co[nc]
+        seen[i, j] = seen[j, i] = True
+    for i in range(1, T + 1):
+        if not seen[i, i]:
+            raise ValueError(f"All pair coeffs are not set ({i} {i})")
+    for i in range(1, T + 1):
+        for j in range(i + 1, T + 1):
+            if not seen[i, j]:
+                raw[i, j] = raw[j, i] = np.sqrt(raw[i, i] * raw[j, j])
+                cut[i, j] = cut[j, i] = np.sqrt(cut[i, i] * cut[j, j])
+                inner[i, j] = inner[j, i] = np.sqrt(inner[i, i]
+                                                    * inner[j, j])
+    tabs, t5, cut = _mixed_tables(kind, raw, cut, inner)
+    coul = "coul" in script.pair.name      # lj/gromacs/coul/gromacs
+    pair = make_generic_pair_params(
+        kind, *tabs, t5, cut_lj=cut,
+        cut_coul=script.pair.cut_coul if coul else 0.0, coul=coul,
+        qqrd2e=u.qqr2e,
+        shift=(script._pair_shift
+               and kind in ("mie", "lj96", "lj/smooth", "ufm")),
+        coul_kind="gromacs" if coul else "long",
+        cut_coul_inner=script.pair.cut_coul_inner if coul else 0.0,
+        **_common(script, excl_types, dtype, device))
+    return pair, cut
+
+
+def _build_zbl_pair(script, u, excl_types, dtype, device):
+    """pair_style zbl INNER OUTER (pair_zbl.cpp): each pair's (Zi, Zj) as
+    the d1a..d4a and zze tables and the C2-continuous switch of set_coeff
+    (:297-352), stacked in lj5."""
+    T = script.ntypes
+    inner = script.pair.cut_lj_inner
+    outer = script.pair.cut_lj_global
+    cut = np.full((T + 1, T + 1), outer)
+    cut[0, :] = cut[:, 0] = 0.0
+    pzbl, a0 = 0.23, 0.46850
+    cc = np.array([0.02817, 0.28022, 0.50986, 0.18175])
+    dd = np.array([0.20162, 0.40290, 0.94229, 3.19980])
+    t5 = np.zeros((T + 1, T + 1, 11))
+    t5[..., 10] = inner
+    seen = np.zeros((T + 1, T + 1), bool)
+    qe = u.qelectron
+    for (i, j), co in script.pair_coeffs.items():
+        zi, zj = co[0], co[1]
+        da = dd * (zi ** pzbl + zj ** pzbl) / (a0 * u.angstrom)
+        zze = zi * zj * u.qqr2e * qe * qe
+
+        def e_zbl(r, da=da, zze=zze):
+            return zze * np.sum(cc * np.exp(-da * r)) / r
+
+        def dzbldr(r, da=da, zze=zze):
+            e = np.exp(-da * r)
+            return zze * (-np.sum(cc * da * e) - np.sum(cc * e) / r) / r
+
+        def d2zbldr2(r, da=da, zze=zze):
+            e = np.exp(-da * r)
+            return zze * (np.sum(cc * da * da * e)
+                          + 2.0 * np.sum(cc * da * e) / r
+                          + 2.0 * np.sum(cc * e) / (r * r)) / r
+
+        tc = outer - inner
+        fc, fcp, fcpp = e_zbl(outer), dzbldr(outer), d2zbldr2(outer)
+        swa = (-3.0 * fcp + tc * fcpp) / (tc * tc)
+        swb = (2.0 * fcp - tc * fcpp) / (tc * tc * tc)
+        swc = -fc + (tc / 2.0) * fcp - (tc * tc / 12.0) * fcpp
+        t5[i, j] = t5[j, i] = list(da) + [zze, swa, swb, swa / 3.0,
+                                          swb / 4.0, swc, inner]
+        seen[i, j] = seen[j, i] = True
+    for i in range(1, T + 1):
+        for j in range(i, T + 1):
+            if not seen[i, j]:
+                raise ValueError(f"All pair coeffs are not set (zbl {i} {j})")
+    z = np.zeros((T + 1, T + 1))
+    pair = make_generic_pair_params(
+        "zbl", z, z, z, z, t5, cut_lj=cut, qqrd2e=u.qqr2e,
+        **_common(script, excl_types, dtype, device))
+    return pair, cut
+
+
+def _build_generic_pair(script, u, excl_types, dtype, device):
+    """PairParams of the generic styles (pair_morse/buck/yukawa/gauss/
+    soft/born/lj_expand/beck/coul_*.cpp): every type pair set explicitly
+    (these styles have no mixing: init_one's 'All pair coeffs are not
+    set'); the mixed kinds and zbl go to their own builders."""
+    name = script.pair.name
+    kind, nc = GENERIC_PAIR_KINDS[name]
+    T = script.ntypes
+    if kind in _MIXED_KINDS:
+        return _build_mixed_generic_pair(script, u, excl_types, dtype,
+                                         device, kind, nc)
+    if kind == "zbl":
+        return _build_zbl_pair(script, u, excl_types, dtype, device)
+    coul = "coul" in name
+    tabs = [np.zeros((T + 1, T + 1)) for _ in range(5)]
+    cut = np.full((T + 1, T + 1), script.pair.cut_lj_global)
+    if kind != "none":
+        seen = np.zeros((T + 1, T + 1), bool)
+        for (i, j), co in script.pair_coeffs.items():
+            vals = co[:nc]
+            if kind == "morse":
+                d0, alpha, r0 = vals
+                row = (d0, alpha, r0, 2.0 * d0 * alpha, 0.0)
+            elif kind == "buck":
+                a_, rho, c_ = vals
+                row = (a_, 1.0 / rho, c_, 0.0, 0.0)
+            elif kind == "yukawa":
+                row = (vals[0], script._yukawa_kappa, 0.0, 0.0, 0.0)
+            elif kind == "gauss":
+                row = (vals[0], vals[1], 0.0, 0.0, 0.0)
+            elif kind == "soft":
+                row = (vals[0], 0.0, 0.0, 0.0, 0.0)
+            elif kind == "born":
+                a_, rho, sg, c_, d_ = vals
+                row = (a_, 1.0 / rho, c_, sg, d_)
+            elif kind == "lj/expand":
+                e_, sg, delta = vals
+                s6 = sg ** 6
+                row = (48.0 * e_ * s6 * s6, 24.0 * e_ * s6,
+                       4.0 * e_ * s6 * s6, 4.0 * e_ * s6, delta)
+            else:   # beck: AA, BB, aa, alpha, beta as they are
+                row = tuple(vals)
+            for k, v in enumerate(row):
+                tabs[k][i, j] = tabs[k][j, i] = v
+            cut[i, j] = cut[j, i] = co[nc] if len(co) > nc else co[-1]
+            seen[i, j] = seen[j, i] = True
+        for i in range(1, T + 1):
+            for j in range(i, T + 1):
+                if not seen[i, j]:
+                    raise ValueError(
+                        f"All pair coeffs are not set ({name} {i} {j})")
+    elif name != "zero":
+        # the coulomb-only styles: no van der Waals cutoff (pair_style
+        # zero keeps its global cutoff for the neighbour sizing)
+        cut = np.zeros((T + 1, T + 1))
+    pair = make_generic_pair_params(
+        kind, *tabs[:4], tabs[4] if kind in ("born", "lj/expand", "beck")
+        else None, cut_lj=cut,
+        cut_coul=script.pair.cut_coul if coul else 0.0, coul=coul,
+        qqrd2e=u.qqr2e, g_ewald=coul_g(script, name),
+        shift=script._pair_shift, coul_kind=coul_kind_of(name),
+        **_common(script, excl_types, dtype, device))
+    return pair, cut
+
+
+# hybrid sub-styles: the coefficient row that fills an unassigned type
+# pair (parseable and zero; the sub-style's excl table is the real guard)
+_HYBRID_ZERO_ROW = {
+    "lj/cut": (0.0, 1.0), "lj/cut/coul/cut": (0.0, 1.0),
+    "lj/cut/coul/long": (0.0, 1.0), "lj/cut/coul/debye": (0.0, 1.0),
+    "lj/cut/coul/msm": (0.0, 1.0), "lj/cut/coul/dsf": (0.0, 1.0),
+    "lj/cut/coul/wolf": (0.0, 1.0),
+    "mie/cut": (0.0, 1.0, 12.0, 6.0), "lj/gromacs": (0.0, 1.0),
+    "lj96/cut": (0.0, 1.0), "lj/smooth": (0.0, 1.0),
+    "lj/smooth/linear": (0.0, 1.0), "ufm": (0.0, 1.0),
+    "morse": (0.0, 1.0, 1.0), "buck": (0.0, 1.0, 0.0),
+    "buck/coul/cut": (0.0, 1.0, 0.0), "buck/coul/long": (0.0, 1.0, 0.0),
+    "yukawa": (0.0,), "gauss": (0.0, 0.0), "soft": (0.0,),
+    "born": (0.0, 1.0, 1.0, 0.0, 0.0),
+    "born/coul/long": (0.0, 1.0, 1.0, 0.0, 0.0),
+    "born/coul/dsf": (0.0, 1.0, 1.0, 0.0, 0.0),
+    "born/coul/wolf": (0.0, 1.0, 1.0, 0.0, 0.0),
+    "lj/expand": (0.0, 1.0, 0.0), "beck": (0.0, 0.0, 1.0, 1.0, 0.0),
+    "zbl": (1.0, 1.0),
+}
+# the sub-styles that mix within themselves (PairHybrid::init_one)
+_HYBRID_MIX_STYLES = frozenset(
+    n for n in _HYBRID_ZERO_ROW
+    if n.startswith(("lj/cut", "lj96", "lj/smooth", "lj/gromacs", "mie",
+                     "ufm")))
+
+
+def _build_sub_pair(sc, u, excl, dtype, device):
+    """(pair, cut) of one hybrid sub-style: a generic style, or one of
+    the lj/cut family (lj/cut and lj/cut/coul/cut|long|debye|msm|dsf|
+    wolf) on mixed eps/sigma tables."""
+    pname = sc.pair.name
+    if pname in GENERIC_PAIR_KINDS:
+        return _build_generic_pair(sc, u, excl, dtype, device)
+    if pname in _HYBRID_ZERO_ROW:
+        eps, sig, cut = mix_pair_tables(sc)
+        coul = "coul" in pname
+        pair = make_pair_params(
+            eps, sig, cut, cut_coul=sc.pair.cut_coul if coul else 0.0,
+            qqrd2e=u.qqr2e, coul=coul, g_ewald=coul_g(sc, pname),
+            shift=sc._pair_shift, coul_kind=coul_kind_of(pname),
+            special_lj=sc.special_lj, special_coul=sc.special_coul,
+            excl_types=excl, dtype=dtype, device=device)
+        return pair, cut
+    raise NotImplementedError(f"hybrid sub-style {pname}")
+
+
+def _build_hybrid_pair(script, u, base_excl, dtype, device):
+    """pair_style hybrid[/overlay] (pair_hybrid.cpp) as the JAX package
+    builds it: each sub-style one PairParams over every pair, its type
+    pairs outside the sub-style's assignment masked through its excl
+    table (a coulomb-only or zero sub-style takes every pair; a mixing
+    sub-style assigns (i,j) where it holds both diagonals).  Returns
+    (the first sub-style's pair, the others, the coul/long flag of each,
+    the cutoff table); script.pair.cut_coul becomes the largest of the
+    sub-styles'.  A pair that `pair_coeff I J none` took out stays in a
+    coul/* sub-style there (a mixing one assigns it its zero row): that
+    raises, since LAMMPS takes it out of every sub-style."""
+    T = script.ntypes
+    built, flags = [], []
+    cut_all = np.zeros((T + 1, T + 1))
+    # the pairs `pair_coeff I J none` took out, and each sub-style's
+    # explicit and assigned pairs
+    nones, explicit_all, assigned_all = set(), set(), []
+    for k, (name, args) in enumerate(script.pair_hybrid):
+        sc = copy.copy(script)
+        sc._invalidate = lambda: None            # a scratch copy
+        sc.cmd_pair_style([name] + list(args))   # resets sc.pair_coeffs
+        for it, jt, toks in script.hybrid_raw_coeffs[k]:
+            if toks is None:
+                # pair_coeff I J none: out of every sub-style
+                ii = range(1, T + 1) if it == "*" else [int(it)]
+                jj = range(1, T + 1) if jt == "*" else [int(jt)]
+                for i_ in ii:
+                    for j_ in jj:
+                        key = (min(i_, j_), max(i_, j_))
+                        sc.pair_coeffs.pop(key, None)
+                        nones.add(key)
+                continue
+            sc.cmd_pair_coeff([it, jt] + list(toks))
+        explicit = set(sc.pair_coeffs)
+        explicit_all |= explicit
+        if name.startswith("coul/") or name == "zero":
+            assigned = {(i, j) for i in range(1, T + 1)
+                        for j in range(i, T + 1)}
+        else:
+            assigned = set(explicit)
+            if name in _HYBRID_MIX_STYLES:
+                for i in range(1, T + 1):
+                    for j in range(i + 1, T + 1):
+                        if (i, i) in explicit and (j, j) in explicit:
+                            assigned.add((i, j))
+            zr = _HYBRID_ZERO_ROW.get(name)
+            if zr is not None:
+                for i in range(1, T + 1):
+                    for j in range(i, T + 1):
+                        if (i, j) not in explicit:
+                            sc.pair_coeffs[(i, j)] = zr + (0.0,)
+        assigned_all.append((name, assigned))
+        excl = np.ones((T + 1, T + 1), bool)
+        for i, j in assigned:
+            excl[i, j] = excl[j, i] = False
+        if base_excl is not None:
+            excl |= base_excl
+        pair, cut = _build_sub_pair(sc, u, excl, dtype, device)
+        amask = ~excl
+        cut_all = np.maximum(cut_all, np.where(amask, cut, 0.0))
+        if "coul" in name:
+            cut_all = np.maximum(cut_all,
+                                 np.where(amask, sc.pair.cut_coul, 0.0))
+        built.append(pair)
+        # a coul/long sub-style takes the k-space g_ewald after setup
+        flags.append("coul" in name and not any(
+            s in name for s in ("debye", "msm", "dsf", "wolf", "cut")))
+        if "coul" in name:
+            # the k-space setup reads the largest coulomb cutoff
+            script.pair.cut_coul = max(script.pair.cut_coul,
+                                       sc.pair.cut_coul)
+    nones -= explicit_all
+    for name, assigned in assigned_all:
+        kept = sorted(nones & assigned)
+        if kept and name.startswith("coul/"):
+            raise NotImplementedError(
+                f"pair_coeff {kept[0][0]} {kept[0][1]} none with hybrid "
+                f"sub-style {name}: the JAX package keeps the pair's "
+                "coulomb term, where LAMMPS takes the pair out of every "
+                "sub-style (ROADMAP queue 3 item 36)")
+    return built[0], tuple(built[1:]), tuple(flags), cut_all
+
+
+def _build_dpd_pair(script, u, dtype, device):
+    """pair dpd / dpd/tstat (pair_dpd.cpp settings/coeff/init_one):
+    (the cutoff table, DPDParams); sigma = sqrt(2 kB T gamma) at the start
+    temperature, as the JAX package takes it."""
+    from lidp_tpu_torch.ops.dpd import DPDParams
+
+    spec = script._dpd
+    T = script.ntypes
+    tstat = spec["tstat"]
+    nc = 1 if tstat else 2
+    a0 = np.zeros((T + 1, T + 1))
+    gam = np.zeros((T + 1, T + 1))
+    cut = np.zeros((T + 1, T + 1))
+    seen = np.zeros((T + 1, T + 1), bool)
+    for (i, j), co in script.pair_coeffs.items():
+        if tstat:
+            gam[i, j] = gam[j, i] = co[0]
+        else:
+            a0[i, j] = a0[j, i] = co[0]
+            gam[i, j] = gam[j, i] = co[1]
+        cut[i, j] = cut[j, i] = (co[nc] if len(co) > nc
+                                 else script.pair.cut_lj_global)
+        seen[i, j] = seen[j, i] = True
+    for i in range(1, T + 1):
+        for j in range(i, T + 1):
+            if not seen[i, j]:
+                raise ValueError(f"All pair coeffs are not set (dpd {i} {j})")
+    sigma = np.sqrt(2.0 * u.boltz * spec["T"] * gam)
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+
+    return cut, DPDParams(
+        a0=t(a0), gamma=t(gam), sigma=t(sigma),
+        cut=t(np.where(cut > 0, cut, 1.0)), cutsq=t(cut * cut),
+        special_lj=t(script.special_lj),
+        dtinvsqrt=float(1.0 / np.sqrt(max(script.dt, 1e-300))),
+        seed=int(spec["seed"]), tstat=tstat)
+
+
+def tail_corrections(script, eps, sig, cut):
+    """pair_modify tail yes: the lj/cut family's (etail, ptail), each type
+    pair i <= j with the off-diagonal doubled (pair_lj_cut.cpp init_one
+    etail_ij/ptail_ij, pair.cpp:247-253), over the type counts; thermo
+    divides them by the volume of each row."""
+    etail = ptail = 0.0
+    counts = np.bincount(np.asarray(script.type),
+                         minlength=script.ntypes + 1)
+    for i in range(1, script.ntypes + 1):
+        for j in range(i, script.ntypes + 1):
+            s6 = float(sig[i, j]) ** 6
+            rc3 = float(cut[i, j]) ** 3
+            rc6 = rc3 * rc3
+            rc9 = rc3 * rc6
+            fac = float(counts[i]) * float(counts[j]) * float(eps[i, j]) \
+                * s6 / (9.0 * rc9)
+            mult = 1.0 if i == j else 2.0
+            etail += mult * 8.0 * np.pi * fac * (s6 - 3.0 * rc6)
+            ptail += mult * 16.0 * np.pi * fac * (2.0 * s6 - 3.0 * rc6)
+    return etail, ptail

@@ -237,7 +237,8 @@ def test_make_pair_params_lj_only(shift):
     assert pc.coul is False
     np.testing.assert_array_equal(pc.lj3.numpy(), np.asarray(pj.lj3))
     with pytest.raises(NotImplementedError, match="kind"):
-        convert.pair_from_numpy(dict(_fields(pj), kind="morse"), device="cpu")
+        convert.pair_from_numpy(dict(_fields(pj), kind="nonesuch"),
+                                device="cpu")
 
 
 # ------------------------------ cell grid --------------------------------

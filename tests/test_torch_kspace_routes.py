@@ -157,21 +157,28 @@ def test_lj_kernel_wrappers_refuse_long_tables(kind):
         cell_kernels.slot_lj_forces([sys_t.x[:, 0]] * 3, sys_t.box, pair)
 
 
+# the fields pair_from_numpy refuses since item 6.9 is ported: the rest
+# of the CHARMM family (item 6.6), a kind the JAX package does not have,
+# and an lj5 table on the lj kind, which the JAX package never builds
 REFUSED_FIELDS = {
-    "kind morse": dict(kind="morse"),
-    "coul_kind dsf": dict(coul_kind="dsf"),
-    "lj5 on lj": dict(lj5=np.ones((2, 2))),
-    "charmm_fsw": dict(charmm_fsw=True),
-    "tables": dict(tab_e=np.ones((2, 2, 4))),
+    "coul_kind charmmfsh": (dict(coul_kind="charmmfsh"), NotImplementedError,
+                            "queue 1 item 6.6"),
+    "coul_kind charmm/implicit": (dict(coul_kind="charmm/implicit"),
+                                  NotImplementedError, "queue 1 item 6.6"),
+    "lj5 on lj": (dict(lj5=np.ones((2, 2))), ValueError, "lj5"),
+    "charmm_fsw": (dict(charmm_fsw=True), NotImplementedError,
+                   "queue 1 item 6.6"),
+    "kind hbond": (dict(kind="hbond"), NotImplementedError, "kind"),
 }
 
 
 @pytest.mark.parametrize("name", list(REFUSED_FIELDS))
 def test_pair_from_numpy_refuses_generic_fields(name):
     ji, _, _ = _case(GRIDS["cubic"], np.float64, coul=True)
-    with pytest.raises(NotImplementedError, match="queue 1 item 6.9"):
-        convert.pair_from_numpy(dict(_fields(ji["p"]),
-                                     **REFUSED_FIELDS[name]), device="cpu")
+    fields, err, match = REFUSED_FIELDS[name]
+    with pytest.raises(err, match=match):
+        convert.pair_from_numpy(dict(_fields(ji["p"]), **fields),
+                                device="cpu")
 
 
 # ------------------------------ the script --------------------------------
@@ -186,22 +193,27 @@ def test_kspace_modify_keywords():
             s.one(f"kspace_modify {kw}")
 
 
-OTHER_PAIRS = ("coul/msm 6.0", "born/coul/msm 6.0", "buck/coul/msm 6.0",
-               "coul/long 6.0", "buck/coul/long 6.0", "born/coul/long 6.0")
-
-
-@pytest.mark.parametrize("style", OTHER_PAIRS)
-def test_other_kspace_pair_styles_raise(style):
-    s = tscript.LammpsScript(device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 6.9"):
-        s.one(f"pair_style {style}")
-
-
 @pytest.fixture(scope="module")
 def fluid(tmp_path_factory):
     d = tmp_path_factory.mktemp("fluid")
     chip_smoke.fluid_script_case(str(d), n_side=3)
     return d
+
+
+OTHER_PAIRS = ("coul/msm 6.0", "born/coul/msm 6.0", "buck/coul/msm 6.0",
+               "coul/long 6.0", "buck/coul/long 6.0", "born/coul/long 6.0")
+
+
+@pytest.mark.parametrize("style", OTHER_PAIRS)
+def test_other_kspace_pair_styles_raise(fluid, style):
+    """The coul/long and coul/msm styles of the generic dispatch (ported
+    since item 6.9) raise, as the port's other k-space styles do, without
+    a kspace_style (the JAX package runs them as coul/cut there)."""
+    text = fluid_long(style).replace("kspace_style ewald/disp 1e-4\n", "")
+    text = "\n".join(line for line in text.splitlines()
+                     if not line.startswith("pair_coeff")) + "\n"
+    with pytest.raises(ValueError, match="requires a KSpace style"):
+        run("torch", fluid, text, nstep=0, name="nokspace")
 
 
 COMPOSITIONS = {

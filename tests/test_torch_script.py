@@ -262,7 +262,7 @@ UNPORTED = {
     "compute": "compute c all chunk/atom molecule",
     "minimize": "min_modify line backtrack",
     "fix nvt": "fix 2 all nvt/sllod temp 300 300 100",
-    "pair_style lj/cut": "pair_style lj/cut/coul/cut 2.5",
+    "pair_style lj/cut": "pair_style hbond/dreiding/lj 4 6 6.5 90",
     "kspace_style pppm": "kspace_style pppm/dipole 1e-4",
     "bond_style": "bond_style class2",
     "thermo keyword": "thermo_style custom step cpu",
