@@ -131,7 +131,7 @@ Phases, each raising on failure:
         example's form), the others at rest with no integrator, `compute
         movingtemp moving temp` and its c_movingtemp column: every counter
         0, the dense route's Runner, rows finite; its rows and final x, v,
-        mu against its CPU twin (phase 10: the same script through the
+        mu against its CPU twin (phase 17: the same script through the
         port on the CPU in float64, after the card's paths): rows within
         rel 1e-9 of max(1, |value|), x, v and mu
         within 1e-8 of their largest entry; steps/s by its Loop time line,
@@ -228,7 +228,7 @@ Phases, each raising on failure:
   7. the mesh k-space and the barostats from a LAMMPS script
      (barostat_paths), each path printing its route, its steps/s by its
      Loop time line and its peak device memory; O, R, R-pppm and Q64
-     have CPU twins (phase 10):
+     have CPU twins (phase 17):
      O. path I's input with `kspace_style pppm 1e-4`, 1,536 atoms, the
         dense route, float64 at 1e-11, 5 steps: no launch, rows and
         final x, v, mu against the CPU twin; PPPM's grid and g_ewald
@@ -269,7 +269,7 @@ Phases, each raising on failure:
      examples/peptide's styles (lj/charmm/coul/long 8 10, pppm 1e-4,
      special_bonds charmm, timestep 2.0, thermo_style multi) and `fix
      shake` on the X-H bonds and the water; float64, 10 steps, a row
-     each step; CPU twins of 2 steps (phase 10; T's on
+     each step; CPU twins of 2 steps (phase 17; T's of 1 step, on
      FLEX_T_TWIN_THREADS threads):
      S. examples/peptide's stack on the dense route: 1,920 atoms, `fix
         nvt temp 275 275 100 tchain 1`;
@@ -279,9 +279,9 @@ Phases, each raising on failure:
      each: no launch, its route, steps/s by its Loop time line and its
      peak memory; every row finite, and at every row each SHAKE bond and
      angle within the fix's tolerance (1e-4 relative) of its target
-     (ConstraintWatch); rows 0-2 against the CPU twin at rel 1e-9 of
-     max(1, |value|) plus CANCEL_REL of the cancelled magnitude on the
-     cell grid; two evaluations of the bonded terms on one state and
+     (ConstraintWatch); rows 0-2 (T's 0-1) against the CPU twin at rel
+     1e-9 of max(1, |value|) plus CANCEL_REL of the cancelled magnitude
+     on the cell grid; two evaluations of the bonded terms on one state and
      whether they agree bit for bit (index_add_'s float atomics); the ms
      a step of the bonded terms, SHAKE, the pair pass (and the cell
      grid's special correction) and PPPM by CUDA events over 2 more
@@ -492,20 +492,53 @@ Phases, each raising on failure:
      then tests/test_pair_breadth2.py's 16 GOLDEN cases (its rows and
      scripts/gen_breadth_goldens.py's inputs copied: BREADTH_GOLDEN,
      BREADTH_CASES) at that test's bars (breadth_golden_phases);
- 16. the CPU twins (CPU_TWIN: the same script through the port on the CPU
+ 16. the rest of the CHARMM family, fix cmap and the DREIDING hydrogen
+     bonds from LAMMPS scripts (charmm_family_paths), float64, the dense
+     route, every launch counter 0 on each path, each printing its log's
+     first rows and its last, its steps/s by the Loop time line, peak
+     device memory and the ms a call by CUDA events on its final state of
+     its pair passes, the mesh, the bonded terms, the crossterms and the
+     hydrogen bonds (charmm_readings):
+     AS. the CHARMM36 stack: flexible_script_case at n_side (8, 4, 5)
+        (3,840 atoms, path S's fluid doubled along x) with
+        lj/charmmfsw/coul/long 8 10, dihedral_style charmmfsw, pppm 1e-4,
+        fix nvt and FLEX_SHAKE, fix cmap (one crossterm per
+        N-methylacetamide over a methyl H, its C, the carbonyl C, N and
+        the N-methyl C, the map type cycling 1-6; the seeded map file of
+        write_cmap_file, the reference's charmm22.cmap not being in the
+        repository) with fix_modify energy yes and f_cmap in the row, 10
+        steps;
+     AT. examples/cmap's stack on the same atoms: lj/charmmfsw/coul/
+        charmmfsh 8 12 (dihedral charmmfsw's shifted 1-4 coulomb), fix
+        cmap, no k-space;
+     AU. the same atoms under lj/charmm/coul/charmm/implicit 8 10, no
+        k-space;
+     AV. 1,000 flexible waters (3,000 atoms at 1.0 g/cm^3, a 31.04 A box,
+        hbond_water_layout) under hybrid/overlay lj/cut/coul/long 10.0
+        with hbond/dreiding/lj 4 6.0 8.0 90 in tests/test_hbond.py's
+        forms, pppm 1e-4, special_bonds lj/coul 0 0 0.5, fix nvt at 300
+        K, 1 fs;
+     each also at a small size (n_side (2, 2, 2), 192 atoms; 81 waters)
+     for 2 steps, its rows 0-2 against its CPU twin at rel 1e-9; then
+     the LAMMPS rows of tests/test_pair_breadth2.py's charmmfsw/
+     charmmfsh, charmmfsw/coul/long + ewald and charmm/implicit cases and
+     of tests/test_hbond.py's lj and morse cases (charmm_golden_phases)
+     at those tests' bars;
+ 17. the CPU twins (CPU_TWIN: the same script through the port on the CPU
      in float64, in a process of its own; its rows, final state and each
      minimize's (E, iterations, converged)) of J, K, O, R, R-pppm, Q64, S,
      T, U64, V, W, X64, Y, Z, AA-100, AB (and AB's cg, sd, fire), AC, AD,
      AE-couette, AE-pois, AF, AG, AI, AI-f32 (AI's in float32, its
-     setup state), AJ-AN, AO-8k, AQ and AR, after every path on the card,
-     so that no timed path shares the host's cores with them (run_twins:
-     as many at once as the cores take, the longest first);
- 17. one JSON line {"kernels": [...]} with each of the ten kernels'
+     setup state), AJ-AN, AO-8k, AQ, AR and AS-AV at 192 atoms (81
+     waters), after every path on the card, so that no timed path shares
+     the host's cores with them (run_twins: as many at once as the cores
+     take, the longest first);
+ 18. one JSON line {"kernels": [...]} with each of the ten kernels'
      launches (summed and by path, A-K, E-E4, L, L64, M, N, N-pol, O, R,
      R-pppm, Q, Q64, P, P100, S, T, U, U64, V, W, X, X64, Y, Z, AA, AB,
-     AC, AD, AE, AF, AG, AH, AI, AJ, AK, AN, AL, AM, AO, AP, AQ, AR),
-     times, ms_queued and bound, then the nvidia-smi line, then the device
-     line last.
+     AC, AD, AE, AF, AG, AH, AI, AJ, AK, AN, AL, AM, AO, AP, AQ, AR, AS,
+     AT, AU, AV), times, ms_queued and bound, then the nvidia-smi line,
+     then the device line last.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.
@@ -2449,16 +2482,16 @@ atom_style full
 pair_style {pair}
 bond_style harmonic
 angle_style charmm
-dihedral_style charmm
+dihedral_style {dihedral}
 improper_style harmonic
 pair_modify mix arithmetic
-{kspace}read_data flex.data
+{kspace}{cmap}read_data flex.data{read_fix}
 {replicate}pair_coeff 5 5 0.2 3.296 0.2 2.76
 special_bonds charmm
 neighbor 2.0 bin
 neigh_modify delay 5
 timestep 2.0
-thermo_style multi
+thermo_style {thermo}
 thermo 1
 fix 1 all {fix}
 fix 2 all {shake}
@@ -2533,7 +2566,8 @@ def _nma():
 
 def flexible_script_case(directory, n_side=(4, 4, 5), seed=0,
                          fix=FLEX_NVT, cut=(8.0, 10.0), replicate=None,
-                         pair=None, kspace="pppm 1e-4"):
+                         pair=None, kspace="pppm 1e-4", dihedral="charmm",
+                         cmap=None):
     """Write a box of flexible solute molecules and TIP3P-like waters at
     0.96 g/cm^3 as `flex.data` (atom_style full; Velocities; Bonds,
     Angles, Dihedrals, Impropers; the Pair, Bond, Angle, Dihedral and
@@ -2558,8 +2592,12 @@ def flexible_script_case(directory, n_side=(4, 4, 5), seed=0,
     charmm inner and outer cutoffs; replicate: (a, b, c) adds `replicate a
     b c` after read_data (bench/in.rhodo's replication); pair: a pair_style
     line's arguments in place of lj/charmm/coul/long; kspace: the
-    kspace_style arguments, None for none.  Returns the paths (data,
-    script)."""
+    kspace_style arguments, None for none; dihedral: the dihedral style
+    (charmm or charmmfsw).  cmap: "yes" or "no" adds fix cmap (the
+    examples/cmap form, flexible_script) with that fix_modify energy, the
+    seeded map file CMAP_FILE (write_cmap_file) and one crossterm per
+    N-methylacetamide (CMAP_ATOMS, the map type cycling 1-6) in the data
+    file's CMAP section.  Returns the paths (data, script)."""
     import numpy as np
 
     nx, ny, nz = ((n_side,) * 3 if isinstance(n_side, int) else n_side)
@@ -2671,10 +2709,16 @@ def flexible_script_case(directory, n_side=(4, 4, 5), seed=0,
     def r(val):
         return repr(float(val))
 
+    # one crossterm per solute: its atoms CMAP_ATOMS of the 12, 1-based
+    nma_first = [k * 12 for k in range(len(blocks))]
+    crossterms = [(k % 6 + 1, *(f + a + 1 for a in CMAP_ATOMS))
+                  for k, f in enumerate(nma_first)] if cmap else []
     lines = ["LAMMPS data file: flexible solute in water", "",
              f"{n} atoms", f"{len(bonds)} bonds", f"{len(angles)} angles",
-             f"{len(dihedrals)} dihedrals", f"{len(impropers)} impropers",
-             f"{len(FLEX_TYPES)} atom types",
+             f"{len(dihedrals)} dihedrals", f"{len(impropers)} impropers"]
+    if cmap:
+        lines.append(f"{len(crossterms)} crossterms")
+    lines += [f"{len(FLEX_TYPES)} atom types",
              f"{len(FLEX_BONDS)} bond types",
              f"{len(FLEX_ANGLES)} angle types",
              f"{len(FLEX_DIHEDRALS)} dihedral types",
@@ -2708,27 +2752,81 @@ def flexible_script_case(directory, n_side=(4, 4, 5), seed=0,
         lines += [f"{k + 1} {row[0]} " + " ".join(str(a + 1)
                                                    for a in row[1:])
                   for k, row in enumerate(rows)]
+    if cmap:
+        lines += ["", "CMAP", ""] + [
+            f"{k + 1} " + " ".join(str(v) for v in row)
+            for k, row in enumerate(crossterms)]
+        write_cmap_file(os.path.join(directory, CMAP_FILE))
     data = os.path.join(directory, "flex.data")
     script = os.path.join(directory, "in.flex")
     with open(data, "w") as fh:
         fh.write("\n".join(lines) + "\n")
     with open(script, "w") as fh:
         fh.write(flexible_script(fix, cut=cut, replicate=replicate,
-                                 pair=pair, kspace=kspace))
+                                 pair=pair, kspace=kspace,
+                                 dihedral=dihedral, cmap=cmap))
     return data, script
 
 
 def flexible_script(fix=FLEX_NVT, cut=(8.0, 10.0), replicate=None,
-                    pair=None, kspace="pppm 1e-4", shake=FLEX_SHAKE):
+                    pair=None, kspace="pppm 1e-4", shake=FLEX_SHAKE,
+                    dihedral="charmm", cmap=None):
     """FLEX_SCRIPT with `fix 1 all <fix>` and `fix 2 all <shake>` (the
-    arguments of flexible_script_case)."""
+    arguments of flexible_script_case); cmap "yes" or "no": examples/cmap's
+    `fix cmap all cmap CMAP_FILE`, `fix_modify cmap energy <cmap>` and
+    `read_data ... fix cmap crossterm CMAP`, with the thermo row of
+    thermo_style multi and f_cmap."""
     inner, outer = cut
+    cmap_lines = (f"fix cmap all cmap {CMAP_FILE}\nfix_modify cmap energy "
+                  f"{cmap}\n" if cmap else "")
     return FLEX_SCRIPT.format(
         pair=pair or f"lj/charmm/coul/long {inner:g} {outer:g}",
         kspace=f"kspace_style {kspace}\n" if kspace else "",
         replicate=("replicate {} {} {}\n".format(*replicate)
                    if replicate else ""),
-        fix=fix, shake=shake)
+        fix=fix, shake=shake, dihedral=dihedral, cmap=cmap_lines,
+        read_fix=" fix cmap crossterm CMAP" if cmap else "",
+        thermo=("custom step " + " ".join(FLEX_MULTI) + " f_cmap" if cmap
+                else "multi"))
+
+
+# fix cmap on the flexible case: the map file, and each crossterm's five
+# consecutively bonded atoms of _nma()'s twelve (a methyl H, its C, the
+# carbonyl C, N, the N-methyl C)
+CMAP_FILE = "seeded.cmap"
+CMAP_ATOMS = (1, 0, 4, 6, 8)
+# thermo_style multi's columns
+FLEX_MULTI = ("etotal", "ke", "temp", "pe", "ebond", "eangle", "edihed",
+              "eimp", "evdwl", "ecoul", "elong", "press")
+
+
+def write_cmap_file(path, seed=23):
+    """A CMAP file in charmm22.cmap's layout (the reference's examples/cmap
+    file, which the repository does not hold): six 24x24 maps, phi down
+    the rows and psi along them from -180 in steps of 15 degrees, each a
+    `#` title line and 24 rows of 24 values in lines of 6; each map a
+    seeded smooth periodic surface sum_kl a_kl cos(k phi + l psi +
+    d_kl), k, l in 0..2, of about 1 kcal/mol."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    ang = np.deg2rad(-180.0 + 15.0 * np.arange(24))
+    phi, psi = np.meshgrid(ang, ang, indexing="ij")
+    lines = ["# a seeded CMAP file: six 24x24 maps in the reference's "
+             "order"]
+    for name in ("alanine", "alanine-proline", "proline",
+                 "proline-proline", "glycine", "glycine-proline"):
+        m = np.zeros((24, 24))
+        for k in range(3):
+            for l in range(3):
+                m += rng.uniform(-0.4, 0.4) * np.cos(
+                    k * phi + l * psi + rng.uniform(0.0, 2.0 * np.pi))
+        lines += ["", f"# {name} map", ""]
+        for row in m:
+            lines += [" ".join(f"{v:.6f}" for v in row[c:c + 6])
+                      for c in range(0, 24, 6)]
+    with open(path, "w") as fh:
+        fh.write("\n".join(lines) + "\n")
 
 
 # the Nose-Hoover paths' edits of FLUID_SCRIPT (thermostat_script)
@@ -4285,6 +4383,9 @@ FLEX_SIDE = (4, 4, 5)          # path S: 1,920 atoms, examples/peptide's size
 FLEX_REPLICATE = (2, 2, 4)     # path T: S replicated, 30,720 atoms (in.rhodo)
 FLEX_STEPS = 10
 FLEX_TWIN_STEPS = 2            # the CPU twins' steps: rows 0-2 compared
+# T's twin: one step, rows 0-1 (two steps took 146.9-206.6 s on its
+# threads on the card's host, the longest twin)
+FLEX_T_TWIN_STEPS = 1
 # the T twin's torch threads: its cell pass on one thread takes ~500 s on
 # the card's host, beyond the script's budget
 FLEX_T_TWIN_THREADS = 4
@@ -4431,11 +4532,12 @@ def flexible_paths(launches, reset_counts, read_counts):
                   f"{EXTRA_STEPS} more steps: " + ", ".join(
                       f"{k} {v:.4f}" for k, v in ms.items())
                   + f" ({smi_line()})")
-            defer_twin(path, work, inputs[path], FLEX_TWIN_STEPS,
+            twin_steps = FLEX_T_TWIN_STEPS if cells else FLEX_TWIN_STEPS
+            defer_twin(path, work, inputs[path], twin_steps,
                        twin_check(path, (rows, None), cols, cancel=cancel),
                        threads=FLEX_T_TWIN_THREADS if cells else 1,
                        cost=FLEX_T_TWIN_COST if cells else 10.0)
-            print(f"path {path}: rows {FLEX_TWIN_STEPS + 1}-{FLEX_STEPS} "
+            print(f"path {path}: rows {twin_steps + 1}-{FLEX_STEPS} "
                   f"finite; the path took "
                   f"{time.perf_counter() - t_path:.1f} s of wall time")
             del script, sim, ff, outs
@@ -6576,6 +6678,87 @@ def water_layout(nside, L, seed=7, jitter=0.4):
         _improper_types=None, improper_coeffs={})
 
 
+# path AV: flexible SPC-like waters under tests/test_hbond.py's forms
+# (lj/cut beside hbond/dreiding/lj through hybrid/overlay), here with
+# the erfc coulomb and pppm
+HBOND_Q = (-0.8, 0.4)          # tests/test_hbond.py write_data's charges
+HBOND_DENSITY = 1.0            # g/cm^3
+HBOND_SCRIPT = """\
+variable nstep index 10
+units real
+atom_style full
+read_data {data}
+bond_style harmonic
+bond_coeff 1 450.0 {r0}
+angle_style harmonic
+angle_coeff 1 55.0 {theta0}
+{pair}special_bonds lj/coul 0.0 0.0 0.5
+neighbor 2.0 bin
+velocity all create 300.0 4928459 loop geom
+timestep 1.0
+fix 1 all nvt temp 300.0 300.0 100.0
+thermo_style custom step etotal ke temp pe evdwl ecoul elong ebond eangle \
+press
+thermo 1
+run ${{nstep}}
+"""
+# the hbond styles' settings and coefficients (tests/test_hbond.py HB_LINE)
+HBOND_FORMS = {
+    "lj": ("hbond/dreiding/lj", "4 6.0 8.0 90", "3.5 2.75 4"),
+    "morse": ("hbond/dreiding/morse", "2 6.0 8.0 90", "3.88 1.7241379 2.9 2"),
+}
+
+
+def hbond_script(form="lj", alone=False, cut="10.0"):
+    """HBOND_SCRIPT for the data file hbond.data: hybrid/overlay
+    lj/cut/coul/long `cut` (with pppm 1e-4) beside hbond/dreiding/<form>,
+    in tests/test_hbond.py's coefficient forms; alone: the hbond style by
+    itself, without k-space."""
+    style, settings, coeffs = HBOND_FORMS[form]
+    if alone:
+        pair = (f"pair_style {style} {settings}\n"
+                f"pair_coeff 1 1 2 i {coeffs}\n")
+    else:
+        pair = (f"pair_style hybrid/overlay lj/cut/coul/long {cut} {style} "
+                f"{settings}\n"
+                "pair_coeff 1 1 lj/cut/coul/long 0.1553 3.166\n"
+                "pair_coeff 2 2 lj/cut/coul/long 0.0 1.0\n"
+                "pair_coeff 1 2 lj/cut/coul/long 0.0 2.083\n"
+                f"pair_coeff 1 1 {style} 2 i {coeffs}\n"
+                "kspace_style pppm 1e-4\n")
+    return HBOND_SCRIPT.format(data="hbond.data", r0=R0, theta0=THETA0,
+                               pair=pair)
+
+
+def hbond_water_layout(nwater, seed=5):
+    """nwater flexible waters at HBOND_DENSITY in a cube (1,000: 31.04 A):
+    the O on the first nwater sites, in a seeded order, of a k^3 grid (k
+    the cube root rounded up) and each water turned by a random unit
+    quaternion (water_layout's form), the charges HBOND_Q; the namespace
+    the port's data writer reads."""
+    import numpy as np
+
+    L = (nwater * (WATER_MASSES[0] + 2 * WATER_MASSES[1]) / 0.602214076
+         / HBOND_DENSITY) ** (1.0 / 3.0)
+    k = int(math.ceil(nwater ** (1.0 / 3.0) - 1e-9))
+    d = water_layout(k, L, seed=seed, jitter=0.0)
+    sites = np.sort(np.random.RandomState(seed).permutation(k ** 3)[:nwater])
+    rows = (3 * sites[:, None] + np.arange(3)).reshape(-1)
+    new_id = np.full(3 * k ** 3 + 1, -1)
+    new_id[rows + 1] = np.arange(1, 3 * nwater + 1)
+    keep_b = np.all(new_id[d._bonds] > 0, axis=1)
+    keep_a = np.all(new_id[d._angles] > 0, axis=1)
+    d.x, d.v = d.x[rows], d.v[rows]
+    d.q = np.tile(HBOND_Q[:1] + HBOND_Q[1:] * 2, nwater)
+    d.mol = np.repeat(np.arange(1, nwater + 1), 3)
+    d.type = np.tile([1, 2, 2], nwater)
+    d._bonds = new_id[d._bonds[keep_b]]
+    d._bond_types = np.ones(len(d._bonds), int)
+    d._angles = new_id[d._angles[keep_a]]
+    d._angle_types = np.ones(len(d._angles), int)
+    return d
+
+
 def write_breadth_data(path, one_type=False):
     """scripts/gen_breadth_goldens.py write_data's 64-atom box (two
     types; one with one_type): a 4^3 simple cubic lattice in a 6^3 box,
@@ -7618,6 +7801,363 @@ def pair_style_paths(launches, reset_counts, read_counts):
     breadth_golden_phases()
 
 
+# the rest of the CHARMM family, fix cmap and the hydrogen bonds
+# (charmm_family_paths): AS-AU on path S's fluid doubled along x, AV on
+# 1,000 flexible waters; each at a small size against its CPU twin
+CHARMM_SIDE = (8, 4, 5)        # 3,840 atoms: the dense route (<= 4096)
+CHARMM_TWIN_SIDE = (2, 2, 2)   # 192 atoms
+CHARMM_STEPS = 10
+CHARMM_TWIN_STEPS = 2          # rows 0-2 against the CPU twins
+HBOND_WATERS = 1000
+HBOND_TWIN_WATERS = 81
+# path -> flexible_script_case's keywords at its full cutoffs
+CHARMM_PATHS = {
+    "AS": dict(pair="lj/charmmfsw/coul/long 8 10", dihedral="charmmfsw",
+               cmap="yes"),
+    "AT": dict(pair="lj/charmmfsw/coul/charmmfsh 8 12",
+               dihedral="charmmfsw", cmap="yes", kspace=None),
+    "AU": dict(pair="lj/charmm/coul/charmm/implicit 8 10", kspace=None),
+}
+# the small size's cutoffs, inside its 12.6 A box (tests/
+# test_torch_charmm_family.py PATHS)
+CHARMM_TWIN_PAIRS = {"AS": "lj/charmmfsw/coul/long 4 5.5",
+                     "AT": "lj/charmmfsw/coul/charmmfsh 4 5.5",
+                     "AU": "lj/charmm/coul/charmm/implicit 4 5.5"}
+HBOND_COLS = WATER_COLS
+# tests/test_pair_breadth2.py's CHARMM-family rows (:263-275, :470-531):
+# case -> (pair lines, k-space line, {step: (column: value)}, bars)
+CHARMM_GOLDEN = {
+    "charmmfsw/coul/charmmfsh": (
+        "pair_style lj/charmmfsw/coul/charmmfsh 1.8 2.2 2.4", "",
+        {0: dict(temp=1.0, pe=-1.14747471387, evdwl=-0.904567057545,
+                 ecoul=-0.242907656322, press=-0.366306512177),
+         5: dict(temp=1.00580226085, pe=-1.15619587224,
+                 evdwl=-0.913223875741, ecoul=-0.242971996502,
+                 press=-0.368041811185)},
+        dict(temp=(2e-6, 0.0), pe=(2e-6, 0.0), evdwl=(2e-6, 0.0),
+             ecoul=(2e-6, 0.0), press=(2e-5, 0.0))),
+    "charmmfsw/coul/long": (
+        "pair_style lj/charmmfsw/coul/long 1.8 2.2 2.4",
+        "kspace_style ewald 1.0e-6",
+        {0: dict(temp=1.0, pe=-1.48711586758, evdwl=-0.904567057545,
+                 ecoul=-0.00246372882613, elong=-0.580085081204,
+                 press=-0.364550075037),
+         5: dict(temp=1.00593867861, pe=-1.49603843883,
+                 evdwl=-0.913225786853, ecoul=-0.00256795946468,
+                 elong=-0.58024469251, press=-0.366236953668)},
+        dict(temp=(2e-6, 0.0), pe=(2e-6, 0.0), evdwl=(2e-6, 0.0),
+             ecoul=(2e-4, 1e-7), elong=(2e-5, 0.0), press=(2e-4, 0.0))),
+    "charmm/coul/charmm/implicit": (
+        "pair_style lj/charmm/coul/charmm/implicit 1.8 2.2 1.9 2.4", "",
+        {0: dict(temp=1.0, pe=-1.66776231135, evdwl=-1.16764098581,
+                 ecoul=-0.50012132554),
+         5: dict(temp=1.01137285491, pe=-1.68456253001,
+                 evdwl=-1.1812279611, ecoul=-0.503334568907)},
+        dict(temp=(2e-6, 0.0), pe=(2e-6, 0.0), evdwl=(2e-6, 0.0),
+             ecoul=(2e-6, 0.0))),
+}
+CHARMM_GOLDEN_RUN = """\
+units lj
+atom_style charge
+read_data data.breadth
+{pair}
+pair_coeff 1 1 1.0 1.0
+pair_coeff 2 2 0.8 1.1
+{kspace}
+velocity all create 1.0 87287 loop geom
+timestep 0.005
+fix 1 all nve
+thermo 5
+run 5
+"""
+# tests/test_hbond.py's rows (GOLDEN, rebuilt 16Mar18 LAMMPS): step temp
+# pe evdwl press, at rel 1e-8, abs 1e-10
+HBOND_GOLDEN = {
+    "lj": [
+        [0, 11.6534413544866, -5.02134593821794, -5.02134593821796,
+         46.5849943694826],
+        [2, 11.5607127992312, -5.01913372467812, -5.02071109317161,
+         47.6154345739727],
+        [4, 11.4337376921595, -5.01609471626278, -5.02219102815062,
+         51.1115889068202],
+        [6, 11.3015274756951, -5.0129237952944, -5.02568102958299,
+         56.8882377321442],
+        [8, 11.2115920138498, -5.01075881356835, -5.0310585625504,
+         64.6301800595781],
+    ],
+    "morse": [
+        [0, 11.6534413544866, -11.4839822851457, -11.4839822851457,
+         295.422068328193],
+        [2, 11.6578863458207, -11.4840929813547, -11.4857123884612,
+         297.384709259317],
+        [4, 11.6710109590246, -11.4844011542017, -11.4908479756116,
+         302.915826813913],
+        [6, 11.7052100439714, -11.4852042554603, -11.4991591605188,
+         311.706565579536],
+        [8, 11.7927626408055, -11.4872760385779, -11.5103756482518,
+         323.255996452036],
+    ],
+}
+HBOND_GOLDEN_LINE = {
+    "lj": ("hbond/dreiding/lj 4 6.0 8.0 90",
+           "pair_coeff 1 1 hbond/dreiding/lj 2 i 3.5 2.75 4"),
+    "morse": ("hbond/dreiding/morse 2 6.0 8.0 90",
+              "pair_coeff 1 1 hbond/dreiding/morse 2 i "
+              "3.88 1.7241379 2.9 2"),
+}
+HBOND_GOLDEN_SCRIPT = """\
+units real
+atom_style full
+boundary p p p
+read_data data.hb
+pair_style hybrid/overlay lj/cut 5.0 {style}
+pair_coeff 1 1 lj/cut 0.1553 3.166
+pair_coeff 2 2 lj/cut 0.0 1.0
+pair_coeff 1 2 lj/cut 0.0 2.083
+{coeff}
+bond_style harmonic
+bond_coeff 1 450.0 0.9572
+angle_style harmonic
+angle_coeff 1 55.0 104.52
+special_bonds lj/coul 0.0 0.0 0.5
+timestep 0.2
+fix 1 all nve
+thermo_style custom step temp pe evdwl press
+thermo 2
+run 8
+"""
+
+
+def write_hbond_golden_data(path):
+    """tests/test_hbond.py write_data's box: three waters (9 atoms,
+    TIP3P-like geometry, charges -0.8/+0.4) in a 12 A box with the
+    RandomState(7) velocities, the file its GOLDEN rows were made on."""
+    import numpy as np
+
+    def water(ox, oy, oz, th):
+        c, s_ = np.cos(th), np.sin(th)
+        o = np.array([ox, oy, oz])
+        h1 = o + 0.9572 * np.array([c, s_, 0.0])
+        a2 = th + np.deg2rad(104.52)
+        h2 = o + 0.9572 * np.array([np.cos(a2), np.sin(a2), 0.0])
+        return [o, h1, h2]
+
+    mols = [water(0.0, 0.0, 0.0, 0.1), water(2.9, 0.3, 0.2, np.pi * 0.9),
+            water(1.2, 2.7, -0.4, -np.pi / 2)]
+    rng = np.random.RandomState(7)
+    with open(path, "w") as f:
+        f.write("hbond golden\n\n9 atoms\n6 bonds\n3 angles\n\n"
+                "2 atom types\n1 bond types\n1 angle types\n\n")
+        f.write("-6.0 6.0 xlo xhi\n-6.0 6.0 ylo yhi\n-6.0 6.0 zlo zhi\n\n"
+                "Masses\n\n1 15.9994\n2 1.008\n\nAtoms\n\n")
+        i = 0
+        for m, w in enumerate(mols):
+            for k, p in enumerate(w):
+                i += 1
+                t = 1 if k == 0 else 2
+                q = -0.8 if k == 0 else 0.4
+                f.write(f"{i} {m+1} {t} {q} "
+                        f"{p[0]:.8f} {p[1]:.8f} {p[2]:.8f}\n")
+        f.write("\nBonds\n\n")
+        bid = 0
+        for m in range(3):
+            o = 3 * m + 1
+            for h in (o + 1, o + 2):
+                bid += 1
+                f.write(f"{bid} 1 {o} {h}\n")
+        f.write("\nAngles\n\n")
+        for m in range(3):
+            o = 3 * m + 1
+            f.write(f"{m+1} 1 {o+1} {o} {o+2}\n")
+        f.write("\nVelocities\n\n")
+        v = rng.uniform(-0.002, 0.002, (9, 3))
+        for i in range(9):
+            f.write(f"{i+1} {v[i,0]:.8f} {v[i,1]:.8f} {v[i,2]:.8f}\n")
+
+
+def charmm_golden_phases():
+    """tests/test_pair_breadth2.py's three CHARMM-family LAMMPS rows and
+    tests/test_hbond.py's two, through LammpsScript in float64 on the
+    card, each column at that test's bars."""
+    import torch
+
+    from lidp_tpu_torch.io.script import LammpsScript
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_charmm_gold_")
+    try:
+        write_breadth_data(os.path.join(work, "data.breadth"))
+        write_hbond_golden_data(os.path.join(work, "data.hb"))
+        cases = {case: (CHARMM_GOLDEN_RUN.format(pair=pair, kspace=ks), ref,
+                        bars, "tests/test_pair_breadth2.py")
+                 for case, (pair, ks, ref, bars) in CHARMM_GOLDEN.items()}
+        for form, rows in HBOND_GOLDEN.items():
+            style, coeff = HBOND_GOLDEN_LINE[form]
+            cases[f"hbond/dreiding/{form}"] = (
+                HBOND_GOLDEN_SCRIPT.format(style=style, coeff=coeff),
+                {int(r[0]): dict(zip(("temp", "pe", "evdwl", "press"),
+                                     r[1:])) for r in rows},
+                {c: (1e-8, 1e-10) for c in ("temp", "pe", "evdwl",
+                                            "press")},
+                "tests/test_hbond.py")
+        for k, (case, (text, ref, bars, where)) in enumerate(cases.items()):
+            path = os.path.join(work, f"in.golden{k}")
+            with open(path, "w") as fh:
+                fh.write(text)
+            s = LammpsScript(dtype=torch.float64, log=lambda line: None)
+            s.file(path)
+            got = {int(r["step"]): r for r in s.thermo_rows}
+            worst = 0.0
+            for step, row in ref.items():
+                for name, g in row.items():
+                    rel, ab = bars[name]
+                    bar = max(rel * abs(g), ab)
+                    worst = max(worst, abs(got[step][name] - g) / bar)
+                    if not abs(got[step][name] - g) <= bar:
+                        raise AssertionError(
+                            f"golden {case} step {step} {name}: "
+                            f"{got[step][name]!r}, LAMMPS {g!r}")
+            print(f"golden {case} ({where}): {len(ref)} rows on the card at "
+                  f"{worst:.3g} of that test's bars")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def charmm_term_calls(sim):
+    """The terms of sim's state that the CHARMM-family paths add or lean
+    on, each the call compute_forces makes: the pair passes
+    (pair_term_calls), the mesh, the bonded terms (the charmmfsw
+    dihedral and its 1-4 term among them), fix cmap's crossterms and the
+    hydrogen bonds' [M, N] pass; label -> a callable."""
+    import torch
+
+    from lidp_tpu_torch.forcefield import bonded_terms
+    from lidp_tpu_torch.ops.cmap import cmap_forces
+    from lidp_tpu_torch.ops.hbond import hbond_forces
+    from lidp_tpu_torch.ops.pppm import pppm_forces_params
+
+    s, ff = sim.sys, sim.runner.ff
+    calls = pair_term_calls(sim)
+    if ff.pppm is not None:
+        calls["pppm_forces_params"] = lambda: pppm_forces_params(
+            s.x - s.box.lo, s.q, s.box.lengths, ff.pppm)
+    z = torch.zeros_like(s.x)
+    calls["bonded_terms"] = lambda: bonded_terms(
+        s, ff, z, z.new_zeros(()), z.new_zeros(()), z.new_zeros(6))
+    if ff.cmap is not None:
+        calls["cmap_forces"] = lambda: cmap_forces(s.x, ff.cmap)
+    for k, hp in enumerate(ff.hbond):
+        calls[f"hbond_forces[{k}]"] = (
+            lambda hp=hp: hbond_forces(s.x, s.mask, s.box, hp))
+    return calls
+
+
+def charmm_readings(path, sim):
+    """A CHARMM-family path's terms (charmm_term_calls) timed on its final
+    state by CUDA events after a warm-up, ms a call; the hydrogen bonds'
+    and the crossterms' repeats bit for bit (their sums run in a fixed
+    order; the crossterms' forces by index_add_ may not)."""
+    import torch
+
+    calls = charmm_term_calls(sim)
+    parts = [f"{label} {cuda_ms(fn, reps=3, warmup=1):.4f}"
+             for label, fn in calls.items()]
+    print(f"path {path} ms a call by CUDA events on its final state: "
+          + ", ".join(parts) + f"; {smi_line()}")
+    for label in [k for k in calls if k.startswith(("hbond", "cmap"))]:
+        a, b = calls[label](), calls[label]()
+        same = all(torch.equal(u, v) for u, v in zip(a, b))
+        print(f"path {path}: {label} twice on one state "
+              f"{'bit-identical' if same else 'differs in the last bits'}")
+        if label.startswith("hbond") and not same:
+            raise AssertionError(f"path {path}: {label} repeats differ")
+
+
+def charmm_family_paths(launches, reset_counts, read_counts):
+    """Paths AS, AT, AU and AV, their CPU twins and the goldens (module
+    docstring).  Each path sets launches[path]."""
+    import torch
+
+    from lidp_tpu_torch.io.data_writer import write_data
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_charmm_")
+    try:
+        args = (launches, reset_counts, read_counts)
+        cols = FLEX_COLS
+        # AS-AU share their atoms: the case written once, with its CMAP
+        # section, and without it for the paths with no fix cmap
+        full = os.path.join(work, "full")
+        os.makedirs(full)
+        flexible_script_case(full, n_side=CHARMM_SIDE, **CHARMM_PATHS["AS"])
+        with open(os.path.join(full, "flex.data")) as fh:
+            data = fh.read()
+        with open(os.path.join(full, "flex.nocmap"), "w") as fh:
+            fh.write("\n".join(line for line in data.split("\nCMAP\n")[0]
+                               .splitlines()
+                               if not line.endswith(" crossterms")) + "\n")
+        for path, kw in CHARMM_PATHS.items():
+            cmap = "cmap" in kw
+            text = flexible_script(
+                pair=kw["pair"], kspace=kw.get("kspace", "pppm 1e-4"),
+                dihedral=kw.get("dihedral", "charmm"), cmap=kw.get("cmap"))
+            if not cmap:
+                text = text.replace("read_data flex.data",
+                                    "read_data flex.nocmap")
+            s = pair_path(path, full, f"in.{path}", text, CHARMM_STEPS,
+                          False, *args,
+                          cols + (("f_cmap",) if cmap else ()))
+            sim = s._sim
+            ff = sim.runner.ff
+            print(f"path {path}: {kw['pair']}, dihedral_style "
+                  f"{ff.dihedral[0].style}, "
+                  f"{len(ff.cmap.ctype) if cmap else 0} crossterms, "
+                  f"qqrd2e {ff.qqrd2e}; f_cmap by row "
+                  + (", ".join(f"{r['f_cmap']:.6f}"
+                               for r in s.thermo_rows[:3]) if cmap else "-"))
+            charmm_readings(path, sim)
+            del s, sim, ff
+            torch.cuda.empty_cache()
+            # the small size against its CPU twin
+            ds = os.path.join(work, path + "-192")
+            os.makedirs(ds)
+            small = dict(kw, pair=CHARMM_TWIN_PAIRS[path])
+            flexible_script_case(ds, n_side=CHARMM_TWIN_SIDE, cut=(4.0, 5.5),
+                                 **small)
+            with open(os.path.join(ds, "in.flex")) as fh:
+                text = fh.read()
+            s = pair_path(f"{path}-192", ds, "in.flex", text,
+                          CHARMM_TWIN_STEPS, False, *args,
+                          cols + (("f_cmap",) if cmap else ()), record=False)
+            defer_twin(f"{path}-192", ds, "in.flex", CHARMM_TWIN_STEPS,
+                       twin_check(f"{path}-192", run_state(s),
+                                  cols + (("f_cmap",) if cmap else ())),
+                       cost=15.0)
+            del s
+        # AV: the hydrogen bonds beside lj/cut/coul/long
+        for path, nw, steps in (("AV", HBOND_WATERS, CHARMM_STEPS),
+                                ("AV-81", HBOND_TWIN_WATERS,
+                                 CHARMM_TWIN_STEPS)):
+            d = os.path.join(work, path)
+            os.makedirs(d)
+            write_data(os.path.join(d, "hbond.data"), hbond_water_layout(nw))
+            s = pair_path(path, d, "in.av", hbond_script("lj"), steps, False,
+                          *args, HBOND_COLS, record=path == "AV")
+            if path == "AV":
+                hp = s._sim.runner.ff.hbond[0]
+                print(f"path AV: {nw} waters, {int(hp.dh_valid.sum())} "
+                      f"donor-hydrogen rows against {s._sim.natoms} atoms "
+                      "(hbond_forces' [M, N] pass)")
+                charmm_readings(path, s._sim)
+            else:
+                defer_twin(path, d, "in.av", steps,
+                           twin_check(path, run_state(s), HBOND_COLS),
+                           cost=15.0)
+            del s
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    charmm_golden_phases()
+
+
 def main() -> int:
     import torch
 
@@ -8450,6 +8990,7 @@ def main() -> int:
                   launches["G"])
     kspace_paths(launches, reset_counts, read_counts)
     pair_style_paths(launches, reset_counts, read_counts)
+    charmm_family_paths(launches, reset_counts, read_counts)
     run_twins()
 
     # 6. results

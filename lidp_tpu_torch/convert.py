@@ -54,23 +54,20 @@ def pair_from_numpy(pair: dict, device="cuda",
                     dtype=torch.float32) -> PairParams:
     """The port's PairParams from a numpy copy of the JAX one, every kind
     and coulomb kind of ops/pair.py: lj/cut (coul=False), lj/cut/coul/long
-    or the lj/charmm styles (lj3, lj4, the charmm switch); the long
-    dispersion kinds lj/long (lj3, lj4 as they are) and buck/long (the JAX
-    tables lj1 = A, lj2 = 1/rho, lj3 = C become lj3, rhoinv and lj4),
-    both with the g6 of their lj5 table; the generic kinds with their
-    tables lj1..lj5 as they are; the table (tab_e, tab_f, tab_rlo,
-    tab_dr); the coulomb kinds with their scalars (msm_order, the charmm
-    switch, the dsf/wolf shifts, gromacs's coulsw); and excl_mol and the
-    type exclusion table excl.  CHARMM force switching (charmm_fsw) and a
-    kind or coulomb kind the JAX package does not have raise."""
+    or the lj/charmm and lj/charmmfsw styles (lj3, lj4, the charmm energy
+    or force switch, charmm_fsw); the long dispersion kinds lj/long (lj3,
+    lj4 as they are) and buck/long (the JAX tables lj1 = A, lj2 = 1/rho,
+    lj3 = C become lj3, rhoinv and lj4), both with the g6 of their lj5
+    table; the generic kinds with their tables lj1..lj5 as they are; the
+    table (tab_e, tab_f, tab_rlo, tab_dr); the coulomb kinds with their
+    scalars (msm_order, the charmm and charmm/implicit switch, the
+    dsf/wolf shifts, gromacs's coulsw); and excl_mol and the type
+    exclusion table excl.  A kind or coulomb kind the JAX package does
+    not have raises."""
     from lidp_tpu_torch import resolve_device
 
     device = resolve_device(device)
     coul = bool(_scalar(pair.get("coul", True)))
-    if bool(_scalar(pair.get("charmm_fsw", False))):
-        raise NotImplementedError(
-            "pair field charmm_fsw (lj/charmmfsw/*) is not ported (ROADMAP "
-            "queue 1 item 6.6, the CHARMM family)")
     kind = str(_scalar(pair.get("kind", "lj")))
     coul_kind = str(_scalar(pair.get("coul_kind", "long"))) if coul \
         else "long"
@@ -78,10 +75,8 @@ def pair_from_numpy(pair: dict, device="cuda",
         raise NotImplementedError(f"pair field kind={kind!r}: no van der "
                                   "Waals kind of the JAX package")
     if coul_kind not in COUL_KINDS:
-        # charmm/implicit and charmmfsh, the rest of the CHARMM family
-        raise NotImplementedError(
-            f"pair field coul_kind={coul_kind!r} is not ported (ROADMAP "
-            "queue 1 item 6.6, the CHARMM family)")
+        raise NotImplementedError(f"pair field coul_kind={coul_kind!r}: no "
+                                  "coulomb kind of the JAX package")
     lj5 = _given(pair, "lj5")
     if kind == "lj" and lj5 is not None:
         raise ValueError("pair field lj5 with kind 'lj': the JAX package "
@@ -123,6 +118,7 @@ def pair_from_numpy(pair: dict, device="cuda",
         excl=(None if _given(pair, "excl") is None else torch.as_tensor(
             np.array(pair["excl"]), dtype=torch.bool, device=device)),
         charmm=bool(_scalar(pair.get("charmm", False))),
+        charmm_fsw=bool(_scalar(pair.get("charmm_fsw", False))),
         cut_lj_innersq=f("cut_lj_innersq", 0.0), denom_lj=f("denom_lj", 1.0),
         coul_kind=coul_kind, cut_coul_innersq=f("cut_coul_innersq", 0.0),
         denom_coul=f("denom_coul", 1.0), kind=kind, g6=g6,

@@ -20,9 +20,11 @@ k-space on the charge sites with its forces redistributed, then MSM
 sum, each into E_long and the virial.  The pair term is that of
 `pair`, then of each hybrid sub-style in `extra_pairs` (one masked pass
 each, with its own special correction on the cell grid; the dsf and wolf
-kinds' self energy into E_coul when energies are asked for), then the DPD
-term (ops/dpd.py), as in the JAX package.  Neighbour lists (ROADMAP queue
-1 item 5) raise NotImplementedError.
+kinds' self energy into E_coul when energies are asked for), then the
+DREIDING hydrogen bonds (ops/hbond.py) into E_vdwl and the DPD term
+(ops/dpd.py), as in the JAX package; fix cmap's crossterms (ops/cmap.py)
+come last, into ForceResult.ecmap and, under fix_modify energy yes, efix.
+Neighbour lists (ROADMAP queue 1 item 5) raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -99,6 +101,15 @@ class ForceField:
     # pair_style dpd and dpd/tstat (ops.dpd.DPDParams), with `pair` None:
     # the dense (N,N) pass at every size
     dpd: Optional[object] = None
+    # the DREIDING hydrogen bonds (pair hbond/dreiding/lj and /morse, alone
+    # or as hybrid sub-styles; ops.hbond.HbondParams, one per sub-style):
+    # the 3-body donor-hydrogen-acceptor [M, N] pass after the pair passes,
+    # on either route
+    hbond: tuple = ()
+    # fix cmap's crossterms (ops.cmap.CMAPParams): after the long-range
+    # terms, into ForceResult.ecmap, and into efix (the potential energy)
+    # under fix_modify energy yes
+    cmap: Optional[object] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -279,19 +290,48 @@ def compute_forces(sys, ff: ForceField, nlist=None,
             total = out if total is None else [a + b for a, b in
                                                zip(total, out)]
         f, ev, ec, vir = total
+    f, ev, vir = hbond_term(sys, ff, f, ev, vir, need_ev)
     f, ev, vir = dpd_term(sys, ff, f, ev, vir, need_ev)
     f, ec, vir = tip4p_term(sys, ff, f, ec, vir)
     f, ev, ec, vir, bonded = bonded_terms(sys, ff, f, ev, ec, vir)
     if all(getattr(ff, k) is None for k in ("ewald", "pppm", "polar", "msm",
-                                            "pppm_disp", "ewald6")):
+                                            "pppm_disp", "ewald6", "cmap")):
         return pair_only_result(sys, f, ev, ec, vir, bonded)
-    return _long_range_terms(sys, ff, f, ev, ec, vir, bonded)
+    return _long_range_terms(sys, ff, f, ev, ec, vir, bonded, need_ev)
 
 
 def has_self_energy(p) -> bool:
     """Whether a pair table's coulomb kind tallies a self energy into
     E_coul (dsf and wolf: ops/pair.py dsf_wolf_self_energy)."""
     return p.coul and p.coul_kind in ("dsf", "wolf")
+
+
+def hbond_term(sys, ff: ForceField, f, evdwl, virial, need_ev: bool = True):
+    """The hydrogen bonds of each hbond sub-style (ops/hbond.py
+    hbond_forces; lidp_tpu/forcefield.py:276-284) added to f, evdwl and
+    virial; they pass through without ff.hbond."""
+    if not ff.hbond:
+        return f, evdwl, virial
+    from lidp_tpu_torch.ops.hbond import hbond_forces
+
+    for hp in ff.hbond:
+        fh, evh, virh = hbond_forces(sys.x, sys.mask, sys.box, hp,
+                                     need_ev=need_ev)
+        f, evdwl, virial = f + fh, evdwl + evh, virial + virh
+    return f, evdwl, virial
+
+
+def cmap_term(sys, ff: ForceField, f, virial, need_ev: bool = True):
+    """fix cmap's crossterms (ops/cmap.py cmap_forces;
+    lidp_tpu/forcefield.py:459-468): (f, virial, ecmap, efix), efix the
+    crossterm energy under fix_modify energy yes, else 0."""
+    zero = sys.x.new_zeros(())
+    if ff.cmap is None:
+        return f, virial, zero, zero
+    from lidp_tpu_torch.ops.cmap import cmap_forces
+
+    fc, ec, vc = cmap_forces(sys.x, ff.cmap, need_ev=need_ev)
+    return f + fc, virial + vc, ec, ec if ff.cmap.energy else zero
 
 
 def dpd_term(sys, ff: ForceField, f, evdwl, virial, need_ev: bool = True):
@@ -328,9 +368,10 @@ def tip4p_term(sys, ff: ForceField, f, ecoul, virial):
 def dense_forces(sys, ff: ForceField) -> ForceResult:
     """The dense route of lidp_tpu/forcefield.py compute_forces
     (nlist=None) in its order: the all-pairs pass of the pair style and
-    of each hybrid sub-style with the special codes, the DPD pairs, the
-    TIP4P sites, the bonded terms (bonded_terms), then the k-space sum
-    and the polarization term (_long_range_terms).  Plain PyTorch on
+    of each hybrid sub-style with the special codes, the hydrogen bonds,
+    the DPD pairs, the TIP4P sites, the bonded terms (bonded_terms), then
+    the k-space sum, the polarization term and fix cmap's crossterms
+    (_long_range_terms).  Plain PyTorch on
     (N,N) tensors: no kernel of ops/panel.py runs here."""
     from lidp_tpu_torch.ops import pair as pair_ops
     from lidp_tpu_torch.ops.pair import dsf_wolf_self_energy
@@ -352,6 +393,7 @@ def dense_forces(sys, ff: ForceField) -> ForceResult:
         f = f + fp
         evdwl, ecoul = evdwl + ev, ecoul + ec
         virial = virial + vir
+    f, evdwl, virial = hbond_term(sys, ff, f, evdwl, virial)
     f, evdwl, virial = dpd_term(sys, ff, f, evdwl, virial)
     f, ecoul, virial = tip4p_term(sys, ff, f, ecoul, virial)
     f, evdwl, ecoul, virial, bonded = bonded_terms(sys, ff, f, evdwl, ecoul,
@@ -360,7 +402,7 @@ def dense_forces(sys, ff: ForceField) -> ForceResult:
 
 
 def _long_range_terms(sys, ff: ForceField, f, evdwl, ecoul,
-                      virial, bonded) -> ForceResult:
+                      virial, bonded, need_ev: bool = True) -> ForceResult:
     """The terms after the pair term, on either route, in the JAX
     package's order: the k-space term (the Ewald sum, its tables rescaled
     to the live box under kspace_dynamic; or PPPM on the positions
@@ -370,7 +412,9 @@ def _long_range_terms(sys, ff: ForceField, f, evdwl, ecoul,
     field E0, the (N,3,N,3) tensor, the dipole solve from sys.mu under
     use_previous, the polar forces and epol), all on (N,N) tensors; the
     ForceResult of the pair term's f, evdwl, ecoul and virial with
-    them and the bonded energies `bonded`."""
+    them and the bonded energies `bonded`; last fix cmap's crossterms
+    (cmap_term), with their virial only under need_ev, as the JAX
+    package forms it."""
     from lidp_tpu_torch.ops import ewald as ewald_ops
     from lidp_tpu_torch.ops import polarization as pol_ops
     from lidp_tpu_torch.ops.pppm import pppm_forces_params
@@ -450,9 +494,10 @@ def _long_range_terms(sys, ff: ForceField, f, evdwl, ecoul,
         epol = epol + upol
         virial = virial + vpol
 
+    f, virial, ecmap, efix = cmap_term(sys, ff, f, virial, need_ev)
     return ForceResult(
         f=f, evdwl=evdwl, ecoul=ecoul, elong=elong, epol=epol, **bonded,
-        virial=virial, mu=mu,
+        ecmap=ecmap, efix=efix, virial=virial, mu=mu,
         scf_iters=torch.tensor(scf_iters, dtype=torch.int32,
                                device=x.device),
         scf_diverged=scf_diverged)

@@ -36,7 +36,11 @@ ave/time, ave/atom, ave/histo, ave/histo/weight, ave/correlate and vector
 of styles/fix_output.py, dump custom c_ID and f_ID columns), and the
 other pair styles (the generic styles of styles/pair_builders.py,
 pair_style table with pair_write, hybrid and hybrid/overlay, dpd and
-dpd/tstat, pair_modify tail);
+dpd/tstat, pair_modify tail), and the rest of the CHARMM family
+(lj/charmmfsw/coul/long|charmmfsh, lj/charmm/coul/charmm/implicit,
+dihedral_style charmmfsw), fix cmap (with read_data's `fix ID crossterm
+CMAP`, fix_modify ID energy and its f_ID) and the DREIDING hydrogen bonds
+(pair_style hbond/dreiding/lj|morse, alone or as a hybrid sub-style);
 every other command, style or keyword raises NotImplementedError naming
 itself and the ROADMAP item that ports it, and is never ignored.
 """
@@ -59,6 +63,7 @@ from lidp_tpu_torch.io import expr as expr_mod
 from lidp_tpu_torch.io.data_reader import read_data
 from lidp_tpu_torch.styles import fix_output
 from lidp_tpu_torch.styles.fix_output import OUTPUT_STYLES
+from lidp_tpu_torch.styles.pair_builders import HBOND_STYLES
 
 # bare-number detector for optional positional args (the pair_style
 # polarization grammar's optional cut_coul before keywords)
@@ -96,7 +101,10 @@ PAIR_STYLES = ("lj/cut", "lj/cut/coul/long", "lj/cut/coul/long/polarization",
                "lj/cut/tip4p/long", "lj/cut/tip4p/cut", "tip4p/long",
                "tip4p/cut", "lj/long/tip4p/long", "lj/cut/coul/msm",
                "lj/charmm/coul/msm") + LJ_COUL_STYLES + GENERIC_STYLES + (
-                   "table", "dpd", "dpd/tstat", "hybrid", "hybrid/overlay")
+                   "table", "dpd", "dpd/tstat", "hybrid", "hybrid/overlay",
+                   "lj/charmm/coul/charmm/implicit", "lj/charmmfsw/coul/long",
+                   "lj/charmmfsw/coul/charmmfsh", "hbond/dreiding/lj",
+                   "hbond/dreiding/morse")
 # registration aliases (pair_lj_smooth_linear.h:17 lj/sf)
 PAIR_STYLE_ALIASES = {"lj/sf": "lj/smooth/linear"}
 # the TIP4P styles: the oxygen's charge on the M site (ops/tip4p.py)
@@ -110,17 +118,13 @@ KSPACE_STYLES = ("ewald", "ewald/disp", "pppm", "pppm/cg", "pppm/stagger",
 # the many-body styles (ops/eam.py): the cutoff comes from the potential
 # file that pair_coeff names
 EAM_STYLES = ("eam", "eam/alloy", "eam/fs")
-# the CHARMM pair styles and DREIDING hydrogen bonds the JAX package runs
-# and the port does not
-CHARMM_UNPORTED = ("lj/charmm/coul/charmm/implicit",
-                   "lj/charmmfsw/coul/long", "lj/charmmfsw/coul/charmmfsh",
-                   "hbond/dreiding/lj", "hbond/dreiding/morse")
-_CHARMM = "ROADMAP queue 1 item 6.6, the CHARMM family"
+# fix cmap's crossterms where the JAX package keeps them off their atoms
+_CMAP_ITEM = "ROADMAP queue 3 item 39, fix cmap beyond the dense route"
 # every style name the JAX interpreter knows: a hybrid's argument list
 # splits at these (PairHybrid::settings, pair_hybrid.cpp)
 KNOWN_PAIR_STYLES = frozenset(
-    PAIR_STYLES + EAM_STYLES + CHARMM_UNPORTED
-    + tuple(PAIR_STYLE_ALIASES)) - {"hybrid", "hybrid/overlay"}
+    PAIR_STYLES + EAM_STYLES + tuple(PAIR_STYLE_ALIASES)) - {
+        "hybrid", "hybrid/overlay"}
 # pair_coeff's coefficient count of the generic styles (the JAX package's
 # script.py _NCOEFF), the cutoff after them optional
 _NCOEFF = {"morse": 3, "buck": 3, "buck/coul/cut": 3, "buck/coul/long": 3,
@@ -175,12 +179,11 @@ FIX_STYLES = ("nve", "nvt", "npt", "nph", "rigid", "rigid/nve", "rigid/nvt",
               "temp/rescale", "temp/berendsen", "temp/csld", "enforce2d",
               "box/relax", "wall/reflect", "wall/lj93", "wall/lj126",
               "wall/lj1043", "wall/harmonic", "wall/region", "indent",
-              "move")
+              "move", "cmap")
 # where the fix styles the port lacks are queued: the modifier fixes of
 # the JAX package's styles/fix_modifiers.py, and the others by their item
 _MODIFIERS = "ROADMAP queue 1 item 6.1, the modifier fixes"
 _FIX_ITEMS = {
-    "cmap": "ROADMAP queue 1 item 6.6, the CHARMM family",
     "nvt/sllod": "ROADMAP queue 1 item 6.8, integrator keywords",
     "nvt/sphere": "ROADMAP queue 1 item 6.8, integrator keywords",
     "npt/sphere": "ROADMAP queue 1 item 6.8, integrator keywords",
@@ -231,14 +234,13 @@ _OUTPUT_FIXES = "ROADMAP queue 3 item 25, keywords JAX skips"
 # the min styles of integrate/minimize.py
 MIN_STYLES = ("fire", "cg", "sd", "quickmin", "hftn")
 
-# the bonded styles (ops/bonded.py, styles/bonded_builders.py); dihedral
-# charmmfsw pairs with lj/charmmfsw, which is not ported
+# the bonded styles (ops/bonded.py, styles/bonded_builders.py)
 BOND_STYLES = ("harmonic", "fene", "fene/expand", "morse", "nonlinear",
                "gromos", "quartic", "table", "zero", "hybrid")
 ANGLE_STYLES = ("harmonic", "charmm", "cosine", "cosine/squared",
                 "cosine/delta", "cosine/periodic", "table", "zero", "hybrid")
-DIHEDRAL_STYLES = ("opls", "harmonic", "charmm", "multi/harmonic", "helix",
-                   "zero", "hybrid")
+DIHEDRAL_STYLES = ("opls", "harmonic", "charmm", "charmmfsw",
+                   "multi/harmonic", "helix", "zero", "hybrid")
 IMPROPER_STYLES = ("harmonic", "cvff", "umbrella", "zero", "hybrid")
 
 
@@ -443,6 +445,9 @@ class LammpsScript:
         # KE and pressure follow; fix_modify ID temp ID by fix
         self._thermo_temp = None
         self._fix_modify: dict = {}
+        # fix cmap's crossterm rows (M,6) [map a1..a5] of read_data's CMAP
+        # section, None without one
+        self._crossterms = None
         # compute_modify by compute ID (thermo_temp: the thermo's)
         self._compute_modify: dict = {}
         # the thermo row while its v_NAME columns are evaluated, so that a
@@ -1055,8 +1060,18 @@ class LammpsScript:
         self.groups["all"] = np.ones(nnew, bool)
 
     def cmd_read_data(self, a):
-        if len(a) > 1:
-            _unported(f"read_data keywords {' '.join(a[1:])}")
+        """read_data FILE [fix ID HEADER SECTION ...] (read_data.cpp): the
+        fix keyword hands a section to a fix; fix cmap's `crossterm CMAP`
+        is the one the port takes (the reader finds the CMAP section and
+        the crossterms header by name, as the JAX package's does)."""
+        rest = list(a[1:])
+        while rest:
+            if (len(rest) < 4 or rest[0] != "fix"
+                    or rest[1] not in self.fixes
+                    or self.fixes[rest[1]].style != "cmap"
+                    or rest[2:4] != ["crossterm", "CMAP"]):
+                _unported(f"read_data keywords {' '.join(rest)}")
+            rest = rest[4:]
         d = read_data(os.path.join(self.root, a[0]),
                       atom_style=self.atom_style)
         if d.tilt is not None and np.any(d.tilt != 0.0):
@@ -1077,6 +1092,8 @@ class LammpsScript:
         self._angles, self._angle_types = d.angles, d.angle_types
         self._dihedrals, self._dihedral_types = d.dihedrals, d.dihedral_types
         self._impropers, self._improper_types = d.impropers, d.improper_types
+        if d.crossterms is not None:
+            self._crossterms = d.crossterms
         self.groups["all"] = np.ones(d.natoms, bool)
         # the coeff sections of the data file (read_data.cpp): Pair Coeffs
         # rows are per type (i == i); the CHARMM styles carry eps14 and
@@ -1100,6 +1117,11 @@ class LammpsScript:
             raise ValueError("Illegal replicate command: factors must be >= 1")
         if len(a) > 3:
             _unported(f"replicate keywords {' '.join(a[3:])}")
+        if self._crossterms is not None:
+            # the JAX package replicates the atoms and keeps the CMAP rows
+            # of the first copy
+            _unported("replicate with fix cmap's crossterms (the JAX "
+                      "package keeps the first copy's rows)", _CMAP_ITEM)
         L = self.box_hi - self.box_lo
         n0 = self.x.shape[0]
         maxmol = int(self.mol.max()) if self.mol.size else 0
@@ -1233,9 +1255,12 @@ class LammpsScript:
     def cmd_pair_style(self, a):
         """pair_style lj/cut CUT | lj/cut/coul/long CUT [CUT_COUL] |
         lj/cut/coul/long/polarization CUT [CUT_COUL] [keywords] |
-        lj/charmm/coul/long INNER OUTER [CUT_COUL] | lj/charmm/coul/charmm
-        INNER OUTER [INNER_COUL OUTER_COUL] (the CHARMM styles mix
-        arithmetically, as the JAX package sets them) | eam | eam/alloy |
+        lj/charmm/coul/long, lj/charmmfsw/coul/long and
+        lj/charmmfsw/coul/charmmfsh INNER OUTER [CUT_COUL] |
+        lj/charmm/coul/charmm and lj/charmm/coul/charmm/implicit INNER
+        OUTER [INNER_COUL OUTER_COUL] (the CHARMM styles mix
+        arithmetically, as the JAX package sets them) | hbond/dreiding/lj
+        and hbond/dreiding/morse AP INNER OUTER ANGLE | eam | eam/alloy |
         eam/fs | the long-dispersion, TIP4P and coul/msm styles
         (_kspace_pair_style) | the generic styles, lj/cut/coul/cut|debye|
         dsf|wolf, table and dpd (_generic_pair_style) | hybrid and
@@ -1244,9 +1269,6 @@ class LammpsScript:
         self.pair_coeffs = {}
         self.pair_coeffs14 = {}
         a = [PAIR_STYLE_ALIASES.get(a[0], a[0])] + list(a[1:])
-        if a[0] in CHARMM_UNPORTED:
-            _unported(f"pair_style {a[0]} (the JAX package runs it)",
-                      _CHARMM)
         if a[0] not in PAIR_STYLES + EAM_STYLES:
             _unported(f"pair_style {a[0]}", _BREADTH)
         p = PairStyleSpec(name=a[0])
@@ -1272,10 +1294,24 @@ class LammpsScript:
                 raise ValueError("Illegal pair_style command")
             self.pair = p
             return
+        if a[0] in HBOND_STYLES:
+            # ap inner outer angle (pair_hbond_dreiding_lj.cpp::settings
+            # :303-311); the coefficient rows are kept raw
+            # (ops/hbond.py make_hbond_params reads them)
+            if len(a) != 5:
+                raise ValueError("Illegal pair_style command")
+            self._hbond_settings = (int(a[1]), float(a[2]), float(a[3]),
+                                    float(a[4]))
+            self.hbond_coeffs = []
+            p.cut_lj_global = float(a[3])
+            self.pair = p
+            return
         p.cut_lj_global = float(a[1])
-        if a[0] == "lj/charmm/coul/long":
-            # inner outer [coul-outer] (pair_lj_charmm_coul_long.cpp
-            # settings)
+        if a[0] in ("lj/charmm/coul/long", "lj/charmmfsw/coul/long",
+                    "lj/charmmfsw/coul/charmmfsh"):
+            # inner outer [coul-outer] (pair_lj_charmm_coul_long.cpp and
+            # pair_lj_charmmfsw_coul_*.cpp settings; the coulomb cutoff
+            # the outer LJ one by default)
             if len(a) not in (3, 4):
                 raise ValueError("Illegal pair_style command")
             p.cut_lj_inner = float(a[1])
@@ -1284,7 +1320,8 @@ class LammpsScript:
             self._pair_mix = "arithmetic"
             self.pair = p
             return
-        if a[0] == "lj/charmm/coul/charmm":
+        if a[0] in ("lj/charmm/coul/charmm",
+                    "lj/charmm/coul/charmm/implicit"):
             # inner outer [inner-coul outer-coul]
             # (pair_lj_charmm_coul_charmm.cpp settings: 2 or 4 arguments)
             if len(a) not in (3, 5):
@@ -1350,18 +1387,15 @@ class LammpsScript:
     def _hybrid_pair_style(self, a):
         """pair_style hybrid|hybrid/overlay S1 ARGS1 S2 ARGS2 ...
         (pair_hybrid.cpp::settings): each sub-style's arguments run to the
-        next known style name; a sub-style the port does not run raises
-        (the DREIDING hydrogen bonds and the rest of the CHARMM family
-        naming item 6.6)."""
+        next known style name; the DREIDING hydrogen bonds among them are
+        pulled out at setup (sim.py), the rest built by
+        styles/pair_builders.py."""
         subs = []
         i = 1
         while i < len(a):
             name = PAIR_STYLE_ALIASES.get(a[i], a[i])
             if name not in KNOWN_PAIR_STYLES:
                 raise ValueError(f"unsupported hybrid sub-style {name}")
-            if name in CHARMM_UNPORTED:
-                _unported(f"hybrid sub-style {name} (the JAX package runs "
-                          "it)", _CHARMM)
             i += 1
             args = []
             while i < len(a) and a[i] not in KNOWN_PAIR_STYLES:
@@ -1500,6 +1534,11 @@ class LammpsScript:
             self._eam_coeff(a)
             return
         name = self.pair.name
+        if name in HBOND_STYLES:
+            # I J K i|j EPS|D0 SIGMA|ALPHA [R0] [AP [INNER OUTER [ANGLE]]]
+            # (PairHbondDreidingLJ::coeff :317-384), kept raw
+            self.hbond_coeffs.append(list(a))
+            return
         if name in ("hybrid", "hybrid/overlay"):
             self._hybrid_coeff(a)
             return
@@ -1652,9 +1691,6 @@ class LammpsScript:
 
     def _bonded_style(self, fam, styles, a):
         if a[0] not in styles:
-            if fam == "dihedral" and a[0] == "charmmfsw":
-                _unported("dihedral_style charmmfsw (with the lj/charmmfsw "
-                          "pair styles; the JAX package runs it)", _BREADTH)
             _unported(f"{fam}_style {a[0]}", _BREADTH)
         self._invalidate()
         setattr(self, f"{fam}_style", a[0])
@@ -1818,12 +1854,19 @@ class LammpsScript:
                     raise ValueError(f"thermo_style: compute {c[2:]} does "
                                      "not exist")
             elif c.startswith("f_"):
-                # JAX's thermo row has no output fix's value: it prints nan
-                _unported(f"thermo keyword {c} (a fix's global value)",
-                          _NO_VALUE)
+                # JAX's thermo row holds fix cmap's energy and no output
+                # fix's value: it prints nan for those
+                if not self._is_cmap_fix(c[2:]):
+                    _unported(f"thermo keyword {c} (a fix's global value)",
+                              _NO_VALUE)
             elif not c.startswith("v_") and c not in THERMO_KEYWORDS:
                 _unported(f"thermo keyword {c}")
         self.thermo_columns = cols
+
+    def _is_cmap_fix(self, fid: str) -> bool:
+        """Whether fix `fid` is a fix cmap (its f_ID: the crossterm
+        energy)."""
+        return fid in self.fixes and self.fixes[fid].style == "cmap"
 
     def cmd_thermo(self, a):
         self.thermo_every = int(a[0])
@@ -2147,9 +2190,12 @@ class LammpsScript:
         """fix_modify ID temp COMPUTE-ID (fix.cpp modify_params) on fix
         temp/rescale or temp/berendsen: the fix's temperature takes the
         compute's group and dof (sim.py; the JAX package's sim.py
-        :1839-1846).  The JAX package stores every other keyword, and
-        `temp` on every other fix style, and reads them nowhere: the port
-        raises on them (ROADMAP queue 3 item 11)."""
+        :1839-1846); fix_modify ID energy yes|no on fix cmap: its
+        crossterm energy in the potential energy or not (fix.cpp
+        thermo_energy; the JAX package's sim.py:1494-1500).  The JAX
+        package stores every other keyword, and these on every other fix
+        style, and reads them nowhere: the port raises on them (ROADMAP
+        queue 3 item 11)."""
         fid = a[0]
         if fid not in self.fixes:
             raise ValueError(f"Could not find fix_modify ID {fid}")
@@ -2157,6 +2203,11 @@ class LammpsScript:
         kw = {}
         i = 1
         while i < len(a):
+            if a[i] == "energy" and style == "cmap":
+                _yesno(a[i + 1])
+                kw["energy"] = a[i + 1]
+                i += 2
+                continue
             if a[i] != "temp" or style not in ("temp/rescale",
                                                 "temp/berendsen"):
                 _unported(f"fix_modify {a[i]} on fix {style} (the JAX "
@@ -2435,7 +2486,8 @@ class LammpsScript:
         else:
             kill = self._delete_porosity(a[1], float(a[2]), int(a[3]))
         if any(t is not None and len(t) for t in (
-                self._bonds, self._angles, self._dihedrals, self._impropers)):
+                self._bonds, self._angles, self._dihedrals, self._impropers,
+                self._crossterms)):
             raise NotImplementedError("delete_atoms with bonds present")
         keep = ~kill
         for attr in ("x", "v", "q", "type", "mol", "image"):
@@ -2589,8 +2641,13 @@ class _ExprCtx:
 
     def fix_ref(self, fid, i1, i2, mode):
         """f_ID: the JAX package looks it up in its thermo row, which holds
-        no value of a fix the port has; the port raises."""
+        fix cmap's energy (its f_ID column) and no other fix's value; the
+        port raises for the others."""
         key = f"f_{fid}" + (f"[{i1}]" if i1 is not None else "")
+        if i1 is None and self.s._is_cmap_fix(fid):
+            row = self.s._current_thermo_row()
+            if row is not None and key in row:
+                return float(row[key])
         _unported(f"fix reference {key} (JAX's thermo row has no fix's "
                   "value)", _NO_VALUE)
 

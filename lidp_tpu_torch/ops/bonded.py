@@ -676,6 +676,25 @@ def special_pair_sums(xr, qr, tr, x, q, type_, sp_idx, sp_lvl, L, tabs,
 # coulomb kind that subtracts (1 - f) qq/r
 CORRECTED_KINDS = ("lj", "lj/long", "none")
 CORRECTED_COUL_KINDS = ("long", "charmm", "msm", "dsf", "wolf")
+# the rest of the CHARMM family (ROADMAP queue 3 item 38, measured in the
+# same test): the force switch's energy is the plain LJ energy less a
+# constant per pair inside the inner cutoff, and the coulomb kinds below
+# scale their terms by the factor where the correction subtracts (1 - f)
+# qq/r
+FSW_COUL_KINDS = ("charmm/implicit", "charmmfsh")
+
+
+def _charmm_family_gap(p) -> bool:
+    """Whether JAX's cell route parts from its dense route on p's special
+    pairs (ROADMAP queue 3 item 38): the force switch (charmm_fsw) under
+    a special LJ factor other than 1, or a coulomb kind of FSW_COUL_KINDS
+    under a special coulomb factor other than 1."""
+    def below_one(t):
+        return bool((t[1:] != 1.0).any())
+
+    return ((p.charmm_fsw and below_one(p.special_lj))
+            or (p.coul and p.coul_kind in FSW_COUL_KINDS
+                and below_one(p.special_coul)))
 
 
 def special_correction_sparse(x, q, type_, sp_idx, sp_lvl, mask, box, p):
@@ -684,19 +703,29 @@ def special_correction_sparse(x, q, type_, sp_idx, sp_lvl, mask, box, p):
     sp_lvl (N,S) (topology.special_lists, the fill at x.shape[0]); p is
     a PairParams, without coulomb when p.coul is false.  The LJ term is the
     unswitched one under the charmm switch too, as in the JAX package
-    (ROADMAP queue 3).  The lj/long table takes the same plain LJ share,
+    (ROADMAP queue 3).  The CHARMM force switch and the charmm/implicit
+    and charmmfsh coulomb kinds raise under special factors below 1: the
+    JAX function parts from its dense route there (ROADMAP queue 3 item
+    38).  The lj/long table takes the same plain LJ share,
     the k-space sum running over every pair, as the JAX function forms it;
     a buck/long table raises: the JAX function forms the LJ share of its
     A, 1/rho and C tables there (ROADMAP queue 3 item 30).  The msm
     coulomb takes (1 - factor) prefactor like the erfc form.  Returns
     (f_corr, devdwl, decoul, dvir6), as the JAX function."""
+    if _charmm_family_gap(p):
+        raise NotImplementedError(
+            "lj/charmmfsw or coul/charmmfsh|charmm/implicit with special "
+            "bonds on the cell grid: the JAX package's special correction "
+            "takes the plain LJ energy and an unscreened (1 - f) qq/r there, "
+            "off its dense route's terms (ROADMAP queue 3 item 38)")
     if p.kind == "buck/long":
         raise NotImplementedError(
             "buck/long/coul/long with special bonds on the cell grid: the "
             "JAX package's special correction takes the LJ form of the "
             "Buckingham tables there (ROADMAP queue 3 item 30)")
     if p.kind not in CORRECTED_KINDS or (
-            p.coul and p.coul_kind not in CORRECTED_COUL_KINDS):
+            p.coul and p.coul_kind not in CORRECTED_COUL_KINDS
+            + FSW_COUL_KINDS):
         raise NotImplementedError(
             f"pair kind {p.kind} (coulomb {p.coul_kind if p.coul else 'none'}"
             ") with special bonds on the cell grid: the JAX package's "

@@ -50,10 +50,10 @@ NPAR = 8                  # csrc/lj_cell.cuh: lj3 lj4 offset cutsq L(3) floor
 def supported(p, ntypes_gt_one: bool, coul: bool) -> bool:
     """Whether the LJ cell kernels cover this pair style: plain lj/cut
     alone, one atom type, no coulomb (of any kind, msm's included) and no
-    charmm switch; the long dispersion kinds (lj/long, buck/long) are
-    not the kernels' form."""
+    charmm switch (energy or force); the long dispersion kinds (lj/long,
+    buck/long) are not the kernels' form."""
     return (not ntypes_gt_one) and (not coul) and not p.charmm \
-        and p.kind == "lj" and p.coul_kind != "msm"
+        and not p.charmm_fsw and p.kind == "lj" and p.coul_kind != "msm"
 
 
 def _check_kind(name, p):

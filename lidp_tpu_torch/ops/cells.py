@@ -17,11 +17,13 @@ LJ case goes to the CUDA kernels of ops/cell_kernels.py instead
 exclusion keeps a system on this function, as the JAX package's
 _pallas_ok does).  Every van der Waals kind of ops/pair.py but the table
 (which the JAX package sends to the dense route at every size) and every
-coulomb kind is ported: lj/cut with the CHARMM switch, the long dispersion
+coulomb kind is ported: lj/cut with the CHARMM energy or force switch
+(lj/charmm, lj/charmmfsw), the long dispersion
 kinds lj/long and buck/long (at full weight: the special correction takes
 the special pairs' share), the generic kinds on their coefficient tables
 (lj1, lj2, lj3, lj4 and lj5, one gather of each per slot pair), and the
-long, charmm, msm, debye, dsf, wolf and gromacs coulomb terms, with the
+long, charmm, charmm/implicit, charmmfsh, msm, debye, dsf, wolf and
+gromacs coulomb terms, with the
 neigh_modify exclusions (type pairs, PairParams.excl; same-molecule pairs,
 excl_mol with mol=); a triclinic box does not exist in the port.
 
@@ -37,7 +39,8 @@ import torch
 
 from lidp_tpu_torch.box import Box, minimum_image
 from lidp_tpu_torch.ops.pair import (EWALD_F, LONG_KINDS, _coul_terms,
-                                     charmm_switch, dsf_wolf_coul, erfc_as,
+                                     charmm_fsw_terms, charmm_switch,
+                                     dsf_wolf_coul, erfc_as,
                                      generic_vdw, long_vdw, msm_coul)
 
 
@@ -263,7 +266,10 @@ def cell_pair_forces(x, q, type_, mask, cells: Cells, box: Box, p,
             forcelj = r6inv * (12.0 * lj3 * r6inv - 6.0 * lj4)
             if need_ev or p.charmm:
                 philj = r6inv * (lj3 * r6inv - lj4)
-        if p.charmm:
+        if p.charmm_fsw:
+            forcelj, philj = charmm_fsw_terms(p, lj3, lj4, cut_ljsq, rsq,
+                                              r2inv, forcelj)
+        elif p.charmm:
             forcelj, philj = charmm_switch(p, cut_ljsq, rsq, forcelj, philj)
         forcelj = torch.where(lj_m, forcelj, 0.0)
         if need_ev:

@@ -102,9 +102,10 @@ def build_fixes(ctx: FixBuildCtx):
     from lidp_tpu_torch.styles.fix_output import OUTPUT_STYLES
 
     for spec in ctx.script.fixes.values():
-        if spec.style in OUTPUT_STYLES:
+        if spec.style in OUTPUT_STYLES + ("cmap",):
             # sampled by the Simulation between run chunks
-            # (styles/fix_output.py)
+            # (styles/fix_output.py); fix cmap is a force-field term
+            # (sim.py builds ForceField.cmap)
             continue
         builder = FIX_BUILDERS.get(spec.style)
         if builder is None:

@@ -312,6 +312,15 @@ def _dihedral_params_one(style, coeffs, didx, dtyp, TD, dtype, device,
                      lj14_3=_to(lj14_3, dtype, device),
                      lj14_4=_to(lj14_4, dtype, device),
                      type_=_idx(script.type, device), qqrd2e=u.qqr2e)
+        if style == "charmmfsw":
+            # dihedral_charmmfsw.cpp init_style: the cutoffs of the paired
+            # pair style, and dihedflag 0 under coul/charmmfsh (its
+            # shifted 1-4 coulomb), else 1
+            p = script.pair
+            extra.update(cut_lj_inner14=float(p.cut_lj_inner),
+                         cut_lj14=float(p.cut_lj_global),
+                         cut_coul14=float(p.cut_coul or p.cut_lj_global),
+                         dihedflag=0 if "charmmfsh" in p.name else 1)
     return DihedralParams(
         idx=_idx(didx, device), dtype_=_idx(dtyp, device),
         c1=_to(cs[0], dtype, device), c2=_to(cs[1], dtype, device),

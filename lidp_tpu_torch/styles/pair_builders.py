@@ -15,6 +15,9 @@ the run's dtype and device.
   * _build_hybrid_pair: hybrid and hybrid/overlay, each sub-style one
     PairParams whose unassigned type pairs are excluded (_build_sub_pair);
   * _build_dpd_pair: dpd and dpd/tstat;
+  * hbond_specs, _build_hbond_base: the DREIDING hydrogen bonds' raw
+    settings and rows (alone, or pulled out of a hybrid list) and the zero
+    2-body table of the style alone;
   * tail_corrections: pair_modify tail's etail and ptail of the lj/cut
     family.
 """
@@ -51,19 +54,54 @@ GENERIC_PAIR_KINDS = {
 }
 _MIXED_KINDS = ("mie", "lj/gromacs", "lj96", "lj/smooth/linear",
                 "lj/smooth", "ufm", "lj/cubic")
+# the DREIDING hydrogen bonds: a 3-body term beside the pair passes
+# (ops/hbond.py), alone or as a hybrid sub-style
+HBOND_STYLES = ("hbond/dreiding/lj", "hbond/dreiding/morse")
+
+
+def hbond_specs(script) -> list:
+    """[(style, settings, coefficient rows)] of the hbond/dreiding styles
+    (the JAX package's sim.py:1105-1129): the pair style itself, or each
+    hybrid sub-style of that name with its raw `pair_coeff I J` rows (the
+    sub-style name dropped; `pair_coeff I J none` rows left out)."""
+    name = script.pair.name
+    if name in HBOND_STYLES:
+        return [(name, list(script._hbond_settings),
+                 [list(r) for r in script.hbond_coeffs])]
+    if name not in ("hybrid", "hybrid/overlay"):
+        return []
+    return [(nm, list(args), [[it, jt] + list(toks) for it, jt, toks
+                              in script.hybrid_raw_coeffs[k]
+                              if toks is not None])
+            for k, (nm, args) in enumerate(script.pair_hybrid)
+            if nm in HBOND_STYLES]
+
+
+def _build_hbond_base(script, u, dtype, device):
+    """(pair, cut) of hbond/dreiding alone: a zero 2-body table (kind
+    none, no cutoff) beside the 3-body term, the outer cutoff sizing the
+    neighbour structure (the JAX package's sim.py:1146-1157)."""
+    T = script.ntypes
+    z0 = np.zeros((T + 1, T + 1))
+    pair = make_generic_pair_params("none", z0, z0, cut_lj=z0,
+                                    qqrd2e=u.qqr2e, dtype=dtype,
+                                    device=device)
+    return pair, np.full((T + 1, T + 1), float(script._hbond_settings[2]))
 
 
 def coul_kind_of(name: str) -> str:
     """The coulomb kind of a style name: debye, msm, dsf, wolf, charmm
-    (lj/charmm/coul/charmm), gromacs, or long (the erfc form; coul/cut's
-    exact 1/r where no k-space sets g_ewald)."""
+    (lj/charmm/coul/charmm), charmm/implicit, charmmfsh, gromacs, or long
+    (the erfc form; coul/cut's exact 1/r where no k-space sets
+    g_ewald)."""
     if "debye" in name:
         return "debye"
     for k in ("msm", "dsf", "wolf"):
         if name.endswith("/" + k):
             return k
-    if name.endswith("coul/charmm"):
-        return "charmm"
+    for k in ("charmm/implicit", "charmm", "charmmfsh"):
+        if name.endswith("coul/" + k):
+            return k
     if name.endswith("coul/gromacs"):
         return "gromacs"
     return "long"
@@ -454,7 +492,9 @@ def _build_hybrid_pair(script, u, base_excl, dtype, device):
     the cutoff table); script.pair.cut_coul becomes the largest of the
     sub-styles'.  A pair that `pair_coeff I J none` took out stays in a
     coul/* sub-style there (a mixing one assigns it its zero row): that
-    raises, since LAMMPS takes it out of every sub-style."""
+    raises, since LAMMPS takes it out of every sub-style.  The
+    hbond/dreiding sub-styles are left to hbond_specs, as the JAX package
+    pulls them out of the list."""
     T = script.ntypes
     built, flags = [], []
     cut_all = np.zeros((T + 1, T + 1))
@@ -462,6 +502,8 @@ def _build_hybrid_pair(script, u, base_excl, dtype, device):
     # explicit and assigned pairs
     nones, explicit_all, assigned_all = set(), set(), []
     for k, (name, args) in enumerate(script.pair_hybrid):
+        if name in HBOND_STYLES:
+            continue
         sc = copy.copy(script)
         sc._invalidate = lambda: None            # a scratch copy
         sc.cmd_pair_style([name] + list(args))   # resets sc.pair_coeffs

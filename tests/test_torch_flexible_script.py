@@ -16,12 +16,17 @@ atoms (n_side (2, 2, 2), cutoffs 4.0 / 5.5 inside the 12.6 A box):
   * lj/charmm/coul/charmm without k-space (in.rhodo's variant without
     pppm), dense route: the same;
   * what the port leaves out raises NotImplementedError naming itself and
-    its ROADMAP item: the other CHARMM pair styles (coul/charmm/implicit,
-    the charmmfsw styles; lj/charmm/coul/msm runs with kspace_style msm,
-    tests/test_torch_msm.py, and raises with this script's pppm, a
-    composition left to item 6.5), dihedral_style charmmfsw, fix cmap,
-    pair hbond/dreiding, and bonded terms with the polar style on the
-    panel engine (LIDP_FAST_POLAR=1).
+    its ROADMAP item: lj/charmm/coul/msm with this script's pppm (it runs
+    with kspace_style msm, tests/test_torch_msm.py), a composition left to
+    item 6.5; the rest of the CHARMM family (coul/charmm/implicit, the
+    charmmfsw styles with dihedral_style charmmfsw) on the cell grid with
+    special bonds, where the JAX package's special correction parts from
+    its dense route (queue 3 item 38); fix cmap's crossterms through
+    replicate (queue 3 item 39); pair hbond/dreiding with neigh_modify
+    exclude (queue 3 item 40); and bonded terms with the polar style on
+    the panel engine (LIDP_FAST_POLAR=1).  These styles' rows against the
+    JAX package's are in tests/test_torch_charmm_family.py,
+    test_torch_cmap.py and test_torch_hbond.py.
 """
 
 import os
@@ -181,32 +186,76 @@ def test_script_matches_jax(runs, case):
 
 # -------------------------------- refusals --------------------------------
 
-def _swap(old, new):
-    return chip_smoke.flexible_script(cut=CUT).replace(old, new)
+def _cells(text):
+    """text replicated 1 x 1 x 3 (576 atoms): the cell grid above a dense
+    cap of 300."""
+    return text.replace("read_data flex.data\n",
+                        "read_data flex.data\nreplicate 1 1 3\n")
 
 
 PAIR = f"pair_style lj/charmm/coul/long {CUT[0]:g} {CUT[1]:g}"
+NO_KSPACE = ("kspace_style pppm 1e-4\n", "")
+# name -> (edits of the script, the dense cap (the cell grid of the script
+# replicated 1 x 1 x 3 where given), what the message names); the CHARMM
+# family's styles now run on the dense route and raise on the cell grid
+# with special bonds, fix cmap raises through replicate, hbond with an
+# exclusion
+ITEM_38 = "ROADMAP queue 3 item 38"
 UNPORTED = {
-    "coul/charmm/implicit": _swap(
-        PAIR, "pair_style lj/charmm/coul/charmm/implicit 4.0 5.5"),
-    "coul/msm": _swap(PAIR, "pair_style lj/charmm/coul/msm 4.0 5.5"),
-    "charmmfsw/coul/long": _swap(PAIR,
-                                 "pair_style lj/charmmfsw/coul/long 4.0 5.5"),
-    "charmmfsw/coul/charmmfsh": _swap(
-        PAIR, "pair_style lj/charmmfsw/coul/charmmfsh 4.0 5.5"),
-    "dihedral charmmfsw": _swap("dihedral_style charmm\n",
-                                "dihedral_style charmmfsw\n"),
-    "fix cmap": _swap("fix 2 all shake", "fix 3 all cmap charmm22.cmap\n"
-                      "fix 2 all shake"),
-    "hbond/dreiding": _swap(PAIR, "pair_style hbond/dreiding/lj 4 6 6.5 90"),
+    "coul/charmm/implicit": (
+        [(PAIR, "pair_style lj/charmm/coul/charmm/implicit 4.0 5.5"),
+         NO_KSPACE], 300, ITEM_38),
+    "coul/msm": ([(PAIR, "pair_style lj/charmm/coul/msm 4.0 5.5")], None,
+                 "ROADMAP queue 1 item 6"),
+    "charmmfsw/coul/long": (
+        [(PAIR, "pair_style lj/charmmfsw/coul/long 4.0 5.5")], 300, ITEM_38),
+    "charmmfsw/coul/charmmfsh": (
+        [(PAIR, "pair_style lj/charmmfsw/coul/charmmfsh 4.0 5.5"),
+         NO_KSPACE], 300, ITEM_38),
+    "dihedral charmmfsw": (
+        [(PAIR, "pair_style lj/charmmfsw/coul/long 4.0 5.5"),
+         ("dihedral_style charmm\n", "dihedral_style charmmfsw\n")], 300,
+        ITEM_38),
+    "fix cmap": ([("read_data flex.data\n",
+                   f"fix 3 all cmap {chip_smoke.CMAP_FILE}\nread_data "
+                   "flex.cmap fix 3 crossterm CMAP\nreplicate 1 1 3\n")],
+                 None, "ROADMAP queue 3 item 39"),
+    "hbond/dreiding": (
+        [(PAIR, "pair_style hybrid/overlay lj/cut/coul/long 5.5 "
+                "hbond/dreiding/lj 4 6 6.5 90"),
+         ("pair_coeff 5 5 0.2 3.296 0.2 2.76\n",
+          "pair_coeff * * lj/cut/coul/long 0.1 3.0\n"
+          "pair_coeff 5 7 hbond/dreiding/lj 6 i 4.0 2.75\n"
+          "neigh_modify exclude type 1 1\n")], None,
+        "ROADMAP queue 3 item 40"),
 }
 
 
+@pytest.fixture(scope="module")
+def flex_cmap(flex):
+    """The flexible case's data with one crossterm per solute (flex.cmap,
+    beside flex.data) and the seeded map file."""
+    (flex / "cmap").mkdir(exist_ok=True)
+    chip_smoke.flexible_script_case(str(flex / "cmap"), n_side=SIDE,
+                                    cut=CUT, cmap="yes")
+    (flex / "flex.cmap").write_text((flex / "cmap" / "flex.data")
+                                    .read_text())
+    (flex / chip_smoke.CMAP_FILE).write_text(
+        (flex / "cmap" / chip_smoke.CMAP_FILE).read_text())
+    return flex
+
+
 @pytest.mark.parametrize("name", list(UNPORTED))
-def test_unported_styles_raise(flex, name):
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP queue 1 item 6"):
-        _run("torch", flex, UNPORTED[name], nstep=1)
+def test_unported_styles_raise(flex_cmap, name):
+    edits, cap, item = UNPORTED[name]
+    text = chip_smoke.flexible_script(cut=CUT)
+    for old, new in edits:
+        assert old in text
+        text = text.replace(old, new)
+    if cap is not None:
+        text = _cells(text)
+    with pytest.raises(NotImplementedError, match=item):
+        _run("torch", flex_cmap, text, cap=cap, nstep=1)
 
 
 def test_bonded_terms_on_the_panel_engine_raise(tmp_path):

@@ -12,9 +12,10 @@ grammar), float64 and float32 on the CPU:
     package's on the same Cells, the tables carried across by
     convert.pair_from_numpy: f within 1e-10 of max |f| in float64 (5e-6
     in float32), the energies and the virial likewise;
-  * pair_from_numpy still refuses the generic fields that are not ported
-    (other kinds and coulomb kinds, lj5 on an lj table, charmm_fsw,
-    tables);
+  * pair_from_numpy still refuses the fields that are not ported (other
+    kinds, lj5 on an lj table), and carries the rest of the CHARMM family
+    (charmm_fsw, the charmmfsh and charmm/implicit coulombs), whose cell
+    pass equals the JAX package's;
   * the script: kspace_modify takes gewald, gewald/disp and cutoff/adjust
     and raises on every other keyword; the other coul/msm and */long
     variants raise naming ROADMAP queue 1 item 6.9; the compositions the
@@ -157,25 +158,42 @@ def test_lj_kernel_wrappers_refuse_long_tables(kind):
         cell_kernels.slot_lj_forces([sys_t.x[:, 0]] * 3, sys_t.box, pair)
 
 
-# the fields pair_from_numpy refuses since item 6.9 is ported: the rest
-# of the CHARMM family (item 6.6), a kind the JAX package does not have,
-# and an lj5 table on the lj kind, which the JAX package never builds
+# the fields pair_from_numpy refuses since item 6.9 is ported: a kind the
+# JAX package does not have, and an lj5 table on the lj kind, which the
+# JAX package never builds; the rest of the CHARMM family, refused until
+# item 6.6 was ported, is carried (err None: the keywords of the JAX
+# make_pair_params whose table the port's cell pass takes as JAX's does)
 REFUSED_FIELDS = {
-    "coul_kind charmmfsh": (dict(coul_kind="charmmfsh"), NotImplementedError,
-                            "queue 1 item 6.6"),
-    "coul_kind charmm/implicit": (dict(coul_kind="charmm/implicit"),
-                                  NotImplementedError, "queue 1 item 6.6"),
+    "coul_kind charmmfsh": (dict(coul_kind="charmmfsh"), None, None),
+    "coul_kind charmm/implicit": (dict(coul_kind="charmm/implicit",
+                                       cut_coul_inner=2.2, charmm=True,
+                                       cut_lj_inner=2.0), None, None),
     "lj5 on lj": (dict(lj5=np.ones((2, 2))), ValueError, "lj5"),
-    "charmm_fsw": (dict(charmm_fsw=True), NotImplementedError,
-                   "queue 1 item 6.6"),
+    "charmm_fsw": (dict(charmm=True, charmm_fsw=True, cut_lj_inner=2.0),
+                   None, None),
     "kind hbond": (dict(kind="hbond"), NotImplementedError, "kind"),
 }
 
 
 @pytest.mark.parametrize("name", list(REFUSED_FIELDS))
 def test_pair_from_numpy_refuses_generic_fields(name):
-    ji, _, _ = _case(GRIDS["cubic"], np.float64, coul=True)
+    ji, ti, _ = _case(GRIDS["cubic"], np.float64, coul=True)
     fields, err, match = REFUSED_FIELDS[name]
+    if err is None:
+        from lidp_tpu.ops.pair import make_pair_params
+        from tests.test_torch_lj_cells import _tables
+
+        pj = make_pair_params(*_tables(1), coul=True, cut_coul=2.6,
+                              qqrd2e=332.06371, **fields)
+        pt = convert.pair_from_numpy(_fields(pj), device="cpu",
+                                     dtype=torch.float64)
+        ref = jcells.cell_pair_forces(ji["x"], ji["q"], ji["type"],
+                                      ji["mask"], ji["cells"], ji["box"], pj)
+        got = tcells.cell_pair_forces(ti["x"], ti["q"], ti["type"],
+                                      ti["mask"], ti["cells"], ti["box"], pt)
+        for g, r, what in zip(got, ref, ("f", "evdwl", "ecoul", "virial")):
+            _close(g.numpy(), r, np.float64, f"{name} {what}")
+        return
     with pytest.raises(err, match=match):
         convert.pair_from_numpy(dict(_fields(ji["p"]), **fields),
                                 device="cpu")

@@ -439,19 +439,31 @@ def fluid():
 
 
 # every van der Waals kind alone and every coulomb kind on the kind none
+# the CHARMM family (ROADMAP queue 3 item 38): lj/charmmfsw's force
+# switch ("lj_fsw") with the long and charmmfsh coulombs, lj with
+# coul/charmm/implicit
 SPECIAL_CASES = [(k, None) for k in KIND_NAMES] + [
-    ("none", c) for c in COULS] + [("lj", "long"), ("lj", "dsf")]
+    ("none", c) for c in COULS] + [("lj", "long"), ("lj", "dsf"),
+                                   ("lj_fsw", "long"), ("lj_fsw", "charmmfsh"),
+                                   ("lj", "charmm/implicit")]
+# the cases of that item, where the port's cell route raises naming it
+CHARMM_FAMILY = (("lj_fsw", "long"), ("lj_fsw", "charmmfsh"),
+                 ("lj", "charmm/implicit"))
 
 
-def _lj_pairs(coul):
-    """lj/cut's table (make_pair_params) in both packages."""
+def _lj_pairs(coul, fsw=False):
+    """lj/cut's table (make_pair_params) in both packages; fsw: the CHARMM
+    force switch between 4.0 and the cutoff 5.0 (lj/charmmfsw's); the
+    CHARMM coulomb kinds switch or shift between 4.4 and 5.5."""
     rs = np.random.RandomState(12)
     eps, sig = _sym(rs, 0.5, 1.5), _sym(rs, 0.9, 1.1)
     cut = np.full((T + 1, T + 1), 5.0)
     pj = jpair.make_pair_params(
-        eps, sig, cut, cut_coul=5.5, coul=True, g_ewald=COULS[coul],
+        eps, sig, cut, cut_coul=5.5, coul=True, g_ewald=COULS.get(coul, 0.0),
         coul_kind=coul, special_lj=(1.0, 0.0, 0.0, 0.5),
-        special_coul=(1.0, 0.0, 0.0, 0.5), qqrd2e=1.3)
+        special_coul=(1.0, 0.0, 0.0, 0.5), qqrd2e=1.3, charmm=fsw,
+        charmm_fsw=fsw, cut_lj_inner=4.0 if fsw else 0.0,
+        cut_coul_inner=4.4)
     return pj, convert.pair_from_numpy(_fields(pj), device="cpu",
                                        dtype=torch.float64)
 
@@ -506,8 +518,8 @@ def test_cells_special_correction_per_kind(fluid, kind, coul):
     self energy) equals JAX's dense route at rel 1e-10."""
     from lidp_tpu_torch.forcefield import ForceField, compute_forces
 
-    if kind == "lj":
-        pj, pt = _lj_pairs(coul)
+    if kind in ("lj", "lj_fsw"):
+        pj, pt = _lj_pairs(coul, fsw=kind == "lj_fsw")
     else:
         pj, _ = _pairs(kind, coul=coul, cut=5.0)
         pj = dataclasses.replace(
@@ -521,10 +533,14 @@ def test_cells_special_correction_per_kind(fluid, kind, coul):
                for g, o in zip(gaps, own)
                if np.abs(np.asarray(o)).max() > 0], default=0.0)
     ff = ForceField(pair=pt, sp_idx=fluid["si_t"], sp_lvl=fluid["sl_t"])
-    parts = kind not in ("lj", "none") or coul in ("debye", "gromacs")
+    family = (kind, coul) in CHARMM_FAMILY
+    parts = kind not in ("lj", "none") or coul in ("debye", "gromacs") \
+        or family
     assert (gap > 1e-9) == parts, (kind, coul, gap)
+    print(f"special gap {kind}/{coul}: {gap:.6e}")
     if parts:
-        with pytest.raises(NotImplementedError, match="queue 3 item 34"):
+        item = "queue 3 item 38" if family else "queue 3 item 34"
+        with pytest.raises(NotImplementedError, match=item):
             compute_forces(fluid["sys"], ff, fluid["cells_t"])
         return
     res = compute_forces(fluid["sys"], ff, fluid["cells_t"])

@@ -2,12 +2,14 @@
 grammar, styles/pair_builders.py, sim.py) against LAMMPS's rows and the
 JAX package's, float64 on the CPU:
 
-  * every style the JAX interpreter runs but those left to ROADMAP queue 1
+  * every style the JAX interpreter runs but those of ROADMAP queue 1
     item 6.6 (the DREIDING hydrogen bonds, lj/charmmfsw/*,
-    lj/charmm/coul/charmm/implicit, which raise naming it): the port's
-    Simulation.from_script builds the JAX package's tables (the JAX ones
-    carried across by convert.pair_from_numpy, field by field, rel 1e-14)
-    on tests/test_pair_breadth2.py's 64-atom box;
+    lj/charmm/coul/charmm/implicit: their rows against the JAX package's
+    here, the rest in tests/test_torch_charmm_family.py and
+    test_torch_hbond.py): the port's Simulation.from_script builds the JAX
+    package's tables (the JAX ones carried across by
+    convert.pair_from_numpy, field by field, rel 1e-14) on
+    tests/test_pair_breadth2.py's 64-atom box;
   * the 16 GOLDEN cases of tests/test_pair_breadth2.py (rows of a rebuilt
     16Mar18 LAMMPS, inputs from scripts/gen_breadth_goldens.py) and its
     lj/cubic, lj/gromacs/coul/gromacs and lj/charmm/coul/charmm goldens
@@ -214,14 +216,34 @@ def test_builders_match_jax(box, style):
     assert ts.pair.cut_coul == js.pair.cut_coul
 
 
-@pytest.mark.parametrize("style", [
-    "lj/charmm/coul/charmm/implicit 1.8 2.2 1.9 2.4",
-    "hybrid lj/cut 2.5 hbond/dreiding/lj 4 6 6.5 90",
-    "lj/charmmfsw/coul/long 1.8 2.2"])
-def test_item_6_6_styles_raise(style):
-    s = tscript.LammpsScript(device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 6.6"):
-        s.one(f"pair_style {style}")
+# the styles ROADMAP queue 1 item 6.6 ported, once refused here: style ->
+# the lines after pair_style (None: the JAX package's own error on this
+# box, which has no bonds)
+ITEM_6_6 = {
+    "lj/charmm/coul/charmm/implicit 1.8 2.2 1.9 2.4": LJ,
+    "hybrid lj/cut 2.5 hbond/dreiding/lj 4 6 6.5 90": None,
+    "lj/charmmfsw/coul/long 1.8 2.2": LJ + EWALD,
+}
+
+
+@pytest.mark.parametrize("style", list(ITEM_6_6))
+def test_item_6_6_styles_raise(box, style):
+    """The styles of ROADMAP queue 1 item 6.6, which raised naming it
+    until the item was ported: their rows equal the JAX package's at rel
+    1e-8 (the hydrogen bonds raise the JAX package's ValueError on this
+    box without bonds, in both packages; tests/test_torch_hbond.py runs
+    them)."""
+    lines = ITEM_6_6[style]
+    if lines is None:
+        text = (HEAD + f"pair_style {style}\npair_coeff * * lj/cut 1.0 1.0\n"
+                "pair_coeff 1 2 hbond/dreiding/lj 1 i 1.0 1.0\n" + SWITCH_RUN)
+        for pkg in ("torch", "jax"):
+            with pytest.raises(ValueError, match="molecular system"):
+                _run(pkg, box, text, "hb")
+        return
+    text = HEAD + f"pair_style {style}\n" + lines + SWITCH_RUN
+    _agree_with_jax(_run("torch", box, text, "i66"),
+                    _run("jax", box, text, "i66"))
 
 
 # ------------------------------- goldens ---------------------------------

@@ -517,8 +517,9 @@ UNPORTED = {
                       "queue 1 item 6"),
     "create_atoms random": ("create_atoms 1 random 10 4 NULL",
                             "queue 1 item 6"),
-    # lj/cut/coul/cut is ported: an item-6.6 style still raises
-    "lj/cut/coul/cut": ("pair_style lj/charmmfsw/coul/long 2.0 2.5",
+    # lj/cut/coul/cut and the item-6.6 styles are ported: a granular
+    # style (item 6.11) still raises
+    "lj/cut/coul/cut": ("pair_style gran/hooke 2000.0 NULL 50.0 NULL 0.5 0",
                         "queue 1 item 6"),
     "lattice diamond": ("lattice diamond 1.0", "queue 1 item 6"),
 }
