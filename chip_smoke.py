@@ -524,21 +524,59 @@ Phases, each raising on failure:
      charmmfsh, charmmfsw/coul/long + ewald and charmm/implicit cases and
      of tests/test_hbond.py's lj and morse cases (charmm_golden_phases)
      at those tests' bars;
- 17. the CPU twins (CPU_TWIN: the same script through the port on the CPU
+ 17. compute chunk/atom, the */chunk computes, fix ave/chunk, the
+     structure computes and heat/flux from LAMMPS scripts
+     (chunk_structure_paths), every launch counter 0 on each path, each
+     printing its log's first rows and its last, its steps/s by the Loop
+     time line, peak device memory, and on its final state the ms of a
+     sample step and of each new compute by the host clock with the
+     device's share by torch.profiler, each evaluated twice and equal bit
+     for bit (compute_readings):
+     AW. bench/in.lj (32,000 atoms, float32, the cell grid,
+        cell_pair_forces_lj) with chunk/atom bin/1d z lower 0.05 units
+        reduced and fix ave/chunk 10 5 100 of vx density/number temp to a
+        file, a bin/3d chunking at 0.1 reduced (1,000 chunks) with
+        com/vcm/temp/chunk through fix ave/time mode vector and a compute
+        slice of one column in the row, centro/atom fcc, cna/atom 1.43,
+        orientorder/atom, global/atom over the bin ids, heat/flux in the
+        row and a dump custom of the per-atom columns; thermo 10, run
+        100: the rows, frames and files as the script asks, step 0's
+        cna codes all fcc;
+     AX. bench/in.chain (chain_script_case: 32,000 beads in 320 chains,
+        float32, the cell grid) with chunk/atom molecule, com, gyration,
+        msd, inertia, omega and property/chunk through fix ave/time mode
+        vector, fix ave/chunk by molecule, fragment/atom and
+        aggregate/atom 1.2 in a dump: fragment/atom's label each chain's
+        first bead, the chunk ids the molecule ids;
+     each also at about 5,000 atoms in float64 (AW-5k: in.lj at 0.55;
+     AX-5k: 50 chains) with a row, a dump frame and every output each
+     step, 2 steps, against a float64 CPU twin: rows 0-2 at rel 1e-9, the
+     dump's integer columns (chunk ids, cna codes, fragment labels)
+     equal and the rest within 1e-9 of their column's largest, the files
+     within 1e-9 or a last printed digit; and each full path's step 0
+     against a float32 CPU twin of the same state (AW-f32, AX-f32): the
+     row's compute columns within 1e-6 of max(1, |value|), the dump's
+     frame 0 as above at 1e-6; then the LAMMPS rows of
+     tests/test_chunk_computes.py (its 14 */chunk cases and two
+     temp/chunk scalars in one script), tests/test_structure_computes.py
+     (centro/atom and cna/atom, heat/flux, slice) and
+     tests/test_order_computes.py (orientorder/atom, hexorder/atom,
+     global/atom) at those tests' bars (chunk_structure_golden_phases);
+ 18. the CPU twins (CPU_TWIN: the same script through the port on the CPU
      in float64, in a process of its own; its rows, final state and each
      minimize's (E, iterations, converged)) of J, K, O, R, R-pppm, Q64, S,
      T, U64, V, W, X64, Y, Z, AA-100, AB (and AB's cg, sd, fire), AC, AD,
      AE-couette, AE-pois, AF, AG, AI, AI-f32 (AI's in float32, its
-     setup state), AJ-AN, AO-8k, AQ, AR and AS-AV at 192 atoms (81
-     waters), after every path on the card, so that no timed path shares
-     the host's cores with them (run_twins: as many at once as the cores
-     take, the longest first);
- 18. one JSON line {"kernels": [...]} with each of the ten kernels'
+     setup state), AJ-AN, AO-8k, AQ, AR, AS-AV at 192 atoms (81
+     waters), AW-5k, AX-5k, AW-f32 and AX-f32, after every path on the
+     card, so that no timed path shares the host's cores with them
+     (run_twins: as many at once as the cores take, the longest first);
+ 19. one JSON line {"kernels": [...]} with each of the ten kernels'
      launches (summed and by path, A-K, E-E4, L, L64, M, N, N-pol, O, R,
      R-pppm, Q, Q64, P, P100, S, T, U, U64, V, W, X, X64, Y, Z, AA, AB,
      AC, AD, AE, AF, AG, AH, AI, AJ, AK, AN, AL, AM, AO, AP, AQ, AR, AS,
-     AT, AU, AV), times, ms_queued and bound, then the nvidia-smi line,
-     then the device line last.
+     AT, AU, AV, AW, AX), times, ms_queued and bound, then the nvidia-smi
+     line, then the device line last.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.
@@ -8158,6 +8196,871 @@ def charmm_family_paths(launches, reset_counts, read_counts):
     charmm_golden_phases()
 
 
+# paths AW and AX: compute chunk/atom, the */chunk computes and fix
+# ave/chunk, the structure computes and heat/flux on bench/in.lj and
+# bench/in.chain (chunk_structure_paths), then the LAMMPS rows of their
+# JAX tests on the card (chunk_structure_golden_phases)
+AW_STEPS = 100                 # in.lj's own run
+AW_COMPUTES = """\
+compute cz all chunk/atom bin/1d z lower 0.05 units reduced
+fix az all ave/chunk {avc} cz vx density/number temp file aw_chunk.out
+compute c3 all chunk/atom bin/3d x lower 0.1 y lower 0.1 z lower 0.1 &
+units reduced
+compute com3 all com/chunk c3
+compute vcm3 all vcm/chunk c3
+compute tc3 all temp/chunk c3 temp kecom internal
+fix av all ave/time {avt} c_com3 c_vcm3 c_tc3 mode vector file aw_vec.out
+compute sl all slice 1 1000 100 c_tc3[1]
+compute cen all centro/atom fcc
+compute cna all cna/atom 1.43
+compute oo all orientorder/atom
+compute ga all global/atom c_c3 c_tc3[1]
+compute ka all ke/atom
+compute pa all pe/atom
+compute sa all stress/atom NULL
+compute hf all heat/flux ka pa sa
+thermo_style custom step temp epair emol etotal press c_hf[1] c_hf[2] &
+c_hf[3] c_hf[4] c_hf[5] c_hf[6] c_sl[1] c_sl[5] c_sl[10]
+thermo {thermo}
+dump d all custom {dump} aw.dump id c_cz c_c3 c_cna c_cen c_oo[1] c_oo[2] &
+c_oo[5] c_ga
+dump_modify d format float %.10g
+"""
+AX_STEPS = 100                 # in.chain's own run
+AX_COMPUTES = """\
+compute mol all chunk/atom molecule
+compute cm all com/chunk mol
+compute gy all gyration/chunk mol
+compute ms all msd/chunk mol
+compute in all inertia/chunk mol
+compute om all omega/chunk mol
+compute pr all property/chunk mol count id
+fix avx all ave/time {avt} c_cm c_gy c_ms c_in c_om c_pr mode vector &
+file ax_vec.out
+fix acx all ave/chunk {avc} mol vx density/mass temp file ax_chunk.out
+compute fr all fragment/atom
+compute ag all aggregate/atom 1.2
+thermo {thermo}
+dump d all custom {dump} ax.dump id mol c_mol c_fr c_ag
+"""
+# the full paths' periods, and the small ones' (a row, a dump frame and
+# an output of every fix each step, against the CPU twins)
+CHUNK_FULL = dict(thermo=10, dump=50, avt="10 5 50", avc="10 5 100")
+CHUNK_SMALL = dict(thermo=1, dump=1, avt="1 1 1", avc="1 1 1")
+AW_COLS = ("c_hf[1]", "c_hf[2]", "c_hf[3]", "c_hf[4]", "c_hf[5]", "c_hf[6]",
+           "c_sl[1]", "c_sl[5]", "c_sl[10]")
+AW_SMALL_SCALE = "0.55"        # in.lj's x, y, z: 5,324 atoms, still cells
+AX_SMALL_CHAINS = 50           # 5,000 beads: still cells
+CHUNK_TWIN_STEPS = 2           # the small paths' twins: rows 0-2 compared
+# the integer-valued dump columns (chunk ids, cna codes, fragment labels)
+CHUNK_INT_COLS = ("id", "mol", "c_cz", "c_c3", "c_cna", "c_mol", "c_fr",
+                  "c_ag")
+CHUNK_TWIN_REL = 1e-9          # the small paths against their float64 twins
+CHUNK_F32_REL = 1e-6           # the full paths' step 0 against float32 twins
+
+
+def aw_text(form, scale="1"):
+    """bench/in.lj with AW_COMPUTES at `form`'s periods, run ${nstep}, the
+    scale set in the script (the twins set no -var)."""
+    text = LJ_SCRIPT.replace("run\t\t100", AW_COMPUTES.format(**form)
+                             + "run\t\t${nstep}")
+    for a in "xyz":
+        text = text.replace(f"variable\t{a} index 1",
+                            f"variable\t{a} index {scale}")
+    return text
+
+
+def ax_text(form):
+    """bench/in.chain with AX_COMPUTES at `form`'s periods (in.chain's own
+    thermo 100 replaced), run ${nstep}."""
+    return CHAIN_SCRIPT.replace("thermo          100\n", "").replace(
+        "run\t\t100", AX_COMPUTES.format(**form) + "run\t\t${nstep}")
+
+
+def dump_frames(path):
+    """A dump custom file's frames: [(step, columns, (N, k) float array)]."""
+    import numpy as np
+
+    with open(path) as fh:
+        lines = fh.read().splitlines()
+    frames, i = [], 0
+    while i < len(lines):
+        step = int(lines[i + 1])
+        n = int(lines[i + 3])
+        cols = lines[i + 8].split()[2:]
+        rows = np.array([line.split() for line in lines[i + 9:i + 9 + n]],
+                        float)
+        frames.append((step, cols, rows))
+        i += 9 + n
+    return frames
+
+
+def dumps_agree(path, got, want, rel):
+    """Two dump files' frames: the same steps and columns, the integer
+    columns equal, the others within rel of their column's largest
+    magnitude.  Returns the largest ratio of a difference to its bar."""
+    import numpy as np
+
+    a, b = dump_frames(got), dump_frames(want)
+    if [(s, c) for s, c, _ in a] != [(s, c) for s, c, _ in b]:
+        raise AssertionError(f"path {path}: the dump frames' steps or "
+                             "columns differ")
+    worst = 0.0
+    for (step, cols, x), (_, _, y) in zip(a, b):
+        for k, c in enumerate(cols):
+            if c in CHUNK_INT_COLS:
+                if not np.array_equal(x[:, k], y[:, k]):
+                    raise AssertionError(f"path {path} step {step}: dump "
+                                         f"column {c} differs")
+                continue
+            bar = rel * max(float(np.abs(y[:, k]).max()), 1e-300)
+            err = float(np.abs(x[:, k] - y[:, k]).max())
+            worst = max(worst, err / bar)
+            if not err <= bar:
+                raise AssertionError(f"path {path} step {step}: dump column "
+                                     f"{c} {err:.3e} from the twin's")
+    return worst
+
+
+def files_agree(path, got, want, rel):
+    """Two output files, word for word: the integers equal, every other
+    number within rel of max(1, |value|) or within one unit of its last
+    printed digit (a %g rounding that goes the other way)."""
+    with open(got) as fh:
+        a = fh.read().split()
+    with open(want) as fh:
+        b = fh.read().split()
+    if len(a) != len(b):
+        raise AssertionError(f"path {path}: {os.path.basename(got)} has "
+                             f"{len(a)} words, the twin's {len(b)}")
+    for x, y in zip(a, b):
+        if x == y:
+            continue
+        try:
+            fx, fy = float(x), float(y)
+        except ValueError:
+            raise AssertionError(f"path {path}: {x!r} against {y!r}")
+        mant = y.lstrip("-").split("e")[0].replace(".", "").lstrip("0")
+        exp = math.floor(math.log10(abs(fy))) if fy else 0
+        unit = 10.0 ** (exp - max(len(mant), 1) + 1)
+        if y.lstrip("-").isdigit() or not (
+                abs(fx - fy) <= rel * max(1.0, abs(fy))
+                or abs(fx - fy) <= 1.01 * unit):
+            raise AssertionError(f"path {path} {os.path.basename(got)}: "
+                                 f"{x} against the twin's {y}")
+    return len(a)
+
+
+def compute_readings(path, sim, calls):
+    """Each of `calls` (label -> fn of the state) on sim's final state,
+    every per-state cache dropped first: its ms by the host clock (one
+    call, synchronized: the computes read counts to the host, so the host
+    does not keep ahead of the card) and its device ms by torch.profiler
+    (the CUDA kernels of one call; "not measured" where the profiler
+    records none); and the call repeated, its result equal bit for bit
+    (raises where not)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    def fresh():
+        sim._peratom = (None, None, {})
+        sim._row_cache = None
+
+    def same(a, b):
+        if isinstance(a, dict):
+            return a == b
+        if isinstance(a, tuple):
+            return all(same(u, v) for u, v in zip(a, b))
+        return torch.equal(a, b)
+
+    parts = []
+    for label, fn in calls.items():
+        fresh()
+        fn()
+        torch.cuda.synchronize()
+        fresh()
+        t0 = time.perf_counter()
+        first = fn()
+        torch.cuda.synchronize()
+        host = 1e3 * (time.perf_counter() - t0)
+        fresh()
+        if not same(first, fn()):
+            raise AssertionError(f"path {path} {label}: two evaluations of "
+                                 "one state differ")
+        fresh()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        dev = sum(getattr(ev, "self_device_time_total",
+                          getattr(ev, "self_cuda_time_total", 0.0))
+                  for ev in prof.key_averages()
+                  if str(ev.device_type).endswith("CUDA")) / 1e3
+        parts.append(f"{label} {host:.3f} (device "
+                     + (f"{dev:.3f})" if dev > 0 else "not measured)"))
+    fresh()
+    print(f"path {path} ms on its final state, host clock synchronized "
+          f"(device by torch.profiler), each repeated bit for bit: "
+          + ", ".join(parts) + f"; {smi_line()}")
+
+
+def chunk_path(path, work, name, text, dtype, steps, launches, reset_counts,
+               read_counts, record=True):
+    """One chunk/structure path: `text` through LammpsScript on the card in
+    `dtype` for `steps` steps (nstep); its launches (kept as
+    launches[path] where `record`), route, log (rows 0-2 and the last),
+    steps/s by the Loop time line and peak memory.  Returns the script
+    and its log."""
+    import torch
+
+    from lidp_tpu_torch.io.script import LammpsScript
+
+    with open(os.path.join(work, name), "w") as fh:
+        fh.write(text)
+    logs = []
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    script = LammpsScript(dtype=dtype, log=logs.append)
+    script.root = work
+    script.variables["nstep"] = str(steps)
+    script.file(os.path.join(work, name))
+    counts = read_counts()
+    if record:
+        launches[path] = counts
+    peak = torch.cuda.max_memory_allocated()
+    sim = script._sim
+    route = script_route(script)
+    print(f"path {path}: {sim.natoms} atoms, {str(dtype)[6:]}, {steps} "
+          f"steps: {route}; its log (rows 0-2 and the last):")
+    rows = [line for line in logs if line.split()[:1]
+            and line.split()[0].isdigit()]
+    for line in logs:
+        if line in rows[3:-1]:
+            continue
+        print(f"  {path}| {line}")
+    if sim.runner.neighbor_cfg is None or bool(sim.nlist.overflow):
+        raise AssertionError(f"path {path}: {route}")
+    if steps > 2:
+        script_peak(path, logs, steps, peak)
+    return script, logs
+
+
+def chunk_twin32(path, sim, row0, cols, dump):
+    """The check of a full path's float32 twin (its script at run 0 on the
+    CPU, the same float32 state as the card's step 0): the row's compute
+    columns within CHUNK_F32_REL of max(1, |value|), the dump's frame 0
+    (its integer columns equal, the others within CHUNK_F32_REL of their
+    column's largest)."""
+    first = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_f0_"), "d0")
+    with open(dump) as fh:
+        text = fh.read()
+    with open(first, "w") as fh:
+        fh.write("ITEM: TIMESTEP" + text.split("ITEM: TIMESTEP")[1])
+
+    def check(twin):
+        ref = dict(zip(twin["cols"].tolist(), twin["rows"][0]))
+        worst = 0.0
+        for c in cols:
+            bar = CHUNK_F32_REL * max(1.0, abs(ref[c]))
+            worst = max(worst, abs(row0[c] - ref[c]) / bar)
+            if not abs(row0[c] - ref[c]) <= bar:
+                raise AssertionError(f"path {path} step 0 {c}: {row0[c]!r}, "
+                                     f"the float32 twin's {ref[c]!r}")
+        w = dumps_agree(path, first, os.path.join(
+            str(twin["root"]), os.path.basename(dump)), CHUNK_F32_REL)
+        print(f"path {path} step 0 vs its float32 CPU twin (the same float32 "
+              f"state): {', '.join(cols) or 'no row column'} at {worst:.3g} "
+              f"of rel {CHUNK_F32_REL:g} of max(1, |value|); the dump's "
+              f"frame 0: the integer columns equal, the rest at {w:.3g} of "
+              f"{CHUNK_F32_REL:g} of their column's largest")
+        shutil.rmtree(os.path.dirname(first), ignore_errors=True)
+
+    return check
+
+
+def chunk_twin64(path, script, work, files, dump):
+    """The check of a small path's float64 twin: twin_check's rows 0-2 at
+    CHUNK_TWIN_REL and final x, v, mu; then its dump frames (the integer
+    columns equal, the rest within CHUNK_TWIN_REL of their column's
+    largest) and its output files (files_agree)."""
+    cols = (("temp", "epair", "etotal", "press") + AW_COLS
+            if path.startswith("AW") else CHAIN_COLS)
+    rows_check = twin_check(path, run_state(script), cols,
+                            rel=CHUNK_TWIN_REL)
+    keep = tempfile.mkdtemp(prefix="chip_smoke_keep_")
+    for name in files + (dump,):
+        shutil.copy(os.path.join(work, name), keep)
+
+    def check(twin):
+        rows_check(twin)
+        root = str(twin["root"])
+        w = dumps_agree(path, os.path.join(keep, dump),
+                        os.path.join(root, dump), CHUNK_TWIN_REL)
+        words = sum(files_agree(path, os.path.join(keep, name),
+                                os.path.join(root, name), CHUNK_TWIN_REL)
+                    for name in files)
+        print(f"path {path} vs its float64 CPU twin: the dump's "
+              f"{len(dump_frames(os.path.join(keep, dump)))} frames' integer "
+              f"columns equal, the rest at {w:.3g} of {CHUNK_TWIN_REL:g} of "
+              f"their column's largest; {', '.join(files)}: {words} words, "
+              f"the integers equal, the rest within {CHUNK_TWIN_REL:g} or "
+              "a last printed digit")
+        shutil.rmtree(keep, ignore_errors=True)
+
+    return check
+
+
+def chunk_structure_paths(launches, reset_counts, read_counts):
+    """Paths AW and AX, their small forms and their twins, then the goldens
+    (module docstring).  Each full path sets launches[path]."""
+    import numpy as np
+    import torch
+
+    from lidp_tpu_torch import computes
+    from lidp_tpu_torch.styles import fix_output
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_chunks_")
+    try:
+        args = (launches, reset_counts, read_counts)
+        # AW: bench/in.lj, float32, the cell grid and its LJ kernel
+        aw = os.path.join(work, "aw")
+        os.makedirs(aw)
+        s, _ = chunk_path("AW", aw, "in.aw", aw_text(CHUNK_FULL),
+                            torch.float32, AW_STEPS, *args)
+        sim = s._sim
+        if not (launches["AW"]["cell_pair_forces_lj"] > 0
+                and "cell_pair_forces_lj" in script_route(s)):
+            raise AssertionError(f"path AW launches {launches['AW']}")
+        check_counts("AW", launches["AW"], {
+            "cell_pair_forces_lj": launches["AW"]["cell_pair_forces_lj"]})
+        rows = s.thermo_rows
+        if [r["step"] for r in rows] != list(range(0, AW_STEPS + 1, 10)):
+            raise AssertionError(f"path AW: rows {len(rows)}")
+        check_rows_finite("AW", rows, ("temp", "etotal") + AW_COLS)
+        frames = dump_frames(os.path.join(aw, "aw.dump"))
+        ids3, nchunk3, _ = computes.chunk_ids(sim, "c3")
+        cna = frames[0][2][:, frames[0][1].index("c_cna")]
+        vec = file_lines(os.path.join(aw, "aw_vec.out"))
+        prof = file_lines(os.path.join(aw, "aw_chunk.out"))
+        if [f[0] for f in frames] != [0, 50, 100] or nchunk3 != 1000 \
+                or not (cna == 1).all() \
+                or [int(w[0]) for w in vec if len(w) == 2] != [50, 100] \
+                or [int(w[0]) for w in prof if len(w) == 3] != [100] \
+                or len(prof) != 22:
+            raise AssertionError(f"path AW: frames {[f[0] for f in frames]}"
+                                 f", {nchunk3} chunks, cna codes "
+                                 f"{sorted(set(cna.tolist()))}, files "
+                                 f"{len(vec)}, {len(prof)} lines")
+        counts = [float(w[2]) for w in prof[2:]]
+        print(f"path AW: {nchunk3} bin/3d chunks (0.1 reduced), step 0's "
+              f"cna codes all fcc (1), centro/atom mean "
+              f"{frames[0][2][:, 4].mean():.4g} then "
+              f"{frames[-1][2][:, 4].mean():.4g}, Q6 mean "
+              f"{frames[-1][2][:, 6].mean():.4f}; aw_chunk.out's 20 z bins "
+              f"hold {min(counts):g}-{max(counts):g} atoms (their mean over "
+              f"its 10 samples), aw_vec.out 2 outputs of 1000 rows; "
+              f"step {AW_STEPS}: " + ", ".join(
+                  f"{c} {rows[-1][c]:.8g}" for c in AW_COLS))
+        compute_readings("AW", sim, {
+            "one sample step (thermo_row: heat/flux, slice)":
+                lambda: sim.thermo_row(),
+            "chunk/atom bin/3d": lambda: computes.chunk_ids(sim, "c3")[0],
+            "com/chunk": lambda: computes.eval_chunk_agg(sim, "com3"),
+            "temp/chunk": lambda: computes.eval_chunk_agg(sim, "tc3"),
+            "heat/flux": lambda: computes.eval_heat_flux(sim, "hf"),
+            "centro/atom": lambda: computes.eval_peratom(sim, "cen"),
+            "cna/atom": lambda: computes.eval_peratom(sim, "cna"),
+            "orientorder/atom": lambda: computes.eval_peratom(sim, "oo"),
+            "global/atom": lambda: computes.eval_peratom(sim, "ga"),
+            "slice": lambda: fix_output.eval_slice(sim, "sl")})
+        defer_twin("AW-f32", aw, "in.aw", 0,
+                   chunk_twin32("AW-f32", sim, rows[0], AW_COLS,
+                                os.path.join(aw, "aw.dump")),
+                   threads=4, cost=20.0, dtype="float32")
+        del s, sim
+        torch.cuda.empty_cache()
+
+        # AW at 5,324 atoms in float64, everything each step, its twin
+        aws = os.path.join(work, "aw-small")
+        os.makedirs(aws)
+        s, _ = chunk_path("AW-5k", aws, "in.aw",
+                          aw_text(CHUNK_SMALL, AW_SMALL_SCALE),
+                          torch.float64, CHUNK_TWIN_STEPS, *args,
+                          record=False)
+        defer_twin("AW-5k", aws, "in.aw", CHUNK_TWIN_STEPS,
+                   chunk_twin64("AW-5k", s, aws,
+                                ("aw_chunk.out", "aw_vec.out"), "aw.dump"),
+                   cost=15.0)
+        del s
+        torch.cuda.empty_cache()
+
+        # AX: bench/in.chain, float32, the cell grid (the plain cell pass)
+        ax = os.path.join(work, "ax")
+        os.makedirs(ax)
+        chain_script_case(ax)
+        s, _ = chunk_path("AX", ax, "in.ax", ax_text(CHUNK_FULL),
+                            torch.float32, AX_STEPS, *args)
+        sim = s._sim
+        check_counts("AX", launches["AX"], {})
+        rows = s.thermo_rows
+        if [r["step"] for r in rows] != list(range(0, AX_STEPS + 1, 10)):
+            raise AssertionError(f"path AX: rows {len(rows)}")
+        check_rows_finite("AX", rows, CHAIN_COLS)
+        frames = dump_frames(os.path.join(ax, "ax.dump"))
+        cols = frames[0][1]
+        fr = frames[-1][2][:, cols.index("c_fr")]
+        ag = frames[-1][2][:, cols.index("c_ag")]
+        mol = frames[-1][2][:, cols.index("mol")]
+        ids = frames[-1][2][:, cols.index("id")]
+        first = {m: ids[mol == m].min() for m in np.unique(mol)}
+        if [f[0] for f in frames] != [0, 50, 100] or not np.array_equal(
+                fr, np.array([first[m] for m in mol])) \
+                or not np.array_equal(frames[-1][2][:, cols.index("c_mol")],
+                                      mol):
+            raise AssertionError("path AX: fragment/atom's labels are not "
+                                 "each chain's first bead, or chunk ids not "
+                                 "the molecule ids")
+        vec = file_lines(os.path.join(ax, "ax_vec.out"))
+        rg = [float(w[4]) for w in vec[1:1 + int(vec[0][1])]]
+        print(f"path AX: {len(first)} chains, fragment/atom each chain's "
+              f"first bead; aggregate/atom 1.2: {len(set(ag.tolist()))} "
+              f"aggregates at step {AX_STEPS}; gyration/chunk at step 50 "
+              f"(the mean of 5 samples) {min(rg):.4f}-{max(rg):.4f}, "
+              f"ax_vec.out {len([w for w in vec if len(w) == 2])} outputs "
+              f"of {len(first)} rows")
+        compute_readings("AX", sim, {
+            "chunk/atom molecule": lambda: computes.chunk_ids(sim, "mol")[0],
+            "com/chunk": lambda: computes.eval_chunk_agg(sim, "cm"),
+            "gyration/chunk": lambda: computes.eval_chunk_agg(sim, "gy"),
+            "msd/chunk": lambda: computes.eval_chunk_agg(sim, "ms"),
+            "inertia/chunk": lambda: computes.eval_chunk_agg(sim, "in"),
+            "omega/chunk": lambda: computes.eval_chunk_agg(sim, "om"),
+            "fragment/atom": lambda: computes.eval_peratom(sim, "fr"),
+            "aggregate/atom": lambda: computes.eval_peratom(sim, "ag")})
+        defer_twin("AX-f32", ax, "in.ax", 0,
+                   chunk_twin32("AX-f32", sim, rows[0], (),
+                                os.path.join(ax, "ax.dump")),
+                   threads=4, cost=20.0, dtype="float32")
+        del s, sim
+        torch.cuda.empty_cache()
+
+        # AX at 5,000 beads in float64, everything each step, its twin
+        axs = os.path.join(work, "ax-small")
+        os.makedirs(axs)
+        chain_script_case(axs, n_chains=AX_SMALL_CHAINS)
+        s, _ = chunk_path("AX-5k", axs, "in.ax", ax_text(CHUNK_SMALL),
+                          torch.float64, CHUNK_TWIN_STEPS, *args,
+                          record=False)
+        defer_twin("AX-5k", axs, "in.ax", CHUNK_TWIN_STEPS,
+                   chunk_twin64("AX-5k", s, axs,
+                                ("ax_chunk.out", "ax_vec.out"), "ax.dump"),
+                   cost=15.0)
+        del s
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    chunk_structure_golden_phases()
+
+
+# tests/test_chunk_computes.py's cases (HEAD with `compute cc all
+# chunk/atom type`, each case's compute g, and its own chunk/atom cb where
+# it has one, sampled by fix ave/time 2 1 2 c_g mode vector; the scalars
+# in the row) and LAMMPS's rows of them, copied
+CHUNK_GOLDEN_HEAD = """\
+units lj
+atom_style charge
+boundary p p p
+lattice fcc 0.8442
+region box block 0 4 0 4 0 4
+create_box 2 box
+create_atoms 1 box
+mass 1 1.0
+mass 2 1.5
+region left block 0 2 0 4 0 4
+group left region left
+set region left type 2
+set type 1 charge 0.08
+set type 2 charge -0.05
+region bottom block 0 4 0 2 0 4
+set region bottom charge 0.15
+pair_style lj/cut 2.5
+pair_coeff * * 1.0 1.0
+velocity all create 1.44 87287 loop geom
+fix 1 all nve
+compute cc all chunk/atom type
+"""
+GOLDEN_TAIL = """\
+thermo 2
+thermo_modify format float %.15g norm no
+run 4
+"""
+CHUNK_GOLDEN_CASES = {
+    "com": "com/chunk cc", "vcm": "vcm/chunk cc",
+    "gyration": "gyration/chunk cc",
+    "gyration_tensor": "gyration/chunk cc tensor",
+    "angmom": "angmom/chunk cc", "torque": "torque/chunk cc",
+    "inertia": "inertia/chunk cc", "omega": "omega/chunk cc",
+    "dipole": "dipole/chunk cc", "dipole_geom": "dipole/chunk cc geometry",
+    "msd": "msd/chunk cc", "property": "property/chunk cc count",
+    "tempchunk_bin": "temp/chunk cb temp", "com_bin2d": "com/chunk cb"}
+CHUNK_GOLDEN_CB = {"tempchunk_bin": "bin/1d x lower 2.0",
+                   "com_bin2d": "bin/2d x lower 2.0 y lower 2.0"}
+CHUNK_SCALAR_CASES = {"tempchunk_scalar": "temp/chunk cc",
+                      "tempchunk_com": "temp/chunk cc com yes"}
+CHUNK_GOLDEN = {"angmom": {0: [[-33.798, 14.14, -15.852],
+                               [-75.6906, 33.9075, 33.7975]],
+                           2: [[-33.8231, 14.1226, -15.8208],
+                               [-75.6365, 33.8817, 33.7708]],
+                           4: [[-33.9288, 14.0432, -15.7336],
+                               [-75.4972, 33.8231, 33.7039]]},
+                "com": {0: [[5.03879, 2.93929, 2.93929],
+                            [1.6796, 2.93929, 2.93929]],
+                        2: [[5.04004, 2.93895, 2.93856],
+                            [1.6791, 2.93943, 2.93959]],
+                        4: [[5.04129, 2.9386, 2.93783],
+                            [1.67859, 2.93957, 2.93988]]},
+                "com_bin2d": {0: [[1.2597, 1.2597, 2.93929],
+                                  [1.2597, 4.61889, 2.93929],
+                                  [4.47892, 1.2597, 2.93929],
+                                  [4.47892, 4.61889, 2.93929]],
+                              2: [[1.57686, 1.6937, 2.90872],
+                                  [1.72911, 4.19899, 2.93253],
+                                  [4.25762, 1.65886, 2.95619],
+                                  [3.78305, 4.03193, 2.97285]],
+                              4: [[1.57748, 1.69487, 2.91044],
+                                  [1.72696, 4.19898, 2.93223],
+                                  [4.25856, 1.65737, 2.95707],
+                                  [3.78422, 4.03171, 2.97026]]},
+                "dipole": {0: [[-9.23706e-14, -5.29073, 0.117572, 5.29203],
+                               [-1.77636e-14, -25.1939, -0.335919, 25.1962]],
+                           2: [[-0.000297679, -5.29382, 0.12436, 5.29528],
+                               [0.001822, -25.1757, -0.320187, 25.1778]],
+                           4: [[-0.000588521, -5.2969, 0.131138, 5.29853],
+                               [0.00366289, -25.1576, -0.304464, 25.1594]]},
+                "dipole_geom": {0: [[-9.23706e-14, -5.29073, 0.117572,
+                                     5.29203],
+                                    [-1.42109e-14, -25.1939, -0.335919,
+                                     25.1962]],
+                                2: [[-0.000297679, -5.29382, 0.12436, 5.29528],
+                                    [0.001822, -25.1757, -0.320187, 25.1778]],
+                                4: [[-0.000588521, -5.2969, 0.131138, 5.29853],
+                                    [0.00366289, -25.1576, -0.304464,
+                                     25.1594]]},
+                "gyration": {0: [[2.80632], [2.96913]],
+                             2: [[2.80771], [2.96709]],
+                             4: [[2.80924], [2.96514]]},
+                "gyration_tensor": {0: [[0.470174, 3.70262, 3.70262,
+                                         3.75027e-17, 2.59379e-17,
+                                         -0.0587717],
+                                        [1.41052, 3.70262, 3.70262,
+                                         3.70074e-18, 1.85037e-17, 0.035263]],
+                                    2: [[0.470959, 3.70441, 3.70787,
+                                         0.000651384, 0.000801812,
+                                         -0.0599507],
+                                        [1.40719, 3.6982, 3.69822, 0.00160213,
+                                         0.00343339, 0.0336957]],
+                                    4: [[0.472045, 3.70648, 3.71332,
+                                         0.00132551, 0.00164542, -0.0610855],
+                                        [1.40405, 3.69398, 3.69402, 0.00317367,
+                                         0.00683782, 0.0321215]]},
+                "inertia": {0: [[710.903, 400.588, 400.588, -3.60026e-15,
+                                 5.64209, -2.49004e-15],
+                                [1777.26, 1227.15, 1227.15, -2.66454e-15,
+                                 -8.46313, 6.21725e-15]],
+                            2: [[711.579, 401.168, 400.836, -0.0625329,
+                                 5.75527, -0.076974],
+                                [1775.14, 1225.3, 1225.29, -0.38451, -8.08698,
+                                 -0.824013]],
+                            4: [[712.301, 401.795, 401.138, -0.127249, 5.86421,
+                                 -0.15796],
+                                [1773.12, 1223.54, 1223.53, -0.761681,
+                                 -7.70917, -1.64108]]},
+                "msd": {0: [[0.0, 0.0, 0.0, 0.0], [0.0, 0.0, 0.0, 0.0]],
+                        2: [[1.56886e-06, 1.20704e-07, 5.34313e-07,
+                             2.22387e-06],
+                            [2.51017e-07, 1.93127e-08, 8.549e-08, 3.5582e-07]],
+                        4: [[6.27848e-06, 4.83611e-07, 2.13592e-06, 8.898e-06],
+                            [1.00456e-06, 7.73778e-08, 3.41746e-07,
+                             1.42368e-06]]},
+                "omega": {0: [[-0.0475423, 0.0358625, -0.0400769],
+                              [-0.0425884, 0.0278223, 0.0277332]],
+                          2: [[-0.0475336, 0.03577, -0.0399923],
+                              [-0.0425899, 0.0278214, 0.0277164]],
+                          4: [[-0.0476352, 0.0355164, -0.0397602],
+                              [-0.0425412, 0.0277915, 0.0276646]]},
+                "property": {0: [[96.0], [160.0]],
+                             2: [[96.0], [160.0]],
+                             4: [[96.0], [160.0]]},
+                "tempchunk_bin": {0: [[1.4868], [1.38195]],
+                                  2: [[1.46462], [1.38871]],
+                                  4: [[1.44531], [1.36281]]},
+                "torque": {0: [[-2.60799e-14, -1.18294e-14, 3.94506e-15],
+                               [-4.02985e-14, 1.34319e-15, -1.08649e-14]],
+                           2: [[-5.59134, -4.00387, 6.08525],
+                               [10.3056, -4.70671, -5.0484]],
+                           4: [[-16.2566, -12.4727, 11.2827],
+                               [17.2087, -6.79467, -8.11273]]},
+                "vcm": {0: [[0.125241, -0.0347403, -0.0730981],
+                            [-0.0500965, 0.0138961, 0.0292392]],
+                        2: [[0.125284, -0.0347568, -0.0730855],
+                            [-0.0501136, 0.0139027, 0.0292342]],
+                        4: [[0.125329, -0.0348927, -0.0729807],
+                            [-0.0501314, 0.0139571, 0.0291923]]}}
+CHUNK_SCALAR_GOLDEN = {"tempchunk_com": [[0.0, 1.44, 1.43048377519289],
+                                         [2.0, 1.43285519103294,
+                                          1.42336511679456],
+                                         [4.0, 1.41021682263837,
+                                          1.40081424755624]],
+                       "tempchunk_scalar": [[0.0, 1.44, 1.434375],
+                                            [2.0, 1.43285519103294,
+                                             1.42725810044297],
+                                            [4.0, 1.41021682263837,
+                                             1.40470816317494]]}
+CENTRO_GOLDEN = [[0, 0.05, 16.9262601966397, 303.0, 1.41052168305331],
+                 [2, 0.0497155436205406, 16.8344794131108, 303.0,
+                  1.4039770435622],
+                 [4, 0.0488345009278659, 17.0143705321207, 303.0,
+                  1.39776467168435]]
+HF_GOLDEN = [[0, 1.44, -19.2689191241193, 94.555659420385, 14.9522180121156,
+              -6.42297304137323, 31.5185531401283, 4.98407267070516],
+             [2, 1.43088638838039, -18.8612691420027, 94.0148280123202,
+              13.2503160176701, -6.76130330253762, 30.7961487238246,
+              4.18199099216507],
+             [4, 1.40164128098338, -16.5834633381717, 94.8852113586248,
+              11.0075457474505, -7.22357783617436, 29.5831351867053,
+              3.3153339738176]]
+SLICE_GOLDEN = [[0, 1.44, 94.555659420385, -6.42297304137323],
+                [2, 1.43088638838039, 94.0148280123202, -6.76130330253762],
+                [4, 1.40164128098338, 94.8852113586248, -7.22357783617436]]
+ORIENT_GOLDEN = [[0, 0.190940653956, 0.574524259714, 0.600083022202, 0.0, 0.0],
+                 [2, 0.190993699392, 0.572481281486, 0.592102548126,
+                  1.66602237131e-05, -4.02052611497e-05]]
+# tests/test_structure_computes.py's and tests/test_order_computes.py's
+# scripts and LAMMPS's rows (CENTRO_GOLDEN: step temp c_rc c_rn c_rmax;
+# HF_GOLDEN: step temp c_hf[1..6]; SLICE_GOLDEN: step temp c_s[1] c_s[2];
+# ORIENT_GOLDEN: step Q4 Q6 Q12 q6[2] q6[8]), copied
+STRUCT_MELT = """\
+units lj
+atom_style atomic
+boundary p p p
+lattice fcc 0.8442
+region box block 0 {n} 0 {n} 0 {n}
+create_box 1 box
+create_atoms 1 box
+mass 1 1.0
+pair_style lj/cut 2.5
+pair_coeff 1 1 1.0 1.0
+"""
+STRUCT_GOLDEN_SCRIPTS = {
+    "centro/atom, cna/atom": STRUCT_MELT.format(n=4) + """\
+region hole sphere 2 2 2 0.4
+delete_atoms region hole
+velocity all create 0.05 87287 loop geom
+fix 1 all nve
+compute cc all centro/atom fcc
+compute cn all cna/atom 1.4336
+compute rc all reduce sum c_cc
+compute rn all reduce sum c_cn
+compute rmax all reduce max c_cc
+thermo_style custom step temp c_rc c_rn c_rmax
+""" + GOLDEN_TAIL,
+    "heat/flux, slice": STRUCT_MELT.format(n=4) + """\
+velocity all create 1.44 87287 loop geom
+fix 1 all nve
+compute myke all ke/atom
+compute mype all pe/atom
+compute myst all stress/atom NULL
+compute hf all heat/flux myke mype myst
+compute s all slice 2 6 2 c_hf
+thermo_style custom step temp c_hf[1] c_hf[2] c_hf[3] c_hf[4] c_hf[5] &
+c_hf[6] c_s[1] c_s[2]
+""" + GOLDEN_TAIL,
+    "orientorder/atom": STRUCT_MELT.format(n=3) + """\
+velocity all create 1.44 87287 loop geom
+fix 1 all nve
+compute oo all orientorder/atom
+compute q6 all orientorder/atom degrees 1 6 components 6 nnn 12 cutoff 1.8
+compute r1 all reduce sum c_oo[1] c_oo[2] c_oo[5]
+compute r2 all reduce sum c_q6[2] c_q6[8]
+thermo 2
+thermo_style custom step c_r1[1] c_r1[2] c_r1[3] c_r2[1] c_r2[2]
+run 2
+""",
+    "hexorder/atom": """\
+units lj
+dimension 2
+atom_style atomic
+boundary p p p
+lattice hex 0.9
+region box block 0 6 0 4 -0.25 0.25
+create_box 1 box
+create_atoms 1 box
+mass 1 1.0
+velocity all create 0.5 12345 loop geom
+pair_style lj/cut 2.5
+pair_coeff 1 1 1.0 1.0
+fix 1 all nve
+fix 2 all enforce2d
+compute hx all hexorder/atom
+compute hx4 all hexorder/atom degree 4 nnn 4 cutoff 1.5
+compute rh all reduce sum c_hx[1] c_hx[2] c_hx4[1] c_hx4[2]
+thermo 2
+thermo_style custom step c_rh[1] c_rh[2] c_rh[3] c_rh[4]
+run 2
+""",
+    "global/atom": STRUCT_MELT.format(n=3) + """\
+velocity all create 1.44 87287 loop geom
+fix 1 all nve
+compute cc all chunk/atom bin/1d x lower 0.25 units reduced
+compute vc all com/chunk cc
+compute ga all global/atom c_cc c_vc[1] c_vc[2]
+compute rg all reduce sum c_ga[1] c_ga[2]
+thermo 2
+thermo_style custom step c_rg[1] c_rg[2]
+thermo_modify norm no
+run 2
+"""}
+# (step, column, LAMMPS's value, rel, abs) of each script, at its test's
+# bars
+HEX_GOLDEN = ((0, "c_rh[1]", 1.0, 1e-12, 0.0), (0, "c_rh[2]", 0.0, 0.0, 1e-12),
+              (2, "c_rh[1]", 0.998595202424, 1e-10, 0.0),
+              (2, "c_rh[2]", -1.59509088455e-05, 1e-8, 0.0),
+              (2, "c_rh[3]", 0.00712479064708, 1e-8, 0.0),
+              (2, "c_rh[4]", 0.0394258967726, 1e-8, 0.0))
+
+
+def struct_golden_rows():
+    """STRUCT_GOLDEN_SCRIPTS' bars: name -> [(step, column, value, rel,
+    abs)]."""
+    out = {"centro/atom, cna/atom": [], "heat/flux, slice": [],
+           "orientorder/atom": [], "hexorder/atom": list(HEX_GOLDEN),
+           "global/atom": [(s, f"c_rg[{k}]", 226.745485837, 1e-10, 0.0)
+                           for s in (0, 2) for k in (1, 2)]}
+    for step, temp, rc, rn, rmax in CENTRO_GOLDEN:
+        out["centro/atom, cna/atom"] += [
+            (step, "temp", temp, 1e-10, 0.0), (step, "c_rc", rc, 1e-8, 0.0),
+            (step, "c_rn", rn, 1e-12, 0.0), (step, "c_rmax", rmax, 1e-8, 0.0)]
+    for row in HF_GOLDEN:
+        out["heat/flux, slice"] += [(int(row[0]), "temp", row[1], 1e-10, 0.0)]
+        out["heat/flux, slice"] += [(int(row[0]), f"c_hf[{k + 1}]",
+                                     row[2 + k], 2e-7, 0.0) for k in range(6)]
+    for step, _, s1, s2 in SLICE_GOLDEN:
+        out["heat/flux, slice"] += [(step, "c_s[1]", s1, 2e-7, 0.0),
+                                    (step, "c_s[2]", s2, 2e-7, 0.0)]
+    for step, q4, q6, q12, c2, c8 in ORIENT_GOLDEN:
+        out["orientorder/atom"] += [
+            (step, "c_r1[1]", q4, 1e-10, 0.0),
+            (step, "c_r1[2]", q6, 1e-10, 0.0),
+            (step, "c_r1[3]", q12, 1e-10, 0.0),
+            (step, "c_r2[1]", c2, 1e-8, 1e-12),
+            (step, "c_r2[2]", c8, 1e-8, 1e-12)]
+    return out
+
+
+def chunk_golden_text():
+    """Every case of CHUNK_GOLDEN_CASES and CHUNK_SCALAR_CASES in one
+    script: case c's computes g_c (and cb_c), its fix ave/time av_c
+    writing out_c.txt; the scalars in the row."""
+    text = CHUNK_GOLDEN_HEAD
+    for case, style in CHUNK_GOLDEN_CASES.items():
+        if case in CHUNK_GOLDEN_CB:
+            text += (f"compute cb_{case} all chunk/atom "
+                     f"{CHUNK_GOLDEN_CB[case]}\n")
+        text += (f"compute g_{case} all "
+                 + style.replace(" cb", f" cb_{case}") + "\n"
+                 + f"fix av_{case} all ave/time 2 1 2 c_g_{case} mode vector "
+                 f"file out_{case}.txt\n")
+    for case, style in CHUNK_SCALAR_CASES.items():
+        text += f"compute g_{case} all {style}\n"
+    return text + "thermo_style custom step temp " + " ".join(
+        f"c_g_{case}" for case in CHUNK_SCALAR_CASES) + "\n" + GOLDEN_TAIL
+
+
+def chunk_frames(path):
+    """A fix ave/time mode vector file's frames: step -> rows (the row
+    index dropped)."""
+    frames, lines = {}, file_lines(path)
+    i = 0
+    while i < len(lines):
+        step, nrow = int(lines[i][0]), int(lines[i][1])
+        frames[step] = [[float(v) for v in w[1:]]
+                        for w in lines[i + 1:i + 1 + nrow]]
+        i += 1 + nrow
+    return frames
+
+
+def chunk_structure_golden_phases():
+    """The LAMMPS rows of tests/test_chunk_computes.py (the 14 */chunk
+    cases' frames at 5e-5 of their column scale, a frame whose largest
+    magnitude is below 1e-9 below 1e-9 too; the temp/chunk scalars at
+    1e-9), tests/test_structure_computes.py and tests/test_order_computes.py
+    (at their bars), through LammpsScript in float64 on the card."""
+    import numpy as np
+    import torch
+
+    from lidp_tpu_torch.io.script import LammpsScript
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_chunk_gold_")
+    try:
+        s = LammpsScript(dtype=torch.float64, log=lambda line: None)
+        s.root = work
+        s.execute(chunk_golden_text().splitlines())
+        worst = {}
+        for case, want in CHUNK_GOLDEN.items():
+            got = chunk_frames(os.path.join(work, f"out_{case}.txt"))
+            if sorted(got) != sorted(want):
+                raise AssertionError(f"golden {case}: steps {sorted(got)}")
+            for step, rows in want.items():
+                g, w = np.asarray(got[step]), np.asarray(rows)
+                if g.shape != w.shape:
+                    raise AssertionError(f"golden {case} step {step}: shape "
+                                         f"{g.shape}")
+                if np.abs(w).max() < 1e-9:
+                    if not np.abs(g).max() < 1e-9:
+                        raise AssertionError(f"golden {case} step {step}")
+                    continue
+                scale = np.maximum(np.abs(w).max(axis=0, keepdims=True),
+                                   1e-6 * np.abs(w).max())
+                err = float((np.abs(g - w) / scale).max())
+                worst[case] = max(worst.get(case, 0.0), err / 5e-5)
+                if not err < 5e-5:
+                    raise AssertionError(f"golden {case} step {step}: "
+                                         f"{err:.3g} of the column scale")
+        rows = {int(r["step"]): r for r in s.thermo_rows}
+        for case, ref in CHUNK_SCALAR_GOLDEN.items():
+            for step, temp, cg in ref:
+                r = rows[int(step)]
+                for name, want in (("temp", temp), (f"c_g_{case}", cg)):
+                    err = abs(r[name] - want) / (1e-9 * abs(want))
+                    worst[case] = max(worst.get(case, 0.0), err)
+                    if not err <= 1.0:
+                        raise AssertionError(f"golden {case} step {step} "
+                                             f"{name}: {r[name]!r}, LAMMPS "
+                                             f"{want!r}")
+        print("golden */chunk (tests/test_chunk_computes.py, one script on "
+              "the card): " + ", ".join(f"{c} {v:.3g}"
+                                         for c, v in worst.items())
+              + " of that test's bars")
+        for name, bars in struct_golden_rows().items():
+            s = LammpsScript(dtype=torch.float64, log=lambda line: None)
+            s.root = work
+            s.execute(STRUCT_GOLDEN_SCRIPTS[name].splitlines())
+            rows = {int(r["step"]): r for r in s.thermo_rows}
+            worst = 0.0
+            for step, col, want, rel, ab in bars:
+                bar = max(rel * abs(want), ab)
+                worst = max(worst, abs(rows[step][col] - want) / bar)
+                if not abs(rows[step][col] - want) <= bar:
+                    raise AssertionError(f"golden {name} step {step} {col}: "
+                                         f"{rows[step][col]!r}, LAMMPS "
+                                         f"{want!r}")
+            print(f"golden {name}: {len(bars)} values on the card at "
+                  f"{worst:.3g} of their test's bars")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -8991,6 +9894,7 @@ def main() -> int:
     kspace_paths(launches, reset_counts, read_counts)
     pair_style_paths(launches, reset_counts, read_counts)
     charmm_family_paths(launches, reset_counts, read_counts)
+    chunk_structure_paths(launches, reset_counts, read_counts)
     run_twins()
 
     # 6. results

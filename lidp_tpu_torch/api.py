@@ -4,7 +4,10 @@ reference's C library interface (src/library.cpp) and its Python wrapper
 names and semantics, driving the port's LammpsScript in this process.
 
 Some computes are read only here: compute rdf's (Nbin, 3) array comes
-through extract_compute, and msd and vacf come back as vectors.  A
+through extract_compute, and msd, vacf, heat/flux and a one-column compute
+slice come back as vectors, temp/chunk without values as a scalar (the
+JAX package's extract_compute reads them from the thermo row, and no
+*/chunk array or per-atom column).  A
 `lammps` runs on the GPU unless device="cpu" is given, and raises without
 one.  fix external is not ported, so set_fix_external_callback and
 fix_external_set_force raise.
@@ -244,9 +247,10 @@ class lammps:
         return 0
 
     def extract_compute(self, cid: str, style=None, _type=None):
-        """lammps_extract_compute: a scalar (temp, pe, group/group, ...),
-        a vector (msd, vacf, com: its components) or compute rdf's (Nbin,
-        3) array [r, g(r), coord], on the current state."""
+        """lammps_extract_compute: a scalar (temp, pe, group/group,
+        temp/chunk's, ...), a vector (msd, vacf, com, heat/flux, a
+        one-column slice: its components) or compute rdf's (Nbin, 3)
+        array [r, g(r), coord], on the current state."""
         sim = self._sim()
         if cid in sim.rdf_computes:
             if sim.res is None:

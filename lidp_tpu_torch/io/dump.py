@@ -87,14 +87,16 @@ def write_dump_frame(spec, sys, script, gmask, f=None):
 
 
 def _peratom_column(script, c, n):
-    """A dump column c_ID[/i] (a per-atom compute) or f_ID[/i] (fix
-    ave/atom's average, zeros before it has one) as an (n,) numpy array."""
+    """A dump column c_ID[/i] (a per-atom compute, a chunk/atom compute's
+    chunk ids) or f_ID[/i] (fix ave/atom's average, zeros before it has
+    one) as an (n,) numpy array."""
     from lidp_tpu_torch import computes
 
     sim = script._sim
     name = c[2:].split("[")[0]
     if c.startswith("c_"):
-        if name not in sim.peratom_computes:
+        if name not in sim.peratom_computes \
+                and name not in sim.chunk_computes:
             raise ValueError(f"dump column {c}: compute {name} is not a "
                              "per-atom compute")
     elif script.fixes[name].style != "ave/atom":

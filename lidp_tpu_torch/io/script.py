@@ -30,10 +30,12 @@ flow and obstacle (boundary f, s and m with the shrink-wrapped box, the
 region styles, group region|union|subtract, set ... type, delete_atoms,
 velocity ramp and velocity create ... temp, thermo_modify temp, fix_modify
 temp, and the walls, indent and move of styles/fix_modifiers.py), and
-the computes and output fixes (compute with the styles of computes.py,
-uncompute, compute_modify, thermo c_ID[i] and v_NAME columns, fix print,
-ave/time, ave/atom, ave/histo, ave/histo/weight, ave/correlate and vector
-of styles/fix_output.py, dump custom c_ID and f_ID columns), and the
+the computes and output fixes (compute with the styles of computes.py:
+chunk/atom, the */chunk computes, the structure computes and heat/flux
+among them; uncompute, compute_modify, thermo c_ID[i] and v_NAME columns,
+fix print, ave/time, ave/atom, ave/histo, ave/histo/weight,
+ave/correlate, vector and ave/chunk of styles/fix_output.py, dump custom
+c_ID and f_ID columns), and the
 other pair styles (the generic styles of styles/pair_builders.py,
 pair_style table with pair_write, hybrid and hybrid/overlay, dpd and
 dpd/tstat, pair_modify tail), and the rest of the CHARMM family
@@ -56,6 +58,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from lidp_tpu_torch import computes as computes_mod
 from lidp_tpu_torch import resolve_device
 from lidp_tpu_torch import units as units_mod
 from lidp_tpu_torch import velocity as velocity_mod
@@ -195,7 +198,6 @@ _FIX_ITEMS = {
 }
 
 _FIX_ITEMS.update({
-    "ave/chunk": "ROADMAP queue 1 item 6.13, the chunk computes",
     "store/state": "ROADMAP queue 1 item 6.16, store/state and controller",
     "controller": "ROADMAP queue 1 item 6.16, store/state and controller",
     "external": "ROADMAP queue 1 item 6.1, the modifier fixes; its library "
@@ -209,15 +211,19 @@ COMPUTE_STYLES = (
     "temp/profile", "pe", "ke", "com", "gyration", "msd", "vacf", "rdf",
     "group/group", "pressure", "reduce", "reduce/region", "slice",
     "ke/rigid", "erotate/rigid", "ke/atom", "pe/atom", "stress/atom",
-    "coord/atom", "cluster/atom", "displace/atom", "property/atom")
-_CHUNK = "ROADMAP queue 1 item 6.13, the chunk computes"
-_STRUCTURE = "ROADMAP queue 1 item 6.14, the structure computes"
+    "coord/atom", "cluster/atom", "displace/atom", "property/atom",
+    "centro/atom", "cna/atom", "orientorder/atom", "hexorder/atom",
+    "fragment/atom", "aggregate/atom", "global/atom", "heat/flux",
+    "chunk/atom", "com/chunk", "vcm/chunk", "gyration/chunk",
+    "angmom/chunk", "torque/chunk", "inertia/chunk", "omega/chunk",
+    "dipole/chunk", "msd/chunk", "property/chunk", "temp/chunk")
+# the structure computes (computes.py)
+_STRUCTURE_STYLES = ("centro/atom", "cna/atom", "orientorder/atom",
+                     "hexorder/atom", "fragment/atom", "aggregate/atom",
+                     "global/atom")
 _LOCAL = "ROADMAP queue 1 item 6.15, local computes and dump local"
 _DUMPS = "ROADMAP queue 1 item 6.17, the other dump styles"
 _COMPUTE_ITEMS = {
-    **{st: _STRUCTURE for st in (
-        "centro/atom", "cna/atom", "orientorder/atom", "hexorder/atom",
-        "fragment/atom", "aggregate/atom", "global/atom", "heat/flux")},
     **{st: _LOCAL for st in (
         "pair/local", "bond/local", "angle/local", "dihedral/local",
         "improper/local", "property/local", "rigid/local")},
@@ -225,7 +231,6 @@ _COMPUTE_ITEMS = {
         "erotate/sphere", "temp/sphere", "erotate/sphere/atom",
         "contact/atom")},
     "temp/deform": "ROADMAP queue 1 item 6.1, the modifier fixes (deform)",
-    "chunk/atom": _CHUNK,
 }
 # JAX's thermo row has no value for these (ROADMAP queue 3 item 26)
 _NO_VALUE = "ROADMAP queue 3 item 26, values JAX's thermo row lacks"
@@ -454,9 +459,11 @@ class LammpsScript:
         # thermo keyword in the expression reads this row
         self._kw_row = None
         # the output fixes' results by fix ID (as the JAX package keeps
-        # them): ave/time's (step, mean) pairs, ave/histo's last
-        # histogram, ave/correlate's (correlations, counts)
+        # them): ave/time's (step, mean) pairs, ave/chunk's last (step,
+        # rows), ave/histo's last histogram, ave/correlate's
+        # (correlations, counts)
         self.ave_time_values: dict = {}
+        self.ave_chunk_values: dict = {}
         self.ave_histo_values: dict = {}
         self.ave_correlate_values: dict = {}
         # min_style, min_modify dmax, and each minimize's (energy,
@@ -2057,9 +2064,8 @@ class LammpsScript:
         the Simulation."""
         cid, group, style = a[0], a[1], a[2]
         if style not in COMPUTE_STYLES:
-            if style in _COMPUTE_ITEMS or style.endswith("/chunk"):
-                _unported(f"compute style {style}",
-                          _COMPUTE_ITEMS.get(style, _CHUNK))
+            if style in _COMPUTE_ITEMS:
+                _unported(f"compute style {style}", _COMPUTE_ITEMS[style])
             raise ValueError(f"unsupported compute style {style}")
         if group not in self.groups:
             raise ValueError(f"compute {cid}: group {group} does not exist")
@@ -2131,9 +2137,7 @@ class LammpsScript:
                 if name not in self.computes:
                     raise ValueError(f"compute slice input {t}: no such "
                                      "compute")
-                # the JAX package takes the chunk computes' and heat/flux's
-                # arrays, which the port does not have
-                fix_output.global_array(None, t)
+                fix_output.check_global(self, t, "compute slice")
         elif style in ("temp/ramp", "temp/region", "temp/profile"):
             spec = args
             if style == "temp/region" and args[0] not in self.regions:
@@ -2159,9 +2163,154 @@ class LammpsScript:
                              "fz", "q", "type", "mol", "mass", "id"):
                     raise KeyError(f"compute property/atom field {w}")
             spec = {"fields": args}
+        elif style in _STRUCTURE_STYLES or style == "heat/flux":
+            spec = self._structure_spec(style, args)
+        elif style == "chunk/atom":
+            spec = self._chunk_atom_spec(args)
+        elif style.endswith("/chunk"):
+            spec = self._chunk_agg_spec(style, args)
         else:   # ke/atom, pe/atom
             spec = {}
         self.computes[cid] = (group, style, spec)
+
+    def _structure_spec(self, style, args):
+        """The arguments of centro/atom fcc|bcc|N, cna/atom cutoff,
+        orientorder/atom [nnn N|NULL] [degrees nq l...] [components l]
+        [cutoff c], hexorder/atom [degree n] [nnn N|NULL] [cutoff c],
+        fragment/atom, aggregate/atom cutoff, global/atom index input...
+        and heat/flux ke-ID pe-ID stress-ID (the JAX package's
+        cmd_compute).  Where the JAX package reads the leading arguments
+        and skips the rest, the port raises on the rest."""
+        def extra(k):
+            if len(args) > k:
+                _unported(f"compute {style} arguments "
+                          f"{' '.join(args[k:])} (the JAX package reads "
+                          "none)", _OUTPUT_FIXES)
+
+        if style in ("centro/atom", "cna/atom"):
+            extra(1)
+            if style == "cna/atom":
+                float(args[0])
+            elif args[0] not in ("fcc", "bcc"):
+                int(args[0])
+            return {"arg": args[0]}
+        if style in ("orientorder/atom", "hexorder/atom"):
+            d = {}
+            i = 0
+            while i < len(args):
+                if args[i] == "nnn":
+                    d["nnn"] = 0 if args[i + 1] == "NULL" \
+                        else int(args[i + 1])
+                    i += 2
+                elif args[i] == "degrees" and style == "orientorder/atom":
+                    nq = int(args[i + 1])
+                    d["degrees"] = [int(v) for v in args[i + 2:i + 2 + nq]]
+                    i += 2 + nq
+                elif args[i] == "degree" and style == "hexorder/atom":
+                    d["degree"] = int(args[i + 1])
+                    i += 2
+                elif args[i] == "components" \
+                        and style == "orientorder/atom":
+                    d["components"] = int(args[i + 1])
+                    i += 2
+                elif args[i] == "cutoff":
+                    d["cutoff"] = float(args[i + 1])
+                    i += 2
+                else:
+                    raise ValueError(f"{style} keyword {args[i]}")
+            return {"arg": d}
+        if style == "fragment/atom":
+            extra(0)
+            return {}
+        if style == "aggregate/atom":
+            extra(1)
+            return {"cutoff": float(args[0])}
+        if style == "global/atom":
+            ref = args[0]
+            if ref.startswith("c_") and ref[2:].split("[")[0] \
+                    not in self.computes:
+                raise ValueError(f"compute global/atom index {ref}: no "
+                                 "such compute")
+            for t in args[1:]:
+                fix_output.check_global(self, t, "compute global/atom")
+            return {"ref": ref, "inputs": list(args[1:])}
+        # heat/flux
+        extra(3)
+        for cid in args[:3]:
+            if cid not in self.computes:
+                raise ValueError(f"compute heat/flux: compute {cid} does "
+                                 "not exist")
+        return {"ids": list(args[:3])}
+
+    def _chunk_atom_spec(self, args):
+        """compute ID group chunk/atom bin/1d|2d|3d (dim origin delta)...
+        [units box|lattice|reduced] | type | molecule (the JAX package's
+        cmd_compute; compute_chunk_atom.cpp setup_xyz_bins): origin lower,
+        center, upper or a coordinate; units lattice by default.  The JAX
+        package skips every other keyword (discard, nchunk, limit, ids,
+        compress, bound, region, pbc, ...): the port raises on them."""
+        which = args[0]
+        spec = {"which": which}
+        if which in ("bin/1d", "bin/2d", "bin/3d"):
+            nd = int(which[4])
+            dims, origins, deltas = [], [], []
+            i = 1
+            for _ in range(nd):
+                dims.append({"x": 0, "y": 1, "z": 2}[args[i]])
+                origin = args[i + 1]
+                if origin not in ("lower", "center", "upper"):
+                    float(origin)
+                origins.append(origin)
+                deltas.append(float(args[i + 2]))
+                i += 3
+            spec.update(dims=dims, origins=origins, deltas=deltas,
+                        dim=dims[0], origin=origins[0], delta=deltas[0],
+                        units="lattice")
+            while i < len(args):
+                if args[i] == "units" and args[i + 1] in (
+                        "box", "lattice", "reduced"):
+                    spec["units"] = args[i + 1]
+                else:
+                    _unported(f"compute chunk/atom keyword {args[i]} (the "
+                              "JAX package skips it)", _OUTPUT_FIXES)
+                i += 2
+        elif which in ("type", "molecule"):
+            if len(args) > 1:
+                _unported(f"compute chunk/atom keyword {args[1]} (the JAX "
+                          "package skips it)", _OUTPUT_FIXES)
+        else:
+            raise ValueError(f"unsupported chunk/atom style {which}")
+        return spec
+
+    def _chunk_agg_spec(self, style, args):
+        """compute ID group <style>/chunk chunkID [values/keywords]
+        (compute_com_chunk.cpp and its siblings): gyration/chunk takes
+        `tensor`, dipole/chunk `mass` or `geometry`, property/chunk its
+        fields count, id, coord1..3, temp/chunk `com yes|no`, `adof`,
+        `cdof` and the values temp, kecom, internal; the JAX package
+        ignores any other word of the first two and of the others, and
+        the port raises on it."""
+        cid = args[0]
+        if self.computes.get(cid, (None, None))[1] != "chunk/atom":
+            raise ValueError(f"compute {style}: chunk/atom compute {cid} "
+                             "does not exist")
+        extra = list(args[1:])
+        ok = {"gyration/chunk": ("tensor",),
+              "dipole/chunk": ("mass", "geometry")}.get(style, ())
+        if style == "property/chunk":
+            for tok in extra:
+                if tok not in ("count", "id", "coord1", "coord2", "coord3"):
+                    raise ValueError(f"property/chunk field {tok}")
+        elif style == "temp/chunk":
+            for tok in computes_mod.temp_chunk_keywords(extra, 3)[3]:
+                if tok not in ("temp", "kecom", "internal"):
+                    raise ValueError(f"temp/chunk value {tok}")
+        else:
+            for tok in extra:
+                if tok not in ok:
+                    _unported(f"compute {style} argument {tok} (the JAX "
+                              "package reads none)", _OUTPUT_FIXES)
+        return {"chunk": cid, "extra": extra}
 
     def cmd_uncompute(self, a):
         self.computes.pop(a[0], None)

@@ -522,6 +522,13 @@ class Simulation:
         self.tempvar_computes = {}
         self.slice_computes = {}
         self.press_computes = {}
+        # chunk/atom: ID -> (group, spec); the */chunk computes: ID ->
+        # (group, style, chunk ID, arguments); heat/flux: ID -> (group,
+        # [ke, pe, stress IDs]); msd/chunk's reference centres by ID
+        self.chunk_computes = {}
+        self.chunkagg_computes = {}
+        self.hf_computes = {}
+        self.msdchunk_ref = {}
         # a state's per-atom values (computes.eval_peratom) and thermo row
         # are formed once: keyed by the step and the force result, the
         # row also by a generation the fixes' per-atom stores bump
@@ -959,6 +966,13 @@ class Simulation:
                 self.peratom_computes[cid] = (gm, style, spec)
             elif style == "slice":
                 self.slice_computes[cid] = dict(spec)
+            elif style == "chunk/atom":
+                self.chunk_computes[cid] = (gm, spec)
+            elif style in computes.CHUNK_AGG_STYLES:
+                self.chunkagg_computes[cid] = (gm, style, spec["chunk"],
+                                               spec["extra"])
+            elif style == "heat/flux":
+                self.hf_computes[cid] = (gm, list(spec["ids"]))
             elif style == "pressure":
                 self.press_computes[cid] = dict(spec)
             elif style == "reduce":
@@ -1035,6 +1049,22 @@ class Simulation:
             late["c_" + cid] = compute_pressure(
                 self.sys, self.group_thermo.get(tcid, self.thermo_params),
                 virial, kinetic=tcid != "NULL" and "virial" not in spec["kw"])
+        # then, as the JAX package adds them (its sim.py:3099-3117): a
+        # compute slice of one column by row, heat/flux's six components
+        # and temp/chunk's scalar
+        for cid in self.slice_computes:
+            sl = fix_output.eval_slice(self, cid)
+            if sl.shape[1] == 1:
+                for k in range(sl.shape[0]):
+                    late[f"c_{cid}[{k + 1}]"] = sl[k, 0]
+        for cid in self.hf_computes:
+            hf = computes.eval_heat_flux(self, cid)
+            for k in range(6):
+                late[f"c_{cid}[{k + 1}]"] = hf[k]
+        for cid, (_, style, _, extra) in self.chunkagg_computes.items():
+            if style == "temp/chunk" and not computes.temp_chunk_keywords(
+                    extra, tp.dim)[3]:
+                late["c_" + cid] = computes.eval_chunk_agg(self, cid)
         return out, late
 
     def thermo_row(self) -> dict:
@@ -1042,11 +1072,13 @@ class Simulation:
         integrator's constraint virial in the pressure and every global
         compute's c_ID / c_ID[i] (temperatures, pe, ke, com, gyration, msd,
         vacf, reduce, group/group, the rigid and biased temperatures,
-        pressure), every scalar read to the host in one transfer; the atom
-        and topology counts and dt; then the v_NAME columns, evaluated with
+        pressure, a one-column slice, heat/flux, temp/chunk's scalar),
+        every scalar read to the host in one transfer; the atom and
+        topology counts and dt; then the v_NAME columns, evaluated with
         this row as the thermo keywords' context (thermo.cpp
-        compute_variable), and the pressure computes after them, as the
-        JAX package orders them.  The read is formed once per state."""
+        compute_variable), and the pressure, slice, heat/flux and
+        temp/chunk computes after them, as the JAX package orders them.
+        The read is formed once per state."""
         key = (int(self.sys.step), self._gen)
         cached = self._row_cache
         if cached is not None and cached[0] == key and cached[1] is self.res:
@@ -1147,6 +1179,11 @@ class Simulation:
         for spec in fixes:
             if spec.style == "vector":
                 fix_output.vector_sample(self, spec, int(self.sys.step))
+        # msd/chunk takes its reference centres at the run's setup
+        # (ComputeMSDChunk::setup)
+        for cid, (_, style, _, _) in self.chunkagg_computes.items():
+            if style == "msd/chunk" and cid not in self.msdchunk_ref:
+                computes.eval_chunk_agg(self, cid)
         self.script.log(" ".join(
             self._HEADER.get(c, c) for c in self.script.thermo_columns))
         self._emit()

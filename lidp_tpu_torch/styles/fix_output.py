@@ -1,16 +1,19 @@
 """The output fixes (lidp_tpu/sim.py _host_fixes, _fix_vector_sample,
-_ave_time, _ave_histo, _histo_emit, _ave_correlate, _global_array,
-eval_slice): fix print, ave/time, ave/atom, ave/histo, ave/histo/weight,
-ave/correlate and vector, sampled on the host at run-chunk boundaries
-(their periods fold into the chunk gcd, Simulation.run).
+_ave_time, _ave_histo, _histo_emit, _ave_correlate, _ave_chunk,
+_global_array, eval_slice): fix print, ave/time, ave/atom, ave/histo,
+ave/histo/weight, ave/correlate, vector and ave/chunk, sampled on the host
+at run-chunk boundaries (their periods fold into the chunk gcd,
+Simulation.run).
 
 Each keeps its buffers and its file on its FixSpec, so that they carry
 over a second `run` as the reference's fix objects do, and writes its file
 line for line as the JAX package does.  The global values come from the
 Simulation's thermo row (one device read a row); the per-atom ones from
-computes.peratom_column.  Where the JAX package reads a keyword nowhere,
-or samples 0.0 for a value its thermo row lacks, the port raises
-NotImplementedError naming ROADMAP queue 3 items 25 and 26.
+computes.peratom_column; the global arrays (the */chunk computes,
+heat/flux, compute slice of them) from global_array.  Where the JAX
+package reads a keyword nowhere, or samples 0.0 for a value its thermo row
+lacks, the port raises NotImplementedError naming ROADMAP queue 3 items 25
+and 26.
 """
 
 from __future__ import annotations
@@ -25,11 +28,13 @@ from lidp_tpu_torch import computes
 
 # the output fix styles, which have no builder (styles/__init__.py)
 OUTPUT_STYLES = ("print", "ave/time", "ave/atom", "ave/histo",
-                 "ave/histo/weight", "ave/correlate", "vector")
+                 "ave/histo/weight", "ave/correlate", "vector", "ave/chunk")
 _SKIPPED = "ROADMAP queue 3 item 25, keywords JAX skips"
 _NO_VALUE = "ROADMAP queue 3 item 26, values JAX's thermo row lacks"
-_CHUNK = "ROADMAP queue 1 item 6.13, the chunk computes"
-_STRUCTURE = "ROADMAP queue 1 item 6.14, the structure computes"
+# fix ave/chunk's per-atom values (fix_ave_chunk.cpp as the JAX package
+# takes them)
+AVE_CHUNK_VALUES = ("vx", "vy", "vz", "fx", "fy", "fz", "density/number",
+                    "density/mass", "temp")
 
 
 def _skipped(style, kw):
@@ -126,6 +131,41 @@ def parse_ave_correlate(args):
     return nev, nrep, nfreq, vals, fpath
 
 
+def parse_ave_chunk(args):
+    """fix ave/chunk Nevery Nrepeat Nfreq chunkID value... [file F]:
+    (Nevery, Nrepeat, Nfreq, chunkID, values, file).  The JAX package
+    steps over any other word by two (so a c_ID value takes the word after
+    it) and reads norm, ave and bias without using them: the port raises
+    on them, as on every value it does not take."""
+    nev, nrep, nfreq = int(args[0]), int(args[1]), int(args[2])
+    vals, fpath = [], None
+    i = 4
+    while i < len(args):
+        if args[i] in AVE_CHUNK_VALUES:
+            vals.append(args[i])
+            i += 1
+        elif args[i] == "file":
+            fpath = args[i + 1]
+            i += 2
+        else:
+            _skipped("ave/chunk", args[i])
+    return nev, nrep, nfreq, args[3], vals, fpath
+
+
+def check_global(script, tok, what):
+    """A global vector or array input c_ID / c_ID[j] (global_array): of a
+    */chunk compute that gives an array, or of heat/flux."""
+    name = tok[2:].split("[")[0] if tok.startswith("c_") else None
+    spec = script.computes.get(name)
+    style = spec[1] if spec else None
+    if style == "temp/chunk" and not computes.temp_chunk_keywords(
+            spec[2]["extra"], script.dimension)[3]:
+        style = None          # its scalar (the JAX package's too)
+    if style not in computes.CHUNK_AGG_STYLES + ("heat/flux",):
+        raise ValueError(f"{what} input {tok}: not a global vector or array "
+                         "compute (the */chunk computes, heat/flux)")
+
+
 def check_spec(script, spec):
     """Parse a new output fix's arguments at its definition (raising on
     what the port does not take), and its values against the script."""
@@ -141,12 +181,8 @@ def check_spec(script, spec):
         if mode == "vector":
             for t in vals:
                 name = t[2:].split("[")[0] if t.startswith("c_") else None
-                style = script.computes.get(name, (None, None))[1]
-                if style != "slice":
-                    raise NotImplementedError(
-                        f"fix ave/time mode vector input {t}: the port takes "
-                        "compute slice; the chunk computes and heat/flux are "
-                        f"not ported ({_CHUNK}; {_STRUCTURE})")
+                if script.computes.get(name, (None, None))[1] != "slice":
+                    check_global(script, t, "fix ave/time mode vector")
         else:
             _check_scalars(script, "ave/time", vals)
         return
@@ -160,6 +196,16 @@ def check_spec(script, spec):
         return
     if st == "vector":
         _check_scalars(script, "vector", a[1:])
+        return
+    if st == "ave/chunk":
+        nev, nrep, nfreq, ccid = parse_ave_chunk(a)[:4]
+        if not (nev > 0 and nrep > 0 and nfreq > 0 and nfreq % nev == 0
+                and nrep * nev <= nfreq):
+            raise ValueError("Illegal fix ave/chunk command: Nfreq a "
+                             "multiple of Nevery, Nrepeat*Nevery <= Nfreq")
+        if script.computes.get(ccid, (None, None))[1] != "chunk/atom":
+            raise ValueError(f"fix ave/chunk: chunk/atom compute {ccid} "
+                             "does not exist")
         return
     if st == "ave/atom":
         for t in a[3:]:
@@ -209,6 +255,8 @@ def host_fixes(sim, step):
             vector_sample(sim, spec, step)
         elif st == "ave/time":
             ave_time(sim, spec, step)
+        elif st == "ave/chunk":
+            ave_chunk(sim, spec, step)
 
 
 def _write(sim, spec, fpath, text):
@@ -311,33 +359,142 @@ def ave_time(sim, spec, step):
 
 
 def _resolve_vector(sim, tok):
-    """ave/time mode vector's input: c_ID of a compute slice (its columns;
-    c_ID[j] one of them), else a global array (_global_array)."""
+    """ave/time mode vector's input as a 2-d numpy array: c_ID of a compute
+    slice (its columns; c_ID[j] one of them), else a global array
+    (global_array)."""
     mm = re.match(r"c_(\w+)(?:\[(\d+)\])?$", tok)
     if mm and mm.group(1) in sim.slice_computes:
-        arr = np.asarray(eval_slice(sim, mm.group(1)), float)
+        arr = eval_slice(sim, mm.group(1))
         if mm.group(2):
             arr = arr[:, [int(mm.group(2)) - 1]]
-        return arr
-    return global_array(sim, tok)
+    else:
+        arr = global_array(sim, tok)
+    return arr.cpu().numpy()
 
 
 def global_array(sim, tok):
-    """c_ID / c_ID[j] of a global vector or array compute as a 2-d array:
-    the JAX package's are the chunk computes and heat/flux, which the port
-    does not have (ROADMAP queue 1 items 6.13 and 6.14)."""
-    raise ValueError(f"{tok}: not a global vector/array compute (the chunk "
-                     f"computes and heat/flux: {_CHUNK}; {_STRUCTURE})")
+    """c_ID / c_ID[j] of a global vector or array compute (a */chunk
+    compute's (nchunk, k) array, heat/flux's 6-vector as a column) as a
+    2-d float64 tensor on the run's device, c_ID[j] its column j
+    (lidp_tpu/sim.py _global_array)."""
+    mm = re.match(r"c_(\w+)(?:\[(\d+)\])?$", tok)
+    if not mm:
+        raise ValueError(f"global array input {tok}")
+    name = mm.group(1)
+    if name in sim.chunkagg_computes:
+        arr = computes.eval_chunk_agg(sim, name)
+    elif name in sim.hf_computes:
+        arr = computes.eval_heat_flux(sim, name)
+    else:
+        raise ValueError(f"{tok}: not a global vector/array compute")
+    if arr.ndim == 0:
+        raise ValueError(f"{tok}: compute {name} is a scalar")
+    if arr.ndim == 1:
+        arr = arr[:, None]
+    if mm.group(2):
+        arr = arr[:, [int(mm.group(2)) - 1]]
+    return arr
 
 
 def eval_slice(sim, cid):
     """compute slice Nstart Nstop Nskip input... (ComputeSlice::
     extract_one): rows Nstart, Nstart+Nskip, ... below Nstop (exclusive,
-    1-based) of each input's global array, one column per input."""
+    1-based) of each input's global array, one column per input, a 2-d
+    float64 tensor."""
     spec = sim.slice_computes[cid]
     sel = slice(spec["start"] - 1, spec["stop"] - 1, spec["skip"])
-    cols = [global_array(sim, t)[sel] for t in spec["inputs"]]
-    return np.concatenate(cols, axis=1)
+    return torch.cat([global_array(sim, t)[sel] for t in spec["inputs"]],
+                     dim=1)
+
+
+def ave_chunk(sim, spec, step):
+    """fix ave/chunk (fix_ave_chunk.cpp as lidp_tpu/sim.py _ave_chunk runs
+    it): every Nevery the per-chunk totals of the values (count, v, f,
+    mass, m v^2) accumulated; every Nfreq the rows `chunk [coord...]
+    count value...` (norm all: a value's total over the samples' atoms;
+    density/number and density/mass over the bin volume, the box's over
+    nchunk for type and molecule chunks; temp sum m v^2 / (dim count
+    boltz), the chunk's vcm kept) into ave_chunk_values and the file (%g),
+    and the accumulators reset.  Like the JAX package, every Nevery sample
+    since the last output is accumulated, whatever Nrepeat (ROADMAP queue
+    3 items 41-42: where this parts from LAMMPS's)."""
+    nev, _, nfreq, ccid, vals, fpath = parse_ave_chunk(spec.args)
+    if nev and step % nev == 0:
+        ids, nchunk, coord = computes.chunk_ids(sim, ccid)
+        n = sim.natoms
+        tab = computes.ChunkTable(ids, nchunk)
+        v = sim.sys.v[:n].double()
+        m = sim.thermo_params.mass_atom[:n].double()
+        cols = []
+        for w in vals:
+            if w in ("vx", "vy", "vz"):
+                src = v[:, "xyz".index(w[1])]
+            elif w in ("fx", "fy", "fz"):
+                src = sim.res.f[:n, "xyz".index(w[1])].double()
+            elif w == "density/mass":
+                src = m
+            elif w == "temp":
+                src = (m[:, None] * v * v).sum(1)
+            else:
+                src = None
+            cols.append(tab.count.double() if src is None
+                        else tab.sum(src))
+        sample = torch.stack(cols + [tab.count.double()]).cpu().numpy()
+        buf = getattr(spec, "_chunkbuf", None)
+        if buf is None or buf[0] != nchunk:
+            buf = (nchunk, np.zeros((len(vals), nchunk)), np.zeros(nchunk),
+                   0)
+        spec._chunkbuf = (nchunk, buf[1] + sample[:len(vals)],
+                          buf[2] + sample[-1], buf[3] + 1, coord)
+    if not (nfreq and step % nfreq == 0
+            and getattr(spec, "_chunkbuf", None)):
+        return
+    nchunk, acc_cols, acc_cnt, nsamp, coord = spec._chunkbuf
+    tp = sim.thermo_params
+    cspec = sim.chunk_computes[ccid][1]
+    L = sim.sys.box.lengths.double().cpu().numpy()
+    if cspec["which"] == "bin/1d" and nchunk > 1 and coord is not None:
+        # bin volume = delta x the cross-section (bin_volumes), even where
+        # the last bin overhangs the box
+        delta_eff = float(coord[1] - coord[0])
+        vol_chunk = delta_eff * float(np.prod(L)) / float(L[cspec["dim"]])
+    elif cspec["which"] in ("bin/2d", "bin/3d") and coord is not None:
+        vol_chunk = float(np.prod(L))
+        for col, d in enumerate(cspec["dims"]):
+            u = np.unique(coord[:, col])
+            de = float(u[1] - u[0]) if len(u) > 1 else float(L[d])
+            vol_chunk *= de / float(L[d])
+    else:
+        vol_chunk = float(L[0] * L[1] * L[2]) / max(nchunk, 1)
+    out_rows = []
+    safe = np.maximum(acc_cnt, 1.0)
+    for k in range(nchunk):
+        row = [k + 1]
+        if coord is not None:
+            if np.ndim(coord) == 2:
+                row.extend(coord[k])
+            else:
+                row.append(coord[k])
+        row.append(acc_cnt[k] / nsamp)
+        for wi, w in enumerate(vals):
+            tot = acc_cols[wi, k]
+            if w in ("density/number", "density/mass"):
+                row.append(tot / nsamp / vol_chunk)
+            elif w == "temp":
+                dof = tp.dim * max(acc_cnt[k] / nsamp, 1e-300)
+                row.append(tot / nsamp * tp.mvv2e / (dof * tp.boltz))
+            else:
+                row.append(tot / safe[k])
+        out_rows.append(row)
+    sim.script.ave_chunk_values[spec.fid] = (step, out_rows)
+    if fpath:
+        head = ("" if getattr(spec, "_started", False)
+                else f"# Chunk-averaged data for fix {spec.fid}\n")
+        text = head + f"{step} {nchunk} {acc_cnt.sum() / max(nsamp, 1):g}\n"
+        text += "".join("  " + " ".join(f"{v_:g}" for v_ in row) + "\n"
+                        for row in out_rows)
+        _write(sim, spec, fpath, text)
+    spec._chunkbuf = None
 
 
 def _histo_state(nbin):
@@ -447,7 +604,13 @@ def ave_correlate(sim, spec, step):
 
 
 def chunk_periods(script):
-    """The output fixes' Nevery periods (Simulation.run's chunk gcd)."""
-    return [max(1, int(spec.args[0])) for spec in script.fixes.values()
-            if spec.style in OUTPUT_STYLES]
+    """The output fixes' Nevery periods, and fix ave/chunk's Nfreq
+    (Simulation.run's chunk gcd)."""
+    out = []
+    for spec in script.fixes.values():
+        if spec.style in OUTPUT_STYLES:
+            out.append(max(1, int(spec.args[0])))
+        if spec.style == "ave/chunk":
+            out.append(max(1, int(spec.args[2])))
+    return out
 

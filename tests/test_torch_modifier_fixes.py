@@ -302,7 +302,9 @@ UNPORTED = {
     "deform": ("fix t all deform 1 x scale 1.1", "item 6.1"),
     "external": ("fix t all external pf/array 1", "item 6.1"),
     "fix_modify": ("fix_modify 1 temp thermo_temp", "item 6.1"),
-    "compute": ("compute c all chunk/atom molecule", "item 6.13"),
+    # chunk/atom is ported (tests/test_torch_chunk_computes.py): the case
+    # keeps its name and holds a compute style that still raises
+    "compute": ("compute c all pair/local dist", "item 6.15"),
     "langevin keyword": ("fix t all langevin 300 300 100 5 zero yes",
                          "item 6.1.*queue 3 item 11"),
     "momentum angular": ("fix t all momentum 1 linear 1 1 1 angular",

@@ -246,10 +246,6 @@ def test_api_surface(tmp_path):
 
 
 UNPORTED = {
-    "compute ch all chunk/atom molecule": "item 6.13",
-    "compute cc all com/chunk cid": "item 6.13",
-    "compute cn all centro/atom fcc": "item 6.14",
-    "compute hf all heat/flux ka pa sa": "item 6.14",
     "compute pl all pair/local dist": "item 6.15",
     "compute es all erotate/sphere": "item 6.11",
     "compute td all temp/deform": "item 6.1",
@@ -259,7 +255,6 @@ UNPORTED = {
     "compute_modify tt extra/dof 2": "queue 3 item 25",
     "fix s all store/state 0 x": "item 6.16",
     "fix c all controller 1 1 1 1 1 temp 1.0 v": "item 6.16",
-    "fix ac all ave/chunk 1 1 1 cid vx": "item 6.13",
     "fix e all external pf/callback 1 1": "item 6.1",
     "fix a all ave/time 1 1 1 c_tt ave running": "queue 3 item 25",
     "fix a all ave/time 1 1 1 c_tt start 10": "queue 3 item 25",
@@ -269,7 +264,6 @@ UNPORTED = {
     "fix a all ave/time 1 1 1 c_tt title2 t": "queue 3 item 25",
     "fix a all ave/time 1 1 1 c_tt title3 t": "queue 3 item 25",
     "fix a all ave/time 1 1 1 f_x": "queue 3 item 26",
-    "fix a all ave/time 1 1 1 c_tt mode vector": "item 6.13",
     "fix a all ave/histo 1 1 1 0 1 10 vx mode vector": "queue 3 item 25",
     "fix a all ave/correlate 1 2 2 c_tt type cross": "queue 3 item 25",
     'fix p all print 1 "x" screen no': "queue 3 item 25",
@@ -280,11 +274,33 @@ UNPORTED = {
 }
 
 
-@pytest.mark.parametrize("line", list(UNPORTED))
+# the chunk computes, the structure computes, heat/flux, fix ave/chunk and
+# ave/time mode vector are ported (tests/test_torch_chunk_computes.py,
+# tests/test_torch_structure_computes.py): these cases keep their names
+# and hold a line that still raises
+REPOINTED = {
+    "compute ch all chunk/atom molecule": (
+        "compute ch all chunk/atom molecule nchunk once", "queue 3 item 25"),
+    "compute cc all com/chunk cid": ("compute cc all bond/local dist",
+                                     "item 6.15"),
+    "compute cn all centro/atom fcc": ("compute cn all contact/atom",
+                                       "item 6.11"),
+    "compute hf all heat/flux ka pa sa": ("compute hf all rigid/local 1 id",
+                                          "item 6.15"),
+    "fix ac all ave/chunk 1 1 1 cid vx": (
+        "fix ac all ave/chunk 1 1 1 cid vx norm sample", "queue 3 item 25"),
+    "fix a all ave/time 1 1 1 c_tt mode vector": (
+        "fix a all ave/time 1 1 1 c_tt mode vector ave running",
+        "queue 3 item 25"),
+}
+
+
+@pytest.mark.parametrize("line", list(UNPORTED) + list(REPOINTED))
 def test_unported_raise(line):
+    line, item = REPOINTED.get(line, (line, UNPORTED.get(line)))
     s = _script("torch")
     s.execute((BASE + "compute tt all temp\n").splitlines())
-    with pytest.raises(NotImplementedError, match=UNPORTED[line]):
+    with pytest.raises(NotImplementedError, match=item):
         s.one(line)
 
 
