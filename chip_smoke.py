@@ -562,21 +562,55 @@ Phases, each raising on failure:
      (centro/atom and cna/atom, heat/flux, slice) and
      tests/test_order_computes.py (orientorder/atom, hexorder/atom,
      global/atom) at those tests' bars (chunk_structure_golden_phases);
- 18. the CPU twins (CPU_TWIN: the same script through the port on the CPU
+ 18. granular flow (granular_paths): atom_style sphere with pair gran/*,
+     bench/in.chute's lines (CHUTE_SCRIPT) and a pour onto a bed
+     (POUR_BED_SCRIPT), each script written from seeds and run through
+     the CLI's main (python -m lidp_tpu_torch) in float64, every launch
+     counter 0 on each path (the granular stack is plain torch), each
+     printing its log's first rows and its last, its steps/s by the Loop
+     time line, peak device memory, its rebuilds, candidate pairs and
+     shear history's bytes, and on its final state the ms of a contact
+     pass and of the walls' pass by CUDA events (gran_readings):
+     AY. the chute at full width: chute_layout 40 x 20 x 40 (32,000
+        grains, the bottom layer of 800 type 2), boundary p p fs,
+        gran/hooke/history, neigh_modify exclude group bottom bottom,
+        fix gravity chute 26, fix freeze on the base, nve/sphere on the
+        rest, erotate/sphere, thermo 100, run 1000: 32,000 atoms in
+        every row, the base's positions unchanged, the rows finite;
+     AZ. a pour onto a bed: chute_layout 40 x 40 x 5 (8,000 grains) in a
+        39.2 x 39.2 box, boundary p p f, gran/hertz/history with a
+        hertz/history zplane wall, gravity vector 0 0 -1, nve/sphere, fix
+        pour of 8,000 grains (diameter and density 0.9-1.1, vz -2) from
+        a block 90 high over the whole footprint (one event at step 1:
+        its count covers them all), contact/atom with reduce sum and max,
+        temp/sphere, erotate/sphere/atom with reduce sum and
+        erotate/sphere in the row, timestep 0.001, thermo 100, run 1000:
+        8,000 atoms at step 0 and 16,000 after;
+     and at 2,000 grains, each against its CPU twin (every row at rel
+     1e-9 of max(1, |value|), the final x and v within 1e-8 of their
+     largest entry): AY-2k (10 x 10 x 20, 20 steps, thermo 5),
+     AY-nvt-2k (the same under nvt/sphere temp 1.0 1.0 0.01),
+     AY-hooke-2k (under gran/hooke) and AZ-2k (a bed of 1,000 and a
+     pour of 1,000, 50 steps); then the LAMMPS rows of
+     tests/test_wall_gran.py (six cases), tests/test_pour.py (two) and
+     tests/test_chute.py's contact/atom case at those tests' bars
+     (granular_golden_phases);
+ 19. the CPU twins (CPU_TWIN: the same script through the port on the CPU
      in float64, in a process of its own; its rows, final state and each
      minimize's (E, iterations, converged)) of J, K, O, R, R-pppm, Q64, S,
      T, U64, V, W, X64, Y, Z, AA-100, AB (and AB's cg, sd, fire), AC, AD,
      AE-couette, AE-pois, AF, AG, AI, AI-f32 (AI's in float32, its
      setup state), AJ-AN, AO-8k, AQ, AR, AS-AV at 192 atoms (81
-     waters), AW-5k, AX-5k, AW-f32 and AX-f32, after every path on the
-     card, so that no timed path shares the host's cores with them
-     (run_twins: as many at once as the cores take, the longest first);
- 19. one JSON line {"kernels": [...]} with each of the ten kernels'
+     waters), AW-5k, AX-5k, AW-f32, AX-f32, AY-2k, AY-nvt-2k,
+     AY-hooke-2k and AZ-2k, after every path on the card, so that no
+     timed path shares the host's cores with them (run_twins: as many at
+     once as the cores take, the longest first);
+ 20. one JSON line {"kernels": [...]} with each of the ten kernels'
      launches (summed and by path, A-K, E-E4, L, L64, M, N, N-pol, O, R,
      R-pppm, Q, Q64, P, P100, S, T, U, U64, V, W, X, X64, Y, Z, AA, AB,
      AC, AD, AE, AF, AG, AH, AI, AJ, AK, AN, AL, AM, AO, AP, AQ, AR, AS,
-     AT, AU, AV, AW, AX), times, ms_queued and bound, then the nvidia-smi
-     line, then the device line last.
+     AT, AU, AV, AW, AX, AY, AZ), times, ms_queued and bound, then the
+     nvidia-smi line, then the device line last.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.
@@ -9061,6 +9095,618 @@ def chunk_structure_golden_phases():
         shutil.rmtree(work, ignore_errors=True)
 
 
+CHUTE_SPACING = 0.98           # grid spacing of chute_layout (diameter 1)
+CHUTE_SCRIPT = """\
+# bench/in.chute's lines: chute flow with a frozen base at 26 degrees
+variable nstep index 100
+variable every index 100
+units		lj
+atom_style	sphere
+boundary	p p fs
+newton		off
+comm_modify	vel yes
+
+read_data	data.chute
+
+pair_style	gran/hooke/history 2000.0 NULL 50.0 NULL 0.5 0
+pair_coeff	* *
+
+neighbor	0.1 bin
+neigh_modify	every 1 delay 0
+
+timestep	0.0001
+
+group		bottom type 2
+group		active subtract all bottom
+neigh_modify	exclude group bottom bottom
+
+fix		1 all gravity 1.0 chute 26.0
+fix		2 bottom freeze
+fix		3 active nve/sphere
+
+compute		1 all erotate/sphere
+thermo_style	custom step atoms ke c_1 vol
+thermo		${every}
+thermo_modify	norm no
+
+run		${nstep}
+"""
+# the pour-onto-a-bed script (path AZ): hertz/history grains and wall,
+# gravity down, fix pour over the bed, every sphere compute in the row
+POUR_BED_SCRIPT = """\
+variable nstep index 100
+variable every index 100
+units lj
+atom_style sphere
+boundary p p f
+newton off
+comm_modify vel yes
+read_data data.bed
+pair_style gran/hertz/history 2000.0 NULL 50.0 NULL 0.5 1
+pair_coeff * *
+neighbor 0.1 bin
+neigh_modify every 1 delay 0
+timestep 0.001
+region ins block 0 {lx} 0 {ly} {zlo} {zhi} units box
+fix 1 all gravity 1.0 vector 0 0 -1
+fix 2 all nve/sphere
+fix 3 all wall/gran hertz/history 2000.0 NULL 50.0 NULL 0.5 1 zplane 0.0 NULL
+fix 4 all pour {npour} 1 {seed} region ins vol 0.5 50 diam range 0.9 1.1 \
+dens 0.9 1.1 vel 0 0 0 0 -2.0
+compute ca all contact/atom
+compute cs all reduce sum c_ca
+compute cm all reduce max c_ca
+compute ts all temp/sphere
+compute ea all erotate/sphere/atom
+compute es all reduce sum c_ea
+compute 1 all erotate/sphere
+thermo_style custom step atoms ke c_1 c_ts c_es c_cs c_cm
+thermo_modify norm no
+thermo ${{every}}
+run ${{nstep}}
+"""
+
+
+def chute_layout(path, nx, ny, nz, seed=2026, base_type=True, zhi=None):
+    """Write a sphere data file: nx x ny x nz grains of diameter 1 and
+    density 1 on a simple cubic grid at CHUTE_SPACING (each overlaps its
+    six neighbours by 0.02), every coordinate jittered by a seeded
+    uniform +-0.005, velocities and angular velocities N(0, 1), the bottom
+    layer type 2 where base_type (in.chute's frozen base).  The box is
+    nx x ny spacings in x and y (periodic) and 0 - zhi in z, by default
+    (nz - 1) spacings: the grains reach 0.5 spacing past it, so that under
+    a shrink-wrapped top face the setup grid's z bins (the script's box
+    over 2 r + skin) stay wider than 2 r + skin."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    a = CHUTE_SPACING
+    ijk = np.stack(np.meshgrid(np.arange(nx), np.arange(ny), np.arange(nz),
+                               indexing="ij"), -1).reshape(-1, 3)
+    x = (ijk + [0.5, 0.5, 0.0]) * a + [0.0, 0.0, 0.5]
+    x += rng.uniform(-0.005, 0.005, x.shape)
+    v = rng.standard_normal(x.shape)
+    w = rng.standard_normal(x.shape)
+    types = np.where((ijk[:, 2] == 0) & base_type, 2, 1)
+    zhi = (nz - 1) * a if zhi is None else zhi
+    n = len(x)
+    lines = [f"chute_layout {nx} x {ny} x {nz} seed {seed}", "",
+             f"{n} atoms", f"{2 if base_type else 1} atom types", "",
+             f"0 {nx * a!r} xlo xhi", f"0 {ny * a!r} ylo yhi",
+             f"0 {float(zhi)!r} zlo zhi", "", "Atoms", ""]
+    x, v, w = x.tolist(), v.tolist(), w.tolist()
+    lines += [f"{i + 1} {types[i]} 1.0 1.0 {x[i][0]!r} {x[i][1]!r} "
+              f"{x[i][2]!r}" for i in range(n)]
+    lines += ["", "Velocities", ""]
+    lines += [f"{i + 1} {v[i][0]!r} {v[i][1]!r} {v[i][2]!r} {w[i][0]!r} "
+              f"{w[i][1]!r} {w[i][2]!r}" for i in range(n)]
+    with open(path, "w") as fh:
+        fh.write("\n".join(lines) + "\n")
+    return n
+
+
+def pour_bed_case(work, nx, ny, nz, npour, height, seed=7654321):
+    """Path AZ's input in `work`: the bed chute_layout(nx, ny, nz, one
+    type) in a box nx x ny spacings wide (boundary p p f), and
+    POUR_BED_SCRIPT pouring npour grains (diameters 0.9-1.1) from a block
+    over the whole footprint, `height` high, its floor 1.5 above the bed's
+    top (no grain placed on the bed), the box's top 4 above the block.
+    The insertion height is biased to the block's top (fix_pour.cpp), so
+    one event places all npour only where the block is tall enough that
+    its top layer does not jam.  Returns the script's text."""
+    a = CHUTE_SPACING
+    zlo = 2.0 + (nz - 1) * a
+    chute_layout(os.path.join(work, "data.bed"), nx, ny, nz,
+                 base_type=False, zhi=zlo + height + 4.0)
+    return POUR_BED_SCRIPT.format(lx=repr(nx * a), ly=repr(ny * a),
+                                  zlo=repr(zlo), zhi=repr(zlo + height),
+                                  npour=npour, seed=seed)
+
+
+# paths AY and AZ: granular flow (atom_style sphere, pair gran/*), their
+# 2,000-grain twins, and the LAMMPS rows of the JAX package's granular
+# tests on the card (granular_golden_phases)
+AY_CHUTE = (40, 20, 40)        # 32,000 grains
+AZ_BED = (40, 40, 5)           # 8,000 grains
+AZ_POUR = 8000
+AZ_HEIGHT = 90.0               # the pour block's height: one event
+GRAN_STEPS, GRAN_EVERY = 1000, 100
+GRAN_TWIN_CHUTE = (10, 10, 20)  # 2,000 grains
+GRAN_TWIN_STEPS, GRAN_TWIN_EVERY = 20, 5
+AZ_TWIN_BED = (20, 25, 2)      # 1,000 grains
+AZ_TWIN_POUR, AZ_TWIN_HEIGHT = 1000, 40.0
+AZ_TWIN_STEPS, AZ_TWIN_EVERY = 50, 10
+AY_COLS = ("ke", "c_1", "vol")
+AZ_COLS = ("ke", "c_1", "c_ts", "c_es", "c_cs", "c_cm")
+WALL_GRAN_GOLDEN = {
+    # tests/test_wall_gran.py's rows: step ke c_rot (LAMMPS 16Mar18 on
+    # scripts/gen_wallgran_goldens.py's inputs)
+    'zplane': [
+        [0.0, 0.430840043363554, 0.112336233021246],
+        [40.0, 0.941507767957806, 0.112336233021246],
+        [80.0, 1.70350290483923, 0.112336233021246],
+        [120.0, 2.71682545400783, 0.112336233021246],
+        [160.0, 3.98147541546359, 0.112336233021246],
+        [200.0, 5.12244071545889, 0.106278707199278],
+        [240.0, 5.43429387507068, 0.0948416033468421],
+        [280.0, 6.1593639958018, 0.0932648768534011],
+    ],
+    'hooke': [
+        [0.0, 0.430840043363554, 0.112336233021246],
+        [160.0, 3.98147541546359, 0.112336233021246],
+        [200.0, 5.12247575594383, 0.108396439671863],
+        [240.0, 5.43293511665156, 0.0911688697988497],
+        [280.0, 6.16010769120933, 0.0855054634601906],
+    ],
+    'hertz': [
+        [0.0, 0.430840043363554, 0.112336233021246],
+        [160.0, 3.98147541546359, 0.112336233021246],
+        [200.0, 5.42174725315351, 0.110994243512174],
+        [240.0, 5.80518751222407, 0.103845468403138],
+        [280.0, 6.62257499637481, 0.100711181860508],
+    ],
+    'shear': [
+        [0.0, 0.430840043363554, 0.112336233021246],
+        [160.0, 3.98147541546359, 0.112336233021246],
+        [200.0, 5.13616540811937, 0.129596413356731],
+        [240.0, 5.52082292564335, 0.358723359880122],
+        [280.0, 6.27105098986118, 0.404621739595248],
+    ],
+    'zcyl': [
+        [0.0, 0.430840043363554, 0.112336233021246],
+        [40.0, 0.929570874243157, 0.0971204344862171],
+        [80.0, 1.67798430450714, 0.0910770282078867],
+        [120.0, 2.68678271472701, 0.093758762802094],
+        [160.0, 3.93817377722502, 0.0805317412297482],
+        [200.0, 4.72499669818765, 0.0716544336703515],
+        [240.0, 5.85000608630325, 0.0677403996541164],
+    ],
+    'region': [
+        [0.0, 0.430840043363554, 0.112336233021246],
+        [40.0, 0.980419610630615, 0.115639816210593],
+        [80.0, 1.73499046880912, 0.115467674809056],
+        [120.0, 2.70875998987395, 0.117434315391927],
+        [160.0, 3.28450276236198, 0.09841320961663],
+        [200.0, 4.00702146798457, 0.0975789975053053],
+        [240.0, 4.71476721802795, 0.0960220202245548],
+    ],
+}
+# the contact-free rows of each case (at rel 1e-9 there; later rows a
+# growing bar: test_wall_gran.py)
+WALL_FREE_FLIGHT = {"zplane": 160, "hooke": 160, "hertz": 160,
+                    "shear": 160, "zcyl": 0, "region": 0}
+POUR_GOLDEN_DATA = """pour golden seed box
+
+2 atoms
+
+1 atom types
+
+-3.2 3.2 xlo xhi
+-3.2 3.2 ylo yhi
+0.0 12.0 zlo zhi
+
+Atoms
+
+1 1 1.0 1.0 -1.1 0.4 0.5
+2 1 1.0 1.0 1.3 -0.8 0.5
+
+Velocities
+
+1 0.0 0.0 0.0 0.0 0.0 0.0
+2 0.0 0.0 0.0 0.0 0.0 0.0
+"""
+POUR_GOLDEN_SCRIPT = """units lj
+atom_style sphere
+boundary p p f
+newton off
+comm_modify vel yes
+read_data data.pour
+pair_style gran/hooke/history 400.0 NULL 8.0 NULL 0.5 1
+pair_coeff * *
+neighbor 0.3 bin
+neigh_modify every 1 delay 0 check yes
+region ins block -2.5 2.5 -2.5 2.5 8.0 11.5 units box
+region ins2 block -2.5 2.5 -2.5 2.5 9.0 10.5 units box
+timestep 0.005
+fix 1 all gravity 1.0 vector 0 0 -1
+fix 2 all nve/sphere
+fix w all wall/gran hooke/history 400.0 NULL 8.0 NULL 0.5 1 zplane 0.0 NULL
+{pour}
+compute rot all erotate/sphere
+thermo_style custom step atoms ke c_rot
+thermo_modify norm no
+thermo 25
+run {steps}
+"""
+POUR_GOLDEN = {
+    # tests/test_pour.py's rows: step atoms ke c_rot, and its pour lines
+    "one": [
+        [0, 2, 0.0, 0.0],
+        [25, 12, 5.72951983931557, 0.0],
+        [50, 12, 6.63014699052024, 0.0],
+        [100, 12, 8.67680222340131, 0.0],
+        [150, 12, 11.0507181992047, 0.0],
+        [200, 12, 13.7518914999265, 0.0],
+        [250, 12, 16.7803153067604, 0.0],
+    ],
+    "multi": [
+        [0, 2, 0.0, 0.0],
+        [25, 4, 2.58767581452554, 0.0],
+        [125, 4, 3.88086335598149, 0.0],
+        [150, 6, 8.6147574746494, 0.0],
+        [250, 6, 12.1206654120616, 0.0],
+        [275, 8, 15.249594124824, 0.0],
+        [400, 10, 24.5778042219482, 0.0],
+        [500, 10, 32.2569329135838, 0.0],
+        [550, 11, 38.3159600010107, 0.0],
+        [575, 11, 31.742043776901, 0.00602620308678922],
+        [600, 11, 34.2766394435754, 0.00625192696469843],
+    ],
+}
+POUR_GOLDEN_LINE = {
+    "one": ("fix ins all pour 10 1 4767548 region ins vol 0.4 50 "
+            "diam one 1.0", 250),
+    "multi": ("fix ins all pour 9 1 2847291 region ins2 vol 0.05 50 "
+              "diam range 0.8 1.2 dens 0.9 1.1 vel -0.3 0.3 -0.3 0.3 "
+              "-2.0", 600),
+}
+CONTACT_GOLDEN_DATA = """tiny sphere test
+
+6 atoms
+1 atom types
+
+0 10 xlo xhi
+0 10 ylo yhi
+0 10 zlo zhi
+
+Atoms
+
+1 1 1.0 1.0 1.0 1.0 1.0
+2 1 1.0 1.0 1.8 1.0 1.0
+3 1 1.0 1.0 2.6 1.0 1.0
+4 1 2.0 1.0 6.0 6.0 6.0
+5 1 2.0 1.0 7.4 6.0 6.0
+6 1 1.0 1.0 9.5 9.5 9.5
+"""
+CONTACT_GOLDEN_SCRIPT = """units lj
+atom_style sphere
+boundary p p p
+newton off
+comm_modify vel yes
+read_data data.spheres
+pair_style gran/hooke/history 200000.0 NULL 50.0 NULL 0.5 0
+pair_coeff * *
+neighbor 0.1 bin
+fix 3 all nve/sphere
+compute ca all contact/atom
+compute re all reduce sum c_ca
+compute rm all reduce max c_ca
+thermo_style custom step c_re c_rm
+thermo_modify norm no
+run 0
+"""
+
+
+def gran_text(text, every):
+    """A granular script with its thermo interval's default `every` (the
+    CLI's -var sets the steps)."""
+    return text.replace("variable every index 100",
+                        f"variable every index {every}")
+
+
+def gran_run(path, work, name, text, steps, launches=None,
+             reset_counts=None, read_counts=None):
+    """`text` (written to work/name) through the CLI's main on the card,
+    float64, `steps` steps: (script, log lines, peak memory); with the
+    counters, launches[path] is what the run launched and must be none."""
+    if reset_counts is not None:
+        reset_counts()
+    script, log, peak = np_cli_run(path, work, name, text,
+                                   ("-var", "nstep", str(steps)))
+    if read_counts is not None:
+        launches[path] = read_counts()
+        check_counts(path, launches[path], {})
+    sim = script._sim
+    rows = [line for line in log if line.split()[:1]
+            and line.split()[0].isdigit()]
+    print(f"path {path}: {sim.natoms} atoms, float64, {steps} steps, the "
+          f"granular runner on the grid {sim.runner.neighbor_cfg.nbins} x "
+          f"cap {sim.runner.neighbor_cfg.cap}; its log (rows 0-2 and the "
+          "last):")
+    for line in log:
+        if line in rows[3:-1]:
+            continue
+        print(f"  {path}| {line}")
+    return script, log, peak
+
+
+def gran_readings(path, script, log, steps, peak):
+    """A full path's steps/s and peak, rebuilds, candidate pairs, the
+    shear history's bytes, then the ms of a contact pass (the shear
+    updated in place on a copy of the final history; equal bit for bit
+    on a repeat from that history; its device ms, kernels and heaviest
+    kernels by torch.profiler) and of the walls' pass (the runner's
+    wall_forces) by CUDA events on the final state."""
+    import torch
+
+    from lidp_tpu_torch.ops import granular as gran
+
+    sim = script._sim
+    runner, st, sys_ = sim.runner, sim.istate, sim.sys
+    rate = script_peak(path, log, steps, peak)
+    pairs = int(st.pairs.flat.shape[0])
+    touch = None
+
+    def contact(shear):
+        return gran.gran_cell_forces(
+            sys_.x, sys_.v, st.omega, sys_.mask, sim.nlist, sys_.box,
+            runner.gp, shear, st.pairs)
+
+    out = contact(st.shear.clone())
+    touch = int((out[2].reshape(-1, 3) != 0).any(1).sum()) \
+        if runner.gp.kind != "hooke" else None
+    again = contact(st.shear.clone())
+    if not all(torch.equal(a, b) for a, b in zip(out, again)):
+        raise AssertionError(f"path {path}: two contact passes differ")
+    work = out[2]
+    del out, again
+    ms = cuda_ms(lambda: contact(work), reps=10)
+    dev, nk, top = profiled(lambda: contact(work))
+    del work
+    line = (f"path {path}: {runner.rebuilds} rebuilds in {steps} steps; "
+            f"{pairs} candidate pairs"
+            + (f" ({touch} with a shear history)" if touch is not None
+               else "")
+            + f"; the shear history {st.shear.numel() * 8 / 2**20:.1f} MiB; "
+            f"a contact pass {ms:.4f} ms, bit for bit on a repeat (device "
+            f"{dev:.4f} ms by torch.profiler in {nk} kernels; the most: "
+            + ", ".join(f"{k} {v:.4f}" for k, v in top) + ")")
+    if runner.walls:
+        zero = torch.zeros_like(sys_.x)
+        styles = "+".join(wf.wallstyle for wf in runner.walls)
+        wall_ms = cuda_ms(lambda: runner.wall_forces(sys_, st, zero, zero),
+                          reps=20)
+        line += f", the walls' pass ({styles}) {wall_ms:.4f} ms"
+    print(line + f" (CUDA events); {smi_line()}")
+    torch.cuda.synchronize()
+    return rate
+
+
+def profiled(fn, top=3):
+    """One call of fn under torch.profiler: (device ms, the CUDA kernels
+    launched, the `top` kernels by device ms)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    evs = [(ev.key, getattr(ev, "self_device_time_total",
+                            getattr(ev, "self_cuda_time_total", 0.0)) / 1e3,
+            ev.count) for ev in prof.key_averages()
+           if str(ev.device_type).endswith("CUDA")]
+    evs.sort(key=lambda e: -e[1])
+    return (sum(e[1] for e in evs), sum(e[2] for e in evs),
+            [(k[:40], v) for k, v, _ in evs[:top]])
+
+
+def gran_twin(path, work, name, text, steps, cols, reset_counts,
+              read_counts, cost=20.0):
+    """A 2,000-grain path on the card (no launch), then deferred to its
+    CPU twin (every row at rel 1e-9, the final x, v within 1e-8)."""
+    script, _, _ = gran_run(path, work, name, text, steps, {},
+                            reset_counts, read_counts)
+    check_rows_finite(path, script.thermo_rows, cols)
+    defer_twin(path, work, name, steps,
+               twin_check(path, run_state(script), cols), threads=2,
+               cost=cost)
+    return script
+
+
+def granular_paths(launches, reset_counts, read_counts):
+    """Paths AY, AZ and their 2,000-grain twins, then the goldens (module
+    docstring)."""
+    import numpy as np
+    import torch
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_gran_")
+    try:
+        args = (launches, reset_counts, read_counts)
+        # AY: the chute at full width
+        ay = os.path.join(work, "ay")
+        os.makedirs(ay)
+        n = chute_layout(os.path.join(ay, "data.chute"), *AY_CHUTE)
+        s, log, peak = gran_run("AY", ay, "in.chute",
+                                gran_text(CHUTE_SCRIPT, GRAN_EVERY),
+                                GRAN_STEPS, *args)
+        sim = s._sim
+        rows = s.thermo_rows
+        check_rows_finite("AY", rows, AY_COLS)
+        base = np.asarray(s.type) == 2
+        x0 = s.data.x
+        xb = sim.sys.x[:n].double().cpu().numpy()[base]
+        if not (n == math.prod(AY_CHUTE) and all(r["atoms"] == n
+                                                 for r in rows)
+                and [r["step"] for r in rows]
+                == list(range(0, GRAN_STEPS + 1, GRAN_EVERY))
+                and base.sum() == AY_CHUTE[0] * AY_CHUTE[1]
+                and np.array_equal(xb, x0[base])):
+            raise AssertionError(f"path AY: {n} grains, rows "
+                                 f"{[(r['step'], r['atoms']) for r in rows]}"
+                                 ", or the base moved")
+        print(f"path AY: the {base.sum()} base grains at their read "
+              "positions; the "
+              f"box's z {float(sim.sys.box.lo[2]):.6g} - "
+              f"{float(sim.sys.box.hi[2]):.6g} (shrink-wrapped top)")
+        gran_readings("AY", s, log, GRAN_STEPS, peak)
+        del s, sim
+        torch.cuda.empty_cache()
+
+        # AZ: a pour onto a bed
+        az = os.path.join(work, "az")
+        os.makedirs(az)
+        text = gran_text(pour_bed_case(az, *AZ_BED, AZ_POUR, AZ_HEIGHT),
+                         GRAN_EVERY)
+        s, log, peak = gran_run("AZ", az, "in.bed", text, GRAN_STEPS, *args)
+        sim = s._sim
+        rows = s.thermo_rows
+        check_rows_finite("AZ", rows, AZ_COLS)
+        pf = sim.pour_fixes[0]
+        nbed = math.prod(AZ_BED)
+        if not (rows[0]["atoms"] == nbed
+                and all(r["atoms"] == nbed + AZ_POUR for r in rows[1:])
+                and pf.nevents == 1 and pf.ninserted == AZ_POUR
+                and pf.nper >= AZ_POUR and pf.nfirst == 1):
+            raise AssertionError(f"path AZ: atoms "
+                                 f"{[r['atoms'] for r in rows]}, events "
+                                 f"{pf.nevents}, nper {pf.nper}")
+        print(f"path AZ: fix pour's count {pf.nper} covers the {AZ_POUR} "
+              f"grains: one event at step {pf.nfirst} ({pf.ninserted} "
+              f"inserted, the next event {pf.nfreq} steps on); contacts "
+              f"{rows[0]['c_cs']:g} at step 0, {rows[-1]['c_cs']:g} at "
+              f"step {GRAN_STEPS}")
+        gran_readings("AZ", s, log, GRAN_STEPS, peak)
+        del s, sim
+        torch.cuda.empty_cache()
+
+        # the 2,000-grain paths and their twins
+        tw = os.path.join(work, "ay-2k")
+        os.makedirs(tw)
+        chute_layout(os.path.join(tw, "data.chute"), *GRAN_TWIN_CHUTE)
+        text = gran_text(CHUTE_SCRIPT, GRAN_TWIN_EVERY)
+        for path, variant in (
+                ("AY-2k", text),
+                ("AY-nvt-2k", text.replace(
+                    "active nve/sphere",
+                    "active nvt/sphere temp 1.0 1.0 0.01")),
+                ("AY-hooke-2k", text.replace("gran/hooke/history",
+                                             "gran/hooke"))):
+            d = os.path.join(work, path)
+            shutil.copytree(tw, d)
+            gran_twin(path, d, "in.chute", variant, GRAN_TWIN_STEPS,
+                      AY_COLS, reset_counts, read_counts)
+        d = os.path.join(work, "AZ-2k")
+        os.makedirs(d)
+        text = gran_text(pour_bed_case(d, *AZ_TWIN_BED, AZ_TWIN_POUR,
+                                       AZ_TWIN_HEIGHT), AZ_TWIN_EVERY)
+        s = gran_twin("AZ-2k", d, "in.bed", text, AZ_TWIN_STEPS, AZ_COLS,
+                      reset_counts, read_counts)
+        if [r["atoms"] for r in s.thermo_rows[1:]] != [
+                math.prod(AZ_TWIN_BED) + AZ_TWIN_POUR] * (
+                    AZ_TWIN_STEPS // AZ_TWIN_EVERY):
+            raise AssertionError("path AZ-2k: atoms "
+                                 f"{[r['atoms'] for r in s.thermo_rows]}")
+        del s
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    granular_golden_phases()
+
+
+def granular_golden_phases():
+    """The LAMMPS rows of tests/test_wall_gran.py (six cases: contact-free
+    rows at rel 1e-9, then its growing bar), tests/test_pour.py (two: the
+    atom counts equal, rel 1e-9, the multi case's rows from step 575 at
+    1e-4) and tests/test_chute.py's contact/atom case (reduce sum 6, max
+    2), through LammpsScript in float64 on the card."""
+    import importlib.util
+
+    import torch
+
+    from lidp_tpu_torch.io.script import LammpsScript
+
+    spec = importlib.util.spec_from_file_location(
+        "gen_wallgran_goldens",
+        os.path.join(ROOT, "scripts", "gen_wallgran_goldens.py"))
+    gen = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(gen)
+    work = tempfile.mkdtemp(prefix="chip_smoke_gran_gold_")
+    try:
+        gen.write_data(os.path.join(work, "data.wallgran"))
+        gen.write_data(os.path.join(work, "data.wallgran2"), xyscale=0.7)
+        worst = {}
+        for case, want in WALL_GRAN_GOLDEN.items():
+            s = LammpsScript(dtype=torch.float64, log=lambda line: None)
+            s.root = work
+            s.execute(gen.make_input(case).splitlines())
+            got = {int(r["step"]): r for r in s.thermo_rows}
+            free = WALL_FREE_FLIGHT[case]
+            for ref in want:
+                step = int(ref[0])
+                rel = 1e-9 if step <= free else (
+                    1e-5 * max(1.0, (step - free) / 40.0) if step <= 240
+                    else 1e-3)
+                for name, v in zip(("ke", "c_rot"), ref[1:]):
+                    bar = max(rel * abs(v), 1e-12)
+                    err = abs(got[step][name] - v)
+                    worst[case] = max(worst.get(case, 0.0), err / bar)
+                    if not err <= bar:
+                        raise AssertionError(
+                            f"golden wall/gran {case} step {step} {name}: "
+                            f"{got[step][name]!r}, LAMMPS {v!r}")
+        with open(os.path.join(work, "data.pour"), "w") as fh:
+            fh.write(POUR_GOLDEN_DATA)
+        for case, want in POUR_GOLDEN.items():
+            pour, steps = POUR_GOLDEN_LINE[case]
+            s = LammpsScript(dtype=torch.float64, log=lambda line: None)
+            s.root = work
+            s.execute(POUR_GOLDEN_SCRIPT.format(pour=pour, steps=steps)
+                      .splitlines())
+            got = {int(r["step"]): r for r in s.thermo_rows}
+            for ref in want:
+                r = got[int(ref[0])]
+                rel = 1e-9 if (case == "one" or ref[0] < 575) else 1e-4
+                if r["atoms"] != ref[1]:
+                    raise AssertionError(f"golden pour {case} step {ref[0]}"
+                                         f": {r['atoms']} atoms")
+                for name, v in zip(("ke", "c_rot"), ref[2:]):
+                    bar = max(rel * abs(v), 1e-12)
+                    err = abs(r[name] - v)
+                    worst["pour " + case] = max(
+                        worst.get("pour " + case, 0.0), err / bar)
+                    if not err <= bar:
+                        raise AssertionError(
+                            f"golden pour {case} step {ref[0]} {name}: "
+                            f"{r[name]!r}, LAMMPS {v!r}")
+        with open(os.path.join(work, "data.spheres"), "w") as fh:
+            fh.write(CONTACT_GOLDEN_DATA)
+        s = LammpsScript(dtype=torch.float64, log=lambda line: None)
+        s.root = work
+        s.execute(CONTACT_GOLDEN_SCRIPT.splitlines())
+        row = s.thermo_rows[0]
+        if not (row["c_re"] == 6.0 and row["c_rm"] == 2.0):
+            raise AssertionError(f"golden contact/atom: {row}")
+        print("golden granular (tests/test_wall_gran.py, test_pour.py, on "
+              "the card): " + ", ".join(f"{c} {v:.3g}"
+                                         for c, v in worst.items())
+              + " of those tests' bars; contact/atom reduce sum 6, max 2 "
+              "as LAMMPS's")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -9895,6 +10541,7 @@ def main() -> int:
     pair_style_paths(launches, reset_counts, read_counts)
     charmm_family_paths(launches, reset_counts, read_counts)
     chunk_structure_paths(launches, reset_counts, read_counts)
+    granular_paths(launches, reset_counts, read_counts)
     run_twins()
 
     # 6. results

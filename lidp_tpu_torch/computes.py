@@ -49,7 +49,7 @@ PERATOM_STYLES = ("ke/atom", "pe/atom", "stress/atom", "coord/atom",
                   "cluster/atom", "displace/atom", "property/atom",
                   "centro/atom", "cna/atom", "orientorder/atom",
                   "hexorder/atom", "fragment/atom", "aggregate/atom",
-                  "global/atom")
+                  "global/atom", "erotate/sphere/atom", "contact/atom")
 # the */chunk computes eval_chunk_agg takes (compute_*_chunk.cpp)
 CHUNK_AGG_STYLES = ("com/chunk", "vcm/chunk", "gyration/chunk",
                     "angmom/chunk", "torque/chunk", "inertia/chunk",
@@ -330,6 +330,71 @@ def coord_atom(sim, cutoff, gmask):
         out[blk.i0:blk.i0 + blk.nrows] += blk.row_sums(
             torch.ones_like(blk.ii, dtype=torch.float64))
     return torch.where(_gmask(sim, gmask), out, 0.0)
+
+
+def contact_atom(sim, gmask):
+    """compute contact/atom: each atom's partners with r < ri + rj
+    (compute_contact_atom.cpp), over row blocks of each atom's cell and
+    the 26 around it (cells no narrower than twice the largest radius),
+    or of every atom where the box has too few such cells; 0 outside the
+    group."""
+    n = sim.natoms
+    sys = sim.sys
+    x = sys.x[:n].double()
+    rad = _f64(sim.gran_radius[:n])
+    L = sys.box.img_lengths.double()
+    cand = _cell_candidates(x, sys.box, 2.0 * float(rad.max())) if n else None
+    if cand is None:
+        allj = torch.arange(n, device=x.device)
+
+        def cand(ri):
+            return allj[None, :].expand(ri.shape[0], n)
+
+    rows = torch.arange(n, device=x.device)
+    out = torch.zeros(n, dtype=torch.float64, device=x.device)
+    width = cand(rows[:1]).shape[1] if n else 1
+    B = max(1, min(n, BLOCK_ELEMENTS // width))
+    for i0 in range(0, n, B):
+        ri = rows[i0:i0 + B]
+        cj = cand(ri)
+        valid = (cj < n) & (cj != ri[:, None])
+        cj = torch.clamp(cj, max=n - 1)
+        d = minimum_image(x[ri][:, None, :] - x[cj], L)
+        rsq = d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] \
+            + d[..., 2] * d[..., 2]
+        radsum = rad[ri][:, None] + rad[cj]
+        out[i0:i0 + B] = (valid & (rsq < radsum * radsum)).sum(1).double()
+    return torch.where(_gmask(sim, gmask), out, 0.0)
+
+
+def erotate_sphere(sim, gmask):
+    """compute erotate/sphere of a group, a 0-d tensor (ops/granular.py),
+    over the existing atoms (the System's mask)."""
+    from lidp_tpu_torch.ops.granular import erotate_sphere as erot
+
+    gm = torch.as_tensor(np.asarray(gmask), device=sim.sys.x.device)
+    return erot(sim.istate.omega, sim.gran_radius, sim.gran_rmass,
+                gm & sim.sys.mask, mvv2e=sim.thermo_params.mvv2e)
+
+
+def temp_sphere(sim, gmask):
+    """compute temp/sphere (compute_temp_sphere.cpp): (sum m v^2 + sum
+    INERTIA m r^2 w^2) mvv2e over dof boltz, dof 6 (3 in 2d) a
+    finite-radius atom and dim a point atom, less dim; 0 without dof.  A
+    0-d float64 tensor (the JAX package's sim.py:2979-2996)."""
+    tp = sim.thermo_params
+    n = sim.natoms
+    gm = _gmask(sim, gmask)
+    v = _f64(sim.sys.v[:n])
+    w = _f64(sim.istate.omega[:n])
+    r = _f64(sim.gran_radius[:n])
+    m = _f64(sim.gran_rmass[:n])
+    t = torch.sum(torch.where(gm, m * (v * v).sum(1)
+                              + 0.4 * m * r * r * (w * w).sum(1), 0.0)) \
+        * tp.mvv2e
+    dof = float(torch.where(r[gm] > 0, 6 if tp.dim == 3 else 3,
+                            tp.dim).sum()) - tp.dim
+    return t / (dof * tp.boltz) if dof > 0 else torch.zeros_like(t)
 
 
 def cluster_atom(sim, cutoff, gmask):
@@ -726,6 +791,15 @@ def eval_peratom(sim, cid):
         out = fragment_aggregate_atom(sim, gmask, float(spec["cutoff"]))
     elif style == "global/atom":
         out = global_atom(sim, spec, gmask)
+    elif style == "erotate/sphere/atom":
+        # 0.5 INERTIA mvv2e m r^2 w^2 (compute_erotate_sphere_atom.cpp)
+        r = _f64(sim.gran_radius[:n])
+        w = _f64(sim.istate.omega[:n])
+        out = 0.5 * 0.4 * tp.mvv2e * _f64(sim.gran_rmass[:n]) * r * r \
+            * (w * w).sum(1)
+        out = torch.where(gm & (r > 0), out, 0.0)
+    elif style == "contact/atom":
+        out = contact_atom(sim, gmask)
     else:
         raise ValueError(f"per-atom compute style {style}")
     cache[cid] = out

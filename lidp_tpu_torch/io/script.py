@@ -42,7 +42,12 @@ dpd/tstat, pair_modify tail), and the rest of the CHARMM family
 (lj/charmmfsw/coul/long|charmmfsh, lj/charmm/coul/charmm/implicit,
 dihedral_style charmmfsw), fix cmap (with read_data's `fix ID crossterm
 CMAP`, fix_modify ID energy and its f_ID) and the DREIDING hydrogen bonds
-(pair_style hbond/dreiding/lj|morse, alone or as a hybrid sub-style);
+(pair_style hbond/dreiding/lj|morse, alone or as a hybrid sub-style),
+and bench/in.chute's granular flow (atom_style sphere, pair_style
+gran/hooke|hooke/history|hertz/history, neigh_modify exclude group A A,
+fix gravity, freeze, nve/sphere, nvt/sphere, wall/gran,
+wall/gran/region and pour, and the computes erotate/sphere, temp/sphere,
+erotate/sphere/atom and contact/atom: styles/gran_builders.py);
 every other command, style or keyword raises NotImplementedError naming
 itself and the ROADMAP item that ports it, and is never ignored.
 """
@@ -108,6 +113,8 @@ PAIR_STYLES = ("lj/cut", "lj/cut/coul/long", "lj/cut/coul/long/polarization",
                    "lj/charmm/coul/charmm/implicit", "lj/charmmfsw/coul/long",
                    "lj/charmmfsw/coul/charmmfsh", "hbond/dreiding/lj",
                    "hbond/dreiding/morse")
+# the granular styles (ops/granular.py), on atom_style sphere data
+GRAN_STYLES = ("gran/hooke", "gran/hooke/history", "gran/hertz/history")
 # registration aliases (pair_lj_smooth_linear.h:17 lj/sf)
 PAIR_STYLE_ALIASES = {"lj/sf": "lj/smooth/linear"}
 # the TIP4P styles: the oxygen's charge on the M site (ops/tip4p.py)
@@ -182,19 +189,17 @@ FIX_STYLES = ("nve", "nvt", "npt", "nph", "rigid", "rigid/nve", "rigid/nvt",
               "temp/rescale", "temp/berendsen", "temp/csld", "enforce2d",
               "box/relax", "wall/reflect", "wall/lj93", "wall/lj126",
               "wall/lj1043", "wall/harmonic", "wall/region", "indent",
-              "move", "cmap")
+              "move", "cmap") + (
+                  # the granular route's (sim.py _build_granular_sim)
+                  "gravity", "freeze", "nve/sphere", "nvt/sphere",
+                  "wall/gran", "wall/gran/region", "pour")
 # where the fix styles the port lacks are queued: the modifier fixes of
 # the JAX package's styles/fix_modifiers.py, and the others by their item
 _MODIFIERS = "ROADMAP queue 1 item 6.1, the modifier fixes"
 _FIX_ITEMS = {
     "nvt/sllod": "ROADMAP queue 1 item 6.8, integrator keywords",
-    "nvt/sphere": "ROADMAP queue 1 item 6.8, integrator keywords",
     "npt/sphere": "ROADMAP queue 1 item 6.8, integrator keywords",
     "nph/sphere": "ROADMAP queue 1 item 6.8, integrator keywords",
-    "wall/gran": "ROADMAP queue 1 item 6.11, granular",
-    "wall/gran/region": "ROADMAP queue 1 item 6.11, granular",
-    "pour": "ROADMAP queue 1 item 6.11, granular",
-    "nve/sphere": "ROADMAP queue 1 item 6.11, granular",
 }
 
 _FIX_ITEMS.update({
@@ -216,7 +221,11 @@ COMPUTE_STYLES = (
     "fragment/atom", "aggregate/atom", "global/atom", "heat/flux",
     "chunk/atom", "com/chunk", "vcm/chunk", "gyration/chunk",
     "angmom/chunk", "torque/chunk", "inertia/chunk", "omega/chunk",
-    "dipole/chunk", "msd/chunk", "property/chunk", "temp/chunk")
+    "dipole/chunk", "msd/chunk", "property/chunk", "temp/chunk",
+    "erotate/sphere", "temp/sphere", "erotate/sphere/atom", "contact/atom")
+# the sphere computes, read on the granular route alone
+SPHERE_COMPUTES = ("erotate/sphere", "temp/sphere", "erotate/sphere/atom",
+                   "contact/atom")
 # the structure computes (computes.py)
 _STRUCTURE_STYLES = ("centro/atom", "cna/atom", "orientorder/atom",
                      "hexorder/atom", "fragment/atom", "aggregate/atom",
@@ -227,9 +236,6 @@ _COMPUTE_ITEMS = {
     **{st: _LOCAL for st in (
         "pair/local", "bond/local", "angle/local", "dihedral/local",
         "improper/local", "property/local", "rigid/local")},
-    **{st: "ROADMAP queue 1 item 6.11, granular" for st in (
-        "erotate/sphere", "temp/sphere", "erotate/sphere/atom",
-        "contact/atom")},
     "temp/deform": "ROADMAP queue 1 item 6.1, the modifier fixes (deform)",
 }
 # JAX's thermo row has no value for these (ROADMAP queue 3 item 26)
@@ -352,7 +358,14 @@ class LammpsScript:
         # and type pairs (type I J)
         self.neigh_exclude_mol = False
         self.neigh_exclude_types: list = []
+        # exclude group A A: no pair with both atoms in A (the granular
+        # route's alone, as in the JAX package)
+        self.neigh_exclude_group = None
         self.atom_style = "atomic"
+        # atom_style sphere's per-atom radius, mass and angular velocity
+        # (read_data), and pair gran/*'s six settings
+        self.radius = self.rmass = self.omega = None
+        self.gran_args = None
         self.dimension = 3
         # boundary: each dimension's (lo, hi) face styles p, f, s or m;
         # the box create_box made, before the `s` faces' expansion (the
@@ -766,9 +779,9 @@ class LammpsScript:
     def cmd_atom_style(self, a):
         # bond, angle and molecular read `id mol type x y z` (no charge)
         if a[0] not in ("atomic", "full", "charge", "bond", "angle",
-                        "molecular"):
+                        "molecular", "sphere"):
             _unported(f"atom_style {a[0]} (atomic, charge, bond, angle, "
-                      "molecular and full only)", _FRONT_END)
+                      "molecular, full and sphere only)", _FRONT_END)
         self.atom_style = a[0]
 
     def cmd_dimension(self, a):
@@ -807,11 +820,13 @@ class LammpsScript:
 
     def cmd_neigh_modify(self, a):
         """neigh_modify every N | delay N | check yes/no | one N | page N |
-        exclude molecule|molecule/intra all | exclude type I J
-        (neighbor.cpp modify_params); one and page size the reference's
-        list pages, which the cell grid does not have.  An excluded pair
-        takes no pair term (the JAX package masks it out of every pair
-        pass); exclude group and exclusions on a sub-group raise."""
+        exclude molecule|molecule/intra all | exclude type I J | exclude
+        group A A (neighbor.cpp modify_params); one and page size the
+        reference's list pages, which the cell grid does not have.  An
+        excluded pair takes no pair term (the JAX package masks it out of
+        every pair pass); exclude group holds on the granular route alone
+        (sim.py raises elsewhere), exclude group A B and the exclusions on
+        a sub-group raise."""
         i = 0
         while i < len(a):
             k = a[i]
@@ -828,6 +843,13 @@ class LammpsScript:
                 elif kind == "type":
                     self.neigh_exclude_types.append(
                         (int(a[i + 2]), int(a[i + 3])))
+                    i += 4
+                elif kind == "group":
+                    # in.chute's bottom bottom (the JAX package's form)
+                    if a[i + 2] != a[i + 3]:
+                        _unported("neigh_modify exclude group A B with A != "
+                                  "B", _BREADTH)
+                    self.neigh_exclude_group = a[i + 2]
                     i += 4
                 else:
                     _unported(f"neigh_modify exclude {kind}", _BREADTH)
@@ -1090,6 +1112,8 @@ class LammpsScript:
         self.x, self.q = d.x, d.q
         self.type, self.mol, self.image = d.type, d.mol, d.image
         self.v = d.v if d.v is not None else np.zeros_like(d.x)
+        # atom_style sphere: per-atom radius, mass and omega
+        self.radius, self.rmass, self.omega = d.radius, d.rmass, d.omega
         self.mass_type = (d.mass if d.mass is not None
                           else np.zeros(d.ntypes + 1))
         self.alpha_type = np.zeros(d.ntypes + 1)
@@ -1276,9 +1300,23 @@ class LammpsScript:
         self.pair_coeffs = {}
         self.pair_coeffs14 = {}
         a = [PAIR_STYLE_ALIASES.get(a[0], a[0])] + list(a[1:])
-        if a[0] not in PAIR_STYLES + EAM_STYLES:
+        if a[0] not in PAIR_STYLES + EAM_STYLES + GRAN_STYLES:
             _unported(f"pair_style {a[0]}", _BREADTH)
         p = PairStyleSpec(name=a[0])
+        if a[0] in GRAN_STYLES:
+            # kn kt gamman gammat xmu dampflag
+            # (pair_gran_hooke_history.cpp settings :343)
+            if len(a) < 7:
+                raise ValueError("Illegal pair_style command")
+            if len(a) > 7:
+                # limit_damping and the like: the JAX package reads the
+                # six settings alone
+                raise NotImplementedError(
+                    f"pair_style {a[0]} {' '.join(a[7:])}: the six settings "
+                    "alone (ROADMAP queue 3 item 25, keywords JAX skips)")
+            self.gran_args = list(a[1:7])
+            self.pair = p
+            return
         if a[0] in ("hybrid", "hybrid/overlay"):
             self._hybrid_pair_style(a)
             self.pair = p
@@ -1537,6 +1575,10 @@ class LammpsScript:
 
     def cmd_pair_coeff(self, a):
         self._invalidate()
+        if self.pair.name in GRAN_STYLES:
+            # the granular styles take no per-type coefficients
+            # (PairGranHookeHistory::coeff, pair_gran_hooke_history.cpp:368)
+            return
         if self.pair.name in EAM_STYLES:
             self._eam_coeff(a)
             return
@@ -2057,8 +2099,10 @@ class LammpsScript:
         temperatures (temp, temp/partial, temp/com, temp/ramp,
         temp/region, temp/profile), pe, ke, com, gyration, msd and vacf
         (their reference taken now), rdf, group/group, pressure, reduce
-        and reduce/region, slice, ke/rigid and erotate/rigid, and the
-        per-atom styles of computes.py.  Stored as (group, style[, spec])
+        and reduce/region, slice, ke/rigid and erotate/rigid, the
+        per-atom styles of computes.py, and the sphere computes of the
+        granular route (erotate/sphere, temp/sphere, erotate/sphere/atom,
+        contact/atom).  Stored as (group, style[, spec])
         and built into the Simulation; like the JAX package's, a compute
         defined after a run joins the run only once something rebuilds
         the Simulation."""
@@ -2157,6 +2201,13 @@ class LammpsScript:
                                     else args[0])}
         elif style == "displace/atom":
             spec = {"x0": self._unwrapped_x()}
+        elif style in SPHERE_COMPUTES:
+            # compute_erotate_sphere.cpp, compute_temp_sphere.cpp,
+            # compute_erotate_sphere_atom.cpp, compute_contact_atom.cpp
+            if args:
+                _unported(f"compute {style} arguments {' '.join(args)} (the "
+                          "JAX package reads none)", _OUTPUT_FIXES)
+            spec = {}
         elif style == "property/atom":
             for w in args:
                 if w not in ("x", "y", "z", "vx", "vy", "vz", "fx", "fy",

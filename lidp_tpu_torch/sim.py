@@ -73,7 +73,13 @@ It takes the route the JAX package takes:
     (ForceField(pair=None, dpd=...) for dpd), as in the JAX package;
   * the hydrogen bonds (ForceField.hbond, its dense [M, N] pass) on
     either route; fix cmap (ForceField.cmap) on the dense route only,
-    raising on the cell grid (ROADMAP queue 3 item 39).
+    raising on the cell grid (ROADMAP queue 3 item 39);
+  * the granular route for a pair gran/* style on atom_style sphere data
+    (styles/gran_builders.py: integrate/gran_runner.GranRunner on the cell
+    grid at every size, padded by fix pour's budget, whose insertions
+    Simulation.run makes at the run chunks' boundaries), as in the JAX
+    package; its fixes, sphere computes and neigh_modify exclude group
+    raise on the other routes.
 Above the cap, a box under 3 cells of the largest cutoff plus the skin a
 side takes the JAX package's neighbour list, which is not ported (ROADMAP
 queue 1 item 5) and raises; only the polar style keeps the dense pass
@@ -98,7 +104,8 @@ from lidp_tpu_torch import topology as topo_mod
 from lidp_tpu_torch.box import Box
 from lidp_tpu_torch.forcefield import ForceField
 from lidp_tpu_torch.integrate.driver import Runner
-from lidp_tpu_torch.io.script import EAM_STYLES, PAIR_STYLES
+from lidp_tpu_torch.io.script import (EAM_STYLES, GRAN_STYLES, PAIR_STYLES,
+                                      SPHERE_COMPUTES)
 from lidp_tpu_torch.ops import polarization as pol_ops
 from lidp_tpu_torch.ops.cells import CellConfig
 from lidp_tpu_torch.ops.eam import build_eam_alloy_params, build_eam_params
@@ -131,6 +138,9 @@ BAROSTATS = ("npt", "nph", "rigid/npt", "rigid/nph", "rigid/npt/small",
 _ABOVE_CAP = ("WARNING: polarization above the dense-path size cap is "
               "running the O(N^2) tensor path (fast-polar engine "
               "ineligible: unsupported fix/kspace/bonded composition)")
+# the fix styles of the granular route alone (styles/gran_builders.py)
+GRAN_FIXES = ("gravity", "freeze", "nve/sphere", "wall/gran",
+              "wall/gran/region", "pour")
 # the JAX package's abort on a cell overflow (lidp_tpu/sim.py:3623-3627)
 _OVERFLOW = ("neighbor cell capacity overflow during run (Neighbor "
              "'dangerous build' analog) — increase cap_slack")
@@ -450,6 +460,40 @@ def _compose_pi(hooks):
     return post_integrate
 
 
+def _check_not_granular(script, name):
+    """What the granular route alone takes raises on the others: its fix
+    styles and sphere computes (the JAX package refuses those fixes and
+    prints no value for those computes there), fix nvt/sphere (the JAX
+    package's point-particle form), sphere data (its per-atom masses) and
+    neigh_modify exclude group (which the JAX package drops there)."""
+    for spec in script.fixes.values():
+        if spec.style in GRAN_FIXES:
+            raise NotImplementedError(
+                f"fix style {spec.style} with pair_style {name}: it runs "
+                "with a pair gran/* style alone (the JAX package's "
+                "granular route)")
+        if spec.style == "nvt/sphere":
+            raise NotImplementedError(
+                f"fix nvt/sphere with pair_style {name} is not ported "
+                "(ROADMAP queue 1 item 6.8, integrator keywords)")
+    for cid, spec_c in script.computes.items():
+        if spec_c[1] in SPHERE_COMPUTES:
+            raise NotImplementedError(
+                f"compute {cid} {spec_c[1]} with pair_style {name}: the JAX "
+                "package reads it on the granular route alone (ROADMAP "
+                "queue 3 item 26, values JAX's thermo row lacks)")
+    if script.rmass is not None:
+        raise NotImplementedError(
+            f"atom_style sphere with pair_style {name}: the per-atom masses "
+            "are ported on the granular route alone (ROADMAP queue 1 item "
+            "6, breadth)")
+    if script.neigh_exclude_group is not None:
+        raise NotImplementedError(
+            f"neigh_modify exclude group with pair_style {name}: the JAX "
+            "package drops it off the granular route (ROADMAP queue 3 item "
+            "44)")
+
+
 def shrink_spec(script):
     """The ShrinkSpec of the script's boundary (the JAX package's
     sim.py:1933-1947): face codes p and f 0, s 2, m 3; small 1e-4 of the
@@ -529,6 +573,12 @@ class Simulation:
         self.chunkagg_computes = {}
         self.hf_computes = {}
         self.msdchunk_ref = {}
+        # the granular route's: erotate/sphere and temp/sphere by ID (their
+        # group masks), fix pour's insertions, the per-atom radius and mass
+        self.erotate_computes = {}
+        self.tempsphere_computes = {}
+        self.pour_fixes = []
+        self.gran_radius = self.gran_rmass = None
         # a state's per-atom values (computes.eval_peratom) and thermo row
         # are formed once: keyed by the step and the force result, the
         # row also by a generation the fixes' per-atom stores bump
@@ -554,6 +604,14 @@ class Simulation:
             # .cpp:50-58, force.cpp:56-57; the JAX package's sim.py
             # :964-970)
             u = dataclasses.replace(u, qqr2e=332.0716)
+        if name in GRAN_STYLES:
+            # atom_style sphere with pair gran/*: the granular route (the
+            # JAX package's sim.py:1058-1061)
+            from lidp_tpu_torch.styles.gran_builders import \
+                build_granular_sim
+
+            return build_granular_sim(script, u, dtype, device)
+        _check_not_granular(script, name)
         if name not in PAIR_STYLES + EAM_STYLES:
             raise NotImplementedError(
                 f"pair_style {name or '(none)'}: the port's script engine "
@@ -1037,6 +1095,12 @@ class Simulation:
                     out[f"c_{cid}[{k + 1}]"] = val * nrm
         for cid, (gm, style, args) in self.tempvar_computes.items():
             out["c_" + cid] = computes.temp_variant(self, gm, style, args)
+        for cid, gm in self.erotate_computes.items():
+            # compute erotate/sphere, not normalized (the JAX package's
+            # sim.py:2970-2978; ROADMAP queue 3 item 45)
+            out["c_" + cid] = computes.erotate_sphere(self, gm)
+        for cid, gm in self.tempsphere_computes.items():
+            out["c_" + cid] = computes.temp_sphere(self, gm)
         late = {}
         virial = self.res.virial
         ev = getattr(self.istate, "virial", None)
@@ -1154,6 +1218,81 @@ class Simulation:
 
     # -------------------------------- run --------------------------------
 
+    def _pour_boundary(self, chunk, todo):
+        """Fix pour's insertions at a chunk boundary (the JAX package's
+        sim.py:3604-3616): the events of the next step, then the chunk cut
+        to the absolute thermo grid and to end just before the next
+        event."""
+        step_now = int(self.sys.step)
+        evs = [e for e in (p.next_event() for p in self.pour_fixes)
+               if e is not None]
+        if evs and min(evs) == step_now + 1:
+            self._pour_events(step_now + 1)
+            evs = [e for e in (p.next_event() for p in self.pour_fixes)
+                   if e is not None]
+        if step_now % chunk:
+            todo = min(todo, chunk - step_now % chunk)
+        if evs:
+            todo = min(todo, max(1, min(evs) - 1 - step_now))
+        return todo
+
+    def _pour_events(self, ev_step):
+        """Every fix pour whose next insertion is ev_step
+        (FixPour::pre_exchange; the JAX package's sim.py:3225-3285): the
+        new atoms written into the host copies of x, v, radius, mass and
+        mask, wound back one half-kick and drift (pour.py), the grid
+        rebuilt with the shear history migrated, and the thermo's masses,
+        atom count and dof following the inserted count."""
+        from lidp_tpu_torch.ops.cells import build_cells
+        from lidp_tpu_torch.ops.granular import migrate_shear
+
+        runner = self.runner
+        gp = runner.gp
+        sys = self.sys
+        dev, dtype = sys.x.device, sys.x.dtype
+
+        def host(t):
+            return t.cpu().numpy().copy()
+
+        x, v, mask = host(sys.x), host(sys.v), host(sys.mask)
+        radius, rmass, f = host(gp.radius), host(gp.rmass), host(self.res.f)
+        rows = []
+        for pf in self.pour_fixes:
+            if pf.next_event() == ev_step:
+                rows += pf.insert(ev_step, x, v, radius, rmass, mask,
+                                  self.natoms)
+        if not rows:
+            return
+        grav = runner.grav.double().cpu().numpy()
+        dtf2 = 0.5 * runner.dt * runner.ftm2v
+        for s in rows:
+            x[s] = x[s] - runner.dt * v[s]
+            v[s] = v[s] - dtf2 * grav
+            f[s] = rmass[s] * grav
+
+        def dev_t(a):
+            return torch.as_tensor(a, dtype=dtype, device=dev)
+
+        sys = sys.replace(x=dev_t(x), v=dev_t(v),
+                          mask=torch.as_tensor(mask, device=dev))
+        runner.gp = dataclasses.replace(gp, radius=dev_t(radius),
+                                        rmass=dev_t(rmass))
+        new = build_cells(sys.x, sys.mask, sys.box, runner.neighbor_cfg)
+        st = self.istate
+        shear = st.shear if gp.kind == "hooke" else migrate_shear(
+            st.shear, self.nlist, new)
+        self.istate = dataclasses.replace(st, shear=shear, x_ref=sys.x,
+                                          last_build=int(sys.step),
+                                          pairs=runner.pairs_of(new))
+        self.nlist = new
+        self.sys = sys
+        self.res = dataclasses.replace(self.res, f=dev_t(f))
+        self.natoms += len(rows)
+        self.thermo_params = dataclasses.replace(
+            self.thermo_params, mass_atom=runner.gp.rmass,
+            natoms=self.natoms, dof=3 * self.natoms - 3)
+        self.gran_radius, self.gran_rmass = runner.gp.radius, runner.gp.rmass
+
     def run(self, nsteps: int):
         """Advance nsteps: setup on the first run, fix vector's setup
         sample, the header, the row of the start and its dump frames, fix
@@ -1170,6 +1309,12 @@ class Simulation:
             self.runner.integ = dataclasses.replace(
                 integ, params=dataclasses.replace(
                     integ.params, ramp_begin=b, ramp_end=b + nsteps))
+        nvt = getattr(self.runner, "nvt", None)
+        if nvt is not None:
+            # fix nvt/sphere's ramp spans this run (the granular runner)
+            b = int(self.sys.step)
+            self.runner.nvt = dataclasses.replace(nvt, ramp_begin=b,
+                                                  ramp_end=b + nsteps)
         if self.res is None:
             self.sys, self.res, self.nlist, self.istate = \
                 self.runner.setup(self.sys)
@@ -1206,6 +1351,8 @@ class Simulation:
         chunk = int(np.gcd.reduce(chunk_opts))
         while remaining > 0:
             todo = min(chunk, remaining)
+            if self.pour_fixes:
+                todo = self._pour_boundary(chunk, todo)
             self.sys, self.res, self.nlist, self.istate = self.runner.run(
                 self.sys, self.res, self.nlist, self.istate, todo)
             remaining -= todo

@@ -15,7 +15,8 @@ own behaviour that the port does not copy:
     cancels;
   * cell_pair_forces with excl and excl_mol against JAX's on a seeded
     two-type case: 1e-12 of each output's largest entry;
-  * the refusals: exclude group, exclude molecule on a sub-group (breadth),
+  * the refusals: exclude group A B, exclude molecule on a sub-group
+    (breadth),
     and excl_mol on the panel engine (LIDP_FAST_POLAR=1), whose JAX
     counterpart runs without the exclusion: its rows against its own dense
     route's (ROADMAP queue 3 item 12);
@@ -193,7 +194,10 @@ def test_cell_pair_forces_exclusions_match_jax():
 # ---------------------- refusals and reference records ----------------------
 
 UNPORTED = {
-    "exclude group": "neigh_modify exclude group all all\n",
+    # exclude group A A is the granular route's (tests/
+    # test_torch_gran_script.py): two groups still raise
+    "exclude group": "group few molecule <= 10\n"
+                     "neigh_modify exclude group all few\n",
     "exclude molecule sub-group": "group few molecule <= 10\n"
                                   "neigh_modify exclude molecule/intra few\n",
 }

@@ -247,7 +247,6 @@ def test_api_surface(tmp_path):
 
 UNPORTED = {
     "compute pl all pair/local dist": "item 6.15",
-    "compute es all erotate/sphere": "item 6.11",
     "compute td all temp/deform": "item 6.1",
     "compute m2 all msd com yes": "queue 3 item 25",
     "compute r2 all rdf 50 1 1": "queue 3 item 25",
@@ -283,8 +282,12 @@ REPOINTED = {
         "compute ch all chunk/atom molecule nchunk once", "queue 3 item 25"),
     "compute cc all com/chunk cid": ("compute cc all bond/local dist",
                                      "item 6.15"),
-    "compute cn all centro/atom fcc": ("compute cn all contact/atom",
-                                       "item 6.11"),
+    "compute cn all centro/atom fcc": ("compute cn all contact/atom 2.0",
+                                       "queue 3 item 25"),
+    # the sphere computes are ported (tests/test_torch_gran_script.py): a
+    # keyword the JAX package does not read still raises
+    "compute es all erotate/sphere": ("compute es all temp/sphere bias tt",
+                                      "queue 3 item 25"),
     "compute hf all heat/flux ka pa sa": ("compute hf all rigid/local 1 id",
                                           "item 6.15"),
     "fix ac all ave/chunk 1 1 1 cid vx": (

@@ -257,14 +257,16 @@ def test_replicate_matches_jax(dirs):
 # (tests/test_torch_min_script.py), region sphere too
 # (tests/test_torch_regions.py), the DREIDING hydrogen bonds
 # (tests/test_torch_hbond.py), and chunk/atom
-# (tests/test_torch_chunk_computes.py): their keys keep the test names and
-# hold a style that still raises
+# (tests/test_torch_chunk_computes.py), pair gran/* (tests/
+# test_torch_gran_script.py): their keys keep the test names and hold a
+# style that still raises
 UNPORTED = {
     "region": "region s sphere 0 0 0 1 rotate v_a 0 0 0 0 0 1",
     "compute": "compute c all pair/local dist",
     "minimize": "min_modify line backtrack",
     "fix nvt": "fix 2 all nvt/sllod temp 300 300 100",
-    "pair_style lj/cut": "pair_style gran/hooke 2000.0 NULL 50.0 NULL 0.5 0",
+    "pair_style lj/cut": "pair_style granular hooke 2000.0 50.0 tangential "
+                         "linear_history 571.4 0.5 0.5",
     "kspace_style pppm": "kspace_style pppm/dipole 1e-4",
     "bond_style": "bond_style class2",
     "thermo keyword": "thermo_style custom step cpu",

@@ -517,10 +517,10 @@ UNPORTED = {
                       "queue 1 item 6"),
     "create_atoms random": ("create_atoms 1 random 10 4 NULL",
                             "queue 1 item 6"),
-    # lj/cut/coul/cut and the item-6.6 styles are ported: a granular
-    # style (item 6.11) still raises
-    "lj/cut/coul/cut": ("pair_style gran/hooke 2000.0 NULL 50.0 NULL 0.5 0",
-                        "queue 1 item 6"),
+    # lj/cut/coul/cut, the item-6.6 styles and pair gran/* (item 6.11)
+    # are ported: the newer pair_style granular still raises
+    "lj/cut/coul/cut": ("pair_style granular hooke 2000.0 50.0 tangential "
+                        "linear_history 571.4 0.5 0.5", "queue 1 item 6"),
     "lattice diamond": ("lattice diamond 1.0", "queue 1 item 6"),
 }
 
