@@ -595,21 +595,69 @@ Phases, each raising on failure:
      tests/test_wall_gran.py (six cases), tests/test_pour.py (two) and
      tests/test_chute.py's contact/atom case at those tests' bars
      (granular_golden_phases);
- 19. the CPU twins (CPU_TWIN: the same script through the port on the CPU
+ 19. output and coupling (output_paths), every launch counter 0 just
+     before each path and read just after:
+     BA. path H's fluid (10,125 atoms, FLUID_SCRIPT, float64 at 1e-11,
+        fused) run 10 steps through LammpsScript with dump custom every 2
+        (id type x y z vx vy vz, sort id, %.17g), then the same setup
+        with `rerun fluid.dump dump x y z vx vy vz` in place of the run:
+        6 frames, each rebuilding the Simulation and evaluating `run 0`
+        on the panel engine; each frame launches pair_panel_df,
+        eind_panel_df and dipole_panel_df (the counters read after every
+        frame), and each rerun row's PotEng, E_vdwl, E_coul, E_long and
+        E_pol is within rel 1e-8 of max(1, |value|) of the run's row at
+        that step; each frame's ms split into the rebuild and the
+        evaluation (LammpsScript.rerun_timings);
+     BB. bench/in.lj (32,000 atoms, float32, the cell grid with
+        cell_pair_forces_lj, 1,000 steps) with compute pair/local (dist
+        eng force) and property/local (patom1 patom2) under dump local,
+        dump xyz and cfg, fix store/state 0 x y z dumped by f_ss[i],
+        every 500 steps, dump dcd every 100, one dump image frame, and
+        fix controller 10 on c_tt into the internal variable tcv (v_tcv
+        in a thermo 100 row): the LJ kernel launched on every step; the
+        last local frame's rows i < j in (i, j) order, as many as a dense
+        pass counts inside the cutoff, their distances those of the final
+        positions, the eng column's sum within rel 1e-4 of the float32
+        run's E_pair x N; the xyz, cfg and dcd frames at the final
+        positions, store/state's columns the setup positions, the PPM
+        well formed (bb_checks); steps/s by the Loop time line, the peak
+        memory, each local frame's rows, its device ms and its
+        formatting ms, and every dump frame's ms (TimedWriters);
+     BC. in.lj through lidp_tpu_torch.api.lammps, float32 (the cell grid),
+        50 steps, thermo 10 (external_case): fix external pf/callback 1 1
+        with a numpy callback -0.5 minimum-image(x - x0) fired on each
+        of steps 0-50 with changing positions, its rows within rel 1e-6
+        of max(1, |value|) of the same run under fix spring/self 0.5;
+        pf/array with a uniform array against fix addforce at that bar;
+        the LJ kernel launched on every step of each; steps/s by the Loop
+        time line of the callback run against the plain in.lj run in
+        this call (the host round trip);
+     and BA-1k (the fluid at n_side 7, 1,029 atoms, the dense route, run
+     and rerun in one script), BB-5k (BB's stack on in.lj at 0.55, 5,324
+     atoms on the cell grid, float64, 100 steps, dumps every 50) and
+     BC-5k (BC's callback run at 5,324 atoms, float64) against CPU twins
+     (BC-5k's through the library, EXTERNAL_TWIN): every row within rel
+     1e-9, the final x, v and mu within 1e-8 of their largest entry;
+     BB-5k's files too (the local frames the same rows and (patom1,
+     patom2) sequence, their values within rel 1e-9; xyz and cfg within
+     1e-8 of the largest or one unit of the printed digit; dcd within
+     that plus one float32 ulp) and BC-5k's callback steps equal;
+ 20. the CPU twins (CPU_TWIN: the same script through the port on the CPU
      in float64, in a process of its own; its rows, final state and each
      minimize's (E, iterations, converged)) of J, K, O, R, R-pppm, Q64, S,
      T, U64, V, W, X64, Y, Z, AA-100, AB (and AB's cg, sd, fire), AC, AD,
      AE-couette, AE-pois, AF, AG, AI, AI-f32 (AI's in float32, its
      setup state), AJ-AN, AO-8k, AQ, AR, AS-AV at 192 atoms (81
      waters), AW-5k, AX-5k, AW-f32, AX-f32, AY-2k, AY-nvt-2k,
-     AY-hooke-2k and AZ-2k, after every path on the card, so that no
-     timed path shares the host's cores with them (run_twins: as many at
-     once as the cores take, the longest first);
- 20. one JSON line {"kernels": [...]} with each of the ten kernels'
+     AY-hooke-2k, AZ-2k, BA-1k, BB-5k and BC-5k, after every path on the
+     card, so that no timed path shares the host's cores with them
+     (run_twins: as many at once as the cores take, the longest first);
+ 21. one JSON line {"kernels": [...]} with each of the ten kernels'
      launches (summed and by path, A-K, E-E4, L, L64, M, N, N-pol, O, R,
      R-pppm, Q, Q64, P, P100, S, T, U, U64, V, W, X, X64, Y, Z, AA, AB,
      AC, AD, AE, AF, AG, AH, AI, AJ, AK, AN, AL, AM, AO, AP, AQ, AR, AS,
-     AT, AU, AV, AW, AX, AY, AZ), times, ms_queued and bound, then the
+     AT, AU, AV, AW, AX, AY, AZ, BA, BB, BC and BC's plain, spring,
+     array and addforce runs), times, ms_queued and bound, then the
      nvidia-smi line, then the device line last.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
@@ -3798,10 +3846,12 @@ TWIN_ROOT = []
 TWIN_TIMEOUT = 900
 
 
-def start_cpu_twin(work, script, steps, out, threads=1, dtype="float64"):
+def start_cpu_twin(work, script, steps, out, threads=1, dtype="float64",
+                   code=CPU_TWIN):
     """Start the CPU twin of `script` (in directory `work`) in a process
     of its own on `threads` torch threads, in `dtype` (float64 but for a
-    twin of a float32 run's setup state); returns the Popen."""
+    twin of a float32 run's setup state); `code` runs it (CPU_TWIN, or
+    EXTERNAL_TWIN through the library); returns the Popen."""
     env = dict(os.environ, OMP_NUM_THREADS=str(threads),
                TWIN_THREADS=str(threads), TWIN_DTYPE=dtype,
                CUDA_VISIBLE_DEVICES="",
@@ -3809,13 +3859,13 @@ def start_cpu_twin(work, script, steps, out, threads=1, dtype="float64"):
                    filter(None, (ROOT, os.environ.get("PYTHONPATH")))))
     env.pop("LIDP_FAST_POLAR", None)
     return subprocess.Popen(
-        [sys.executable, "-c", CPU_TWIN, out, script, str(steps)],
+        [sys.executable, "-c", code, out, script, str(steps)],
         cwd=work, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
         text=True)
 
 
 def defer_twin(path, work, script, steps, check, threads=1, cost=60.0,
-               dtype="float64"):
+               dtype="float64", code=CPU_TWIN):
     """Queue path's CPU twin (CPU_TWIN on `script`, `steps` steps) to run
     after every path on the card (run_twins), so that no timed path shares
     the host's cores with it: the directory `work` (the input and its
@@ -3831,7 +3881,8 @@ def defer_twin(path, work, script, steps, check, threads=1, cost=60.0,
     dst = os.path.join(TWIN_ROOT[0], path)
     shutil.copytree(work, dst)
     TWINS.append(dict(path=path, work=dst, script=script, steps=steps,
-                      check=check, threads=threads, cost=cost, dtype=dtype))
+                      check=check, threads=threads, cost=cost, dtype=dtype,
+                      code=code))
 
 
 def run_twins():
@@ -3854,7 +3905,8 @@ def run_twins():
                     t["out"] = os.path.join(t["work"], "twin.npz")
                     t["proc"] = start_cpu_twin(t["work"], t["script"],
                                                t["steps"], t["out"],
-                                               t["threads"], t["dtype"])
+                                               t["threads"], t["dtype"],
+                                               t["code"])
                     t["t0"] = time.perf_counter()
                     running.append(t)
                     queue.remove(t)
@@ -9707,6 +9759,730 @@ def granular_golden_phases():
         shutil.rmtree(work, ignore_errors=True)
 
 
+# phase 19: output and coupling (output_paths).  BA: the fluid's run
+# dumped and rerun on the panel engine; BB: in.lj with the local computes
+# and every dump style; BC: fix external through the library
+BA_SIDE = 15                   # path BA: path H's fluid, 10,125 atoms
+BA_STEPS = 10                  # path BA's run: frames at 0, 2, ..., 10
+BA_EVERY = 2
+BA_COLS = ("pe", "evdwl", "ecoul", "elong", "epol")
+BA_REL = 1e-8                  # rerun rows vs the run's, of max(1, |value|)
+BA_PANEL = ("pair_panel_df", "eind_panel_df", "dipole_panel_df")
+BA_TWIN_SIDE = 7               # BA-1k: 1,029 atoms, the dense route
+BA_DUMP = """\
+dump d all custom {every} fluid.dump id type x y z vx vy vz
+dump_modify d sort id format float %.17g
+"""
+BA_RERUN = "rerun fluid.dump dump x y z vx vy vz"
+BB_SCALE = "1"                 # in.lj's x, y, z: 32,000 atoms
+BB_STEPS = 1000                # in.lj's run
+BB_EVERY = 500                 # the local, xyz, cfg and store/state frames
+BB_DCD = 100
+BB_IMAGE = 2000                # one image frame: step 0
+BB_THERMO = 100
+BB_TWIN_SCALE = "0.55"         # BB-5k: in.lj at 5,324 atoms (cells)
+BB_TWIN_STEPS = 100
+BB_TWIN_EVERY = 50
+BB_COLS = ("temp", "epair", "emol", "etotal", "press", "v_tcv")
+BB_OUTPUT = """\
+compute pl all pair/local dist eng force
+compute pp all property/local patom1 patom2
+dump loc all local {every} bb.local index c_pl[1] c_pl[2] c_pl[3] \
+c_pp[1] c_pp[2]
+dump xyz all xyz {every} bb.xyz
+dump dcd all dcd {dcd} bb.dcd
+dump cfg all cfg {every} bb.cfg mass type xs ys zs
+dump img all image {image} bb.*.ppm type type
+fix ss all store/state 0 x y z
+dump st all custom {every} bb.state id f_ss[1] f_ss[2] f_ss[3]
+dump_modify st format float %.17g
+compute tt all temp
+variable tcv internal 0.0
+fix pid all controller 10 1.0 0.5 0.1 0.05 c_tt 1.44 tcv
+thermo_style custom step temp epair emol etotal press v_tcv
+thermo {thermo}
+"""
+BB_WRITERS = ("write_local_frame", "write_dump_frame", "write_dcd_frame",
+              "write_cfg_frame", "write_image_frame")
+BC_SCALE = "1"                 # path BC: in.lj at 32,000 atoms
+BC_STEPS = 50
+BC_REL = 1e-6                  # BC's rows vs spring/self's and addforce's
+BC_K = 0.5
+BC_FORCE = (0.3, -0.2, 0.1)
+BC_THERMO = 10
+BC_TWIN_SCALE = "0.55"         # BC-5k: 5,324 atoms (cells), float64
+BC_FIX = {"callback": "fix e all external pf/callback 1 1",
+          "array": "fix e all external pf/array 1",
+          "spring": f"fix e all spring/self {BC_K}",
+          "addforce": "fix e all addforce {:g} {:g} {:g}".format(*BC_FORCE),
+          "plain": ""}
+EXTERNAL_TWIN = """\
+import os, sys, time
+import numpy as np
+import torch
+torch.set_num_threads(int(os.environ["TWIN_THREADS"]))
+import chip_smoke
+with open(sys.argv[2]) as fh:
+    text = fh.read()
+t0 = time.perf_counter()
+rows, calls, L = chip_smoke.external_case(text, int(sys.argv[3]), "callback",
+                                          device="cpu", dtype=torch.float64)
+seconds = time.perf_counter() - t0
+sim = L.lmp._sim
+n = sim.natoms
+cols = [c for c in rows[0] if c not in ("step", "atoms", "bonds")]
+np.savez(sys.argv[1], x=sim.sys.x[:n].numpy(), v=sim.sys.v[:n].numpy(),
+         mu=sim.sys.mu[:n].numpy(), cols=np.array(cols, dtype=str),
+         root=L.lmp.root, rows=np.array([[r[c] for c in cols] for r in rows]),
+         minimized=np.zeros((0, 3)), seconds=seconds,
+         calls=np.array([s for s, _ in calls]))
+assert "jax" not in sys.modules
+"""
+
+
+def lj_scaled(text, scale):
+    """in.lj's lines with its `variable x, y, z index 1` set to scale (a
+    twin sets no -var)."""
+    for a in "xyz":
+        text = text.replace(f"variable\t{a} index 1",
+                            f"variable\t{a} index {scale}")
+    return text
+
+
+def bb_text(scale, steps, every, dcd, image, thermo):
+    """in.lj (LJ_SCRIPT at `scale`) with BB_OUTPUT before its run of
+    `steps`."""
+    out = BB_OUTPUT.format(every=every, dcd=dcd, image=image, thermo=thermo)
+    return cut_run(lj_scaled(LJ_SCRIPT, scale), steps).replace(
+        "run\t\t", out + "run\t\t")
+
+
+def external_case(text, steps, mode, device="cuda", dtype=None, log=None):
+    """in.lj's lines `text` through lidp_tpu_torch.api.lammps with BC_FIX[
+    mode] in place of its run, thermo every BC_THERMO, then `run steps`:
+    mode "callback" registers a numpy callback, -BC_K times the minimum
+    image of x - x0 (fix spring/self's force while no atom moves half a
+    box), and keeps (step, x) of each call; "array" sets the uniform
+    BC_FORCE on every atom.  Returns (thermo rows, calls, the lammps)."""
+    import numpy as np
+    import torch
+
+    from lidp_tpu_torch import api
+
+    L = api.lammps(cmdargs=["-log", log] if log else None,
+                   dtype=dtype or torch.float32, device=device)
+    L.commands_string(text.replace(
+        "run\t\t100", f"{BC_FIX[mode]}\nthermo {BC_THERMO}\n"))
+    calls = []
+    if mode == "callback":
+        x0 = np.array(L.lmp.x, float)
+        box = np.asarray(L.lmp.box_hi - L.lmp.box_lo, float)
+
+        def callback(caller, step, nlocal, ids, x, fext):
+            d = x - x0
+            d -= box * np.round(d / box)
+            fext[:] = -BC_K * d
+            calls.append((int(step), x[:4].copy()))
+
+        L.set_fix_external_callback("e", callback)
+    elif mode == "array":
+        L.fix_external_set_force("e", np.tile(BC_FORCE,
+                                              (L.get_natoms(), 1)))
+    L.command(f"run {steps}")
+    return L.lmp.thermo_rows, calls, L
+
+
+class TimedWriters:
+    """Within `with TimedWriters() as t:` each dump writer of io/dump.py
+    (BB_WRITERS) is timed by the host clock: t.ms[dump ID] lists its
+    frames' ms."""
+
+    def __enter__(self):
+        from lidp_tpu_torch.io import dump as dump_mod
+
+        self.mod = dump_mod
+        self.orig = {w: getattr(dump_mod, w) for w in BB_WRITERS}
+        self.ms = {}
+
+        def timed(fn):
+            def call(spec, *a, **kw):
+                t0 = time.perf_counter()
+                out = fn(spec, *a, **kw)
+                self.ms.setdefault(spec.did, []).append(
+                    1e3 * (time.perf_counter() - t0))
+                return out
+            return call
+
+        for w, fn in self.orig.items():
+            setattr(dump_mod, w, timed(fn))
+        return self
+
+    def __exit__(self, *exc):
+        for w, fn in self.orig.items():
+            setattr(self.mod, w, fn)
+        return False
+
+
+def read_local(path):
+    """A dump local file's frames: (step, (rows, columns) float array)."""
+    import numpy as np
+
+    with open(path) as fh:
+        text = fh.read()
+    out = []
+    for frame in text.split("ITEM: TIMESTEP\n")[1:]:
+        lines = frame.splitlines()
+        n = int(lines[2])
+        body = [line.split() for line in lines[8:8 + n]]
+        out.append((int(lines[0]), np.array(body, float).reshape(n, -1)))
+    return out
+
+
+def read_xyz(path):
+    """A dump xyz file's frames: (step, (n, 4) type x y z)."""
+    import numpy as np
+
+    with open(path) as fh:
+        lines = fh.read().splitlines()
+    out, i = [], 0
+    while i < len(lines):
+        n = int(lines[i])
+        step = int(lines[i + 1].split()[-1])
+        out.append((step, np.array([w.split() for w in
+                                    lines[i + 2:i + 2 + n]], float)))
+        i += 2 + n
+    return out
+
+
+def read_cfg(path):
+    """A dump cfg file's frames: (n, H0 diagonal, (n, 3) xs ys zs)."""
+    import numpy as np
+
+    with open(path) as fh:
+        text = fh.read()
+    out = []
+    for frame in text.split("Number of particles = ")[1:]:
+        lines = frame.splitlines()
+        h = [float(w.split("=")[1].split()[0]) for w in lines
+             if w.startswith(("H0(1,1)", "H0(2,2)", "H0(3,3)"))]
+        rows = [w.split() for w in lines if len(w.split()) == 3
+                and "=" not in w]
+        out.append((int(lines[0]), h, np.array(rows, float)))
+    return out
+
+
+def read_dcd(raw):
+    """A dcd file's bytes: (header ints, natoms, frames of (cell 6, (n, 3)
+    float32))."""
+    import struct
+
+    import numpy as np
+
+    off = 0
+
+    def rec():
+        nonlocal off
+        n = struct.unpack_from("<i", raw, off)[0]
+        payload = raw[off + 4:off + 4 + n]
+        if struct.unpack_from("<i", raw, off + 4 + n)[0] != n:
+            raise AssertionError("dcd: a record's lengths differ")
+        off += 8 + n
+        return payload
+
+    hdr = rec()
+    rec()
+    natoms = struct.unpack("<i", rec())[0]
+    frames = []
+    while off < len(raw):
+        cell = struct.unpack("<6d", rec())
+        xyz = [np.frombuffer(rec(), "<f4") for _ in range(3)]
+        frames.append((cell, np.stack(xyz, axis=1)))
+    return struct.unpack_from("<9i", hdr, 4), natoms, frames
+
+
+def check_local_frame(path, rows, x, L, cut, eng_total, rel, dev):
+    """One pair/local + property/local frame (index dist eng force patom1
+    patom2) against the state it was written from: the index 1..n, the
+    pairs i < j in (i, j) order, each pair's distance from x (float64) to
+    the printed digits, the count of i < j pairs inside the cutoff by a
+    dense pass on the run's device, and the eng column's sum against eng_total
+    (the thermo's pair energy times N) at rel."""
+    import numpy as np
+    import torch
+
+    n = len(rows)
+    i, j = rows[:, 4].astype(np.int64) - 1, rows[:, 5].astype(np.int64) - 1
+    if not (np.array_equal(rows[:, 0], np.arange(1, n + 1))
+            and (i < j).all()
+            and (np.diff(i * len(x) + j) > 0).all()):
+        raise AssertionError(f"path {path}: local rows not i < j in (i, j) "
+                             "order")
+    d = x[i] - x[j]
+    d -= L * np.round(d / L)
+    r = np.sqrt((d * d).sum(1))
+    if not np.allclose(rows[:, 1], r, rtol=1e-7, atol=0.0):
+        raise AssertionError(f"path {path}: local dist vs the positions")
+    xt = torch.as_tensor(x, device=dev)
+    Lt = torch.as_tensor(L, device=dev)
+    count = 0
+    for a in range(0, len(x), 2048):
+        dd = xt[a:a + 2048, None, :] - xt[None, :, :]
+        dd -= Lt * torch.round(dd / Lt)
+        rsq = (dd * dd).sum(-1)
+        upper = torch.arange(a, min(a + 2048, len(x)),
+                             device=dev)[:, None] < torch.arange(
+                                 len(x), device=dev)[None, :]
+        count += int(((rsq < cut * cut) & upper).sum())
+    if count != n:
+        raise AssertionError(f"path {path}: {n} local rows, {count} pairs "
+                             "inside the cutoff")
+    esum = float(rows[:, 2].sum())
+    if not abs(esum - eng_total) <= rel * abs(eng_total):
+        raise AssertionError(f"path {path}: local eng sum {esum!r}, the "
+                             f"thermo's {eng_total!r}")
+    return abs(esum - eng_total) / abs(eng_total)
+
+
+def bb_checks(path, work, script, steps, every, dcd_every, image_step,
+              eng_rel):
+    """BB's files against its run: the local frames (check_local_frame on
+    the last, its eng sum at eng_rel), the xyz, cfg, dcd and store/state
+    frames, the image."""
+    import numpy as np
+    import torch
+
+    if steps % every:
+        raise AssertionError(f"path {path}: the last frames are not at the "
+                             "run's end")
+    sim = script._sim
+    n = sim.natoms
+    x = sim.sys.x[:n].double().cpu().numpy()
+    lo = sim.sys.box.lo.double().cpu().numpy()
+    L = (sim.sys.box.hi - sim.sys.box.lo).double().cpu().numpy()
+    xw = x - np.floor((x - lo) / L) * L
+    frames = list(range(0, steps + 1, every))
+    loc = read_local(os.path.join(work, "bb.local"))
+    if [s for s, _ in loc] != frames:
+        raise AssertionError(f"path {path}: local frames {len(loc)}")
+    last = script.thermo_rows[-1]
+    worst = check_local_frame(path, loc[-1][1], x, L, 2.5,
+                              last["epair"] * n, eng_rel, sim.sys.x.device)
+    xyz = read_xyz(os.path.join(work, "bb.xyz"))
+    err = float(np.abs(xyz[-1][1][:, 1:] - xw).max())
+    if [s for s, _ in xyz] != frames or not err <= 1e-5 * L.max():
+        raise AssertionError(f"path {path}: xyz frames or positions {err}")
+    cfg = read_cfg(os.path.join(work, "bb.cfg"))
+    cerr = float(np.abs(cfg[-1][2] * L + lo - xw).max())
+    if len(cfg) != len(frames) or cfg[-1][0] != n \
+            or not cerr <= 1e-8 * L.max():
+        raise AssertionError(f"path {path}: cfg frames or positions {cerr}")
+    with open(os.path.join(work, "bb.dcd"), "rb") as fh:
+        _, natoms, dframes = read_dcd(fh.read())
+    derr = float(np.abs(dframes[-1][1] - xw.astype(np.float32)).max())
+    if natoms != n or len(dframes) != steps // dcd_every + 1 \
+            or not derr <= 4e-6 * L.max():
+        raise AssertionError(f"path {path}: dcd {natoms} atoms, "
+                             f"{len(dframes)} frames, positions {derr}")
+    with open(os.path.join(work, "bb.state")) as fh:
+        st = fh.read().split("ITEM: TIMESTEP\n")
+    rows = np.array([w.split() for w in st[-1].splitlines()[8:]], float)
+    x0 = np.asarray(script.x, float)
+    if script.dtype == torch.float32:
+        x0 = x0.astype(np.float32).astype(float)
+    if len(st) != len(frames) + 1 or not np.array_equal(rows[:, 1:], x0):
+        raise AssertionError(f"path {path}: store/state's f_ss is not the "
+                             "setup positions")
+    with open(os.path.join(work, f"bb.{image_step}.ppm"), "rb") as fh:
+        img = fh.read()
+    if not img.startswith(b"P6\n512 512\n255\n") or len(img) != 15 + 3 * 512 \
+            * 512 or not any(img[15:]):
+        raise AssertionError(f"path {path}: the image frame")
+    print(f"path {path}: {len(loc)} local frames (the last: {len(loc[-1][1])}"
+          f" rows, i < j in (i, j) order, the count a dense pass on the "
+          f"card gives, eng's sum at {worst:.3g} of the thermo's E_pair x N)"
+          f"; {len(xyz)} xyz, {len(cfg)} cfg and {len(dframes)} dcd frames "
+          f"at the final positions ({err:.3g}, {cerr:.3g}, {derr:.3g} of "
+          f"max L {L.max():.6g}); store/state's f_ss the setup positions; "
+          f"one {len(img)}-byte PPM")
+
+
+def twin_files(path, mine):
+    """A check of an output twin's files against `mine` (the card run's:
+    name -> text or bytes): the local frames the same rows and (patom1,
+    patom2) sequence, their values within rel 1e-9; xyz and cfg values
+    within 1e-8 of the largest or one unit of the printed digit; dcd's
+    float32 positions within 1e-8 of the largest plus one float32 ulp."""
+    import numpy as np
+
+    def local(text):
+        return [np.array([w.split() for w in f.splitlines()[8:]], float)
+                for f in text.split("ITEM: TIMESTEP\n")[1:]]
+
+    def words(text):
+        return [w.split() for w in text.splitlines()]
+
+    def check(root):
+        worst = {}
+        for name, data in mine.items():
+            with open(os.path.join(root, name),
+                      "rb" if isinstance(data, bytes) else "r") as fh:
+                theirs = fh.read()
+            if name.endswith(".local"):
+                a, b = local(data), local(theirs)
+                if [len(f) for f in a] != [len(f) for f in b] or not all(
+                        np.array_equal(fa[:, 4:], fb[:, 4:])
+                        for fa, fb in zip(a, b)):
+                    raise AssertionError(f"path {path}: {name}'s rows or "
+                                         "pairs differ from the twin's")
+                rel = max(float((np.abs(fa[:, 1:4] - fb[:, 1:4])
+                                 / np.maximum(np.abs(fb[:, 1:4]), 1e-300)
+                                 ).max()) if len(fa) else 0.0
+                          for fa, fb in zip(a, b))
+                if not rel <= 1e-9:
+                    raise AssertionError(f"path {path}: {name} values at "
+                                         f"rel {rel:.3g}")
+                worst[name] = rel
+            elif name.endswith(".dcd"):
+                a = [f for _, f in read_dcd(data)[2]]
+                b = [f for _, f in read_dcd(theirs)[2]]
+                big = max(float(np.abs(f).max()) for f in b)
+                err = max(float(np.abs(fa.astype(float) - fb).max())
+                          for fa, fb in zip(a, b))
+                ulp = float(np.spacing(np.float32(big)))
+                if len(a) != len(b) or not err <= 1e-8 * big + ulp:
+                    raise AssertionError(f"path {path}: {name} at {err}")
+                worst[name] = err / (1e-8 * big + ulp)
+            else:
+                wa, wb = words(data), words(theirs)
+                if len(wa) != len(wb):
+                    raise AssertionError(f"path {path}: {name}'s lines")
+                big = max(abs(float(v)) for line in wb for v in line
+                          if _is_number(v))
+                ratio = 0.0
+                for la, lb in zip(wa, wb):
+                    if la == lb:
+                        continue
+                    fa, fb = np.array(la, float), np.array(lb, float)
+                    # one unit of the last printed digit (%g: 6, cfg's
+                    # %.10g: 10 significant digits)
+                    digits = 10 if name.endswith(".cfg") else 6
+                    unit = 10.0 ** (np.floor(np.log10(np.maximum(
+                        np.abs(fb), 1e-300))) - digits + 1)
+                    bar = np.maximum(1e-8 * big, unit)
+                    r = float((np.abs(fa - fb) / bar).max())
+                    ratio = max(ratio, r)
+                    if not r <= 1.0:
+                        raise AssertionError(f"path {path}: {name} line "
+                                             f"{la} vs the twin's {lb}")
+                worst[name] = ratio
+        print(f"path {path} files vs its CPU twin's: " + ", ".join(
+            f"{k} at {v:.3g} of its bar" for k, v in worst.items()))
+
+    return check
+
+
+def _is_number(word):
+    try:
+        float(word)
+    except ValueError:
+        return False
+    return True
+
+
+def output_paths(launches, reset_counts, read_counts):
+    """Paths BA, BB, BC and their twins BA-1k, BB-5k, BC-5k (module
+    docstring)."""
+    import numpy as np
+    import torch
+
+    from lidp_tpu_torch.io.script import LammpsScript
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_output_")
+    try:
+        # BA: the fluid's run dumped every 2 steps, then rerun on its frames
+        ba = os.path.join(work, "ba")
+        os.makedirs(ba)
+        fluid_script_case(ba, n_side=BA_SIDE)
+        run_text = FLUID_SCRIPT.replace(
+            "run ${nstep}", BA_DUMP.format(every=BA_EVERY) + "run ${nstep}")
+        rr_text = FLUID_SCRIPT.replace("run ${nstep}", BA_RERUN)
+        for name, text in (("in.run", run_text), ("in.rerun", rr_text)):
+            with open(os.path.join(ba, name), "w") as fh:
+                fh.write(text)
+        logs = {}
+        scripts = {}
+        for name in ("in.run", "in.rerun"):
+            logs[name] = []
+            s = LammpsScript(dtype=torch.float64, log=logs[name].append)
+            s.variables.update(prec="1e-11", nstep=str(BA_STEPS))
+            scripts[name] = s
+        run, rr = scripts["in.run"], scripts["in.rerun"]
+        run.file(os.path.join(ba, "in.run"))
+        if type(run._sim.runner).__name__ != "FastPolarRunner":
+            raise AssertionError("path BA: the run is off the panel engine")
+        frames = []
+        orig_run = LammpsScript._run
+
+        def counted(script, nsteps):
+            out = orig_run(script, nsteps)
+            if script is rr:
+                frames.append(read_counts())
+            return out
+
+        LammpsScript._run = counted
+        try:
+            reset_counts()
+            rr.file(os.path.join(ba, "in.rerun"))
+            launches["BA"] = read_counts()
+        finally:
+            LammpsScript._run = orig_run
+        steps = list(range(0, BA_STEPS + 1, BA_EVERY))
+        if [int(r["step"]) for r in rr.thermo_rows] != steps \
+                or len(frames) != len(steps):
+            raise AssertionError(f"path BA: rerun rows "
+                                 f"{[r['step'] for r in rr.thermo_rows]}")
+        prev = {k: 0 for k in ALL_KERNELS}
+        per_frame = []
+        for k, got in enumerate(frames):
+            delta = {name: got[name] - prev[name] for name in BA_PANEL}
+            if not all(delta.values()):
+                raise AssertionError(f"path BA frame {k}: a panel kernel "
+                                     f"did not launch: {delta}")
+            per_frame.append(delta)
+            prev = got
+        check_counts("BA", launches["BA"], {
+            name: launches["BA"][name] for name in BA_PANEL})
+        if type(rr._sim.runner).__name__ != "FastPolarRunner":
+            raise AssertionError("path BA: the rerun is off the panel engine")
+        byrow = {int(r["step"]): r for r in run.thermo_rows}
+        worst = rows_agree("BA", rr.thermo_rows,
+                           [byrow[s] for s in steps], [BA_REL] * len(steps),
+                           BA_COLS)
+        tm = np.array(rr.rerun_timings)
+        print(f"path BA: {run._sim.natoms} atoms, float64, precision "
+              f"1e-11, FastPolarRunner fused; the run's {BA_STEPS} steps "
+              f"dumped every {BA_EVERY} (%.17g), then `{BA_RERUN}`: "
+              f"{len(steps)} frames, each rebuilding the Simulation and "
+              f"evaluating `run 0`; the rerun rows' {', '.join(BA_COLS)} "
+              f"at {worst:.3g} of rel {BA_REL:g} of max(1, |value|) of the "
+              f"run's rows at the same steps")
+        for k, (d, (b, e)) in enumerate(zip(per_frame, tm)):
+            print(f"  BA| frame {k} (step {steps[k]}): rebuild {b:.1f} ms, "
+                  f"evaluation {e:.1f} ms; launches {d}")
+        print(f"path BA: ms a frame {tm.sum(1).mean():.1f} (rebuild "
+              f"{tm[:, 0].mean():.1f} = {100 * tm[:, 0].sum() / tm.sum():.1f}"
+              f"%, evaluation {tm[:, 1].mean():.1f}); the run's "
+              f"{next(w for w in logs['in.run'] if w.startswith('Loop'))}; "
+              f"{smi_line()}")
+        del run, rr, scripts
+        torch.cuda.empty_cache()
+
+        # BA-1k: the same at 1,029 atoms on the dense route, run and rerun
+        # in one script, against its CPU twin
+        d = os.path.join(work, "ba-1k")
+        os.makedirs(d)
+        fluid_script_case(d, n_side=BA_TWIN_SIDE)
+        text = FLUID_SCRIPT.replace(
+            "run ${nstep}", BA_DUMP.format(every=BA_EVERY)
+            + "run ${nstep}\nundump d\n" + BA_RERUN)
+        with open(os.path.join(d, "in.ba"), "w") as fh:
+            fh.write(text)
+        s = LammpsScript(dtype=torch.float64, log=lambda line: None)
+        s.variables.update(nstep=str(BA_STEPS))
+        fast = os.environ.pop("LIDP_FAST_POLAR", None)
+        reset_counts()
+        try:
+            s.file(os.path.join(d, "in.ba"))
+        finally:
+            if fast is not None:
+                os.environ["LIDP_FAST_POLAR"] = fast
+        check_counts("BA-1k", read_counts(), {})
+        rows = s.thermo_rows
+        if len(rows) != BA_STEPS + 1 + len(steps):
+            raise AssertionError(f"path BA-1k: {len(rows)} rows")
+        worst = rows_agree("BA-1k", rows[BA_STEPS + 1:],
+                           rows[:BA_STEPS + 1:BA_EVERY],
+                           [BA_REL] * len(steps), BA_COLS)
+        print(f"path BA-1k: {s._sim.natoms} atoms, float64, the dense "
+              f"route; {BA_STEPS} steps then the rerun of {len(steps)} "
+              f"frames, at {worst:.3g} of BA's bar")
+        defer_twin("BA-1k", d, "in.ba", BA_STEPS,
+                   twin_check("BA-1k", run_state(s), G64_COLS),
+                   threads=4, cost=60.0)
+        del s
+        torch.cuda.empty_cache()
+
+        # BB: in.lj with the output stack, float32 on the cell grid
+        bb = os.path.join(work, "bb")
+        os.makedirs(bb)
+        with open(os.path.join(bb, "in.bb"), "w") as fh:
+            fh.write(bb_text(BB_SCALE, BB_STEPS, BB_EVERY, BB_DCD, BB_IMAGE,
+                             BB_THERMO))
+        log = []
+        s = LammpsScript(dtype=torch.float32, log=log.append)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        with TimedWriters() as tw:
+            s.file(os.path.join(bb, "in.bb"))
+        launches["BB"] = read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        sim = s._sim
+        route = script_route(s)
+        print(f"path BB: bench/in.lj with pair/local, property/local and "
+              f"dump local every {BB_EVERY}, dump xyz and cfg every "
+              f"{BB_EVERY}, dcd every {BB_DCD}, one image frame, fix "
+              f"store/state dumped every {BB_EVERY}, fix controller 10 on "
+              f"c_tt into v_tcv; {sim.natoms} atoms, float32, {route}")
+        lj = launches["BB"]["cell_pair_forces_lj"]
+        if not (lj >= BB_STEPS + 1 and "cell_pair_forces_lj" in route):
+            raise AssertionError(f"path BB launches {launches['BB']}")
+        check_counts("BB", launches["BB"], {"cell_pair_forces_lj": lj})
+        rows = s.thermo_rows
+        check_rows_finite("BB", rows, BB_COLS)
+        for r in rows[::5]:
+            print(f"  BB| step {r['step']}: " + ", ".join(
+                f"{c} {r[c]:.8g}" for c in BB_COLS))
+        if [r["step"] for r in rows] != list(range(0, BB_STEPS + 1,
+                                                   BB_THERMO)) \
+                or rows[-1]["v_tcv"] == 0.0:
+            raise AssertionError("path BB: the rows or the controller")
+        # the eng column's sum against the float32 run's own E_pair: the
+        # run sums in float32
+        bb_checks("BB", bb, s, BB_STEPS, BB_EVERY, BB_DCD, 0, 1e-4)
+        script_peak("BB", log, BB_STEPS, peak)
+        for k, (dev_ms, fmt_ms, nrows) in enumerate(s.dumps["loc"].timings):
+            print(f"  BB| local frame {k}: {nrows} rows, device {dev_ms:.1f}"
+                  f" ms (the rows formed and read), formatting {fmt_ms:.1f}"
+                  f" ms")
+        print("path BB frames by dump (host clock, ms each): " + "; ".join(
+            f"{did} " + ", ".join(f"{t:.1f}" for t in ms)
+            for did, ms in tw.ms.items()))
+        del s, sim
+        torch.cuda.empty_cache()
+
+        # BB-5k: the same stack at 5,324 atoms, float64 (the cell grid, the
+        # plain cell pass), against its CPU twin, files included
+        d = os.path.join(work, "bb-5k")
+        os.makedirs(d)
+        with open(os.path.join(d, "in.bb"), "w") as fh:
+            fh.write(bb_text(BB_TWIN_SCALE, BB_TWIN_STEPS, BB_TWIN_EVERY,
+                             BB_TWIN_EVERY, BB_IMAGE, 10))
+        s = LammpsScript(dtype=torch.float64, log=lambda line: None)
+        reset_counts()
+        s.file(os.path.join(d, "in.bb"))
+        check_counts("BB-5k", read_counts(), {})
+        check_rows_finite("BB-5k", s.thermo_rows, BB_COLS)
+        bb_checks("BB-5k", d, s, BB_TWIN_STEPS, BB_TWIN_EVERY,
+                  BB_TWIN_EVERY, 0, 1e-9)
+        mine = {}
+        for name in ("bb.local", "bb.xyz", "bb.cfg", "bb.dcd"):
+            with open(os.path.join(d, name),
+                      "rb" if name.endswith(".dcd") else "r") as fh:
+                mine[name] = fh.read()
+        rows_check = twin_check("BB-5k", run_state(s), BB_COLS)
+        files_check = twin_files("BB-5k", mine)
+
+        def bb_twin(twin, _rows=rows_check, _files=files_check):
+            _rows(twin)
+            _files(str(twin["root"]))
+
+        defer_twin("BB-5k", d, "in.bb", BB_TWIN_STEPS, bb_twin, threads=4,
+                   cost=60.0)
+        del s
+        torch.cuda.empty_cache()
+
+        # BC: fix external through the library, float32 on the cell grid
+        bc = os.path.join(work, "bc")
+        os.makedirs(bc)
+        got = {}
+        for mode in ("plain", "callback", "spring", "array", "addforce"):
+            logp = os.path.join(bc, f"log.{mode}")
+            reset_counts()
+            rows, calls, L = external_case(lj_scaled(LJ_SCRIPT, BC_SCALE),
+                                           BC_STEPS, mode,
+                                           log=logp)
+            launches["BC" if mode == "callback" else f"BC-{mode}"] = \
+                read_counts()
+            route = script_route(L.lmp)
+            L.close()
+            with open(logp) as fh:
+                rate = BC_STEPS / loop_seconds(fh.read().splitlines(),
+                                               BC_STEPS)
+            got[mode] = (rows, calls, rate, route)
+            del L
+            torch.cuda.empty_cache()
+        for mode in ("plain", "callback", "spring", "array", "addforce"):
+            lj = launches["BC" if mode == "callback"
+                          else f"BC-{mode}"]["cell_pair_forces_lj"]
+            if lj < BC_STEPS + 1:
+                raise AssertionError(f"path BC {mode}: the LJ kernel "
+                                     f"launched {lj} times")
+        launches_bc = launches["BC"]
+        check_counts("BC", launches_bc, {
+            "cell_pair_forces_lj": launches_bc["cell_pair_forces_lj"]})
+        calls = got["callback"][1]
+        fired = sorted({s for s, _ in calls})
+        moved = all(not np.array_equal(a, b) for (sa, a), (sb, b) in
+                    zip(calls, calls[1:]) if sa != sb)
+        if fired != list(range(BC_STEPS + 1)) or not moved:
+            raise AssertionError(f"path BC: the callback fired on {fired}")
+        cols = ("temp", "epair", "emol", "etotal", "press")
+        w1 = rows_agree("BC", got["callback"][0], got["spring"][0],
+                        [BC_REL] * len(got["spring"][0]), cols)
+        w2 = rows_agree("BC-array", got["array"][0], got["addforce"][0],
+                        [BC_REL] * len(got["addforce"][0]), cols)
+        print(f"path BC: bench/in.lj through lidp_tpu_torch.api.lammps, "
+              f"float32, {got['callback'][3]}; fix external pf/callback 1 1"
+              f" with a numpy callback -{BC_K:g} minimum-image(x - x0): "
+              f"{len(calls)} calls on steps 0-{BC_STEPS} (each step once, "
+              f"the chunk's re-tally again), the positions changing "
+              f"between calls; rows at {w1:.3g} of rel {BC_REL:g} of "
+              f"max(1, |value|) of fix spring/self {BC_K:g}'s; pf/array "
+              f"with the uniform {BC_FORCE} at {w2:.3g} of fix addforce's")
+        print("path BC steps/s by the Loop time line over "
+              f"{BC_STEPS} steps: " + ", ".join(
+                  f"{m} {got[m][2]:.4f}" for m in got)
+              + f"; the callback's host round trip "
+              f"{1e3 / got['callback'][2] - 1e3 / got['plain'][2]:.3f} ms a "
+              f"step over the plain run; {smi_line()}")
+        print(f"steps_per_s_BC {got['callback'][2]:.4f} (Loop time; plain "
+              f"in.lj {got['plain'][2]:.4f})")
+
+        # BC-5k: the callback run at 5,324 atoms, float64 (the cell grid),
+        # against its CPU twin through the library
+        d = os.path.join(work, "bc-5k")
+        os.makedirs(d)
+        text = lj_scaled(LJ_SCRIPT, BC_TWIN_SCALE)
+        with open(os.path.join(d, "in.bc"), "w") as fh:
+            fh.write(text)
+        reset_counts()
+        rows, calls, L = external_case(text, BC_STEPS, "callback",
+                                       dtype=torch.float64)
+        check_counts("BC-5k", read_counts(), {})
+        steps_5k = [s for s, _ in calls]
+        if sorted(set(steps_5k)) != list(range(BC_STEPS + 1)):
+            raise AssertionError(f"path BC-5k: the callback fired on "
+                                 f"{steps_5k}")
+        check = twin_check("BC-5k", run_state(L.lmp), cols)
+
+        def bc_twin(twin, _check=check, _steps=steps_5k):
+            _check(twin)
+            if twin["calls"].tolist() != _steps:
+                raise AssertionError("path BC-5k: the callback's steps "
+                                     f"{twin['calls'].tolist()} vs {_steps}")
+            print(f"path BC-5k: the twin's callback fired on the same "
+                  f"{len(_steps)} steps")
+
+        defer_twin("BC-5k", d, "in.bc", BC_STEPS, bc_twin, threads=4,
+                   cost=40.0, code=EXTERNAL_TWIN)
+        L.close()
+        del L
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -10542,6 +11318,7 @@ def main() -> int:
     charmm_family_paths(launches, reset_counts, read_counts)
     chunk_structure_paths(launches, reset_counts, read_counts)
     granular_paths(launches, reset_counts, read_counts)
+    output_paths(launches, reset_counts, read_counts)
     run_twins()
 
     # 6. results

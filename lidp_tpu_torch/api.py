@@ -9,8 +9,8 @@ slice come back as vectors, temp/chunk without values as a scalar (the
 JAX package's extract_compute reads them from the thermo row, and no
 */chunk array or per-atom column).  A
 `lammps` runs on the GPU unless device="cpu" is given, and raises without
-one.  fix external is not ported, so set_fix_external_callback and
-fix_external_set_force raise.
+one.  set_fix_external_callback and fix_external_set_force feed fix
+external (styles/fix_modifiers.py build_external).
 """
 
 from __future__ import annotations
@@ -20,8 +20,6 @@ import torch
 
 __version__ = 20260816   # date-coded like lammps_version (library.cpp)
 
-_EXTERNAL = ("fix external is not ported (ROADMAP queue 1 item 6.1, the "
-             "modifier fixes; its library callbacks item 6.18)")
 
 
 class lammps:
@@ -104,13 +102,30 @@ class lammps:
         """lammps_get_natoms (python/lammps.py:237)."""
         return 0 if self.lmp.x is None else int(self.lmp.x.shape[0])
 
+    def _external(self, fix_id: str):
+        spec = self.lmp.fixes.get(fix_id)
+        if spec is None or spec.style != "external":
+            raise ValueError(f"Fix {fix_id} is not a fix external")
+        return spec
+
     def set_fix_external_callback(self, fix_id: str, func, caller=None):
-        """lammps_set_fix_external_callback: fix external is not ported."""
-        raise NotImplementedError(_EXTERNAL)
+        """lammps_set_fix_external_callback (library.cpp): the force
+        provider of `fix ID group external pf/callback Ncall Napply`,
+        func(caller, step, nlocal, ids, x, fexternal), which fills
+        fexternal (nlocal, 3) in place; called on the Ncall grid at the
+        run's setup and on its steps, with that step's positions.  The
+        Simulation is rebuilt at the next run."""
+        spec = self._external(fix_id)
+        spec._callback = func
+        spec._caller = caller
+        self.lmp._invalidate()
 
     def fix_external_set_force(self, fix_id: str, f):
-        """FixExternal::set_force: fix external is not ported."""
-        raise NotImplementedError(_EXTERNAL)
+        """FixExternal::set_force analog: the (natoms, 3) per-atom forces
+        of a `fix external pf/array` fix, from the next run on."""
+        spec = self._external(fix_id)
+        spec._fexternal = np.asarray(f, float)
+        self.lmp._invalidate()
 
     def get_thermo(self, name: str) -> float:
         """A thermo keyword's value on the current state (lammps_get_thermo;

@@ -166,13 +166,14 @@ class _Block:
 
 
 def _pair_rows(sim, extra_cut=None, rows=None, cols=None, specials=True,
-               lengths=None, x=None):
+               lengths=None, x=None, cutsq=None):
     """Yield _Blocks over row blocks: the pairs (i, j), i in `rows` (an
     index tensor; all real atoms by default) and j among the real atoms
     (`cols`, a bool mask, all by default), j != i, inside the pair's
-    force cutoff (or extra_cut, every type).  With the force cutoff and
-    `specials`, the special pairs of weight 0 in both factors are left out
-    as the reference's neighbor list leaves them, and fl, fc are the
+    force cutoff (or extra_cut, every type; or the (T+1, T+1) table cutsq
+    in its place).  With the force cutoff or cutsq and `specials`, the
+    special pairs of weight 0 in both factors are left out as the
+    reference's neighbor list leaves them, and fl, fc are the
     pairs' special factors.  d = x_i - x_j minimum-imaged over `lengths`
     (the periodic dimensions' by default), x the positions (the run's by
     default), all in float64.  The candidates are each row's cell and its
@@ -192,8 +193,10 @@ def _pair_rows(sim, extra_cut=None, rows=None, cols=None, specials=True,
         spl, spc = pair.special_lj, pair.special_coul
     if rows is None:
         rows = torch.arange(n, device=x.device)
+    if cutsq is None:
+        cutsq = pair.cutsq
     cut = extra_cut if extra_cut is not None else float(
-        torch.sqrt(pair.cutsq.double().max()))
+        torch.sqrt(cutsq.double().max()))
     cand = None
     if lengths is None or all(sys.box.periodic):
         cand = _cell_candidates(x, sys.box, cut)
@@ -218,7 +221,7 @@ def _pair_rows(sim, extra_cut=None, rows=None, cols=None, specials=True,
         if extra_cut is not None:
             sel = rsq < extra_cut * extra_cut
         else:
-            sel = rsq < pair.cutsq[ty[ri][:, None], ty[cj]]
+            sel = rsq < cutsq[ty[ri][:, None], ty[cj]]
         sel &= valid & (cj != ri[:, None])
         if cols is not None:
             sel &= cols[cj]
@@ -832,9 +835,10 @@ def _atom_fields(sim):
 
 def peratom_column(sim, tok):
     """A per-atom input token (x/y/z, vx.., fx.., q, type, mol, mass, id,
-    c_ID[/col], f_ID[/col] of fix ave/atom) as an (N,) float64 tensor: the
-    input grammar of compute reduce, fix ave/atom and fix ave/histo
-    (lidp_tpu/computes.py peratom_column).  A fix ave/atom that has
+    c_ID[/col], f_ID[/col] of fix ave/atom and store/state) as an (N,)
+    float64 tensor: the input grammar of compute reduce, fix ave/atom,
+    fix ave/histo and fix store/state (lidp_tpu/computes.py
+    peratom_column).  A fix ave/atom that has
     averaged nothing yet gives zeros."""
     n = sim.natoms
     if tok.startswith(("c_", "f_")):
@@ -850,11 +854,12 @@ def peratom_column(sim, tok):
             arr = eval_peratom(sim, name)
         else:
             spec = sim.script.fixes.get(name)
-            if spec is None or spec.style != "ave/atom":
+            if spec is None or spec.style not in ("ave/atom",
+                                                  "store/state"):
                 raise NotImplementedError(
-                    f"per-atom input {tok}: only fix ave/atom's are ported "
-                    "(fix store/state and store/force: ROADMAP queue 1 "
-                    "items 6.16 and 6.1)")
+                    f"per-atom input {tok}: only fix ave/atom's and "
+                    "store/state's are ported (fix store/force: ROADMAP "
+                    "queue 1 item 6.1)")
             arr = getattr(spec, "_peratom_store", None)
             if arr is None:
                 arr = torch.zeros(n, dtype=torch.float64,

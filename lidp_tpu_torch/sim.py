@@ -981,8 +981,12 @@ class Simulation:
         def ref(a):
             return torch.as_tensor(np.asarray(a, np.float64), device=dev)
 
+        from lidp_tpu_torch.io.dump import LOCAL_STYLES
+
         for cid, spec_c in script.computes.items():
             gname, style = spec_c[0], spec_c[1]
+            if style in LOCAL_STYLES:
+                continue        # evaluated at dump local's frames
             gm = script.groups[gname].copy()
             if style in ("temp", "temp/partial", "temp/com"):
                 gmask = groups[gname]
@@ -1207,14 +1211,30 @@ class Simulation:
             for c, v in zip(cols, vals)))
 
     def _dump(self):
-        from lidp_tpu_torch.io.dump import write_dump_frame
+        """The dump frames of this step, in declaration order (the JAX
+        package's sim.py:3682-3731): dcd, local, image and movie, cfg,
+        else custom, atom and xyz."""
+        from lidp_tpu_torch.io import dump as dump_mod
 
         step = int(self.sys.step)
         for d in self.script.dumps.values():
-            if d.every and step % d.every == 0:
-                write_dump_frame(d, self.sys, self.script,
-                                 self.script.groups[d.group],
-                                 f=None if self.res is None else self.res.f)
+            if not d.every or step % d.every:
+                continue
+            gmask = self.script.groups[d.group]
+            if d.style == "dcd":
+                dump_mod.write_dcd_frame(d, self.sys, self.script, gmask)
+            elif d.style == "local":
+                dump_mod.write_local_frame(d, self, self.script)
+            elif d.style == "image":
+                dump_mod.write_image_frame(d, self.sys, self.script, gmask)
+            elif d.style == "movie":
+                dump_mod.write_movie_frame(d, self.sys, self.script, gmask)
+            elif d.style == "cfg":
+                dump_mod.write_cfg_frame(d, self.sys, self.script, gmask)
+            else:
+                dump_mod.write_dump_frame(
+                    d, self.sys, self.script, gmask,
+                    f=None if self.res is None else self.res.f)
 
     # -------------------------------- run --------------------------------
 
@@ -1331,6 +1351,12 @@ class Simulation:
                 computes.eval_chunk_agg(self, cid)
         self.script.log(" ".join(
             self._HEADER.get(c, c) for c in self.script.thermo_columns))
+        # fix store/state's setup snapshot, before the setup row and dump
+        # frames that read it (FixStoreState::end_of_setup semantics)
+        for spec in fixes:
+            if spec.style == "store/state" and getattr(
+                    spec, "_peratom_store", None) is None:
+                fix_output.store_state(self, spec, int(self.sys.step))
         self._emit()
         self._dump()
         # FixAveTime::setup -> end_of_step fires at the setup step when

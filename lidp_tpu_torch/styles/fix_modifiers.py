@@ -3,7 +3,8 @@ appends its hooks to the FixBuildCtx sinks.
   * post_force, fn(sys, f) -> (f, virial6), with the same hook for the
     setup pass unless noted: the constraint fixes shake and rattle (their
     setup variant takes dtfsq/2; rattle's velocity stage goes to
-    ctx.rattle_params), setforce, enforce2d, langevin, addforce, aveforce,
+    ctx.rattle_params), setforce, enforce2d, langevin, addforce, external
+    (the library caller's forces), aveforce,
     spring/self, viscous, efield, spring (tether and couple), planeforce,
     lineforce, the flat walls wall/lj93, wall/lj126, wall/lj1043 and
     wall/harmonic, wall/region and indent;
@@ -223,6 +224,64 @@ def build_addforce(ctx, spec):
                 f_.new_zeros(6))
 
     _post_force(ctx, addforce)
+
+
+@fix_style("external")
+def build_external(ctx, spec):
+    """fix ID group external pf/callback Ncall Napply | pf/array Napply
+    (fix_external.cpp; the JAX package's build_external): per-atom forces
+    from the library's caller, added to the group's forces.  pf/callback
+    calls the callback registered by api.lammps.set_fix_external_callback,
+    func(caller, step, nlocal, ids, x, fexternal), with that step's
+    positions on the steps of the Ncall grid (at setup and inside the
+    run), and adds the forces it filled on the Napply grid; they persist
+    between calls.  That is one host round trip a call, and none on the
+    other steps.  pf/array, and pf/callback with no callback registered,
+    add every step the array fix_external_set_force gave (zeros without
+    one)."""
+    mode = spec.args[0] if spec.args else None
+    if mode not in ("pf/callback", "pf/array"):
+        raise ValueError(f"Illegal fix external command: {mode}")
+    _nargs(spec, 3 if mode == "pf/callback" else 2)
+    g = _group(ctx, spec)[:, None]
+    fext = getattr(spec, "_fexternal", None)
+    cb = getattr(spec, "_callback", None)
+    n = ctx.n
+
+    def dev(a):
+        return torch.as_tensor(ctx.padA(np.asarray(a, float), 0.0),
+                               dtype=ctx.dtype, device=ctx.device)
+
+    fe0 = dev(np.zeros((n, 3)) if fext is None else fext)
+    if mode == "pf/array" and int(spec.args[1]) != 1:
+        raise NotImplementedError(
+            "fix external pf/array with Napply != 1: the JAX package adds "
+            "the array every step (ROADMAP queue 3 item 48)")
+    if mode == "pf/array" or cb is None:
+        def external(sys_, f_):
+            return (f_ + torch.where(g & sys_.mask[:, None], fe0, 0.0),
+                    f_.new_zeros(6))
+
+        _post_force(ctx, external)
+        return
+    ncall, napply = int(spec.args[1]), int(spec.args[2])
+    caller = getattr(spec, "_caller", None)
+    ids = np.arange(1, n + 1)
+    state = {"fe": fe0}
+
+    def external_cb(sys_, f_):
+        step = int(sys_.step)
+        if step % ncall == 0:
+            fe = np.zeros((n, 3))
+            cb(caller, step, n, ids, sys_.x[:n].double().cpu().numpy(), fe)
+            state["fe"] = dev(fe)
+            spec._fexternal = fe
+        if step % napply:
+            return f_, f_.new_zeros(6)
+        return (f_ + torch.where(g & sys_.mask[:, None], state["fe"], 0.0),
+                f_.new_zeros(6))
+
+    _post_force(ctx, external_cb)
 
 
 @fix_style("aveforce")

@@ -1,9 +1,9 @@
 """The output fixes (lidp_tpu/sim.py _host_fixes, _fix_vector_sample,
 _ave_time, _ave_histo, _histo_emit, _ave_correlate, _ave_chunk,
 _global_array, eval_slice): fix print, ave/time, ave/atom, ave/histo,
-ave/histo/weight, ave/correlate, vector and ave/chunk, sampled on the host
-at run-chunk boundaries (their periods fold into the chunk gcd,
-Simulation.run).
+ave/histo/weight, ave/correlate, vector, ave/chunk, store/state and
+controller, sampled on the host at run-chunk boundaries (their periods
+fold into the chunk gcd, Simulation.run).
 
 Each keeps its buffers and its file on its FixSpec, so that they carry
 over a second `run` as the reference's fix objects do, and writes its file
@@ -28,7 +28,8 @@ from lidp_tpu_torch import computes
 
 # the output fix styles, which have no builder (styles/__init__.py)
 OUTPUT_STYLES = ("print", "ave/time", "ave/atom", "ave/histo",
-                 "ave/histo/weight", "ave/correlate", "vector", "ave/chunk")
+                 "ave/histo/weight", "ave/correlate", "vector", "ave/chunk",
+                 "store/state", "controller")
 _SKIPPED = "ROADMAP queue 3 item 25, keywords JAX skips"
 _NO_VALUE = "ROADMAP queue 3 item 26, values JAX's thermo row lacks"
 # fix ave/chunk's per-atom values (fix_ave_chunk.cpp as the JAX package
@@ -207,6 +208,12 @@ def check_spec(script, spec):
             raise ValueError(f"fix ave/chunk: chunk/atom compute {ccid} "
                              "does not exist")
         return
+    if st == "store/state":
+        check_store_state(script, a)
+        return
+    if st == "controller":
+        check_controller(script, a)
+        return
     if st == "ave/atom":
         for t in a[3:]:
             if t.startswith("v_"):
@@ -257,6 +264,10 @@ def host_fixes(sim, step):
             ave_time(sim, spec, step)
         elif st == "ave/chunk":
             ave_chunk(sim, spec, step)
+        elif st == "store/state":
+            store_state(sim, spec, step)
+        elif st == "controller":
+            controller(sim, spec, step)
 
 
 def _write(sim, spec, fpath, text):
@@ -608,9 +619,123 @@ def chunk_periods(script):
     (Simulation.run's chunk gcd)."""
     out = []
     for spec in script.fixes.values():
+        if spec.style == "store/state" and int(spec.args[0]) == 0:
+            # a snapshot at setup alone: no period (the JAX package folds
+            # in 1, a sample every step that takes nothing)
+            continue
         if spec.style in OUTPUT_STYLES:
             out.append(max(1, int(spec.args[0])))
         if spec.style == "ave/chunk":
             out.append(max(1, int(spec.args[2])))
     return out
 
+
+# fix store/state's per-atom inputs besides c_ID and f_ID (the JAX
+# package's peratom_column)
+STORE_STATE_FIELDS = ("x", "y", "z", "vx", "vy", "vz", "fx", "fy", "fz", "q",
+                      "type", "mol", "mass", "id")
+
+
+def check_store_state(script, a):
+    """fix store/state N input... (fix_store_state.cpp as the JAX package
+    takes it): per-atom inputs, no keywords."""
+    if len(a) < 2 or int(a[0]) < 0:
+        raise ValueError("Illegal fix store/state command")
+    for t in a[1:]:
+        if t in ("com", "keep"):
+            raise NotImplementedError(
+                f"fix store/state keyword {t}: the JAX package does not take "
+                f"it ({_SKIPPED})")
+        if t.startswith("v_"):
+            raise NotImplementedError(
+                f"fix store/state input {t}: atom-style variables are not "
+                "ported (ROADMAP queue 1 item 6, breadth)")
+        if t.startswith("c_"):
+            if t[2:].split("[")[0] not in script.computes:
+                raise ValueError(f"fix store/state: compute {t[2:]} does not "
+                                 "exist")
+        elif t.startswith("f_"):
+            name = t[2:].split("[")[0]
+            if script.fixes.get(name, None) is None or script.fixes[
+                    name].style not in ("ave/atom", "store/state"):
+                raise NotImplementedError(
+                    f"fix store/state input {t}: only fix ave/atom's and "
+                    "store/state's per-atom values are ported (ROADMAP queue "
+                    "1 item 6.1)")
+        elif t not in STORE_STATE_FIELDS:
+            raise ValueError(f"fix store/state input {t}")
+
+
+def store_state(sim, spec, step):
+    """fix store/state N input... (fix_store_state.cpp): the inputs'
+    per-atom values (computes.peratom_column) stored at the run's setup
+    and every N steps (N = 0: at setup alone), read as f_ID and f_ID[i] by
+    dump custom and the per-atom inputs."""
+    nev = int(spec.args[0])
+    if getattr(spec, "_peratom_store", None) is not None and (
+            not nev or step % nev):
+        return
+    cols = [computes.peratom_column(sim, t).clone() for t in spec.args[1:]]
+    spec._peratom_store = (cols[0] if len(cols) == 1
+                           else torch.stack(cols, dim=1))
+    sim.bump_generation()
+
+
+def check_controller(script, a):
+    """fix controller Nevery alpha Kp Ki Kd pvar setpoint cvar
+    (fix_controller.cpp): pvar a global compute c_ID[/i] or an
+    equal-style v_NAME, cvar an internal-style variable."""
+    if len(a) != 8:
+        raise ValueError("Illegal fix controller command")
+    if int(a[0]) <= 0:
+        raise ValueError("Illegal fix controller command: Nevery <= 0")
+    pvar, cvar = a[5], a[7]
+    if pvar.startswith("c_"):
+        if pvar[2:].split("[")[0] not in script.computes:
+            raise ValueError(f"fix controller: compute {pvar[2:]} does not "
+                             "exist")
+    elif pvar.startswith("f_"):
+        raise NotImplementedError(
+            f"fix controller pvar {pvar}: JAX's thermo row has no fix's "
+            f"value ({_NO_VALUE})")
+    elif not pvar.startswith("v_"):
+        raise ValueError(f"Illegal fix controller command: pvar {pvar}")
+    if cvar not in script._internal_vars:
+        raise ValueError(f"Fix controller variable {cvar} is not "
+                         "internal-style")
+
+
+def controller(sim, spec, step):
+    """fix controller (fix_controller.cpp end_of_step, the JAX package's
+    _host_fixes): every Nevery steps the PID update
+    cv += -alpha (Kp tau err + Ki tau^2 sumerr + Kd deltaerr), tau =
+    Nevery dt, of the internal variable cvar from the process variable's
+    error against the setpoint; the first sample takes no derivative."""
+    a = spec.args
+    nev = int(a[0])
+    if step % nev:
+        return
+    alpha, kp, ki, kd = (float(v) for v in a[1:5])
+    pvar, setpt, cvar = a[5], float(a[6]), a[7]
+    if pvar.startswith("v_"):
+        cur = float(sim.script.var_value(pvar[2:]))
+    else:
+        cur = _row_value(sim, pvar, "controller")
+    st = getattr(spec, "_ctrl", None)
+    if st is None:
+        st = {"control": float(sim.script.var_value(cvar)), "sumerr": 0.0,
+              "olderr": 0.0, "first": True}
+        spec._ctrl = st
+    err = cur - setpt
+    if st["first"]:
+        st["first"] = False
+        deltaerr = 0.0
+    else:
+        deltaerr = err - st["olderr"]
+        st["sumerr"] += err
+    tau = nev * sim.script.dt
+    st["control"] += -kp * alpha * tau * err
+    st["control"] += -ki * alpha * tau * tau * st["sumerr"]
+    st["control"] += -kd * alpha * deltaerr
+    st["olderr"] = err
+    sim.script._internal_vars[cvar] = float(st["control"])

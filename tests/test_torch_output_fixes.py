@@ -19,8 +19,8 @@ columns, api.py) against the JAX package, float64 on the CPU:
   * what the port does not take raises NotImplementedError naming its
     ROADMAP item: the compute styles and fixes of later slices, the
     keywords JAX's output fixes skip unread, the values JAX's thermo row
-    lacks (f_ID), the other dump styles and columns, fix external's
-    library calls.
+    lacks (f_ID), the other dump columns, the library calls on a fix that
+    is not fix external.
 """
 
 import numpy as np
@@ -230,9 +230,11 @@ def test_api_surface(tmp_path):
     L.scatter_atoms("x", x + 0.01)
     assert np.allclose(L.extract_atom("x"), x + 0.01)
     assert L.extract_atom("f").shape == (108, 3)
-    with pytest.raises(NotImplementedError, match="item 6.1"):
+    # fix external is ported (tests/test_torch_external.py): fix 1 is not
+    # one
+    with pytest.raises(ValueError, match="not a fix external"):
         L.set_fix_external_callback("1", lambda *a: None)
-    with pytest.raises(NotImplementedError, match="item 6.1"):
+    with pytest.raises(ValueError, match="not a fix external"):
         L.fix_external_set_force("1", np.zeros((108, 3)))
     P = tapi.PyLammps(device="cpu")
     for line in BASE.splitlines():
@@ -246,15 +248,11 @@ def test_api_surface(tmp_path):
 
 
 UNPORTED = {
-    "compute pl all pair/local dist": "item 6.15",
     "compute td all temp/deform": "item 6.1",
     "compute m2 all msd com yes": "queue 3 item 25",
     "compute r2 all rdf 50 1 1": "queue 3 item 25",
     "compute p2 all pressure tt ke": "queue 3 item 25",
     "compute_modify tt extra/dof 2": "queue 3 item 25",
-    "fix s all store/state 0 x": "item 6.16",
-    "fix c all controller 1 1 1 1 1 temp 1.0 v": "item 6.16",
-    "fix e all external pf/callback 1 1": "item 6.1",
     "fix a all ave/time 1 1 1 c_tt ave running": "queue 3 item 25",
     "fix a all ave/time 1 1 1 c_tt start 10": "queue 3 item 25",
     "fix a all ave/time 1 1 1 c_tt format %g": "queue 3 item 25",
@@ -267,8 +265,6 @@ UNPORTED = {
     "fix a all ave/correlate 1 2 2 c_tt type cross": "queue 3 item 25",
     'fix p all print 1 "x" screen no': "queue 3 item 25",
     "thermo_style custom step f_x": "queue 3 item 26",
-    "dump d all xyz 1 d.xyz": "item 6.17",
-    "dump d all local 1 d.loc index": "item 6.15",
     "dump d all custom 1 d.out id v_x": "item 6",
 }
 
@@ -280,21 +276,38 @@ UNPORTED = {
 REPOINTED = {
     "compute ch all chunk/atom molecule": (
         "compute ch all chunk/atom molecule nchunk once", "queue 3 item 25"),
-    "compute cc all com/chunk cid": ("compute cc all bond/local dist",
-                                     "item 6.15"),
+    "compute cc all com/chunk cid": (
+        "compute cc all property/local patom1 cutoff type",
+        "queue 3 item 25"),
     "compute cn all centro/atom fcc": ("compute cn all contact/atom 2.0",
                                        "queue 3 item 25"),
     # the sphere computes are ported (tests/test_torch_gran_script.py): a
     # keyword the JAX package does not read still raises
     "compute es all erotate/sphere": ("compute es all temp/sphere bias tt",
                                       "queue 3 item 25"),
-    "compute hf all heat/flux ka pa sa": ("compute hf all rigid/local 1 id",
-                                          "item 6.15"),
+    "compute hf all heat/flux ka pa sa": (
+        "compute hf all angle/local theta set theta t", "queue 3 item 25"),
     "fix ac all ave/chunk 1 1 1 cid vx": (
         "fix ac all ave/chunk 1 1 1 cid vx norm sample", "queue 3 item 25"),
     "fix a all ave/time 1 1 1 c_tt mode vector": (
         "fix a all ave/time 1 1 1 c_tt mode vector ave running",
         "queue 3 item 25"),
+    # the local computes, dump local, store/state, controller, external
+    # and the other dump styles are ported
+    # (tests/test_torch_output_styles.py, tests/test_torch_external.py):
+    # a keyword or value the JAX package does not take still raises
+    "compute pl all pair/local dist": (
+        "compute pl all pair/local dist cutoff type", "queue 3 item 25"),
+    "fix s all store/state 0 x": ("fix s all store/state 0 x com yes",
+                                  "queue 3 item 25"),
+    "fix c all controller 1 1 1 1 1 temp 1.0 v": (
+        "fix c all controller 1 1 1 1 1 f_x 1.0 v", "queue 3 item 26"),
+    "fix e all external pf/callback 1 1": ("fix e all store/force",
+                                           "item 6.1"),
+    "dump d all xyz 1 d.xyz": (
+        "dump d all image 1 d.ppm type type shiny 0.5", "queue 3 item 25"),
+    "dump d all local 1 d.loc index": ("dump d all local 1 d.loc index v_x",
+                                       "queue 1 item 4"),
 }
 
 

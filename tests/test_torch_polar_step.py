@@ -303,7 +303,8 @@ def test_package_imports_no_jax():
         "for name in ('io', 'io.script', 'io.data_reader', 'io.data_writer',"
         " 'io.expr', 'io.dump', 'styles', 'styles.fix_integrators', 'sim',"
         " '__main__', 'ops.granular', 'integrate.gran_runner', 'pour',"
-        " 'styles.gran_builders'):\n"
+        " 'styles.gran_builders', 'styles.fix_output',"
+        " 'styles.fix_modifiers', 'api', 'computes'):\n"
         "    assert 'lidp_tpu_torch.' + name in sys.modules, name\n"
         "print(len([m for m in sys.modules if m.startswith('lidp_tpu_torch')]))\n")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,

@@ -258,11 +258,12 @@ def test_replicate_matches_jax(dirs):
 # (tests/test_torch_regions.py), the DREIDING hydrogen bonds
 # (tests/test_torch_hbond.py), and chunk/atom
 # (tests/test_torch_chunk_computes.py), pair gran/* (tests/
-# test_torch_gran_script.py): their keys keep the test names and hold a
-# style that still raises
+# test_torch_gran_script.py), the local computes
+# (tests/test_torch_output_styles.py): their keys keep the test names and
+# hold a style that still raises
 UNPORTED = {
     "region": "region s sphere 0 0 0 1 rotate v_a 0 0 0 0 0 1",
-    "compute": "compute c all pair/local dist",
+    "compute": "compute c all temp/deform",
     "minimize": "min_modify line backtrack",
     "fix nvt": "fix 2 all nvt/sllod temp 300 300 100",
     "pair_style lj/cut": "pair_style granular hooke 2000.0 50.0 tangential "

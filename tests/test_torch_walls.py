@@ -92,12 +92,14 @@ def _both(text):
 
 @pytest.fixture(scope="module")
 def bare():
-    return _both(BASE + RUN)[1]
+    """The bare base through both packages, once: the "bare" case's runs
+    and the reference the other cases part from."""
+    return _both(BASE + CASES["bare"] + RUN)
 
 
 @pytest.mark.parametrize("name", list(CASES))
 def test_wall_rows_match_jax(name, bare):
-    js, ts = _both(BASE + CASES[name] + RUN)
+    js, ts = bare if name == "bare" else _both(BASE + CASES[name] + RUN)
     trows, jrows = ts.thermo_rows, js.thermo_rows
     assert [r["step"] for r in trows] == [0, 5, 10, 15, 20]
     for tr, jr in zip(trows, jrows):
@@ -113,8 +115,9 @@ def test_wall_rows_match_jax(name, bare):
     if name == "bare":
         return
     # the fixes act: the run parts from the bare base's
-    assert abs(trows[-1]["etotal"] - bare.thermo_rows[-1]["etotal"]) > 1e-6 \
-        or np.abs(ts._sim.sys.x.numpy() - bare._sim.sys.x.numpy()).max() \
+    ref = bare[1]
+    assert abs(trows[-1]["etotal"] - ref.thermo_rows[-1]["etotal"]) > 1e-6 \
+        or np.abs(ts._sim.sys.x.numpy() - ref._sim.sys.x.numpy()).max() \
         > 1e-6
     z = ts._sim.sys.x.numpy()[:, 2]
     if name == "wall/reflect":
