@@ -642,23 +642,56 @@ Phases, each raising on failure:
      patom2) sequence, their values within rel 1e-9; xyz and cfg within
      1e-8 of the largest or one unit of the printed digit; dcd within
      that plus one float32 ulp) and BC-5k's callback steps equal;
- 20. the CPU twins (CPU_TWIN: the same script through the port on the CPU
+ 20. the rest of the modifier fixes and the integrators
+     (fix_breadth_paths), every launch counter 0 just before each path
+     and read just after:
+     BD. bench/in.lj (32,000 atoms, float32, the cell grid with
+        cell_pair_forces_lj) with fix nve/limit for 200 steps, then
+        nve/noforce for 20 (one integrator fix at a time: both packages
+        refuse two), under drag and spring/rg on a slab group, heat on
+        it and ehex on a region, temp/csvr, store/force read by compute
+        reduce max, a halt that is never met and dt/reset every 10
+        steps: the LJ kernel launched on every step, the rows and steps
+        counted, the gamma draws' tries printed;
+     BE. in.lj under fix deform x, y and z scale 1.05 remap x with
+        compute temp/deform in the row, and BE-ber under fix
+        press/berendsen iso: the LJ kernel on every step, BE's Lx at
+        the last row 1.05 times the lattice's within 1e-5, BE-ber's box
+        moved;
+     BF. the bead-spring chains (chain_script_case, 32,000 beads,
+        float32, the plain cell pass) under fix tmd to a seeded target
+        (tmd_target) with its statistics file, spring/chunk on molecule
+        chunks and restrain bond/angle/dihedral: no kernel, tmd.out's
+        rows counted;
+     BG. test_sphere_nh's eight spheres written 10^3 times over
+        (sphere_case, 8,000, float32, the LJ kernel) through nvt/sphere,
+        npt/sphere and nph/sphere, 50 steps each;
+     BH. a 32,000-atom fcc lattice under pair soft with fix adapt on a
+        ramp variable (float64, the plain cell pass);
+     each with its steps/s by the Loop time line and its peak memory;
+     and BD-5k, BE-5k, BE-ber-5k (in.lj at 0.55, 5,324 atoms on the
+     cell grid), BF-5k (54 chains, 5,400 beads), BG-1k (1,000 spheres,
+     the dense route) and BH-5k (the lattice at 0.55), float64 on the
+     card for 10 steps, against CPU twins: every row within rel 1e-9,
+     the final x, v and mu within 1e-8 of their largest entry;
+ 21. the CPU twins (CPU_TWIN: the same script through the port on the CPU
      in float64, in a process of its own; its rows, final state and each
      minimize's (E, iterations, converged)) of J, K, O, R, R-pppm, Q64, S,
      T, U64, V, W, X64, Y, Z, AA-100, AB (and AB's cg, sd, fire), AC, AD,
      AE-couette, AE-pois, AF, AG, AI, AI-f32 (AI's in float32, its
      setup state), AJ-AN, AO-8k, AQ, AR, AS-AV at 192 atoms (81
      waters), AW-5k, AX-5k, AW-f32, AX-f32, AY-2k, AY-nvt-2k,
-     AY-hooke-2k, AZ-2k, BA-1k, BB-5k and BC-5k, after every path on the
-     card, so that no timed path shares the host's cores with them
-     (run_twins: as many at once as the cores take, the longest first);
- 21. one JSON line {"kernels": [...]} with each of the ten kernels'
+     AY-hooke-2k, AZ-2k, BA-1k, BB-5k, BC-5k, BD-5k, BE-5k, BE-ber-5k,
+     BF-5k, BG-1k and BH-5k, after every path on the card, so that no
+     timed path shares the host's cores with them (run_twins: as many at
+     once as the cores take, the longest first);
+ 22. one JSON line {"kernels": [...]} with each of the ten kernels'
      launches (summed and by path, A-K, E-E4, L, L64, M, N, N-pol, O, R,
      R-pppm, Q, Q64, P, P100, S, T, U, U64, V, W, X, X64, Y, Z, AA, AB,
      AC, AD, AE, AF, AG, AH, AI, AJ, AK, AN, AL, AM, AO, AP, AQ, AR, AS,
-     AT, AU, AV, AW, AX, AY, AZ, BA, BB, BC and BC's plain, spring,
-     array and addforce runs), times, ms_queued and bound, then the
-     nvidia-smi line, then the device line last.
+     AT, AU, AV, AW, AX, AY, AZ, BA, BB, BC, BC's plain, spring, array
+     and addforce runs, BD, BE, BE-ber, BF, BG and BH), times, ms_queued
+     and bound, then the nvidia-smi line, then the device line last.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.
@@ -10483,6 +10516,387 @@ def output_paths(launches, reset_counts, read_counts):
         shutil.rmtree(work, ignore_errors=True)
 
 
+# phase 20: the rest of the modifier fixes and the integrator styles
+# (fix_breadth_paths).  BD: in.lj with nve/limit then nve/noforce and the
+# post_force, end_of_step and run-control fixes; BE: in.lj under fix
+# deform (with compute temp/deform) and then press/berendsen; BF: the
+# bead-spring chains with fix tmd, spring/chunk and restrain; BG:
+# test_sphere_nh's spheres replicated, nvt/sphere, npt/sphere, nph/sphere;
+# BH: a soft-sphere lattice under fix adapt.  Each at full size on the
+# card, and its twin size in float64 on the card against its CPU twin.
+BD_STEPS = 200                 # BD's first run, a row every 10
+BD_NOFORCE = 20                # its nve/noforce run
+BD_FIXES = """\
+region\t\tslab block INF 2 INF INF INF INF
+group\t\tcold region slab
+region\t\thot block 3 5 INF INF INF INF
+fix\t\t1 all nve/limit 0.05
+fix\t\t2 cold drag 0.0 0.0 0.0 0.5 2.0
+fix\t\t3 cold spring/rg 2.0 NULL
+fix\t\t4 cold heat 10 50.0
+fix\t\t5 all ehex 10 -50.0 region hot
+fix\t\t6 all temp/csvr 1.44 1.44 1.0 4928
+fix\t\t7 all store/force
+compute\t\tfmax all reduce max f_7[1] f_7[2] f_7[3]
+fix\t\t8 all halt 10 temp > 1000.0
+fix\t\t9 all dt/reset 10 NULL 0.005 0.05 units box
+thermo\t\t10
+thermo_style\tcustom step temp epair etotal press dt c_fmax[1] c_fmax[2] c_fmax[3]
+run\t\t${nstep}
+unfix\t\t1
+fix\t\t1 all nve/noforce
+run\t\t%d
+""" % BD_NOFORCE
+BD_COLS = ("temp", "epair", "etotal", "press", "dt", "c_fmax[1]",
+           "c_fmax[2]", "c_fmax[3]")
+BE_STEPS = 100
+BE_DEFORM = """\
+fix\t\t2 all deform 1 x scale 1.05 y scale 1.05 z scale 1.05 remap x
+compute\t\ttd all temp/deform
+thermo\t\t10
+thermo_style\tcustom step temp c_td epair press lx ly lz vol
+run\t\t${nstep}
+"""
+BE_BERENDSEN = """\
+fix\t\t2 all press/berendsen iso 0.0 0.0 10.0 modulus 50.0
+thermo\t\t10
+thermo_style\tcustom step temp epair press lx vol
+run\t\t${nstep}
+"""
+BE_COLS = ("temp", "epair", "press", "lx", "vol")
+BF_STEPS = 100
+BF_SCRIPT = """\
+units\t\tlj
+atom_style\tbond
+special_bonds\tfene
+read_data\tdata.chain
+neighbor\t0.4 bin
+neigh_modify\tevery 1 delay 1
+bond_style\tfene
+bond_coeff\t1 30.0 1.5 1.0 1.0
+pair_style\tlj/cut 1.12
+pair_modify\tshift yes
+pair_coeff\t1 1 1.0 1.0 1.12
+timestep\t0.005
+compute\t\tcm all chunk/atom molecule
+compute\t\tcomc all com/chunk cm
+fix\t\t1 all nve
+fix\t\t2 all spring/chunk 5.0 cm comc
+fix\t\t3 all restrain bond 1 50 10.0 20.0 1.5 angle 101 102 103 5.0 8.0 \
+100.0 dihedral 201 202 203 204 2.0 4.0 60.0
+fix\t\t4 all tmd 0.1 target.tmd 10 tmd.out
+thermo\t\t10
+thermo_style\tcustom step temp epair emol etotal press
+run\t\t${nstep}
+"""
+BF_COLS = ("temp", "epair", "emol", "etotal", "press")
+BF_TWIN_CHAINS = 54            # BF-5k: 5,400 beads (the cell grid)
+BG_STEPS = 50                  # each of BG's three runs
+BG_REPLICA = 10                # 8 x 10^3 = 8,000 spheres
+BG_TWIN_REPLICA = 5            # BG-1k: 1,000 (the dense route)
+BG_SCRIPT = """\
+units\t\tlj
+atom_style\tsphere
+boundary\tp p p
+read_data\tdata.sph
+pair_style\tlj/cut 2.5
+pair_coeff\t1 1 1.0 1.0
+neighbor\t0.3 bin
+thermo\t\t10
+thermo_style\tcustom step temp press vol
+fix\t\t1 all nvt/sphere temp 0.2 0.2 0.5
+run\t\t${nstep}
+unfix\t\t1
+fix\t\t1 all npt/sphere temp 1.0 1.0 0.5 iso 0.0003 0.0003 5.0
+run\t\t${nstep}
+unfix\t\t1
+fix\t\t1 all nph/sphere iso 0.0003 0.0003 5.0
+run\t\t${nstep}
+"""
+BG_COLS = ("temp", "press", "vol")
+BH_STEPS = 50
+BH_SCRIPT = """\
+variable\tx index 1
+variable\txx equal 20*$x
+units\t\tlj
+atom_style\tatomic
+lattice\t\tfcc 0.8442
+region\t\tbox block 0 ${xx} 0 ${xx} 0 ${xx}
+create_box\t1 box
+create_atoms\t1 box
+mass\t\t1 1.0
+velocity\tall create 1.0 4928 loop geom
+pair_style\tsoft 1.12246
+pair_coeff\t* * 0.0
+variable\tprefactor equal ramp(0.0,30.0)
+fix\t\t1 all nve
+fix\t\t2 all adapt 1 pair soft a * * v_prefactor
+thermo\t\t10
+thermo_style\tcustom step temp epair press v_prefactor
+run\t\t${nstep}
+"""
+BH_COLS = ("temp", "epair", "press", "v_prefactor")
+BREADTH_TWIN_STEPS = 10        # the twins' runs
+
+
+def sphere_case(directory, replica):
+    """tests/test_sphere_nh's eight spheres (its DATA's rows) replicated
+    replica^3 times in a box of replica x 10 a side, as data.sph."""
+    base = [(1.0, 1.0, 1.0), (6.0, 1.0, 1.0), (1.0, 6.0, 1.0),
+            (1.0, 1.0, 6.0), (6.0, 6.0, 1.0), (6.0, 1.0, 6.0),
+            (1.0, 6.0, 6.0), (6.0, 6.0, 6.0)]
+    vel = [(0.1, 0.0, 0.0, 0.0, 0.0, 0.1), (-0.1, 0.1, 0.0, 0.1, 0.0, 0.0),
+           (0.0, -0.1, 0.1, 0.0, 0.1, 0.0), (0.1, 0.0, -0.1, 0.0, 0.0, -0.1),
+           (-0.1, -0.1, 0.0, -0.1, 0.0, 0.0), (0.0, 0.1, 0.1, 0.0, -0.1, 0.0),
+           (0.1, 0.1, -0.1, 0.1, 0.1, 0.0), (-0.1, 0.0, 0.1, 0.0, 0.0, 0.1)]
+    atoms, vels = [], []
+    for iz in range(replica):
+        for iy in range(replica):
+            for ix in range(replica):
+                for (x, y, z), w in zip(base, vel):
+                    k = len(atoms) + 1
+                    atoms.append(f"{k} 1 2.0 1.2 {x + 10 * ix!r} "
+                                 f"{y + 10 * iy!r} {z + 10 * iz!r}")
+                    vels.append(f"{k} " + " ".join(repr(c) for c in w))
+    L = 10.0 * replica
+    lines = ["spheres", "", f"{len(atoms)} atoms", "1 atom types", ""]
+    lines += [f"0 {L!r} {a}lo {a}hi" for a in "xyz"]
+    lines += ["", "Atoms", ""] + atoms + ["", "Velocities", ""] + vels
+    with open(os.path.join(directory, "data.sph"), "w") as fh:
+        fh.write("\n".join(lines) + "\n")
+
+
+def tmd_target(directory, seed=11):
+    """fix tmd's target for data.chain: each bead's position jittered by
+    up to +-0.3 sigma from the seed, as target.tmd (id x y z)."""
+    import numpy as np
+
+    with open(os.path.join(directory, "data.chain")) as fh:
+        lines = fh.read().splitlines()
+    i = lines.index("Atoms # bond") + 2
+    rows = []
+    while lines[i].strip():
+        w = lines[i].split()
+        rows.append((int(w[0]), float(w[3]), float(w[4]), float(w[5])))
+        i += 1
+    x = np.array([r[1:] for r in rows])
+    x = x + np.random.default_rng(seed).uniform(-0.3, 0.3, x.shape)
+    with open(os.path.join(directory, "target.tmd"), "w") as fh:
+        for (k, *_), p in zip(rows, x):
+            fh.write(f"{k} {float(p[0])!r} {float(p[1])!r} "
+                     f"{float(p[2])!r}\n")
+
+
+def breadth_case(path, work, name, text, dtype, steps):
+    """`text` through LammpsScript on the card in `dtype` with
+    ${nstep} = steps: (script, log lines, peak memory); prints the route
+    and the log."""
+    import torch
+
+    from lidp_tpu_torch.io.script import LammpsScript
+
+    with open(os.path.join(work, name), "w") as fh:
+        fh.write(text)
+    logs = []
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    script = LammpsScript(dtype=dtype, log=logs.append)
+    script.variables["nstep"] = str(steps)
+    script.file(os.path.join(work, name))
+    peak = torch.cuda.max_memory_allocated()
+    print(f"path {path}: {script._sim.natoms} atoms, {dtype}, "
+          f"{script_route(script)}; its log:")
+    for line in logs:
+        print(f"  {path}| {line}")
+    return script, logs, peak
+
+
+def breadth_twin(path, work, name, text, cols, threads, cost,
+                 reset_counts, read_counts):
+    """Path's twin size: `text` in float64 on the card for
+    BREADTH_TWIN_STEPS (the plain routes: no kernel launches), its rows
+    finite, and its CPU twin deferred (rows within rel 1e-9, the final x
+    and v within 1e-8)."""
+    import torch
+
+    reset_counts()
+    s, _, _ = breadth_case(path, work, name, text, torch.float64,
+                           BREADTH_TWIN_STEPS)
+    check_counts(path, read_counts(), {})
+    check_rows_finite(path, s.thermo_rows, cols)
+    defer_twin(path, work, name, BREADTH_TWIN_STEPS,
+               twin_check(path, run_state(s), cols), threads=threads,
+               cost=cost)
+    del s
+    torch.cuda.empty_cache()
+
+
+def lj_breadth(scale, tail):
+    """in.lj at `scale` with its fix nve and run replaced by `tail`."""
+    text = lj_scaled(LJ_SCRIPT, scale)
+    return text[:text.index("fix\t\t1 all nve")] + tail
+
+
+def fix_breadth_paths(launches, reset_counts, read_counts):
+    """Paths BD-BH and their twins BD-5k, BE-5k, BE-ber-5k, BF-5k, BG-1k
+    and BH-5k (module docstring)."""
+    import torch
+
+    from lidp_tpu_torch import threefry
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_breadth_")
+    try:
+        # BD: in.lj, float32, the LJ kernel, every modifier on top
+        bd = os.path.join(work, "bd")
+        os.makedirs(bd)
+        tries = []
+        orig = threefry.gamma_draw
+
+        def counted(*a, **k):
+            out = orig(*a, **k)
+            tries.append(out[1])
+            return out
+
+        threefry.gamma_draw = counted
+        try:
+            reset_counts()
+            s, log, peak = breadth_case("BD", bd, "in.bd",
+                                        lj_breadth("1", BD_FIXES),
+                                        torch.float32, BD_STEPS)
+            launches["BD"] = read_counts()
+        finally:
+            threefry.gamma_draw = orig
+        lj = launches["BD"]["cell_pair_forces_lj"]
+        check_counts("BD", launches["BD"], {"cell_pair_forces_lj": lj})
+        rows = s.thermo_rows
+        nrows = BD_STEPS // 10 + 1 + BD_NOFORCE // 10 + 1
+        if lj < BD_STEPS + BD_NOFORCE + 2 or len(rows) != nrows \
+                or int(s.step) != BD_STEPS + BD_NOFORCE:
+            raise AssertionError(f"path BD: {len(rows)} rows to step "
+                                 f"{s.step}, launches {launches['BD']}")
+        check_rows_finite("BD", rows, BD_COLS)
+        print(f"path BD: temp/csvr's gamma draws {len(tries)}, their tries "
+              f"{sum(tries)} (at most {max(tries)} in one draw); dt "
+              f"{rows[0]['dt']:.6g} at step 0, {rows[-1]['dt']:.6g} at the "
+              f"end; halt (temp > 1000) never met")
+        script_peak("BD", log, BD_STEPS, peak)
+        del s
+        torch.cuda.empty_cache()
+        breadth_twin("BD-5k", bd, "in.bd-5k",
+                     lj_breadth(BB_TWIN_SCALE, BD_FIXES), BD_COLS, 4, 60.0,
+                     reset_counts, read_counts)
+
+        # BE: in.lj under fix deform, then under press/berendsen
+        be = os.path.join(work, "be")
+        os.makedirs(be)
+        for tag, tail in (("BE", BE_DEFORM), ("BE-ber", BE_BERENDSEN)):
+            reset_counts()
+            s, log, peak = breadth_case(
+                tag, be, f"in.{tag}", lj_breadth(
+                    "1", "fix\t\t1 all nve\n" + tail), torch.float32,
+                BE_STEPS)
+            launches[tag] = read_counts()
+            lj = launches[tag]["cell_pair_forces_lj"]
+            check_counts(tag, launches[tag], {"cell_pair_forces_lj": lj})
+            rows = s.thermo_rows
+            check_rows_finite(tag, rows, BE_COLS)
+            L0 = (4 / 0.8442) ** (1 / 3) * 20
+            if lj < BE_STEPS + 1 or len(rows) != BE_STEPS // 10 + 1:
+                raise AssertionError(f"path {tag}: launches {lj}, "
+                                     f"{len(rows)} rows")
+            if tag == "BE":
+                check_rel("BE lx at the last row", rows[-1]["lx"],
+                          1.05 * L0, 1e-5)
+                print(f"path BE: temp/deform {rows[-1]['c_td']:.6g} against "
+                      f"temp {rows[-1]['temp']:.6g} at the last row")
+            elif abs(rows[-1]["lx"] - L0) < 1e-6 * L0:
+                raise AssertionError("path BE-ber: the box did not move")
+            else:
+                print(f"path BE-ber: lx {rows[0]['lx']:.6g} -> "
+                      f"{rows[-1]['lx']:.6g}, press {rows[0]['press']:.4g}"
+                      f" -> {rows[-1]['press']:.4g}")
+            script_peak(tag, log, BE_STEPS, peak)
+            del s
+            torch.cuda.empty_cache()
+            breadth_twin(f"{tag}-5k", be, f"in.{tag}-5k", lj_breadth(
+                BB_TWIN_SCALE, "fix\t\t1 all nve\n" + tail), BE_COLS, 2,
+                40.0, reset_counts, read_counts)
+
+        # BF: the chains with tmd, spring/chunk and restrain
+        for tag, chains in (("BF", 320), ("BF-5k", BF_TWIN_CHAINS)):
+            d = os.path.join(work, tag.lower())
+            os.makedirs(d)
+            chain_script_case(d, n_chains=chains, n_beads=100)
+            tmd_target(d)
+            if tag == "BF":
+                reset_counts()
+                s, log, peak = breadth_case("BF", d, "in.bf", BF_SCRIPT,
+                                            torch.float32, BF_STEPS)
+                launches["BF"] = read_counts()
+                check_counts("BF", launches["BF"], {})
+                check_rows_finite("BF", s.thermo_rows, BF_COLS)
+                with open(os.path.join(d, "tmd.out")) as fh:
+                    stat = fh.read().splitlines()
+                if len(stat) != BF_STEPS // 10 + 1:
+                    raise AssertionError(f"path BF: tmd.out {stat}")
+                print(f"path BF: tmd.out's last row: {stat[-1]}")
+                script_peak("BF", log, BF_STEPS, peak)
+                del s
+                torch.cuda.empty_cache()
+            else:
+                breadth_twin(tag, d, "in.bf", BF_SCRIPT, BF_COLS, 2, 40.0,
+                             reset_counts, read_counts)
+
+        # BG: the point spheres, three Nose-Hoover styles
+        for tag, rep in (("BG", BG_REPLICA), ("BG-1k", BG_TWIN_REPLICA)):
+            d = os.path.join(work, tag.lower())
+            os.makedirs(d)
+            sphere_case(d, rep)
+            if tag == "BG":
+                reset_counts()
+                s, log, peak = breadth_case("BG", d, "in.bg", BG_SCRIPT,
+                                            torch.float32, BG_STEPS)
+                launches["BG"] = read_counts()
+                lj = launches["BG"]["cell_pair_forces_lj"]
+                check_counts("BG", launches["BG"],
+                             {"cell_pair_forces_lj": lj})
+                rows = s.thermo_rows
+                check_rows_finite("BG", rows, BG_COLS)
+                if lj < 3 * BG_STEPS + 1 or len(rows) != 3 * (
+                        BG_STEPS // 10 + 1):
+                    raise AssertionError(f"path BG: launches {lj}, "
+                                         f"{len(rows)} rows")
+                print(f"path BG: vol {rows[0]['vol']:.8g} -> "
+                      f"{rows[-1]['vol']:.8g} over the three runs")
+                script_peak("BG", log, BG_STEPS, peak)
+                del s
+                torch.cuda.empty_cache()
+            else:
+                breadth_twin(tag, d, "in.bg", BG_SCRIPT, BG_COLS, 1, 20.0,
+                             reset_counts, read_counts)
+
+        # BH: the soft-sphere lattice under fix adapt, float64
+        bh = os.path.join(work, "bh")
+        os.makedirs(bh)
+        reset_counts()
+        s, log, peak = breadth_case("BH", bh, "in.bh", BH_SCRIPT,
+                                    torch.float64, BH_STEPS)
+        launches["BH"] = read_counts()
+        check_counts("BH", launches["BH"], {})
+        rows = s.thermo_rows
+        check_rows_finite("BH", rows, BH_COLS)
+        if rows[-1]["v_prefactor"] != 30.0 or not rows[-1]["epair"] > 0:
+            raise AssertionError(f"path BH: the last row {rows[-1]}")
+        script_peak("BH", log, BH_STEPS, peak)
+        del s
+        torch.cuda.empty_cache()
+        breadth_twin("BH-5k", bh, "in.bh-5k", BH_SCRIPT.replace(
+            "variable\tx index 1", f"variable\tx index {BB_TWIN_SCALE}"),
+            BH_COLS, 2, 40.0, reset_counts, read_counts)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -11319,6 +11733,7 @@ def main() -> int:
     chunk_structure_paths(launches, reset_counts, read_counts)
     granular_paths(launches, reset_counts, read_counts)
     output_paths(launches, reset_counts, read_counts)
+    fix_breadth_paths(launches, reset_counts, read_counts)
     run_twins()
 
     # 6. results

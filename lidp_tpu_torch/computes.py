@@ -854,13 +854,13 @@ def peratom_column(sim, tok):
             arr = eval_peratom(sim, name)
         else:
             spec = sim.script.fixes.get(name)
-            if spec is None or spec.style not in ("ave/atom",
-                                                  "store/state"):
-                raise NotImplementedError(
-                    f"per-atom input {tok}: only fix ave/atom's and "
-                    "store/state's are ported (fix store/force: ROADMAP "
-                    "queue 1 item 6.1)")
-            arr = getattr(spec, "_peratom_store", None)
+            if spec is None or spec.style not in ("ave/atom", "store/state",
+                                                  "store/force"):
+                raise KeyError(f"{tok}: not a fix with per-atom values")
+            if spec.style == "store/force":
+                arr = _stored_force(sim, spec)
+            else:
+                arr = getattr(spec, "_peratom_store", None)
             if arr is None:
                 arr = torch.zeros(n, dtype=torch.float64,
                                   device=sim.sys.x.device)
@@ -870,6 +870,29 @@ def peratom_column(sim, tok):
     if tok not in src:
         raise KeyError(f"per-atom input {tok}")
     return src[tok]
+
+
+def _stored_force(sim, spec):
+    """fix store/force's (N,3) float64 values (fix_store_force.cpp): the
+    force before any post_force fix changed it, evaluated again from the
+    current positions (the forces are a function of them), zero outside
+    the fix group, as the JAX package's peratom_column forms them; once
+    a state (peratom_cache), whatever columns read it."""
+    from lidp_tpu_torch.forcefield import compute_forces
+
+    cache = sim.peratom_cache()
+    key = ("store/force", spec.fid)
+    if key not in cache:
+        ff = getattr(sim.runner, "ff", None)
+        if ff is None:
+            raise NotImplementedError(
+                "fix store/force on the panel engine: the JAX package "
+                "evaluates the force field of its generic runner alone")
+        nlist = None if sim.nlist is None else sim.nlist.nlist
+        f = compute_forces(sim.sys, ff, nlist).f[:sim.natoms]
+        gm = torch.as_tensor(sim.script.groups[spec.group], device=f.device)
+        cache[key] = torch.where(gm[:, None], _f64(f), 0.0)
+    return cache[key]
 
 
 def eval_reduce(sim, cid):
@@ -950,9 +973,12 @@ def _bin_sums(ib, w, nbin):
 
 
 def temp_variant(sim, gmask, style, args):
-    """compute temp/ramp, temp/region and temp/profile as 0-d float64
-    tensors (compute_temp_ramp.cpp, compute_temp_region.cpp,
-    compute_temp_profile.cpp; lidp_tpu/sim.py _temp_variant)."""
+    """compute temp/ramp, temp/region, temp/profile and temp/deform as 0-d
+    float64 tensors (compute_temp_ramp.cpp, compute_temp_region.cpp,
+    compute_temp_profile.cpp, compute_temp_deform.cpp; lidp_tpu/sim.py
+    _temp_variant).  temp/deform's bias is the streaming velocity of the
+    box's deformation rate in this run (zero outside a deforming run):
+    h_rate lamda + h_ratelo on the orthogonal box."""
     n = sim.natoms
     tp = sim.thermo_params
     dim = tp.dim
@@ -971,6 +997,16 @@ def temp_variant(sim, gmask, style, args):
         clo, chi = float(args[4]) * s3[cdim], float(args[5]) * s3[cdim]
         frac = torch.clamp((x[:, cdim] - clo) / (chi - clo), 0.0, 1.0)
         v[:, vdim] -= vlo + frac * (vhi - vlo)
+        sel = gm
+        dof = dim * int(gm.sum()) - dim
+    elif style == "temp/deform":
+        box = sim.sys.box
+        lam = (x - _f64(box.lo)) * (1.0 / _f64(box.lengths))
+        hr = torch.as_tensor(sim.h_rate[:3], dtype=torch.float64,
+                             device=x.device)
+        hlo = torch.as_tensor(sim.h_ratelo, dtype=torch.float64,
+                              device=x.device)
+        v = v - (hr * lam + hlo)
         sel = gm
         dof = dim * int(gm.sum()) - dim
     elif style == "temp/region":

@@ -353,7 +353,7 @@ def tip4p_from_numpy(d: dict, device="cuda") -> TIP4PParams:
 
 def npt_state_from_numpy(state: dict, device="cuda") -> NPTState:
     """The port's NPTState from numpy copies of the JAX NPTState's fields
-    (rot_scale2, the /sphere styles', is not read), in the dtype of
+    (rot_scale2 too, which the /sphere styles read), in the dtype of
     omega."""
     from lidp_tpu_torch import resolve_device
 

@@ -32,6 +32,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+import numpy as np
 import torch
 
 from lidp_tpu_torch.ops.ewald import EwaldParams
@@ -70,6 +71,11 @@ class ForceField:
     # live box at each call (rescale_coeffs; the analog of
     # force->kspace->setup(), fix_nh.cpp:877)
     kspace_dynamic: bool = False
+    # fix adapt pair STYLE a * * v_RAMP (fix_adapt.cpp): the pair table's
+    # prefactor t1 follows the ramp (lo, hi) over the run's window
+    # (begin, end), which Simulation.run sets; None without the fix
+    adapt: Optional[tuple] = None
+    adapt_window: Optional[tuple] = None
     # the bonded terms: tuples of ops.bonded BondParams, AngleParams,
     # DihedralParams and ImproperParams, one per hybrid sub-style; () for
     # none
@@ -249,6 +255,9 @@ def compute_forces(sys, ff: ForceField, nlist=None,
     from lidp_tpu_torch.ops.bonded import special_correction_sparse
     from lidp_tpu_torch.ops.cell_kernels import cell_pair_forces_lj
     from lidp_tpu_torch.ops.pair import dsf_wolf_self_energy
+
+    if ff.adapt is not None:
+        ff = _adapted(sys, ff)
     from lidp_tpu_torch.ops.cells import Cells, cell_pair_forces
     from lidp_tpu_torch.ops.eam import eam_alloy_cell_forces, eam_cell_forces
 
@@ -363,6 +372,21 @@ def tip4p_term(sys, ff: ForceField, f, ecoul, virial):
         ff.pair.g_ewald, ff.qqrd2e, ff.pair.special_coul, ff.tip4p,
         mode="cut" if ff.tip4p_cut else "long")
     return f + redistribute(fcs, ff.tip4p), ecoul + ec4, virial + vc4
+
+
+def _adapted(sys, ff: ForceField) -> ForceField:
+    """fix adapt's ramped prefactor (the JAX package's forcefield.py
+    :190-198): every type pair's t1 becomes ramp_target(lo, hi, begin,
+    end, step) in the run's dtype, type 0's row and column zero."""
+    lo, hi = ff.adapt
+    b, e = ff.adapt_window
+    T = np.float32 if sys.x.dtype == torch.float32 else np.float64
+    delta = min(max(T(sys.step - b) / T(max(e - b, 1)), T(0.0)), T(1.0))
+    v = T(lo) + delta * (T(hi) - T(lo))
+    t1 = torch.full_like(ff.pair.lj1, float(v))
+    t1[0, :] = 0.0
+    t1[:, 0] = 0.0
+    return dataclasses.replace(ff, pair=dataclasses.replace(ff.pair, lj1=t1))
 
 
 def dense_forces(sys, ff: ForceField) -> ForceResult:

@@ -26,8 +26,13 @@ an iteration.  A shrink-wrapped box (`shrink`, a box.ShrinkSpec) is
 reset to the atoms' extent at setup and at every rebuild the schedule
 takes, before the grid is built (Domain::reset_box; the dense route
 rebuilds nothing, so there only setup resets it), as in the JAX package.
-Neighbour lists, fix deform, fix tmd and rRESPA are not ported; asking
-for them raises NotImplementedError.
+fix deform (`deform`, a DeformParams) moves the box at the end of each
+step, after final_integrate and before end_of_step (FixDeform::
+end_of_step), remapping x affinely under `remap x`; under `remap v` a
+rebuild's wrap gives each atom that crosses a periodic face the face's
+velocity (Domain::pbc).  fix tmd (`tmd_hook`) corrects x and v right after
+initial_integrate.  Neighbour lists and rRESPA are not ported; asking for
+them raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Callable, Optional
 
+import numpy as np
 import torch
 
 from lidp_tpu_torch import box as box_mod
@@ -165,6 +171,40 @@ def nvt_integrator(nvt_params) -> Integrator:
 
 
 @dataclasses.dataclass(frozen=True)
+class DeformParams:
+    """fix deform's schedule for one run (FixDeform::end_of_step,
+    fix_deform.cpp; the JAX package's DeformParams on an orthogonal box):
+    the faces go linearly from (lo0, hi0) at the window's start to (lo_t,
+    hi_t) at its end; h_rate, the (3,) rate of the box lengths, is set
+    under `remap v` alone."""
+
+    window: tuple              # (begin, end) steps of the run
+    lo0: torch.Tensor          # (3,)
+    hi0: torch.Tensor
+    lo_t: torch.Tensor
+    hi_t: torch.Tensor
+    h_rate: Optional[torch.Tensor] = None
+
+
+def apply_deform(sys, dp: DeformParams, remap: bool):
+    """The box of sys.step on the schedule, the positions remapped in
+    lamda when `remap` (remap x).  The fraction is formed in the run's
+    dtype, as the JAX package forms it."""
+    T = np.float32 if sys.x.dtype == torch.float32 else np.float64
+    w0, w1 = dp.window
+    delta = float(min(max(T(sys.step - w0) / T(max(w1 - w0, 1)), T(0.0)),
+                      T(1.0)))
+    old = sys.box
+    new = box_mod.Box(lo=dp.lo0 + delta * (dp.lo_t - dp.lo0),
+                      hi=dp.hi0 + delta * (dp.hi_t - dp.hi0),
+                      periodic=old.periodic)
+    if remap:
+        sys = sys.replace(x=new.lo + (sys.x - old.lo)
+                          * (new.lengths / old.lengths))
+    return sys.replace(box=new)
+
+
+@dataclasses.dataclass(frozen=True)
 class NeighborCarry:
     """Neighbor structure + rebuild-decision state (Neighbor::decide,
     neighbor.cpp:1923): positions at the last build and its step number
@@ -226,9 +266,14 @@ def _setup_forces(sys, ff, *, neighbor_cfg, post_force=None, shrink=None):
     return sys, res, nlist
 
 
-def _rebuild(sys, nc, neighbor_cfg, shrink=None):
+def _rebuild(sys, nc, neighbor_cfg, shrink=None, deform=None):
     sys = _shrink(sys, shrink)
     x, image = box_mod.wrap(sys.x, sys.box, sys.image)
+    if deform is not None and deform.h_rate is not None:
+        # fix deform remap v: an atom crossing the +hi (-lo) face loses
+        # (gains) the face's velocity, dv = d(image) h_rate (Domain::pbc)
+        sys = sys.replace(v=sys.v - (image - sys.image).to(x.dtype)
+                          * deform.h_rate)
     sys = sys.replace(x=x, image=image)
     new = _build_struct(sys, neighbor_cfg)
     # sticky overflow: a capacity overrun at ANY rebuild inside a run must
@@ -240,9 +285,13 @@ def _rebuild(sys, nc, neighbor_cfg, shrink=None):
 def _run_chunk(sys, res, nlist, istate, ff, iparams, *, nsteps, initial,
                final, neighbor_cfg, rebuild_every, post_force=None,
                end_of_step=None, every_step_ev=True, check=False, skin=0.0,
-               delay=0, post_integrate=None, shrink=None):
+               delay=0, post_integrate=None, shrink=None, deform=None,
+               deform_remap=True, tmd_hook=None):
     for _ in range(nsteps):
+        x_prev, image_prev = sys.x, sys.image
         sys, istate = initial(sys, res, iparams, istate)
+        if tmd_hook is not None:
+            sys = tmd_hook(x_prev, image_prev, sys, res)
         if post_integrate is not None:
             sys = post_integrate(sys)
         sys = sys.replace(step=sys.step + 1)
@@ -258,7 +307,8 @@ def _run_chunk(sys, res, nlist, istate, ff, iparams, *, nsteps, initial,
                 disp2 = torch.where(sys.mask, disp2, 0.0)
                 need = bool(torch.max(disp2) > (0.5 * skin) ** 2)
             if need:
-                sys, nlist = _rebuild(sys, nlist, neighbor_cfg, shrink)
+                sys, nlist = _rebuild(sys, nlist, neighbor_cfg, shrink,
+                                      deform)
 
         res = compute_forces(sys, ff, _nlist_of(nlist),
                              need_ev=every_step_ev)
@@ -266,6 +316,8 @@ def _run_chunk(sys, res, nlist, istate, ff, iparams, *, nsteps, initial,
             res = _apply_post_force(sys, res, post_force)
         sys = sys.replace(mu=res.mu)
         sys, istate = final(sys, res, iparams, istate)
+        if deform is not None:
+            sys = apply_deform(sys, deform, deform_remap)
         if end_of_step is not None:
             sys = end_of_step(sys, res)
     if not every_step_ev:
@@ -306,16 +358,13 @@ class Runner:
     # shrink-wrapped faces (a box.ShrinkSpec): reset at setup and at every
     # rebuild (Domain::reset_box, domain.cpp:358)
     shrink: Optional[Any] = None
-    # not ported: fix deform, fix tmd
-    deform: Optional[Any] = None
+    # fix deform's schedule of the run (a DeformParams; Simulation.run
+    # sets it per run) and its remap x (True) or not
+    deform: Optional[DeformParams] = None
+    deform_remap: bool = True
+    # fix tmd: (x_prev, image_prev, sys, res) -> sys after
+    # initial_integrate (styles/fix_modifiers.tmd_hook)
     tmd_hook: Optional[Callable] = None
-
-    def __post_init__(self):
-        for name in ("deform", "tmd_hook"):
-            if getattr(self, name) is not None:
-                raise NotImplementedError(
-                    f"Runner({name}=...) is not ported (ROADMAP queue 1 "
-                    f"item 6.1, the modifier fixes)")
 
     def setup(self, sys: System):
         """Initial force evaluation (Verlet::setup).  Returns (sys, res,
@@ -341,7 +390,9 @@ class Runner:
             rebuild_every=self.rebuild_every, post_force=self.post_force,
             end_of_step=self.end_of_step, every_step_ev=self.every_step_ev,
             check=self.check, skin=self.skin, delay=self.delay,
-            post_integrate=self.post_integrate, shrink=self.shrink)
+            post_integrate=self.post_integrate, shrink=self.shrink,
+            deform=self.deform, deform_remap=self.deform_remap,
+            tmd_hook=self.tmd_hook)
 
 
 class RespaRunner:

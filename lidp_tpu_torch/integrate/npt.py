@@ -24,8 +24,12 @@ k vectors from it.
 The chains, T, P and the barostat's rates are device tensors: a step reads
 nothing back to the host (each scalar operation is a launch of its own).
 The parameters are Python floats; the ramped targets (t_target, p_target)
-are substituted per step by driver.npt_integrator.  The /sphere styles,
-triclinic boxes and the deviatoric (sigma) terms are not ported.
+are substituted per step by driver.npt_integrator.  npt/sphere and
+nph/sphere off the granular route (fix_nh_sphere.cpp with central forces):
+the kinetic tensor adds the setup's rotational diagonal rot_ke30 times the
+cumulative square of the thermostat's scale (NPTState.rot_scale2), in the
+temperature and the pressure, as the JAX package tracks it.  Triclinic
+boxes and the deviatoric (sigma) terms are not ported.
 """
 
 from __future__ import annotations
@@ -67,13 +71,15 @@ class NPTParams:
     p_stop: Optional[tuple] = None
     ramp_begin: int = 0
     ramp_end: int = 0
+    # the /sphere styles: (3,) sum 0.4 m r^2 w_d^2 at setup, on the device
+    rot_ke30: Optional[torch.Tensor] = None
 
     @staticmethod
     def create(dt, ftm2v, mass_atom, t_target, t_period, p_target, p_period,
                *, natoms, dof, boltz, mvv2e, nktv2p, tchain=3, pchain=3,
                mtk=True, tstat=True, p_flag=(True, True, True), iso=True,
                t_stop=None, p_stop=None, dtype=torch.float64,
-               device="cuda"):
+               device="cuda", rot_ke30=None):
         device = resolve_device(device)
         p_target = tuple(float(v) for v in np.broadcast_to(
             np.asarray(p_target, float), (3,)))
@@ -95,7 +101,9 @@ class NPTParams:
             t_stop=float(t_target if t_stop is None else t_stop),
             p_stop=(p_target if p_stop is None else tuple(
                 float(v) for v in np.broadcast_to(
-                    np.asarray(p_stop, float), (3,)))))
+                    np.asarray(p_stop, float), (3,)))),
+            rot_ke30=(None if rot_ke30 is None else torch.as_tensor(
+                np.asarray(rot_ke30), dtype=dtype, device=device)))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -109,6 +117,9 @@ class NPTState:
     omega: torch.Tensor        # (3,)
     omega_dot: torch.Tensor    # (3,)
     mtk_term2: torch.Tensor    # () carried into nh_v_press
+    # the /sphere styles' cumulative thermostat scale^2 (1 and unread for
+    # point particles, as in the JAX package)
+    rot_scale2: Optional[torch.Tensor] = None
 
 
 def init_state(sys, f, p: NPTParams):
@@ -119,18 +130,22 @@ def init_state(sys, f, p: NPTParams):
     return sys, NPTState(
         eta=z(p.tchain), eta_dot=z(p.tchain + 1), eta_dotdot=z(p.tchain),
         etap=z(pc), etap_dot=z(pc + 1), etap_dotdot=z(pc),
-        omega=z(3), omega_dot=z(3), mtk_term2=sys.v.new_zeros(()))
+        omega=z(3), omega_dot=z(3), mtk_term2=sys.v.new_zeros(()),
+        rot_scale2=sys.v.new_ones(()))
 
 
 def _kt(p: NPTParams):
     return p.boltz * p.t_target
 
 
-def _ke_tensor(v, mask, p: NPTParams):
+def _ke_tensor(v, mask, p: NPTParams, st: NPTState):
     """Per-dim sum(m v_d^2) * mvv2e over real atoms (compute_temp
-    vector)."""
+    vector), plus the scale-tracked sphere rotational diagonal."""
     m = torch.where(mask, p.mass_atom, 0.0)
-    return p.mvv2e * torch.sum(m[:, None] * v * v, dim=0)
+    ke3 = p.mvv2e * torch.sum(m[:, None] * v * v, dim=0)
+    if p.rot_ke30 is not None:
+        ke3 = ke3 + p.rot_ke30 * st.rot_scale2
+    return ke3
 
 
 def _t_current(ke3, p: NPTParams):
@@ -189,6 +204,10 @@ def _nhc_temp(v, mask, t_current, st: NPTState, p: NPTParams):
 
     factor_eta = torch.exp(-dthalf * vel[0])
     v = v * torch.where(mask, factor_eta, 1.0)[:, None]
+    if p.rot_ke30 is not None:
+        # FixNHSphere::nh_v_temp scales omega by the same factor
+        st = dataclasses.replace(
+            st, rot_scale2=st.rot_scale2 * factor_eta * factor_eta)
     t_current = t_current * factor_eta * factor_eta
     kecurrent = p.dof * p.boltz * t_current
     dd[0] = (kecurrent - ke_target) / eta_mass[0]
@@ -300,11 +319,11 @@ def _dtfm(p: NPTParams):
 def initial_integrate(sys: System, res, p: NPTParams, st: NPTState):
     v, mask = sys.v, sys.mask
     st = _nhc_press(st, p)
-    ke3 = _ke_tensor(v, mask, p)
+    ke3 = _ke_tensor(v, mask, p, st)
     t_cur = _t_current(ke3, p)
     if p.tstat:
         v, t_cur, st = _nhc_temp(v, mask, t_cur, st, p)
-        ke3 = _ke_tensor(v, mask, p)
+        ke3 = _ke_tensor(v, mask, p, st)
     p_cur = _p_current(sys.box, res, ke3, p)
     st = _nh_omega_dot(t_cur, ke3, p_cur, _volume(sys.box), st, p)
     v = _nh_v_press(v, st, p)
@@ -323,7 +342,7 @@ def final_integrate(sys: System, res, p: NPTParams, st: NPTState):
     v = sys.v + _dtfm(p) * res.f
     v = torch.where(mask[:, None], v, 0.0)
     v = _nh_v_press(v, st, p)
-    ke3 = _ke_tensor(v, mask, p)
+    ke3 = _ke_tensor(v, mask, p, st)
     t_cur = _t_current(ke3, p)
     p_cur = _p_current(sys.box, res, ke3, p)
     st = _nh_omega_dot(t_cur, ke3, p_cur, _volume(sys.box), st, p)

@@ -15,14 +15,18 @@ the kinetic energy on the device and reads it once (two host reads a
 step), the chain advances on host scalars of the run's dtype, and the
 velocity scale multiplies the device tensor as a Python scalar.
 
-fix nvt/sllod (the streaming-velocity bias of a deforming box) and fix
-nvt/sphere (the rotational kinetic energy of finite-size spheres) are not
-ported: NVTParams.create takes neither.
+fix nvt/sphere off the granular route (fix_nh_sphere.cpp with central
+forces, which exert no torque): the chain's kinetic energy adds the
+rotational energy of the setup's omega, rot_ke20, times the cumulative
+square of the thermostat's scale (NVTState.rot_scale2, a host scalar), as
+the JAX package tracks it.  fix nvt/sllod (the streaming-velocity bias of
+a deforming triclinic box) is not ported (ROADMAP queue 1 item 6.4).
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -48,11 +52,14 @@ class NVTParams:
     boltz: float = 1.0
     mvv2e: float = 1.0
     t_chain: int = 3
+    # fix nvt/sphere: the setup's rotational KE sum 0.4 m r^2 w^2 (a host
+    # scalar of the run's dtype), None for point particles
+    rot_ke20: Optional[float] = None
 
     @staticmethod
     def create(dt, ftm2v, mass_atom, t_target, t_period, *, dof, boltz,
                mvv2e, t_chain=3, t_stop=None, dtype=torch.float64,
-               device="cuda"):
+               device="cuda", rot_ke20=None):
         device = resolve_device(device)
 
         def t(a):
@@ -63,7 +70,8 @@ class NVTParams:
             dtv=t(dt), dtf=t(0.5 * dt * ftm2v), mass_atom=t(mass_atom),
             dtq=S(0.5 * dt), t_target=S(t_target), t_freq=S(1.0 / t_period),
             t_stop=S(t_target if t_stop is None else t_stop),
-            dof=float(dof), boltz=boltz, mvv2e=mvv2e, t_chain=t_chain)
+            dof=float(dof), boltz=boltz, mvv2e=mvv2e, t_chain=t_chain,
+            rot_ke20=None if rot_ke20 is None else S(rot_ke20))
 
 
 def ramp_target(start, stop, begin: int, end: int, step: int):
@@ -79,6 +87,8 @@ def ramp_target(start, stop, begin: int, end: int, step: int):
 @dataclasses.dataclass(frozen=True)
 class NVTState:
     eta_dot: np.ndarray  # (chain,) host numpy array of the run's dtype
+    # nvt/sphere: the cumulative thermostat scale^2 (host scalar)
+    rot_scale2: Optional[float] = None
 
 
 def _ke2(sys, p):
@@ -121,8 +131,10 @@ def _nhc(eta_dot, ke2, p: NVTParams, step=None):
 
 
 def init_state(sys, f, p: NVTParams):
-    return sys, NVTState(eta_dot=np.zeros(p.t_chain,
-                                          chain_dtype(sys.x.dtype)))
+    dt = chain_dtype(sys.x.dtype)
+    return sys, NVTState(eta_dot=np.zeros(p.t_chain, dt),
+                         rot_scale2=(None if p.rot_ke20 is None
+                                     else dt(1.0)))
 
 
 def _minv(p):
@@ -137,8 +149,13 @@ def _chain(sys, p, st):
     final_integrate, as the JAX package does."""
     S = type(p.t_target)
     ke2 = S(_ke2(sys, p).item())
+    rs2 = st.rot_scale2
+    if p.rot_ke20 is not None:
+        ke2 = ke2 + p.rot_ke20 * rs2
     eta_dot, scale = _nhc(st.eta_dot, ke2, p, sys.step)
-    return NVTState(eta_dot=eta_dot), float(scale)
+    if rs2 is not None:
+        rs2 = rs2 * scale * scale
+    return NVTState(eta_dot=eta_dot, rot_scale2=rs2), float(scale)
 
 
 def initial_integrate(sys: System, f, p: NVTParams, st: NVTState):

@@ -154,11 +154,10 @@ def _peratom_column(script, c, n):
                 and name not in sim.chunk_computes:
             raise ValueError(f"dump column {c}: compute {name} is not a "
                              "per-atom compute")
-    elif script.fixes[name].style not in ("ave/atom", "store/state"):
-        raise NotImplementedError(
-            f"dump column {c}: only fix ave/atom's and store/state's "
-            "per-atom values are ported (fix store/force: ROADMAP queue 1 "
-            "item 6.1)")
+    elif script.fixes[name].style not in ("ave/atom", "store/state",
+                                          "store/force"):
+        raise ValueError(f"dump column {c}: fix {name} has no per-atom "
+                         "values")
     return computes.peratom_column(sim, c).cpu().numpy()[:n]
 
 

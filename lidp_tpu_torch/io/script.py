@@ -82,6 +82,8 @@ from lidp_tpu_torch.styles.pair_builders import HBOND_STYLES
 # bare-number detector for optional positional args (the pair_style
 # polarization grammar's optional cut_coul before keywords)
 _NUM_RE = re.compile(r"^[\d eE+\-*/().]+$")
+# an equal-style variable that is a ramp of two constants (fix adapt)
+_RAMP_RE = re.compile(r"^ramp\(\s*([0-9.eE+-]+)\s*,\s*([0-9.eE+-]+)\s*\)$")
 
 # where the commands, styles and keywords this interpreter lacks are queued
 _FRONT_END = "ROADMAP queue 1 item 4, the script front end"
@@ -186,7 +188,9 @@ def _read_pair_table(path: str, keyword: str):
     return r, e, f
 
 # fix styles with a builder (styles/fix_integrators.py, fix_modifiers.py)
-FIX_STYLES = ("nve", "nvt", "npt", "nph", "rigid", "rigid/nve", "rigid/nvt",
+FIX_STYLES = ("nve", "nve/limit", "nve/noforce", "nvt", "npt", "nph",
+              "nvt/sphere", "npt/sphere", "nph/sphere", "rigid",
+              "rigid/nve", "rigid/nvt",
               "rigid/npt", "rigid/nph", "rigid/small", "rigid/nve/small",
               "rigid/nvt/small", "rigid/npt/small", "rigid/nph/small",
               "shake", "rattle", "langevin", "setforce", "addforce",
@@ -195,24 +199,27 @@ FIX_STYLES = ("nve", "nvt", "npt", "nph", "rigid", "rigid/nve", "rigid/nvt",
               "temp/rescale", "temp/berendsen", "temp/csld", "enforce2d",
               "box/relax", "wall/reflect", "wall/lj93", "wall/lj126",
               "wall/lj1043", "wall/harmonic", "wall/region", "indent",
-              "move", "cmap", "external") + (
+              "move", "cmap", "external", "temp/csvr",
+              "press/berendsen", "deform", "tmd", "adapt", "drag",
+              "spring/rg", "spring/chunk", "restrain", "store/force",
+              "heat", "ehex", "halt", "dt/reset") + (
                   # the granular route's (sim.py _build_granular_sim)
-                  "gravity", "freeze", "nve/sphere", "nvt/sphere",
-                  "wall/gran", "wall/gran/region", "pour")
+                  "gravity", "freeze", "nve/sphere", "wall/gran",
+                  "wall/gran/region", "pour")
 # where the fix styles the port lacks are queued: the modifier fixes of
 # the JAX package's styles/fix_modifiers.py, and the others by their item
 _MODIFIERS = "ROADMAP queue 1 item 6.1, the modifier fixes"
 _FIX_ITEMS = {
-    "nvt/sllod": "ROADMAP queue 1 item 6.8, integrator keywords",
-    "npt/sphere": "ROADMAP queue 1 item 6.8, integrator keywords",
-    "nph/sphere": "ROADMAP queue 1 item 6.8, integrator keywords",
+    "nvt/sllod": _TRICLINIC,
+    "neb": "ROADMAP queue 1 item 6.12, replicas (the neb command)",
 }
 
 # the compute styles (computes.py and sim.py) and where the others are
 # queued
 COMPUTE_STYLES = (
     "temp", "temp/partial", "temp/com", "temp/ramp", "temp/region",
-    "temp/profile", "pe", "ke", "com", "gyration", "msd", "vacf", "rdf",
+    "temp/profile", "temp/deform", "pe", "ke", "com", "gyration", "msd",
+    "vacf", "rdf",
     "group/group", "pressure", "reduce", "reduce/region", "slice",
     "ke/rigid", "erotate/rigid", "ke/atom", "pe/atom", "stress/atom",
     "coord/atom", "cluster/atom", "displace/atom", "property/atom",
@@ -232,9 +239,6 @@ SPHERE_COMPUTES = ("erotate/sphere", "temp/sphere", "erotate/sphere/atom",
 _STRUCTURE_STYLES = ("centro/atom", "cna/atom", "orientorder/atom",
                      "hexorder/atom", "fragment/atom", "aggregate/atom",
                      "global/atom")
-_COMPUTE_ITEMS = {
-    "temp/deform": "ROADMAP queue 1 item 6.1, the modifier fixes (deform)",
-}
 # JAX's thermo row has no value for these (ROADMAP queue 3 item 26)
 _NO_VALUE = "ROADMAP queue 3 item 26, values JAX's thermo row lacks"
 _OUTPUT_FIXES = "ROADMAP queue 3 item 25, keywords JAX skips"
@@ -385,6 +389,8 @@ class LammpsScript:
         # {"side": in|out, "units": lattice|box}
         self.regions: dict[str, tuple] = {}
         self._region_kw: dict[str, dict] = {}
+        # equal-style ramp(lo,hi) variables by name (fix adapt)
+        self._ramp_vars: dict[str, tuple] = {}
         self.box_lo = None
         self.box_hi = None
         self.box_tilt = None
@@ -742,6 +748,14 @@ class LammpsScript:
                 expr = expr[1:-1]
             self._equal_exprs[name] = expr
             self.variables.pop(name, None)
+            m_ramp = _RAMP_RE.match(expr)
+            if m_ramp:
+                # a ramp(lo,hi) of constants: fix adapt's prefactor ramp
+                # reads its bounds (the JAX package's _ramp_vars)
+                self._ramp_vars[name] = (float(m_ramp.group(1)),
+                                         float(m_ramp.group(2)))
+            else:
+                self._ramp_vars.pop(name, None)
         elif style == "string":
             self.variables[name] = a[2]
         elif style == "internal":
@@ -2175,8 +2189,6 @@ class LammpsScript:
         the Simulation."""
         cid, group, style = a[0], a[1], a[2]
         if style not in COMPUTE_STYLES:
-            if style in _COMPUTE_ITEMS:
-                _unported(f"compute style {style}", _COMPUTE_ITEMS[style])
             raise ValueError(f"unsupported compute style {style}")
         if group not in self.groups:
             raise ValueError(f"compute {cid}: group {group} does not exist")
@@ -2249,7 +2261,11 @@ class LammpsScript:
                     raise ValueError(f"compute slice input {t}: no such "
                                      "compute")
                 fix_output.check_global(self, t, "compute slice")
-        elif style in ("temp/ramp", "temp/region", "temp/profile"):
+        elif style in ("temp/ramp", "temp/region", "temp/profile",
+                       "temp/deform"):
+            if style == "temp/deform" and args:
+                _unported(f"compute temp/deform keywords {' '.join(args)} "
+                          "(the JAX package reads none)", _OUTPUT_FIXES)
             spec = args
             if style == "temp/region" and args[0] not in self.regions:
                 raise ValueError(f"compute {cid}: region {args[0]} does not "
@@ -3051,6 +3067,11 @@ class _ExprCtx:
 
     @property
     def step(self):
+        # a thermo row being formed gives its own step (the JAX package's
+        # _ExprCtx.step): ramp() and the v_NAME columns inside a run
+        row = self.s._kw_row
+        if row is not None and "step" in row:
+            return int(row["step"])
         return int(self.s.step)
 
     @property

@@ -29,10 +29,13 @@ nve with dt 0, the atoms frozen, as in the JAX package) with its dof
 removal (FixRigid::dof, fix_rigid.cpp:1181; FixShake's constraints, which
 the thermostats' dof lose too), the modifier fixes' post_force and
 end_of_step hooks (rattle's velocity projection, the deferred temp/rescale
-and temp/berendsen on their group's dof), the group temperatures of `compute ID
-group temp`, in 2d (dimension 2) dim*N - dim dof and the pressure over the
-area, the thermo temperature of `thermo_modify temp` (that compute's group
-and dof for Temp, KE, TotEng and the pressure's kinetic part), and the
+and temp/berendsen on their group's dof), the fixes each run sets anew
+(deform's schedule, tmd's hook, adapt's and restrain's ramps) and those it
+tests at its chunks' boundaries (halt, dt/reset), the group
+temperatures of `compute ID group temp`, in 2d (dimension 2) dim*N - dim
+dof and the pressure over the area, the thermo temperature of
+`thermo_modify temp` (that compute's group and dof for Temp, KE, TotEng
+and the pressure's kinetic part), and the
 shrink-wrapped box of `boundary s` or `m` after create_box (a
 box.ShrinkSpec the Runner resets the box with at setup and, on the cell
 grid, at every rebuild; its static bins can then grow thinner than the
@@ -130,7 +133,8 @@ _KSPACE_ITEM = ("ROADMAP queue 1 item 6.5, the k-space: its other "
                 "compositions")
 # the fix styles that move the box (the JAX package's has_baro, less the
 # styles the port does not have)
-BAROSTATS = ("npt", "nph", "rigid/npt", "rigid/nph", "rigid/npt/small",
+BAROSTATS = ("npt", "nph", "npt/sphere", "nph/sphere", "press/berendsen",
+             "deform", "rigid/npt", "rigid/nph", "rigid/npt/small",
              "rigid/nph/small")
 
 # the JAX package's warning for the dense route above the cap
@@ -463,30 +467,23 @@ def _compose_pi(hooks):
 def _check_not_granular(script, name):
     """What the granular route alone takes raises on the others: its fix
     styles and sphere computes (the JAX package refuses those fixes and
-    prints no value for those computes there), fix nvt/sphere (the JAX
-    package's point-particle form), sphere data (its per-atom masses) and
-    neigh_modify exclude group (which the JAX package drops there)."""
+    prints no value for those computes there) and neigh_modify exclude
+    group (which the JAX package drops there).  Sphere data runs on the
+    other routes with its per-atom masses, as in the JAX package (the
+    point-sphere nvt/sphere, npt/sphere and nph/sphere read its radius
+    and omega)."""
     for spec in script.fixes.values():
         if spec.style in GRAN_FIXES:
             raise NotImplementedError(
                 f"fix style {spec.style} with pair_style {name}: it runs "
                 "with a pair gran/* style alone (the JAX package's "
                 "granular route)")
-        if spec.style == "nvt/sphere":
-            raise NotImplementedError(
-                f"fix nvt/sphere with pair_style {name} is not ported "
-                "(ROADMAP queue 1 item 6.8, integrator keywords)")
     for cid, spec_c in script.computes.items():
         if spec_c[1] in SPHERE_COMPUTES:
             raise NotImplementedError(
                 f"compute {cid} {spec_c[1]} with pair_style {name}: the JAX "
                 "package reads it on the granular route alone (ROADMAP "
                 "queue 3 item 26, values JAX's thermo row lacks)")
-    if script.rmass is not None:
-        raise NotImplementedError(
-            f"atom_style sphere with pair_style {name}: the per-atom masses "
-            "are ported on the granular route alone (ROADMAP queue 1 item "
-            "6, breadth)")
     if script.neigh_exclude_group is not None:
         raise NotImplementedError(
             f"neigh_modify exclude group with pair_style {name}: the JAX "
@@ -514,6 +511,87 @@ def shrink_spec(script):
                       small=tuple(float(v) for v in 1.0e-4 * (c_hi - c_lo)),
                       min_lo=tuple(float(v) for v in c_lo),
                       min_hi=tuple(float(v) for v in c_hi))
+
+
+def deform_config(script, spec) -> dict:
+    """fix deform N x|y|z final lo hi | delta dlo dhi | scale f | vel v |
+    erate r | trate r ... [remap x|v|none] [units box|lattice] on an
+    orthogonal box (fix_deform.cpp; the JAX package's sim.py:2175-2247):
+    {"dims": {d: (style, values)}, "remap": remap x, "vremap": remap v};
+    final, delta and vel take the lattice spacing unless units box.  A
+    tilt factor needs a triclinic box and raises (ROADMAP queue 1 item
+    6.4)."""
+    a = list(spec.args[1:])
+    cfg = dict(dims={}, remap=True, vremap=False)
+    s3 = np.asarray(script._spacing3(), float)
+    if "units" in a and a[a.index("units") + 1] == "box":
+        s3 = np.ones(3)
+    i = 0
+    while i < len(a):
+        k = a[i]
+        if k in ("x", "y", "z"):
+            d = "xyz".index(k)
+            st = a[i + 1]
+            if st in ("final", "delta"):
+                cfg["dims"][d] = (st, float(a[i + 2]) * s3[d],
+                                  float(a[i + 3]) * s3[d])
+                i += 4
+            elif st in ("scale", "vel", "erate", "trate"):
+                # vel has distance/time units, erate and trate are rates
+                cfg["dims"][d] = (st, float(a[i + 2])
+                                  * (s3[d] if st == "vel" else 1.0))
+                i += 3
+            else:
+                raise NotImplementedError(
+                    f"fix deform {k} {st}: the JAX package runs final, "
+                    "delta, scale, vel, erate and trate alone (ROADMAP queue "
+                    "3 item 11)")
+        elif k in ("xy", "xz", "yz"):
+            raise NotImplementedError(
+                f"fix deform {k}: a tilt factor needs a triclinic box "
+                "(ROADMAP queue 1 item 6.4, triclinic boxes)")
+        elif k == "remap":
+            if a[i + 1] not in ("x", "v", "none"):
+                raise ValueError(f"Illegal fix deform remap {a[i + 1]}")
+            cfg["remap"] = a[i + 1] == "x"
+            cfg["vremap"] = a[i + 1] == "v"
+            i += 2
+        elif k == "units":
+            if a[i + 1] not in ("box", "lattice"):
+                raise ValueError(f"Illegal fix deform units {a[i + 1]}")
+            i += 2
+        else:
+            raise NotImplementedError(
+                f"fix deform keyword {k} is not ported (the JAX package "
+                "refuses it: ROADMAP queue 3 item 11)")
+    return cfg
+
+
+def deform_targets(cfg, lo0, hi0, delt):
+    """The faces (lo_t, hi_t) at the end of a run of duration delt from
+    (lo0, hi0) (the JAX package's sim.py:3427-3452): scale and trate hold
+    the centre, vel and erate grow both faces by half."""
+    lo_t, hi_t = lo0.copy(), hi0.copy()
+    for d, sp in cfg["dims"].items():
+        L = hi0[d] - lo0[d]
+        c = 0.5 * (lo0[d] + hi0[d])
+        if sp[0] == "final":
+            lo_t[d], hi_t[d] = sp[1], sp[2]
+        elif sp[0] == "delta":
+            lo_t[d], hi_t[d] = lo0[d] + sp[1], hi0[d] + sp[2]
+        elif sp[0] == "vel":
+            lo_t[d] = lo0[d] - 0.5 * delt * sp[1]
+            hi_t[d] = hi0[d] + 0.5 * delt * sp[1]
+        elif sp[0] == "erate":
+            half = 0.5 * delt * sp[1] * L
+            lo_t[d], hi_t[d] = lo0[d] - half, hi0[d] + half
+        elif sp[0] == "trate":
+            h = 0.5 * L * np.exp(sp[1] * delt)
+            lo_t[d], hi_t[d] = c - h, c + h
+        else:   # scale
+            h = 0.5 * L * sp[1]
+            lo_t[d], hi_t[d] = c - h, c + h
+    return lo_t, hi_t
 
 
 def polarization_settings(p) -> pol_ops.PolarizationSettings:
@@ -585,6 +663,18 @@ class Simulation:
         self._gen = 0
         self._peratom = (None, None, {})
         self._row_cache = None
+        # the per-run fixes (styles/fix_modifiers.py): fix halt's spec, fix
+        # dt/reset's settings, restrain's and tmd's hook factories with the
+        # run's post_force hooks, fix deform's parsed keywords; the box's
+        # deformation rate of the current run (compute temp/deform's bias)
+        self.halt_spec = None
+        self.dtreset_cfg = None
+        self.restrain_factory = None
+        self.tmd_factory = None
+        self.deform_cfg = None
+        self.pf_hooks = []
+        self.h_rate = np.zeros(6)
+        self.h_ratelo = np.zeros(3)
 
     @staticmethod
     def from_script(script) -> "Simulation":
@@ -675,8 +765,11 @@ class Simulation:
             dtype=dtype, device=device)
         sys = sys.replace(step=int(script.step))
         # padded atoms get unit mass so 1/m stays finite (f == 0 keeps
-        # v == 0)
-        mass_atom = _padA(script.mass_type[script.type], 1.0)
+        # v == 0); atom_style sphere's per-atom masses override the type
+        # table (atom_vec_sphere.cpp; the JAX package's sim.py:977-981)
+        mass_atom = _padA(script.mass_type[script.type]
+                          if script.rmass is None
+                          else np.asarray(script.rmass, float), 1.0)
 
         # ---- pair tables, exclusions, kspace ----
         hbond_alone = name in pb.HBOND_STYLES
@@ -899,6 +992,11 @@ class Simulation:
                 0.0, u.ftm2v, mass_atom, dtype=dtype, device=device))
         sys = fctx.sys
         integ = fctx.integ
+        if fctx.adapt is not None:
+            ff = dataclasses.replace(ff, adapt=fctx.adapt,
+                                     adapt_window=(0, 0))
+        deform_cfg = (deform_config(script, fctx.deform_fix)
+                      if fctx.deform_fix is not None else None)
         if fctx.shake_dof_removed and hasattr(integ.params, "dof"):
             # a thermostat sees the constrained dof whatever the fixes'
             # order (the reference's temperature computes query fix_dof at
@@ -917,7 +1015,9 @@ class Simulation:
                                           != fctx.pf_hooks else None),
                         end_of_step=_compose_eos(fctx),
                         post_integrate=_compose_pi(fctx.pi_hooks),
-                        shrink=shrink_spec(script))
+                        shrink=shrink_spec(script),
+                        deform_remap=(deform_cfg is None
+                                      or deform_cfg["remap"]))
         if dense:
             if above_cap and polar:
                 script.log(_ABOVE_CAP)
@@ -960,6 +1060,12 @@ class Simulation:
                 device=device)
         sim = Simulation(script, sys, runner, tp, n)
         sim.cmap_fid = cmap_fid
+        sim.halt_spec = fctx.halt_spec
+        sim.dtreset_cfg = fctx.dtreset_cfg
+        sim.restrain_factory = fctx.restrain_factory
+        sim.tmd_factory = fctx.tmd_factory
+        sim.deform_cfg = deform_cfg
+        sim.pf_hooks = fctx.pf_hooks
         sim._wire_computes(groups, mass_atom, fctx.rigid_groups)
         return sim
 
@@ -1238,6 +1344,131 @@ class Simulation:
 
     # -------------------------------- run --------------------------------
 
+    def _per_run_fixes(self, nsteps):
+        """Each run's windows of the per-run fixes (the JAX package's
+        sim.py:3406-3523): fix adapt's ramp, fix deform's schedule (and
+        the rate compute temp/deform reads), fix tmd's hook with rho_start
+        the group's mass-weighted RMSD to the target now, and fix
+        restrain's K ramp (its hook replaced in the post_force chain)."""
+        from lidp_tpu_torch.integrate.driver import DeformParams
+        from lidp_tpu_torch.styles.fix_modifiers import tmd_hook
+
+        runner = self.runner
+        b = int(self.sys.step)
+        window = (b, b + nsteps)
+        if getattr(runner, "ff", None) is not None \
+                and runner.ff.adapt is not None:
+            runner.ff = dataclasses.replace(runner.ff, adapt_window=window)
+        if self.deform_cfg is not None:
+            box = self.sys.box
+            lo0 = box.lo.double().cpu().numpy()
+            hi0 = box.hi.double().cpu().numpy()
+            delt = nsteps * self.script.dt
+            lo_t, hi_t = deform_targets(self.deform_cfg, lo0, hi0, delt)
+            self.h_rate = np.zeros(6)
+            self.h_rate[:3] = ((hi_t - lo_t) - (hi0 - lo0)) / delt
+            self.h_ratelo = (lo_t - lo0) / delt
+            # compute temp/deform's bias changed: the run's first row is
+            # formed anew
+            self.bump_generation()
+
+            def t(a):
+                return torch.as_tensor(a, dtype=box.lo.dtype,
+                                       device=box.lo.device)
+
+            runner.deform = DeformParams(
+                window=window, lo0=box.lo, hi0=box.hi, lo_t=t(lo_t),
+                hi_t=t(hi_t), h_rate=(t(self.h_rate[:3])
+                                      if self.deform_cfg["vremap"]
+                                      else None))
+        cfg = self.tmd_factory
+        if cfg is not None:
+            from lidp_tpu_torch.box import unwrap
+
+            n = self.natoms
+            xu = unwrap(self.sys.x, self.sys.box,
+                        self.sys.image).double().cpu().numpy()[:n]
+            d = (xu - cfg["xf"])[cfg["gm"]]
+            rho0 = float(np.sqrt((cfg["mass"][cfg["gm"]]
+                                  * (d * d).sum(1)).sum() / cfg["mt"]))
+            runner.tmd_hook = tmd_hook(cfg, window, rho0, self.script.dt)
+        if self.restrain_factory is not None:
+            make_hook, old = self.restrain_factory
+            new = make_hook(window)
+            self.pf_hooks[self.pf_hooks.index(old)] = new
+            self.restrain_factory = (make_hook, new)
+            runner.post_force = _compose_pf(self.pf_hooks)
+
+    def _dt_reset(self, cfg):
+        """fix dt/reset (FixDtReset::end_of_step; the JAX package's
+        _dt_reset on the host arrays in their dtype): the largest dt that
+        moves no group atom more than xmax, bounded by tmin and tmax; the
+        integrator's dt, dtf (and a chain's dtq) follow it."""
+        n = self.natoms
+        gm = np.asarray(cfg["group"])[:n]
+        v = self.sys.v[:n].cpu().numpy()[gm]
+        f = self.res.f[:n].cpu().numpy()[gm]
+        m = self.thermo_params.mass_atom[:n].cpu().numpy()[gm]
+        ftm2v = self.script.units.ftm2v
+        big = 1.0e20
+        vsq = (v * v).sum(1)
+        fsq = (f * f).sum(1)
+        minv = np.where(m > 0, 1.0 / np.maximum(m, 1e-300), 0.0)
+        xmax = cfg["xmax"]
+        dtv = np.where(vsq > 0, xmax / np.sqrt(np.maximum(vsq, 1e-300)), big)
+        dtf = np.where(fsq > 0, np.sqrt(
+            2.0 * xmax / (ftm2v * np.sqrt(np.maximum(fsq, 1e-300))
+                          * np.maximum(minv, 1e-300))), big)
+        dt = np.minimum(dtv, dtf)
+        dele = dt[:, None] * v + (0.5 * dt * dt * minv * ftm2v)[:, None] * f
+        delr = np.sqrt((dele * dele).sum(1))
+        dt = np.where(delr > xmax, dt * xmax / np.maximum(delr, 1e-300), dt)
+        newdt = float(dt.min()) if dt.size else big
+        if cfg["tmin"] is not None:
+            newdt = max(newdt, cfg["tmin"])
+        if cfg["tmax"] is not None:
+            newdt = min(newdt, cfg["tmax"])
+        if newdt == self.script.dt:
+            return
+        self.script.dt = newdt
+        integ = self.runner.integ
+        p = integ.params
+        upd = {}
+        for fld, val in (("dtv", newdt), ("dtf", 0.5 * newdt * ftm2v),
+                         ("dtq", 0.5 * newdt)):
+            cur = getattr(p, fld, None)
+            if isinstance(cur, torch.Tensor):
+                upd[fld] = torch.as_tensor(val, dtype=cur.dtype,
+                                           device=cur.device)
+            elif cur is not None:
+                upd[fld] = type(cur)(val)
+        self.runner.integ = dataclasses.replace(
+            integ, params=dataclasses.replace(p, **upd))
+
+    def _halted(self, halt, step) -> bool:
+        """fix halt's test at a chunk boundary (fix_halt.cpp:146; the JAX
+        package's sim.py:3631-3655) on the steps N divides: the thermo
+        keyword, c_ID or v_NAME against the value; `error` raises, else
+        the run stops after this step's row."""
+        nev, attr, op, val, action = halt
+        if nev and step % nev:
+            return False
+        row = self.thermo_row()
+        cur = row.get(attr)
+        if cur is None and attr.startswith("v_"):
+            cur = float(self.script.var_value(attr[2:]))
+        if cur is None:
+            return False
+        hit = {"<": cur < val, "<=": cur <= val, ">": cur > val,
+               ">=": cur >= val, "==": cur == val, "!=": cur != val}[op]
+        if not hit:
+            return False
+        if action == "error":
+            raise RuntimeError(f"Fix halt condition met: {attr} {op} {val}")
+        self.script.log(f"Fix halt condition met on step {step}: "
+                        f"{attr} {op} {val}")
+        return True
+
     def _pour_boundary(self, chunk, todo):
         """Fix pour's insertions at a chunk boundary (the JAX package's
         sim.py:3604-3616): the events of the next step, then the chunk cut
@@ -1335,9 +1566,14 @@ class Simulation:
             b = int(self.sys.step)
             self.runner.nvt = dataclasses.replace(nvt, ramp_begin=b,
                                                   ramp_end=b + nsteps)
+        self._per_run_fixes(nsteps)
         if self.res is None:
             self.sys, self.res, self.nlist, self.istate = \
                 self.runner.setup(self.sys)
+        if self.dtreset_cfg is not None:
+            # FixDtReset::setup runs end_of_step once before the setup row
+            # (fix_dt_reset.cpp:125)
+            self._dt_reset(self.dtreset_cfg)
         fixes = list(self.script.fixes.values())
         # FixVector::setup samples at run start when the step lands on
         # the Nevery grid (fix_vector.cpp:242-253)
@@ -1374,6 +1610,11 @@ class Simulation:
         chunk_opts = [every] + [d.every for d in self.script.dumps.values()
                                 if d.every] \
             + fix_output.chunk_periods(self.script)
+        halt, dtr = self.halt_spec, self.dtreset_cfg
+        if halt is not None:
+            chunk_opts.append(max(1, halt[0]))
+        if dtr is not None:
+            chunk_opts.append(dtr["nevery"])
         chunk = int(np.gcd.reduce(chunk_opts))
         while remaining > 0:
             todo = min(chunk, remaining)
@@ -1386,6 +1627,12 @@ class Simulation:
             if self.nlist is not None and bool(self.nlist.overflow):
                 raise RuntimeError(_OVERFLOW)
             fix_output.host_fixes(self, step)
+            if dtr is not None and step % dtr["nevery"] == 0:
+                self._dt_reset(dtr)
+            if halt is not None and self._halted(halt, step):
+                self._emit()
+                self._dump()
+                break
             if every and step % every == 0 or remaining == 0:
                 self._emit()
             self._dump()

@@ -12,9 +12,10 @@ rigid/nph (styles/fix_integrators.py), and the modifier fixes
 (styles/fix_modifiers.py): the constraint fixes shake and rattle, the
 post_force styles (langevin, setforce, addforce, aveforce, spring,
 spring/self, viscous, efield, planeforce, lineforce), the end_of_step
-styles (momentum, recenter, temp/csld), the deferred temp/rescale and
-temp/berendsen, fix enforce2d and fix box/relax (which only `minimize`
-reads); the output fixes of styles/fix_output.py have no builder (the
+styles (momentum, recenter, temp/csld, temp/csvr, press/berendsen,
+heat, ehex), the deferred temp/rescale and temp/berendsen, fix enforce2d,
+fix box/relax (which only `minimize` reads) and the fixes Simulation.run
+applies per run (deform, tmd, adapt, halt, dt/reset); the output fixes of styles/fix_output.py have no builder (the
 Simulation samples them between run chunks); any other fix style with no
 builder raises NotImplementedError.
 """
@@ -87,6 +88,15 @@ class FixBuildCtx:
     shake_pairs: Any = None
     # temp/rescale or temp/berendsen, built after the fix loop
     pending_temp_fix: Any = None
+    # what Simulation.run reads per run: fix halt's (N, attribute, op,
+    # value, action), dt/reset's settings, restrain's and tmd's hook
+    # factories, the fix deform spec and fix adapt's ramp (lo, hi)
+    halt_spec: Any = None
+    dtreset_cfg: Any = None
+    restrain_factory: Any = None
+    tmd_factory: Any = None
+    deform_fix: Any = None
+    adapt: Any = None
 
 
 def build_fixes(ctx: FixBuildCtx):

@@ -1,10 +1,11 @@
 """Time-integration fix styles (lidp_tpu/styles/fix_integrators.py): nve,
-nvt, npt, nph, rigid/nve, rigid/nvt, rigid/npt and rigid/nph (with their
-/small forms).  Each builder sets ctx.integ.  nve/limit, nve/noforce,
-nvt/sllod, nvt/sphere and the /sphere barostats are not ported: the nvt,
-npt and nph ones raise here, the others have no builder.  Where the JAX
-package skips a keyword it does not know (build_npt's `else: i += 2`,
-build_rigid's `else: i += 1`), the port raises (ROADMAP queue 3 item 11).
+nve/limit, nve/noforce, nvt, npt, nph, the point-sphere nvt/sphere,
+npt/sphere and nph/sphere, rigid/nve, rigid/nvt, rigid/npt and rigid/nph
+(with their /small forms).  Each builder sets ctx.integ.  nvt/sllod needs
+the triclinic box of fix deform's tilt and raises (ROADMAP queue 1 item
+6.4).  Where the JAX package skips a keyword it does not know (build_npt's
+`else: i += 2`, build_rigid's `else: i += 1`), the port raises (ROADMAP
+queue 3 item 11).
 """
 
 from __future__ import annotations
@@ -28,24 +29,58 @@ _SKIPPED = ("ROADMAP queue 1 item 6, breadth; the JAX package skips it "
             "unread: ROADMAP queue 3 item 11")
 
 
-@fix_style("nve", integrator=True)
+@fix_style("nve", "nve/limit", "nve/noforce", integrator=True)
 def build_nve(ctx, spec):
-    # sub-group nve: only the fix group integrates (atoms outside any
-    # time-integration fix do not move)
+    """fix nve, nve/limit xmax (each half-kick clamps |v| to xmax/dt,
+    fix_nve_limit.cpp) and nve/noforce (the positions drift, the
+    velocities are never kicked, fix_nve_noforce.cpp).  Sub-group nve:
+    only the fix group integrates (atoms outside any time-integration fix
+    do not move)."""
+    nargs = {"nve": 0, "nve/limit": 1, "nve/noforce": 0}[spec.style]
+    if len(spec.args) != nargs:
+        raise NotImplementedError(
+            f"fix {spec.style} arguments {' '.join(spec.args)}: the JAX "
+            f"package reads {nargs} ({_SKIPPED})")
     gmask = ctx.groups[spec.group]
     gmask_real = ctx.script.groups[spec.group]
     nvep = nve_mod.NVEParams.create(
         ctx.script.dt, ctx.u.ftm2v, ctx.mass_atom, dtype=ctx.dtype,
-        gmask=None if gmask_real.all() else gmask, device=ctx.device)
+        gmask=None if gmask_real.all() else gmask, device=ctx.device,
+        xlimit=float(spec.args[0]) if spec.style == "nve/limit" else None,
+        noforce=spec.style == "nve/noforce")
     ctx.integ = nve_integrator(nvep)
+
+
+def _sphere_rot(ctx, style):
+    """(dof, the rotational KE-tensor diagonal (3,)) of the */sphere
+    Nose-Hoover fixes off the granular route, as the JAX package's
+    _sphere_rot forms them (fix_nh_sphere.cpp, compute_temp_sphere.cpp):
+    2 dim dof for each finite-radius atom, dim for a point atom, less dim;
+    0.4 m r^2 w_d^2 summed over the atoms from the data's omega.  Central
+    forces exert no torque, so omega changes only through the
+    thermostat's scale, which the integrator tracks as a scalar."""
+    script, dim_, n = ctx.script, ctx.dim, ctx.n
+    if script.radius is None:
+        raise ValueError(f"fix {style} requires atom style sphere")
+    r = np.asarray(script.radius, float)
+    m = np.asarray(script.rmass, float)
+    w = (np.zeros((n, 3)) if script.omega is None
+         else np.asarray(script.omega, float))
+    nfin = int((r > 0).sum())
+    dof = (2 * dim_ * nfin + dim_ * (n - nfin)) - dim_
+    inert = 0.4 * m * r * r
+    return dof, (inert[:, None] * w * w).sum(0) * ctx.u.mvv2e
 
 
 @fix_style("nvt", "nvt/sllod", "nvt/sphere", integrator=True)
 def build_nvt(ctx, spec):
-    if spec.style != "nvt":
+    """fix nvt and nvt/sphere temp Tstart Tstop Tdamp [tchain N]; the
+    point-sphere form carries the rotational kinetic energy of the data's
+    omega in the chain (NVTParams.rot_ke20)."""
+    if spec.style == "nvt/sllod":
         raise NotImplementedError(
-            f"fix {spec.style} is not ported ({_BREADTH}: integrate/nvt.py "
-            "sllod and rot_ke20)")
+            "fix nvt/sllod is not ported: it needs fix deform's tilt on a "
+            "triclinic box (ROADMAP queue 1 item 6.4, triclinic boxes)")
     a = spec.args
     kw = dict(t_chain=3)
     temp = None
@@ -67,10 +102,14 @@ def build_nvt(ctx, spec):
         raise NotImplementedError("fix nvt on sub-group")
     t_start, t_stop, t_damp = temp
     u = ctx.u
+    dof, rot = ctx.dim * ctx.n - ctx.dim, None
+    if spec.style == "nvt/sphere":
+        dof, rot3 = _sphere_rot(ctx, spec.style)
+        rot = float(rot3.sum())
     nvtp = nvt_mod.NVTParams.create(
         ctx.script.dt, u.ftm2v, ctx.mass_atom, t_start, t_damp,
-        dof=ctx.dim * ctx.n - ctx.dim, boltz=u.boltz, mvv2e=u.mvv2e,
-        t_stop=t_stop, dtype=ctx.dtype, device=ctx.device, **kw)
+        dof=dof, boltz=u.boltz, mvv2e=u.mvv2e, t_stop=t_stop,
+        dtype=ctx.dtype, device=ctx.device, rot_ke20=rot, **kw)
     ctx.integ = nvt_integrator(nvtp)
 
 
@@ -79,13 +118,11 @@ def build_npt(ctx, spec):
     """fix npt / nph (the JAX package's build_npt): temp Tstart Tstop
     Tdamp, iso|aniso Pstart Pstop Pdamp, x|y|z Pstart Pstop Pdamp, mtk
     yes|no, tchain N, pchain N; nph's barostat masses take t0 from the
-    current kinetic energy (fix_nh.cpp setup's fallback)."""
+    current kinetic energy (fix_nh.cpp setup's fallback).  npt/sphere and
+    nph/sphere carry the rotational kinetic energy of the data's omega in
+    the temperature and the pressure (NPTParams.rot_ke30)."""
     from lidp_tpu_torch.integrate import npt as npt_mod
 
-    if spec.style.endswith("/sphere"):
-        raise NotImplementedError(
-            f"fix {spec.style} is not ported ({_BREADTH}: integrate/npt.py "
-            "rot_ke30)")
     script, u = ctx.script, ctx.u
     dim_, n = ctx.dim, ctx.n
     if not script.groups[spec.group].all():
@@ -129,7 +166,9 @@ def build_npt(ctx, spec):
     p_flag = tuple(v is not None for v in tgt["p"])
     if not any(p_flag):
         raise ValueError("fix npt needs a pressure keyword")
-    dof = dim_ * n - dim_
+    dof, rot3 = dim_ * n - dim_, None
+    if spec.style.endswith("/sphere"):
+        dof, rot3 = _sphere_rot(ctx, spec.style)
     had_temp = tgt["t"] is not None
     if not had_temp:
         # nph: the barostat masses use t_target = t0, the current
@@ -149,7 +188,7 @@ def build_npt(ctx, spec):
         p_flag=p_flag, iso=tgt["iso"], t_stop=tgt["t_stop"],
         p_stop=([v if v is not None else 0.0 for v in tgt["p_stop"]]
                 if any(v is not None for v in tgt["p_stop"]) else None),
-        dtype=ctx.dtype, device=ctx.device)
+        dtype=ctx.dtype, device=ctx.device, rot_ke30=rot3)
     ctx.integ = npt_integrator(nptp)
 
 

@@ -4,24 +4,28 @@ appends its hooks to the FixBuildCtx sinks.
     setup pass unless noted: the constraint fixes shake and rattle (their
     setup variant takes dtfsq/2; rattle's velocity stage goes to
     ctx.rattle_params), setforce, enforce2d, langevin, addforce, external
-    (the library caller's forces), aveforce,
-    spring/self, viscous, efield, spring (tether and couple), planeforce,
-    lineforce, the flat walls wall/lj93, wall/lj126, wall/lj1043 and
-    wall/harmonic, wall/region and indent;
+    (the library caller's forces), aveforce, spring/self, viscous, efield,
+    spring (tether and couple), spring/rg, spring/chunk, drag, restrain
+    (its K ramp a per-run factory), planeforce, lineforce, the flat walls
+    wall/lj93, wall/lj126, wall/lj1043 and wall/harmonic, wall/region and
+    indent;
   * post_integrate, fn(sys) -> sys: wall/reflect and move;
-  * end_of_step, fn(sys, res) -> sys: momentum, recenter and temp/csld;
+  * end_of_step, fn(sys, res) -> sys: momentum, recenter, temp/csld,
+    temp/csvr, heat, ehex and press/berendsen;
   * temp/rescale and temp/berendsen, which Simulation.from_script builds
     after the fix loop from ctx.pending_temp_fix (their dof needs every
     constraint);
-  * box/relax, which adds no hook: `minimize` reads it.
-fix langevin and temp/csld draw from jax.random's stream (threefry.py),
-keyed on the seed and sys.step as the JAX builders key theirs.  Where a
-JAX builder reads fewer arguments than LAMMPS takes, the port raises on
-the rest (ROADMAP queue 3 item 11).  The JAX module's other styles are
-not ported (ROADMAP queue 1 item 6.1): io/script.py refuses them.  The
-walls, indent and move take their coordinates as the JAX builders read
-them: the walls and move in box units, indent in lattice units (ROADMAP
-queue 3 item 22).
+  * what Simulation.run applies per run or at its chunks' boundaries:
+    deform, tmd (tmd_hook), adapt, halt and dt/reset; store/force's
+    per-atom values (computes.peratom_column) and box/relax (which
+    `minimize` reads) add no hook.
+fix langevin, temp/csld and temp/csvr draw from jax.random's stream
+(threefry.py), keyed on the seed and sys.step as the JAX builders key
+theirs.  Where a JAX builder reads fewer arguments than LAMMPS takes, the
+port raises on the rest (ROADMAP queue 3 item 11).  fix neb belongs to the
+neb command (ROADMAP queue 1 item 6.12).  The walls, indent and move take
+their coordinates as the JAX builders read them: the walls and move in
+box units, indent in lattice units (ROADMAP queue 3 item 22).
 """
 
 from __future__ import annotations
@@ -98,6 +102,15 @@ def _nargs(spec, n):
             f"{' '.join(spec.args[n:])} are not ported (ROADMAP queue 1 "
             "item 6.1, the modifier fixes; the JAX package skips them "
             "unread: ROADMAP queue 3 item 11)")
+
+
+def _skipped(what):
+    """Refuse what a JAX builder skips unread or refuses (ROADMAP queue 3
+    item 11)."""
+    raise NotImplementedError(
+        f"{what} is not ported (ROADMAP queue 1 item 6.1, the modifier "
+        "fixes; the JAX package skips it unread or refuses it: ROADMAP "
+        "queue 3 item 11)")
 
 
 def _post_force(ctx, hook):
@@ -926,3 +939,647 @@ def build_move(ctx, spec):
                             v=torch.where(upd, vm, sys_.v))
 
     ctx.pi_hooks.append(move)
+
+
+# ------------------- the rest of the modifier fixes -------------------
+
+
+def _zero6(f_):
+    return f_.new_zeros(6)
+
+
+@fix_style("drag")
+def build_drag(ctx, spec):
+    """fix drag x y z fmag delta (fix_drag.cpp): a force of magnitude fmag
+    toward the point (a NULL coordinate ignored) on each group atom
+    farther than delta, the distance min-imaged."""
+    from lidp_tpu_torch.box import minimum_image
+
+    _nargs(spec, 5)
+    a = spec.args
+    tgt = [None if t == "NULL" else float(t) for t in a[:3]]
+    fmag, delta = float(a[3]), float(a[4])
+    g = _group(ctx, spec)
+    flags = torch.tensor([t is not None for t in tgt], device=ctx.device)
+    tvals = _vec([0.0 if t is None else t for t in tgt], ctx)
+
+    def drag(sys_, f_):
+        d = minimum_image(sys_.x - tvals, sys_.box.img_lengths)
+        d = torch.where(flags, d, 0.0)
+        r = torch.sqrt(torch.sum(d * d, dim=1))
+        act = g & sys_.mask & (r > delta)
+        pref = torch.where(act, fmag / torch.where(r > 0, r, 1.0), 0.0)
+        return f_ - pref[:, None] * d, _zero6(f_)
+
+    _post_force(ctx, drag)
+
+
+@fix_style("spring/rg")
+def build_spring_rg(ctx, spec):
+    """fix spring/rg K RG0 (fix_spring_rg.cpp): f_i = -2K(1 - rg0/rg)
+    (xu_i - xcm) m_i/M on the group's unwrapped positions; RG0 NULL takes
+    the group's radius of gyration from the data (FixSpringRG::init), as
+    the JAX package computes it on the host."""
+    _nargs(spec, 2)
+    k_rg = float(spec.args[0])
+    if spec.args[1] == "NULL":
+        script = ctx.script
+        gmh = script.groups[spec.group]
+        mh = np.asarray(ctx.mass_atom)[:len(gmh)][gmh]
+        xuh = (script.x + script.image
+               * (script.box_hi - script.box_lo))[gmh]
+        comh = (mh[:, None] * xuh).sum(0) / mh.sum()
+        rg0 = float(np.sqrt((mh * ((xuh - comh) ** 2).sum(1)).sum()
+                            / mh.sum()))
+    else:
+        rg0 = float(spec.args[1])
+    g = _group(ctx, spec)
+    m_all = _masses(ctx)
+
+    def spring_rg(sys_, f_):
+        m = torch.where(g & sys_.mask, m_all, 0.0)
+        xu = _unwrapped(sys_)
+        M = torch.sum(m)
+        com = torch.sum(m[:, None] * xu, dim=0) / M
+        d = xu - com
+        rg = torch.sqrt(torch.sum(m * torch.sum(d * d, dim=1)) / M)
+        term = 2.0 * k_rg * (1.0 - rg0 / rg)
+        return f_ - term * d * (m / M)[:, None], _zero6(f_)
+
+    _post_force(ctx, spring_rg)
+
+
+@fix_style("spring/chunk")
+def build_spring_chunk(ctx, spec):
+    """fix spring/chunk K chunkID comID (fix_spring_chunk.cpp, as the JAX
+    package's sim.py:1716-1779 builds it): a spring on each chunk's centre
+    of mass to where it stood at setup, f_i -= m_i K d/(|d| M) of the
+    atom's chunk; the chunks are static (molecule or type, ID 0 in no
+    chunk), as the reference locks them."""
+    _nargs(spec, 3)
+    script = ctx.script
+    k_sp, cid = float(spec.args[0]), spec.args[1]
+    if cid not in script.computes or script.computes[cid][1] \
+            != "chunk/atom":
+        raise ValueError(f"fix spring/chunk: {cid} is not a compute "
+                         "chunk/atom")
+    which = script.computes[cid][2]["which"]
+    n = ctx.n
+    if which == "molecule":
+        raw = np.asarray(script.mol)[:n]
+    elif which == "type":
+        raw = np.asarray(script.type)[:n]
+    else:
+        raise NotImplementedError(
+            "fix spring/chunk needs a molecule or type chunk/atom (bin "
+            "chunks move with the atoms; the JAX package refuses them too)")
+    valid = raw > 0
+    _, inv = np.unique(raw[valid], return_inverse=True)
+    nch = int(inv.max()) + 1 if len(inv) else 0
+    ids_full = np.full(n, nch, np.int64)
+    ids_full[valid] = inv
+    ids = torch.as_tensor(ctx.padA(ids_full, nch), device=ctx.device)
+    g = _group(ctx, spec) & torch.as_tensor(ctx.padA(valid, False),
+                                            device=ctx.device)
+    m_all = _masses(ctx)
+
+    def coms(sys_):
+        me = torch.where(g & sys_.mask, m_all, 0.0)
+        xu = _unwrapped(sys_)
+        M = me.new_zeros(nch + 1).index_add_(0, ids, me)
+        s = xu.new_zeros((nch + 1, 3)).index_add_(0, ids, me[:, None] * xu)
+        return me, M, s / torch.where(M > 0, M, 1.0)[:, None]
+
+    com0 = coms(ctx.sys)[2]
+
+    def spring_chunk(sys_, f_):
+        me, M, com = coms(sys_)
+        d = com - com0
+        r = torch.clamp(torch.sqrt(torch.sum(d * d, dim=1)), min=1.0e-10)
+        Msafe = torch.where(M > 0, M, 1.0)
+        fcom = torch.where((M > 0)[:, None], k_sp * d / (r * Msafe)[:, None],
+                           0.0)
+        return f_ - me[:, None] * fcom[ids], _zero6(f_)
+
+    _post_force(ctx, spring_chunk)
+
+
+@fix_style("restrain")
+def build_restrain(ctx, spec):
+    """fix restrain bond i j Kstart Kstop r0 | angle i j k Kstart Kstop
+    theta0 | dihedral i j k l Kstart Kstop phi0 (fix_restrain.cpp, the
+    JAX package's terms): harmonic bond and angle restraints and the
+    dihedral's K(1 + cos(phi - phi0)), min-imaged, their forces the
+    negative gradient (autograd on the restrained atoms alone), K ramped
+    over each run's window, which Simulation.run sets through
+    ctx.restrain_factory; no energy or virial is tallied, as in the JAX
+    package."""
+    from lidp_tpu_torch.ops.bonded import _mi
+
+    a = list(spec.args)
+    terms = []
+    i = 0
+    while i < len(a):
+        kind = a[i]
+        nat = {"bond": 2, "angle": 3, "dihedral": 4}.get(kind)
+        if nat is None:
+            _skipped(f"fix restrain keyword {kind}")
+        ids = tuple(int(t) - 1 for t in a[i + 1:i + 1 + nat])
+        ks, kp, p0 = (float(t) for t in a[i + 1 + nat:i + 4 + nat])
+        if kind != "bond":
+            p0 = p0 * np.pi / 180.0
+        terms.append((kind, ids, ks, kp, p0))
+        i += 4 + nat
+    atoms = sorted({j for t in terms for j in t[1]})
+    pos = {j: k for k, j in enumerate(atoms)}
+    idx = torch.as_tensor(atoms, device=ctx.device)
+
+    def energy(xs, box, delta):
+        e = xs.new_zeros(())
+        for kind, ids, ks, kp, p0 in terms:
+            k = ks + delta * (kp - ks)
+            p = [xs[pos[j]] for j in ids]
+            if kind == "bond":
+                d = _mi(p[0] - p[1], box)
+                e = e + k * (torch.sqrt(torch.sum(d * d)) - p0) ** 2
+            elif kind == "angle":
+                d1, d2 = _mi(p[0] - p[1], box), _mi(p[2] - p[1], box)
+                c = torch.sum(d1 * d2) / torch.sqrt(
+                    torch.sum(d1 * d1) * torch.sum(d2 * d2))
+                c = torch.clamp(c, -1.0 + 1e-12, 1.0 - 1e-12)
+                e = e + k * (torch.arccos(c) - p0) ** 2
+            else:
+                b1 = _mi(p[1] - p[0], box)
+                b2 = _mi(p[2] - p[1], box)
+                b3 = _mi(p[3] - p[2], box)
+                n1 = torch.linalg.cross(b1, b2)
+                n2 = torch.linalg.cross(b2, b3)
+                phi = torch.atan2(torch.sqrt(torch.sum(b2 * b2))
+                                  * torch.sum(b1 * n2), torch.sum(n1 * n2))
+                e = e + k * (1.0 + torch.cos(phi - p0))
+        return e
+
+    def make_hook(window):
+        w0, w1 = window
+
+        def restrain(sys_, f_):
+            delta = min(max((sys_.step - w0) / max(w1 - w0, 1), 0.0), 1.0)
+            with torch.enable_grad():
+                xs = sys_.x[idx].detach().requires_grad_(True)
+                g, = torch.autograd.grad(energy(xs, sys_.box, delta), xs)
+            return f_.index_add(0, idx, -g), _zero6(f_)
+
+        return restrain
+
+    hook = make_hook((0, 1))
+    _post_force(ctx, hook)
+    if any(t[2] != t[3] for t in terms):
+        ctx.restrain_factory = (make_hook, hook)
+
+
+@fix_style("store/force")
+def build_store_force(ctx, spec):
+    """fix store/force (fix_store_force.cpp): its f_ID per-atom columns
+    are the force before any post_force fix, which computes.peratom_column
+    evaluates from the current positions when a dump or compute reduce
+    reads them, as the JAX package does; no hook."""
+    _nargs(spec, 0)
+
+
+@fix_style("heat")
+def build_heat(ctx, spec):
+    """fix heat N flux (fix_heat.cpp, constant flux): every N steps the
+    group's velocities v' = s v - (s - 1) vcm with s = sqrt((ke + dE - kcm)
+    / (ke - kcm)), dE = flux N dt in 0.5 m v^2 units (times ftm2v)."""
+    _nargs(spec, 2)
+    nevery, flux = int(spec.args[0]), float(spec.args[1])
+    g = _group(ctx, spec)
+    m_all = _masses(ctx)
+    de = flux * nevery * ctx.script.dt * ctx.u.ftm2v
+
+    def heat(sys_, res_=None):
+        if sys_.step % nevery:
+            return sys_
+        sel = g & sys_.mask
+        m = torch.where(sel, m_all, 0.0)
+        M = torch.sum(m)
+        vcm = torch.sum(m[:, None] * sys_.v, dim=0) / M
+        ke = 0.5 * torch.sum(m[:, None] * sys_.v ** 2)
+        kcm = 0.5 * torch.sum(vcm * vcm) * M
+        s = torch.sqrt((ke + de - kcm) / (ke - kcm))
+        vnew = s * sys_.v - (s - 1.0) * vcm[None, :]
+        return sys_.replace(v=torch.where(sel[:, None], vnew, sys_.v))
+
+    ctx.eos_hooks.append(heat)
+
+
+def _region_matcher(ctx, rname):
+    """Region::match on the device for a block or sphere region (the JAX
+    package's _traced_region_match): each point wrapped into the current
+    box on its periodic dimensions (Domain::remap, so a box that moves is
+    followed), then the bounds tested inclusively, an INF lower bound
+    unbounded, side out inverting."""
+    script = ctx.script
+    r = script.regions[rname]
+    s3 = np.asarray(script._region_spacing(rname), float)
+    per = torch.tensor(tuple(bool(p) for p in script.periodic),
+                       device=ctx.device)
+    side_out = script._region_kw[rname]["side"] == "out"
+
+    def remap(x, box):
+        L = box.lengths
+        w = box.lo + torch.remainder(x - box.lo, L)
+        return torch.where(per, w, x)
+
+    if not isinstance(r[0], str):
+        lo_hi = np.asarray(r, float) * np.repeat(s3, 2)
+        lo = lo_hi[0::2].copy()
+        lo[np.isinf(lo)] = -np.inf
+        lo = _vec(np.clip(lo, -1e30, 1e30), ctx)
+        hi = _vec(np.clip(lo_hi[1::2], -1e30, 1e30), ctx)
+
+        def match(x, box):
+            xw = remap(x, box)
+            m = torch.all((xw >= lo) & (xw <= hi), dim=1)
+            return ~m if side_out else m
+    elif r[0] == "sphere":
+        c = _vec(np.array(r[1:4]) * s3, ctx)
+        rad2 = float(r[4] * s3[0]) ** 2
+
+        def match(x, box):
+            d = remap(x, box) - c
+            m = torch.sum(d * d, dim=1) <= rad2
+            return ~m if side_out else m
+    else:
+        raise NotImplementedError(
+            f"fix ehex region {rname} of style {r[0]}: the JAX package "
+            "matches block and sphere regions alone (ROADMAP queue 3 item "
+            "22)")
+    return match
+
+
+@fix_style("ehex")
+def build_ehex(ctx, spec):
+    """fix ehex N F [region R] [hex] (RIGID/fix_ehex.cpp, eHEX/a of
+    Wirnsberger et al.): every N steps the reservoir's velocities rescale
+    about its centre of mass by sqrt(1 + F dt/Kr), F = heat ftm2v N, and,
+    unless `hex`, the positions take the third-order correction x -= dt^3
+    epsr (fix_ehex.cpp:283-300); the reservoir is the group within the
+    region, matched on the device each step; an emptied reservoir skips
+    the update and 1 + F dt/Kr is floored at 0, as in the JAX package."""
+    a = list(spec.args)
+    nevery, heat = int(a[0]), float(a[1])
+    rname, hex_only = None, False
+    i = 2
+    while i < len(a):
+        if a[i] == "region":
+            rname = a[i + 1]
+            i += 2
+        elif a[i] == "hex":
+            hex_only = True
+            i += 1
+        elif a[i] in ("constrain", "com"):
+            _skipped(f"fix ehex keyword {a[i]}")
+        else:
+            raise ValueError(f"Illegal fix ehex keyword {a[i]}")
+    g = _group(ctx, spec)
+    m_all = _masses(ctx)
+    F = heat * ctx.u.ftm2v * nevery
+    dt = ctx.script.dt
+    ftm2v = ctx.u.ftm2v
+    match = None
+    if rname is not None:
+        match = _region_matcher(ctx, rname)
+        sel0 = (np.asarray(ctx.script.groups[spec.group], bool)
+                & np.asarray(ctx.script._region_mask(rname), bool))
+        if not sel0.any():
+            raise ValueError(f"fix ehex: region {rname} selects no atoms of "
+                             f"group {spec.group} at setup")
+
+    def ehex(sys_, res_=None):
+        if sys_.step % nevery:
+            return sys_
+        sel = g & sys_.mask
+        if match is not None:
+            sel = sel & match(sys_.x, sys_.box)
+        m = torch.where(sel, m_all, 0.0)
+        mr = torch.sum(m)
+        on = mr > 1e-14
+        vcm = torch.sum(m[:, None] * sys_.v, dim=0) / torch.clamp(
+            mr, min=1e-300)
+        ke = 0.5 * torch.sum(m[:, None] * sys_.v ** 2)
+        kr = torch.clamp(ke - 0.5 * mr * torch.sum(vcm * vcm), min=1e-300)
+        f_ = res_.f
+        fsel = torch.where(sel[:, None], f_, 0.0)
+        sfr = torch.sum(fsel, dim=0)
+        sfvr = torch.sum(fsel * sys_.v) - torch.dot(vcm, sfr)
+        scale = torch.where(on, torch.sqrt(torch.clamp(1.0 + F * dt / kr,
+                                                       min=0.0)), 1.0)
+        vnew = torch.where(sel[:, None],
+                           scale * sys_.v - (scale - 1.0) * vcm, sys_.v)
+        if hex_only:
+            return sys_.replace(v=vnew)
+        eta = m_all[:, None] * F / (2.0 * kr) * (sys_.v - vcm)
+        epsr = (eta / (m_all[:, None] * kr) * (F / 48.0 + sfvr / 6.0 * ftm2v)
+                - F / (12.0 * kr) * (f_ / m_all[:, None] - sfr / mr) * ftm2v)
+        corr = torch.where(sel[:, None] & on, dt ** 3 * epsr, 0.0)
+        return sys_.replace(x=sys_.x - corr, v=vnew)
+
+    ctx.eos_hooks.append(ehex)
+
+
+@fix_style("temp/csvr")
+def build_temp_csvr(ctx, spec):
+    """fix temp/csvr Tstart Tstop damp seed (the Bussi-Donadio-Parrinello
+    rescale, fix_temp_csvr.cpp, as the JAX package's build_temp_cs gives
+    it): at the end of every step the group's velocities scale by
+    sqrt(K'/K), K' = K + (1 - c)(Kt (r1^2 + R)/dof - K) + 2 r1 sqrt(c (1 -
+    c) Kt K/dof), c = exp(-dt/damp), Kt = dof kB T/2 with T = Tstart (no
+    ramp), r1 normal and R twice a Gamma((dof - 1)/2) draw from jax.random's
+    stream keyed on fold_in(PRNGKey(seed), step) and split in two
+    (threefry.normal_scalar, threefry.gamma_draw: the host draws the two
+    scalars, bit for bit with the JAX package's on the CPU, and the
+    device only scales)."""
+    from lidp_tpu_torch import threefry
+
+    _nargs(spec, 4)
+    u, a = ctx.u, spec.args
+    t_tgt, damp = float(a[0]), float(a[2])
+    key0 = threefry.prng_key(int(a[3]) & threefry.MASK32)
+    g = _group(ctx, spec)
+    m_all = _masses(ctx)
+    dof = ctx.dim * int(np.count_nonzero(ctx.script.groups[spec.group])) \
+        - ctx.dim
+    ke_t = 0.5 * dof * u.boltz * t_tgt
+    c = math.exp(-ctx.script.dt / damp)
+    dtype = ctx.dtype
+
+    def csvr(sys_, res_=None):
+        k1, k2 = threefry.split(threefry.fold_in(key0, sys_.step))
+        r1 = float(threefry.normal_scalar(k1, dtype))
+        rr = 2.0 * float(threefry.gamma_draw(k2, (dof - 1) / 2.0, dtype)[0])
+        sel = g & sys_.mask
+        m = torch.where(sel, m_all, 0.0)
+        ke = 0.5 * u.mvv2e * torch.sum(m[:, None] * sys_.v ** 2)
+        ke_new = (ke + (1.0 - c) * (ke_t * (r1 * r1 + rr) / dof - ke)
+                  + 2.0 * r1 * torch.sqrt(c * (1.0 - c) * ke_t * ke / dof))
+        s = torch.sqrt(torch.clamp(ke_new, min=0.0) / ke)
+        return sys_.replace(v=torch.where(sel[:, None], s * sys_.v, sys_.v))
+
+    ctx.eos_hooks.append(csvr)
+
+
+@fix_style("press/berendsen")
+def build_press_berendsen(ctx, spec):
+    """fix press/berendsen iso|aniso Pstart Pstop Pdamp | x|y|z Pstart
+    Pstop Pdamp [modulus B] (fix_press_berendsen.cpp): at the end of every
+    step the box and the atoms dilate about the box centre by mu_d = (1 -
+    dt/Pdamp (P - P_d)/B)^(1/3), P_d from the step's virial and the
+    kinetic tensor of all atoms (iso their trace over dim), P = Pstart (no
+    ramp, as in the JAX package)."""
+    from lidp_tpu_torch.box import Box
+
+    a = list(spec.args)
+    p_start = [None] * 3
+    p_period = [0.0] * 3
+    iso, bulkmod = False, 10.0
+    i = 0
+    while i < len(a):
+        k = a[i]
+        if k in ("iso", "aniso"):
+            iso = k == "iso"
+            p_start = [float(a[i + 1])] * 3
+            p_period = [float(a[i + 3])] * 3
+            i += 4
+        elif k in ("x", "y", "z"):
+            d = "xyz".index(k)
+            p_start[d] = float(a[i + 1])
+            p_period[d] = float(a[i + 3])
+            i += 4
+        elif k == "modulus":
+            bulkmod = float(a[i + 1])
+            i += 2
+        else:
+            _skipped(f"fix press/berendsen keyword {k}")
+    p_flag = [v is not None for v in p_start]
+    if not any(p_flag):
+        raise ValueError("fix press/berendsen needs a pressure keyword")
+    u, dt, dim = ctx.u, ctx.script.dt, ctx.dim
+    m_all = _masses(ctx)
+    flags = torch.tensor(p_flag, device=ctx.device)
+    tgt = _vec([v if v is not None else 0.0 for v in p_start], ctx)
+    period = _vec([max(v, 1e-300) for v in p_period], ctx)
+
+    def press_berendsen(sys_, res_):
+        m = torch.where(sys_.mask, m_all, 0.0)
+        v6 = res_.virial
+        vol = sys_.box.volume
+        if iso:
+            mvv = u.mvv2e * torch.sum(m[:, None] * sys_.v ** 2)
+            w = v6[0] + v6[1] + v6[2]
+            p_cur = ((mvv + w) / (dim * vol) * u.nktv2p).expand(3)
+        else:
+            mvvd = u.mvv2e * torch.sum(m[:, None] * sys_.v ** 2, dim=0)
+            p_cur = (mvvd + v6[:3]) / vol * u.nktv2p
+        mu = torch.where(
+            flags, (1.0 - dt / period * (tgt - p_cur) / bulkmod)
+            ** (1.0 / 3.0), 1.0)
+        lo, hi = sys_.box.lo, sys_.box.hi
+        c = 0.5 * (lo + hi)
+        box = Box(lo=(lo - c) * mu + c, hi=(hi - c) * mu + c,
+                  periodic=sys_.box.periodic)
+        return sys_.replace(x=c + (sys_.x - c) * mu, box=box)
+
+    ctx.eos_hooks.append(press_berendsen)
+
+
+@fix_style("halt")
+def build_halt(ctx, spec):
+    """fix halt N attribute op value [error|continue|message ...]
+    (fix_halt.cpp:146): Simulation.run tests it at the run chunks'
+    boundaries (the chunk divides N) on the thermo keyword or v_NAME; an
+    error raises, else the run ends after the step's row, as in the JAX
+    package."""
+    from lidp_tpu_torch.io.script import THERMO_KEYWORDS
+
+    a = spec.args
+    if len(a) < 4 or a[2] not in ("<", "<=", ">", ">=", "==", "!="):
+        raise ValueError(f"Illegal fix halt command: {' '.join(a)}")
+    action = a[4] if len(a) > 4 else "break"
+    if len(a) > 5 or action not in ("error", "break"):
+        _skipped(f"fix halt keywords {' '.join(a[4:])} (the JAX package "
+                 "reads one word, error or else a graceful stop)")
+    if a[1] not in THERMO_KEYWORDS and not a[1].startswith(("v_", "c_")):
+        _skipped(f"fix halt attribute {a[1]} (the JAX package looks it "
+                 "up in its thermo row, where it never is, and never stops)")
+    ctx.halt_spec = (int(a[0]), a[1], a[2], float(a[3]), action)
+
+
+@fix_style("dt/reset")
+def build_dt_reset(ctx, spec):
+    """fix dt/reset N Tmin Tmax Xmax [units box|lattice]
+    (fix_dt_reset.cpp): Simulation.run resets dt at setup and at the run
+    chunks' boundaries on the steps N divides (Simulation._dt_reset); in
+    lattice units Xmax scales by the x spacing."""
+    a = list(spec.args)
+    xmax = float(a[3])
+    scale = "lattice"
+    if len(a) > 4:
+        if a[4] != "units" or len(a) != 6 or a[5] not in ("box", "lattice"):
+            _skipped(f"fix dt/reset keywords {' '.join(a[4:])}")
+        scale = a[5]
+    if scale == "lattice":
+        xmax *= float(ctx.script._spacing3()[0])
+    ctx.dtreset_cfg = dict(
+        nevery=max(1, int(a[0])),
+        tmin=None if a[1] == "NULL" else float(a[1]),
+        tmax=None if a[2] == "NULL" else float(a[2]),
+        xmax=xmax, group=np.asarray(ctx.script.groups[spec.group]))
+
+
+@fix_style("deform")
+def build_deform(ctx, spec):
+    """fix deform: Simulation.from_script parses it (sim.deform_config)
+    and Simulation.run forms each run's schedule (integrate/driver.py
+    DeformParams)."""
+    ctx.deform_fix = spec
+
+
+@fix_style("adapt")
+def build_adapt(ctx, spec):
+    """fix adapt N pair STYLE a * * v_NAME (fix_adapt.cpp, the JAX
+    package's one form): the pair style's prefactor table follows the
+    equal-style ramp(lo,hi) variable NAME over each run
+    (ForceField.adapt)."""
+    a = spec.args
+    script = ctx.script
+    if (len(a) != 7 or a[1] != "pair" or a[2] != script.pair.name
+            or a[3:6] != ["a", "*", "*"] or not a[6].startswith("v_")):
+        _skipped(f"fix adapt {' '.join(a)} (the JAX package adapts `pair "
+                 "STYLE a * * v_NAME` of the pair style alone)")
+    if script.pair.name != "soft":
+        _skipped(f"fix adapt on pair_style {script.pair.name} (the JAX "
+                 "package replaces the first coefficient table, pair "
+                 "soft's prefactor A)")
+    vname = a[6][2:]
+    if vname not in script._ramp_vars:
+        raise NotImplementedError(
+            "fix adapt requires an equal-style ramp() variable of two "
+            "constants, as in the JAX package")
+    ctx.adapt = script._ramp_vars[vname]
+
+
+@fix_style("tmd")
+def build_tmd(ctx, spec):
+    """fix ID group tmd rho_final target-file N [outfile] (fix_tmd.cpp, the
+    JAX package's build_tmd): the holonomic constraint that drives the
+    group's mass-weighted RMSD to the target linearly from its value at
+    each run's start to rho_final; its correction of x and v follows the
+    position update (Runner.tmd_hook).  With N > 0 the statistics file
+    gets a row every N steps and its work sums grow every step: the port
+    reads the step's five scalars to the host once a step, only while the
+    file is open (the JAX package passes them through an ordered
+    io_callback)."""
+    import os
+
+    script = ctx.script
+    a = spec.args
+    if len(a) not in (2, 3, 4):
+        raise ValueError("Illegal fix tmd command")
+    rho_stop = float(a[0])
+    n = ctx.n
+    xf = np.zeros((n, 3))
+    seen = np.zeros(n, bool)
+    with open(os.path.join(script.root, a[1])) as fh:
+        for ln in fh:
+            t = ln.split("#")[0].split()
+            if len(t) in (4, 7):
+                i = int(t[0]) - 1
+                xf[i] = [float(v) for v in t[1:4]]
+                seen[i] = True
+    gm_host = np.asarray(script.groups[spec.group], bool)
+    if not seen[gm_host].all():
+        raise ValueError("fix tmd target file missing group atoms")
+    mass = np.asarray(ctx.mass_atom[:n], float)
+    mt = float(mass[gm_host].sum())
+    nevery = int(a[2]) if len(a) > 2 else 0
+    stat = None
+    if nevery:
+        if len(a) < 4:
+            raise ValueError("Illegal fix tmd command")
+        fh = open(os.path.join(script.root, a[3]), "w")
+        fh.write("# Step rho_target rho_old gamma_back gamma_forward lambda "
+                 "work_lambda work_analytical\n")
+        # the statistics take dt and the unhalved dtf (fix_tmd.cpp:166)
+        stat = dict(fh=fh, work_lambda=0.0, work_analytical=0.0,
+                    previous=0, nevery=nevery)
+        script._tmd_stat = stat
+    ctx.tmd_factory = dict(
+        rho_stop=rho_stop, xf=xf, gm=gm_host, mass=mass, mt=mt, stat=stat,
+        gmj=_group(ctx, spec)[:, None],
+        mj=torch.where(_group(ctx, spec), torch.as_tensor(
+            ctx.padA(mass, 0.0), dtype=ctx.dtype, device=ctx.device), 0.0),
+        xfj=torch.as_tensor(ctx.padA(xf, 0.0), dtype=ctx.dtype,
+                            device=ctx.device),
+        ftm2v=ctx.u.ftm2v)
+
+
+def tmd_hook(cfg, window, rho_start, dt):
+    """fix tmd's Runner hook for one run (the JAX package's make_hook):
+    (x_prev, image_prev, sys, res) -> sys after initial_integrate, the
+    constraint's multiplier solving FixTMD's quadratic for the step's
+    target rho (ntimestep = sys.step + 1 there)."""
+    from lidp_tpu_torch.box import unwrap
+
+    begin, end = window
+    rho_stop, mt, stat = cfg["rho_stop"], cfg["mt"], cfg["stat"]
+    gmj, mj, xfj = cfg["gmj"], cfg["mj"], cfg["xfj"]
+    dtv, dtf = dt, dt * cfg["ftm2v"]
+
+    def rho_at(tstep):
+        delta = min(max((tstep - begin) / max(end - begin, 1), 0.0), 1.0)
+        return rho_start + delta * (rho_stop - rho_start)
+
+    def hook(x_prev, image_prev, sys_, res_):
+        xold = unwrap(x_prev, sys_.box, image_prev)
+        xcur = unwrap(sys_.x, sys_.box, sys_.image)
+        dxold = torch.where(gmj, xold - xfj, 0.0)
+        dx = torch.where(gmj, xcur - xfj, 0.0)
+        a = torch.sum(mj[:, None] * dxold * dxold) / mt
+        b = 2.0 * torch.sum(mj[:, None] * dx * dxold) / mt
+        e = torch.sum(mj[:, None] * dx * dx) / mt
+
+        def gamma(rho):
+            c = e - rho * rho
+            d = torch.clamp(b * b - 4.0 * a * c, min=0.0)
+            gmax = torch.where(b >= 0, -b - torch.sqrt(d),
+                               -b + torch.sqrt(d)) / (2.0 * a)
+            return torch.where(a == 0.0, 0.0, c / (
+                a * torch.where(gmax == 0.0, 1.0, gmax)))
+
+        tstep = sys_.step + 1
+        rho_t = rho_at(tstep)
+        gfwd = gamma(rho_t)
+        if stat is not None:
+            rho_old = rho_at(tstep - 1)
+            gback = gamma(rho_old)
+            dxkt = xcur + gback * dxold - xold
+            kt = torch.sum(mj[:, None] * dxkt * dxkt)
+            fr = torch.sum(torch.where(gmj, res_.f, 0.0) * dxold)
+            gb, gf, fr, kt = (float(v) for v in torch.stack(
+                [gback, gfwd, fr, kt]).double().cpu())
+            stat["work_analytical"] += (
+                (-fr - kt / dtv / dtf) * (rho_t - rho_old)
+                / (rho_old if rho_old != 0.0 else 1.0))
+            lam = gb * rho_old * mt / dtv / dtf
+            stat["work_lambda"] += lam * (rho_t - rho_old)
+            if tstep % stat["nevery"] == 0 and stat["previous"] != tstep:
+                stat["fh"].write("%d %g %g %g %g %g %g %g\n" % (
+                    tstep, rho_t, rho_old, gb, gf, lam,
+                    stat["work_lambda"], stat["work_analytical"]))
+                stat["fh"].flush()
+                stat["previous"] = tstep
+        return sys_.replace(x=sys_.x + gfwd * dxold,
+                            v=sys_.v + (gfwd / dtv) * dxold)
+
+    return hook

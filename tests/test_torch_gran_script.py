@@ -283,11 +283,15 @@ REFUSED = {
     "fix gravity without gran": (
         ATOMIC + "fix g all gravity 1.0 vector 0 0 -1\nrun 0",
         NotImplementedError, "pair gran"),
+    # the point-sphere nvt/sphere and npt/sphere are ported off the
+    # granular route (tests/test_torch_fix_breadth.py): without sphere data
+    # nvt/sphere is LAMMPS's error, and the npt/sphere case holds the
+    # integrator style that still raises
     "nvt/sphere without gran": (
         ATOMIC.replace("fix 1 all nve", "fix 1 all nvt/sphere temp 1 1 1")
-        + "run 0", NotImplementedError, "item 6.8"),
-    "npt/sphere": (ATOMIC + "fix 2 all npt/sphere temp 1 1 1 iso 1 1 1",
-                   NotImplementedError, "item 6.8"),
+        + "run 0", ValueError, "requires atom style sphere"),
+    "npt/sphere": (ATOMIC + "fix 2 all nvt/sllod temp 1 1 1",
+                   NotImplementedError, "item 6.4"),
     "exclude group without gran": (
         ATOMIC + "neigh_modify exclude group all all\nrun 0",
         NotImplementedError, "queue 3 item 44"),

@@ -322,11 +322,8 @@ def test_unported_options_raise():
     _, t, Lb, n = _both(np.float64)
     ff = ForceField(pair=t["pair"])
     integ = nve_integrator(tnve.NVEParams.create(DT, 1.0, np.ones(n)))
-    # shrink is ported (tests/test_torch_nonperiodic.py)
-    for name in ("deform", "tmd_hook"):
-        with pytest.raises(NotImplementedError, match=name):
-            Runner(ff=ff, integ=integ, neighbor_cfg=t["cfg"],
-                   **{name: object()})
+    # shrink is ported (tests/test_torch_nonperiodic.py), and so are
+    # deform and tmd_hook (tests/test_torch_deform_tmd.py)
     # no neighbor_cfg is the dense route (ported): its setup forces are
     # the cell route's
     _, rd, _, _ = Runner(ff=ff, integ=integ).setup(t["sys"])

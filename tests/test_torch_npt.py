@@ -465,7 +465,10 @@ UNPORTED = {
     "npt couple": "fix 1 all npt temp 300 300 100 iso 1 1 1000 couple xyz",
     "npt drag": "fix 1 all npt temp 300 300 100 iso 1 1 1000 drag 1.0",
     "npt dilate": "fix 1 all npt temp 300 300 100 iso 1 1 1000 dilate all",
-    "npt/sphere": "fix 1 all npt/sphere temp 300 300 100 iso 1 1 1000",
+    # npt/sphere is ported (tests/test_torch_fix_breadth.py): a keyword
+    # the JAX package skips still raises
+    "npt/sphere": "fix 1 all npt/sphere temp 300 300 100 iso 1 1 1000 "
+                  "dilate all",
     "rigid/npt dilate": "fix 1 all rigid/npt molecule temp 300 300 100 "
                         "iso 1 1 1000 dilate all",
 }

@@ -248,7 +248,6 @@ def test_api_surface(tmp_path):
 
 
 UNPORTED = {
-    "compute td all temp/deform": "item 6.1",
     "compute m2 all msd com yes": "queue 3 item 25",
     "compute r2 all rdf 50 1 1": "queue 3 item 25",
     "compute p2 all pressure tt ke": "queue 3 item 25",
@@ -302,8 +301,13 @@ REPOINTED = {
                                   "queue 3 item 25"),
     "fix c all controller 1 1 1 1 1 temp 1.0 v": (
         "fix c all controller 1 1 1 1 1 f_x 1.0 v", "queue 3 item 26"),
-    "fix e all external pf/callback 1 1": ("fix e all store/force",
-                                           "item 6.1"),
+    # fix store/force is ported too (tests/test_torch_fix_breadth.py): a
+    # fix style that still raises
+    "fix e all external pf/callback 1 1": ("fix e all neb 1.0",
+                                           "item 6.12"),
+    # compute temp/deform is ported (tests/test_torch_deform_tmd.py)
+    "compute td all temp/deform": ("compute td all temp/deform extra",
+                                   "queue 3 item 25"),
     "dump d all xyz 1 d.xyz": (
         "dump d all image 1 d.ppm type type shiny 0.5", "queue 3 item 25"),
     "dump d all local 1 d.loc index": ("dump d all local 1 d.loc index v_x",

@@ -263,7 +263,7 @@ def test_replicate_matches_jax(dirs):
 # hold a style that still raises
 UNPORTED = {
     "region": "region s sphere 0 0 0 1 rotate v_a 0 0 0 0 0 1",
-    "compute": "compute c all temp/deform",
+    "compute": "compute c all pe pair",
     "minimize": "min_modify line backtrack",
     "fix nvt": "fix 2 all nvt/sllod temp 300 300 100",
     "pair_style lj/cut": "pair_style granular hooke 2000.0 50.0 tangential "

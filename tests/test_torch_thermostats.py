@@ -456,7 +456,9 @@ UNPORTED = {
                  "1000 dilate all",
     "rigid/nph": "fix 1 all rigid/nph molecule iso 1 1 1000 dilate all",
     "nvt/sllod": "fix 1 all nvt/sllod temp 300 300 100",
-    "nvt/sphere": "fix 1 all nvt/sphere temp 300 300 100",
+    # nvt/sphere is ported (tests/test_torch_fix_breadth.py): a keyword
+    # the JAX package skips still raises
+    "nvt/sphere": "fix 1 all nvt/sphere temp 300 300 100 disc",
     "compute pressure": "compute p all pressure thermo_temp ke",
 }
 

@@ -12,6 +12,12 @@ partitionable layout, x64 on as the JAX package's tests run it):
 The draws of the last case also run through the CPU path that fix
 langevin and temp/csld take (device "cpu"); on the card the same integer
 arithmetic gives the same bits (chip_smoke.py path W holds them).
+
+  * gamma (fix temp/csvr's draw, threefry.gamma_draw on the host) and the
+    scalar normal inside it: equal to jax.random.gamma's and
+    jax.random.normal's eager draws bit for bit, float32 and float64, for
+    alpha below 1 (the boost), at 1 and near it, and at ~1.6e4 (a 32,000
+    atom thermostat's (dof - 1)/2), every seed and step above.
 """
 
 import numpy as np
@@ -119,3 +125,30 @@ def test_a_draw_of_many_atoms_matches_jax():
         _same_bits(got.numpy(), jax.random.uniform(key, (1001, 3), jd))
         if td == torch.float64:
             assert len(np.unique(got.numpy())) == got.numel()
+
+
+GAMMA_ALPHAS = (0.3, 0.97, 1.0, 1.03, 2.5, 16000.5)
+
+
+@pytest.mark.parametrize("jdt, tdt", DTYPES)
+@pytest.mark.parametrize("alpha", GAMMA_ALPHAS)
+def test_gamma_matches_jax_bit_for_bit(alpha, jdt, tdt):
+    tries = 0
+    for seed, as_uint32 in SEEDS:
+        jkey = jax.random.PRNGKey(np.uint32(seed) if as_uint32 else seed)
+        key = threefry.prng_key(seed)
+        for step in STEPS:
+            jk = jax.random.fold_in(jkey, step)
+            k = threefry.fold_in(key, step)
+            want = np.asarray(jax.random.gamma(jk, alpha, dtype=jdt))
+            got, n = threefry.gamma_draw(k, alpha, tdt)
+            tries += n
+            assert got.dtype == want.dtype
+            assert got.tobytes() == want.tobytes(), (seed, step, got, want)
+            t = threefry.gamma(k, alpha, tdt, "cpu")
+            assert t.numpy().tobytes() == want.tobytes()
+            want = np.asarray(jax.random.normal(jk, (), dtype=jdt))
+            assert threefry.normal_scalar(k, tdt).tobytes() \
+                == want.tobytes()
+    # the rejection loop ran: at least one try a draw
+    assert tries >= len(SEEDS) * len(STEPS)
