@@ -131,8 +131,8 @@ Phases, each raising on failure:
         example's form), the others at rest with no integrator, `compute
         movingtemp moving temp` and its c_movingtemp column: every counter
         0, the dense route's Runner, rows finite; its rows and final x, v,
-        mu against its CPU twin (phase 17: the same script through the
-        port on the CPU in float64, after the card's paths): rows within
+        mu against its CPU twin (phase 21: the same script through the
+        port on the CPU in float64, beside the card's paths): rows within
         rel 1e-9 of max(1, |value|), x, v and mu
         within 1e-8 of their largest entry; steps/s by its Loop time line,
         the peak memory, and over 2 more steps the phases (DensePhases),
@@ -682,9 +682,12 @@ Phases, each raising on failure:
      setup state), AJ-AN, AO-8k, AQ, AR, AS-AV at 192 atoms (81
      waters), AW-5k, AX-5k, AW-f32, AX-f32, AY-2k, AY-nvt-2k,
      AY-hooke-2k, AZ-2k, BA-1k, BB-5k, BC-5k, BD-5k, BE-5k, BE-ber-5k,
-     BF-5k, BG-1k and BH-5k, after every path on the card, so that no
-     timed path shares the host's cores with them (run_twins: as many at
-     once as the cores take, the longest first);
+     BF-5k, BG-1k and BH-5k, each started as soon as its path has run,
+     beside the card's later paths (TwinPool: forked by one parent that
+     imported torch once, as many at once as the cores less
+     HOST_CORES_KEPT take, the longest queued first; this process keeps
+     HOST_CORES_KEPT torch threads meanwhile) and checked after the last
+     (run_twins: every core then);
  22. one JSON line {"kernels": [...]} with each of the ten kernels'
      launches (summed and by path, A-K, E-E4, L, L64, M, N, N-pol, O, R,
      R-pppm, Q, Q64, P, P100, S, T, U, U64, V, W, X, X64, Y, Z, AA, AB,
@@ -692,6 +695,11 @@ Phases, each raising on failure:
      AT, AU, AV, AW, AX, AY, AZ, BA, BB, BC, BC's plain, spring, array
      and addforce runs, BD, BE, BE-ber, BF, BG and BH), times, ms_queued
      and bound, then the nvidia-smi line, then the device line last.
+
+Phases 19 and 20 run after 14 and before 15-18, so that their costly
+twins run beside the card's later paths.  A `wall:` line after each phase
+gives the seconds since the start and since the last such line (the
+whole run must end within 1,200 s, the build included).
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.
@@ -3845,7 +3853,7 @@ class IntegratorTimer:
 
 # the CPU twin: the same script through the port on the CPU in float64, in
 # a process of its own on TWIN_THREADS torch threads (one but for T's, so
-# that run_twins packs the host's cores; small tensors gain little from
+# that the twin pool packs the host's cores; small tensors gain little from
 # more), its rows and final state saved
 CPU_TWIN = """\
 import os, sys, time
@@ -3872,102 +3880,232 @@ np.savez(sys.argv[1], x=sim.sys.x[:n].numpy(), v=sim.sys.v[:n].numpy(),
          seconds=seconds)
 assert "jax" not in sys.modules
 """
-# the twins deferred until the card's paths are done (defer_twin), and the
-# directory their inputs are copied to
+# the twins queued by defer_twin, the directory their inputs are copied to
+# and the pool that runs them (TwinPool)
 TWINS = []
 TWIN_ROOT = []
+TWIN_POOL = []
 TWIN_TIMEOUT = 900
+# the host's cores left to this process (its one thread that drives the card
+# and its own torch threads) while the card's paths run beside the twins
+HOST_CORES_KEPT = 2
+# the twins' parent: it imports torch and the port once, on one torch thread
+# (so that no OpenMP pool exists when it forks), then forks a child for each
+# job line {"id", "work", "argv", "env", "code"} read from its standard
+# input; the child runs the job's code in the job's directory with its
+# output in twin.log there; the parent writes {"id", "pid"} when it forks and
+# {"id", "rc"} when the child ends, and ends with the last child after its
+# input closes
+TWIN_PARENT = """\
+import json, os, select, sys, time, traceback
+import numpy
+import torch
+torch.set_num_threads(1)
+import lidp_tpu_torch.io.script
+running, buf, closed = {}, b"", False
 
 
-def start_cpu_twin(work, script, steps, out, threads=1, dtype="float64",
-                   code=CPU_TWIN):
-    """Start the CPU twin of `script` (in directory `work`) in a process
-    of its own on `threads` torch threads, in `dtype` (float64 but for a
-    twin of a float32 run's setup state); `code` runs it (CPU_TWIN, or
-    EXTERNAL_TWIN through the library); returns the Popen."""
-    env = dict(os.environ, OMP_NUM_THREADS=str(threads),
-               TWIN_THREADS=str(threads), TWIN_DTYPE=dtype,
-               CUDA_VISIBLE_DEVICES="",
-               PYTHONPATH=os.pathsep.join(
-                   filter(None, (ROOT, os.environ.get("PYTHONPATH")))))
-    env.pop("LIDP_FAST_POLAR", None)
-    return subprocess.Popen(
-        [sys.executable, "-c", code, out, script, str(steps)],
-        cwd=work, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-        text=True)
+def say(msg):
+    sys.stdout.write(json.dumps(msg) + "\\n")
+    sys.stdout.flush()
+
+
+def child(job):
+    code = 1
+    try:
+        os.chdir(job["work"])
+        fd = os.open("twin.log", os.O_WRONLY | os.O_CREAT | os.O_TRUNC, 0o644)
+        os.dup2(fd, 1)
+        os.dup2(fd, 2)
+        os.environ.update(job["env"])
+        sys.argv = ["-c", *job["argv"]]
+        exec(compile(job["code"], "<twin>", "exec"), {"__name__": "__main__"})
+        code = 0
+    except SystemExit as e:
+        code = e.code if isinstance(e.code, int) else 1
+    except BaseException:
+        traceback.print_exc()
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(code)
+
+
+while running or not closed:
+    if closed:
+        time.sleep(0.05)
+    elif select.select([0], [], [], 0.05)[0]:
+        data = os.read(0, 1 << 16)
+        closed = not data
+        buf += data
+        while b"\\n" in buf:
+            line, buf = buf.split(b"\\n", 1)
+            job = json.loads(line)
+            pid = os.fork()
+            if pid == 0:
+                child(job)
+            running[pid] = job["id"]
+            say({"id": job["id"], "pid": pid})
+    while running:
+        pid, status = os.waitpid(-1, os.WNOHANG)
+        if pid == 0:
+            break
+        say({"id": running.pop(pid), "rc": os.waitstatus_to_exitcode(status)})
+"""
+
+
+class TwinPool:
+    """Runs the CPU twins beside the card's paths: as many at once as
+    `budget` cores take their threads, the most expensive queued first (a
+    twin that does not fit waits for cores to free), each forked by one
+    TWIN_PARENT process, so that a twin pays no import of torch."""
+
+    def __init__(self, budget):
+        import threading
+
+        env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1",
+                   PYTHONPATH=os.pathsep.join(
+                       filter(None, (ROOT, os.environ.get("PYTHONPATH")))))
+        env.pop("LIDP_FAST_POLAR", None)
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", TWIN_PARENT], stdin=subprocess.PIPE,
+            stdout=subprocess.PIPE, env=env, text=True,
+            start_new_session=True)
+        self.budget = budget
+        self.queue, self.running = [], {}
+        self.lock = threading.Lock()
+        self.t0 = time.perf_counter()
+        threading.Thread(target=self._read, daemon=True).start()
+
+    def add(self, t):
+        with self.lock:
+            t["id"] = len(TWINS) - 1
+            self.queue.append(t)
+            self._start()
+
+    def _start(self):
+        used = sum(t["threads"] for t in self.running.values())
+        for t in sorted(self.queue, key=lambda t: -t["cost"]):
+            if self.running and used + t["threads"] > self.budget:
+                continue
+            t["out"] = os.path.join(t["work"], "twin.npz")
+            env = dict(OMP_NUM_THREADS=str(t["threads"]),
+                       TWIN_THREADS=str(t["threads"]), TWIN_DTYPE=t["dtype"])
+            job = dict(id=t["id"], work=t["work"], env=env, code=t["code"],
+                       argv=[t["out"], t["script"], str(t["steps"])])
+            t["t0"] = time.perf_counter()
+            self.proc.stdin.write(json.dumps(job) + "\n")
+            self.proc.stdin.flush()
+            self.queue.remove(t)
+            self.running[t["id"]] = t
+            used += t["threads"]
+
+    def _read(self):
+        for line in self.proc.stdout:
+            msg = json.loads(line)
+            with self.lock:
+                t = TWINS[msg["id"]]
+                if "pid" in msg:
+                    t["pid"] = msg["pid"]
+                    continue
+                t["rc"], t["t1"] = msg["rc"], time.perf_counter()
+                del self.running[t["id"]]
+                self._start()
+
+    def wait(self, budget):
+        """Let the twins take `budget` cores and wait for every one; raises
+        if one runs past TWIN_TIMEOUT seconds or the parent dies."""
+        with self.lock:
+            self.budget = budget
+            self._start()
+        while True:
+            with self.lock:
+                if not self.queue and not self.running:
+                    return
+                late = [t["path"] for t in self.running.values()
+                        if time.perf_counter() - t["t0"] > TWIN_TIMEOUT]
+            if late:
+                raise AssertionError(f"paths {late}: the CPU twin did not "
+                                     "finish")
+            if self.proc.poll() is not None:
+                raise AssertionError(f"the twins' parent exit "
+                                     f"{self.proc.returncode}")
+            time.sleep(0.2)
+
+    def close(self):
+        import signal
+
+        try:
+            os.killpg(self.proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+        self.proc.wait()
 
 
 def defer_twin(path, work, script, steps, check, threads=1, cost=60.0,
                dtype="float64", code=CPU_TWIN):
-    """Queue path's CPU twin (CPU_TWIN on `script`, `steps` steps) to run
-    after every path on the card (run_twins), so that no timed path shares
-    the host's cores with it: the directory `work` (the input and its
-    data) is copied aside now; check(twin), with twin the np.load of the
-    twin's arrays, holds the path to it.  cost: the twin's expected
-    seconds on its `threads`, so that run_twins starts the longest
-    first."""
+    """Queue path's CPU twin (CPU_TWIN on `script`, `steps` steps) on the
+    twin pool, which runs it beside the card's paths on the cores this
+    process leaves free (HOST_CORES_KEPT): the directory `work` (the input
+    and its data) is copied aside now; check(twin), with twin the np.load
+    of the twin's arrays, holds the path to it in run_twins.  cost: the
+    twin's expected seconds on its `threads`, so that the pool starts the
+    longest first."""
     import atexit
+
+    import torch
 
     if not TWIN_ROOT:
         TWIN_ROOT.append(tempfile.mkdtemp(prefix="chip_smoke_twins_"))
         atexit.register(shutil.rmtree, TWIN_ROOT[0], True)
+    if not TWIN_POOL:
+        cores = os.cpu_count() or 1
+        TWIN_POOL.append(TwinPool(max(1, cores - HOST_CORES_KEPT)))
+        atexit.register(TWIN_POOL[0].close)
+        torch.set_num_threads(max(1, min(HOST_CORES_KEPT, cores)))
     dst = os.path.join(TWIN_ROOT[0], path)
     shutil.copytree(work, dst)
     TWINS.append(dict(path=path, work=dst, script=script, steps=steps,
                       check=check, threads=threads, cost=cost, dtype=dtype,
                       code=code))
+    TWIN_POOL[0].add(TWINS[-1])
 
 
 def run_twins():
-    """Run the queued CPU twins after the card's paths: as many at once as
-    the host's cores take their threads, the most expensive first (a
-    twin that does not fit waits for cores to free); each is checked as
-    it ends.  Raises if one fails, disagrees or runs past TWIN_TIMEOUT
-    seconds; every process started is stopped."""
+    """After the card's paths: give the twin pool every core, wait for the
+    twins still queued or running and check each, in the order queued.
+    Raises if one fails, disagrees or runs past TWIN_TIMEOUT seconds;
+    every process started is stopped."""
     import numpy as np
+    import torch
 
-    budget = os.cpu_count() or 1
-    queue = sorted(TWINS, key=lambda t: -t["cost"])
-    running = []
+    if not TWIN_POOL:
+        return
+    pool = TWIN_POOL[0]
+    cores = os.cpu_count() or 1
     t0 = time.perf_counter()
+    left = len(pool.queue) + len(pool.running)
+    torch.set_num_threads(cores)
     try:
-        while queue or running:
-            used = sum(t["threads"] for t in running)
-            for t in list(queue):
-                if not running or used + t["threads"] <= budget:
-                    t["out"] = os.path.join(t["work"], "twin.npz")
-                    t["proc"] = start_cpu_twin(t["work"], t["script"],
-                                               t["steps"], t["out"],
-                                               t["threads"], t["dtype"],
-                                               t["code"])
-                    t["t0"] = time.perf_counter()
-                    running.append(t)
-                    queue.remove(t)
-                    used += t["threads"]
-            time.sleep(0.2)
-            for t in [t for t in running if t["proc"].poll() is not None]:
-                running.remove(t)
-                _, err = t["proc"].communicate()
-                if t["proc"].returncode != 0:
-                    raise AssertionError(
-                        f"path {t['path']}: the CPU twin exit "
-                        f"{t['proc'].returncode}\n{err[-4000:]}")
-                twin = np.load(t["out"])
-                print(f"path {t['path']}: its CPU twin (the same script, "
-                      f"the port on the CPU, {t['dtype']}, {t['threads']} "
-                      f"thread(s)) took {float(twin['seconds']):.1f} s of "
-                      f"its {time.perf_counter() - t['t0']:.1f} s process")
-                t["check"](twin)
-            for t in running:
-                if time.perf_counter() - t["t0"] > TWIN_TIMEOUT:
-                    raise AssertionError(f"path {t['path']}: the CPU twin "
-                                         "did not finish")
+        pool.wait(cores)
     finally:
-        for t in running:
-            t["proc"].kill()
-            t["proc"].communicate()
-    print(f"CPU twins: {len(TWINS)} in {time.perf_counter() - t0:.1f} s of "
-          f"wall time on {budget} cores, after every path on the card")
+        pool.close()
+    for t in TWINS:
+        if t["rc"] != 0:
+            with open(os.path.join(t["work"], "twin.log")) as fh:
+                err = fh.read()
+            raise AssertionError(f"path {t['path']}: the CPU twin exit "
+                                 f"{t['rc']}\n{err[-4000:]}")
+        twin = np.load(t["out"])
+        print(f"path {t['path']}: its CPU twin (the same script, the port "
+              f"on the CPU, {t['dtype']}, {t['threads']} thread(s)) took "
+              f"{float(twin['seconds']):.1f} s of its "
+              f"{t['t1'] - t['t0']:.1f} s process")
+        t["check"](twin)
+    print(f"CPU twins: {len(TWINS)} in {time.perf_counter() - pool.t0:.1f} "
+          f"s of wall time from the first, beside the card's paths on "
+          f"{max(1, cores - HOST_CORES_KEPT)} cores; "
+          f"{left} still queued or running when the card's paths ended, "
+          f"done {time.perf_counter() - t0:.1f} s later on {cores} cores")
 
 
 def run_state(script):
@@ -10913,6 +11051,17 @@ def main() -> int:
     from lidp_tpu_torch.ops.cells import build_cells, cell_pair_forces
     from lidp_tpu_torch.thermo import thermo_row
 
+    t_start = time.perf_counter()
+    t_last = [t_start]
+
+    def mark(label):
+        """Print the wall time the script has taken so far and since the
+        last mark (the run must end within 1,200 s, the build included)."""
+        now = time.perf_counter()
+        print(f"wall: {label} done at {now - t_start:.1f} s "
+              f"({now - t_last[0]:.1f} s)")
+        t_last[0] = now
+
     smi = smi_line()
     print(f"card: {smi}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -10927,6 +11076,7 @@ def main() -> int:
     build.build_all()
     print(f"build: {time.perf_counter() - t0:.1f} s")
     print(build.report())
+    mark("build")
 
     # 3. kernel parity and timing
     sysd = polar_bench.synthetic_system()
@@ -11014,6 +11164,8 @@ def main() -> int:
     cutoff_pairs_parity(ff.pair)
     dipole_cutoff_parity(ff.pair, ff.polar)
     torch.cuda.empty_cache()
+
+    mark("kernel parity")
 
     # 4. the main paths: every counter to 0 just before, read just after
     whole_form = (panel.eind_panel, panel.eind_panel_df, panel.dipole_panel,
@@ -11438,8 +11590,11 @@ def main() -> int:
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
+    mark("paths A-H32")
     rowsI = dense_paths(launches, reset_counts, read_counts)
+    mark("dense_paths")
     thermostat_paths(launches, reset_counts, read_counts, rowsI)
+    mark("thermostat_paths")
 
     # 5. the LJ melt on the cell engine: path E, kernel parity on its last
     # state, then paths F and E4
@@ -11717,24 +11872,27 @@ def main() -> int:
     del melt4, sys4, res4, nl4, carry, grids4, live4
     torch.cuda.empty_cache()
 
+    mark("paths E, F, E4")
     script_cell_paths(launches, reset_counts, read_counts, steps_per_s_F)
-    barostat_paths(launches, reset_counts, read_counts)
-    flexible_paths(launches, reset_counts, read_counts)
-    chain_paths(launches, reset_counts, read_counts)
-    modifier_paths(launches, reset_counts, read_counts)
-    eam_paths(launches, reset_counts, read_counts)
-    minimize_paths(launches, reset_counts, read_counts)
-    nonperiodic_paths(launches, reset_counts, read_counts)
+    mark("script_cell_paths")
+    for phase in (barostat_paths, flexible_paths, chain_paths,
+                  modifier_paths, eam_paths, minimize_paths,
+                  nonperiodic_paths):
+        phase(launches, reset_counts, read_counts)
+        mark(phase.__name__)
     compute_paths(launches, reset_counts, read_counts, rowsH32,
                   launches["G"])
-    kspace_paths(launches, reset_counts, read_counts)
-    pair_style_paths(launches, reset_counts, read_counts)
-    charmm_family_paths(launches, reset_counts, read_counts)
-    chunk_structure_paths(launches, reset_counts, read_counts)
-    granular_paths(launches, reset_counts, read_counts)
-    output_paths(launches, reset_counts, read_counts)
-    fix_breadth_paths(launches, reset_counts, read_counts)
+    mark("compute_paths")
+    # phases 19 and 20 before 15-18: their twins are among the costliest
+    # (BA-1k, BB-5k, BC-5k, BD-5k), and the last phase's twins are the
+    # ones left to run once the card is done
+    for phase in (kspace_paths, output_paths, fix_breadth_paths,
+                  pair_style_paths, charmm_family_paths,
+                  chunk_structure_paths, granular_paths):
+        phase(launches, reset_counts, read_counts)
+        mark(phase.__name__)
     run_twins()
+    mark("run_twins")
 
     # 6. results
     total = {name: sum(launches[p][name] for p in launches)
