@@ -674,7 +674,42 @@ Phases, each raising on failure:
      the dense route) and BH-5k (the lattice at 0.55), float64 on the
      card for 10 steps, against CPU twins: every row within rel 1e-9,
      the final x, v and mu within 1e-8 of their largest entry;
- 21. the CPU twins (CPU_TWIN: the same script through the port on the CPU
+ 21. the script front end (front_end_paths), every launch counter 0 just
+     before each path and read just after:
+     BI. bench/in.lj (32,000 atoms, float32, the cell grid with
+        cell_pair_forces_lj) with balance 1.0 shift x 5 1.0, info system,
+        timer full and restart 50 rs.a rs.b over 100 steps: the LJ
+        kernel on every step, a row every 10 printed once across the two
+        chunks, timer full's per-term ms (CUDA events), rs.b against the
+        run's final System and integrator state bit for bit; then
+        BI-resume, a second script that reads rs.a and runs 50 steps:
+        its rows at 50-100 within rel 1e-4 of max(1, |value|) of the
+        first run's;
+     BJ. in.lj for 50 steps, change_box all x scale 1.05 y delta -0.5 0.5
+        remap units box, reset_timestep 0, write_data and 50 more steps:
+        Lx and Ly of the new box, the rows after change_box within rel
+        1e-5 of a fresh script's from the written data (BJ-fresh); then
+        clear (allocated memory before and after) and in.lj again in the
+        same interpreter: its rows within 1e-5 of the first run's, the
+        LJ kernel on every step of the four runs;
+     BK. the three-site water template (WATER_MOL) placed by create_atoms
+        0 box mol wat 4523 on lattice sc 0.05, 25 x 20 x 20 molecules
+        (30,000 atoms), float64, lj/cut/coul/long with pppm and
+        dielectric 2.0, harmonic bonds and angles, velocity create and
+        scale, 4 steps, then delete_bonds all angle 1 and run 0
+        (water_script): no kernel, the topology counted, E_angle 0 after;
+     BL. a 256,000-atom in.lj data file written by the port's write_data,
+        read by read_data's C++ Atoms parse and its Python one (timed,
+        equal arrays), then 20 steps with the LJ kernel and dump custom
+        every 10: the frames' rows, one frame formatted by the C++ rows
+        and the Python loop (timed, the same text);
+     each with its steps/s by the Loop time line and its peak memory;
+     and BI-5k, BJ-5k (the whole script with its clear), BL-5k (in.lj at
+     0.55, 5,324 atoms on the cell grid) and BK-1.7k (1,728 waters),
+     float64 on the card for their scripts' steps, against CPU twins:
+     every row within rel 1e-9, the final x, v and mu within 1e-8 of
+     their largest entry;
+ 22. the CPU twins (CPU_TWIN: the same script through the port on the CPU
      in float64, in a process of its own; its rows, final state and each
      minimize's (E, iterations, converged)) of J, K, O, R, R-pppm, Q64, S,
      T, U64, V, W, X64, Y, Z, AA-100, AB (and AB's cg, sd, fire), AC, AD,
@@ -682,24 +717,26 @@ Phases, each raising on failure:
      setup state), AJ-AN, AO-8k, AQ, AR, AS-AV at 192 atoms (81
      waters), AW-5k, AX-5k, AW-f32, AX-f32, AY-2k, AY-nvt-2k,
      AY-hooke-2k, AZ-2k, BA-1k, BB-5k, BC-5k, BD-5k, BE-5k, BE-ber-5k,
-     BF-5k, BG-1k and BH-5k, each started as soon as its path has run,
-     beside the card's later paths (TwinPool: forked by one parent that
+     BF-5k, BG-1k, BH-5k, BI-5k, BJ-5k, BK-1.7k and BL-5k, each started
+     as soon as its path has run, beside the card's later paths
+     (TwinPool: forked by one parent that
      imported torch once, as many at once as the cores less
      HOST_CORES_KEPT take, the longest queued first; this process keeps
      HOST_CORES_KEPT torch threads meanwhile) and checked after the last
      (run_twins: every core then);
- 22. one JSON line {"kernels": [...]} with each of the ten kernels'
+ 23. one JSON line {"kernels": [...]} with each of the ten kernels'
      launches (summed and by path, A-K, E-E4, L, L64, M, N, N-pol, O, R,
      R-pppm, Q, Q64, P, P100, S, T, U, U64, V, W, X, X64, Y, Z, AA, AB,
      AC, AD, AE, AF, AG, AH, AI, AJ, AK, AN, AL, AM, AO, AP, AQ, AR, AS,
      AT, AU, AV, AW, AX, AY, AZ, BA, BB, BC, BC's plain, spring, array
-     and addforce runs, BD, BE, BE-ber, BF, BG and BH), times, ms_queued
-     and bound, then the nvidia-smi line, then the device line last.
+     and addforce runs, BD, BE, BE-ber, BF, BG, BH, BI, BI-resume, BJ,
+     BK and BL), times, ms_queued and bound, then the nvidia-smi line,
+     then the device line last.
 
-Phases 19 and 20 run after 14 and before 15-18, so that their costly
-twins run beside the card's later paths.  A `wall:` line after each phase
-gives the seconds since the start and since the last such line (the
-whole run must end within 1,200 s, the build included).
+Phases 19, 20 and 21 run after 14 and before 15-18, so that their
+costly twins run beside the card's later paths.  A `wall:` line after
+each phase gives the seconds since the start and since the last such
+line (the whole run must end within 1,200 s, the build included).
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.
@@ -2573,6 +2610,83 @@ def point_charge_script(text=FLUID_SCRIPT):
             line = "pair_style lj/cut/coul/long 6.0 6.5"
         out.append(line)
     return "\n".join(out) + "\n"
+
+
+# a three-site water template (molecule.cpp's format): path BK's molecule
+WATER_MOL = """# simple water-like molecule
+
+3 atoms
+2 bonds
+1 angles
+
+Coords
+
+1 0.0 0.0 0.0
+2 0.9 0.0 0.0
+3 -0.25 0.87 0.0
+
+Types
+
+1 1
+2 2
+3 2
+
+Charges
+
+1 -0.8
+2 0.4
+3 0.4
+
+Bonds
+
+1 1 1 2
+2 1 1 3
+
+Angles
+
+1 1 2 1 3
+"""
+
+
+def water_script(nx, ny=None, nz=None, seed=4523):
+    """Path BK's input: WATER_MOL (the file wat.mol) placed by create_atoms
+    0 box mol wat SEED on lattice sc 0.05, nx x ny x nz molecules (ny and
+    nz default to nx), under lj/cut/coul/long 2.5 and pppm with dielectric
+    2.0, harmonic bonds and angles, velocity create then scale, 4 steps of
+    nve, then delete_bonds all angle 1 and a run 0.  The skin is 1.0: a
+    cell grid of cutoff + 0.3 (cap 8) overflows where molecules bunch.
+    """
+    return f"""units lj
+atom_style full
+boundary p p p
+lattice sc 0.05
+region box block 0 {nx} 0 {ny or nx} 0 {nz or nx}
+create_box 2 box bond/types 1 angle/types 1 extra/bond/per/atom 4 \
+extra/special/per/atom 4
+molecule wat wat.mol
+create_atoms 0 box mol wat {seed}
+mass 1 15.0
+mass 2 1.0
+pair_style lj/cut/coul/long 2.5
+pair_coeff 1 1 0.2 1.5
+pair_coeff 2 2 0.05 0.8
+kspace_style pppm 1e-4
+dielectric 2.0
+bond_style harmonic
+bond_coeff 1 60.0 0.9
+angle_style harmonic
+angle_coeff 1 30.0 104.0
+special_bonds lj/coul 0.0 0.0 0.5
+neighbor 1.0 bin
+velocity all create 0.5 4928 loop geom
+velocity all scale 0.6
+fix 1 all nve
+thermo 2
+thermo_style custom step temp pe ebond eangle ecoul elong press
+run 4
+delete_bonds all angle 1
+run 0
+"""
 
 
 def fluid_script_case(directory, n_side=15, seed=0, wrapped=False):
@@ -11035,6 +11149,347 @@ def fix_breadth_paths(launches, reset_counts, read_counts):
         shutil.rmtree(work, ignore_errors=True)
 
 
+FE_SCALE = "1"                 # BI and BJ: in.lj at 32,000 atoms
+BI_STEPS = 100                 # BI: in.lj with restart 50 rs.a rs.b
+BI_TAIL = """\
+fix\t\t1 all nve
+balance\t\t1.0 shift x 5 1.0
+info\t\tsystem
+timer\t\tfull
+restart\t\t{every} rs.a rs.b
+thermo\t\t10
+run\t\t${{nstep}}
+"""
+BI_RESUME = """\
+fix\t\t1 all nve
+read_restart\trs.a
+thermo\t\t10
+run\t\t{steps}
+"""
+BI_COLS = ("temp", "epair", "etotal", "press")
+# the resumed rows against the run's: float32, and the resumed run builds
+# its cell grid at step 50, where the run had built it at step 40
+BI_RESUME_REL = 1e-4
+BJ_STEPS = 50                  # BJ: each of its runs
+BJ_TAIL = """\
+fix\t\t1 all nve
+thermo\t\t10
+run\t\t${nstep}
+change_box\tall x scale 1.05 y delta -0.5 0.5 remap units box
+reset_timestep\t0
+write_data\tbj.data
+run\t\t${nstep}
+"""
+BJ_FRESH = """\
+units\t\tlj
+atom_style\tatomic
+read_data\tbj.data
+pair_style\tlj/cut 2.5
+pair_coeff\t1 1 1.0 1.0 2.5
+neighbor\t0.3 bin
+neigh_modify\tdelay 0 every 20 check no
+fix\t\t1 all nve
+thermo\t\t10
+run\t\t${nstep}
+"""
+BJ_REL = 1e-5                  # the changed run against the fresh one
+BK_MOLECULES = (25, 20, 20)    # BK: 10,000 waters, 30,000 atoms
+BK_TWIN = 12                   # BK-1.7k: 1,728 waters, 5,184 atoms
+BK_COLS = ("temp", "pe", "ebond", "eangle", "ecoul", "elong", "press")
+BL_SCALE = "2"                 # BL: in.lj at 2, 256,000 atoms
+BL_STEPS = 20
+BL_SCRIPT = """\
+units\t\tlj
+atom_style\tatomic
+read_data\tbl.data
+pair_style\tlj/cut 2.5
+pair_coeff\t1 1 1.0 1.0 2.5
+neighbor\t0.3 bin
+neigh_modify\tdelay 0 every 20 check no
+fix\t\t1 all nve
+dump\t\t1 all custom 10 bl.dump id type x y z vx vy vz
+thermo\t\t10
+run\t\t${nstep}
+"""
+
+
+def loop_rate(log):
+    """steps/s over every Loop time line of a log (a restart-segmented run
+    prints one a chunk)."""
+    secs = steps = 0.0
+    for line in log:
+        if line.startswith("Loop time"):
+            w = line.split()
+            secs += float(w[3])
+            steps += int(w[8])
+    return steps / secs
+
+
+def lj_data(path, scale):
+    """in.lj's lattice at `scale` with its velocities, written by the
+    port's write_data as `path` (atom_style atomic); returns the atoms."""
+    from lidp_tpu_torch.io.script import LammpsScript
+
+    s = LammpsScript(device="cpu", log=lambda line: None)
+    s.root = os.path.dirname(path)
+    text = lj_scaled(LJ_SCRIPT, scale)
+    s.execute(text[:text.index("pair_style")].splitlines())
+    s.one(f"write_data {os.path.basename(path)}")
+    return len(s.x)
+
+
+def bi_path(work, launches, reset_counts, read_counts):
+    """BI: balance, info, timer full and restart 50 over in.lj, the file
+    against the state, then a second script resumed from rs.a."""
+    import numpy as np
+    import torch
+
+    from lidp_tpu_torch.utils import checkpoint
+
+    reset_counts()
+    s, log, peak = breadth_case(
+        "BI", work, "in.bi", lj_breadth(FE_SCALE, BI_TAIL.format(every=50)),
+        torch.float32, BI_STEPS)
+    launches["BI"] = read_counts()
+    lj = launches["BI"]["cell_pair_forces_lj"]
+    check_counts("BI", launches["BI"], {"cell_pair_forces_lj": lj})
+    rows = s.thermo_rows
+    if lj < BI_STEPS + 1 or [r["step"] for r in rows] != list(
+            range(0, BI_STEPS + 1, 10)):
+        raise AssertionError(f"path BI: launches {lj}, rows at "
+                             f"{[r['step'] for r in rows]}")
+    check_rows_finite("BI", rows, BI_COLS)
+    print("path BI: timer full's ms an evaluation (CUDA events): "
+          + ", ".join(f"{k} {v * 1e3:.4f}"
+                      for k, v in s._sim.timer_breakdown.items()))
+    written = checkpoint.flatten_state(s._sim.sys, s._sim.istate)
+    read = checkpoint.load_checkpoint(os.path.join(work, "rs.b"))
+    if sorted(written) != sorted(read) or not all(
+            v.dtype == read[k].dtype and np.array_equal(v, read[k])
+            for k, v in written.items()):
+        raise AssertionError("path BI: rs.b is not the state written")
+    print(f"path BI: rs.b equals the state at step {BI_STEPS} bit for bit "
+          f"({len(read)} arrays); steps_per_s_BI {loop_rate(log):.4f} (Loop "
+          f"time, two chunks); peak device memory {peak / 2**20:.1f} MiB; "
+          f"{smi_line()}")
+    first = {int(r["step"]): r for r in rows}
+    del s
+    torch.cuda.empty_cache()
+    half = BI_STEPS // 2
+    reset_counts()
+    r, log, peak = breadth_case(
+        "BI-resume", work, "in.bi-resume",
+        lj_breadth(FE_SCALE, BI_RESUME.format(steps=half)), torch.float32,
+        half)
+    launches["BI-resume"] = read_counts()
+    lj = launches["BI-resume"]["cell_pair_forces_lj"]
+    check_counts("BI-resume", launches["BI-resume"],
+                 {"cell_pair_forces_lj": lj})
+    resumed = r.thermo_rows
+    if [int(x["step"]) for x in resumed] != list(
+            range(half, BI_STEPS + 1, 10)) or lj < half + 1:
+        raise AssertionError(f"path BI-resume: launches {lj}, rows "
+                             f"{[x['step'] for x in resumed]}")
+    worst = rows_agree("BI-resume", resumed,
+                       [first[int(x["step"])] for x in resumed],
+                       [BI_RESUME_REL] * len(resumed), BI_COLS)
+    print(f"path BI-resume: rows {half}-{BI_STEPS} at {worst:.3g} of their "
+          f"bar (rel {BI_RESUME_REL:g}) against the uninterrupted run's")
+    script_peak("BI-resume", log, half, peak)
+    del r
+    torch.cuda.empty_cache()
+    breadth_twin("BI-5k", work, "in.bi-5k", lj_breadth(
+        BB_TWIN_SCALE, BI_TAIL.format(every=5)), BI_COLS, 2, 40.0,
+        reset_counts, read_counts)
+
+
+def bj_path(work, launches, reset_counts, read_counts):
+    """BJ: change_box between two runs of in.lj, held to a fresh script
+    from its write_data; then clear and a second in.lj in this
+    process."""
+    import torch
+
+    reset_counts()
+    s, log, peak = breadth_case("BJ", work, "in.bj",
+                                lj_breadth(FE_SCALE, BJ_TAIL), torch.float32,
+                                BJ_STEPS)
+    rows = s.thermo_rows
+    nrow = BJ_STEPS // 10 + 1
+    if len(rows) != 2 * nrow:
+        raise AssertionError(f"path BJ: {len(rows)} rows")
+    check_rows_finite("BJ", rows, BI_COLS)
+    box = s._sim.sys.box
+    L0 = (4 / 0.8442) ** (1 / 3) * 20 * float(FE_SCALE)
+    check_rel("BJ lx after change_box", float(box.hi[0] - box.lo[0]),
+              1.05 * L0, 1e-6)
+    check_rel("BJ ly after change_box", float(box.hi[1] - box.lo[1]),
+              L0 + 1.0, 1e-6)
+    fresh, _, _ = breadth_case("BJ-fresh", work, "in.bj-fresh", BJ_FRESH,
+                               torch.float32, BJ_STEPS)
+    worst = rows_agree("BJ", rows[nrow:], fresh.thermo_rows,
+                       [BJ_REL] * nrow, BI_COLS)
+    print(f"path BJ: the rows after change_box at {worst:.3g} of their bar "
+          f"(rel {BJ_REL:g}) against a fresh script from its write_data")
+    del fresh
+    before = torch.cuda.memory_allocated()
+    s.one("clear")
+    after = torch.cuda.memory_allocated()
+    print(f"path BJ: peak device memory {peak / 2**20:.1f} MiB over its "
+          f"runs; allocated {before / 2**20:.1f} MiB before clear, "
+          f"{after / 2**20:.1f} MiB after; {smi_line()}")
+    torch.cuda.reset_peak_memory_stats()
+    log2 = []
+    s.log = log2.append
+    s.variables["nstep"] = str(BJ_STEPS)
+    s.execute(lj_breadth(FE_SCALE, BJ_TAIL[:BJ_TAIL.index("change_box")])
+              .splitlines())
+    peak2 = torch.cuda.max_memory_allocated()
+    launches["BJ"] = read_counts()
+    lj = launches["BJ"]["cell_pair_forces_lj"]
+    check_counts("BJ", launches["BJ"], {"cell_pair_forces_lj": lj})
+    if lj < 4 * (BJ_STEPS + 1):
+        raise AssertionError(f"path BJ: launches {lj}")
+    worst = rows_agree("BJ-clear", s.thermo_rows, rows[:nrow],
+                       [BJ_REL] * nrow, BI_COLS)
+    print(f"path BJ-clear: the second system's rows at {worst:.3g} of their "
+          f"bar against the first run's; peak device memory "
+          f"{peak2 / 2**20:.1f} MiB after clear")
+    script_peak("BJ", log2, BJ_STEPS, peak2)
+    del s
+    torch.cuda.empty_cache()
+    twin = lj_breadth(BB_TWIN_SCALE, BJ_TAIL) + "clear\n" + lj_scaled(
+        LJ_SCRIPT, BB_TWIN_SCALE).replace("run\t\t100", "run\t\t10")
+    breadth_twin("BJ-5k", work, "in.bj-5k", twin, BI_COLS, 2, 40.0,
+                 reset_counts, read_counts)
+
+
+def bk_path(work, launches, reset_counts, read_counts):
+    """BK: the water template at 10,000 molecules, float64, then
+    delete_bonds and a run 0."""
+    import numpy as np
+    import torch
+
+    with open(os.path.join(work, "wat.mol"), "w") as fh:
+        fh.write(WATER_MOL)
+    reset_counts()
+    s, log, peak = breadth_case("BK", work, "in.bk",
+                                water_script(*BK_MOLECULES), torch.float64, 4)
+    launches["BK"] = read_counts()
+    check_counts("BK", launches["BK"], {})
+    rows = s.thermo_rows
+    nmol = int(np.prod(BK_MOLECULES))
+    check_rows_finite("BK", rows, BK_COLS)
+    if (s._sim.natoms != 3 * nmol or len(s._bonds) != 2 * nmol
+            or len(s._angles) != nmol or len(rows) != 4
+            or rows[-1]["eangle"] != 0.0 or rows[2]["eangle"] == 0.0):
+        raise AssertionError(f"path BK: {s._sim.natoms} atoms, rows {rows}")
+    print(f"path BK: {nmol} molecules, {len(s._bonds)} bonds, "
+          f"{len(s._angles)} angles ({int((s._angle_types < 0).sum())} "
+          f"turned off by delete_bonds); E_angle {rows[2]['eangle']:.6g} -> "
+          f"{rows[3]['eangle']:.6g}; {script_route(s)}")
+    print(f"steps_per_s_BK {4 / loop_seconds(log, 4):.4f} (Loop time); "
+          f"peak device memory {peak / 2**20:.1f} MiB; {smi_line()}")
+    del s
+    torch.cuda.empty_cache()
+    breadth_twin("BK-1.7k", work, "in.bk-1.7k", water_script(BK_TWIN),
+                 BK_COLS, 4, 60.0, reset_counts, read_counts)
+
+
+def bl_path(work, launches, reset_counts, read_counts):
+    """BL: a 256,000-atom in.lj data file through read_data's C++ and
+    Python parses, then 20 steps with dump custom every 10, a frame's rows
+    through the C++ and Python formatters."""
+    import numpy as np
+    import torch
+
+    from lidp_tpu_torch import native
+    from lidp_tpu_torch.io import dump as dump_mod
+    from lidp_tpu_torch.io.data_reader import read_data
+
+    path = os.path.join(work, "bl.data")
+    t0 = time.perf_counter()
+    n = lj_data(path, BL_SCALE)
+    t_write = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    native.library()
+    t_build = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dn = read_data(path, "atomic", native=True)
+    t_native = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dp = read_data(path, "atomic", native=False)
+    t_python = time.perf_counter() - t0
+    for f in ("x", "type", "image", "v", "q", "mol"):
+        if not np.array_equal(getattr(dn, f), getattr(dp, f)):
+            raise AssertionError(f"path BL: the parses' {f} differ")
+    print(f"path BL: {n} atoms written by write_data in {t_write:.2f} s; "
+          f"read_data {t_native:.3f} s with the C++ Atoms parse, "
+          f"{t_python:.3f} s with the Python one (equal arrays; the library "
+          f"loaded or built in {t_build:.2f} s)")
+    del dn, dp
+    frames = []
+    plain = dump_mod.format_rows
+
+    def kept(vals, flags, ffmt="%g"):
+        t = time.perf_counter()
+        out = plain(vals, flags, ffmt)
+        frames.append((vals, flags, time.perf_counter() - t))
+        return out
+
+    dump_mod.format_rows = kept
+    try:
+        reset_counts()
+        s, log, peak = breadth_case("BL", work, "in.bl", BL_SCRIPT,
+                                    torch.float32, BL_STEPS)
+        launches["BL"] = read_counts()
+    finally:
+        dump_mod.format_rows = plain
+    lj = launches["BL"]["cell_pair_forces_lj"]
+    check_counts("BL", launches["BL"], {"cell_pair_forces_lj": lj})
+    check_rows_finite("BL", s.thermo_rows, BI_COLS)
+    if lj < BL_STEPS + 1 or len(frames) != BL_STEPS // 10 + 1:
+        raise AssertionError(f"path BL: launches {lj}, {len(frames)} frames")
+    with open(os.path.join(work, "bl.dump"), "rb") as fh:
+        nlines = sum(1 for _ in fh)
+    if nlines != len(frames) * (9 + n):
+        raise AssertionError(f"path BL: bl.dump has {nlines} lines")
+    vals, flags, _ = frames[-1]
+    t0 = time.perf_counter()
+    text_py = plain(vals, flags, native=False)
+    t_py = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    text_nat = plain(vals, flags)
+    t_nat = time.perf_counter() - t0
+    if text_py != text_nat:
+        raise AssertionError("path BL: the formatters' rows differ")
+    print(f"path BL: a {vals.shape[0]}-row dump frame formatted in "
+          f"{t_nat:.3f} s by the C++ rows, {t_py:.3f} s by the Python loop "
+          f"(the same {len(text_nat)} bytes); the run's frames "
+          + ", ".join(f"{f[2]:.3f}" for f in frames) + " s")
+    script_peak("BL", log, BL_STEPS, peak)
+    del s, frames
+    torch.cuda.empty_cache()
+    twin = os.path.join(work, "twin")
+    os.makedirs(twin)
+    lj_data(os.path.join(twin, "bl.data"), BB_TWIN_SCALE)
+    breadth_twin("BL-5k", twin, "in.bl-5k", BL_SCRIPT, BI_COLS, 2, 30.0,
+                 reset_counts, read_counts)
+
+
+def front_end_paths(launches, reset_counts, read_counts):
+    """Paths BI-BL and their twins BI-5k, BJ-5k, BK-1.7k and BL-5k
+    (module docstring)."""
+    work = tempfile.mkdtemp(prefix="chip_smoke_front_end_")
+    try:
+        for tag, path in (("bi", bi_path), ("bj", bj_path), ("bk", bk_path),
+                          ("bl", bl_path)):
+            d = os.path.join(work, tag)
+            os.makedirs(d)
+            path(d, launches, reset_counts, read_counts)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -11887,7 +12342,7 @@ def main() -> int:
     # (BA-1k, BB-5k, BC-5k, BD-5k), and the last phase's twins are the
     # ones left to run once the card is done
     for phase in (kspace_paths, output_paths, fix_breadth_paths,
-                  pair_style_paths, charmm_family_paths,
+                  front_end_paths, pair_style_paths, charmm_family_paths,
                   chunk_structure_paths, granular_paths):
         phase(launches, reset_counts, read_counts)
         mark(phase.__name__)

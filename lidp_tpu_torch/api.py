@@ -248,7 +248,12 @@ class lammps:
     # ---- variables / computes --------------------------------------------
     def extract_variable(self, name: str, group=None, _type=None):
         """python/lammps.py:207 extract_variable: an equal-style variable's
-        value now; index, loop and string styles their string."""
+        value now; an atom-style variable's values, (natoms,) numpy, as
+        LAMMPS's library returns them (the JAX package's raises KeyError,
+        ROADMAP queue 3 item 60); index, loop and string styles their
+        string."""
+        if name in self.lmp._atom_exprs:
+            return self.lmp.evaluate_atom_expr(self.lmp._atom_exprs[name])
         try:
             return float(self.lmp.var_value(name))
         except KeyError:

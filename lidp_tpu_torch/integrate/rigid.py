@@ -70,7 +70,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
+from typing import ClassVar, Optional
 
 import numpy as np
 import torch
@@ -349,6 +349,11 @@ class RigidParams:
 
 @dataclasses.dataclass(frozen=True)
 class RigidState:
+    # the quantities relative to the body frame (RigidParams quat0 and
+    # displace), which a new Simulation builds from the positions it
+    # starts from: read_restart's setup keeps its own (utils/checkpoint)
+    FRAME_FIELDS: ClassVar[tuple] = ("quat", "conjqm")
+
     xcm: torch.Tensor      # (B,3)
     vcm: torch.Tensor
     angmom: torch.Tensor

@@ -1,6 +1,7 @@
 """LAMMPS data-file reader (``read_data`` command; lidp_tpu/io/data_reader.py,
-an own copy: the Python parse, without the compiled fast path of the Atoms
-section).
+an own copy).  The Atoms section's rows are parsed by the C++ helper
+(native.parse_atoms) for every style but sphere; `native=False` takes the
+Python row loop, the plain version the tests hold the helper to.
 
 Parses the subset used by the reference's examples and benchmarks
 (read_data.cpp:119): header (counts, types, box bounds), Masses, Atoms
@@ -15,6 +16,8 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+
+from lidp_tpu_torch import native as native_mod
 
 
 @dataclasses.dataclass
@@ -78,7 +81,8 @@ def _strip(line: str) -> str:
     return line.strip()
 
 
-def read_data(path: str, atom_style: str = "full") -> DataFile:
+def read_data(path: str, atom_style: str = "full",
+              native: bool = True) -> DataFile:
     with open(path) as fh:
         lines = fh.readlines()
 
@@ -161,7 +165,14 @@ def read_data(path: str, atom_style: str = "full") -> DataFile:
             i += 1
             continue
         name = s
-        if name.startswith("Atoms"):
+        if name.startswith("Atoms") and native and n and (
+                atom_style in native_mod.ATOM_LAYOUTS):
+            cols, used = native_mod.parse_atoms(
+                "".join(lines[i + 1:]).encode(), n, atom_style)
+            x, q, typ, mol, image = (cols[k] for k in ("x", "q", "type",
+                                                       "mol", "image"))
+            i += 1 + used
+        elif name.startswith("Atoms"):
             rows, i = read_section(i + 1, n)
             for r in rows:
                 aid = int(r[0])

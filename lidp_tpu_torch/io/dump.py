@@ -1,6 +1,7 @@
 """Trajectory dump writers and reader (lidp_tpu/io/dump.py, an own copy
-reading the port's tensors; the Python row formatter, not the compiled
-one).
+reading the port's tensors; dump custom and atom rows formatted by the
+C++ helper native.format_dump_rows, as the JAX writer's, with its Python
+loop as the plain version, `format_rows`).
 
 Matches the reference Dump::write (dump.cpp:302) / DumpCustom text layout
 (columns like ``x y z type mol``), with ``dump_modify sort id`` ordering
@@ -28,6 +29,8 @@ import time
 
 import numpy as np
 import torch
+
+from lidp_tpu_torch import native as native_mod
 
 _INT_COLS = {"id", "type", "mol"}
 COLUMNS = ("id", "type", "mol", "x", "y", "z", "xs", "ys", "zs", "xu", "yu",
@@ -134,11 +137,20 @@ def write_dump_frame(spec, sys, script, gmask, f=None):
         vals = np.stack([np.asarray(colvec[c], np.float64)
                          for c in spec.columns], axis=1)
         flags = [c in _INT_COLS for c in spec.columns]
-        ffmt = getattr(spec, "float_fmt", "%g")
-        for r in range(vals.shape[0]):
-            fh.write(" ".join(
-                str(int(vals[r, c])) if flags[c] else ffmt % vals[r, c]
-                for c in range(vals.shape[1])) + "\n")
+        fh.write(format_rows(vals, flags, getattr(spec, "float_fmt", "%g")))
+
+
+def format_rows(vals, flags, ffmt="%g", native=True) -> str:
+    """The text rows of a frame's (nrows, ncols) float64 block: str(int)
+    for the integer columns `flags` marks, `ffmt` for the others.  With
+    `%g` the C++ helper (native.format_dump_rows) writes them; native=False
+    or another format (dump_modify format float) takes the Python loop,
+    the plain version."""
+    if native and ffmt == "%g":
+        return native_mod.format_dump_rows(vals, flags).decode()
+    return "".join(" ".join(
+        str(int(vals[r, c])) if flags[c] else ffmt % vals[r, c]
+        for c in range(vals.shape[1])) + "\n" for r in range(vals.shape[0]))
 
 
 def _peratom_column(script, c, n):

@@ -2,7 +2,8 @@
 the polarizable main path).
 
 The reference's Input::file/one dispatch (input.cpp:151,286,761) with
-$-substitution (input.cpp:330), equal-style variables through io/expr.py,
+$-substitution (input.cpp:330), equal- and atom-style variables through
+io/expr.py,
 and label/jump/next/if/include control flow.  Command-order semantics are
 kept: `units` resets the timestep to the style default (update.cpp
 set_units), so an input whose `timestep` precedes `units real` runs dt = 1.
@@ -52,9 +53,20 @@ output and coupling (the local computes pair/local, bond/local,
 angle/local, dihedral/local, improper/local, property/local and
 rigid/local with dump local; dump xyz, dcd, cfg, image and movie;
 read_dump and rerun; fix store/state, variable internal with fix
-controller, and fix external with api.py's library calls); every other
-command, style or keyword raises NotImplementedError naming
-itself and the ROADMAP item that ports it, and is never ignored.
+controller, and fix external with api.py's library calls), and the rest
+of the front end (io/commands.py: restart and write_restart /
+read_restart with utils/checkpoint.py, timer with utils/timing.py,
+clear, quit, shell, info, reset_timestep, partition, dielectric,
+run_style verlet, box, comm_style, suffix and package, molecule with
+create_atoms mol and random, create_box's topology keywords,
+create_bonds, delete_bonds, change_box on an orthogonal box, balance
+with parallel/balance.py, bond_write and write_coeff; velocity scale and
+zero angular; atom- and world-style variables).  Every other command,
+style or keyword raises NotImplementedError naming itself and the
+ROADMAP item that ports it, and is never ignored: triclinic boxes and
+change_box's tilts (queue 1 item 6.4), run_style respa (6.10), neb,
+prd, tad and temper (6.12), processors across devices (7), the breadth
+of item 6, and item 4's residue of what the JAX grammar also lacks.
 """
 
 from __future__ import annotations
@@ -74,6 +86,8 @@ from lidp_tpu_torch import resolve_device
 from lidp_tpu_torch import units as units_mod
 from lidp_tpu_torch import velocity as velocity_mod
 from lidp_tpu_torch.io import expr as expr_mod
+from lidp_tpu_torch.io.commands import (_BREADTH, _FRONT_END, _TRICLINIC,
+                                        FrontEndCommands, _unported)
 from lidp_tpu_torch.io.data_reader import read_data
 from lidp_tpu_torch.styles import fix_output
 from lidp_tpu_torch.styles.fix_output import OUTPUT_STYLES
@@ -85,10 +99,12 @@ _NUM_RE = re.compile(r"^[\d eE+\-*/().]+$")
 # an equal-style variable that is a ramp of two constants (fix adapt)
 _RAMP_RE = re.compile(r"^ramp\(\s*([0-9.eE+-]+)\s*,\s*([0-9.eE+-]+)\s*\)$")
 
-# where the commands, styles and keywords this interpreter lacks are queued
-_FRONT_END = "ROADMAP queue 1 item 4, the script front end"
-_BREADTH = "ROADMAP queue 1 item 6, breadth"
-_TRICLINIC = "ROADMAP queue 1 item 6.4, triclinic boxes"
+# create_box's topology keywords (create_box.cpp), each with a count
+_CREATE_BOX_KEYWORDS = (
+    "bond/types", "angle/types", "dihedral/types", "improper/types",
+    "extra/bond/per/atom", "extra/angle/per/atom",
+    "extra/dihedral/per/atom", "extra/improper/per/atom",
+    "extra/special/per/atom")
 
 # thermo keywords the port's thermo row gives (thermo.thermo_row and
 # Simulation._thermo_row)
@@ -261,10 +277,6 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
-def _unported(what: str, where: str = _FRONT_END):
-    raise NotImplementedError(f"{what} is not ported ({where})")
-
-
 def _to_host(p):
     """A pair table's tensors on the host (pair_write's rows are formed
     there)."""
@@ -327,7 +339,7 @@ class DumpSpec:
     float_fmt: str = "%g"   # dump_modify format float
 
 
-class LammpsScript:
+class LammpsScript(FrontEndCommands):
     """Host-side interpreter state + executor.  dtype: the runs' float
     type (float64 by default, as the JAX CLI's); device: where they run
     (the GPU unless "cpu" is asked for; raises without CUDA); log: a
@@ -346,8 +358,14 @@ class LammpsScript:
         self._equal_exprs: dict[str, str] = {}
         # internal-style variables' values (fix controller's cvar)
         self._internal_vars: dict[str, float] = {}
+        # atom-style variables' expressions (evaluate_atom_expr), and the
+        # world-style variables' value lists (world 0's value in
+        # `variables`: one partition)
+        self._atom_exprs: dict[str, str] = {}
+        self._world_vars: dict[str, list] = {}
         self._eval_in_progress: set = set()
-        self._rng_equal = None       # persistent random() stream
+        self._rng_equal = None       # persistent random() streams
+        self._rng_atom = None
         self._run_begin = 0          # update->beginstep/endstep analogs
         self._run_end = 0
         self._in_run = False
@@ -496,6 +514,25 @@ class LammpsScript:
         self._min_style = "cg"
         self._min_modify: dict = {}
         self.minimized: list = []
+        # dielectric: qqrd2e = qqr2e / dielectric (force.cpp)
+        self.dielectric = 1.0
+        # restart N file [file2]: the cadence, the names, which name is
+        # next; read_restart's file (its dipoles and integrator state go
+        # into the next run's setup); the run's later chunks print no
+        # start row
+        self._restart_every = 0
+        self._restart_files: list = []
+        self._restart_toggle = 0
+        self._restart_state = None
+        self._suppress_start_row = False
+        # timer: its mode (full: the per-term breakdown after a run), the
+        # wall-clock budget of a run in seconds, and every N
+        self._timer_mode = "normal"
+        self._timer_timeout = None
+        self._timer_every = None
+        # molecule templates by ID; balance's stored weights by name
+        self.molecules: dict = {}
+        self.balance_store: dict = {}
 
     # ------------------------------ parsing ------------------------------
 
@@ -636,6 +673,10 @@ class LammpsScript:
     def evaluate_expr(self, text: str) -> float:
         return expr_mod.evaluate(_ExprCtx(self), text)
 
+    def evaluate_atom_expr(self, text: str) -> np.ndarray:
+        """An atom-style formula over the host's atoms: (natoms,) float."""
+        return expr_mod.evaluate_atom(_ExprCtx(self), text)
+
     def _thermo_keyword(self, word):
         """Thermo::evaluate_keyword analog for expressions: geometry and
         configuration keywords from the host state, state keywords from
@@ -737,7 +778,8 @@ class LammpsScript:
                 self._index_values[name] = vals
         elif style == "delete":
             for d in (self.variables, self._index_values,
-                      self._equal_exprs, self._internal_vars):
+                      self._equal_exprs, self._atom_exprs,
+                      self._internal_vars):
                 d.pop(name, None)
         elif style == "equal":
             # the EXPRESSION is stored; evaluation is lazy, so thermo
@@ -762,6 +804,19 @@ class LammpsScript:
             # a number code sets (variable.cpp INTERNAL): fix controller
             # writes its control variable here
             self._internal_vars[name] = float(a[2])
+        elif style == "atom":
+            # a per-atom expression, evaluated at use (evaluate_atom_expr)
+            expr = " ".join(a[2:]).strip()
+            if (expr.startswith('"') and expr.endswith('"')) or (
+                    expr.startswith("'") and expr.endswith("'")):
+                expr = expr[1:-1]
+            self._atom_exprs[name] = expr
+        elif style == "world":
+            # one value a partition (variable.cpp WORLD): one partition
+            # takes world 0's, the list is kept (the JAX package's
+            # emulation, ROADMAP queue 3 item 60)
+            self._world_vars[name] = list(a[2:])
+            self.variables[name] = a[2]
         else:
             _unported(f"variable style {style}")
 
@@ -1034,8 +1089,13 @@ class LammpsScript:
         the block scaled by the lattice spacings, as the JAX package's
         create_box scales it whatever the region's units (ROADMAP queue 3
         item 6); then Domain::set_initial_box (_apply_initial_box)."""
-        if len(a) > 2:
-            _unported(f"create_box keywords {' '.join(a[2:])}", _BREADTH)
+        for i in range(2, len(a), 2):
+            # the topology counts and per-atom extras: the JAX package
+            # accepts them and reads none (ROADMAP queue 3 item 61)
+            if a[i] not in _CREATE_BOX_KEYWORDS or i + 1 >= len(a):
+                _unported(f"create_box keyword {' '.join(a[i:i + 2])}",
+                          _BREADTH)
+            int(a[i + 1])
         r = self.regions[a[1]]
         if isinstance(r[0], str):
             if r[0] == "prism":
@@ -1054,14 +1114,39 @@ class LammpsScript:
         self.alpha_type = np.zeros(self.ntypes + 1)
 
     def cmd_create_atoms(self, a):
-        """create_atoms TYPE box | region ID | single x y z [units
-        box|lattice] (create_atoms.cpp styles BOX, REGION, SINGLE): lattice
+        """create_atoms TYPE box | region ID | single x y z | random N SEED
+        REGION-ID|NULL [units box|lattice] [mol ID SEED]
+        (create_atoms.cpp styles BOX, REGION, SINGLE, RANDOM): lattice
         sites in the order of lattice.create_atoms_bounds, the order the
-        `velocity ... loop all` stream follows.  `box` replaces the atoms;
-        `region` and `single` append to them."""
+        `velocity ... loop all` stream follows; random draws of one
+        RanPark stream in the box, kept where the region holds them
+        (create_atoms.cpp:436).  With mol, a randomly rotated copy of the
+        template at each site (_insert_molecules).  `box` replaces the
+        atoms; the other styles, and mol, append to them."""
         from lidp_tpu_torch import lattice as lattice_mod
+        from lidp_tpu_torch.rng import RanPark
 
         ty = int(a[0])
+        npos = {"box": 2, "region": 3, "single": 5, "random": 5}
+        if a[1] not in npos:
+            _unported(f"create_atoms {a[1]}", _BREADTH)
+        rest = a[npos[a[1]]:]
+        units, mol = "lattice", None
+        i = 0
+        while i < len(rest):
+            if rest[i] == "units" and a[1] == "single" and i + 1 < len(
+                    rest) and rest[i + 1] in ("box", "lattice"):
+                units = rest[i + 1]
+                i += 2
+            elif rest[i] == "mol" and i + 2 < len(rest):
+                mol = (rest[i + 1], int(rest[i + 2]))
+                if mol[0] not in self.molecules:
+                    raise ValueError(f"Molecule template ID {mol[0]} for "
+                                     "create_atoms does not exist")
+                i += 3
+            else:
+                _unported(f"create_atoms keywords {' '.join(rest[i:])}",
+                          _BREADTH)
         if a[1] in ("box", "region"):
             if self.lattice_style is None:
                 raise ValueError("create_atoms: a lattice must be defined "
@@ -1075,21 +1160,29 @@ class LammpsScript:
                 # the sites of the z = 0 plane, z set to exactly 0
                 x = x[np.abs(x[:, 2]) < 1e-12]
                 x[:, 2] = 0.0
-            rest = a[3:] if a[1] == "region" else a[2:]
         elif a[1] == "single":
-            units = "lattice"
-            if len(a) > 5:
-                if a[5] != "units" or a[6] not in ("box", "lattice"):
-                    _unported(f"create_atoms keyword {a[5]}", _BREADTH)
-                units = a[6]
             s3 = np.ones(3) if units == "box" else self._spacing3()
             x = np.array([[float(a[2]) * s3[0], float(a[3]) * s3[1],
                            float(a[4]) * s3[2]]])
-            rest = a[7:]
         else:
-            _unported(f"create_atoms {a[1]}", _BREADTH)
-        if rest:
-            _unported(f"create_atoms keywords {' '.join(rest)}", _BREADTH)
+            nrand, region = int(a[2]), a[4]
+            lo, hi = self.box_lo.copy(), self.box_hi.copy()
+            rng = RanPark(int(a[3]))
+            pts = []
+            while len(pts) < nrand:
+                p = np.array([lo[0] + rng.uniform() * (hi[0] - lo[0]),
+                              lo[1] + rng.uniform() * (hi[1] - lo[1]),
+                              lo[2] + rng.uniform() * (hi[2] - lo[2])])
+                if self.dimension == 2:
+                    p[2] = 0.0
+                if region != "NULL" and not self._region_mask(
+                        region, p[None, :])[0]:
+                    continue
+                pts.append(p)
+            x = np.asarray(pts).reshape(-1, 3)
+        if mol is not None:
+            self._insert_molecules(x, ty, mol[0], mol[1])
+            return
         self.log(f"Created {x.shape[0]} atoms")
         nnew = x.shape[0]
         if self.x is not None and len(self.x) and a[1] != "box":
@@ -2091,11 +2184,28 @@ class LammpsScript:
                     self.v[gm, d] = float(tok) * s3[d]
             return
         if a[1] == "zero":
-            # velocity group zero linear (velocity.cpp::zero_momentum)
-            if a[2] != "linear":
-                _unported(f"velocity zero {a[2]}", _BREADTH)
+            # velocity group zero linear|angular (velocity.cpp::
+            # zero_momentum, zero_rotation)
+            if a[2] not in ("linear", "angular") or len(a) > 3:
+                _unported(f"velocity zero {' '.join(a[2:])}", _BREADTH)
             m = self.mass_type[self.type][gm]
-            self.v[gm] -= (m[:, None] * self.v[gm]).sum(0) / m.sum()
+            if a[2] == "linear":
+                self.v[gm] -= (m[:, None] * self.v[gm]).sum(0) / m.sum()
+            else:
+                self._zero_rotation(gm, m)
+            return
+        if a[1] == "scale":
+            # velocity group scale T (velocity.cpp::scale): the group's
+            # temperature on 3N - 3 dof, as the JAX package counts them
+            if len(a) > 3:
+                _unported(f"velocity scale keywords {' '.join(a[3:])} "
+                          "(the JAX package skips them unread: ROADMAP "
+                          "queue 3 item 11)")
+            m = self.mass_type[self.type][gm]
+            ke2 = float((m[:, None] * self.v[gm] ** 2).sum()) \
+                * self.units.mvv2e
+            t_cur = ke2 / ((3 * int(gm.sum()) - 3) * self.units.boltz)
+            self.v[gm] *= np.sqrt(float(a[2]) / t_cur)
             return
         if a[1] == "ramp":
             self._velocity_ramp(gm, a)
@@ -2132,6 +2242,24 @@ class LammpsScript:
             box_lengths=self.box_hi - self.box_lo, dim=self.dimension,
             group=None if group == "all" else gm, v_prev=self.v,
             temp_group=temp_group, **kw)
+
+    def _zero_rotation(self, gm, m):
+        """velocity.cpp zero_rotation: the group's angular velocity about
+        its centre of mass (unwrapped positions, inertia tensor solve)
+        taken out of v."""
+        xu = (self.x + self.image * (self.box_hi - self.box_lo))[gm]
+        xcm = (m[:, None] * xu).sum(0) / m.sum()
+        d = xu - xcm
+        ang = (m[:, None] * np.cross(d, self.v[gm])).sum(0)
+        inertia = np.zeros((3, 3))
+        inertia[0, 0] = np.sum(m * (d[:, 1] ** 2 + d[:, 2] ** 2))
+        inertia[1, 1] = np.sum(m * (d[:, 0] ** 2 + d[:, 2] ** 2))
+        inertia[2, 2] = np.sum(m * (d[:, 0] ** 2 + d[:, 1] ** 2))
+        inertia[0, 1] = inertia[1, 0] = -np.sum(m * d[:, 0] * d[:, 1])
+        inertia[0, 2] = inertia[2, 0] = -np.sum(m * d[:, 0] * d[:, 2])
+        inertia[1, 2] = inertia[2, 1] = -np.sum(m * d[:, 1] * d[:, 2])
+        omega = np.linalg.solve(inertia, ang)
+        self.v[gm] -= np.cross(omega, d)
 
     def _velocity_ramp(self, gm, a):
         """velocity group ramp vdim vlo vhi cdim clo chi [sum yes|no]
@@ -3033,30 +3161,62 @@ class LammpsScript:
             if a[1] != "upto" or len(a) > 2:
                 _unported(f"run keywords {' '.join(a[1:])}")
             nsteps = max(0, nsteps - int(self.step))
-        self._run(nsteps)
+        every = self._restart_every
+        if every <= 0:
+            self._run(nsteps)
+            return
+        # restart N: the run in chunks that end on the N-step grid, a
+        # checkpoint after each that lands on it (output.cpp
+        # write_restart), alternating between the names; the time
+        # functions span the whole run, and each step's row prints once
+        # (the later chunks print no start row), as in the JAX package
+        self._run_begin = int(self.step)
+        self._run_end = int(self.step) + nsteps
+        self._in_run = True
+        k = self._restart_toggle
+        first = True
+        try:
+            while nsteps > 0:
+                seg = min(every - (self.step % every) or every, nsteps)
+                self._suppress_start_row = not first
+                self._run(seg)
+                first = False
+                nsteps -= seg
+                if self.step % every == 0:
+                    files = self._restart_files
+                    self.cmd_write_restart([files[k % len(files)]])
+                    k += 1
+        finally:
+            self._suppress_start_row = False
+            self._restart_toggle = k
+            self._in_run = False
 
     def _run(self, nsteps: int):
         from lidp_tpu_torch.sim import Simulation
 
         if self._sim is None:
             self._sim = Simulation.from_script(self)
-        self._run_begin = int(self.step)
-        self._run_end = int(self.step) + int(nsteps)
+        # a chunk of a restart-segmented run keeps the whole run's span
+        nested = self._in_run
+        if not nested:
+            self._run_begin = int(self.step)
+            self._run_end = int(self.step) + int(nsteps)
         self._in_run = True
         try:
             self._sim.run(nsteps)
         finally:
-            self._in_run = False
+            self._in_run = nested
 
 
 class _ExprCtx:
     """Evaluation context: io/expr.py <-> LammpsScript.  The callbacks the
     expression engine needs (thermo keywords, variable references, group
-    functions, atom vectors, the random stream) against the script's host
-    state — the Variable::evaluate environment (variable.cpp:1168).
+    functions, atom vectors, the random streams) against the script's
+    host state — the Variable::evaluate environment (variable.cpp:1168).
     A compute's c_ID or c_ID[i] reads the current thermo row, a vector
-    special fix vector's series or a compute's c_ID[1..]; f_ID (which
-    JAX's thermo row never holds) and atom-style variables raise."""
+    special fix vector's series or a compute's c_ID[1..]; v_NAME of an
+    atom-style variable gives its per-atom values; f_ID (which JAX's
+    thermo row never holds) raises."""
 
     def __init__(self, script):
         self.s = script
@@ -3094,9 +3254,16 @@ class _ExprCtx:
         return self.s._thermo_keyword(word)
 
     def var_ref(self, name, mode):
-        if mode is not None:
-            _unported(f"atom-style variable reference v_{name}", _BREADTH)
-        return self.s.var_value(name)
+        """v_NAME: an atom-style variable's values (the vector, or atom
+        `mode`'s), refused in an equal-style formula; else the value."""
+        s = self.s
+        if name in s._atom_exprs:
+            if mode is None:
+                raise ValueError(
+                    f"atom-style variable {name} in equal-style formula")
+            arr = s.evaluate_atom_expr(s._atom_exprs[name])
+            return arr if mode == "vec" else float(arr[mode])
+        return s.var_value(name)
 
     def compute_ref(self, cid, i1, i2, mode):
         """c_ID or c_ID[i] of a global compute: its value in the current
@@ -3223,13 +3390,16 @@ class _ExprCtx:
         return np.asarray(vals)
 
     def random_source(self, seed, atom):
-        if atom:
-            _unported("atom-style random()", _BREADTH)
+        """The persistent RanMars stream of random()/normal(): one for
+        equal-style formulas, one for atom-style ones, each seeded by its
+        first call (the JAX package's variable streams)."""
+        from lidp_tpu_torch.rng import RanMars
+
         s = self.s
-        if s._rng_equal is None:
-            from lidp_tpu_torch.rng import RanMars
-            s._rng_equal = RanMars(seed)
-        return s._rng_equal
+        name = "_rng_atom" if atom else "_rng_equal"
+        if getattr(s, name) is None:
+            setattr(s, name, RanMars(seed))
+        return getattr(s, name)
 
     def var_next(self, names):
         # next(v): the current value, then advance (variable.cpp special
@@ -3253,6 +3423,7 @@ class _ExprCtx:
         s = self.s
         if cat == "variable":
             return float(ident in s.variables or ident in s._equal_exprs
+                         or ident in s._atom_exprs
                          or ident in s._internal_vars)
         if cat == "compute":
             return float(ident in s.computes)

@@ -126,6 +126,7 @@ from lidp_tpu_torch.styles import fix_output
 from lidp_tpu_torch.styles import pair_builders as pb
 from lidp_tpu_torch.thermo import (ThermoParams, compute_pressure,
                                    temperature, thermo_row)
+from lidp_tpu_torch.utils import checkpoint, timing
 
 # the charge meshes without a dispersion mesh
 _CHARGE_MESHES = ("pppm", "pppm/cg", "pppm/stagger", "pppm/tip4p")
@@ -629,6 +630,8 @@ class Simulation:
         # the cell grid's carry (integrate/driver.NeighborCarry) across
         # runs and chunks; None on the dense route and the panel engine
         self.nlist = None
+        # timer full's last breakdown: {category: seconds an evaluation}
+        self.timer_breakdown = None
         # the ID of fix cmap (its f_ID column), None without one
         self.cmap_fid = None
         # the other computes by kind (_wire_computes): ID -> group mask
@@ -679,6 +682,10 @@ class Simulation:
     @staticmethod
     def from_script(script) -> "Simulation":
         u = script.units
+        if script.dielectric != 1.0:
+            # dielectric (force.cpp): qqrd2e = qqr2e / eps for every
+            # coulomb term built below (pair, k-space, panel engine)
+            u = dataclasses.replace(u, qqr2e=u.qqr2e / script.dielectric)
         dtype = script.dtype
         device = resolve_device(script.device)
         n = script.x.shape[0]
@@ -1568,8 +1575,18 @@ class Simulation:
                                                   ramp_end=b + nsteps)
         self._per_run_fixes(nsteps)
         if self.res is None:
+            # read_restart's dipoles before the setup's SCF, its
+            # integrator state after the setup's (utils/checkpoint.py)
+            restored = self.script._restart_state
+            self.script._restart_state = None
+            if restored is not None:
+                self.sys = self.sys.replace(mu=checkpoint.restore(
+                    self.sys.mu, restored, "sys.mu."))
             self.sys, self.res, self.nlist, self.istate = \
                 self.runner.setup(self.sys)
+            if restored is not None:
+                self.istate = checkpoint.restore(self.istate, restored,
+                                                 "istate.")
         if self.dtreset_cfg is not None:
             # FixDtReset::setup runs end_of_step once before the setup row
             # (fix_dt_reset.cpp:125)
@@ -1593,8 +1610,12 @@ class Simulation:
             if spec.style == "store/state" and getattr(
                     spec, "_peratom_store", None) is None:
                 fix_output.store_state(self, spec, int(self.sys.step))
-        self._emit()
-        self._dump()
+        # a later chunk of a restart-segmented run: the row and the frames
+        # of its start were written at the end of the chunk before
+        if not self.script._suppress_start_row:
+            self._emit()
+            self._dump()
+        self.script._suppress_start_row = False
         # FixAveTime::setup -> end_of_step fires at the setup step when
         # nrepeat == 1 and the step is a multiple of Nfreq, once
         step0 = int(self.sys.step)
@@ -1616,7 +1637,15 @@ class Simulation:
         if dtr is not None:
             chunk_opts.append(dtr["nevery"])
         chunk = int(np.gcd.reduce(chunk_opts))
+        # timer timeout: the run ends at the first chunk boundary past the
+        # wall-clock budget (Timer::check_timeout, verlet.cpp:241)
+        budget = self.script._timer_timeout
+        deadline = None if budget is None else time.perf_counter() + budget
         while remaining > 0:
+            if deadline is not None and time.perf_counter() > deadline:
+                self.script.log(
+                    "Walltime reached, timer timeout — ending run early")
+                break
             todo = min(chunk, remaining)
             if self.pour_fixes:
                 todo = self._pour_boundary(chunk, todo)
@@ -1650,3 +1679,18 @@ class Simulation:
             self.script.log(
                 f"Performance: {rate * dt_ns * 86400:.3f} ns/day, "
                 f"{rate:.3f} timesteps/s")
+            if self.script._timer_mode == "full":
+                self.timer_breakdown = self.profile_forces()
+
+    def profile_forces(self, repeats: int = 3):
+        """timer full's per-term breakdown of the force field on the
+        current state (utils/timing.py), logged after the Loop time lines:
+        {category: seconds an evaluation}."""
+        ff = getattr(self.runner, "ff", None)
+        if ff is None:
+            raise NotImplementedError(
+                "timer full on the granular route is not ported (its "
+                "runner has no ForceField; ROADMAP queue 3 item 62)")
+        return timing.profile_forces(self.sys, ff, self.nlist,
+                                     repeats=repeats,
+                                     log=self.script.log).t

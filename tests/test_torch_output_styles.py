@@ -596,8 +596,11 @@ run 4
 
 REFUSALS = {
     "tilted read_dump": (None, "item 6.4"),
-    "variable atom": ("variable a atom x*2", "queue 1 item 4"),
-    "variable world": ("variable a world 1 2", "queue 1 item 4"),
+    # atom- and world-style variables are ported (tests/
+    # test_torch_molecule_bonds.py): an atom-style dump column and the
+    # universe style still raise
+    "variable atom": ("dump 8 all custom 1 v.dump id v_a", "queue 1 item 6"),
+    "variable world": ("variable a universe 1 2", "queue 1 item 4"),
     "variable file": ("variable a file f.txt", "queue 1 item 4"),
     "variable python": ("variable a python f", "queue 1 item 4"),
     "read_dump keyword": ("read_dump lj.dump 2 x y z box no",

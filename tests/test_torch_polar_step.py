@@ -304,7 +304,9 @@ def test_package_imports_no_jax():
         " 'io.expr', 'io.dump', 'styles', 'styles.fix_integrators', 'sim',"
         " '__main__', 'ops.granular', 'integrate.gran_runner', 'pour',"
         " 'styles.gran_builders', 'styles.fix_output',"
-        " 'styles.fix_modifiers', 'api', 'computes'):\n"
+        " 'styles.fix_modifiers', 'api', 'computes', 'io.commands',"
+        " 'utils.checkpoint', 'utils.timing', 'parallel.balance',"
+        " 'native'):\n"
         "    assert 'lidp_tpu_torch.' + name in sys.modules, name\n"
         "print(len([m for m in sys.modules if m.startswith('lidp_tpu_torch')]))\n")
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
